@@ -1,0 +1,61 @@
+// Pieces shared by the HMC kernels: the per-chain leapfrog integrator and
+// the dispatch from (target id, D) to a template instance.
+//
+// Layout: one thread per chain, the chain's position, momentum and
+// gradient for D <= 8 held in registers for the whole trajectory. The TPU
+// kernels pack chains on the 128 lanes ([D, 8, C/8]); a CUDA thread holds
+// one chain, so no packing or transpose exists here and the kernels read
+// the runner's [C, D] tensors as they are.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "targets.cuh"
+
+namespace mm {
+
+constexpr int kThreads = 128;
+
+// L leapfrog steps with the cached half-step gradient (ops/hmc.py:170-190,
+// ops/pallas/hmc.py:91-97): one gradient evaluation per step. L is a
+// runtime loop, unrolled by two only: L = 192 unrolled in full would
+// spill the register file.
+template <class T, int D>
+__device__ __forceinline__ void leapfrog(float (&x)[D], float (&m)[D],
+                                         float (&g)[D], float eps,
+                                         int n_leapfrog) {
+  const float half_eps = eps * 0.5f;
+#pragma unroll 2
+  for (int l = 0; l < n_leapfrog; ++l) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      m[d] = m[d] + g[d] * half_eps;
+      x[d] = x[d] + m[d] * eps;
+    }
+    T::template grad<D>(x, g);
+#pragma unroll
+    for (int d = 0; d < D; ++d) m[d] = m[d] + g[d] * half_eps;
+  }
+}
+
+inline int blocks_for(int n_chains) {
+  return (n_chains + kThreads - 1) / kThreads;
+}
+
+}  // namespace mm
+
+// Calls LAUNCH(TargetType, D) for the instantiated (target, dim) pairs and
+// evaluates to cudaErrorInvalidValue for any other pair.
+#define MM_DISPATCH(target, dim, LAUNCH)                        \
+  do {                                                          \
+    if ((target) == mm::kRosenbrockND) {                        \
+      switch (dim) {                                            \
+        case 2: LAUNCH(mm::RosenbrockND, 2); break;             \
+        case 3: LAUNCH(mm::RosenbrockND, 3); break;             \
+        case 4: LAUNCH(mm::RosenbrockND, 4); break;             \
+        default: return (int)cudaErrorInvalidValue;             \
+      }                                                         \
+    } else {                                                    \
+      return (int)cudaErrorInvalidValue;                        \
+    }                                                           \
+  } while (0)

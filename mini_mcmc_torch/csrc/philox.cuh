@@ -1,0 +1,74 @@
+// Philox4x32-10 counter-based generator (Salmon et al., SC'11), device side.
+//
+// Replaces the TPU hardware PRNG helpers of mini_mcmc_tpu/ops/pallas/rng.py
+// (`uniform`, `normals`, `bits_to_unit_open`). The TPU kernels seed one
+// hardware stream per grid block; here every draw is a pure function of
+// (key, counter), so the stream depends neither on the launch grid nor on
+// the block size, and no generator state lives in memory.
+//
+// Key: the full 64-bit per-run seed as two words (folding it to 32 bits
+// would birthday-collide after ~2^16 runs, see rng.py:key_to_seed).
+// Counter: (chain index, global step, draw index, 0). Two chains never
+// share a counter, and neither do two steps of one chain.
+//
+// The plain PyTorch twin (mini_mcmc_torch/ops/kernels/rng.py) computes the
+// same rounds in int64 arithmetic and gives the same bits.
+#pragma once
+
+#include <stdint.h>
+
+namespace mm {
+
+struct U32x4 {
+  uint32_t x, y, z, w;
+};
+
+__device__ __forceinline__ U32x4 philox4x32_10(U32x4 c, uint32_t k0,
+                                               uint32_t k1) {
+  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    c = U32x4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
+    k0 += W0;
+    k1 += W1;
+  }
+  return c;
+}
+
+// rng.py:bits_to_unit_open: the top 24 bits to (0, 1), never 0. The
+// product is by a power of two, so it is exact and an FMA contraction
+// rounds exactly as the separate multiply and add do.
+__device__ __forceinline__ float unit_open(uint32_t bits) {
+  return (float)(int)(bits >> 8) * (1.0f / 16777216.0f) +
+         (1.0f / 33554432.0f);
+}
+
+// rng.py:normals: Box-Muller, cos branch, from two words of one draw.
+// Full-precision logf/sqrtf/cosf: the fast intrinsics would move the tails.
+__device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
+  const float u1 = unit_open(a);
+  const float u2 = unit_open(b);
+  const float r = sqrtf(-2.0f * logf(u1));
+  return r * cosf(6.283185307179586f * u2);
+}
+
+// Draw index d < D gives coordinate d's momentum normal (words x, y);
+// draw index D gives the accept uniform (word x).
+__device__ __forceinline__ float normal_at(uint32_t chain, uint32_t step,
+                                           uint32_t draw, uint32_t k0,
+                                           uint32_t k1) {
+  const U32x4 w = philox4x32_10(U32x4{chain, step, draw, 0u}, k0, k1);
+  return box_muller(w.x, w.y);
+}
+
+__device__ __forceinline__ float uniform_at(uint32_t chain, uint32_t step,
+                                            uint32_t draw, uint32_t k0,
+                                            uint32_t k1) {
+  const U32x4 w = philox4x32_10(U32x4{chain, step, draw, 0u}, k0, k1);
+  return unit_open(w.x);
+}
+
+}  // namespace mm

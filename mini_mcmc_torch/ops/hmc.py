@@ -1,0 +1,130 @@
+"""Batched Hamiltonian Monte Carlo step kernel.
+
+Counterpart of ``mini_mcmc_tpu/ops/hmc.py``: all chains advance in lockstep
+as ``[C, D]`` tensors, with the cached half-step gradient (one gradient
+evaluation per leapfrog step) and the cached logp/gradient carried in the
+state.
+
+Randomness: each step receives a :class:`StepKey`. The non-fused tiers
+(``use_pallas=False`` and ``True``) and the step-size jitter draw from
+``key.generator``, a ``torch.Generator`` on the positions' device; the
+fused tier (``"full"``) draws momentum and accept uniforms from the Philox
+stream at ``(key.seed, chain, key.step, draw)`` inside the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..runner import StepKey, make_scan_block_fn
+from .kernels.hmc import leapfrog_trajectory, leapfrog_trajectory_plain
+from .kernels.hmc_full import hmc_multistep
+
+
+class HMCState(NamedTuple):
+    positions: torch.Tensor  # [C, D]
+    logp: torch.Tensor  # [C] cached target log density at positions
+    grad: torch.Tensor  # [C, D] cached gradient at positions
+
+
+def hmc_kernel(target, step_size: float, n_leapfrog: int,
+               use_pallas=False, jitter: float = 0.0,
+               steps_per_call: int = 1):
+    """Build ``(init_fn, step_fn)`` for batched HMC.
+
+    ``init_fn(positions [C, D]) -> HMCState``;
+    ``step_fn(state, key: StepKey) -> HMCState``, with
+    ``step_fn.step_eps(state, key, eps) -> (state, alpha)``.
+
+    ``use_pallas`` selects the fused hand-written kernel tier: ``True``
+    runs the trajectory in Kernel 1 (``kernels/hmc.py``) with momentum and
+    accept drawn here; ``"full"`` runs whole steps in Kernel 2
+    (``kernels/hmc_full.py``). On CPU tensors both run the kernels' plain
+    twins; on CUDA tensors the target needs a ``cuda_functor``.
+
+    ``jitter`` > 0 scales the step size per sampler step by one shared
+    Uniform[1 - jitter, 1 + jitter] factor (Neal 2011).
+
+    ``steps_per_call`` > 1 attaches ``step_fn.block_fn(state, key,
+    out=None) -> state`` and ``step_fn.block_size`` = K: K sampler steps
+    per call, each kept position written to ``out[i]`` of a ``[K, C, D]``
+    view when ``out`` is given. With ``"full"`` the block is one Kernel 2
+    launch; otherwise K calls of ``step_fn``.
+    """
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    if use_pallas not in (False, True, "full"):
+        raise ValueError(
+            f"use_pallas must be False, True or 'full'; got {use_pallas!r} "
+            "(the 'separable' tier is not ported yet)"
+        )
+    full = use_pallas == "full"
+    traj = leapfrog_trajectory if use_pallas else leapfrog_trajectory_plain
+
+    def init_fn(positions: torch.Tensor) -> HMCState:
+        logp, grad = target.batch_logp_and_grad(positions)
+        return HMCState(positions, logp, grad)
+
+    def _eps(key: StepKey, n: int, like: torch.Tensor) -> torch.Tensor:
+        """``[n]`` step sizes, jittered from ``key.generator``."""
+        if jitter > 0.0:
+            u = torch.rand((n,), generator=key.generator, dtype=like.dtype,
+                           device=like.device)
+            return step_size * (1.0 + jitter * (2.0 * u - 1.0))
+        return torch.full((n,), step_size, dtype=like.dtype,
+                          device=like.device)
+
+    def step_eps(state: HMCState, key: StepKey, eps):
+        """One non-fused HMC step at step size ``eps``, also returning the
+        cross-chain mean acceptance probability (NaN counts as 0)."""
+        pos = state.positions
+        gen = key.generator
+        mom0 = torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
+                           device=pos.device)
+        h_current = -state.logp + 0.5 * torch.sum(mom0 * mom0, dim=1)
+        pos_prop, mom_prop, logp_prop, grad_prop = traj(
+            target, pos, mom0, state.grad, eps, n_leapfrog
+        )
+        h_proposed = -logp_prop + 0.5 * torch.sum(mom_prop * mom_prop, dim=1)
+        # accept iff H_cur - H_prop >= ln(u) per chain (hmc.rs:343-376)
+        accept_logp = h_current - h_proposed
+        alpha_c = torch.exp(torch.clamp(accept_logp, max=0.0))
+        alpha = torch.mean(torch.nan_to_num(alpha_c, nan=0.0))
+        u = torch.rand((pos.shape[0],), generator=gen, dtype=pos.dtype,
+                       device=pos.device)
+        accept = accept_logp >= torch.log(u)  # NaN compares False
+        positions = torch.where(accept[:, None], pos_prop, pos)
+        logp = torch.where(accept, logp_prop, state.logp)
+        grad = torch.where(accept[:, None], grad_prop, state.grad)
+        return HMCState(positions, logp, grad), alpha
+
+    def step_fn(state: HMCState, key: StepKey) -> HMCState:
+        eps = _eps(key, 1, state.positions)
+        if full:
+            return HMCState(*hmc_multistep(
+                target, state.positions, state.logp, state.grad, eps,
+                n_leapfrog, key.seed, key.step,
+            ))
+        state, _ = step_eps(state, key, eps[0])
+        return state
+
+    step_fn.step_eps = step_eps
+
+    if steps_per_call > 1:
+        k = steps_per_call
+        if full:
+
+            def block_fn(state: HMCState, key: StepKey, out=None):
+                return HMCState(*hmc_multistep(
+                    target, state.positions, state.logp, state.grad,
+                    _eps(key, k, state.positions), n_leapfrog, key.seed,
+                    key.step, out,
+                ))
+        else:
+            block_fn = make_scan_block_fn(step_fn, k)
+        step_fn.block_fn = block_fn
+        step_fn.block_size = k
+
+    return init_fn, step_fn

@@ -1,0 +1,127 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources under ``mini_mcmc_torch/csrc/`` are compiled with ``nvcc`` at
+first CUDA use into one shared library with a plain C interface, loaded
+with ``ctypes``. The library's name carries a hash of the sources and
+flags, so an edited source builds anew and an unchanged one is reused from
+``build/mini_mcmc_torch/`` (listed in ``.gitignore``). Nothing here runs at
+import: CPU-only installs import every module without ``nvcc``.
+
+``-use_fast_math`` is deliberately absent: ``__logf``/``__cosf`` would move
+the Box-Muller tails, and an approximate ``logf(u)`` changes which chains
+are accepted.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "mini_mcmc_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: Target.cuda_functor names -> the ids of csrc/targets.cuh
+FUNCTORS = {"rosenbrock_nd": 0}
+#: dims instantiated by MM_DISPATCH in csrc/hmc_common.cuh
+KERNEL_DIMS = (2, 3, 4)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+_LL = ctypes.c_longlong
+
+
+def functor_id(target) -> int:
+    """The kernel id of ``target``'s built-in CUDA density; raises for a
+    target that has none (the kernels cannot run a Python density)."""
+    name = target.cuda_functor
+    if name is None:
+        raise ValueError(
+            "use_pallas on a CUDA tensor needs a Target with a built-in "
+            "CUDA density (Target.cuda_functor, one of "
+            f"{sorted(FUNCTORS)}); user densities inside hand-written "
+            "kernels are not supported yet (ROADMAP.md, Queue 1: 'User "
+            "densities inside hand-written kernels'). Use use_pallas=False."
+        )
+    if name not in FUNCTORS:
+        raise ValueError(
+            f"unknown Target.cuda_functor {name!r}; built in: "
+            f"{sorted(FUNCTORS)}"
+        )
+    return FUNCTORS[name]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(path).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``build/mini_mcmc_torch/`` unless a
+    library of the same sources and flags is already there; returns its
+    path. The ``ptxas -v`` report goes to a ``.log`` beside it."""
+    files = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in files:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    digest = h.hexdigest()[:16]
+    so = BUILD_DIR / f"libmm_kernels_{digest}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".libmm_kernels_{digest}.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(p) for p in files if p.suffix == ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    handle = ctypes.CDLL(str(build()))
+    handle.mm_leapfrog_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
+                                       _P, _P, _P, _P, _P]
+    handle.mm_leapfrog_f32.restype = _I
+    handle.mm_hmc_multistep_f32.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _U,
+        _P, _P, _P, _P, _LL, _LL, _P,
+    ]
+    handle.mm_hmc_multistep_f32.restype = _I
+    handle.mm_philox_fill.argtypes = [_P, _I, _U, _U, _U, _U, _P]
+    handle.mm_philox_fill.restype = _I
+    handle.mm_error_string.argtypes = [_I]
+    handle.mm_error_string.restype = ctypes.c_char_p
+    return handle
+
+
+def check(code: int) -> None:
+    """Raise if a kernel's C entry returned a CUDA error code."""
+    if code != 0:
+        msg = lib().mm_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel launch failed ({code}): {msg}")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, for a launch."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,85 @@
+"""Kernel 1: the fused leapfrog trajectory (``csrc/hmc_leapfrog.cu``).
+
+Replaces ``mini_mcmc_tpu/ops/pallas/hmc.py:make_pallas_leapfrog`` with the
+same contract: ``(pos, mom, grad [C, D], eps) -> (pos', mom', logp' [C],
+grad' [C, D])``, L steps with the cached half-step gradient at a runtime
+step size. ``eps`` is a 0-d or ``[1]`` tensor on the positions' device, so
+a jittered step size never syncs the host.
+
+:func:`leapfrog_trajectory` launches the CUDA kernel for CUDA tensors and
+runs :func:`leapfrog_trajectory_plain` for CPU tensors only; it never
+falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+
+def leapfrog_trajectory_plain(target, pos, mom, grad, eps, n_leapfrog: int):
+    """Plain PyTorch twin of the kernel, and the leapfrog of the
+    ``use_pallas=False`` tier (``mini_mcmc_tpu/ops/hmc.py:170-190``)."""
+    leapfrog_trajectory_plain.calls += 1
+    half_eps = eps * 0.5
+    for _ in range(n_leapfrog):
+        mom = mom + grad * half_eps
+        pos = pos + mom * eps
+        grad = target.batch_grad(pos)
+        mom = mom + grad * half_eps
+    return pos, mom, target.batch_logp(pos), grad
+
+
+leapfrog_trajectory_plain.calls = 0
+
+
+def check_state(pos, *others):
+    """Validate what the kernels take: contiguous f32 CUDA tensors, ``pos``
+    ``[C, D]`` with an instantiated D, the rest on its device."""
+    if pos.dim() != 2:
+        raise ValueError(f"positions must be [C, D]; got {tuple(pos.shape)}")
+    if pos.shape[1] not in _build.KERNEL_DIMS:
+        raise ValueError(
+            f"the CUDA kernels are built for D in {_build.KERNEL_DIMS}; "
+            f"got D={pos.shape[1]}"
+        )
+    for t in (pos, *others):
+        if t.dtype != torch.float32 or t.device != pos.device:
+            raise ValueError(
+                "the CUDA kernels take float32 tensors on one device; got "
+                f"{t.dtype} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+
+
+def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
+    """L leapfrog steps of ``target`` from ``(pos, mom, grad)`` at ``eps``.
+
+    Returns ``(pos', mom', logp', grad')``.
+    """
+    if not pos.is_cuda:
+        return leapfrog_trajectory_plain(target, pos, mom, grad, eps,
+                                         n_leapfrog)
+    tid = _build.functor_id(target)
+    eps = eps.reshape(1)
+    check_state(pos, mom, grad, eps)
+    c, d = pos.shape
+    if mom.shape != pos.shape or grad.shape != pos.shape:
+        raise ValueError("pos, mom and grad must all be [C, D]")
+    pos_o = torch.empty_like(pos)
+    mom_o = torch.empty_like(pos)
+    grad_o = torch.empty_like(pos)
+    logp_o = torch.empty((c,), dtype=pos.dtype, device=pos.device)
+    lib = _build.lib()
+    leapfrog_trajectory.launches += 1
+    _build.check(lib.mm_leapfrog_f32(
+        pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), eps.data_ptr(),
+        n_leapfrog, c, d, tid, pos_o.data_ptr(), mom_o.data_ptr(),
+        logp_o.data_ptr(), grad_o.data_ptr(), _build.stream_ptr(pos.device),
+    ))
+    return pos_o, mom_o, logp_o, grad_o
+
+
+leapfrog_trajectory.launches = 0

@@ -1,0 +1,99 @@
+"""Kernel 2: K whole HMC steps per launch (``csrc/hmc_multistep.cu``).
+
+Replaces ``mini_mcmc_tpu/ops/pallas/hmc_full.py:make_pallas_hmc_multistep``
+and its K = 1 case ``make_pallas_hmc_step`` (``hist=None``). Per step and
+chain: momentum from the Philox stream (``rng.py``), L leapfrog steps at
+``eps[k]``, the accept ``(h_cur - h_prop) >= log(u)`` with true selects,
+and the kept position written to ``hist[k]``.
+
+``hist`` is a ``[K, C, D]`` view into the runner's preallocated sample cube
+(time-major or chain-major; any strides with a unit D stride), written in
+place. ``eps [K]`` lives on the positions' device. ``seed`` is the run's
+64-bit Philox key and ``step0`` the global step index of the block's first
+step, so the draws do not depend on how steps are grouped into blocks.
+
+:func:`hmc_multistep` launches the CUDA kernel for CUDA tensors and runs
+:func:`hmc_multistep_plain` for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build, rng
+from .hmc import check_state, leapfrog_trajectory_plain
+
+
+def hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog: int,
+                        seed: int, step0: int, hist=None, *, mom=None,
+                        u=None):
+    """Plain PyTorch twin of the kernel, drawing the same Philox stream.
+
+    ``mom [K, C, D]`` and ``u [K, C]``, given together, replace the
+    Philox draws (parity tests feed both packages the same numbers).
+    Returns ``(pos', logp', grad')``.
+    """
+    hmc_multistep_plain.calls += 1
+    c, d = pos.shape
+    for k in range(eps.shape[0]):
+        if mom is None:
+            m, uk = rng.step_draws(c, d, (step0 + k) & 0xFFFFFFFF, seed,
+                                   pos.device)
+        else:
+            m, uk = mom[k], u[k]
+        h_cur = -logp + 0.5 * torch.sum(m * m, dim=1)
+        p, m, lp, g = leapfrog_trajectory_plain(target, pos, m, grad, eps[k],
+                                                n_leapfrog)
+        h_prop = -lp + 0.5 * torch.sum(m * m, dim=1)
+        accept = (h_cur - h_prop) >= torch.log(uk)  # NaN compares False
+        pos = torch.where(accept[:, None], p, pos)
+        grad = torch.where(accept[:, None], g, grad)
+        logp = torch.where(accept, lp, logp)
+        if hist is not None:
+            hist[k] = pos
+    return pos, logp, grad
+
+
+hmc_multistep_plain.calls = 0
+
+
+def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
+                  step0: int, hist=None):
+    """K = ``len(eps)`` HMC steps of ``target``; returns
+    ``(pos', logp', grad')`` and writes the K kept rows into ``hist``."""
+    if not pos.is_cuda:
+        return hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog,
+                                   seed, step0, hist)
+    tid = _build.functor_id(target)
+    check_state(pos, logp, grad, eps)
+    c, d = pos.shape
+    k = eps.shape[0]
+    if (eps.dim() != 1 or logp.shape != (c,) or grad.shape != pos.shape):
+        raise ValueError("expected pos/grad [C, D], logp [C] and eps [K]")
+    hist_ptr, hist_sk, hist_sc = None, 0, 0
+    if hist is not None:
+        if (hist.shape != (k, c, d) or hist.dtype != torch.float32
+                or hist.device != pos.device or hist.stride(2) != 1):
+            raise ValueError(
+                f"hist must be a float32 [{k}, {c}, {d}] view on "
+                f"{pos.device} with unit D stride; got {hist.dtype} "
+                f"{tuple(hist.shape)} strides {hist.stride()}"
+            )
+        hist_ptr, hist_sk, hist_sc = (hist.data_ptr(), hist.stride(0),
+                                      hist.stride(1))
+    pos_o = torch.empty_like(pos)
+    grad_o = torch.empty_like(pos)
+    logp_o = torch.empty_like(logp)
+    seed_lo, seed_hi = rng.seed_words(seed)
+    lib = _build.lib()
+    hmc_multistep.launches += 1
+    _build.check(lib.mm_hmc_multistep_f32(
+        pos.data_ptr(), logp.data_ptr(), grad.data_ptr(), eps.data_ptr(),
+        k, n_leapfrog, c, d, tid, seed_lo, seed_hi, step0 & 0xFFFFFFFF,
+        pos_o.data_ptr(), logp_o.data_ptr(), grad_o.data_ptr(), hist_ptr,
+        hist_sk, hist_sc, _build.stream_ptr(pos.device),
+    ))
+    return pos_o, logp_o, grad_o
+
+
+hmc_multistep.launches = 0

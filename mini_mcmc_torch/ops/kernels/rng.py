@@ -1,0 +1,111 @@
+"""Kernel 0: the Philox4x32-10 stream the fused kernels draw from.
+
+Replaces the TPU hardware PRNG helpers of ``mini_mcmc_tpu/ops/pallas/rng.py``
+(``uniform``, ``normals``, ``bits_to_unit_open``). The device side is
+``csrc/philox.cuh``; this module is its plain PyTorch twin, computing the
+same rounds in ``int64`` arithmetic masked to 32 bits, so both give the same
+bits for the same (key, counter). The TPU stream is not reproduced: the
+port's stream is its own, distribution-identical, and fixed by
+(seed, chain, step, draw) alone.
+
+Counter layout: ``(chain index, global step, draw index, 0)``; the key is
+the full 64-bit per-run seed as two words. Draw ``d < D`` gives coordinate
+``d``'s momentum normal, draw ``D`` the accept uniform.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK = 0xFFFFFFFF
+_TWO_PI = 6.283185307179586
+
+
+def seed_words(seed: int) -> tuple[int, int]:
+    """A 64-bit seed as the two 32-bit key words (low, high)."""
+    return seed & _MASK, (seed >> 32) & _MASK
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """High and low 32-bit words of ``a * m`` for ``a < 2**32`` held in
+    int64, without overflowing it: ``m`` is split into 16-bit halves."""
+    p_lo = a * (m & 0xFFFF)
+    p_hi = a * (m >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (t >> 32) + (p_hi >> 16), t & _MASK
+
+
+def philox4x32_10(c0, c1, c2, c3, key: tuple[int, int]):
+    """Philox4x32-10 on int64 tensors of 32-bit counter words (broadcast
+    together); returns the four output words as int64 in [0, 2**32)."""
+    device = next((c.device for c in (c0, c1, c2, c3)
+                   if isinstance(c, torch.Tensor)), None)
+    c0, c1, c2, c3 = torch.broadcast_tensors(*(
+        torch.as_tensor(c, dtype=torch.int64, device=device)
+        for c in (c0, c1, c2, c3)
+    ))
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _M0)
+        hi1, lo1 = _mulhilo(c2, _M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _W0) & _MASK
+        k1 = (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
+def unit_open(bits: torch.Tensor) -> torch.Tensor:
+    """``rng.py:bits_to_unit_open``: top 24 bits to f32 in (0, 1), never 0."""
+    return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0) + (
+        1.0 / 33554432.0
+    )
+
+
+def box_muller(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``rng.py:normals``: Box-Muller, cos branch, from two bit words."""
+    u1 = unit_open(a)
+    u2 = unit_open(b)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return r * torch.cos(_TWO_PI * u2)
+
+
+def step_draws(n_chains: int, dim: int, step: int, seed: int, device=None):
+    """One step's draws for every chain: ``[C, D]`` momentum normals (draws
+    ``0..D-1``) and ``[C]`` accept uniforms (draw ``D``), from one Philox
+    evaluation over the ``[C, D + 1]`` counters."""
+    chain = torch.arange(n_chains, device=device).reshape(-1, 1)
+    draw = torch.arange(dim + 1, device=device).reshape(1, -1)
+    w0, w1, _, _ = philox4x32_10(chain, step, draw, 0, seed_words(seed))
+    return box_muller(w0[:, :dim], w1[:, :dim]), unit_open(w0[:, dim])
+
+
+def philox_fill_plain(n: int, c1: int, c2: int, seed: int,
+                      device=None) -> torch.Tensor:
+    """``[n, 4]`` Philox words (int64) for counters ``(i, c1, c2, 0)``."""
+    i = torch.arange(n, device=device)
+    return torch.stack(philox4x32_10(i, c1, c2, 0, seed_words(seed)), dim=1)
+
+
+def philox_fill(n: int, c1: int, c2: int, seed: int,
+                device=None) -> torch.Tensor:
+    """The Philox words of ``csrc/philox.cuh`` for counters
+    ``(i, c1, c2, 0)``, ``i < n``, as int64 ``[n, 4]``. Launches the CUDA
+    kernel for a CUDA device, else runs :func:`philox_fill_plain`."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type != "cuda":
+        return philox_fill_plain(n, c1, c2, seed, device)
+    k0, k1 = seed_words(seed)
+    out = torch.empty((n, 4), dtype=torch.int32, device=device)
+    lib = _build.lib()
+    philox_fill.launches += 1
+    _build.check(lib.mm_philox_fill(out.data_ptr(), n, c1 & _MASK,
+                                    c2 & _MASK, k0, k1,
+                                    _build.stream_ptr(device)))
+    return out.to(torch.int64) & _MASK
+
+
+philox_fill.launches = 0

@@ -1,0 +1,107 @@
+"""Chain runners: Python loops over batched step kernels.
+
+Counterpart of ``mini_mcmc_tpu/runner.py``. Every step already advances all
+chains as one batched tensor, so a run is a loop over steps (``lax.scan``
+in the JAX package). Collection convention (MH/HMC, reference
+``core.rs:55-73``): ``n_discard + n_collect`` steps are taken and the last
+``n_collect`` positions recorded.
+
+Memory: one ``[n_collect, C, D]`` cube (``time_major=True``) or
+``[C, n_collect, D]`` cube is allocated up front, and each step's or
+block's rows are written straight into their slice of it: no stacking, no
+concatenation and no final transpose, so the peak is one cube.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class StepKey(NamedTuple):
+    """Randomness of one sampler step, or of the first step of a block."""
+
+    seed: int  # the run's 64-bit Philox key
+    step: int  # global step index within the run
+    generator: torch.Generator  # on the positions' device
+
+
+def _alloc_cube(positions: torch.Tensor, n_collect: int, time_major: bool):
+    c, d = positions.shape
+    shape = (n_collect, c, d) if time_major else (c, n_collect, d)
+    return torch.empty(shape, dtype=positions.dtype, device=positions.device)
+
+
+def _rows(cube: torch.Tensor, lo: int, hi: int, time_major: bool):
+    """The ``[hi - lo, C, D]`` view of recorded rows ``lo:hi``."""
+    return cube[lo:hi] if time_major else cube[:, lo:hi].transpose(0, 1)
+
+
+def make_simple_runner(step_fn: Callable):
+    """A runner over one-step kernels.
+
+    ``run(state, key, n_collect, n_discard, *, time_major=False)`` takes
+    ``n_collect + n_discard`` steps from global step ``key.step`` and
+    returns ``(final_state, sample)``, ``sample`` ``[C, n_collect, D]`` (or
+    ``[n_collect, C, D]`` with ``time_major``).
+    """
+
+    def run(state, key: StepKey, n_collect: int, n_discard: int, *,
+            time_major: bool = False):
+        cube = _alloc_cube(state.positions, n_collect, time_major)
+        for i in range(n_discard + n_collect):
+            state = step_fn(state, key._replace(step=key.step + i))
+            if i >= n_discard:
+                j = i - n_discard
+                _rows(cube, j, j + 1, time_major)[0].copy_(state.positions)
+        return state, cube
+
+    return run
+
+
+def make_scan_block_fn(step_fn: Callable, k: int) -> Callable:
+    """K ``step_fn`` steps per call with the block contract
+    ``block_fn(state, key, out=None) -> state`` (rows into ``out[i]``), so
+    :func:`make_block_runner` takes it like the fused kernel's block."""
+
+    def block_fn(state, key: StepKey, out=None):
+        for i in range(k):
+            state = step_fn(state, key._replace(step=key.step + i))
+            if out is not None:
+                out[i].copy_(state.positions)
+        return state
+
+    return block_fn
+
+
+def make_block_runner(block_fn: Callable, block_size: int):
+    """A runner over K-step block kernels (same convention as
+    :func:`make_simple_runner`).
+
+    ``block_fn(state, key, out=None) -> state`` advances K sampler steps
+    from global step ``key.step`` and writes every kept position into the
+    ``[K, C, D]`` view ``out`` (the fused kernel writes the cube in place;
+    recording is not thinned). ``n_collect`` and ``n_discard`` must be
+    multiples of K.
+    """
+    k = block_size
+
+    def run(state, key: StepKey, n_collect: int, n_discard: int, *,
+            time_major: bool = False):
+        if n_collect % k or n_discard % k:
+            raise ValueError(
+                f"n_collect={n_collect} and n_discard={n_discard} must be "
+                f"multiples of the block size {k}"
+            )
+        cube = _alloc_cube(state.positions, n_collect, time_major)
+        for lo in range(0, n_discard, k):
+            state = block_fn(state, key._replace(step=key.step + lo))
+        for lo in range(0, n_collect, k):
+            state = block_fn(
+                state, key._replace(step=key.step + n_discard + lo),
+                _rows(cube, lo, lo + k, time_major),
+            )
+        return state, cube
+
+    return run

@@ -1,0 +1,120 @@
+"""User-facing sampler objects.
+
+Counterpart of ``mini_mcmc_tpu/samplers.py`` (``_KernelSampler``, ``HMC``):
+construct with a target and initial positions, optionally ``seed``, then
+``run(n_collect, n_discard)`` returns the ``[n_chains, n_collect, dim]``
+sample cube. The sampler carries the state between runs, so consecutive
+runs continue the chains.
+
+Seeding: each sampler owns a CPU ``torch.Generator``. Every ``run()`` takes
+fresh words from it: a 64-bit Philox key for the fused kernel, and the seed
+of a generator on the positions' device for the step-size jitter and the
+non-fused tiers' draws, so no draw syncs the host.
+"""
+
+from __future__ import annotations
+
+import secrets
+from typing import Optional
+
+import torch
+
+from .ops.hmc import hmc_kernel
+from .ops.kernels._build import functor_id
+from .runner import StepKey, make_block_runner, make_simple_runner
+
+
+def _generator(seed: Optional[int]) -> torch.Generator:
+    if seed is None:
+        seed = secrets.randbits(63)
+    return torch.Generator().manual_seed(seed)
+
+
+class _KernelSampler:
+    """Shared run plumbing for kernel-based samplers."""
+
+    def __init__(self, init_fn, step_fn, initial_positions, seed=None):
+        # a copy: the sampler's state never aliases the caller's tensor
+        initial_positions = torch.as_tensor(initial_positions).clone()
+        if initial_positions.dim() != 2:
+            raise ValueError(
+                "initial_positions must be [n_chains, dim]; got shape "
+                f"{tuple(initial_positions.shape)}"
+            )
+        self.state = init_fn(initial_positions)
+        self._gen = _generator(seed)
+        block_fn = getattr(step_fn, "block_fn", None)
+        if block_fn is not None:
+            # K fused sampler steps per call; run() lengths are multiples of K
+            self._runner = make_block_runner(block_fn, step_fn.block_size)
+        else:
+            self._runner = make_simple_runner(step_fn)
+
+    def seed(self, seed: int):
+        """Reseed the sampler (chainable)."""
+        self._gen = _generator(seed)
+        return self
+
+    def _next_key(self) -> StepKey:
+        w = torch.randint(0, 2**32, (3,), generator=self._gen,
+                          dtype=torch.int64).tolist()
+        device = self.state.positions.device
+        gen = torch.Generator(device=device).manual_seed(w[2])
+        return StepKey(seed=w[0] | (w[1] << 32), step=0, generator=gen)
+
+    @property
+    def positions(self) -> torch.Tensor:
+        return self.state.positions
+
+    @property
+    def n_chains(self) -> int:
+        return self.state.positions.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.state.positions.shape[1]
+
+    def run(self, n_collect: int, n_discard: int = 0, *,
+            time_major: bool = False) -> torch.Tensor:
+        """Advance ``n_collect + n_discard`` steps; return the last
+        ``n_collect`` states as ``[n_chains, n_collect, dim]``, or
+        ``[n_collect, n_chains, dim]`` with ``time_major=True`` (the layout
+        the fused kernel writes rows into contiguously)."""
+        self.state, sample = self._runner(
+            self.state, self._next_key(), n_collect, n_discard,
+            time_major=time_major,
+        )
+        return sample
+
+
+class HMC(_KernelSampler):
+    """Batched Hamiltonian Monte Carlo (data-parallel leapfrog).
+
+    Mirrors ``mini_mcmc_tpu.HMC``'s constructor, so one kwargs dict builds
+    both packages. ``use_pallas`` selects the fused hand-written kernel
+    tier: ``True`` fuses the leapfrog trajectory, ``"full"`` whole K-step
+    blocks (see :func:`~mini_mcmc_torch.ops.hmc.hmc_kernel`). On CUDA
+    positions it needs a target with a built-in CUDA density
+    (``Target.cuda_functor``) and raises ``ValueError`` otherwise.
+
+    The JAX-only knobs have no counterpart here: ``unroll`` (no scan to
+    unroll), ``pallas_interpret`` (CPU tensors run the kernels' plain
+    twins) and ``validate_dc`` (no chains-on-lanes forms).
+    ``convert.sampler_kwargs`` drops them. ``metric`` and ``transform`` are
+    not ported yet.
+    """
+
+    def __init__(self, target, initial_positions, step_size: float,
+                 n_leapfrog: int, seed: Optional[int] = None,
+                 use_pallas=False, jitter: float = 0.0,
+                 steps_per_call: int = 1):
+        self.target = target
+        self.step_size = step_size
+        self.n_leapfrog = n_leapfrog
+        positions = torch.as_tensor(initial_positions)
+        if use_pallas and positions.is_cuda:
+            functor_id(target)  # a target the kernels cannot run: raise now
+        init_fn, step_fn = hmc_kernel(target, step_size, n_leapfrog,
+                                      use_pallas=use_pallas, jitter=jitter,
+                                      steps_per_call=steps_per_call)
+        super().__init__(init_fn, step_fn, positions, seed)

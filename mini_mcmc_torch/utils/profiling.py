@@ -1,0 +1,70 @@
+"""Profiling helpers (counterpart of ``mini_mcmc_tpu/utils/profiling.py``).
+
+CUDA work is asynchronous: a host clock read without a synchronize measures
+the enqueue. ``sync`` waits for the device; ``step_timer`` times on CUDA
+events for CUDA results and on the host clock otherwise; ``device_profile``
+splits one call's device time by kernel with ``torch.profiler``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def sync(x):
+    """Wait until every queued CUDA kernel has finished; return ``x``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return x
+
+
+def step_timer(fn, *args, repeats: int = 3, **kwargs):
+    """Median seconds of ``fn(*args, **kwargs)`` over ``repeats`` calls,
+    completion included. Returns ``(last result, seconds)``."""
+    times = []
+    result = None
+    cuda = torch.cuda.is_available()
+    for _ in range(repeats):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            times.append(time.perf_counter() - t0)
+    times.sort()
+    return result, times[len(times) // 2]
+
+
+def device_profile(fn, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` once under ``torch.profiler`` with CUDA
+    activity, completion included.
+
+    Returns ``(wall seconds, busy microseconds, {name: (count, device
+    microseconds)})``: ``busy`` sums the device events' durations (one
+    stream, so they do not overlap), and ``1 - busy / wall`` is the
+    device's idle share during the call. The wall time includes the
+    profiler's own overhead.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in by_name.values())
+    return wall, busy, by_name
