@@ -25,11 +25,23 @@ Phases, one line each (every check raises on failure):
 7. kernel and plain times at the main path's shapes (CUDA events);
 8. with ``--profile`` only: five more timed runs (their spread), one run
    under ``torch.profiler`` (device time by kernel, the device's idle
-   share) and Kernel 1's device time per call.
+   share) and Kernel 1's device time per call;
+9. the NUTS stage of ``bench.py`` (Gaussian2D, 131,072 chains, 2,048 + 128
+   draws) through ``mini_mcmc_torch.NUTS(use_pallas="full")``: adaptation
+   run, timed run, the five ``bench_nuts`` gates, Kernel 4's launch count
+   (one per step, 2 x 2,175), and a short ``use_pallas=True`` run
+   counted on its own (Kernel 3);
+10. Kernel 3 against its plain version at j = 0..5 on the NUTS
+    equilibrium state;
+11. Kernel 4 against its plain version for one step, same key and step;
+12. NUTS kernel and plain times at those shapes (CUDA events);
+13. with ``--profile`` only: one NUTS run under ``torch.profiler`` and
+    Kernels 4 and 3 alone (device time per call).
 
-The second-to-last line is a JSON object with one record per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
-raises at once and prints no result.
+The second-to-last line is a JSON object with one record per kernel
+(time, plain time, least possible time ``bound_ms`` and what bounds it,
+launches on the main paths); the last line is ``{"ok": true, "device":
+{...}}``. Without CUDA the script raises at once and prints no result.
 """
 
 from __future__ import annotations
@@ -52,6 +64,8 @@ from mini_mcmc_torch.ops.kernels.hmc_full import (
     hmc_multistep,
     hmc_multistep_plain,
 )
+from mini_mcmc_torch.ops.kernels.nuts_full import nuts_step, nuts_step_plain
+from mini_mcmc_torch.ops.kernels.nuts_subtree import subtree, subtree_plain
 from mini_mcmc_torch.utils.profiling import device_profile
 
 # the flagship configuration of bench.py:64-92
@@ -64,6 +78,51 @@ JITTER = 0.3
 STEPS_PER_CALL = 16
 ROSEN3D_X0_MEAN = 0.785217  # quadrature, bench.py:91-92
 ROSEN3D_X0_VAR = 0.229370
+
+# the NUTS configuration of bench.py:94-105,286-336
+NUTS_CHAINS = 131072
+NUTS_COLLECT = 2048
+NUTS_DISCARD = 128
+NUTS_MEAN = (0.0, 1.0)
+NUTS_COV = ((4.0, 2.0), (2.0, 3.0))
+NUTS_MAX_DEPTH = 10
+NUTS_STEPS = NUTS_COLLECT + NUTS_DISCARD - 1  # the NUTS convention
+# NUTS kernels against their twins: discrete choices (slice counts,
+# U-turns, accepts) follow float comparisons that one ulp can flip, so
+# the gate is a per-chain share; values within rtol 1e-4 / atol 1e-5
+NUTS_RTOL, NUTS_ATOL = 1e-4, 1e-5
+NUTS_SHARE = 0.999
+
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of its bytes over 3.35 TB/s and its operations over the issue
+# rate. Operations are lane instructions counted from the CUDA sources
+# (an FMA is one; estimates, listed below); one instruction per lane per
+# clock is the 67 TFLOP/s FP32 peak with an FMA as two flops, so the rate
+# is 33.5e12 a second. Integer work (Philox, the hash) issues at no more
+# than that rate.
+HBM_BYTES_PER_S = 3.35e12
+ISSUE_PER_S = 67e12 / 2
+OPS = {
+    "rosen3d_leapfrog": 21,  # 12 gradient + 9 momentum/position FMAs
+    "philox_draw": 83,  # 10 rounds x 8 (2 mul.hi, 2 mul.lo, 2 3-way xor,
+                        # 2 key adds) + the unit map
+    "box_muller": 35,  # logf, sqrtf, cosf and their arithmetic
+    "hmc_step": 40,  # logp, the energies, the accept's logf
+    "nuts_leaf": 56,  # leapfrog, logp, joint, checks, expf, row push
+    "nuts_merge": 35,  # swap ratio (a division), U-turn dots, row merge
+    "hash_draw": 22,  # nuts_tree.cuh:hash_unit
+    "nuts_doubling": 34,  # end selects and updates, ratio, outer U-turn
+    "nuts_step": 50,  # gradient, logp, joint, loads, stores, warp max
+}
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) for ``n_bytes`` moved and ``n_ops`` issued."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ISSUE_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
 
 # Kernel-versus-plain tolerance on stable trajectories, as
 # tests/test_pallas.py:56 holds the TPU kernel: the kernel contracts
@@ -124,20 +183,39 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: every kernel wrapper (launch counter) and plain twin (call counter)
+KERNELS = {
+    "hmc_multistep": hmc_multistep,
+    "leapfrog_trajectory": leapfrog_trajectory,
+    "nuts_step": nuts_step,
+    "nuts_subtree": subtree,
+}
+TWINS = {
+    "plain_multistep_calls": hmc_multistep_plain,
+    "plain_leapfrog_calls": leapfrog_trajectory_plain,
+    "plain_nuts_step_calls": nuts_step_plain,
+    "plain_subtree_calls": subtree_plain,
+}
+
+
 def reset_counts() -> None:
-    leapfrog_trajectory.launches = 0
-    hmc_multistep.launches = 0
-    leapfrog_trajectory_plain.calls = 0
-    hmc_multistep_plain.calls = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
+    for fn in TWINS.values():
+        fn.calls = 0
 
 
 def read_counts() -> dict:
-    return {
-        "hmc_multistep": hmc_multistep.launches,
-        "leapfrog_trajectory": leapfrog_trajectory.launches,
-        "plain_multistep_calls": hmc_multistep_plain.calls,
-        "plain_leapfrog_calls": leapfrog_trajectory_plain.calls,
-    }
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts.update({name: fn.calls for name, fn in TWINS.items()})
+    return counts
+
+
+def counts_with(**launches) -> dict:
+    """The counts of a run that launched only ``launches``."""
+    want = dict.fromkeys(read_counts(), 0)
+    want.update(launches)
+    return want
 
 
 def phase_device() -> None:
@@ -195,10 +273,8 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = read_counts()
-    check("main-path launches", counts["hmc_multistep"] == 2 * per_run
-          and counts["leapfrog_trajectory"] == 0, counts)
-    check("plain path never ran", counts["plain_multistep_calls"] == 0
-          and counts["plain_leapfrog_calls"] == 0, counts)
+    check("main-path launches and no plain twin",
+          counts == counts_with(hmc_multistep=2 * per_run), counts)
     check("sample shape", tuple(sample.shape) == (N_COLLECT, N_CHAINS, DIM),
           tuple(sample.shape))
     check("sample finite", bool(torch.isfinite(sample).all()), "non-finite")
@@ -247,9 +323,8 @@ def phase_main_path(dev):
           and tuple(rows.shape) == (STEPS_PER_CALL, N_CHAINS, DIM),
           tuple(rows.shape))
     tier_counts = read_counts()
-    check("use_pallas=True launches", tier_counts == {
-        "hmc_multistep": 0, "leapfrog_trajectory": STEPS_PER_CALL,
-        "plain_multistep_calls": 0, "plain_leapfrog_calls": 0}, tier_counts)
+    check("use_pallas=True launches", tier_counts == counts_with(
+        leapfrog_trajectory=STEPS_PER_CALL), tier_counts)
     say("main_path", **{k: repr(v) for k, v in m.items()},
         launches_per_run=per_run, **counts)
     say("tier_run", use_pallas=True, steps=STEPS_PER_CALL, **tier_counts)
@@ -401,9 +476,262 @@ def phase_profile(hmc, dev) -> None:
     _, _, lf = device_profile(lambda: [leapfrog_trajectory(
         hmc.target, s.positions, mom, s.grad, eps, N_LEAPFROG)
         for _ in range(reps)])
+    # the profiler may miss the first launches of a burst: the time per
+    # call is over the launches it recorded
     n, us = next(v for k, v in lf.items() if "leapfrog_kernel" in k)
-    check("profiled leapfrog launches", n == reps, n)
-    say("profile_leapfrog", L=N_LEAPFROG, calls=n, device_us_per_call=us / n)
+    check("profiled leapfrog launches", 0 < n <= reps, n)
+    say("profile_leapfrog", L=N_LEAPFROG, calls=reps, recorded=n,
+        device_us_per_call=us / n)
+
+
+def nuts_gates(sample, divergences_steady: int) -> dict:
+    """The five quality gates of bench.py:321-336 on a chain-major cube."""
+    rhat, ess = mt.split_rhat_mean_ess(sample)
+    flat = sample.reshape(-1, 2).double()
+    m = {
+        "rhat_mean": float(rhat.mean()),
+        "ess_mean": float(ess.mean()),
+        "ess_min": float(ess.min()),
+        "mean": [float(x) for x in flat.mean(dim=0)],
+        "var": [float(x) for x in flat.var(dim=0, unbiased=False)],
+        "divergences_steady": divergences_steady,
+    }
+    total_draws = sample.shape[0] * sample.shape[1]
+    check("nuts rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    check("nuts ess floor", m["ess_min"] >= 0.005 * total_draws,
+          (m["ess_min"], total_draws))
+    for d in range(2):
+        check(f"nuts mean[{d}]", abs(m["mean"][d] - NUTS_MEAN[d]) <= 0.08,
+              m["mean"])
+        check(f"nuts var[{d}]", abs(m["var"][d] - NUTS_COV[d][d]) <= 0.4,
+              m["var"])
+    check("nuts steady-state divergences",
+          divergences_steady <= sample.shape[0] // 10000, divergences_steady)
+    return m
+
+
+def phase_nuts_main_path(dev):
+    """The NUTS stage of bench.py:286-336 through the public entry point:
+    an adaptation run, then the timed run, the gates, and the launch
+    counts of both runs; then a short use_pallas=True run counted on its
+    own."""
+    target = mt.diffable_gaussian2d(NUTS_MEAN, NUTS_COV)
+    init = mt.init_with_seed(NUTS_CHAINS, 2, seed=7, device=dev)
+    reset_counts()
+    nuts = mt.NUTS(target, init, 0.8, use_pallas="full").seed(7)
+    adapt = nuts.run(NUTS_COLLECT, NUTS_DISCARD)
+    torch.cuda.synchronize()
+    del adapt
+    divergences_first_run = int(nuts.divergences.sum())
+
+    t0 = time.perf_counter()
+    sample = nuts.run(NUTS_COLLECT, NUTS_DISCARD)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    check("nuts main-path launches and no plain twin",
+          counts == counts_with(nuts_step=2 * NUTS_STEPS), counts)
+    check("nuts sample shape",
+          tuple(sample.shape) == (NUTS_CHAINS, NUTS_COLLECT, 2),
+          tuple(sample.shape))
+    check("nuts sample finite", bool(torch.isfinite(sample).all()),
+          "non-finite")
+    m = nuts_gates(sample, int(nuts.last_run_divergences.sum()))
+    del sample
+    m["elapsed_s"] = elapsed
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = NUTS_STEPS * NUTS_CHAINS / elapsed
+    m["step_us"] = elapsed / NUTS_STEPS * 1e6
+    m["leapfrogs_per_draw"] = float(
+        nuts.last_run_leapfrogs.double().mean()) / NUTS_STEPS
+    m["divergences_first_run"] = divergences_first_run
+    m["step_size_mean"] = float(nuts.step_size.mean())
+    say("nuts_main_path", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=NUTS_STEPS, **counts)
+
+    # the subtree tier through the same entry point, a short run; not
+    # part of the main path, so counted on its own
+    reset_counts()
+    tier = mt.NUTS(target, nuts.positions, 0.8, use_pallas=True).seed(3)
+    rows = tier.run(16, 0)
+    torch.cuda.synchronize()
+    tier_counts = read_counts()
+    check("nuts use_pallas=True rows", bool(torch.isfinite(rows).all())
+          and tuple(rows.shape) == (NUTS_CHAINS, 16, 2), tuple(rows.shape))
+    check("nuts use_pallas=True launches",
+          tier_counts["nuts_subtree"] > 0 and tier_counts == counts_with(
+              nuts_subtree=tier_counts["nuts_subtree"]), tier_counts)
+    say("nuts_tier_run", use_pallas=True, steps=15, **tier_counts)
+    return nuts, m, counts, tier_counts
+
+
+def subtree_inputs(nuts, dev, j: int, seed: int):
+    """A Kernel 3 call at the NUTS equilibrium: fresh momenta, slice
+    levels and directions, nine chains in ten active."""
+    target, pos = nuts.target, nuts.positions
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mom = torch.randn(pos.shape, generator=gen, device=dev)
+    logp, grad = target.batch_logp_and_grad(pos)
+    joint0 = logp - 0.5 * (mom * mom).sum(dim=1)
+    logu = joint0 - torch.empty_like(joint0).exponential_(generator=gen)
+    u = torch.rand((2, pos.shape[0]), generator=gen, device=dev)
+    v = torch.where(u[0] < 0.5, -1, 1).to(torch.int32)
+    active = u[1] < 0.9
+    return (target, pos, mom, grad, logu, v, j, nuts.step_size.contiguous(),
+            joint0, active, (0x1234567, -0x7654321), NUTS_MAX_DEPTH)
+
+
+def phase_subtree(nuts, dev) -> tuple[float, dict]:
+    """Kernel 3 against its twin on the NUTS equilibrium state, j = 0..5.
+    Counts and flags on every chain, floats where the subtree continues
+    (a stopped chain's end state and proposal are not read)."""
+    err, leaves = 0.0, {}
+    for j in range(6):
+        args = subtree_inputs(nuts, dev, j, seed=40 + j)
+        got = subtree(*args)
+        done = torch.zeros(NUTS_CHAINS, dtype=torch.int32, device=dev)
+        want = subtree_plain(*args, leaves=done)
+        torch.cuda.synchronize()
+        leaves[j] = done
+        same = ((got.n == want.n) & (got.s == want.s)
+                & (got.n_alpha == want.n_alpha)
+                & (got.diverged == want.diverged))
+
+        def near(a, b):
+            ok = (a - b).abs() <= NUTS_ATOL + NUTS_RTOL * b.abs()
+            return ok.reshape(ok.shape[0], -1).all(dim=1)
+
+        ok = same & near(got.alpha, want.alpha)
+        s = same & want.s
+        for a, b in zip(got[:6], want[:6]):
+            ok &= near(a, b) | ~s
+        share_same, share_ok = float(same.float().mean()), float(
+            ok.float().mean())
+        e = max(max_abs_err(a, b, s) for a, b in zip(got[:6], want[:6]))
+        e = max(e, max_abs_err(got.alpha, want.alpha, same))
+        err = max(err, e)
+        say("subtree", j=j, chains=NUTS_CHAINS,
+            share_same_counts_and_flags=share_same,
+            share_all_fields_within_tol=share_ok, share_s=float(
+                want.s.float().mean()), mean_leaves=float(
+                done.double().mean()), max_abs_err=e)
+        check(f"subtree j={j} counts and flags", share_same >= NUTS_SHARE,
+              share_same)
+        check(f"subtree j={j} values", share_ok >= NUTS_SHARE, share_ok)
+    return err, leaves
+
+
+def phase_nuts_step(nuts, dev) -> tuple[float, dict, tuple]:
+    """Kernel 4 against its twin for one step from the NUTS equilibrium,
+    same key and step, depth_limit 10."""
+    args = (nuts.target, nuts.positions, nuts.step_size.contiguous(),
+            NUTS_MAX_DEPTH, 0x5EED_0123_4567_89AB, 9, NUTS_MAX_DEPTH)
+    got = nuts_step(*args)
+    details = {}
+    want = nuts_step_plain(*args, details=details)
+    torch.cuda.synchronize()
+    same_pos = chain_agree(got[0], want[0])
+    near = [((a - b).abs() <= NUTS_ATOL + NUTS_RTOL * b.abs())
+            for a, b in zip(got[1:4], want[1:4])]
+    same_depth = got[4] == want[4]
+    covered = details["depth"].to(torch.float32) <= got[4]
+    shares = {
+        "position": float(same_pos.float().mean()),
+        "alpha": float(near[0].float().mean()),
+        "n_alpha": float(near[1].float().mean()),
+        "diverged": float(near[2].float().mean()),
+        "warp_depth": float(same_depth.float().mean()),
+        "chain_depth_within_warp_depth": float(covered.float().mean()),
+    }
+    err = max_abs_err(got[0], want[0], same_pos)
+    depth = {
+        "chain_depth_mean": float(details["depth"].double().mean()),
+        "warp_depth_mean": float(got[4].double().mean()),
+        "leaves_per_chain": float(details["leaves"].double().mean()),
+    }
+    say("nuts_step", chains=NUTS_CHAINS, depth_limit=NUTS_MAX_DEPTH,
+        **{f"share_{k}": v for k, v in shares.items()}, **depth,
+        max_abs_err=err)
+    for name, share in shares.items():
+        check(f"nuts step {name}", share >= NUTS_SHARE, share)
+    return err, details, args
+
+
+def phase_nuts_times(nuts, dev, step_args) -> dict:
+    sub_args = subtree_inputs(nuts, dev, 4, seed=44)
+    t = {
+        "nuts_step_ms": cuda_ms(lambda: nuts_step(*step_args), 20),
+        "nuts_step_plain_ms": cuda_ms(lambda: nuts_step_plain(*step_args), 2),
+        "subtree_ms": cuda_ms(lambda: subtree(*sub_args), 20),
+        "subtree_plain_ms": cuda_ms(lambda: subtree_plain(*sub_args), 2),
+    }
+    say("nuts_times", shape=f"C={NUTS_CHAINS},D=2,depth_limit="
+        f"{NUTS_MAX_DEPTH},subtree_j=4", **{k: repr(v) for k, v in t.items()})
+    return t
+
+
+def phase_nuts_profile(nuts, dev, step_args) -> None:
+    """``--profile``: one timed NUTS run under ``torch.profiler``, and
+    Kernels 4 and 3 alone at the shapes of their timing."""
+    wall, busy, by_name = device_profile(nuts.run, NUTS_COLLECT, NUTS_DISCARD)
+    say("nuts_profile_run", wall_s=repr(wall), device_busy_us=repr(busy),
+        idle_share=1.0 - busy / (wall * 1e6), kernel_names=len(by_name))
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        say("nuts_profile_kernel", name=repr(name[:60]), count=n,
+            device_us=us, per_launch_us=us / n, share_of_busy=us / busy)
+    sub_args = subtree_inputs(nuts, dev, 4, seed=44)
+    reps = 20
+    for label, kernel, fn in (
+            ("nuts_step", "nuts_step_kernel", lambda: nuts_step(*step_args)),
+            ("nuts_subtree", "subtree_kernel", lambda: subtree(*sub_args))):
+        _, _, k = device_profile(lambda: [fn() for _ in range(reps)])
+        n, us = next(v for name, v in k.items() if kernel in name)
+        check(f"profiled {label} launches", 0 < n <= reps, n)
+        say("nuts_profile_kernel_alone", kernel=label, calls=reps,
+            recorded=n, device_us_per_call=us / n)
+
+
+def bounds(step_details, subtree_leaves) -> dict:
+    """bound_ms and bound_by of each kernel at the shapes of its timing."""
+    c, d = N_CHAINS, DIM
+    k, L = STEPS_PER_CALL, N_LEAPFROG
+    hmc_step_ops = (L * OPS["rosen3d_leapfrog"] + (d + 1) * OPS["philox_draw"]
+                    + d * OPS["box_muller"] + OPS["hmc_step"])
+    out = {
+        # Kernel 2: pos, logp, grad, eps in; pos, logp, grad, history out
+        "hmc_multistep": bound(
+            4 * (c * (2 * d + 1) * 2 + k + k * c * d),
+            c * k * hmc_step_ops),
+        # Kernel 1: pos, mom, grad, eps in; pos, mom, logp, grad out
+        "leapfrog_trajectory": bound(
+            4 * (3 * c * d + 1 + c * (3 * d + 1)),
+            c * L * OPS["rosen3d_leapfrog"]),
+    }
+    # Kernel 0 alone (philox_fill, as timed): four words out per counter
+    n = N_CHAINS * (DIM + 1)
+    out["philox_fill"] = bound(4 * 4 * n, n * OPS["philox_draw"])
+    # Kernel 4: pos, eps in; pos and four [C] outputs out. The work is
+    # this step's: the leaves each chain integrated, its merges (about
+    # leaves - doublings) and doublings
+    nc = NUTS_CHAINS
+    leaves = float(step_details["leaves"].double().sum())
+    doublings = float(step_details["depth"].double().sum())
+    merges = max(leaves - doublings, 0.0)
+    out["nuts_step"] = bound(
+        4 * (nc * 2 + nc + nc * 2 + 4 * nc),
+        nc * (OPS["nuts_step"] + 2 * OPS["box_muller"]
+              + 3 * OPS["philox_draw"])
+        + leaves * OPS["nuts_leaf"]
+        + merges * (OPS["nuts_merge"] + OPS["philox_draw"])
+        + doublings * (OPS["nuts_doubling"] + 2 * OPS["philox_draw"]))
+    # Kernel 3 at j = 4: pos, mom, grad, logu, v, eps, joint0, active in;
+    # five [C, 2] and six [C] outputs
+    sub = float(subtree_leaves[4].double().sum())
+    out["nuts_subtree"] = bound(
+        nc * (4 * (3 * 2 + 4) + 1) + nc * (4 * 5 * 2 + 4 * 4 + 2),
+        nc * OPS["nuts_step"] + sub * OPS["nuts_leaf"]
+        + max(sub - nc, 0.0) * (OPS["nuts_merge"] + OPS["hash_draw"]))
+    return out
 
 
 def main() -> None:
@@ -423,23 +751,48 @@ def main() -> None:
     t = phase_times(hmc, dev)
     if args.profile:
         phase_profile(hmc, dev)
-    # "kernels": those the main path launched, with its counts; Kernel 1
-    # (the use_pallas=True tier) is off that path and reports its own run
+    del hmc
+    torch.cuda.empty_cache()
+    nuts, nuts_m, nuts_counts, nuts_tier_counts = phase_nuts_main_path(dev)
+    sub_err, sub_leaves = phase_subtree(nuts, dev)
+    step_err, step_details, step_args = phase_nuts_step(nuts, dev)
+    t.update(phase_nuts_times(nuts, dev, step_args))
+    if args.profile:
+        phase_nuts_profile(nuts, dev, step_args)
+    b = bounds(step_details, sub_leaves)
+    say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
+        **{f"{k}_bound_by": v[1] for k, v in b.items()})
+
+    def record(name, source, replaces, launches, err, ms, plain_ms, **more):
+        bound_ms, bound_by = b[name]
+        return {"name": name, "route": "cuda",
+                "source": f"mini_mcmc_torch/csrc/{source}",
+                "replaces": f"mini_mcmc_tpu/ops/pallas/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None, **more}
+
+    # "kernels": those the main paths launched, each with its path's
+    # counts (reset just before the path, read just after its timed run);
+    # Kernels 1 and 3 (the use_pallas=True tiers) are off those paths and
+    # report their own tier runs
     kernels = [
-        {"name": "hmc_multistep", "route": "cuda",
-         "source": "mini_mcmc_torch/csrc/hmc_multistep.cu",
-         "replaces": "mini_mcmc_tpu/ops/pallas/hmc_full.py:86",
-         "launches": counts["hmc_multistep"], "max_abs_err": ms_err,
-         "ms": t["multistep_ms"], "plain_ms": t["multistep_plain_ms"]},
+        record("hmc_multistep", "hmc_multistep.cu", "hmc_full.py:86",
+               counts["hmc_multistep"], ms_err, t["multistep_ms"],
+               t["multistep_plain_ms"]),
+        record("nuts_step", "nuts_full.cu", "nuts_full.py:48",
+               nuts_counts["nuts_step"], step_err, t["nuts_step_ms"],
+               t["nuts_step_plain_ms"]),
     ]
     off_path = [
-        {"name": "leapfrog_trajectory", "route": "cuda",
-         "source": "mini_mcmc_torch/csrc/hmc_leapfrog.cu",
-         "replaces": "mini_mcmc_tpu/ops/pallas/hmc.py:46",
-         "launches": counts["leapfrog_trajectory"],
-         "tier_run_launches": tier_counts["leapfrog_trajectory"],
-         "max_abs_err": lf[8][0],
-         "ms": t["leapfrog_ms"], "plain_ms": t["leapfrog_plain_ms"]},
+        record("leapfrog_trajectory", "hmc_leapfrog.cu", "hmc.py:46",
+               counts["leapfrog_trajectory"], lf[8][0], t["leapfrog_ms"],
+               t["leapfrog_plain_ms"],
+               tier_run_launches=tier_counts["leapfrog_trajectory"]),
+        record("nuts_subtree", "nuts_subtree.cu", "nuts_subtree.py:243",
+               nuts_counts["nuts_subtree"], sub_err, t["subtree_ms"],
+               t["subtree_plain_ms"],
+               tier_run_launches=nuts_tier_counts["nuts_subtree"]),
     ]
     print(json.dumps({"kernels": kernels, "off_main_path": off_path}),
           flush=True)

@@ -1,9 +1,11 @@
 """Carry chain state and sampler configuration across from the JAX package.
 
-The Rosenbrock model has no weights: what carries over is the chain state
-(positions and their cached logp and gradient) and the sampler's
-configuration. Everything crosses as numpy arrays, so this module imports
-neither JAX nor the JAX package.
+The Rosenbrock and Gaussian models have no weights: what carries over is
+the chain state (positions and their cached logp and gradient for HMC; the
+positions and adaptation state for NUTS) and the sampler's configuration.
+Everything crosses as numpy arrays, so this module imports neither JAX nor
+the JAX package. States land on ``device``, ``"cuda"`` by default (raises
+without a GPU); pass ``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -12,35 +14,76 @@ import numpy as np
 import torch
 
 from .ops.hmc import HMCState
+from .ops.nuts import NUTSState
+from .utils.init import resolve_device
 
-#: JAX ``HMC`` constructor keywords with no counterpart in the port
+#: JAX constructor keywords with no counterpart in the port
 _JAX_ONLY = ("unroll", "pallas_interpret", "validate_dc")
 
 
-def hmc_state_from_numpy(positions, logp, grad, device=None) -> HMCState:
+def _f32(x, device):
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
+def hmc_state_from_numpy(positions, logp, grad, device="cuda") -> HMCState:
     """An ``HMCState`` of float32 tensors on ``device`` from numpy arrays
     (e.g. ``np.asarray`` of a JAX sampler's ``.state`` fields)."""
-
-    def t(x):
-        return torch.as_tensor(np.array(x, np.float32), device=device)
-
-    return HMCState(t(positions), t(logp), t(grad))
+    device = resolve_device(device)
+    return HMCState(_f32(positions, device), _f32(logp, device),
+                    _f32(grad, device))
 
 
-def state_to_numpy(state: HMCState):
-    """``(positions, logp, grad)`` as numpy arrays."""
-    return tuple(np.asarray(x.detach().cpu()) for x in state)
+def nuts_state_from_numpy(state, device="cuda") -> NUTSState:
+    """A ``NUTSState`` on ``device`` from a JAX ``NUTSState`` (or any
+    object with its fields) read as numpy arrays: float32 positions and
+    adaptation state, int32 counters, and the per-chain step count ``m``
+    and horizon ``n_discard`` (the same for every chain) as host ints."""
+    device = resolve_device(device)
+
+    def i32(x):
+        return torch.as_tensor(np.array(x, np.int32), device=device)
+
+    m = np.asarray(state.m)
+    n_discard = np.asarray(state.n_discard)
+    return NUTSState(
+        positions=_f32(state.positions, device),
+        epsilon=_f32(state.epsilon, device),
+        epsilon_bar=_f32(state.epsilon_bar, device),
+        h_bar=_f32(state.h_bar, device),
+        mu=_f32(state.mu, device),
+        m=int(m.reshape(-1)[0]),
+        n_discard=int(n_discard.reshape(-1)[0]),
+        divergences=i32(state.divergences),
+        leapfrogs=i32(state.leapfrogs),
+    )
+
+
+def state_to_numpy(state):
+    """The state's fields as numpy arrays (host ints stay ints)."""
+    return tuple(np.asarray(x.detach().cpu()) if torch.is_tensor(x) else x
+                 for x in state)
+
+
+def _kwargs(jax_sampler, name: str) -> dict:
+    ctor = dict(jax_sampler._ctor)
+    if getattr(jax_sampler, "metric", None) is not None:
+        raise ValueError(f"{name}(metric=...) is not ported yet")
+    if ctor.pop("transform", None) is not None:
+        raise ValueError(f"{name}(transform=...) is not ported yet")
+    for key in _JAX_ONLY:
+        ctor.pop(key, None)
+    return ctor
 
 
 def sampler_kwargs(jax_hmc) -> dict:
     """The port's ``HMC`` keyword arguments read from a JAX ``HMC``'s
     recorded constructor arguments (``_ctor``). Raises for a metric or a
     transform, which the port does not have yet."""
-    ctor = dict(jax_hmc._ctor)
-    if getattr(jax_hmc, "metric", None) is not None:
-        raise ValueError("HMC(metric=...) is not ported yet")
-    if ctor.pop("transform", None) is not None:
-        raise ValueError("HMC(transform=...) is not ported yet")
-    for name in _JAX_ONLY:
-        ctor.pop(name, None)
-    return ctor
+    return _kwargs(jax_hmc, "HMC")
+
+
+def nuts_sampler_kwargs(jax_nuts) -> dict:
+    """The port's ``NUTS`` keyword arguments read from a JAX ``NUTS``'s
+    ``_ctor``; drops ``pallas_interpret``/``validate_dc`` and raises for a
+    metric or a transform."""
+    return _kwargs(jax_nuts, "NUTS")

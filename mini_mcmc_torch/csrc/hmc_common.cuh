@@ -1,5 +1,6 @@
-// Pieces shared by the HMC kernels: the per-chain leapfrog integrator and
-// the dispatch from (target id, D) to a template instance.
+// Pieces shared by the kernels: the per-chain leapfrog integrator of the
+// HMC kernels, the launch shape, and the dispatch from (target id, D) to a
+// template instance.
 //
 // Layout: one thread per chain, the chain's position, momentum and
 // gradient for D <= 8 held in registers for the whole trajectory. The TPU
@@ -21,7 +22,8 @@ constexpr int kThreads = 128;
 // runtime loop, unrolled by two only: L = 192 unrolled in full would
 // spill the register file.
 template <class T, int D>
-__device__ __forceinline__ void leapfrog(float (&x)[D], float (&m)[D],
+__device__ __forceinline__ void leapfrog(const T& t, float (&x)[D],
+                                         float (&m)[D],
                                          float (&g)[D], float eps,
                                          int n_leapfrog) {
   const float half_eps = eps * 0.5f;
@@ -32,7 +34,7 @@ __device__ __forceinline__ void leapfrog(float (&x)[D], float (&m)[D],
       m[d] = m[d] + g[d] * half_eps;
       x[d] = x[d] + m[d] * eps;
     }
-    T::template grad<D>(x, g);
+    t.template grad<D>(x, g);
 #pragma unroll
     for (int d = 0; d < D; ++d) m[d] = m[d] + g[d] * half_eps;
   }
@@ -45,7 +47,8 @@ inline int blocks_for(int n_chains) {
 }  // namespace mm
 
 // Calls LAUNCH(TargetType, D) for the instantiated (target, dim) pairs and
-// evaluates to cudaErrorInvalidValue for any other pair.
+// returns cudaErrorInvalidValue for any other pair (the dims must match
+// KERNEL_DIMS in ops/kernels/_build.py).
 #define MM_DISPATCH(target, dim, LAUNCH)                        \
   do {                                                          \
     if ((target) == mm::kRosenbrockND) {                        \
@@ -55,6 +58,8 @@ inline int blocks_for(int n_chains) {
         case 4: LAUNCH(mm::RosenbrockND, 4); break;             \
         default: return (int)cudaErrorInvalidValue;             \
       }                                                         \
+    } else if ((target) == mm::kGaussian2D && (dim) == 2) {     \
+      LAUNCH(mm::Gaussian2D, 2);                                \
     } else {                                                    \
       return (int)cudaErrorInvalidValue;                        \
     }                                                           \

@@ -24,7 +24,8 @@ __global__ void __launch_bounds__(mm::kThreads)
     leapfrog_kernel(const float* __restrict__ pos,
                     const float* __restrict__ mom,
                     const float* __restrict__ grad,
-                    const float* __restrict__ eps, int n_leapfrog,
+                    const float* __restrict__ eps,
+                    const float* __restrict__ params, int n_leapfrog,
                     int n_chains, float* __restrict__ pos_out,
                     float* __restrict__ mom_out,
                     float* __restrict__ logp_out,
@@ -38,21 +39,23 @@ __global__ void __launch_bounds__(mm::kThreads)
     m[d] = mom[c * D + d];
     g[d] = grad[c * D + d];
   }
-  mm::leapfrog<T, D>(x, m, g, eps[0], n_leapfrog);
+  const T t(params);
+  mm::leapfrog<T, D>(t, x, m, g, eps[0], n_leapfrog);
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     pos_out[c * D + d] = x[d];
     mom_out[c * D + d] = m[d];
     grad_out[c * D + d] = g[d];
   }
-  logp_out[c] = T::template logp<D>(x);
+  logp_out[c] = t.template logp<D>(x);
 }
 
 }  // namespace
 
 extern "C" int mm_leapfrog_f32(const void* pos, const void* mom,
                                const void* grad, const void* eps,
-                               int n_leapfrog, int n_chains, int dim,
+                               const void* params, int n_leapfrog,
+                               int n_chains, int dim,
                                int target, void* pos_out, void* mom_out,
                                void* logp_out, void* grad_out,
                                void* stream) {
@@ -61,8 +64,8 @@ extern "C" int mm_leapfrog_f32(const void* pos, const void* mom,
   leapfrog_kernel<T, D><<<mm::blocks_for(n_chains), mm::kThreads, 0,       \
                           (cudaStream_t)stream>>>(                         \
       (const float*)pos, (const float*)mom, (const float*)grad,            \
-      (const float*)eps, n_leapfrog, n_chains, (float*)pos_out,            \
-      (float*)mom_out, (float*)logp_out, (float*)grad_out)
+      (const float*)eps, (const float*)params, n_leapfrog, n_chains,      \
+      (float*)pos_out, (float*)mom_out, (float*)logp_out, (float*)grad_out)
   MM_DISPATCH(target, dim, MM_LAUNCH);
 #undef MM_LAUNCH
   return (int)cudaGetLastError();

@@ -33,7 +33,8 @@ __global__ void __launch_bounds__(mm::kThreads)
     multistep_kernel(const float* __restrict__ pos,
                      const float* __restrict__ logp,
                      const float* __restrict__ grad,
-                     const float* __restrict__ eps, int k_steps,
+                     const float* __restrict__ eps,
+                     const float* __restrict__ params, int k_steps,
                      int n_leapfrog, int n_chains, uint32_t seed_lo,
                      uint32_t seed_hi, uint32_t step0,
                      float* __restrict__ pos_out,
@@ -42,6 +43,7 @@ __global__ void __launch_bounds__(mm::kThreads)
                      long long hist_sk, long long hist_sc) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_chains) return;
+  const T t(params);
   float x[D], g[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -63,9 +65,9 @@ __global__ void __launch_bounds__(mm::kThreads)
     }
     const float h_cur = -lp + 0.5f * ke0;
 
-    mm::leapfrog<T, D>(xp, m, gp, eps[k], n_leapfrog);
+    mm::leapfrog<T, D>(t, xp, m, gp, eps[k], n_leapfrog);
 
-    const float lpp = T::template logp<D>(xp);
+    const float lpp = t.template logp<D>(xp);
     float ke1 = 0.0f;
 #pragma unroll
     for (int d = 0; d < D; ++d) ke1 += m[d] * m[d];
@@ -115,7 +117,8 @@ __global__ void philox_fill_kernel(uint32_t* __restrict__ out, int n,
 
 extern "C" int mm_hmc_multistep_f32(
     const void* pos, const void* logp, const void* grad, const void* eps,
-    int k_steps, int n_leapfrog, int n_chains, int dim, int target,
+    const void* params, int k_steps, int n_leapfrog, int n_chains, int dim,
+    int target,
     uint32_t seed_lo, uint32_t seed_hi, uint32_t step0, void* pos_out,
     void* logp_out, void* grad_out, void* hist, long long hist_sk,
     long long hist_sc, void* stream) {
@@ -124,8 +127,9 @@ extern "C" int mm_hmc_multistep_f32(
   multistep_kernel<T, D><<<mm::blocks_for(n_chains), mm::kThreads, 0,      \
                            (cudaStream_t)stream>>>(                        \
       (const float*)pos, (const float*)logp, (const float*)grad,           \
-      (const float*)eps, k_steps, n_leapfrog, n_chains, seed_lo, seed_hi,  \
-      step0, (float*)pos_out, (float*)logp_out, (float*)grad_out,          \
+      (const float*)eps, (const float*)params, k_steps, n_leapfrog,       \
+      n_chains, seed_lo, seed_hi, step0, (float*)pos_out,                 \
+      (float*)logp_out, (float*)grad_out,                                  \
       (float*)hist, hist_sk, hist_sc)
   MM_DISPATCH(target, dim, MM_LAUNCH);
 #undef MM_LAUNCH

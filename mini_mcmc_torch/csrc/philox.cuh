@@ -8,8 +8,22 @@
 //
 // Key: the full 64-bit per-run seed as two words (folding it to 32 bits
 // would birthday-collide after ~2^16 runs, see rng.py:key_to_seed).
-// Counter: (chain index, global step, draw index, 0). Two chains never
-// share a counter, and neither do two steps of one chain.
+// Counter: (chain index, global step, draw index, sub-draw). Two chains
+// never share a counter, and neither do two steps of one chain.
+//
+// Draw indices, per kernel (D = the dimension):
+//   HMC (Kernel 2): draws 0..D-1 momentum normals, draw D the accept
+//     uniform; sub-draw 0.
+//   NUTS step (Kernel 4): draws 0..D-1 momentum normals; draw D the
+//     Exp(1) uniform of the slice; draws D+1+2j and D+2+2j the direction
+//     and progressive-accept uniforms of doubling j; draw 0x10000 + j with
+//     sub-draw i * (max_depth + 1) + k the merge uniform at leaf i, cascade
+//     position k of doubling j (sub-draw 0 elsewhere).
+//   NUTS subtree seeds (use_pallas=True tier, ops/nuts.py): chain 0,
+//     draw 0x20000 + j gives the two words of doubling j's hash seed;
+//     chain 0, draw 0x30000 seeds the step's torch.Generator (the
+//     use_pallas=False and True tiers).
+// Every draw is then a function of its place in the run alone.
 //
 // The plain PyTorch twin (mini_mcmc_torch/ops/kernels/rng.py) computes the
 // same rounds in int64 arithmetic and gives the same bits.
@@ -66,8 +80,8 @@ __device__ __forceinline__ float normal_at(uint32_t chain, uint32_t step,
 
 __device__ __forceinline__ float uniform_at(uint32_t chain, uint32_t step,
                                             uint32_t draw, uint32_t k0,
-                                            uint32_t k1) {
-  const U32x4 w = philox4x32_10(U32x4{chain, step, draw, 0u}, k0, k1);
+                                            uint32_t k1, uint32_t sub = 0u) {
+  const U32x4 w = philox4x32_10(U32x4{chain, step, draw, sub}, k0, k1);
   return unit_open(w.x);
 }
 

@@ -7,18 +7,24 @@
 // `cuda_functor` name (mini_mcmc_torch/ops/kernels/_build.py maps names to
 // the ids below). Densities supplied by users inside a kernel are later
 // work (ROADMAP.md, Queue 1).
+//
+// A functor is built once per thread from the kernel's `params` pointer
+// (Target.cuda_params on the device; null for a functor without
+// coefficients) and keeps its coefficients in registers.
 #pragma once
 
 namespace mm {
 
-enum TargetId : int { kRosenbrockND = 0 };
+enum TargetId : int { kRosenbrockND = 0, kGaussian2D = 1 };
 
 // models/rosenbrock.py:rosenbrock_nd, arithmetic in the JAX form's order:
 // logp = -sum_i [100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2]
 struct RosenbrockND {
+  __device__ __forceinline__ explicit RosenbrockND(const float*) {}
+
   template <int D>
-  __device__ __forceinline__ static void grad(const float (&x)[D],
-                                              float (&g)[D]) {
+  __device__ __forceinline__ void grad(const float (&x)[D],
+                                       float (&g)[D]) const {
 #pragma unroll
     for (int i = 0; i < D; ++i) g[i] = 0.0f;
 #pragma unroll
@@ -31,7 +37,7 @@ struct RosenbrockND {
   }
 
   template <int D>
-  __device__ __forceinline__ static float logp(const float (&x)[D]) {
+  __device__ __forceinline__ float logp(const float (&x)[D]) const {
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i + 1 < D; ++i) {
@@ -40,6 +46,36 @@ struct RosenbrockND {
       s += 100.0f * (d * d) + (1.0f - lo) * (1.0f - lo);
     }
     return -s;
+  }
+};
+
+// models/gaussian.py:diffable_gaussian2d, the JAX package's logp_dc and
+// grad_dc (mini_mcmc_tpu/models/gaussian.py:124-135) term for term.
+// params: m0, m1, ic00, ic01, ic10, ic11, norm_const. Dispatched at D = 2
+// only.
+struct Gaussian2D {
+  float m0, m1, ic00, ic01, ic10, ic11, ic_cross, nc;
+
+  __device__ __forceinline__ explicit Gaussian2D(const float* p)
+      : m0(__ldg(p + 0)), m1(__ldg(p + 1)), ic00(__ldg(p + 2)),
+        ic01(__ldg(p + 3)), ic10(__ldg(p + 4)), ic11(__ldg(p + 5)),
+        ic_cross(ic01 + ic10), nc(__ldg(p + 6)) {}
+
+  template <int D>
+  __device__ __forceinline__ void grad(const float (&x)[D],
+                                       float (&g)[D]) const {
+    static_assert(D == 2, "Gaussian2D is two-dimensional");
+    const float d0 = x[0] - m0, d1 = x[1] - m1;
+    g[0] = -(ic00 * d0 + ic01 * d1);
+    g[1] = -(ic10 * d0 + ic11 * d1);
+  }
+
+  template <int D>
+  __device__ __forceinline__ float logp(const float (&x)[D]) const {
+    static_assert(D == 2, "Gaussian2D is two-dimensional");
+    const float d0 = x[0] - m0, d1 = x[1] - m1;
+    const float quad = ic00 * d0 * d0 + ic_cross * d0 * d1 + ic11 * d1 * d1;
+    return nc - 0.5f * quad;
   }
 };
 

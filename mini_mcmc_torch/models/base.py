@@ -34,12 +34,17 @@ class Target:
         cuda_functor: name of the built-in CUDA density that the
             hand-written kernels evaluate for this target (e.g.
             ``"rosenbrock_nd"``), or ``None`` when there is none.
+        cuda_params: the functor's coefficients, a tuple of floats handed
+            to the kernels as a ``const float*`` (e.g. the Gaussian's mean,
+            inverse covariance and normalizing constant); empty when the
+            functor has none.
     """
 
     logp: Callable
     logp_batch: Optional[Callable] = None
     grad: Optional[Callable] = None
     cuda_functor: Optional[str] = None
+    cuda_params: tuple = ()
 
     def batch_logp(self, positions: torch.Tensor) -> torch.Tensor:
         """Log density for a ``[C, D]`` batch of positions -> ``[C]``."""

@@ -1,0 +1,132 @@
+"""User-facing NUTS sampler (counterpart of ``mini_mcmc_tpu/nuts.py``).
+
+Construct with a target, initial positions ``[n_chains, D]`` and a desired
+average acceptance probability; ``run(n_collect, n_discard)`` adapts the
+step size during burn-in by dual averaging and returns the
+``[n_chains, n_collect, D]`` sample cube. Collection follows the reference
+convention (row 0 is the position at collection start;
+``n_collect + n_discard - 1`` steps in all, ``nuts.rs:457-470``).
+
+Not ported yet (ROADMAP.md, Queue 1): ``metric=``, ``transform=``,
+``run_progress``, ``warmed_up`` and ``reconditioned``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .ops.kernels._build import functor_id
+from .ops.kernels.nuts_subtree import MAX_DEPTH
+from .ops.nuts import nuts_kernel
+from .runner import make_initial_recording_runner
+from .samplers import _KernelSampler, initial_positions_on
+
+
+class NUTS(_KernelSampler):
+    """No-U-Turn Sampler with dual-averaging step-size adaptation.
+
+    Mirrors ``mini_mcmc_tpu.NUTS``'s constructor, so one kwargs dict builds
+    both packages (``convert.nuts_sampler_kwargs``).
+
+    Args:
+        target: target density.
+        initial_positions: ``[n_chains, D]`` starting points.
+        target_accept_p: desired average acceptance probability.
+        max_depth: tree-depth cap (10, Stan's default; the CUDA kernels
+            are built for at most 10).
+        seed: optional base seed.
+        use_pallas: ``True`` runs each subtree in Kernel 3, ``"full"`` the
+            whole step in Kernel 4 (float32 only); on CUDA tensors both
+            need a target with a built-in CUDA density
+            (``Target.cuda_functor``) and raise ``ValueError`` otherwise.
+            On CPU tensors they run the kernels' plain twins.
+        warmup_max_depth: optional tree-depth cap during adaptation.
+        device: where the chains run, ``"cuda"`` by default (raises
+            without a GPU); ``"cpu"`` runs the plain twins.
+    """
+
+    def __init__(self, target, initial_positions,
+                 target_accept_p: float = 0.8, max_depth: int = 10,
+                 seed: Optional[int] = None, use_pallas=False,
+                 warmup_max_depth: Optional[int] = None, metric=None,
+                 transform=None, *, device="cuda"):
+        if metric is not None:
+            raise ValueError("NUTS(metric=...) is not ported yet "
+                             "(ROADMAP.md, Queue 1)")
+        if transform is not None:
+            raise ValueError("NUTS(transform=...) is not ported yet "
+                             "(ROADMAP.md, Queue 1)")
+        if warmup_max_depth is not None and not (
+                1 <= warmup_max_depth <= max_depth):
+            raise ValueError(
+                f"warmup_max_depth must be in [1, max_depth={max_depth}]; "
+                f"got {warmup_max_depth}")
+        self.target = target
+        self.target_accept_p = target_accept_p
+        self.max_depth = max_depth
+        self.warmup_max_depth = warmup_max_depth
+        positions = initial_positions_on(initial_positions, device)
+        if use_pallas and positions.is_cuda:
+            functor_id(target)  # a target the kernels cannot run: raise now
+            if max_depth > MAX_DEPTH:
+                raise ValueError(f"the NUTS kernels are built for max_depth "
+                                 f"<= {MAX_DEPTH}; got {max_depth}")
+            if use_pallas == "full" and positions.dtype != torch.float32:
+                raise ValueError("NUTS(use_pallas='full') is float32-only; "
+                                 f"got {positions.dtype}")
+        init_fn, self._prepare_fn, step_fn = nuts_kernel(
+            target, target_accept_p, max_depth, use_pallas=use_pallas,
+            warmup_max_depth=warmup_max_depth)
+        super().__init__(init_fn, step_fn, positions, seed,
+                         runner=make_initial_recording_runner(step_fn))
+        self._div_before_run = None
+        self._lf_before_run = None
+
+    @property
+    def step_size(self) -> torch.Tensor:
+        """Per-chain step size ``[C]``: the dual-averaging ``epsilon``
+        during adaptation, ``epsilon_bar`` after; ``-1.0`` before the first
+        run (found by ``find_reasonable_epsilon``)."""
+        return self.state.epsilon
+
+    @property
+    def divergences(self) -> torch.Tensor:
+        """Per-chain divergent transitions, cumulative over every run."""
+        return self.state.divergences
+
+    @property
+    def last_run_divergences(self) -> torch.Tensor:
+        """Per-chain divergences of the most recent ``run`` only."""
+        if self._div_before_run is None:
+            return torch.zeros_like(self.state.divergences)
+        return self.state.divergences - self._div_before_run
+
+    @property
+    def leapfrogs(self) -> torch.Tensor:
+        """Per-chain leapfrog steps executed, cumulative: the lockstep
+        cost, ``2^J - 1`` gradient evaluations for a J-deep doubling loop
+        whether or not the chain's own tree finished earlier. The unit of
+        lockstep is all chains on the plain and ``True`` tiers, and a warp
+        of 32 chains under ``use_pallas="full"`` (the JAX package's fused
+        kernel reports per 8,192-chain grid block).
+        Saturates at ~2.0e9 instead of wrapping."""
+        return self.state.leapfrogs
+
+    @property
+    def last_run_leapfrogs(self) -> torch.Tensor:
+        """Per-chain executed leapfrogs of the most recent ``run`` only."""
+        if self._lf_before_run is None:
+            return torch.zeros_like(self.state.leapfrogs)
+        return self.state.leapfrogs - self._lf_before_run
+
+    def run(self, n_collect: int, n_discard: int = 0, *,
+            time_major: bool = False) -> torch.Tensor:
+        """Sample; returns ``[n_chains, n_collect, D]``, or
+        ``[n_collect, n_chains, D]`` with ``time_major=True``."""
+        self._div_before_run = self.state.divergences.clone()
+        self._lf_before_run = self.state.leapfrogs.clone()
+        self.state = self._prepare_fn(self.state, self._next_key(),
+                                      n_discard)
+        return super().run(n_collect, n_discard, time_major=time_major)

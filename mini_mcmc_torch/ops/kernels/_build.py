@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``mini_mcmc_torch/csrc/`` are compiled with ``nvcc`` at
-first CUDA use into one shared library with a plain C interface, loaded
-with ``ctypes``. The library's name carries a hash of the sources and
-flags, so an edited source builds anew and an unchanged one is reused from
+first CUDA use, one ``nvcc`` per ``.cu`` file, all started together, and
+linked into one shared library with a plain C interface, loaded with
+``ctypes``. The library's name carries a hash of the sources and flags, so
+an edited source builds anew and an unchanged one is reused from
 ``build/mini_mcmc_torch/`` (listed in ``.gitignore``). Nothing here runs at
 import: CPU-only installs import every module without ``nvcc``.
 
@@ -28,17 +29,19 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "mini_mcmc_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: Target.cuda_functor names -> the ids of csrc/targets.cuh
-FUNCTORS = {"rosenbrock_nd": 0}
-#: dims instantiated by MM_DISPATCH in csrc/hmc_common.cuh
+FUNCTORS = {"rosenbrock_nd": 0, "gaussian2d": 1}
+#: dims instantiated by MM_DISPATCH in csrc/hmc_common.cuh (Rosenbrock at
+#: all three, the Gaussian at 2)
 KERNEL_DIMS = (2, 3, 4)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_I32 = ctypes.c_int32
 _LL = ctypes.c_longlong
 
 
@@ -62,6 +65,21 @@ def functor_id(target) -> int:
     return FUNCTORS[name]
 
 
+@functools.lru_cache(maxsize=64)
+def _params_on(params: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(params, dtype=torch.float32, device=device)
+
+
+def params_ptr(target, device) -> int | None:
+    """Device pointer to ``target.cuda_params`` as float32 (copied to the
+    device once per target and device), or ``None`` for a functor without
+    coefficients."""
+    if not target.cuda_params:
+        return None
+    return _params_on(tuple(target.cuda_params),
+                      torch.device(device)).data_ptr()
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(path).exists():
@@ -72,7 +90,8 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``build/mini_mcmc_torch/`` unless a
     library of the same sources and flags is already there; returns its
-    path. The ``ptxas -v`` report goes to a ``.log`` beside it."""
+    path. Each source compiles in its own ``nvcc`` process, all at once;
+    the ``ptxas -v`` reports go to a ``.log`` beside the library."""
     files = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in files:
@@ -83,15 +102,35 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libmm_kernels_{digest}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in files if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-4000:]}"
-        )
+    nvcc = _nvcc()
+    tag = f"{digest}.{os.getpid()}"
+    procs = []
+    for src in (p for p in files if p.suffix == ".cu"):
+        obj = BUILD_DIR / f".{src.stem}_{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (code {proc.returncode}):\n{out[-4000:]}")
+    tmp = BUILD_DIR / f".libmm_kernels_{tag}.so"
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *(str(obj) for _, obj, _ in procs)],
+            capture_output=True, text=True)
+        log.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link (code {link.returncode}):\n{link.stderr}")
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 
@@ -100,16 +139,20 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     handle = ctypes.CDLL(str(build()))
-    handle.mm_leapfrog_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                       _P, _P, _P, _P, _P]
-    handle.mm_leapfrog_f32.restype = _I
-    handle.mm_hmc_multistep_f32.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _U,
-        _P, _P, _P, _P, _LL, _LL, _P,
-    ]
-    handle.mm_hmc_multistep_f32.restype = _I
-    handle.mm_philox_fill.argtypes = [_P, _I, _U, _U, _U, _U, _P]
-    handle.mm_philox_fill.restype = _I
+    sigs = {
+        "mm_leapfrog_f32": [_P] * 5 + [_I] * 4 + [_P] * 5,
+        "mm_hmc_multistep_f32": [_P] * 5 + [_I] * 5 + [_U] * 3
+        + [_P] * 4 + [_LL, _LL, _P],
+        "mm_philox_fill": [_P, _I, _U, _U, _U, _U, _P],
+        "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32, _I, _I, _I]
+        + [_P] * 12,
+        "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I, _I, _I]
+        + [_P] * 6,
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     handle.mm_error_string.argtypes = [_I]
     handle.mm_error_string.restype = ctypes.c_char_p
     return handle

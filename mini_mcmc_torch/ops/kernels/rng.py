@@ -8,9 +8,18 @@ bits for the same (key, counter). The TPU stream is not reproduced: the
 port's stream is its own, distribution-identical, and fixed by
 (seed, chain, step, draw) alone.
 
-Counter layout: ``(chain index, global step, draw index, 0)``; the key is
-the full 64-bit per-run seed as two words. Draw ``d < D`` gives coordinate
-``d``'s momentum normal, draw ``D`` the accept uniform.
+Counter layout: ``(chain index, global step, draw index, sub-draw)``; the
+key is the full 64-bit per-run seed as two words. HMC: draw ``d < D`` gives
+coordinate ``d``'s momentum normal, draw ``D`` the accept uniform. NUTS
+(Kernel 4): draws ``0..D-1`` momentum, draw ``D`` the slice's Exp(1)
+uniform, draws ``D+1+2j`` and ``D+2+2j`` the direction and
+progressive-accept uniforms of doubling ``j``, and draw ``0x10000 + j`` at
+sub-draw ``i * (max_depth + 1) + k`` the merge uniform at leaf ``i``,
+cascade position ``k``. The ``use_pallas=True`` NUTS tier takes its
+subtree hash seeds from chain 0, draw ``0x20000 + j``, and the plain NUTS
+tiers seed each step's ``torch.Generator`` from chain 0, draw ``0x30000``
+(``ops/nuts.py``).
+The full table is in ``csrc/philox.cuh``.
 """
 
 from __future__ import annotations
@@ -58,6 +67,20 @@ def philox4x32_10(c0, c1, c2, c3, key: tuple[int, int]):
     return c0, c1, c2, c3
 
 
+def philox_words(c0: int, c1: int, c2: int, c3: int,
+                 seed: int) -> tuple[int, int, int, int]:
+    """Philox4x32-10 of one counter on Python ints, for the host: the
+    same words as :func:`philox4x32_10` without a tensor."""
+    k0, k1 = seed_words(seed)
+    for _ in range(10):
+        p0, p1 = _M0 * c0, _M1 * c2
+        c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ k0, p1 & _MASK,
+                          (p0 >> 32) ^ c3 ^ k1, p0 & _MASK)
+        k0 = (k0 + _W0) & _MASK
+        k1 = (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
 def unit_open(bits: torch.Tensor) -> torch.Tensor:
     """``rng.py:bits_to_unit_open``: top 24 bits to f32 in (0, 1), never 0."""
     return (bits >> 8).to(torch.float32) * (1.0 / 16777216.0) + (
@@ -81,6 +104,14 @@ def step_draws(n_chains: int, dim: int, step: int, seed: int, device=None):
     draw = torch.arange(dim + 1, device=device).reshape(1, -1)
     w0, w1, _, _ = philox4x32_10(chain, step, draw, 0, seed_words(seed))
     return box_muller(w0[:, :dim], w1[:, :dim]), unit_open(w0[:, dim])
+
+
+def uniform_at(chain, step: int, draw: int, seed: int, sub=0):
+    """``philox.cuh:uniform_at``: word x of the counter
+    ``(chain, step, draw, sub)`` as a uniform in (0, 1); ``chain`` and
+    ``sub`` broadcast as int64 tensors."""
+    w0, _, _, _ = philox4x32_10(chain, step, draw, sub, seed_words(seed))
+    return unit_open(w0)
 
 
 def philox_fill_plain(n: int, c1: int, c2: int, seed: int,

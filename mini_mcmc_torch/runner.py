@@ -2,9 +2,11 @@
 
 Counterpart of ``mini_mcmc_tpu/runner.py``. Every step already advances all
 chains as one batched tensor, so a run is a loop over steps (``lax.scan``
-in the JAX package). Collection convention (MH/HMC, reference
-``core.rs:55-73``): ``n_discard + n_collect`` steps are taken and the last
-``n_collect`` positions recorded.
+in the JAX package). Collection conventions: MH/HMC (reference
+``core.rs:55-73``) take ``n_discard + n_collect`` steps and record the last
+``n_collect`` positions; NUTS (``nuts.rs:457-470``) records the position
+at collection start as row 0 and takes ``n_collect + n_discard - 1``
+steps.
 
 Memory: one ``[n_collect, C, D]`` cube (``time_major=True``) or
 ``[C, n_collect, D]`` cube is allocated up front, and each step's or
@@ -102,6 +104,37 @@ def make_block_runner(block_fn: Callable, block_size: int):
                 state, key._replace(step=key.step + n_discard + lo),
                 _rows(cube, lo, lo + k, time_major),
             )
+        return state, cube
+
+    return run
+
+
+def make_initial_recording_runner(step_fn: Callable):
+    """A runner with the NUTS collection convention (reference
+    ``nuts.rs:457-470``, ``mini_mcmc_tpu/runner.py:203``).
+
+    ``run(state, key, n_collect, n_discard, *, time_major=False)`` takes
+    ``n_collect + n_discard - 1`` steps from global step ``key.step``. Row 0
+    is the position at the start of collection: the current position when
+    ``n_discard == 0``, else the state after step ``n_discard`` (the first
+    ``n_discard - 1`` steps are not recorded). Rows go straight into one
+    preallocated cube, as in :func:`make_simple_runner`.
+    """
+
+    def run(state, key: StepKey, n_collect: int, n_discard: int, *,
+            time_major: bool = False):
+        cube = _alloc_cube(state.positions, n_collect, time_major)
+        if n_discard == 0 and n_collect > 0:
+            _rows(cube, 0, 1, time_major)[0].copy_(state.positions)
+            skip, first_row = 0, 1
+        else:
+            skip, first_row = max(n_discard - 1, 0), 0
+        n_steps = max(n_collect + n_discard - 1, 0)
+        for i in range(n_steps):
+            state = step_fn(state, key._replace(step=key.step + i))
+            if i >= skip:
+                r = first_row + i - skip
+                _rows(cube, r, r + 1, time_major)[0].copy_(state.positions)
         return state, cube
 
     return run

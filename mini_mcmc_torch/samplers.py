@@ -22,6 +22,15 @@ import torch
 from .ops.hmc import hmc_kernel
 from .ops.kernels._build import functor_id
 from .runner import StepKey, make_block_runner, make_simple_runner
+from .utils.init import resolve_device
+
+
+def initial_positions_on(initial_positions, device) -> torch.Tensor:
+    """A copy of ``initial_positions`` on ``device`` (``"cuda"`` by
+    default; raises without a GPU): the sampler's state never aliases the
+    caller's tensor."""
+    return torch.as_tensor(initial_positions).to(
+        resolve_device(device), copy=True)
 
 
 def _generator(seed: Optional[int]) -> torch.Generator:
@@ -33,9 +42,8 @@ def _generator(seed: Optional[int]) -> torch.Generator:
 class _KernelSampler:
     """Shared run plumbing for kernel-based samplers."""
 
-    def __init__(self, init_fn, step_fn, initial_positions, seed=None):
-        # a copy: the sampler's state never aliases the caller's tensor
-        initial_positions = torch.as_tensor(initial_positions).clone()
+    def __init__(self, init_fn, step_fn, initial_positions, seed=None,
+                 runner=None):
         if initial_positions.dim() != 2:
             raise ValueError(
                 "initial_positions must be [n_chains, dim]; got shape "
@@ -44,7 +52,9 @@ class _KernelSampler:
         self.state = init_fn(initial_positions)
         self._gen = _generator(seed)
         block_fn = getattr(step_fn, "block_fn", None)
-        if block_fn is not None:
+        if runner is not None:
+            self._runner = runner
+        elif block_fn is not None:
             # K fused sampler steps per call; run() lengths are multiples of K
             self._runner = make_block_runner(block_fn, step_fn.block_size)
         else:
@@ -97,6 +107,10 @@ class HMC(_KernelSampler):
     positions it needs a target with a built-in CUDA density
     (``Target.cuda_functor``) and raises ``ValueError`` otherwise.
 
+    The sampler runs on ``device`` (``"cuda"`` by default; it raises
+    without a GPU), where it moves a copy of the initial positions; pass
+    ``device="cpu"`` for the plain twins on the CPU.
+
     The JAX-only knobs have no counterpart here: ``unroll`` (no scan to
     unroll), ``pallas_interpret`` (CPU tensors run the kernels' plain
     twins) and ``validate_dc`` (no chains-on-lanes forms).
@@ -107,11 +121,11 @@ class HMC(_KernelSampler):
     def __init__(self, target, initial_positions, step_size: float,
                  n_leapfrog: int, seed: Optional[int] = None,
                  use_pallas=False, jitter: float = 0.0,
-                 steps_per_call: int = 1):
+                 steps_per_call: int = 1, *, device="cuda"):
         self.target = target
         self.step_size = step_size
         self.n_leapfrog = n_leapfrog
-        positions = torch.as_tensor(initial_positions)
+        positions = initial_positions_on(initial_positions, device)
         if use_pallas and positions.is_cuda:
             functor_id(target)  # a target the kernels cannot run: raise now
         init_fn, step_fn = hmc_kernel(target, step_size, n_leapfrog,

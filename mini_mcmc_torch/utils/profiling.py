@@ -55,8 +55,9 @@ def device_profile(fn, *args, **kwargs):
     """
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         fn(*args, **kwargs)
         torch.cuda.synchronize()

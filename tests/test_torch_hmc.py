@@ -58,8 +58,9 @@ def test_start_state_carries_over_through_convert():
     j = _jax_sampler(False)
     kwargs = sampler_kwargs(j)
     assert kwargs == dict(use_pallas=False, **KW)
-    port = mt.HMC(mt.rosenbrock_nd(), _init(), **kwargs)
-    carried = hmc_state_from_numpy(*(np.asarray(x) for x in j.state))
+    port = mt.HMC(mt.rosenbrock_nd(), _init(), **kwargs, device="cpu")
+    carried = hmc_state_from_numpy(*(np.asarray(x) for x in j.state),
+                                   device="cpu")
     for a, b in zip(state_to_numpy(port.state), state_to_numpy(carried)):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4)
     port.state = carried
@@ -70,8 +71,10 @@ def test_start_state_carries_over_through_convert():
 def test_port_reduced_flagship_passes_bench_gates(use_pallas):
     j = _jax_sampler(use_pallas)
     port = mt.HMC(mt.rosenbrock_nd(), _init(),
-                  **{**sampler_kwargs(j), "use_pallas": use_pallas}).seed(42)
-    port.state = hmc_state_from_numpy(*(np.asarray(x) for x in j.state))
+                  **{**sampler_kwargs(j), "use_pallas": use_pallas},
+                  device="cpu").seed(42)
+    port.state = hmc_state_from_numpy(*(np.asarray(x) for x in j.state),
+                                      device="cpu")
     port.run(N_BURN, 0, time_major=True)
     sample = port.run(N_DRAW, 0, time_major=True)
     assert sample.shape == (N_DRAW, C, 3) and sample.dtype == torch.float32
@@ -93,8 +96,10 @@ def test_trajectory_tier_follows_the_plain_tier():
     the JAX package's interpreted Pallas tier follows its XLA tier."""
     kw = dict(KW, n_leapfrog=8)
     init = _init(16, seed=1)
-    a = mt.HMC(mt.rosenbrock_nd(), init, use_pallas=False, **kw).seed(3)
-    b = mt.HMC(mt.rosenbrock_nd(), init, use_pallas=True, **kw).seed(3)
+    a = mt.HMC(mt.rosenbrock_nd(), init, use_pallas=False, **kw,
+               device="cpu").seed(3)
+    b = mt.HMC(mt.rosenbrock_nd(), init, use_pallas=True, **kw,
+               device="cpu").seed(3)
     assert torch.equal(a.run(32, 16), b.run(32, 16))
     ja = jmt.HMC(jm.rosenbrock_nd(), jnp.asarray(init), use_pallas=False,
                  **kw).seed(3)
@@ -112,7 +117,7 @@ def test_layouts_seeding_and_continuation(use_pallas):
 
     def make(seed=5):
         return mt.HMC(mt.rosenbrock_nd(), init, use_pallas=use_pallas,
-                      **kw).seed(seed)
+                      **kw, device="cpu").seed(seed)
 
     cm = make().run(32, 16)
     assert cm.shape == (32, 32, 3)
@@ -136,14 +141,16 @@ def test_full_tier_stream_does_not_depend_on_block_size():
     kw = dict(KW, n_leapfrog=4, jitter=0.0)
     init = _init(16, seed=3)
     cubes = [mt.HMC(mt.rosenbrock_nd(), init, use_pallas="full",
-                    **{**kw, "steps_per_call": k}).seed(9).run(16, 16)
+                    **{**kw, "steps_per_call": k},
+                    device="cpu").seed(9).run(16, 16)
              for k in (1, 4, 16)]
     assert torch.equal(cubes[0], cubes[1])
     assert torch.equal(cubes[0], cubes[2])
 
 
 def test_run_lengths_must_be_block_multiples():
-    s = mt.HMC(mt.rosenbrock_nd(), _init(8), use_pallas="full", **KW)
+    s = mt.HMC(mt.rosenbrock_nd(), _init(8), use_pallas="full", **KW,
+               device="cpu")
     with pytest.raises(ValueError, match="multiples of the block size 16"):
         s.run(24, 0)
     with pytest.raises(ValueError, match="multiples"):
@@ -152,14 +159,18 @@ def test_run_lengths_must_be_block_multiples():
 
 def test_constructor_validation():
     with pytest.raises(ValueError, match="use_pallas"):
-        mt.HMC(mt.rosenbrock_nd(), _init(8), 0.02, 4, use_pallas="separable")
+        mt.HMC(mt.rosenbrock_nd(), _init(8), 0.02, 4, use_pallas="separable",
+               device="cpu")
     with pytest.raises(ValueError, match="steps_per_call"):
-        mt.HMC(mt.rosenbrock_nd(), _init(8), 0.02, 4, steps_per_call=0)
+        mt.HMC(mt.rosenbrock_nd(), _init(8), 0.02, 4, steps_per_call=0,
+               device="cpu")
     with pytest.raises(ValueError, match=r"\[n_chains, dim\]"):
-        mt.HMC(mt.rosenbrock_nd(), np.zeros(3, np.float32), 0.02, 4)
+        mt.HMC(mt.rosenbrock_nd(), np.zeros(3, np.float32), 0.02, 4,
+               device="cpu")
     # a target without a CUDA functor runs every tier on CPU tensors
     plain = mt.models.Target(logp=mt.rosenbrock_nd().logp)
-    sample = mt.HMC(plain, _init(8), 0.02, 4, use_pallas="full").run(4)
+    sample = mt.HMC(plain, _init(8), 0.02, 4, use_pallas="full",
+                    device="cpu").run(4)
     assert sample.shape == (8, 4, 3)
 
 

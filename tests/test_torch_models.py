@@ -93,17 +93,20 @@ def test_cuda_functor_names():
 
 
 def test_init_helpers():
-    a = mt.init_with_seed(16, 3, seed=5)
+    cpu = dict(device="cpu")
+    a = mt.init_with_seed(16, 3, seed=5, **cpu)
     assert a.shape == (16, 3) and a.dtype == torch.float32
-    assert torch.equal(a, mt.init_with_seed(16, 3, seed=5))
-    assert not torch.equal(a, mt.init_with_seed(16, 3, seed=6))
-    assert torch.equal(mt.init_det(8, 2), mt.init_with_seed(8, 2, seed=42))
-    assert mt.init_det(4, 2, dtype=torch.float64).dtype == torch.float64
+    assert torch.equal(a, mt.init_with_seed(16, 3, seed=5, **cpu))
+    assert not torch.equal(a, mt.init_with_seed(16, 3, seed=6, **cpu))
+    assert torch.equal(mt.init_det(8, 2, **cpu),
+                       mt.init_with_seed(8, 2, seed=42, **cpu))
+    assert mt.init_det(4, 2, dtype=torch.float64,
+                       **cpu).dtype == torch.float64
     gen = torch.Generator().manual_seed(5)
-    assert torch.equal(mt.init(16, 3, gen), a)
-    assert mt.init(3, 2).shape == (3, 2)
+    assert torch.equal(mt.init(16, 3, gen, **cpu), a)
+    assert mt.init(3, 2, **cpu).shape == (3, 2)
     # standard normal: moments over a larger draw
-    big = mt.init_with_seed(4096, 4, seed=1).double()
+    big = mt.init_with_seed(4096, 4, seed=1, **cpu).double()
     assert abs(float(big.mean())) < 4 / np.sqrt(big.numel())
     assert abs(float(big.var()) - 1.0) < 0.05
 
