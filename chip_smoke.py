@@ -36,7 +36,22 @@ Phases, one line each (every check raises on failure):
 11. Kernel 4 against its plain version for one step, same key and step;
 12. NUTS kernel and plain times at those shapes (CUDA events);
 13. with ``--profile`` only: one NUTS run under ``torch.profiler`` and
-    Kernels 4 and 3 alone (device time per call).
+    Kernels 4 and 3 alone (device time per call);
+14. the MH stage of ``bench.py:391-431`` (Gaussian2D, 65,536 chains,
+    2,048 draws, isotropic walk, K = 16) through
+    ``mini_mcmc_torch.MetropolisHastings(use_pallas="full")``: warm-up run,
+    timed run, the four ``bench_mh_gauss2d`` gates, Kernel 5's launch
+    count (128 per run);
+15. the Poisson MH stage of ``bench.py:495-525`` (int32 states, 65,536
+    chains, ``run(200, 100)``, K = 10): the pmf gate and Kernel 5's launch
+    count (30 per run);
+16. the Gibbs stage of ``bench.py:434-478`` (two-component mixture, 65,536
+    chains, 8,192 sweeps, K = 32) through
+    ``mini_mcmc_torch.GibbsSampler(use_pallas="full")``: the four
+    ``bench_gibbs`` gates and Kernel 6's launch count (256 per run);
+17. Kernels 5 (both instances) and 6 against their plain versions for one
+    block from each path's equilibrium state and one key, and their times
+    (CUDA events); with ``--profile``, each path under ``torch.profiler``.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -48,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -56,6 +72,10 @@ import torch
 
 import mini_mcmc_torch as mt
 from mini_mcmc_torch.ops.kernels import _build, rng
+from mini_mcmc_torch.ops.kernels.gibbs_full import (
+    gibbs_multistep,
+    gibbs_multistep_plain,
+)
 from mini_mcmc_torch.ops.kernels.hmc import (
     leapfrog_trajectory,
     leapfrog_trajectory_plain,
@@ -63,6 +83,10 @@ from mini_mcmc_torch.ops.kernels.hmc import (
 from mini_mcmc_torch.ops.kernels.hmc_full import (
     hmc_multistep,
     hmc_multistep_plain,
+)
+from mini_mcmc_torch.ops.kernels.mh_full import (
+    mh_multistep,
+    mh_multistep_plain,
 )
 from mini_mcmc_torch.ops.kernels.nuts_full import nuts_step, nuts_step_plain
 from mini_mcmc_torch.ops.kernels.nuts_subtree import subtree, subtree_plain
@@ -93,13 +117,31 @@ NUTS_STEPS = NUTS_COLLECT + NUTS_DISCARD - 1  # the NUTS convention
 NUTS_RTOL, NUTS_ATOL = 1e-4, 1e-5
 NUTS_SHARE = 0.999
 
+# the MH and Gibbs stages of bench.py:391-525
+MH_CHAINS = 65536
+MH_COLLECT = 2048
+MH_K = 16
+POISSON_LAM = 4.0
+POISSON_COLLECT, POISSON_DISCARD, POISSON_K = 200, 100, 10
+GIBBS_COLLECT = 8192
+GIBBS_K = 32
+MIX = (-2.0, 1.0, 3.0, 1.5, 0.5)  # mu0, sigma0, mu1, sigma1, pi0
+# Kernels 5 and 6 against their twins: the draws and the proposals round
+# alike, the target's logp may differ by an ulp (FMA contraction in the
+# Gaussian functor, lgammaf), and an accept or z draw on such a tie flips,
+# so the gate is a per-chain share; values within rtol 1e-5 / atol 1e-6
+MH_RTOL, MH_ATOL = 1e-5, 1e-6
+MH_SHARE = 0.999
+
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over 3.35 TB/s and its operations over the issue
 # rate. Operations are lane instructions counted from the CUDA sources
 # (an FMA is one; estimates, listed below); one instruction per lane per
 # clock is the 67 TFLOP/s FP32 peak with an FMA as two flops, so the rate
 # is 33.5e12 a second. Integer work (Philox, the hash) issues at no more
-# than that rate.
+# than that rate. Random draws are counted as the least the work needs,
+# not as the kernels lay them out (rng_ops): a word per uniform or coin,
+# two words and half a Box-Muller pair per normal, four words per Philox.
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_PER_S = 67e12 / 2
 OPS = {
@@ -107,12 +149,19 @@ OPS = {
     "philox_draw": 83,  # 10 rounds x 8 (2 mul.hi, 2 mul.lo, 2 3-way xor,
                         # 2 key adds) + the unit map
     "box_muller": 35,  # logf, sqrtf, cosf and their arithmetic
+    "box_muller_pair": 45,  # logf, sqrtf, sincosf: two normals
     "hmc_step": 40,  # logp, the energies, the accept's logf
     "nuts_leaf": 56,  # leapfrog, logp, joint, checks, expf, row push
     "nuts_merge": 35,  # swap ratio (a division), U-turn dots, row merge
     "hash_draw": 22,  # nuts_tree.cuh:hash_unit
     "nuts_doubling": 34,  # end selects and updates, ratio, outer U-turn
     "nuts_step": 50,  # gradient, logp, joint, loads, stores, warp max
+    "mh_step": 30,  # logf(u), the accept, selects, the history row
+    "gauss2d_logp": 10,  # the quadratic
+    "isotropic_propose": 2,  # a multiply and an add per coordinate
+    "int_walk_propose": 5,  # coin, add, the two clamps
+    "poisson_logp": 45,  # lgammaf, the product, the k < 0 select
+    "mixture_sweep": 60,  # two expf, a division, selects, the x draw
 }
 
 
@@ -122,6 +171,20 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def rng_ops(normals, uniforms):
+    """The least lane instructions that draw ``normals`` normals and
+    ``uniforms`` one-word uniforms or coins for one chain: normals in
+    Box-Muller pairs (sine and cosine of one angle, two words), and
+    ``ceil(words / 4)`` Philox-10 evaluations. ``uniforms`` may be a
+    per-chain tensor (data-dependent draws); the result then is too."""
+    pairs, single = divmod(normals, 2)
+    words = 2 * (pairs + single) + uniforms
+    evals = (torch.ceil(words / 4) if torch.is_tensor(words)
+             else math.ceil(words / 4))
+    return (evals * OPS["philox_draw"] + pairs * OPS["box_muller_pair"]
+            + single * OPS["box_muller"])
 
 
 # Kernel-versus-plain tolerance on stable trajectories, as
@@ -189,12 +252,16 @@ KERNELS = {
     "leapfrog_trajectory": leapfrog_trajectory,
     "nuts_step": nuts_step,
     "nuts_subtree": subtree,
+    "mh_multistep": mh_multistep,
+    "gibbs_multistep": gibbs_multistep,
 }
 TWINS = {
     "plain_multistep_calls": hmc_multistep_plain,
     "plain_leapfrog_calls": leapfrog_trajectory_plain,
     "plain_nuts_step_calls": nuts_step_plain,
     "plain_subtree_calls": subtree_plain,
+    "plain_mh_multistep_calls": mh_multistep_plain,
+    "plain_gibbs_multistep_calls": gibbs_multistep_plain,
 }
 
 
@@ -691,12 +758,251 @@ def phase_nuts_profile(nuts, dev, step_args) -> None:
             recorded=n, device_us_per_call=us / n)
 
 
+def timed_run(sampler, *run_args, time_major=False):
+    """A warm-up run, then the timed run; returns (sample, seconds)."""
+    warm = sampler.run(*run_args, time_major=time_major)
+    torch.cuda.synchronize()
+    del warm
+    t0 = time.perf_counter()
+    sample = sampler.run(*run_args, time_major=time_major)
+    torch.cuda.synchronize()
+    return sample, time.perf_counter() - t0
+
+
+def phase_mh_main_path(dev):
+    """The MH stage of bench.py:391-431 through the public entry point:
+    warm-up and timed run, the gates of bench.py:416-421, and the launch
+    counts of both runs."""
+    target = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    init = mt.init_with_seed(MH_CHAINS, 2, seed=8, device=dev)
+    reset_counts()
+    mh = mt.MetropolisHastings(target, mt.isotropic_gaussian_proposal(1.0),
+                               init, use_pallas="full",
+                               steps_per_call=MH_K).seed(8)
+    sample, elapsed = timed_run(mh, MH_COLLECT, 0, time_major=True)
+    counts = read_counts()
+    per_run = MH_COLLECT // MH_K
+    check("mh main-path launches and no plain twin",
+          counts == counts_with(mh_multistep=2 * per_run), counts)
+    check("mh sample shape",
+          tuple(sample.shape) == (MH_COLLECT, MH_CHAINS, 2),
+          tuple(sample.shape))
+    check("mh sample finite", bool(torch.isfinite(sample).all()), "non-finite")
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    mean = sample.mean(dim=(0, 1))
+    var = sample.var(dim=(0, 1), unbiased=False)
+    moved = (sample[1:] != sample[:-1]).any(dim=2)
+    total = MH_CHAINS * MH_COLLECT
+    m = {
+        "elapsed_s": elapsed,
+        "rhat_mean": float(rhat.mean()),
+        "ess_mean": float(ess.mean()),
+        "mean": [float(v) for v in mean],
+        "var": [float(v) for v in var],
+        "accept_rate": float(moved.float().mean()),
+    }
+    del sample, moved
+    check("mh rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    for d in range(2):
+        check(f"mh mean[{d}]", abs(m["mean"][d]) <= 0.03, m["mean"])
+        check(f"mh var[{d}]", abs(m["var"][d] - 1.0) <= 0.05, m["var"])
+    check("mh ess floor", m["ess_mean"] >= 0.02 * total,
+          (m["ess_mean"], total))
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = total / elapsed
+    m["block_us"] = elapsed / per_run * 1e6
+    say("mh_main_path", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=per_run, **counts)
+    return mh, counts
+
+
+def phase_poisson_main_path(dev):
+    """The Poisson stage of bench.py:495-525: int32 states through the
+    public entry point, the pmf gate and the launch counts."""
+    init = torch.zeros((MH_CHAINS, 1), dtype=torch.int32, device=dev)
+    reset_counts()
+    mh = mt.MetropolisHastings(mt.poisson_target(POISSON_LAM),
+                               mt.random_walk_int_proposal(), init,
+                               use_pallas="full",
+                               steps_per_call=POISSON_K).seed(42)
+    sample, elapsed = timed_run(mh, POISSON_COLLECT, POISSON_DISCARD)
+    counts = read_counts()
+    per_run = (POISSON_COLLECT + POISSON_DISCARD) // POISSON_K
+    check("poisson main-path launches and no plain twin",
+          counts == counts_with(mh_multistep=2 * per_run), counts)
+    check("poisson int32 states", sample.dtype == torch.int32
+          and mh.state.positions.dtype == torch.int32
+          and mh.state.logp.dtype == torch.float32, sample.dtype)
+    check("poisson sample shape",
+          tuple(sample.shape) == (MH_CHAINS, POISSON_COLLECT, 1),
+          tuple(sample.shape))
+    ks = sample.reshape(-1).long()
+    check("poisson support", int(ks.min()) >= 0, int(ks.min()))
+    freq = torch.bincount(ks, minlength=11)[:11].double() / ks.numel()
+    k = torch.arange(11, dtype=torch.float64, device=dev)
+    pmf = torch.exp(k * math.log(POISSON_LAM) - POISSON_LAM
+                    - torch.lgamma(k + 1.0))
+    steps = POISSON_COLLECT + POISSON_DISCARD
+    m = {
+        "elapsed_s": elapsed,
+        "pmf_max_abs_err": float((freq - pmf).abs().max()),
+        "draws_per_sec": MH_CHAINS * steps / elapsed,
+        "block_us": elapsed / per_run * 1e6,
+    }
+    check("poisson pmf", m["pmf_max_abs_err"] < 0.05, m["pmf_max_abs_err"])
+    say("poisson_main_path", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=per_run, **counts)
+    return mh, counts
+
+
+def phase_gibbs_main_path(dev):
+    """The Gibbs stage of bench.py:434-478 through the public entry point:
+    warm-up and timed run, the gates of bench.py:464-467 and the launch
+    counts."""
+    mu0, sigma0, mu1, sigma1, pi0 = MIX
+    init = torch.zeros((MH_CHAINS, 2), device=dev)
+    reset_counts()
+    g = mt.GibbsSampler(mt.gaussian_mixture_conditional(*MIX), init,
+                        use_pallas="full", steps_per_call=GIBBS_K).seed(42)
+    sample, elapsed = timed_run(g, GIBBS_COLLECT, 0, time_major=True)
+    counts = read_counts()
+    per_run = GIBBS_COLLECT // GIBBS_K
+    check("gibbs main-path launches and no plain twin",
+          counts == counts_with(gibbs_multistep=2 * per_run), counts)
+    check("gibbs sample shape",
+          tuple(sample.shape) == (GIBBS_COLLECT, MH_CHAINS, 2),
+          tuple(sample.shape))
+    check("gibbs sample finite", bool(torch.isfinite(sample).all()),
+          "non-finite")
+    x = sample[:, :, 0]
+    true_mean = pi0 * mu0 + (1 - pi0) * mu1
+    true_var = (pi0 * (sigma0**2 + (mu0 - true_mean) ** 2)
+                + (1 - pi0) * (sigma1**2 + (mu1 - true_mean) ** 2))
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    m = {
+        "elapsed_s": elapsed,
+        "x_mean": float(x.mean()),
+        "x_var": float(x.var(unbiased=False)),
+        "z_freq": float(sample[:, :, 1].mean()),
+        "rhat_mean": float(rhat.mean()),
+        "ess_mean": float(ess.mean()),
+    }
+    del sample, x
+    check("gibbs x mean", abs(m["x_mean"] - true_mean) <= 0.05, m["x_mean"])
+    check("gibbs x var", abs(m["x_var"] - true_var) <= 0.25, m["x_var"])
+    check("gibbs z freq", abs(m["z_freq"] - (1 - pi0)) <= 0.02, m["z_freq"])
+    check("gibbs rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    m["draws_per_sec"] = MH_CHAINS * GIBBS_COLLECT / elapsed
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["block_us"] = elapsed / per_run * 1e6
+    say("gibbs_main_path", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=per_run, **counts)
+    return g, counts
+
+
+def within_tol(a, b) -> torch.Tensor:
+    """Per element: within MH_RTOL/MH_ATOL of ``b``, or equal."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs() <= MH_ATOL + MH_RTOL * b.abs()) | (a == b)
+
+
+def phase_mh_kernel(mh, label: str, k_steps: int, seed: int) -> dict:
+    """Kernel 5 against its twin for one K-step block from the path's
+    equilibrium state, same key: positions, logp and accepts (a row that
+    moved) per chain."""
+    s = mh.state
+    hk = torch.empty((k_steps,) + tuple(s.positions.shape),
+                     dtype=s.positions.dtype, device=s.positions.device)
+    hp = torch.empty_like(hk)
+    args = (mh.target, mh.proposal, s.positions, s.logp, seed, 0, k_steps)
+    outk = mh_multistep(*args, hk)
+    outp = mh_multistep_plain(*args, hp)
+    torch.cuda.synchronize()
+
+    def accepts(h):
+        prev = torch.cat([s.positions[None], h[:-1]], dim=0)
+        return (h != prev).any(dim=2)
+
+    acc_k = accepts(hk)
+    same_acc = (acc_k == accepts(hp)).all(dim=0)
+    pos_ok = (within_tol(hk, hp).all(dim=2).all(dim=0)
+              & within_tol(outk[0], outp[0]).all(dim=1))
+    logp_ok = within_tol(outk[1], outp[1])
+    shares = {
+        "accepts": float(same_acc.float().mean()),
+        "positions": float((same_acc & pos_ok).float().mean()),
+        "logp": float((same_acc & logp_ok).float().mean()),
+        "positions_equal": float(
+            (hk == hp).all(dim=2).all(dim=0).float().mean()),
+    }
+    agree = same_acc & pos_ok
+    err = max(max_abs_err(hk.transpose(0, 1).double(),
+                          hp.transpose(0, 1).double(), agree),
+              max_abs_err(outk[1], outp[1], agree))
+    say("mh_kernel", path=label, K=k_steps, chains=s.positions.shape[0],
+        dtype=str(s.positions.dtype), accept_rate=float(
+            acc_k.float().mean()),
+        **{f"share_{k}": v for k, v in shares.items()}, max_abs_err=err)
+    for name in ("accepts", "positions", "logp"):
+        check(f"mh kernel {label} {name}", shares[name] >= MH_SHARE,
+              shares[name])
+    if s.positions.dtype == torch.int32:
+        check(f"mh kernel {label} int positions equal",
+              shares["positions_equal"] >= MH_SHARE, shares)
+    return {"err": err, "ms": cuda_ms(lambda: mh_multistep(*args, hk), 20),
+            "plain_ms": cuda_ms(lambda: mh_multistep_plain(*args, hp), 2)}
+
+
+def phase_gibbs_kernel(g, seed: int) -> dict:
+    """Kernel 6 against its twin for one K-sweep block from the Gibbs
+    equilibrium state, same key: x within tolerance and z equal per
+    chain."""
+    pos = g.state.positions
+    hk = torch.empty((GIBBS_K,) + tuple(pos.shape), device=pos.device)
+    hp = torch.empty_like(hk)
+    args = (g.conditional, pos, seed, 0, GIBBS_K)
+    outk = gibbs_multistep(*args, hk)
+    outp = gibbs_multistep_plain(*args, hp)
+    torch.cuda.synchronize()
+    x_ok = (within_tol(hk[..., 0], hp[..., 0]).all(dim=0)
+            & within_tol(outk[:, 0], outp[:, 0]))
+    z_ok = (hk[..., 1] == hp[..., 1]).all(dim=0)
+    shares = {
+        "x": float(x_ok.float().mean()),
+        "z": float(z_ok.float().mean()),
+        "both": float((x_ok & z_ok).float().mean()),
+        "x_equal": float((hk[..., 0] == hp[..., 0]).all(dim=0)
+                         .float().mean()),
+    }
+    err = max_abs_err(hk.transpose(0, 1), hp.transpose(0, 1), x_ok & z_ok)
+    say("gibbs_kernel", K=GIBBS_K, chains=pos.shape[0],
+        z_freq=float(hk[..., 1].mean()),
+        **{f"share_{k}": v for k, v in shares.items()}, max_abs_err=err)
+    check("gibbs kernel x and z", shares["both"] >= MH_SHARE, shares)
+    return {"err": err, "ms": cuda_ms(lambda: gibbs_multistep(*args, hk), 20),
+            "plain_ms": cuda_ms(lambda: gibbs_multistep_plain(*args, hp), 2)}
+
+
+def phase_mh_gibbs_profile(runs) -> None:
+    """``--profile``: one run of each MH and Gibbs path under
+    ``torch.profiler``: device time by kernel and the idle share."""
+    for label, fn in runs:
+        wall, busy, by_name = device_profile(fn)
+        say(f"{label}_profile_run", wall_s=repr(wall),
+            device_busy_us=repr(busy), idle_share=1.0 - busy / (wall * 1e6),
+            kernel_names=len(by_name))
+        for name, (n, us) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:6]:
+            say(f"{label}_profile_kernel", name=repr(name[:60]), count=n,
+                device_us=us, per_launch_us=us / n, share_of_busy=us / busy)
+
+
 def bounds(step_details, subtree_leaves) -> dict:
     """bound_ms and bound_by of each kernel at the shapes of its timing."""
     c, d = N_CHAINS, DIM
     k, L = STEPS_PER_CALL, N_LEAPFROG
-    hmc_step_ops = (L * OPS["rosen3d_leapfrog"] + (d + 1) * OPS["philox_draw"]
-                    + d * OPS["box_muller"] + OPS["hmc_step"])
+    hmc_step_ops = (L * OPS["rosen3d_leapfrog"] + rng_ops(d, 1)
+                    + OPS["hmc_step"])
     out = {
         # Kernel 2: pos, logp, grad, eps in; pos, logp, grad, history out
         "hmc_multistep": bound(
@@ -712,18 +1018,20 @@ def bounds(step_details, subtree_leaves) -> dict:
     out["philox_fill"] = bound(4 * 4 * n, n * OPS["philox_draw"])
     # Kernel 4: pos, eps in; pos and four [C] outputs out. The work is
     # this step's: the leaves each chain integrated, its merges (about
-    # leaves - doublings) and doublings
+    # leaves - doublings) and doublings; per chain two momentum normals
+    # and a uniform each for the slice, every merge and (two) every
+    # doubling
     nc = NUTS_CHAINS
-    leaves = float(step_details["leaves"].double().sum())
-    doublings = float(step_details["depth"].double().sum())
-    merges = max(leaves - doublings, 0.0)
+    leaves_c = step_details["leaves"].double()
+    depth_c = step_details["depth"].double()
+    merges_c = (leaves_c - depth_c).clamp(min=0.0)
     out["nuts_step"] = bound(
         4 * (nc * 2 + nc + nc * 2 + 4 * nc),
-        nc * (OPS["nuts_step"] + 2 * OPS["box_muller"]
-              + 3 * OPS["philox_draw"])
-        + leaves * OPS["nuts_leaf"]
-        + merges * (OPS["nuts_merge"] + OPS["philox_draw"])
-        + doublings * (OPS["nuts_doubling"] + 2 * OPS["philox_draw"]))
+        nc * OPS["nuts_step"]
+        + float(rng_ops(2, 1 + 2 * depth_c + merges_c).sum())
+        + float(leaves_c.sum()) * OPS["nuts_leaf"]
+        + float(merges_c.sum()) * OPS["nuts_merge"]
+        + float(depth_c.sum()) * OPS["nuts_doubling"])
     # Kernel 3 at j = 4: pos, mom, grad, logu, v, eps, joint0, active in;
     # five [C, 2] and six [C] outputs
     sub = float(subtree_leaves[4].double().sum())
@@ -731,6 +1039,23 @@ def bounds(step_details, subtree_leaves) -> dict:
         nc * (4 * (3 * 2 + 4) + 1) + nc * (4 * 5 * 2 + 4 * 4 + 2),
         nc * OPS["nuts_step"] + sub * OPS["nuts_leaf"]
         + max(sub - nc, 0.0) * (OPS["nuts_merge"] + OPS["hash_draw"]))
+    # Kernel 5, one K-step block: pos and logp in and out, K history rows.
+    # A step draws D proposal normals (Gaussian2D) or D coins (Poisson)
+    # and the accept uniform
+    c = MH_CHAINS
+    out["mh_multistep_gauss2d"] = bound(
+        2 * c * (4 * 2 + 4) + MH_K * c * 4 * 2,
+        c * MH_K * (rng_ops(2, 1) + 2 * OPS["isotropic_propose"]
+                    + OPS["gauss2d_logp"] + OPS["mh_step"]))
+    out["mh_multistep_poisson"] = bound(
+        2 * c * (4 + 4) + POISSON_K * c * 4,
+        c * POISSON_K * (rng_ops(0, 2) + OPS["int_walk_propose"]
+                         + OPS["poisson_logp"] + OPS["mh_step"]))
+    # Kernel 6, one K-sweep block: pos in and out, K history rows. A
+    # mixture sweep draws a normal (x) and a uniform (z)
+    out["gibbs_multistep"] = bound(
+        2 * c * 4 * 2 + GIBBS_K * c * 4 * 2,
+        c * GIBBS_K * (rng_ops(1, 1) + OPS["mixture_sweep"]))
     return out
 
 
@@ -759,6 +1084,23 @@ def main() -> None:
     t.update(phase_nuts_times(nuts, dev, step_args))
     if args.profile:
         phase_nuts_profile(nuts, dev, step_args)
+    del nuts
+    torch.cuda.empty_cache()
+    mh, mh_counts = phase_mh_main_path(dev)
+    k5 = {"gauss2d": phase_mh_kernel(mh, "gauss2d", MH_K, 0x5EED_0808)}
+    pois, pois_counts = phase_poisson_main_path(dev)
+    k5["poisson"] = phase_mh_kernel(pois, "poisson", POISSON_K, 0x5EED_4242)
+    g, gibbs_counts = phase_gibbs_main_path(dev)
+    k6 = phase_gibbs_kernel(g, 0x5EED_3232)
+    say("mh_gibbs_times", shape=f"C={MH_CHAINS},gauss2d K={MH_K},poisson "
+        f"K={POISSON_K},gibbs K={GIBBS_K}",
+        **{f"{p}_{k}": repr(v) for p, r in (*k5.items(), ("gibbs", k6))
+           for k, v in r.items() if k != "err"})
+    if args.profile:
+        phase_mh_gibbs_profile((
+            ("mh", lambda: mh.run(MH_COLLECT, 0, time_major=True)),
+            ("poisson", lambda: pois.run(POISSON_COLLECT, POISSON_DISCARD)),
+            ("gibbs", lambda: g.run(GIBBS_COLLECT, 0, time_major=True))))
     b = bounds(step_details, sub_leaves)
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
@@ -783,6 +1125,15 @@ def main() -> None:
         record("nuts_step", "nuts_full.cu", "nuts_full.py:48",
                nuts_counts["nuts_step"], step_err, t["nuts_step_ms"],
                t["nuts_step_plain_ms"]),
+        record("mh_multistep_gauss2d", "mh_multistep.cu", "mh_full.py:50",
+               mh_counts["mh_multistep"], k5["gauss2d"]["err"],
+               k5["gauss2d"]["ms"], k5["gauss2d"]["plain_ms"]),
+        record("mh_multistep_poisson", "mh_multistep.cu", "mh_full.py:50",
+               pois_counts["mh_multistep"], k5["poisson"]["err"],
+               k5["poisson"]["ms"], k5["poisson"]["plain_ms"]),
+        record("gibbs_multistep", "gibbs_multistep.cu", "gibbs_full.py:47",
+               gibbs_counts["gibbs_multistep"], k6["err"], k6["ms"],
+               k6["plain_ms"]),
     ]
     off_path = [
         record("leapfrog_trajectory", "hmc_leapfrog.cu", "hmc.py:46",

@@ -1,7 +1,8 @@
 """mini_mcmc_torch: the PyTorch + CUDA port of mini_mcmc_tpu.
 
-Lockstep batched HMC and NUTS over ``[n_chains, dim]`` tensors, with the
-fused tiers (``use_pallas=True | "full"``) run by hand-written CUDA kernels
+Lockstep batched Metropolis-Hastings, HMC, NUTS and Gibbs over
+``[n_chains, dim]`` tensors, with the fused tiers (``use_pallas=True |
+"full"``) run by hand-written CUDA kernels
 for Hopper (``csrc/``) on CUDA tensors and by their plain PyTorch twins on
 CPU tensors. Samplers and initial positions live on the GPU unless the
 caller passes ``device="cpu"``. The module names mirror ``mini_mcmc_tpu``'s,
@@ -10,20 +11,36 @@ imports it or JAX.
 """
 
 from .diagnostics import ModernDiagnostics, rank_normalized_diagnostics
-from .models import diffable_gaussian2d, rosenbrock_nd, standard_normal
+from .models import (
+    diffable_gaussian2d,
+    gaussian2d,
+    gaussian_mixture_conditional,
+    isotropic_gaussian_proposal,
+    poisson_target,
+    random_walk_int_proposal,
+    rosenbrock_nd,
+    standard_normal,
+)
 from .nuts import NUTS
-from .samplers import HMC
+from .samplers import HMC, GibbsSampler, MetropolisHastings
 from .stats import split_rhat_mean_ess
 from .utils.init import init, init_det, init_with_seed
 
 __all__ = [
+    "GibbsSampler",
     "HMC",
+    "MetropolisHastings",
     "ModernDiagnostics",
     "NUTS",
     "diffable_gaussian2d",
+    "gaussian2d",
+    "gaussian_mixture_conditional",
     "init",
     "init_det",
     "init_with_seed",
+    "isotropic_gaussian_proposal",
+    "poisson_target",
+    "random_walk_int_proposal",
     "rank_normalized_diagnostics",
     "rosenbrock_nd",
     "split_rhat_mean_ess",

@@ -1,8 +1,8 @@
 """Carry chain state and sampler configuration across from the JAX package.
 
-The Rosenbrock and Gaussian models have no weights: what carries over is
-the chain state (positions and their cached logp and gradient for HMC; the
-positions and adaptation state for NUTS) and the sampler's configuration.
+No model here has weights: what carries over is the chain state
+(positions and their cached logp, and the gradient for HMC; the positions
+and adaptation state for NUTS) and the sampler's configuration.
 Everything crosses as numpy arrays, so this module imports neither JAX nor
 the JAX package. States land on ``device``, ``"cuda"`` by default (raises
 without a GPU); pass ``device="cpu"`` for the CPU.
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .ops.hmc import HMCState
+from .ops.mh import MHState
 from .ops.nuts import NUTSState
 from .utils.init import resolve_device
 
@@ -31,6 +32,19 @@ def hmc_state_from_numpy(positions, logp, grad, device="cuda") -> HMCState:
     device = resolve_device(device)
     return HMCState(_f32(positions, device), _f32(logp, device),
                     _f32(grad, device))
+
+
+def mh_state_from_numpy(positions, logp, device="cuda") -> MHState:
+    """An ``MHState`` on ``device`` from numpy arrays: integer positions
+    stay integer (as int32, the kernels' integer type), float positions
+    become float32; logp is float32."""
+    device = resolve_device(device)
+    positions = np.asarray(positions)
+    if np.issubdtype(positions.dtype, np.integer):
+        pos = torch.as_tensor(positions.astype(np.int32), device=device)
+    else:
+        pos = _f32(positions, device)
+    return MHState(pos, _f32(logp, device))
 
 
 def nuts_state_from_numpy(state, device="cuda") -> NUTSState:
@@ -64,8 +78,8 @@ def state_to_numpy(state):
                  for x in state)
 
 
-def _kwargs(jax_sampler, name: str) -> dict:
-    ctor = dict(jax_sampler._ctor)
+def _kwargs(jax_sampler, name: str, ctor=None) -> dict:
+    ctor = dict(jax_sampler._ctor if ctor is None else ctor)
     if getattr(jax_sampler, "metric", None) is not None:
         raise ValueError(f"{name}(metric=...) is not ported yet")
     if ctor.pop("transform", None) is not None:
@@ -87,3 +101,21 @@ def nuts_sampler_kwargs(jax_nuts) -> dict:
     ``_ctor``; drops ``pallas_interpret``/``validate_dc`` and raises for a
     metric or a transform."""
     return _kwargs(jax_nuts, "NUTS")
+
+
+def mh_sampler_kwargs(jax_mh) -> dict:
+    """The port's ``MetropolisHastings`` keyword arguments read from a JAX
+    ``MetropolisHastings``'s ``_ctor``; drops ``pallas_interpret``/
+    ``validate_dc`` and raises for a transform."""
+    return _kwargs(jax_mh, "MetropolisHastings")
+
+
+def gibbs_sampler_kwargs(jax_gibbs, use_pallas=False) -> dict:
+    """The port's ``GibbsSampler`` keyword arguments of a JAX
+    ``GibbsSampler``. It records no ``_ctor`` and exposes no
+    ``use_pallas``, so the caller passes that; ``steps_per_call`` is its
+    step function's ``block_size`` (1 without one). ``pallas_interpret``
+    has no counterpart."""
+    return _kwargs(jax_gibbs, "GibbsSampler", dict(
+        use_pallas=use_pallas,
+        steps_per_call=getattr(jax_gibbs._step_fn, "block_size", 1)))

@@ -1,0 +1,119 @@
+// Kernel 5: K fused Metropolis-Hastings steps per launch.
+//
+// Replaces mini_mcmc_tpu/ops/pallas/mh_full.py:make_pallas_mh_multistep
+// (and its K = 1 form without history). For each of the K steps, per
+// chain: a symmetric proposal drawn by the proposal functor
+// (proposals.cuh), the target's logp there (targets.cuh), and the strict
+// accept `(lp' - lp) > logf(u)` (mh_full.py:91-96, reference
+// metropolis_hastings.rs:309-313) with true selects: a -inf or NaN
+// proposal compares false and leaves the kept state as it was. The kept
+// position goes to hist[k, c, :] through the runner's strides, as in
+// Kernel 2; a null `hist` writes no history.
+//
+// Positions are float or int32_t (discrete targets); the cached logp is
+// float either way (mh_full.py:22-23). Draws: Philox at (chain0 + c,
+// step0 + k, draw, 0) under the run's 64-bit key: draws 0..D-1 the
+// proposal's, draw D the accept uniform (philox.cuh), so the plain twin
+// (ops/kernels/mh_full.py) reproduces them and the cube depends neither on
+// K nor on the grid.
+//
+// What bounds it on the H100: one thread per chain, position and logp in
+// registers for all K steps. At D = 2 a step is three Philox-10
+// evaluations (~83 lane instructions each), two Box-Muller transforms, the
+// quadratic, a logf and the selects, ~360 instructions, against 8 bytes of
+// history: ~45 instructions per byte, far above the card's ~10 per byte of
+// HBM bandwidth, so issue bounds it, not bytes.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hmc_common.cuh"
+#include "philox.cuh"
+#include "proposals.cuh"
+#include "targets.cuh"
+
+namespace {
+
+enum StateType : int { kF32 = 0, kI32 = 1 };
+
+template <class T, class P, class PosT, int D>
+__global__ void __launch_bounds__(mm::kThreads)
+    mh_multistep_kernel(const PosT* __restrict__ pos,
+                        const float* __restrict__ logp,
+                        const float* __restrict__ tparams,
+                        const float* __restrict__ pparams, int k_steps,
+                        int n_chains, uint32_t chain0, uint32_t k0,
+                        uint32_t k1, uint32_t step0,
+                        PosT* __restrict__ pos_out,
+                        float* __restrict__ logp_out,
+                        PosT* __restrict__ hist, long long hist_sk,
+                        long long hist_sc) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n_chains) return;
+  const T t(tparams);
+  const P q(pparams);
+  const uint32_t chain = chain0 + (uint32_t)c;
+  PosT x[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) x[d] = pos[c * D + d];
+  float lp = logp[c];
+
+  for (int k = 0; k < k_steps; ++k) {
+    const uint32_t step = step0 + (uint32_t)k;
+    PosT y[D];
+    q.template propose<D>(x, y, chain, step, k0, k1);
+    const float lpp = t.template logp<D>(y);
+    const float u = mm::uniform_at(chain, step, (uint32_t)D, k0, k1);
+    const bool accept = (lpp - lp) > logf(u);
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = accept ? y[d] : x[d];
+    lp = accept ? lpp : lp;
+    if (hist != nullptr) {
+      PosT* row = hist + (long long)k * hist_sk + (long long)c * hist_sc;
+#pragma unroll
+      for (int d = 0; d < D; ++d) row[d] = x[d];
+    }
+  }
+
+#pragma unroll
+  for (int d = 0; d < D; ++d) pos_out[c * D + d] = x[d];
+  logp_out[c] = lp;
+}
+
+}  // namespace
+
+// The instantiated (target, proposal, state type, D) are those of
+// MH_INSTANCES in ops/kernels/_build.py; any other returns
+// cudaErrorInvalidValue.
+extern "C" int mm_mh_multistep(const void* pos, const void* logp,
+                               const void* tparams, const void* pparams,
+                               int k_steps, int n_chains, int dim,
+                               int target, int proposal, int state_type,
+                               uint32_t chain0, uint32_t seed_lo,
+                               uint32_t seed_hi, uint32_t step0,
+                               void* pos_out, void* logp_out, void* hist,
+                               long long hist_sk, long long hist_sc,
+                               void* stream) {
+  if (n_chains <= 0) return (int)cudaSuccess;
+#define MM_MH(T, P, PosT, D)                                                \
+  mh_multistep_kernel<T, P, PosT, D>                                        \
+      <<<mm::blocks_for(n_chains), mm::kThreads, 0, (cudaStream_t)stream>>>( \
+          (const PosT*)pos, (const float*)logp, (const float*)tparams,      \
+          (const float*)pparams, k_steps, n_chains, chain0, seed_lo,        \
+          seed_hi, step0, (PosT*)pos_out, (float*)logp_out, (PosT*)hist,    \
+          hist_sk, hist_sc)
+  const bool iso = proposal == mm::kIsotropicGaussian && state_type == kF32;
+  if (iso && target == mm::kGaussian2D && dim == 2) {
+    MM_MH(mm::Gaussian2D, mm::IsotropicGaussian, float, 2);
+  } else if (iso && target == mm::kRosenbrockND && dim == 2) {
+    MM_MH(mm::RosenbrockND, mm::IsotropicGaussian, float, 2);
+  } else if (iso && target == mm::kRosenbrockND && dim == 3) {
+    MM_MH(mm::RosenbrockND, mm::IsotropicGaussian, float, 3);
+  } else if (target == mm::kPoisson && proposal == mm::kRandomWalkInt &&
+             state_type == kI32 && dim == 1) {
+    MM_MH(mm::Poisson, mm::RandomWalkInt, int32_t, 1);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef MM_MH
+  return (int)cudaGetLastError();
+}

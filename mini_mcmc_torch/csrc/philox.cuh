@@ -23,6 +23,13 @@
 //     draw 0x20000 + j gives the two words of doubling j's hash seed;
 //     chain 0, draw 0x30000 seeds the step's torch.Generator (the
 //     use_pallas=False and True tiers).
+//   MH (Kernel 5): draws 0..D-1 the proposal's: a normal from words x
+//     and y (isotropic Gaussian walk), or the top bit of word x as a fair
+//     coin, clear meaning +1 (the +-1 integer walk); draw D the accept
+//     uniform (word x); sub-draw 0.
+//   Gibbs (Kernel 6): draw i for coordinate i of each sweep; for the
+//     mixture, coordinate 0 a normal (words x, y), coordinate 1 a uniform
+//     (word x); sub-draw 0.
 // Every draw is then a function of its place in the run alone.
 //
 // The plain PyTorch twin (mini_mcmc_torch/ops/kernels/rng.py) computes the

@@ -10,12 +10,16 @@
 //
 // A functor is built once per thread from the kernel's `params` pointer
 // (Target.cuda_params on the device; null for a functor without
-// coefficients) and keeps its coefficients in registers.
+// coefficients) and keeps its coefficients in registers. `logp` takes the
+// state type of the kernels that run it: float for the HMC, NUTS and MH
+// kernels' continuous targets, int32_t for the MH kernel's discrete ones.
 #pragma once
+
+#include <stdint.h>
 
 namespace mm {
 
-enum TargetId : int { kRosenbrockND = 0, kGaussian2D = 1 };
+enum TargetId : int { kRosenbrockND = 0, kGaussian2D = 1, kPoisson = 2 };
 
 // models/rosenbrock.py:rosenbrock_nd, arithmetic in the JAX form's order:
 // logp = -sum_i [100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2]
@@ -76,6 +80,28 @@ struct Gaussian2D {
     const float d0 = x[0] - m0, d1 = x[1] - m1;
     const float quad = ic00 * d0 * d0 + ic_cross * d0 * d1 + ic11 * d1 * d1;
     return nc - 0.5f * quad;
+  }
+};
+
+// models/discrete.py:poisson_target over int32 states, in the JAX XLA
+// form's order (mini_mcmc_tpu/models/discrete.py:59-63):
+// logp = (k ln(lam) - lam) - lgamma(k + 1), -inf for k < 0. CUDA's lgammaf
+// replaces the JAX package's Lanczos series (utils/mathx.py), which exists
+// only because Mosaic cannot lower lax.lgamma; the product is kept out of
+// an FMA so that the twin (torch.lgamma) rounds it the same way.
+// params: log_lam, lam. MH kernel only, at D = 1.
+struct Poisson {
+  float log_lam, lam;
+
+  __device__ __forceinline__ explicit Poisson(const float* p)
+      : log_lam(__ldg(p + 0)), lam(__ldg(p + 1)) {}
+
+  template <int D>
+  __device__ __forceinline__ float logp(const int32_t (&k)[D]) const {
+    static_assert(D == 1, "Poisson is one-dimensional");
+    const float kf = (float)k[0];
+    const float lp = (__fmul_rn(kf, log_lam) - lam) - lgammaf(kf + 1.0f);
+    return k[0] < 0 ? -__int_as_float(0x7f800000) : lp;  // -inf
   }
 };
 

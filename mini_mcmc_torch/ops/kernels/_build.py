@@ -33,10 +33,25 @@ NVCC_FLAGS = (
 )
 
 #: Target.cuda_functor names -> the ids of csrc/targets.cuh
-FUNCTORS = {"rosenbrock_nd": 0, "gaussian2d": 1}
+FUNCTORS = {"rosenbrock_nd": 0, "gaussian2d": 1, "poisson": 2}
+#: Proposal.cuda_functor names -> the ids of csrc/proposals.cuh
+PROPOSALS = {"isotropic_gaussian": 0, "random_walk_int": 1}
+#: Conditional.cuda_functor names -> the ids of csrc/conditionals.cuh
+CONDITIONALS = {"gaussian_mixture": 0}
 #: dims instantiated by MM_DISPATCH in csrc/hmc_common.cuh (Rosenbrock at
 #: all three, the Gaussian at 2)
 KERNEL_DIMS = (2, 3, 4)
+#: (target, proposal, state dtype, D) instantiated by csrc/mh_multistep.cu
+MH_INSTANCES = (
+    ("gaussian2d", "isotropic_gaussian", torch.float32, 2),
+    ("rosenbrock_nd", "isotropic_gaussian", torch.float32, 2),
+    ("rosenbrock_nd", "isotropic_gaussian", torch.float32, 3),
+    ("poisson", "random_walk_int", torch.int32, 1),
+)
+#: (conditional, D) instantiated by csrc/gibbs_multistep.cu
+GIBBS_INSTANCES = (("gaussian_mixture", 2),)
+#: state dtypes -> csrc/mh_multistep.cu:StateType
+STATE_TYPES = {torch.float32: 0, torch.int32: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,24 +60,56 @@ _I32 = ctypes.c_int32
 _LL = ctypes.c_longlong
 
 
+def form_id(name: str | None, table: dict, kind: str) -> int:
+    """The id in ``table`` of the built-in CUDA form ``name`` of a
+    ``kind`` (Target, Proposal, Conditional); raises for ``None`` (a
+    Python-only form, which the kernels cannot run) or an unknown name."""
+    if name is None:
+        raise ValueError(
+            f"use_pallas needs a {kind} with a built-in CUDA form "
+            f"({kind}.cuda_functor, one of {sorted(table)}); user code "
+            "inside hand-written kernels is not supported yet (ROADMAP.md, "
+            "Queue 1: 'User densities inside hand-written kernels'). Use "
+            "use_pallas=False."
+        )
+    if name not in table:
+        raise ValueError(f"unknown {kind}.cuda_functor {name!r}; built in: "
+                         f"{sorted(table)}")
+    return table[name]
+
+
 def functor_id(target) -> int:
     """The kernel id of ``target``'s built-in CUDA density; raises for a
     target that has none (the kernels cannot run a Python density)."""
-    name = target.cuda_functor
-    if name is None:
+    return form_id(target.cuda_functor, FUNCTORS, "Target")
+
+
+def proposal_id(proposal) -> int:
+    """The MH kernel's id of ``proposal``'s built-in CUDA form; raises for
+    a proposal that has none."""
+    return form_id(proposal.cuda_functor, PROPOSALS, "Proposal")
+
+
+def conditional_id(conditional) -> int:
+    """The Gibbs kernel's id of ``conditional``'s built-in CUDA form;
+    raises for a conditional that has none."""
+    return form_id(conditional.cuda_functor, CONDITIONALS, "Conditional")
+
+
+def hist_args(hist, k: int, c: int, d: int, dtype, device) -> tuple:
+    """``(pointer, step stride, chain stride)`` of a ``[K, C, D]`` history
+    view for a kernel's launch, ``(None, 0, 0)`` for no history; raises
+    unless ``hist`` has that shape, ``dtype``, lies on ``device`` and has
+    a unit D stride (any other strides: time- or chain-major cubes)."""
+    if hist is None:
+        return None, 0, 0
+    if (hist.shape != (k, c, d) or hist.dtype != dtype
+            or hist.device != device or hist.stride(2) != 1):
         raise ValueError(
-            "use_pallas on a CUDA tensor needs a Target with a built-in "
-            "CUDA density (Target.cuda_functor, one of "
-            f"{sorted(FUNCTORS)}); user densities inside hand-written "
-            "kernels are not supported yet (ROADMAP.md, Queue 1: 'User "
-            "densities inside hand-written kernels'). Use use_pallas=False."
-        )
-    if name not in FUNCTORS:
-        raise ValueError(
-            f"unknown Target.cuda_functor {name!r}; built in: "
-            f"{sorted(FUNCTORS)}"
-        )
-    return FUNCTORS[name]
+            f"hist must be a {str(dtype).replace('torch.', '')} [{k}, {c}, "
+            f"{d}] view on {device} with unit D stride; got {hist.dtype} "
+            f"{tuple(hist.shape)} strides {hist.stride()}")
+    return hist.data_ptr(), hist.stride(0), hist.stride(1)
 
 
 @functools.lru_cache(maxsize=64)
@@ -148,6 +195,10 @@ def lib() -> ctypes.CDLL:
         + [_P] * 12,
         "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I, _I, _I]
         + [_P] * 6,
+        "mm_mh_multistep": [_P] * 4 + [_I] * 6 + [_U] * 4 + [_P] * 3
+        + [_LL, _LL, _P],
+        "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
+        + [_LL, _LL, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(handle, name)

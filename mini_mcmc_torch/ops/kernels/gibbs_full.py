@@ -1,0 +1,129 @@
+"""Kernel 6: K fused Gibbs sweeps per launch (``csrc/gibbs_multistep.cu``).
+
+Replaces ``mini_mcmc_tpu/ops/pallas/gibbs_full.py:
+make_pallas_gibbs_multistep`` and its K = 1 form without history. Per
+sweep and chain, coordinate ``i = 0..D-1`` in order is drawn from its full
+conditional given the state already updated at coordinates ``< i``, by the
+conditional's built-in form (``csrc/conditionals.cuh``); each post-sweep
+state is written to ``hist[k]``. float32 states only, as in the JAX
+package.
+
+``hist``, ``seed``, ``step0`` and ``chain0`` are as in Kernel 5
+(``mh_full.py``): coordinate ``i`` draws Philox at ``(chain0 + c,
+step0 + k, i, 0)``.
+
+What bounds it on the H100: issue. A mixture sweep is ~300 lane
+instructions (two Philox-10 evaluations, a Box-Muller transform, two
+``expf``, a division) against 8 bytes of history per chain; its three
+random words need only one evaluation (~180 instructions, the bound of
+``chip_smoke.py:bounds``).
+
+:func:`gibbs_multistep` launches the CUDA kernel for CUDA tensors and runs
+:func:`gibbs_multistep_plain` for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ...models.mixture import mixture_coordinate
+from . import _build, rng
+
+_MASK = 0xFFFFFFFF
+
+
+def _mixture_from_words(params, i, states, w0, w1):
+    if i == 0:
+        return mixture_coordinate(params, 0, states,
+                                  rng.box_muller(w0, w1), None)
+    return mixture_coordinate(params, i, states, None, rng.unit_open(w0))
+
+
+#: each built-in conditional's draw of coordinate ``i`` from Philox words
+#: x and y of draw ``i``, as ``csrc/conditionals.cuh`` draws it:
+#: ``(cuda_params, i, states [C, D], w0, w1) -> [C]``
+SAMPLE_FROM_WORDS = {"gaussian_mixture": _mixture_from_words}
+
+
+def gibbs_instance(conditional, dim: int) -> int:
+    """The kernel's conditional id; raises ``ValueError`` for a conditional
+    without a CUDA form or not instantiated at ``dim``, naming the
+    instances that exist. Resolved once per (form, D), then read from a
+    cache on every launch."""
+    return _gibbs_id(conditional.cuda_functor, dim)
+
+
+@functools.cache
+def _gibbs_id(name: str | None, dim: int) -> int:
+    cid = _build.form_id(name, _build.CONDITIONALS, "Conditional")
+    if (name, dim) not in _build.GIBBS_INSTANCES:
+        built = ", ".join(f"({n}, D={d})" for n, d in _build.GIBBS_INSTANCES)
+        raise ValueError(f"the Gibbs kernel is built for (conditional, D) in "
+                         f"{built}; got ({name}, D={dim})")
+    return cid
+
+
+def gibbs_multistep_plain(conditional, pos, seed: int, step0: int,
+                          k_steps: int, hist=None, *, chain0: int = 0,
+                          words=None):
+    """Plain PyTorch twin of the kernel, drawing the same Philox words.
+
+    ``words = (w0, w1)``, int64 ``[K, C, D]``, replace the Philox words.
+    Returns ``pos'``.
+    """
+    gibbs_multistep_plain.calls += 1
+    sample = SAMPLE_FROM_WORDS.get(conditional.cuda_functor)
+    if sample is None:
+        _build.conditional_id(conditional)  # raises, naming the built-ins
+    c, d = pos.shape
+    for k in range(k_steps):
+        if words is None:
+            w0, w1 = rng.step_words(c, d, (step0 + k) & _MASK, seed,
+                                    pos.device, chain0)
+        else:
+            w0, w1 = words[0][k], words[1][k]
+        pos = pos.clone()
+        for i in range(d):
+            pos[:, i] = sample(conditional.cuda_params, i, pos, w0[:, i],
+                               w1[:, i])
+        if hist is not None:
+            hist[k] = pos
+    return pos
+
+
+gibbs_multistep_plain.calls = 0
+
+
+def gibbs_multistep(conditional, pos, seed: int, step0: int, k_steps: int,
+                    hist=None, *, chain0: int = 0):
+    """``k_steps`` Gibbs sweeps of ``conditional`` from ``pos [C, D]``;
+    returns ``pos'`` and writes each post-sweep state into ``hist`` when
+    given."""
+    if not pos.is_cuda:
+        return gibbs_multistep_plain(conditional, pos, seed, step0, k_steps,
+                                     hist, chain0=chain0)
+    if pos.dim() != 2:
+        raise ValueError(f"positions must be [C, D]; got {tuple(pos.shape)}")
+    c, d = pos.shape
+    cid = gibbs_instance(conditional, d)
+    if pos.dtype != torch.float32 or not pos.is_contiguous():
+        raise ValueError("the Gibbs kernel takes contiguous float32 "
+                         f"positions; got {pos.dtype}")
+    hist_ptr, hist_sk, hist_sc = _build.hist_args(hist, k_steps, c, d,
+                                                  torch.float32, pos.device)
+    pos_o = torch.empty_like(pos)
+    seed_lo, seed_hi = rng.seed_words(seed)
+    lib = _build.lib()
+    gibbs_multistep.launches += 1
+    _build.check(lib.mm_gibbs_multistep(
+        pos.data_ptr(), _build.params_ptr(conditional, pos.device), k_steps,
+        c, d, cid, chain0 & _MASK, seed_lo, seed_hi, step0 & _MASK,
+        pos_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
+        _build.stream_ptr(pos.device),
+    ))
+    return pos_o
+
+
+gibbs_multistep.launches = 0

@@ -70,17 +70,8 @@ def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
     k = eps.shape[0]
     if (eps.dim() != 1 or logp.shape != (c,) or grad.shape != pos.shape):
         raise ValueError("expected pos/grad [C, D], logp [C] and eps [K]")
-    hist_ptr, hist_sk, hist_sc = None, 0, 0
-    if hist is not None:
-        if (hist.shape != (k, c, d) or hist.dtype != torch.float32
-                or hist.device != pos.device or hist.stride(2) != 1):
-            raise ValueError(
-                f"hist must be a float32 [{k}, {c}, {d}] view on "
-                f"{pos.device} with unit D stride; got {hist.dtype} "
-                f"{tuple(hist.shape)} strides {hist.stride()}"
-            )
-        hist_ptr, hist_sk, hist_sc = (hist.data_ptr(), hist.stride(0),
-                                      hist.stride(1))
+    hist_ptr, hist_sk, hist_sc = _build.hist_args(hist, k, c, d,
+                                                  torch.float32, pos.device)
     pos_o = torch.empty_like(pos)
     grad_o = torch.empty_like(pos)
     logp_o = torch.empty_like(logp)

@@ -1,0 +1,150 @@
+"""Kernel 5: K fused Metropolis-Hastings steps per launch
+(``csrc/mh_multistep.cu``).
+
+Replaces ``mini_mcmc_tpu/ops/pallas/mh_full.py:make_pallas_mh_multistep``
+and its K = 1 form without history. Per step and chain: a symmetric
+proposal drawn from the Philox stream by the proposal's built-in form
+(``csrc/proposals.cuh``), the target's logp there (``csrc/targets.cuh``),
+the strict accept ``(lp' - lp) > log(u)`` with true selects, and the kept
+position written to ``hist[k]``.
+
+Positions are float32 or int32 (discrete targets); the cached logp is
+float32. ``hist`` is a ``[K, C, D]`` view into the runner's preallocated
+cube (any strides with a unit D stride), written in place. ``seed`` is the
+run's 64-bit Philox key, ``step0`` the global step of the block's first
+step and ``chain0`` the index of the first chain, so the draws depend on
+neither the grouping of steps into blocks nor a split of the chains.
+
+What bounds it on the H100: issue. At D = 2 a step is ~360 lane
+instructions (three Philox-10 evaluations, two Box-Muller transforms, the
+quadratic, a ``logf``) against 8 bytes of history per chain; its two
+normals and one uniform need only one evaluation and one Box-Muller pair
+(~170 instructions, the bound of ``chip_smoke.py:bounds``).
+
+:func:`mh_multistep` launches the CUDA kernel for CUDA tensors and runs
+:func:`mh_multistep_plain` for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ...models.discrete import int_walk
+from . import _build, rng
+
+_MASK = 0xFFFFFFFF
+
+
+def _int_walk_from_words(params, current, w0, w1):
+    del w1
+    clip_low, clip_high, has_high = params
+    return int_walk(current, w0 < 2**31, int(clip_low),
+                    int(clip_high) if has_high else None)
+
+
+#: each built-in proposal's draw from Philox words x and y of draws
+#: ``0..D-1``, as ``csrc/proposals.cuh`` draws it:
+#: ``(cuda_params, current [C, D], w0, w1) -> proposed [C, D]``
+PROPOSE_FROM_WORDS = {
+    "isotropic_gaussian":
+        lambda params, x, w0, w1: x + params[0] * rng.box_muller(w0, w1),
+    "random_walk_int": _int_walk_from_words,
+}
+
+
+def mh_instance(target, proposal, dtype, dim: int) -> tuple[int, int, int]:
+    """The kernel's (target, proposal, state type) ids; raises
+    ``ValueError`` for a pair without a CUDA form or not instantiated at
+    ``dtype`` and ``dim``, naming the instances that exist. Resolved once
+    per (forms, dtype, D), then read from a cache on every launch."""
+    return _mh_ids(target.cuda_functor, proposal.cuda_functor, dtype, dim)
+
+
+@functools.cache
+def _mh_ids(target: str | None, proposal: str | None, dtype,
+            dim: int) -> tuple[int, int, int]:
+    tid = _build.form_id(target, _build.FUNCTORS, "Target")
+    pid = _build.form_id(proposal, _build.PROPOSALS, "Proposal")
+    if (target, proposal, dtype, dim) not in _build.MH_INSTANCES:
+        built = ", ".join(f"({t}, {p}, {str(dt).replace('torch.', '')}, "
+                          f"D={d})" for t, p, dt, d in _build.MH_INSTANCES)
+        raise ValueError(
+            "the MH kernel is built for (target, proposal, state dtype, D) "
+            f"in {built}; got ({target}, {proposal}, "
+            f"{str(dtype).replace('torch.', '')}, D={dim})")
+    return tid, pid, _build.STATE_TYPES[dtype]
+
+
+def mh_multistep_plain(target, proposal, pos, logp, seed: int, step0: int,
+                       k_steps: int, hist=None, *, chain0: int = 0,
+                       words=None):
+    """Plain PyTorch twin of the kernel, drawing the same Philox words.
+
+    ``words = (w0, w1)``, int64 ``[K, C, D + 1]``, replace the Philox words
+    (parity tests feed both packages the same draws). Returns
+    ``(pos', logp')``.
+    """
+    mh_multistep_plain.calls += 1
+    propose = PROPOSE_FROM_WORDS.get(proposal.cuda_functor)
+    if propose is None:
+        _build.proposal_id(proposal)  # raises, naming the built-in forms
+    c, d = pos.shape
+    for k in range(k_steps):
+        if words is None:
+            w0, w1 = rng.step_words(c, d + 1, (step0 + k) & _MASK, seed,
+                                    pos.device, chain0)
+        else:
+            w0, w1 = words[0][k], words[1][k]
+        prop = propose(proposal.cuda_params, pos, w0[:, :d], w1[:, :d])
+        lp = target.batch_logp(prop)
+        u = rng.unit_open(w0[:, d])
+        accept = (lp - logp) > torch.log(u)  # NaN compares False
+        pos = torch.where(accept[:, None], prop, pos)
+        logp = torch.where(accept, lp, logp)
+        if hist is not None:
+            hist[k] = pos
+    return pos, logp
+
+
+mh_multistep_plain.calls = 0
+
+
+def mh_multistep(target, proposal, pos, logp, seed: int, step0: int,
+                 k_steps: int, hist=None, *, chain0: int = 0):
+    """``k_steps`` MH steps of ``target`` under ``proposal`` from
+    ``(pos [C, D], logp [C])``; returns ``(pos', logp')`` and writes the
+    kept rows into ``hist`` when given."""
+    if not pos.is_cuda:
+        return mh_multistep_plain(target, proposal, pos, logp, seed, step0,
+                                  k_steps, hist, chain0=chain0)
+    if pos.dim() != 2:
+        raise ValueError(f"positions must be [C, D]; got {tuple(pos.shape)}")
+    c, d = pos.shape
+    tid, pid, state_type = mh_instance(target, proposal, pos.dtype, d)
+    if (logp.shape != (c,) or logp.dtype != torch.float32
+            or logp.device != pos.device):
+        raise ValueError(f"logp must be float32 [{c}] on {pos.device}; got "
+                         f"{logp.dtype} {tuple(logp.shape)} on {logp.device}")
+    if not (pos.is_contiguous() and logp.is_contiguous()):
+        raise ValueError("the CUDA kernels take contiguous tensors")
+    hist_ptr, hist_sk, hist_sc = _build.hist_args(hist, k_steps, c, d,
+                                                  pos.dtype, pos.device)
+    pos_o = torch.empty_like(pos)
+    logp_o = torch.empty_like(logp)
+    seed_lo, seed_hi = rng.seed_words(seed)
+    lib = _build.lib()
+    mh_multistep.launches += 1
+    _build.check(lib.mm_mh_multistep(
+        pos.data_ptr(), logp.data_ptr(),
+        _build.params_ptr(target, pos.device),
+        _build.params_ptr(proposal, pos.device), k_steps, c, d, tid, pid,
+        state_type, chain0 & _MASK, seed_lo, seed_hi, step0 & _MASK,
+        pos_o.data_ptr(), logp_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
+        _build.stream_ptr(pos.device),
+    ))
+    return pos_o, logp_o
+
+
+mh_multistep.launches = 0

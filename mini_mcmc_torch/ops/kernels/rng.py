@@ -18,7 +18,11 @@ sub-draw ``i * (max_depth + 1) + k`` the merge uniform at leaf ``i``,
 cascade position ``k``. The ``use_pallas=True`` NUTS tier takes its
 subtree hash seeds from chain 0, draw ``0x20000 + j``, and the plain NUTS
 tiers seed each step's ``torch.Generator`` from chain 0, draw ``0x30000``
-(``ops/nuts.py``).
+(``ops/nuts.py``). MH (Kernel 5): draws ``0..D-1`` the proposal's (a
+normal from words x and y for the isotropic walk; the top bit of word x,
+clear meaning +1, for the integer walk), draw ``D`` the accept uniform.
+Gibbs (Kernel 6): draw ``i`` for coordinate ``i`` (the mixture: a normal
+for x, a uniform from word x for z).
 The full table is in ``csrc/philox.cuh``.
 """
 
@@ -96,13 +100,22 @@ def box_muller(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return r * torch.cos(_TWO_PI * u2)
 
 
+def step_words(n_chains: int, n_draws: int, step: int, seed: int,
+               device=None, chain0: int = 0):
+    """Words x and y (int64 ``[C, n_draws]``) of the counters
+    ``(chain0 + c, step, draw, 0)`` for ``draw < n_draws``: one step's
+    draws for every chain, from one Philox evaluation."""
+    chain = torch.arange(chain0, chain0 + n_chains,
+                         device=device).reshape(-1, 1)
+    draw = torch.arange(n_draws, device=device).reshape(1, -1)
+    w0, w1, _, _ = philox4x32_10(chain, step, draw, 0, seed_words(seed))
+    return w0, w1
+
+
 def step_draws(n_chains: int, dim: int, step: int, seed: int, device=None):
     """One step's draws for every chain: ``[C, D]`` momentum normals (draws
-    ``0..D-1``) and ``[C]`` accept uniforms (draw ``D``), from one Philox
-    evaluation over the ``[C, D + 1]`` counters."""
-    chain = torch.arange(n_chains, device=device).reshape(-1, 1)
-    draw = torch.arange(dim + 1, device=device).reshape(1, -1)
-    w0, w1, _, _ = philox4x32_10(chain, step, draw, 0, seed_words(seed))
+    ``0..D-1``) and ``[C]`` accept uniforms (draw ``D``)."""
+    w0, w1 = step_words(n_chains, dim + 1, step, seed, device)
     return box_muller(w0[:, :dim], w1[:, :dim]), unit_open(w0[:, dim])
 
 

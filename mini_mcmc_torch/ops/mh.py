@@ -1,0 +1,120 @@
+"""Batched Metropolis-Hastings step kernel (counterpart of
+``mini_mcmc_tpu/ops/mh.py``).
+
+All chains advance in lockstep as a ``[C, D]`` batch: propose, evaluate the
+target and both proposal log densities, and accept with a ``where``
+(reference ``MHMarkovChain::step``, ``metropolis_hastings.rs:303-315``).
+Integer states stay integer; the cached target log density is carried in
+the state, so each step evaluates the target once.
+
+Randomness: the plain tier draws the proposal and the accept uniform from
+``key.generator``; the fused tier (``use_pallas="full"``) draws both from
+the Philox stream at ``(key.seed, chain, key.step, draw)`` inside Kernel 5
+(``kernels/mh_full.py``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..runner import StepKey, make_scan_block_fn
+from .kernels._build import proposal_id
+from .kernels.mh_full import mh_multistep
+
+
+class MHState(NamedTuple):
+    positions: torch.Tensor  # [C, D], float or integer dtype
+    logp: torch.Tensor  # [C] cached target log density at positions
+
+
+def _plain_mh_step(target, proposal, state: MHState, key: StepKey):
+    """One batched MH update; returns ``(MHState, log_accept [C])``.
+
+    Keeps both q terms: ``log alpha = (logp' + log q(x | x')) - (logp +
+    log q(x' | x))`` and accepts iff ``log alpha > ln(u)``, strictly
+    (``metropolis_hastings.rs:309-313``); HMC's accept is ``>=``."""
+    pos = state.positions
+    gen = key.generator
+    proposed = proposal.sample(gen, pos)
+    proposed_lp = target.batch_logp(proposed)
+    log_q_fwd = proposal.logp(pos, proposed)
+    log_q_bwd = proposal.logp(proposed, pos)
+    log_accept = (proposed_lp + log_q_bwd) - (state.logp + log_q_fwd)
+    u = torch.rand((pos.shape[0],), generator=gen, dtype=log_accept.dtype,
+                   device=pos.device)
+    accept = log_accept > torch.log(u)  # NaN compares False
+    positions = torch.where(accept[:, None], proposed, pos)
+    logp = torch.where(accept, proposed_lp, state.logp)
+    return MHState(positions, logp), log_accept
+
+
+def mh_step_alpha(target, proposal_family):
+    """Adaptation hook for the proposal scale: ``proposal_family(factor) ->
+    Proposal`` (``Proposal.scaled``). Returns ``step_eps(state, key,
+    factor) -> (MHState, mean_alpha)``, ``mean_alpha`` the cross-chain mean
+    of ``min(1, exp(log_accept))`` with NaN counted as 0."""
+
+    def step_eps(state: MHState, key: StepKey, factor):
+        state, log_accept = _plain_mh_step(
+            target, proposal_family(float(factor)), state, key)
+        alpha = torch.clamp(torch.exp(log_accept), max=1.0)
+        return state, torch.mean(torch.nan_to_num(alpha, nan=0.0))
+
+    return step_eps
+
+
+def mh_kernel(target, proposal, *, use_pallas=False, steps_per_call: int = 1):
+    """Build ``(init_fn, step_fn)`` for batched MH.
+
+    ``init_fn(positions [C, D]) -> MHState``;
+    ``step_fn(state, key: StepKey) -> MHState``.
+
+    ``use_pallas="full"`` runs whole steps in Kernel 5
+    (``kernels/mh_full.py``): it needs a symmetric proposal with a
+    built-in CUDA form (``Proposal.cuda_functor``; the plain twin draws
+    through it on CPU tensors too) and, on CUDA tensors, a target with
+    one. ``steps_per_call`` > 1 attaches ``step_fn.block_fn(state, key,
+    out=None) -> state`` and ``step_fn.block_size`` = K: one Kernel 5
+    launch per K steps with ``"full"``, else K calls of ``step_fn``.
+    Every kept position is recorded; nothing is thinned.
+    """
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    full = False
+    if use_pallas:
+        if use_pallas != "full":
+            raise ValueError(
+                "MH has no trajectory to fuse separately: the only fused "
+                f'variant is use_pallas="full"; got {use_pallas!r}')
+        if not proposal.symmetric:
+            raise ValueError(
+                'use_pallas="full" requires a symmetric proposal (the '
+                "kernel skips the q terms, which cancel)")
+        proposal_id(proposal)  # raises for a proposal without a CUDA form
+        full = True
+
+    def init_fn(positions: torch.Tensor) -> MHState:
+        return MHState(positions, target.batch_logp(positions))
+
+    def step_fn(state: MHState, key: StepKey) -> MHState:
+        if full:
+            return MHState(*mh_multistep(target, proposal, state.positions,
+                                         state.logp, key.seed, key.step, 1))
+        return _plain_mh_step(target, proposal, state, key)[0]
+
+    if steps_per_call > 1:
+        k = steps_per_call
+        if full:
+
+            def block_fn(state: MHState, key: StepKey, out=None):
+                return MHState(*mh_multistep(
+                    target, proposal, state.positions, state.logp, key.seed,
+                    key.step, k, out))
+        else:
+            block_fn = make_scan_block_fn(step_fn, k)
+        step_fn.block_fn = block_fn
+        step_fn.block_size = k
+
+    return init_fn, step_fn

@@ -1,6 +1,7 @@
 """User-facing sampler objects.
 
-Counterpart of ``mini_mcmc_tpu/samplers.py`` (``_KernelSampler``, ``HMC``):
+Counterpart of ``mini_mcmc_tpu/samplers.py`` (``_KernelSampler``,
+``MetropolisHastings``, ``HMC``, ``GibbsSampler``):
 construct with a target and initial positions, optionally ``seed``, then
 ``run(n_collect, n_discard)`` returns the ``[n_chains, n_collect, dim]``
 sample cube. The sampler carries the state between runs, so consecutive
@@ -19,8 +20,12 @@ from typing import Optional
 
 import torch
 
+from .ops.gibbs import gibbs_kernel
 from .ops.hmc import hmc_kernel
 from .ops.kernels._build import functor_id
+from .ops.kernels.gibbs_full import gibbs_instance
+from .ops.kernels.mh_full import mh_instance
+from .ops.mh import mh_kernel
 from .runner import StepKey, make_block_runner, make_simple_runner
 from .utils.init import resolve_device
 
@@ -97,6 +102,56 @@ class _KernelSampler:
         return sample
 
 
+class MetropolisHastings(_KernelSampler):
+    """Batched Metropolis-Hastings over parallel chains.
+
+    Mirrors ``mini_mcmc_tpu.MetropolisHastings``'s constructor, so one
+    kwargs dict builds both packages (``convert.mh_sampler_kwargs``).
+    ``use_pallas="full"`` runs K whole steps per launch of Kernel 5
+    (``ops/mh.py:mh_kernel``); it needs a symmetric proposal with a
+    built-in CUDA form and, on CUDA positions, an instantiated (target,
+    proposal, state dtype, D), and raises ``ValueError`` otherwise.
+
+    The state keeps the initial positions' dtype (an int32 init stays
+    int32; its logp is float32). The sampler runs on ``device``
+    (``"cuda"`` by default; it raises without a GPU); pass ``device="cpu"``
+    for the plain tier and the kernel's plain twin on the CPU.
+
+    Not ported yet (ROADMAP.md, Queue 1): ``tuned`` (needs
+    ``ops/adapt.py``), ``run_progress`` and ``transform=``, which raises.
+    ``pallas_interpret`` and ``validate_dc`` have no counterpart.
+
+    Example:
+        >>> import mini_mcmc_torch as mt
+        >>> from mini_mcmc_torch.models import (gaussian2d,
+        ...                                     isotropic_gaussian_proposal)
+        >>> mh = mt.MetropolisHastings(
+        ...     gaussian2d([0., 0.], [[1., 0.], [0., 1.]]),
+        ...     isotropic_gaussian_proposal(1.0),
+        ...     mt.init_det(4, 2, device="cpu"), device="cpu").seed(42)
+        >>> tuple(mh.run(1000, 100).shape)
+        (4, 1000, 2)
+    """
+
+    def __init__(self, target, proposal, initial_positions,
+                 seed: Optional[int] = None, use_pallas=False,
+                 steps_per_call: int = 1, transform=None, *,
+                 device="cuda"):
+        if transform is not None:
+            raise ValueError("MetropolisHastings(transform=...) is not "
+                             "ported yet (ROADMAP.md, Queue 1)")
+        self.target = target
+        self.proposal = proposal
+        positions = initial_positions_on(initial_positions, device)
+        init_fn, step_fn = mh_kernel(target, proposal, use_pallas=use_pallas,
+                                     steps_per_call=steps_per_call)
+        if use_pallas and positions.is_cuda and positions.dim() == 2:
+            # a pair the kernel cannot run: raise now
+            mh_instance(target, proposal, positions.dtype,
+                        positions.shape[1])
+        super().__init__(init_fn, step_fn, positions, seed)
+
+
 class HMC(_KernelSampler):
     """Batched Hamiltonian Monte Carlo (data-parallel leapfrog).
 
@@ -131,4 +186,33 @@ class HMC(_KernelSampler):
         init_fn, step_fn = hmc_kernel(target, step_size, n_leapfrog,
                                       use_pallas=use_pallas, jitter=jitter,
                                       steps_per_call=steps_per_call)
+        super().__init__(init_fn, step_fn, positions, seed)
+
+
+class GibbsSampler(_KernelSampler):
+    """Batched Gibbs sampler: one step is one full coordinate sweep
+    (reference ``gibbs.rs:95-99``).
+
+    Mirrors ``mini_mcmc_tpu.GibbsSampler``'s constructor.
+    ``use_pallas="full"`` runs K whole sweeps per launch of Kernel 6
+    (``ops/gibbs.py:gibbs_kernel``); it needs a conditional with a built-in
+    CUDA form (``Conditional.cuda_functor``) and, on CUDA positions,
+    float32 states at an instantiated D. ``steps_per_call`` > 1 fuses K
+    sweeps per call (run lengths must then be multiples of K). Runs on
+    ``device`` (``"cuda"`` by default); ``device="cpu"`` runs the plain
+    tier and the kernel's plain twin on the CPU.
+    """
+
+    def __init__(self, conditional, initial_positions,
+                 seed: Optional[int] = None, use_pallas=False,
+                 steps_per_call: int = 1, *, device="cuda"):
+        self.conditional = conditional
+        positions = initial_positions_on(initial_positions, device)
+        init_fn, step_fn = gibbs_kernel(conditional, use_pallas=use_pallas,
+                                        steps_per_call=steps_per_call)
+        if use_pallas and positions.is_cuda:
+            gibbs_instance(conditional, positions.shape[-1])  # raise now
+            if positions.dtype != torch.float32:
+                raise ValueError('GibbsSampler(use_pallas="full") is '
+                                 f"float32-only; got {positions.dtype}")
         super().__init__(init_fn, step_fn, positions, seed)

@@ -11,16 +11,33 @@ NUTS kernels make discrete choices (slice counts, U-turns, accepts) on
 float comparisons that one ulp can flip, so they are held per chain: the
 same choices and values within tolerance on at least 99.9% of chains,
 all fields on chains whose subtree continues (``s``), the accumulators on
-every chain.
+every chain. The MH and Gibbs kernels likewise: the same accepts (or z
+draws) and values within rtol 1e-5 / atol 1e-6 on at least 99.9% of
+chains, integer positions equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mini_mcmc_torch import HMC, NUTS
-from mini_mcmc_torch.models import Target, diffable_gaussian2d, rosenbrock_nd
+from mini_mcmc_torch import HMC, NUTS, GibbsSampler, MetropolisHastings
+from mini_mcmc_torch.models import (
+    Proposal,
+    Target,
+    constant_conditional,
+    diffable_gaussian2d,
+    gaussian2d,
+    gaussian_mixture_conditional,
+    isotropic_gaussian_proposal,
+    poisson_target,
+    random_walk_int_proposal,
+    rosenbrock_nd,
+)
 from mini_mcmc_torch.ops.kernels import rng
+from mini_mcmc_torch.ops.kernels.gibbs_full import (
+    gibbs_multistep,
+    gibbs_multistep_plain,
+)
 from mini_mcmc_torch.ops.kernels.hmc import (
     leapfrog_trajectory,
     leapfrog_trajectory_plain,
@@ -28,6 +45,10 @@ from mini_mcmc_torch.ops.kernels.hmc import (
 from mini_mcmc_torch.ops.kernels.hmc_full import (
     hmc_multistep,
     hmc_multistep_plain,
+)
+from mini_mcmc_torch.ops.kernels.mh_full import (
+    mh_multistep,
+    mh_multistep_plain,
 )
 from mini_mcmc_torch.ops.kernels.nuts_full import nuts_step, nuts_step_plain
 from mini_mcmc_torch.ops.kernels.nuts_subtree import subtree, subtree_plain
@@ -213,3 +234,116 @@ def test_cuda_nuts_full_raises_without_functor_or_f32(cuda):
         NUTS(g, x, 0.8, max_depth=12, use_pallas="full")
     out = NUTS(g, x, 0.8, use_pallas="full").seed(1).run(8, 8)
     assert out.is_cuda and torch.isfinite(out).all()
+
+
+MIX = (-2.0, 1.0, 3.0, 1.5, 0.5)
+
+
+def _near(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).abs() <= 1e-6 + 1e-5 * b.abs()) | (a == b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gauss2d", "rosenbrock2", "rosenbrock3",
+                                   "poisson"])
+def test_cuda_mh_multistep_matches_plain(cuda, which):
+    c, k = 8192, 16
+    g = np.random.default_rng(40)
+    if which == "gauss2d":
+        t = gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+        p = isotropic_gaussian_proposal(1.0)
+        x = torch.from_numpy(g.standard_normal((c, 2)).astype(np.float32))
+    elif which.startswith("rosenbrock"):
+        # the reference's rosenbrock_mh example samples D = 2
+        t, p = rosenbrock_nd(), isotropic_gaussian_proposal(0.1)
+        x = torch.from_numpy(_state(c, int(which[-1]), seed=40)[0])
+    else:
+        t, p = poisson_target(4.0), random_walk_int_proposal()
+        x = torch.from_numpy(g.integers(0, 10, (c, 1)).astype(np.int32))
+    x = x.to(cuda)
+    lp = t.batch_logp(x)
+    hk = torch.empty((k,) + tuple(x.shape), dtype=x.dtype, device=cuda)
+    hp = torch.empty_like(hk)
+    n = mh_multistep.launches
+    pk, lk = mh_multistep(t, p, x, lp, 0xFACE, 3, k, hk)
+    assert mh_multistep.launches == n + 1
+    pp, lpp = mh_multistep_plain(t, p, x, lp, 0xFACE, 3, k, hp)
+    torch.cuda.synchronize()
+    assert pk.dtype == x.dtype and lk.dtype == torch.float32
+    agree = _near(hk, hp).all(2).all(0) & _near(pk, pp).all(1)
+    agree &= _near(lk, lpp)
+    assert _share(agree) >= 0.999
+    if which == "poisson":
+        assert _share((hk == hp).all(2).all(0)) >= 0.999
+    moved = (hk[1:] != hk[:-1]).any(2)
+    assert 0.1 < _share(moved) < 0.95
+
+
+@pytest.mark.cuda
+def test_cuda_gibbs_multistep_matches_plain(cuda):
+    c, k = 8192, 32
+    g = np.random.default_rng(41)
+    x = np.stack([g.normal(0.5, 3.0, c), g.integers(0, 2, c)], axis=1)
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    cond = gaussian_mixture_conditional(*MIX)
+    hk = torch.empty((k, c, 2), device=cuda)
+    hp = torch.empty_like(hk)
+    n = gibbs_multistep.launches
+    out = gibbs_multistep(cond, x, 0xD1CE, 5, k, hk)
+    assert gibbs_multistep.launches == n + 1
+    want = gibbs_multistep_plain(cond, x, 0xD1CE, 5, k, hp)
+    torch.cuda.synchronize()
+    x_ok = _near(hk[..., 0], hp[..., 0]).all(0) & _near(out[:, 0],
+                                                        want[:, 0])
+    z_ok = (hk[..., 1] == hp[..., 1]).all(0)
+    assert _share(x_ok & z_ok) >= 0.999
+    assert 0.3 < float(hk[..., 1].mean()) < 0.7
+
+
+@pytest.mark.cuda
+def test_cuda_mh_gibbs_philox_draws_equal_plain(cuda):
+    # the MH and Gibbs layouts: (chain, step, draw 0..D, 0) at a step
+    # past 2**31 and the largest chain index
+    key = 0x0DDBA11CAFE
+    for c1, c2 in ((2**31 + 5, 0), (7, 1), (7, 2), (2**32 - 1, 1)):
+        got = rng.philox_fill(1 << 16, c1, c2, key, cuda)
+        w0, w1 = rng.step_words(1 << 16, c2 + 1, c1, key, cuda)
+        assert torch.equal(got[:, 0], w0[:, c2])
+        assert torch.equal(got[:, 1], w1[:, c2])
+
+
+@pytest.mark.cuda
+def test_cuda_mh_gibbs_functor_and_dtype_errors(cuda):
+    t = gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    walk = isotropic_gaussian_proposal(1.0)
+    x = torch.zeros((256, 2), device=cuda)
+    with pytest.raises(ValueError, match="float32, D=2"):
+        MetropolisHastings(t, walk, x.double(), use_pallas="full")
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        MetropolisHastings(Target(logp=t.logp), walk, x, use_pallas="full")
+    no_form = Proposal(sample=walk.sample, logp=walk.logp, symmetric=True)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        MetropolisHastings(t, no_form, x, use_pallas="full")
+    with pytest.raises(ValueError, match="random_walk_int, int32"):
+        MetropolisHastings(poisson_target(4.0), walk,
+                           torch.zeros((256, 1), device=cuda),
+                           use_pallas="full")
+    cond = gaussian_mixture_conditional(*MIX)
+    with pytest.raises(ValueError, match="float32"):
+        GibbsSampler(cond, x.double(), use_pallas="full")
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        GibbsSampler(constant_conditional(1.0), x, use_pallas="full")
+    with pytest.raises(ValueError, match="D=2"):
+        GibbsSampler(cond, torch.zeros((256, 3), device=cuda),
+                     use_pallas="full")
+    # the plain tiers need no CUDA form, and the fused ones run
+    assert MetropolisHastings(t, no_form, x).run(4).is_cuda
+    out = MetropolisHastings(poisson_target(4.0), random_walk_int_proposal(),
+                             torch.zeros((256, 1), dtype=torch.int32,
+                                         device=cuda), use_pallas="full",
+                             steps_per_call=4).seed(1).run(8, 4)
+    assert out.dtype == torch.int32 and int(out.min()) >= 0
+    out = GibbsSampler(cond, x, use_pallas="full", steps_per_call=4).seed(
+        1).run(8, 4)
+    assert torch.isfinite(out).all()
