@@ -51,7 +51,31 @@ Phases, one line each (every check raises on failure):
     ``bench_gibbs`` gates and Kernel 6's launch count (256 per run);
 17. Kernels 5 (both instances) and 6 against their plain versions for one
     block from each path's equilibrium state and one key, and their times
-    (CUDA events); with ``--profile``, each path under ``torch.profiler``.
+    (CUDA events); with ``--profile``, each path under ``torch.profiler``;
+18. the large-D HMC stage of ``bench.py:553-660`` (standard normal,
+    D = 10,000, 1,024 chains, eps 0.1, L = 10, ``run(128, 128)`` twice,
+    a 5.24 GB cube) through ``mini_mcmc_torch.HMC(use_pallas="separable")``
+    and through the plain tier: the four ``bench.py:635-640`` gates on each,
+    time per run, draws/s, coordinate updates/s, the speedup over the plain
+    tier, Kernel 7's launch count (256 per run);
+19. its L-scaling sub-stage (``bench.py:668-700``: seed 3, eps 0.05,
+    L = 40, ``run(32, 32)``) through both tiers: the moment gates, the
+    speedup, Kernel 7's launch count (64 per run);
+20. Kernel 7 against its plain version for one step from the stage's
+    equilibrium state (the proposal per chain against a float64 twin, the
+    three sums at rtol 1e-5, the draws under two launch grids) and both
+    times (CUDA events, L = 10 and 40);
+21. the tempering stage of ``bench.py:858-909`` (the 0.3/0.7 mixture of
+    N(-8, 0.5^2) and N(8, 0.5^2), 8,192 chains started at -8, 8 rungs,
+    K = 16, ``run(2048, 0)`` twice) through
+    ``mini_mcmc_torch.ParallelTempering(use_pallas="full")`` and through
+    the plain tier: the four ``bench.py:890-898`` gates on each, time per
+    run, cold draws/s, replica updates/s, Kernel 8's launch count (128 per
+    run);
+22. Kernel 8 against its plain version for one K = 16 block from the
+    stage's equilibrium state (positions, logp, swap EWMA and history
+    equal per chain), and both times (CUDA events); with ``--profile``,
+    both stages under ``torch.profiler``.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -64,6 +88,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -84,12 +109,21 @@ from mini_mcmc_torch.ops.kernels.hmc_full import (
     hmc_multistep,
     hmc_multistep_plain,
 )
+from mini_mcmc_torch.ops.kernels.hmc_sep import (
+    hmc_separable,
+    hmc_separable_plain,
+)
 from mini_mcmc_torch.ops.kernels.mh_full import (
     mh_multistep,
     mh_multistep_plain,
 )
 from mini_mcmc_torch.ops.kernels.nuts_full import nuts_step, nuts_step_plain
 from mini_mcmc_torch.ops.kernels.nuts_subtree import subtree, subtree_plain
+from mini_mcmc_torch.ops.kernels.pt_full import (
+    make_ladder,
+    pt_multistep,
+    pt_multistep_plain,
+)
 from mini_mcmc_torch.utils.profiling import device_profile
 
 # the flagship configuration of bench.py:64-92
@@ -133,6 +167,17 @@ MIX = (-2.0, 1.0, 3.0, 1.5, 0.5)  # mu0, sigma0, mu1, sigma1, pi0
 MH_RTOL, MH_ATOL = 1e-5, 1e-6
 MH_SHARE = 0.999
 
+# the large-D HMC stage of bench.py:553-700
+SEP_CHAINS, SEP_DIM, SEP_COLLECT, SEP_L, SEP_EPS = 1024, 10_000, 128, 10, 0.1
+SEP_L40, SEP_EPS40, SEP_COLLECT40 = 40, 0.05, 32
+SEP_DIAG_DIM = 1024  # R-hat and ESS on the contiguous [128, 1024, 1024]
+# Kernel 7 against its twin: the three per-chain sums at rtol 1e-5
+SEP_SUM_RTOL = 1e-5
+
+# the tempering stage of bench.py:858-909
+PT_CHAINS, PT_COLLECT, PT_TEMPS, PT_K = 8192, 2048, 8, 16
+PT_W_PLUS = 0.7
+
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over 3.35 TB/s and its operations over the issue
 # rate. Operations are lane instructions counted from the CUDA sources
@@ -162,6 +207,12 @@ OPS = {
     "int_walk_propose": 5,  # coin, add, the two clamps
     "poisson_logp": 45,  # lgammaf, the product, the k < 0 select
     "mixture_sweep": 60,  # two expf, a division, selects, the x draw
+    "sep_leapfrog": 2,  # per coordinate: the drift and the kick FMAs (the
+                        # standard normal's derivative folds into the kick)
+    "sep_coord": 8,  # first half kick, the three sums, load and store
+    "mixture1d_logp": 45,  # two divisions, the squares, expf, log1pf
+    "pt_update": 22,  # proposal, the accept's logf, product and selects
+    "pt_swap": 25,  # logf, the product, compare, four selects, the EWMA
 }
 
 
@@ -254,6 +305,8 @@ KERNELS = {
     "nuts_subtree": subtree,
     "mh_multistep": mh_multistep,
     "gibbs_multistep": gibbs_multistep,
+    "hmc_separable": hmc_separable,
+    "pt_multistep": pt_multistep,
 }
 TWINS = {
     "plain_multistep_calls": hmc_multistep_plain,
@@ -262,6 +315,8 @@ TWINS = {
     "plain_subtree_calls": subtree_plain,
     "plain_mh_multistep_calls": mh_multistep_plain,
     "plain_gibbs_multistep_calls": gibbs_multistep_plain,
+    "plain_hmc_separable_calls": hmc_separable_plain,
+    "plain_pt_multistep_calls": pt_multistep_plain,
 }
 
 
@@ -301,8 +356,23 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     so = _build.build()
     _build.lib()
-    regs = [line.strip() for line in so.with_suffix(".log").read_text()
-            .splitlines() if "registers" in line]
+    # ptxas -v: each entry function's registers and stack, by kernel and
+    # template arguments (the mangled name, its namespace prefix cut)
+    regs, name = [], "?"
+    for line in so.with_suffix(".log").read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            ns = re.match(r"_ZN(\d+)", name)  # _ZN <length> <namespace>
+            if ns:
+                name = name[ns.end() + int(ns.group(1)):]
+            name = re.split(r"E+v", re.sub(r"^\d+", "", name))[0]
+        used = re.search(r"Used (\d+) registers.*?(\d+) bytes cumulative"
+                         r" stack|Used (\d+) registers", line)
+        if used:
+            n_regs = used.group(1) or used.group(3)
+            regs.append(f"{name[:60]}: {n_regs} regs, "
+                        f"{used.group(2) or 0} B stack")
     say("build", seconds=round(time.perf_counter() - t0, 3), lib=so.name,
         ptxas=repr(regs))
 
@@ -983,8 +1053,8 @@ def phase_gibbs_kernel(g, seed: int) -> dict:
             "plain_ms": cuda_ms(lambda: gibbs_multistep_plain(*args, hp), 2)}
 
 
-def phase_mh_gibbs_profile(runs) -> None:
-    """``--profile``: one run of each MH and Gibbs path under
+def phase_runs_profile(runs) -> None:
+    """``--profile``: one run of each ``(label, fn)`` path under
     ``torch.profiler``: device time by kernel and the idle share."""
     for label, fn in runs:
         wall, busy, by_name = device_profile(fn)
@@ -995,6 +1065,279 @@ def phase_mh_gibbs_profile(runs) -> None:
                                     key=lambda kv: -kv[1][1])[:6]:
             say(f"{label}_profile_kernel", name=repr(name[:60]), count=n,
                 device_us=us, per_launch_us=us / n, share_of_busy=us / busy)
+
+
+def phase_sep_main_path(dev):
+    """The large-D stage of bench.py:553-660 through the public entry
+    point on both tiers: a burn-in run and the timed run, the gates of
+    bench.py:635-640 and the launch counts of both runs. Returns the
+    separable tier's sampler (its cubes freed), its counts and the metrics
+    of both tiers."""
+    out, counts = {}, None
+    for tier in ("separable", False):
+        reset_counts()
+        h = mt.HMC(mt.standard_normal(),
+                   mt.init_with_seed(SEP_CHAINS, SEP_DIM, seed=2, device=dev),
+                   SEP_EPS, SEP_L, use_pallas=tier).seed(2)
+        sample, elapsed = timed_run(h, SEP_COLLECT, SEP_COLLECT,
+                                    time_major=True)
+        c = read_counts()
+        steps = 2 * SEP_COLLECT  # run(n, n) is 2n sampler steps
+        label = "separable" if tier else "plain"
+        if tier:
+            counts, sep = c, h
+            check("sep main-path launches and no plain twin",
+                  c == counts_with(hmc_separable=2 * steps), c)
+        else:
+            check("sep plain tier launches no kernel",
+                  not any(c[k] for k in KERNELS), c)
+        check(f"sep {label} sample", tuple(sample.shape) == (
+            SEP_COLLECT, SEP_CHAINS, SEP_DIM) and bool(
+                torch.isfinite(sample).all()), tuple(sample.shape))
+        var, mean = torch.var_mean(sample, correction=0)
+        rhat, ess = mt.split_rhat_mean_ess(
+            sample[:, :, :SEP_DIAG_DIM].contiguous(), time_major=True)
+        moved = (sample[1:, :, 0] != sample[:-1, :, 0]).float().mean()
+        m = {
+            "elapsed_s": elapsed, "mean": float(mean), "var": float(var),
+            "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
+            "accept_rate": float(moved),
+            "steps_per_sec": steps / elapsed,
+            "draws_per_sec": steps * SEP_CHAINS / elapsed,
+            "coordinate_updates_per_sec":
+                steps * SEP_CHAINS * SEP_DIM / elapsed,
+            "grad_evals_per_sec": steps * SEP_CHAINS * SEP_L / elapsed,
+            "step_us": elapsed / steps * 1e6,
+        }
+        del sample, rhat, ess
+        if not tier:
+            del h
+        torch.cuda.empty_cache()
+        check(f"sep {label} mean", abs(m["mean"]) < 0.02, m["mean"])
+        check(f"sep {label} var", abs(m["var"] - 1.0) < 0.05, m["var"])
+        check(f"sep {label} rhat", 0.95 <= m["rhat_mean"] <= 1.05,
+              m["rhat_mean"])
+        check(f"sep {label} ess floor",
+              m["ess_mean"] >= 0.02 * SEP_CHAINS * SEP_COLLECT,
+              (m["ess_mean"], SEP_CHAINS * SEP_COLLECT))
+        out[label] = m
+    out["separable"]["speedup_vs_plain"] = (out["plain"]["elapsed_s"]
+                                            / out["separable"]["elapsed_s"])
+    for label, m in out.items():
+        say(f"sep_main_path_{label}", **{k: repr(v) for k, v in m.items()},
+            **(dict(launches_per_run=2 * SEP_COLLECT, **counts)
+               if label == "separable" else {}))
+    return sep, counts, out
+
+
+def phase_sep_l40(dev) -> dict:
+    """The L-scaling sub-stage of bench.py:668-700 on both tiers: the
+    moment gates, the times and Kernel 7's launch count."""
+    out = {}
+    for tier in ("separable", False):
+        label = "separable" if tier else "plain"
+        reset_counts()
+        h = mt.HMC(mt.standard_normal(),
+                   mt.init_with_seed(SEP_CHAINS, SEP_DIM, seed=3, device=dev),
+                   SEP_EPS40, SEP_L40, use_pallas=tier).seed(3)
+        cube, elapsed = timed_run(h, SEP_COLLECT40, SEP_COLLECT40,
+                                  time_major=True)
+        c = read_counts()
+        steps = 2 * SEP_COLLECT40
+        check(f"sep L40 {label} launches", c == counts_with(
+            hmc_separable=2 * steps) if tier else not any(
+                c[k] for k in KERNELS), c)
+        var, mean = torch.var_mean(cube, correction=0)
+        m = {"elapsed_s": elapsed, "mean": float(mean), "var": float(var),
+             "draws_per_sec": steps * SEP_CHAINS / elapsed,
+             "grad_evals_per_sec": steps * SEP_CHAINS * SEP_L40 / elapsed,
+             "launches": c["hmc_separable"]}
+        del cube, h
+        torch.cuda.empty_cache()
+        check(f"sep L40 {label} finite and mean", abs(m["mean"]) < 0.03,
+              m["mean"])
+        check(f"sep L40 {label} var", abs(m["var"] - 1.0) < 0.06, m["var"])
+        out[label] = m
+    out["separable"]["speedup_vs_plain"] = (out["plain"]["elapsed_s"]
+                                            / out["separable"]["elapsed_s"])
+    for label, m in out.items():
+        say(f"sep_L40_{label}", L=SEP_L40, eps=SEP_EPS40,
+            **{k: repr(v) for k, v in m.items()},
+            launches_per_run=2 * SEP_COLLECT40 if label == "separable" else 0)
+    return out
+
+
+def phase_sep_kernel(sep, dev) -> dict:
+    """Kernel 7 against its twin for one step from the stage's
+    equilibrium state, same key and step: the proposal per chain against
+    the twin run in float64 on the same draws (the kernel contracts FMAs),
+    the three sums at rtol 1e-5, and the same draws under a launch grid of
+    4x the D-tiles. Then the times of both at L = 10 and 40."""
+    target, pos = sep.target, sep.state.positions
+    tables = torch.empty((0, SEP_DIM), device=dev)  # standard_normal's none
+    eps = torch.tensor([SEP_EPS], device=dev)
+    seed, step = 0x5EED_7777_0101, 5
+    args = (target, pos, eps, SEP_L, seed, step, tables)
+    got = hmc_separable(*args)
+    want = hmc_separable_plain(*args)
+    ref = hmc_separable_plain(target, pos.double(), eps.double(), SEP_L,
+                              seed, step, tables.double())
+    small = hmc_separable(*args, threads=64)
+    torch.cuda.synchronize()
+    shares = {
+        "kernel_vs_f64": float(chain_agree(got[0], ref[0].float())
+                               .float().mean()),
+        "plain_vs_f64": float(chain_agree(want[0], ref[0].float())
+                              .float().mean()),
+        "kernel_vs_plain": float(chain_agree(got[0], want[0])
+                                 .float().mean()),
+    }
+
+    def sums_close(a, b):
+        a, b = a.double(), b.double()
+        return bool(((a - b).abs() <= SEP_SUM_RTOL * b.abs()).all())
+
+    names = ("logp", "ke0", "ke1")
+    sums = {f"{n}_{w}": sums_close(a, b) for w, other in (
+        ("f64", ref), ("plain", want), ("grid", got))
+        for n, a, b in zip(names, (small if w == "grid" else got)[1:4],
+                           other[1:4])}
+    grid_equal = bool(torch.equal(small[0], got[0]))
+    err = max_abs_err(got[0], want[0])
+    say("sep_kernel", chains=SEP_CHAINS, D=SEP_DIM, L=SEP_L,
+        **{f"share_{k}": v for k, v in shares.items()},
+        **{f"sums_{k}_within_rtol": v for k, v in sums.items()},
+        proposal_equal_across_grids=grid_equal, max_abs_err=err,
+        max_abs_err_f64=max_abs_err(got[0].double(), ref[0]),
+        max_rel_err_logp_f64=float(((got[1].double() - ref[1]).abs()
+                                    / ref[1].abs()).max()))
+    check("sep kernel proposal vs float64",
+          shares["kernel_vs_f64"] >= max(shares["plain_vs_f64"] - 1e-3,
+                                         0.999), shares)
+    for k, v in sums.items():
+        check(f"sep kernel sums {k}", v, k)
+    check("sep kernel draws independent of the grid", grid_equal, "differ")
+    del ref, want, small
+    t = {"err": err,
+         "ms": cuda_ms(lambda: hmc_separable(*args), 20),
+         "plain_ms": cuda_ms(lambda: hmc_separable_plain(*args), 3)}
+    args40 = (target, pos, torch.tensor([SEP_EPS40], device=dev), SEP_L40,
+              seed, step, tables)
+    t["ms_L40"] = cuda_ms(lambda: hmc_separable(*args40), 20)
+    t["plain_ms_L40"] = cuda_ms(lambda: hmc_separable_plain(*args40), 3)
+    say("sep_times", shape=f"C={SEP_CHAINS},D={SEP_DIM}",
+        **{k: repr(v) for k, v in t.items() if k != "err"})
+    return t
+
+
+def pt_mixture() -> "mt.models.Target":
+    """The tempering stage's target, built as bench.py:863-880 builds its
+    own: the 0.3/0.7 mixture of N(-8, 0.5^2) and N(8, 0.5^2), naming the
+    CUDA mixture functor."""
+    lw0, lw1 = math.log(1 - PT_W_PLUS), math.log(PT_W_PLUS)
+
+    def logp(x):
+        a = lw0 - 0.5 * ((x[..., 0] + 8.0) / 0.5) ** 2
+        b = lw1 - 0.5 * ((x[..., 0] - 8.0) / 0.5) ** 2
+        return torch.logaddexp(a, b)
+
+    return mt.models.Target(logp=logp, cuda_functor="gaussian_mixture_1d",
+                            cuda_params=(lw0, -8.0, 0.5, lw1, 8.0, 0.5))
+
+
+def phase_pt_main_path(dev):
+    """The tempering stage of bench.py:858-909 through the public entry
+    point on both tiers: warm-up and timed run, the gates of
+    bench.py:890-898 and the launch counts of both runs. Returns the
+    fused tier's sampler, its counts and the metrics of both tiers."""
+    out, counts = {}, None
+    for tier in ("full", False):
+        label = "full" if tier else "plain"
+        reset_counts()
+        pt = mt.ParallelTempering(
+            pt_mixture(), torch.full((PT_CHAINS, 1), -8.0, device=dev),
+            betas=mt.geometric_betas(PT_TEMPS, 0.01), proposal_std=1.0,
+            steps_per_call=PT_K, use_pallas=tier).seed(5)
+        sample, elapsed = timed_run(pt, PT_COLLECT, 0, time_major=True)
+        c = read_counts()
+        per_run = PT_COLLECT // PT_K
+        if tier:
+            counts, fused = c, pt
+            check("pt main-path launches and no plain twin",
+                  c == counts_with(pt_multistep=2 * per_run), c)
+        else:
+            check("pt plain tier launches no kernel",
+                  not any(c[k] for k in KERNELS), c)
+        check(f"pt {label} sample", tuple(sample.shape) == (
+            PT_COLLECT, PT_CHAINS, 1) and bool(torch.isfinite(sample).all()),
+            tuple(sample.shape))
+        xs = sample.reshape(-1)
+        plus = xs[xs > 0].double()
+        swap = pt.swap_acceptance
+        m = {
+            "elapsed_s": elapsed,
+            "mode_weight": float((xs > 0).float().mean()),
+            "plus_mean": float(plus.mean()),
+            "plus_std": float(plus.std(unbiased=False)),
+            "swap_acceptance": [float(v) for v in swap],
+            "cold_draws_per_sec": PT_CHAINS * PT_COLLECT / elapsed,
+            "replica_updates_per_sec":
+                PT_CHAINS * PT_TEMPS * PT_COLLECT / elapsed,
+            "block_us": elapsed / per_run * 1e6,
+        }
+        del sample, xs, plus
+        check(f"pt {label} mode weight",
+              abs(m["mode_weight"] - PT_W_PLUS) <= 0.05, m["mode_weight"])
+        check(f"pt {label} mode mean", abs(m["plus_mean"] - 8.0) <= 0.05,
+              m["plus_mean"])
+        check(f"pt {label} mode std", abs(m["plus_std"] - 0.5) <= 0.05,
+              m["plus_std"])
+        check(f"pt {label} swap rates alive", bool((swap > 0.05).all()),
+              m["swap_acceptance"])
+        out[label] = m
+    out["full"]["speedup_vs_plain"] = (out["plain"]["elapsed_s"]
+                                       / out["full"]["elapsed_s"])
+    for label, m in out.items():
+        say(f"pt_main_path_{label}", **{k: repr(v) for k, v in m.items()},
+            **(dict(launches_per_run=PT_COLLECT // PT_K, **counts)
+               if label == "full" else {}))
+    return fused, counts, out
+
+
+def phase_pt_kernel(pt, seed: int) -> dict:
+    """Kernel 8 against its twin for one K-step block from the stage's
+    equilibrium state, same key: positions, logp, swap EWMA and the
+    history rows equal per chain."""
+    s = pt.state
+    c = s.positions.shape[2]
+    hk = torch.empty((PT_K, c, 1), device=s.positions.device)
+    hp = torch.empty_like(hk)
+    lad = make_ladder(pt.betas, 1.0, 1, s.positions.device)
+    args = (pt.target, s.positions, s.raw_logp, s.swap_accept, s.parity,
+            lad, seed, 0, PT_K, 1)
+    got = pt_multistep(*args, hk)
+    want = pt_multistep_plain(*args, hp)
+    torch.cuda.synchronize()
+    equal = {
+        "positions": (got[0] == want[0]).all(1).all(0),
+        "logp": (got[1] == want[1]).all(0),
+        "swap_accept": (got[2] == want[2]).all(0),
+        "history": (hk == hp).all(2).all(0),
+    }
+    shares = {k: float(v.float().mean()) for k, v in equal.items()}
+    same = equal["positions"] & equal["history"]
+    err = max(max_abs_err(hk.transpose(0, 1), hp.transpose(0, 1)),
+              max_abs_err(got[0], want[0]))
+    say("pt_kernel", K=PT_K, T=PT_TEMPS, chains=c, parity=s.parity,
+        accept_rate=float((hk[1:] != hk[:-1]).float().mean()),
+        **{f"share_equal_{k}": v for k, v in shares.items()},
+        share_all_equal=float((same & equal["logp"]
+                               & equal["swap_accept"]).float().mean()),
+        max_abs_err=err)
+    for k, v in shares.items():
+        check(f"pt kernel {k} equal", v >= MH_SHARE, shares)
+    return {"err": err, "ms": cuda_ms(lambda: pt_multistep(*args, hk), 20),
+            "plain_ms": cuda_ms(lambda: pt_multistep_plain(*args, hp), 2)}
 
 
 def bounds(step_details, subtree_leaves) -> dict:
@@ -1056,6 +1399,28 @@ def bounds(step_details, subtree_leaves) -> dict:
     out["gibbs_multistep"] = bound(
         2 * c * 4 * 2 + GIBBS_K * c * 4 * 2,
         c * GIBBS_K * (rng_ops(1, 1) + OPS["mixture_sweep"]))
+    # Kernel 7, one step: pos in, the proposal out, three [C] partials.
+    # Per coordinate L leapfrogs, the sums, and its momentum normal
+    c, d = SEP_CHAINS, SEP_DIM
+    for name, n_leapfrog in (("hmc_separable", SEP_L),
+                             ("hmc_separable_L40", SEP_L40)):
+        out[name] = bound(
+            4 * (2 * c * d + 3 * c + 1),
+            c * (d * (n_leapfrog * OPS["sep_leapfrog"] + OPS["sep_coord"])
+                 + rng_ops(d, 0)))
+    # Kernel 8, one K-step block from parity 0 at T rungs, D = 1: pos,
+    # logp and the swap EWMA in and out, K history rows. A step draws a
+    # proposal normal and an accept uniform per rung and a uniform per
+    # active swap pair (pairs t = parity, parity + 2, ...)
+    c, t = PT_CHAINS, PT_TEMPS
+    ops = 0.0
+    for k in range(PT_K):
+        active = len(range(k % 2, t - 1, 2))
+        ops += (rng_ops(t, t + active)
+                + t * (OPS["mixture1d_logp"] + OPS["pt_update"])
+                + active * OPS["pt_swap"])
+    out["pt_multistep"] = bound(
+        2 * 4 * c * (t + t + t - 1) + PT_K * c * 4, c * ops)
     return out
 
 
@@ -1097,10 +1462,28 @@ def main() -> None:
         **{f"{p}_{k}": repr(v) for p, r in (*k5.items(), ("gibbs", k6))
            for k, v in r.items() if k != "err"})
     if args.profile:
-        phase_mh_gibbs_profile((
+        phase_runs_profile((
             ("mh", lambda: mh.run(MH_COLLECT, 0, time_major=True)),
             ("poisson", lambda: pois.run(POISSON_COLLECT, POISSON_DISCARD)),
             ("gibbs", lambda: g.run(GIBBS_COLLECT, 0, time_major=True))))
+    del mh, pois, g
+    torch.cuda.empty_cache()
+    sep, sep_counts, _ = phase_sep_main_path(dev)
+    sep40 = phase_sep_l40(dev)
+    k7 = phase_sep_kernel(sep, dev)
+    if args.profile:
+        phase_runs_profile((("sep", lambda: sep.run(
+            SEP_COLLECT, SEP_COLLECT, time_major=True)),))
+    del sep
+    torch.cuda.empty_cache()
+    pt, pt_counts, _ = phase_pt_main_path(dev)
+    k8 = phase_pt_kernel(pt, 0x5EED_8888)
+    say("pt_times", shape=f"C={PT_CHAINS},T={PT_TEMPS},K={PT_K},D=1",
+        **{k: repr(v) for k, v in k8.items() if k != "err"})
+    if args.profile:
+        phase_runs_profile((("pt", lambda: pt.run(
+            PT_COLLECT, 0, time_major=True)),))
+    del pt
     b = bounds(step_details, sub_leaves)
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
@@ -1134,6 +1517,15 @@ def main() -> None:
         record("gibbs_multistep", "gibbs_multistep.cu", "gibbs_full.py:47",
                gibbs_counts["gibbs_multistep"], k6["err"], k6["ms"],
                k6["plain_ms"]),
+        record("hmc_separable", "hmc_separable.cu", "hmc_bigd.py:177",
+               sep_counts["hmc_separable"], k7["err"], k7["ms"],
+               k7["plain_ms"], launches_L40=sep40["separable"]["launches"],
+               ms_L40=k7["ms_L40"], plain_ms_L40=k7["plain_ms_L40"],
+               bound_ms_L40=b["hmc_separable_L40"][0],
+               bound_by_L40=b["hmc_separable_L40"][1]),
+        record("pt_multistep", "pt_multistep.cu", "tempering_full.py:61",
+               pt_counts["pt_multistep"], k8["err"], k8["ms"],
+               k8["plain_ms"]),
     ]
     off_path = [
         record("leapfrog_trajectory", "hmc_leapfrog.cu", "hmc.py:46",

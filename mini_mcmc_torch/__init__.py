@@ -1,8 +1,8 @@
 """mini_mcmc_torch: the PyTorch + CUDA port of mini_mcmc_tpu.
 
-Lockstep batched Metropolis-Hastings, HMC, NUTS and Gibbs over
-``[n_chains, dim]`` tensors, with the fused tiers (``use_pallas=True |
-"full"``) run by hand-written CUDA kernels
+Lockstep batched Metropolis-Hastings, HMC, NUTS, Gibbs and parallel
+tempering over ``[n_chains, dim]`` tensors, with the fused tiers
+(``use_pallas=True | "full" | "separable"``) run by hand-written CUDA kernels
 for Hopper (``csrc/``) on CUDA tensors and by their plain PyTorch twins on
 CPU tensors. Samplers and initial positions live on the GPU unless the
 caller passes ``device="cpu"``. The module names mirror ``mini_mcmc_tpu``'s,
@@ -22,7 +22,8 @@ from .models import (
     standard_normal,
 )
 from .nuts import NUTS
-from .samplers import HMC, GibbsSampler, MetropolisHastings
+from .ops.tempering import geometric_betas, tune_betas
+from .samplers import HMC, GibbsSampler, MetropolisHastings, ParallelTempering
 from .stats import split_rhat_mean_ess
 from .utils.init import init, init_det, init_with_seed
 
@@ -32,9 +33,11 @@ __all__ = [
     "MetropolisHastings",
     "ModernDiagnostics",
     "NUTS",
+    "ParallelTempering",
     "diffable_gaussian2d",
     "gaussian2d",
     "gaussian_mixture_conditional",
+    "geometric_betas",
     "init",
     "init_det",
     "init_with_seed",
@@ -45,4 +48,5 @@ __all__ = [
     "rosenbrock_nd",
     "split_rhat_mean_ess",
     "standard_normal",
+    "tune_betas",
 ]

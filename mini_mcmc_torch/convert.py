@@ -2,7 +2,8 @@
 
 No model here has weights: what carries over is the chain state
 (positions and their cached logp, and the gradient for HMC; the positions
-and adaptation state for NUTS) and the sampler's configuration.
+and adaptation state for NUTS; the replica ladder for parallel tempering)
+and the sampler's configuration.
 Everything crosses as numpy arrays, so this module imports neither JAX nor
 the JAX package. States land on ``device``, ``"cuda"`` by default (raises
 without a GPU); pass ``device="cpu"`` for the CPU.
@@ -13,9 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.hmc import HMCState
+from .ops.hmc import HMCSepState, HMCState
 from .ops.mh import MHState
 from .ops.nuts import NUTSState
+from .ops.tempering import PTState
 from .utils.init import resolve_device
 
 #: JAX constructor keywords with no counterpart in the port
@@ -32,6 +34,13 @@ def hmc_state_from_numpy(positions, logp, grad, device="cuda") -> HMCState:
     device = resolve_device(device)
     return HMCState(_f32(positions, device), _f32(logp, device),
                     _f32(grad, device))
+
+
+def hmc_sep_state_from_numpy(positions, logp, device="cuda") -> HMCSepState:
+    """An ``HMCSepState`` (the separable tier's, no gradient) of float32
+    tensors on ``device`` from numpy arrays."""
+    device = resolve_device(device)
+    return HMCSepState(_f32(positions, device), _f32(logp, device))
 
 
 def mh_state_from_numpy(positions, logp, device="cuda") -> MHState:
@@ -69,6 +78,20 @@ def nuts_state_from_numpy(state, device="cuda") -> NUTSState:
         n_discard=int(n_discard.reshape(-1)[0]),
         divergences=i32(state.divergences),
         leapfrogs=i32(state.leapfrogs),
+    )
+
+
+def pt_state_from_numpy(state, device="cuda") -> PTState:
+    """A ``PTState`` on ``device`` from a JAX ``PTState`` (or any object
+    with its fields) read as numpy arrays: the ``[T, D, C]`` replica
+    positions, ``[T, C]`` raw logp and ``[T-1, C]`` swap EWMA as float32,
+    the parity as a host int."""
+    device = resolve_device(device)
+    return PTState(
+        positions=_f32(state.positions, device),
+        raw_logp=_f32(state.raw_logp, device),
+        parity=int(np.asarray(state.parity).reshape(-1)[0]),
+        swap_accept=_f32(state.swap_accept, device),
     )
 
 
@@ -119,3 +142,15 @@ def gibbs_sampler_kwargs(jax_gibbs, use_pallas=False) -> dict:
     return _kwargs(jax_gibbs, "GibbsSampler", dict(
         use_pallas=use_pallas,
         steps_per_call=getattr(jax_gibbs._step_fn, "block_size", 1)))
+
+
+def pt_sampler_kwargs(jax_pt) -> dict:
+    """The port's ``ParallelTempering`` keyword arguments read from a JAX
+    ``ParallelTempering``: its ``_ctor`` and its ladder (``betas``), a
+    non-scalar ``proposal_std`` as a float32 numpy array. Drops
+    ``pallas_interpret``/``validate_dc`` and raises for a transform."""
+    kwargs = _kwargs(jax_pt, "ParallelTempering")
+    std = kwargs["proposal_std"]
+    if not isinstance(std, (int, float)):
+        kwargs["proposal_std"] = np.asarray(std, np.float32)
+    return dict(kwargs, betas=tuple(jax_pt.betas))

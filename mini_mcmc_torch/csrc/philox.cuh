@@ -30,6 +30,15 @@
 //   Gibbs (Kernel 6): draw i for coordinate i of each sweep; for the
 //     mixture, coordinate 0 a normal (words x, y), coordinate 1 a uniform
 //     (word x); sub-draw 0.
+//   Separable HMC (Kernel 7): draw q, sub-draw 0, gives the momenta of
+//     coordinates 4q..4q+3 by paired Box-Muller (normals4_at): words x, y
+//     the cosine and sine of one pair (4q, 4q+1), words z, w of the next
+//     (4q+2, 4q+3). One evaluation per four coordinates, the least a step
+//     needs; its accept uniform is drawn outside the kernel.
+//   Parallel tempering (Kernel 8): in sweep i of a step, rung t takes
+//     draws t*(D+1)+d for its proposal normals (words x, y) and draw
+//     t*(D+1)+D for its accept uniform (word x), at sub-draw i; swap pair
+//     t takes draw 0x10000 + t (word x) at sub-draw 0.
 // Every draw is then a function of its place in the run alone.
 //
 // The plain PyTorch twin (mini_mcmc_torch/ops/kernels/rng.py) computes the
@@ -76,13 +85,33 @@ __device__ __forceinline__ float box_muller(uint32_t a, uint32_t b) {
   return r * cosf(6.283185307179586f * u2);
 }
 
+// rng.py:normals_paired: both Box-Muller outputs of one angle, the cosine
+// into c and the sine into s.
+__device__ __forceinline__ void box_muller_pair(uint32_t a, uint32_t b,
+                                                float& c, float& s) {
+  const float r = sqrtf(-2.0f * logf(unit_open(a)));
+  float sn, cs;
+  sincosf(6.283185307179586f * unit_open(b), &sn, &cs);
+  c = r * cs;
+  s = r * sn;
+}
+
 // Draw index d < D gives coordinate d's momentum normal (words x, y);
 // draw index D gives the accept uniform (word x).
 __device__ __forceinline__ float normal_at(uint32_t chain, uint32_t step,
                                            uint32_t draw, uint32_t k0,
-                                           uint32_t k1) {
-  const U32x4 w = philox4x32_10(U32x4{chain, step, draw, 0u}, k0, k1);
+                                           uint32_t k1, uint32_t sub = 0u) {
+  const U32x4 w = philox4x32_10(U32x4{chain, step, draw, sub}, k0, k1);
   return box_muller(w.x, w.y);
+}
+
+// Four normals from one evaluation (the separable kernel's momenta).
+__device__ __forceinline__ void normals4_at(uint32_t chain, uint32_t step,
+                                            uint32_t draw, uint32_t k0,
+                                            uint32_t k1, float (&n)[4]) {
+  const U32x4 w = philox4x32_10(U32x4{chain, step, draw, 0u}, k0, k1);
+  box_muller_pair(w.x, w.y, n[0], n[1]);
+  box_muller_pair(w.z, w.w, n[2], n[3]);
 }
 
 __device__ __forceinline__ float uniform_at(uint32_t chain, uint32_t step,

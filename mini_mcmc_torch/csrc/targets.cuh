@@ -19,7 +19,12 @@
 
 namespace mm {
 
-enum TargetId : int { kRosenbrockND = 0, kGaussian2D = 1, kPoisson = 2 };
+enum TargetId : int {
+  kRosenbrockND = 0,
+  kGaussian2D = 1,
+  kPoisson = 2,
+  kGaussianMixture1D = 3,
+};
 
 // models/rosenbrock.py:rosenbrock_nd, arithmetic in the JAX form's order:
 // logp = -sum_i [100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2]
@@ -102,6 +107,32 @@ struct Poisson {
     const float kf = (float)k[0];
     const float lp = (__fmul_rn(kf, log_lam) - lam) - lgammaf(kf + 1.0f);
     return k[0] < 0 ? -__int_as_float(0x7f800000) : lp;  // -inf
+  }
+};
+
+// A two-component 1-D Gaussian mixture, the tempering stage's target of
+// bench.py:858-880: logaddexp(a, b) with a = log_w0 - ((x - mu0) / s0)^2
+// / 2 and b likewise, in the order of the JAX forms and of
+// jnp.logaddexp (max + log1p(exp(-|a - b|)), a + b when a - b is NaN).
+// Products are __fmul_rn: contracting (z * z) into the subtraction would
+// round differently from the twin. params: log_w0, mu0, s0, log_w1, mu1,
+// s1. Tempering kernel only, at D = 1.
+struct GaussianMixture1D {
+  float lw0, mu0, s0, lw1, mu1, s1;
+
+  __device__ __forceinline__ explicit GaussianMixture1D(const float* p)
+      : lw0(__ldg(p + 0)), mu0(__ldg(p + 1)), s0(__ldg(p + 2)),
+        lw1(__ldg(p + 3)), mu1(__ldg(p + 4)), s1(__ldg(p + 5)) {}
+
+  template <int D>
+  __device__ __forceinline__ float logp(const float (&x)[D]) const {
+    static_assert(D == 1, "GaussianMixture1D is one-dimensional");
+    const float z0 = (x[0] - mu0) / s0, z1 = (x[0] - mu1) / s1;
+    const float a = __fsub_rn(lw0, __fmul_rn(0.5f, __fmul_rn(z0, z0)));
+    const float b = __fsub_rn(lw1, __fmul_rn(0.5f, __fmul_rn(z1, z1)));
+    const float delta = a - b;
+    if (isnan(delta)) return a + b;
+    return fmaxf(a, b) + log1pf(expf(-fabsf(delta)));
   }
 };
 

@@ -1,7 +1,7 @@
 """Targets, proposals and Gibbs conditionals (counterpart of
 ``mini_mcmc_tpu.models``)."""
 
-from .base import Conditional, Proposal, Target
+from .base import Conditional, Proposal, Target, validate_separable
 from .discrete import (
     Categorical,
     binomial_target,
@@ -37,4 +37,5 @@ __all__ = [
     "rosenbrock2d",
     "rosenbrock_nd",
     "standard_normal",
+    "validate_separable",
 ]

@@ -43,6 +43,16 @@ class Target:
             to the kernels as a ``const float*`` (e.g. the Gaussian's mean,
             inverse covariance and normalizing constant); empty when the
             functor has none.
+        sep_form: optional coordinate-sliced form for the separable HMC
+            tier (``use_pallas="separable"``): ``(tile_logp, tables)``,
+            each table a ``[D]`` or ``[1, D]`` tensor of per-coordinate
+            parameters, ``tile_logp(x [C', d'], *tables each [1, d']) ->
+            [C']`` the density of that coordinate slice. ``None`` means
+            the batch form, valid for slice-agnostic densities.
+            :func:`validate_separable` checks it at sampler construction.
+            On CUDA tensors the tier's kernel evaluates the coordinate
+            functor named by ``cuda_functor`` (``csrc/coord_targets.cuh``)
+            on the same tables instead.
     """
 
     logp: Callable
@@ -51,6 +61,7 @@ class Target:
     cuda_functor: Optional[str] = None
     cuda_params: tuple = ()
     logp_normalized: Optional[Callable] = None
+    sep_form: Optional[tuple] = None
 
     def batch_logp(self, positions: torch.Tensor) -> torch.Tensor:
         """Log density for a ``[C, D]`` batch of positions -> ``[C]``."""
@@ -75,6 +86,104 @@ class Target:
             vals = self.batch_logp(x)
             (grads,) = torch.autograd.grad(vals.sum(), x)
         return vals.detach(), grads
+
+    def sep_forms(self):
+        """``(tile_logp, tables)`` for the separable HMC tier, the tables
+        normalized to ``[1, D]`` tensors (``base.py:127-149`` in the JAX
+        package). Without a ``sep_form`` it is the batch form and no
+        table."""
+        if self.sep_form is not None:
+            fn, tables = self.sep_form
+            return fn, tuple(_norm_sep_table(t) for t in tables)
+        return (lambda x, _f=self.batch_logp: _f(x)), ()
+
+
+def _norm_sep_table(t) -> torch.Tensor:
+    """A ``sep_form`` table as ``[1, D]``; anything but ``[D]`` or
+    ``[1, D]`` raises by its actual shape (a ``[2, D/2]`` table has the
+    right size and would corrupt the slicing)."""
+    t = torch.as_tensor(t)
+    if t.dim() == 1:
+        return t.reshape(1, -1)
+    if t.dim() == 2 and t.shape[0] == 1:
+        return t
+    raise ValueError("sep_form coordinate tables must be [D] or [1, D] "
+                     f"arrays; got shape {tuple(t.shape)}")
+
+
+_SEP_MSG = (
+    "The separable HMC tier (use_pallas='separable') evaluates the density "
+    "one coordinate at a time and would sample a WRONG (product-"
+    "approximation) posterior. Use use_pallas=False, True or 'full'."
+)
+
+
+def _sep_part(tile_logp, x, tables, what: str) -> torch.Tensor:
+    """``tile_logp`` on a slice; a failure (a fixed-D form that rejects the
+    narrowed slice) raises the separability error, naming the cause."""
+    try:
+        return tile_logp(x, *tables)
+    except (RuntimeError, IndexError, ValueError, TypeError) as e:
+        raise ValueError(
+            f"target is not coordinate-separable: the tile density failed "
+            f"on {what} ({type(e).__name__}: {e}). " + _SEP_MSG) from e
+
+
+def validate_separable(target: Target, positions, *, rtol: float = 3e-4,
+                       atol: float = 1e-4, max_rows: int = 64) -> None:
+    """Raise ``ValueError`` unless ``target``'s density is the sum of its
+    ``sep_form`` over coordinate partitions, on (up to ``max_rows`` of) the
+    actual ``positions`` (``base.py:348-436`` in the JAX package).
+
+    Two partitions are checked: the contract's three contiguous chunks,
+    and the one the tier's kernel uses, single coordinates (its coordinate
+    functor is elementwise by construction; the D-tiles it sums partials
+    over are unions of coordinates, so they pass whenever single
+    coordinates do). The single-coordinate sums come from one
+    ``torch.func.vmap`` over the coordinates, each call seeing a
+    ``[R, 1]`` slice and ``[1, 1]`` tables. The probe runs where the
+    positions lie (a density may close over tensors on that device), its
+    sums in float64. No keyword turns it off.
+    """
+    x = torch.as_tensor(positions).detach()[:max_rows]
+    if x.dim() != 2:
+        raise ValueError("positions must be [n_chains, D]; got shape "
+                         f"{tuple(x.shape)}")
+    r, d = x.shape
+    if d < 2:
+        return  # one coordinate is trivially separable
+    tile_logp, tables = target.sep_forms()
+    tables = tuple(t.detach().to(x.device, x.dtype) for t in tables)
+    for t in tables:
+        if t.shape[1] != d:
+            raise ValueError(f"sep_form coordinate tables must cover all "
+                             f"D={d} coordinates; got a [1, {t.shape[1]}] "
+                             "table")
+    want = target.batch_logp(x).double()
+    cuts = sorted({d // 3, 2 * d // 3, d} - {0})
+    lo, chunks = 0, torch.zeros_like(want)
+    for hi in cuts:
+        part = _sep_part(tile_logp, x[:, lo:hi],
+                         tuple(t[:, lo:hi] for t in tables),
+                         f"a [{r}, {hi - lo}] coordinate slice")
+        chunks = chunks + part.double()
+        lo = hi
+    singles = _sep_part(
+        torch.func.vmap(lambda xc, *tc: tile_logp(xc, *tc)),
+        x.T.reshape(d, r, 1), tuple(t.T.reshape(d, 1, 1) for t in tables),
+        f"single [{r}, 1] coordinates")
+    for got, what in ((chunks, f"coordinate chunks (cuts at {cuts})"),
+                      (singles.double().sum(dim=0), "single coordinates")):
+        # np.isclose with the atol scaled to max(|want|, 1), as in JAX
+        close = ((got - want).abs()
+                 <= atol * want.abs().clamp(min=1.0) + rtol * want.abs())
+        close |= torch.isneginf(want) & torch.isneginf(got)
+        if not bool(close.all()):
+            err = float((got - want).abs().nan_to_num(nan=float("inf")).max())
+            raise ValueError(
+                f"target is not coordinate-separable: logp over {what} does "
+                f"not sum to the full logp (max abs err {err:.3g}). "
+                + _SEP_MSG)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

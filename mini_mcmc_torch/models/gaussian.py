@@ -9,7 +9,10 @@ fused kernels on both sides run. Both name the ``gaussian2d`` CUDA functor
 ``Target.cuda_params``; ``gaussian2d`` passes a normalizing constant of
 0.0, and ``0 - 0.5 quad`` rounds as JAX's ``-0.5 quad`` does.
 ``isotropic_gaussian_proposal`` names the ``isotropic_gaussian`` functor
-(``csrc/proposals.cuh``).
+(``csrc/proposals.cuh``). ``standard_normal`` and
+``isotropic_gaussian_target`` name coordinate functors of the separable
+HMC tier (``csrc/coord_targets.cuh``, ``_build.SEP_FUNCTORS``), which no
+other kernel runs.
 """
 
 from __future__ import annotations
@@ -126,17 +129,21 @@ def gaussian_random_walk_proposal(scales) -> Proposal:
 
 def isotropic_gaussian_target(std) -> Target:
     """Isotropic Gaussian target ``-0.5 sum(x^2) / std^2``
-    (``distributions.rs:398-402``); plain PyTorch only."""
+    (``distributions.rs:398-402``). Its CUDA form is the separable tier's
+    ``isotropic_gaussian`` coordinate functor (``csrc/coord_targets.cuh``),
+    ``std`` its parameter."""
 
     def logp(pos):
         return -0.5 * torch.sum(pos * pos, dim=-1) / (std * std)
 
-    return Target(logp=logp)
+    return Target(logp=logp, cuda_functor="isotropic_gaussian",
+                  cuda_params=(float(std),))
 
 
 def standard_normal() -> Target:
     """Standard normal target ``-0.5 * sum(x^2)`` (the reference's NUTS
-    test fixture, ``nuts.rs:1024-1037``)."""
+    test fixture, ``nuts.rs:1024-1037``). Its CUDA form is the separable
+    tier's ``standard_normal`` coordinate functor."""
 
     def logp(pos):
         return -0.5 * torch.sum(pos * pos, dim=-1)
@@ -144,4 +151,4 @@ def standard_normal() -> Target:
     def grad(pos):
         return -pos
 
-    return Target(logp=logp, grad=grad)
+    return Target(logp=logp, grad=grad, cuda_functor="standard_normal")

@@ -9,7 +9,9 @@ Randomness: each step receives a :class:`StepKey`. The non-fused tiers
 (``use_pallas=False`` and ``True``) and the step-size jitter draw from
 ``key.generator``, a ``torch.Generator`` on the positions' device; the
 fused tier (``"full"``) draws momentum and accept uniforms from the Philox
-stream at ``(key.seed, chain, key.step, draw)`` inside the kernel.
+stream at ``(key.seed, chain, key.step, draw)`` inside the kernel. The
+separable tier (``"separable"``) draws its momentum from that stream
+inside Kernel 7 and its accept uniform from ``key.generator``.
 """
 
 from __future__ import annotations
@@ -21,12 +23,21 @@ import torch
 from ..runner import StepKey, make_scan_block_fn
 from .kernels.hmc import leapfrog_trajectory, leapfrog_trajectory_plain
 from .kernels.hmc_full import hmc_multistep
+from .kernels.hmc_sep import hmc_separable
 
 
 class HMCState(NamedTuple):
     positions: torch.Tensor  # [C, D]
     logp: torch.Tensor  # [C] cached target log density at positions
     grad: torch.Tensor  # [C, D] cached gradient at positions
+
+
+class HMCSepState(NamedTuple):
+    """State of the separable tier: no gradient cache, since Kernel 7
+    derives the gradient coordinate by coordinate."""
+
+    positions: torch.Tensor  # [C, D]
+    logp: torch.Tensor  # [C] cached target log density at positions
 
 
 def hmc_kernel(target, step_size: float, n_leapfrog: int,
@@ -44,6 +55,13 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
     (``kernels/hmc_full.py``). On CPU tensors both run the kernels' plain
     twins; on CUDA tensors the target needs a ``cuda_functor``.
 
+    ``use_pallas="separable"`` is the large-D tier for coordinate-separable
+    targets (``ops/hmc.py:192-215`` in the JAX package): Kernel 7
+    (``kernels/hmc_sep.py``) runs the trajectory with the momentum drawn
+    inside it, and the accept runs here; the state is an
+    :class:`HMCSepState`, its logp pinned to the positions' dtype. The
+    sampler validates separability (``models.base.validate_separable``).
+
     ``jitter`` > 0 scales the step size per sampler step by one shared
     Uniform[1 - jitter, 1 + jitter] factor (Neal 2011).
 
@@ -55,15 +73,27 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
     """
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
-    if use_pallas not in (False, True, "full"):
-        raise ValueError(
-            f"use_pallas must be False, True or 'full'; got {use_pallas!r} "
-            "(the 'separable' tier is not ported yet)"
-        )
+    if use_pallas not in (False, True, "full", "separable"):
+        raise ValueError("use_pallas must be False, True, 'full' or "
+                         f"'separable'; got {use_pallas!r}")
     full = use_pallas == "full"
+    separable = use_pallas == "separable"
     traj = leapfrog_trajectory if use_pallas else leapfrog_trajectory_plain
+    sep_tables = target.sep_forms()[1] if separable else ()
+    tables_on = {}  # the [n_tables, D] table tensor per (device, dtype)
 
-    def init_fn(positions: torch.Tensor) -> HMCState:
+    def _tables(like: torch.Tensor) -> torch.Tensor:
+        key = (like.device, like.dtype)
+        if key not in tables_on:
+            tables_on[key] = (
+                torch.cat([t.to(like.device, like.dtype) for t in sep_tables])
+                if sep_tables else like.new_empty((0, like.shape[1])))
+        return tables_on[key]
+
+    def init_fn(positions: torch.Tensor):
+        if separable:
+            return HMCSepState(
+                positions, target.batch_logp(positions).to(positions.dtype))
         logp, grad = target.batch_logp_and_grad(positions)
         return HMCState(positions, logp, grad)
 
@@ -76,9 +106,30 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
         return torch.full((n,), step_size, dtype=like.dtype,
                           device=like.device)
 
+    def sep_step(state: HMCSepState, key: StepKey, eps):
+        """One separable-tier step: Kernel 7's trajectory and energies,
+        then the accept from ``key.generator``'s uniform
+        (``ops/hmc.py:_sep_step`` in the JAX package)."""
+        pos = state.positions
+        eps = torch.as_tensor(eps, dtype=pos.dtype,
+                              device=pos.device).reshape(1)
+        pos_prop, logp_prop, ke0, ke1, _ = hmc_separable(
+            target, pos, eps, n_leapfrog, key.seed, key.step, _tables(pos))
+        accept_logp = (-state.logp + ke0) - (-logp_prop + ke1)
+        alpha_c = torch.exp(torch.clamp(accept_logp, max=0.0))
+        alpha = torch.mean(torch.nan_to_num(alpha_c, nan=0.0))
+        u = torch.rand((pos.shape[0],), generator=key.generator,
+                       dtype=pos.dtype, device=pos.device)
+        accept = accept_logp >= torch.log(u)  # NaN compares False
+        positions = torch.where(accept[:, None], pos_prop, pos)
+        logp = torch.where(accept, logp_prop, state.logp)
+        return HMCSepState(positions, logp), alpha
+
     def step_eps(state: HMCState, key: StepKey, eps):
         """One non-fused HMC step at step size ``eps``, also returning the
         cross-chain mean acceptance probability (NaN counts as 0)."""
+        if separable:
+            return sep_step(state, key, eps)
         pos = state.positions
         gen = key.generator
         mom0 = torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
@@ -100,7 +151,7 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
         grad = torch.where(accept[:, None], grad_prop, state.grad)
         return HMCState(positions, logp, grad), alpha
 
-    def step_fn(state: HMCState, key: StepKey) -> HMCState:
+    def step_fn(state, key: StepKey):
         eps = _eps(key, 1, state.positions)
         if full:
             return HMCState(*hmc_multistep(

@@ -33,7 +33,16 @@ NVCC_FLAGS = (
 )
 
 #: Target.cuda_functor names -> the ids of csrc/targets.cuh
-FUNCTORS = {"rosenbrock_nd": 0, "gaussian2d": 1, "poisson": 2}
+FUNCTORS = {"rosenbrock_nd": 0, "gaussian2d": 1, "poisson": 2,
+            "gaussian_mixture_1d": 3}
+#: Target.cuda_functor names of the separable HMC tier's coordinate
+#: functors -> (id in csrc/coord_targets.cuh, number of [1, D] tables)
+SEP_FUNCTORS = {"standard_normal": (0, 0), "isotropic_gaussian": (1, 0),
+                "sigma_table_normal": (2, 1)}
+#: (target, D) instantiated by csrc/pt_multistep.cu, each for ladders of
+#: up to PT_MAX_TEMPS rungs
+PT_INSTANCES = (("gaussian2d", 2), ("gaussian_mixture_1d", 1))
+PT_MAX_TEMPS = 16
 #: Proposal.cuda_functor names -> the ids of csrc/proposals.cuh
 PROPOSALS = {"isotropic_gaussian": 0, "random_walk_int": 1}
 #: Conditional.cuda_functor names -> the ids of csrc/conditionals.cuh
@@ -198,6 +207,9 @@ def lib() -> ctypes.CDLL:
         "mm_mh_multistep": [_P] * 4 + [_I] * 6 + [_U] * 4 + [_P] * 3
         + [_LL, _LL, _P],
         "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
+        + [_LL, _LL, _P],
+        "mm_hmc_separable": [_P] * 5 + [_I] * 6 + [_U] * 4 + [_P] * 4,
+        "mm_pt_multistep": [_P] * 5 + [_I] * 7 + [_U] * 3 + [_P] * 4
         + [_LL, _LL, _P],
     }
     for name, argtypes in sigs.items():

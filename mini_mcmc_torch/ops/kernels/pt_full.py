@@ -1,0 +1,173 @@
+"""Kernel 8: K fused parallel-tempering steps per launch
+(``csrc/pt_multistep.cu``).
+
+Replaces ``mini_mcmc_tpu/ops/pallas/tempering_full.py:make_pallas_pt_multistep``
+(and its K = 1 form without history). Per step and chain: ``n_inner``
+tempered random-walk sweeps over all T rungs at scale ``sigma_d /
+sqrt(beta_t)``, then the alternating-parity neighbour swap and the swap
+EWMA, with true selects throughout (a ``-inf`` log density stays
+``-inf``). Only the cold rung goes into ``hist``, a ``[K, C, D]`` view of
+the runner's cube (unit D stride), written in place.
+
+State layout is the JAX package's: positions ``[T, D, C]``, raw logp
+``[T, C]``, swap EWMA ``[T-1, C]``, all float32; the parity of the first
+step is a host int and that of step k is ``(parity + k) % 2``. The draws are
+Philox by place (``csrc/philox.cuh``, Kernel 8): in sweep i, rung t takes
+draws ``t (D + 1) + d`` for its normals and ``t (D + 1) + D`` for its accept
+at sub-draw i, swap pair t draw ``0x10000 + t``.
+
+What bounds it on the H100: operations. One thread per chain keeps the
+T x D positions, T logps and T - 1 EWMAs in registers for all K steps; at
+T = 8, D = 1 a step is some 23 Philox-10 evaluations, 8 Box-Muller
+transforms and 8 mixture densities against 4 bytes of history per chain.
+With few chains (8,192 are 256 warps) the latency of each thread's
+dependent instructions, not the issue rate, sets the time.
+
+:func:`pt_multistep` launches the kernel for CUDA tensors and runs
+:func:`pt_multistep_plain` for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+from . import _build, rng
+
+_MASK = 0xFFFFFFFF
+#: first draw index of the swap uniforms (csrc/philox.cuh, Kernel 8)
+SWAP_DRAW = 0x10000
+
+
+class Ladder(NamedTuple):
+    """The temperature ladder on a device, in float32."""
+
+    beta: torch.Tensor  # [T]
+    sigma_l: torch.Tensor  # [T, D or 1, 1]: sigma_d / sqrt(beta_t)
+    #: the kernel's: beta [T], beta_t - beta_{t+1} [T-1], scales [T, D]
+    packed: torch.Tensor
+
+
+def make_ladder(betas, proposal_std, dim: int, device) -> Ladder:
+    """The ladder of ``betas`` (validated by the caller) with cold-chain
+    scale ``proposal_std`` (a scalar or ``[D]``), computed as the JAX
+    package computes it: ``(1 / sqrt(beta_t)) * sigma_d`` in float32."""
+    beta = torch.tensor(tuple(betas), dtype=torch.float32, device=device)
+    sigma = torch.as_tensor(proposal_std, dtype=torch.float32)
+    sigma = sigma.reshape(-1).to(device)
+    if sigma.shape[0] not in (1, dim):
+        raise ValueError(f"proposal_std must be a scalar or length {dim}; "
+                         f"got shape {tuple(sigma.shape)}")
+    sigma_l = (1.0 / torch.sqrt(beta))[:, None, None] * sigma[None, :, None]
+    packed = torch.cat([beta, beta[:-1] - beta[1:],
+                        sigma_l.expand(-1, dim, 1).reshape(-1)])
+    return Ladder(beta, sigma_l, packed)
+
+
+def pt_instance(target, n_temps: int, dim: int) -> int:
+    """The kernel's target id; raises ``ValueError`` for a target without
+    a CUDA form, a (target, D) not instantiated or a ladder longer than
+    ``_build.PT_MAX_TEMPS``, naming what exists."""
+    return _pt_id(target.cuda_functor, n_temps, dim)
+
+
+@functools.cache
+def _pt_id(functor: str | None, n_temps: int, dim: int) -> int:
+    tid = _build.form_id(functor, _build.FUNCTORS, "Target")
+    if (functor, dim) not in _build.PT_INSTANCES:
+        built = ", ".join(f"({t}, D={d})" for t, d in _build.PT_INSTANCES)
+        raise ValueError(f"the tempering kernel is built for (target, D) in "
+                         f"{built}; got ({functor}, D={dim})")
+    if n_temps > _build.PT_MAX_TEMPS:
+        raise ValueError(f"the tempering kernel takes at most "
+                         f"{_build.PT_MAX_TEMPS} rungs; got {n_temps}")
+    return tid
+
+
+def pt_draws(n_chains: int, n_temps: int, dim: int, n_inner: int,
+             step: int, seed: int, device=None):
+    """One step's Philox draws, as the kernel takes them: ``n_inner``
+    normals ``[T, D, C]``, ``n_inner`` accept uniforms ``[T, C]`` and the
+    swap uniforms ``[T-1, C]``."""
+    key = rng.seed_words(seed)
+    chain = torch.arange(n_chains, device=device)
+    draw = (torch.arange(n_temps, device=device)[:, None] * (dim + 1)
+            + torch.arange(dim + 1, device=device))[:, :, None]
+    noises, us = [], []
+    for i in range(n_inner):
+        w0, w1, _, _ = rng.philox4x32_10(chain, step, draw, i, key)
+        noises.append(rng.box_muller(w0[:, :dim], w1[:, :dim]))
+        us.append(rng.unit_open(w0[:, dim]))
+    pair = SWAP_DRAW + torch.arange(n_temps - 1, device=device)[:, None]
+    w0, _, _, _ = rng.philox4x32_10(chain, step, pair, 0, key)
+    return noises, us, rng.unit_open(w0)
+
+
+def pt_multistep_plain(target, pos, logp, swap_accept, parity: int,
+                       lad: Ladder, seed: int, step0: int, k_steps: int,
+                       n_inner: int, hist=None):
+    """Plain PyTorch twin of the kernel: :func:`ops.tempering.pt_step` on
+    the kernel's Philox draws. Returns ``(pos', logp', swap_accept')``."""
+    from ..tempering import PTState, pt_step  # that module imports this one
+
+    pt_multistep_plain.calls += 1
+    t, d, c = pos.shape
+    state = PTState(pos, logp, parity, swap_accept)
+    for k in range(k_steps):
+        noises, us, u_swap = pt_draws(c, t, d, n_inner,
+                                      (step0 + k) & _MASK, seed, pos.device)
+        state = pt_step(target, state, lad.beta, lad.sigma_l, noises, us,
+                        u_swap)
+        if hist is not None:
+            hist[k] = state.positions[0].T
+    return state.positions, state.raw_logp, state.swap_accept
+
+
+pt_multistep_plain.calls = 0
+
+
+def pt_multistep(target, pos, logp, swap_accept, parity: int, lad: Ladder,
+                 seed: int, step0: int, k_steps: int, n_inner: int,
+                 hist=None):
+    """``k_steps`` PT steps of the ``[T, D, C]`` replica batch from global
+    step ``step0``; returns ``(pos', logp', swap_accept')`` and writes the
+    cold rung of each step into ``hist`` when given."""
+    if not pos.is_cuda:
+        return pt_multistep_plain(target, pos, logp, swap_accept, parity,
+                                  lad, seed, step0, k_steps, n_inner, hist)
+    if pos.dim() != 3:
+        raise ValueError(f"positions must be [T, D, C]; got "
+                         f"{tuple(pos.shape)}")
+    t, d, c = pos.shape
+    tid = pt_instance(target, t, d)
+    want = {"pos": (pos, (t, d, c)), "logp": (logp, (t, c)),
+            "swap_accept": (swap_accept, (t - 1, c)),
+            "ladder": (lad.packed, (t + t - 1 + t * d,))}
+    for name, (x, shape) in want.items():
+        if (x.shape != shape or x.dtype != torch.float32
+                or x.device != pos.device or not x.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous float32 {list(shape)} tensor "
+                f"on {pos.device}; got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+    hist_ptr, hist_sk, hist_sc = _build.hist_args(hist, k_steps, c, d,
+                                                  torch.float32, pos.device)
+    pos_o = torch.empty_like(pos)
+    logp_o = torch.empty_like(logp)
+    sa_o = torch.empty_like(swap_accept)
+    seed_lo, seed_hi = rng.seed_words(seed)
+    lib = _build.lib()
+    pt_multistep.launches += 1
+    _build.check(lib.mm_pt_multistep(
+        pos.data_ptr(), logp.data_ptr(), swap_accept.data_ptr(),
+        _build.params_ptr(target, pos.device), lad.packed.data_ptr(), c, d,
+        t, k_steps, n_inner, tid, parity % 2, seed_lo, seed_hi,
+        step0 & _MASK, pos_o.data_ptr(), logp_o.data_ptr(), sa_o.data_ptr(),
+        hist_ptr, hist_sk, hist_sc, _build.stream_ptr(pos.device),
+    ))
+    return pos_o, logp_o, sa_o
+
+
+pt_multistep.launches = 0

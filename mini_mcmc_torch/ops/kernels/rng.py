@@ -22,7 +22,11 @@ tiers seed each step's ``torch.Generator`` from chain 0, draw ``0x30000``
 normal from words x and y for the isotropic walk; the top bit of word x,
 clear meaning +1, for the integer walk), draw ``D`` the accept uniform.
 Gibbs (Kernel 6): draw ``i`` for coordinate ``i`` (the mixture: a normal
-for x, a uniform from word x for z).
+for x, a uniform from word x for z). Separable HMC (Kernel 7): draw ``q``
+gives the momenta of coordinates ``4q..4q+3`` by paired Box-Muller
+(:func:`paired_normals`). Parallel tempering (Kernel 8): in sweep ``i``,
+rung ``t`` takes draws ``t (D + 1) + d`` (normals) and ``t (D + 1) + D``
+(accept) at sub-draw ``i``, swap pair ``t`` draw ``0x10000 + t``.
 The full table is in ``csrc/philox.cuh``.
 """
 
@@ -117,6 +121,28 @@ def step_draws(n_chains: int, dim: int, step: int, seed: int, device=None):
     ``0..D-1``) and ``[C]`` accept uniforms (draw ``D``)."""
     w0, w1 = step_words(n_chains, dim + 1, step, seed, device)
     return box_muller(w0[:, :dim], w1[:, :dim]), unit_open(w0[:, dim])
+
+
+def box_muller_pair(a: torch.Tensor, b: torch.Tensor):
+    """``rng.py:normals_paired``: the cosine and sine normals of one
+    Box-Muller angle, from two bit words."""
+    r = torch.sqrt(-2.0 * torch.log(unit_open(a)))
+    angle = _TWO_PI * unit_open(b)
+    return r * torch.cos(angle), r * torch.sin(angle)
+
+
+def paired_normals(n_chains: int, dim: int, step: int, seed: int,
+                   device=None, chain0: int = 0) -> torch.Tensor:
+    """``[C, D]`` momenta of the separable kernel (``philox.cuh``,
+    Kernel 7): the counter ``(chain0 + c, step, q, 0)`` gives coordinates
+    ``4q..4q+3``, words x and y the cosine and sine of one Box-Muller pair,
+    words z and w of the next."""
+    chain = torch.arange(chain0, chain0 + n_chains,
+                         device=device).reshape(-1, 1)
+    quad = torch.arange((dim + 3) // 4, device=device).reshape(1, -1)
+    w = philox4x32_10(chain, step, quad, 0, seed_words(seed))
+    n = box_muller_pair(w[0], w[1]) + box_muller_pair(w[2], w[3])
+    return torch.stack(n, dim=2).reshape(n_chains, -1)[:, :dim]
 
 
 def uniform_at(chain, step: int, draw: int, seed: int, sub=0):

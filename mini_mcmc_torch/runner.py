@@ -77,14 +77,17 @@ def make_scan_block_fn(step_fn: Callable, k: int) -> Callable:
     return block_fn
 
 
-def make_block_runner(block_fn: Callable, block_size: int):
+def make_block_runner(block_fn: Callable, block_size: int,
+                      recorded: Callable = lambda state: state.positions):
     """A runner over K-step block kernels (same convention as
     :func:`make_simple_runner`).
 
     ``block_fn(state, key, out=None) -> state`` advances K sampler steps
     from global step ``key.step`` and writes every kept position into the
     ``[K, C, D]`` view ``out`` (the fused kernel writes the cube in place;
-    recording is not thinned). ``n_collect`` and ``n_discard`` must be
+    recording is not thinned). ``recorded(state)`` is the ``[C, D]``
+    tensor whose shape, dtype and device the cube takes: the positions, or
+    for tempering the cold rung. ``n_collect`` and ``n_discard`` must be
     multiples of K.
     """
     k = block_size
@@ -96,7 +99,7 @@ def make_block_runner(block_fn: Callable, block_size: int):
                 f"n_collect={n_collect} and n_discard={n_discard} must be "
                 f"multiples of the block size {k}"
             )
-        cube = _alloc_cube(state.positions, n_collect, time_major)
+        cube = _alloc_cube(recorded(state), n_collect, time_major)
         for lo in range(0, n_discard, k):
             state = block_fn(state, key._replace(step=key.step + lo))
         for lo in range(0, n_collect, k):

@@ -1,7 +1,7 @@
 """User-facing sampler objects.
 
 Counterpart of ``mini_mcmc_tpu/samplers.py`` (``_KernelSampler``,
-``MetropolisHastings``, ``HMC``, ``GibbsSampler``):
+``MetropolisHastings``, ``HMC``, ``GibbsSampler``, ``ParallelTempering``):
 construct with a target and initial positions, optionally ``seed``, then
 ``run(n_collect, n_discard)`` returns the ``[n_chains, n_collect, dim]``
 sample cube. The sampler carries the state between runs, so consecutive
@@ -20,12 +20,16 @@ from typing import Optional
 
 import torch
 
+from .models.base import validate_separable
 from .ops.gibbs import gibbs_kernel
 from .ops.hmc import hmc_kernel
 from .ops.kernels._build import functor_id
 from .ops.kernels.gibbs_full import gibbs_instance
+from .ops.kernels.hmc_sep import sep_functor
 from .ops.kernels.mh_full import mh_instance
+from .ops.kernels.pt_full import pt_instance
 from .ops.mh import mh_kernel
+from .ops.tempering import geometric_betas, tempering_kernel, tune_betas
 from .runner import StepKey, make_block_runner, make_simple_runner
 from .utils.init import resolve_device
 
@@ -42,6 +46,13 @@ def _generator(seed: Optional[int]) -> torch.Generator:
     if seed is None:
         seed = secrets.randbits(63)
     return torch.Generator().manual_seed(seed)
+
+
+def _float32_only(sampler: str, use_pallas, positions) -> None:
+    """The CUDA kernels of the fused tiers take float32 states."""
+    if positions.dtype != torch.float32:
+        raise ValueError(f"{sampler}(use_pallas={use_pallas!r}) is "
+                         f"float32-only; got {positions.dtype}")
 
 
 class _KernelSampler:
@@ -158,9 +169,14 @@ class HMC(_KernelSampler):
     Mirrors ``mini_mcmc_tpu.HMC``'s constructor, so one kwargs dict builds
     both packages. ``use_pallas`` selects the fused hand-written kernel
     tier: ``True`` fuses the leapfrog trajectory, ``"full"`` whole K-step
-    blocks (see :func:`~mini_mcmc_torch.ops.hmc.hmc_kernel`). On CUDA
+    blocks, ``"separable"`` the large-D tier for coordinate-separable
+    targets (see :func:`~mini_mcmc_torch.ops.hmc.hmc_kernel`). On CUDA
     positions it needs a target with a built-in CUDA density
-    (``Target.cuda_functor``) and raises ``ValueError`` otherwise.
+    (``Target.cuda_functor``; for ``"separable"`` a coordinate functor of
+    ``_build.SEP_FUNCTORS``) and raises ``ValueError`` otherwise.
+    ``"separable"`` validates separability on the initial positions
+    (:func:`~mini_mcmc_torch.models.base.validate_separable`) on every
+    device, and nothing turns that off.
 
     The sampler runs on ``device`` (``"cuda"`` by default; it raises
     without a GPU), where it moves a copy of the initial positions; pass
@@ -181,7 +197,12 @@ class HMC(_KernelSampler):
         self.step_size = step_size
         self.n_leapfrog = n_leapfrog
         positions = initial_positions_on(initial_positions, device)
-        if use_pallas and positions.is_cuda:
+        if use_pallas == "separable":
+            validate_separable(target, positions)
+            if positions.is_cuda:
+                sep_functor(target)  # no coordinate functor: raise now
+                _float32_only("HMC", use_pallas, positions)
+        elif use_pallas and positions.is_cuda:
             functor_id(target)  # a target the kernels cannot run: raise now
         init_fn, step_fn = hmc_kernel(target, step_size, n_leapfrog,
                                       use_pallas=use_pallas, jitter=jitter,
@@ -212,7 +233,98 @@ class GibbsSampler(_KernelSampler):
                                         steps_per_call=steps_per_call)
         if use_pallas and positions.is_cuda:
             gibbs_instance(conditional, positions.shape[-1])  # raise now
-            if positions.dtype != torch.float32:
-                raise ValueError('GibbsSampler(use_pallas="full") is '
-                                 f"float32-only; got {positions.dtype}")
+            _float32_only("GibbsSampler", use_pallas, positions)
         super().__init__(init_fn, step_fn, positions, seed)
+
+
+def _cold(state) -> torch.Tensor:
+    """The cold rung of a ``[T, D, C]`` replica batch as ``[C, D]``."""
+    return state.positions[0].T
+
+
+class ParallelTempering(_KernelSampler):
+    """Replica-exchange random-walk Metropolis (``ops/tempering.py``).
+
+    Mirrors ``mini_mcmc_tpu.ParallelTempering``'s constructor: ``C``
+    logical chains, each with ``len(betas)`` replicas against ``beta *
+    logp`` (``betas`` defaults to ``geometric_betas(8)``), the cold-chain
+    random-walk scale ``proposal_std`` (a scalar or ``[D]``; rung t uses
+    ``proposal_std / sqrt(beta_t)``), ``n_inner`` sweeps per swap sweep.
+    The sample cube holds only the cold rung, ``[n_chains, n_collect,
+    dim]``; hot replicas are internal state. ``swap_acceptance`` is the
+    per-pair EWMA of swap accepts, averaged over chains.
+
+    ``use_pallas="full"`` runs ``steps_per_call`` whole steps per launch
+    of Kernel 8 (``ops/kernels/pt_full.py``); on CUDA positions it needs a
+    target whose ``cuda_functor`` is instantiated at its D
+    (``_build.PT_INSTANCES``) and at most ``_build.PT_MAX_TEMPS`` rungs,
+    and raises ``ValueError`` otherwise. Runs on ``device`` (``"cuda"`` by
+    default); ``device="cpu"`` runs the plain tier and the kernel's twin.
+    ``transform=`` is not ported yet and raises; ``pallas_interpret`` and
+    ``validate_dc`` have no counterpart.
+    """
+
+    def __init__(self, target, initial_positions,
+                 betas: Optional[tuple] = None, proposal_std=1.0,
+                 n_inner: int = 1, seed: Optional[int] = None,
+                 steps_per_call: int = 1, use_pallas=False, transform=None,
+                 *, device="cuda"):
+        if transform is not None:
+            raise ValueError("ParallelTempering(transform=...) is not "
+                             "ported yet (ROADMAP.md, Queue 1)")
+        self.target = target
+        self.betas = tuple(float(b) for b in (
+            geometric_betas(8) if betas is None else betas))
+        self._ctor = dict(proposal_std=proposal_std, n_inner=n_inner,
+                          steps_per_call=steps_per_call,
+                          use_pallas=use_pallas, device=device)
+        positions = initial_positions_on(initial_positions, device)
+        init_fn, step_fn = tempering_kernel(
+            target, self.betas, proposal_std=proposal_std, n_inner=n_inner,
+            steps_per_call=steps_per_call, use_pallas=use_pallas)
+        if use_pallas and positions.is_cuda and positions.dim() == 2:
+            # a target or ladder the kernel cannot run: raise now
+            pt_instance(target, len(self.betas), positions.shape[1])
+            _float32_only("ParallelTempering", use_pallas, positions)
+        runner = make_block_runner(step_fn.block_fn, step_fn.block_size,
+                                   recorded=_cold)
+        super().__init__(init_fn, step_fn, positions, seed, runner=runner)
+
+    @property
+    def positions(self) -> torch.Tensor:
+        """The cold rung, ``[n_chains, dim]``."""
+        return _cold(self.state)
+
+    @property
+    def n_chains(self) -> int:
+        return self.state.positions.shape[2]
+
+    @property
+    def dim(self) -> int:
+        return self.state.positions.shape[1]
+
+    @property
+    def n_replicas(self) -> int:
+        t, _, c = self.state.positions.shape
+        return t * c
+
+    @property
+    def swap_acceptance(self) -> torch.Tensor:
+        """``[T-1]`` swap-accept EWMA per pair, the mean over chains (the
+        per-chain ``[T-1, C]`` is ``state.swap_accept``)."""
+        return self.state.swap_accept.mean(dim=1)
+
+    def retuned(self, n_temps: Optional[int] = None, *,
+                seed=None) -> "ParallelTempering":
+        """A new sampler continuing from the cold positions on the ladder
+        :func:`~mini_mcmc_torch.ops.tempering.tune_betas` re-spaces from
+        this run's swap rates (hot replicas restart from the cold state).
+        Without ``seed`` its generator is seeded from this sampler's, so a
+        seeded workflow stays reproducible."""
+        tuned = tune_betas(self.betas, self.swap_acceptance, n_temps=n_temps)
+        new = ParallelTempering(self.target, self.positions, betas=tuned,
+                                seed=seed, **self._ctor)
+        if seed is None:
+            new._gen = _generator(int(torch.randint(
+                0, 2**62, (1,), generator=self._gen)))
+        return new

@@ -13,14 +13,28 @@ same choices and values within tolerance on at least 99.9% of chains,
 all fields on chains whose subtree continues (``s``), the accumulators on
 every chain. The MH and Gibbs kernels likewise: the same accepts (or z
 draws) and values within rtol 1e-5 / atol 1e-6 on at least 99.9% of
-chains, integer positions equal.
+chains, integer positions equal. The separable kernel (Kernel 7) is held
+per chain against the float64 twin on the same momentum draws, its three
+sums at rtol 1e-5, and its draws must not move with the launch grid; the
+tempering kernel (Kernel 8) must equal its twin (positions, logp, swap
+EWMA, history) on at least 99.9% of chains.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
-from mini_mcmc_torch import HMC, NUTS, GibbsSampler, MetropolisHastings
+from mini_mcmc_torch import (
+    HMC,
+    NUTS,
+    GibbsSampler,
+    MetropolisHastings,
+    ParallelTempering,
+    geometric_betas,
+    standard_normal,
+)
 from mini_mcmc_torch.models import (
     Proposal,
     Target,
@@ -29,6 +43,7 @@ from mini_mcmc_torch.models import (
     gaussian2d,
     gaussian_mixture_conditional,
     isotropic_gaussian_proposal,
+    isotropic_gaussian_target,
     poisson_target,
     random_walk_int_proposal,
     rosenbrock_nd,
@@ -50,8 +65,17 @@ from mini_mcmc_torch.ops.kernels.mh_full import (
     mh_multistep,
     mh_multistep_plain,
 )
+from mini_mcmc_torch.ops.kernels.hmc_sep import (
+    hmc_separable,
+    hmc_separable_plain,
+)
 from mini_mcmc_torch.ops.kernels.nuts_full import nuts_step, nuts_step_plain
 from mini_mcmc_torch.ops.kernels.nuts_subtree import subtree, subtree_plain
+from mini_mcmc_torch.ops.kernels.pt_full import (
+    make_ladder,
+    pt_multistep,
+    pt_multistep_plain,
+)
 
 RTOL, ATOL = 1e-3, 1e-4
 
@@ -347,3 +371,176 @@ def test_cuda_mh_gibbs_functor_and_dtype_errors(cuda):
     out = GibbsSampler(cond, x, use_pallas="full", steps_per_call=4).seed(
         1).run(8, 4)
     assert torch.isfinite(out).all()
+
+
+def _sigma_target(sigma: torch.Tensor) -> Target:
+    def tile(x, s):
+        return torch.sum(-0.5 * (x / s.to(x.dtype)) ** 2, dim=-1)
+
+    return Target(logp=lambda x: tile(x, sigma), sep_form=(tile, (sigma,)),
+                  cuda_functor="sigma_table_normal")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,d", [("standard_normal", 1000),
+                                     ("isotropic_gaussian", 37),
+                                     ("sigma_table", 1002)])
+def test_cuda_separable_matches_plain(cuda, which, d):
+    c, n_leapfrog, seed, step = 512, 10, 0x5EED_77, 3
+    g = np.random.default_rng(50)
+    x = torch.from_numpy(g.standard_normal((c, d)).astype(np.float32))
+    x = x.to(cuda)
+    if which == "standard_normal":
+        t = standard_normal()
+    elif which == "isotropic_gaussian":
+        t = isotropic_gaussian_target(1.5)
+    else:
+        t = _sigma_target(torch.from_numpy(
+            (0.5 + g.random(d)).astype(np.float32)).to(cuda))
+    tables = (torch.cat([s.reshape(1, -1) for s in t.sep_forms()[1]])
+              if t.sep_form else torch.empty((0, d), device=cuda))
+    eps = torch.tensor([0.1], device=cuda)
+    n = hmc_separable.launches
+    got = hmc_separable(t, x, eps, n_leapfrog, seed, step, tables)
+    assert hmc_separable.launches == n + 1
+    want = hmc_separable_plain(t, x, eps, n_leapfrog, seed, step, tables)
+    ref = hmc_separable_plain(t, x.double(), eps.double(), n_leapfrog, seed,
+                              step, tables.double())
+    torch.cuda.synchronize()
+    for a, b in zip(got[:4], want[:4]):
+        _close(a, b)
+    for a, b in zip(got[1:4], ref[1:4]):  # the sums, against float64
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    near = (got[0] - ref[0]).abs() <= ATOL + RTOL * ref[0].abs()
+    assert _share(near.all(1)) >= 0.999
+    # the draws do not move with the launch grid: 4x the D-tiles
+    small = hmc_separable(t, x, eps, n_leapfrog, seed, step, tables,
+                          threads=64)
+    assert torch.equal(small[0], got[0])
+    for a, b in zip(small[1:4], got[1:4]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    # the debug form, the drawn momentum given as input
+    mom = torch.from_numpy(g.standard_normal((c, d)).astype(np.float32))
+    mom = mom.to(cuda)
+    k = hmc_separable(t, x, eps, n_leapfrog, seed, step, tables, mom)
+    p = hmc_separable_plain(t, x, eps, n_leapfrog, seed, step, tables, mom)
+    for a, b in zip(k, p):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_separable_sampler(cuda):
+    x = torch.randn((256, 64), device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        HMC(Target(logp=standard_normal().logp), x, 0.1, 5,
+            use_pallas="separable")
+    with pytest.raises(ValueError, match="separable"):
+        HMC(rosenbrock_nd(), torch.randn((64, 3), device=cuda), 0.1, 5,
+            use_pallas="separable")
+    with pytest.raises(ValueError, match="float32"):
+        HMC(standard_normal(), x.double(), 0.1, 5, use_pallas="separable")
+    # validation runs where the positions lie: a table on the card works
+    sigma = torch.linspace(0.5, 2.0, 64, device=cuda)
+    HMC(_sigma_target(sigma), x, 0.1, 5, use_pallas="separable")
+    with pytest.raises(ValueError, match="separable"):
+        HMC(Target(logp=_sigma_target(sigma).logp,
+                   sep_form=(lambda x, s: _sigma_target(sigma).logp(x),
+                             (sigma,)), cuda_functor="sigma_table_normal"),
+            x, 0.1, 5, use_pallas="separable")
+    n = hmc_separable.launches
+    out = HMC(standard_normal(), x, 0.2, 8, use_pallas="separable",
+              steps_per_call=4).seed(2).run(32, 32)
+    assert hmc_separable.launches == n + 64
+    assert out.is_cuda and torch.isfinite(out).all()
+    assert abs(float(out.var()) - 1.0) < 0.1
+
+
+W_PLUS = 0.7
+
+
+def _mixture() -> Target:
+    lw0, lw1 = math.log(1 - W_PLUS), math.log(W_PLUS)
+
+    def logp(x):
+        a = lw0 - 0.5 * ((x[..., 0] + 8.0) / 0.5) ** 2
+        b = lw1 - 0.5 * ((x[..., 0] - 8.0) / 0.5) ** 2
+        return torch.logaddexp(a, b)
+
+    return Target(logp=logp, cuda_functor="gaussian_mixture_1d",
+                  cuda_params=(lw0, -8.0, 0.5, lw1, 8.0, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,n_temps,n_inner", [
+    ("mixture", 8, 1), ("mixture", 16, 2), ("gaussian2d", 4, 1),
+    ("gaussian2d", 5, 2)])
+def test_cuda_pt_multistep_matches_plain(cuda, which, n_temps, n_inner):
+    c, k = 8192, 16
+    g = np.random.default_rng(60)
+    if which == "mixture":
+        t, d, std = _mixture(), 1, 1.0
+        x = g.choice([-8.0, 8.0], (c, 1)) + 0.5 * g.standard_normal((c, 1))
+    else:
+        t = gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+        d, std = 2, [1.0, 1.5]
+        x = g.standard_normal((c, 2)) * 2.0
+    betas = geometric_betas(n_temps, 0.01)
+    pt = ParallelTempering(t, torch.from_numpy(x.astype(np.float32)),
+                           betas=betas, proposal_std=std, n_inner=n_inner,
+                           device=cuda)
+    s = pt.state
+    lad = make_ladder(betas, std, d, cuda)
+    hk = torch.empty((k, c, d), device=cuda)
+    hp = torch.empty_like(hk)
+    args = (t, s.positions, s.raw_logp, s.swap_accept, 1, lad, 0xBEEF, 7,
+            k, n_inner)
+    n = pt_multistep.launches
+    got = pt_multistep(*args, hk)
+    assert pt_multistep.launches == n + 1
+    want = pt_multistep_plain(*args, hp)
+    torch.cuda.synchronize()
+    same = (got[0] == want[0]).all(1).all(0) & (got[2] == want[2]).all(0)
+    same &= (hk == hp).all(2).all(0)
+    # the mixture functor rounds as the twin; the Gaussian's quadratic
+    # contracts FMAs, so its logp agrees to an ulp
+    lp_ok = ((got[1] == want[1]) if which == "mixture"
+             else _near(got[1], want[1])).all(0)
+    assert _share(same & lp_ok) >= 0.999
+    moved = (hk[1:] != hk[:-1]).any(2)
+    assert 0.05 < _share(moved) < 0.95
+    assert float(got[2].mean()) > 0.0  # swaps happened
+
+
+@pytest.mark.cuda
+def test_cuda_pt_sampler_errors_and_runs(cuda):
+    x = torch.full((1024, 1), -8.0, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        ParallelTempering(Target(logp=_mixture().logp), x, use_pallas="full")
+    with pytest.raises(ValueError, match="at most 16"):
+        ParallelTempering(_mixture(), x, betas=geometric_betas(17),
+                          use_pallas="full")
+    with pytest.raises(ValueError, match="D=3"):
+        ParallelTempering(gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]]),
+                          torch.zeros((64, 3), device=cuda),
+                          use_pallas="full")
+    with pytest.raises(ValueError, match="float32"):
+        ParallelTempering(_mixture(), x.double(), use_pallas="full")
+    n = pt_multistep.launches
+    pt = ParallelTempering(_mixture(), x, betas=geometric_betas(8, 0.01),
+                           use_pallas="full", steps_per_call=16).seed(5)
+    out = pt.run(256, 256, time_major=True)
+    assert pt_multistep.launches == n + 32
+    # the kernel writes chain-major cubes through their strides too
+    cm = ParallelTempering(_mixture(), x, betas=geometric_betas(8, 0.01),
+                           use_pallas="full", steps_per_call=16).seed(5).run(
+                               256, 256)
+    assert torch.equal(cm.transpose(0, 1), out)
+    assert out.is_cuda and out.shape == (256, 1024, 1)
+    assert 0.5 < float((out > 0).float().mean()) < 0.9
+    assert bool((pt.swap_acceptance > 0.05).all())
+    # the plain tier needs no CUDA form
+    plain = ParallelTempering(Target(logp=_mixture().logp), x,
+                              betas=(1.0, 0.1)).seed(1).run(4)
+    assert plain.is_cuda

@@ -158,8 +158,12 @@ def test_run_lengths_must_be_block_multiples():
 
 
 def test_constructor_validation():
-    with pytest.raises(ValueError, match="use_pallas"):
+    # the separable tier is ported; Rosenbrock couples its coordinates
+    with pytest.raises(ValueError, match="separable"):
         mt.HMC(mt.rosenbrock_nd(), _init(8), 0.02, 4, use_pallas="separable",
+               device="cpu")
+    with pytest.raises(ValueError, match="use_pallas"):
+        mt.HMC(mt.rosenbrock_nd(), _init(8), 0.02, 4, use_pallas="fused",
                device="cpu")
     with pytest.raises(ValueError, match="steps_per_call"):
         mt.HMC(mt.rosenbrock_nd(), _init(8), 0.02, 4, steps_per_call=0,
