@@ -10,7 +10,8 @@ the H100, ``sm_90a``):
 Phases, one line each (every check raises on failure):
 
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
-2. the build of ``mini_mcmc_torch/csrc`` with ``nvcc`` (seconds);
+2. the build of ``mini_mcmc_torch/csrc`` with ``nvcc`` (seconds), and the
+   registers, stack frame and spills of Kernels 4 and 8 (``ptxas -v``);
 3. Philox: the known-answer vector, and CUDA bits equal to the plain bits
    on 2**20 counters;
 4. the main path at the flagship size of ``bench.py`` (Rosenbrock3D HMC,
@@ -33,10 +34,14 @@ Phases, one line each (every check raises on failure):
    counted on its own (Kernel 3);
 10. Kernel 3 against its plain version at j = 0..5 on the NUTS
     equilibrium state;
-11. Kernel 4 against its plain version for one step, same key and step;
+11. Kernel 4 against its plain version for one step, same key and step
+    (positions, alpha, n_alpha, divergences and each chain's own depth),
+    its load balance (lane-iterations per leaf), its persistent grid, and
+    its result bit for bit under other grids;
 12. NUTS kernel and plain times at those shapes (CUDA events);
-13. with ``--profile`` only: one NUTS run under ``torch.profiler`` and
-    Kernels 4 and 3 alone (device time per call);
+13. with ``--profile`` only: one NUTS run under ``torch.profiler``,
+    Kernels 4 and 3 alone (device time per call), and Kernel 4 under
+    three smaller grids;
 14. the MH stage of ``bench.py:391-431`` (Gaussian2D, 65,536 chains,
     2,048 draws, isotropic walk, K = 16) through
     ``mini_mcmc_torch.MetropolisHastings(use_pallas="full")``: warm-up run,
@@ -358,7 +363,8 @@ def phase_build() -> None:
     _build.lib()
     # ptxas -v: each entry function's registers and stack, by kernel and
     # template arguments (the mangled name, its namespace prefix cut)
-    regs, name = [], "?"
+    regs, name, frame = [], "?", {}
+    redesigned = {}  # Kernels 4 and 8: registers, stack frame, spills
     for line in so.with_suffix(".log").read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
@@ -367,14 +373,23 @@ def phase_build() -> None:
             if ns:
                 name = name[ns.end() + int(ns.group(1)):]
             name = re.split(r"E+v", re.sub(r"^\d+", "", name))[0]
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if spill:
+            frame = dict(zip(("frame", "spill_stores", "spill_loads"),
+                             map(int, spill.groups())))
         used = re.search(r"Used (\d+) registers.*?(\d+) bytes cumulative"
                          r" stack|Used (\d+) registers", line)
         if used:
             n_regs = used.group(1) or used.group(3)
             regs.append(f"{name[:60]}: {n_regs} regs, "
                         f"{used.group(2) or 0} B stack")
+            if name.startswith(("nuts_step_kernel", "pt_multistep_kernel")):
+                redesigned[name[:60]] = dict(regs=int(n_regs), **frame)
     say("build", seconds=round(time.perf_counter() - t0, 3), lib=so.name,
         ptxas=repr(regs))
+    for kernel, info in redesigned.items():
+        say("ptxas_redesigned", kernel=kernel, **info)
 
 
 def phase_philox(dev) -> None:
@@ -763,34 +778,54 @@ def phase_nuts_step(nuts, dev) -> tuple[float, dict, tuple]:
     same key and step, depth_limit 10."""
     args = (nuts.target, nuts.positions, nuts.step_size.contiguous(),
             NUTS_MAX_DEPTH, 0x5EED_0123_4567_89AB, 9, NUTS_MAX_DEPTH)
-    got = nuts_step(*args)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    grid = {}
+    got = nuts_step(*args, stats=stats, grid=grid)
     details = {}
     want = nuts_step_plain(*args, details=details)
     torch.cuda.synchronize()
     same_pos = chain_agree(got[0], want[0])
     near = [((a - b).abs() <= NUTS_ATOL + NUTS_RTOL * b.abs())
             for a, b in zip(got[1:4], want[1:4])]
-    same_depth = got[4] == want[4]
-    covered = details["depth"].to(torch.float32) <= got[4]
     shares = {
         "position": float(same_pos.float().mean()),
         "alpha": float(near[0].float().mean()),
         "n_alpha": float(near[1].float().mean()),
         "diverged": float(near[2].float().mean()),
-        "warp_depth": float(same_depth.float().mean()),
-        "chain_depth_within_warp_depth": float(covered.float().mean()),
+        "depth": float((got[4] == want[4]).float().mean()),
     }
     err = max_abs_err(got[0], want[0], same_pos)
     depth = {
         "chain_depth_mean": float(details["depth"].double().mean()),
-        "warp_depth_mean": float(got[4].double().mean()),
+        "chain_depth_max": int(details["depth"].max()),
         "leaves_per_chain": float(details["leaves"].double().mean()),
+        # what a warp of 32 fixed chains would integrate: 2^(its deepest
+        # depth) - 1 leaves for each of them (the one-thread-per-chain form)
+        "fixed_warp_leaves_per_chain": float(
+            (2.0 ** details["depth"].reshape(-1, 32).amax(dim=1).double()
+             - 1).mean()),
     }
     say("nuts_step", chains=NUTS_CHAINS, depth_limit=NUTS_MAX_DEPTH,
         **{f"share_{k}": v for k, v in shares.items()}, **depth,
         max_abs_err=err)
     for name, share in shares.items():
         check(f"nuts step {name}", share >= NUTS_SHARE, share)
+
+    # the load balance: every lane-iteration of the launch over the leaves
+    # its threads integrated (1 is no lane idle), the persistent grid, and
+    # the results under other grids
+    lane_iterations, leaves = (int(v) for v in stats.cpu())
+    say("nuts_balance", lane_iterations=lane_iterations, leaves=leaves,
+        twin_leaves=int(details["leaves"].sum()),
+        lane_iterations_per_leaf=lane_iterations / leaves, **grid)
+    check("nuts kernel leaves", abs(leaves - int(details["leaves"].sum()))
+          <= 0.001 * leaves, (leaves, int(details["leaves"].sum())))
+    check("nuts persistent grid", grid["blocks"] == min(
+        grid["blocks_per_sm"] * grid["sms"], NUTS_CHAINS // 128), grid)
+    for kw in (dict(blocks=1), dict(blocks=grid["sms"])):
+        other = nuts_step(*args, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, other))
+        check(f"nuts step bit-identical under {kw}", same, kw)
     return err, details, args
 
 
@@ -825,6 +860,17 @@ def phase_nuts_profile(nuts, dev, step_args) -> None:
         n, us = next(v for name, v in k.items() if kernel in name)
         check(f"profiled {label} launches", 0 < n <= reps, n)
         say("nuts_profile_kernel_alone", kernel=label, calls=reps,
+            recorded=n, device_us_per_call=us / n)
+    # Kernel 4 under smaller grids than the resident one: device time
+    grid = {}
+    nuts_step(*step_args, grid=grid)
+    for blocks in (grid["blocks"] // 2, grid["blocks"] // 4,
+                   grid["blocks"] // 8):
+        _, _, k = device_profile(lambda: [nuts_step(
+            *step_args, blocks=blocks) for _ in range(reps)])
+        n, us = next(v for name, v in k.items() if "nuts_step_kernel" in name)
+        say("nuts_profile_grid", blocks=blocks,
+            chains_per_thread=NUTS_CHAINS / (blocks * 128), calls=reps,
             recorded=n, device_us_per_call=us / n)
 
 

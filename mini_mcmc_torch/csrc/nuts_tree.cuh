@@ -1,6 +1,8 @@
-// The NUTS subtree builder, one thread per chain: the single device copy of
-// the tree math, shared by Kernel 3 (nuts_subtree.cu, one subtree per
-// launch) and Kernel 4 (nuts_full.cu, a whole NUTS step per launch).
+// The NUTS subtree builder, one thread per chain. Kernel 3 (nuts_subtree.cu,
+// one subtree per launch) runs build_subtree; Kernel 4 (nuts_full.cu, a
+// whole NUTS step per launch) runs the same leaf() and merge rule inside
+// its doubling loop, with a stack row that drops the proposal's gradient
+// and logp (nothing reads them there).
 //
 // Port of mini_mcmc_tpu/ops/pallas/nuts_subtree.py:build_subtree_inkernel
 // (the Pallas analog of ops/nuts.py:_build_subtree_batched, reference
@@ -35,6 +37,26 @@ namespace mm {
 // above it (ops/kernels/nuts_subtree.py:MAX_DEPTH).
 constexpr int kMaxDepth = 10;
 constexpr float kDivergenceDelta = 1000.0f;
+
+// The merge rule of nuts.rs:858-929: the right subtree's proposal wins with
+// probability n_b / max(n_a + n_b, 1); the merged subtree continues iff
+// neither its first state nor the current one has turned back against the
+// direction v.
+template <int D>
+__device__ __forceinline__ bool merge_no_uturn(const float (&x)[D],
+                                               const float (&m)[D],
+                                               const float* first_pos,
+                                               const float* first_mom,
+                                               int stride, float v) {
+  float dot_a = 0.0f, dot_cur = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float dc = x[d] - first_pos[d * stride];
+    dot_a += dc * first_mom[d * stride];
+    dot_cur += dc * m[d];
+  }
+  return (v * dot_a >= 0.0f) && (v * dot_cur >= 0.0f);
+}
 
 // nuts_subtree.py:_mix32, the murmur3 finalizer in int32 arithmetic:
 // multiplies wrap (done on uint32_t, since signed overflow is undefined in
@@ -80,6 +102,44 @@ struct StackRow {
   float n;
 };
 
+// One leaf's checks after its leapfrog.
+struct Leaf {
+  float logp;
+  bool n;      // in the slice: logu < joint
+  bool s;      // not divergent: logu - 1000 < joint
+  float alpha; // min(1, exp(joint - joint0)), 0 for a NaN energy
+};
+
+// One leaf: a leapfrog of (x, m, g) at signed step eps_signed (nuts.rs:
+// 979-996) and its slice, divergence and acceptance checks (nuts.rs:
+// 795-830). Kernel 3 (build_subtree) and Kernel 4 (nuts_full.cu) both run
+// it.
+template <class T, int D>
+__device__ __forceinline__ Leaf leaf(const T& t, float (&x)[D],
+                                     float (&m)[D], float (&g)[D],
+                                     float eps_signed, float logu,
+                                     float joint0) {
+  const float half = eps_signed * 0.5f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    m[d] = m[d] + g[d] * half;
+    x[d] = x[d] + m[d] * eps_signed;
+  }
+  t.template grad<D>(x, g);
+#pragma unroll
+  for (int d = 0; d < D; ++d) m[d] = m[d] + g[d] * half;
+  const float lp = t.template logp<D>(x);
+
+  float ke = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) ke += m[d] * m[d];
+  const float joint = lp - 0.5f * ke;
+  float delta = joint - joint0;
+  if (delta != delta) delta = -1e30f;  // NaN energy: 0 acceptance
+  return Leaf{lp, logu < joint, (logu - kDivergenceDelta) < joint,
+              fminf(1.0f, expf(delta))};
+}
+
 // Build the 2^j-leaf subtree from (x, m, g) at signed step eps * v.
 // `draw(i, k)` is the merge uniform at leaf i, cascade position k.
 template <class T, int D, class Draw>
@@ -88,37 +148,17 @@ __device__ __forceinline__ SubtreeStats build_subtree(
     float (&m)[D], float (&g)[D], float eps, float v, float logu,
     float joint0, bool active, int j, Draw draw) {
   const float eps_signed = eps * v;
-  const float half = eps_signed * 0.5f;
   const int n_leaves = 1 << j;
   SubtreeStats st{true, 0, 0.0f, 0, false};
   for (int i = 0; i < n_leaves && st.s; ++i) {
-    // leapfrog (nuts.rs:979-996)
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      m[d] = m[d] + g[d] * half;
-      x[d] = x[d] + m[d] * eps_signed;
-    }
-    t.template grad<D>(x, g);
-#pragma unroll
-    for (int d = 0; d < D; ++d) m[d] = m[d] + g[d] * half;
-    const float lp = t.template logp<D>(x);
-
-    float ke = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) ke += m[d] * m[d];
-    const float joint = lp - 0.5f * ke;
-    const bool n_leaf = logu < joint;
-    const bool s_leaf = (logu - kDivergenceDelta) < joint;
-    float delta = joint - joint0;
-    if (delta != delta) delta = -1e30f;  // NaN energy: 0 acceptance
-    const float alpha_leaf = fminf(1.0f, expf(delta));
+    const Leaf lf = leaf<T, D>(t, x, m, g, eps_signed, logu, joint0);
     if (active) {  // live = active & s, and s holds inside the loop
-      st.n += n_leaf ? 1 : 0;
-      st.alpha += alpha_leaf;
+      st.n += lf.n ? 1 : 0;
+      st.alpha += lf.alpha;
       st.n_alpha += 1;
-      st.diverged |= !s_leaf;
+      st.diverged |= !lf.s;
     }
-    st.s = s_leaf;
+    st.s = lf.s;
 
     // push the leaf row at the binary counter's height
     const int sp = __popc(i);
@@ -130,8 +170,8 @@ __device__ __forceinline__ SubtreeStats build_subtree(
       row.prop_pos[d] = x[d];
       row.prop_grad[d] = g[d];
     }
-    row.prop_logp = lp;
-    row.n = n_leaf ? 1.0f : 0.0f;
+    row.prop_logp = lf.logp;
+    row.n = lf.n ? 1.0f : 0.0f;
 
     // merge cascade: ctz(i + 1) merges; the top (right) entry is the row
     // just written, then each merged row in turn
@@ -142,14 +182,8 @@ __device__ __forceinline__ SubtreeStats build_subtree(
       const float u = draw(i, k);
       const float n_a = a.n, n_b = b.n;
       const bool take_b = u < n_b / fmaxf(n_a + n_b, 1.0f);
-      float dot_a = 0.0f, dot_cur = 0.0f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float dc = x[d] - a.first_pos[d];
-        dot_a += dc * a.first_mom[d];
-        dot_cur += dc * m[d];
-      }
-      const bool ok = (v * dot_a >= 0.0f) && (v * dot_cur >= 0.0f);
+      const bool ok =
+          merge_no_uturn<D>(x, m, a.first_pos, a.first_mom, 1, v);
       if (take_b) {
 #pragma unroll
         for (int d = 0; d < D; ++d) {

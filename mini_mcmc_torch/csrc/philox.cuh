@@ -14,11 +14,16 @@
 // Draw indices, per kernel (D = the dimension):
 //   HMC (Kernel 2): draws 0..D-1 momentum normals, draw D the accept
 //     uniform; sub-draw 0.
-//   NUTS step (Kernel 4): draws 0..D-1 momentum normals; draw D the
-//     Exp(1) uniform of the slice; draws D+1+2j and D+2+2j the direction
-//     and progressive-accept uniforms of doubling j; draw 0x10000 + j with
-//     sub-draw i * (max_depth + 1) + k the merge uniform at leaf i, cascade
-//     position k of doubling j (sub-draw 0 elsewhere).
+//   NUTS step (Kernel 4), one evaluation per four words the step uses
+//     plus at most one per doubling: draw 0 the momentum (box_muller_pair
+//     on words x, y) and the Exp(1) uniform of the slice (word z) at
+//     D <= 2; at D = 3, 4 draw 0 the momentum (normals4_at) and draw 1's
+//     word x the slice. Draw 0x10000 + j is doubling j: sub-draw 0 its
+//     direction coin (word x) and progressive-accept uniform (word y),
+//     sub-draw 1 + q its merge uniforms of ordinals 4q..4q+3 (words x, y,
+//     z, w), the merge at leaf i, cascade position k having ordinal
+//     i - popcount(i) + k (the merges of a doubling's 2^j leaves take
+//     ordinals 0..2^j - 2).
 //   NUTS subtree seeds (use_pallas=True tier, ops/nuts.py): chain 0,
 //     draw 0x20000 + j gives the two words of doubling j's hash seed;
 //     chain 0, draw 0x30000 seeds the step's torch.Generator (the
@@ -35,10 +40,11 @@
 //     the cosine and sine of one pair (4q, 4q+1), words z, w of the next
 //     (4q+2, 4q+3). One evaluation per four coordinates, the least a step
 //     needs; its accept uniform is drawn outside the kernel.
-//   Parallel tempering (Kernel 8): in sweep i of a step, rung t takes
-//     draws t*(D+1)+d for its proposal normals (words x, y) and draw
-//     t*(D+1)+D for its accept uniform (word x), at sub-draw i; swap pair
-//     t takes draw 0x10000 + t (word x) at sub-draw 0.
+//   Parallel tempering (Kernel 8), one evaluation per (chain, rung, step,
+//     sweep): draw t, sub-draw i gives rung t's sweep i, words x, y its
+//     proposal normal (box_muller at D = 1, box_muller_pair at D = 2),
+//     word z its accept uniform, and at i = 0 word w the swap uniform of
+//     pair (t, t+1).
 // Every draw is then a function of its place in the run alone.
 //
 // The plain PyTorch twin (mini_mcmc_torch/ops/kernels/rng.py) computes the

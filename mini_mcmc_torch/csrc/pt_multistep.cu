@@ -14,27 +14,33 @@
 // cold rung goes to hist[k, c, :] through the runner's strides.
 //
 // Layout: the JAX package's [T, D, C] positions, [T, C] logp and [T-1, C]
-// EWMA, chains last, so a warp's loads are consecutive. One thread per
-// chain keeps its T x D positions, T logps and T - 1 EWMAs in registers for
-// all K steps: the rung loops are unrolled to TMAX (4, 8 or 16, the
-// smallest that holds T) and guarded by the runtime T, so every index is a
-// constant after unrolling. The ladder (beta [T], beta_t - beta_{t+1}
-// [T-1], sigma_d / sqrt(beta_t) [T, D]) is one small device array, read
-// with uniform __ldg loads.
+// EWMA. One thread per (chain, rung): lane = chain_in_warp * TMAX + t, so
+// a chain's rungs sit in adjacent lanes of one warp, 32 / TMAX chains to a
+// warp (TMAX = 4, 8 or 16, the smallest that holds T; lanes with t >= T
+// idle). Each thread keeps its rung's position, logp, beta_t, scales and
+// the EWMA of pair (t, t+1) in registers for all K steps. The swap of an
+// active pair is decided by its lower lane from the upper lane's logp
+// (__shfl_sync), both lanes exchange position and logp by shuffle with
+// the decision broadcast, and the lower lane updates the EWMA. The pairs
+// are disjoint, so this equals the JAX package's shift-and-select.
 //
-// Draws: Philox at (c, step0 + k, draw, sub) under the run's 64-bit key
-// (philox.cuh, Kernel 8), so the twin (ops/kernels/pt_full.py) reproduces
-// them and the cube depends neither on K nor on the grid. The proposal and
-// the products of the accepts are rounded alone (__fmul_rn, __fadd_rn), as
-// PyTorch rounds them.
+// Draws: one Philox evaluation per (chain, rung, step, sweep), counter
+// (c, step0 + k, t, i) under the run's 64-bit key (philox.cuh, Kernel 8):
+// words x, y the proposal normal(s), word z the accept uniform, word w at
+// i = 0 the swap uniform of pair (t, t+1). The twin
+// (ops/kernels/pt_full.py) reproduces them, and the cube depends neither
+// on K nor on the grid. The proposal and the products of the accepts are
+// rounded alone (__fmul_rn, __fadd_rn), as PyTorch rounds them.
 //
-// What bounds it on the H100: operations, not bytes. At T = 8, D = 1 a step
-// is 23 Philox-10 evaluations (~83 lane instructions each), 8 Box-Muller
-// transforms, 8 mixture densities and ~12 logf against 4 bytes of history
-// per chain; the state never leaves registers between the K steps. At
-// 8,192 chains only 256 warps run, fewer than the card's 528 schedulers,
-// so the latency of each chain's dependent chain of instructions, not the
-// issue rate, sets the time (PERF.md, Kernel 8).
+// What bounds it on the H100: operations, not bytes. At T = 8, D = 1 a
+// chain-step is 8 Philox-10 evaluations (~83 lane instructions each), 8
+// Box-Muller transforms, 8 mixture densities and ~12 logf against 4 bytes
+// of history per chain; the state never leaves registers between the K
+// steps. A thread per (chain, rung) gives 8,192 chains at T = 8 65,536
+// threads, 512 blocks of 128 on the 132 SMs (one thread per chain filled
+// only 64 of them), so the issue rate, not one thread's dependent
+// latency, sets the time: 17.8 us per K = 16 block there, from 96.4 us
+// with one thread per chain (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,7 +50,7 @@
 
 namespace {
 
-constexpr uint32_t kSwapDraw = 0x10000u;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <class T, int D, int TMAX>
 __global__ void __launch_bounds__(mm::kThreads)
@@ -59,92 +65,103 @@ __global__ void __launch_bounds__(mm::kThreads)
                         float* __restrict__ logp_out,
                         float* __restrict__ sa_out, float* __restrict__ hist,
                         long long hist_sk, long long hist_sc) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_chains) return;
+  static_assert(D == 1 || D == 2, "one Philox evaluation holds two normals");
+  static_assert(mm::kThreads % TMAX == 0 && 32 % TMAX == 0,
+                "a chain's rungs stay in one warp");
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = (int)(g / TMAX);
+  const int r = (int)(g % TMAX);  // this thread's rung
+  // idle lanes (t >= T, or past the last chain) still join every shuffle
+  const bool live = c < n_chains && r < n_temps;
+  const bool has_pair = live && r + 1 < n_temps;
   const T t(tparams);
-  const float* beta = ladder;
-  const float* dbeta = ladder + n_temps;
-  const float* scale = ladder + 2 * n_temps - 1;  // [T, D]
   const uint32_t chain = (uint32_t)c;
 
-  float x[TMAX][D], lp[TMAX], sa[TMAX - 1];
+  float x[D], lp = 0.0f, sa = 0.0f, beta = 0.0f, dbeta = 0.0f, scale[D];
 #pragma unroll
-  for (int r = 0; r < TMAX; ++r) {
-    if (r >= n_temps) continue;
+  for (int d = 0; d < D; ++d) x[d] = scale[d] = 0.0f;
+  if (live) {
+    beta = __ldg(ladder + r);
+    const float* sc = ladder + 2 * n_temps - 1 + r * D;  // [T, D]
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      x[r][d] = pos[((long long)r * D + d) * n_chains + c];
+      x[d] = pos[((long long)r * D + d) * n_chains + c];
+      scale[d] = __ldg(sc + d);
     }
-    lp[r] = logp[(long long)r * n_chains + c];
-    if (r + 1 < TMAX && r + 1 < n_temps) {
-      sa[r] = sa_in[(long long)r * n_chains + c];
-    }
+    lp = logp[(long long)r * n_chains + c];
+  }
+  if (has_pair) {
+    dbeta = __ldg(ladder + n_temps + r);
+    sa = sa_in[(long long)r * n_chains + c];
   }
 
   for (int k = 0; k < k_steps; ++k) {
     const uint32_t step = step0 + (uint32_t)k;
-    for (int i = 0; i < n_inner; ++i) {
-#pragma unroll
-      for (int r = 0; r < TMAX; ++r) {
-        if (r >= n_temps) continue;
-        const uint32_t draw0 = (uint32_t)(r * (D + 1));
+    float u_swap = 1.0f;
+    if (live) {
+      for (int i = 0; i < n_inner; ++i) {
+        const mm::U32x4 w = mm::philox4x32_10(
+            mm::U32x4{chain, step, (uint32_t)r, (uint32_t)i}, k0, k1);
+        float n[D];
+        if constexpr (D == 1) {
+          n[0] = mm::box_muller(w.x, w.y);
+        } else {
+          mm::box_muller_pair(w.x, w.y, n[0], n[1]);
+        }
         float y[D];
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          const float n = mm::normal_at(chain, step, draw0 + d, k0, k1, i);
-          y[d] = __fadd_rn(x[r][d], __fmul_rn(__ldg(scale + r * D + d), n));
+          y[d] = __fadd_rn(x[d], __fmul_rn(scale[d], n[d]));
         }
         const float lpp = t.template logp<D>(y);
-        const float u = mm::uniform_at(chain, step, draw0 + D, k0, k1, i);
         const bool accept =
-            __fmul_rn(__ldg(beta + r), __fsub_rn(lpp, lp[r])) > logf(u);
+            __fmul_rn(beta, __fsub_rn(lpp, lp)) > logf(mm::unit_open(w.z));
 #pragma unroll
-        for (int d = 0; d < D; ++d) x[r][d] = accept ? y[d] : x[r][d];
-        lp[r] = accept ? lpp : lp[r];
+        for (int d = 0; d < D; ++d) x[d] = accept ? y[d] : x[d];
+        lp = accept ? lpp : lp;
+        if (i == 0) u_swap = mm::unit_open(w.w);
       }
     }
 
-    // disjoint pairs: deciding and exchanging one pair at a time equals
-    // the JAX package's shift-and-select over all pairs at once
+    // the swap sweep: pair (r, r+1) is active on the step's parity; its
+    // lower lane decides, both lanes exchange
     const int par = (parity0 + k) & 1;
-#pragma unroll
-    for (int r = 0; r + 1 < TMAX; ++r) {
-      if (r + 1 >= n_temps || (r & 1) != par) continue;
-      const float u = mm::uniform_at(chain, step, kSwapDraw + r, k0, k1);
-      const bool swap =
-          __fmul_rn(__ldg(dbeta + r), __fsub_rn(lp[r + 1], lp[r])) > logf(u);
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float lo = x[r][d], hi = x[r + 1][d];
-        x[r][d] = swap ? hi : lo;
-        x[r + 1][d] = swap ? lo : hi;
-      }
-      const float lo = lp[r], hi = lp[r + 1];
-      lp[r] = swap ? hi : lo;
-      lp[r + 1] = swap ? lo : hi;
-      sa[r] = __fadd_rn(__fmul_rn(0.95f, sa[r]),
-                        __fmul_rn(0.05f, swap ? 1.0f : 0.0f));
-    }
-
-    if (hist != nullptr) {
-      float* row = hist + (long long)k * hist_sk + (long long)c * hist_sc;
-#pragma unroll
-      for (int d = 0; d < D; ++d) row[d] = x[0][d];
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < TMAX; ++r) {
-    if (r >= n_temps) continue;
+    const bool lower = has_pair && (r & 1) == par;
+    const bool upper = live && r >= 1 && ((r - 1) & 1) == par;
+    const int partner = lower ? r + 1 : (upper ? r - 1 : r);
+    const float lp_other = __shfl_sync(kFull, lp, partner, TMAX);
+    const bool decided =
+        lower &&
+        __fmul_rn(dbeta, __fsub_rn(lp_other, lp)) > logf(u_swap);
+    const bool from_lower =
+        __shfl_sync(kFull, (int)decided, partner, TMAX) != 0;
+    const bool swap = lower ? decided : (upper && from_lower);
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      pos_out[((long long)r * D + d) * n_chains + c] = x[r][d];
+      const float other = __shfl_sync(kFull, x[d], partner, TMAX);
+      x[d] = swap ? other : x[d];
     }
-    logp_out[(long long)r * n_chains + c] = lp[r];
-    if (r + 1 < TMAX && r + 1 < n_temps) {
-      sa_out[(long long)r * n_chains + c] = sa[r];
+    lp = swap ? lp_other : lp;
+    if (lower) {
+      sa = __fadd_rn(__fmul_rn(0.95f, sa),
+                     __fmul_rn(0.05f, swap ? 1.0f : 0.0f));
+    }
+
+    if (hist != nullptr && live && r == 0) {
+      float* row = hist + (long long)k * hist_sk + (long long)c * hist_sc;
+#pragma unroll
+      for (int d = 0; d < D; ++d) row[d] = x[d];
     }
   }
+
+  if (live) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      pos_out[((long long)r * D + d) * n_chains + c] = x[d];
+    }
+    logp_out[(long long)r * n_chains + c] = lp;
+  }
+  if (has_pair) sa_out[(long long)r * n_chains + c] = sa;
 }
 
 }  // namespace
@@ -165,7 +182,9 @@ extern "C" int mm_pt_multistep(const void* pos, const void* logp,
   if (n_temps < 2 || n_temps > 16) return (int)cudaErrorInvalidValue;
 #define MM_PT(T, D, TMAX)                                                   \
   pt_multistep_kernel<T, D, TMAX>                                           \
-      <<<mm::blocks_for(n_chains), mm::kThreads, 0, (cudaStream_t)stream>>>( \
+      <<<(int)(((long long)n_chains * TMAX + mm::kThreads - 1) /            \
+               mm::kThreads),                                               \
+         mm::kThreads, 0, (cudaStream_t)stream>>>(                          \
           (const float*)pos, (const float*)logp, (const float*)sa,          \
           (const float*)tparams, (const float*)ladder, n_chains, n_temps,   \
           k_steps, n_inner, parity0, seed_lo, seed_hi, step0,               \

@@ -105,13 +105,14 @@ class NUTS(_KernelSampler):
 
     @property
     def leapfrogs(self) -> torch.Tensor:
-        """Per-chain leapfrog steps executed, cumulative: the lockstep
-        cost, ``2^J - 1`` gradient evaluations for a J-deep doubling loop
-        whether or not the chain's own tree finished earlier. The unit of
-        lockstep is all chains on the plain and ``True`` tiers, and a warp
-        of 32 chains under ``use_pallas="full"`` (the JAX package's fused
-        kernel reports per 8,192-chain grid block).
-        Saturates at ~2.0e9 instead of wrapping."""
+        """Per-chain leapfrog steps, cumulative: ``2^J - 1`` gradient
+        evaluations per step for a J-deep doubling loop. On the plain and
+        ``True`` tiers all chains run in lockstep, so J is the deepest
+        chain's (the executed cost), whether or not a chain's own tree
+        finished earlier; under ``use_pallas="full"`` J is each chain's own
+        (its own tree's cost; the kernel runs a warp of 32 chains to its
+        deepest, and the JAX package's fused kernel reports per 8,192-chain
+        grid block). Saturates at ~2.0e9 instead of wrapping."""
         return self.state.leapfrogs
 
     @property

@@ -3,20 +3,30 @@
 Replaces ``mini_mcmc_tpu/ops/pallas/nuts_full.py:make_pallas_nuts_step``:
 ``(pos [C, D], eps [C], depth_limit, key, step) -> (new_pos [C, D], alpha,
 n_alpha, diverged, depth [C] float32)``. Momentum, the slice, the doubling
-loop with its directions, subtrees (the builder shared with Kernel 3) and
-progressive accepts, and the outer U-turn run inside the kernel; dual
-averaging stays in PyTorch (``ops/nuts.py:_finish_step``).
+loop with its directions, subtrees (the leaf and merge rule shared with
+Kernel 3) and progressive accepts, and the outer U-turn run inside the
+kernel; dual averaging stays in PyTorch (``ops/nuts.py:_finish_step``).
 
 Draws come from Philox at ``(chain0 + chain, step, draw, sub-draw)`` under
-the run's 64-bit key (layout in ``rng.py``), so :func:`nuts_step_plain`
-reproduces the kernel's draws exactly and a step's result depends on
-(key, step, chain) alone: not on the grid, the batch split or the depth
-cap beyond the depth reached.
+the run's 64-bit key, one evaluation per four words the step uses plus at
+most one per doubling (``csrc/philox.cuh``, Kernel 4): draw 0 gives the
+momentum (words x, y: the cosine and sine of one Box-Muller pair) and the
+slice's Exp(1) uniform (word z) at D <= 2; at D > 2 draws ``0..Q-1`` give
+the momenta four to an evaluation (``Q = ceil(D / 4)``) and draw ``Q``'s
+word x the slice. Draw ``0x10000 + j`` gives doubling ``j``: sub-draw 0
+its direction coin (word x) and progressive-accept uniform (word y),
+sub-draw ``1 + q`` its merge uniforms of ordinals ``4q..4q+3``, the merge
+at leaf ``i``, cascade position ``k`` having ordinal ``i - popcount(i) +
+k``. So :func:`nuts_step_plain` reproduces the kernel's draws exactly and a
+step's result depends on (key, step, chain) alone: not on the grid, the
+lane that runs a chain, the batch split or the depth cap beyond the depth
+reached.
 
-``depth`` is the deepest doubling count of each chain's warp of 32 chains
-(chains ``32w .. 32w + 31`` of the launch): a warp runs in lockstep, so
-``2^depth - 1`` leapfrogs is the per-warp cost the sampler's ``leapfrogs``
-counter records.
+``depth`` is each chain's own doubling count, and ``2^depth - 1`` the
+leapfrogs its own tree takes, which the sampler's ``leapfrogs`` counter
+records. The kernel runs a persistent grid whose warps take 32 chains at a
+time from a device counter and run them in lockstep, so the card integrates
+each warp's deepest tree for all 32 (the load balance, ``stats`` below).
 
 :func:`nuts_step` launches the CUDA kernel for CUDA tensors and runs
 :func:`nuts_step_plain` for CPU tensors only.
@@ -24,18 +34,19 @@ counter records.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Callable
 
 import torch
 
 from . import _build, rng
 from .hmc import check_state
-from .nuts_subtree import MAX_DEPTH, build_subtree_plain
+from .nuts_subtree import MAX_DEPTH, build_subtree_plain, popcount
 
-#: Philox draw index of doubling j's merge uniforms is MERGE_DRAW + j
-MERGE_DRAW = 0x10000
-#: the lockstep unit of the card, over which ``depth`` is reported
-WARP = 32
+#: Philox draw index of doubling j (its coin, accept and merge uniforms) is
+#: DOUBLING_DRAW + j
+DOUBLING_DRAW = 0x10000
 
 
 def doubling_loop(positions, mom_0, grad, joint, depth_limit: int,
@@ -98,14 +109,51 @@ def doubling_loop(positions, mom_0, grad, joint, depth_limit: int,
     return position_sel, alpha, n_alpha, diverged, depth
 
 
-def warp_max(x: torch.Tensor) -> torch.Tensor:
-    """Each entry replaced by the largest of its warp of 32 (the last warp
-    may be short)."""
-    c = x.shape[0]
-    pad = (-c) % WARP
-    padded = torch.cat([x, x.new_zeros((pad,))]) if pad else x
-    m = padded.reshape(-1, WARP).amax(dim=1)
-    return m.repeat_interleave(WARP)[:c]
+def momentum_and_slice(chain: torch.Tensor, step: int, dim: int, seed: int):
+    """The step's ``[C, D]`` momentum and ``[C]`` slice uniform: draws
+    ``0..Q-1`` (``Q = ceil(D / 4)``) give the momenta by paired Box-Muller,
+    words x, y the cosine and sine of one pair and words z, w of the next;
+    the slice is word z of draw 0 at D <= 2 (unused by the momenta), else
+    word x of draw ``Q``."""
+    key = rng.seed_words(seed)
+    q = (dim + 3) // 4
+    quad = torch.arange(q, device=chain.device)
+    w = rng.philox4x32_10(chain[:, None], step, quad[None, :], 0, key)
+    normals = (rng.box_muller_pair(w[0], w[1])
+               + rng.box_muller_pair(w[2], w[3]))
+    mom = torch.stack(normals, dim=2).reshape(chain.shape[0], -1)[:, :dim]
+    if dim <= 2:
+        bits = w[2][:, 0]
+    else:
+        bits = rng.philox4x32_10(chain, step, q, 0, key)[0]
+    return mom, rng.unit_open(bits)
+
+
+def doubling_uniforms(chain: torch.Tensor, step: int, j: int, seed: int):
+    """Doubling ``j``'s ``[C]`` direction and progressive-accept uniforms:
+    words x and y of draw ``DOUBLING_DRAW + j``, sub-draw 0."""
+    w = rng.philox4x32_10(chain, step, DOUBLING_DRAW + j, 0,
+                          rng.seed_words(seed))
+    return rng.unit_open(w[0]), rng.unit_open(w[1])
+
+
+def merge_ordinal(i: int, k: int) -> int:
+    """The ordinal within its doubling of the merge at leaf ``i``, cascade
+    position ``k``: the merges of leaves ``0..i-1`` number
+    ``i - popcount(i)``, so a doubling's ``2^j - 1`` merges take ordinals
+    ``0..2^j - 2``."""
+    return i - popcount(i) + k
+
+
+def merge_uniform(chain: torch.Tensor, step: int, j: int, i: int, k: int,
+                  seed: int) -> torch.Tensor:
+    """The ``[C]`` merge uniform at leaf ``i``, cascade position ``k`` of
+    doubling ``j``: word ``o % 4`` of draw ``DOUBLING_DRAW + j``, sub-draw
+    ``1 + o // 4``, for the ordinal ``o``."""
+    o = merge_ordinal(i, k)
+    w = rng.philox4x32_10(chain, step, DOUBLING_DRAW + j, 1 + o // 4,
+                          rng.seed_words(seed))
+    return rng.unit_open(w[o % 4])
 
 
 def nuts_step_plain(target, pos, eps, depth_limit: int, seed: int,
@@ -113,27 +161,26 @@ def nuts_step_plain(target, pos, eps, depth_limit: int, seed: int,
                     details: dict | None = None):
     """Plain PyTorch twin of the kernel: the same Philox draws, the
     doubling loop and the builder in lockstep. A ``details`` dict receives
-    each chain's own doubling count (``"depth"``) and the leaves it
-    integrated (``"leaves"``), the work of one kernel thread."""
+    each chain's leaves integrated (``"leaves"``), the work of the kernel
+    for that chain, and its doubling count (``"depth"``, int32)."""
     nuts_step_plain.calls += 1
     c, dim = pos.shape
     chain = torch.arange(chain0, chain0 + c, device=pos.device)
     step &= 0xFFFFFFFF
-    events = max_depth + 1
-    draw = torch.arange(dim, device=pos.device)
-    key = rng.seed_words(seed)
-    w0, w1, _, _ = rng.philox4x32_10(chain[:, None], step, draw[None, :], 0,
-                                     key)
-    mom_0 = rng.box_muller(w0, w1).to(pos.dtype)
+    mom, u_slice = momentum_and_slice(chain, step, dim, seed)
+    mom_0 = mom.to(pos.dtype)
     logp, grad = target.batch_logp_and_grad(pos)
     joint = logp - 0.5 * torch.sum(mom_0 * mom_0, dim=1)
     # logu = joint - Exp(1), Exp(1) = -ln U (nuts.rs:563-564)
-    logu = joint + torch.log(rng.uniform_at(chain, step, dim, seed)).to(
-        pos.dtype)
+    logu = joint + torch.log(u_slice).to(pos.dtype)
 
-    def uniform(draw_index, sub=0):
-        return rng.uniform_at(chain, step, draw_index, seed, sub).to(
-            pos.dtype)
+    coins = {}
+
+    def doubling(j):
+        if j not in coins:
+            coins[j] = tuple(u.to(pos.dtype) for u in
+                             doubling_uniforms(chain, step, j, seed))
+        return coins[j]
 
     leaves = torch.zeros((c,), dtype=torch.int32, device=pos.device)
 
@@ -141,29 +188,43 @@ def nuts_step_plain(target, pos, eps, depth_limit: int, seed: int,
         done = torch.zeros_like(leaves)
         res = build_subtree_plain(
             target, max_depth, p, m, g, logu, v, j, eps, joint, active,
-            lambda i, k: uniform(MERGE_DRAW + j, i * events + k), done)
+            lambda i, k: merge_uniform(chain, step, j, i, k, seed).to(
+                pos.dtype), done)
         leaves.add_(torch.where(active, done, 0))
         return res
 
     sel, alpha, n_alpha, diverged, depth = doubling_loop(
-        pos, mom_0, grad, joint, depth_limit,
-        lambda j: uniform(dim + 1 + 2 * j), lambda j: uniform(dim + 2 + 2 * j),
-        subtree)
+        pos, mom_0, grad, joint, depth_limit, lambda j: doubling(j)[0],
+        lambda j: doubling(j)[1], subtree)
     if details is not None:
         details.update(depth=depth, leaves=leaves)
     return (sel, alpha, n_alpha.to(torch.float32),
-            diverged.to(torch.float32), warp_max(depth).to(torch.float32))
+            diverged.to(torch.float32), depth.to(torch.float32))
 
 
 nuts_step_plain.calls = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _counter(device: torch.device) -> torch.Tensor:
+    """The kernel's chain counter on ``device``: two zeroed words that
+    every launch leaves zeroed (its last block resets them)."""
+    return torch.zeros((2,), dtype=torch.int32, device=device)
+
+
 def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
-              max_depth: int, chain0: int = 0):
+              max_depth: int, chain0: int = 0, *, blocks: int = 0,
+              stats: torch.Tensor | None = None, grid: dict | None = None):
     """One NUTS step of ``target`` for every chain from ``pos [C, D]`` at
     step sizes ``eps [C]``; ``seed`` is the run's 64-bit Philox key and
     ``step`` the global step index. Returns ``(new_pos, alpha, n_alpha,
-    diverged, depth)``, the last four ``[C]`` float32."""
+    diverged, depth)``, the last four ``[C]`` float32.
+
+    On the card, none of these changes a result: ``blocks`` sets the grid
+    (0: the resident blocks); ``stats``, a zeroed int64 ``[2]`` tensor on
+    the device, receives the launch's lane-iterations and leaves; ``grid``,
+    a dict, receives ``blocks_per_sm``, ``sms`` and the ``blocks`` launched.
+    """
     if pos.dtype != torch.float32:
         raise ValueError(
             "the fused NUTS step is float32-only; got positions of dtype "
@@ -181,19 +242,28 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
     c, d = pos.shape
     if eps.shape != (c,):
         raise ValueError(f"eps must be [C] = [{c}]; got {tuple(eps.shape)}")
+    if stats is not None and (stats.shape != (2,) or stats.dtype
+                              != torch.int64 or stats.device != pos.device):
+        raise ValueError("stats must be an int64 [2] tensor on the device")
     new_pos = torch.empty_like(pos)
     alpha, n_alpha, diverged, depth = (
         torch.empty((c,), dtype=torch.float32, device=pos.device)
         for _ in range(4))
+    launched = (ctypes.c_int * 3)()
     k0, k1 = rng.seed_words(seed)
     lib = _build.lib()
     nuts_step.launches += 1
     _build.check(lib.mm_nuts_step_f32(
         pos.data_ptr(), eps.data_ptr(), _build.params_ptr(target, pos.device),
         depth_limit, max_depth, k0, k1, step & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-        c, d, tid, new_pos.data_ptr(), alpha.data_ptr(), n_alpha.data_ptr(),
-        diverged.data_ptr(), depth.data_ptr(), _build.stream_ptr(pos.device),
+        c, d, tid, _counter(pos.device).data_ptr(), blocks,
+        None if stats is None else stats.data_ptr(), new_pos.data_ptr(),
+        alpha.data_ptr(), n_alpha.data_ptr(), diverged.data_ptr(),
+        depth.data_ptr(), pos.device.index, ctypes.addressof(launched),
+        _build.stream_ptr(pos.device),
     ))
+    if grid is not None:
+        grid.update(zip(("blocks_per_sm", "sms", "blocks"), launched))
     return new_pos, alpha, n_alpha, diverged, depth
 
 

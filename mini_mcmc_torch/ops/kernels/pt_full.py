@@ -12,16 +12,19 @@ the runner's cube (unit D stride), written in place.
 State layout is the JAX package's: positions ``[T, D, C]``, raw logp
 ``[T, C]``, swap EWMA ``[T-1, C]``, all float32; the parity of the first
 step is a host int and that of step k is ``(parity + k) % 2``. The draws are
-Philox by place (``csrc/philox.cuh``, Kernel 8): in sweep i, rung t takes
-draws ``t (D + 1) + d`` for its normals and ``t (D + 1) + D`` for its accept
-at sub-draw i, swap pair t draw ``0x10000 + t``.
+Philox by place (``csrc/philox.cuh``, Kernel 8), one evaluation per (chain,
+rung, step, sweep): counter ``(chain, step, t, i)`` gives rung t's sweep i,
+words x and y its proposal normal (the cosine branch at D = 1, the cosine
+and sine of one Box-Muller pair at D = 2), word z its accept uniform, and
+at i = 0 word w the swap uniform of pair (t, t+1).
 
-What bounds it on the H100: operations. One thread per chain keeps the
-T x D positions, T logps and T - 1 EWMAs in registers for all K steps; at
-T = 8, D = 1 a step is some 23 Philox-10 evaluations, 8 Box-Muller
-transforms and 8 mixture densities against 4 bytes of history per chain.
-With few chains (8,192 are 256 warps) the latency of each thread's
-dependent instructions, not the issue rate, sets the time.
+What bounds it on the H100: operations. One thread per (chain, rung),
+the rungs of a chain in adjacent lanes of one warp, so 8,192 chains at
+T = 8 fill the card with 2,048 warps; each thread keeps its rung's
+position, logp and pair EWMA in registers for all K steps and swaps by
+warp shuffle. A step at T = 8, D = 1 is 8 Philox-10 evaluations, 8
+Box-Muller transforms and 8 mixture densities per chain against 4 bytes
+of history.
 
 :func:`pt_multistep` launches the kernel for CUDA tensors and runs
 :func:`pt_multistep_plain` for CPU tensors only.
@@ -37,8 +40,6 @@ import torch
 from . import _build, rng
 
 _MASK = 0xFFFFFFFF
-#: first draw index of the swap uniforms (csrc/philox.cuh, Kernel 8)
-SWAP_DRAW = 0x10000
 
 
 class Ladder(NamedTuple):
@@ -90,19 +91,25 @@ def pt_draws(n_chains: int, n_temps: int, dim: int, n_inner: int,
              step: int, seed: int, device=None):
     """One step's Philox draws, as the kernel takes them: ``n_inner``
     normals ``[T, D, C]``, ``n_inner`` accept uniforms ``[T, C]`` and the
-    swap uniforms ``[T-1, C]``."""
+    swap uniforms ``[T-1, C]``. Evaluation ``(chain, step, t, i)`` gives
+    rung t's sweep i: words x, y its proposal normals 0 and 1 (the cosine
+    and sine of one Box-Muller pair), word z its accept uniform, and at
+    i = 0 word w the swap uniform of pair (t, t+1). Beyond the kernel's
+    D <= 2, normals 2p and 2p + 1 come from words x, y of draw p T + t."""
     key = rng.seed_words(seed)
     chain = torch.arange(n_chains, device=device)
-    draw = (torch.arange(n_temps, device=device)[:, None] * (dim + 1)
-            + torch.arange(dim + 1, device=device))[:, :, None]
+    rung = torch.arange(n_temps, device=device)[:, None]
+    pair = torch.arange((dim + 1) // 2, device=device)[:, None, None]
     noises, us = [], []
     for i in range(n_inner):
-        w0, w1, _, _ = rng.philox4x32_10(chain, step, draw, i, key)
-        noises.append(rng.box_muller(w0[:, :dim], w1[:, :dim]))
-        us.append(rng.unit_open(w0[:, dim]))
-    pair = SWAP_DRAW + torch.arange(n_temps - 1, device=device)[:, None]
-    w0, _, _, _ = rng.philox4x32_10(chain, step, pair, 0, key)
-    return noises, us, rng.unit_open(w0)
+        w = rng.philox4x32_10(chain, step, pair * n_temps + rung, i, key)
+        normal = torch.stack(rng.box_muller_pair(w[0], w[1]), dim=2)
+        noises.append(normal.permute(1, 0, 2, 3).reshape(
+            n_temps, -1, n_chains)[:, :dim])
+        us.append(rng.unit_open(w[2][0]))
+        if i == 0:
+            u_swap = rng.unit_open(w[3][0, :-1])
+    return noises, us, u_swap
 
 
 def pt_multistep_plain(target, pos, logp, swap_accept, parity: int,

@@ -11,11 +11,14 @@ port's stream is its own, distribution-identical, and fixed by
 Counter layout: ``(chain index, global step, draw index, sub-draw)``; the
 key is the full 64-bit per-run seed as two words. HMC: draw ``d < D`` gives
 coordinate ``d``'s momentum normal, draw ``D`` the accept uniform. NUTS
-(Kernel 4): draws ``0..D-1`` momentum, draw ``D`` the slice's Exp(1)
-uniform, draws ``D+1+2j`` and ``D+2+2j`` the direction and
-progressive-accept uniforms of doubling ``j``, and draw ``0x10000 + j`` at
-sub-draw ``i * (max_depth + 1) + k`` the merge uniform at leaf ``i``,
-cascade position ``k``. The ``use_pallas=True`` NUTS tier takes its
+(Kernel 4): draw 0 the momentum by paired Box-Muller (words x, y) and the
+slice's Exp(1) uniform (word z) at D <= 2, at D > 2 draws ``0..Q-1`` the
+momenta four to an evaluation and draw ``Q = ceil(D / 4)``'s word x the
+slice; draw ``0x10000 + j``, sub-draw 0, doubling ``j``'s direction and
+progressive-accept uniforms (words x, y), sub-draw ``1 + q`` its merge
+uniforms of ordinals ``4q..4q+3``, the merge at leaf ``i``, cascade
+position ``k`` having ordinal ``i - popcount(i) + k``
+(``nuts_full.py``). The ``use_pallas=True`` NUTS tier takes its
 subtree hash seeds from chain 0, draw ``0x20000 + j``, and the plain NUTS
 tiers seed each step's ``torch.Generator`` from chain 0, draw ``0x30000``
 (``ops/nuts.py``). MH (Kernel 5): draws ``0..D-1`` the proposal's (a
@@ -24,9 +27,10 @@ clear meaning +1, for the integer walk), draw ``D`` the accept uniform.
 Gibbs (Kernel 6): draw ``i`` for coordinate ``i`` (the mixture: a normal
 for x, a uniform from word x for z). Separable HMC (Kernel 7): draw ``q``
 gives the momenta of coordinates ``4q..4q+3`` by paired Box-Muller
-(:func:`paired_normals`). Parallel tempering (Kernel 8): in sweep ``i``,
-rung ``t`` takes draws ``t (D + 1) + d`` (normals) and ``t (D + 1) + D``
-(accept) at sub-draw ``i``, swap pair ``t`` draw ``0x10000 + t``.
+(:func:`paired_normals`). Parallel tempering (Kernel 8): draw ``t``,
+sub-draw ``i`` gives rung ``t``'s sweep ``i``, words x, y its proposal
+normal, word z its accept, and at ``i = 0`` word w the swap uniform of
+pair ``(t, t+1)``.
 The full table is in ``csrc/philox.cuh``.
 """
 

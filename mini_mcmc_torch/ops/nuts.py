@@ -65,9 +65,10 @@ class NUTSState(NamedTuple):
     m: int  # cumulative step count, the same for every chain
     n_discard: int  # adaptation horizon of the current run
     divergences: torch.Tensor  # [C] int32 count of divergent transitions
-    #: [C] int32 cumulative leapfrogs executed: the lockstep cost, 2^J - 1
-    #: per step for a J-deep doubling loop (per warp of 32 chains under
-    #: use_pallas="full"); saturates at _LEAPFROG_SAT
+    #: [C] int32 cumulative leapfrogs: 2^J - 1 per step for a J-deep
+    #: doubling loop, J the deepest chain's on the lockstep tiers (the
+    #: executed cost) and each chain's own under use_pallas="full" (its own
+    #: tree's cost); saturates at _LEAPFROG_SAT
     leapfrogs: torch.Tensor
 
 
@@ -229,7 +230,7 @@ def _finish_step(state: NUTSState, target_accept_p: float, m: int,
                  leapfrog_inc) -> NUTSState:
     """Dual averaging and state assembly (nuts.rs:676-691), shared by
     every tier. ``leapfrog_inc`` is this step's executed-leapfrog count (an
-    int, or ``[C]`` per warp from Kernel 4); the counter saturates at
+    int, or ``[C]`` per chain from Kernel 4); the counter saturates at
     ``_LEAPFROG_SAT`` instead of wrapping."""
     dtype = position_sel.dtype
     mf = float(m)

@@ -33,6 +33,7 @@ from mini_mcmc_torch import (
     MetropolisHastings,
     ParallelTempering,
     geometric_betas,
+    split_rhat_mean_ess,
     standard_normal,
 )
 from mini_mcmc_torch.models import (
@@ -227,8 +228,59 @@ def test_cuda_nuts_step_matches_plain(cuda):
     assert _share(same_pos) >= 0.999
     for a, b in zip(got[1:4], want[1:4]):
         assert _share((a - b).abs() <= ATOL + RTOL * b.abs()) >= 0.999
-    assert _share(got[4] == want[4]) >= 0.999  # warp depths
+    assert _share(got[4] == want[4]) >= 0.999  # each chain's own depth
     assert int(got[4].max()) >= 2
+
+
+@pytest.mark.cuda
+def test_cuda_nuts_step_is_the_same_under_any_grid(cuda):
+    # warps take chains from a counter in no fixed order; each chain's
+    # result depends on (key, step, chain) alone, so the occupancy-sized
+    # grid and a single block agree bit for bit
+    c = 8192
+    pos, _, eps = _nuts_state(c, seed=31)
+    t = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+    x = torch.from_numpy(pos).to(cuda)
+    e = torch.from_numpy(eps).to(cuda)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    grid = {}
+    full = nuts_step(t, x, e, 10, 0xC0FFEE, 17, 10, stats=stats, grid=grid)
+    assert grid["blocks"] == min(grid["blocks_per_sm"] * grid["sms"],
+                                 c // 128)
+    for blocks in (1, 3):
+        other = nuts_step(t, x, e, 10, 0xC0FFEE, 17, 10, blocks=blocks)
+        for a, b in zip(full, other):
+            assert torch.equal(a, b), blocks
+    # every leaf ran on a thread; a lane-iteration integrates at most one
+    details = {}
+    nuts_step_plain(t, x, e, 10, 0xC0FFEE, 17, 10, details=details)
+    lane_iterations, leaves = (int(v) for v in stats.cpu())
+    assert abs(leaves - int(details["leaves"].sum())) <= 0.001 * leaves
+    assert leaves <= lane_iterations
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [False, "full"])
+def test_cuda_nuts_tiers_pass_the_gates(cuda, use_pallas):
+    # bench.py:321-336's gates at 1,024 chains, loosened for the size as
+    # tests/test_torch_nuts.py loosens them
+    mean, cov = [0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]
+    x = np.random.default_rng(7).standard_normal((1024, 2)).astype(
+        np.float32)
+    s = NUTS(diffable_gaussian2d(mean, cov), torch.from_numpy(x).to(cuda),
+             0.8, use_pallas=use_pallas).seed(7)
+    s.run(64, 64)
+    sample = s.run(160, 0)
+    assert sample.is_cuda and torch.isfinite(sample).all()
+    rhat, ess = split_rhat_mean_ess(sample)
+    assert 0.95 <= float(rhat.mean()) <= 1.05
+    assert float(ess.min()) >= 0.005 * 1024 * 160
+    m = sample.double().mean(dim=(0, 1))
+    v = sample.double().var(dim=(0, 1), unbiased=False)
+    for d in range(2):
+        assert abs(float(m[d]) - mean[d]) <= 0.15, m
+        assert abs(float(v[d]) - cov[d][d]) <= 0.5, v
+    assert int(s.last_run_divergences.sum()) <= 1
 
 
 @pytest.mark.cuda
@@ -473,11 +525,15 @@ def _mixture() -> Target:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which,n_temps,n_inner", [
-    ("mixture", 8, 1), ("mixture", 16, 2), ("gaussian2d", 4, 1),
-    ("gaussian2d", 5, 2)])
-def test_cuda_pt_multistep_matches_plain(cuda, which, n_temps, n_inner):
-    c, k = 8192, 16
+@pytest.mark.parametrize("which,n_temps,n_inner,c", [
+    ("mixture", 8, 1, 8192), ("mixture", 16, 2, 8192),
+    ("gaussian2d", 4, 1, 8192), ("gaussian2d", 5, 2, 8192),
+    ("mixture", 2, 1, 8192), ("mixture", 8, 1, 1000),
+    ("gaussian2d", 16, 1, 1003)])
+def test_cuda_pt_multistep_matches_plain(cuda, which, n_temps, n_inner, c):
+    # T = 16 puts 2 chains in a warp, T = 5 leaves 3 of 8 lanes idle, and
+    # 1000 or 1003 chains leave the last block short
+    k = 16
     g = np.random.default_rng(60)
     if which == "mixture":
         t, d, std = _mixture(), 1, 1.0

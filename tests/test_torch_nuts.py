@@ -19,6 +19,7 @@ import torch
 
 import mini_mcmc_torch as mt
 from mini_mcmc_torch.convert import nuts_sampler_kwargs, nuts_state_from_numpy
+from mini_mcmc_torch.ops import nuts as nuts_ops
 from mini_mcmc_torch.ops.nuts import (
     _LEAPFROG_SAT,
     NUTSState,
@@ -129,7 +130,7 @@ def test_jax_sampler_passes_the_gates():
 
 
 @pytest.mark.parametrize("use_pallas", [False, True, "full"])
-def test_port_tiers_pass_the_gates(use_pallas):
+def test_port_tiers_pass_the_gates(use_pallas, monkeypatch):
     j = jmt.NUTS(jm.diffable_gaussian2d(MEAN, COV),
                  jnp.asarray(_init(), jnp.float32), 0.8,
                  use_pallas=use_pallas, pallas_interpret=True)
@@ -142,17 +143,29 @@ def test_port_tiers_pass_the_gates(use_pallas):
     eps = s.step_size
     assert torch.isfinite(eps).all() and (eps > 0).all()
     lf_before = s.leapfrogs.clone()
+    # under "full", the 2^depth_c - 1 of each chain's own depth, per step
+    want = torch.zeros(C, dtype=torch.int64)
+    kernel_step = nuts_ops.nuts_step
+
+    def counted_step(*args, **kw):
+        out = kernel_step(*args, **kw)
+        want.add_(2 ** out[4].to(torch.int64) - 1)
+        return out
+
+    monkeypatch.setattr(nuts_ops, "nuts_step", counted_step)
     sample = s.run(N_DRAW, 0)
     assert sample.shape == (C, N_DRAW, 2)
     assert torch.equal(sample[:, 0], first[:, -1])  # row 0: the start
     _gates(sample, int(s.last_run_divergences.sum()), C)
     # leapfrog accounting: 2^J - 1 per step, one J for all chains on the
-    # lockstep tiers and one per warp of 32 under "full"
+    # lockstep tiers and each chain's own under "full"
     lf = s.last_run_leapfrogs
     assert torch.equal(lf, s.leapfrogs - lf_before)
-    per_warp = lf.reshape(-1, 32)
-    assert (per_warp == per_warp[:, :1]).all()
-    if use_pallas != "full":
+    if use_pallas == "full":
+        assert torch.equal(lf.to(torch.int64), want)
+        assert not (lf == lf[0]).all()
+    else:
+        assert int(want.sum()) == 0  # the kernel's step is not called
         assert (lf == lf[0]).all()
     per_draw = lf.double() / (N_DRAW - 1)
     assert (per_draw >= 1.0).all() and (per_draw <= 2.0**10).all()

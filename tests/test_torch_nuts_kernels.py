@@ -18,15 +18,21 @@ import torch
 import mini_mcmc_torch as mt
 from mini_mcmc_torch.ops.kernels import _build, rng
 from mini_mcmc_torch.ops.kernels.nuts_full import (
+    DOUBLING_DRAW,
+    doubling_uniforms,
+    merge_ordinal,
+    merge_uniform,
+    momentum_and_slice,
     nuts_step,
     nuts_step_plain,
-    warp_max,
 )
 from mini_mcmc_torch.ops.kernels.nuts_subtree import (
     hash_u24,
     hash_unit,
+    popcount,
     subtree,
     subtree_plain,
+    trailing_ones,
 )
 from mini_mcmc_tpu import models as jm
 from mini_mcmc_tpu.ops.pallas.nuts_subtree import (
@@ -189,13 +195,73 @@ def test_nuts_step_depends_on_key_step_and_chain_alone():
     assert ((full[1] >= 0) & (full[1] <= full[2])).all()
 
 
-def test_warp_depth_is_the_max_over_32_chains():
-    x = torch.arange(70, dtype=torch.int32) % 7
-    w = warp_max(x)
-    assert w.tolist() == [6] * 70
-    x = torch.zeros(70, dtype=torch.int32)
-    x[33] = 4
-    assert warp_max(x).tolist() == [0] * 32 + [4] * 32 + [0] * 6
+def test_depth_is_each_chains_own_doubling_count():
+    t = mt.diffable_gaussian2d(MEAN, COV)
+    pos, eps = _step_inputs(512, seed=11)
+    for depth_limit in (MAX_DEPTH, 3):
+        details = {}
+        got = nuts_step_plain(t, pos, eps, depth_limit, 0xABCD, 5, MAX_DEPTH,
+                              details=details)
+        depth, leaves = details["depth"], details["leaves"]
+        assert depth.dtype == torch.int32
+        assert torch.equal(got[4], depth.to(torch.float32))
+        assert int(depth.min()) >= 1 and int(depth.max()) <= depth_limit
+        # a chain integrates every leaf of its complete doublings and at
+        # least one of its last: 2^(depth-1) <= leaves <= 2^depth - 1
+        assert (leaves >= 2 ** (depth - 1)).all()
+        assert (leaves <= 2 ** depth - 1).all()
+        # chains of one warp of 32 keep their own depths
+        per_warp = depth.reshape(-1, 32)
+        assert (per_warp != per_warp[:, :1]).any(dim=1).all()
+
+
+def _words(chain, step, draw, sub, seed):
+    return [int(w) for w in rng.philox4x32_10(
+        torch.tensor([chain]), step, draw, sub, rng.seed_words(seed))]
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3, 4])
+def test_step_draws_follow_the_counter_layout(dim):
+    seed, step = 0x0123456789ABCDEF, 77
+    chain = torch.arange(3, 9)
+    mom, u_slice = momentum_and_slice(chain, step, dim, seed)
+    assert mom.shape == (6, dim) and u_slice.shape == (6,)
+    for row, c in enumerate(chain.tolist()):
+        w = [torch.tensor(x) for x in _words(c, step, 0, 0, seed)]
+        normals = rng.box_muller_pair(w[0], w[1]) + rng.box_muller_pair(
+            w[2], w[3])
+        for d in range(dim):
+            assert torch.equal(mom[row, d], normals[d])
+        # the slice: word z of draw 0 beside at most two momenta, else
+        # word x of draw 1 (one quad of momenta)
+        bits = w[2] if dim <= 2 else torch.tensor(
+            _words(c, step, 1, 0, seed)[0])
+        assert torch.equal(u_slice[row], rng.unit_open(bits))
+        for j in (0, 3):
+            w = _words(c, step, DOUBLING_DRAW + j, 0, seed)
+            coin, accept = doubling_uniforms(chain, step, j, seed)
+            assert torch.equal(coin[row], rng.unit_open(torch.tensor(w[0])))
+            assert torch.equal(accept[row],
+                               rng.unit_open(torch.tensor(w[1])))
+
+
+@pytest.mark.parametrize("j", [1, 2, 5])
+def test_merge_uniforms_are_four_to_an_evaluation(j):
+    seed, step, chain = 0xFEEDFACE, 12, torch.arange(4)
+    # the ordinals of a doubling's merges are 0..2^j - 2, each once, in
+    # the order the leaves' cascades take them
+    order = [merge_ordinal(i, k) for i in range(1 << j)
+             for k in range(trailing_ones(i))]
+    assert order == list(range((1 << j) - 1))
+    assert merge_ordinal(5, 0) == 5 - popcount(5)
+    for i in range(1 << j):
+        for k in range(trailing_ones(i)):
+            o = merge_ordinal(i, k)
+            got = merge_uniform(chain, step, j, i, k, seed)
+            for c in chain.tolist():
+                w = _words(c, step, DOUBLING_DRAW + j, 1 + o // 4, seed)
+                assert torch.equal(got[c], rng.unit_open(torch.tensor(
+                    w[o % 4])))
 
 
 def test_wrappers_run_twins_on_cpu_and_check_dtype():

@@ -28,8 +28,10 @@ from mini_mcmc_torch.convert import (
     state_to_numpy,
 )
 from mini_mcmc_torch.models import Target
+from mini_mcmc_torch.ops.kernels import rng
 from mini_mcmc_torch.ops.kernels.pt_full import (
     make_ladder,
+    pt_draws,
     pt_instance,
     pt_multistep,
     pt_multistep_plain,
@@ -194,6 +196,39 @@ def test_kernel_instances_and_ladder_limits():
     assert lad.packed.tolist() == [1.0, 0.25, 0.75, 1.0, 3.0, 2.0, 6.0]
     with pytest.raises(ValueError, match="proposal_std"):
         make_ladder((1.0, 0.25), [1.0, 2.0, 3.0], 2, "cpu")
+
+
+@pytest.mark.parametrize("dim,n_temps,n_inner", [(1, 8, 1), (2, 5, 2),
+                                                   (1, 2, 3), (3, 4, 1)])
+def test_pt_draws_follow_the_counter_layout(dim, n_temps, n_inner):
+    """One Philox evaluation per (chain, rung, step, sweep): counter
+    (c, step, t, i), words x, y the proposal normals (a Box-Muller pair),
+    z the accept, w at i = 0 the swap uniform of pair (t, t+1); the twin's
+    D > 2 takes normals 2p, 2p + 1 from draw p T + t."""
+    seed, step, c = 0x0123456789ABCDEF, 2**31 + 9, 6
+    noises, us, u_swap = pt_draws(c, n_temps, dim, n_inner, step, seed)
+    assert len(noises) == len(us) == n_inner
+    assert noises[0].shape == (n_temps, dim, c)
+    assert us[0].shape == (n_temps, c) and u_swap.shape == (n_temps - 1, c)
+    key = rng.seed_words(seed)
+    for chain in range(c):
+        for t in range(n_temps):
+            for i in range(n_inner):
+                def words(draw):
+                    return [torch.tensor(int(x)) for x in rng.philox4x32_10(
+                        torch.tensor([chain]), step, draw, i, key)]
+
+                w = words(t)
+                for d in range(dim):
+                    p = words(d // 2 * n_temps + t)
+                    want = rng.box_muller_pair(p[0], p[1])[d % 2]
+                    assert torch.equal(noises[i][t, d, chain], want)
+                if dim == 1:  # the kernel's cosine branch
+                    assert torch.equal(noises[i][t, 0, chain],
+                                       rng.box_muller(w[0], w[1]))
+                assert torch.equal(us[i][t, chain], rng.unit_open(w[2]))
+                if i == 0 and t + 1 < n_temps:
+                    assert torch.equal(u_swap[t, chain], rng.unit_open(w[3]))
 
 
 def _half_line() -> Target:
