@@ -11,7 +11,9 @@ Phases, one line each (every check raises on failure):
 
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of ``mini_mcmc_torch/csrc`` with ``nvcc`` (seconds), and the
-   registers, stack frame and spills of Kernels 4 and 8 (``ptxas -v``);
+   registers, stack frame and spills of Kernels 4, 5, 6 and 8 (``ptxas
+   -v``); with ``--profile``, each Kernel 5 and 6 instance's K loop in its
+   SASS (``cuobjdump -sass``): instructions per step, by kind;
 3. Philox: the known-answer vector, and CUDA bits equal to the plain bits
    on 2**20 counters;
 4. the main path at the flagship size of ``bench.py`` (Rosenbrock3D HMC,
@@ -56,7 +58,8 @@ Phases, one line each (every check raises on failure):
     ``bench_gibbs`` gates and Kernel 6's launch count (256 per run);
 17. Kernels 5 (both instances) and 6 against their plain versions for one
     block from each path's equilibrium state and one key, and their times
-    (CUDA events); with ``--profile``, each path under ``torch.profiler``;
+    (CUDA events); with ``--profile``, the three alone (device time per
+    launch) and each path under ``torch.profiler``;
 18. the large-D HMC stage of ``bench.py:553-660`` (standard normal,
     D = 10,000, 1,024 chains, eps 0.1, L = 10, ``run(128, 128)`` twice,
     a 5.24 GB cube) through ``mini_mcmc_torch.HMC(use_pallas="separable")``
@@ -94,9 +97,11 @@ import argparse
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -210,7 +215,10 @@ OPS = {
     "gauss2d_logp": 10,  # the quadratic
     "isotropic_propose": 2,  # a multiply and an add per coordinate
     "int_walk_propose": 5,  # coin, add, the two clamps
-    "poisson_logp": 45,  # lgammaf, the product, the k < 0 select
+    "poisson_logp": 8,  # a table read of lgamma(k + 1), the product, two
+                        # subtractions, the k < 0 and table-size selects
+                        # (lgammaf, priced 45 before the table, is 27-54
+                        # SASS instructions a lane at k + 1 <= 11)
     "mixture_sweep": 60,  # two expf, a division, selects, the x draw
     "sep_leapfrog": 2,  # per coordinate: the drift and the kick FMAs (the
                         # standard normal's derivative folds into the kick)
@@ -357,22 +365,34 @@ def phase_device() -> None:
         count=torch.cuda.device_count())
 
 
-def phase_build() -> None:
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol, the
+    namespace prefix cut (``mh_multistep_kernelIN2mm10Gaussian2D...``)."""
+    ns = re.match(r"_ZN(\d+)", mangled)  # _ZN <length> <namespace>
+    if ns:
+        mangled = mangled[ns.end() + int(ns.group(1)):]
+    return re.split(r"E+v", re.sub(r"^\d+", "", mangled))[0]
+
+
+#: kernels whose registers, stack frame and spills phase_build reports
+REDESIGNED = ("nuts_step_kernel", "pt_multistep_kernel",
+              "mh_multistep_kernel", "gibbs_multistep_kernel")
+
+
+def phase_build():
+    """Build the kernels; returns the library's path and the registers,
+    stack frame and spills of the REDESIGNED kernels by name."""
     t0 = time.perf_counter()
     so = _build.build()
     _build.lib()
     # ptxas -v: each entry function's registers and stack, by kernel and
-    # template arguments (the mangled name, its namespace prefix cut)
+    # template arguments
     regs, name, frame = [], "?", {}
-    redesigned = {}  # Kernels 4 and 8: registers, stack frame, spills
+    redesigned = {}
     for line in so.with_suffix(".log").read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            name = entry.group(1)
-            ns = re.match(r"_ZN(\d+)", name)  # _ZN <length> <namespace>
-            if ns:
-                name = name[ns.end() + int(ns.group(1)):]
-            name = re.split(r"E+v", re.sub(r"^\d+", "", name))[0]
+            name = kernel_name(entry.group(1))
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
         if spill:
@@ -384,12 +404,108 @@ def phase_build() -> None:
             n_regs = used.group(1) or used.group(3)
             regs.append(f"{name[:60]}: {n_regs} regs, "
                         f"{used.group(2) or 0} B stack")
-            if name.startswith(("nuts_step_kernel", "pt_multistep_kernel")):
-                redesigned[name[:60]] = dict(regs=int(n_regs), **frame)
+            if name.startswith(REDESIGNED):
+                redesigned[name] = dict(regs=int(n_regs), **frame)
     say("build", seconds=round(time.perf_counter() - t0, 3), lib=so.name,
         ptxas=repr(regs))
     for kernel, info in redesigned.items():
-        say("ptxas_redesigned", kernel=kernel, **info)
+        say("ptxas_redesigned", kernel=kernel[:60], **info)
+    return so, redesigned
+
+
+#: SASS opcodes by what they do in Kernels 5 and 6: the Philox rounds are
+#: 32x32 wide multiplies and three-way xors (LOP3), the transcendental
+#: functions MUFU plus FP32 arithmetic
+SASS_GROUPS = (
+    ("mul_wide", ("IMAD.WIDE", "IMAD.HI")),
+    ("lop3", ("LOP3",)),
+    ("mufu", ("MUFU",)),
+    ("fp32", ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK",
+              "FRND", "FSWZADD")),
+    ("memory", ("LDG", "STG", "LDC", "ULDC", "LDL", "STL", "LD.", "ST.")),
+    ("control", ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "NOP",
+                 "WARPSYNC", "BREAK")),
+)
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_functions(so) -> dict:
+    """``cuobjdump -sass`` of the library: per kernel (``kernel_name``),
+    its instructions as ``(address, opcode, operands)`` and its labels'
+    addresses. Raises when ``cuobjdump`` is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise RuntimeError("cuobjdump not found: the SASS cannot be counted")
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, insns, labels, pending = {}, None, None, []
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            insns, labels, pending = [], {}, []
+            funcs[kernel_name(head.group(1))] = (insns, labels)
+            continue
+        if insns is None:
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = _SASS_INSN.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            insns.append((addr, m.group(3), m.group(4)))
+    return funcs
+
+
+def sass_step_count(insns, labels, stores_per_step: int) -> dict:
+    """The K loop of a multistep kernel in its SASS: the loop (a backward
+    branch) that holds the most history stores (STG), its static length,
+    steps per iteration (stores / ``stores_per_step``), instructions per
+    step in all and by SASS_GROUPS."""
+    best = None
+    for addr, op, rest in insns:
+        if not op.startswith("BRA"):
+            continue
+        target = re.search(r"\((\.L_x_\d+)\)", rest)
+        hexa = re.search(r"0x([0-9a-f]+)", rest)
+        to = (labels.get(target.group(1)) if target
+              else int(hexa.group(1), 16) if hexa else None)
+        if to is None or to > addr:
+            continue
+        body = [i for i in insns if to <= i[0] <= addr]
+        stores = sum(op.startswith("STG") for _, op, _ in body)
+        if best is None or (stores, len(body)) > (best[0], len(best[1])):
+            best = (stores, body)
+    if best is None:
+        return {"loop": 0}
+    stores, body = best
+    steps = max(stores // stores_per_step, 1)
+    out = {"loop": len(body), "stores": stores, "steps_per_iteration": steps,
+           "per_step": len(body) / steps}
+    for group, prefixes in SASS_GROUPS:
+        n = sum(op.startswith(prefixes) for _, op, _ in body)
+        out[group] = n / steps
+    out["other_int"] = out["per_step"] - sum(out[g] for g, _ in SASS_GROUPS)
+    return out
+
+
+def phase_sass(so, redesigned) -> None:
+    """``--profile``: each Kernel 5 and 6 instance's SASS per step (the
+    static K loop, slow paths that the compiler placed inside it included)
+    and its registers."""
+    for name, (insns, labels) in sass_functions(so).items():
+        if not name.startswith(("mh_multistep_kernel",
+                                "gibbs_multistep_kernel")):
+            continue
+        dim = int(re.search(r"Li(\d+)", name).group(1))
+        say("sass", kernel=name[:60], instructions=len(insns),
+            **redesigned.get(name, {}),
+            **sass_step_count(insns, labels, dim))
 
 
 def phase_philox(dev) -> None:
@@ -1099,6 +1215,53 @@ def phase_gibbs_kernel(g, seed: int) -> dict:
             "plain_ms": cuda_ms(lambda: gibbs_multistep_plain(*args, hp), 2)}
 
 
+def k56_cases(dev) -> dict:
+    """Kernels 5 and 6 at the main paths' shapes, from states drawn from
+    their targets (the equilibrium's cost per step): label -> (wrapper,
+    leading arguments, state, K)."""
+    gen = torch.Generator(device=dev).manual_seed(606)
+    c = MH_CHAINS
+    gauss = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    x = torch.randn((c, 2), generator=gen, device=dev)
+    pois = mt.poisson_target(POISSON_LAM)
+    k = torch.poisson(torch.full((c, 1), POISSON_LAM, device=dev),
+                      generator=gen).to(torch.int32)
+    mu0, sigma0, mu1, sigma1, pi0 = MIX
+    z = (torch.rand(c, generator=gen, device=dev) >= pi0).float()
+    n = torch.randn(c, generator=gen, device=dev)
+    xm = torch.where(z > 0, mu1 + sigma1 * n, mu0 + sigma0 * n)
+    return {
+        "gauss2d": (mh_multistep, (gauss, mt.isotropic_gaussian_proposal(
+            1.0)), (x, gauss.batch_logp(x)), MH_K),
+        "poisson": (mh_multistep, (pois, mt.random_walk_int_proposal()),
+                    (k, pois.batch_logp(k)), POISSON_K),
+        "gibbs": (gibbs_multistep, (mt.gaussian_mixture_conditional(*MIX),),
+                  (torch.stack([xm, z], dim=1),), GIBBS_K),
+    }
+
+
+def phase_k56_alone(dev, reps: int = 100) -> None:
+    """``--profile``: Kernels 5 and 6 alone at the main paths' shapes, each
+    over ``reps`` back-to-back launches: device µs per launch
+    (``torch.profiler``, over the launches it recorded) and ms per launch
+    by CUDA events."""
+    for label, (kernel, lead, state, k) in k56_cases(dev).items():
+        hist = torch.empty((k,) + tuple(state[0].shape),
+                           dtype=state[0].dtype, device=dev)
+
+        def launch():
+            return kernel(*lead, *state, 0x5EED_0606, 0, k, hist)
+
+        _, _, by_name = device_profile(lambda: [launch()
+                                                for _ in range(reps)])
+        n, us = next(v for name, v in by_name.items()
+                     if "multistep_kernel" in name)
+        check(f"profiled {label} launches", 0 < n <= reps, n)
+        say("k56_alone", path=label, K=k, chains=MH_CHAINS, calls=reps,
+            recorded=n, device_us_per_call=us / n,
+            event_ms=cuda_ms(launch, reps))
+
+
 def phase_runs_profile(runs) -> None:
     """``--profile``: one run of each ``(label, fn)`` path under
     ``torch.profiler``: device time by kernel and the idle share."""
@@ -1479,7 +1642,9 @@ def main() -> None:
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
     dev = torch.device("cuda", 0)
     phase_device()
-    phase_build()
+    so, redesigned = phase_build()
+    if args.profile:
+        phase_sass(so, redesigned)
     phase_philox(dev)
     hmc, counts, tier_counts = phase_main_path(dev)
     lf = phase_leapfrog(hmc, dev)
@@ -1508,6 +1673,7 @@ def main() -> None:
         **{f"{p}_{k}": repr(v) for p, r in (*k5.items(), ("gibbs", k6))
            for k, v in r.items() if k != "err"})
     if args.profile:
+        phase_k56_alone(dev)
         phase_runs_profile((
             ("mh", lambda: mh.run(MH_COLLECT, 0, time_major=True)),
             ("poisson", lambda: pois.run(POISSON_COLLECT, POISSON_DISCARD)),

@@ -4,9 +4,11 @@
 // its Pallas sweep with the TPU hardware stream. Here each built-in
 // conditional is a functor, selected by Conditional.cuda_functor
 // (mini_mcmc_torch/ops/kernels/_build.py maps names to the ids below) and
-// built per thread from Conditional.cuda_params. Coordinate i draws from
-// Philox at (chain, step, draw i, 0) (philox.cuh); the plain twin in
-// ops/kernels/gibbs_full.py reproduces them from the same words.
+// built per thread from Conditional.cuda_params. A conditional at
+// dimension D declares the words<D>() leading words of the sweep's word
+// stream that it reads (philox.cuh:step_words) and draws coordinate i from
+// them given the state. The plain twin in ops/kernels/gibbs_full.py
+// reproduces the draws from the same words.
 #pragma once
 
 #include <stdint.h>
@@ -19,9 +21,9 @@ enum ConditionalId : int { kGaussianMixture = 0 };
 
 // models/mixture.py:gaussian_mixture_conditional over [x, z], in the JAX
 // form's order (mini_mcmc_tpu/models/mixture.py:26-29,55-65):
-//   i = 0: x = mu_z + sigma_z * N(0, 1), the normal from words x, y;
+//   i = 0: x = mu_z + sigma_z * N(0, 1), the normal box_muller(w[0], w[1]);
 //   i = 1: z = [u < p1 / (p0 + p1)] with 0.5 when p0 + p1 underflows to 0,
-//          u from word x; p_c = pi_c * coeff_c * exp(-(x - mu_c)^2 / 2var_c).
+//          u from word 2; p_c = pi_c * coeff_c * exp(-(x - mu_c)^2 / 2var_c).
 // expf and the division are the full-precision ones (no -use_fast_math),
 // and the products are kept out of FMAs (__fmul_rn), so each value rounds
 // as the twin's does: the densities underflow for far x, and `u < p`
@@ -32,6 +34,11 @@ struct GaussianMixture {
   float mu0, sigma0, mu1, sigma1, pi0, pi1, coeff0, coeff1, two_var0,
       two_var1;
 
+  template <int D>
+  __host__ __device__ static constexpr int words() {
+    return 3;
+  }
+
   __device__ __forceinline__ explicit GaussianMixture(const float* p)
       : mu0(__ldg(p + 0)), sigma0(__ldg(p + 1)), mu1(__ldg(p + 2)),
         sigma1(__ldg(p + 3)), pi0(__ldg(p + 4)), pi1(__ldg(p + 5)),
@@ -40,14 +47,13 @@ struct GaussianMixture {
 
   template <int D>
   __device__ __forceinline__ float sample(int i, const float (&s)[D],
-                                          uint32_t chain, uint32_t step,
-                                          uint32_t k0, uint32_t k1) const {
+                                          const uint32_t* w) const {
     static_assert(D == 2, "the mixture's state is [x, z]");
     if (i == 0) {
       const bool low = s[1] < 0.5f;
       const float mu = low ? mu0 : mu1;
       const float sigma = low ? sigma0 : sigma1;
-      return mu + __fmul_rn(sigma, normal_at(chain, step, 0u, k0, k1));
+      return mu + __fmul_rn(sigma, box_muller(w[0], w[1]));
     }
     const float d0 = s[0] - mu0, d1 = s[0] - mu1;
     const float p0 =
@@ -56,8 +62,7 @@ struct GaussianMixture {
         __fmul_rn(pi1, coeff1 * expf(-__fmul_rn(d1, d1) / two_var1));
     const float total = p0 + p1;
     const float prob_z1 = total > 0.0f ? p1 / total : 0.5f;
-    const float u = uniform_at(chain, step, 1u, k0, k1);
-    return u < prob_z1 ? 1.0f : 0.0f;
+    return unit_open(w[2]) < prob_z1 ? 1.0f : 0.0f;
   }
 };
 

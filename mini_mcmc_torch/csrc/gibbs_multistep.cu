@@ -9,16 +9,19 @@
 // through the runner's strides, as in Kernels 2 and 5; a null `hist`
 // writes no history. float32 states only, as in the JAX package.
 //
-// Draws: Philox at (chain0 + c, step0 + k, draw i, 0) for coordinate i
-// under the run's 64-bit key (philox.cuh), so the plain twin
-// (ops/kernels/gibbs_full.py) reproduces them and the cube depends neither
-// on K nor on the grid.
+// Draws: one word stream per (chain0 + c, step0 + k) under the run's
+// 64-bit key (philox.cuh:step_words), the conditional's words<D>() words
+// for the whole sweep, so the plain twin (ops/kernels/gibbs_full.py)
+// reproduces them and the cube depends neither on K nor on the grid.
 //
-// What bounds it on the H100: one thread per chain, the state in
-// registers for all K sweeps. For the mixture a sweep is two Philox-10
-// evaluations, a Box-Muller transform, two expf, a division and the
-// selects, ~300 lane instructions, against 8 bytes of history: issue
-// bounds it, not bytes.
+// What bounds it on the H100: issue, in one dependent chain per thread.
+// One thread per chain, the state in registers for all K sweeps; 65,536
+// chains fill four warps a scheduler, and no more exist. A mixture sweep
+// is one Philox-10 evaluation (three words), a Box-Muller transform, two
+// expf, three divisions and the selects, against 8 bytes of history.
+// Evaluating sweep k + 1's draws beside sweep k's conditionals (a one-step
+// software pipeline) measured no faster on the H100, so each sweep draws
+// its own.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,6 +40,7 @@ __global__ void __launch_bounds__(mm::kThreads)
                            float* __restrict__ pos_out,
                            float* __restrict__ hist, long long hist_sk,
                            long long hist_sc) {
+  constexpr int kWords = C::template words<D>();
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_chains) return;
   const C cond(params);
@@ -44,16 +48,17 @@ __global__ void __launch_bounds__(mm::kThreads)
   float x[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) x[d] = pos[c * D + d];
+  float* row = hist != nullptr ? hist + (long long)c * hist_sc : nullptr;
 
   for (int k = 0; k < k_steps; ++k) {
-    const uint32_t step = step0 + (uint32_t)k;
+    uint32_t w[4 * mm::stream_evals<kWords>()];
+    mm::step_words<kWords>(chain, step0 + (uint32_t)k, k0, k1, w);
 #pragma unroll
-    for (int i = 0; i < D; ++i)
-      x[i] = cond.template sample<D>(i, x, chain, step, k0, k1);
-    if (hist != nullptr) {
-      float* row = hist + (long long)k * hist_sk + (long long)c * hist_sc;
+    for (int i = 0; i < D; ++i) x[i] = cond.template sample<D>(i, x, w);
+    if (row != nullptr) {
 #pragma unroll
       for (int d = 0; d < D; ++d) row[d] = x[d];
+      row += hist_sk;
     }
   }
 

@@ -11,18 +11,22 @@
 // Kernel 2; a null `hist` writes no history.
 //
 // Positions are float or int32_t (discrete targets); the cached logp is
-// float either way (mh_full.py:22-23). Draws: Philox at (chain0 + c,
-// step0 + k, draw, 0) under the run's 64-bit key: draws 0..D-1 the
-// proposal's, draw D the accept uniform (philox.cuh), so the plain twin
-// (ops/kernels/mh_full.py) reproduces them and the cube depends neither on
-// K nor on the grid.
+// float either way (mh_full.py:22-23). Draws: one word stream per (chain0
+// + c, step0 + k) under the run's 64-bit key (philox.cuh:step_words): the
+// proposal's words<D>() words, then the accept uniform's. The plain twin
+// (ops/kernels/mh_full.py) reproduces them, and the cube depends neither
+// on K nor on the grid.
 //
-// What bounds it on the H100: one thread per chain, position and logp in
-// registers for all K steps. At D = 2 a step is three Philox-10
-// evaluations (~83 lane instructions each), two Box-Muller transforms, the
-// quadratic, a logf and the selects, ~360 instructions, against 8 bytes of
-// history: ~45 instructions per byte, far above the card's ~10 per byte of
-// HBM bandwidth, so issue bounds it, not bytes.
+// What bounds it on the H100: issue, in one dependent chain per thread.
+// One thread per chain, position and logp in registers for all K steps;
+// 65,536 chains fill 496 threads an SM, four warps a scheduler, and no
+// more exist. A Gaussian2D step is one Philox-10 evaluation (~40 SASS
+// instructions, the key schedule held in uniform registers), one
+// Box-Muller pair, the quadratic, the accept's logf and the selects,
+// against 8 bytes of history: about half the instructions of one
+// evaluation per draw. Evaluating step k + 1's draws beside step k's
+// density and accept (a one-step software pipeline) measured 1-3% slower
+// on the H100, and spilled at Rosenbrock D = 3, so each step draws its own.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,30 +51,34 @@ __global__ void __launch_bounds__(mm::kThreads)
                         float* __restrict__ logp_out,
                         PosT* __restrict__ hist, long long hist_sk,
                         long long hist_sc) {
+  // the accept uniform follows the proposal's words
+  constexpr int kPropWords = P::template words<D>();
+  constexpr int kWords = kPropWords + 1;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_chains) return;
-  const T t(tparams);
+  const T t(tparams);  // before the exit: a target may fill a block table
   const P q(pparams);
+  if (c >= n_chains) return;
   const uint32_t chain = chain0 + (uint32_t)c;
   PosT x[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) x[d] = pos[c * D + d];
   float lp = logp[c];
+  PosT* row = hist != nullptr ? hist + (long long)c * hist_sc : nullptr;
 
   for (int k = 0; k < k_steps; ++k) {
-    const uint32_t step = step0 + (uint32_t)k;
+    uint32_t w[4 * mm::stream_evals<kWords>()];
+    mm::step_words<kWords>(chain, step0 + (uint32_t)k, k0, k1, w);
     PosT y[D];
-    q.template propose<D>(x, y, chain, step, k0, k1);
+    q.template propose<D>(x, w, y);
     const float lpp = t.template logp<D>(y);
-    const float u = mm::uniform_at(chain, step, (uint32_t)D, k0, k1);
-    const bool accept = (lpp - lp) > logf(u);
+    const bool accept = (lpp - lp) > logf(mm::unit_open(w[kPropWords]));
 #pragma unroll
     for (int d = 0; d < D; ++d) x[d] = accept ? y[d] : x[d];
     lp = accept ? lpp : lp;
-    if (hist != nullptr) {
-      PosT* row = hist + (long long)k * hist_sk + (long long)c * hist_sc;
+    if (row != nullptr) {
 #pragma unroll
       for (int d = 0; d < D; ++d) row[d] = x[d];
+      row += hist_sk;
     }
   }
 

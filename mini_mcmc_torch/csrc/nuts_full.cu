@@ -348,7 +348,8 @@ int launch(const StepArgs& a) {
 }  // namespace
 
 // counter: two zeroed words of device scratch, kept by the caller for the
-// device and left zeroed by every launch (launches on one stream). blocks:
+// (device, stream) and left zeroed by every launch: a launch on another
+// stream takes another counter, or the two would steal chains. blocks:
 // the grid, 0 for the resident blocks (occupancy x SMs). stats: null, or
 // two zeroed uint64 that receive the lane-iterations and the leaves. grid:
 // null, or three ints that receive blocks per SM, SMs and blocks launched.

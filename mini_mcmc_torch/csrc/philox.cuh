@@ -28,13 +28,19 @@
 //     draw 0x20000 + j gives the two words of doubling j's hash seed;
 //     chain 0, draw 0x30000 seeds the step's torch.Generator (the
 //     use_pallas=False and True tiers).
-//   MH (Kernel 5): draws 0..D-1 the proposal's: a normal from words x
-//     and y (isotropic Gaussian walk), or the top bit of word x as a fair
-//     coin, clear meaning +1 (the +-1 integer walk); draw D the accept
-//     uniform (word x); sub-draw 0.
-//   Gibbs (Kernel 6): draw i for coordinate i of each sweep; for the
-//     mixture, coordinate 0 a normal (words x, y), coordinate 1 a uniform
-//     (word x); sub-draw 0.
+//   MH (Kernel 5) and Gibbs (Kernel 6) read one word stream per (chain,
+//     step): the words of the counters (chain, step, q, 0), q = 0, 1, ...,
+//     ceil(W / 4) - 1, in order (step_words), W the words the step uses.
+//     An isotropic Gaussian walk at D takes normals 2p and 2p + 1 from the
+//     cosine and sine of box_muller_pair(w[2p], w[2p + 1]), p <
+//     ceil(D / 2), and its accept uniform from word 2 ceil(D / 2): at
+//     D = 2 words x, y the normals and z the accept, one evaluation; at
+//     D = 3 draw 0's four words the normals (the last sine unused) and
+//     draw 1's word x the accept, two. The +-1 integer walk takes coin d
+//     from the top bit of word d (clear meaning +1) and the accept from
+//     word D. The Gibbs mixture takes x's normal from box_muller(w[0],
+//     w[1]) (the cosine) and z's uniform from word 2: one evaluation a
+//     sweep.
 //   Separable HMC (Kernel 7): draw q, sub-draw 0, gives the momenta of
 //     coordinates 4q..4q+3 by paired Box-Muller (normals4_at): words x, y
 //     the cosine and sine of one pair (4q, 4q+1), words z, w of the next
@@ -125,6 +131,30 @@ __device__ __forceinline__ float uniform_at(uint32_t chain, uint32_t step,
                                             uint32_t k1, uint32_t sub = 0u) {
   const U32x4 w = philox4x32_10(U32x4{chain, step, draw, sub}, k0, k1);
   return unit_open(w.x);
+}
+
+// The Philox evaluations a step of W words takes, and its word stream's
+// length.
+template <int W>
+__host__ __device__ constexpr int stream_evals() {
+  return (W + 3) / 4;
+}
+
+// One (chain, step)'s word stream (Kernels 5 and 6): word 4q + j is word
+// j of the counter (chain, step, q, 0).
+template <int W>
+__device__ __forceinline__ void step_words(
+    uint32_t chain, uint32_t step, uint32_t k0, uint32_t k1,
+    uint32_t (&w)[4 * stream_evals<W>()]) {
+#pragma unroll
+  for (int q = 0; q < stream_evals<W>(); ++q) {
+    const U32x4 r = philox4x32_10(U32x4{chain, step, (uint32_t)q, 0u}, k0,
+                                  k1);
+    w[4 * q] = r.x;
+    w[4 * q + 1] = r.y;
+    w[4 * q + 2] = r.z;
+    w[4 * q + 3] = r.w;
+  }
 }
 
 }  // namespace mm

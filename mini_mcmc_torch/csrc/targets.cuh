@@ -94,19 +94,35 @@ struct Gaussian2D {
 // replaces the JAX package's Lanczos series (utils/mathx.py), which exists
 // only because Mosaic cannot lower lax.lgamma; the product is kept out of
 // an FMA so that the twin (torch.lgamma) rounds it the same way.
-// params: log_lam, lam. MH kernel only, at D = 1.
+//
+// lgammaf is five branches by the size of its argument, so a warp whose
+// chains sit at k = 0..10 ran four of them a step (~140 issue slots).
+// The block therefore fills a shared table of lgammaf(k + 1) for k <
+// kTable once, and a step reads it; beyond the table it calls lgammaf.
+// The values are lgammaf's own, so the density is the same function. The
+// constructor synchronises the block: every thread of the block must
+// build the functor. params: log_lam, lam. MH kernel only, at D = 1.
 struct Poisson {
+  static constexpr int kTable = 64;
   float log_lam, lam;
+  const float* table;
 
   __device__ __forceinline__ explicit Poisson(const float* p)
-      : log_lam(__ldg(p + 0)), lam(__ldg(p + 1)) {}
+      : log_lam(__ldg(p + 0)), lam(__ldg(p + 1)) {
+    __shared__ float lgamma_table[kTable];
+    for (int i = threadIdx.x; i < kTable; i += blockDim.x)
+      lgamma_table[i] = lgammaf((float)i + 1.0f);
+    __syncthreads();
+    table = lgamma_table;
+  }
 
   template <int D>
   __device__ __forceinline__ float logp(const int32_t (&k)[D]) const {
     static_assert(D == 1, "Poisson is one-dimensional");
+    if (k[0] < 0) return -__int_as_float(0x7f800000);  // -inf
     const float kf = (float)k[0];
-    const float lp = (__fmul_rn(kf, log_lam) - lam) - lgammaf(kf + 1.0f);
-    return k[0] < 0 ? -__int_as_float(0x7f800000) : lp;  // -inf
+    const float lg = k[0] < kTable ? table[k[0]] : lgammaf(kf + 1.0f);
+    return (__fmul_rn(kf, log_lam) - lam) - lg;
   }
 };
 

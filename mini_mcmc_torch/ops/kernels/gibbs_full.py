@@ -9,14 +9,13 @@ state is written to ``hist[k]``. float32 states only, as in the JAX
 package.
 
 ``hist``, ``seed``, ``step0`` and ``chain0`` are as in Kernel 5
-(``mh_full.py``): coordinate ``i`` draws Philox at ``(chain0 + c,
-step0 + k, i, 0)``.
+(``mh_full.py``): a sweep draws one word stream per (chain, step)
+(``rng.stream_words``), the conditional's words for all coordinates; the
+mixture's three (x's normal from words 0 and 1, z's uniform from word 2)
+are one Philox evaluation.
 
-What bounds it on the H100: issue. A mixture sweep is ~300 lane
-instructions (two Philox-10 evaluations, a Box-Muller transform, two
-``expf``, a division) against 8 bytes of history per chain; its three
-random words need only one evaluation (~180 instructions, the bound of
-``chip_smoke.py:bounds``).
+What bounds it on the H100: issue, in one dependent chain per thread
+(``csrc/gibbs_multistep.cu``).
 
 :func:`gibbs_multistep` launches the CUDA kernel for CUDA tensors and runs
 :func:`gibbs_multistep_plain` for CPU tensors only.
@@ -34,17 +33,19 @@ from . import _build, rng
 _MASK = 0xFFFFFFFF
 
 
-def _mixture_from_words(params, i, states, w0, w1):
+def _mixture_from_words(params, i, states, words):
     if i == 0:
-        return mixture_coordinate(params, 0, states,
-                                  rng.box_muller(w0, w1), None)
-    return mixture_coordinate(params, i, states, None, rng.unit_open(w0))
+        return mixture_coordinate(
+            params, 0, states, rng.box_muller(words[:, 0], words[:, 1]),
+            None)
+    return mixture_coordinate(params, i, states, None,
+                              rng.unit_open(words[:, 2]))
 
 
-#: each built-in conditional's draw of coordinate ``i`` from Philox words
-#: x and y of draw ``i``, as ``csrc/conditionals.cuh`` draws it:
-#: ``(cuda_params, i, states [C, D], w0, w1) -> [C]``
-SAMPLE_FROM_WORDS = {"gaussian_mixture": _mixture_from_words}
+#: each built-in conditional as ``csrc/conditionals.cuh`` draws it from a
+#: sweep's word stream: ``(words it reads at D, (cuda_params, i, states
+#: [C, D], words [C, W]) -> coordinate i [C])``
+SAMPLE_FROM_WORDS = {"gaussian_mixture": (lambda d: 3, _mixture_from_words)}
 
 
 def gibbs_instance(conditional, dim: int) -> int:
@@ -70,24 +71,24 @@ def gibbs_multistep_plain(conditional, pos, seed: int, step0: int,
                           words=None):
     """Plain PyTorch twin of the kernel, drawing the same Philox words.
 
-    ``words = (w0, w1)``, int64 ``[K, C, D]``, replace the Philox words.
+    ``words``, int64 ``[K, C, W]``, replace each sweep's word stream.
     Returns ``pos'``.
     """
     gibbs_multistep_plain.calls += 1
-    sample = SAMPLE_FROM_WORDS.get(conditional.cuda_functor)
-    if sample is None:
+    form = SAMPLE_FROM_WORDS.get(conditional.cuda_functor)
+    if form is None:
         _build.conditional_id(conditional)  # raises, naming the built-ins
+    words_of, sample = form
     c, d = pos.shape
     for k in range(k_steps):
         if words is None:
-            w0, w1 = rng.step_words(c, d, (step0 + k) & _MASK, seed,
-                                    pos.device, chain0)
+            w = rng.stream_words(c, words_of(d), (step0 + k) & _MASK, seed,
+                                 pos.device, chain0)
         else:
-            w0, w1 = words[0][k], words[1][k]
+            w = words[k]
         pos = pos.clone()
         for i in range(d):
-            pos[:, i] = sample(conditional.cuda_params, i, pos, w0[:, i],
-                               w1[:, i])
+            pos[:, i] = sample(conditional.cuda_params, i, pos, w)
         if hist is not None:
             hist[k] = pos
     return pos

@@ -15,11 +15,15 @@ run's 64-bit Philox key, ``step0`` the global step of the block's first
 step and ``chain0`` the index of the first chain, so the draws depend on
 neither the grouping of steps into blocks nor a split of the chains.
 
-What bounds it on the H100: issue. At D = 2 a step is ~360 lane
-instructions (three Philox-10 evaluations, two Box-Muller transforms, the
-quadratic, a ``logf``) against 8 bytes of history per chain; its two
-normals and one uniform need only one evaluation and one Box-Muller pair
-(~170 instructions, the bound of ``chip_smoke.py:bounds``).
+Draws: one word stream per (chain, step) (``rng.stream_words``): the
+proposal's words (``2 ceil(D / 2)`` for the isotropic walk, its normals
+in Box-Muller pairs; ``D`` coins for the integer walk), then the accept
+uniform's word, so a Gaussian2D or Poisson step is one Philox evaluation.
+
+What bounds it on the H100: issue, in one dependent chain per thread
+(``csrc/mh_multistep.cu``): a Gaussian2D step is one Philox evaluation
+and one Box-Muller pair, about half the instructions of one evaluation
+per draw.
 
 :func:`mh_multistep` launches the CUDA kernel for CUDA tensors and runs
 :func:`mh_multistep_plain` for CPU tensors only.
@@ -37,20 +41,23 @@ from . import _build, rng
 _MASK = 0xFFFFFFFF
 
 
-def _int_walk_from_words(params, current, w0, w1):
-    del w1
+def _isotropic_from_words(params, current, words):
+    return current + params[0] * rng.pair_normals(words, current.shape[1])
+
+
+def _int_walk_from_words(params, current, words):
     clip_low, clip_high, has_high = params
-    return int_walk(current, w0 < 2**31, int(clip_low),
-                    int(clip_high) if has_high else None)
+    return int_walk(current, words[:, :current.shape[1]] < 2**31,
+                    int(clip_low), int(clip_high) if has_high else None)
 
 
-#: each built-in proposal's draw from Philox words x and y of draws
-#: ``0..D-1``, as ``csrc/proposals.cuh`` draws it:
-#: ``(cuda_params, current [C, D], w0, w1) -> proposed [C, D]``
+#: each built-in proposal as ``csrc/proposals.cuh`` draws it from a step's
+#: word stream: ``(words it reads at D, (cuda_params, current [C, D],
+#: words [C, W]) -> proposed [C, D])``; the accept takes the next word
 PROPOSE_FROM_WORDS = {
-    "isotropic_gaussian":
-        lambda params, x, w0, w1: x + params[0] * rng.box_muller(w0, w1),
-    "random_walk_int": _int_walk_from_words,
+    "isotropic_gaussian": (lambda d: 2 * ((d + 1) // 2),
+                           _isotropic_from_words),
+    "random_walk_int": (lambda d: d, _int_walk_from_words),
 }
 
 
@@ -82,24 +89,26 @@ def mh_multistep_plain(target, proposal, pos, logp, seed: int, step0: int,
                        words=None):
     """Plain PyTorch twin of the kernel, drawing the same Philox words.
 
-    ``words = (w0, w1)``, int64 ``[K, C, D + 1]``, replace the Philox words
+    ``words``, int64 ``[K, C, W]``, replace each step's word stream
     (parity tests feed both packages the same draws). Returns
     ``(pos', logp')``.
     """
     mh_multistep_plain.calls += 1
-    propose = PROPOSE_FROM_WORDS.get(proposal.cuda_functor)
-    if propose is None:
+    form = PROPOSE_FROM_WORDS.get(proposal.cuda_functor)
+    if form is None:
         _build.proposal_id(proposal)  # raises, naming the built-in forms
+    words_of, propose = form
     c, d = pos.shape
+    accept_word = words_of(d)
     for k in range(k_steps):
         if words is None:
-            w0, w1 = rng.step_words(c, d + 1, (step0 + k) & _MASK, seed,
-                                    pos.device, chain0)
+            w = rng.stream_words(c, accept_word + 1, (step0 + k) & _MASK,
+                                 seed, pos.device, chain0)
         else:
-            w0, w1 = words[0][k], words[1][k]
-        prop = propose(proposal.cuda_params, pos, w0[:, :d], w1[:, :d])
+            w = words[k]
+        prop = propose(proposal.cuda_params, pos, w)
         lp = target.batch_logp(prop)
-        u = rng.unit_open(w0[:, d])
+        u = rng.unit_open(w[:, accept_word])
         accept = (lp - logp) > torch.log(u)  # NaN compares False
         pos = torch.where(accept[:, None], prop, pos)
         logp = torch.where(accept, lp, logp)

@@ -25,8 +25,9 @@ reached.
 ``depth`` is each chain's own doubling count, and ``2^depth - 1`` the
 leapfrogs its own tree takes, which the sampler's ``leapfrogs`` counter
 records. The kernel runs a persistent grid whose warps take 32 chains at a
-time from a device counter and run them in lockstep, so the card integrates
-each warp's deepest tree for all 32 (the load balance, ``stats`` below).
+time from a device counter (one per device and stream, :func:`_counter`)
+and run them in lockstep, so the card integrates each warp's deepest tree
+for all 32 (the load balance, ``stats`` below).
 
 :func:`nuts_step` launches the CUDA kernel for CUDA tensors and runs
 :func:`nuts_step_plain` for CPU tensors only.
@@ -206,9 +207,12 @@ nuts_step_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _counter(device: torch.device) -> torch.Tensor:
-    """The kernel's chain counter on ``device``: two zeroed words that
-    every launch leaves zeroed (its last block resets them)."""
+def _counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's chain counter for launches on ``stream`` of ``device``:
+    two zeroed words that every launch leaves zeroed (its last block resets
+    them). One per stream, so launches in flight on two streams never take
+    each other's chains; it is zeroed on ``stream`` itself, the current
+    stream when first asked for."""
     return torch.zeros((2,), dtype=torch.int32, device=device)
 
 
@@ -251,16 +255,17 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
         for _ in range(4))
     launched = (ctypes.c_int * 3)()
     k0, k1 = rng.seed_words(seed)
+    stream = _build.stream_ptr(pos.device)
     lib = _build.lib()
     nuts_step.launches += 1
     _build.check(lib.mm_nuts_step_f32(
         pos.data_ptr(), eps.data_ptr(), _build.params_ptr(target, pos.device),
         depth_limit, max_depth, k0, k1, step & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-        c, d, tid, _counter(pos.device).data_ptr(), blocks,
+        c, d, tid, _counter(pos.device, stream).data_ptr(), blocks,
         None if stats is None else stats.data_ptr(), new_pos.data_ptr(),
         alpha.data_ptr(), n_alpha.data_ptr(), diverged.data_ptr(),
         depth.data_ptr(), pos.device.index, ctypes.addressof(launched),
-        _build.stream_ptr(pos.device),
+        stream,
     ))
     if grid is not None:
         grid.update(zip(("blocks_per_sm", "sms", "blocks"), launched))

@@ -21,11 +21,15 @@ position ``k`` having ordinal ``i - popcount(i) + k``
 (``nuts_full.py``). The ``use_pallas=True`` NUTS tier takes its
 subtree hash seeds from chain 0, draw ``0x20000 + j``, and the plain NUTS
 tiers seed each step's ``torch.Generator`` from chain 0, draw ``0x30000``
-(``ops/nuts.py``). MH (Kernel 5): draws ``0..D-1`` the proposal's (a
-normal from words x and y for the isotropic walk; the top bit of word x,
-clear meaning +1, for the integer walk), draw ``D`` the accept uniform.
-Gibbs (Kernel 6): draw ``i`` for coordinate ``i`` (the mixture: a normal
-for x, a uniform from word x for z). Separable HMC (Kernel 7): draw ``q``
+(``ops/nuts.py``). MH (Kernel 5) and Gibbs (Kernel 6): one word stream
+per (chain, step), the words of the counters ``(chain, step, q, 0)`` for
+``q < ceil(W / 4)`` in order (:func:`stream_words`), ``W`` the words the
+step uses. The isotropic walk takes normals ``2p``, ``2p + 1`` from the
+cosine and sine of :func:`box_muller_pair` on words ``2p``, ``2p + 1``
+and the accept from word ``2 ceil(D / 2)``; the integer walk coin ``d``
+from the top bit of word ``d`` (clear meaning +1) and the accept from
+word ``D``; the Gibbs mixture x's normal from :func:`box_muller` on words
+0, 1 and z's uniform from word 2. Separable HMC (Kernel 7): draw ``q``
 gives the momenta of coordinates ``4q..4q+3`` by paired Box-Muller
 (:func:`paired_normals`). Parallel tempering (Kernel 8): draw ``t``,
 sub-draw ``i`` gives rung ``t``'s sweep ``i``, words x, y its proposal
@@ -135,18 +139,36 @@ def box_muller_pair(a: torch.Tensor, b: torch.Tensor):
     return r * torch.cos(angle), r * torch.sin(angle)
 
 
+def stream_words(n_chains: int, n_words: int, step: int, seed: int,
+                 device=None, chain0: int = 0) -> torch.Tensor:
+    """One step's word stream for every chain (``philox.cuh:step_words``,
+    Kernels 5 and 6): int64 ``[C, 4 ceil(n_words / 4)]``, word ``4q + j``
+    being word ``j`` of the counter ``(chain0 + c, step, q, 0)``."""
+    chain = torch.arange(chain0, chain0 + n_chains,
+                         device=device).reshape(-1, 1)
+    quad = torch.arange((n_words + 3) // 4, device=device).reshape(1, -1)
+    w = philox4x32_10(chain, step, quad, 0, seed_words(seed))
+    return torch.stack(w, dim=2).reshape(n_chains, -1)
+
+
+def pair_normals(words: torch.Tensor, dim: int) -> torch.Tensor:
+    """``[C, dim]`` normals from a word stream ``[C, W]``: normals ``2p``
+    and ``2p + 1`` are the cosine and sine of :func:`box_muller_pair` on
+    words ``2p`` and ``2p + 1``."""
+    n_pairs = (dim + 1) // 2
+    cos, sin = box_muller_pair(words[:, 0:2 * n_pairs:2],
+                               words[:, 1:2 * n_pairs:2])
+    return torch.stack((cos, sin), dim=2).reshape(len(words), -1)[:, :dim]
+
+
 def paired_normals(n_chains: int, dim: int, step: int, seed: int,
                    device=None, chain0: int = 0) -> torch.Tensor:
     """``[C, D]`` momenta of the separable kernel (``philox.cuh``,
     Kernel 7): the counter ``(chain0 + c, step, q, 0)`` gives coordinates
     ``4q..4q+3``, words x and y the cosine and sine of one Box-Muller pair,
     words z and w of the next."""
-    chain = torch.arange(chain0, chain0 + n_chains,
-                         device=device).reshape(-1, 1)
-    quad = torch.arange((dim + 3) // 4, device=device).reshape(1, -1)
-    w = philox4x32_10(chain, step, quad, 0, seed_words(seed))
-    n = box_muller_pair(w[0], w[1]) + box_muller_pair(w[2], w[3])
-    return torch.stack(n, dim=2).reshape(n_chains, -1)[:, :dim]
+    return pair_normals(
+        stream_words(n_chains, dim, step, seed, device, chain0), dim)
 
 
 def uniform_at(chain, step: int, draw: int, seed: int, sub=0):

@@ -17,7 +17,9 @@ chains, integer positions equal. The separable kernel (Kernel 7) is held
 per chain against the float64 twin on the same momentum draws, its three
 sums at rtol 1e-5, and its draws must not move with the launch grid; the
 tempering kernel (Kernel 8) must equal its twin (positions, logp, swap
-EWMA, history) on at least 99.9% of chains.
+EWMA, history) on at least 99.9% of chains. Kernels 4, 5 and 6 must give
+bit-identical results under any launch grid, block of steps or chain
+split, and Kernel 4 on two streams at once.
 """
 
 import math
@@ -260,6 +262,33 @@ def test_cuda_nuts_step_is_the_same_under_any_grid(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_nuts_step_on_two_streams_at_once(cuda):
+    # each stream takes its own chain counter: two launches in flight on
+    # two streams, each on its own chains and small enough grids to run
+    # side by side, give the single-stream results bit for bit
+    c = 8192
+    pos, _, eps = _nuts_state(c, seed=32)
+    t = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+    x = torch.from_numpy(pos).to(cuda)
+    e = torch.from_numpy(eps).to(cuda)
+    halves = (slice(0, c // 2), slice(c // 2, c))
+    args = [(t, x[sl], e[sl], 10, 0xC0FFEE, 17, 10, sl.start)
+            for sl in halves]
+    want = [nuts_step(*a, blocks=8) for a in args]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(cuda), torch.cuda.Stream(cuda))
+    got = []
+    for _ in range(4):
+        for a, stream in zip(args, streams):
+            with torch.cuda.stream(stream):
+                got.append(nuts_step(*a, blocks=8))
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        for a, b in zip(out, want[i % 2]):
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("use_pallas", [False, "full"])
 def test_cuda_nuts_tiers_pass_the_gates(cuda, use_pallas):
     # bench.py:321-336's gates at 1,024 chains, loosened for the size as
@@ -379,14 +408,69 @@ def test_cuda_gibbs_multistep_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_mh_gibbs_philox_draws_equal_plain(cuda):
-    # the MH and Gibbs layouts: (chain, step, draw 0..D, 0) at a step
-    # past 2**31 and the largest chain index
+    # the MH and Gibbs word stream: the counters (chain, step, q, 0) for
+    # q < ceil(W / 4), word 4q + j being word j of evaluation q; at steps
+    # past 2**31 and at the largest step
     key = 0x0DDBA11CAFE
-    for c1, c2 in ((2**31 + 5, 0), (7, 1), (7, 2), (2**32 - 1, 1)):
-        got = rng.philox_fill(1 << 16, c1, c2, key, cuda)
-        w0, w1 = rng.step_words(1 << 16, c2 + 1, c1, key, cuda)
-        assert torch.equal(got[:, 0], w0[:, c2])
-        assert torch.equal(got[:, 1], w1[:, c2])
+    n = 1 << 16
+    for step, n_words in ((2**31 + 5, 3), (7, 5), (7, 2), (2**32 - 1, 3)):
+        want = rng.stream_words(n, n_words, step, key, cuda)
+        assert want.shape == (n, 4 * ((n_words + 3) // 4))
+        for q in range((n_words + 3) // 4):
+            got = rng.philox_fill(n, step, q, key, cuda)
+            assert torch.equal(got, want[:, 4 * q:4 * q + 4])
+
+
+def _k56_case(which, c, cuda):
+    """(kernel, twin, leading args, state) of a Kernel 5 or 6 instance."""
+    g = np.random.default_rng(42)
+    if which == "gibbs":
+        x = np.stack([g.normal(0.5, 3.0, c), g.integers(0, 2, c)], axis=1)
+        x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+        return (gibbs_multistep, gibbs_multistep_plain,
+                (gaussian_mixture_conditional(*MIX),), (x,))
+    if which == "poisson":
+        t, p = poisson_target(4.0), random_walk_int_proposal()
+        x = torch.from_numpy(g.integers(0, 10, (c, 1)).astype(np.int32))
+    elif which == "gauss2d":
+        t = gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+        p = isotropic_gaussian_proposal(1.0)
+        x = torch.from_numpy(g.standard_normal((c, 2)).astype(np.float32))
+    else:
+        t, p = rosenbrock_nd(), isotropic_gaussian_proposal(0.1)
+        x = torch.from_numpy(_state(c, 3, seed=42)[0])
+    x = x.to(cuda)
+    return mh_multistep, mh_multistep_plain, (t, p), (x, t.batch_logp(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gauss2d", "rosenbrock3", "poisson",
+                                   "gibbs"])
+def test_cuda_k_step_launch_equals_one_step_launches(cuda, which):
+    # draws depend on (key, chain, global step) alone: a K-step launch, K
+    # one-step launches and a launch per half of the chains give the same
+    # history and state bit for bit
+    c, k, seed = 8192, 16, 0xBADC0DE
+    kernel, _, lead, state = _k56_case(which, c, cuda)
+    shape = (k,) + tuple(state[0].shape)
+    one = torch.empty(shape, dtype=state[0].dtype, device=cuda)
+    out = kernel(*lead, *state, seed, 3, k, one)
+    steps = torch.empty_like(one)
+    s = state
+    for i in range(k):
+        s = kernel(*lead, *s, seed, 3 + i, 1, steps[i:i + 1])
+        s = s if isinstance(s, tuple) else (s,)
+    halves = torch.empty_like(one)
+    h = [kernel(*lead, *(v[sl] for v in state), seed, 3, k, halves[:, sl],
+                chain0=sl.start) for sl in (slice(0, c // 2),
+                                            slice(c // 2, c))]
+    torch.cuda.synchronize()
+    assert torch.equal(one, steps) and torch.equal(one, halves)
+    out = out if isinstance(out, tuple) else (out,)
+    h = [v if isinstance(v, tuple) else (v,) for v in h]
+    for a, b, c1, c2 in zip(out, s, *h):
+        assert torch.equal(a, b) and torch.equal(a, torch.cat([c1, c2]))
+    assert (one[1:] != one[:-1]).any()
 
 
 @pytest.mark.cuda

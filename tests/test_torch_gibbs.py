@@ -3,9 +3,11 @@
 - One sweep on identical draws: the JAX package's chains-on-lanes
   conditional (``sample_dc`` of ``mini_mcmc_tpu/models/mixture.py:50-65``)
   fed a namespace of fixed draws in place of the TPU stream, against
-  Kernel 6's plain twin fed the Philox words those draws come from: x
+  Kernel 6's plain twin fed the word stream those draws come from: x
   within one float32 ulp, z equal on every chain whose uniform lies more
   than 1e-6 from p(z=1) (one ulp of p can flip ``u < p``).
+- The word stream's layout: one sweep of the twin at the last chain index
+  and a step past 2**31 equals one hand-computed from ``rng.philox_words``.
 - The twin's draws depend only on (key, chain, global step).
 - The samplers on the CPU, both tiers, beside ``mini_mcmc_tpu``'s
   ``use_pallas=False`` sampler from the same numpy start, under the gates
@@ -29,6 +31,7 @@ from mini_mcmc_torch.models import (
 from mini_mcmc_torch.models.mixture import mixture_coordinate
 from mini_mcmc_torch.ops.kernels import rng
 from mini_mcmc_torch.ops.kernels.gibbs_full import (
+    SAMPLE_FROM_WORDS,
     gibbs_instance,
     gibbs_multistep,
     gibbs_multistep_plain,
@@ -86,9 +89,9 @@ def test_one_sweep_equals_jax_on_identical_draws():
     g = np.random.default_rng(0)
     state = np.stack([g.normal(0.5, 3.0, c),
                       g.integers(0, 2, c)], axis=1).astype(np.float32)
-    w0, w1 = rng.step_words(c, 2, 9, 0xBEEF)
-    normal = rng.box_muller(w0[:, 0], w1[:, 0]).numpy()
-    u = rng.unit_open(w0[:, 1]).numpy()
+    w = rng.stream_words(c, 3, 9, 0xBEEF)
+    normal = rng.box_muller(w[:, 0], w[:, 1]).numpy()
+    u = rng.unit_open(w[:, 2]).numpy()
     fixed = _FixedDraws(normals=normal, uniform=u)
     jc = jm.gaussian_mixture_conditional(*MIX)
     s = jnp.asarray(state.T)
@@ -97,11 +100,33 @@ def test_one_sweep_equals_jax_on_identical_draws():
     z = jc.sample_dc(fixed, 1, s)
     cond = gaussian_mixture_conditional(*MIX)
     got = gibbs_multistep_plain(cond, torch.from_numpy(state), 0, 0, 1,
-                                words=(w0[None], w1[None]))
+                                words=w[None])
     np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(x), rtol=ULP,
                                atol=0)
     _assert_z(got[:, 1].numpy(), z, u, got[:, 0].numpy())
     assert 0.2 < float(got[:, 1].mean()) < 0.8
+
+
+def test_one_sweep_follows_the_word_stream_layout():
+    """One sweep of the twin at the last chains and a step past 2**31
+    equals one hand-computed from rng.philox_words: x's normal from
+    box_muller on words 0 and 1, z's uniform from word 2, one Philox
+    evaluation (the counter (chain, step, 0, 0)) a sweep."""
+    seed, chain0, step = 0x1234_5678_9ABC_DEF0, 2**32 - 4, 2**31 + 11
+    words_of, _ = SAMPLE_FROM_WORDS["gaussian_mixture"]
+    assert words_of(2) == 3
+    words = torch.tensor([rng.philox_words(ch, step, 0, 0, seed)
+                          for ch in range(chain0, chain0 + 4)])
+    state = torch.tensor([[-2.5, 0.0], [0.4, 1.0], [3.1, 0.0], [9.0, 1.0]])
+    cond = gaussian_mixture_conditional(*MIX)
+    want = state.clone()
+    want[:, 0] = mixture_coordinate(
+        cond.cuda_params, 0, want, rng.box_muller(words[:, 0], words[:, 1]),
+        None)
+    want[:, 1] = mixture_coordinate(cond.cuda_params, 1, want, None,
+                                    rng.unit_open(words[:, 2]))
+    got = gibbs_multistep_plain(cond, state, seed, step, 1, chain0=chain0)
+    assert torch.equal(got, want)
 
 
 def test_z_conditional_equals_jax_including_underflow():

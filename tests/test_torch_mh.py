@@ -7,10 +7,12 @@
   (``propose_dc``, ``logp_dc``, the strict accept of
   ``mini_mcmc_tpu/ops/pallas/mh_full.py:91-96``) fed a namespace of fixed
   draws in place of the TPU stream, against Kernel 5's plain twin fed the
-  Philox words those draws come from: positions equal, logp equal
+  word stream those draws come from: positions equal, logp equal
   (Poisson: within rtol 1e-6 of the JAX XLA form, whose ``lax.lgamma``
   is XLA's own approximation, a few float32 ulps from ``torch.lgamma``:
   it gives ``lgamma(1) = 4.8e-7``).
+- The word stream's layout: one step of the twin at the last chain index
+  and a step past 2**31 equals one hand-computed from ``rng.philox_words``.
 - The twin's draws depend only on (key, chain, global step).
 - The samplers on the CPU, both tiers, beside ``mini_mcmc_tpu``'s
   ``use_pallas=False`` sampler from the same numpy start, under the gates
@@ -50,6 +52,7 @@ from mini_mcmc_torch.models import (
 )
 from mini_mcmc_torch.ops.kernels import _build, rng
 from mini_mcmc_torch.ops.kernels.mh_full import (
+    PROPOSE_FROM_WORDS,
     mh_instance,
     mh_multistep,
     mh_multistep_plain,
@@ -176,10 +179,9 @@ class _FixedDraws:
         return self._take("bits", shape)
 
 
-def _words(c, n_draws, seed=0xC0FFEE, step=5):
-    """Philox words x and y, int64 [1, C, n_draws] (a block of K=1)."""
-    w0, w1 = rng.step_words(c, n_draws, step, seed)
-    return w0[None], w1[None]
+def _words(c, n_words, seed=0xC0FFEE, step=5):
+    """One step's word streams, int64 [1, C, W] (a block of K=1)."""
+    return rng.stream_words(c, n_words, step, seed)[None]
 
 
 def _jax_mh_step(logp_of, propose_dc, pos_dc, logp, fixed):
@@ -197,10 +199,9 @@ def test_one_gaussian_step_equals_jax_on_identical_draws():
     x = _points(c, seed=4)
     jt, jp = jm.gaussian2d(MEAN, COV), jm.isotropic_gaussian_proposal(1.5)
     t, p = gaussian2d(MEAN, COV), isotropic_gaussian_proposal(1.5)
-    w0, w1 = _words(c, d + 1)
-    fixed = _FixedDraws(
-        normals=rng.box_muller(w0[0, :, :d], w1[0, :, :d]).numpy().T,
-        uniform=rng.unit_open(w0[0, :, d]).numpy())
+    w = _words(c, d + 1)
+    fixed = _FixedDraws(normals=rng.pair_normals(w[0], d).numpy().T,
+                        uniform=rng.unit_open(w[0, :, d]).numpy())
     pos_dc = jnp.asarray(x.T)
     jlogp = jt.logp_dc(pos_dc)
     want_pos, want_lp, accept = _jax_mh_step(jt.logp_dc, jp.propose_dc,
@@ -209,8 +210,7 @@ def test_one_gaussian_step_equals_jax_on_identical_draws():
     tx = torch.from_numpy(x)
     tlogp = t.batch_logp(tx)
     np.testing.assert_array_equal(tlogp.numpy(), np.asarray(jlogp))
-    pos, logp = mh_multistep_plain(t, p, tx, tlogp, 0, 0, 1,
-                                   words=(w0, w1))
+    pos, logp = mh_multistep_plain(t, p, tx, tlogp, 0, 0, 1, words=w)
     np.testing.assert_array_equal(pos.numpy(), np.asarray(want_pos).T)
     np.testing.assert_array_equal(logp.numpy(), np.asarray(want_lp))
 
@@ -221,10 +221,9 @@ def test_one_int_walk_step_equals_jax_on_identical_draws(clip_high):
     k = _ints(c, seed=5, lo=0, hi=7)
     jt, jp = jm.poisson_target(4.0), jm.random_walk_int_proposal(0, clip_high)
     t, p = poisson_target(4.0), random_walk_int_proposal(0, clip_high)
-    w0, w1 = _words(c, 2)
-    bits = (w0[0, :, :1].numpy().astype(np.uint32).view(np.int32)).T
-    fixed = _FixedDraws(bits=bits,
-                        uniform=rng.unit_open(w0[0, :, 1]).numpy())
+    w = _words(c, 2)
+    bits = (w[0, :, :1].numpy().astype(np.uint32).view(np.int32)).T
+    fixed = _FixedDraws(bits=bits, uniform=rng.unit_open(w[0, :, 1]).numpy())
 
     def xla_logp(pos_dc):  # the JAX XLA form (lax.lgamma), per chain
         return jt.batch_logp(pos_dc.T)
@@ -236,7 +235,7 @@ def test_one_int_walk_step_equals_jax_on_identical_draws(clip_high):
     assert 0.05 < accept.mean() < 0.95
     tk = torch.from_numpy(k)
     pos, logp = mh_multistep_plain(t, p, tk, t.batch_logp(tk), 0, 0, 1,
-                                   words=(w0, w1))
+                                   words=w)
     assert pos.dtype == torch.int32
     np.testing.assert_array_equal(pos.numpy(), np.asarray(want_pos).T)
     if clip_high is not None:
@@ -255,16 +254,73 @@ def test_fused_step_rejects_minus_inf_and_keeps_state_finite():
 
     t = Target(logp=logp)
     x = torch.tensor([[2.49, 3.0], [8.0, 3.0]])
-    w0, w1 = _words(2, 3)
-    # chain 0 steps right across the wall, chain 1 left back below it
-    w0[0, :, 0] = torch.tensor([0, 0])
-    w1[0, :, 0] = torch.tensor([0, 2**31])
+    w = _words(2, 3)
+    # chain 0 steps right across the wall, chain 1 left back below it: x's
+    # normal is the cosine of the Box-Muller pair on words 0 and 1
+    w[0, :, 0] = torch.tensor([0, 0])
+    w[0, :, 1] = torch.tensor([0, 2**31])
     lp0 = t.batch_logp(x)
     assert lp0[1] == -math.inf
     pos, logp = mh_multistep_plain(t, isotropic_gaussian_proposal(1.0), x,
-                                   lp0, 0, 0, 1, words=(w0, w1))
+                                   lp0, 0, 0, 1, words=w)
     assert torch.equal(pos[0], x[0]) and logp[0] == lp0[0]
     assert pos[1, 0] < 2.5 and torch.isfinite(logp[1])
+
+
+SEED_PIN = 0x1234_5678_9ABC_DEF0
+CHAIN_PIN = 2**32 - 4  # chains 2**32 - 4 .. 2**32 - 1
+STEP_PIN = 2**31 + 11
+
+
+def _hand_stream(chain, n_words):
+    """The word stream of (chain, STEP_PIN) on Python ints: the words of
+    the counters (chain, step, q, 0), q = 0, 1, ..., in order."""
+    out = []
+    for q in range((n_words + 3) // 4):
+        out += rng.philox_words(chain, STEP_PIN, q, 0, SEED_PIN)
+    return out
+
+
+@pytest.mark.parametrize("which,dim,evals", [
+    ("gauss2d", 2, 1), ("rosenbrock", 2, 1), ("rosenbrock", 3, 2),
+    ("poisson", 1, 1)])
+def test_one_step_follows_the_word_stream_layout(which, dim, evals):
+    """One step of the twin at the last chains and a step past 2**31
+    equals a step hand-computed from rng.philox_words: normals 2p, 2p + 1
+    from the Box-Muller pair on words 2p, 2p + 1 and the accept from word
+    2 ceil(D / 2); the integer walk's coin from word 0's top bit and the
+    accept from word 1. A step takes ``evals`` Philox evaluations."""
+    if which == "poisson":
+        t, p = poisson_target(4.0), random_walk_int_proposal()
+        x = torch.tensor([[0], [3], [4], [9]], dtype=torch.int32)
+    else:
+        t = gaussian2d(MEAN, COV) if which == "gauss2d" else mt.rosenbrock_nd()
+        p = isotropic_gaussian_proposal(0.5)
+        x = torch.from_numpy(_points(4, seed=dim)[:, :1].repeat(dim, 1) / 3)
+    words_of, _ = PROPOSE_FROM_WORDS[p.cuda_functor]
+    n_words = words_of(dim) + 1
+    assert (n_words + 3) // 4 == evals
+    streams = [_hand_stream(ch, n_words) for ch in range(CHAIN_PIN,
+                                                           CHAIN_PIN + 4)]
+    if which == "poisson":
+        coins = torch.tensor([[1 if w[0] < 2**31 else -1] for w in streams])
+        prop = (x + coins).clamp(min=0).to(torch.int32)
+    else:
+        normals = []
+        for w in streams:
+            n = []
+            for q in range((dim + 1) // 2):
+                n += rng.box_muller_pair(torch.tensor(w[2 * q]),
+                                         torch.tensor(w[2 * q + 1]))
+            normals.append(torch.stack(n[:dim]))
+        prop = x + p.cuda_params[0] * torch.stack(normals)
+    u = rng.unit_open(torch.tensor([w[n_words - 1] for w in streams]))
+    lp, lpp = t.batch_logp(x), t.batch_logp(prop)
+    accept = (lpp - lp) > torch.log(u)
+    pos, logp = mh_multistep_plain(t, p, x, lp, SEED_PIN, STEP_PIN, 1,
+                                   chain0=CHAIN_PIN)
+    assert torch.equal(pos, torch.where(accept[:, None], prop, x))
+    assert torch.equal(logp, torch.where(accept, lpp, lp))
 
 
 # -- (c) the twin's draws depend on (key, chain, global step) only -----------
