@@ -11,7 +11,7 @@ Phases, one line each (every check raises on failure):
 
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of ``mini_mcmc_torch/csrc`` with ``nvcc`` (seconds), and the
-   registers, stack frame and spills of Kernels 4, 5, 6 and 8 (``ptxas
+   registers, stack frame and spills of Kernels 3, 4, 5, 6 and 8 (``ptxas
    -v``); with ``--profile``, each Kernel 5 and 6 instance's K loop in its
    SASS (``cuobjdump -sass``): instructions per step, by kind;
 3. Philox: the known-answer vector, and CUDA bits equal to the plain bits
@@ -34,16 +34,23 @@ Phases, one line each (every check raises on failure):
    run, timed run, the five ``bench_nuts`` gates, Kernel 4's launch count
    (one per step, 2 x 2,175), and a short ``use_pallas=True`` run
    counted on its own (Kernel 3);
-10. Kernel 3 against its plain version at j = 0..5 on the NUTS
-    equilibrium state;
+10. Kernel 3 against its plain version at j = 0..5 and 10 on the NUTS
+    equilibrium state, and at j = 5 and 10 with the step cut by 2^-j so
+    that most chains integrate all 2^j leaves (the whole stack and merge
+    cascade): counts and flags on active and inactive chains apart, its
+    lane-iterations per leaf and blocks per SM at each j; with
+    ``--profile``, its device time per launch at j = 0..5 (``[k3_alone]``,
+    ``torch.profiler`` over 20 launches, twice);
 11. Kernel 4 against its plain version for one step, same key and step
     (positions, alpha, n_alpha, divergences and each chain's own depth),
     its load balance (lane-iterations per leaf), its persistent grid, and
     its result bit for bit under other grids;
 12. NUTS kernel and plain times at those shapes (CUDA events);
-13. with ``--profile`` only: one NUTS run under ``torch.profiler``,
-    Kernels 4 and 3 alone (device time per call), and Kernel 4 under
-    three smaller grids;
+13. with ``--profile`` only: Kernel 3 alone at j = 0..5, one NUTS run
+    under ``torch.profiler``, Kernel 4 alone (device time per call) and
+    under three smaller grids, and one ``use_pallas=True`` run under
+    ``torch.profiler`` (Kernel 3's launches, device time per launch, the
+    idle share);
 14. the MH stage of ``bench.py:391-431`` (Gaussian2D, 65,536 chains,
     2,048 draws, isotropic walk, K = 16) through
     ``mini_mcmc_torch.MetropolisHastings(use_pallas="full")``: warm-up run,
@@ -375,7 +382,7 @@ def kernel_name(mangled: str) -> str:
 
 
 #: kernels whose registers, stack frame and spills phase_build reports
-REDESIGNED = ("nuts_step_kernel", "pt_multistep_kernel",
+REDESIGNED = ("subtree_kernel", "nuts_step_kernel", "pt_multistep_kernel",
               "mh_multistep_kernel", "gibbs_multistep_kernel")
 
 
@@ -833,9 +840,10 @@ def phase_nuts_main_path(dev):
     return nuts, m, counts, tier_counts
 
 
-def subtree_inputs(nuts, dev, j: int, seed: int):
+def subtree_inputs(nuts, dev, j: int, seed: int, eps_scale: float = 1.0):
     """A Kernel 3 call at the NUTS equilibrium: fresh momenta, slice
-    levels and directions, nine chains in ten active."""
+    levels and directions, nine chains in ten active, the adapted steps
+    times ``eps_scale``."""
     target, pos = nuts.target, nuts.positions
     gen = torch.Generator(device=dev).manual_seed(seed)
     mom = torch.randn(pos.shape, generator=gen, device=dev)
@@ -845,22 +853,32 @@ def subtree_inputs(nuts, dev, j: int, seed: int):
     u = torch.rand((2, pos.shape[0]), generator=gen, device=dev)
     v = torch.where(u[0] < 0.5, -1, 1).to(torch.int32)
     active = u[1] < 0.9
-    return (target, pos, mom, grad, logu, v, j, nuts.step_size.contiguous(),
-            joint0, active, (0x1234567, -0x7654321), NUTS_MAX_DEPTH)
+    return (target, pos, mom, grad, logu, v, j,
+            (nuts.step_size * eps_scale).contiguous(), joint0, active,
+            (0x1234567, -0x7654321), NUTS_MAX_DEPTH)
 
 
-def phase_subtree(nuts, dev) -> tuple[float, dict]:
-    """Kernel 3 against its twin on the NUTS equilibrium state, j = 0..5.
-    Counts and flags on every chain, floats where the subtree continues
-    (a stopped chain's end state and proposal are not read)."""
-    err, leaves = 0.0, {}
-    for j in range(6):
-        args = subtree_inputs(nuts, dev, j, seed=40 + j)
-        got = subtree(*args)
+def phase_subtree(nuts, dev) -> tuple[float, dict, dict]:
+    """Kernel 3 against its twin on the NUTS equilibrium state, j = 0..5
+    and 10 (the deepest stack, past 48 KB of shared memory a block), and
+    at j = 5 and 10 with the steps cut by 2^-j, where most chains run all
+    2^j leaves: every row of the stack and every merge of the cascade.
+    Counts and flags on every chain, active and inactive apart, floats
+    where the subtree continues (a stopped chain's end state and proposal
+    are not read). Returns the largest error, the twin's leaves per chain
+    and the lane-iterations per leaf, by j, at the equilibrium's steps."""
+    err, leaves, per_leaf = 0.0, {}, {}
+    # (j, cut): the steps times 2^-cut
+    cases = [(j, 0) for j in (*range(6), NUTS_MAX_DEPTH)]
+    for j, cut in cases + [(5, 5), (NUTS_MAX_DEPTH, NUTS_MAX_DEPTH)]:
+        args = subtree_inputs(nuts, dev, j, seed=40 + j + 20 * (cut > 0),
+                              eps_scale=2.0 ** -cut)
+        grid = {}
+        got = subtree(*args, grid=grid)
         done = torch.zeros(NUTS_CHAINS, dtype=torch.int32, device=dev)
         want = subtree_plain(*args, leaves=done)
         torch.cuda.synchronize()
-        leaves[j] = done
+        active = args[9]
         same = ((got.n == want.n) & (got.s == want.s)
                 & (got.n_alpha == want.n_alpha)
                 & (got.diverged == want.diverged))
@@ -873,20 +891,66 @@ def phase_subtree(nuts, dev) -> tuple[float, dict]:
         s = same & want.s
         for a, b in zip(got[:6], want[:6]):
             ok &= near(a, b) | ~s
-        share_same, share_ok = float(same.float().mean()), float(
-            ok.float().mean())
+        # the chains whose subtree ran all 2^j leaves and continues
+        full = (done == 1 << j) & want.s
+        shares = {
+            "same_counts_and_flags_active": float(
+                same[active].double().mean()),
+            "same_counts_and_flags_inactive": float(
+                same[~active].double().mean()),
+            "all_fields_within_tol": float(ok.double().mean()),
+        }
+        if cut:
+            shares["all_fields_within_tol_all_leaves"] = float(
+                ok[full].double().mean())
+        # a warp of 32 fixed chains runs its deepest chain's leaves: its
+        # lane-iterations over the leaves its chains integrate
+        lane_iterations = 32 * float(
+            done.reshape(-1, 32).amax(dim=1).double().sum())
+        if not cut:
+            leaves[j] = done
+            per_leaf[j] = lane_iterations / float(done.double().sum())
         e = max(max_abs_err(a, b, s) for a, b in zip(got[:6], want[:6]))
         e = max(e, max_abs_err(got.alpha, want.alpha, same))
         err = max(err, e)
-        say("subtree", j=j, chains=NUTS_CHAINS,
-            share_same_counts_and_flags=share_same,
-            share_all_fields_within_tol=share_ok, share_s=float(
-                want.s.float().mean()), mean_leaves=float(
-                done.double().mean()), max_abs_err=e)
-        check(f"subtree j={j} counts and flags", share_same >= NUTS_SHARE,
-              share_same)
-        check(f"subtree j={j} values", share_ok >= NUTS_SHARE, share_ok)
-    return err, leaves
+        share_full = float(full.double().mean())
+        say("subtree", j=j, eps_scale=f"2^-{cut}", chains=NUTS_CHAINS,
+            **{f"share_{k}": v for k, v in shares.items()},
+            share_s=float(want.s.double().mean()),
+            share_all_leaves=share_full,
+            mean_leaves=float(done.double().mean()),
+            max_leaves=int(done.max()),
+            lane_iterations_per_leaf=lane_iterations / float(
+                done.double().sum()), **grid, max_abs_err=e)
+        for name, share in shares.items():
+            check(f"subtree j={j} cut={cut} {name}", share >= NUTS_SHARE,
+                  share)
+        if cut:  # the deepest rows and merges ran on most chains
+            check(f"subtree j={j} cut={cut} all leaves", share_full >= 0.5,
+                  share_full)
+    return err, leaves, per_leaf
+
+
+def phase_k3_alone(nuts, dev, reps: int = 20) -> dict:
+    """``--profile``: Kernel 3 alone at j = 0..5 on the inputs of
+    phase_subtree, device µs per launch (``torch.profiler`` over ``reps``
+    back-to-back launches, over the launches it recorded), twice. Returns
+    the mean µs by j."""
+    out = {}
+    for j in range(6):
+        args = subtree_inputs(nuts, dev, j, seed=40 + j)
+        subtree(*args)
+        times = []
+        for _ in range(2):
+            _, _, k = device_profile(lambda: [subtree(*args)
+                                              for _ in range(reps)])
+            n, us = next(v for name, v in k.items()
+                         if "subtree_kernel" in name)
+            check(f"profiled subtree j={j} launches", 0 < n <= reps, n)
+            times.append(us / n)
+        say("k3_alone", j=j, calls=reps, device_us_per_call=repr(times))
+        out[j] = sum(times) / len(times)
+    return out
 
 
 def phase_nuts_step(nuts, dev) -> tuple[float, dict, tuple]:
@@ -958,25 +1022,24 @@ def phase_nuts_times(nuts, dev, step_args) -> dict:
     return t
 
 
-def phase_nuts_profile(nuts, dev, step_args) -> None:
-    """``--profile``: one timed NUTS run under ``torch.profiler``, and
-    Kernels 4 and 3 alone at the shapes of their timing."""
+def phase_nuts_profile(nuts, step_args) -> None:
+    """``--profile``: one timed NUTS run under ``torch.profiler``, Kernel 4
+    alone at the shapes of its timing and under smaller grids (Kernel 3
+    alone is phase_k3_alone's), and a ``use_pallas=True`` run under
+    ``torch.profiler``."""
     wall, busy, by_name = device_profile(nuts.run, NUTS_COLLECT, NUTS_DISCARD)
     say("nuts_profile_run", wall_s=repr(wall), device_busy_us=repr(busy),
         idle_share=1.0 - busy / (wall * 1e6), kernel_names=len(by_name))
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         say("nuts_profile_kernel", name=repr(name[:60]), count=n,
             device_us=us, per_launch_us=us / n, share_of_busy=us / busy)
-    sub_args = subtree_inputs(nuts, dev, 4, seed=44)
     reps = 20
-    for label, kernel, fn in (
-            ("nuts_step", "nuts_step_kernel", lambda: nuts_step(*step_args)),
-            ("nuts_subtree", "subtree_kernel", lambda: subtree(*sub_args))):
-        _, _, k = device_profile(lambda: [fn() for _ in range(reps)])
-        n, us = next(v for name, v in k.items() if kernel in name)
-        check(f"profiled {label} launches", 0 < n <= reps, n)
-        say("nuts_profile_kernel_alone", kernel=label, calls=reps,
-            recorded=n, device_us_per_call=us / n)
+    _, _, k = device_profile(lambda: [nuts_step(*step_args)
+                                      for _ in range(reps)])
+    n, us = next(v for name, v in k.items() if "nuts_step_kernel" in name)
+    check("profiled nuts_step launches", 0 < n <= reps, n)
+    say("nuts_profile_kernel_alone", kernel="nuts_step", calls=reps,
+        recorded=n, device_us_per_call=us / n)
     # Kernel 4 under smaller grids than the resident one: device time
     grid = {}
     nuts_step(*step_args, grid=grid)
@@ -988,6 +1051,16 @@ def phase_nuts_profile(nuts, dev, step_args) -> None:
         say("nuts_profile_grid", blocks=blocks,
             chains_per_thread=NUTS_CHAINS / (blocks * 128), calls=reps,
             recorded=n, device_us_per_call=us / n)
+    # the subtree tier's run of phase_nuts_main_path, once warm: Kernel 3's
+    # share of its device time and the idle share
+    tier = mt.NUTS(nuts.target, nuts.positions, 0.8, use_pallas=True).seed(3)
+    tier.run(16, 0)
+    wall, busy, by_name = device_profile(tier.run, 16, 0)
+    n, us = next(v for name, v in by_name.items() if "subtree_kernel" in name)
+    say("nuts_tier_profile_run", steps=15, wall_s=repr(wall),
+        device_busy_us=repr(busy), idle_share=1.0 - busy / (wall * 1e6),
+        subtree_launches=n, subtree_us_per_launch=us / n,
+        subtree_share_of_busy=us / busy, kernel_names=len(by_name))
 
 
 def timed_run(sampler, *run_args, time_major=False):
@@ -1584,13 +1657,17 @@ def bounds(step_details, subtree_leaves) -> dict:
         + float(leaves_c.sum()) * OPS["nuts_leaf"]
         + float(merges_c.sum()) * OPS["nuts_merge"]
         + float(depth_c.sum()) * OPS["nuts_doubling"])
-    # Kernel 3 at j = 4: pos, mom, grad, logu, v, eps, joint0, active in;
-    # five [C, 2] and six [C] outputs
-    sub = float(subtree_leaves[4].double().sum())
-    out["nuts_subtree"] = bound(
-        nc * (4 * (3 * 2 + 4) + 1) + nc * (4 * 5 * 2 + 4 * 4 + 2),
-        nc * OPS["nuts_step"] + sub * OPS["nuts_leaf"]
-        + max(sub - nc, 0.0) * (OPS["nuts_merge"] + OPS["hash_draw"]))
+    # Kernel 3 at each j of phase_subtree (the record's own at j = 4): pos,
+    # mom, grad, logu, v, eps, joint0, active in; five [C, 2] and six [C]
+    # outputs. The work is that j's leaves and about one merge per leaf
+    # past each chain's first
+    for j, done in subtree_leaves.items():
+        sub = float(done.double().sum())
+        out[f"nuts_subtree_j{j}"] = bound(
+            nc * (4 * (3 * 2 + 4) + 1) + nc * (4 * 5 * 2 + 4 * 4 + 2),
+            nc * OPS["nuts_step"] + sub * OPS["nuts_leaf"]
+            + max(sub - nc, 0.0) * (OPS["nuts_merge"] + OPS["hash_draw"]))
+    out["nuts_subtree"] = out["nuts_subtree_j4"]
     # Kernel 5, one K-step block: pos and logp in and out, K history rows.
     # A step draws D proposal normals (Gaussian2D) or D coins (Poisson)
     # and the accept uniform
@@ -1655,11 +1732,12 @@ def main() -> None:
     del hmc
     torch.cuda.empty_cache()
     nuts, nuts_m, nuts_counts, nuts_tier_counts = phase_nuts_main_path(dev)
-    sub_err, sub_leaves = phase_subtree(nuts, dev)
+    sub_err, sub_leaves, sub_per_leaf = phase_subtree(nuts, dev)
+    k3_us = phase_k3_alone(nuts, dev) if args.profile else None
     step_err, step_details, step_args = phase_nuts_step(nuts, dev)
     t.update(phase_nuts_times(nuts, dev, step_args))
     if args.profile:
-        phase_nuts_profile(nuts, dev, step_args)
+        phase_nuts_profile(nuts, step_args)
     del nuts
     torch.cuda.empty_cache()
     mh, mh_counts = phase_mh_main_path(dev)
@@ -1747,8 +1825,13 @@ def main() -> None:
         record("nuts_subtree", "nuts_subtree.cu", "nuts_subtree.py:243",
                nuts_counts["nuts_subtree"], sub_err, t["subtree_ms"],
                t["subtree_plain_ms"],
-               tier_run_launches=nuts_tier_counts["nuts_subtree"]),
+               tier_run_launches=nuts_tier_counts["nuts_subtree"],
+               bound_ms_by_j=[b[f"nuts_subtree_j{j}"][0] for j in range(6)],
+               lane_iterations_per_leaf_by_j=[sub_per_leaf[j]
+                                              for j in range(6)]),
     ]
+    if k3_us is not None:  # --profile
+        off_path[-1]["device_ms_by_j"] = [k3_us[j] * 1e-3 for j in range(6)]
     print(json.dumps({"kernels": kernels, "off_main_path": off_path}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-// The NUTS subtree builder, one thread per chain. Kernel 3 (nuts_subtree.cu,
-// one subtree per launch) runs build_subtree; Kernel 4 (nuts_full.cu, a
-// whole NUTS step per launch) runs the same leaf() and merge rule inside
-// its doubling loop, with a stack row that drops the proposal's gradient
-// and logp (nothing reads them there).
+// The NUTS tree math, one thread per chain, shared by Kernel 3
+// (nuts_subtree.cu, one subtree per launch) and Kernel 4 (nuts_full.cu, a
+// whole NUTS step per launch): the leaf, the merge rule and Kernel 3's
+// merge hash. Each kernel keeps its own U-turn stack in shared memory (a
+// row of Kernel 4 drops the proposal's gradient and logp: nothing reads
+// them there).
 //
 // Port of mini_mcmc_tpu/ops/pallas/nuts_subtree.py:build_subtree_inkernel
 // (the Pallas analog of ops/nuts.py:_build_subtree_batched, reference
@@ -16,15 +17,6 @@
 // progressive swap (the right subtree wins with probability
 // n_b / max(n_a + n_b, 1)) and the U-turn check between the merged
 // subtree's first state and the current state, signed by the direction.
-//
-// Early exit: the TPU kernel runs all 2^j leaves for every lane of a
-// block; here a thread stops once its own s is false. What the caller
-// reads is unchanged by that: n, s, alpha, n_alpha and the divergence flag
-// always, the end state and the proposal only while s holds.
-//
-// The stack is a per-thread array, (max_depth + 1) rows of 4D + 2 floats
-// (440 bytes at D = 2), in local memory (L1-cached): rows are addressed by
-// the runtime height, so they cannot live in registers.
 #pragma once
 
 #include <stdint.h>
@@ -85,23 +77,6 @@ __device__ __forceinline__ float hash_unit(int32_t seed0, int32_t seed1,
          (1.0f / 33554432.0f);
 }
 
-// The subtree's outputs besides the end state (which the builder leaves in
-// the x, m, g it was given) and the proposal (the root row, stack[0]).
-struct SubtreeStats {
-  bool s;
-  int n;
-  float alpha;
-  int n_alpha;
-  bool diverged;
-};
-
-template <int D>
-struct StackRow {
-  float first_pos[D], first_mom[D], prop_pos[D], prop_grad[D];
-  float prop_logp;
-  float n;
-};
-
 // One leaf's checks after its leapfrog.
 struct Leaf {
   float logp;
@@ -112,8 +87,8 @@ struct Leaf {
 
 // One leaf: a leapfrog of (x, m, g) at signed step eps_signed (nuts.rs:
 // 979-996) and its slice, divergence and acceptance checks (nuts.rs:
-// 795-830). Kernel 3 (build_subtree) and Kernel 4 (nuts_full.cu) both run
-// it.
+// 795-830). Kernel 3 (nuts_subtree.cu) and Kernel 4 (nuts_full.cu) both
+// run it.
 template <class T, int D>
 __device__ __forceinline__ Leaf leaf(const T& t, float (&x)[D],
                                      float (&m)[D], float (&g)[D],
@@ -138,65 +113,6 @@ __device__ __forceinline__ Leaf leaf(const T& t, float (&x)[D],
   if (delta != delta) delta = -1e30f;  // NaN energy: 0 acceptance
   return Leaf{lp, logu < joint, (logu - kDivergenceDelta) < joint,
               fminf(1.0f, expf(delta))};
-}
-
-// Build the 2^j-leaf subtree from (x, m, g) at signed step eps * v.
-// `draw(i, k)` is the merge uniform at leaf i, cascade position k.
-template <class T, int D, class Draw>
-__device__ __forceinline__ SubtreeStats build_subtree(
-    const T& t, StackRow<D> (&stack)[kMaxDepth + 1], float (&x)[D],
-    float (&m)[D], float (&g)[D], float eps, float v, float logu,
-    float joint0, bool active, int j, Draw draw) {
-  const float eps_signed = eps * v;
-  const int n_leaves = 1 << j;
-  SubtreeStats st{true, 0, 0.0f, 0, false};
-  for (int i = 0; i < n_leaves && st.s; ++i) {
-    const Leaf lf = leaf<T, D>(t, x, m, g, eps_signed, logu, joint0);
-    if (active) {  // live = active & s, and s holds inside the loop
-      st.n += lf.n ? 1 : 0;
-      st.alpha += lf.alpha;
-      st.n_alpha += 1;
-      st.diverged |= !lf.s;
-    }
-    st.s = lf.s;
-
-    // push the leaf row at the binary counter's height
-    const int sp = __popc(i);
-    StackRow<D>& row = stack[sp];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      row.first_pos[d] = x[d];
-      row.first_mom[d] = m[d];
-      row.prop_pos[d] = x[d];
-      row.prop_grad[d] = g[d];
-    }
-    row.prop_logp = lf.logp;
-    row.n = lf.n ? 1.0f : 0.0f;
-
-    // merge cascade: ctz(i + 1) merges; the top (right) entry is the row
-    // just written, then each merged row in turn
-    const int n_merges = __ffs(i + 1) - 1;
-    for (int k = 0; k < n_merges; ++k) {
-      StackRow<D>& a = stack[sp - 1 - k];
-      const StackRow<D>& b = stack[sp - k];
-      const float u = draw(i, k);
-      const float n_a = a.n, n_b = b.n;
-      const bool take_b = u < n_b / fmaxf(n_a + n_b, 1.0f);
-      const bool ok =
-          merge_no_uturn<D>(x, m, a.first_pos, a.first_mom, 1, v);
-      if (take_b) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          a.prop_pos[d] = b.prop_pos[d];
-          a.prop_grad[d] = b.prop_grad[d];
-        }
-        a.prop_logp = b.prop_logp;
-      }
-      a.n = n_a + n_b;
-      st.s = st.s && ok;
-    }
-  }
-  return st;
 }
 
 }  // namespace mm

@@ -201,7 +201,7 @@ def lib() -> ctypes.CDLL:
         + [_P] * 4 + [_LL, _LL, _P],
         "mm_philox_fill": [_P, _I, _U, _U, _U, _U, _P],
         "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32, _I, _I, _I]
-        + [_P] * 12,
+        + [_P] * 11 + [_I, _P, _P],
         "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I, _I, _I]
         + [_P, _I] + [_P] * 6 + [_I, _P, _P],
         "mm_mh_multistep": [_P] * 4 + [_I] * 6 + [_U] * 4 + [_P] * 3

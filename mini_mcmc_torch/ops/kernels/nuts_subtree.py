@@ -20,6 +20,7 @@ tensors, so the twin reproduces the JAX kernel run in interpret mode.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple
 
 import torch
@@ -27,7 +28,7 @@ import torch
 from . import _build
 from .hmc import check_state
 
-#: csrc/nuts_tree.cuh kMaxDepth: the stack is compiled for this many rows
+#: csrc/nuts_tree.cuh kMaxDepth: the kernels take max_depth up to this
 MAX_DEPTH = 10
 #: divergence threshold: s' = (logu - 1000) < joint (nuts.rs:807)
 DIVERGENCE_DELTA = 1000.0
@@ -202,10 +203,14 @@ subtree_plain.calls = 0
 
 
 def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
-            seed, max_depth: int) -> TreeResult:
+            seed, max_depth: int, *, grid: dict | None = None) -> TreeResult:
     """The 2^j-leaf subtree of ``target`` from ``(pos, mom, grad)`` in
     direction ``v`` (``[C]`` int, +-1) at step ``eps [C]``; ``seed`` is the
-    hash's two int32 words. Returns a :class:`TreeResult`."""
+    hash's two int32 words. Returns a :class:`TreeResult`.
+
+    On the card ``grid``, a dict, receives ``blocks_per_sm`` (the blocks an
+    SM holds at this ``j``), ``sms`` and the ``blocks`` launched; it
+    changes no result."""
     if not pos.is_cuda:
         return subtree_plain(target, pos, mom, grad, logu, v, j, eps, joint0,
                              active, seed, max_depth)
@@ -214,13 +219,13 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
             f"the subtree kernel is built for max_depth <= {MAX_DEPTH} and "
             f"0 <= j <= max_depth; got max_depth={max_depth}, j={j}")
     tid = _build.functor_id(target)
-    vf = v.to(torch.float32)
+    v = v.to(torch.int32).contiguous()
     active = active.to(torch.bool).contiguous()
-    check_state(pos, mom, grad, logu, vf, eps, joint0)
+    check_state(pos, mom, grad, logu, eps, joint0)
     c, d = pos.shape
     if (mom.shape != pos.shape or grad.shape != pos.shape
-            or any(x.shape != (c,) for x in (logu, vf, eps, joint0, active))
-            or active.device != pos.device):
+            or any(x.shape != (c,) for x in (logu, v, eps, joint0, active))
+            or v.device != pos.device or active.device != pos.device):
         raise ValueError("expected pos/mom/grad [C, D] and logu, v, eps, "
                          "joint0, active [C] on one device")
     f32 = dict(dtype=torch.float32, device=pos.device)
@@ -234,17 +239,22 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
     diverged = torch.empty_like(s)
     seed0, seed1 = (int(w) & _MASK for w in seed)
     seed0, seed1 = (w - (1 << 32) if w >> 31 else w for w in (seed0, seed1))
+    launched = (ctypes.c_int * 3)()
     lib = _build.lib()
     subtree.launches += 1
     _build.check(lib.mm_nuts_subtree_f32(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), logu.data_ptr(),
-        vf.data_ptr(), eps.data_ptr(), joint0.data_ptr(), active.data_ptr(),
+        v.data_ptr(), eps.data_ptr(), joint0.data_ptr(), active.data_ptr(),
         _build.params_ptr(target, pos.device), j, max_depth, seed0, seed1, c,
         d, tid, end_pos.data_ptr(), end_mom.data_ptr(), end_grad.data_ptr(),
         prop_pos.data_ptr(), prop_grad.data_ptr(), prop_logp.data_ptr(),
         n.data_ptr(), s.data_ptr(), alpha.data_ptr(), n_alpha.data_ptr(),
-        diverged.data_ptr(), _build.stream_ptr(pos.device),
+        diverged.data_ptr(), pos.device.index,
+        None if grid is None else ctypes.addressof(launched),
+        _build.stream_ptr(pos.device),
     ))
+    if grid is not None:
+        grid.update(zip(("blocks_per_sm", "sms", "blocks"), launched))
     return TreeResult(end_pos, end_mom, end_grad, prop_pos, prop_grad,
                       prop_logp, n, s, alpha, n_alpha, diverged)
 

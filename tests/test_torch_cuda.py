@@ -182,13 +182,20 @@ def _share(ok):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("j", [0, 2, 4])
-def test_cuda_subtree_matches_plain(cuda, j):
+@pytest.mark.parametrize(
+    "j, mask, cut", [(0, None, 0), (2, None, 0), (4, None, 0), (5, None, 0),
+                     (10, None, 0), (4, True, 0), (4, False, 0),
+                     (5, None, 5), (10, None, 10)],
+    ids=["0", "2", "4", "5", "10", "4-all-active", "4-none-active",
+         "5-all-leaves", "10-all-leaves"])
+def test_cuda_subtree_matches_plain(cuda, j, mask, cut):
+    # cut: steps divided by 2^cut, so that most chains run all 2^j leaves
+    # (every row of the U-turn stack, every merge of the cascade)
     c = 8192
     pos, mom, eps = _nuts_state(c, seed=20 + j)
     t = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
     x, m = torch.from_numpy(pos).to(cuda), torch.from_numpy(mom).to(cuda)
-    e = torch.from_numpy(eps).to(cuda)
+    e = torch.from_numpy(eps / np.float32(2 ** cut)).to(cuda)
     lp, g = t.batch_logp_and_grad(x)
     joint0 = lp - 0.5 * (m * m).sum(1)
     gen = torch.Generator(device=cuda).manual_seed(j)
@@ -196,6 +203,8 @@ def test_cuda_subtree_matches_plain(cuda, j):
     v = torch.where(torch.rand(c, generator=gen, device=cuda) < 0.5, -1,
                     1).to(torch.int32)
     active = torch.rand(c, generator=gen, device=cuda) < 0.75
+    if mask is not None:
+        active = torch.full((c,), mask, device=cuda)
     args = (t, x, m, g, logu, v, j, e, joint0, active, (12345, -6789), 10)
     n = subtree.launches
     got = subtree(*args)
@@ -204,14 +213,24 @@ def test_cuda_subtree_matches_plain(cuda, j):
     torch.cuda.synchronize()
     same = ((got.n == want.n) & (got.s == want.s)
             & (got.n_alpha == want.n_alpha) & (got.diverged == want.diverged))
-    assert _share(same) >= 0.999
+    for part in (active, ~active):  # counts and flags, active or not
+        if part.any():
+            assert _share(same[part]) >= 0.999
+    if mask is False:
+        for k in ("n", "alpha", "n_alpha", "diverged"):
+            assert not getattr(got, k).any(), k
     near = (got.alpha - want.alpha).abs() <= ATOL + RTOL * want.alpha.abs()
     assert _share(same & near) >= 0.999
     s = same & want.s
+    full = (want.n_alpha == 1 << j) & want.s & active
+    if cut:
+        assert _share(full) >= 0.5
     for a, b in zip(got[:6], want[:6]):
         ok = ((a - b).abs() <= ATOL + RTOL * b.abs())
         ok = ok.reshape(c, -1).all(1) | ~s
         assert _share(ok) >= 0.999
+        if cut:
+            assert _share(ok[full] & same[full]) >= 0.999
 
 
 @pytest.mark.cuda

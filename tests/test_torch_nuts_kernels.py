@@ -111,7 +111,10 @@ def _subtree_inputs(c, j, seed):
     joint0 = (lp.numpy() - 0.5 * (mom * mom).sum(1)).astype(np.float32)
     logu = (joint0 - g.exponential(size=c)).astype(np.float32)
     v = np.where(g.uniform(size=c) < 0.5, -1, 1).astype(np.int32)
-    eps = g.uniform(0.3, 1.2, size=c).astype(np.float32)
+    # past j = 4 the steps shrink, so that some 2^j-leaf trajectories span
+    # no U-turn and the subtree continues on some chains
+    eps = (g.uniform(0.3, 1.2, size=c) / 2 ** max(j - 4, 0)).astype(
+        np.float32)
     eps[:8] = 30.0  # diverging chains
     active = g.uniform(size=c) < 0.75
     seed_words = tuple(int(w) for w in g.integers(-2**31, 2**31, 2))
@@ -119,10 +122,17 @@ def _subtree_inputs(c, j, seed):
                 eps=eps, joint0=joint0, active=active, seed=seed_words)
 
 
-@pytest.mark.parametrize("j", [0, 1, 2, 3, 4])
-def test_subtree_twin_matches_jax_pallas_interpret(j):
+# a quarter of the chains inactive (ids 0-5), or all active, or none: an
+# inactive chain still integrates and defines s, as in the JAX kernel, but
+# its n, alpha, n_alpha and divergence flag stay 0
+@pytest.mark.parametrize(
+    "j, mask", [(j, None) for j in range(6)] + [(3, True), (3, False)],
+    ids=[str(j) for j in range(6)] + ["3-all-active", "3-none-active"])
+def test_subtree_twin_matches_jax_pallas_interpret(j, mask):
     c = 1024  # one JAX grid block: JAX's lane id is then the chain index
     a = _subtree_inputs(c, j, seed=100 + j)
+    if mask is not None:
+        a["active"] = np.full(c, mask)
     jt = jm.diffable_gaussian2d(MEAN, COV)
     fn = make_pallas_subtree(jt.grad_dc, jt.logp_dc, MAX_DEPTH,
                              interpret=True)
@@ -153,7 +163,12 @@ def test_subtree_twin_matches_jax_pallas_interpret(j):
     # a chain that stopped (s false) is not read past its stop; the JAX
     # kernel integrates it on, the twin may stop early
     s = w["s"]
-    assert s.any() and (~s).any() and w["diverged"].any()
+    assert s.any() and (~s).any()
+    if mask is False:
+        for k in ("n", "alpha", "n_alpha", "diverged"):
+            assert not gt[k].any(), k
+    else:
+        assert w["diverged"].any()
     for k in names[:6]:
         np.testing.assert_allclose(gt[k][s], w[k][s], rtol=RTOL, atol=ATOL,
                                    err_msg=k)
