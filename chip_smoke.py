@@ -11,9 +11,11 @@ Phases, one line each (every check raises on failure):
 
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of ``mini_mcmc_torch/csrc`` with ``nvcc`` (seconds), and the
-   registers, stack frame and spills of Kernels 3, 4, 5, 6 and 8 (``ptxas
-   -v``); with ``--profile``, each Kernel 5 and 6 instance's K loop in its
-   SASS (``cuobjdump -sass``): instructions per step, by kind;
+   registers, stack frame and spills of every instance of Kernels 1-6 and
+   8 (``ptxas -v``, ``[ptxas_instance]``; the whitened instances of
+   Kernels 1-4 included); with ``--profile``, each Kernel 5 and 6
+   instance's K loop in its SASS (``cuobjdump -sass``): instructions per
+   step, by kind;
 3. Philox: the known-answer vector, and CUDA bits equal to the plain bits
    on 2**20 counters;
 4. the main path at the flagship size of ``bench.py`` (Rosenbrock3D HMC,
@@ -25,7 +27,12 @@ Phases, one line each (every check raises on failure):
    main path's equilibrium state;
 6. the multistep kernel against its plain version (K = 16, L = 8) from
    the same state and seed;
-7. kernel and plain times at the main path's shapes (CUDA events);
+7. kernel and plain times at the main path's shapes (CUDA events); then
+   the whitened instances of Kernels 1 and 2 (``metric=``): a diagonal
+   metric estimated from the equilibrium, ``HMC(metric=)`` on 4,096 of
+   its chains through both tiers (one block each, counted), each kernel
+   against its twin from that whitened state as in 5 and 6, and both
+   kernels' times on all 65,536 chains whitened;
 8. with ``--profile`` only: five more timed runs (their spread), one run
    under ``torch.profiler`` (device time by kernel, the device's idle
    share) and Kernel 1's device time per call;
@@ -33,7 +40,11 @@ Phases, one line each (every check raises on failure):
    draws) through ``mini_mcmc_torch.NUTS(use_pallas="full")``: adaptation
    run, timed run, the five ``bench_nuts`` gates, Kernel 4's launch count
    (one per step, 2 x 2,175), and a short ``use_pallas=True`` run
-   counted on its own (Kernel 3);
+   counted on its own (Kernel 3); then its dense-metric half
+   (``bench.py:355-387``): ``reconditioned("dense", seed=11)``, adaptation
+   run, timed run, the gates of ``bench.py:370-379``, Kernel 4's whitened
+   instance once a step (2 x 2,175, no plain twin), and a short
+   ``use_pallas=True`` run with the metric (Kernel 3's whitened instance);
 10. Kernel 3 against its plain version at j = 0..5 and 10 on the NUTS
     equilibrium state, and at j = 5 and 10 with the step cut by 2^-j so
     that most chains integrate all 2^j leaves (the whole stack and merge
@@ -45,12 +56,14 @@ Phases, one line each (every check raises on failure):
     (positions, alpha, n_alpha, divergences and each chain's own depth),
     its load balance (lane-iterations per leaf), its persistent grid, and
     its result bit for bit under other grids;
-12. NUTS kernel and plain times at those shapes (CUDA events);
+12. NUTS kernel and plain times at those shapes (CUDA events); then Kernel
+    4's and Kernel 3's (j = 4) whitened instances against their twins at
+    the dense stage's equilibrium, and their times;
 13. with ``--profile`` only: Kernel 3 alone at j = 0..5, one NUTS run
     under ``torch.profiler``, Kernel 4 alone (device time per call) and
     under three smaller grids, and one ``use_pallas=True`` run under
     ``torch.profiler`` (Kernel 3's launches, device time per launch, the
-    idle share);
+    idle share), and one dense-metric run under ``torch.profiler``;
 14. the MH stage of ``bench.py:391-431`` (Gaussian2D, 65,536 chains,
     2,048 draws, isotropic walk, K = 16) through
     ``mini_mcmc_torch.MetropolisHastings(use_pallas="full")``: warm-up run,
@@ -153,6 +166,9 @@ JITTER = 0.3
 STEPS_PER_CALL = 16
 ROSEN3D_X0_MEAN = 0.785217  # quadrature, bench.py:91-92
 ROSEN3D_X0_VAR = 0.229370
+# Kernels 1 and 2's whitened instances against their twins: a few thousand
+# of the flagship's chains
+WHITENED_CHAINS = 4096
 
 # the NUTS configuration of bench.py:94-105,286-336
 NUTS_CHAINS = 131072
@@ -233,6 +249,8 @@ OPS = {
     "mixture1d_logp": 45,  # two divisions, the squares, expf, log1pf
     "pt_update": 22,  # proposal, the accept's logf, product and selects
     "pt_swap": 25,  # logf, the product, compare, four selects, the EWMA
+    "affine_d2": 6,  # a whitened density at D = 2: x = L y (3 FMAs) and
+                     # g_y = L^T g_x (3), D (D + 1) / 2 each
 }
 
 
@@ -381,21 +399,23 @@ def kernel_name(mangled: str) -> str:
     return re.split(r"E+v", re.sub(r"^\d+", "", mangled))[0]
 
 
-#: kernels whose registers, stack frame and spills phase_build reports
-REDESIGNED = ("subtree_kernel", "nuts_step_kernel", "pt_multistep_kernel",
-              "mh_multistep_kernel", "gibbs_multistep_kernel")
+#: kernels whose registers, stack frame and spills phase_build reports,
+#: every instance (the whitened ones of Kernels 1-4 included)
+PTXAS_KERNELS = ("leapfrog_kernel", "multistep_kernel", "subtree_kernel",
+                 "nuts_step_kernel", "pt_multistep_kernel",
+                 "mh_multistep_kernel", "gibbs_multistep_kernel")
 
 
 def phase_build():
     """Build the kernels; returns the library's path and the registers,
-    stack frame and spills of the REDESIGNED kernels by name."""
+    stack frame and spills of the PTXAS_KERNELS instances by name."""
     t0 = time.perf_counter()
     so = _build.build()
     _build.lib()
     # ptxas -v: each entry function's registers and stack, by kernel and
     # template arguments
     regs, name, frame = [], "?", {}
-    redesigned = {}
+    reported = {}
     for line in so.with_suffix(".log").read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
@@ -411,13 +431,13 @@ def phase_build():
             n_regs = used.group(1) or used.group(3)
             regs.append(f"{name[:60]}: {n_regs} regs, "
                         f"{used.group(2) or 0} B stack")
-            if name.startswith(REDESIGNED):
-                redesigned[name] = dict(regs=int(n_regs), **frame)
+            if name.startswith(PTXAS_KERNELS):
+                reported[name] = dict(regs=int(n_regs), **frame)
     say("build", seconds=round(time.perf_counter() - t0, 3), lib=so.name,
         ptxas=repr(regs))
-    for kernel, info in redesigned.items():
-        say("ptxas_redesigned", kernel=kernel[:60], **info)
-    return so, redesigned
+    for kernel, info in reported.items():
+        say("ptxas_instance", kernel=kernel[:64], **info)
+    return so, reported
 
 
 #: SASS opcodes by what they do in Kernels 5 and 6: the Philox rounds are
@@ -501,7 +521,7 @@ def sass_step_count(insns, labels, stores_per_step: int) -> dict:
     return out
 
 
-def phase_sass(so, redesigned) -> None:
+def phase_sass(so, reported) -> None:
     """``--profile``: each Kernel 5 and 6 instance's SASS per step (the
     static K loop, slow paths that the compiler placed inside it included)
     and its registers."""
@@ -511,7 +531,7 @@ def phase_sass(so, redesigned) -> None:
             continue
         dim = int(re.search(r"Li(\d+)", name).group(1))
         say("sass", kernel=name[:60], instructions=len(insns),
-            **redesigned.get(name, {}),
+            **reported.get(name, {}),
             **sass_step_count(insns, labels, dim))
 
 
@@ -606,18 +626,19 @@ def phase_main_path(dev):
     return hmc, counts, tier_counts
 
 
-def phase_leapfrog(hmc, dev) -> dict:
+def phase_leapfrog(target, state, dev, step_size=STEP_SIZE,
+                   label="leapfrog") -> dict:
     """Kernel 1 against its plain twin, and both against the twin run in
-    float64. Rosenbrock trajectories near the leapfrog stability edge
-    (large |x0|, eps * sqrt(curvature) close to 2) amplify a one-ulp
-    difference without bound, so the gate is that the kernel agrees with
-    the float64 trajectory on at least as many chains as the float32 twin
-    does, less 0.1% of the chains."""
-    target = hmc.target
-    state = hmc.state
+    float64, from ``state`` (the flagship's equilibrium, or its whitened
+    chains: ``target`` is then the whitened target). Rosenbrock
+    trajectories near the leapfrog stability edge (large |x0|, eps *
+    sqrt(curvature) close to 2) amplify a one-ulp difference without
+    bound, so the gate is that the kernel agrees with the float64
+    trajectory on at least as many chains as the float32 twin does, less
+    0.1% of the chains."""
     gen = torch.Generator(device=dev).manual_seed(11)
     mom = torch.randn(state.positions.shape, generator=gen, device=dev)
-    eps = torch.tensor([STEP_SIZE], device=dev)
+    eps = torch.tensor([step_size], device=dev)
     out = {}
     for n_leapfrog in (8, N_LEAPFROG):
         k = leapfrog_trajectory(target, state.positions, mom, state.grad,
@@ -635,23 +656,25 @@ def phase_leapfrog(hmc, dev) -> dict:
 
         err = max(max_abs_err(a, b) for a, b in zip(k, p))
         out[n_leapfrog] = (err, share(k, p), share(k, p64), share(p, p64))
-        say("leapfrog", L=n_leapfrog, chains=N_CHAINS, max_abs_err=err,
-            share_kernel_vs_plain=out[n_leapfrog][1],
+        say(label, L=n_leapfrog, chains=state.positions.shape[0],
+            max_abs_err=err, share_kernel_vs_plain=out[n_leapfrog][1],
             share_kernel_vs_f64=out[n_leapfrog][2],
             share_plain_vs_f64=out[n_leapfrog][3])
     _, _, k64, p64 = out[8]
-    check("leapfrog L=8 accuracy", k64 >= p64 - 1e-3, out[8])
+    check(f"{label} L=8 accuracy", k64 >= p64 - 1e-3, out[8])
     return out
 
 
-def phase_multistep(hmc, dev) -> float:
-    target = hmc.target
-    s = hmc.state
+def phase_multistep(target, s, dev, step_size=STEP_SIZE,
+                    label="multistep") -> float:
+    """Kernel 2 against its plain twin for one K = 16, L = 8 block from
+    ``s`` (as :func:`phase_leapfrog`), same key: the accepts, the rows and
+    the returned state per chain."""
     k_steps, n_leapfrog, seed = STEPS_PER_CALL, 8, 0x5EED_1234_ABCD
     gen = torch.Generator(device=dev).manual_seed(13)
-    eps = STEP_SIZE * (1.0 + JITTER * (
+    eps = step_size * (1.0 + JITTER * (
         2.0 * torch.rand((k_steps,), generator=gen, device=dev) - 1.0))
-    hk = torch.empty((k_steps, N_CHAINS, DIM), device=dev)
+    hk = torch.empty((k_steps,) + tuple(s.positions.shape), device=dev)
     hp = torch.empty_like(hk)
     outk = hmc_multistep(target, s.positions, s.logp, s.grad, eps,
                          n_leapfrog, seed, 0, hk)
@@ -679,7 +702,7 @@ def phase_multistep(hmc, dev) -> float:
     share_acc = float(same_acc.float().mean())
     share_self = float(self_ok.float().mean())
     err = max_abs_err(hk.transpose(0, 1), hp.transpose(0, 1), same_acc)
-    say("multistep", K=k_steps, L=n_leapfrog, chains=N_CHAINS,
+    say(label, K=k_steps, L=n_leapfrog, chains=s.positions.shape[0],
         accept_rate=float(acc_k.float().mean()),
         share_same_accepts=share_acc,
         **{f"share_{k}_within_tol": v for k, v in shares.items()},
@@ -687,10 +710,10 @@ def phase_multistep(hmc, dev) -> float:
         max_abs_err_same_accepts=err,
         max_abs_err_logp_same_accepts=max_abs_err(outk[1], outp[1],
                                                   same_acc))
-    check("multistep accepts agree", share_acc >= 0.999, share_acc)
+    check(f"{label} accepts agree", share_acc >= 0.999, share_acc)
     for name, share in shares.items():
-        check(f"multistep {name}", share >= 0.999, share)
-    check("multistep state is the density at its position",
+        check(f"{label} {name}", share >= 0.999, share)
+    check(f"{label} state is the density at its position",
           share_self == 1.0, share_self)
     return err
 
@@ -722,6 +745,66 @@ def phase_times(hmc, dev) -> dict:
     say("times", shape=f"C={N_CHAINS},D={DIM},L={N_LEAPFROG},"
         f"K={STEPS_PER_CALL}", **{k: repr(v) for k, v in t.items()})
     return t
+
+
+def phase_whitened_hmc(hmc, dev) -> dict:
+    """Kernels 1 and 2's whitened instances (``metric=``): a diagonal
+    metric estimated from the flagship's equilibrium, ``HMC(metric=)``
+    on WHITENED_CHAINS of its chains through the ``True`` and ``"full"``
+    tiers (one K-step block each, its launches counted, its rows in x),
+    each kernel against its twin from that whitened state, and both
+    kernels' times on all the flagship's chains whitened (CUDA events)."""
+    pre = mt.estimate_preconditioner(hmc.positions, "diag")
+    # a step in y of eps_x / max(scale) moves no coordinate of x by more
+    # than the flagship's eps_x; reconditioned's eps_x / sigma_min would
+    # move the widest by max/min scale times eps_x (2.7x at the flagship's
+    # equilibrium), past the leapfrog's stability edge on some chains,
+    # where kernel and twin both diverge
+    eps = STEP_SIZE / float(pre.scale.max())
+    x = hmc.positions[:WHITENED_CHAINS]
+    runs = {}
+    for tier, kernel, launches in ((True, "leapfrog_trajectory",
+                                    STEPS_PER_CALL),
+                                   ("full", "hmc_multistep", 1)):
+        reset_counts()
+        h = mt.HMC(hmc.target, x, eps, N_LEAPFROG, use_pallas=tier,
+                   jitter=JITTER, steps_per_call=STEPS_PER_CALL,
+                   metric=pre).seed(5)
+        rows = h.run(STEPS_PER_CALL, 0, time_major=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(f"whitened {kernel} launches",
+              counts == counts_with(**{kernel: launches}), counts)
+        check(f"whitened {kernel} rows in x", bool(
+            torch.isfinite(rows).all()) and torch.equal(rows[-1],
+                                                        h.positions),
+              tuple(rows.shape))
+        runs[kernel] = counts[kernel]
+    target, state = h.kernel_target, h.state
+    lf = phase_leapfrog(target, state, dev, eps, label="leapfrog_whitened")
+    ms_err = phase_multistep(target, state, dev, eps,
+                             label="multistep_whitened")
+    # the times at the flagship's shapes: all its chains, whitened
+    y = pre.to_y(hmc.state.positions).contiguous()
+    logp, grad = target.batch_logp_and_grad(y)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    mom = torch.randn(y.shape, generator=gen, device=dev)
+    eps1 = torch.tensor([eps], device=dev)
+    eps_k = torch.full((STEPS_PER_CALL,), eps, device=dev)
+    hist = torch.empty((STEPS_PER_CALL,) + tuple(y.shape), device=dev)
+    out = {
+        "leapfrog_err": lf[8][0], "multistep_err": ms_err,
+        "leapfrog_launches": runs["leapfrog_trajectory"],
+        "multistep_launches": runs["hmc_multistep"],
+        "leapfrog_ms": cuda_ms(lambda: leapfrog_trajectory(
+            target, y, mom, grad, eps1, N_LEAPFROG), 20),
+        "multistep_ms": cuda_ms(lambda: hmc_multistep(
+            target, y, logp, grad, eps_k, N_LEAPFROG, 1, 0, hist), 20),
+    }
+    say("whitened_hmc", metric="diag", scale=repr(pre.scale.tolist()),
+        eps_y=eps, chains_checked=WHITENED_CHAINS,
+        **{k: repr(v) for k, v in out.items()})
+    return out
 
 
 def phase_profile(hmc, dev) -> None:
@@ -759,8 +842,11 @@ def phase_profile(hmc, dev) -> None:
         device_us_per_call=us / n)
 
 
-def nuts_gates(sample, divergences_steady: int) -> dict:
-    """The five quality gates of bench.py:321-336 on a chain-major cube."""
+def nuts_gates(sample, divergences_steady: int | None, ess_floor=0.005,
+               label="nuts") -> dict:
+    """The quality gates of bench.py:321-336 on a chain-major cube, or with
+    ``ess_floor=0.01`` and no divergence gate (``divergences_steady``
+    None) those of its dense-metric stage, bench.py:370-379."""
     rhat, ess = mt.split_rhat_mean_ess(sample)
     flat = sample.reshape(-1, 2).double()
     m = {
@@ -772,16 +858,18 @@ def nuts_gates(sample, divergences_steady: int) -> dict:
         "divergences_steady": divergences_steady,
     }
     total_draws = sample.shape[0] * sample.shape[1]
-    check("nuts rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
-    check("nuts ess floor", m["ess_min"] >= 0.005 * total_draws,
+    check(f"{label} rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    check(f"{label} ess floor", m["ess_min"] >= ess_floor * total_draws,
           (m["ess_min"], total_draws))
     for d in range(2):
-        check(f"nuts mean[{d}]", abs(m["mean"][d] - NUTS_MEAN[d]) <= 0.08,
-              m["mean"])
-        check(f"nuts var[{d}]", abs(m["var"][d] - NUTS_COV[d][d]) <= 0.4,
-              m["var"])
-    check("nuts steady-state divergences",
-          divergences_steady <= sample.shape[0] // 10000, divergences_steady)
+        check(f"{label} mean[{d}]",
+              abs(m["mean"][d] - NUTS_MEAN[d]) <= 0.08, m["mean"])
+        check(f"{label} var[{d}]",
+              abs(m["var"][d] - NUTS_COV[d][d]) <= 0.4, m["var"])
+    if divergences_steady is not None:
+        check(f"{label} steady-state divergences",
+              divergences_steady <= sample.shape[0] // 10000,
+              divergences_steady)
     return m
 
 
@@ -840,11 +928,69 @@ def phase_nuts_main_path(dev):
     return nuts, m, counts, tier_counts
 
 
+def phase_nuts_dense_metric(nuts, dev):
+    """The dense-metric half of the NUTS stage, bench.py:355-387, through
+    the public entry point: ``reconditioned("dense", seed=11)`` from the
+    stage's equilibrium (a new sampler, which finds its step size and
+    adapts again in the whitened space), an adaptation run, the timed run,
+    bench.py:370-379's gates and the launch counts of both runs (Kernel
+    4's whitened instance, once a step); then a short ``use_pallas=True``
+    run with the metric, counted on its own (Kernel 3's)."""
+    reset_counts()
+    tuned = nuts.reconditioned("dense", seed=11)
+    check("dense metric on the card", tuned.metric.chol.is_cuda
+          and tuned.kernel_target.cuda_affine, tuned.metric)
+    adapt = tuned.run(NUTS_COLLECT, NUTS_DISCARD)
+    torch.cuda.synchronize()
+    del adapt
+    t0 = time.perf_counter()
+    sample = tuned.run(NUTS_COLLECT, NUTS_DISCARD)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    check("nuts-metric launches and no plain twin",
+          counts == counts_with(nuts_step=2 * NUTS_STEPS), counts)
+    check("nuts-metric sample shape",
+          tuple(sample.shape) == (NUTS_CHAINS, NUTS_COLLECT, 2),
+          tuple(sample.shape))
+    check("nuts-metric sample finite", bool(torch.isfinite(sample).all()),
+          "non-finite")
+    m = nuts_gates(sample, None, ess_floor=0.01, label="nuts-metric")
+    del sample
+    m["elapsed_s"] = elapsed
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = NUTS_STEPS * NUTS_CHAINS / elapsed
+    m["step_us"] = elapsed / NUTS_STEPS * 1e6
+    m["leapfrogs_per_draw"] = float(
+        tuned.last_run_leapfrogs.double().mean()) / NUTS_STEPS
+    m["divergences_run"] = int(tuned.last_run_divergences.sum())
+    m["step_size_mean"] = float(tuned.step_size.mean())
+    m["chol"] = tuned.metric.chol.tolist()
+    say("nuts_dense_metric", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=NUTS_STEPS, **counts)
+
+    reset_counts()
+    tier = mt.NUTS(nuts.target, tuned.positions, 0.8, use_pallas=True,
+                   metric=tuned.metric).seed(3)
+    rows = tier.run(16, 0)
+    torch.cuda.synchronize()
+    tier_counts = read_counts()
+    check("nuts-metric use_pallas=True rows", bool(
+        torch.isfinite(rows).all()) and tuple(rows.shape) == (
+            NUTS_CHAINS, 16, 2), tuple(rows.shape))
+    check("nuts-metric use_pallas=True launches",
+          tier_counts["nuts_subtree"] > 0 and tier_counts == counts_with(
+              nuts_subtree=tier_counts["nuts_subtree"]), tier_counts)
+    say("nuts_dense_metric_tier_run", use_pallas=True, steps=15,
+        **tier_counts)
+    return tuned, m, counts, tier_counts
+
+
 def subtree_inputs(nuts, dev, j: int, seed: int, eps_scale: float = 1.0):
     """A Kernel 3 call at the NUTS equilibrium: fresh momenta, slice
     levels and directions, nine chains in ten active, the adapted steps
-    times ``eps_scale``."""
-    target, pos = nuts.target, nuts.positions
+    times ``eps_scale``; in the whitened coordinates under a metric."""
+    target, pos = nuts.kernel_target, nuts.state.positions
     gen = torch.Generator(device=dev).manual_seed(seed)
     mom = torch.randn(pos.shape, generator=gen, device=dev)
     logp, grad = target.batch_logp_and_grad(pos)
@@ -858,76 +1004,84 @@ def subtree_inputs(nuts, dev, j: int, seed: int, eps_scale: float = 1.0):
             (0x1234567, -0x7654321), NUTS_MAX_DEPTH)
 
 
+def subtree_case(nuts, dev, j: int, cut: int = 0, seed: int | None = None,
+                 label: str = "subtree"):
+    """Kernel 3 against its twin at ``j`` with the steps times 2^-cut:
+    counts and flags on every chain, active and inactive apart, floats
+    where the subtree continues (a stopped chain's end state and proposal
+    are not read). Returns the largest error, the twin's leaves per chain
+    and the lane-iterations per leaf."""
+    seed = 40 + j + 20 * (cut > 0) if seed is None else seed
+    args = subtree_inputs(nuts, dev, j, seed=seed, eps_scale=2.0 ** -cut)
+    grid = {}
+    got = subtree(*args, grid=grid)
+    n_chains = args[1].shape[0]
+    done = torch.zeros(n_chains, dtype=torch.int32, device=dev)
+    want = subtree_plain(*args, leaves=done)
+    torch.cuda.synchronize()
+    active = args[9]
+    same = ((got.n == want.n) & (got.s == want.s)
+            & (got.n_alpha == want.n_alpha)
+            & (got.diverged == want.diverged))
+
+    def near(a, b):
+        ok = (a - b).abs() <= NUTS_ATOL + NUTS_RTOL * b.abs()
+        return ok.reshape(ok.shape[0], -1).all(dim=1)
+
+    ok = same & near(got.alpha, want.alpha)
+    s = same & want.s
+    for a, b in zip(got[:6], want[:6]):
+        ok &= near(a, b) | ~s
+    # the chains whose subtree ran all 2^j leaves and continues
+    full = (done == 1 << j) & want.s
+    shares = {
+        "same_counts_and_flags_active": float(
+            same[active].double().mean()),
+        "same_counts_and_flags_inactive": float(
+            same[~active].double().mean()),
+        "all_fields_within_tol": float(ok.double().mean()),
+    }
+    if cut:
+        shares["all_fields_within_tol_all_leaves"] = float(
+            ok[full].double().mean())
+    # a warp of 32 fixed chains runs its deepest chain's leaves: its
+    # lane-iterations over the leaves its chains integrate
+    lane_iterations = 32 * float(
+        done.reshape(-1, 32).amax(dim=1).double().sum())
+    per_leaf = lane_iterations / float(done.double().sum())
+    e = max(max_abs_err(a, b, s) for a, b in zip(got[:6], want[:6]))
+    e = max(e, max_abs_err(got.alpha, want.alpha, same))
+    share_full = float(full.double().mean())
+    say(label, j=j, eps_scale=f"2^-{cut}", chains=n_chains,
+        **{f"share_{k}": v for k, v in shares.items()},
+        share_s=float(want.s.double().mean()),
+        share_all_leaves=share_full,
+        mean_leaves=float(done.double().mean()),
+        max_leaves=int(done.max()),
+        lane_iterations_per_leaf=per_leaf, **grid, max_abs_err=e)
+    for name, share in shares.items():
+        check(f"{label} j={j} cut={cut} {name}", share >= NUTS_SHARE, share)
+    if cut:  # the deepest rows and merges ran on most chains
+        check(f"{label} j={j} cut={cut} all leaves", share_full >= 0.5,
+              share_full)
+    return e, done, per_leaf
+
+
 def phase_subtree(nuts, dev) -> tuple[float, dict, dict]:
     """Kernel 3 against its twin on the NUTS equilibrium state, j = 0..5
     and 10 (the deepest stack, past 48 KB of shared memory a block), and
     at j = 5 and 10 with the steps cut by 2^-j, where most chains run all
     2^j leaves: every row of the stack and every merge of the cascade.
-    Counts and flags on every chain, active and inactive apart, floats
-    where the subtree continues (a stopped chain's end state and proposal
-    are not read). Returns the largest error, the twin's leaves per chain
-    and the lane-iterations per leaf, by j, at the equilibrium's steps."""
+    Returns the largest error, the twin's leaves per chain and the
+    lane-iterations per leaf, by j, at the equilibrium's steps."""
     err, leaves, per_leaf = 0.0, {}, {}
     # (j, cut): the steps times 2^-cut
     cases = [(j, 0) for j in (*range(6), NUTS_MAX_DEPTH)]
     for j, cut in cases + [(5, 5), (NUTS_MAX_DEPTH, NUTS_MAX_DEPTH)]:
-        args = subtree_inputs(nuts, dev, j, seed=40 + j + 20 * (cut > 0),
-                              eps_scale=2.0 ** -cut)
-        grid = {}
-        got = subtree(*args, grid=grid)
-        done = torch.zeros(NUTS_CHAINS, dtype=torch.int32, device=dev)
-        want = subtree_plain(*args, leaves=done)
-        torch.cuda.synchronize()
-        active = args[9]
-        same = ((got.n == want.n) & (got.s == want.s)
-                & (got.n_alpha == want.n_alpha)
-                & (got.diverged == want.diverged))
-
-        def near(a, b):
-            ok = (a - b).abs() <= NUTS_ATOL + NUTS_RTOL * b.abs()
-            return ok.reshape(ok.shape[0], -1).all(dim=1)
-
-        ok = same & near(got.alpha, want.alpha)
-        s = same & want.s
-        for a, b in zip(got[:6], want[:6]):
-            ok &= near(a, b) | ~s
-        # the chains whose subtree ran all 2^j leaves and continues
-        full = (done == 1 << j) & want.s
-        shares = {
-            "same_counts_and_flags_active": float(
-                same[active].double().mean()),
-            "same_counts_and_flags_inactive": float(
-                same[~active].double().mean()),
-            "all_fields_within_tol": float(ok.double().mean()),
-        }
-        if cut:
-            shares["all_fields_within_tol_all_leaves"] = float(
-                ok[full].double().mean())
-        # a warp of 32 fixed chains runs its deepest chain's leaves: its
-        # lane-iterations over the leaves its chains integrate
-        lane_iterations = 32 * float(
-            done.reshape(-1, 32).amax(dim=1).double().sum())
+        e, done, lanes = subtree_case(nuts, dev, j, cut)
         if not cut:
-            leaves[j] = done
-            per_leaf[j] = lane_iterations / float(done.double().sum())
-        e = max(max_abs_err(a, b, s) for a, b in zip(got[:6], want[:6]))
-        e = max(e, max_abs_err(got.alpha, want.alpha, same))
+            leaves[j], per_leaf[j] = done, lanes
         err = max(err, e)
-        share_full = float(full.double().mean())
-        say("subtree", j=j, eps_scale=f"2^-{cut}", chains=NUTS_CHAINS,
-            **{f"share_{k}": v for k, v in shares.items()},
-            share_s=float(want.s.double().mean()),
-            share_all_leaves=share_full,
-            mean_leaves=float(done.double().mean()),
-            max_leaves=int(done.max()),
-            lane_iterations_per_leaf=lane_iterations / float(
-                done.double().sum()), **grid, max_abs_err=e)
-        for name, share in shares.items():
-            check(f"subtree j={j} cut={cut} {name}", share >= NUTS_SHARE,
-                  share)
-        if cut:  # the deepest rows and merges ran on most chains
-            check(f"subtree j={j} cut={cut} all leaves", share_full >= 0.5,
-                  share_full)
     return err, leaves, per_leaf
 
 
@@ -953,11 +1107,17 @@ def phase_k3_alone(nuts, dev, reps: int = 20) -> dict:
     return out
 
 
-def phase_nuts_step(nuts, dev) -> tuple[float, dict, tuple]:
+def phase_nuts_step(nuts, dev, label="nuts_step"):
     """Kernel 4 against its twin for one step from the NUTS equilibrium,
-    same key and step, depth_limit 10."""
-    args = (nuts.target, nuts.positions, nuts.step_size.contiguous(),
-            NUTS_MAX_DEPTH, 0x5EED_0123_4567_89AB, 9, NUTS_MAX_DEPTH)
+    same key and step, depth_limit 10: positions, alpha, n_alpha,
+    divergences and each chain's own depth per chain, the launch's leaves
+    against the twin's, its persistent grid and its results bit for bit
+    under other grids. The state is the sampler's own (whitened under a
+    metric). Returns the largest error, the twin's details and the
+    arguments."""
+    args = (nuts.kernel_target, nuts.state.positions,
+            nuts.step_size.contiguous(), NUTS_MAX_DEPTH,
+            0x5EED_0123_4567_89AB, 9, NUTS_MAX_DEPTH)
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
     grid = {}
     got = nuts_step(*args, stats=stats, grid=grid)
@@ -978,6 +1138,9 @@ def phase_nuts_step(nuts, dev) -> tuple[float, dict, tuple]:
     depth = {
         "chain_depth_mean": float(details["depth"].double().mean()),
         "chain_depth_max": int(details["depth"].max()),
+        # chains by doubling count: the deepest chain's 2^depth - 1 leaves
+        # run in sequence on one lane, a floor under the launch's time
+        "chain_depth_counts": torch.bincount(details["depth"]).tolist(),
         "leaves_per_chain": float(details["leaves"].double().mean()),
         # what a warp of 32 fixed chains would integrate: 2^(its deepest
         # depth) - 1 leaves for each of them (the one-thread-per-chain form)
@@ -985,28 +1148,62 @@ def phase_nuts_step(nuts, dev) -> tuple[float, dict, tuple]:
             (2.0 ** details["depth"].reshape(-1, 32).amax(dim=1).double()
              - 1).mean()),
     }
-    say("nuts_step", chains=NUTS_CHAINS, depth_limit=NUTS_MAX_DEPTH,
+    say(label, chains=NUTS_CHAINS, depth_limit=NUTS_MAX_DEPTH,
         **{f"share_{k}": v for k, v in shares.items()}, **depth,
         max_abs_err=err)
     for name, share in shares.items():
-        check(f"nuts step {name}", share >= NUTS_SHARE, share)
+        check(f"{label} {name}", share >= NUTS_SHARE, share)
 
     # the load balance: every lane-iteration of the launch over the leaves
     # its threads integrated (1 is no lane idle), the persistent grid, and
     # the results under other grids
     lane_iterations, leaves = (int(v) for v in stats.cpu())
-    say("nuts_balance", lane_iterations=lane_iterations, leaves=leaves,
+    say(f"{label}_balance", lane_iterations=lane_iterations, leaves=leaves,
         twin_leaves=int(details["leaves"].sum()),
         lane_iterations_per_leaf=lane_iterations / leaves, **grid)
-    check("nuts kernel leaves", abs(leaves - int(details["leaves"].sum()))
-          <= 0.001 * leaves, (leaves, int(details["leaves"].sum())))
-    check("nuts persistent grid", grid["blocks"] == min(
+    check(f"{label} kernel leaves", abs(
+        leaves - int(details["leaves"].sum())) <= 0.001 * leaves,
+        (leaves, int(details["leaves"].sum())))
+    check(f"{label} persistent grid", grid["blocks"] == min(
         grid["blocks_per_sm"] * grid["sms"], NUTS_CHAINS // 128), grid)
     for kw in (dict(blocks=1), dict(blocks=grid["sms"])):
         other = nuts_step(*args, **kw)
         same = all(torch.equal(a, b) for a, b in zip(got, other))
-        check(f"nuts step bit-identical under {kw}", same, kw)
+        check(f"{label} bit-identical under {kw}", same, kw)
     return err, details, args
+
+
+def phase_whitened_nuts(tuned, dev, profile: bool = False) -> dict:
+    """Kernels 4 and 3's whitened instances (the dense metric of the
+    stage, Gaussian2D at D = 2) against their twins at the dense stage's
+    equilibrium, Kernel 3 at j = 4, and their times (CUDA events); with
+    ``profile``, Kernel 4's whitened instance alone (device µs a launch,
+    ``torch.profiler`` over 20 launches, twice)."""
+    err, details, args = phase_nuts_step(tuned, dev,
+                                         label="nuts_step_dense_metric")
+    sub_err, _, sub_per_leaf = subtree_case(tuned, dev, 4,
+                                            label="subtree_dense_metric")
+    sub_args = subtree_inputs(tuned, dev, 4, seed=44)
+    out = {
+        "ms": cuda_ms(lambda: nuts_step(*args), 20),
+        "plain_ms": cuda_ms(lambda: nuts_step_plain(*args), 2),
+        "subtree_ms": cuda_ms(lambda: subtree(*sub_args), 20),
+    }
+    if profile:
+        times = []
+        for _ in range(2):
+            _, _, k = device_profile(lambda: [nuts_step(*args)
+                                              for _ in range(20)])
+            n, us = next(v for name, v in k.items()
+                         if "nuts_step_kernel" in name)
+            check("profiled whitened nuts_step launches", 0 < n <= 20, n)
+            times.append(us / n)
+        out["device_us_alone"] = times
+    say("nuts_dense_metric_times", shape=f"C={NUTS_CHAINS},D=2,"
+        f"depth_limit={NUTS_MAX_DEPTH},subtree_j=4",
+        **{k: repr(v) for k, v in out.items()})
+    return dict(out, err=err, details=details, subtree_err=sub_err,
+                subtree_lane_iterations_per_leaf=sub_per_leaf)
 
 
 def phase_nuts_times(nuts, dev, step_args) -> dict:
@@ -1622,7 +1819,7 @@ def phase_pt_kernel(pt, seed: int) -> dict:
             "plain_ms": cuda_ms(lambda: pt_multistep_plain(*args, hp), 2)}
 
 
-def bounds(step_details, subtree_leaves) -> dict:
+def bounds(step_details, subtree_leaves, dense_details) -> dict:
     """bound_ms and bound_by of each kernel at the shapes of its timing."""
     c, d = N_CHAINS, DIM
     k, L = STEPS_PER_CALL, N_LEAPFROG
@@ -1645,18 +1842,25 @@ def bounds(step_details, subtree_leaves) -> dict:
     # this step's: the leaves each chain integrated, its merges (about
     # leaves - doublings) and doublings; per chain two momentum normals
     # and a uniform each for the slice, every merge and (two) every
-    # doubling
+    # doubling. The whitened instance adds the affine map to every
+    # density evaluation (the start's and each leaf's)
     nc = NUTS_CHAINS
-    leaves_c = step_details["leaves"].double()
-    depth_c = step_details["depth"].double()
-    merges_c = (leaves_c - depth_c).clamp(min=0.0)
-    out["nuts_step"] = bound(
-        4 * (nc * 2 + nc + nc * 2 + 4 * nc),
-        nc * OPS["nuts_step"]
-        + float(rng_ops(2, 1 + 2 * depth_c + merges_c).sum())
-        + float(leaves_c.sum()) * OPS["nuts_leaf"]
-        + float(merges_c.sum()) * OPS["nuts_merge"]
-        + float(depth_c.sum()) * OPS["nuts_doubling"])
+
+    def nuts_step_bound(details, affine_ops=0):
+        leaves_c = details["leaves"].double()
+        depth_c = details["depth"].double()
+        merges_c = (leaves_c - depth_c).clamp(min=0.0)
+        return bound(
+            4 * (nc * 2 + nc + nc * 2 + 4 * nc),
+            nc * (OPS["nuts_step"] + affine_ops)
+            + float(rng_ops(2, 1 + 2 * depth_c + merges_c).sum())
+            + float(leaves_c.sum()) * (OPS["nuts_leaf"] + affine_ops)
+            + float(merges_c.sum()) * OPS["nuts_merge"]
+            + float(depth_c.sum()) * OPS["nuts_doubling"])
+
+    out["nuts_step"] = nuts_step_bound(step_details)
+    out["nuts_step_dense_metric"] = nuts_step_bound(
+        dense_details, OPS["affine_d2"])
     # Kernel 3 at each j of phase_subtree (the record's own at j = 4): pos,
     # mom, grad, logu, v, eps, joint0, active in; five [C, 2] and six [C]
     # outputs. The work is that j's leaves and about one merge per leaf
@@ -1719,26 +1923,32 @@ def main() -> None:
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
     dev = torch.device("cuda", 0)
     phase_device()
-    so, redesigned = phase_build()
+    so, reported = phase_build()
     if args.profile:
-        phase_sass(so, redesigned)
+        phase_sass(so, reported)
     phase_philox(dev)
     hmc, counts, tier_counts = phase_main_path(dev)
-    lf = phase_leapfrog(hmc, dev)
-    ms_err = phase_multistep(hmc, dev)
+    lf = phase_leapfrog(hmc.target, hmc.state, dev)
+    ms_err = phase_multistep(hmc.target, hmc.state, dev)
     t = phase_times(hmc, dev)
+    k12w = phase_whitened_hmc(hmc, dev)
     if args.profile:
         phase_profile(hmc, dev)
     del hmc
     torch.cuda.empty_cache()
     nuts, nuts_m, nuts_counts, nuts_tier_counts = phase_nuts_main_path(dev)
+    tuned, dense_m, dense_counts, dense_tier_counts = (
+        phase_nuts_dense_metric(nuts, dev))
     sub_err, sub_leaves, sub_per_leaf = phase_subtree(nuts, dev)
     k3_us = phase_k3_alone(nuts, dev) if args.profile else None
     step_err, step_details, step_args = phase_nuts_step(nuts, dev)
     t.update(phase_nuts_times(nuts, dev, step_args))
+    k34w = phase_whitened_nuts(tuned, dev, args.profile)
     if args.profile:
         phase_nuts_profile(nuts, step_args)
-    del nuts
+        phase_runs_profile((("nuts_dense_metric", lambda: tuned.run(
+            NUTS_COLLECT, NUTS_DISCARD)),))
+    del nuts, tuned
     torch.cuda.empty_cache()
     mh, mh_counts = phase_mh_main_path(dev)
     k5 = {"gauss2d": phase_mh_kernel(mh, "gauss2d", MH_K, 0x5EED_0808)}
@@ -1774,7 +1984,7 @@ def main() -> None:
         phase_runs_profile((("pt", lambda: pt.run(
             PT_COLLECT, 0, time_major=True)),))
     del pt
-    b = bounds(step_details, sub_leaves)
+    b = bounds(step_details, sub_leaves, k34w["details"])
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
 
@@ -1794,10 +2004,15 @@ def main() -> None:
     kernels = [
         record("hmc_multistep", "hmc_multistep.cu", "hmc_full.py:86",
                counts["hmc_multistep"], ms_err, t["multistep_ms"],
-               t["multistep_plain_ms"]),
+               t["multistep_plain_ms"], ms_whitened=k12w["multistep_ms"],
+               max_abs_err_whitened=k12w["multistep_err"],
+               launches_whitened=k12w["multistep_launches"]),
         record("nuts_step", "nuts_full.cu", "nuts_full.py:48",
                nuts_counts["nuts_step"], step_err, t["nuts_step_ms"],
                t["nuts_step_plain_ms"]),
+        record("nuts_step_dense_metric", "nuts_full.cu", "nuts_full.py:48",
+               dense_counts["nuts_step"], k34w["err"], k34w["ms"],
+               k34w["plain_ms"]),
         record("mh_multistep_gauss2d", "mh_multistep.cu", "mh_full.py:50",
                mh_counts["mh_multistep"], k5["gauss2d"]["err"],
                k5["gauss2d"]["ms"], k5["gauss2d"]["plain_ms"]),
@@ -1821,11 +2036,17 @@ def main() -> None:
         record("leapfrog_trajectory", "hmc_leapfrog.cu", "hmc.py:46",
                counts["leapfrog_trajectory"], lf[8][0], t["leapfrog_ms"],
                t["leapfrog_plain_ms"],
-               tier_run_launches=tier_counts["leapfrog_trajectory"]),
+               tier_run_launches=tier_counts["leapfrog_trajectory"],
+               ms_whitened=k12w["leapfrog_ms"],
+               max_abs_err_whitened=k12w["leapfrog_err"],
+               tier_run_launches_whitened=k12w["leapfrog_launches"]),
         record("nuts_subtree", "nuts_subtree.cu", "nuts_subtree.py:243",
                nuts_counts["nuts_subtree"], sub_err, t["subtree_ms"],
                t["subtree_plain_ms"],
                tier_run_launches=nuts_tier_counts["nuts_subtree"],
+               ms_whitened=k34w["subtree_ms"],
+               max_abs_err_whitened=k34w["subtree_err"],
+               tier_run_launches_whitened=dense_tier_counts["nuts_subtree"],
                bound_ms_by_j=[b[f"nuts_subtree_j{j}"][0] for j in range(6)],
                lane_iterations_per_leaf_by_j=[sub_per_leaf[j]
                                               for j in range(6)]),

@@ -12,11 +12,14 @@ imports it or JAX.
 
 from .diagnostics import ModernDiagnostics, rank_normalized_diagnostics
 from .models import (
+    Preconditioner,
     diffable_gaussian2d,
+    estimate_preconditioner,
     gaussian2d,
     gaussian_mixture_conditional,
     isotropic_gaussian_proposal,
     poisson_target,
+    precondition_target,
     random_walk_int_proposal,
     rosenbrock_nd,
     standard_normal,
@@ -34,7 +37,9 @@ __all__ = [
     "ModernDiagnostics",
     "NUTS",
     "ParallelTempering",
+    "Preconditioner",
     "diffable_gaussian2d",
+    "estimate_preconditioner",
     "gaussian2d",
     "gaussian_mixture_conditional",
     "geometric_betas",
@@ -43,6 +48,7 @@ __all__ = [
     "init_with_seed",
     "isotropic_gaussian_proposal",
     "poisson_target",
+    "precondition_target",
     "random_walk_int_proposal",
     "rank_normalized_diagnostics",
     "rosenbrock_nd",

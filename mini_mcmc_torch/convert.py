@@ -3,7 +3,7 @@
 No model here has weights: what carries over is the chain state
 (positions and their cached logp, and the gradient for HMC; the positions
 and adaptation state for NUTS; the replica ladder for parallel tempering)
-and the sampler's configuration.
+and the sampler's configuration, a metric included.
 Everything crosses as numpy arrays, so this module imports neither JAX nor
 the JAX package. States land on ``device``, ``"cuda"`` by default (raises
 without a GPU); pass ``device="cpu"`` for the CPU.
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.precondition import Preconditioner
 from .ops.hmc import HMCSepState, HMCState
 from .ops.mh import MHState
 from .ops.nuts import NUTSState
@@ -95,6 +96,18 @@ def pt_state_from_numpy(state, device="cuda") -> PTState:
     )
 
 
+def preconditioner_from_numpy(kind: str, array,
+                              device="cuda") -> Preconditioner:
+    """A ``Preconditioner`` of ``kind`` on ``device`` from its numpy
+    ``array``, float32: the ``[D]`` scale (``"diag"``) or the ``[D, D]``
+    Cholesky factor (``"dense"``), e.g. ``np.asarray`` of a JAX metric's
+    ``scale`` or ``chol``."""
+    arr = _f32(array, resolve_device(device))
+    if kind == "diag":
+        return Preconditioner("diag", scale=arr)
+    return Preconditioner(kind, chol=arr)
+
+
 def state_to_numpy(state):
     """The state's fields as numpy arrays (host ints stay ints)."""
     return tuple(np.asarray(x.detach().cpu()) if torch.is_tensor(x) else x
@@ -103,26 +116,34 @@ def state_to_numpy(state):
 
 def _kwargs(jax_sampler, name: str, ctor=None) -> dict:
     ctor = dict(jax_sampler._ctor if ctor is None else ctor)
-    if getattr(jax_sampler, "metric", None) is not None:
-        raise ValueError(f"{name}(metric=...) is not ported yet")
     if ctor.pop("transform", None) is not None:
         raise ValueError(f"{name}(transform=...) is not ported yet")
     for key in _JAX_ONLY:
         ctor.pop(key, None)
+    metric = getattr(jax_sampler, "metric", None)
+    if metric is not None:
+        kind = getattr(metric, "kind", None)
+        if kind not in ("diag", "dense"):
+            raise ValueError("metric must be a Preconditioner; got "
+                             f"{type(metric).__name__}")
+        ctor["metric"] = preconditioner_from_numpy(
+            kind, np.asarray(metric.scale if kind == "diag" else metric.chol),
+            device="cpu")
     return ctor
 
 
 def sampler_kwargs(jax_hmc) -> dict:
     """The port's ``HMC`` keyword arguments read from a JAX ``HMC``'s
-    recorded constructor arguments (``_ctor``). Raises for a metric or a
+    recorded constructor arguments (``_ctor``) and its metric (a CPU
+    ``Preconditioner``; the sampler moves it to its device). Raises for a
     transform, which the port does not have yet."""
     return _kwargs(jax_hmc, "HMC")
 
 
 def nuts_sampler_kwargs(jax_nuts) -> dict:
     """The port's ``NUTS`` keyword arguments read from a JAX ``NUTS``'s
-    ``_ctor``; drops ``pallas_interpret``/``validate_dc`` and raises for a
-    metric or a transform."""
+    ``_ctor`` and its metric; drops ``pallas_interpret``/``validate_dc``
+    and raises for a transform."""
     return _kwargs(jax_nuts, "NUTS")
 
 

@@ -46,20 +46,30 @@ inline int blocks_for(int n_chains) {
 
 }  // namespace mm
 
-// Calls LAUNCH(TargetType, D) for the instantiated (target, dim) pairs and
-// returns cudaErrorInvalidValue for any other pair (the dims must match
+// Calls LAUNCH(TargetType, D) for the instantiated (target, dim) pairs, the
+// functor inside the affine wrapper mm::Whitened when `affine` is nonzero
+// (a whitened target, Target.cuda_affine), and returns
+// cudaErrorInvalidValue for any other pair (the dims must match
 // KERNEL_DIMS in ops/kernels/_build.py).
-#define MM_DISPATCH(target, dim, LAUNCH)                        \
+#define MM_AFFINE(affine, T, D, LAUNCH)  \
+  if (affine) {                          \
+    using Whitened_ = mm::Whitened<T, D>; \
+    LAUNCH(Whitened_, D);                \
+  } else {                               \
+    LAUNCH(T, D);                        \
+  }
+
+#define MM_DISPATCH(target, dim, affine, LAUNCH)                \
   do {                                                          \
     if ((target) == mm::kRosenbrockND) {                        \
       switch (dim) {                                            \
-        case 2: LAUNCH(mm::RosenbrockND, 2); break;             \
-        case 3: LAUNCH(mm::RosenbrockND, 3); break;             \
-        case 4: LAUNCH(mm::RosenbrockND, 4); break;             \
+        case 2: MM_AFFINE(affine, mm::RosenbrockND, 2, LAUNCH); break; \
+        case 3: MM_AFFINE(affine, mm::RosenbrockND, 3, LAUNCH); break; \
+        case 4: MM_AFFINE(affine, mm::RosenbrockND, 4, LAUNCH); break; \
         default: return (int)cudaErrorInvalidValue;             \
       }                                                         \
     } else if ((target) == mm::kGaussian2D && (dim) == 2) {     \
-      LAUNCH(mm::Gaussian2D, 2);                                \
+      MM_AFFINE(affine, mm::Gaussian2D, 2, LAUNCH);             \
     } else {                                                    \
       return (int)cudaErrorInvalidValue;                        \
     }                                                           \

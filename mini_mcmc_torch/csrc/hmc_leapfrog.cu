@@ -56,7 +56,8 @@ extern "C" int mm_leapfrog_f32(const void* pos, const void* mom,
                                const void* grad, const void* eps,
                                const void* params, int n_leapfrog,
                                int n_chains, int dim,
-                               int target, void* pos_out, void* mom_out,
+                               int target, int affine, void* pos_out,
+                               void* mom_out,
                                void* logp_out, void* grad_out,
                                void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
@@ -66,7 +67,7 @@ extern "C" int mm_leapfrog_f32(const void* pos, const void* mom,
       (const float*)pos, (const float*)mom, (const float*)grad,            \
       (const float*)eps, (const float*)params, n_leapfrog, n_chains,      \
       (float*)pos_out, (float*)mom_out, (float*)logp_out, (float*)grad_out)
-  MM_DISPATCH(target, dim, MM_LAUNCH);
+  MM_DISPATCH(target, dim, affine, MM_LAUNCH);
 #undef MM_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -118,8 +118,8 @@ __global__ void philox_fill_kernel(uint32_t* __restrict__ out, int n,
 extern "C" int mm_hmc_multistep_f32(
     const void* pos, const void* logp, const void* grad, const void* eps,
     const void* params, int k_steps, int n_leapfrog, int n_chains, int dim,
-    int target,
-    uint32_t seed_lo, uint32_t seed_hi, uint32_t step0, void* pos_out,
+    int target, int affine, uint32_t seed_lo, uint32_t seed_hi,
+    uint32_t step0, void* pos_out,
     void* logp_out, void* grad_out, void* hist, long long hist_sk,
     long long hist_sc, void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
@@ -131,7 +131,7 @@ extern "C" int mm_hmc_multistep_f32(
       n_chains, seed_lo, seed_hi, step0, (float*)pos_out,                 \
       (float*)logp_out, (float*)grad_out,                                  \
       (float*)hist, hist_sk, hist_sc)
-  MM_DISPATCH(target, dim, MM_LAUNCH);
+  MM_DISPATCH(target, dim, affine, MM_LAUNCH);
 #undef MM_LAUNCH
   return (int)cudaGetLastError();
 }

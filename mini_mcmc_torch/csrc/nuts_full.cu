@@ -308,14 +308,12 @@ struct StepArgs {
 template <class T, int D>
 int launch(const StepArgs& a) {
   auto kernel = nuts_step_kernel<T, D>;
-  static bool sized = false;  // once per instance: the largest stack
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)stack_bytes<D>(mm::kMaxDepth));
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  // the deepest stack's limit, on every launch: it belongs to the current
+  // device's context
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)stack_bytes<D>(mm::kMaxDepth));
+  if (set != cudaSuccess) return (int)set;
   const size_t smem = stack_bytes<D>(a.depth_limit > 0 ? a.depth_limit : 1);
   int per_sm = 0, sms = 0;
   cudaError_t e =
@@ -357,7 +355,8 @@ extern "C" int mm_nuts_step_f32(const void* pos, const void* eps,
                                 const void* params, int depth_limit,
                                 int max_depth, uint32_t k0, uint32_t k1,
                                 uint32_t step, uint32_t chain0, int n_chains,
-                                int dim, int target, void* counter,
+                                int dim, int target, int affine,
+                                void* counter,
                                 int blocks, void* stats, void* pos_out,
                                 void* alpha, void* n_alpha, void* diverged,
                                 void* depth, int device, int* grid,
@@ -371,7 +370,7 @@ extern "C" int mm_nuts_step_f32(const void* pos, const void* eps,
                    counter, stats,    pos_out,  alpha,       n_alpha,
                    diverged, depth,   device,   grid,        stream};
 #define MM_LAUNCH(T, D) return launch<T, D>(a)
-  MM_DISPATCH(target, dim, MM_LAUNCH);
+  MM_DISPATCH(target, dim, affine, MM_LAUNCH);
 #undef MM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

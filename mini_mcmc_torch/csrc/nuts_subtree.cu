@@ -236,7 +236,8 @@ extern "C" int mm_nuts_subtree_f32(
     const void* pos, const void* mom, const void* grad, const void* logu,
     const void* v, const void* eps, const void* joint0, const void* active,
     const void* params, int j, int max_depth, int32_t seed0, int32_t seed1,
-    int n_chains, int dim, int target, void* end_pos, void* end_mom,
+    int n_chains, int dim, int target, int affine, void* end_pos,
+    void* end_mom,
     void* end_grad, void* prop_pos, void* prop_grad, void* prop_logp,
     void* n, void* s, void* alpha, void* n_alpha, void* diverged, int device,
     int* grid, void* stream) {
@@ -250,7 +251,7 @@ extern "C" int mm_nuts_subtree_f32(
                       n,        s,        alpha,     n_alpha,   diverged,
                       device,   grid,     stream};
 #define MM_LAUNCH(T, D) return launch<T, D>(a)
-  MM_DISPATCH(target, dim, MM_LAUNCH);
+  MM_DISPATCH(target, dim, affine, MM_LAUNCH);
 #undef MM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

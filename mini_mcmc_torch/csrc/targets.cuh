@@ -152,4 +152,64 @@ struct GaussianMixture1D {
   }
 };
 
+// The whitened target of models/precondition.py:precondition_target,
+// logp_y(y) = logp_x(L y), around any functor T above: the kernels' CUDA
+// counterpart of the JAX package's _wrap_dc_forms
+// (mini_mcmc_tpu/models/precondition.py:148-209), in its order of terms:
+// x_i = L_i0 y_0 + ... + L_ii y_i, and g_y_i = L_ii g_i + sum_{j>i} L_ji g_j
+// (g_y = L^T g_x). A diagonal metric is L = diag(scale), whose zero
+// off-diagonal terms leave x_i = s_i y_i. params: L's lower triangle row by
+// row (kTri floats, held in registers), then T's own.
+template <class T, int D>
+struct Whitened {
+  static constexpr int kTri = D * (D + 1) / 2;
+  float ell[kTri];
+  T inner;
+
+  __device__ __forceinline__ explicit Whitened(const float* p)
+      : inner(p + kTri) {
+#pragma unroll
+    for (int k = 0; k < kTri; ++k) ell[k] = __ldg(p + k);
+  }
+
+  __device__ __forceinline__ void to_x(const float (&y)[D],
+                                       float (&x)[D]) const {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float acc = ell[i * (i + 1) / 2] * y[0];
+#pragma unroll
+      for (int j = 1; j <= i; ++j) {
+        acc = acc + ell[i * (i + 1) / 2 + j] * y[j];
+      }
+      x[i] = acc;
+    }
+  }
+
+  template <int E>
+  __device__ __forceinline__ void grad(const float (&y)[E],
+                                       float (&g)[E]) const {
+    static_assert(E == D, "a Whitened functor is built for one D");
+    float x[D], gx[D];
+    to_x(y, x);
+    inner.template grad<D>(x, gx);
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float acc = ell[i * (i + 1) / 2 + i] * gx[i];
+#pragma unroll
+      for (int j = i + 1; j < D; ++j) {
+        acc = acc + ell[j * (j + 1) / 2 + i] * gx[j];
+      }
+      g[i] = acc;
+    }
+  }
+
+  template <int E>
+  __device__ __forceinline__ float logp(const float (&y)[E]) const {
+    static_assert(E == D, "a Whitened functor is built for one D");
+    float x[D];
+    to_x(y, x);
+    return inner.template logp<D>(x);
+  }
+};
+
 }  // namespace mm

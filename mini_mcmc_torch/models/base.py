@@ -43,6 +43,11 @@ class Target:
             to the kernels as a ``const float*`` (e.g. the Gaussian's mean,
             inverse covariance and normalizing constant); empty when the
             functor has none.
+        cuda_affine: the kernels run ``cuda_functor`` inside the affine
+            wrapper of a whitened target (``csrc/targets.cuh:Whitened``,
+            set by ``models.precondition.precondition_target``): then
+            ``cuda_params`` starts with the lower triangle of ``L``, row by
+            row, ``D (D + 1) / 2`` floats, before the functor's own.
         sep_form: optional coordinate-sliced form for the separable HMC
             tier (``use_pallas="separable"``): ``(tile_logp, tables)``,
             each table a ``[D]`` or ``[1, D]`` tensor of per-coordinate
@@ -60,6 +65,7 @@ class Target:
     grad: Optional[Callable] = None
     cuda_functor: Optional[str] = None
     cuda_params: tuple = ()
+    cuda_affine: bool = False
     logp_normalized: Optional[Callable] = None
     sep_form: Optional[tuple] = None
 

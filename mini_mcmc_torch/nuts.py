@@ -7,8 +7,10 @@ step size during burn-in by dual averaging and returns the
 convention (row 0 is the position at collection start;
 ``n_collect + n_discard - 1`` steps in all, ``nuts.rs:457-470``).
 
-Not ported yet (ROADMAP.md, Queue 1): ``metric=``, ``transform=``,
-``run_progress``, ``warmed_up`` and ``reconditioned``.
+``metric=`` whitens the target (``models/precondition.py``) on every
+tier, the kernels through their affine wrapper; ``reconditioned`` and
+``warmed_up`` estimate the metric from the chain ensemble. Not ported yet
+(ROADMAP.md, Queue 1): ``transform=`` and ``run_progress``.
 """
 
 from __future__ import annotations
@@ -17,11 +19,17 @@ from typing import Optional
 
 import torch
 
+from .models.precondition import estimate_preconditioner
 from .ops.kernels._build import functor_id
 from .ops.kernels.nuts_subtree import MAX_DEPTH
 from .ops.nuts import nuts_kernel
 from .runner import make_initial_recording_runner
-from .samplers import _KernelSampler, initial_positions_on
+from .samplers import (
+    _KernelSampler,
+    _unconstrained_positions,
+    _wrap_sampler_target,
+    initial_positions_on,
+)
 
 
 class NUTS(_KernelSampler):
@@ -43,6 +51,12 @@ class NUTS(_KernelSampler):
             (``Target.cuda_functor``) and raise ``ValueError`` otherwise.
             On CPU tensors they run the kernels' plain twins.
         warmup_max_depth: optional tree-depth cap during adaptation.
+        metric: optional :class:`~mini_mcmc_torch.models.Preconditioner`:
+            the chains run in whitened coordinates ``y = L^-1 x`` (NUTS
+            with mass matrix ``(L L^T)^-1``); ``initial_positions``, the
+            samples and ``positions`` stay in x, ``state``, ``step_size``
+            and ``kernel_target`` are the whitened ones.
+        transform: not ported yet; raises.
         device: where the chains run, ``"cuda"`` by default (raises
             without a GPU); ``"cpu"`` runs the plain twins.
     """
@@ -52,12 +66,6 @@ class NUTS(_KernelSampler):
                  seed: Optional[int] = None, use_pallas=False,
                  warmup_max_depth: Optional[int] = None, metric=None,
                  transform=None, *, device="cuda"):
-        if metric is not None:
-            raise ValueError("NUTS(metric=...) is not ported yet "
-                             "(ROADMAP.md, Queue 1)")
-        if transform is not None:
-            raise ValueError("NUTS(transform=...) is not ported yet "
-                             "(ROADMAP.md, Queue 1)")
         if warmup_max_depth is not None and not (
                 1 <= warmup_max_depth <= max_depth):
             raise ValueError(
@@ -67,9 +75,15 @@ class NUTS(_KernelSampler):
         self.target_accept_p = target_accept_p
         self.max_depth = max_depth
         self.warmup_max_depth = warmup_max_depth
+        self._ctor = dict(target_accept_p=target_accept_p,
+                          max_depth=max_depth, use_pallas=use_pallas,
+                          warmup_max_depth=warmup_max_depth, device=device)
         positions = initial_positions_on(initial_positions, device)
+        kernel_target, positions_map, positions, self.metric = (
+            _wrap_sampler_target(target, positions, transform, metric))
+        self.kernel_target = kernel_target
         if use_pallas and positions.is_cuda:
-            functor_id(target)  # a target the kernels cannot run: raise now
+            functor_id(kernel_target)  # no CUDA density: raise now
             if max_depth > MAX_DEPTH:
                 raise ValueError(f"the NUTS kernels are built for max_depth "
                                  f"<= {MAX_DEPTH}; got {max_depth}")
@@ -77,12 +91,39 @@ class NUTS(_KernelSampler):
                 raise ValueError("NUTS(use_pallas='full') is float32-only; "
                                  f"got {positions.dtype}")
         init_fn, self._prepare_fn, step_fn = nuts_kernel(
-            target, target_accept_p, max_depth, use_pallas=use_pallas,
+            kernel_target, target_accept_p, max_depth, use_pallas=use_pallas,
             warmup_max_depth=warmup_max_depth)
         super().__init__(init_fn, step_fn, positions, seed,
-                         runner=make_initial_recording_runner(step_fn))
+                         runner=make_initial_recording_runner(
+                             step_fn, self._positions_of),
+                         positions_map=positions_map)
         self._div_before_run = None
         self._lf_before_run = None
+
+    def reconditioned(self, kind: str = "diag", *, seed=None) -> "NUTS":
+        """A new NUTS continuing from the current positions, whitened by a
+        metric estimated from the chain ensemble
+        (``mini_mcmc_tpu/nuts.py:152-170``). Run an adaptation first, so
+        that the ensemble is in the typical set. The new sampler starts at
+        ``epsilon = -1``: its first ``run`` finds a step size and dual
+        averages again in the whitened space. Without ``seed`` its
+        generator is seeded from this sampler's."""
+        pre = estimate_preconditioner(_unconstrained_positions(self), kind)
+        new = NUTS(self.target, self.positions, metric=pre, seed=seed,
+                   **self._ctor)
+        if seed is None:
+            new._gen = self._child_generator()
+        return new
+
+    def warmed_up(self, n_adapt: int = 300, kind: str = "diag", *,
+                  seed=None) -> "NUTS":
+        """The warm-up in one call (``mini_mcmc_tpu/nuts.py:134-150``):
+        ``n_adapt`` adaptation steps that advance THIS sampler's chains in
+        place, then :meth:`reconditioned`. The returned sampler adapts its
+        step size again during its next ``run``'s discard phase, so follow
+        with e.g. ``run(n_collect, n_discard=100)``."""
+        self.run(0, n_adapt)
+        return self.reconditioned(kind, seed=seed)
 
     @property
     def step_size(self) -> torch.Tensor:

@@ -93,6 +93,17 @@ def functor_id(target) -> int:
     return form_id(target.cuda_functor, FUNCTORS, "Target")
 
 
+def unwhitened(target, what: str) -> None:
+    """Raise for a whitened target (``Target.cuda_affine``): only Kernels
+    1-4 run the affine wrapper, and ``what`` would read ``L`` as the
+    functor's own coefficients."""
+    if target.cuda_affine:
+        raise ValueError(
+            f"{what} with a whitened target (metric=) is not ported yet on "
+            "CUDA: only Kernels 1-4 run the affine wrapper (ROADMAP.md, "
+            "Queue 1 item 4)")
+
+
 def proposal_id(proposal) -> int:
     """The MH kernel's id of ``proposal``'s built-in CUDA form; raises for
     a proposal that has none."""
@@ -196,13 +207,13 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     handle = ctypes.CDLL(str(build()))
     sigs = {
-        "mm_leapfrog_f32": [_P] * 5 + [_I] * 4 + [_P] * 5,
-        "mm_hmc_multistep_f32": [_P] * 5 + [_I] * 5 + [_U] * 3
+        "mm_leapfrog_f32": [_P] * 5 + [_I] * 5 + [_P] * 5,
+        "mm_hmc_multistep_f32": [_P] * 5 + [_I] * 6 + [_U] * 3
         + [_P] * 4 + [_LL, _LL, _P],
         "mm_philox_fill": [_P, _I, _U, _U, _U, _U, _P],
-        "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32, _I, _I, _I]
+        "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32] + [_I] * 4
         + [_P] * 11 + [_I, _P, _P],
-        "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I, _I, _I]
+        "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I] * 4
         + [_P, _I] + [_P] * 6 + [_I, _P, _P],
         "mm_mh_multistep": [_P] * 4 + [_I] * 6 + [_U] * 4 + [_P] * 3
         + [_LL, _LL, _P],

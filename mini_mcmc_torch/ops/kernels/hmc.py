@@ -77,7 +77,7 @@ def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
     _build.check(lib.mm_leapfrog_f32(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), eps.data_ptr(),
         _build.params_ptr(target, pos.device), n_leapfrog, c, d, tid,
-        pos_o.data_ptr(), mom_o.data_ptr(), logp_o.data_ptr(),
+        int(target.cuda_affine), pos_o.data_ptr(), mom_o.data_ptr(), logp_o.data_ptr(),
         grad_o.data_ptr(), _build.stream_ptr(pos.device),
     ))
     return pos_o, mom_o, logp_o, grad_o

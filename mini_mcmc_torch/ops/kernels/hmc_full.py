@@ -81,7 +81,8 @@ def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
     _build.check(lib.mm_hmc_multistep_f32(
         pos.data_ptr(), logp.data_ptr(), grad.data_ptr(), eps.data_ptr(),
         _build.params_ptr(target, pos.device), k, n_leapfrog, c, d, tid,
-        seed_lo, seed_hi, step0 & 0xFFFFFFFF, pos_o.data_ptr(), logp_o.data_ptr(), grad_o.data_ptr(), hist_ptr,
+        int(target.cuda_affine), seed_lo, seed_hi, step0 & 0xFFFFFFFF,
+        pos_o.data_ptr(), logp_o.data_ptr(), grad_o.data_ptr(), hist_ptr,
         hist_sk, hist_sc, _build.stream_ptr(pos.device),
     ))
     return pos_o, logp_o, grad_o

@@ -43,7 +43,9 @@ def sep_tiles(dim: int, threads: int = SEP_THREADS) -> int:
 
 def sep_functor(target) -> tuple[int, int]:
     """``(functor id, number of tables)`` of ``target``'s coordinate
-    functor; raises ``ValueError`` for a target without one."""
+    functor; raises ``ValueError`` for a target without one or a whitened
+    target."""
+    _build.unwhitened(target, "HMC(use_pallas='separable')")
     return _build.form_id(target.cuda_functor, _build.SEP_FUNCTORS,
                           "Target")
 

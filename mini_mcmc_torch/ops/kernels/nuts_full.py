@@ -261,7 +261,8 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
     _build.check(lib.mm_nuts_step_f32(
         pos.data_ptr(), eps.data_ptr(), _build.params_ptr(target, pos.device),
         depth_limit, max_depth, k0, k1, step & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-        c, d, tid, _counter(pos.device, stream).data_ptr(), blocks,
+        c, d, tid, int(target.cuda_affine),
+        _counter(pos.device, stream).data_ptr(), blocks,
         None if stats is None else stats.data_ptr(), new_pos.data_ptr(),
         alpha.data_ptr(), n_alpha.data_ptr(), diverged.data_ptr(),
         depth.data_ptr(), pos.device.index, ctypes.addressof(launched),

@@ -246,7 +246,7 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), logu.data_ptr(),
         v.data_ptr(), eps.data_ptr(), joint0.data_ptr(), active.data_ptr(),
         _build.params_ptr(target, pos.device), j, max_depth, seed0, seed1, c,
-        d, tid, end_pos.data_ptr(), end_mom.data_ptr(), end_grad.data_ptr(),
+        d, tid, int(target.cuda_affine), end_pos.data_ptr(), end_mom.data_ptr(), end_grad.data_ptr(),
         prop_pos.data_ptr(), prop_grad.data_ptr(), prop_logp.data_ptr(),
         n.data_ptr(), s.data_ptr(), alpha.data_ptr(), n_alpha.data_ptr(),
         diverged.data_ptr(), pos.device.index,

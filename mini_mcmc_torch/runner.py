@@ -12,6 +12,12 @@ Memory: one ``[n_collect, C, D]`` cube (``time_major=True``) or
 ``[C, n_collect, D]`` cube is allocated up front, and each step's or
 block's rows are written straight into their slice of it: no stacking, no
 concatenation and no final transpose, so the peak is one cube.
+
+A sampler with a metric keeps its state in whitened coordinates and records
+the user's: ``positions_of(state)`` maps a step's positions, and the block
+runner's ``positions_map`` maps a block's ``[K, C, D]`` rows in place in the
+cube after the block (``mini_mcmc_tpu/runner.py:31-65``, and the
+``block_fn`` wrap of ``mini_mcmc_tpu/samplers.py:160-171``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,10 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+
+def _default_positions_of(state):
+    return state.positions
 
 
 class StepKey(NamedTuple):
@@ -40,8 +50,9 @@ def _rows(cube: torch.Tensor, lo: int, hi: int, time_major: bool):
     return cube[lo:hi] if time_major else cube[:, lo:hi].transpose(0, 1)
 
 
-def make_simple_runner(step_fn: Callable):
-    """A runner over one-step kernels.
+def make_simple_runner(step_fn: Callable,
+                       positions_of: Callable = _default_positions_of):
+    """A runner over one-step kernels, recording ``positions_of(state)``.
 
     ``run(state, key, n_collect, n_discard, *, time_major=False)`` takes
     ``n_collect + n_discard`` steps from global step ``key.step`` and
@@ -56,7 +67,8 @@ def make_simple_runner(step_fn: Callable):
             state = step_fn(state, key._replace(step=key.step + i))
             if i >= n_discard:
                 j = i - n_discard
-                _rows(cube, j, j + 1, time_major)[0].copy_(state.positions)
+                _rows(cube, j, j + 1, time_major)[0].copy_(
+                    positions_of(state))
         return state, cube
 
     return run
@@ -78,7 +90,8 @@ def make_scan_block_fn(step_fn: Callable, k: int) -> Callable:
 
 
 def make_block_runner(block_fn: Callable, block_size: int,
-                      recorded: Callable = lambda state: state.positions):
+                      recorded: Callable = _default_positions_of,
+                      positions_map: Callable | None = None):
     """A runner over K-step block kernels (same convention as
     :func:`make_simple_runner`).
 
@@ -87,7 +100,9 @@ def make_block_runner(block_fn: Callable, block_size: int,
     ``[K, C, D]`` view ``out`` (the fused kernel writes the cube in place;
     recording is not thinned). ``recorded(state)`` is the ``[C, D]``
     tensor whose shape, dtype and device the cube takes: the positions, or
-    for tempering the cold rung. ``n_collect`` and ``n_discard`` must be
+    for tempering the cold rung. ``positions_map``, a ``[..., D]`` map,
+    takes each block's rows to the user's coordinates in place (the block
+    writes the state's own). ``n_collect`` and ``n_discard`` must be
     multiples of K.
     """
     k = block_size
@@ -103,16 +118,18 @@ def make_block_runner(block_fn: Callable, block_size: int,
         for lo in range(0, n_discard, k):
             state = block_fn(state, key._replace(step=key.step + lo))
         for lo in range(0, n_collect, k):
+            rows = _rows(cube, lo, lo + k, time_major)
             state = block_fn(
-                state, key._replace(step=key.step + n_discard + lo),
-                _rows(cube, lo, lo + k, time_major),
-            )
+                state, key._replace(step=key.step + n_discard + lo), rows)
+            if positions_map is not None:
+                rows.copy_(positions_map(rows))
         return state, cube
 
     return run
 
 
-def make_initial_recording_runner(step_fn: Callable):
+def make_initial_recording_runner(
+        step_fn: Callable, positions_of: Callable = _default_positions_of):
     """A runner with the NUTS collection convention (reference
     ``nuts.rs:457-470``, ``mini_mcmc_tpu/runner.py:203``).
 
@@ -120,15 +137,15 @@ def make_initial_recording_runner(step_fn: Callable):
     ``n_collect + n_discard - 1`` steps from global step ``key.step``. Row 0
     is the position at the start of collection: the current position when
     ``n_discard == 0``, else the state after step ``n_discard`` (the first
-    ``n_discard - 1`` steps are not recorded). Rows go straight into one
-    preallocated cube, as in :func:`make_simple_runner`.
+    ``n_discard - 1`` steps are not recorded). Rows, ``positions_of(state)``,
+    go straight into one preallocated cube, as in :func:`make_simple_runner`.
     """
 
     def run(state, key: StepKey, n_collect: int, n_discard: int, *,
             time_major: bool = False):
         cube = _alloc_cube(state.positions, n_collect, time_major)
         if n_discard == 0 and n_collect > 0:
-            _rows(cube, 0, 1, time_major)[0].copy_(state.positions)
+            _rows(cube, 0, 1, time_major)[0].copy_(positions_of(state))
             skip, first_row = 0, 1
         else:
             skip, first_row = max(n_discard - 1, 0), 0
@@ -137,7 +154,8 @@ def make_initial_recording_runner(step_fn: Callable):
             state = step_fn(state, key._replace(step=key.step + i))
             if i >= skip:
                 r = first_row + i - skip
-                _rows(cube, r, r + 1, time_major)[0].copy_(state.positions)
+                _rows(cube, r, r + 1, time_major)[0].copy_(
+                    positions_of(state))
         return state, cube
 
     return run

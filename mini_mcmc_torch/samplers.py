@@ -21,6 +21,11 @@ from typing import Optional
 import torch
 
 from .models.base import validate_separable
+from .models.precondition import (
+    Preconditioner,
+    estimate_preconditioner,
+    precondition_target,
+)
 from .ops.gibbs import gibbs_kernel
 from .ops.hmc import hmc_kernel
 from .ops.kernels._build import functor_id
@@ -48,6 +53,39 @@ def _generator(seed: Optional[int]) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def _wrap_sampler_target(target, positions, transform, metric):
+    """The gradient samplers' coordinate wrap
+    (``mini_mcmc_tpu/samplers.py:85-112``, its metric branch): returns
+    ``(kernel_target, positions_map, kernel_positions, metric)``, the
+    whitened target, the map from its coordinates back to the user's
+    (``None`` without a metric), the initial positions whitened, and the
+    metric on the positions' device. ``transform`` is not ported yet."""
+    if transform is not None:
+        raise ValueError("transform= is not ported yet (ROADMAP.md, "
+                         "Queue 1 item 8)")
+    if metric is None:
+        return target, None, positions, None
+    if not isinstance(metric, Preconditioner):
+        raise ValueError("metric must be a Preconditioner (models."
+                         f"precondition); got {type(metric).__name__}")
+    if metric.dim != positions.shape[-1]:
+        raise ValueError(f"a D={metric.dim} metric for positions of D="
+                         f"{positions.shape[-1]}")
+    metric = metric.to(positions.device)
+    return (precondition_target(target, metric), metric.to_x,
+            metric.to_y(positions), metric)
+
+
+def _unconstrained_positions(sampler) -> torch.Tensor:
+    """The ensemble in unwhitened coordinates, what
+    ``estimate_preconditioner`` must see (``mini_mcmc_tpu/samplers.py:
+    115-123``)."""
+    pos = sampler.state.positions
+    if sampler.metric is not None:
+        pos = sampler.metric.to_x(pos)
+    return pos
+
+
 def _float32_only(sampler: str, use_pallas, positions) -> None:
     """The CUDA kernels of the fused tiers take float32 states."""
     if positions.dtype != torch.float32:
@@ -59,7 +97,7 @@ class _KernelSampler:
     """Shared run plumbing for kernel-based samplers."""
 
     def __init__(self, init_fn, step_fn, initial_positions, seed=None,
-                 runner=None):
+                 runner=None, positions_map=None):
         if initial_positions.dim() != 2:
             raise ValueError(
                 "initial_positions must be [n_chains, dim]; got shape "
@@ -67,19 +105,34 @@ class _KernelSampler:
             )
         self.state = init_fn(initial_positions)
         self._gen = _generator(seed)
+        # positions_map: the state's (whitened) coordinates -> the user's,
+        # applied to every recorded row and to `positions`
+        self._positions_map = positions_map
         block_fn = getattr(step_fn, "block_fn", None)
         if runner is not None:
             self._runner = runner
         elif block_fn is not None:
             # K fused sampler steps per call; run() lengths are multiples of K
-            self._runner = make_block_runner(block_fn, step_fn.block_size)
+            self._runner = make_block_runner(block_fn, step_fn.block_size,
+                                             positions_map=positions_map)
         else:
-            self._runner = make_simple_runner(step_fn)
+            self._runner = make_simple_runner(step_fn, self._positions_of)
+
+    def _positions_of(self, state) -> torch.Tensor:
+        if self._positions_map is None:
+            return state.positions
+        return self._positions_map(state.positions)
 
     def seed(self, seed: int):
         """Reseed the sampler (chainable)."""
         self._gen = _generator(seed)
         return self
+
+    def _child_generator(self) -> torch.Generator:
+        """A generator seeded from this sampler's stream: a sampler derived
+        without a seed keeps a seeded workflow reproducible."""
+        return _generator(int(torch.randint(0, 2**62, (1,),
+                                            generator=self._gen)))
 
     def _next_key(self) -> StepKey:
         w = torch.randint(0, 2**32, (3,), generator=self._gen,
@@ -90,7 +143,9 @@ class _KernelSampler:
 
     @property
     def positions(self) -> torch.Tensor:
-        return self.state.positions
+        """``[n_chains, dim]`` in the user's coordinates (the state's own
+        are whitened under a metric)."""
+        return self._positions_of(self.state)
 
     @property
     def n_chains(self) -> int:
@@ -185,29 +240,73 @@ class HMC(_KernelSampler):
     The JAX-only knobs have no counterpart here: ``unroll`` (no scan to
     unroll), ``pallas_interpret`` (CPU tensors run the kernels' plain
     twins) and ``validate_dc`` (no chains-on-lanes forms).
-    ``convert.sampler_kwargs`` drops them. ``metric`` and ``transform`` are
-    not ported yet.
+    ``convert.sampler_kwargs`` drops them.
+
+    ``metric``: optional :class:`~mini_mcmc_torch.models.Preconditioner`;
+    the sampler runs in whitened coordinates ``y = L^-1 x`` (HMC with mass
+    matrix ``(L L^T)^-1``) on the plain, ``True`` and ``"full"`` tiers, the
+    kernels through their affine wrapper (``models/precondition.py``).
+    ``initial_positions``, recorded samples and ``positions`` stay in x;
+    ``state`` and ``step_size`` are the whitened ones, ``kernel_target``
+    the whitened target. Under ``"separable"`` a diagonal metric runs the
+    plain twin on the CPU; on CUDA it raises (not ported yet).
+    ``transform`` is not ported yet and raises. Not ported either:
+    ``tuned`` and ``warmed_up`` (ROADMAP.md, Queue 1 item 4).
     """
 
     def __init__(self, target, initial_positions, step_size: float,
                  n_leapfrog: int, seed: Optional[int] = None,
                  use_pallas=False, jitter: float = 0.0,
-                 steps_per_call: int = 1, *, device="cuda"):
+                 steps_per_call: int = 1, metric=None, transform=None, *,
+                 device="cuda"):
         self.target = target
         self.step_size = step_size
         self.n_leapfrog = n_leapfrog
+        self._ctor = dict(step_size=step_size, n_leapfrog=n_leapfrog,
+                          use_pallas=use_pallas, jitter=jitter,
+                          steps_per_call=steps_per_call, device=device)
         positions = initial_positions_on(initial_positions, device)
+        kernel_target, positions_map, positions, self.metric = (
+            _wrap_sampler_target(target, positions, transform, metric))
+        self.kernel_target = kernel_target
         if use_pallas == "separable":
-            validate_separable(target, positions)
+            validate_separable(kernel_target, positions)
             if positions.is_cuda:
-                sep_functor(target)  # no coordinate functor: raise now
+                sep_functor(kernel_target)  # no coordinate functor: raise
                 _float32_only("HMC", use_pallas, positions)
         elif use_pallas and positions.is_cuda:
-            functor_id(target)  # a target the kernels cannot run: raise now
-        init_fn, step_fn = hmc_kernel(target, step_size, n_leapfrog,
+            functor_id(kernel_target)  # no CUDA density: raise now
+        init_fn, step_fn = hmc_kernel(kernel_target, step_size, n_leapfrog,
                                       use_pallas=use_pallas, jitter=jitter,
                                       steps_per_call=steps_per_call)
-        super().__init__(init_fn, step_fn, positions, seed)
+        super().__init__(init_fn, step_fn, positions, seed,
+                         positions_map=positions_map)
+
+    def reconditioned(self, kind: str = "diag", *, seed=None,
+                      step_size=None, n_leapfrog=None) -> "HMC":
+        """A new HMC continuing from the current positions, whitened by a
+        metric estimated from the chain ensemble
+        (``mini_mcmc_tpu/samplers.py:489-527``). Run a warm-up first, so
+        that the ensemble is in the typical set. ``kind``: ``"diag"`` or
+        ``"dense"``.
+
+        The step size moves to whitened units, ``eps_y = eps_x /
+        sigma_min(metric)``, after undoing this sampler's own metric
+        (``eps_x = eps_y * sigma_min``); ``step_size``/``n_leapfrog``
+        override. Without ``seed`` the new sampler's generator is seeded
+        from this sampler's, so a seeded workflow stays reproducible."""
+        pre = estimate_preconditioner(_unconstrained_positions(self), kind)
+        ctor = dict(self._ctor)
+        eps_x = ctor["step_size"] * (
+            self.metric.sigma_min() if self.metric is not None else 1.0)
+        ctor["step_size"] = (
+            step_size if step_size is not None else eps_x / pre.sigma_min())
+        if n_leapfrog is not None:
+            ctor["n_leapfrog"] = n_leapfrog
+        new = HMC(self.target, self.positions, metric=pre, seed=seed, **ctor)
+        if seed is None:
+            new._gen = self._child_generator()
+        return new
 
 
 class GibbsSampler(_KernelSampler):
@@ -325,6 +424,5 @@ class ParallelTempering(_KernelSampler):
         new = ParallelTempering(self.target, self.positions, betas=tuned,
                                 seed=seed, **self._ctor)
         if seed is None:
-            new._gen = _generator(int(torch.randint(
-                0, 2**62, (1,), generator=self._gen)))
+            new._gen = self._child_generator()
         return new

@@ -19,7 +19,10 @@ sums at rtol 1e-5, and its draws must not move with the launch grid; the
 tempering kernel (Kernel 8) must equal its twin (positions, logp, swap
 EWMA, history) on at least 99.9% of chains. Kernels 4, 5 and 6 must give
 bit-identical results under any launch grid, block of steps or chain
-split, and Kernel 4 on two streams at once.
+split, and Kernel 4 on two streams at once. The whitened instances of
+Kernels 1-4 (a metric, ``csrc/targets.cuh:Whitened``) are held to their
+twins on the whitened target as the plain instances are, and with
+``L = I`` equal the plain instances bit for bit.
 """
 
 import math
@@ -39,6 +42,7 @@ from mini_mcmc_torch import (
     standard_normal,
 )
 from mini_mcmc_torch.models import (
+    Preconditioner,
     Proposal,
     Target,
     constant_conditional,
@@ -48,6 +52,7 @@ from mini_mcmc_torch.models import (
     isotropic_gaussian_proposal,
     isotropic_gaussian_target,
     poisson_target,
+    precondition_target,
     random_walk_int_proposal,
     rosenbrock_nd,
 )
@@ -703,3 +708,196 @@ def test_cuda_pt_sampler_errors_and_runs(cuda):
     plain = ParallelTempering(Target(logp=_mixture().logp), x,
                               betas=(1.0, 0.1)).seed(1).run(4)
     assert plain.is_cuda
+
+
+# the (target, D) pairs of MM_DISPATCH, each whitened by a diagonal and a
+# dense metric
+WHITENED = [(name, d, kind) for name, d in (("rosenbrock", 2),
+                                            ("rosenbrock", 3),
+                                            ("rosenbrock", 4),
+                                            ("gaussian2d", 2))
+            for kind in ("diag", "dense")]
+WHITENED_IDS = [f"{n}{d}-{k}" for n, d, k in WHITENED]
+
+
+def _metric(d, kind, seed, scale=0.5):
+    g = np.random.default_rng(seed)
+    if kind == "diag":
+        return Preconditioner("diag", scale=torch.from_numpy(
+            g.uniform(0.6, 1.4, d).astype(np.float32) * scale))
+    a = g.standard_normal((d, d))
+    cov = (a @ a.T / d + np.eye(d)) * scale * scale
+    return Preconditioner("dense", chol=torch.from_numpy(
+        np.linalg.cholesky(cov).astype(np.float32)))
+
+
+def _whitened(name, d, kind, c, cuda, seed):
+    """A whitened target and y-space states near its mode: Rosenbrock
+    states as _state's, Gaussian states as _nuts_state's."""
+    if name == "rosenbrock":
+        t, scale = rosenbrock_nd(), 0.4
+        x = _state(c, d, seed)[0]
+    else:
+        t = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+        scale, x = 1.8, _nuts_state(c, seed)[0]
+    pre = _metric(d, kind, seed, scale).to(cuda)
+    return precondition_target(t, pre), pre.to_y(torch.from_numpy(x).to(
+        cuda)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, d, kind", WHITENED, ids=WHITENED_IDS)
+def test_cuda_whitened_leapfrog_and_multistep_match_plain(cuda, name, d,
+                                                          kind):
+    c = 4096
+    t, y = _whitened(name, d, kind, c, cuda, seed=50 + d)
+    assert t.cuda_affine
+    m = torch.from_numpy(_state(c, d, seed=60 + d)[1]).to(cuda)
+    lp, g = t.batch_logp_and_grad(y)
+    eps = torch.tensor([0.01], device=cuda)
+    got = leapfrog_trajectory(t, y, m, g, eps, 8)
+    want = leapfrog_trajectory_plain(t, y, m, g, eps[0], 8)
+    for a, b in zip(got, want):  # atol scaled as test_torch_models's
+        a, b = a.reshape(c, -1), b.reshape(c, -1)
+        scale = b.abs().amax(1, keepdim=True)
+        ok = (a - b).abs() <= ATOL + RTOL * (b.abs() + scale)
+        assert _share(ok.all(1)) >= 0.999
+    ks = torch.full((4,), 0.01, device=cuda)
+    hk = torch.empty((4, c, d), device=cuda)
+    hp = torch.empty_like(hk)
+    pk, lk, gk = hmc_multistep(t, y, lp, g, ks, 6, 1234, 0, hk)
+    pp, lpp, gp = hmc_multistep_plain(t, y, lp, g, ks, 6, 1234, 0, hp)
+    g_atol = ATOL + RTOL * gp.abs().amax(dim=1, keepdim=True)
+    near = (hk - hp).abs() <= ATOL + RTOL * hp.abs()
+    agree = near.all(2).all(0) & ((lk - lpp).abs() <= ATOL
+                                  + RTOL * lpp.abs())
+    agree &= ((gk - gp).abs() <= g_atol + RTOL * gp.abs()).all(1)
+    assert _share(agree) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, d, kind", WHITENED, ids=WHITENED_IDS)
+def test_cuda_whitened_nuts_kernels_match_plain(cuda, name, d, kind):
+    c, j = 8192, 4
+    t, y = _whitened(name, d, kind, c, cuda, seed=70 + d)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    m = torch.randn((c, d), generator=gen, device=cuda)
+    lp, g = t.batch_logp_and_grad(y)
+    eps = torch.full((c,), 0.02 if name == "rosenbrock" else 0.4,
+                     device=cuda)
+    joint0 = lp - 0.5 * (m * m).sum(1)
+    logu = joint0 - torch.empty(c, device=cuda).exponential_(generator=gen)
+    v = torch.where(torch.rand(c, generator=gen, device=cuda) < 0.5, -1,
+                    1).to(torch.int32)
+    active = torch.rand(c, generator=gen, device=cuda) < 0.75
+    args = (t, y, m, g, logu, v, j, eps, joint0, active, (12345, -6789), 10)
+    got, want = subtree(*args), subtree_plain(*args)
+    same = ((got.n == want.n) & (got.s == want.s)
+            & (got.n_alpha == want.n_alpha) & (got.diverged == want.diverged))
+    for part in (active, ~active):
+        assert _share(same[part]) >= 0.999
+    s = same & want.s
+    for a, b in zip(got[:6], want[:6]):
+        ok = ((a - b).abs() <= ATOL + RTOL * b.abs()).reshape(c, -1).all(1)
+        assert _share(ok | ~s) >= 0.999
+    got = nuts_step(t, y, eps, 10, 0xC0FFEE, 17, 10)
+    want = nuts_step_plain(t, y, eps, 10, 0xC0FFEE, 17, 10)
+    same_pos = (got[0] - want[0]).abs().le(ATOL + RTOL * want[0].abs())
+    assert _share(same_pos.all(1)) >= 0.999
+    for a, b in zip(got[1:4], want[1:4]):
+        assert _share((a - b).abs() <= ATOL + RTOL * b.abs()) >= 0.999
+    assert _share(got[4] == want[4]) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, d", [("rosenbrock", 3), ("gaussian2d", 2)])
+def test_cuda_identity_metric_equals_the_plain_instance(cuda, name, d):
+    # L = I: x_i = 1 y_i plus zero terms and g_y = 1 g plus zero terms, so
+    # the whitened instance repeats the unwhitened one bit for bit
+    c = 4096
+    inner = (rosenbrock_nd() if name == "rosenbrock" else
+             diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]))
+    eye = Preconditioner("dense", chol=torch.eye(d, device=cuda))
+    w = precondition_target(inner, eye)
+    assert w.cuda_params == (1.0, 0.0, 1.0, 0.0, 0.0, 1.0)[:d * (d + 1)
+                                                           // 2] + tuple(
+        inner.cuda_params)
+    y = torch.from_numpy(_state(c, d, seed=81)[0]).to(cuda)
+    m = torch.from_numpy(_state(c, d, seed=82)[1]).to(cuda)
+    lp, g = inner.batch_logp_and_grad(y)
+    eps1 = torch.tensor([0.01], device=cuda)
+    eps = torch.full((c,), 0.02, device=cuda)
+    for run in (
+            lambda tt: leapfrog_trajectory(tt, y, m, g, eps1, 8),
+            lambda tt: hmc_multistep(tt, y, lp, g, eps1.repeat(4), 6, 9, 0),
+            lambda tt: nuts_step(tt, y, eps, 10, 0xC0FFEE, 17, 10),
+            lambda tt: subtree(tt, y, m, g, lp - 2.0, torch.ones(
+                c, dtype=torch.int32, device=cuda), 3, eps, lp,
+                torch.ones(c, dtype=torch.bool, device=cuda), (1, 2), 10)):
+        for a, b in zip(run(w), run(inner)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_nuts_step_sets_its_limit_on_every_launch(cuda):
+    # Kernel 4 sets its dynamic shared-memory limit (a depth-10 stack, past
+    # 48 KB a block at D = 4) on every launch, in the current device's
+    # context. One card cannot show a second device's context: this runs a
+    # launch, makes the same device current again, and launches again.
+    c = 4096
+    t, y = _whitened("rosenbrock", 4, "dense", c, cuda, seed=90)
+    eps = torch.full((c,), 0.02, device=cuda)
+    first = nuts_step(t, y, eps, 10, 0xC0FFEE, 17, 10)
+    torch.cuda.set_device(cuda.index or 0)
+    again = nuts_step(t, y, eps, 10, 0xC0FFEE, 17, 10)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [True, "full"])
+def test_cuda_nuts_dense_metric_passes_the_gates(cuda, use_pallas):
+    # bench.py:370-379's gates at 1,024 chains, loosened for the size as
+    # test_cuda_nuts_tiers_pass_the_gates loosens bench.py:321-336's
+    mean, cov = [0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]
+    x = np.random.default_rng(8).standard_normal((1024, 2)).astype(
+        np.float32)
+    s = NUTS(diffable_gaussian2d(mean, cov), torch.from_numpy(x).to(cuda),
+             0.8, use_pallas=use_pallas).seed(8)
+    s.run(64, 64)
+    tuned = s.reconditioned("dense", seed=11)
+    assert tuned.metric.chol.is_cuda and tuned.kernel_target.cuda_affine
+    launches = (subtree if use_pallas is True else nuts_step).launches
+    tuned.run(64, 64)
+    sample = tuned.run(160, 0)
+    assert (subtree if use_pallas is True else nuts_step).launches > launches
+    assert sample.is_cuda and torch.isfinite(sample).all()
+    rhat, ess = split_rhat_mean_ess(sample)
+    assert 0.95 <= float(rhat.mean()) <= 1.05
+    assert float(ess.min()) >= 0.01 * 1024 * 160
+    m = sample.double().mean(dim=(0, 1))
+    v = sample.double().var(dim=(0, 1), unbiased=False)
+    for d in range(2):
+        assert abs(float(m[d]) - mean[d]) <= 0.15, m
+        assert abs(float(v[d]) - cov[d][d]) <= 0.5, v
+
+
+@pytest.mark.cuda
+def test_cuda_hmc_metric_tiers_and_separable_raises(cuda):
+    x = torch.from_numpy(_state(2048, 3, seed=91)[0]).to(cuda)
+    pre = _metric(3, "diag", 91, 0.4)
+    for tier, kernel in ((True, leapfrog_trajectory),
+                         ("full", hmc_multistep)):
+        n = kernel.launches
+        h = HMC(rosenbrock_nd(), x, 0.03, 16, use_pallas=tier, metric=pre,
+                steps_per_call=4).seed(3)
+        rows = h.run(16, 16)
+        assert kernel.launches > n
+        assert rows.is_cuda and torch.isfinite(rows).all()
+        # rows and positions are x-space: the whitened state maps to them
+        assert torch.equal(h.positions, pre.to(cuda).to_x(h.state.positions))
+        assert torch.equal(rows[:, -1], h.positions)
+    with pytest.raises(ValueError, match="Queue 1 item 4"):
+        HMC(standard_normal(), torch.zeros((64, 8), device=cuda), 0.1, 4,
+            use_pallas="separable", metric=Preconditioner(
+                "diag", scale=torch.ones(8)))

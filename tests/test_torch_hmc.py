@@ -186,5 +186,5 @@ def test_sampler_kwargs_rejects_what_is_not_ported():
     with pytest.raises(ValueError, match="transform"):
         sampler_kwargs(SimpleNamespace(_ctor=dict(ctor, transform=object()),
                                        metric=None))
-    with pytest.raises(ValueError, match="metric"):
+    with pytest.raises(ValueError, match="metric must be a Preconditioner"):
         sampler_kwargs(SimpleNamespace(_ctor=ctor, metric=object()))

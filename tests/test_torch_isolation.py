@@ -26,8 +26,9 @@ for info in pkgutil.walk_packages(mini_mcmc_torch.__path__,
     names.append(info.name)
 import chip_smoke  # its import block; main() runs only as a script
 
-# the MH, Gibbs, separable HMC and tempering slices among them
+# the MH, Gibbs, separable HMC, tempering and metric slices among them
 assert {"mini_mcmc_torch.ops.mh", "mini_mcmc_torch.ops.gibbs",
+        "mini_mcmc_torch.models.precondition",
         "mini_mcmc_torch.ops.kernels.mh_full",
         "mini_mcmc_torch.ops.kernels.gibbs_full",
         "mini_mcmc_torch.models.discrete",

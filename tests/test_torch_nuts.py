@@ -281,7 +281,7 @@ def test_constructor_validation_and_device_default():
         mt.NUTS(t, x, 0.8, warmup_max_depth=0, **CPU)
     with pytest.raises(ValueError, match="warmup_max_depth"):
         mt.NUTS(t, x, 0.8, max_depth=6, warmup_max_depth=7, **CPU)
-    with pytest.raises(ValueError, match="metric"):
+    with pytest.raises(ValueError, match="metric must be a Preconditioner"):
         mt.NUTS(t, x, 0.8, metric=object(), **CPU)
     with pytest.raises(ValueError, match="transform"):
         mt.NUTS(t, x, 0.8, transform=object(), **CPU)
