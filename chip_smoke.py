@@ -11,9 +11,10 @@ Phases, one line each (every check raises on failure):
 
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of ``mini_mcmc_torch/csrc`` with ``nvcc`` (seconds), and the
-   registers, stack frame and spills of every instance of Kernels 1-6 and
-   8 (``ptxas -v``, ``[ptxas_instance]``; the whitened instances of
-   Kernels 1-4 included); with ``--profile``, each Kernel 5 and 6
+   registers, stack frame and spills of every instance of Kernels 1-8
+   (``ptxas -v``, ``[ptxas_instance]``; the whitened instances of Kernels
+   1-4 and the scaled ones of Kernel 7 included); with ``--profile``, each
+   Kernel 5 and 6
    instance's K loop in its SASS (``cuobjdump -sass``): instructions per
    step, by kind;
 3. Philox: the known-answer vector, and CUDA bits equal to the plain bits
@@ -36,6 +37,13 @@ Phases, one line each (every check raises on failure):
 8. with ``--profile`` only: five more timed runs (their spread), one run
    under ``torch.profiler`` (device time by kernel, the device's idle
    share) and Kernel 1's device time per call;
+8a. the tuned-MALA stage of ``bench.py:732-779`` (``diffable_gaussian2d(
+   [0,1], [[4,2],[2,3]])``, 65,536 chains, ``MALA(step_size=1.0,
+   use_pallas="full", steps_per_call=16).seed(13).tuned(256)``, then
+   ``run(2048, 0)`` twice): the gates of ``bench.py:757-766``, Kernel 1's
+   256 launches while tuning and Kernel 2's 128 per run at L = 1; then
+   Kernel 2 at L = 1 against its plain version for one block, and both
+   times (``--profile``: the run under ``torch.profiler``);
 9. the NUTS stage of ``bench.py`` (Gaussian2D, 131,072 chains, 2,048 + 128
    draws) through ``mini_mcmc_torch.NUTS(use_pallas="full")``: adaptation
    run, timed run, the five ``bench_nuts`` gates, Kernel 4's launch count
@@ -80,6 +88,10 @@ Phases, one line each (every check raises on failure):
     block from each path's equilibrium state and one key, and their times
     (CUDA events); with ``--profile``, the three alone (device time per
     launch) and each path under ``torch.profiler``;
+17a. the MH stage's configuration started at a 25-sigma walk and
+    ``tuned(256)``, ``run(2048, 0)`` twice through Kernel 5 at the tuned
+    scale: the MH gates and a move rate in [0.15, 0.32]; then Kernel 5
+    against its plain version at that scale, and both times;
 18. the large-D HMC stage of ``bench.py:553-660`` (standard normal,
     D = 10,000, 1,024 chains, eps 0.1, L = 10, ``run(128, 128)`` twice,
     a 5.24 GB cube) through ``mini_mcmc_torch.HMC(use_pallas="separable")``
@@ -93,6 +105,15 @@ Phases, one line each (every check raises on failure):
     equilibrium state (the proposal per chain against a float64 twin, the
     three sums at rtol 1e-5, the draws under two launch grids) and both
     times (CUDA events, L = 10 and 40);
+20a. the separable stage's shape on the heterogeneous normal (sigma_d =
+    logspace(-1, 1, D)): ``HMC(use_pallas="separable").seed(2)
+    .warmed_up(128, "diag")``, ``run(128, 128)`` twice through Kernel 7's
+    scaled instance (a diagonal metric), the separable gates on z = x /
+    sigma, its launches (128 unscaled while tuning, 640 scaled), and 32
+    steps at the tuned eps averaging an acceptance within 0.10 of 0.651;
+    then the scaled instance against its plain version as in 20, its time
+    and its twin's, and its device time alone beside the unscaled
+    instances' (``torch.profiler``);
 21. the tempering stage of ``bench.py:858-909`` (the 0.3/0.7 mixture of
     N(-8, 0.5^2) and N(8, 0.5^2), 8,192 chains started at -8, 8 rungs,
     K = 16, ``run(2048, 0)`` twice) through
@@ -211,6 +232,16 @@ SEP_SUM_RTOL = 1e-5
 PT_CHAINS, PT_COLLECT, PT_TEMPS, PT_K = 8192, 2048, 8, 16
 PT_W_PLUS = 0.7
 
+# the tuned MALA stage of bench.py:732-779 (bench_beyond's first)
+MALA_CHAINS, MALA_COLLECT, MALA_K, MALA_ADAPT = 65536, 2048, 16, 256
+MALA_MEAN, MALA_VAR = (0.0, 1.0), (4.0, 3.0)
+# the MH stage's configuration (bench.py:391-431) from a 25-sigma walk,
+# its scale tuned; the move-rate band of tests/test_mh.py:160-167
+MH_TUNED_STD, MH_TUNED_ADAPT = 25.0, 256
+# the separable stage's shape (bench.py:553-560) on a normal with
+# sigma_d = logspace(-1, 1, D), warmed_up(128, "diag")
+SEP_WARM_ADAPT = 128
+
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over 3.35 TB/s and its operations over the issue
 # rate. Operations are lane instructions counted from the CUDA sources
@@ -251,6 +282,14 @@ OPS = {
     "pt_swap": 25,  # logf, the product, compare, four selects, the EWMA
     "affine_d2": 6,  # a whitened density at D = 2: x = L y (3 FMAs) and
                      # g_y = L^T g_x (3), D (D + 1) / 2 each
+    "gauss2d_leapfrog": 12,  # the two kicks and the drift (6 FMAs), the
+                             # gradient (2 subtractions, 4 FMAs)
+    "sep_leapfrog_scaled": 3,  # per coordinate: the drift and the kick
+                               # FMAs and the gradient's product by the
+                               # coordinate's -(s / sigma)^2
+    "sep_scaled_coef": 6,  # per coordinate once: (s / sigma)^2, a
+                           # division (a reciprocal and its Newton step)
+                           # and two products
 }
 
 
@@ -363,10 +402,13 @@ def reset_counts() -> None:
         fn.launches = 0
     for fn in TWINS.values():
         fn.calls = 0
+    hmc_separable.scaled_launches = 0
 
 
 def read_counts() -> dict:
     counts = {name: fn.launches for name, fn in KERNELS.items()}
+    # Kernel 7's scaled (diagonal-metric) instances, also in its launches
+    counts["hmc_separable_scaled"] = hmc_separable.scaled_launches
     counts.update({name: fn.calls for name, fn in TWINS.items()})
     return counts
 
@@ -403,7 +445,8 @@ def kernel_name(mangled: str) -> str:
 #: every instance (the whitened ones of Kernels 1-4 included)
 PTXAS_KERNELS = ("leapfrog_kernel", "multistep_kernel", "subtree_kernel",
                  "nuts_step_kernel", "pt_multistep_kernel",
-                 "mh_multistep_kernel", "gibbs_multistep_kernel")
+                 "mh_multistep_kernel", "gibbs_multistep_kernel",
+                 "hmc_separable_kernel")
 
 
 def phase_build():
@@ -666,11 +709,11 @@ def phase_leapfrog(target, state, dev, step_size=STEP_SIZE,
 
 
 def phase_multistep(target, s, dev, step_size=STEP_SIZE,
-                    label="multistep") -> float:
-    """Kernel 2 against its plain twin for one K = 16, L = 8 block from
-    ``s`` (as :func:`phase_leapfrog`), same key: the accepts, the rows and
-    the returned state per chain."""
-    k_steps, n_leapfrog, seed = STEPS_PER_CALL, 8, 0x5EED_1234_ABCD
+                    label="multistep", n_leapfrog=8) -> float:
+    """Kernel 2 against its plain twin for one K = 16, L = ``n_leapfrog``
+    block from ``s`` (as :func:`phase_leapfrog`), same key: the accepts,
+    the rows and the returned state per chain."""
+    k_steps, seed = STEPS_PER_CALL, 0x5EED_1234_ABCD
     gen = torch.Generator(device=dev).manual_seed(13)
     eps = step_size * (1.0 + JITTER * (
         2.0 * torch.rand((k_steps,), generator=gen, device=dev) - 1.0))
@@ -1097,7 +1140,8 @@ def phase_k3_alone(nuts, dev, reps: int = 20) -> dict:
         times = []
         for _ in range(2):
             _, _, k = device_profile(lambda: [subtree(*args)
-                                              for _ in range(reps)])
+                                              for _ in range(reps)],
+                                              expect="subtree_kernel")
             n, us = next(v for name, v in k.items()
                          if "subtree_kernel" in name)
             check(f"profiled subtree j={j} launches", 0 < n <= reps, n)
@@ -1193,7 +1237,8 @@ def phase_whitened_nuts(tuned, dev, profile: bool = False) -> dict:
         times = []
         for _ in range(2):
             _, _, k = device_profile(lambda: [nuts_step(*args)
-                                              for _ in range(20)])
+                                              for _ in range(20)],
+                                              expect="nuts_step_kernel")
             n, us = next(v for name, v in k.items()
                          if "nuts_step_kernel" in name)
             check("profiled whitened nuts_step launches", 0 < n <= 20, n)
@@ -1232,7 +1277,8 @@ def phase_nuts_profile(nuts, step_args) -> None:
             device_us=us, per_launch_us=us / n, share_of_busy=us / busy)
     reps = 20
     _, _, k = device_profile(lambda: [nuts_step(*step_args)
-                                      for _ in range(reps)])
+                                      for _ in range(reps)],
+                             expect="nuts_step_kernel")
     n, us = next(v for name, v in k.items() if "nuts_step_kernel" in name)
     check("profiled nuts_step launches", 0 < n <= reps, n)
     say("nuts_profile_kernel_alone", kernel="nuts_step", calls=reps,
@@ -1243,7 +1289,8 @@ def phase_nuts_profile(nuts, step_args) -> None:
     for blocks in (grid["blocks"] // 2, grid["blocks"] // 4,
                    grid["blocks"] // 8):
         _, _, k = device_profile(lambda: [nuts_step(
-            *step_args, blocks=blocks) for _ in range(reps)])
+            *step_args, blocks=blocks) for _ in range(reps)],
+            expect="nuts_step_kernel")
         n, us = next(v for name, v in k.items() if "nuts_step_kernel" in name)
         say("nuts_profile_grid", blocks=blocks,
             chains_per_thread=NUTS_CHAINS / (blocks * 128), calls=reps,
@@ -1252,7 +1299,8 @@ def phase_nuts_profile(nuts, step_args) -> None:
     # share of its device time and the idle share
     tier = mt.NUTS(nuts.target, nuts.positions, 0.8, use_pallas=True).seed(3)
     tier.run(16, 0)
-    wall, busy, by_name = device_profile(tier.run, 16, 0)
+    wall, busy, by_name = device_profile(tier.run, 16, 0,
+                                         expect="subtree_kernel")
     n, us = next(v for name, v in by_name.items() if "subtree_kernel" in name)
     say("nuts_tier_profile_run", steps=15, wall_s=repr(wall),
         device_busy_us=repr(busy), idle_share=1.0 - busy / (wall * 1e6),
@@ -1523,7 +1571,8 @@ def phase_k56_alone(dev, reps: int = 100) -> None:
             return kernel(*lead, *state, 0x5EED_0606, 0, k, hist)
 
         _, _, by_name = device_profile(lambda: [launch()
-                                                for _ in range(reps)])
+                                                for _ in range(reps)],
+                                                expect="multistep_kernel")
         n, us = next(v for name, v in by_name.items()
                      if "multistep_kernel" in name)
         check(f"profiled {label} launches", 0 < n <= reps, n)
@@ -1646,15 +1695,23 @@ def phase_sep_l40(dev) -> dict:
     return out
 
 
-def phase_sep_kernel(sep, dev) -> dict:
-    """Kernel 7 against its twin for one step from the stage's
-    equilibrium state, same key and step: the proposal per chain against
-    the twin run in float64 on the same draws (the kernel contracts FMAs),
-    the three sums at rtol 1e-5, and the same draws under a launch grid of
-    4x the D-tiles. Then the times of both at L = 10 and 40."""
-    target, pos = sep.target, sep.state.positions
-    tables = torch.empty((0, SEP_DIM), device=dev)  # standard_normal's none
-    eps = torch.tensor([SEP_EPS], device=dev)
+def sep_tables(target, like) -> torch.Tensor:
+    """The ``[n_tables, D]`` tables of ``target``'s ``sep_form`` as Kernel 7
+    takes them (``[0, D]`` for none)."""
+    tabs = target.sep_forms()[1]
+    if not tabs:
+        return like.new_empty((0, like.shape[1]))
+    return torch.cat([t.to(like.device, like.dtype) for t in tabs])
+
+
+def sep_kernel_check(target, pos, eps_value: float, label: str):
+    """Kernel 7 against its twin for one L = 10 step from ``pos``, same
+    key and step: the proposal per chain against the twin run in float64
+    on the same draws (the kernel contracts FMAs), the three sums at rtol
+    1e-5, and the same draws under a launch grid of 4x the D-tiles.
+    Returns (max abs error, the launch's arguments)."""
+    tables = sep_tables(target, pos)
+    eps = torch.tensor([eps_value], device=pos.device)
     seed, step = 0x5EED_7777_0101, 5
     args = (target, pos, eps, SEP_L, seed, step, tables)
     got = hmc_separable(*args)
@@ -1683,20 +1740,30 @@ def phase_sep_kernel(sep, dev) -> dict:
                            other[1:4])}
     grid_equal = bool(torch.equal(small[0], got[0]))
     err = max_abs_err(got[0], want[0])
-    say("sep_kernel", chains=SEP_CHAINS, D=SEP_DIM, L=SEP_L,
+    say(label, chains=pos.shape[0], D=pos.shape[1], L=SEP_L,
+        tables=tables.shape[0], scaled=target.cuda_scaled,
         **{f"share_{k}": v for k, v in shares.items()},
         **{f"sums_{k}_within_rtol": v for k, v in sums.items()},
         proposal_equal_across_grids=grid_equal, max_abs_err=err,
         max_abs_err_f64=max_abs_err(got[0].double(), ref[0]),
         max_rel_err_logp_f64=float(((got[1].double() - ref[1]).abs()
                                     / ref[1].abs()).max()))
-    check("sep kernel proposal vs float64",
+    check(f"{label} proposal vs float64",
           shares["kernel_vs_f64"] >= max(shares["plain_vs_f64"] - 1e-3,
                                          0.999), shares)
     for k, v in sums.items():
-        check(f"sep kernel sums {k}", v, k)
-    check("sep kernel draws independent of the grid", grid_equal, "differ")
-    del ref, want, small
+        check(f"{label} sums {k}", v, k)
+    check(f"{label} draws independent of the grid", grid_equal, "differ")
+    return err, args
+
+
+def phase_sep_kernel(sep, dev) -> dict:
+    """Kernel 7 against its twin for one step from the stage's
+    equilibrium state (:func:`sep_kernel_check`), then the times of both
+    at L = 10 and 40."""
+    target, pos = sep.target, sep.state.positions
+    err, args = sep_kernel_check(target, pos, SEP_EPS, "sep_kernel")
+    seed, step, tables = args[4], args[5], args[6]
     t = {"err": err,
          "ms": cuda_ms(lambda: hmc_separable(*args), 20),
          "plain_ms": cuda_ms(lambda: hmc_separable_plain(*args), 3)}
@@ -1819,6 +1886,266 @@ def phase_pt_kernel(pt, seed: int) -> dict:
             "plain_ms": cuda_ms(lambda: pt_multistep_plain(*args, hp), 2)}
 
 
+def phase_mala_tuned(dev):
+    """The tuned-MALA stage of bench.py:732-779 through the public entry
+    points: ``MALA(..., use_pallas="full", steps_per_call=16).seed(13)
+    .tuned(256)`` (Kernel 1 under dual averaging), then ``run(2048, 0)``
+    twice (Kernel 2 at L = 1), the gates of bench.py:757-766 and the
+    launch counts of the whole path. Returns the sampler, its counts and
+    its metrics."""
+    target = mt.diffable_gaussian2d(MALA_MEAN, NUTS_COV)
+    init = mt.init_with_seed(MALA_CHAINS, 2, seed=13, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    ml = mt.MALA(target, init, step_size=1.0, use_pallas="full",
+                 steps_per_call=MALA_K).seed(13).tuned(MALA_ADAPT)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    sample, elapsed = timed_run(ml, MALA_COLLECT, 0, time_major=True)
+    counts = read_counts()
+    per_run = MALA_COLLECT // MALA_K
+    check("mala path launches and no plain twin", counts == counts_with(
+        leapfrog_trajectory=MALA_ADAPT, hmc_multistep=2 * per_run), counts)
+    check("mala sample", tuple(sample.shape) == (
+        MALA_COLLECT, MALA_CHAINS, 2) and bool(torch.isfinite(sample).all()),
+        tuple(sample.shape))
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    var, mean = torch.var_mean(sample, dim=(0, 1), correction=0)
+    total = MALA_CHAINS * MALA_COLLECT
+    m = {
+        "eps_tuned": ml.step_size, "tune_s": tune_s, "elapsed_s": elapsed,
+        "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
+        "mean": [float(v) for v in mean], "var": [float(v) for v in var],
+        "accept_rate": float((sample[1:] != sample[:-1]).any(dim=2)
+                             .float().mean()),
+    }
+    del sample
+    check("mala tuned eps sane", 0.2 <= m["eps_tuned"] <= 5.0,
+          m["eps_tuned"])
+    check("mala rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    check("mala ess floor", m["ess_mean"] >= 0.005 * total,
+          (m["ess_mean"], total))
+    for d in range(2):
+        check(f"mala mean[{d}]", abs(m["mean"][d] - MALA_MEAN[d]) <= 0.05,
+              m["mean"])
+        check(f"mala var[{d}]", abs(m["var"][d] - MALA_VAR[d]) <= 0.3,
+              m["var"])
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = total / elapsed
+    m["block_us"] = elapsed / per_run * 1e6
+    say("mala_tuned", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=per_run, **counts)
+    return ml, counts, m
+
+
+def phase_mala_kernel(ml, dev) -> dict:
+    """Kernel 2 at L = 1 against its twin for one K = 16 block from the
+    MALA stage's equilibrium (:func:`phase_multistep`), and both times at
+    the stage's shapes (CUDA events)."""
+    target, s, eps = ml.kernel_target, ml.state, ml.step_size
+    err = phase_multistep(target, s, dev, eps, label="multistep_mala",
+                          n_leapfrog=1)
+    eps_k = torch.full((MALA_K,), eps, device=dev)
+    hist = torch.empty((MALA_K,) + tuple(s.positions.shape), device=dev)
+    args = (target, s.positions, s.logp, s.grad, eps_k, 1, 1, 0, hist)
+    t = {"err": err, "ms": cuda_ms(lambda: hmc_multistep(*args), 50),
+         "plain_ms": cuda_ms(lambda: hmc_multistep_plain(*args), 3)}
+    say("mala_times", shape=f"C={MALA_CHAINS},D=2,L=1,K={MALA_K}",
+        **{k: repr(v) for k, v in t.items() if k != "err"})
+    return t
+
+
+def phase_mh_tuned(dev):
+    """The MH stage's configuration (bench.py:391-431: Gaussian2D, 65,536
+    chains, K = 16) started at a 25-sigma walk and ``tuned(256)``, then
+    ``run(2048, 0)`` twice through Kernel 5 at the tuned scale: the gates
+    of bench.py:416-421, a move rate in [0.15, 0.32]
+    (tests/test_mh.py:160-167) and the launch counts of the whole path."""
+    target = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    init = mt.init_with_seed(MH_CHAINS, 2, seed=8, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    mh = mt.MetropolisHastings(
+        target, mt.isotropic_gaussian_proposal(MH_TUNED_STD), init,
+        use_pallas="full", steps_per_call=MH_K).seed(8).tuned(MH_TUNED_ADAPT)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    sample, elapsed = timed_run(mh, MH_COLLECT, 0, time_major=True)
+    counts = read_counts()
+    per_run = MH_COLLECT // MH_K
+    check("mh tuned launches and no plain twin",
+          counts == counts_with(mh_multistep=2 * per_run), counts)
+    check("mh tuned sample", tuple(sample.shape) == (
+        MH_COLLECT, MH_CHAINS, 2) and bool(torch.isfinite(sample).all()),
+        tuple(sample.shape))
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    var, mean = torch.var_mean(sample, dim=(0, 1), correction=0)
+    total = MH_CHAINS * MH_COLLECT
+    m = {
+        "scale_factor": mh.scale_factor,
+        "proposal_std": mh.proposal.cuda_params[0], "tune_s": tune_s,
+        "elapsed_s": elapsed, "rhat_mean": float(rhat.mean()),
+        "ess_mean": float(ess.mean()), "mean": [float(v) for v in mean],
+        "var": [float(v) for v in var],
+        "move_rate": float((sample[1:] != sample[:-1]).any(dim=2)
+                           .float().mean()),
+    }
+    del sample
+    check("mh tuned rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    for d in range(2):
+        check(f"mh tuned mean[{d}]", abs(m["mean"][d]) <= 0.03, m["mean"])
+        check(f"mh tuned var[{d}]", abs(m["var"][d] - 1.0) <= 0.05,
+              m["var"])
+    check("mh tuned ess floor", m["ess_mean"] >= 0.02 * total,
+          (m["ess_mean"], total))
+    check("mh tuned move rate", 0.15 <= m["move_rate"] <= 0.32,
+          m["move_rate"])
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = total / elapsed
+    m["block_us"] = elapsed / per_run * 1e6
+    say("mh_tuned", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=per_run, **counts)
+    return mh, counts, m
+
+
+def sigma_table_normal(sigma: torch.Tensor) -> "mt.models.Target":
+    """The heterogeneous normal -sum((x / sigma)^2) / 2, built as
+    tests/test_torch_separable.py:55-64 builds it: ``sigma`` its one
+    ``sep_form`` table, naming the ``sigma_table_normal`` functor."""
+
+    def tile(x, s):
+        return torch.sum(-0.5 * (x / s.to(x.dtype)) ** 2, dim=-1)
+
+    return mt.models.Target(logp=lambda x: tile(x, sigma),
+                            sep_form=(tile, (sigma,)),
+                            cuda_functor="sigma_table_normal")
+
+
+def phase_sep_warmed_up(dev):
+    """The separable stage's shape (bench.py:553-560: 1,024 chains,
+    D = 10,000, L = 10, eps 0.1 to start) on ``sigma_table_normal`` with
+    sigma_d = logspace(-1, 1, D): ``HMC(use_pallas="separable").seed(2)
+    .warmed_up(128, "diag")`` (Kernel 7 while tuning, then its scaled
+    instance), then ``run(128, 128, time_major=True)`` twice, the gates of
+    bench.py:635-640 on z = x / sigma and the launch counts of the whole
+    path. Then the tuner's check: 32 steps at the tuned eps through
+    ``step_eps`` (the scaled instance, counted apart) average an
+    acceptance within 0.10 of 0.651."""
+    sigma = torch.logspace(-1, 1, SEP_DIM, dtype=torch.float32, device=dev)
+    target = sigma_table_normal(sigma)
+    init = mt.init_with_seed(SEP_CHAINS, SEP_DIM, seed=2, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    w = mt.HMC(target, init, SEP_EPS, SEP_L, use_pallas="separable").seed(
+        2).warmed_up(SEP_WARM_ADAPT, "diag")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check("sep warmed_up whitens with the scaled form",
+          w.kernel_target.cuda_scaled and w.metric.kind == "diag",
+          w.metric)
+    sample, elapsed = timed_run(w, SEP_COLLECT, SEP_COLLECT,
+                                time_major=True)
+    counts = read_counts()
+    steps = 2 * SEP_COLLECT
+    scaled = SEP_WARM_ADAPT + 2 * steps  # the second leg and both runs
+    check("sep warmed_up launches and no plain twin", counts == counts_with(
+        hmc_separable=SEP_WARM_ADAPT + scaled, hmc_separable_scaled=scaled),
+        counts)
+    check("sep warmed_up sample", tuple(sample.shape) == (
+        SEP_COLLECT, SEP_CHAINS, SEP_DIM) and bool(
+            torch.isfinite(sample).all()), tuple(sample.shape))
+    z = sample.div_(sigma)
+    var, mean = torch.var_mean(z, correction=0)
+    rhat, ess = mt.split_rhat_mean_ess(z[:, :, :SEP_DIAG_DIM].contiguous(),
+                                       time_major=True)
+    scale_ratio = w.metric.scale / sigma
+    m = {
+        "eps_tuned": w.step_size, "warm_up_s": warm_s, "elapsed_s": elapsed,
+        "mean": float(mean), "var": float(var),
+        "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
+        "accept_rate": float((z[1:, :, 0] != z[:-1, :, 0]).float().mean()),
+        "metric_over_sigma_min": float(scale_ratio.min()),
+        "metric_over_sigma_max": float(scale_ratio.max()),
+        "steps_per_sec": steps / elapsed,
+        "draws_per_sec": steps * SEP_CHAINS / elapsed,
+        "coordinate_updates_per_sec": steps * SEP_CHAINS * SEP_DIM / elapsed,
+        "step_us": elapsed / steps * 1e6,
+    }
+    del sample, z, rhat, ess
+    torch.cuda.empty_cache()
+    check("sep warmed_up z mean", abs(m["mean"]) < 0.02, m["mean"])
+    check("sep warmed_up z var", abs(m["var"] - 1.0) < 0.05, m["var"])
+    check("sep warmed_up rhat", 0.95 <= m["rhat_mean"] <= 1.05,
+          m["rhat_mean"])
+    check("sep warmed_up ess floor",
+          m["ess_mean"] >= 0.02 * SEP_CHAINS * SEP_COLLECT,
+          (m["ess_mean"], SEP_CHAINS * SEP_COLLECT))
+    # the tuner's check, off the counted path
+    key = w._next_key()
+    eps = torch.tensor(w.step_size, device=dev)
+    state, alphas = w.state, []
+    for i in range(32):
+        state, a = w._step_fn.step_eps(state, key._replace(step=i + 1), eps)
+        alphas.append(a)
+    m["accept_at_tuned_eps"] = float(torch.stack(alphas).mean())
+    check("sep warmed_up acceptance at the tuned eps",
+          abs(m["accept_at_tuned_eps"] - 0.651) <= 0.10,
+          m["accept_at_tuned_eps"])
+    say("sep_warmed_up", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=steps, **counts)
+    return w, counts, m
+
+
+def phase_sep_scaled_kernel(w, dev) -> dict:
+    """Kernel 7's scaled instance against its twin for one step from the
+    warmed-up stage's equilibrium (:func:`sep_kernel_check`), and its time
+    and its twin's (CUDA events); its device time alone is
+    :func:`phase_k7_alone`'s (``--profile``)."""
+    target, pos = w.kernel_target, w.state.positions
+    err, args = sep_kernel_check(target, pos, w.step_size,
+                                 "sep_scaled_kernel")
+    t = {"err": err, "ms": cuda_ms(lambda: hmc_separable(*args), 20),
+         "plain_ms": cuda_ms(lambda: hmc_separable_plain(*args), 3)}
+    say("sep_scaled_times", shape=f"C={SEP_CHAINS},D={SEP_DIM},L={SEP_L}",
+        **{k: repr(v) for k, v in t.items() if k != "err"})
+    return t
+
+
+def phase_k7_alone(dev, scaled: bool = True, reps: int = 20) -> dict:
+    """Kernel 7 alone at the separable stage's shape (C = 1,024, D =
+    10,000, L = 10, eps 0.1) from states drawn from each target: the
+    standard normal, the sigma table (sigma_d = logspace(-1, 1, D)) and,
+    with ``scaled``, the sigma table whitened by its own sigma (the scaled
+    instance). Device µs per launch over ``reps`` launches
+    (``torch.profiler``) and ms per launch by CUDA events. Runs on a
+    parent package too (``scaled=False`` before the scaled instance)."""
+    gen = torch.Generator(device=dev).manual_seed(707)
+    z = torch.randn((SEP_CHAINS, SEP_DIM), generator=gen, device=dev)
+    sigma = torch.logspace(-1, 1, SEP_DIM, dtype=torch.float32, device=dev)
+    eps = torch.tensor([SEP_EPS], device=dev)
+    seed, step = 0x5EED_7070, 3
+    cases = {"standard_normal": (mt.standard_normal(), z),
+             "sigma_table": (sigma_table_normal(sigma), z * sigma)}
+    if scaled:
+        cases["scaled_sigma_table"] = (mt.precondition_target(
+            sigma_table_normal(sigma), mt.Preconditioner(
+                "diag", scale=sigma)), z)
+    out = {}
+    for label, (target, pos) in cases.items():
+        args = (target, pos, eps, SEP_L, seed, step, sep_tables(target, pos))
+        _, _, by_name = device_profile(
+            lambda: [hmc_separable(*args) for _ in range(reps)],
+            expect="hmc_separable_kernel")
+        n, us = next(v for name, v in by_name.items()
+                     if "hmc_separable_kernel" in name)
+        check(f"profiled Kernel 7 {label} launches", 0 < n <= reps, n)
+        out[label] = us / n
+        say("k7_alone", target=label, C=SEP_CHAINS, D=SEP_DIM, L=SEP_L,
+            calls=reps, recorded=n, device_us_per_call=us / n,
+            event_ms=cuda_ms(lambda: hmc_separable(*args), reps))
+    return out
+
+
 def bounds(step_details, subtree_leaves, dense_details) -> dict:
     """bound_ms and bound_by of each kernel at the shapes of its timing."""
     c, d = N_CHAINS, DIM
@@ -1898,6 +2225,21 @@ def bounds(step_details, subtree_leaves, dense_details) -> dict:
             4 * (2 * c * d + 3 * c + 1),
             c * (d * (n_leapfrog * OPS["sep_leapfrog"] + OPS["sep_coord"])
                  + rng_ops(d, 0)))
+    # its scaled instance on the sigma table: two [D] tables more in, and
+    # per coordinate the (s / sigma)^2 coefficient once and its product in
+    # every leapfrog's gradient
+    out["hmc_separable_scaled"] = bound(
+        4 * (2 * c * d + 3 * c + 1 + 2 * d),
+        c * (d * (SEP_L * OPS["sep_leapfrog_scaled"] + OPS["sep_coord"]
+                  + OPS["sep_scaled_coef"]) + rng_ops(d, 0)))
+    # Kernel 2 at L = 1 on the MALA stage (Gaussian2D, 65,536 chains):
+    # pos, logp, grad, eps in; pos, logp, grad, history out
+    c, d, k = MALA_CHAINS, 2, MALA_K
+    out["hmc_multistep_mala"] = bound(
+        4 * (c * (2 * d + 1) * 2 + k + k * c * d),
+        c * k * (OPS["gauss2d_leapfrog"] + rng_ops(d, 1) + OPS["hmc_step"]))
+    # Kernel 5 at the tuned scale: the Gaussian2D block's work
+    out["mh_multistep_tuned"] = out["mh_multistep_gauss2d"]
     # Kernel 8, one K-step block from parity 0 at T rungs, D = 1: pos,
     # logp and the swap EWMA in and out, K history rows. A step draws a
     # proposal normal and an accept uniform per rung and a uniform per
@@ -1936,6 +2278,13 @@ def main() -> None:
         phase_profile(hmc, dev)
     del hmc
     torch.cuda.empty_cache()
+    ml, mala_counts, _ = phase_mala_tuned(dev)
+    k2m = phase_mala_kernel(ml, dev)
+    if args.profile:
+        phase_runs_profile((("mala", lambda: ml.run(
+            MALA_COLLECT, 0, time_major=True)),))
+    del ml
+    torch.cuda.empty_cache()
     nuts, nuts_m, nuts_counts, nuts_tier_counts = phase_nuts_main_path(dev)
     tuned, dense_m, dense_counts, dense_tier_counts = (
         phase_nuts_dense_metric(nuts, dev))
@@ -1968,6 +2317,15 @@ def main() -> None:
             ("gibbs", lambda: g.run(GIBBS_COLLECT, 0, time_major=True))))
     del mh, pois, g
     torch.cuda.empty_cache()
+    mht, mht_counts, _ = phase_mh_tuned(dev)
+    k5t = phase_mh_kernel(mht, "gauss2d_tuned", MH_K, 0x5EED_0909)
+    say("mh_tuned_times", shape=f"C={MH_CHAINS},gauss2d K={MH_K}",
+        **{k: repr(v) for k, v in k5t.items() if k != "err"})
+    if args.profile:
+        phase_runs_profile((("mh_tuned", lambda: mht.run(
+            MH_COLLECT, 0, time_major=True)),))
+    del mht
+    torch.cuda.empty_cache()
     sep, sep_counts, _ = phase_sep_main_path(dev)
     sep40 = phase_sep_l40(dev)
     k7 = phase_sep_kernel(sep, dev)
@@ -1975,6 +2333,14 @@ def main() -> None:
         phase_runs_profile((("sep", lambda: sep.run(
             SEP_COLLECT, SEP_COLLECT, time_major=True)),))
     del sep
+    torch.cuda.empty_cache()
+    warm, warm_counts, _ = phase_sep_warmed_up(dev)
+    k7s = phase_sep_scaled_kernel(warm, dev)
+    if args.profile:
+        k7s["device_us"] = phase_k7_alone(dev)
+        phase_runs_profile((("sep_warmed_up", lambda: warm.run(
+            SEP_COLLECT, SEP_COLLECT, time_major=True)),))
+    del warm
     torch.cuda.empty_cache()
     pt, pt_counts, _ = phase_pt_main_path(dev)
     k8 = phase_pt_kernel(pt, 0x5EED_8888)
@@ -2031,7 +2397,21 @@ def main() -> None:
         record("pt_multistep", "pt_multistep.cu", "tempering_full.py:61",
                pt_counts["pt_multistep"], k8["err"], k8["ms"],
                k8["plain_ms"]),
+        record("hmc_multistep_mala", "hmc_multistep.cu", "hmc_full.py:86",
+               mala_counts["hmc_multistep"], k2m["err"], k2m["ms"],
+               k2m["plain_ms"]),
+        record("mh_multistep_tuned", "mh_multistep.cu", "mh_full.py:50",
+               mht_counts["mh_multistep"], k5t["err"], k5t["ms"],
+               k5t["plain_ms"]),
+        record("hmc_separable_scaled", "hmc_separable.cu", "hmc_bigd.py:177",
+               warm_counts["hmc_separable_scaled"], k7s["err"], k7s["ms"],
+               k7s["plain_ms"],
+               launches_unscaled=(warm_counts["hmc_separable"]
+                                  - warm_counts["hmc_separable_scaled"])),
     ]
+    if "device_us" in k7s:  # --profile: each instance alone
+        kernels[-1].update({f"device_ms_{k}": v * 1e-3
+                            for k, v in k7s["device_us"].items()})
     off_path = [
         record("leapfrog_trajectory", "hmc_leapfrog.cu", "hmc.py:46",
                counts["leapfrog_trajectory"], lf[8][0], t["leapfrog_ms"],
@@ -2039,7 +2419,8 @@ def main() -> None:
                tier_run_launches=tier_counts["leapfrog_trajectory"],
                ms_whitened=k12w["leapfrog_ms"],
                max_abs_err_whitened=k12w["leapfrog_err"],
-               tier_run_launches_whitened=k12w["leapfrog_launches"]),
+               tier_run_launches_whitened=k12w["leapfrog_launches"],
+               launches_mala_path=mala_counts["leapfrog_trajectory"]),
         record("nuts_subtree", "nuts_subtree.cu", "nuts_subtree.py:243",
                nuts_counts["nuts_subtree"], sub_err, t["subtree_ms"],
                t["subtree_plain_ms"],

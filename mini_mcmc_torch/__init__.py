@@ -1,6 +1,6 @@
 """mini_mcmc_torch: the PyTorch + CUDA port of mini_mcmc_tpu.
 
-Lockstep batched Metropolis-Hastings, HMC, NUTS, Gibbs and parallel
+Lockstep batched Metropolis-Hastings, HMC, MALA, NUTS, Gibbs and parallel
 tempering over ``[n_chains, dim]`` tensors, with the fused tiers
 (``use_pallas=True | "full" | "separable"``) run by hand-written CUDA kernels
 for Hopper (``csrc/``) on CUDA tensors and by their plain PyTorch twins on
@@ -26,13 +26,20 @@ from .models import (
 )
 from .nuts import NUTS
 from .ops.tempering import geometric_betas, tune_betas
-from .samplers import HMC, GibbsSampler, MetropolisHastings, ParallelTempering
+from .samplers import (
+    HMC,
+    MALA,
+    GibbsSampler,
+    MetropolisHastings,
+    ParallelTempering,
+)
 from .stats import split_rhat_mean_ess
 from .utils.init import init, init_det, init_with_seed
 
 __all__ = [
     "GibbsSampler",
     "HMC",
+    "MALA",
     "MetropolisHastings",
     "ModernDiagnostics",
     "NUTS",

@@ -147,6 +147,16 @@ def nuts_sampler_kwargs(jax_nuts) -> dict:
     return _kwargs(jax_nuts, "NUTS")
 
 
+def mala_sampler_kwargs(jax_mala) -> dict:
+    """The port's ``MALA`` keyword arguments read from a JAX ``MALA``'s
+    ``_ctor`` (HMC's, with its fixed ``n_leapfrog=1`` and ``jitter``
+    dropped) and its metric; raises for a transform."""
+    kwargs = _kwargs(jax_mala, "MALA")
+    for key in ("n_leapfrog", "jitter"):
+        kwargs.pop(key, None)
+    return kwargs
+
+
 def mh_sampler_kwargs(jax_mh) -> dict:
     """The port's ``MetropolisHastings`` keyword arguments read from a JAX
     ``MetropolisHastings``'s ``_ctor``; drops ``pallas_interpret``/

@@ -28,6 +28,11 @@
 // L = 40 the instructions bound it (~1.3e9, 39 us). The design reads and
 // writes each position once whatever L is; a chain's D-tiles are
 // independent blocks, so 1,024 chains give 5,120 blocks of 256 threads.
+//
+// Under a diagonal metric (`scaled`) the functor is Scaled<F>
+// (coord_targets.cuh): the scale is one more [D] table row, read once
+// into registers beside F's own, so a thread holds up to two table rows
+// for its 4 * kSepGroups coordinates.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -42,8 +47,9 @@ constexpr int kSepMaxThreads = 256;
 constexpr int kSepGroups = 2;
 
 // Four coordinates of quad q from `row`: one 16-byte load when `vec` (D is
-// a multiple of four and the rows are 16-byte aligned), else element by
-// element, `fill` past the end of the row.
+// a multiple of four and every row, the second table row included, is
+// 16-byte aligned), else element by element, `fill` past the end of the
+// row.
 __device__ __forceinline__ void load4(const float* __restrict__ row, int q,
                                       int dim, int vec, float fill,
                                       float (&v)[4]) {
@@ -101,9 +107,10 @@ __global__ void __launch_bounds__(kSepMaxThreads)
   const int quads = (dim + 3) >> 2;
   const uint32_t chain = chain0 + (uint32_t)c;
 
-  // padding coordinates (past D) hold x = 0, m = 0, table 1: finite, and
-  // masked out of the sums
-  float x[kSepGroups][4], m[kSepGroups][4], tab[kSepGroups][4];
+  // padding coordinates (past D) hold x = 0, m = 0, tables (and so the
+  // scale) 1: finite, and masked out of the sums
+  float x[kSepGroups][4], m[kSepGroups][4];
+  float t0[kSepGroups][4], t1[kSepGroups][4];
   int n_valid[kSepGroups];
   float ke0 = 0.0f;
 #pragma unroll
@@ -114,11 +121,13 @@ __global__ void __launch_bounds__(kSepMaxThreads)
     for (int i = 0; i < 4; ++i) {
       x[j][i] = 0.0f;
       m[j][i] = 0.0f;
-      tab[j][i] = 1.0f;
+      t0[j][i] = 1.0f;
+      t1[j][i] = 1.0f;
     }
     if (n_valid[j] == 0) continue;
     load4(pos + row, q, dim, vec, 0.0f, x[j]);
-    if (F::kTables > 0) load4(tables, q, dim, vec, 1.0f, tab[j]);
+    if (F::kTables > 0) load4(tables, q, dim, vec, 1.0f, t0[j]);
+    if (F::kTables > 1) load4(tables + dim, q, dim, vec, 1.0f, t1[j]);
     if (mom_in != nullptr) {
       load4(mom_in + row, q, dim, vec, 0.0f, m[j]);
     } else {
@@ -139,7 +148,9 @@ __global__ void __launch_bounds__(kSepMaxThreads)
 #pragma unroll
   for (int j = 0; j < kSepGroups; ++j) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) m[j][i] += f.grad(x[j][i], tab[j][i]) * half;
+    for (int i = 0; i < 4; ++i) {
+      m[j][i] += f.grad(x[j][i], t0[j][i], t1[j][i]) * half;
+    }
   }
 #pragma unroll 2
   for (int l = 0; l < n_leapfrog; ++l) {
@@ -149,7 +160,7 @@ __global__ void __launch_bounds__(kSepMaxThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         x[j][i] += eps * m[j][i];
-        m[j][i] += f.grad(x[j][i], tab[j][i]) * kick;
+        m[j][i] += f.grad(x[j][i], t0[j][i], t1[j][i]) * kick;
       }
     }
   }
@@ -162,7 +173,7 @@ __global__ void __launch_bounds__(kSepMaxThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (i < n_valid[j]) {
-        pe += f.logp(x[j][i], tab[j][i]);
+        pe += f.logp(x[j][i], t0[j][i], t1[j][i]);
         ke1 += m[j][i] * m[j][i];
       }
     }
@@ -203,14 +214,16 @@ __global__ void __launch_bounds__(kSepMaxThreads)
 // momentum and `mom_out` receives the final one (the debug form). `eps`
 // is a device float, `tables` [n_tables, D] (null without tables). Writes
 // pos_out [C, D] and parts [3, C, G], G = ceil(ceil(D / 4) / (threads *
-// kSepGroups)). `functor` is a CoordId (_build.SEP_FUNCTORS); any other
+// kSepGroups)). `functor` is a CoordId (_build.SEP_FUNCTORS), run as
+// Scaled<functor> when `scaled` (its scale the last table); any other
 // returns cudaErrorInvalidValue, as do `threads` not a multiple of 32 in
 // [32, 256] and a grid past 2^31 - 1 blocks.
 extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
                                 const void* eps, const void* params,
                                 const void* tables, int n_chains, int dim,
-                                int n_leapfrog, int functor, int threads,
-                                int vec, uint32_t chain0, uint32_t seed_lo,
+                                int n_leapfrog, int functor, int scaled,
+                                int threads, int vec, uint32_t chain0,
+                                uint32_t seed_lo,
                                 uint32_t seed_hi, uint32_t step, void* pos_out,
                                 void* mom_out, void* parts, void* stream) {
   if (n_chains <= 0 || dim <= 0) return (int)cudaSuccess;
@@ -228,11 +241,26 @@ extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
       (const float*)params, (const float*)tables, n_chains, dim, n_tiles,   \
       n_leapfrog, vec, chain0, seed_lo, seed_hi, step, (float*)pos_out,     \
       (float*)mom_out, (float*)parts)
-  switch (functor) {
-    case mm::kStandardNormal: MM_SEP(mm::StandardNormalCoord); break;
-    case mm::kIsotropicGaussianCoord: MM_SEP(mm::IsotropicGaussianCoord); break;
-    case mm::kSigmaTableNormal: MM_SEP(mm::SigmaTableNormalCoord); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (scaled) {
+    switch (functor) {
+      case mm::kStandardNormal:
+        MM_SEP(mm::Scaled<mm::StandardNormalCoord>);
+        break;
+      case mm::kIsotropicGaussianCoord:
+        MM_SEP(mm::Scaled<mm::IsotropicGaussianCoord>);
+        break;
+      case mm::kSigmaTableNormal:
+        MM_SEP(mm::Scaled<mm::SigmaTableNormalCoord>);
+        break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (functor) {
+      case mm::kStandardNormal: MM_SEP(mm::StandardNormalCoord); break;
+      case mm::kIsotropicGaussianCoord: MM_SEP(mm::IsotropicGaussianCoord); break;
+      case mm::kSigmaTableNormal: MM_SEP(mm::SigmaTableNormalCoord); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 #undef MM_SEP
   return (int)cudaGetLastError();

@@ -45,9 +45,13 @@ class Target:
             functor has none.
         cuda_affine: the kernels run ``cuda_functor`` inside the affine
             wrapper of a whitened target (``csrc/targets.cuh:Whitened``,
-            set by ``models.precondition.precondition_target``): then
-            ``cuda_params`` starts with the lower triangle of ``L``, row by
-            row, ``D (D + 1) / 2`` floats, before the functor's own.
+            set by ``models.precondition.precondition_target``): then, at
+            D <= ``precondition.AFFINE_MAX_DIM``, ``cuda_params`` starts
+            with the lower triangle of ``L``, row by row, ``D (D + 1) / 2``
+            floats, before the functor's own.
+        cuda_scaled: a target whitened once by a diagonal metric: the
+            separable kernel runs ``cuda_functor`` at ``x = s * y``, ``s``
+            the last ``sep_form`` table (``csrc/coord_targets.cuh:Scaled``).
         sep_form: optional coordinate-sliced form for the separable HMC
             tier (``use_pallas="separable"``): ``(tile_logp, tables)``,
             each table a ``[D]`` or ``[1, D]`` tensor of per-coordinate
@@ -66,6 +70,7 @@ class Target:
     cuda_functor: Optional[str] = None
     cuda_params: tuple = ()
     cuda_affine: bool = False
+    cuda_scaled: bool = False
     logp_normalized: Optional[Callable] = None
     sep_form: Optional[tuple] = None
 

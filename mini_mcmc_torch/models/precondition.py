@@ -17,7 +17,10 @@ affine wrapper around the inner target's CUDA functor
 (``csrc/targets.cuh:Whitened``): :func:`precondition_target` keeps the
 inner ``cuda_functor``, prepends the lower triangle of ``L`` to its
 ``cuda_params`` and sets ``cuda_affine``. A diagonal metric goes in as
-``L = diag(scale)``.
+``L = diag(scale)``. Kernels 1-4 are built for D <= ``AFFINE_MAX_DIM``
+only; above it no triangle is built, and a diagonal metric reaches the
+separable kernel as one more coordinate table
+(``csrc/coord_targets.cuh:Scaled``, ``Target.cuda_scaled``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.kernels._build import KERNEL_DIMS
 from .base import Target
+
+#: the largest D whose whitened ``cuda_params`` carry ``L``'s lower
+#: triangle: only Kernels 1-4 read it, and they are built for
+#: ``KERNEL_DIMS``. Above it the triangle (D (D + 1) / 2 floats) would
+#: cost quadratic host time and memory for nothing, as the JAX package
+#: stops wrapping its chains-on-lanes forms above ``_DENSE_DC_MAX_DIM``.
+AFFINE_MAX_DIM = max(KERNEL_DIMS)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -58,12 +69,14 @@ class Preconditioner:
 
     @property
     def matrix(self) -> torch.Tensor:
-        """``L`` itself: ``chol``, or ``diag(scale)``."""
+        """``L`` itself: ``chol``, or ``diag(scale)`` (``D x D``: build it
+        at small D only)."""
         return self.chol if self.kind == "dense" else torch.diag(self.scale)
 
     @property
     def dim(self) -> int:
-        return self.matrix.shape[0]
+        arr = self.scale if self.kind == "diag" else self.chol
+        return arr.shape[0]
 
     def to(self, device) -> "Preconditioner":
         """This map with its tensor on ``device``."""
@@ -150,8 +163,13 @@ def estimate_preconditioner(positions, kind: str = "diag", *,
 
 def _lower_triangle(metric: Preconditioner) -> tuple:
     """``L``'s lower triangle row by row, ``D (D + 1) / 2`` floats: the
-    head of a whitened target's ``cuda_params``."""
-    ell = metric.matrix.detach().cpu().double().numpy()
+    head of a whitened target's ``cuda_params`` (a diagonal metric's from
+    its scale, zeros off the diagonal)."""
+    if metric.kind == "diag":
+        s = metric.scale.detach().cpu().double().tolist()
+        return tuple(s[i] if j == i else 0.0 for i in range(len(s))
+                     for j in range(i + 1))
+    ell = metric.chol.detach().cpu().double().numpy()
     return tuple(float(ell[i, j]) for i in range(len(ell))
                  for j in range(i + 1))
 
@@ -167,6 +185,10 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
     separable tier's validation then rejects the target. The CUDA form is
     the inner functor inside the affine wrapper (module docstring); a
     target that is whitened already composes its two maps into one ``L``.
+    ``cuda_params`` start with ``L``'s triangle only at D <=
+    ``AFFINE_MAX_DIM`` (the inner target's params alone above it), and
+    ``cuda_scaled`` marks a diagonal metric on an unwhitened target: the
+    one form the separable kernel runs (the scale as its last table).
     """
     logp_batch = grad = logp_normalized = None
 
@@ -195,23 +217,26 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
 
         sep_form = (sep_tile_logp, tuple(inner_tabs) + (metric.scale,))
 
-    inner_params, affine = tuple(target.cuda_params), metric
-    if target.cuda_affine:
-        # x = L_in (L_out y): one lower-triangular L_in @ L_out
-        d = metric.dim
-        tri = d * (d + 1) // 2
-        ell_in = np.zeros((d, d))
-        ell_in[np.tril_indices(d)] = inner_params[:tri]
-        inner_params = inner_params[tri:]
-        affine = Preconditioner("dense", chol=torch.from_numpy(
-            ell_in @ metric.matrix.detach().cpu().double().numpy()))
+    cuda_params, d = tuple(target.cuda_params), metric.dim
+    if d <= AFFINE_MAX_DIM:
+        affine = metric
+        if target.cuda_affine:
+            # x = L_in (L_out y): one lower-triangular L_in @ L_out
+            tri = d * (d + 1) // 2
+            ell_in = np.zeros((d, d))
+            ell_in[np.tril_indices(d)] = cuda_params[:tri]
+            cuda_params = cuda_params[tri:]
+            affine = Preconditioner("dense", chol=torch.from_numpy(
+                ell_in @ metric.matrix.detach().cpu().double().numpy()))
+        cuda_params = _lower_triangle(affine) + cuda_params
     return Target(
         logp=logp,
         logp_batch=logp_batch,
         grad=grad,
         cuda_functor=target.cuda_functor,
-        cuda_params=_lower_triangle(affine) + inner_params,
+        cuda_params=cuda_params,
         cuda_affine=True,
+        cuda_scaled=metric.kind == "diag" and not target.cuda_affine,
         logp_normalized=logp_normalized,
         sep_form=sep_form,
     )

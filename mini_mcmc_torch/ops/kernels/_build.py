@@ -95,13 +95,13 @@ def functor_id(target) -> int:
 
 def unwhitened(target, what: str) -> None:
     """Raise for a whitened target (``Target.cuda_affine``): only Kernels
-    1-4 run the affine wrapper, and ``what`` would read ``L`` as the
-    functor's own coefficients."""
+    1-4 (the affine wrapper) and Kernel 7 (a diagonal metric) run one, and
+    ``what`` would read ``L`` as the functor's own coefficients."""
     if target.cuda_affine:
         raise ValueError(
-            f"{what} with a whitened target (metric=) is not ported yet on "
-            "CUDA: only Kernels 1-4 run the affine wrapper (ROADMAP.md, "
-            "Queue 1 item 4)")
+            f"{what} with a whitened target (metric=) does not run on "
+            "CUDA: only Kernels 1-4 and the separable kernel run the "
+            "metric's wrapper")
 
 
 def proposal_id(proposal) -> int:
@@ -137,14 +137,20 @@ def _params_on(params: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(params, dtype=torch.float32, device=device)
 
 
-def params_ptr(target, device) -> int | None:
+def params_ptr(target, device,
+               functor_dim: int | None = None) -> int | None:
     """Device pointer to ``target.cuda_params`` as float32 (copied to the
     device once per target and device), or ``None`` for a functor without
-    coefficients."""
-    if not target.cuda_params:
+    coefficients. ``functor_dim``: read them for a kernel that runs the
+    functor alone at that D, past a whitened target's triangle of ``L``
+    (which it carries at D <= ``KERNEL_DIMS``' largest only)."""
+    params = tuple(target.cuda_params)
+    if (functor_dim is not None and target.cuda_affine
+            and functor_dim <= max(KERNEL_DIMS)):
+        params = params[functor_dim * (functor_dim + 1) // 2:]
+    if not params:
         return None
-    return _params_on(tuple(target.cuda_params),
-                      torch.device(device)).data_ptr()
+    return _params_on(params, torch.device(device)).data_ptr()
 
 
 def _nvcc() -> str:
@@ -219,7 +225,7 @@ def lib() -> ctypes.CDLL:
         + [_LL, _LL, _P],
         "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
         + [_LL, _LL, _P],
-        "mm_hmc_separable": [_P] * 5 + [_I] * 6 + [_U] * 4 + [_P] * 4,
+        "mm_hmc_separable": [_P] * 5 + [_I] * 7 + [_U] * 4 + [_P] * 4,
         "mm_pt_multistep": [_P] * 5 + [_I] * 7 + [_U] * 3 + [_P] * 4
         + [_LL, _LL, _P],
     }

@@ -13,7 +13,11 @@ The kernel evaluates the target's coordinate functor
 (``Target.cuda_functor``, ``_build.SEP_FUNCTORS``, ``csrc/coord_targets.cuh``)
 on its ``[n_tables, D]`` tables; the twin evaluates the Python
 ``Target.sep_forms()`` density on the same tables and takes the gradient
-by autograd, as the TPU kernel takes it by AD inside each tile.
+by autograd, as the TPU kernel takes it by AD inside each tile. A target
+whitened by a diagonal metric (``Target.cuda_scaled``) runs the functor's
+scaled instance (``coord_targets.cuh:Scaled``), the scale its last table,
+as the TPU kernel runs the whitened ``sep_form`` with ``n_tables`` one
+larger.
 
 What bounds it on the H100: bytes at L = 10 (82 MB per step at C = 1,024,
 D = 10,000), instructions at L = 40; no ``[C, D]`` momentum or gradient is
@@ -43,11 +47,23 @@ def sep_tiles(dim: int, threads: int = SEP_THREADS) -> int:
 
 def sep_functor(target) -> tuple[int, int]:
     """``(functor id, number of tables)`` of ``target``'s coordinate
-    functor; raises ``ValueError`` for a target without one or a whitened
-    target."""
-    _build.unwhitened(target, "HMC(use_pallas='separable')")
-    return _build.form_id(target.cuda_functor, _build.SEP_FUNCTORS,
-                          "Target")
+    functor. A target whitened once by a diagonal metric
+    (``Target.cuda_scaled``) runs the functor's scaled instance, its
+    tables the functor's own and the scale. Raises ``ValueError`` for a
+    target without a functor and for any other whitened target (a dense
+    metric, or one whitened twice)."""
+    fid, n_tables = _build.form_id(target.cuda_functor, _build.SEP_FUNCTORS,
+                                   "Target")
+    if not target.cuda_affine:
+        return fid, n_tables
+    n_whitened = len(target.sep_forms()[1])
+    if not target.cuda_scaled or n_whitened != n_tables + 1:
+        raise ValueError(
+            "HMC(use_pallas='separable') runs a whitened target on CUDA "
+            "only when one diagonal metric whitens it once (its sep_form "
+            f"tables: the functor's {n_tables} and the scale); got "
+            f"{n_whitened} tables, cuda_scaled={target.cuda_scaled}")
+    return fid, n_tables + 1
 
 
 def _tile_grad(fn, x, tables):
@@ -106,6 +122,7 @@ def hmc_separable(target, pos, eps, n_leapfrog: int, seed: int, step: int,
         return hmc_separable_plain(target, pos, eps, n_leapfrog, seed, step,
                                    tables, mom, chain0=chain0)
     fid, n_tables = sep_functor(target)
+    scaled = target.cuda_scaled
     if pos.dim() != 2 or pos.dtype != torch.float32:
         raise ValueError("the separable kernel takes float32 [C, D] "
                          f"positions; got {pos.dtype} {tuple(pos.shape)}")
@@ -131,16 +148,20 @@ def hmc_separable(target, pos, eps, n_leapfrog: int, seed: int, step: int,
     mom_o = None if mom is None else torch.empty_like(pos)
     parts = torch.empty((3, c, sep_tiles(d, threads)), dtype=torch.float32,
                         device=pos.device)
+    # the float4 path needs every row 16-byte aligned, each table row too
+    # (row 1 starts D floats after row 0)
     vec = int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (
-        pos, pos_o, tables, *(() if mom is None else (mom, mom_o)))))
+        pos, pos_o, *tables, *(() if mom is None else (mom, mom_o)))))
     seed_lo, seed_hi = rng.seed_words(seed)
     lib = _build.lib()
     hmc_separable.launches += 1
+    hmc_separable.scaled_launches += int(scaled)
     _build.check(lib.mm_hmc_separable(
         pos.data_ptr(), None if mom is None else mom.data_ptr(),
-        eps.data_ptr(), _build.params_ptr(target, pos.device),
+        eps.data_ptr(), _build.params_ptr(target, pos.device, d),
         tables.data_ptr() if n_tables else None, c, d, n_leapfrog, fid,
-        threads, vec, chain0 & _MASK, seed_lo, seed_hi, step & _MASK,
+        int(scaled), threads, vec, chain0 & _MASK, seed_lo, seed_hi,
+        step & _MASK,
         pos_o.data_ptr(), None if mom_o is None else mom_o.data_ptr(),
         parts.data_ptr(), _build.stream_ptr(pos.device),
     ))
@@ -149,3 +170,6 @@ def hmc_separable(target, pos, eps, n_leapfrog: int, seed: int, step: int,
 
 
 hmc_separable.launches = 0
+#: the launches of the scaled (diagonal-metric) instances, also counted
+#: in ``launches``
+hmc_separable.scaled_launches = 0

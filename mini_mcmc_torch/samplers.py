@@ -1,11 +1,13 @@
 """User-facing sampler objects.
 
 Counterpart of ``mini_mcmc_tpu/samplers.py`` (``_KernelSampler``,
-``MetropolisHastings``, ``HMC``, ``GibbsSampler``, ``ParallelTempering``):
-construct with a target and initial positions, optionally ``seed``, then
-``run(n_collect, n_discard)`` returns the ``[n_chains, n_collect, dim]``
-sample cube. The sampler carries the state between runs, so consecutive
-runs continue the chains.
+``MetropolisHastings``, ``HMC``, ``MALA``, ``GibbsSampler``,
+``ParallelTempering``): construct with a target and initial positions,
+optionally ``seed``, then ``run(n_collect, n_discard)`` returns the
+``[n_chains, n_collect, dim]`` sample cube. The sampler carries the state
+between runs, so consecutive runs continue the chains. ``tuned`` (HMC,
+MALA, MH) and ``warmed_up`` (HMC, MALA) return new samplers adapted by
+dual averaging (``ops/adapt.py``).
 
 Seeding: each sampler owns a CPU ``torch.Generator``. Every ``run()`` takes
 fresh words from it: a 64-bit Philox key for the fused kernel, and the seed
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from .models.base import validate_separable
+from .ops.adapt import dual_average_step_size
 from .models.precondition import (
     Preconditioner,
     estimate_preconditioner,
@@ -33,7 +36,7 @@ from .ops.kernels.gibbs_full import gibbs_instance
 from .ops.kernels.hmc_sep import sep_functor
 from .ops.kernels.mh_full import mh_instance
 from .ops.kernels.pt_full import pt_instance
-from .ops.mh import mh_kernel
+from .ops.mh import mh_kernel, mh_step_alpha
 from .ops.tempering import geometric_betas, tempering_kernel, tune_betas
 from .runner import StepKey, make_block_runner, make_simple_runner
 from .utils.init import resolve_device
@@ -104,6 +107,7 @@ class _KernelSampler:
                 f"{tuple(initial_positions.shape)}"
             )
         self.state = init_fn(initial_positions)
+        self._step_fn = step_fn
         self._gen = _generator(seed)
         # positions_map: the state's (whitened) coordinates -> the user's,
         # applied to every recorded row and to `positions`
@@ -127,6 +131,8 @@ class _KernelSampler:
         """Reseed the sampler (chainable)."""
         self._gen = _generator(seed)
         return self
+
+    set_seed = seed
 
     def _child_generator(self) -> torch.Generator:
         """A generator seeded from this sampler's stream: a sampler derived
@@ -183,9 +189,9 @@ class MetropolisHastings(_KernelSampler):
     (``"cuda"`` by default; it raises without a GPU); pass ``device="cpu"``
     for the plain tier and the kernel's plain twin on the CPU.
 
-    Not ported yet (ROADMAP.md, Queue 1): ``tuned`` (needs
-    ``ops/adapt.py``), ``run_progress`` and ``transform=``, which raises.
-    ``pallas_interpret`` and ``validate_dc`` have no counterpart.
+    :meth:`tuned` adapts the proposal scale by dual averaging. Not ported
+    yet (ROADMAP.md, Queue 1): ``run_progress`` and ``transform=``, which
+    raises. ``pallas_interpret`` and ``validate_dc`` have no counterpart.
 
     Example:
         >>> import mini_mcmc_torch as mt
@@ -208,6 +214,11 @@ class MetropolisHastings(_KernelSampler):
                              "ported yet (ROADMAP.md, Queue 1)")
         self.target = target
         self.proposal = proposal
+        #: proposal scale factor against the proposal first constructed
+        #: (1.0 unless this sampler came from :meth:`tuned`)
+        self.scale_factor = 1.0
+        self._ctor = dict(use_pallas=use_pallas,
+                          steps_per_call=steps_per_call, device=device)
         positions = initial_positions_on(initial_positions, device)
         init_fn, step_fn = mh_kernel(target, proposal, use_pallas=use_pallas,
                                      steps_per_call=steps_per_call)
@@ -216,6 +227,44 @@ class MetropolisHastings(_KernelSampler):
             mh_instance(target, proposal, positions.dtype,
                         positions.shape[1])
         super().__init__(init_fn, step_fn, positions, seed)
+
+    #: random-walk optimal acceptance rate (Roberts, Gelman & Gilks 1997)
+    _default_target_accept = 0.234
+
+    def tuned(self, n_adapt: int = 500, *, target_accept=None,
+              seed=None) -> "MetropolisHastings":
+        """A new sampler continuing from the adapted positions with the
+        proposal scale tuned by dual averaging
+        (``mini_mcmc_tpu/samplers.py:312-361``): ``n_adapt`` plain MH steps
+        from the current state (``ops/mh.py:mh_step_alpha``) drive the
+        cross-chain mean acceptance toward ``target_accept`` (default
+        0.234, the random-walk optimum); the averaged factor is then
+        frozen. Needs a proposal with a ``scaled`` family
+        (``Proposal.scaled``; the Gaussian random walks have one) and
+        raises ``ValueError`` otherwise. The new sampler's proposal is
+        ``proposal.scaled(factor)`` with ``factor`` a host float, so the
+        fused kernel gets it in ``cuda_params``; ``scale_factor`` is the
+        cumulative factor against the first proposal. Without ``seed`` the
+        new sampler's generator is seeded from this sampler's, so a seeded
+        workflow stays reproducible."""
+        if self.proposal.scaled is None:
+            raise ValueError(
+                "tuned() needs a proposal with a `scaled` family "
+                "(Proposal.scaled); the built-in Gaussian random-walk "
+                "proposals provide one")
+        if target_accept is None:
+            target_accept = self._default_target_accept
+        step_eps = mh_step_alpha(self.target, self.proposal.scaled)
+        state, factor, _ = dual_average_step_size(
+            step_eps, self.state, self._next_key(), n_adapt, 1.0,
+            target_accept)
+        new = MetropolisHastings(self.target, self.proposal.scaled(factor),
+                                 state.positions, seed=seed, **self._ctor)
+        # cumulative: self.proposal is already scaled by self.scale_factor
+        new.scale_factor = self.scale_factor * factor
+        if seed is None:
+            new._gen = self._child_generator()
+        return new
 
 
 class HMC(_KernelSampler):
@@ -248,10 +297,15 @@ class HMC(_KernelSampler):
     kernels through their affine wrapper (``models/precondition.py``).
     ``initial_positions``, recorded samples and ``positions`` stay in x;
     ``state`` and ``step_size`` are the whitened ones, ``kernel_target``
-    the whitened target. Under ``"separable"`` a diagonal metric runs the
-    plain twin on the CPU; on CUDA it raises (not ported yet).
-    ``transform`` is not ported yet and raises. Not ported either:
-    ``tuned`` and ``warmed_up`` (ROADMAP.md, Queue 1 item 4).
+    the whitened target. Under ``"separable"`` a diagonal metric runs
+    Kernel 7's scaled instance on CUDA (the scale as one more coordinate
+    table) and its twin on the CPU; a dense metric couples the coordinates
+    and the tier's validation rejects it. ``transform`` is not ported yet
+    and raises.
+
+    :meth:`tuned` dual-averages the step size, :meth:`reconditioned`
+    estimates a metric from the ensemble, and :meth:`warmed_up` composes
+    the two (``tuned``, ``reconditioned``, ``tuned``).
     """
 
     def __init__(self, target, initial_positions, step_size: float,
@@ -282,6 +336,54 @@ class HMC(_KernelSampler):
         super().__init__(init_fn, step_fn, positions, seed,
                          positions_map=positions_map)
 
+    #: the dual-averaging default: the optimal acceptance rate of
+    #: fixed-L HMC (Beskos et al. 2013); MALA overrides it with 0.574
+    _default_target_accept = 0.651
+
+    @classmethod
+    def _construct(cls, target, positions, metric, seed, ctor):
+        """The rebuild of :meth:`tuned` and :meth:`reconditioned`: a
+        subclass with a narrower signature (MALA) filters ``ctor`` here."""
+        return cls(target, positions, metric=metric, seed=seed, **ctor)
+
+    def tuned(self, n_adapt: int = 500, *, target_accept=None,
+              seed=None) -> "HMC":
+        """A new sampler continuing from the adapted positions at a step
+        size tuned by dual averaging (``mini_mcmc_tpu/samplers.py:
+        427-458``): ``n_adapt`` steps of this sampler's tier from the
+        current state (``step_fn.step_eps``; under ``"full"`` that is
+        Kernel 1's trajectory, the momentum and accept outside), then
+        ``exp(log_eps_bar)`` is frozen. ``target_accept`` defaults to the
+        algorithm's optimum (0.651 for HMC, 0.574 for MALA). The step size
+        is in the kernel's (whitened) coordinates; the positions go back
+        to x. Without ``seed`` the new sampler's generator is seeded from
+        this sampler's, so a seeded workflow stays reproducible."""
+        if target_accept is None:
+            target_accept = self._default_target_accept
+        state, eps, _ = dual_average_step_size(
+            self._step_fn.step_eps, self.state, self._next_key(), n_adapt,
+            self._ctor["step_size"], target_accept)
+        positions = (state.positions if self.metric is None
+                     else self.metric.to_x(state.positions))
+        ctor = dict(self._ctor, step_size=eps)
+        new = type(self)._construct(self.target, positions, self.metric,
+                                    seed, ctor)
+        if seed is None:
+            new._gen = self._child_generator()
+        return new
+
+    def warmed_up(self, n_adapt: int = 300, kind: str = "diag", *,
+                  target_accept=None, seed=None) -> "HMC":
+        """The warm-up in one call (``mini_mcmc_tpu/samplers.py:460-487``):
+        :meth:`tuned` (``n_adapt`` steps at the current metric, which also
+        equilibrates the ensemble), :meth:`reconditioned` (``kind``), and
+        :meth:`tuned` again in the whitened coordinates. ``target_accept``
+        applies to both tuning legs. Returns a new sampler of this class;
+        without ``seed`` its generator descends from this sampler's."""
+        rough = self.tuned(n_adapt, target_accept=target_accept)
+        pre = rough.reconditioned(kind)
+        return pre.tuned(n_adapt, target_accept=target_accept, seed=seed)
+
     def reconditioned(self, kind: str = "diag", *, seed=None,
                       step_size=None, n_leapfrog=None) -> "HMC":
         """A new HMC continuing from the current positions, whitened by a
@@ -303,10 +405,58 @@ class HMC(_KernelSampler):
             step_size if step_size is not None else eps_x / pre.sigma_min())
         if n_leapfrog is not None:
             ctor["n_leapfrog"] = n_leapfrog
-        new = HMC(self.target, self.positions, metric=pre, seed=seed, **ctor)
+        new = type(self)._construct(self.target, self.positions, pre, seed,
+                                    ctor)
         if seed is None:
             new._gen = self._child_generator()
         return new
+
+
+class MALA(HMC):
+    """Metropolis-adjusted Langevin algorithm: HMC with one leapfrog step
+    (``mini_mcmc_tpu/samplers.py:530-588``).
+
+    The proposal ``x' = x + (eps^2 / 2) grad logp(x) + eps xi``, ``xi ~
+    N(0, I)``, with the Metropolis correction, is one leapfrog step of HMC
+    and its Hamiltonian accept, term for term; so every HMC tier, a
+    ``metric=`` and the kernels carry over (``"full"``: Kernel 2 at L=1).
+    ``step_size`` is the proposal std ``eps``. :meth:`tuned` dual-averages
+    it toward the MALA optimum acceptance 0.574 (Roberts & Rosenthal
+    1998). Runs on ``device`` (``"cuda"`` by default).
+
+    Example:
+        >>> import mini_mcmc_torch as mt
+        >>> mala = mt.MALA(mt.standard_normal(), mt.init_det(4, 2,
+        ...                device="cpu"), step_size=1.0,
+        ...                device="cpu").seed(42)
+        >>> tuple(mala.run(1000, 100).shape)
+        (4, 1000, 2)
+    """
+
+    _default_target_accept = 0.574
+
+    def __init__(self, target, initial_positions, step_size: float,
+                 seed: Optional[int] = None, use_pallas=False,
+                 steps_per_call: int = 1, metric=None, transform=None, *,
+                 device="cuda"):
+        super().__init__(target, initial_positions, step_size, n_leapfrog=1,
+                         seed=seed, use_pallas=use_pallas,
+                         steps_per_call=steps_per_call, metric=metric,
+                         transform=transform, device=device)
+
+    @classmethod
+    def _construct(cls, target, positions, metric, seed, ctor):
+        ctor = {k: v for k, v in ctor.items()
+                if k not in ("n_leapfrog", "jitter")}
+        return cls(target, positions, metric=metric, seed=seed, **ctor)
+
+    def reconditioned(self, kind: str = "diag", *, seed=None,
+                      step_size=None, n_leapfrog=None) -> "MALA":
+        if n_leapfrog is not None:
+            raise ValueError(
+                "MALA has no trajectory length to override (n_leapfrog is "
+                "fixed at 1); use HMC for longer trajectories")
+        return super().reconditioned(kind, seed=seed, step_size=step_size)
 
 
 class GibbsSampler(_KernelSampler):

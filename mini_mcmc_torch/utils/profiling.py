@@ -12,6 +12,9 @@ import time
 
 import torch
 
+#: profiled calls of :func:`device_profile` before it gives up
+_PROFILE_ATTEMPTS = 3
+
 
 def sync(x):
     """Wait until every queued CUDA kernel has finished; return ``x``."""
@@ -43,7 +46,7 @@ def step_timer(fn, *args, repeats: int = 3, **kwargs):
     return result, times[len(times) // 2]
 
 
-def device_profile(fn, *args, **kwargs):
+def device_profile(fn, *args, expect: str | None = None, **kwargs):
     """Run ``fn(*args, **kwargs)`` once under ``torch.profiler`` with CUDA
     activity, completion included.
 
@@ -51,21 +54,32 @@ def device_profile(fn, *args, **kwargs):
     microseconds)})``: ``busy`` sums the device events' durations (one
     stream, so they do not overlap), and ``1 - busy / wall`` is the
     device's idle share during the call. The wall time includes the
-    profiler's own overhead.
+    profiler's own overhead. On the H100 the CUDA activity of a profiled
+    call now and then arrives without the kernels it ran; a call that
+    recorded no device event, or none whose name holds ``expect``, is
+    profiled again, up to three calls in all (``fn`` runs again each
+    time), and ``RuntimeError`` is raised if none did.
     """
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        fn(*args, **kwargs)
+    for _ in range(_PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy = sum(us for _, us in by_name.values())
-    return wall, busy, by_name
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if by_name and (expect is None
+                        or any(expect in name for name in by_name)):
+            busy = sum(us for _, us in by_name.values())
+            return wall, busy, by_name
+    what = "" if expect is None else f" of {expect!r}"
+    raise RuntimeError(f"torch.profiler recorded no device event{what} in "
+                       f"{_PROFILE_ATTEMPTS} profiled calls")

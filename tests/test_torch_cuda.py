@@ -22,7 +22,11 @@ bit-identical results under any launch grid, block of steps or chain
 split, and Kernel 4 on two streams at once. The whitened instances of
 Kernels 1-4 (a metric, ``csrc/targets.cuh:Whitened``) are held to their
 twins on the whitened target as the plain instances are, and with
-``L = I`` equal the plain instances bit for bit.
+``L = I`` equal the plain instances bit for bit; Kernel 7's scaled
+instances (a diagonal metric, ``csrc/coord_targets.cuh:Scaled``) as its
+plain ones, on the float4 and the scalar path. MALA's ``"full"`` blocks
+are Kernel 2 at L = 1, held to its twin per chain, and ``tuned`` leaves a
+finite step size on every tier.
 """
 
 import math
@@ -33,6 +37,7 @@ import torch
 
 from mini_mcmc_torch import (
     HMC,
+    MALA,
     NUTS,
     GibbsSampler,
     MetropolisHastings,
@@ -897,7 +902,105 @@ def test_cuda_hmc_metric_tiers_and_separable_raises(cuda):
         # rows and positions are x-space: the whitened state maps to them
         assert torch.equal(h.positions, pre.to(cuda).to_x(h.state.positions))
         assert torch.equal(rows[:, -1], h.positions)
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
-        HMC(standard_normal(), torch.zeros((64, 8), device=cuda), 0.1, 4,
-            use_pallas="separable", metric=Preconditioner(
-                "diag", scale=torch.ones(8)))
+    # a diagonal metric runs Kernel 7's scaled instance; one whitened
+    # twice has no form the kernel runs, and raises
+    diag = Preconditioner("diag", scale=torch.linspace(0.5, 2.0, 8))
+    n, n_scaled = hmc_separable.launches, hmc_separable.scaled_launches
+    h = HMC(standard_normal(), torch.zeros((64, 8), device=cuda), 0.1, 4,
+            use_pallas="separable", metric=diag).seed(1)
+    assert torch.isfinite(h.run(4, 4)).all()
+    assert hmc_separable.launches == n + 8
+    assert hmc_separable.scaled_launches == n_scaled + 8
+    with pytest.raises(ValueError, match="whitens it once"):
+        HMC(h.kernel_target, torch.zeros((64, 8), device=cuda), 0.1, 4,
+            use_pallas="separable", metric=diag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,d", [("standard_normal", 10_000),
+                                     ("sigma_table", 10_000),
+                                     ("sigma_table", 1001),
+                                     ("isotropic_gaussian", 37),
+                                     ("isotropic_gaussian", 3)])
+def test_cuda_scaled_separable_matches_plain(cuda, which, d):
+    """Kernel 7's scaled instance against its twin, per chain, on the
+    float4 path (D a multiple of 4) and the scalar one (odd D); at D=3
+    the functor's std sits past L's triangle in ``cuda_params``."""
+    c, n_leapfrog, seed, step = 512, 10, 0x5EED_99, 4
+    g = np.random.default_rng(51)
+    x = torch.from_numpy(g.standard_normal((c, d)).astype(np.float32))
+    if which == "standard_normal":
+        t = standard_normal()
+    elif which == "isotropic_gaussian":
+        t = isotropic_gaussian_target(1.5)
+    else:
+        t = _sigma_target(torch.logspace(-1, 1, d).to(cuda))
+    scale = torch.from_numpy((0.2 + 2.0 * g.random(d)).astype(np.float32))
+    pre = Preconditioner("diag", scale=scale.to(cuda))
+    w = precondition_target(t, pre)
+    assert w.cuda_scaled
+    y = pre.to_y(x.to(cuda)).contiguous()
+    tables = torch.cat([s.reshape(1, -1).to(cuda)
+                        for s in w.sep_forms()[1]])
+    eps = torch.tensor([0.15], device=cuda)
+    n = hmc_separable.scaled_launches
+    got = hmc_separable(w, y, eps, n_leapfrog, seed, step, tables)
+    assert hmc_separable.scaled_launches == n + 1
+    want = hmc_separable_plain(w, y, eps, n_leapfrog, seed, step, tables)
+    ref = hmc_separable_plain(w, y.double(), eps.double(), n_leapfrog, seed,
+                              step, tables.double())
+    torch.cuda.synchronize()
+    assert _share(((got[0] - want[0]).abs() <= ATOL + RTOL * want[0].abs())
+                  .all(1)) >= 0.999
+    near = (got[0] - ref[0]).abs() <= ATOL + RTOL * ref[0].abs()
+    assert _share(near.all(1)) >= 0.999
+    for a, b in zip(got[1:4], ref[1:4]):  # the sums, against float64
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    small = hmc_separable(w, y, eps, n_leapfrog, seed, step, tables,
+                          threads=64)
+    assert torch.equal(small[0], got[0])
+
+
+@pytest.mark.cuda
+def test_cuda_mala_full_blocks_match_plain(cuda):
+    """MALA's "full" tier is Kernel 2 at L = 1: a K = 16 block against its
+    twin per chain, and the sampler's launches."""
+    t = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+    x = torch.from_numpy(_nuts_state(8192, 71)[0]).to(cuda)
+    lp, g = t.batch_logp_and_grad(x)
+    eps = torch.full((16,), 0.9, device=cuda)
+    hk = torch.empty((16, 8192, 2), device=cuda)
+    hp = torch.empty_like(hk)
+    k = hmc_multistep(t, x, lp, g, eps, 1, 0x5EED_3, 0, hk)
+    p = hmc_multistep_plain(t, x, lp, g, eps, 1, 0x5EED_3, 0, hp)
+    torch.cuda.synchronize()
+    ok = ((hk - hp).abs() <= ATOL + RTOL * hp.abs()).all(2).all(0)
+    ok &= ((k[0] - p[0]).abs() <= ATOL + RTOL * p[0].abs()).all(1)
+    assert _share(ok) >= 0.999
+    n = hmc_multistep.launches
+    m = MALA(t, x, 0.9, use_pallas="full", steps_per_call=16).seed(2)
+    rows = m.run(64, 32)
+    assert hmc_multistep.launches == n + 6
+    assert rows.is_cuda and torch.isfinite(rows).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", [False, True, "full", "separable"])
+def test_cuda_tuned_leaves_a_finite_step_size(cuda, tier):
+    target = (standard_normal() if tier == "separable"
+              else diffable_gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]]))
+    x = torch.randn((1024, 2), device=cuda)
+    for sampler in (MALA(target, x, 3.0, use_pallas=tier),
+                    HMC(target, x, 3.0, 4, use_pallas=tier)):
+        tuned = sampler.seed(4).tuned(100)
+        assert math.isfinite(tuned.step_size) and tuned.step_size > 0
+        assert type(tuned) is type(sampler)
+        assert torch.isfinite(tuned.run(8, 8)).all()
+    if tier in (False, "full"):
+        mh = MetropolisHastings(gaussian2d([0.0, 0.0], [[1.0, 0.0],
+                                                        [0.0, 1.0]]),
+                                isotropic_gaussian_proposal(25.0), x,
+                                use_pallas=tier).seed(4).tuned(100)
+        assert 0.0 < mh.scale_factor < 1.0
+        assert torch.isfinite(mh.run(8, 8)).all()

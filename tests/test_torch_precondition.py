@@ -193,6 +193,33 @@ def test_whitening_twice_composes_one_affine_form():
                                _np(once.batch_logp(y)), rtol=1e-12)
 
 
+def test_diag_whitening_at_large_d_builds_no_square():
+    """A diag metric at D=10,000 builds in well under a second with no
+    D^2 parameters (the lower triangle would be 50,005,000 floats); at
+    D <= 4 the kernels' parameters are L's triangle as before."""
+    import time
+
+    pre = Preconditioner("diag", scale=torch.logspace(-1, 1, 10_000))
+    t0 = time.perf_counter()
+    w = precondition_target(mt.standard_normal(), pre)
+    h = mt.HMC(mt.standard_normal(), torch.zeros((4, 10_000)), 0.1, 2,
+               use_pallas="separable", metric=pre, **CPU)
+    assert time.perf_counter() - t0 < 1.0
+    assert pre.dim == 10_000 and w.cuda_params == () and w.cuda_affine
+    assert h.kernel_target.cuda_params == ()
+    iso = mt.models.isotropic_gaussian_target(2.0)
+    assert precondition_target(iso, pre).cuda_params == (2.0,)
+    for d in (2, 3, 4):
+        for kind in ("diag", "dense"):
+            small, _ = _pres(d, kind, seed=d, dtype=np.float32)
+            ell = _np(small.matrix).astype(np.float64)
+            want = tuple(float(ell[i, j]) for i in range(d)
+                         for j in range(i + 1))
+            t = mt.rosenbrock_nd()
+            assert precondition_target(t, small).cuda_params == (
+                want + t.cuda_params)
+
+
 @pytest.mark.parametrize("kind", ["diag", "dense"])
 def test_leapfrog_twin_on_whitened_target_matches_jax_pallas(kind):
     # tests/test_precondition.py:205-215 through the port: Kernel 1's twin

@@ -234,6 +234,67 @@ def test_coordinate_functors_are_named():
     assert sep_tiles(40) == sep_tiles(1) == 1
 
 
+@pytest.mark.parametrize("case", ["standard_normal", "sigma_table"])
+def test_twin_on_a_diag_whitened_target_matches_interpreted_pallas(case):
+    """The scaled instance's twin: the whitened ``sep_form`` (the scale as
+    the last table) against ``make_pallas_hmc_separable(interpret=True,
+    mom_input=True)`` on JAX's whitened target, C=8, D=40 over [4, 10] JAX
+    tiles, as above."""
+    g = np.random.RandomState(5 if case == "standard_normal" else 6)
+    c, d, n_leapfrog, eps = 8, 40, 6, 0.1
+    if case == "standard_normal":
+        jt, tt = jm.standard_normal(), mt.standard_normal()
+    else:
+        jt, tt = _sigma_targets((0.5 + g.rand(d)).astype(np.float32))
+    scale = (0.3 + 2.0 * g.rand(d)).astype(np.float32)
+    jw = jm.precondition_target(jt, jm.Preconditioner(
+        "diag", scale=jnp.asarray(scale)))
+    tw = mt.precondition_target(tt, mt.Preconditioner(
+        "diag", scale=torch.from_numpy(scale)))
+    pos = g.randn(c, d).astype(np.float32)
+    mom = g.randn(c, d).astype(np.float32)
+
+    fn, tabs = jw.sep_forms()
+    traj = make_pallas_hmc_separable(fn, n_leapfrog, n_tables=len(tabs),
+                                     interpret=True, mom_input=True,
+                                     block_c=4, block_d=10)
+    jtabs = tuple(jnp.asarray(t, jnp.float32).reshape(1, -1) for t in tabs)
+    pos_j, mom_j, pe, ke0, ke1 = (np.asarray(a) for a in traj(
+        jnp.asarray(pos), jnp.asarray(mom), eps, *jtabs))
+
+    n_inner = len(tt.sep_forms()[1])
+    assert tw.cuda_scaled and sep_functor(tw)[1] == n_inner + 1
+    tables = torch.cat([t.float() for t in tw.sep_forms()[1]])
+    assert tables.shape == (n_inner + 1, d) and len(tabs) == n_inner + 1
+    pos_t, logp_t, ke0_t, ke1_t, mom_t = hmc_separable(
+        tw, torch.from_numpy(pos), torch.tensor([eps]), n_leapfrog, 0, 0,
+        tables, torch.from_numpy(mom))
+    for got, want in ((pos_t, pos_j), (mom_t, mom_j),
+                      (logp_t, pe.sum(1)), (ke0_t, ke0.sum(1)),
+                      (ke1_t, ke1.sum(1))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_only_a_target_whitened_once_by_a_diag_metric_is_scaled():
+    d = 12
+    diag = mt.Preconditioner("diag", scale=torch.linspace(0.5, 2.0, d))
+    dense = mt.Preconditioner("dense", chol=torch.eye(d))
+    for t, fid, n in ((mt.standard_normal(), 0, 0),
+                      (mt.models.isotropic_gaussian_target(2.0), 1, 0),
+                      (_sigma_targets(np.ones(d, np.float32))[1], 2, 1)):
+        w = mt.precondition_target(t, diag)
+        assert w.cuda_scaled and w.cuda_params == t.cuda_params
+        assert sep_functor(w) == (fid, n + 1)
+        # whitened twice, or by a dense metric: no form the kernel runs
+        for bad in (mt.precondition_target(w, diag),
+                    mt.precondition_target(t, dense),
+                    mt.precondition_target(mt.precondition_target(
+                        t, dense), diag)):
+            assert bad.cuda_affine and not bad.cuda_scaled
+            with pytest.raises(ValueError, match="whitens it once"):
+                sep_functor(bad)
+
+
 @pytest.mark.parametrize("d,chain0", [(40, 0), (10, 3), (7, 2**32 - 2)])
 def test_paired_normals_are_the_philox_words(d, chain0):
     """The twin's paired Box-Muller momenta from the Philox twin's words:
