@@ -16,7 +16,8 @@ Phases, one line each (every check raises on failure):
    1-4 and the scaled ones of Kernel 7 included); with ``--profile``, each
    Kernel 5 and 6
    instance's K loop in its SASS (``cuobjdump -sass``): instructions per
-   step, by kind;
+   step, by kind, and each Kernel 7 instance's leapfrog loop, which must
+   hold no division (``[sass_k7]``: no MUFU.RCP, FCHK or CALL);
 3. Philox: the known-answer vector, and CUDA bits equal to the plain bits
    on 2**20 counters;
 4. the main path at the flagship size of ``bench.py`` (Rosenbrock3D HMC,
@@ -43,7 +44,9 @@ Phases, one line each (every check raises on failure):
    ``run(2048, 0)`` twice): the gates of ``bench.py:757-766``, Kernel 1's
    256 launches while tuning and Kernel 2's 128 per run at L = 1; then
    Kernel 2 at L = 1 against its plain version for one block, and both
-   times (``--profile``: the run under ``torch.profiler``);
+   times, and Kernel 1 at L = 1 (the tuning path's trajectory) and its
+   plain version's (``--profile``: the run under ``torch.profiler`` and
+   Kernel 1's device time at L = 1);
 9. the NUTS stage of ``bench.py`` (Gaussian2D, 131,072 chains, 2,048 + 128
    draws) through ``mini_mcmc_torch.NUTS(use_pallas="full")``: adaptation
    run, timed run, the five ``bench_nuts`` gates, Kernel 4's launch count
@@ -97,23 +100,31 @@ Phases, one line each (every check raises on failure):
     a 5.24 GB cube) through ``mini_mcmc_torch.HMC(use_pallas="separable")``
     and through the plain tier: the four ``bench.py:635-640`` gates on each,
     time per run, draws/s, coordinate updates/s, the speedup over the plain
-    tier, Kernel 7's launch count (256 per run);
+    tier, Kernel 7's launch count (256 fused steps per run, no two-pass
+    launch);
 19. its L-scaling sub-stage (``bench.py:668-700``: seed 3, eps 0.05,
     L = 40, ``run(32, 32)``) through both tiers: the moment gates, the
     speedup, Kernel 7's launch count (64 per run);
-20. Kernel 7 against its plain version for one step from the stage's
-    equilibrium state (the proposal per chain against a float64 twin, the
-    three sums at rtol 1e-5, the draws under two launch grids) and both
-    times (CUDA events, L = 10 and 40);
+20. Kernel 7 against its plain versions for one step from the stage's
+    equilibrium state: the trajectory-only form (the proposal per chain
+    against a float64 twin, the three sums at rtol 1e-5, the draws under
+    two launch grids) and the fused step (accept decisions per chain
+    against the float32 and float64 twins, positions per chain against
+    float64, logp and alpha_c, the same step in clusters of 10 and in the
+    two-pass form), and the times of both
+    forms and the twin (CUDA events, L = 10 and 40);
 20a. the separable stage's shape on the heterogeneous normal (sigma_d =
     logspace(-1, 1, D)): ``HMC(use_pallas="separable").seed(2)
     .warmed_up(128, "diag")``, ``run(128, 128)`` twice through Kernel 7's
     scaled instance (a diagonal metric), the separable gates on z = x /
     sigma, its launches (128 unscaled while tuning, 640 scaled), and 32
     steps at the tuned eps averaging an acceptance within 0.10 of 0.651;
-    then the scaled instance against its plain version as in 20, its time
-    and its twin's, and its device time alone beside the unscaled
-    instances' (``torch.profiler``);
+    then the scaled instance against its plain versions as in 20, its
+    time and its twin's; with ``--profile``, the device time alone
+    (``[k7_alone]``, ``torch.profiler``) of the fused step in clusters of
+    5 and of 10 and of the trajectory-only form, for the standard normal,
+    the sigma table and the scaled sigma table, and each separable run under ``torch.profiler``
+    with no ``[C, D]`` kernel launched a step beside Kernel 7;
 21. the tempering stage of ``bench.py:858-909`` (the 0.3/0.7 mixture of
     N(-8, 0.5^2) and N(8, 0.5^2), 8,192 chains started at -8, 8 rungs,
     K = 16, ``run(2048, 0)`` twice) through
@@ -161,8 +172,12 @@ from mini_mcmc_torch.ops.kernels.hmc_full import (
     hmc_multistep_plain,
 )
 from mini_mcmc_torch.ops.kernels.hmc_sep import (
+    accept_uniforms,
     hmc_separable,
     hmc_separable_plain,
+    hmc_separable_step,
+    hmc_separable_step_plain,
+    sep_fused,
 )
 from mini_mcmc_torch.ops.kernels.mh_full import (
     mh_multistep,
@@ -225,8 +240,10 @@ MH_SHARE = 0.999
 SEP_CHAINS, SEP_DIM, SEP_COLLECT, SEP_L, SEP_EPS = 1024, 10_000, 128, 10, 0.1
 SEP_L40, SEP_EPS40, SEP_COLLECT40 = 40, 0.05, 32
 SEP_DIAG_DIM = 1024  # R-hat and ESS on the contiguous [128, 1024, 1024]
-# Kernel 7 against its twin: the three per-chain sums at rtol 1e-5
+# Kernel 7 against its twin: the three per-chain sums at rtol 1e-5, the
+# fused step's alpha_c against the float64 twin's at 1e-2 absolute
 SEP_SUM_RTOL = 1e-5
+SEP_ALPHA_ATOL = 1e-2
 
 # the tempering stage of bench.py:858-909
 PT_CHAINS, PT_COLLECT, PT_TEMPS, PT_K = 8192, 2048, 8, 16
@@ -290,6 +307,10 @@ OPS = {
     "sep_scaled_coef": 6,  # per coordinate once: (s / sigma)^2, a
                            # division (a reciprocal and its Newton step)
                            # and two products
+    "sep_accept": 30,  # per chain: the tiles' sums, logf(u), the compare,
+                       # expf and the selects of the fused step
+    "affine_d3": 12,  # a whitened density at D = 3: x = L y and g_y =
+                      # L^T g_x, D (D + 1) / 2 FMAs each
 }
 
 
@@ -383,6 +404,7 @@ KERNELS = {
     "mh_multistep": mh_multistep,
     "gibbs_multistep": gibbs_multistep,
     "hmc_separable": hmc_separable,
+    "hmc_separable_step": hmc_separable_step,
     "pt_multistep": pt_multistep,
 }
 TWINS = {
@@ -393,6 +415,7 @@ TWINS = {
     "plain_mh_multistep_calls": mh_multistep_plain,
     "plain_gibbs_multistep_calls": gibbs_multistep_plain,
     "plain_hmc_separable_calls": hmc_separable_plain,
+    "plain_hmc_separable_step_calls": hmc_separable_step_plain,
     "plain_pt_multistep_calls": pt_multistep_plain,
 }
 
@@ -403,12 +426,15 @@ def reset_counts() -> None:
     for fn in TWINS.values():
         fn.calls = 0
     hmc_separable.scaled_launches = 0
+    hmc_separable_step.scaled_launches = 0
 
 
 def read_counts() -> dict:
     counts = {name: fn.launches for name, fn in KERNELS.items()}
-    # Kernel 7's scaled (diagonal-metric) instances, also in its launches
+    # Kernel 7's scaled (diagonal-metric) instances, also in its launches:
+    # the trajectory-only (two-pass) form and the fused step
     counts["hmc_separable_scaled"] = hmc_separable.scaled_launches
+    counts["hmc_separable_step_scaled"] = hmc_separable_step.scaled_launches
     counts.update({name: fn.calls for name, fn in TWINS.items()})
     return counts
 
@@ -538,16 +564,7 @@ def sass_step_count(insns, labels, stores_per_step: int) -> dict:
     steps per iteration (stores / ``stores_per_step``), instructions per
     step in all and by SASS_GROUPS."""
     best = None
-    for addr, op, rest in insns:
-        if not op.startswith("BRA"):
-            continue
-        target = re.search(r"\((\.L_x_\d+)\)", rest)
-        hexa = re.search(r"0x([0-9a-f]+)", rest)
-        to = (labels.get(target.group(1)) if target
-              else int(hexa.group(1), 16) if hexa else None)
-        if to is None or to > addr:
-            continue
-        body = [i for i in insns if to <= i[0] <= addr]
+    for body in sass_loops(insns, labels):
         stores = sum(op.startswith("STG") for _, op, _ in body)
         if best is None or (stores, len(body)) > (best[0], len(best[1])):
             best = (stores, body)
@@ -564,11 +581,46 @@ def sass_step_count(insns, labels, stores_per_step: int) -> dict:
     return out
 
 
+def sass_loops(insns, labels):
+    """The loops of a kernel's SASS: for each backward branch (to a label
+    or an address), the instructions from its target to the branch."""
+    for addr, op, rest in insns:
+        if not op.startswith("BRA"):
+            continue
+        target = re.search(r"\((\.L_x_\d+)\)", rest)
+        hexa = re.search(r"0x([0-9a-f]+)", rest)
+        to = (labels.get(target.group(1)) if target
+              else int(hexa.group(1), 16) if hexa else None)
+        if to is not None and to <= addr:
+            yield [i for i in insns if to <= i[0] <= addr]
+
+
+def sass_leapfrog_loop(insns, labels) -> dict:
+    """Kernel 7's leapfrog loop in its SASS: the loop that holds the most
+    FFMAs, its length and its FP32 and division opcodes (an IEEE division
+    is MUFU.RCP and FCHK, its slow path a CALL)."""
+    best = max(([op for _, op, _ in body] for body in sass_loops(
+        insns, labels)), key=lambda ops: sum(o.startswith("FFMA")
+                                             for o in ops), default=[])
+    return {"loop": len(best),
+            **{k: sum(o.startswith(k) for o in best)
+               for k in ("FFMA", "FMUL", "MUFU.RCP", "FCHK", "CALL")}}
+
+
 def phase_sass(so, reported) -> None:
     """``--profile``: each Kernel 5 and 6 instance's SASS per step (the
     static K loop, slow paths that the compiler placed inside it included)
-    and its registers."""
+    and its registers; each Kernel 7 instance's leapfrog loop, which must
+    hold no division (no MUFU.RCP, FCHK or CALL)."""
     for name, (insns, labels) in sass_functions(so).items():
+        if name.startswith("hmc_separable_kernel"):
+            loop = sass_leapfrog_loop(insns, labels)
+            say("sass_k7", kernel=name[:72], instructions=len(insns),
+                **reported.get(name, {}), **loop)
+            check(f"no division in Kernel 7's leapfrog loop ({name[:60]})",
+                  loop["FFMA"] > 0 and loop["MUFU.RCP"] == loop["FCHK"]
+                  == loop["CALL"] == 0, loop)
+            continue
         if not name.startswith(("mh_multistep_kernel",
                                 "gibbs_multistep_kernel")):
             continue
@@ -1581,9 +1633,20 @@ def phase_k56_alone(dev, reps: int = 100) -> None:
             event_ms=cuda_ms(launch, reps))
 
 
-def phase_runs_profile(runs) -> None:
+#: device µs under which a launch cannot be a [C, D] pass of the separable
+#: stage: reading and writing 41 MB takes 24 µs at 3.35 TB/s
+SEP_CD_US = 5.0
+
+
+def phase_runs_profile(runs, sep_steps: int | None = None) -> None:
     """``--profile``: one run of each ``(label, fn)`` path under
-    ``torch.profiler``: device time by kernel and the idle share."""
+    ``torch.profiler``: device time by kernel and the idle share. With
+    ``sep_steps`` (a separable run of that many steps), also the launches
+    a step and a check that nothing launched once a step besides Kernel 7
+    is a ``[C, D]`` pass (every such launch under SEP_CD_US): a kernel
+    recorded on at least three quarters of the steps (the profiler misses
+    a few launches; the recorded rows' copy and map run on half of them,
+    one a kept draw)."""
     for label, fn in runs:
         wall, busy, by_name = device_profile(fn)
         say(f"{label}_profile_run", wall_s=repr(wall),
@@ -1593,6 +1656,16 @@ def phase_runs_profile(runs) -> None:
                                     key=lambda kv: -kv[1][1])[:6]:
             say(f"{label}_profile_kernel", name=repr(name[:60]), count=n,
                 device_us=us, per_launch_us=us / n, share_of_busy=us / busy)
+        if sep_steps is None:
+            continue
+        per_step = {name: (n, us / n) for name, (n, us) in by_name.items()
+                    if 4 * n >= 3 * sep_steps
+                    and "hmc_separable_kernel" not in name}
+        say(f"{label}_profile_per_step", steps=sep_steps,
+            launches_per_step=sum(n for n, _ in by_name.values()) / sep_steps,
+            others=repr({k[:60]: v for k, v in per_step.items()}))
+        check(f"{label} no [C, D] kernel a step beside Kernel 7",
+              all(us < SEP_CD_US for _, us in per_step.values()), per_step)
 
 
 def phase_sep_main_path(dev):
@@ -1614,8 +1687,9 @@ def phase_sep_main_path(dev):
         label = "separable" if tier else "plain"
         if tier:
             counts, sep = c, h
-            check("sep main-path launches and no plain twin",
-                  c == counts_with(hmc_separable=2 * steps), c)
+            check("sep main-path launches: fused steps, no two-pass "
+                  "launch and no plain twin",
+                  c == counts_with(hmc_separable_step=2 * steps), c)
         else:
             check("sep plain tier launches no kernel",
                   not any(c[k] for k in KERNELS), c)
@@ -1673,13 +1747,13 @@ def phase_sep_l40(dev) -> dict:
         c = read_counts()
         steps = 2 * SEP_COLLECT40
         check(f"sep L40 {label} launches", c == counts_with(
-            hmc_separable=2 * steps) if tier else not any(
+            hmc_separable_step=2 * steps) if tier else not any(
                 c[k] for k in KERNELS), c)
         var, mean = torch.var_mean(cube, correction=0)
         m = {"elapsed_s": elapsed, "mean": float(mean), "var": float(var),
              "draws_per_sec": steps * SEP_CHAINS / elapsed,
              "grad_evals_per_sec": steps * SEP_CHAINS * SEP_L40 / elapsed,
-             "launches": c["hmc_separable"]}
+             "launches": c["hmc_separable_step"]}
         del cube, h
         torch.cuda.empty_cache()
         check(f"sep L40 {label} finite and mean", abs(m["mean"]) < 0.03,
@@ -1757,20 +1831,118 @@ def sep_kernel_check(target, pos, eps_value: float, label: str):
     return err, args
 
 
+def decisions(new_pos, pos) -> torch.Tensor:
+    """Per chain, whether a step moved it (accepted): a proposal equal to
+    the start in every coordinate has probability 0 at these shapes."""
+    return (new_pos != pos.to(new_pos.dtype)).any(dim=1)
+
+
+def sep_step_check(target, pos, logp, eps_value: float, label: str):
+    """Kernel 7's fused step against its twins for one L = 10 step from
+    ``(pos, logp)``, same key and step: the accept decisions per chain
+    (>= 99.9% equal to the float32 twin's and to the float64 twin's on the
+    same draws, on the chains that are no tie: a float64 accept_logp
+    within the float32 sums' error bound of log(u), where either decision
+    is right; ties at most 10%; each decision the kernel's own, alpha_c >=
+    u), and on the chains whose
+    decision agrees the positions against the float64 twin and logp
+    within rtol 1e-5; alpha_c of every chain whose float64 accept_logp is
+    no NaN within 1e-2 of the float64 twin's; then the same step in
+    clusters of 10 (threads=128) and in the two-pass
+    form (threads=32: 40 tiles, past the cluster limit; one trajectory
+    launch counted apart). Returns (max abs error against the float32
+    twin, the launch's arguments)."""
+    tables = sep_tables(target, pos)
+    eps = torch.tensor([eps_value], device=pos.device)
+    seed, step = 0x5EED_7777_0202, 6
+    args = (target, pos, logp, eps, SEP_L, seed, step, tables)
+    got = hmc_separable_step(*args)
+    want = hmc_separable_step_plain(*args)
+    ref = hmc_separable_step_plain(target, pos.double(), logp.double(),
+                                   eps.double(), SEP_L, seed, step,
+                                   tables.double())
+    other = {"clusters_of_10": hmc_separable_step(*args, threads=128)}
+    check(f"{label} threads=32 is past the cluster limit",
+          not sep_fused(pos.shape[1], 32), pos.shape[1])
+    n_two = hmc_separable.launches
+    other["two_pass"] = hmc_separable_step(*args, threads=32)
+    check(f"{label} two-pass form: one trajectory launch",
+          hmc_separable.launches == n_two + 1, hmc_separable.launches - n_two)
+    torch.cuda.synchronize()
+    # the float64 sums and the ties
+    _, lp_prop, ke0, ke1, _ = hmc_separable_plain(
+        target, pos.double(), eps.double(), SEP_L, seed, step,
+        tables.double())
+    lp64 = logp.double()
+    mag = lp64.abs() + lp_prop.abs() + ke0 + ke1
+    u = accept_uniforms(pos.shape[0], step, seed, pos.device)
+    # a float32 sum of D terms in (log2(D) + 8) rounds errs by at most
+    # that many ulps of the terms' magnitude
+    ulps = (math.log2(pos.shape[1]) + 8) * 2.0 ** -24
+    accept_logp64 = (-lp64 + ke0) - (-lp_prop + ke1)
+    tie = (accept_logp64 - u.double().log()).abs() <= ulps * mag
+    acc_k, acc_p, acc_r = (decisions(o[0], pos) for o in (got, want, ref))
+    same = acc_k == acc_r
+    # each decision is the kernel's own: a chain moved iff alpha_c >= u,
+    # up to the rounding of expf and logf
+    own = (acc_k == (got[2] >= u)) | ((got[2] - u).abs() <= 1e-6)
+
+    def share(ok, where):
+        return float(ok[where].float().mean()) if bool(where.any()) else 1.0
+
+    shares = {
+        "same_decision_vs_plain": share(acc_k == acc_p, ~tie),
+        "same_decision_vs_f64": share(same, ~tie),
+        "positions_vs_f64": share(chain_agree(got[0], ref[0].float()),
+                                  same),
+    }
+    for k, o in other.items():
+        shares[f"{k}_same_positions"] = share((o[0] == got[0]).all(dim=1),
+                                              ~tie)
+    logp_ok = (got[1].double() - ref[1]).abs() <= SEP_SUM_RTOL * ref[1].abs()
+    shares["logp_vs_f64"] = share(logp_ok, same)
+    # alpha_c does not depend on the decision: every chain with a number
+    # (a NaN or inf of the kernel's own fails the gate)
+    alpha_d = (got[2].double() - ref[2]).abs()[~accept_logp64.isnan()]
+    alpha_err = float(alpha_d.max()) if alpha_d.numel() else 0.0
+    err = max_abs_err(got[0], want[0], acc_k == acc_p)
+    say(label, chains=pos.shape[0], D=pos.shape[1], L=SEP_L,
+        tables=tables.shape[0], scaled=target.cuda_scaled,
+        accept_rate=float(acc_k.float().mean()),
+        mean_alpha=float(got[2].mean()), ties=int(tie.sum()),
+        **{f"share_{k}": v for k, v in shares.items()},
+        max_abs_err=err,
+        max_abs_err_f64=max_abs_err(got[0].double(), ref[0], same),
+        alpha_max_abs_err_f64=alpha_err, alpha_atol=SEP_ALPHA_ATOL)
+    check(f"{label} ties at most 10%", float(tie.float().mean()) <= 0.1,
+          int(tie.sum()))
+    check(f"{label} alpha_c within {SEP_ALPHA_ATOL} of the float64 twin",
+          alpha_err <= SEP_ALPHA_ATOL, alpha_err)
+    check(f"{label} decisions follow alpha_c and u", bool(own.all()),
+          int((~own).sum()))
+    for k, v in shares.items():
+        check(f"{label} {k}", v >= 0.999, shares)
+    return err, args
+
+
 def phase_sep_kernel(sep, dev) -> dict:
-    """Kernel 7 against its twin for one step from the stage's
-    equilibrium state (:func:`sep_kernel_check`), then the times of both
-    at L = 10 and 40."""
+    """Kernel 7 against its twins for one step from the stage's
+    equilibrium state (:func:`sep_kernel_check`, the trajectory-only form;
+    :func:`sep_step_check`, the fused step), then the times of the fused
+    step, its twin and the trajectory-only form at L = 10 and 40."""
     target, pos = sep.target, sep.state.positions
-    err, args = sep_kernel_check(target, pos, SEP_EPS, "sep_kernel")
-    seed, step, tables = args[4], args[5], args[6]
+    sep_kernel_check(target, pos, SEP_EPS, "sep_kernel")
+    err, args = sep_step_check(target, pos, sep.state.logp, SEP_EPS,
+                               "sep_step")
+    traj = (target, pos) + args[3:]
     t = {"err": err,
-         "ms": cuda_ms(lambda: hmc_separable(*args), 20),
-         "plain_ms": cuda_ms(lambda: hmc_separable_plain(*args), 3)}
-    args40 = (target, pos, torch.tensor([SEP_EPS40], device=dev), SEP_L40,
-              seed, step, tables)
-    t["ms_L40"] = cuda_ms(lambda: hmc_separable(*args40), 20)
-    t["plain_ms_L40"] = cuda_ms(lambda: hmc_separable_plain(*args40), 3)
+         "ms": cuda_ms(lambda: hmc_separable_step(*args), 20),
+         "plain_ms": cuda_ms(lambda: hmc_separable_step_plain(*args), 3),
+         "ms_trajectory_only": cuda_ms(lambda: hmc_separable(*traj), 20)}
+    args40 = args[:3] + (torch.tensor([SEP_EPS40], device=dev), SEP_L40,
+                         *args[5:])
+    t["ms_L40"] = cuda_ms(lambda: hmc_separable_step(*args40), 20)
+    t["plain_ms_L40"] = cuda_ms(lambda: hmc_separable_step_plain(*args40), 3)
     say("sep_times", shape=f"C={SEP_CHAINS},D={SEP_DIM}",
         **{k: repr(v) for k, v in t.items() if k != "err"})
     return t
@@ -1938,18 +2110,38 @@ def phase_mala_tuned(dev):
     return ml, counts, m
 
 
-def phase_mala_kernel(ml, dev) -> dict:
+def phase_mala_kernel(ml, dev, profile: bool = False) -> dict:
     """Kernel 2 at L = 1 against its twin for one K = 16 block from the
     MALA stage's equilibrium (:func:`phase_multistep`), and both times at
-    the stage's shapes (CUDA events)."""
+    the stage's shapes (CUDA events); then Kernel 1 at L = 1 there, the
+    trajectory ``tuned(256)`` launches, and its twin's time; with
+    ``profile``, Kernel 1's device µs a launch over 50 launches
+    (``torch.profiler``, over the launches it recorded)."""
     target, s, eps = ml.kernel_target, ml.state, ml.step_size
     err = phase_multistep(target, s, dev, eps, label="multistep_mala",
                           n_leapfrog=1)
     eps_k = torch.full((MALA_K,), eps, device=dev)
     hist = torch.empty((MALA_K,) + tuple(s.positions.shape), device=dev)
     args = (target, s.positions, s.logp, s.grad, eps_k, 1, 1, 0, hist)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mom = torch.randn(s.positions.shape, generator=gen, device=dev)
+    lf_args = (target, s.positions, mom, s.grad,
+               torch.tensor([eps], device=dev), 1)
     t = {"err": err, "ms": cuda_ms(lambda: hmc_multistep(*args), 50),
-         "plain_ms": cuda_ms(lambda: hmc_multistep_plain(*args), 3)}
+         "plain_ms": cuda_ms(lambda: hmc_multistep_plain(*args), 3),
+         "leapfrog_ms": cuda_ms(lambda: leapfrog_trajectory(*lf_args), 50),
+         "leapfrog_plain_ms": cuda_ms(lambda: leapfrog_trajectory_plain(
+             *lf_args[:4], lf_args[4][0], 1), 5)}
+    if profile:
+        reps = 50
+        _, _, by_name = device_profile(
+            lambda: [leapfrog_trajectory(*lf_args) for _ in range(reps)],
+            expect="leapfrog_kernel")
+        n, us = next(v for k, v in by_name.items() if "leapfrog_kernel" in k)
+        check("profiled leapfrog L=1 launches", 0 < n <= reps, n)
+        t["leapfrog_device_us"] = us / n
+        say("profile_leapfrog_mala", L=1, calls=reps, recorded=n,
+            device_us_per_call=us / n)
     say("mala_times", shape=f"C={MALA_CHAINS},D=2,L=1,K={MALA_K}",
         **{k: repr(v) for k, v in t.items() if k != "err"})
     return t
@@ -2049,8 +2241,8 @@ def phase_sep_warmed_up(dev):
     steps = 2 * SEP_COLLECT
     scaled = SEP_WARM_ADAPT + 2 * steps  # the second leg and both runs
     check("sep warmed_up launches and no plain twin", counts == counts_with(
-        hmc_separable=SEP_WARM_ADAPT + scaled, hmc_separable_scaled=scaled),
-        counts)
+        hmc_separable_step=SEP_WARM_ADAPT + scaled,
+        hmc_separable_step_scaled=scaled), counts)
     check("sep warmed_up sample", tuple(sample.shape) == (
         SEP_COLLECT, SEP_CHAINS, SEP_DIM) and bool(
             torch.isfinite(sample).all()), tuple(sample.shape))
@@ -2097,52 +2289,82 @@ def phase_sep_warmed_up(dev):
 
 
 def phase_sep_scaled_kernel(w, dev) -> dict:
-    """Kernel 7's scaled instance against its twin for one step from the
-    warmed-up stage's equilibrium (:func:`sep_kernel_check`), and its time
-    and its twin's (CUDA events); its device time alone is
+    """Kernel 7's scaled instance against its twins for one step from the
+    warmed-up stage's equilibrium (:func:`sep_kernel_check`,
+    :func:`sep_step_check`), and the times of its fused step, its twin and
+    its trajectory-only form (CUDA events); its device time alone is
     :func:`phase_k7_alone`'s (``--profile``)."""
     target, pos = w.kernel_target, w.state.positions
-    err, args = sep_kernel_check(target, pos, w.step_size,
-                                 "sep_scaled_kernel")
-    t = {"err": err, "ms": cuda_ms(lambda: hmc_separable(*args), 20),
-         "plain_ms": cuda_ms(lambda: hmc_separable_plain(*args), 3)}
+    sep_kernel_check(target, pos, w.step_size, "sep_scaled_kernel")
+    err, args = sep_step_check(target, pos, w.state.logp, w.step_size,
+                               "sep_scaled_step")
+    traj = (target, pos) + args[3:]
+    t = {"err": err, "ms": cuda_ms(lambda: hmc_separable_step(*args), 20),
+         "plain_ms": cuda_ms(lambda: hmc_separable_step_plain(*args), 3),
+         "ms_trajectory_only": cuda_ms(lambda: hmc_separable(*traj), 20)}
     say("sep_scaled_times", shape=f"C={SEP_CHAINS},D={SEP_DIM},L={SEP_L}",
         **{k: repr(v) for k, v in t.items() if k != "err"})
     return t
 
 
-def phase_k7_alone(dev, scaled: bool = True, reps: int = 20) -> dict:
+def phase_k7_alone(dev, reps: int = 20) -> dict:
     """Kernel 7 alone at the separable stage's shape (C = 1,024, D =
     10,000, L = 10, eps 0.1) from states drawn from each target: the
-    standard normal, the sigma table (sigma_d = logspace(-1, 1, D)) and,
-    with ``scaled``, the sigma table whitened by its own sigma (the scaled
-    instance). Device µs per launch over ``reps`` launches
-    (``torch.profiler``) and ms per launch by CUDA events. Runs on a
-    parent package too (``scaled=False`` before the scaled instance)."""
+    standard normal, the sigma table (sigma_d = logspace(-1, 1, D)) and
+    the sigma table whitened by its own sigma (the scaled instance). For
+    each, the trajectory-only form (the two-pass form's first launch) and
+    the fused step in its default clusters of 5 and in clusters of 10
+    (threads=128), the fused steps chained over ``reps`` steps from the
+    state.
+    Device µs per launch over ``reps`` launches (``torch.profiler``) and ms
+    per launch by CUDA events; returns the device µs by target and
+    form."""
     gen = torch.Generator(device=dev).manual_seed(707)
     z = torch.randn((SEP_CHAINS, SEP_DIM), generator=gen, device=dev)
     sigma = torch.logspace(-1, 1, SEP_DIM, dtype=torch.float32, device=dev)
     eps = torch.tensor([SEP_EPS], device=dev)
-    seed, step = 0x5EED_7070, 3
+    seed = 0x5EED_7070
     cases = {"standard_normal": (mt.standard_normal(), z),
-             "sigma_table": (sigma_table_normal(sigma), z * sigma)}
-    if scaled:
-        cases["scaled_sigma_table"] = (mt.precondition_target(
-            sigma_table_normal(sigma), mt.Preconditioner(
-                "diag", scale=sigma)), z)
+             "sigma_table": (sigma_table_normal(sigma), z * sigma),
+             "scaled_sigma_table": (mt.precondition_target(
+                 sigma_table_normal(sigma), mt.Preconditioner(
+                     "diag", scale=sigma)), z)}
+    forms = {"fused": {}, "fused_clusters_of_10": dict(threads=128)}
     out = {}
+
+    def profiled(fn, what):
+        """Device µs a launch of Kernel 7 in ``fn``: the profiler can miss
+        launches of a burst, so a call that recorded fewer than half is
+        profiled again (three calls at most)."""
+        for _ in range(3):
+            _, _, by_name = device_profile(fn, expect="hmc_separable_kernel")
+            n, us = next(v for name, v in by_name.items()
+                         if "hmc_separable_kernel" in name)
+            if 2 * n >= reps:
+                break
+        check(f"profiled Kernel 7 {what} launches", reps <= 2 * n <= 2 * reps,
+              n)
+        return n, us
+
     for label, (target, pos) in cases.items():
-        args = (target, pos, eps, SEP_L, seed, step, sep_tables(target, pos))
-        _, _, by_name = device_profile(
-            lambda: [hmc_separable(*args) for _ in range(reps)],
-            expect="hmc_separable_kernel")
-        n, us = next(v for name, v in by_name.items()
-                     if "hmc_separable_kernel" in name)
-        check(f"profiled Kernel 7 {label} launches", 0 < n <= reps, n)
-        out[label] = us / n
-        say("k7_alone", target=label, C=SEP_CHAINS, D=SEP_DIM, L=SEP_L,
-            calls=reps, recorded=n, device_us_per_call=us / n,
-            event_ms=cuda_ms(lambda: hmc_separable(*args), reps))
+        tables = sep_tables(target, pos)
+        logp = target.batch_logp(pos).float()
+        runs = {"trajectory_only": lambda: [hmc_separable(
+            target, pos, eps, SEP_L, seed, 3, tables) for _ in range(reps)]}
+        for form, kw in forms.items():
+            def chained(kw=kw):
+                p, lp = pos.clone(), logp.clone()
+                for i in range(reps):
+                    p, lp, _ = hmc_separable_step(target, p, lp, eps, SEP_L,
+                                                  seed, 3 + i, tables, **kw)
+            runs[form] = chained
+        out[label] = {}
+        for form, fn in runs.items():
+            n, us = profiled(fn, f"{label} {form}")
+            out[label][form] = us / n
+            say("k7_alone", target=label, form=form, C=SEP_CHAINS, D=SEP_DIM,
+                L=SEP_L, calls=reps, recorded=n, device_us_per_call=us / n,
+                event_ms=cuda_ms(fn, 1) / reps)
     return out
 
 
@@ -2161,6 +2383,14 @@ def bounds(step_details, subtree_leaves, dense_details) -> dict:
         "leapfrog_trajectory": bound(
             4 * (3 * c * d + 1 + c * (3 * d + 1)),
             c * L * OPS["rosen3d_leapfrog"]),
+        # their whitened instances (a metric) at the same shapes: the
+        # affine map in every gradient and logp, L's triangle in
+        "hmc_multistep_whitened": bound(
+            4 * (c * (2 * d + 1) * 2 + k + k * c * d + d * (d + 1) // 2),
+            c * k * (hmc_step_ops + (L + 1) * OPS["affine_d3"])),
+        "leapfrog_trajectory_whitened": bound(
+            4 * (3 * c * d + 1 + c * (3 * d + 1) + d * (d + 1) // 2),
+            c * L * (OPS["rosen3d_leapfrog"] + OPS["affine_d3"])),
     }
     # Kernel 0 alone (philox_fill, as timed): four words out per counter
     n = N_CHAINS * (DIM + 1)
@@ -2216,28 +2446,39 @@ def bounds(step_details, subtree_leaves, dense_details) -> dict:
     out["gibbs_multistep"] = bound(
         2 * c * 4 * 2 + GIBBS_K * c * 4 * 2,
         c * GIBBS_K * (rng_ops(1, 1) + OPS["mixture_sweep"]))
-    # Kernel 7, one step: pos in, the proposal out, three [C] partials.
-    # Per coordinate L leapfrogs, the sums, and its momentum normal
+    # Kernel 7, one step. The fused step: pos and logp in; the new
+    # positions, logp and alpha_c out; the trajectory-only form: pos in,
+    # the proposal and three [C] partials out. Per coordinate L leapfrogs,
+    # the sums (and the select), and its momentum normal; the fused step
+    # adds per chain the accept uniform and the accept
     c, d = SEP_CHAINS, SEP_DIM
-    for name, n_leapfrog in (("hmc_separable", SEP_L),
-                             ("hmc_separable_L40", SEP_L40)):
-        out[name] = bound(
-            4 * (2 * c * d + 3 * c + 1),
-            c * (d * (n_leapfrog * OPS["sep_leapfrog"] + OPS["sep_coord"])
-                 + rng_ops(d, 0)))
-    # its scaled instance on the sigma table: two [D] tables more in, and
-    # per coordinate the (s / sigma)^2 coefficient once and its product in
-    # every leapfrog's gradient
-    out["hmc_separable_scaled"] = bound(
-        4 * (2 * c * d + 3 * c + 1 + 2 * d),
-        c * (d * (SEP_L * OPS["sep_leapfrog_scaled"] + OPS["sep_coord"]
-                  + OPS["sep_scaled_coef"]) + rng_ops(d, 0)))
+
+    def sep_bound(n_leapfrog, leapfrog_ops, coord_ops, n_tables, fused):
+        return bound(
+            4 * (2 * c * d + 3 * c + 1 + n_tables * d),
+            c * (d * (n_leapfrog * leapfrog_ops + coord_ops) + rng_ops(d, 0)
+                 + (rng_ops(0, 1) + OPS["sep_accept"] if fused else 0)))
+
+    for suffix, fused in (("", True), ("_trajectory", False)):
+        out["hmc_separable" + suffix] = sep_bound(
+            SEP_L, OPS["sep_leapfrog"], OPS["sep_coord"], 0, fused)
+        out["hmc_separable_L40" + suffix] = sep_bound(
+            SEP_L40, OPS["sep_leapfrog"], OPS["sep_coord"], 0, fused)
+        # the scaled instance on the sigma table: two [D] tables more in,
+        # and per coordinate the (s / sigma)^2 coefficient once and its
+        # product in every leapfrog's gradient
+        out["hmc_separable_scaled" + suffix] = sep_bound(
+            SEP_L, OPS["sep_leapfrog_scaled"],
+            OPS["sep_coord"] + OPS["sep_scaled_coef"], 2, fused)
     # Kernel 2 at L = 1 on the MALA stage (Gaussian2D, 65,536 chains):
-    # pos, logp, grad, eps in; pos, logp, grad, history out
+    # pos, logp, grad, eps in; pos, logp, grad, history out; Kernel 1 at
+    # L = 1 there (the tuning path)
     c, d, k = MALA_CHAINS, 2, MALA_K
     out["hmc_multistep_mala"] = bound(
         4 * (c * (2 * d + 1) * 2 + k + k * c * d),
         c * k * (OPS["gauss2d_leapfrog"] + rng_ops(d, 1) + OPS["hmc_step"]))
+    out["leapfrog_trajectory_mala"] = bound(
+        4 * (3 * c * d + 1 + c * (3 * d + 1)), c * OPS["gauss2d_leapfrog"])
     # Kernel 5 at the tuned scale: the Gaussian2D block's work
     out["mh_multistep_tuned"] = out["mh_multistep_gauss2d"]
     # Kernel 8, one K-step block from parity 0 at T rungs, D = 1: pos,
@@ -2279,7 +2520,7 @@ def main() -> None:
     del hmc
     torch.cuda.empty_cache()
     ml, mala_counts, _ = phase_mala_tuned(dev)
-    k2m = phase_mala_kernel(ml, dev)
+    k2m = phase_mala_kernel(ml, dev, args.profile)
     if args.profile:
         phase_runs_profile((("mala", lambda: ml.run(
             MALA_COLLECT, 0, time_major=True)),))
@@ -2331,7 +2572,8 @@ def main() -> None:
     k7 = phase_sep_kernel(sep, dev)
     if args.profile:
         phase_runs_profile((("sep", lambda: sep.run(
-            SEP_COLLECT, SEP_COLLECT, time_major=True)),))
+            SEP_COLLECT, SEP_COLLECT, time_major=True)),),
+            sep_steps=2 * SEP_COLLECT)
     del sep
     torch.cuda.empty_cache()
     warm, warm_counts, _ = phase_sep_warmed_up(dev)
@@ -2339,7 +2581,8 @@ def main() -> None:
     if args.profile:
         k7s["device_us"] = phase_k7_alone(dev)
         phase_runs_profile((("sep_warmed_up", lambda: warm.run(
-            SEP_COLLECT, SEP_COLLECT, time_major=True)),))
+            SEP_COLLECT, SEP_COLLECT, time_major=True)),),
+            sep_steps=2 * SEP_COLLECT)
     del warm
     torch.cuda.empty_cache()
     pt, pt_counts, _ = phase_pt_main_path(dev)
@@ -2372,7 +2615,9 @@ def main() -> None:
                counts["hmc_multistep"], ms_err, t["multistep_ms"],
                t["multistep_plain_ms"], ms_whitened=k12w["multistep_ms"],
                max_abs_err_whitened=k12w["multistep_err"],
-               launches_whitened=k12w["multistep_launches"]),
+               launches_whitened=k12w["multistep_launches"],
+               bound_ms_whitened=b["hmc_multistep_whitened"][0],
+               bound_by_whitened=b["hmc_multistep_whitened"][1]),
         record("nuts_step", "nuts_full.cu", "nuts_full.py:48",
                nuts_counts["nuts_step"], step_err, t["nuts_step_ms"],
                t["nuts_step_plain_ms"]),
@@ -2389,8 +2634,13 @@ def main() -> None:
                gibbs_counts["gibbs_multistep"], k6["err"], k6["ms"],
                k6["plain_ms"]),
         record("hmc_separable", "hmc_separable.cu", "hmc_bigd.py:177",
-               sep_counts["hmc_separable"], k7["err"], k7["ms"],
-               k7["plain_ms"], launches_L40=sep40["separable"]["launches"],
+               sep_counts["hmc_separable_step"]
+               + sep_counts["hmc_separable"], k7["err"], k7["ms"],
+               k7["plain_ms"], launches_fused=sep_counts["hmc_separable_step"],
+               launches_two_pass=sep_counts["hmc_separable"],
+               ms_trajectory_only=k7["ms_trajectory_only"],
+               bound_ms_trajectory_only=b["hmc_separable_trajectory"][0],
+               launches_L40=sep40["separable"]["launches"],
                ms_L40=k7["ms_L40"], plain_ms_L40=k7["plain_ms_L40"],
                bound_ms_L40=b["hmc_separable_L40"][0],
                bound_by_L40=b["hmc_separable_L40"][1]),
@@ -2404,14 +2654,21 @@ def main() -> None:
                mht_counts["mh_multistep"], k5t["err"], k5t["ms"],
                k5t["plain_ms"]),
         record("hmc_separable_scaled", "hmc_separable.cu", "hmc_bigd.py:177",
-               warm_counts["hmc_separable_scaled"], k7s["err"], k7s["ms"],
+               warm_counts["hmc_separable_step_scaled"]
+               + warm_counts["hmc_separable_scaled"], k7s["err"], k7s["ms"],
                k7s["plain_ms"],
-               launches_unscaled=(warm_counts["hmc_separable"]
-                                  - warm_counts["hmc_separable_scaled"])),
+               launches_two_pass=warm_counts["hmc_separable_scaled"],
+               launches_unscaled=(warm_counts["hmc_separable_step"]
+                                  - warm_counts["hmc_separable_step_scaled"]),
+               ms_trajectory_only=k7s["ms_trajectory_only"],
+               bound_ms_trajectory_only=b[
+                   "hmc_separable_scaled_trajectory"][0]),
     ]
-    if "device_us" in k7s:  # --profile: each instance alone
-        kernels[-1].update({f"device_ms_{k}": v * 1e-3
-                            for k, v in k7s["device_us"].items()})
+    if "device_us" in k7s:  # --profile: each instance and form alone
+        kernels[-1].update({
+            f"device_ms_{target}_{form}": us * 1e-3
+            for target, forms in k7s["device_us"].items()
+            for form, us in forms.items()})
     off_path = [
         record("leapfrog_trajectory", "hmc_leapfrog.cu", "hmc.py:46",
                counts["leapfrog_trajectory"], lf[8][0], t["leapfrog_ms"],
@@ -2420,7 +2677,13 @@ def main() -> None:
                ms_whitened=k12w["leapfrog_ms"],
                max_abs_err_whitened=k12w["leapfrog_err"],
                tier_run_launches_whitened=k12w["leapfrog_launches"],
-               launches_mala_path=mala_counts["leapfrog_trajectory"]),
+               bound_ms_whitened=b["leapfrog_trajectory_whitened"][0],
+               launches_mala_path=mala_counts["leapfrog_trajectory"],
+               ms_mala=k2m["leapfrog_ms"],
+               plain_ms_mala=k2m["leapfrog_plain_ms"],
+               bound_ms_mala=b["leapfrog_trajectory_mala"][0],
+               **({"device_ms_mala": k2m["leapfrog_device_us"] * 1e-3}
+                  if "leapfrog_device_us" in k2m else {})),
         record("nuts_subtree", "nuts_subtree.cu", "nuts_subtree.py:243",
                nuts_counts["nuts_subtree"], sub_err, t["subtree_ms"],
                t["subtree_plain_ms"],

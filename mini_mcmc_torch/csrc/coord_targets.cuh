@@ -11,12 +11,24 @@
 // mini_mcmc_torch/ops/kernels/_build.py:SEP_FUNCTORS maps names to the ids
 // below and to the table count. The kernel's sums over coordinates give
 // logp, so a functor carries no constant that is not per coordinate.
-// Scaled<F> is F under a diagonal metric (Target.cuda_scaled): the scale
-// is the table after F's own.
+//
+// Per-coordinate constants are hoisted: `prepare(t0, t1)` runs once per
+// coordinate before the leapfrog loop and returns the functor's State,
+// the only thing `grad(x, state)` and `logp(x, state)` read. All three
+// functors are Gaussians, whose State is the coordinate's precision k:
+// the gradient is -k x and the term -k x^2 / 2, so the leapfrog holds no
+// division. Scaled<F> is F under a diagonal metric (Target.cuda_scaled),
+// the scale s being the table after F's own: F::prepare_scaled folds s
+// into F's State once, k = (s / sigma)^2 for a Gaussian of standard
+// deviation sigma (one division and one product: fewer roundings than
+// (1 / sigma)^2 s^2, which near the leapfrog's stability edge moves a
+// trajectory past the float32 twin's tolerance), so the scaled leapfrog
+// costs what the unscaled one does.
 //
 // Arithmetic follows the Python forms of mini_mcmc_torch/models/gaussian.py
-// (and the heterogeneous Gaussian of tests/test_pallas.py:898-942); the
-// kernel contracts multiply-adds, so values agree to about an ulp.
+// (and the heterogeneous Gaussian of tests/test_pallas.py:898-942) up to
+// the order of the products: k is rounded once, and the kernel contracts
+// multiply-adds, so values agree with the forms to a few ulps.
 #pragma once
 
 #include <stdint.h>
@@ -29,66 +41,88 @@ enum CoordId : int {
   kSigmaTableNormal = 2,
 };
 
-// models/gaussian.py:standard_normal: -x^2 / 2, derivative -x.
-struct StandardNormalCoord {
+// The three functors' shared form: a normal of precision k per coordinate.
+struct GaussianCoord {
+  using State = float;  // k
+  __device__ __forceinline__ static float logp(float x, float k) {
+    return -0.5f * k * (x * x);
+  }
+  __device__ __forceinline__ static float grad(float x, float k) {
+    return -(k * x);
+  }
+  // the precision of y -> N(s y; 0, sd^2): (s / sd)^2
+  __device__ __forceinline__ static float scaled_precision(float s,
+                                                           float sd) {
+    const float r = s / sd;
+    return r * r;
+  }
+};
+
+// models/gaussian.py:standard_normal: -x^2 / 2, derivative -x (k = 1, which
+// the compiler folds away).
+struct StandardNormalCoord : GaussianCoord {
   static constexpr int kTables = 0;
   __device__ __forceinline__ explicit StandardNormalCoord(const float*) {}
-  __device__ __forceinline__ float logp(float x, float, float) const {
-    return -0.5f * (x * x);
+  __device__ __forceinline__ float prepare(float, float) const {
+    return 1.0f;
   }
-  __device__ __forceinline__ float grad(float x, float, float) const {
-    return -x;
+  __device__ __forceinline__ float prepare_scaled(float, float,
+                                                  float s) const {
+    return s * s;
   }
 };
 
 // models/gaussian.py:isotropic_gaussian_target(std): -x^2 / (2 std^2).
 // params: std.
-struct IsotropicGaussianCoord {
+struct IsotropicGaussianCoord : GaussianCoord {
   static constexpr int kTables = 0;
-  float inv_var;
+  float std_, inv_var;
   __device__ __forceinline__ explicit IsotropicGaussianCoord(const float* p)
-      : inv_var(1.0f / (__ldg(p) * __ldg(p))) {}
-  __device__ __forceinline__ float logp(float x, float, float) const {
-    return -0.5f * (x * x) * inv_var;
+      : std_(__ldg(p)), inv_var(1.0f / (__ldg(p) * __ldg(p))) {}
+  __device__ __forceinline__ float prepare(float, float) const {
+    return inv_var;
   }
-  __device__ __forceinline__ float grad(float x, float, float) const {
-    return -x * inv_var;
+  __device__ __forceinline__ float prepare_scaled(float, float,
+                                                  float s) const {
+    return scaled_precision(s, std_);
   }
 };
 
 // A normal with its own sigma per coordinate, read from the first table:
-// -(x / s)^2 / 2, derivative -(x / s) / s.
-struct SigmaTableNormalCoord {
+// -(x / sigma)^2 / 2, k = (1 / sigma)^2, one division per coordinate a
+// launch.
+struct SigmaTableNormalCoord : GaussianCoord {
   static constexpr int kTables = 1;
   __device__ __forceinline__ explicit SigmaTableNormalCoord(const float*) {}
-  __device__ __forceinline__ float logp(float x, float s, float) const {
-    const float z = x / s;
-    return -0.5f * (z * z);
+  __device__ __forceinline__ float prepare(float sigma, float) const {
+    return scaled_precision(1.0f, sigma);
   }
-  __device__ __forceinline__ float grad(float x, float s, float) const {
-    return -(x / s) / s;
+  __device__ __forceinline__ float prepare_scaled(float sigma, float,
+                                                  float s) const {
+    return scaled_precision(s, sigma);
   }
 };
 
 // F whitened by a diagonal metric, x = s * y with s the table after F's
 // own (models/precondition.py:precondition_target adds the scale as the
-// last sep_form table): logp(y) = F::logp(s y), grad(y) = s F::grad(s y).
-// No log-det term, as the whitened sep_form has none.
+// last sep_form table): logp(y) = F::logp(s y), grad(y) = s F::grad(s y),
+// both through F's State with s folded in (F::prepare_scaled). No log-det
+// term, as the whitened sep_form has none.
 template <class F>
 struct Scaled {
   static_assert(F::kTables < 2, "Scaled<F> reads F's table and the scale");
   static constexpr int kTables = F::kTables + 1;
+  using State = typename F::State;
   F f;
   __device__ __forceinline__ explicit Scaled(const float* p) : f(p) {}
-  __device__ __forceinline__ static float scale(float t0, float t1) {
-    return F::kTables == 0 ? t0 : t1;
+  __device__ __forceinline__ State prepare(float t0, float t1) const {
+    return f.prepare_scaled(t0, t1, F::kTables == 0 ? t0 : t1);
   }
-  __device__ __forceinline__ float logp(float y, float t0, float t1) const {
-    return f.logp(y * scale(t0, t1), t0, t1);
+  __device__ __forceinline__ static float logp(float y, State k) {
+    return F::logp(y, k);
   }
-  __device__ __forceinline__ float grad(float y, float t0, float t1) const {
-    const float s = scale(t0, t1);
-    return f.grad(y * s, t0, t1) * s;
+  __device__ __forceinline__ static float grad(float y, State k) {
+    return F::grad(y, k);
   }
 };
 

@@ -2,7 +2,8 @@
 //
 // Replaces mini_mcmc_tpu/ops/pallas/hmc_full.py:make_pallas_hmc_multistep
 // (and make_pallas_hmc_step, its K = 1 case without history). For each of
-// the K steps, per chain: N(0, 1) momentum from Philox (philox.cuh),
+// the K steps, per chain: N(0, 1) momentum from the (chain, step)'s Philox
+// word stream (philox.cuh:step_words, paired Box-Muller),
 // h_cur, L leapfrog steps at eps[k], logp and h_prop, the accept
 // `(h_cur - h_prop) >= logf(u)` with true selects (a NaN or -inf proposal
 // compares false and is rejected without touching the kept state), and the
@@ -16,10 +17,13 @@
 // What bounds it on the H100: the state stays in registers across all K
 // steps, and the only device-memory traffic inside the launch is the
 // 12-byte history row per chain per step (D = 3). The work is about 45
-// f32 flops per leapfrog per chain plus (D + 1) Philox draws per step, so
-// the kernel is bound by FP32 issue and dependent-operation latency, not
-// by bandwidth. 65,536 chains are 65,536 threads, about a quarter of what
-// 132 SMs hold; occupancy is left to later tuning.
+// f32 flops per leapfrog per chain plus the step's draws, so the kernel is
+// bound by FP32 issue and dependent-operation latency, not by bandwidth.
+// The draws take the fewest Philox evaluations the step's 2 ceil(D / 2) + 1
+// words need (one at D = 2, two at D = 3, 4), each cosine and sine of a
+// Box-Muller angle a normal: at L = 1 (MALA) they are most of a step.
+// 65,536 chains are 65,536 threads, about a quarter of what 132 SMs hold;
+// occupancy is left to later tuning.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,14 +55,26 @@ __global__ void __launch_bounds__(mm::kThreads)
     g[d] = grad[c * D + d];
   }
   float lp = logp[c];
+  // the step's words: normals 2p, 2p + 1 from words 2p, 2p + 1, the accept
+  // uniform from word 2 ceil(D / 2)
+  constexpr int kPairs = (D + 1) / 2;
+  constexpr int kWords = 2 * kPairs + 1;
 
   for (int k = 0; k < k_steps; ++k) {
     const uint32_t step = step0 + (uint32_t)k;
+    uint32_t w[4 * mm::stream_evals<kWords>()];
+    mm::step_words<kWords>((uint32_t)c, step, seed_lo, seed_hi, w);
     float m[D], xp[D], gp[D];
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      float cs, sn;
+      mm::box_muller_pair(w[2 * p], w[2 * p + 1], cs, sn);
+      m[2 * p] = cs;
+      if (2 * p + 1 < D) m[2 * p + 1] = sn;
+    }
     float ke0 = 0.0f;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      m[d] = mm::normal_at((uint32_t)c, step, (uint32_t)d, seed_lo, seed_hi);
       ke0 += m[d] * m[d];
       xp[d] = x[d];
       gp[d] = g[d];
@@ -72,8 +88,7 @@ __global__ void __launch_bounds__(mm::kThreads)
 #pragma unroll
     for (int d = 0; d < D; ++d) ke1 += m[d] * m[d];
     const float h_prop = -lpp + 0.5f * ke1;
-    const float u =
-        mm::uniform_at((uint32_t)c, step, (uint32_t)D, seed_lo, seed_hi);
+    const float u = mm::unit_open(w[2 * kPairs]);
     const bool accept = (h_cur - h_prop) >= logf(u);
 
 #pragma unroll

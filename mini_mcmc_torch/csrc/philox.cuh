@@ -12,8 +12,11 @@
 // never share a counter, and neither do two steps of one chain.
 //
 // Draw indices, per kernel (D = the dimension):
-//   HMC (Kernel 2): draws 0..D-1 momentum normals, draw D the accept
-//     uniform; sub-draw 0.
+//   HMC (Kernel 2) reads one word stream per (chain, step) (step_words,
+//     below): W = 2 ceil(D / 2) + 1 words, momentum normals 2p and 2p + 1
+//     the cosine and sine of box_muller_pair(w[2p], w[2p + 1]), the accept
+//     uniform word 2 ceil(D / 2): one evaluation a step at D <= 2, two at
+//     D = 3, 4.
 //   NUTS step (Kernel 4), one evaluation per four words the step uses
 //     plus at most one per doubling: draw 0 the momentum (box_muller_pair
 //     on words x, y) and the Exp(1) uniform of the slice (word z) at
@@ -45,7 +48,8 @@
 //     coordinates 4q..4q+3 by paired Box-Muller (normals4_at): words x, y
 //     the cosine and sine of one pair (4q, 4q+1), words z, w of the next
 //     (4q+2, 4q+3). One evaluation per four coordinates, the least a step
-//     needs; its accept uniform is drawn outside the kernel.
+//     needs. Draw 0, sub-draw 1, word x is the chain's accept uniform
+//     (both the fused and the two-pass form).
 //   Parallel tempering (Kernel 8), one evaluation per (chain, rung, step,
 //     sweep): draw t, sub-draw i gives rung t's sweep i, words x, y its
 //     proposal normal (box_muller at D = 1, box_muller_pair at D = 2),
@@ -108,15 +112,6 @@ __device__ __forceinline__ void box_muller_pair(uint32_t a, uint32_t b,
   s = r * sn;
 }
 
-// Draw index d < D gives coordinate d's momentum normal (words x, y);
-// draw index D gives the accept uniform (word x).
-__device__ __forceinline__ float normal_at(uint32_t chain, uint32_t step,
-                                           uint32_t draw, uint32_t k0,
-                                           uint32_t k1, uint32_t sub = 0u) {
-  const U32x4 w = philox4x32_10(U32x4{chain, step, draw, sub}, k0, k1);
-  return box_muller(w.x, w.y);
-}
-
 // Four normals from one evaluation (the separable kernel's momenta).
 __device__ __forceinline__ void normals4_at(uint32_t chain, uint32_t step,
                                             uint32_t draw, uint32_t k0,
@@ -140,8 +135,8 @@ __host__ __device__ constexpr int stream_evals() {
   return (W + 3) / 4;
 }
 
-// One (chain, step)'s word stream (Kernels 5 and 6): word 4q + j is word
-// j of the counter (chain, step, q, 0).
+// One (chain, step)'s word stream (Kernels 2, 5 and 6): word 4q + j is
+// word j of the counter (chain, step, q, 0).
 template <int W>
 __device__ __forceinline__ void step_words(
     uint32_t chain, uint32_t step, uint32_t k0, uint32_t k1,

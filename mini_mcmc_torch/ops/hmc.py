@@ -9,9 +9,9 @@ Randomness: each step receives a :class:`StepKey`. The non-fused tiers
 (``use_pallas=False`` and ``True``) and the step-size jitter draw from
 ``key.generator``, a ``torch.Generator`` on the positions' device; the
 fused tier (``"full"``) draws momentum and accept uniforms from the Philox
-stream at ``(key.seed, chain, key.step, draw)`` inside the kernel. The
-separable tier (``"separable"``) draws its momentum from that stream
-inside Kernel 7 and its accept uniform from ``key.generator``.
+stream at ``(key.seed, chain, key.step)`` inside the kernel, and so does
+the separable tier (``"separable"``) inside Kernel 7; the step-size jitter
+alone comes from ``key.generator`` there.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 from ..runner import StepKey, make_scan_block_fn
 from .kernels.hmc import leapfrog_trajectory, leapfrog_trajectory_plain
 from .kernels.hmc_full import hmc_multistep
-from .kernels.hmc_sep import hmc_separable
+from .kernels.hmc_sep import hmc_separable_step
 
 
 class HMCState(NamedTuple):
@@ -56,9 +56,10 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
     twins; on CUDA tensors the target needs a ``cuda_functor``.
 
     ``use_pallas="separable"`` is the large-D tier for coordinate-separable
-    targets (``ops/hmc.py:192-215`` in the JAX package): Kernel 7
-    (``kernels/hmc_sep.py``) runs the trajectory with the momentum drawn
-    inside it, and the accept runs here; the state is an
+    targets (``ops/hmc.py:192-215`` in the JAX package): a step is one
+    Kernel 7 launch (``kernels/hmc_sep.py:hmc_separable_step``), the
+    momentum, the trajectory and the accept inside it (past its cluster
+    limit the trajectory and a PyTorch accept); the state is an
     :class:`HMCSepState`, its logp pinned to the positions' dtype. The
     sampler validates separability (``models.base.validate_separable``).
 
@@ -107,29 +108,23 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
                           device=like.device)
 
     def sep_step(state: HMCSepState, key: StepKey, eps):
-        """One separable-tier step: Kernel 7's trajectory and energies,
-        then the accept from ``key.generator``'s uniform
-        (``ops/hmc.py:_sep_step`` in the JAX package)."""
+        """One separable-tier step (``ops/hmc.py:_sep_step`` in the JAX
+        package), Kernel 7's whole step: the new state and each chain's
+        acceptance probability ``alpha_c`` (NaN counted as 0)."""
         pos = state.positions
         eps = torch.as_tensor(eps, dtype=pos.dtype,
                               device=pos.device).reshape(1)
-        pos_prop, logp_prop, ke0, ke1, _ = hmc_separable(
-            target, pos, eps, n_leapfrog, key.seed, key.step, _tables(pos))
-        accept_logp = (-state.logp + ke0) - (-logp_prop + ke1)
-        alpha_c = torch.exp(torch.clamp(accept_logp, max=0.0))
-        alpha = torch.mean(torch.nan_to_num(alpha_c, nan=0.0))
-        u = torch.rand((pos.shape[0],), generator=key.generator,
-                       dtype=pos.dtype, device=pos.device)
-        accept = accept_logp >= torch.log(u)  # NaN compares False
-        positions = torch.where(accept[:, None], pos_prop, pos)
-        logp = torch.where(accept, logp_prop, state.logp)
-        return HMCSepState(positions, logp), alpha
+        positions, logp, alpha_c = hmc_separable_step(
+            target, pos, state.logp, eps, n_leapfrog, key.seed, key.step,
+            _tables(pos))
+        return HMCSepState(positions, logp), alpha_c
 
     def step_eps(state: HMCState, key: StepKey, eps):
         """One non-fused HMC step at step size ``eps``, also returning the
         cross-chain mean acceptance probability (NaN counts as 0)."""
         if separable:
-            return sep_step(state, key, eps)
+            state, alpha_c = sep_step(state, key, eps)
+            return state, alpha_c.mean()
         pos = state.positions
         gen = key.generator
         mom0 = torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
@@ -158,7 +153,7 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
                 target, state.positions, state.logp, state.grad, eps,
                 n_leapfrog, key.seed, key.step,
             ))
-        state, _ = step_eps(state, key, eps[0])
+        state, _ = (sep_step if separable else step_eps)(state, key, eps[0])
         return state
 
     step_fn.step_eps = step_eps

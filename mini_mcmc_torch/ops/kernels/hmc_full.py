@@ -2,9 +2,13 @@
 
 Replaces ``mini_mcmc_tpu/ops/pallas/hmc_full.py:make_pallas_hmc_multistep``
 and its K = 1 case ``make_pallas_hmc_step`` (``hist=None``). Per step and
-chain: momentum from the Philox stream (``rng.py``), L leapfrog steps at
-``eps[k]``, the accept ``(h_cur - h_prop) >= log(u)`` with true selects,
-and the kept position written to ``hist[k]``.
+chain: momentum from the (chain, step)'s Philox word stream
+(``rng.stream_words``: normals ``2p`` and ``2p + 1`` the cosine and sine of
+one Box-Muller angle on words ``2p`` and ``2p + 1``, the accept uniform
+word ``2 ceil(D / 2)``; one Philox evaluation a step at D <= 2, two at
+D = 3, 4), L leapfrog steps at ``eps[k]``, the accept ``(h_cur - h_prop)
+>= log(u)`` with true selects, and the kept position written to
+``hist[k]``.
 
 ``hist`` is a ``[K, C, D]`` view into the runner's preallocated sample cube
 (time-major or chain-major; any strides with a unit D stride), written in
@@ -35,10 +39,13 @@ def hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog: int,
     """
     hmc_multistep_plain.calls += 1
     c, d = pos.shape
+    accept_word = 2 * ((d + 1) // 2)
     for k in range(eps.shape[0]):
         if mom is None:
-            m, uk = rng.step_draws(c, d, (step0 + k) & 0xFFFFFFFF, seed,
-                                   pos.device)
+            w = rng.stream_words(c, accept_word + 1, (step0 + k) & 0xFFFFFFFF,
+                                 seed, pos.device)
+            m = rng.pair_normals(w, d)
+            uk = rng.unit_open(w[:, accept_word])
         else:
             m, uk = mom[k], u[k]
         h_cur = -logp + 0.5 * torch.sum(m * m, dim=1)

@@ -1,31 +1,58 @@
-"""Kernel 7: the separable HMC tier's trajectory (``csrc/hmc_separable.cu``).
+"""Kernel 7: the separable HMC tier's step (``csrc/hmc_separable.cu``).
 
 Replaces ``mini_mcmc_tpu/ops/pallas/hmc_bigd.py:make_pallas_hmc_separable``
-(its production form and the ``mom_input`` debug form). For a density that
-is a sum over coordinates, every coordinate follows the leapfrog on its
-own: the kernel draws the momentum (paired Box-Muller from the Philox
-stream, ``rng.paired_normals``), runs the merged-kick leapfrog with the
-coordinate functor's derivative, and returns per chain ``logp(pos_prop)``
-and the kinetic energies before and after. The accept stays outside, in
-``ops/hmc.py``, as the JAX package leaves it to XLA.
+(its production form and the ``mom_input`` debug form) and the accept that
+the JAX package leaves to XLA (``mini_mcmc_tpu/ops/hmc.py:_sep_step``).
+For a density that is a sum over coordinates, every coordinate follows the
+leapfrog on its own: the kernel draws the momentum (paired Box-Muller from
+the Philox stream, ``rng.paired_normals``), runs the merged-kick leapfrog
+with the coordinate functor's derivative, sums per chain ``logp(pos_prop)``
+and the kinetic energies before and after, and accepts.
+
+:func:`hmc_separable_step` is one whole step, ``(positions, logp,
+alpha_c)``. Its shape rule: the kernel's D-tiles per chain,
+``ceil(ceil(D / 4) / (threads * 2))`` (:func:`sep_tiles`), form one
+thread-block cluster when there are at most ``SEP_MAX_CLUSTER`` = 16 of
+them (D <= 32,768 at the default 256 threads), and
+the accept runs inside that one launch (the fused form, counted in
+``hmc_separable_step.launches``). Past 16 tiles the step launches the
+trajectory-only form (:func:`hmc_separable`, counted in
+``hmc_separable.launches``) and accepts in PyTorch (the two-pass form).
+The choice is by shape alone; a cluster launch that the device refuses
+raises, as does an instance of which the device holds no cluster
+(``cudaOccupancyMaxActiveClusters`` 0, asked once per device, instance and
+block size). Both forms draw the same uniform, word x of the Philox counter
+``(chain, step, 0, 1)``, so a step's result does not depend on its form
+beyond the order of the sums.
+
+:func:`hmc_separable` is the trajectory alone, ``(pos_prop, logp_prop,
+ke0, ke1, mom_prop)``: the debug form with a given momentum (its final
+momentum returned) and the two-pass form's first pass.
 
 The kernel evaluates the target's coordinate functor
 (``Target.cuda_functor``, ``_build.SEP_FUNCTORS``, ``csrc/coord_targets.cuh``)
-on its ``[n_tables, D]`` tables; the twin evaluates the Python
-``Target.sep_forms()`` density on the same tables and takes the gradient
-by autograd, as the TPU kernel takes it by AD inside each tile. A target
-whitened by a diagonal metric (``Target.cuda_scaled``) runs the functor's
-scaled instance (``coord_targets.cuh:Scaled``), the scale its last table,
-as the TPU kernel runs the whitened ``sep_form`` with ``n_tables`` one
-larger.
+on its ``[n_tables, D]`` tables, each coordinate's constants prepared once
+a launch (for the Gaussian functors the precision, so the leapfrog holds
+no division); the twins evaluate the Python ``Target.sep_forms()`` density
+on the same tables and take the gradient by autograd, as the TPU kernel
+takes it by AD inside each tile. A target whitened by a diagonal metric
+(``Target.cuda_scaled``) runs the functor's scaled instance
+(``coord_targets.cuh:Scaled``, the scale folded into the precision), the
+scale its last table, as the TPU kernel runs the whitened ``sep_form``
+with ``n_tables`` one larger.
 
 What bounds it on the H100: bytes at L = 10 (82 MB per step at C = 1,024,
 D = 10,000), instructions at L = 40; no ``[C, D]`` momentum or gradient is
-stored. :func:`hmc_separable` launches the kernel for CUDA tensors and runs
-:func:`hmc_separable_plain` for CPU tensors only.
+stored, and the fused step adds only ``[C]`` values. The wrappers launch
+the kernel for CUDA tensors and run their plain twins
+(:func:`hmc_separable_step_plain`, :func:`hmc_separable_plain`) for CPU
+tensors only.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -36,6 +63,8 @@ _MASK = 0xFFFFFFFF
 SEP_GROUPS = 2
 #: threads per block of a launch (the kernel takes 32..256)
 SEP_THREADS = 256
+#: the most D-tiles (blocks) of one chain's cluster, the fused form's limit
+SEP_MAX_CLUSTER = 16
 
 
 def sep_tiles(dim: int, threads: int = SEP_THREADS) -> int:
@@ -43,6 +72,12 @@ def sep_tiles(dim: int, threads: int = SEP_THREADS) -> int:
     SEP_GROUPS))``."""
     per_tile = threads * SEP_GROUPS
     return ((dim + 3) // 4 + per_tile - 1) // per_tile
+
+
+def sep_fused(dim: int, threads: int = SEP_THREADS) -> bool:
+    """Whether :func:`hmc_separable_step` runs the fused form at this
+    shape: at most ``SEP_MAX_CLUSTER`` D-tiles."""
+    return sep_tiles(dim, threads) <= SEP_MAX_CLUSTER
 
 
 def sep_functor(target) -> tuple[int, int]:
@@ -77,7 +112,7 @@ def _tile_grad(fn, x, tables):
 
 def hmc_separable_plain(target, pos, eps, n_leapfrog: int, seed: int,
                         step: int, tables, mom=None, *, chain0: int = 0):
-    """Plain PyTorch twin of the kernel. ``tables`` is the ``[n_tables,
+    """Plain PyTorch twin of the trajectory. ``tables`` is the ``[n_tables,
     D]`` tensor of the target's ``sep_forms()`` tables and ``eps`` a
     one-element tensor. ``mom [C, D]`` replaces the Philox momentum (the
     debug form). Returns ``(pos_prop, logp_prop [C], ke0 [C], ke1 [C],
@@ -108,25 +143,52 @@ def hmc_separable_plain(target, pos, eps, n_leapfrog: int, seed: int,
 hmc_separable_plain.calls = 0
 
 
-def hmc_separable(target, pos, eps, n_leapfrog: int, seed: int, step: int,
-                  tables, mom=None, *, chain0: int = 0,
-                  threads: int = SEP_THREADS):
-    """One trajectory per chain of ``pos [C, D]`` at step size ``eps`` (a
-    one-element tensor on the positions' device), drawing the momentum at
-    ``(seed, chain0 + c, step)`` unless ``mom`` is given. Returns
-    ``(pos_prop, logp_prop, ke0, ke1, mom_prop)`` as
-    :func:`hmc_separable_plain`. ``threads`` sets the launch's block size
-    and so its D-tiles; the results do not depend on it beyond the order
-    of the sums."""
-    if not pos.is_cuda:
-        return hmc_separable_plain(target, pos, eps, n_leapfrog, seed, step,
-                                   tables, mom, chain0=chain0)
+def accept_uniforms(n_chains: int, step: int, seed: int, device=None,
+                    chain0: int = 0) -> torch.Tensor:
+    """``[C]`` accept uniforms of a separable step: word x of the Philox
+    counter ``(chain0 + c, step, 0, 1)`` (``csrc/philox.cuh``)."""
+    chain = torch.arange(chain0, chain0 + n_chains, device=device) & _MASK
+    return rng.uniform_at(chain, step & _MASK, 0, seed, sub=1)
+
+
+def _accept(pos, logp, pos_prop, logp_prop, ke0, ke1, u):
+    """``ops/hmc.py:_sep_step``'s accept in the JAX package: ``(positions,
+    logp, alpha_c)``, ``alpha_c = exp(min(accept_logp, 0))`` with NaN
+    counted as 0. A NaN ``accept_logp`` compares false and is rejected."""
+    accept_logp = (-logp + ke0) - (-logp_prop + ke1)
+    alpha_c = torch.nan_to_num(torch.exp(torch.clamp(accept_logp, max=0.0)),
+                               nan=0.0)
+    accept = accept_logp >= torch.log(u)
+    return (torch.where(accept[:, None], pos_prop, pos),
+            torch.where(accept, logp_prop, logp), alpha_c)
+
+
+def hmc_separable_step_plain(target, pos, logp, eps, n_leapfrog: int,
+                             seed: int, step: int, tables, *, mom=None,
+                             u=None, chain0: int = 0):
+    """Plain PyTorch twin of the fused step: :func:`hmc_separable_plain`,
+    then the accept with ``u`` from :func:`accept_uniforms` unless ``u
+    [C]`` is given (``mom [C, D]`` replaces the momentum likewise).
+    Returns ``(positions, logp, alpha_c)``."""
+    hmc_separable_step_plain.calls += 1
+    pos_prop, logp_prop, ke0, ke1, _ = hmc_separable_plain(
+        target, pos, eps, n_leapfrog, seed, step, tables, mom, chain0=chain0)
+    if u is None:
+        u = accept_uniforms(pos.shape[0], step, seed, pos.device, chain0)
+    return _accept(pos, logp, pos_prop, logp_prop, ke0, ke1, u)
+
+
+hmc_separable_step_plain.calls = 0
+
+
+def _check(target, pos, eps, tables, mom, threads: int):
+    """The kernel's contract on its inputs; returns ``(functor id,
+    scaled)``."""
     fid, n_tables = sep_functor(target)
-    scaled = target.cuda_scaled
     if pos.dim() != 2 or pos.dtype != torch.float32:
         raise ValueError("the separable kernel takes float32 [C, D] "
                          f"positions; got {pos.dtype} {tuple(pos.shape)}")
-    c, d = pos.shape
+    d = pos.shape[1]
     if tables.shape != (n_tables, d) or tables.dtype != torch.float32:
         raise ValueError(
             f"coordinate functor {target.cuda_functor!r} reads {n_tables} "
@@ -144,14 +206,25 @@ def hmc_separable(target, pos, eps, n_leapfrog: int, seed: int, step: int,
     if threads % 32 or not 32 <= threads <= SEP_THREADS:
         raise ValueError(f"threads must be a multiple of 32 in [32, "
                          f"{SEP_THREADS}]; got {threads}")
+    return fid, bool(target.cuda_scaled)
+
+
+def _vec(d: int, *tensors) -> int:
+    """The float4 path needs D a multiple of 4 and every row 16-byte
+    aligned, each table row too (row 1 starts D floats after row 0)."""
+    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors
+                                  if t is not None))
+
+
+def _trajectory(target, pos, eps, n_leapfrog, seed, step, tables, mom,
+                chain0, threads):
+    """Launch the trajectory-only form: ``(pos_prop, parts [3, C, tiles],
+    mom_prop)``."""
+    fid, scaled = _check(target, pos, eps, tables, mom, threads)
+    c, d = pos.shape
     pos_o = torch.empty_like(pos)
     mom_o = None if mom is None else torch.empty_like(pos)
-    parts = torch.empty((3, c, sep_tiles(d, threads)), dtype=torch.float32,
-                        device=pos.device)
-    # the float4 path needs every row 16-byte aligned, each table row too
-    # (row 1 starts D floats after row 0)
-    vec = int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (
-        pos, pos_o, *tables, *(() if mom is None else (mom, mom_o)))))
+    parts = pos.new_empty((3, c, sep_tiles(d, threads)))
     seed_lo, seed_hi = rng.seed_words(seed)
     lib = _build.lib()
     hmc_separable.launches += 1
@@ -159,12 +232,31 @@ def hmc_separable(target, pos, eps, n_leapfrog: int, seed: int, step: int,
     _build.check(lib.mm_hmc_separable(
         pos.data_ptr(), None if mom is None else mom.data_ptr(),
         eps.data_ptr(), _build.params_ptr(target, pos.device, d),
-        tables.data_ptr() if n_tables else None, c, d, n_leapfrog, fid,
-        int(scaled), threads, vec, chain0 & _MASK, seed_lo, seed_hi,
-        step & _MASK,
-        pos_o.data_ptr(), None if mom_o is None else mom_o.data_ptr(),
-        parts.data_ptr(), _build.stream_ptr(pos.device),
+        tables.data_ptr() if tables.shape[0] else None, c, d, n_leapfrog,
+        fid, int(scaled), threads,
+        _vec(d, pos, pos_o, *tables, mom, mom_o), chain0 & _MASK, seed_lo,
+        seed_hi, step & _MASK, pos_o.data_ptr(),
+        None if mom_o is None else mom_o.data_ptr(), parts.data_ptr(),
+        _build.stream_ptr(pos.device),
     ))
+    return pos_o, parts, mom_o
+
+
+def hmc_separable(target, pos, eps, n_leapfrog: int, seed: int, step: int,
+                  tables, mom=None, *, chain0: int = 0,
+                  threads: int = SEP_THREADS):
+    """One trajectory per chain of ``pos [C, D]`` at step size ``eps`` (a
+    one-element tensor on the positions' device), drawing the momentum at
+    ``(seed, chain0 + c, step)`` unless ``mom`` is given. Returns
+    ``(pos_prop, logp_prop, ke0, ke1, mom_prop)`` as
+    :func:`hmc_separable_plain`. ``threads`` sets the launch's block size
+    and so its D-tiles; the results do not depend on it beyond the order
+    of the sums."""
+    if not pos.is_cuda:
+        return hmc_separable_plain(target, pos, eps, n_leapfrog, seed, step,
+                                   tables, mom, chain0=chain0)
+    pos_o, parts, mom_o = _trajectory(target, pos, eps, n_leapfrog, seed,
+                                      step, tables, mom, chain0, threads)
     logp, ke0, ke1 = parts.sum(dim=2)
     return pos_o, logp, ke0, ke1, mom_o
 
@@ -173,3 +265,84 @@ hmc_separable.launches = 0
 #: the launches of the scaled (diagonal-metric) instances, also counted
 #: in ``launches``
 hmc_separable.scaled_launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters(device: torch.device, fid: int, scaled: bool, threads: int,
+              n_tiles: int) -> int:
+    """The fused form's clusters that ``device`` holds at once for this
+    instance and block size (``cudaOccupancyMaxActiveClusters``); raises
+    when it holds none."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.lib().mm_hmc_separable_clusters(
+            fid, int(scaled), threads, n_tiles, ctypes.byref(out)))
+    if out.value < 1:
+        raise RuntimeError(
+            f"the device holds no cluster of {n_tiles} blocks of {threads} "
+            f"threads of the separable kernel (functor {fid}, scaled "
+            f"{scaled})")
+    return out.value
+
+
+def hmc_separable_step(target, pos, logp, eps, n_leapfrog: int, seed: int,
+                       step: int, tables, *, mom=None, u=None,
+                       chain0: int = 0, threads: int = SEP_THREADS):
+    """One whole separable HMC step of every chain of ``pos [C, D]`` with
+    cached density ``logp [C]`` at step size ``eps`` (a one-element tensor
+    on the positions' device). Returns ``(positions, logp, alpha_c)``,
+    ``alpha_c [C]`` each chain's acceptance probability (NaN counted as
+    0), as :func:`hmc_separable_step_plain`.
+
+    ``mom [C, D]`` and ``u [C]`` replace the Philox momentum and accept
+    uniform (parity tests). ``threads`` sets the launch's block size and
+    so its D-tiles; results do not depend on it beyond the order of the
+    sums. The form follows the shape rule of the module's docstring
+    (:func:`sep_fused`)."""
+    if not pos.is_cuda:
+        return hmc_separable_step_plain(target, pos, logp, eps, n_leapfrog,
+                                        seed, step, tables, mom=mom, u=u,
+                                        chain0=chain0)
+    c, d = pos.shape
+    for name, t in (("logp", logp), ("u", u)):
+        if t is not None and (t.shape != (c,) or t.dtype != torch.float32
+                              or t.device != pos.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 [C] "
+                             "tensor on the positions' device")
+    n_tiles = sep_tiles(d, threads)
+    if n_tiles > SEP_MAX_CLUSTER:  # the two-pass form
+        pos_prop, parts, _ = _trajectory(target, pos, eps, n_leapfrog, seed,
+                                         step, tables, mom, chain0, threads)
+        logp_prop, ke0, ke1 = parts.sum(dim=2)
+        if u is None:
+            u = accept_uniforms(c, step, seed, pos.device, chain0)
+        return _accept(pos, logp, pos_prop, logp_prop, ke0, ke1, u)
+    fid, scaled = _check(target, pos, eps, tables, mom, threads)
+    _clusters(pos.device, fid, scaled, threads, n_tiles)
+    pos_o = torch.empty_like(pos)
+    logp_o = torch.empty_like(logp)
+    alpha_o = torch.empty_like(logp)
+    seed_lo, seed_hi = rng.seed_words(seed)
+    lib = _build.lib()
+    hmc_separable_step.launches += 1
+    hmc_separable_step.scaled_launches += int(scaled)
+    _build.check(lib.mm_hmc_separable_step(
+        pos.data_ptr(), None if mom is None else mom.data_ptr(),
+        None if u is None else u.data_ptr(), logp.data_ptr(),
+        eps.data_ptr(), _build.params_ptr(target, pos.device, d),
+        tables.data_ptr() if tables.shape[0] else None, c, d, n_leapfrog,
+        fid, int(scaled), threads,
+        _vec(d, pos, pos_o, *tables, mom), chain0 & _MASK, seed_lo, seed_hi,
+        step & _MASK, pos_o.data_ptr(), logp_o.data_ptr(),
+        alpha_o.data_ptr(), _build.stream_ptr(pos.device),
+    ))
+    return pos_o, logp_o, alpha_o
+
+
+#: launches of the fused form (the two-pass form counts in
+#: ``hmc_separable.launches``)
+hmc_separable_step.launches = 0
+#: the fused launches of the scaled (diagonal-metric) instances, also
+#: counted in ``launches``
+hmc_separable_step.scaled_launches = 0

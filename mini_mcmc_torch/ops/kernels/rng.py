@@ -9,8 +9,7 @@ port's stream is its own, distribution-identical, and fixed by
 (seed, chain, step, draw) alone.
 
 Counter layout: ``(chain index, global step, draw index, sub-draw)``; the
-key is the full 64-bit per-run seed as two words. HMC: draw ``d < D`` gives
-coordinate ``d``'s momentum normal, draw ``D`` the accept uniform. NUTS
+key is the full 64-bit per-run seed as two words. NUTS
 (Kernel 4): draw 0 the momentum by paired Box-Muller (words x, y) and the
 slice's Exp(1) uniform (word z) at D <= 2, at D > 2 draws ``0..Q-1`` the
 momenta four to an evaluation and draw ``Q = ceil(D / 4)``'s word x the
@@ -21,17 +20,19 @@ position ``k`` having ordinal ``i - popcount(i) + k``
 (``nuts_full.py``). The ``use_pallas=True`` NUTS tier takes its
 subtree hash seeds from chain 0, draw ``0x20000 + j``, and the plain NUTS
 tiers seed each step's ``torch.Generator`` from chain 0, draw ``0x30000``
-(``ops/nuts.py``). MH (Kernel 5) and Gibbs (Kernel 6): one word stream
-per (chain, step), the words of the counters ``(chain, step, q, 0)`` for
-``q < ceil(W / 4)`` in order (:func:`stream_words`), ``W`` the words the
-step uses. The isotropic walk takes normals ``2p``, ``2p + 1`` from the
-cosine and sine of :func:`box_muller_pair` on words ``2p``, ``2p + 1``
-and the accept from word ``2 ceil(D / 2)``; the integer walk coin ``d``
+(``ops/nuts.py``). HMC (Kernel 2), MH (Kernel 5) and Gibbs (Kernel 6):
+one word stream per (chain, step), the words of the counters ``(chain,
+step, q, 0)`` for ``q < ceil(W / 4)`` in order (:func:`stream_words`),
+``W`` the words the step uses. HMC and the isotropic walk take normals
+``2p``, ``2p + 1`` from the cosine and sine of :func:`box_muller_pair` on
+words ``2p``, ``2p + 1`` (:func:`pair_normals`) and the accept from word
+``2 ceil(D / 2)``; the integer walk coin ``d``
 from the top bit of word ``d`` (clear meaning +1) and the accept from
 word ``D``; the Gibbs mixture x's normal from :func:`box_muller` on words
 0, 1 and z's uniform from word 2. Separable HMC (Kernel 7): draw ``q``
 gives the momenta of coordinates ``4q..4q+3`` by paired Box-Muller
-(:func:`paired_normals`). Parallel tempering (Kernel 8): draw ``t``,
+(:func:`paired_normals`), draw 0, sub-draw 1, word x the accept uniform.
+Parallel tempering (Kernel 8): draw ``t``,
 sub-draw ``i`` gives rung ``t``'s sweep ``i``, words x, y its proposal
 normal, word z its accept, and at ``i = 0`` word w the swap uniform of
 pair ``(t, t+1)``.
@@ -112,25 +113,6 @@ def box_muller(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return r * torch.cos(_TWO_PI * u2)
 
 
-def step_words(n_chains: int, n_draws: int, step: int, seed: int,
-               device=None, chain0: int = 0):
-    """Words x and y (int64 ``[C, n_draws]``) of the counters
-    ``(chain0 + c, step, draw, 0)`` for ``draw < n_draws``: one step's
-    draws for every chain, from one Philox evaluation."""
-    chain = torch.arange(chain0, chain0 + n_chains,
-                         device=device).reshape(-1, 1)
-    draw = torch.arange(n_draws, device=device).reshape(1, -1)
-    w0, w1, _, _ = philox4x32_10(chain, step, draw, 0, seed_words(seed))
-    return w0, w1
-
-
-def step_draws(n_chains: int, dim: int, step: int, seed: int, device=None):
-    """One step's draws for every chain: ``[C, D]`` momentum normals (draws
-    ``0..D-1``) and ``[C]`` accept uniforms (draw ``D``)."""
-    w0, w1 = step_words(n_chains, dim + 1, step, seed, device)
-    return box_muller(w0[:, :dim], w1[:, :dim]), unit_open(w0[:, dim])
-
-
 def box_muller_pair(a: torch.Tensor, b: torch.Tensor):
     """``rng.py:normals_paired``: the cosine and sine normals of one
     Box-Muller angle, from two bit words."""
@@ -142,7 +124,7 @@ def box_muller_pair(a: torch.Tensor, b: torch.Tensor):
 def stream_words(n_chains: int, n_words: int, step: int, seed: int,
                  device=None, chain0: int = 0) -> torch.Tensor:
     """One step's word stream for every chain (``philox.cuh:step_words``,
-    Kernels 5 and 6): int64 ``[C, 4 ceil(n_words / 4)]``, word ``4q + j``
+    Kernels 2, 5 and 6): int64 ``[C, 4 ceil(n_words / 4)]``, word ``4q + j``
     being word ``j`` of the counter ``(chain0 + c, step, q, 0)``."""
     chain = torch.arange(chain0, chain0 + n_chains,
                          device=device).reshape(-1, 1)

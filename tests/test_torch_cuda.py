@@ -15,7 +15,10 @@ every chain. The MH and Gibbs kernels likewise: the same accepts (or z
 draws) and values within rtol 1e-5 / atol 1e-6 on at least 99.9% of
 chains, integer positions equal. The separable kernel (Kernel 7) is held
 per chain against the float64 twin on the same momentum draws, its three
-sums at rtol 1e-5, and its draws must not move with the launch grid; the
+sums at rtol 1e-5, and its draws must not move with the launch grid; its
+fused step makes the float64 twin's accept decision on at least 99.9% of
+chains, in every layout (clusters up to the 16-tile limit, on two
+streams at once) and in the two-pass form past the limit, with the positions per chain against float64; the
 tempering kernel (Kernel 8) must equal its twin (positions, logp, swap
 EWMA, history) on at least 99.9% of chains. Kernels 4, 5 and 6 must give
 bit-identical results under any launch grid, block of steps or chain
@@ -79,8 +82,13 @@ from mini_mcmc_torch.ops.kernels.mh_full import (
     mh_multistep_plain,
 )
 from mini_mcmc_torch.ops.kernels.hmc_sep import (
+    accept_uniforms,
     hmc_separable,
     hmc_separable_plain,
+    hmc_separable_step,
+    hmc_separable_step_plain,
+    sep_fused,
+    sep_tiles,
 )
 from mini_mcmc_torch.ops.kernels.nuts_full import nuts_step, nuts_step_plain
 from mini_mcmc_torch.ops.kernels.nuts_subtree import subtree, subtree_plain
@@ -614,10 +622,12 @@ def test_cuda_separable_sampler(cuda):
                    sep_form=(lambda x, s: _sigma_target(sigma).logp(x),
                              (sigma,)), cuda_functor="sigma_table_normal"),
             x, 0.1, 5, use_pallas="separable")
-    n = hmc_separable.launches
+    n, n2 = hmc_separable_step.launches, hmc_separable.launches
     out = HMC(standard_normal(), x, 0.2, 8, use_pallas="separable",
               steps_per_call=4).seed(2).run(32, 32)
-    assert hmc_separable.launches == n + 64
+    # one fused launch a step, no two-pass launch
+    assert hmc_separable_step.launches == n + 64
+    assert hmc_separable.launches == n2
     assert out.is_cuda and torch.isfinite(out).all()
     assert abs(float(out.var()) - 1.0) < 0.1
 
@@ -905,12 +915,13 @@ def test_cuda_hmc_metric_tiers_and_separable_raises(cuda):
     # a diagonal metric runs Kernel 7's scaled instance; one whitened
     # twice has no form the kernel runs, and raises
     diag = Preconditioner("diag", scale=torch.linspace(0.5, 2.0, 8))
-    n, n_scaled = hmc_separable.launches, hmc_separable.scaled_launches
+    n = hmc_separable_step.launches
+    n_scaled = hmc_separable_step.scaled_launches
     h = HMC(standard_normal(), torch.zeros((64, 8), device=cuda), 0.1, 4,
             use_pallas="separable", metric=diag).seed(1)
     assert torch.isfinite(h.run(4, 4)).all()
-    assert hmc_separable.launches == n + 8
-    assert hmc_separable.scaled_launches == n_scaled + 8
+    assert hmc_separable_step.launches == n + 8
+    assert hmc_separable_step.scaled_launches == n_scaled + 8
     with pytest.raises(ValueError, match="whitens it once"):
         HMC(h.kernel_target, torch.zeros((64, 8), device=cuda), 0.1, 4,
             use_pallas="separable", metric=diag)
@@ -1004,3 +1015,244 @@ def test_cuda_tuned_leaves_a_finite_step_size(cuda, tier):
                                 use_pallas=tier).seed(4).tuned(100)
         assert 0.0 < mh.scale_factor < 1.0
         assert torch.isfinite(mh.run(8, 8)).all()
+
+
+def _sep_step_case(which, d, c, cuda, seed):
+    """(target, positions, logp, tables) for a fused-step test: the
+    standard normal, the isotropic Gaussian, the sigma table
+    (logspace(-1, 1, D)) or that table whitened by its own sigma (the
+    scaled instance), from positions drawn from the target."""
+    g = np.random.default_rng(seed)
+    z = torch.from_numpy(g.standard_normal((c, d)).astype(np.float32))
+    z = z.to(cuda)
+    sigma = torch.logspace(-1, 1, d).to(cuda)
+    if which == "standard_normal":
+        t, x = standard_normal(), z
+    elif which == "isotropic_gaussian":
+        t, x = isotropic_gaussian_target(1.5), 1.5 * z
+    elif which == "sigma_table":
+        t, x = _sigma_target(sigma), z * sigma
+    else:
+        t = precondition_target(_sigma_target(sigma),
+                                Preconditioner("diag", scale=sigma))
+        x = z
+    tables = (torch.cat([s.reshape(1, -1) for s in t.sep_forms()[1]])
+              if t.sep_forms()[1] else torch.empty((0, d), device=cuda))
+    return t, x.contiguous(), t.batch_logp(x).float(), tables
+
+
+def _moved(new, pos):
+    return (new != pos.to(new.dtype)).any(dim=1)
+
+
+def _sep_ref(t, x, lp, eps, n_leapfrog, seed, step, tables, mom=None,
+             u=None):
+    """The float64 twin's step, the accept uniforms and the ties: the
+    chains whose accept_logp lies within the float32 sums' error bound of
+    log(u), where either decision is right. A float32 sum of D terms in
+    (log2(D) + 8) rounds (the kernel's tree, the twin's pairwise sums)
+    errs by at most that many ulps of the terms' magnitude."""
+    x64, lp64, t64 = x.double(), lp.double(), tables.double()
+    m64 = None if mom is None else mom.double()
+    _, lp_prop, ke0, ke1, _ = hmc_separable_plain(
+        t, x64, eps.double(), n_leapfrog, seed, step, t64, m64)
+    if u is None:
+        u = accept_uniforms(x.shape[0], step, seed, x.device)
+    gap = ((-lp64 + ke0) - (-lp_prop + ke1)) - torch.log(u.double())
+    ulps = (math.log2(x.shape[1]) + 8) * 2.0 ** -24
+    tie = gap.abs() <= ulps * (lp64.abs() + lp_prop.abs() + ke0 + ke1)
+    ref = hmc_separable_step_plain(t, x64, lp64, eps.double(), n_leapfrog,
+                                   seed, step, t64, mom=m64, u=u)
+    return ref, tie, u
+
+
+def _hold_step(got, ref, tie, u, pos):
+    """A fused step against the float64 twin per chain: the same accept
+    decision on at least 99.9% of the chains that are no tie (at least 90%
+    of them), each decision the kernel's own (a chain moved iff its
+    alpha_c >= u, up to the rounding of expf and logf); on the chains that
+    decide alike, the positions within tolerance, logp within rtol 1e-5
+    and alpha_c within 1e-2 on at least 99.9% of them."""
+    moved = _moved(got[0], pos)
+    same = moved == _moved(ref[0], pos)
+    assert _share(~tie) >= 0.9
+    assert _share(same[~tie]) >= 0.999
+    alpha = got[2]
+    assert bool(((alpha >= 0) & (alpha <= 1)).all())
+    own = (moved == (alpha >= u)) | ((alpha - u).abs() <= 1e-6)
+    assert bool(own.all())
+    near = ((got[0] - ref[0]).abs() <= ATOL + RTOL * ref[0].abs()).all(1)
+    assert _share(near[same]) >= 0.999
+    lp = (got[1].double() - ref[1]).abs() <= 1e-5 * ref[1].abs()
+    assert _share(lp[same]) >= 0.999
+    # alpha_c = exp(min(accept_logp, 0)), accept_logp a difference of four
+    # sums of about D / 2 each: float32 sums over 10,000 coordinates hold
+    # it to ~1e-3, so alpha_c to ~1e-3 alpha_c
+    close = (alpha.double() - ref[2]).abs() <= 1e-2
+    assert _share(close[same]) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,d,threads", [
+    ("standard_normal", 10_000, 256), ("sigma_table", 10_000, 256),
+    ("scaled_sigma_table", 10_000, 256), ("isotropic_gaussian", 1_001, 256),
+    ("sigma_table", 4_000, 64), ("standard_normal", 32_768, 256)])
+def test_cuda_fused_separable_step_matches_plain(cuda, which, d, threads):
+    """Kernel 7's fused step against its twin in float64: the float4 path
+    and the scalar one (D not a multiple of 4), clusters of 5, 8 (64
+    threads) and 16 tiles (the limit, a non-portable size), every
+    functor and the scaled instance; then given the momentum and the
+    uniforms (the parity path) against the twin given the same."""
+    c = 1024
+    t, x, lp, tables = _sep_step_case(which, d, c, cuda, 52)
+    assert sep_fused(d, threads) and sep_tiles(d, threads) in (1, 5, 8, 16)
+    # a step the narrowest coordinate (sigma 0.1) takes stably and often
+    eps = torch.tensor([{"sigma_table": 0.01, "scaled_sigma_table": 0.15}
+                        .get(which, 0.1)], device=cuda)
+    args = (t, x, lp, eps, 10, 0x5EED_AB, 7, tables)
+    n, n2 = hmc_separable_step.launches, hmc_separable.launches
+    got = hmc_separable_step(*args, threads=threads)
+    assert (hmc_separable_step.launches, hmc_separable.launches) == (n + 1,
+                                                                     n2)
+    want = hmc_separable_step_plain(*args)
+    ref, tie, u = _sep_ref(*args)
+    torch.cuda.synchronize()
+    _hold_step(got, ref, tie, u, x)
+    same = _moved(got[0], x) == _moved(want[0], x)
+    assert _share(same[~tie]) >= 0.999  # the float32 twin
+    # a rejected chain keeps its position and logp exactly
+    kept = ~_moved(got[0], x)
+    assert torch.equal(got[1][kept], lp[kept])
+    assert 0.05 < _share(~kept) < 1.0
+    # the parity path: given momentum and uniforms
+    g = np.random.default_rng(53)
+    mom = torch.from_numpy(g.standard_normal((c, d)).astype(np.float32))
+    u = torch.from_numpy(g.uniform(1e-6, 1.0, c).astype(np.float32))
+    mom, u = mom.to(cuda), u.to(cuda)
+    got = hmc_separable_step(*args, mom=mom, u=u, threads=threads)
+    ref, tie, u = _sep_ref(*args, mom=mom, u=u)
+    _hold_step(got, ref, tie, u, x)
+
+
+@pytest.mark.cuda
+def test_cuda_separable_step_past_the_cluster_limit_is_two_pass(cuda):
+    """One tile past the 16-tile limit the step launches the
+    trajectory-only form and accepts in PyTorch, counted apart, with the
+    same draws (momenta and uniform) as the fused form: at D = 8,192 the
+    fused step in clusters of 16 (64 threads) and the two-pass form (32
+    threads: 32 tiles) agree per chain."""
+    assert sep_fused(32_768) and not sep_fused(32_769)
+    c = 1024
+    t, x, lp, tables = _sep_step_case("sigma_table", 32_769, c, cuda, 54)
+    eps = torch.tensor([0.01], device=cuda)
+    n, n2 = hmc_separable_step.launches, hmc_separable.launches
+    got = hmc_separable_step(t, x, lp, eps, 10, 0x5EED_CD, 2, tables)
+    assert (hmc_separable_step.launches, hmc_separable.launches) == (n,
+                                                                     n2 + 1)
+    ref, tie, u = _sep_ref(t, x, lp, eps, 10, 0x5EED_CD, 2, tables)
+    _hold_step(got, ref, tie, u, x)
+    # the same step in either form, by layout alone
+    t, x, lp, tables = _sep_step_case("standard_normal", 8_192, 1024, cuda,
+                                      55)
+    eps = torch.tensor([0.1], device=cuda)
+    args = (t, x, lp, eps, 10, 0x5EED_EF, 3, tables)
+    assert sep_fused(8_192, 64) and not sep_fused(8_192, 32)
+    fused = hmc_separable_step(*args, threads=64)
+    n2 = hmc_separable.launches
+    two = hmc_separable_step(*args, threads=32)
+    assert hmc_separable.launches == n2 + 1
+    ref, tie, u = _sep_ref(*args)
+    assert _share((fused[0] == two[0]).all(1)[~tie]) >= 0.999
+    _hold_step(fused, ref, tie, u, x)
+    _hold_step(two, ref, tie, u, x)
+
+
+@pytest.mark.cuda
+def test_cuda_separable_step_layouts_and_refusals(cuda):
+    """Clusters of 10 (128 threads) give the default clusters of 5's
+    result per chain; the wrapper refuses a block size the kernel does not
+    take, the C entry a cluster past 16 tiles, and the wrapper raises on
+    such codes."""
+    t, x, lp, tables = _sep_step_case("sigma_table", 10_000, 1024, cuda,
+                                      56)
+    eps = torch.tensor([0.01], device=cuda)
+    args = (t, x, lp, eps, 10, 0x5EED_12, 9, tables)
+    base = hmc_separable_step(*args)
+    ten = hmc_separable_step(*args, threads=128)
+    assert sep_tiles(10_000, 128) == 10
+    tie = _sep_ref(*args)[1]
+    assert _share((ten[0] == base[0]).all(1)[~tie]) >= 0.999
+    for threads in (48, 512):
+        with pytest.raises(ValueError, match="threads"):
+            hmc_separable_step(*args, threads=threads)
+    from mini_mcmc_torch.ops.kernels import _build
+    out = torch.empty_like(x)
+    code = _build.lib().mm_hmc_separable_step(
+        x.data_ptr(), None, None, lp.data_ptr(), eps.data_ptr(), None,
+        tables.data_ptr(), 1024, 10_000, 10, 2, 0, 32, 1, 0, 1, 0, 0,
+        out.data_ptr(), lp.data_ptr(), lp.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert code != 0  # 40 tiles: no cluster of that size
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.check(code)
+
+
+@pytest.mark.cuda
+def test_cuda_separable_step_on_two_streams_at_once(cuda):
+    """Two fused launches in flight on two streams give the results of
+    one stream, bit for bit (the kernel keeps no state between
+    launches)."""
+    t, x, lp, tables = _sep_step_case("standard_normal", 10_000, 1024, cuda,
+                                      57)
+    eps = torch.tensor([0.1], device=cuda)
+    halves = [(x[:512].contiguous(), lp[:512].contiguous(), 0),
+              (x[512:].contiguous(), lp[512:].contiguous(), 512)]
+    want = [hmc_separable_step(t, p, l, eps, 10, 0x5EED_34, 4, tables,
+                               chain0=c0) for p, l, c0 in halves]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for (p, l, c0), st in zip(halves, streams):
+        with torch.cuda.stream(st):
+            got.append(hmc_separable_step(t, p, l, eps, 10, 0x5EED_34, 4,
+                                          tables, chain0=c0))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        for p, q in zip(a, b):
+            assert torch.equal(p, q)
+    # chain0 keys the draws: the halves are the whole launch's rows
+    whole = hmc_separable_step(t, x, lp, eps, 10, 0x5EED_34, 4, tables)
+    assert torch.equal(torch.cat([got[0][0], got[1][0]]), whole[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_cuda_multistep_draws_are_the_stream_words(cuda, d):
+    """Kernel 2 draws one word stream per (chain, step): a K = 4 block
+    against its twin fed the words of ``rng.stream_words`` by hand (the
+    normals in Box-Muller pairs, the accept uniform word 2 ceil(D / 2)),
+    per chain."""
+    pos, _ = _state(8192, d, seed=60 + d)
+    t = rosenbrock_nd()
+    x = torch.from_numpy(pos).to(cuda)
+    lp, g = t.batch_logp_and_grad(x)
+    k, seed, step0 = 4, 0x5EED_56, 11
+    eps = torch.full((k,), 0.01, device=cuda)
+    accept_word = 2 * ((d + 1) // 2)
+    words = [rng.stream_words(8192, accept_word + 1, step0 + i, seed, cuda)
+             for i in range(k)]
+    assert words[0].shape[1] == (4 if d == 2 else 8)
+    mom = torch.stack([rng.pair_normals(w, d) for w in words])
+    u = torch.stack([rng.unit_open(w[:, accept_word]) for w in words])
+    hk = torch.empty((k, 8192, d), device=cuda)
+    hp = torch.empty_like(hk)
+    pk = hmc_multistep(t, x, lp, g, eps, 6, seed, step0, hk)
+    pp = hmc_multistep_plain(t, x, lp, g, eps, 6, seed, step0, hp, mom=mom,
+                             u=u)
+    torch.cuda.synchronize()
+    moved_k = (hk != torch.cat([x[None], hk[:-1]])).any(2)
+    moved_p = (hp != torch.cat([x[None], hp[:-1]])).any(2)
+    same = (moved_k == moved_p).all(0)
+    near = ((hk - hp).abs() <= ATOL + RTOL * hp.abs()).all(2).all(0)
+    near &= ((pk[0] - pp[0]).abs() <= ATOL + RTOL * pp[0].abs()).all(1)
+    assert _share(same & near) >= 0.999

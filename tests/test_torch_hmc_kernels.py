@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from mini_mcmc_torch.models import Target, rosenbrock_nd
-from mini_mcmc_torch.ops.kernels import _build
+from mini_mcmc_torch.ops.kernels import _build, rng
 from mini_mcmc_torch.ops.kernels.hmc import (
     check_state,
     leapfrog_trajectory,
@@ -174,6 +174,41 @@ def test_multistep_stream_does_not_depend_on_block_split():
     other = torch.empty((8, 64, 3))
     hmc_multistep(t, x, lp, g, eps, 4, 0xABCDEF12346, 10, other)
     assert not torch.equal(one, other)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_multistep_twin_draws_the_stream_words(d):
+    """Kernel 2's twin draws one word stream per (chain, step)
+    (``rng.stream_words``): normals 2p and 2p + 1 the cosine and sine of
+    one Box-Muller angle on words 2p and 2p + 1, the accept uniform word
+    2 ceil(D / 2): one Philox evaluation a step at D = 2, two at D = 3, 4.
+    The block drawn in the twin equals the block given those words."""
+    pos, _ = _state(64, d, seed=20 + d)
+    t = rosenbrock_nd()
+    x = torch.from_numpy(pos)
+    lp, g = t.batch_logp_and_grad(x)
+    k, seed, step0 = 3, 0xC0FFEE_1234, 7
+    eps = torch.full((k,), 0.02)
+    accept_word = 2 * ((d + 1) // 2)
+    words = [rng.stream_words(64, accept_word + 1, step0 + i, seed)
+             for i in range(k)]
+    assert all(w.shape == (64, 4 if d == 2 else 8) for w in words)
+    mom = torch.stack([rng.pair_normals(w, d) for w in words])
+    u = torch.stack([rng.unit_open(w[:, accept_word]) for w in words])
+    for p in range((d + 1) // 2):
+        cos, sin = rng.box_muller_pair(words[0][:, 2 * p],
+                                       words[0][:, 2 * p + 1])
+        assert torch.equal(mom[0, :, 2 * p], cos)
+        if 2 * p + 1 < d:
+            assert torch.equal(mom[0, :, 2 * p + 1], sin)
+    drawn, given = torch.empty((k, 64, d)), torch.empty((k, 64, d))
+    a = hmc_multistep_plain(t, x, lp, g, eps, 4, seed, step0, drawn)
+    b = hmc_multistep_plain(t, x, lp, g, eps, 4, seed, step0, given,
+                            mom=mom, u=u)
+    assert torch.equal(drawn, given)
+    for p_, q_ in zip(a, b):
+        assert torch.equal(p_, q_)
+    assert (drawn != x[None]).any()  # the block moved chains
 
 
 def test_multistep_writes_chain_major_views():

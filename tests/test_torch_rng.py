@@ -71,20 +71,36 @@ def test_unit_open_matches_tpu_helper():
 
 
 def _draws(n_chains=1 << 15, dim=3, step=7):
-    return rng.step_draws(n_chains, dim, step, SEED)
+    """One HMC step's draws (Kernel 2's layout): ``[C, D]`` momentum
+    normals in Box-Muller pairs from the (chain, step) word stream and the
+    ``[C]`` accept uniforms from its word ``2 ceil(D / 2)``."""
+    accept_word = 2 * ((dim + 1) // 2)
+    w = rng.stream_words(n_chains, accept_word + 1, step, SEED)
+    return rng.pair_normals(w, dim), rng.unit_open(w[:, accept_word])
 
 
-def test_step_draws_follow_the_counter_layout():
-    mom, u = rng.step_draws(5, 3, 9, SEED)
+@pytest.mark.parametrize("dim", [2, 3, 4])
+def test_step_draws_follow_the_counter_layout(dim):
+    """A step's words are those of the counters (chain, step, q, 0) in
+    order; normals 2p and 2p + 1 the cosine and sine of one angle, the
+    accept uniform word 2 ceil(D / 2): one evaluation at D = 2, two at
+    D = 3, 4."""
+    mom, u = _draws(5, dim, 9)
     k0, k1 = rng.seed_words(SEED)
+    n_evals = 1 if dim <= 2 else 2
+    assert rng.stream_words(5, 2 * ((dim + 1) // 2) + 1, 9,
+                            SEED).shape == (5, 4 * n_evals)
     for c in range(5):
-        for d in range(3):
-            w = [int(x) for x in rng.philox4x32_10(
-                torch.tensor([c]), 9, d, 0, (k0, k1))]
-            want = rng.box_muller(torch.tensor(w[0]), torch.tensor(w[1]))
-            assert torch.equal(mom[c, d], want)
-        w0 = int(rng.philox4x32_10(torch.tensor([c]), 9, 3, 0, (k0, k1))[0])
-        assert torch.equal(u[c], rng.unit_open(torch.tensor(w0)))
+        words = [int(x) for q in range(n_evals) for x in rng.philox4x32_10(
+            torch.tensor([c]), 9, q, 0, (k0, k1))]
+        for p in range((dim + 1) // 2):
+            cos, sin = rng.box_muller_pair(torch.tensor(words[2 * p]),
+                                           torch.tensor(words[2 * p + 1]))
+            assert torch.equal(mom[c, 2 * p], cos)
+            if 2 * p + 1 < dim:
+                assert torch.equal(mom[c, 2 * p + 1], sin)
+        w_u = words[2 * ((dim + 1) // 2)]
+        assert torch.equal(u[c], rng.unit_open(torch.tensor(w_u)))
 
 
 def test_same_seed_same_bits_distinct_counters_distinct_bits():

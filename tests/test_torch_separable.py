@@ -27,9 +27,13 @@ from mini_mcmc_torch.models import Target, validate_separable
 from mini_mcmc_torch.ops.hmc import HMCSepState
 from mini_mcmc_torch.ops.kernels import rng
 from mini_mcmc_torch.ops.kernels.hmc_sep import (
+    accept_uniforms,
     hmc_separable,
     hmc_separable_plain,
+    hmc_separable_step,
+    hmc_separable_step_plain,
     sep_functor,
+    sep_fused,
     sep_tiles,
 )
 import mini_mcmc_tpu as jmt
@@ -232,6 +236,10 @@ def test_coordinate_functors_are_named():
     # the D-tiles of one launch: 2 quads of 4 coordinates per thread
     assert sep_tiles(10_000) == 5 and sep_tiles(10_000, 64) == 20
     assert sep_tiles(40) == sep_tiles(1) == 1
+    # the fused form's shape rule: at most 16 tiles, one cluster a chain
+    assert sep_fused(32_768) and not sep_fused(32_769)
+    assert sep_fused(10_000) and not sep_fused(10_000, 64)
+    assert sep_tiles(10_000, 128) == 10 and sep_fused(10_000, 128)
 
 
 @pytest.mark.parametrize("case", ["standard_normal", "sigma_table"])
@@ -327,6 +335,123 @@ def test_twin_draws_its_momentum_from_the_paired_stream():
     assert drawn[4] is None and given[4].shape == (6, 13)
     np.testing.assert_allclose(drawn[2].numpy(),
                                (0.5 * (mom * mom).sum(1)).numpy(), rtol=1e-6)
+
+
+def _truncated_targets():
+    """A standard normal cut at x = 3 (-inf past it) in both packages: a
+    trajectory that crosses the cut proposes at logp = -inf."""
+
+    def j_tile(x):
+        return jnp.sum(jnp.where(x < 3.0, -0.5 * x * x, -jnp.inf), axis=-1)
+
+    def t_tile(x):
+        return torch.sum(torch.where(x < 3.0, -0.5 * x * x,
+                                     torch.tensor(-float("inf"))), dim=-1)
+
+    return (jm.Target(logp=lambda x: j_tile(x[None, :])[0],
+                      logp_batch=j_tile, sep_form=(j_tile, ())),
+            Target(logp=t_tile, sep_form=(t_tile, ())))
+
+
+@pytest.mark.parametrize("case", ["truncated", "scaled_sigma_table"])
+def test_fused_twin_matches_pallas_kernel_and_jax_accept(case):
+    """The fused step's twin, given the momentum and the accept uniforms,
+    against ``make_pallas_hmc_separable(interpret=True, mom_input=True)``
+    followed by the accept of ``mini_mcmc_tpu/ops/hmc.py:203-214`` in jnp,
+    at 1e-5: positions, logp and alpha_c. C=8, D=40 over [4, 10] JAX
+    tiles. On the truncated normal chain 0 proposes NaN (a NaN momentum)
+    and chain 1 crosses the cut (logp -inf): both are rejected with
+    alpha_c 0. The scaled case is the sigma table whitened by a diagonal
+    metric (the scaled instance's twin)."""
+    g = np.random.RandomState(11 if case == "truncated" else 12)
+    # a step large enough that some proposals lose energy and are rejected
+    c, d, n_leapfrog = 8, 40, 6
+    eps = 0.1 if case == "truncated" else 0.4
+    pos = (0.5 * g.randn(c, d)).astype(np.float32)
+    mom = g.randn(c, d).astype(np.float32)
+    u = g.uniform(1e-6, 1.0, c).astype(np.float32)
+    if case == "truncated":
+        jt, tt = _truncated_targets()
+        mom[0, 3] = np.nan
+        mom[1, 0] = 60.0
+        logp_in = np.sum(-0.5 * pos * pos, axis=1, dtype=np.float32)
+    else:
+        sigma = (0.5 + g.rand(d)).astype(np.float32)
+        scale = (0.3 + 2.0 * g.rand(d)).astype(np.float32)
+        jt0, tt0 = _sigma_targets(sigma)
+        jt = jm.precondition_target(jt0, jm.Preconditioner(
+            "diag", scale=jnp.asarray(scale)))
+        tt = mt.precondition_target(tt0, mt.Preconditioner(
+            "diag", scale=torch.from_numpy(scale)))
+        z = pos * scale / sigma
+        logp_in = np.sum(-0.5 * z * z, axis=1, dtype=np.float32)
+
+    fn, tabs = jt.sep_forms()
+    traj = make_pallas_hmc_separable(fn, n_leapfrog, n_tables=len(tabs),
+                                     interpret=True, mom_input=True,
+                                     block_c=4, block_d=10)
+    jtabs = tuple(jnp.asarray(t, jnp.float32).reshape(1, -1) for t in tabs)
+    pos_p, _, pe, ke0, ke1 = traj(jnp.asarray(pos), jnp.asarray(mom), eps,
+                                  *jtabs)
+    # ops/hmc.py:_sep_step's accept, as the JAX package writes it
+    logp_prop = jnp.sum(pe, axis=1)
+    accept_logp = (-jnp.asarray(logp_in) + jnp.sum(ke0, axis=1)) - (
+        -logp_prop + jnp.sum(ke1, axis=1))
+    alpha_c = jnp.exp(jnp.minimum(accept_logp, 0.0))
+    alpha_c = jnp.where(jnp.isnan(alpha_c), 0.0, alpha_c)
+    accept = accept_logp >= jnp.log(jnp.asarray(u))
+    want = (np.asarray(jnp.where(accept[:, None], pos_p, pos)),
+            np.asarray(jnp.where(accept, logp_prop, logp_in)),
+            np.asarray(alpha_c))
+
+    tables = (torch.cat([t.float().reshape(1, -1)
+                         for t in tt.sep_forms()[1]])
+              if tabs else torch.empty((0, d)))
+    calls = hmc_separable_step_plain.calls
+    got = hmc_separable_step(
+        tt, torch.from_numpy(pos), torch.from_numpy(logp_in),
+        torch.tensor([eps]), n_leapfrog, 0, 0, tables,
+        mom=torch.from_numpy(mom), u=torch.from_numpy(u))
+    assert hmc_separable_step_plain.calls == calls + 1  # CPU: the twin
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=TOL, atol=TOL)
+    acc = np.asarray(accept)
+    assert acc.any() and not acc.all()
+    if case == "truncated":
+        assert np.isnan(np.asarray(pos_p)[0]).any()
+        assert np.isneginf(np.asarray(logp_prop)[1])
+        assert not acc[:2].any() and (want[2][:2] == 0.0).all()
+        np.testing.assert_array_equal(got[0][:2].numpy(), pos[:2])
+
+
+def test_fused_twin_draws_are_keyed_by_place():
+    """The fused twin's momenta are the trajectory's paired stream and its
+    uniforms word x of (chain, step, 0, 1): drawn or given, the same
+    step; a launch over a block of chains (``chain0``) is that block's
+    rows of the whole launch; another step draws anew."""
+    t = mt.standard_normal()
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (12, 30)).astype(np.float32))
+    lp = t.batch_logp(x)
+    eps, tables = torch.tensor([0.2]), torch.empty((0, 30))
+    drawn = hmc_separable_step(t, x, lp, eps, 5, 91, 4, tables)
+    u = accept_uniforms(12, 4, 91)
+    assert u.dtype == torch.float32 and bool(((u > 0) & (u <= 1)).all())
+    k0, k1 = rng.seed_words(91)
+    w = rng.philox4x32_10(torch.arange(12), 4, 0, 1, (k0, k1))[0]
+    assert torch.equal(u, rng.unit_open(w))
+    given = hmc_separable_step(t, x, lp, eps, 5, 91, 4, tables,
+                               mom=rng.paired_normals(12, 30, 4, 91), u=u)
+    for a, b in zip(drawn, given):
+        assert torch.equal(a, b)
+    half = hmc_separable_step(t, x[6:], lp[6:], eps, 5, 91, 4, tables,
+                              chain0=6)
+    for a, b in zip(half, drawn):
+        assert torch.equal(a, b[6:])
+    other = hmc_separable_step(t, x, lp, eps, 5, 91, 5, tables)
+    assert not torch.equal(other[0], drawn[0])
+    # alpha_c is each chain's acceptance probability
+    assert bool(((drawn[2] >= 0) & (drawn[2] <= 1)).all())
 
 
 def _gates(sample_tm, n, c):
