@@ -137,6 +137,24 @@ Phases, one line each (every check raises on failure):
     equal per chain), and both times (CUDA events); with ``--profile``,
     both stages under ``torch.profiler``.
 
+23. ``run_progress`` on the flagship (``[run_progress]``): ``HMC.run_progress(
+    8192, 8192, time_major=True)`` against a twin sampler's ``run(8192,
+    8192, time_major=True)`` from the same seed (run, progress, progress,
+    run): the cubes equal bit for bit, Kernel 2's 1,024 launches in each,
+    the bench gates on the progress cube, its RunStats, the rendered lines
+    and both wall times;
+24. ``stream_run`` of the flagship (``[stream_run]``): 8,192 draws after
+    8,192 in chunks of 1,024, each chunk equal to the twin cube's rows;
+    the tracker's acceptance and live R-hat beside the split R-hat;
+25. ``summary`` and ``rank_normalized_diagnostics`` on the card
+    (``[summary_on_card]``, CUDA events and peak memory) on the gate's
+    [512, 2048, 3] sub-cube, held to the CPU's summary, and on the last 512
+    draws of all 65,536 chains (33,554,432 draws a parameter);
+26. ``run_progress`` against ``run()`` at each stage's chain count
+    (``[run_progress_samplers]``): NUTS (Kernel 4), MH (Kernel 5), Gibbs
+    (Kernel 6), separable (Kernel 7) and tempering (Kernel 8), the cubes
+    equal bit for bit, the same launches and no plain twin.
+
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
 launches on the main paths); the last line is ``{"ok": true, "device":
@@ -146,6 +164,7 @@ launches on the main paths); the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import math
 import re
@@ -642,6 +661,41 @@ def phase_philox(dev) -> None:
     say("philox", known_answer="ok", counters=1 << 20, words_differing=0)
 
 
+def hmc_gates(sample) -> dict:
+    """The quality gates of bench.py:183-187,228 on a time-major flagship
+    cube ``[N_COLLECT, N_CHAINS, DIM]``; returns the gated numbers."""
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    x0 = sample[:, :, 0]
+    m = {
+        "rhat_mean": float(rhat.mean()),
+        "ess_mean": float(ess.mean()),
+        "ess_min": float(ess.min()),
+        "x0_mean": float(x0.mean()),
+        "x0_var": float(x0.var(unbiased=False)),
+    }
+    total_draws = N_CHAINS * N_COLLECT
+    check("hmc rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    check("hmc ess floor", m["ess_min"] >= 0.01 * total_draws,
+          (m["ess_min"], total_draws))
+    check("hmc x0 mean", abs(m["x0_mean"] - ROSEN3D_X0_MEAN) <= 0.05,
+          m["x0_mean"])
+    check("hmc x0 var", abs(m["x0_var"] - ROSEN3D_X0_VAR) <= 0.04,
+          m["x0_var"])
+    # the contiguous [512, 2048, 3] tail bench.py:191-204 gates: chains are
+    # exchangeable and the last draws are the steady state
+    modern = mt.rank_normalized_diagnostics(gate_cube(sample),
+                                            time_major=True)
+    m["rank_rhat_max"] = float(modern.rhat.max())
+    check("hmc rank-normalized rhat", m["rank_rhat_max"] <= 1.02,
+          m["rank_rhat_max"])
+    return m
+
+
+def gate_cube(sample):
+    """The flagship gate's sub-cube, the last 512 draws of 2,048 chains."""
+    return sample[N_COLLECT - 512:, :2048]
+
+
 def phase_main_path(dev):
     """The flagship through the public entry points. Returns the sampler,
     the launch counts of the main path (burn-in and timed run) and those
@@ -669,33 +723,8 @@ def phase_main_path(dev):
           tuple(sample.shape))
     check("sample finite", bool(torch.isfinite(sample).all()), "non-finite")
 
-    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
-    x0 = sample[:, :, 0]
-    m = {
-        "elapsed_s": elapsed,
-        "rhat_mean": float(rhat.mean()),
-        "ess_mean": float(ess.mean()),
-        "ess_min": float(ess.min()),
-        "x0_mean": float(x0.mean()),
-        "x0_var": float(x0.var(unbiased=False)),
-    }
-    total_draws = N_CHAINS * N_COLLECT
-    # the quality gates of bench.py:183-187,228
-    check("hmc rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
-    check("hmc ess floor", m["ess_min"] >= 0.01 * total_draws,
-          (m["ess_min"], total_draws))
-    check("hmc x0 mean", abs(m["x0_mean"] - ROSEN3D_X0_MEAN) <= 0.05,
-          m["x0_mean"])
-    check("hmc x0 var", abs(m["x0_var"] - ROSEN3D_X0_VAR) <= 0.04,
-          m["x0_var"])
-    # contiguous [512, 2048, 3] tail: chains are exchangeable and the last
-    # draws are the steady state (torch.quantile caps at 2**24 draws)
-    sub = sample[N_COLLECT - 512:, :2048]
-    modern = mt.rank_normalized_diagnostics(sub, time_major=True)
-    m["rank_rhat_max"] = float(modern.rhat.max())
-    check("hmc rank-normalized rhat", m["rank_rhat_max"] <= 1.02,
-          m["rank_rhat_max"])
-    del sample, x0, sub
+    m = {"elapsed_s": elapsed, **hmc_gates(sample)}
+    del sample
     steps_per_sec = N_COLLECT / elapsed
     m["ess_per_sec"] = m["ess_mean"] / elapsed
     m["draws_per_sec"] = steps_per_sec * N_CHAINS
@@ -2368,6 +2397,261 @@ def phase_k7_alone(dev, reps: int = 20) -> dict:
     return out
 
 
+def flagship(dev, seed: int = 42):
+    """A flagship sampler as the main path builds it, from ``seed``."""
+    init = (mt.init_with_seed(N_CHAINS, DIM, seed=seed, device=dev) * 0.5
+            + 1.0)
+    return mt.HMC(mt.rosenbrock_nd(), init, STEP_SIZE, N_LEAPFROG,
+                  use_pallas="full", jitter=JITTER,
+                  steps_per_call=STEPS_PER_CALL).seed(seed)
+
+
+def timed(fn):
+    """``(fn(), seconds)``, the device synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tracked_run(sampler, n_collect: int, n_discard: int, time_major: bool):
+    """The sampler's own runner with a fresh tracker and no display: what
+    ``run_progress`` adds to ``run()`` before its ticks and RunStats."""
+    tracker = mt.stats.tracker_init(sampler.n_chains, sampler.dim,
+                                    device=sampler.state.positions.device)
+    sampler.state, cube, _ = sampler._runner(
+        sampler.state, sampler._next_key(), n_collect, n_discard,
+        time_major=time_major, tracker=tracker)
+    return cube
+
+
+def phase_run_progress(dev):
+    """The flagship through ``HMC.run_progress(8192, 8192, time_major=True)``
+    against a twin sampler's ``run(8192, 8192, time_major=True)`` from the
+    same seed, and the runner with a tracker alone ("tracked"), in turns:
+    the cubes equal bit for bit, Kernel 2's launches (1,024 in each, no
+    twin), the bench gates on the progress cube, its RunStats, the
+    progress lines, the wall times and that of ``run_stats`` on the cube
+    (which ``run_progress`` returns beside it). Returns the progress cube,
+    the twin's cube and the counts."""
+    per_run = 2 * N_COLLECT // STEPS_PER_CALL
+    times = {"run_s": [], "run_progress_s": [], "tracked_s": []}
+    cubes, text = {}, ""
+    for drive in ("run", "run_progress", "tracked", "tracked",
+                  "run_progress", "run"):
+        sampler = flagship(dev)
+        reset_counts()
+        if drive == "run":
+            cube, sec = timed(lambda: sampler.run(N_COLLECT, N_COLLECT,
+                                                  time_major=True))
+        elif drive == "tracked":
+            cube, sec = timed(lambda: tracked_run(sampler, N_COLLECT,
+                                                  N_COLLECT, True))
+        else:
+            out = io.StringIO()
+            (cube, rs), sec = timed(lambda: sampler.run_progress(
+                N_COLLECT, N_COLLECT, time_major=True, stream=out))
+            text = out.getvalue()
+        counts = read_counts()
+        check(f"{drive} launches and no plain twin",
+              counts == counts_with(hmc_multistep=per_run), counts)
+        times[f"{drive}_s"].append(sec)
+        if drive in cubes or drive == "tracked":
+            check(f"{drive} cube repeats", torch.equal(
+                cube, cubes.get(drive, cubes["run"])), drive)
+        else:
+            cubes[drive] = cube
+        del cube, sampler
+    sample, want = cubes["run_progress"], cubes["run"]
+    equal = torch.equal(sample, want)
+    check("run_progress cube equals run()'s", equal, "cubes differ")
+    stats_s = [timed(lambda: mt.run_stats(want, time_major=True))[1]
+               for _ in range(2)]
+    m = hmc_gates(sample)
+    lines = [ln for ln in text.splitlines() if ln.startswith("Global")]
+    check("run_progress rendered", len(lines) >= 1
+          and f"{2 * N_COLLECT}/{2 * N_COLLECT}" in lines[-1], lines[-1:])
+    run_s = min(times["run_s"])
+    say("run_progress", equal_to_run=equal, launches=per_run,
+        run_launches=per_run, **{k: repr(v) for k, v in m.items()},
+        **{k: repr(v) for k, v in times.items()},
+        run_stats_s=repr(stats_s),
+        ratio=repr(min(times["run_progress_s"]) / run_s),
+        ratio_tracked=repr(min(times["tracked_s"]) / run_s),
+        ratio_without_run_stats=repr(
+            (min(times["run_progress_s"]) - min(stats_s)) / run_s),
+        rendered=len(lines), last_global=repr(lines[-1]))
+    say("run_progress_stats", ess=repr(str(rs.ess)),
+        rhat=repr(str(rs.rhat)))
+    return sample, want, counts
+
+
+def phase_stream_run(want, dev) -> int:
+    """``stream_run`` of the flagship, 8,192 draws after 8,192 in chunks of
+    1,024: each chunk equals the same rows of the twin's ``run()`` cube
+    ``want``; the tracker's acceptance and live R-hat beside run_stats'
+    split R-hat. Returns Kernel 2's launches."""
+    chunk = 1024
+    seen = []
+
+    def on_chunk(c, start):
+        check(f"stream chunk {start}", torch.equal(
+            c, want[start:start + chunk]), start)
+        seen.append(start)
+
+    sampler = flagship(dev)
+    reset_counts()
+    res, sec = timed(lambda: mt.stream_run(sampler, N_COLLECT, chunk,
+                                           on_chunk, n_discard=N_COLLECT))
+    counts = read_counts()
+    per_run = 2 * N_COLLECT // STEPS_PER_CALL
+    check("stream_run launches and no plain twin",
+          counts == counts_with(hmc_multistep=per_run), counts)
+    check("stream_run chunks", seen == list(range(0, N_COLLECT, chunk)),
+          seen)
+    rs = mt.run_stats(want, time_major=True)
+    rhat, _ = mt.split_rhat_mean_ess(want, time_major=True)
+    say("stream_run", chunks=len(seen), chunk=chunk, equal_to_run=True,
+        launches=per_run, seconds=repr(sec),
+        p_accept=repr(float(res.p_accept)),
+        live_rhat=repr([float(v) for v in res.rhat]),
+        split_rhat=repr([float(v) for v in rhat]),
+        run_stats_rhat=repr(str(rs.rhat)))
+    return per_run
+
+
+def phase_summary_on_card(sample, dev) -> dict:
+    """``summary`` and ``rank_normalized_diagnostics`` on the card (CUDA
+    events, peak memory above the cubes) on the gate's [512, 2048, 3]
+    sub-cube and on the last 512 draws of all 65,536 chains, 33,554,432
+    draws a parameter (twice the 2**24 at which torch.quantile raised):
+    every value finite, the rank R-hat under the gate, the summary's R-hat
+    the diagnostics', and the sub-cube's summary against the same one on
+    the CPU (mean, sd and quantiles at rtol 1e-4, ESS and MCSE at 1e-3,
+    R-hat at 1e-5)."""
+    out = {}
+    cubes = (("gate_512x2048", gate_cube(sample)),
+             ("tail_512x65536", sample[N_COLLECT - 512:]))
+    for label, cube in cubes:
+        res = {}
+        for name, fn in (("diagnostics", mt.rank_normalized_diagnostics),
+                         ("summary", mt.summary)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res[name] = fn(cube, time_major=True)
+            end.record()
+            end.synchronize()
+            out[f"{label}_{name}_s"] = start.elapsed_time(end) * 1e-3
+            out[f"{label}_{name}_peak_gib"] = (
+                torch.cuda.max_memory_allocated() - base) / 2**30
+        diag, summ = res["diagnostics"], res["summary"]
+        for f in ("rhat", "ess_bulk", "ess_tail"):
+            check(f"{label} diagnostics {f} finite",
+                  bool(torch.isfinite(getattr(diag, f)).all()), f)
+        for f in ("mean", "sd", "mcse_mean", "mcse_sd", "quantiles"):
+            check(f"{label} summary {f} finite",
+                  bool(torch.isfinite(getattr(summ, f)).all()), f)
+        check(f"{label} summary rhat is the diagnostics'",
+              torch.equal(summ.rhat, diag.rhat), (summ.rhat, diag.rhat))
+        rank_rhat = float(diag.rhat.max())
+        check(f"{label} rank-normalized rhat", rank_rhat <= 1.02, rank_rhat)
+        out[f"{label}_rank_rhat_max"] = rank_rhat
+        out[f"{label}_draws_per_param"] = cube.shape[0] * cube.shape[1]
+        if label.startswith("gate"):
+            cpu = mt.summary(cube.cpu(), time_major=True)
+            for f, rtol in (("mean", 1e-4), ("sd", 1e-4),
+                            ("quantiles", 1e-4), ("ess_bulk", 1e-3),
+                            ("ess_tail", 1e-3), ("mcse_mean", 1e-3),
+                            ("mcse_sd", 1e-3), ("rhat", 1e-5)):
+                a, b = getattr(summ, f).cpu(), getattr(cpu, f)
+                check(f"summary {f} card against CPU", torch.allclose(
+                    a, b, rtol=rtol, atol=rtol), (a, b))
+            print(str(summ), flush=True)
+    say("summary_on_card", **{k: repr(v) for k, v in out.items()})
+    return out
+
+
+def phase_run_progress_samplers(dev) -> dict:
+    """``run_progress`` against a twin's ``run()`` from the same seed at
+    each stage's chain count and a short K-aligned length: NUTS Gaussian2D
+    (131,072 chains, Kernel 4), MH (65,536, Kernel 5), Gibbs (65,536,
+    Kernel 6), separable (1,024 x D=10,000, Kernel 7) and tempering (8,192
+    x 8 rungs, Kernel 8): the cubes equal bit for bit, the same launches,
+    no plain twin. Returns each kernel's launches a drive."""
+    nuts_target = mt.diffable_gaussian2d(NUTS_MEAN, NUTS_COV)
+    gauss = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    stages = (
+        ("nuts", "nuts_step", (256, 128), False, lambda: mt.NUTS(
+            nuts_target, mt.init_with_seed(NUTS_CHAINS, 2, seed=7,
+                                           device=dev),
+            0.8, use_pallas="full").seed(7)),
+        ("mh", "mh_multistep", (256, 256), True,
+         lambda: mt.MetropolisHastings(
+             gauss, mt.isotropic_gaussian_proposal(1.0),
+             mt.init_with_seed(MH_CHAINS, 2, seed=8, device=dev),
+             use_pallas="full", steps_per_call=MH_K).seed(8)),
+        ("gibbs", "gibbs_multistep", (512, 512), True,
+         lambda: mt.GibbsSampler(
+             mt.gaussian_mixture_conditional(*MIX),
+             torch.zeros((MH_CHAINS, 2), device=dev), use_pallas="full",
+             steps_per_call=GIBBS_K).seed(42)),
+        ("separable", "hmc_separable_step", (32, 32), True, lambda: mt.HMC(
+            mt.standard_normal(),
+            mt.init_with_seed(SEP_CHAINS, SEP_DIM, seed=2, device=dev),
+            SEP_EPS, SEP_L, use_pallas="separable").seed(2)),
+        ("pt", "pt_multistep", (256, 256), True,
+         lambda: mt.ParallelTempering(
+             pt_mixture(), torch.full((PT_CHAINS, 1), -8.0, device=dev),
+             betas=mt.geometric_betas(PT_TEMPS, 0.01), proposal_std=1.0,
+             steps_per_call=PT_K, use_pallas="full").seed(5)),
+    )
+    launches = {}
+    for label, kernel, (n_collect, n_discard), tm, make in stages:
+        cubes, counts, secs = {}, {}, {}
+        for drive in ("run_progress", "run", "tracked"):
+            sampler = make()
+            reset_counts()
+            if drive == "run":
+                cube, secs[drive] = timed(lambda: sampler.run(
+                    n_collect, n_discard, time_major=tm))
+            elif drive == "tracked":
+                if label == "nuts":  # its runner records the initial row
+                    sampler.state = sampler._prepare_fn(
+                        sampler.state, sampler._next_key(), n_discard)
+                cube, secs[drive] = timed(lambda: tracked_run(
+                    sampler, n_collect, n_discard, tm))
+            else:
+                (cube, _), secs[drive] = timed(lambda: sampler.run_progress(
+                    n_collect, n_discard, time_major=tm,
+                    stream=io.StringIO()))
+            counts[drive] = read_counts()
+            cubes[drive] = cube
+            del sampler, cube
+        n = counts["run"][kernel]
+        check(f"{label} run_progress launches and no plain twin",
+              n > 0 and counts["run"] == counts["run_progress"]
+              == counts["tracked"] == counts_with(**{kernel: n}), counts)
+        equal = torch.equal(cubes["run_progress"], cubes["run"])
+        check(f"{label} run_progress cube equals run()'s", equal, label)
+        check(f"{label} tracked cube equals run()'s",
+              torch.equal(cubes["tracked"], cubes["run"]), label)
+        _, secs["run_stats"] = timed(lambda: mt.run_stats(
+            cubes["run"], time_major=tm))
+        launches[label] = n
+        say("run_progress_samplers", sampler=label, kernel=kernel,
+            run=f"({n_collect},{n_discard})", equal_to_run=equal,
+            launches=n, run_launches=n, plain_twin_calls=0,
+            **{f"{k}_s": repr(v) for k, v in secs.items()})
+        del cubes
+        torch.cuda.empty_cache()
+    return launches
+
+
 def bounds(step_details, subtree_leaves, dense_details) -> dict:
     """bound_ms and bound_by of each kernel at the shapes of its timing."""
     c, d = N_CHAINS, DIM
@@ -2519,6 +2803,19 @@ def main() -> None:
         phase_profile(hmc, dev)
     del hmc
     torch.cuda.empty_cache()
+    progress_cube, run_cube, _ = phase_run_progress(dev)
+    if args.profile:
+        phase_runs_profile((
+            ("tracked", lambda: tracked_run(flagship(dev), N_COLLECT,
+                                            N_COLLECT, True)),
+            ("run_progress", lambda: flagship(dev).run_progress(
+                N_COLLECT, N_COLLECT, time_major=True,
+                stream=io.StringIO()))))
+    stream_launches = phase_stream_run(run_cube, dev)
+    del run_cube
+    phase_summary_on_card(progress_cube, dev)
+    del progress_cube
+    torch.cuda.empty_cache()
     ml, mala_counts, _ = phase_mala_tuned(dev)
     k2m = phase_mala_kernel(ml, dev, args.profile)
     if args.profile:
@@ -2593,6 +2890,8 @@ def main() -> None:
         phase_runs_profile((("pt", lambda: pt.run(
             PT_COLLECT, 0, time_major=True)),))
     del pt
+    torch.cuda.empty_cache()
+    progress_launches = phase_run_progress_samplers(dev)
     b = bounds(step_details, sub_leaves, k34w["details"])
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
@@ -2617,22 +2916,27 @@ def main() -> None:
                max_abs_err_whitened=k12w["multistep_err"],
                launches_whitened=k12w["multistep_launches"],
                bound_ms_whitened=b["hmc_multistep_whitened"][0],
-               bound_by_whitened=b["hmc_multistep_whitened"][1]),
+               bound_by_whitened=b["hmc_multistep_whitened"][1],
+               launches_run_progress=2 * N_COLLECT // STEPS_PER_CALL,
+               launches_stream_run=stream_launches),
         record("nuts_step", "nuts_full.cu", "nuts_full.py:48",
                nuts_counts["nuts_step"], step_err, t["nuts_step_ms"],
-               t["nuts_step_plain_ms"]),
+               t["nuts_step_plain_ms"],
+               launches_run_progress=progress_launches["nuts"]),
         record("nuts_step_dense_metric", "nuts_full.cu", "nuts_full.py:48",
                dense_counts["nuts_step"], k34w["err"], k34w["ms"],
                k34w["plain_ms"]),
         record("mh_multistep_gauss2d", "mh_multistep.cu", "mh_full.py:50",
                mh_counts["mh_multistep"], k5["gauss2d"]["err"],
-               k5["gauss2d"]["ms"], k5["gauss2d"]["plain_ms"]),
+               k5["gauss2d"]["ms"], k5["gauss2d"]["plain_ms"],
+               launches_run_progress=progress_launches["mh"]),
         record("mh_multistep_poisson", "mh_multistep.cu", "mh_full.py:50",
                pois_counts["mh_multistep"], k5["poisson"]["err"],
                k5["poisson"]["ms"], k5["poisson"]["plain_ms"]),
         record("gibbs_multistep", "gibbs_multistep.cu", "gibbs_full.py:47",
                gibbs_counts["gibbs_multistep"], k6["err"], k6["ms"],
-               k6["plain_ms"]),
+               k6["plain_ms"],
+               launches_run_progress=progress_launches["gibbs"]),
         record("hmc_separable", "hmc_separable.cu", "hmc_bigd.py:177",
                sep_counts["hmc_separable_step"]
                + sep_counts["hmc_separable"], k7["err"], k7["ms"],
@@ -2643,10 +2947,12 @@ def main() -> None:
                launches_L40=sep40["separable"]["launches"],
                ms_L40=k7["ms_L40"], plain_ms_L40=k7["plain_ms_L40"],
                bound_ms_L40=b["hmc_separable_L40"][0],
-               bound_by_L40=b["hmc_separable_L40"][1]),
+               bound_by_L40=b["hmc_separable_L40"][1],
+               launches_run_progress=progress_launches["separable"]),
         record("pt_multistep", "pt_multistep.cu", "tempering_full.py:61",
                pt_counts["pt_multistep"], k8["err"], k8["ms"],
-               k8["plain_ms"]),
+               k8["plain_ms"],
+               launches_run_progress=progress_launches["pt"]),
         record("hmc_multistep_mala", "hmc_multistep.cu", "hmc_full.py:86",
                mala_counts["hmc_multistep"], k2m["err"], k2m["ms"],
                k2m["plain_ms"]),

@@ -10,7 +10,12 @@ which stays the reference the port is tested against; this package never
 imports it or JAX.
 """
 
-from .diagnostics import ModernDiagnostics, rank_normalized_diagnostics
+from .diagnostics import (
+    ModernDiagnostics,
+    Summary,
+    rank_normalized_diagnostics,
+    summary,
+)
 from .models import (
     Preconditioner,
     diffable_gaussian2d,
@@ -33,7 +38,14 @@ from .samplers import (
     MetropolisHastings,
     ParallelTempering,
 )
-from .stats import split_rhat_mean_ess
+from .stats import (
+    RunStats,
+    basic_stats,
+    collect_rhat,
+    run_stats,
+    split_rhat_mean_ess,
+)
+from .stream import StreamResult, stream_run
 from .utils.init import init, init_det, init_with_seed
 
 __all__ = [
@@ -45,6 +57,11 @@ __all__ = [
     "NUTS",
     "ParallelTempering",
     "Preconditioner",
+    "RunStats",
+    "StreamResult",
+    "Summary",
+    "basic_stats",
+    "collect_rhat",
     "diffable_gaussian2d",
     "estimate_preconditioner",
     "gaussian2d",
@@ -59,7 +76,10 @@ __all__ = [
     "random_walk_int_proposal",
     "rank_normalized_diagnostics",
     "rosenbrock_nd",
+    "run_stats",
     "split_rhat_mean_ess",
     "standard_normal",
+    "stream_run",
+    "summary",
     "tune_betas",
 ]

@@ -9,8 +9,10 @@ convention (row 0 is the position at collection start;
 
 ``metric=`` whitens the target (``models/precondition.py``) on every
 tier, the kernels through their affine wrapper; ``reconditioned`` and
-``warmed_up`` estimate the metric from the chain ensemble. Not ported yet
-(ROADMAP.md, Queue 1): ``transform=`` and ``run_progress``.
+``warmed_up`` estimate the metric from the chain ensemble.
+``run_progress`` samples with a live progress display and returns the
+cube with its ``RunStats``. Not ported yet (ROADMAP.md, Queue 1):
+``transform=``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .models.precondition import estimate_preconditioner
 from .ops.kernels._build import functor_id
 from .ops.kernels.nuts_subtree import MAX_DEPTH
 from .ops.nuts import nuts_kernel
+from .progress import progress_run
 from .runner import make_initial_recording_runner
 from .samplers import (
     _KernelSampler,
@@ -30,6 +33,7 @@ from .samplers import (
     _wrap_sampler_target,
     initial_positions_on,
 )
+from .stats import RunStats, run_stats
 
 
 class NUTS(_KernelSampler):
@@ -163,12 +167,39 @@ class NUTS(_KernelSampler):
             return torch.zeros_like(self.state.leapfrogs)
         return self.state.leapfrogs - self._lf_before_run
 
+    def _snapshot_divergences(self) -> None:
+        """The counters before a run, for ``last_run_*``."""
+        self._div_before_run = self.state.divergences.clone()
+        self._lf_before_run = self.state.leapfrogs.clone()
+
     def run(self, n_collect: int, n_discard: int = 0, *,
             time_major: bool = False) -> torch.Tensor:
         """Sample; returns ``[n_chains, n_collect, D]``, or
         ``[n_collect, n_chains, D]`` with ``time_major=True``."""
-        self._div_before_run = self.state.divergences.clone()
-        self._lf_before_run = self.state.leapfrogs.clone()
+        self._snapshot_divergences()
         self.state = self._prepare_fn(self.state, self._next_key(),
                                       n_discard)
         return super().run(n_collect, n_discard, time_major=time_major)
+
+    def run_progress(self, n_collect: int, n_discard: int = 0, *,
+                     stream=None, time_major: bool = False
+                     ) -> tuple[torch.Tensor, RunStats]:
+        """:meth:`run` with live progress bars on ``stream`` (default
+        stderr); returns ``(sample, run_stats(sample))``
+        (``mini_mcmc_tpu/nuts.py:280-309``, the analog of
+        ``nuts.rs:194-338``). The prepare pass runs once, then the chunks
+        go through the one-step runner: with ``n_discard == 0`` the current
+        position is the first row and ``n_collect - 1`` steps follow,
+        otherwise ``n_discard - 1`` unrecorded steps do, the convention of
+        :meth:`run`, whose cube it equals from the same seed."""
+        self._snapshot_divergences()
+        self.state = self._prepare_fn(self.state, self._next_key(),
+                                      n_discard)
+        kw = dict(n_chains=self.n_chains, dim=self.dim, stream=stream,
+                  time_major=time_major)
+        if n_discard == 0 and n_collect > 0:
+            kw["initial_rows"] = self.positions[None]  # [1, C, D]
+        self.state, sample = progress_run(
+            self._simple_runner, self.state, self._next_key(), n_collect,
+            max(n_discard - 1, 0), **kw)
+        return sample, run_stats(sample, time_major=time_major)

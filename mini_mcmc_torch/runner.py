@@ -18,6 +18,14 @@ the user's: ``positions_of(state)`` maps a step's positions, and the block
 runner's ``positions_map`` maps a block's ``[K, C, D]`` rows in place in the
 cube after the block (``mini_mcmc_tpu/runner.py:31-65``, and the
 ``block_fn`` wrap of ``mini_mcmc_tpu/samplers.py:160-171``).
+
+Every runner takes ``tracker=`` (a :class:`~mini_mcmc_torch.stats.
+TrackerState`, or ``None``) and ``out=`` (a caller's cube, or a view of its
+rows ``lo:hi``, in place of a fresh one) and returns ``(state, cube,
+tracker)``. The tracker folds every step, burn-in included, in the user's
+coordinates, as in the JAX package (``mini_mcmc_tpu/runner.py:35-65``).
+Without a tracker a run launches and writes exactly what it would without
+the keyword.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from .stats import tracker_update, tracker_update_rows
 
 
 def _default_positions_of(state):
@@ -39,10 +49,22 @@ class StepKey(NamedTuple):
     generator: torch.Generator  # on the positions' device
 
 
-def _alloc_cube(positions: torch.Tensor, n_collect: int, time_major: bool):
+def _alloc_cube(positions: torch.Tensor, n_collect: int, time_major: bool,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """A fresh ``[n_collect, C, D]`` (``time_major``) or ``[C, n_collect,
+    D]`` cube like ``positions``, or ``out`` once checked to be one."""
     c, d = positions.shape
     shape = (n_collect, c, d) if time_major else (c, n_collect, d)
-    return torch.empty(shape, dtype=positions.dtype, device=positions.device)
+    if out is None:
+        return torch.empty(shape, dtype=positions.dtype,
+                           device=positions.device)
+    if (tuple(out.shape) != shape or out.dtype != positions.dtype
+            or out.device != positions.device):
+        raise ValueError(
+            f"out must be a {positions.dtype} cube of shape {shape} on "
+            f"{positions.device}; got {out.dtype} {tuple(out.shape)} on "
+            f"{out.device}")
+    return out
 
 
 def _rows(cube: torch.Tensor, lo: int, hi: int, time_major: bool):
@@ -51,25 +73,31 @@ def _rows(cube: torch.Tensor, lo: int, hi: int, time_major: bool):
 
 
 def make_simple_runner(step_fn: Callable,
-                       positions_of: Callable = _default_positions_of):
+                       positions_of: Callable = _default_positions_of,
+                       recorded: Callable = _default_positions_of):
     """A runner over one-step kernels, recording ``positions_of(state)``.
 
-    ``run(state, key, n_collect, n_discard, *, time_major=False)`` takes
-    ``n_collect + n_discard`` steps from global step ``key.step`` and
-    returns ``(final_state, sample)``, ``sample`` ``[C, n_collect, D]`` (or
-    ``[n_collect, C, D]`` with ``time_major``).
+    ``run(state, key, n_collect, n_discard, *, time_major=False,
+    tracker=None, out=None)`` takes ``n_collect + n_discard`` steps from
+    global step ``key.step`` and returns ``(final_state, sample,
+    tracker)``, ``sample`` ``[C, n_collect, D]`` (or ``[n_collect, C, D]``
+    with ``time_major``) shaped like ``recorded(state)``.
     """
 
     def run(state, key: StepKey, n_collect: int, n_discard: int, *,
-            time_major: bool = False):
-        cube = _alloc_cube(state.positions, n_collect, time_major)
+            time_major: bool = False, tracker=None, out=None):
+        cube = _alloc_cube(recorded(state), n_collect, time_major, out)
         for i in range(n_discard + n_collect):
             state = step_fn(state, key._replace(step=key.step + i))
+            if i < n_discard and tracker is None:
+                continue
+            pos = positions_of(state)
+            if tracker is not None:
+                tracker = tracker_update(tracker, pos)
             if i >= n_discard:
                 j = i - n_discard
-                _rows(cube, j, j + 1, time_major)[0].copy_(
-                    positions_of(state))
-        return state, cube
+                _rows(cube, j, j + 1, time_major)[0].copy_(pos)
+        return state, cube, tracker
 
     return run
 
@@ -104,26 +132,41 @@ def make_block_runner(block_fn: Callable, block_size: int,
     takes each block's rows to the user's coordinates in place (the block
     writes the state's own). ``n_collect`` and ``n_discard`` must be
     multiples of K.
+
+    Under a tracker the burn-in blocks write their rows into one reused
+    ``[K, C, D]`` scratch buffer, which the tracker folds (mapped, under
+    a metric); without one they write no rows.
     """
     k = block_size
 
     def run(state, key: StepKey, n_collect: int, n_discard: int, *,
-            time_major: bool = False):
+            time_major: bool = False, tracker=None, out=None):
         if n_collect % k or n_discard % k:
             raise ValueError(
                 f"n_collect={n_collect} and n_discard={n_discard} must be "
                 f"multiples of the block size {k}"
             )
-        cube = _alloc_cube(recorded(state), n_collect, time_major)
+        like = recorded(state)
+        cube = _alloc_cube(like, n_collect, time_major, out)
+        scratch = (torch.empty((k,) + tuple(like.shape), dtype=like.dtype,
+                               device=like.device)
+                   if tracker is not None and n_discard else None)
         for lo in range(0, n_discard, k):
-            state = block_fn(state, key._replace(step=key.step + lo))
+            state = block_fn(state, key._replace(step=key.step + lo),
+                             scratch)
+            if scratch is not None:
+                tracker = tracker_update_rows(
+                    tracker, scratch if positions_map is None
+                    else positions_map(scratch))
         for lo in range(0, n_collect, k):
             rows = _rows(cube, lo, lo + k, time_major)
             state = block_fn(
                 state, key._replace(step=key.step + n_discard + lo), rows)
             if positions_map is not None:
                 rows.copy_(positions_map(rows))
-        return state, cube
+            if tracker is not None:
+                tracker = tracker_update_rows(tracker, rows)
+        return state, cube, tracker
 
     return run
 
@@ -133,17 +176,19 @@ def make_initial_recording_runner(
     """A runner with the NUTS collection convention (reference
     ``nuts.rs:457-470``, ``mini_mcmc_tpu/runner.py:203``).
 
-    ``run(state, key, n_collect, n_discard, *, time_major=False)`` takes
-    ``n_collect + n_discard - 1`` steps from global step ``key.step``. Row 0
-    is the position at the start of collection: the current position when
-    ``n_discard == 0``, else the state after step ``n_discard`` (the first
-    ``n_discard - 1`` steps are not recorded). Rows, ``positions_of(state)``,
-    go straight into one preallocated cube, as in :func:`make_simple_runner`.
+    ``run(state, key, n_collect, n_discard, *, time_major=False,
+    tracker=None, out=None)`` takes ``n_collect + n_discard - 1`` steps
+    from global step ``key.step``. Row 0 is the position at the start of
+    collection: the current position when ``n_discard == 0``, else the
+    state after step ``n_discard`` (the first ``n_discard - 1`` steps are
+    not recorded). Rows, ``positions_of(state)``, go straight into one
+    preallocated cube, as in :func:`make_simple_runner`; the tracker folds
+    every step's, not the initial row.
     """
 
     def run(state, key: StepKey, n_collect: int, n_discard: int, *,
-            time_major: bool = False):
-        cube = _alloc_cube(state.positions, n_collect, time_major)
+            time_major: bool = False, tracker=None, out=None):
+        cube = _alloc_cube(state.positions, n_collect, time_major, out)
         if n_discard == 0 and n_collect > 0:
             _rows(cube, 0, 1, time_major)[0].copy_(positions_of(state))
             skip, first_row = 0, 1
@@ -152,10 +197,14 @@ def make_initial_recording_runner(
         n_steps = max(n_collect + n_discard - 1, 0)
         for i in range(n_steps):
             state = step_fn(state, key._replace(step=key.step + i))
+            if i < skip and tracker is None:
+                continue
+            pos = positions_of(state)
+            if tracker is not None:
+                tracker = tracker_update(tracker, pos)
             if i >= skip:
                 r = first_row + i - skip
-                _rows(cube, r, r + 1, time_major)[0].copy_(
-                    positions_of(state))
-        return state, cube
+                _rows(cube, r, r + 1, time_major)[0].copy_(pos)
+        return state, cube, tracker
 
     return run

@@ -7,7 +7,9 @@ optionally ``seed``, then ``run(n_collect, n_discard)`` returns the
 ``[n_chains, n_collect, dim]`` sample cube. The sampler carries the state
 between runs, so consecutive runs continue the chains. ``tuned`` (HMC,
 MALA, MH) and ``warmed_up`` (HMC, MALA) return new samplers adapted by
-dual averaging (``ops/adapt.py``).
+dual averaging (``ops/adapt.py``). ``run_progress`` runs with a live
+progress display and returns the cube with its :class:`~mini_mcmc_torch.
+stats.RunStats`.
 
 Seeding: each sampler owns a CPU ``torch.Generator``. Every ``run()`` takes
 fresh words from it: a 64-bit Philox key for the fused kernel, and the seed
@@ -38,7 +40,14 @@ from .ops.kernels.mh_full import mh_instance
 from .ops.kernels.pt_full import pt_instance
 from .ops.mh import mh_kernel, mh_step_alpha
 from .ops.tempering import geometric_betas, tempering_kernel, tune_betas
-from .runner import StepKey, make_block_runner, make_simple_runner
+from .progress import progress_run
+from .runner import (
+    StepKey,
+    _default_positions_of,
+    make_block_runner,
+    make_simple_runner,
+)
+from .stats import RunStats, run_stats
 from .utils.init import resolve_device
 
 
@@ -97,10 +106,14 @@ def _float32_only(sampler: str, use_pallas, positions) -> None:
 
 
 class _KernelSampler:
-    """Shared run plumbing for kernel-based samplers."""
+    """Shared run/run_progress plumbing for kernel-based samplers.
+
+    ``recorded(state)`` is the ``[C, D]`` tensor a run records, when it is
+    not the (mapped) positions: tempering's cold rung.
+    """
 
     def __init__(self, init_fn, step_fn, initial_positions, seed=None,
-                 runner=None, positions_map=None):
+                 runner=None, positions_map=None, recorded=None):
         if initial_positions.dim() != 2:
             raise ValueError(
                 "initial_positions must be [n_chains, dim]; got shape "
@@ -112,15 +125,24 @@ class _KernelSampler:
         # positions_map: the state's (whitened) coordinates -> the user's,
         # applied to every recorded row and to `positions`
         self._positions_map = positions_map
+        positions_of = recorded or self._positions_of
+        recorded = recorded or _default_positions_of
+        # one step a call: the runner of run_progress's sub-K tail, and
+        # NUTS's chunked path
+        self._simple_runner = make_simple_runner(step_fn, positions_of,
+                                                 recorded)
+        self._progress_block_size = 1
         block_fn = getattr(step_fn, "block_fn", None)
         if runner is not None:
             self._runner = runner
         elif block_fn is not None:
             # K fused sampler steps per call; run() lengths are multiples of K
             self._runner = make_block_runner(block_fn, step_fn.block_size,
+                                             recorded=recorded,
                                              positions_map=positions_map)
+            self._progress_block_size = step_fn.block_size
         else:
-            self._runner = make_simple_runner(step_fn, self._positions_of)
+            self._runner = self._simple_runner
 
     def _positions_of(self, state) -> torch.Tensor:
         if self._positions_map is None:
@@ -167,11 +189,29 @@ class _KernelSampler:
         ``n_collect`` states as ``[n_chains, n_collect, dim]``, or
         ``[n_collect, n_chains, dim]`` with ``time_major=True`` (the layout
         the fused kernel writes rows into contiguously)."""
-        self.state, sample = self._runner(
+        self.state, sample, _ = self._runner(
             self.state, self._next_key(), n_collect, n_discard,
             time_major=time_major,
         )
         return sample
+
+    def run_progress(self, n_collect: int, n_discard: int = 0, *,
+                     stream=None, time_major: bool = False
+                     ) -> tuple[torch.Tensor, RunStats]:
+        """:meth:`run` with live progress (a global bar and rotating
+        per-chain ``p(accept)`` bars, the lockstep form of the reference's
+        ``core.rs:208-360``) on ``stream`` (default stderr); returns
+        ``(sample, run_stats(sample))``. A fused sampler runs its K-step
+        blocks for the K-aligned bulk and single steps for a sub-K tail;
+        at K-aligned lengths the cube is the one :meth:`run` gives from
+        the same seed."""
+        self.state, sample = progress_run(
+            self._runner, self.state, self._next_key(), n_collect,
+            n_discard, n_chains=self.n_chains, dim=self.dim, stream=stream,
+            time_major=time_major, block_size=self._progress_block_size,
+            tail_runner=self._simple_runner,
+        )
+        return sample, run_stats(sample, time_major=time_major)
 
 
 class MetropolisHastings(_KernelSampler):
@@ -190,8 +230,8 @@ class MetropolisHastings(_KernelSampler):
     for the plain tier and the kernel's plain twin on the CPU.
 
     :meth:`tuned` adapts the proposal scale by dual averaging. Not ported
-    yet (ROADMAP.md, Queue 1): ``run_progress`` and ``transform=``, which
-    raises. ``pallas_interpret`` and ``validate_dc`` have no counterpart.
+    yet (ROADMAP.md, Queue 1): ``transform=``, which raises.
+    ``pallas_interpret`` and ``validate_dc`` have no counterpart.
 
     Example:
         >>> import mini_mcmc_torch as mt
@@ -535,9 +575,7 @@ class ParallelTempering(_KernelSampler):
             # a target or ladder the kernel cannot run: raise now
             pt_instance(target, len(self.betas), positions.shape[1])
             _float32_only("ParallelTempering", use_pallas, positions)
-        runner = make_block_runner(step_fn.block_fn, step_fn.block_size,
-                                   recorded=_cold)
-        super().__init__(init_fn, step_fn, positions, seed, runner=runner)
+        super().__init__(init_fn, step_fn, positions, seed, recorded=_cold)
 
     @property
     def positions(self) -> torch.Tensor:

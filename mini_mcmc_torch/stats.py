@@ -1,18 +1,282 @@
-"""Split R-hat and ESS (counterpart of ``mini_mcmc_tpu/stats.py:232-457``).
+"""Streaming and final MCMC diagnostics (counterpart of
+``mini_mcmc_tpu/stats.py``).
 
-The formulas replicate the reference (``stats.rs:394-654``) in structure,
-quirks included, as the JAX package does: the inverted split R-hat
-``sqrt(W / var)``, the ``n' = n // 2`` split with the middle draw dropped
-for odd n, and the brute-force autocovariance for ``n <= 100`` with FFT
-beyond. Do not "fix" them: they are parity targets.
+- The streaming tracker (``TrackerState``, ``tracker_init``,
+  ``tracker_update``; the reference's ``MultiChainTracker``,
+  ``stats.rs:189-307``) folds every step's ``[C, P]`` positions into
+  running moments and an acceptance EWMA on the positions' device; the
+  runners thread it through a run (``runner.py``). ``tracker_update_rows``
+  folds a block's ``[K, C, P]`` rows in one pass, where the JAX package
+  calls ``tracker_update`` K times.
+- ``collect_rhat`` and ``tracker_rhat``: the live R-hat from streaming
+  moments (``stats.rs:150-178``, ``:282-306``).
+- ``split_rhat_mean_ess`` (``stats.rs:416-546``): split chains,
+  within/between variances, Stan-style rho_t with Geyer's initial-monotone
+  pairwise sums, the brute-force autocovariance for ``n <= 100`` and FFT
+  beyond. The autocovariances act on the time axis ``-2`` of
+  ``[..., n, P]`` tensors, so a batch of chains needs no ``vmap``.
+- ``BasicStats``/``basic_stats`` and ``RunStats``/``run_stats``
+  (``stats.rs:309-392``).
 
-The autocovariances act on the time axis ``-2`` of ``[..., n, P]`` tensors,
-so a batch of chains needs no ``vmap``.
+The formulas replicate the reference in structure, quirks included, as the
+JAX package does. Do not "fix" them: they are parity targets.
+
+- The final split R-hat is ``sqrt(W / var)`` (``stats.rs:425-427``), the
+  inverse of the tracker's live ``sqrt(var / W)``; ``n' = n // 2`` with
+  the middle draw dropped for odd n.
+- The acceptance EWMA (alpha = 0.01) of the "state changed" indicator is
+  folded in order across the chains within a step (``stats.rs:250-255``);
+  each chain's own EWMA seeds its first step from coordinate 0 alone
+  (``stats.rs:110-116``).
+- ``collect_rhat``'s between-chain variance divides by ``C * P - 1``
+  (``stats.rs:173``).
+- ``basic_stats`` reports ``data[n // 2]`` of a descending sort as the
+  median, and a ddof=1 std (``stats.rs:310-336``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
+from typing import NamedTuple
+
 import torch
+
+from .utils.init import resolve_device
+
+ALPHA = 0.01  # EWMA coefficient of the acceptance tracking (stats.rs:13)
+
+
+# ---------------------------------------------------------------------------
+# Streaming tracker, threaded through the runners
+# ---------------------------------------------------------------------------
+
+
+class TrackerState(NamedTuple):
+    """Running moments of every chain (``MultiChainTracker``,
+    ``stats.rs:189-197``), ``[C, P]`` float32 tensors on the positions'
+    device, plus each chain's own acceptance EWMA (the per-chain
+    ``ChainTracker`` surface, ``stats.rs:26-141``).
+
+    ``n`` is a host int: the number of steps is known on the host, so no
+    update syncs the device to read it (a 0-d int32 array in the JAX
+    package).
+    """
+
+    n: int  # steps seen
+    p_accept: torch.Tensor  # 0-d float32 EWMA acceptance
+    last_state: torch.Tensor  # [C, P]
+    mean: torch.Tensor  # [C, P]
+    mean_sq: torch.Tensor  # [C, P]
+    #: [C] per-chain EWMA acceptance; -1 before the first step
+    p_accept_chains: torch.Tensor
+
+
+def tracker_init(n_chains: int, n_params: int, initial_state=None, *,
+                 device="cuda") -> TrackerState:
+    """A fresh tracker on ``device`` (``"cuda"`` by default, raising
+    without a GPU), or on ``initial_state``'s device when it is a tensor;
+    ``initial_state`` seeds ``last_state`` (zeros in the reference's
+    ``MultiChainTracker``, ``stats.rs:208-219``)."""
+    if isinstance(initial_state, torch.Tensor):
+        device = initial_state.device
+    device = resolve_device(device)
+    shape = (n_chains, n_params)
+    f32 = dict(dtype=torch.float32, device=device)
+    last = (torch.zeros(shape, **f32) if initial_state is None
+            else torch.as_tensor(initial_state).to(**f32).reshape(shape))
+    return TrackerState(
+        n=0,
+        p_accept=torch.zeros((), **f32),
+        last_state=last,
+        mean=torch.zeros(shape, **f32),
+        mean_sq=torch.zeros(shape, **f32),
+        p_accept_chains=torch.full((n_chains,), -1.0, **f32),
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _decay(n: int, device: torch.device) -> torch.Tensor:
+    """``(1 - ALPHA) ** [n-1, ..., 1, 0]`` in float32, as the JAX package
+    computes its powers (``stats.py:106``): the weights of an EWMA folded
+    over n values in order. They underflow to 0 past ~10,000 terms in both
+    packages."""
+    exps = torch.arange(n - 1, -1, -1, dtype=torch.float32, device=device)
+    return torch.pow(torch.tensor(1.0 - ALPHA, device=device), exps)
+
+
+def _as_rows(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """float32, a trailing parameter axis added to ``[..., C]`` input."""
+    positions = positions.to(torch.float32)
+    return positions[..., None] if positions.dim() == dim - 1 else positions
+
+
+def tracker_update(tracker: TrackerState,
+                   positions: torch.Tensor) -> TrackerState:
+    """One streaming update with a step's ``[C, P]`` positions
+    (``stats.rs:228-259``, ``mini_mcmc_tpu/stats.py:85-126``).
+
+    The reference folds the acceptance EWMA over the chain rows in order;
+    the closed form weighs row i by ``alpha * (1-alpha)^(C-1-i)`` and the
+    old value by ``(1-alpha)^C``.
+    """
+    x = _as_rows(positions, 2)
+    n_chains = x.shape[0]
+    n = float(tracker.n + 1)
+    last = tracker.last_state
+    # the JAX package's rounding: no fused multiply-add (a row's rounding
+    # stays in the running moments)
+    mean = (tracker.mean * (n - 1.0) + x) / n
+    mean_sq = (tracker.mean_sq * (n - 1.0) + x * x) / n
+    accepted = (x != last).any(dim=1).to(torch.float32)
+    p_accept = (tracker.p_accept * (1.0 - ALPHA) ** n_chains).add_(
+        torch.dot(_decay(n_chains, x.device), accepted), alpha=ALPHA)
+    # each chain's EWMA, the ChainTracker first-step rule
+    # (stats.rs:110-116): its seed compares coordinate 0 only
+    pac = tracker.p_accept_chains
+    base = torch.where(pac < 0.0, x[:, 0] != last[:, 0], pac)
+    return TrackerState(
+        n=tracker.n + 1,
+        p_accept=p_accept,
+        last_state=x,
+        mean=mean,
+        mean_sq=mean_sq,
+        p_accept_chains=torch.add(base * (1.0 - ALPHA), accepted,
+                                  alpha=ALPHA),
+    )
+
+
+def tracker_update_rows(tracker: TrackerState,
+                        rows: torch.Tensor) -> TrackerState:
+    """K updates at once with a block's ``[K, C, P]`` rows, row 0 first:
+    the result of K calls of :func:`tracker_update` (the JAX package makes
+    those K calls, ``mini_mcmc_tpu/runner.py:149-154``), up to float32
+    rounding, in one vectorised pass.
+
+    The moments are a weighted block sum; row k "changed" where it differs
+    from row k-1 (row 0 from ``last_state``); the global EWMA is its
+    closed form over the K*C (step, chain) values in order, and each
+    chain's over its K values; the first-step rule reaches row 0 only.
+    """
+    x = _as_rows(rows, 3)
+    k, n_chains = x.shape[0], x.shape[1]
+    n0 = float(tracker.n)
+    n = n0 + k
+    last = tracker.last_state
+    mean = torch.add(x.sum(dim=0), tracker.mean, alpha=n0).div_(n)
+    mean_sq = torch.add((x * x).sum(dim=0), tracker.mean_sq,
+                        alpha=n0).div_(n)
+    accepted = (x != torch.cat((last[None], x[:-1]))).any(dim=2).to(
+        torch.float32)  # [K, C]
+    # value j of the K*C in order weighs (1-alpha)^(K*C-1-j)
+    p_accept = (tracker.p_accept * (1.0 - ALPHA) ** (n_chains * k)).add_(
+        torch.dot(_decay(k * n_chains, x.device), accepted.view(-1)),
+        alpha=ALPHA)
+    pac = tracker.p_accept_chains
+    base = torch.where(pac < 0.0, x[0, :, 0] != last[:, 0], pac)
+    return TrackerState(
+        n=tracker.n + k,
+        p_accept=p_accept,
+        last_state=x[-1].clone(),  # the rows may be a reused buffer
+        mean=mean,
+        mean_sq=mean_sq,
+        p_accept_chains=torch.addmv(base, accepted.T, _decay(k, x.device),
+                                    beta=(1.0 - ALPHA) ** k, alpha=ALPHA),
+    )
+
+
+class ChainStats(NamedTuple):
+    """Snapshot of streaming statistics (``stats.rs:43-48``)."""
+
+    n: int
+    p_accept: torch.Tensor
+    mean: torch.Tensor  # [P] or [C, P]
+    sm2: torch.Tensor  # [P] or [C, P]
+
+
+def _sm2(tracker: TrackerState) -> torch.Tensor:
+    n = float(tracker.n)
+    return (tracker.mean_sq - tracker.mean ** 2) * n / (n - 1.0)
+
+
+def tracker_stats(tracker: TrackerState) -> ChainStats:
+    """Bias-corrected snapshot: ``sm2 = (mean_sq - mean^2) * n/(n-1)``
+    (``stats.rs:132-140``, ``:300``)."""
+    return ChainStats(n=tracker.n, p_accept=tracker.p_accept,
+                      mean=tracker.mean, sm2=_sm2(tracker))
+
+
+def tracker_rhat(tracker: TrackerState) -> torch.Tensor:
+    """Live R-hat per parameter from the streaming moments
+    (``MultiChainTracker::rhat``, ``stats.rs:282-306``): ``sqrt(var /
+    W)``, the inverse of the final split R-hat."""
+    n_chains = tracker.mean.shape[0]
+    n = float(tracker.n)
+    mean_chain = torch.mean(tracker.mean, dim=0)
+    fac = n / (n_chains - 1.0)
+    between = torch.sum((tracker.mean - mean_chain[None, :]) ** 2,
+                        dim=0) * fac
+    within = torch.mean(_sm2(tracker), dim=0)
+    var = within * ((n - 1.0) / n) + between * (1.0 / n)
+    return torch.sqrt(var / within)
+
+
+def tracker_max_rhat(tracker: TrackerState) -> torch.Tensor:
+    return torch.max(tracker_rhat(tracker))
+
+
+class ChainTracker:
+    """Single-chain streaming tracker (the reference's ``ChainTracker``,
+    ``stats.rs:26-141``): a stateful wrapper over a one-chain
+    :class:`TrackerState` on ``device``.
+
+    Example:
+        >>> t = ChainTracker(2, [0.0, 0.0], device="cpu")
+        >>> t.step([1.0, 2.0])
+        >>> t.stats().mean.tolist()
+        [1.0, 2.0]
+    """
+
+    def __init__(self, n_params: int, initial_state=None, *,
+                 device="cuda"):
+        device = resolve_device(device)
+        init = (None if initial_state is None else torch.as_tensor(
+            initial_state, dtype=torch.float32).reshape(1, n_params).to(
+                device))
+        self._state = tracker_init(1, n_params, init, device=device)
+
+    def step(self, x) -> None:
+        self._state = tracker_update(self._state, torch.as_tensor(
+            x, dtype=torch.float32,
+            device=self._state.mean.device).reshape(1, -1))
+
+    def stats(self) -> ChainStats:
+        cs = tracker_stats(self._state)
+        return ChainStats(n=cs.n, p_accept=self._state.p_accept_chains[0],
+                          mean=cs.mean[0], sm2=cs.sm2[0])
+
+
+def _withinvar_from_cs(means, sm2s, ns):
+    """Within-chain and pooled variance from live per-chain stats
+    (``withinvar_from_cs``, ``stats.rs:155-178``), with the reference's
+    ``diffs.len() - 1`` (= C*P - 1) between-chain divisor
+    (``stats.rs:173``)."""
+    means = torch.as_tensor(means).to(torch.float32)
+    sm2s = torch.as_tensor(sm2s).to(torch.float32)
+    within = torch.mean(sm2s, dim=0)
+    diffs = means - torch.mean(means, dim=0)[None, :]
+    between = torch.sum(diffs ** 2, dim=0) / (diffs.numel() - 1)
+    n = torch.mean(torch.as_tensor(ns).to(torch.float32).to(means.device))
+    var = between + within * ((n - 1.0) / n)
+    return within, var
+
+
+def collect_rhat(means, sm2s, ns) -> torch.Tensor:
+    """Live R-hat from per-chain ``ChainStats`` (``stats.rs:150-178``):
+    ``means`` and ``sm2s`` ``[C, P]``, ``ns`` ``[C]``."""
+    within, var = _withinvar_from_cs(means, sm2s, ns)
+    return torch.sqrt(var / within)
 
 
 def _next_pow2(n: int) -> int:
@@ -44,6 +308,8 @@ def autocov_bf(sample: torch.Tensor) -> torch.Tensor:
     sample = sample.to(torch.float32)
     n = sample.shape[-2]
     x = sample - torch.mean(sample, dim=-2, keepdim=True)
+    if n == 0:
+        return x  # no lags: [..., 0, d]
     rows = [torch.sum(x[..., : n - lag, :] * x[..., lag:, :], dim=-2) / n
             for lag in range(n)]
     return torch.stack(rows, dim=-2)
@@ -168,3 +434,90 @@ def split_rhat_mean_ess(sample: torch.Tensor, *, time_major: bool = False):
     splitted = _splitcat(sample)
     within, var = _withinvar(splitted)
     return torch.sqrt(within / var), _ess(splitted, within, var)
+
+
+def ess_from_chainstats(sample, means, sm2s, ns) -> torch.Tensor:
+    """ESS of a ``[C, N, P]`` cube from live streaming stats, without
+    splitting (``stats.rs:668-671``)."""
+    sample = torch.as_tensor(sample).to(torch.float32)
+    within, var = _withinvar_from_cs(means, sm2s, ns)
+    return _ess(sample, within.to(sample.device), var.to(sample.device))
+
+
+# ---------------------------------------------------------------------------
+# Run summaries (stats.rs:309-392)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BasicStats:
+    """min/median/max/mean/std summary (``stats.rs:373-392``)."""
+
+    name: str
+    min: float
+    median: float
+    max: float
+    mean: float
+    std: float
+
+    def __str__(self) -> str:
+        return (
+            f"{self.name} in [{self.min:.2f}, {self.max:.2f}], "
+            f"median: {self.median:.2f}, mean: {self.mean:.2f} "
+            f"± {self.std:.2f}"
+        )
+
+
+def _desc_nan_equal(a: float, b: float) -> int:
+    """The reference comparator ``b.partial_cmp(a)`` falling back to
+    ``Ordering::Equal`` for NaN (``stats.rs:312-316``)."""
+    if math.isnan(a) or math.isnan(b):
+        return 0
+    return (a < b) - (a > b)
+
+
+def basic_stats(name: str, data) -> BasicStats:
+    """Summary with the reference's descending-sort median index
+    ``data[n // 2]`` and ddof=1 std (``stats.rs:310-336``).
+
+    The host sort keeps the reference's comparator, NaN equal to
+    everything (a NaN stays in place instead of becoming the max); with
+    several interior NaNs the order is best effort, as in the JAX package.
+    The mean and std are summed in float64 and rounded to float32: the
+    float32 values the JAX package reports, up to the last bit, which
+    follows XLA's summation order.
+    """
+    data = torch.as_tensor(data).to(torch.float32).reshape(-1)
+    n = data.shape[0]
+    values = data.tolist()  # the one host read
+    desc = sorted(values, key=functools.cmp_to_key(_desc_nan_equal))
+    host = torch.tensor(values, dtype=torch.float64)
+    mean = float(torch.mean(host).to(torch.float32))
+    std = (float(torch.std(host, correction=1).to(torch.float32))
+           if n > 1 else 0.0)
+    return BasicStats(name=name, min=desc[-1], median=desc[n // 2],
+                      max=desc[0], mean=mean, std=std)
+
+
+@dataclasses.dataclass
+class RunStats:
+    """Final run diagnostics: ESS and split R-hat summaries
+    (``stats.rs:339-371``)."""
+
+    ess: BasicStats
+    rhat: BasicStats
+
+    def __str__(self) -> str:
+        return f"{self.ess}\n{self.rhat}"
+
+    @classmethod
+    def from_sample(cls, sample, *, time_major: bool = False) -> "RunStats":
+        rhat, ess = split_rhat_mean_ess(sample, time_major=time_major)
+        return cls(ess=basic_stats("ESS", ess),
+                   rhat=basic_stats("Split R-hat", rhat))
+
+
+def run_stats(sample, *, time_major: bool = False) -> RunStats:
+    """Final diagnostics of a ``[C, N, P]`` cube (``[N, C, P]`` with
+    ``time_major=True``)."""
+    return RunStats.from_sample(sample, time_major=time_major)

@@ -32,6 +32,7 @@ are Kernel 2 at L = 1, held to its twin per chain, and ``tuned`` leaves a
 finite step size on every tier.
 """
 
+import io
 import math
 
 import numpy as np
@@ -45,10 +46,14 @@ from mini_mcmc_torch import (
     GibbsSampler,
     MetropolisHastings,
     ParallelTempering,
+    RunStats,
     geometric_betas,
     split_rhat_mean_ess,
     standard_normal,
+    stats,
+    summary,
 )
+from mini_mcmc_torch.diagnostics import _quantile
 from mini_mcmc_torch.models import (
     Preconditioner,
     Proposal,
@@ -1256,3 +1261,85 @@ def test_cuda_multistep_draws_are_the_stream_words(cuda, d):
     near = ((hk - hp).abs() <= ATOL + RTOL * hp.abs()).all(2).all(0)
     near &= ((pk[0] - pp[0]).abs() <= ATOL + RTOL * pp[0].abs()).all(1)
     assert _share(same & near) >= 0.999
+
+
+def _progress_case(kind, cuda):
+    """A fused sampler on the card: Kernel 2 (HMC), 4 (NUTS) or 5 (MH)."""
+    g = torch.Generator().manual_seed(71)
+    init = torch.randn((2048, 2), generator=g).to(cuda)
+    if kind == "hmc":
+        return HMC(rosenbrock_nd(), init * 0.3 + 1.0, 0.02, 16,
+                   use_pallas="full", jitter=0.3, steps_per_call=4,
+                   device=cuda).seed(5), hmc_multistep
+    if kind == "nuts":
+        return NUTS(diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]),
+                    init, 0.8, use_pallas="full", device=cuda).seed(5), \
+            nuts_step
+    return MetropolisHastings(
+        gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]]),
+        isotropic_gaussian_proposal(1.0), init, use_pallas="full",
+        steps_per_call=4, device=cuda).seed(5), mh_multistep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hmc", "nuts", "mh"])
+def test_cuda_run_progress_equals_run(cuda, kind):
+    """A K-aligned ``run_progress`` gives ``run()``'s cube bit for bit
+    from the same seed, through the same kernel launches and no twin."""
+    counts = []
+    for drive in ("progress", "run"):
+        sampler, kernel = _progress_case(kind, cuda)
+        before = kernel.launches
+        twins = (hmc_multistep_plain.calls, nuts_step_plain.calls,
+                 mh_multistep_plain.calls)
+        if drive == "progress":
+            got, rs = sampler.run_progress(32, 16, stream=io.StringIO(),
+                                           time_major=True)
+            assert isinstance(rs, RunStats)
+        else:
+            want = sampler.run(32, 16, time_major=True)
+        torch.cuda.synchronize()
+        counts.append(kernel.launches - before)
+        assert twins == (hmc_multistep_plain.calls, nuts_step_plain.calls,
+                         mh_multistep_plain.calls)
+    assert got.is_cuda and torch.equal(got, want)
+    assert counts[0] == counts[1] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_tracker_update_rows_matches_cpu(cuda):
+    """The block fold on the card against the same fold on the CPU."""
+    g = np.random.default_rng(17)
+    rows = g.standard_normal((16, 4096, 3)).astype(np.float32)
+    rows[5] = rows[4]  # a rejected step on every chain
+    rows[9, :100] = rows[8, :100]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t = stats.tracker_init(4096, 3, device=dev)
+        for lo in (0, 8):
+            t = stats.tracker_update_rows(
+                t, torch.from_numpy(rows[lo:lo + 8]).to(dev))
+        out.append(t)
+    got, want = out
+    assert got.n == want.n == 16
+    for f in ("last_state", "mean", "mean_sq", "p_accept_chains"):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                   getattr(want, f).numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    np.testing.assert_allclose(float(got.p_accept), float(want.p_accept),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_quantile_above_the_cap(cuda):
+    """Quantiles and the summary of 2**24 + 1 draws a parameter on the
+    card (``torch.quantile`` raises there): the card's quantiles equal the
+    CPU's (a sort is exact)."""
+    pm = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (2, 2**24 + 1)).astype(np.float32))
+    levels = (0.0, 0.05, 0.5, 0.95, 1.0)
+    got = _quantile(pm.to(cuda), levels)
+    assert torch.equal(got.cpu(), _quantile(pm, levels))
+    s = summary(pm.T.reshape(1, -1, 2).to(cuda))
+    assert all(bool(torch.isfinite(v).all()) for v in (
+        s.rhat, s.ess_bulk, s.ess_tail, s.quantiles, s.mcse_sd))

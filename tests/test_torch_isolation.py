@@ -26,8 +26,10 @@ for info in pkgutil.walk_packages(mini_mcmc_torch.__path__,
     names.append(info.name)
 import chip_smoke  # its import block; main() runs only as a script
 
-# the MH, Gibbs, separable HMC, tempering and metric slices among them
+# the MH, Gibbs, separable HMC, tempering, metric and run-surface slices
+# among them
 assert {"mini_mcmc_torch.ops.mh", "mini_mcmc_torch.ops.gibbs",
+        "mini_mcmc_torch.progress", "mini_mcmc_torch.stream",
         "mini_mcmc_torch.models.precondition",
         "mini_mcmc_torch.ops.kernels.mh_full",
         "mini_mcmc_torch.ops.kernels.gibbs_full",
@@ -50,4 +52,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr[-4000:]
     n_modules, loaded = out.stdout.split(maxsplit=1)
     assert loaded.strip() == "[]"
-    assert int(n_modules) >= 29  # every module of the package was imported
+    assert int(n_modules) >= 31  # every module of the package was imported
