@@ -155,6 +155,33 @@ Phases, one line each (every check raises on failure):
     (Kernel 6), separable (Kernel 7) and tempering (Kernel 8), the cubes
     equal bit for bit, the same launches and no plain twin.
 
+27. the NUTS stage with x0 > 0 (``[nuts_constrained]``: ``NUTS(...,
+    use_pallas="full", transform=CoordinateTransform({0: positive()}))``
+    from ``tf.to_x(init)``, ``run(2048, 128)`` twice): the gates of 9 on
+    the truncated Gaussian's exact moments, x0 > 0, Kernel 4's transformed
+    instance once a step; then ``[k1234_transformed]``: a counted
+    ``use_pallas=True`` run (Kernel 3), ``HMC(transform=)`` blocks on
+    4,096 chains (Kernels 1 and 2), each transformed instance against its
+    twin (Kernel 1 at L = 8 and 192, Kernel 2 at K = 16, L = 8, Kernel 3
+    at j = 0..5, Kernel 4 one step), Kernel 4's ``Whitened<Transformed>``
+    instance from ``reconditioned("diag")``, and their times;
+28. ``neal_funnel(3.0)`` at D = 4 on 16,384 chains (``[funnel_kernels]``):
+    Kernel 4 one step and Kernel 3 at j = 0..3 against their twins, a
+    ``NUTS(use_pallas="full")`` ``run(256, 256)`` with every draw finite
+    and its divergences, and the times;
+29. the separable shape constrained (``[sep_constrained]``:
+    ``positive()`` on all 10,000 coordinates of the standard normal, 1,024
+    chains from x = 1, eps 0.04, L = 40, ``run(128, 128)`` twice on both
+    tiers): the half-normal's moments, x > 0, R-hat, the ESS floor, the
+    speedup over the plain tier, Kernel 7's transformed fused step 256
+    times a run, the recorded row's map ``to_x``; then one step against
+    the twins on a mixed table and under a diagonal metric (the scaled
+    transformed instance), and the times;
+30. eight schools' NUTS half (``[eight_schools]``, bench.py:1259-1341) on
+    the lockstep tier, which runs no kernel: ``warmed_up(300, "diag")``,
+    ``run(1024, 256)`` twice, the bench's gates, leapfrogs per draw and
+    ESS/s.
+
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
 launches on the main paths); the last line is ``{"ok": true, "device":
@@ -278,6 +305,39 @@ MH_TUNED_STD, MH_TUNED_ADAPT = 25.0, 256
 # sigma_d = logspace(-1, 1, D), warmed_up(128, "diag")
 SEP_WARM_ADAPT = 128
 
+# the NUTS stage with x0 > 0 (transform=): CoordinateTransform({0:
+# positive()}); the exact moments of N([0, 1], [[4, 2], [2, 3]]) truncated
+# to x0 > 0: x0 is half-normal of scale 2, x1 | x0 ~ N(1 + x0 / 2, 2)
+TRUNC_MEAN = (2.0 * math.sqrt(2.0 / math.pi), 1.0 + math.sqrt(2.0 / math.pi))
+TRUNC_VAR = (4.0 * (1.0 - 2.0 / math.pi), 3.0 - 2.0 / math.pi)
+# its steady-state divergences: the unconstrained stage's C / 10,000 does
+# not hold for this posterior in either package. Under positive() the
+# upper tail of x0 becomes an exponential wall in y = log x0, which a
+# trajectory at the adapted step (~0.48) meets with an energy error past
+# the divergence threshold: the JAX package diverges on 2.5e-4 of its
+# transitions there (2,048 chains, run(256, 64) twice, its lockstep NUTS
+# on the CPU), the port's Kernel 4 twin on 2.4e-4
+# (tests/measure_transform_stages.py). The gate is four times the JAX
+# rate, a divergence per thousand transitions
+TRUNC_DIVERGENCE_RATE = 1e-3
+# Kernels 1 and 2's transformed instances: an HMC block on a few thousand
+# of that stage's chains, a step the x0 ~ 8 tail takes stably
+K12_TRANSFORMED_CHAINS, K12_TRANSFORMED_EPS = 4096, 0.2
+# Neal's funnel (models/gaussian.py:neal_funnel) at D = 4
+FUNNEL_CHAINS, FUNNEL_DIM, FUNNEL_SCALE, FUNNEL_RUN = 16384, 4, 3.0, 256
+# the separable stage's shape constrained (examples/bigd_separable_hmc.py:
+# 41-46): positive() on all D coordinates of the standard normal from
+# x = 1; x is half-normal: E = sqrt(2 / pi), Var = 1 - 2 / pi. The
+# example's eps 0.22, L = 8 accepts no step at D = 10,000 in either
+# package (from x = 1 a trajectory's energy error is -80; eps 0.04 gives
+# -0.6), and L = 40 makes the chains mix within the stage's two runs
+# (tests/measure_transform_stages.py)
+SEP_C_EPS, SEP_C_L = 0.04, 40
+SEP_C_MEAN, SEP_C_VAR = math.sqrt(2.0 / math.pi), 1.0 - 2.0 / math.pi
+# eight schools' NUTS half (bench.py:1259-1341): 4,096 chains, D = 10,
+# target_accept 0.9, warmed_up(300, "diag"), run(1024, 256) twice
+ES8_CHAINS, ES8_COLLECT, ES8_DISCARD, ES8_ADAPT = 4096, 1024, 256, 300
+
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over 3.35 TB/s and its operations over the issue
 # rate. Operations are lane instructions counted from the CUDA sources
@@ -330,6 +390,15 @@ OPS = {
                        # expf and the selects of the fused step
     "affine_d3": 12,  # a whitened density at D = 3: x = L y and g_y =
                       # L^T g_x, D (D + 1) / 2 FMAs each
+    "bij_grad": 16,  # a constrained coordinate's x, dx/dy and dld/dy in
+                     # the core (targets.cuh:bij_grad): |y|, the compare,
+                     # expf (range reduction, MUFU.EX2, scaling), the
+                     # products and the chain rule's FMA
+    "bij_logp": 14,  # its x and log-Jacobian: the same expf and an add
+    "bij_identity": 2,  # an identity coordinate's code compare
+    "funnel4_grad": 24,  # the funnel's gradient at D = 4: expf, the sum of
+                         # squares, five products
+    "funnel4_leapfrog": 16,  # the kicks and drifts of four coordinates
 }
 
 
@@ -439,6 +508,12 @@ TWINS = {
 }
 
 
+#: the kernels with transformed instances (a transform=, models/
+#: transforms.py): each counts those launches in ``transformed_launches``
+TRANSFORMED_KERNELS = ("hmc_multistep", "leapfrog_trajectory", "nuts_step",
+                       "nuts_subtree", "hmc_separable", "hmc_separable_step")
+
+
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
@@ -446,6 +521,8 @@ def reset_counts() -> None:
         fn.calls = 0
     hmc_separable.scaled_launches = 0
     hmc_separable_step.scaled_launches = 0
+    for name in TRANSFORMED_KERNELS:
+        KERNELS[name].transformed_launches = 0
 
 
 def read_counts() -> dict:
@@ -454,6 +531,9 @@ def read_counts() -> dict:
     # the trajectory-only (two-pass) form and the fused step
     counts["hmc_separable_scaled"] = hmc_separable.scaled_launches
     counts["hmc_separable_step_scaled"] = hmc_separable_step.scaled_launches
+    # the transformed instances, also in the kernels' launches
+    for name in TRANSFORMED_KERNELS:
+        counts[f"{name}_transformed"] = KERNELS[name].transformed_launches
     counts.update({name: fn.calls for name, fn in TWINS.items()})
     return counts
 
@@ -623,7 +703,8 @@ def sass_leapfrog_loop(insns, labels) -> dict:
                                              for o in ops), default=[])
     return {"loop": len(best),
             **{k: sum(o.startswith(k) for o in best)
-               for k in ("FFMA", "FMUL", "MUFU.RCP", "FCHK", "CALL")}}
+               for k in ("FFMA", "FMUL", "MUFU", "MUFU.RCP", "FCHK",
+                         "CALL")}}
 
 
 def phase_sass(so, reported) -> None:
@@ -636,6 +717,14 @@ def phase_sass(so, reported) -> None:
             loop = sass_leapfrog_loop(insns, labels)
             say("sass_k7", kernel=name[:72], instructions=len(insns),
                 **reported.get(name, {}), **loop)
+            if "TransformedCoord" in name:
+                # a bijector's exp and __fdividef are MUFU.EX2 and
+                # MUFU.RCP; no IEEE division's slow path (CALL) in a
+                # leapfrog
+                check(f"no call in Kernel 7's transformed loop "
+                      f"({name[:60]})", loop["FFMA"] > 0
+                      and loop["FCHK"] == loop["CALL"] == 0, loop)
+                continue
             check(f"no division in Kernel 7's leapfrog loop ({name[:60]})",
                   loop["FFMA"] > 0 and loop["MUFU.RCP"] == loop["FCHK"]
                   == loop["CALL"] == 0, loop)
@@ -967,10 +1056,15 @@ def phase_profile(hmc, dev) -> None:
 
 
 def nuts_gates(sample, divergences_steady: int | None, ess_floor=0.005,
-               label="nuts") -> dict:
+               label="nuts", want_mean=NUTS_MEAN,
+               want_var=(NUTS_COV[0][0], NUTS_COV[1][1]),
+               divergence_limit: int | None = None) -> dict:
     """The quality gates of bench.py:321-336 on a chain-major cube, or with
     ``ess_floor=0.01`` and no divergence gate (``divergences_steady``
-    None) those of its dense-metric stage, bench.py:370-379."""
+    None) those of its dense-metric stage, bench.py:370-379; the moments
+    held to ``want_mean`` and ``want_var`` (the Gaussian's by default),
+    the steady-state divergences to ``divergence_limit`` (bench.py's C /
+    10,000 by default)."""
     rhat, ess = mt.split_rhat_mean_ess(sample)
     flat = sample.reshape(-1, 2).double()
     m = {
@@ -987,13 +1081,14 @@ def nuts_gates(sample, divergences_steady: int | None, ess_floor=0.005,
           (m["ess_min"], total_draws))
     for d in range(2):
         check(f"{label} mean[{d}]",
-              abs(m["mean"][d] - NUTS_MEAN[d]) <= 0.08, m["mean"])
+              abs(m["mean"][d] - want_mean[d]) <= 0.08, m["mean"])
         check(f"{label} var[{d}]",
-              abs(m["var"][d] - NUTS_COV[d][d]) <= 0.4, m["var"])
+              abs(m["var"][d] - want_var[d]) <= 0.4, m["var"])
     if divergences_steady is not None:
+        limit = (sample.shape[0] // 10000 if divergence_limit is None
+                 else divergence_limit)
         check(f"{label} steady-state divergences",
-              divergences_steady <= sample.shape[0] // 10000,
-              divergences_steady)
+              divergences_steady <= limit, (divergences_steady, limit))
     return m
 
 
@@ -1273,7 +1368,8 @@ def phase_nuts_step(nuts, dev, label="nuts_step"):
             (2.0 ** details["depth"].reshape(-1, 32).amax(dim=1).double()
              - 1).mean()),
     }
-    say(label, chains=NUTS_CHAINS, depth_limit=NUTS_MAX_DEPTH,
+    n_chains = args[1].shape[0]
+    say(label, chains=n_chains, depth_limit=NUTS_MAX_DEPTH,
         **{f"share_{k}": v for k, v in shares.items()}, **depth,
         max_abs_err=err)
     for name, share in shares.items():
@@ -1290,7 +1386,7 @@ def phase_nuts_step(nuts, dev, label="nuts_step"):
         leaves - int(details["leaves"].sum())) <= 0.001 * leaves,
         (leaves, int(details["leaves"].sum())))
     check(f"{label} persistent grid", grid["blocks"] == min(
-        grid["blocks_per_sm"] * grid["sms"], NUTS_CHAINS // 128), grid)
+        grid["blocks_per_sm"] * grid["sms"], n_chains // 128), grid)
     for kw in (dict(blocks=1), dict(blocks=grid["sms"])):
         other = nuts_step(*args, **kw)
         same = all(torch.equal(a, b) for a, b in zip(got, other))
@@ -2652,7 +2748,435 @@ def phase_run_progress_samplers(dev) -> dict:
     return launches
 
 
-def bounds(step_details, subtree_leaves, dense_details) -> dict:
+def phase_nuts_constrained(dev):
+    """The NUTS stage of bench.py:286-336 with x0 > 0 through the public
+    entry point: ``NUTS(diffable_gaussian2d, tf.to_x(init), 0.8,
+    use_pallas="full", transform=tf)``, an adaptation run and the timed
+    run, the gates of :func:`nuts_gates` on the truncated Gaussian's exact
+    moments, every draw's x0 > 0, and Kernel 4's transformed instance once
+    a step (2 x 2,175)."""
+    target = mt.diffable_gaussian2d(NUTS_MEAN, NUTS_COV)
+    tf = mt.CoordinateTransform({0: mt.positive()}, dim=2)  # x0 > 0
+    init = tf.to_x(mt.init_with_seed(NUTS_CHAINS, 2, seed=7, device=dev))
+    reset_counts()
+    nuts = mt.NUTS(target, init, 0.8, use_pallas="full",
+                   transform=tf).seed(7)
+    adapt = nuts.run(NUTS_COLLECT, NUTS_DISCARD)
+    torch.cuda.synchronize()
+    del adapt
+    t0 = time.perf_counter()
+    sample = nuts.run(NUTS_COLLECT, NUTS_DISCARD)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    check("nuts_constrained launches: the transformed instance, no twin",
+          counts == counts_with(nuts_step=2 * NUTS_STEPS,
+                                nuts_step_transformed=2 * NUTS_STEPS),
+          counts)
+    check("nuts_constrained sample", tuple(sample.shape) == (
+        NUTS_CHAINS, NUTS_COLLECT, 2) and bool(torch.isfinite(
+            sample).all()), tuple(sample.shape))
+    m = nuts_gates(sample, int(nuts.last_run_divergences.sum()),
+                   label="nuts_constrained", want_mean=TRUNC_MEAN,
+                   want_var=TRUNC_VAR, divergence_limit=int(
+                       TRUNC_DIVERGENCE_RATE * NUTS_CHAINS * NUTS_STEPS))
+    m["x0_min"] = float(sample[..., 0].min())
+    check("nuts_constrained x0 > 0", m["x0_min"] > 0.0, m["x0_min"])
+    del sample
+    m["elapsed_s"] = elapsed
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = NUTS_STEPS * NUTS_CHAINS / elapsed
+    m["step_us"] = elapsed / NUTS_STEPS * 1e6
+    m["leapfrogs_per_draw"] = float(
+        nuts.last_run_leapfrogs.double().mean()) / NUTS_STEPS
+    m["step_size_mean"] = float(nuts.step_size.mean())
+    say("nuts_constrained", **{k: repr(v) for k, v in m.items()},
+        want_mean=repr(TRUNC_MEAN), want_var=repr(TRUNC_VAR),
+        launches_per_run=NUTS_STEPS, **counts)
+    return nuts, m, counts
+
+
+def phase_k1234_transformed(nuts, dev) -> dict:
+    """The transformed instances of Kernels 1-4 (``csrc/targets.cuh:
+    Transformed``) from the constrained stage's equilibrium: a short
+    ``use_pallas=True`` NUTS run (Kernel 3, counted); ``HMC(transform=)``
+    on K12_TRANSFORMED_CHAINS of its chains through the ``True`` and
+    ``"full"`` tiers (Kernels 1 and 2, one K-step block each, counted);
+    each instance against its twin as phases 5, 6, 10 and 11 hold the
+    plain ones (Kernel 1 at L = 8 and 192, Kernel 2 at K = 16 and L = 8,
+    Kernel 3 at j = 0..5, Kernel 4 for one step); Kernel 4's
+    ``Whitened<Transformed<...>>`` instance from ``reconditioned("diag")``
+    for one step; and the times of all of them (CUDA events) on all the
+    stage's chains."""
+    target, tf = nuts.target, nuts.transform
+    reset_counts()
+    tier = mt.NUTS(target, nuts.positions, 0.8, use_pallas=True,
+                   transform=tf).seed(3)
+    rows = tier.run(16, 0)
+    torch.cuda.synchronize()
+    tier_counts = read_counts()
+    n3 = tier_counts["nuts_subtree"]
+    check("transformed use_pallas=True NUTS launches", n3 > 0
+          and tier_counts == counts_with(nuts_subtree=n3,
+                                         nuts_subtree_transformed=n3),
+          tier_counts)
+    check("transformed use_pallas=True rows", bool(
+        torch.isfinite(rows).all()) and bool((rows[..., 0] > 0).all()),
+          "non-finite or x0 <= 0")
+    x = nuts.positions[:K12_TRANSFORMED_CHAINS]
+    runs = {}
+    for use_pallas, kernel, launches in (
+            (True, "leapfrog_trajectory", STEPS_PER_CALL),
+            ("full", "hmc_multistep", 1)):
+        reset_counts()
+        h = mt.HMC(target, x, K12_TRANSFORMED_EPS, 8, use_pallas=use_pallas,
+                   steps_per_call=STEPS_PER_CALL, transform=tf).seed(5)
+        rows = h.run(STEPS_PER_CALL, 0, time_major=True)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(f"transformed {kernel} launches", counts == counts_with(**{
+            kernel: launches, f"{kernel}_transformed": launches}), counts)
+        check(f"transformed {kernel} rows natural", bool(
+            (rows[..., 0] > 0).all()) and torch.equal(rows[-1],
+                                                      h.positions),
+              tuple(rows.shape))
+        runs[kernel] = counts[kernel]
+    lf = phase_leapfrog(h.kernel_target, h.state, dev, K12_TRANSFORMED_EPS,
+                        label="leapfrog_transformed")
+    ms_err = phase_multistep(h.kernel_target, h.state, dev,
+                             K12_TRANSFORMED_EPS,
+                             label="multistep_transformed")
+    sub_err, sub_leaves = 0.0, {}
+    for j in range(6):
+        e, done, _ = subtree_case(nuts, dev, j, seed=140 + j,
+                                  label="subtree_transformed")
+        sub_err, sub_leaves[j] = max(sub_err, e), done
+    step_err, step_details, step_args = phase_nuts_step(
+        nuts, dev, label="nuts_step_transformed")
+    # Whitened<Transformed<...>>: a diag metric of the unconstrained
+    # ensemble, its step size found and adapted by a short run (counted)
+    reset_counts()
+    white = nuts.reconditioned("diag", seed=11)
+    white.run(64, 64)
+    torch.cuda.synchronize()
+    w_counts = read_counts()
+    check("whitened-transformed launches", w_counts == counts_with(
+        nuts_step=127, nuts_step_transformed=127), w_counts)
+    check("whitened over transformed", white.kernel_target.cuda_affine
+          and white.kernel_target.cuda_transform is not None,
+          white.kernel_target)
+    wt_err, wt_details, wt_args = phase_nuts_step(
+        white, dev, label="nuts_step_whitened_transformed")
+    # the times, on all the stage's chains (y-space state)
+    s = nuts.state
+    y = s.positions
+    kt = nuts.kernel_target
+    logp, grad = kt.batch_logp_and_grad(y)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    mom = torch.randn(y.shape, generator=gen, device=dev)
+    eps1 = torch.tensor([K12_TRANSFORMED_EPS], device=dev)
+    eps_k = torch.full((STEPS_PER_CALL,), K12_TRANSFORMED_EPS, device=dev)
+    hist = torch.empty((STEPS_PER_CALL,) + tuple(y.shape), device=dev)
+    sub_args = subtree_inputs(nuts, dev, 4, seed=144)
+    out = {
+        "leapfrog_err": lf[8][0], "multistep_err": ms_err,
+        "subtree_err": sub_err, "nuts_step_err": step_err,
+        "nuts_step_whitened_err": wt_err,
+        "leapfrog_launches": runs["leapfrog_trajectory"],
+        "multistep_launches": runs["hmc_multistep"],
+        "subtree_launches": n3, "whitened_launches": w_counts["nuts_step"],
+        "leapfrog_ms": cuda_ms(lambda: leapfrog_trajectory(
+            kt, y, mom, grad, eps1, N_LEAPFROG), 20),
+        "leapfrog_plain_ms": cuda_ms(lambda: leapfrog_trajectory_plain(
+            kt, y, mom, grad, eps1[0], N_LEAPFROG), 2),
+        "multistep_ms": cuda_ms(lambda: hmc_multistep(
+            kt, y, logp, grad, eps_k, 8, 1, 0, hist), 20),
+        "multistep_plain_ms": cuda_ms(lambda: hmc_multistep_plain(
+            kt, y, logp, grad, eps_k, 8, 1, 0, hist), 2),
+        "subtree_ms": cuda_ms(lambda: subtree(*sub_args), 20),
+        "subtree_plain_ms": cuda_ms(lambda: subtree_plain(*sub_args), 2),
+        "nuts_step_ms": cuda_ms(lambda: nuts_step(*step_args), 20),
+        "nuts_step_plain_ms": cuda_ms(lambda: nuts_step_plain(*step_args),
+                                      2),
+        "nuts_step_whitened_ms": cuda_ms(lambda: nuts_step(*wt_args), 20),
+        "nuts_step_whitened_plain_ms": cuda_ms(
+            lambda: nuts_step_plain(*wt_args), 2),
+    }
+    say("k1234_transformed", shape=f"C={NUTS_CHAINS},D=2,L={N_LEAPFROG} "
+        f"(Kernel 1),K={STEPS_PER_CALL},L=8 (Kernel 2),subtree_j=4",
+        chains_checked_k12=K12_TRANSFORMED_CHAINS,
+        **{k: repr(v) for k, v in out.items()})
+    return dict(out, details=step_details, whitened_details=wt_details,
+                subtree_leaves=sub_leaves)
+
+
+def phase_funnel_kernels(dev) -> dict:
+    """``neal_funnel(3.0)`` at D = 4 (the ``NealFunnel`` functor of
+    Kernels 1-4) on FUNNEL_CHAINS chains started at 0.1 * init_with_seed:
+    Kernel 4 for one step and Kernel 3 at j = 0..3 against their twins
+    from the start at a step of 0.2; then ``NUTS(use_pallas="full")``
+    ``run(256, 256)``, whose draws must all be finite, its divergences
+    printed (the funnel's neck biases NUTS by design: no moment gate);
+    the times of Kernels 4 and 3 (CUDA events)."""
+    from types import SimpleNamespace
+
+    target = mt.neal_funnel(FUNNEL_SCALE)
+    init = 0.1 * mt.init_with_seed(FUNNEL_CHAINS, FUNNEL_DIM, seed=5,
+                                   device=dev)
+    start = SimpleNamespace(
+        kernel_target=target, state=SimpleNamespace(positions=init),
+        step_size=torch.full((FUNNEL_CHAINS,), 0.2, device=dev))
+    err, details, step_args = phase_nuts_step(start, dev,
+                                              label="nuts_step_funnel")
+    sub_err, sub_leaves = 0.0, {}
+    for j in range(4):
+        e, done, _ = subtree_case(start, dev, j, seed=160 + j,
+                                  label="subtree_funnel")
+        sub_err, sub_leaves[j] = max(sub_err, e), done
+    reset_counts()
+    nuts = mt.NUTS(target, init, 0.8, use_pallas="full").seed(5)
+    t0 = time.perf_counter()
+    sample = nuts.run(FUNNEL_RUN, FUNNEL_RUN)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    steps = 2 * FUNNEL_RUN - 1
+    check("funnel launches and no twin", counts == counts_with(
+        nuts_step=steps), counts)
+    check("funnel draws finite", tuple(sample.shape) == (
+        FUNNEL_CHAINS, FUNNEL_RUN, FUNNEL_DIM) and bool(
+            torch.isfinite(sample).all()), tuple(sample.shape))
+    sub_args = subtree_inputs(start, dev, 3, seed=163)
+    out = {
+        "err": err, "subtree_err": sub_err, "launches": counts["nuts_step"],
+        "elapsed_s": elapsed,
+        "divergences": int(nuts.divergences.sum()),
+        "divergences_last_half": int(nuts.last_run_divergences.sum()),
+        "v_mean": float(sample[..., 0].mean()),
+        "v_var": float(sample[..., 0].var()),
+        "leapfrogs_per_draw": float(
+            nuts.last_run_leapfrogs.double().mean()) / steps,
+        "ms": cuda_ms(lambda: nuts_step(*step_args), 20),
+        "plain_ms": cuda_ms(lambda: nuts_step_plain(*step_args), 2),
+        "subtree_ms": cuda_ms(lambda: subtree(*sub_args), 20),
+        "subtree_plain_ms": cuda_ms(lambda: subtree_plain(*sub_args), 2),
+    }
+    say("funnel_kernels", scale=FUNNEL_SCALE, D=FUNNEL_DIM,
+        chains=FUNNEL_CHAINS, **{k: repr(v) for k, v in out.items()},
+        **counts)
+    return dict(out, details=details, subtree_leaves=sub_leaves)
+
+
+def sep_mixed_case(dev):
+    """The separable shape's standard normal under a mixed table, five
+    blocks of D (identity, positive, lower_bounded(-1), upper_bounded(2),
+    interval(0, 1)), from natural states drawn from the normal and folded
+    into each block's range; returns (wrapped target, y, logp)."""
+    kinds = [mt.identity(), mt.positive(), mt.lower_bounded(-1.0),
+             mt.upper_bounded(2.0), mt.interval(0.0, 1.0)]
+    tf = mt.CoordinateTransform(
+        {i: kinds[i * 5 // SEP_DIM] for i in range(SEP_DIM)}, dim=SEP_DIM)
+    gen = torch.Generator(device=dev).manual_seed(909)
+    x = torch.randn((SEP_CHAINS, SEP_DIM), generator=gen, device=dev)
+    block = torch.arange(SEP_DIM, device=dev) * 5 // SEP_DIM
+    x = torch.where(block == 1, x.abs(), x)
+    x = torch.where(block == 2, -1.0 + (x + 1.0).abs(), x)
+    x = torch.where(block == 3, 2.0 - (2.0 - x).abs(), x)
+    x = torch.where(block == 4, x.abs().clamp(0.01, 0.99), x)
+    w = tf.wrap(mt.standard_normal())
+    y = tf.to_y(x).contiguous()
+    check("sep mixed states finite", bool(torch.isfinite(y).all()), "y")
+    return w, y, w.batch_logp(y).float()
+
+
+def phase_sep_constrained(dev):
+    """The separable stage's shape constrained
+    (examples/bigd_separable_hmc.py:41-46): ``standard_normal()`` with
+    ``positive()`` on all D = 10,000 coordinates, 1,024 chains starting at
+    x = 1, ``HMC(..., SEP_C_EPS, SEP_C_L, use_pallas="separable",
+    transform=tf).seed(1)`` (eps 0.04, L = 40: the example's 0.22 and 8
+    accept nothing at this D), ``run(128, 128, time_major=True)`` twice,
+    and the plain
+    tier the same way: the gates of bench.py:635-640 on the half-normal
+    (mean within 0.02 of sqrt(2 / pi), variance within 0.05 of 1 - 2 / pi,
+    every draw > 0, R-hat on the [128, 1024, 1024] sub-cube, the ESS floor
+    of 0.5% of C n), a speedup over the plain tier of at least 0.9, and
+    Kernel 7's transformed fused step 256 times a run. Then the row map
+    ``to_x`` of one [1024, 10000] row (CUDA events), and one step against
+    the twins twice (:func:`sep_kernel_check`, :func:`sep_step_check`): on
+    the mixed table of :func:`sep_mixed_case` and under a diagonal metric
+    estimated from the equilibrium (the scaled transformed instance);
+    their times."""
+    tf = mt.CoordinateTransform({i: mt.positive() for i in range(SEP_DIM)},
+                                dim=SEP_DIM)
+    out, counts = {}, None
+    for tier in ("separable", False):
+        reset_counts()
+        init = torch.ones((SEP_CHAINS, SEP_DIM), device=dev)
+        h = mt.HMC(mt.standard_normal(), init, SEP_C_EPS, SEP_C_L,
+                   use_pallas=tier, transform=tf).seed(1)
+        sample, elapsed = timed_run(h, SEP_COLLECT, SEP_COLLECT,
+                                    time_major=True)
+        c = read_counts()
+        steps = 2 * SEP_COLLECT
+        label = "separable" if tier else "plain"
+        if tier:
+            counts, sep = c, h
+            check("sep_constrained launches: the transformed fused step, "
+                  "no two-pass launch, no twin", c == counts_with(
+                      hmc_separable_step=2 * steps,
+                      hmc_separable_step_transformed=2 * steps), c)
+        else:
+            check("sep_constrained plain tier launches no kernel",
+                  not any(c[k] for k in KERNELS), c)
+        check(f"sep_constrained {label} sample", tuple(sample.shape) == (
+            SEP_COLLECT, SEP_CHAINS, SEP_DIM) and bool(
+                torch.isfinite(sample).all()), tuple(sample.shape))
+        var, mean = torch.var_mean(sample, correction=0)
+        rhat, ess = mt.split_rhat_mean_ess(
+            sample[:, :, :SEP_DIAG_DIM].contiguous(), time_major=True)
+        m = {
+            "elapsed_s": elapsed, "mean": float(mean), "var": float(var),
+            "min": float(sample.min()),
+            "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
+            "accept_rate": float((sample[1:, :, 0] != sample[:-1, :, 0])
+                                 .float().mean()),
+            "draws_per_sec": steps * SEP_CHAINS / elapsed,
+            "coordinate_updates_per_sec":
+                steps * SEP_CHAINS * SEP_DIM / elapsed,
+            "step_us": elapsed / steps * 1e6,
+        }
+        m["ess_per_sec"] = m["ess_mean"] / elapsed
+        del sample, rhat, ess
+        if not tier:
+            del h
+        torch.cuda.empty_cache()
+        check(f"sep_constrained {label} mean",
+              abs(m["mean"] - SEP_C_MEAN) < 0.02, m["mean"])
+        check(f"sep_constrained {label} var",
+              abs(m["var"] - SEP_C_VAR) < 0.05, m["var"])
+        check(f"sep_constrained {label} min > 0", m["min"] > 0.0, m["min"])
+        check(f"sep_constrained {label} rhat",
+              0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+        check(f"sep_constrained {label} ess floor",
+              m["ess_mean"] >= 0.005 * SEP_CHAINS * SEP_COLLECT,
+              (m["ess_mean"], SEP_CHAINS * SEP_COLLECT))
+        out[label] = m
+    speedup = out["plain"]["elapsed_s"] / out["separable"]["elapsed_s"]
+    out["separable"]["speedup_vs_plain"] = speedup
+    check("sep_constrained speedup over the plain tier", speedup >= 0.9,
+          speedup)
+    # a recorded row's map back to natural coordinates: one [C, D] pass
+    row = sep.state.positions
+    out["separable"]["row_to_x_ms"] = cuda_ms(lambda: tf.to_x(row), 20)
+    for label, m in out.items():
+        say(f"sep_constrained_{label}", **{k: repr(v) for k, v in m.items()},
+            **(dict(launches_per_run=2 * SEP_COLLECT, **counts)
+               if label == "separable" else {}))
+    # one step against the twins: the mixed table, then a diag metric
+    w, y, logp = sep_mixed_case(dev)
+    sep_kernel_check(w, y, 0.1, "sep_mixed_kernel")
+    err, args = sep_step_check(w, y, logp, 0.1, "sep_mixed_step")
+    traj = (w, y) + args[3:]
+    t = {"err": err,
+         "ms": cuda_ms(lambda: hmc_separable_step(*args), 20),
+         "plain_ms": cuda_ms(lambda: hmc_separable_step_plain(*args), 3),
+         "ms_trajectory_only": cuda_ms(lambda: hmc_separable(*traj), 20)}
+    white = sep.reconditioned("diag")
+    check("sep_constrained scaled transformed instance",
+          white.kernel_target.cuda_scaled
+          and white.kernel_target.cuda_transform is not None,
+          white.kernel_target)
+    wt, wy = white.kernel_target, white.state.positions
+    sep_kernel_check(wt, wy, white.step_size, "sep_scaled_transformed_kernel")
+    t["scaled_err"], wargs = sep_step_check(
+        wt, wy, white.state.logp, white.step_size,
+        "sep_scaled_transformed_step")
+    wtraj = (wt, wy) + wargs[3:]
+    t["scaled_ms"] = cuda_ms(lambda: hmc_separable_step(*wargs), 20)
+    t["scaled_plain_ms"] = cuda_ms(
+        lambda: hmc_separable_step_plain(*wargs), 3)
+    t["scaled_ms_trajectory_only"] = cuda_ms(
+        lambda: hmc_separable(*wtraj), 20)
+    # the all-positive stage's own step
+    pargs = (sep.kernel_target, sep.state.positions, sep.state.logp,
+             torch.tensor([SEP_C_EPS], device=dev), SEP_C_L, 0x5EED_C0, 3,
+             sep_tables(sep.kernel_target, sep.state.positions))
+    t["positive_ms"] = cuda_ms(lambda: hmc_separable_step(*pargs), 20)
+    t["positive_plain_ms"] = cuda_ms(
+        lambda: hmc_separable_step_plain(*pargs), 3)
+    say("sep_constrained_times", shape=f"C={SEP_CHAINS},D={SEP_DIM},"
+        f"L={SEP_L} (mixed, scaled),L={SEP_C_L} (positive)",
+        **{k: repr(v) for k, v in t.items()})
+    return sep, counts, out, t
+
+
+def phase_eight_schools(dev) -> dict:
+    """Eight schools' NUTS half (bench.py:1259-1341) on the port's lockstep
+    tier, which runs no hand-written kernel (the posterior has no CUDA
+    functor): ``make_noncentered_target()``, 4,096 chains, D = 10,
+    ``NUTS(target, init_with_seed(4096, 10, seed=31), 0.9, seed=31)
+    .warmed_up(300, "diag")``, then ``run(1024, 256)`` twice (the second
+    timed); the gates of bench.py:1285-1317 (|E[mu] - exact| <= 0.25,
+    |E[exp(log_tau)] - exact| <= 0.4, R-hat mean in [0.95, 1.05], ESS min
+    >= 0.002 C n, steady-state divergence rate <= 2e-3), leapfrogs per
+    draw, ESS/s and the time."""
+    from mini_mcmc_torch.examples.eight_schools import (
+        exact_posterior_means,
+        make_noncentered_target,
+    )
+
+    exact_mu, exact_tau = exact_posterior_means()
+    c8, n8, nd8 = ES8_CHAINS, ES8_COLLECT, ES8_DISCARD
+    reset_counts()
+    t0 = time.perf_counter()
+    warm = mt.NUTS(make_noncentered_target(), mt.init_with_seed(
+        c8, 10, seed=31, device=dev), 0.9, seed=31).warmed_up(ES8_ADAPT,
+                                                              "diag")
+    first = warm.run(n8, nd8)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del first
+    t0 = time.perf_counter()
+    sample = warm.run(n8, nd8)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    check("eight_schools runs no kernel", not any(
+        counts[k] for k in KERNELS), counts)
+    steps = n8 + nd8 - 1
+    div = int(warm.last_run_divergences.sum())
+    rhat, ess = mt.split_rhat_mean_ess(sample)
+    m = {
+        "exact_mu": exact_mu, "exact_tau": exact_tau,
+        "mu_hat": float(sample[..., 0].double().mean()),
+        "tau_hat": float(sample[..., 1].double().exp().mean()),
+        "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
+        "ess_min": float(ess.min()),
+        "divergence_rate": div / (c8 * steps),
+        "leapfrogs_per_draw": float(warm.last_run_leapfrogs[0]) / steps,
+        "elapsed_s": elapsed, "warm_up_and_first_run_s": warm_s,
+        "draws_per_sec": c8 * steps / elapsed,
+    }
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    del sample
+    check("eight_schools E[mu]", abs(m["mu_hat"] - exact_mu) <= 0.25,
+          (m["mu_hat"], exact_mu))
+    check("eight_schools E[tau]", abs(m["tau_hat"] - exact_tau) <= 0.4,
+          (m["tau_hat"], exact_tau))
+    check("eight_schools rhat", 0.95 <= m["rhat_mean"] <= 1.05,
+          m["rhat_mean"])
+    check("eight_schools ess floor", m["ess_min"] >= 0.002 * c8 * n8,
+          (m["ess_min"], c8 * n8))
+    check("eight_schools steady-state divergence rate",
+          m["divergence_rate"] <= 2e-3, m["divergence_rate"])
+    say("eight_schools", kernels="none (the lockstep tier)",
+        **{k: repr(v) for k, v in m.items()})
+    return m
+
+
+def bounds(step_details, subtree_leaves, dense_details, k1234t,
+           funnel) -> dict:
     """bound_ms and bound_by of each kernel at the shapes of its timing."""
     c, d = N_CHAINS, DIM
     k, L = STEPS_PER_CALL, N_LEAPFROG
@@ -2702,6 +3226,12 @@ def bounds(step_details, subtree_leaves, dense_details) -> dict:
     out["nuts_step"] = nuts_step_bound(step_details)
     out["nuts_step_dense_metric"] = nuts_step_bound(
         dense_details, OPS["affine_d2"])
+    # the transformed instances: a density evaluation adds the bijector of
+    # x0 and the identity's compare of x1 (and the metric's map)
+    bij = OPS["bij_grad"] + OPS["bij_identity"]
+    out["nuts_step_transformed"] = nuts_step_bound(k1234t["details"], bij)
+    out["nuts_step_whitened_transformed"] = nuts_step_bound(
+        k1234t["whitened_details"], bij + OPS["affine_d2"])
     # Kernel 3 at each j of phase_subtree (the record's own at j = 4): pos,
     # mom, grad, logu, v, eps, joint0, active in; five [C, 2] and six [C]
     # outputs. The work is that j's leaves and about one merge per leaf
@@ -2713,6 +3243,44 @@ def bounds(step_details, subtree_leaves, dense_details) -> dict:
             nc * OPS["nuts_step"] + sub * OPS["nuts_leaf"]
             + max(sub - nc, 0.0) * (OPS["nuts_merge"] + OPS["hash_draw"]))
     out["nuts_subtree"] = out["nuts_subtree_j4"]
+    sub = float(k1234t["subtree_leaves"][4].double().sum())
+    out["nuts_subtree_transformed"] = bound(
+        nc * (4 * (3 * 2 + 4) + 1) + nc * (4 * 5 * 2 + 4 * 4 + 2),
+        nc * OPS["nuts_step"] + sub * (OPS["nuts_leaf"] + bij)
+        + max(sub - nc, 0.0) * (OPS["nuts_merge"] + OPS["hash_draw"]))
+    # Kernels 1 and 2's transformed instances on all the constrained
+    # stage's chains (D = 2): Kernel 1 at L = 192, Kernel 2 at K = 16, L = 8
+    d = 2
+    out["leapfrog_trajectory_transformed"] = bound(
+        4 * (3 * nc * d + 1 + nc * (3 * d + 1)),
+        nc * N_LEAPFROG * (OPS["gauss2d_leapfrog"] + bij))
+    out["hmc_multistep_transformed"] = bound(
+        4 * (nc * (2 * d + 1) * 2 + STEPS_PER_CALL
+             + STEPS_PER_CALL * nc * d),
+        nc * STEPS_PER_CALL * (8 * (OPS["gauss2d_leapfrog"] + bij)
+                               + rng_ops(d, 1) + OPS["hmc_step"]
+                               + OPS["bij_logp"]))
+    # the funnel at D = 4 (Kernel 4 one step, Kernel 3 at j = 3): a leaf's
+    # density is the funnel's gradient, four coordinates' kicks and drifts
+    # in place of the two of the Gaussian's
+    fc, fd = FUNNEL_CHAINS, FUNNEL_DIM
+    funnel_leaf = (OPS["nuts_leaf"] - OPS["gauss2d_leapfrog"]
+                   + OPS["funnel4_grad"] + OPS["funnel4_leapfrog"])
+    leaves_c = funnel["details"]["leaves"].double()
+    depth_c = funnel["details"]["depth"].double()
+    merges_c = (leaves_c - depth_c).clamp(min=0.0)
+    out["nuts_step_funnel"] = bound(
+        4 * (fc * fd * 2 + fc + 4 * fc),
+        fc * OPS["nuts_step"]
+        + float(rng_ops(fd, 1 + 2 * depth_c + merges_c).sum())
+        + float(leaves_c.sum()) * funnel_leaf
+        + float(merges_c.sum()) * OPS["nuts_merge"]
+        + float(depth_c.sum()) * OPS["nuts_doubling"])
+    sub = float(funnel["subtree_leaves"][3].double().sum())
+    out["nuts_subtree_funnel"] = bound(
+        fc * (4 * (3 * fd + 4) + 1) + fc * (4 * 5 * fd + 4 * 4 + 2),
+        fc * OPS["nuts_step"] + sub * funnel_leaf
+        + max(sub - fc, 0.0) * (OPS["nuts_merge"] + OPS["hash_draw"]))
     # Kernel 5, one K-step block: pos and logp in and out, K history rows.
     # A step draws D proposal normals (Gaussian2D) or D coins (Poisson)
     # and the accept uniform
@@ -2754,6 +3322,22 @@ def bounds(step_details, subtree_leaves, dense_details) -> dict:
         out["hmc_separable_scaled" + suffix] = sep_bound(
             SEP_L, OPS["sep_leapfrog_scaled"],
             OPS["sep_coord"] + OPS["sep_scaled_coef"], 2, fused)
+    # the transformed instances: every coordinate's bijector in each
+    # gradient and in the density, its [3, D] table in. The constrained
+    # stage's step (positive() everywhere, L = 8); the mixed table's (four
+    # constrained blocks in five, L = 10); under a diag metric two more
+    # products a leapfrog and the scale's table
+    out["hmc_separable_transformed"] = sep_bound(
+        SEP_C_L, OPS["sep_leapfrog"] + OPS["bij_grad"],
+        OPS["sep_coord"] + OPS["bij_logp"], 3, True)
+    mixed_grad = 0.8 * OPS["bij_grad"] + 0.2 * OPS["bij_identity"]
+    mixed_logp = 0.8 * OPS["bij_logp"] + 0.2 * OPS["bij_identity"]
+    out["hmc_separable_mixed"] = sep_bound(
+        SEP_L, OPS["sep_leapfrog"] + mixed_grad,
+        OPS["sep_coord"] + mixed_logp, 3, True)
+    out["hmc_separable_scaled_transformed"] = sep_bound(
+        SEP_L, OPS["sep_leapfrog"] + 2 + mixed_grad,
+        OPS["sep_coord"] + mixed_logp, 4, True)
     # Kernel 2 at L = 1 on the MALA stage (Gaussian2D, 65,536 chains):
     # pos, logp, grad, eps in; pos, logp, grad, history out; Kernel 1 at
     # L = 1 there (the tuning path)
@@ -2837,6 +3421,11 @@ def main() -> None:
             NUTS_COLLECT, NUTS_DISCARD)),))
     del nuts, tuned
     torch.cuda.empty_cache()
+    nuts_c, nc_m, nc_counts = phase_nuts_constrained(dev)
+    k1234t = phase_k1234_transformed(nuts_c, dev)
+    del nuts_c
+    torch.cuda.empty_cache()
+    funnel = phase_funnel_kernels(dev)
     mh, mh_counts = phase_mh_main_path(dev)
     k5 = {"gauss2d": phase_mh_kernel(mh, "gauss2d", MH_K, 0x5EED_0808)}
     pois, pois_counts = phase_poisson_main_path(dev)
@@ -2882,6 +3471,18 @@ def main() -> None:
             sep_steps=2 * SEP_COLLECT)
     del warm
     torch.cuda.empty_cache()
+    sepc, sepc_counts, _, k7t = phase_sep_constrained(dev)
+    if args.profile:
+        # the stage's run; then 256 steps that record 8 rows, so that the
+        # per-step check does not count each recorded row's map to x (a
+        # few [C, D] passes a row, 128 rows a run)
+        phase_runs_profile((("sep_constrained", lambda: sepc.run(
+            SEP_COLLECT, SEP_COLLECT, time_major=True)),))
+        phase_runs_profile((("sep_constrained_steps", lambda: sepc.run(
+            8, 2 * SEP_COLLECT - 8, time_major=True)),),
+            sep_steps=2 * SEP_COLLECT)
+    del sepc
+    torch.cuda.empty_cache()
     pt, pt_counts, _ = phase_pt_main_path(dev)
     k8 = phase_pt_kernel(pt, 0x5EED_8888)
     say("pt_times", shape=f"C={PT_CHAINS},T={PT_TEMPS},K={PT_K},D=1",
@@ -2892,7 +3493,8 @@ def main() -> None:
     del pt
     torch.cuda.empty_cache()
     progress_launches = phase_run_progress_samplers(dev)
-    b = bounds(step_details, sub_leaves, k34w["details"])
+    phase_eight_schools(dev)
+    b = bounds(step_details, sub_leaves, k34w["details"], k1234t, funnel)
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
 
@@ -2975,6 +3577,35 @@ def main() -> None:
             f"device_ms_{target}_{form}": us * 1e-3
             for target, forms in k7s["device_us"].items()
             for form, us in forms.items()})
+    # this slice's transformed instances and the funnel's functor, each
+    # with its path's counts
+    kernels += [
+        record("nuts_step_transformed", "nuts_full.cu", "nuts_full.py:48",
+               nc_counts["nuts_step_transformed"], k1234t["nuts_step_err"],
+               k1234t["nuts_step_ms"], k1234t["nuts_step_plain_ms"],
+               ms_whitened=k1234t["nuts_step_whitened_ms"],
+               plain_ms_whitened=k1234t["nuts_step_whitened_plain_ms"],
+               max_abs_err_whitened=k1234t["nuts_step_whitened_err"],
+               launches_whitened=k1234t["whitened_launches"],
+               bound_ms_whitened=b["nuts_step_whitened_transformed"][0],
+               bound_by_whitened=b["nuts_step_whitened_transformed"][1]),
+        record("hmc_separable_transformed", "hmc_separable.cu",
+               "hmc_bigd.py:177",
+               sepc_counts["hmc_separable_step_transformed"], k7t["err"],
+               k7t["positive_ms"], k7t["positive_plain_ms"],
+               launches_two_pass=sepc_counts["hmc_separable_transformed"],
+               ms_mixed=k7t["ms"], plain_ms_mixed=k7t["plain_ms"],
+               ms_mixed_trajectory_only=k7t["ms_trajectory_only"],
+               bound_ms_mixed=b["hmc_separable_mixed"][0],
+               ms_scaled=k7t["scaled_ms"],
+               plain_ms_scaled=k7t["scaled_plain_ms"],
+               ms_scaled_trajectory_only=k7t["scaled_ms_trajectory_only"],
+               max_abs_err_scaled=k7t["scaled_err"],
+               bound_ms_scaled=b["hmc_separable_scaled_transformed"][0]),
+        record("nuts_step_funnel", "nuts_full.cu", "nuts_full.py:48",
+               funnel["launches"], funnel["err"], funnel["ms"],
+               funnel["plain_ms"]),
+    ]
     off_path = [
         record("leapfrog_trajectory", "hmc_leapfrog.cu", "hmc.py:46",
                counts["leapfrog_trajectory"], lf[8][0], t["leapfrog_ms"],
@@ -3003,6 +3634,28 @@ def main() -> None:
     ]
     if k3_us is not None:  # --profile
         off_path[-1]["device_ms_by_j"] = [k3_us[j] * 1e-3 for j in range(6)]
+    # the transformed instances of Kernels 1-3 and the funnel's Kernel 3,
+    # off the main paths: their own counted runs
+    off_path += [
+        record("leapfrog_trajectory_transformed", "hmc_leapfrog.cu",
+               "hmc.py:46", nc_counts["leapfrog_trajectory"],
+               k1234t["leapfrog_err"], k1234t["leapfrog_ms"],
+               k1234t["leapfrog_plain_ms"],
+               tier_run_launches=k1234t["leapfrog_launches"]),
+        record("hmc_multistep_transformed", "hmc_multistep.cu",
+               "hmc_full.py:86", nc_counts["hmc_multistep"],
+               k1234t["multistep_err"], k1234t["multistep_ms"],
+               k1234t["multistep_plain_ms"],
+               tier_run_launches=k1234t["multistep_launches"]),
+        record("nuts_subtree_transformed", "nuts_subtree.cu",
+               "nuts_subtree.py:243", nc_counts["nuts_subtree"],
+               k1234t["subtree_err"], k1234t["subtree_ms"],
+               k1234t["subtree_plain_ms"],
+               tier_run_launches=k1234t["subtree_launches"]),
+        record("nuts_subtree_funnel", "nuts_subtree.cu",
+               "nuts_subtree.py:243", 0, funnel["subtree_err"],
+               funnel["subtree_ms"], funnel["subtree_plain_ms"]),
+    ]
     print(json.dumps({"kernels": kernels, "off_main_path": off_path}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """mini_mcmc_torch: the PyTorch + CUDA port of mini_mcmc_tpu.
 
 Lockstep batched Metropolis-Hastings, HMC, MALA, NUTS, Gibbs and parallel
-tempering over ``[n_chains, dim]`` tensors, with the fused tiers
+tempering over ``[n_chains, dim]`` tensors, constrained parameters through
+``transform=`` (``models/transforms.py``), with the fused tiers
 (``use_pallas=True | "full" | "separable"``) run by hand-written CUDA kernels
 for Hopper (``csrc/``) on CUDA tensors and by their plain PyTorch twins on
 CPU tensors. Samplers and initial positions live on the GPU unless the
@@ -17,17 +18,25 @@ from .diagnostics import (
     summary,
 )
 from .models import (
+    CoordinateTransform,
     Preconditioner,
     diffable_gaussian2d,
     estimate_preconditioner,
     gaussian2d,
     gaussian_mixture_conditional,
+    identity,
+    interval,
     isotropic_gaussian_proposal,
+    lower_bounded,
+    neal_funnel,
     poisson_target,
+    positive,
     precondition_target,
     random_walk_int_proposal,
     rosenbrock_nd,
     standard_normal,
+    transformed_target,
+    upper_bounded,
 )
 from .nuts import NUTS
 from .ops.tempering import geometric_betas, tune_betas
@@ -49,6 +58,7 @@ from .stream import StreamResult, stream_run
 from .utils.init import init, init_det, init_with_seed
 
 __all__ = [
+    "CoordinateTransform",
     "GibbsSampler",
     "HMC",
     "MALA",
@@ -67,11 +77,16 @@ __all__ = [
     "gaussian2d",
     "gaussian_mixture_conditional",
     "geometric_betas",
+    "identity",
     "init",
     "init_det",
     "init_with_seed",
+    "interval",
     "isotropic_gaussian_proposal",
+    "lower_bounded",
+    "neal_funnel",
     "poisson_target",
+    "positive",
     "precondition_target",
     "random_walk_int_proposal",
     "rank_normalized_diagnostics",
@@ -81,5 +96,7 @@ __all__ = [
     "standard_normal",
     "stream_run",
     "summary",
+    "transformed_target",
     "tune_betas",
+    "upper_bounded",
 ]

@@ -3,7 +3,7 @@
 No model here has weights: what carries over is the chain state
 (positions and their cached logp, and the gradient for HMC; the positions
 and adaptation state for NUTS; the replica ladder for parallel tempering)
-and the sampler's configuration, a metric included.
+and the sampler's configuration, a metric and a transform included.
 Everything crosses as numpy arrays, so this module imports neither JAX nor
 the JAX package. States land on ``device``, ``"cuda"`` by default (raises
 without a GPU); pass ``device="cpu"`` for the CPU.
@@ -15,6 +15,14 @@ import numpy as np
 import torch
 
 from .models.precondition import Preconditioner
+from .models.transforms import (
+    CoordinateTransform,
+    _interval,
+    identity,
+    lower_bounded,
+    positive,
+    upper_bounded,
+)
 from .ops.hmc import HMCSepState, HMCState
 from .ops.mh import MHState
 from .ops.nuts import NUTSState
@@ -108,6 +116,62 @@ def preconditioner_from_numpy(kind: str, array,
     return Preconditioner(kind, chol=arr)
 
 
+def _closure(fn) -> dict:
+    """A function's free variables by name (the constants a built-in
+    bijector's closures hold)."""
+    cells = fn.__closure__ or ()
+    return dict(zip(fn.__code__.co_freevars,
+                    (c.cell_contents for c in cells)))
+
+
+#: the JAX package's module of built-in bijectors, named, never imported
+_JAX_TRANSFORMS = "mini_mcmc_tpu.models.transforms"
+
+
+def _bijector_from_jax(bij):
+    """The port's counterpart of a JAX built-in bijector, its constants
+    read from the closures of its forward map (exact, where the name
+    rounds them). A built-in is one whose forward map was made by the JAX
+    module's factory of its name."""
+    name = bij.name
+    fwd = getattr(bij, "forward", None)
+    factory = name.split("(")[0]
+    if (getattr(fwd, "__module__", None) == _JAX_TRANSFORMS
+            and getattr(fwd, "__qualname__", "").startswith(
+                f"{factory}.<locals>.")):
+        free = _closure(fwd)
+        if factory == "identity":
+            return identity()
+        if factory == "positive":
+            return positive()
+        if factory == "lower_bounded":
+            return lower_bounded(free["low"])
+        if factory == "upper_bounded":
+            return upper_bounded(free["high"])
+        if factory == "interval":
+            return _interval(float(free["low"]), float(free["width"]), name)
+    raise ValueError(
+        f"transform holds a custom Bijector ({name!r}); only the built-in "
+        "bijectors (identity, positive, lower_bounded, upper_bounded, "
+        "interval) carry across: rebuild it with the port's Bijector")
+
+
+def transform_from_jax(jax_transform) -> CoordinateTransform:
+    """The port's :class:`~mini_mcmc_torch.models.transforms.
+    CoordinateTransform` of a JAX one made of built-in bijectors: the same
+    names and constants coordinate by coordinate, and the same grouping
+    (one port bijector per distinct JAX one). Raises ``ValueError`` for a
+    custom bijector, and for anything but a JAX ``CoordinateTransform``."""
+    table = getattr(jax_transform, "_table", None)
+    if not isinstance(table, list) or not all(
+            isinstance(getattr(b, "name", None), str) for b in table):
+        raise ValueError("transform must be a JAX CoordinateTransform; got "
+                         f"{type(jax_transform).__name__}")
+    ported = {}
+    return CoordinateTransform([
+        ported.setdefault(id(b), _bijector_from_jax(b)) for b in table])
+
+
 def state_to_numpy(state):
     """The state's fields as numpy arrays (host ints stay ints)."""
     return tuple(np.asarray(x.detach().cpu()) if torch.is_tensor(x) else x
@@ -116,8 +180,9 @@ def state_to_numpy(state):
 
 def _kwargs(jax_sampler, name: str, ctor=None) -> dict:
     ctor = dict(jax_sampler._ctor if ctor is None else ctor)
-    if ctor.pop("transform", None) is not None:
-        raise ValueError(f"{name}(transform=...) is not ported yet")
+    transform = ctor.pop("transform", None)
+    if transform is not None:
+        ctor["transform"] = transform_from_jax(transform)
     for key in _JAX_ONLY:
         ctor.pop(key, None)
     metric = getattr(jax_sampler, "metric", None)
@@ -135,22 +200,22 @@ def _kwargs(jax_sampler, name: str, ctor=None) -> dict:
 def sampler_kwargs(jax_hmc) -> dict:
     """The port's ``HMC`` keyword arguments read from a JAX ``HMC``'s
     recorded constructor arguments (``_ctor``) and its metric (a CPU
-    ``Preconditioner``; the sampler moves it to its device). Raises for a
-    transform, which the port does not have yet."""
+    ``Preconditioner``; the sampler moves it to its device) and its
+    transform (:func:`transform_from_jax`)."""
     return _kwargs(jax_hmc, "HMC")
 
 
 def nuts_sampler_kwargs(jax_nuts) -> dict:
     """The port's ``NUTS`` keyword arguments read from a JAX ``NUTS``'s
-    ``_ctor`` and its metric; drops ``pallas_interpret``/``validate_dc``
-    and raises for a transform."""
+    ``_ctor``, its metric and its transform; drops ``pallas_interpret``/
+    ``validate_dc``."""
     return _kwargs(jax_nuts, "NUTS")
 
 
 def mala_sampler_kwargs(jax_mala) -> dict:
     """The port's ``MALA`` keyword arguments read from a JAX ``MALA``'s
     ``_ctor`` (HMC's, with its fixed ``n_leapfrog=1`` and ``jitter``
-    dropped) and its metric; raises for a transform."""
+    dropped), its metric and its transform."""
     kwargs = _kwargs(jax_mala, "MALA")
     for key in ("n_leapfrog", "jitter"):
         kwargs.pop(key, None)
@@ -159,8 +224,8 @@ def mala_sampler_kwargs(jax_mala) -> dict:
 
 def mh_sampler_kwargs(jax_mh) -> dict:
     """The port's ``MetropolisHastings`` keyword arguments read from a JAX
-    ``MetropolisHastings``'s ``_ctor``; drops ``pallas_interpret``/
-    ``validate_dc`` and raises for a transform."""
+    ``MetropolisHastings``'s ``_ctor`` and its transform; drops
+    ``pallas_interpret``/``validate_dc``."""
     return _kwargs(jax_mh, "MetropolisHastings")
 
 
@@ -179,7 +244,7 @@ def pt_sampler_kwargs(jax_pt) -> dict:
     """The port's ``ParallelTempering`` keyword arguments read from a JAX
     ``ParallelTempering``: its ``_ctor`` and its ladder (``betas``), a
     non-scalar ``proposal_std`` as a float32 numpy array. Drops
-    ``pallas_interpret``/``validate_dc`` and raises for a transform."""
+    ``pallas_interpret``/``validate_dc``; carries its transform."""
     kwargs = _kwargs(jax_pt, "ParallelTempering")
     std = kwargs["proposal_std"]
     if not isinstance(std, (int, float)):

@@ -25,6 +25,16 @@
 // trajectory past the float32 twin's tolerance), so the scaled leapfrog
 // costs what the unscaled one does.
 //
+// TransformedCoord<F, kScaled> is F under a transform
+// (models/transforms.py, Target.cuda_transform): a coordinate's term is
+// F(x) + log|g'(y)| with x = g(y), its derivative F'(x) g'(y) + d log|g'(y)|
+// / dy (targets.cuh:bij_grad, bij_logp). Its State adds the coordinate's
+// bijector code, offset and width, read from a packed [3, D] table, and,
+// under a diagonal metric (kScaled), the scale s, which multiplies y = s z
+// ahead of the bijector: the term F(g(s z)) + log|g'(s z)|, the derivative
+// s (F'(x) g'(s z) + d log|g'| / dy). The scale cannot fold into F's
+// precision here, as Scaled<F> folds it.
+//
 // Arithmetic follows the Python forms of mini_mcmc_torch/models/gaussian.py
 // (and the heterogeneous Gaussian of tests/test_pallas.py:898-942) up to
 // the order of the products: k is rounded once, and the kernel contracts
@@ -32,6 +42,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include "targets.cuh"
 
 namespace mm {
 
@@ -44,6 +56,7 @@ enum CoordId : int {
 // The three functors' shared form: a normal of precision k per coordinate.
 struct GaussianCoord {
   using State = float;  // k
+  static constexpr bool kTransformed = false;
   __device__ __forceinline__ static float logp(float x, float k) {
     return -0.5f * k * (x * x);
   }
@@ -112,6 +125,7 @@ template <class F>
 struct Scaled {
   static_assert(F::kTables < 2, "Scaled<F> reads F's table and the scale");
   static constexpr int kTables = F::kTables + 1;
+  static constexpr bool kTransformed = false;
   using State = typename F::State;
   F f;
   __device__ __forceinline__ explicit Scaled(const float* p) : f(p) {}
@@ -123,6 +137,43 @@ struct Scaled {
   }
   __device__ __forceinline__ static float grad(float y, State k) {
     return F::grad(y, k);
+  }
+};
+
+template <class F, bool kScaled>
+struct TransformedCoord {
+  static constexpr int kTables = F::kTables;
+  static constexpr bool kTransformed = true;
+  static constexpr bool kScaledY = kScaled;
+  struct State {
+    typename F::State k;
+    int code;
+    float b, w, s;
+  };
+  F f;
+  BijTable bt;
+
+  // params: F's coefficients; consts: the soft-saturation constants
+  __device__ __forceinline__ TransformedCoord(const float* params,
+                                              const float* consts)
+      : f(params), bt(consts) {}
+  __device__ __forceinline__ State prepare(float t0, float t1, float code,
+                                           float b, float w,
+                                           float s) const {
+    return State{f.prepare(t0, t1), (int)code, b, w, kScaled ? s : 1.0f};
+  }
+  __device__ __forceinline__ float logp(float z, const State& st) const {
+    float ld = 0.0f;
+    const float x = bij_logp(bt, st.code, st.b, st.w,
+                             kScaled ? st.s * z : z, ld);
+    return F::logp(x, st.k) + ld;
+  }
+  __device__ __forceinline__ float grad(float z, const State& st) const {
+    float dx, dld;
+    const float x = bij_grad(bt, st.code, st.b, st.w,
+                             kScaled ? st.s * z : z, dx, dld);
+    const float g = F::grad(x, st.k) * dx + dld;
+    return kScaled ? st.s * g : g;
   }
 };
 

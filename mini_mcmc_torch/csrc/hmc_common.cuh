@@ -46,17 +46,30 @@ inline int blocks_for(int n_chains) {
 
 }  // namespace mm
 
-// Calls LAUNCH(TargetType, D) for the instantiated (target, dim) pairs, the
-// functor inside the affine wrapper mm::Whitened when `affine` is nonzero
-// (a whitened target, Target.cuda_affine), and returns
-// cudaErrorInvalidValue for any other pair (the dims must match
+// Calls LAUNCH(TargetType, D) for the instantiated (target, dim) pairs,
+// the functor inside its wrappers by the bits of `affine`
+// (_build.instance_flags): bit 0 the affine wrapper mm::Whitened of a
+// whitened target (Target.cuda_affine), bit 1 mm::Transformed of a
+// transformed one (Target.cuda_transform), both Whitened<Transformed<T>>,
+// the metric on the unconstrained coordinates. Returns
+// cudaErrorInvalidValue for any other pair or bits (the dims must match
 // KERNEL_DIMS in ops/kernels/_build.py).
-#define MM_AFFINE(affine, T, D, LAUNCH)  \
-  if (affine) {                          \
-    using Whitened_ = mm::Whitened<T, D>; \
-    LAUNCH(Whitened_, D);                \
-  } else {                               \
-    LAUNCH(T, D);                        \
+#define MM_AFFINE(affine, T, D, LAUNCH)                    \
+  switch (affine) {                                        \
+    case 0: LAUNCH(T, D); break;                           \
+    case 1: {                                              \
+      using Whitened_ = mm::Whitened<T, D>;                \
+      LAUNCH(Whitened_, D);                                \
+    } break;                                               \
+    case 2: {                                              \
+      using Transformed_ = mm::Transformed<T, D>;          \
+      LAUNCH(Transformed_, D);                             \
+    } break;                                               \
+    case 3: {                                              \
+      using Both_ = mm::Whitened<mm::Transformed<T, D>, D>; \
+      LAUNCH(Both_, D);                                    \
+    } break;                                               \
+    default: return (int)cudaErrorInvalidValue;            \
   }
 
 #define MM_DISPATCH(target, dim, affine, LAUNCH)                \
@@ -66,6 +79,13 @@ inline int blocks_for(int n_chains) {
         case 2: MM_AFFINE(affine, mm::RosenbrockND, 2, LAUNCH); break; \
         case 3: MM_AFFINE(affine, mm::RosenbrockND, 3, LAUNCH); break; \
         case 4: MM_AFFINE(affine, mm::RosenbrockND, 4, LAUNCH); break; \
+        default: return (int)cudaErrorInvalidValue;             \
+      }                                                         \
+    } else if ((target) == mm::kNealFunnel) {                   \
+      switch (dim) {                                            \
+        case 2: MM_AFFINE(affine, mm::NealFunnel, 2, LAUNCH); break; \
+        case 3: MM_AFFINE(affine, mm::NealFunnel, 3, LAUNCH); break; \
+        case 4: MM_AFFINE(affine, mm::NealFunnel, 4, LAUNCH); break; \
         default: return (int)cudaErrorInvalidValue;             \
       }                                                         \
     } else if ((target) == mm::kGaussian2D && (dim) == 2) {     \

@@ -15,6 +15,12 @@
 // the Gaussian functors a leapfrog is two FMAs and one multiply, with no
 // division.
 //
+// A transformed target (coord_targets.cuh:TransformedCoord) also reads
+// each coordinate's bijector code, offset and width from `bij` [3, D]
+// (the soft-saturation constants after it) and, under a diagonal metric,
+// its scale from `scale` [D]; the bijector's exp and sigmoid make that
+// instance bound by its transcendental instructions, not by bytes.
+//
 // Layout: one block per (chain, D-tile), threads along D. A thread owns G
 // quads of four consecutive coordinates (one Philox evaluation each);
 // quad q = (tile * G + j) * blockDim.x + threadIdx.x, so a warp's loads
@@ -73,6 +79,8 @@ struct SepArgs {
   const float* eps;      // one float
   const float* params;   // the functor's coefficients
   const float* tables;   // [n_tables, D] or null
+  const float* bij;      // [3, D] code, offset, width; then 6 constants
+  const float* scale;    // [D] (a transformed target under a metric)
   const float* logp_in;  // [C] (fused)
   const float* u_in;     // [C] or null (drawn; fused)
   int n_chains, dim, n_tiles, n_leapfrog, vec;
@@ -132,13 +140,24 @@ __device__ __forceinline__ float accept_uniform(uint32_t chain, uint32_t step,
   return mm::uniform_at(chain, step, 0u, k0, k1, 1u);
 }
 
+// The functor of a launch: a transformed one also takes the bijector
+// table's constants, after its [3, D] rows
+template <class F>
+__device__ __forceinline__ F make_functor(const SepArgs& a) {
+  if constexpr (F::kTransformed) {
+    return F(a.params, a.bij + 3 * (long long)a.dim);
+  } else {
+    return F(a.params);
+  }
+}
+
 template <class F, bool kFused>
 __global__ void __launch_bounds__(kSepMaxThreads)
     hmc_separable_kernel(const SepArgs a) {
   constexpr int G = kSepGroups;
   const int c = blockIdx.x / a.n_tiles;
   const int g = blockIdx.x - c * a.n_tiles;  // the cluster rank when fused
-  const F f(a.params);
+  const F f = make_functor<F>(a);
   const float eps = __ldg(a.eps);
   const float half = eps * 0.5f;
   const long long row = (long long)c * a.dim;
@@ -156,6 +175,9 @@ __global__ void __launch_bounds__(kSepMaxThreads)
     const int q = (g * G + j) * blockDim.x + threadIdx.x;
     n_valid[j] = q < quads ? min(4, a.dim - 4 * q) : 0;
     float t0[4] = {1.0f, 1.0f, 1.0f, 1.0f}, t1[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    // a transformed functor's bijector entries (padding: the identity)
+    float bc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, bb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float bw[4] = {1.0f, 1.0f, 1.0f, 1.0f}, sc[4] = {1.0f, 1.0f, 1.0f, 1.0f};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       x[j][i] = 0.0f;
@@ -165,6 +187,12 @@ __global__ void __launch_bounds__(kSepMaxThreads)
       load4(a.pos + row, q, a.dim, a.vec, 0.0f, x[j]);
       if (F::kTables > 0) load4(a.tables, q, a.dim, a.vec, 1.0f, t0);
       if (F::kTables > 1) load4(a.tables + a.dim, q, a.dim, a.vec, 1.0f, t1);
+      if constexpr (F::kTransformed) {
+        load4(a.bij, q, a.dim, a.vec, 0.0f, bc);
+        load4(a.bij + a.dim, q, a.dim, a.vec, 0.0f, bb);
+        load4(a.bij + 2 * (long long)a.dim, q, a.dim, a.vec, 1.0f, bw);
+        if constexpr (F::kScaledY) load4(a.scale, q, a.dim, a.vec, 1.0f, sc);
+      }
       if (a.mom_in != nullptr) {
         load4(a.mom_in + row, q, a.dim, a.vec, 0.0f, m[j]);
       } else {
@@ -173,7 +201,11 @@ __global__ void __launch_bounds__(kSepMaxThreads)
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      k[j][i] = f.prepare(t0[i], t1[i]);
+      if constexpr (F::kTransformed) {
+        k[j][i] = f.prepare(t0[i], t1[i], bc[i], bb[i], bw[i], sc[i]);
+      } else {
+        k[j][i] = f.prepare(t0[i], t1[i]);
+      }
       x_in[j][i] = x[j][i];
       if (i < n_valid[j]) {
         ke0 += m[j][i] * m[j][i];
@@ -188,7 +220,7 @@ __global__ void __launch_bounds__(kSepMaxThreads)
 #pragma unroll
   for (int j = 0; j < G; ++j) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) m[j][i] += F::grad(x[j][i], k[j][i]) * half;
+    for (int i = 0; i < 4; ++i) m[j][i] += f.grad(x[j][i], k[j][i]) * half;
   }
 #pragma unroll 2
   for (int l = 0; l < a.n_leapfrog; ++l) {
@@ -198,7 +230,7 @@ __global__ void __launch_bounds__(kSepMaxThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         x[j][i] += eps * m[j][i];
-        m[j][i] += F::grad(x[j][i], k[j][i]) * kick;
+        m[j][i] += f.grad(x[j][i], k[j][i]) * kick;
       }
     }
   }
@@ -209,7 +241,7 @@ __global__ void __launch_bounds__(kSepMaxThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (i < n_valid[j]) {
-        pe += F::logp(x[j][i], k[j][i]);
+        pe += f.logp(x[j][i], k[j][i]);
         ke1 += m[j][i] * m[j][i];
       }
     }
@@ -294,23 +326,33 @@ __global__ void __launch_bounds__(kSepMaxThreads)
   }
 }
 
-// Calls LAUNCH(F) for the coordinate functor `functor`, Scaled<F> when
-// `scaled`; returns cudaErrorInvalidValue for any other id.
-#define MM_SEP_DISPATCH(functor, scaled, LAUNCH)                           \
+// Calls LAUNCH(F) for the coordinate functor `functor` by the bits of
+// `flags`: bit 0 a diagonal metric, bit 1 a transform. Scaled<F> for the
+// metric alone, TransformedCoord<F, scaled> for a transform; returns
+// cudaErrorInvalidValue for any other id or bits.
+#define MM_SEP_FUNCTOR(F, flags, LAUNCH)                                   \
+  switch (flags) {                                                         \
+    case 0:                                                                \
+      LAUNCH(F);                                                           \
+    case 1:                                                                \
+      LAUNCH(mm::Scaled<F>);                                               \
+    case 2:                                                                \
+      LAUNCH(SEP_TRANSFORMED(F, false));                                   \
+    case 3:                                                                \
+      LAUNCH(SEP_TRANSFORMED(F, true));                                    \
+    default:                                                               \
+      return (int)cudaErrorInvalidValue;                                   \
+  }
+#define SEP_TRANSFORMED(F, scaled) mm::TransformedCoord<F, scaled>
+#define MM_SEP_DISPATCH(functor, flags, LAUNCH)                            \
   do {                                                                     \
-    switch ((functor) * 2 + ((scaled) != 0)) {                             \
-      case 2 * mm::kStandardNormal:                                        \
-        LAUNCH(mm::StandardNormalCoord);                                   \
-      case 2 * mm::kStandardNormal + 1:                                    \
-        LAUNCH(mm::Scaled<mm::StandardNormalCoord>);                       \
-      case 2 * mm::kIsotropicGaussianCoord:                                \
-        LAUNCH(mm::IsotropicGaussianCoord);                                \
-      case 2 * mm::kIsotropicGaussianCoord + 1:                            \
-        LAUNCH(mm::Scaled<mm::IsotropicGaussianCoord>);                    \
-      case 2 * mm::kSigmaTableNormal:                                      \
-        LAUNCH(mm::SigmaTableNormalCoord);                                 \
-      case 2 * mm::kSigmaTableNormal + 1:                                  \
-        LAUNCH(mm::Scaled<mm::SigmaTableNormalCoord>);                     \
+    switch (functor) {                                                     \
+      case mm::kStandardNormal:                                            \
+        MM_SEP_FUNCTOR(mm::StandardNormalCoord, flags, LAUNCH);            \
+      case mm::kIsotropicGaussianCoord:                                    \
+        MM_SEP_FUNCTOR(mm::IsotropicGaussianCoord, flags, LAUNCH);         \
+      case mm::kSigmaTableNormal:                                          \
+        MM_SEP_FUNCTOR(mm::SigmaTableNormalCoord, flags, LAUNCH);          \
       default:                                                             \
         return (int)cudaErrorInvalidValue;                                 \
     }                                                                      \
@@ -361,14 +403,18 @@ int sep_tiles(int dim, int threads) {
 // form). `eps` is a device float, `tables` [n_tables, D] (null without
 // tables). Writes pos_out [C, D] and parts [3, C, G], G = ceil(ceil(D / 4)
 // / (threads * 2)). `functor` is a CoordId
-// (_build.SEP_FUNCTORS), run as Scaled<functor> when `scaled` (its scale
-// the last table); any other returns cudaErrorInvalidValue, as do
+// (_build.SEP_FUNCTORS), run by the bits of `flags` (MM_SEP_DISPATCH):
+// Scaled<functor> for 1 (the scale the last table), TransformedCoord for
+// 2 and 3, its table `bij` ([3, D] code, offset, width, then the six
+// soft-saturation constants) and, for 3, the scale `scale` [D]; any other
+// returns cudaErrorInvalidValue, as do
 // `threads` not a multiple of 32 in [32, 256] and a grid past 2^31 - 1
 // blocks.
 extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
                                 const void* eps, const void* params,
-                                const void* tables, int n_chains, int dim,
-                                int n_leapfrog, int functor, int scaled,
+                                const void* tables, const void* bij,
+                                const void* scale, int n_chains, int dim,
+                                int n_leapfrog, int functor, int flags,
                                 int threads, int vec, uint32_t chain0,
                                 uint32_t seed_lo, uint32_t seed_hi,
                                 uint32_t step, void* pos_out, void* mom_out,
@@ -384,6 +430,8 @@ extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
   a.eps = (const float*)eps;
   a.params = (const float*)params;
   a.tables = (const float*)tables;
+  a.bij = (const float*)bij;
+  a.scale = (const float*)scale;
   a.n_chains = n_chains;
   a.dim = dim;
   a.n_tiles = n_tiles;
@@ -400,7 +448,7 @@ extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
   hmc_separable_kernel<F, false>                                           \
       <<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(a);              \
   return (int)cudaGetLastError()
-  MM_SEP_DISPATCH(functor, scaled, MM_SEP);
+  MM_SEP_DISPATCH(functor, flags, MM_SEP);
 #undef MM_SEP
   return (int)cudaErrorInvalidValue;
 }
@@ -414,8 +462,9 @@ extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
 extern "C" int mm_hmc_separable_step(
     const void* pos, const void* mom_in, const void* u_in,
     const void* logp_in, const void* eps, const void* params,
-    const void* tables, int n_chains, int dim, int n_leapfrog, int functor,
-    int scaled, int threads, int vec, uint32_t chain0,
+    const void* tables, const void* bij, const void* scale, int n_chains,
+    int dim, int n_leapfrog, int functor, int flags, int threads, int vec,
+    uint32_t chain0,
     uint32_t seed_lo, uint32_t seed_hi, uint32_t step, void* pos_out,
     void* logp_out, void* alpha_out, void* stream) {
   if (n_chains <= 0 || dim <= 0) return (int)cudaSuccess;
@@ -432,6 +481,8 @@ extern "C" int mm_hmc_separable_step(
   a.eps = (const float*)eps;
   a.params = (const float*)params;
   a.tables = (const float*)tables;
+  a.bij = (const float*)bij;
+  a.scale = (const float*)scale;
   a.logp_in = (const float*)logp_in;
   a.u_in = (const float*)u_in;
   a.n_chains = n_chains;
@@ -456,7 +507,7 @@ extern "C" int mm_hmc_separable_step(
     return (int)cudaLaunchKernelEx(&cfg, hmc_separable_kernel<F, true>,    \
                                    a);                                     \
   }
-  MM_SEP_DISPATCH(functor, scaled, MM_SEP);
+  MM_SEP_DISPATCH(functor, flags, MM_SEP);
 #undef MM_SEP
   return (int)cudaErrorInvalidValue;
 }
@@ -464,7 +515,7 @@ extern "C" int mm_hmc_separable_step(
 // The clusters of the fused form that the current device holds at once
 // (cudaOccupancyMaxActiveClusters) for this instance and layout, into
 // *out; 0 means the launch cannot run there.
-extern "C" int mm_hmc_separable_clusters(int functor, int scaled,
+extern "C" int mm_hmc_separable_clusters(int functor, int flags,
                                          int threads, int n_tiles,
                                          int* out) {
   *out = 0;
@@ -482,7 +533,7 @@ extern "C" int mm_hmc_separable_clusters(int functor, int scaled,
     return (int)cudaOccupancyMaxActiveClusters(                            \
         out, (const void*)hmc_separable_kernel<F, true>, &cfg);            \
   }
-  MM_SEP_DISPATCH(functor, scaled, MM_SEP);
+  MM_SEP_DISPATCH(functor, flags, MM_SEP);
 #undef MM_SEP
   return (int)cudaErrorInvalidValue;
 }

@@ -24,6 +24,7 @@ enum TargetId : int {
   kGaussian2D = 1,
   kPoisson = 2,
   kGaussianMixture1D = 3,
+  kNealFunnel = 4,
 };
 
 // models/rosenbrock.py:rosenbrock_nd, arithmetic in the JAX form's order:
@@ -149,6 +150,202 @@ struct GaussianMixture1D {
     const float delta = a - b;
     if (isnan(delta)) return a + b;
     return fmaxf(a, b) + log1pf(expf(-fabsf(delta)));
+  }
+};
+
+// models/gaussian.py:neal_funnel, the JAX package's logp_dc term for term
+// (mini_mcmc_tpu/models/gaussian.py:270-281) and the analytic gradient of
+// its grad (:261-268): state [v, x_1, .., x_{D-1}], logp = -v^2 / (2
+// scale^2) - (D - 1) v / 2 - sum_i x_i^2 e^-v / 2. params: 1 / scale^2.
+struct NealFunnel {
+  float inv_s2;
+
+  __device__ __forceinline__ explicit NealFunnel(const float* p)
+      : inv_s2(__ldg(p)) {}
+
+  template <int D>
+  __device__ __forceinline__ void grad(const float (&x)[D],
+                                       float (&g)[D]) const {
+    const float v = x[0], e = expf(-v);
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 1; i < D; ++i) ss += x[i] * x[i];
+    g[0] = -v * inv_s2 + 0.5f * ss * e - 0.5f * (float)(D - 1);
+#pragma unroll
+    for (int i = 1; i < D; ++i) g[i] = -x[i] * e;
+  }
+
+  template <int D>
+  __device__ __forceinline__ float logp(const float (&x)[D]) const {
+    const float v = x[0], emv = expf(-v);
+    float acc = -0.5f * v * v * inv_s2 - 0.5f * (float)(D - 1) * v;
+#pragma unroll
+    for (int i = 1; i < D; ++i) acc = acc - 0.5f * x[i] * x[i] * emv;
+    return acc;
+  }
+};
+
+// The bijectors of models/transforms.py, x = g(y) per coordinate, in the
+// closed forms of their derivatives (the JAX package takes them by AD
+// through jnp.where, transforms.py:218-228). Every built-in bijector
+// soft-saturates its pre-image (transforms.py:79-130): with a the core's
+// half-width, s the saturation scale and u = (|y| - a) / s,
+//   y' = y for |y| <= a, else sign(y) (a + s tanh(u));
+//   dy'/dy = 1 in the core, else sech^2(u) = (1 - tanh u)(1 + tanh u);
+//   log dy'/dy = 0 in the core, else 2 log 2 - 2u - 2 log1p(e^-2u), whose
+//   derivative is -2 tanh(u) sign(y) / s.
+// At |y| = a both take the core's value, as AD through jnp.where does.
+// Codes (models/transforms.py:BIJ_*): 0 identity; 1-3 x = b + w exp(y')
+// (positive: b = 0, w = 1; lower: b = low, w = 1; upper: b = high,
+// w = -1), log|dx/dy| = y' + log dy'/dy; 4 interval, x = b + w sigmoid(y')
+// with b = low, w = high - low, log|dx/dy| = log w - y' - 2 log1p(e^-y')
+// + log dy'/dy. a, s and 1 / s come from the host, the float32 constants
+// of models/transforms.py:_soft_saturate (~39.93 for exp, ~7.971 for
+// sigmoid); the kernels multiply by 1 / s instead of dividing, and tanh is
+// (1 - e) / (1 + e), e = exp(-2u), through __fdividef: no IEEE division
+// (no slow-path call) in a leapfrog.
+struct SoftSat {
+  float a, s, inv_s;
+};
+
+struct BijTable {
+  SoftSat e, g;  // exp's and sigmoid's
+
+  __device__ __forceinline__ explicit BijTable(const float* p)
+      : e{__ldg(p + 0), __ldg(p + 1), __ldg(p + 2)},
+        g{__ldg(p + 3), __ldg(p + 4), __ldg(p + 5)} {}
+};
+
+// y' and its two derivatives; `u` receives u (0 in the core) for the
+// log-Jacobian. The constants come by value: a squash picked at run time
+// by reference would put the table in local memory.
+__device__ __forceinline__ float soft_pre(float a, float s, float inv_s,
+                                          float y, float& dpre,
+                                          float& dpre_ld, float& u) {
+  const float ay = fabsf(y);
+  if (ay <= a) {
+    dpre = 1.0f;
+    dpre_ld = 0.0f;
+    u = 0.0f;
+    return y;
+  }
+  u = (ay - a) * inv_s;
+  const float e = expf(-2.0f * u);
+  const float t = __fdividef(1.0f - e, 1.0f + e);  // tanh(u), u > 0
+  const float sg = y < 0.0f ? -1.0f : 1.0f;
+  dpre = (1.0f - t) * (1.0f + t);
+  dpre_ld = -2.0f * t * sg * inv_s;
+  return sg * (a + s * t);
+}
+
+__device__ __forceinline__ float sigmoid_of(float p) {
+  return __fdividef(1.0f, 1.0f + expf(-p));
+}
+
+// x = g(y), dx/dy and d(log|dx/dy|)/dy: what a gradient needs. The
+// compiler if-converts the families' branches: every lane evaluates the
+// exp family's and the interval's functions, which at L = 40 on the
+// all-positive separable stage measured faster than one expf a
+// coordinate behind a warp vote on the saturation, and faster than the
+// branch-free form with selects (PERF.md, PR 12).
+__device__ __forceinline__ float bij_grad(const BijTable& bt, int code,
+                                          float b, float w, float y,
+                                          float& dx, float& dld) {
+  if (code == 0) {
+    dx = 1.0f;
+    dld = 0.0f;
+    return y;
+  }
+  float dpre, dpre_ld, u;
+  if (code == 4) {
+    const float p = soft_pre(bt.g.a, bt.g.s, bt.g.inv_s, y, dpre, dpre_ld,
+                             u);
+    const float sig = sigmoid_of(p);
+    dx = w * sig * (1.0f - sig) * dpre;
+    dld = (1.0f - 2.0f * sig) * dpre + dpre_ld;
+    return b + w * sig;
+  }
+  const float p = soft_pre(bt.e.a, bt.e.s, bt.e.inv_s, y, dpre, dpre_ld, u);
+  const float ex = expf(p);
+  dx = w * ex * dpre;
+  dld = dpre + dpre_ld;
+  return b + w * ex;
+}
+
+// x = g(y), adding log|dx/dy| to `ld`: what a density needs
+__device__ __forceinline__ float bij_logp(const BijTable& bt, int code,
+                                          float b, float w, float y,
+                                          float& ld) {
+  if (code == 0) return y;
+  float dpre, dpre_ld, u;
+  const bool sig = code == 4;
+  const float a = sig ? bt.g.a : bt.e.a;
+  const float p = soft_pre(a, sig ? bt.g.s : bt.e.s,
+                           sig ? bt.g.inv_s : bt.e.inv_s, y, dpre, dpre_ld,
+                           u);
+  // log sech^2(u) stably; 0 in the core
+  const float pre_ld =
+      fabsf(y) <= a
+          ? 0.0f
+          : 1.3862943611198906f - 2.0f * u - 2.0f * log1pf(expf(-2.0f * u));
+  if (sig) {
+    ld += logf(w) - p - 2.0f * log1pf(expf(-p)) + pre_ld;
+    return b + w * sigmoid_of(p);
+  }
+  ld += p + pre_ld;
+  return b + w * expf(p);
+}
+
+// The transformed target of models/transforms.py:CoordinateTransform.wrap,
+// logp_y(y) = T::logp(g(y)) + sum_d log|g_d'(y_d)| around any functor T
+// above, with g_y = T::grad(x) * dx/dy + dlog|dx/dy|/dy (the JAX package's
+// wrap, transforms.py:371-385). Each coordinate's bijector is a runtime
+// code read with its offset and width into registers, so one instance
+// serves every transform of a (T, D). params: the soft-saturation
+// constants (kHead floats), each coordinate's (code, offset, width), then
+// T's own.
+template <class T, int D>
+struct Transformed {
+  static constexpr int kHead = 6;
+  static constexpr int kFloats = kHead + 3 * D;
+  BijTable bt;
+  int code[D];
+  float b[D], w[D];
+  T inner;
+
+  __device__ __forceinline__ explicit Transformed(const float* p)
+      : bt(p), inner(p + kFloats) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      code[d] = (int)__ldg(p + kHead + 3 * d);
+      b[d] = __ldg(p + kHead + 3 * d + 1);
+      w[d] = __ldg(p + kHead + 3 * d + 2);
+    }
+  }
+
+  template <int E>
+  __device__ __forceinline__ void grad(const float (&y)[E],
+                                       float (&g)[E]) const {
+    static_assert(E == D, "a Transformed functor is built for one D");
+    float x[D], dx[D], dld[D], gx[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      x[d] = bij_grad(bt, code[d], b[d], w[d], y[d], dx[d], dld[d]);
+    }
+    inner.template grad<D>(x, gx);
+#pragma unroll
+    for (int d = 0; d < D; ++d) g[d] = gx[d] * dx[d] + dld[d];
+  }
+
+  template <int E>
+  __device__ __forceinline__ float logp(const float (&y)[E]) const {
+    static_assert(E == D, "a Transformed functor is built for one D");
+    float x[D], ld = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      x[d] = bij_logp(bt, code[d], b[d], w[d], y[d], ld);
+    }
+    return inner.template logp<D>(x) + ld;
   }
 };
 

@@ -1,0 +1,124 @@
+"""The hierarchical eight-schools posterior (Rubin 1981), in PyTorch.
+
+A copy of ``examples/eight_schools_nuts.py`` for the port, which imports
+neither that file nor JAX:
+
+    y_j ~ N(theta_j, sigma_j^2)      j = 1..8   (observed effects and SEs)
+    theta_j = mu + tau eta_j,  eta_j ~ N(0, 1)  (non-centered)
+    mu ~ N(0, 5^2),  tau ~ HalfCauchy(5)
+
+:func:`make_noncentered_target` samples ``[mu, log_tau, eta_1..8]`` with the
+``log_tau`` Jacobian written in (``eight_schools_nuts.py:45-110``), its
+gradient by hand; :func:`make_natural_target` is the same posterior over
+``[mu, tau > 0, eta_1..8]`` with no Jacobian, for ``transform=`` with
+``positive()`` on coordinate 1 (``tests/test_transforms.py:143-155``).
+:func:`exact_posterior_means` gives ``E[mu]`` and ``E[tau]`` by quadrature
+(``eight_schools_nuts.py:131-147``), numpy only. The targets have no CUDA
+functor: they run on the lockstep tiers, as the NUTS half of
+``bench.py:1259-1341`` does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..models.base import Target
+
+#: Rubin (1981): estimated treatment effects and their standard errors
+Y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0], np.float32)
+SIGMA = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0], np.float32)
+MU_PRIOR_STD = 5.0
+TAU_PRIOR_SCALE = 5.0
+#: log(2 / (pi * 5)), the half-Cauchy's normalizing term
+_LOG_HC = math.log(2.0 / (math.pi * TAU_PRIOR_SCALE))
+
+
+def _data(like: torch.Tensor):
+    return (torch.as_tensor(Y, dtype=like.dtype, device=like.device),
+            torch.as_tensor(SIGMA, dtype=like.dtype, device=like.device))
+
+
+def _log_half_cauchy(tau: torch.Tensor) -> torch.Tensor:
+    return _LOG_HC - torch.log1p((tau / TAU_PRIOR_SCALE) ** 2)
+
+
+def _rows(params: torch.Tensor):
+    return params.reshape(-1, params.shape[-1]), params.shape[:-1]
+
+
+def make_noncentered_target() -> Target:
+    """``params = [mu, log_tau, eta_1..8]`` (D = 10), ``theta = mu + tau
+    eta``, the ``+ log_tau`` Jacobian of ``tau = exp(log_tau)`` included.
+    ``logp`` takes ``[..., 10]``; ``grad`` is the example's hand-written
+    ``grad_dc`` (``eight_schools_nuts.py:88-105``) in the batch layout."""
+
+    def logp_batch(params):  # [C, 10] -> [C]
+        y, sig = _data(params)
+        mu, log_tau, eta = params[:, :1], params[:, 1:2], params[:, 2:]
+        tau = torch.exp(log_tau)
+        theta = mu + tau * eta  # [C, 8]
+        loglik = -0.5 * torch.sum(((y - theta) / sig) ** 2, dim=1)
+        logp_eta = -0.5 * torch.sum(eta * eta, dim=1)
+        logp_mu = -0.5 * (mu[:, 0] / MU_PRIOR_STD) ** 2
+        logp_tau = _log_half_cauchy(tau[:, 0]) + log_tau[:, 0]
+        return loglik + logp_eta + logp_mu + logp_tau
+
+    def logp(params):
+        rows, lead = _rows(params)
+        return logp_batch(rows).reshape(lead)
+
+    def grad(params):  # [..., 10] -> [..., 10]
+        rows, _ = _rows(params)
+        y, sig = _data(rows)
+        mu, log_tau, eta = rows[:, :1], rows[:, 1:2], rows[:, 2:]
+        tau = torch.exp(log_tau)
+        r = (y - (mu + tau * eta)) / (sig * sig)  # [C, 8]
+        t2 = (tau / TAU_PRIOR_SCALE) ** 2
+        g_mu = -mu / MU_PRIOR_STD**2 + torch.sum(r, dim=1, keepdim=True)
+        g_lt = (1.0 - 2.0 * t2 / (1.0 + t2)
+                + torch.sum(r * tau * eta, dim=1, keepdim=True))
+        g = torch.cat([g_mu, g_lt, r * tau - eta], dim=1)
+        return g.reshape(params.shape)
+
+    return Target(logp=logp, logp_batch=logp_batch, grad=grad)
+
+
+def make_natural_target() -> Target:
+    """The same posterior over ``[mu, tau > 0, eta_1..8]`` with no
+    Jacobian term: sample it with ``transform=CoordinateTransform({1:
+    positive()}, dim=10)`` (``tests/test_transforms.py:143-155``)."""
+
+    def logp_batch(params):  # [C, 10] -> [C]
+        y, sig = _data(params)
+        mu, tau, eta = params[:, :1], params[:, 1:2], params[:, 2:]
+        theta = mu + tau * eta
+        loglik = -0.5 * torch.sum(((y - theta) / sig) ** 2, dim=1)
+        logp_eta = -0.5 * torch.sum(eta * eta, dim=1)
+        logp_mu = -0.5 * (mu[:, 0] / MU_PRIOR_STD) ** 2
+        return loglik + logp_eta + logp_mu + _log_half_cauchy(tau[:, 0])
+
+    def logp(params):
+        rows, lead = _rows(params)
+        return logp_batch(rows).reshape(lead)
+
+    return Target(logp=logp, logp_batch=logp_batch)
+
+
+def exact_posterior_means() -> tuple[float, float]:
+    """``E[mu | y]`` and ``E[tau | y]`` by 1-D quadrature over the tau
+    marginal: given tau, theta and mu integrate out in closed form
+    (``y_j ~ N(mu, sigma_j^2 + tau^2)``, then mu against its prior),
+    leaving ``p(tau | y)`` on a grid."""
+    tau = np.linspace(1e-4, 80.0, 200_000)
+    v = SIGMA[None, :].astype(np.float64) ** 2 + tau[:, None] ** 2  # [T, 8]
+    a = np.sum(1.0 / v, axis=1) + 1.0 / MU_PRIOR_STD**2
+    b = np.sum(Y[None, :] / v, axis=1)
+    log_lik = (-0.5 * np.sum(np.log(v) + Y[None, :] ** 2 / v, axis=1)
+               - 0.5 * np.log(a) + 0.5 * b * b / a)
+    log_prior = -np.log1p((tau / TAU_PRIOR_SCALE) ** 2)
+    w = np.exp(log_lik + log_prior - np.max(log_lik + log_prior))
+    w /= np.sum(w)
+    return float(np.sum(w * b / a)), float(np.sum(w * tau))

@@ -14,6 +14,7 @@ from .gaussian import (
     gaussian_random_walk_proposal,
     isotropic_gaussian_proposal,
     isotropic_gaussian_target,
+    neal_funnel,
     standard_normal,
 )
 from .mixture import constant_conditional, gaussian_mixture_conditional
@@ -23,10 +24,22 @@ from .precondition import (
     precondition_target,
 )
 from .rosenbrock import rosenbrock2d, rosenbrock_nd
+from .transforms import (
+    Bijector,
+    CoordinateTransform,
+    identity,
+    interval,
+    lower_bounded,
+    positive,
+    transformed_target,
+    upper_bounded,
+)
 
 __all__ = [
+    "Bijector",
     "Categorical",
     "Conditional",
+    "CoordinateTransform",
     "Preconditioner",
     "Proposal",
     "Target",
@@ -37,13 +50,20 @@ __all__ = [
     "gaussian2d",
     "gaussian_mixture_conditional",
     "gaussian_random_walk_proposal",
+    "identity",
+    "interval",
     "isotropic_gaussian_proposal",
     "isotropic_gaussian_target",
+    "lower_bounded",
+    "neal_funnel",
     "poisson_target",
+    "positive",
     "precondition_target",
     "random_walk_int_proposal",
     "rosenbrock2d",
     "rosenbrock_nd",
     "standard_normal",
+    "transformed_target",
+    "upper_bounded",
     "validate_separable",
 ]

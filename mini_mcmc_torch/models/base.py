@@ -51,7 +51,20 @@ class Target:
             floats, before the functor's own.
         cuda_scaled: a target whitened once by a diagonal metric: the
             separable kernel runs ``cuda_functor`` at ``x = s * y``, ``s``
-            the last ``sep_form`` table (``csrc/coord_targets.cuh:Scaled``).
+            the last ``sep_form`` table (``csrc/coord_targets.cuh:Scaled``);
+            over a transformed target the scale multiplies ``y = s z``
+            ahead of the bijectors (``coord_targets.cuh:TransformedCoord``).
+        cuda_transform: the kernels run ``cuda_functor`` at ``x = g(y)``
+            with the log-Jacobian added (``csrc/targets.cuh:Transformed``,
+            set by ``models.transforms.CoordinateTransform.wrap``): each
+            coordinate's ``(code, offset, width)``, ``None`` for an
+            untransformed target. At D <= 4 ``cuda_params`` carry the
+            bijector table (``transforms.transform_params``) ahead of the
+            functor's own, after a whitened target's triangle of ``L``.
+        cuda_unsupported: why the kernels cannot run this target although
+            it may name a functor (a transform with a custom bijector, or
+            one around a whitened or transformed target), or ``None``; the
+            fused tiers raise with it on CUDA.
         sep_form: optional coordinate-sliced form for the separable HMC
             tier (``use_pallas="separable"``): ``(tile_logp, tables)``,
             each table a ``[D]`` or ``[1, D]`` tensor of per-coordinate
@@ -71,6 +84,8 @@ class Target:
     cuda_params: tuple = ()
     cuda_affine: bool = False
     cuda_scaled: bool = False
+    cuda_transform: Optional[tuple] = None
+    cuda_unsupported: Optional[str] = None
     logp_normalized: Optional[Callable] = None
     sep_form: Optional[tuple] = None
 

@@ -152,3 +152,34 @@ def standard_normal() -> Target:
         return -pos
 
     return Target(logp=logp, grad=grad, cuda_functor="standard_normal")
+
+
+def neal_funnel(scale: float = 3.0) -> Target:
+    """Neal's funnel (``mini_mcmc_tpu/models/gaussian.py:231-283``): ``v ~
+    N(0, scale^2)``, ``x_i | v ~ N(0, e^v)``, the state ``[v, x_1, ..,
+    x_{D-1}]``. A hard target whose neck makes NUTS diverge. ``logp``,
+    ``logp_batch`` and the analytic ``grad`` follow the JAX package's
+    batch forms; the kernels run the ``neal_funnel`` functor
+    (``csrc/targets.cuh:NealFunnel``, the JAX ``logp_dc`` term for term)
+    at D in ``KERNEL_DIMS``, its one coefficient ``1 / scale^2``."""
+    inv_s2 = 1.0 / (scale * scale)
+
+    def logp(states):
+        v = states[..., 0]
+        x = states[..., 1:]
+        d = x.shape[-1]
+        return (-0.5 * v * v * inv_s2
+                - 0.5 * torch.sum(x * x, dim=-1) * torch.exp(-v)
+                - 0.5 * d * v)
+
+    def grad(states):
+        v = states[..., :1]
+        x = states[..., 1:]
+        d = x.shape[-1]
+        e = torch.exp(-v)
+        gv = (-v * inv_s2 + 0.5 * torch.sum(x * x, dim=-1, keepdim=True) * e
+              - 0.5 * d)
+        return torch.cat([gv, -x * e], dim=-1)
+
+    return Target(logp=logp, logp_batch=logp, grad=grad,
+                  cuda_functor="neal_funnel", cuda_params=(inv_s2,))

@@ -189,6 +189,15 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
     ``AFFINE_MAX_DIM`` (the inner target's params alone above it), and
     ``cuda_scaled`` marks a diagonal metric on an unwhitened target: the
     one form the separable kernel runs (the scale as its last table).
+
+    Over a transformed target (``models/transforms.py``) the metric acts
+    on the unconstrained coordinates, the JAX package's order
+    (``mini_mcmc_tpu/samplers.py:85-112``): the kernels run
+    ``Whitened<Transformed<T>>``, ``L``'s triangle ahead of the bijector
+    table, and under ``cuda_scaled`` the separable kernel multiplies
+    ``y = s z`` before the bijectors. Two ``L``s merge only when both lie
+    outside the transform; a target the kernels cannot run
+    (``cuda_unsupported``) keeps its ``cuda_params``.
     """
     logp_batch = grad = logp_normalized = None
 
@@ -218,7 +227,7 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
         sep_form = (sep_tile_logp, tuple(inner_tabs) + (metric.scale,))
 
     cuda_params, d = tuple(target.cuda_params), metric.dim
-    if d <= AFFINE_MAX_DIM:
+    if d <= AFFINE_MAX_DIM and target.cuda_unsupported is None:
         affine = metric
         if target.cuda_affine:
             # x = L_in (L_out y): one lower-triangular L_in @ L_out
@@ -237,6 +246,8 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
         cuda_params=cuda_params,
         cuda_affine=True,
         cuda_scaled=metric.kind == "diag" and not target.cuda_affine,
+        cuda_transform=target.cuda_transform,
+        cuda_unsupported=target.cuda_unsupported,
         logp_normalized=logp_normalized,
         sep_form=sep_form,
     )

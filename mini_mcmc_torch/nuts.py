@@ -9,10 +9,12 @@ convention (row 0 is the position at collection start;
 
 ``metric=`` whitens the target (``models/precondition.py``) on every
 tier, the kernels through their affine wrapper; ``reconditioned`` and
-``warmed_up`` estimate the metric from the chain ensemble.
-``run_progress`` samples with a live progress display and returns the
-cube with its ``RunStats``. Not ported yet (ROADMAP.md, Queue 1):
-``transform=``.
+``warmed_up`` estimate the metric from the chain ensemble. ``transform=``
+samples a natural-coordinates density on its unconstrained wrap
+(``models/transforms.py``) on every tier, the kernels through their
+transformed instances, the metric (if any) on the unconstrained
+coordinates. ``run_progress`` samples with a live progress display and
+returns the cube with its ``RunStats``.
 """
 
 from __future__ import annotations
@@ -60,7 +62,13 @@ class NUTS(_KernelSampler):
             with mass matrix ``(L L^T)^-1``); ``initial_positions``, the
             samples and ``positions`` stay in x, ``state``, ``step_size``
             and ``kernel_target`` are the whitened ones.
-        transform: not ported yet; raises.
+        transform: optional :class:`~mini_mcmc_torch.models.transforms.
+            CoordinateTransform` (``mini_mcmc_tpu/nuts.py:68-99``):
+            ``target`` is a density in natural coordinates, the chains run
+            on its unconstrained wrap; ``initial_positions`` (inside every
+            constrained coordinate's range), the samples and
+            ``positions`` stay natural, ``state`` and ``kernel_target``
+            are unconstrained (and whitened under a metric).
         device: where the chains run, ``"cuda"`` by default (raises
             without a GPU); ``"cpu"`` runs the plain twins.
     """
@@ -79,9 +87,11 @@ class NUTS(_KernelSampler):
         self.target_accept_p = target_accept_p
         self.max_depth = max_depth
         self.warmup_max_depth = warmup_max_depth
+        self.transform = transform
         self._ctor = dict(target_accept_p=target_accept_p,
                           max_depth=max_depth, use_pallas=use_pallas,
-                          warmup_max_depth=warmup_max_depth, device=device)
+                          warmup_max_depth=warmup_max_depth,
+                          transform=transform, device=device)
         positions = initial_positions_on(initial_positions, device)
         kernel_target, positions_map, positions, self.metric = (
             _wrap_sampler_target(target, positions, transform, metric))
@@ -106,8 +116,9 @@ class NUTS(_KernelSampler):
 
     def reconditioned(self, kind: str = "diag", *, seed=None) -> "NUTS":
         """A new NUTS continuing from the current positions, whitened by a
-        metric estimated from the chain ensemble
-        (``mini_mcmc_tpu/nuts.py:152-170``). Run an adaptation first, so
+        metric estimated from the chain ensemble, unconstrained under a
+        transform (``mini_mcmc_tpu/nuts.py:152-170``). Run an adaptation
+        first, so
         that the ensemble is in the typical set. The new sampler starts at
         ``epsilon = -1``: its first ``run`` finds a step size and dual
         averages again in the whitened space. Without ``seed`` its

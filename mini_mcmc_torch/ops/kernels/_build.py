@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 #: Target.cuda_functor names -> the ids of csrc/targets.cuh
 FUNCTORS = {"rosenbrock_nd": 0, "gaussian2d": 1, "poisson": 2,
-            "gaussian_mixture_1d": 3}
+            "gaussian_mixture_1d": 3, "neal_funnel": 4}
 #: Target.cuda_functor names of the separable HMC tier's coordinate
 #: functors -> (id in csrc/coord_targets.cuh, number of [1, D] tables)
 SEP_FUNCTORS = {"standard_normal": (0, 0), "isotropic_gaussian": (1, 0),
@@ -47,9 +47,13 @@ PT_MAX_TEMPS = 16
 PROPOSALS = {"isotropic_gaussian": 0, "random_walk_int": 1}
 #: Conditional.cuda_functor names -> the ids of csrc/conditionals.cuh
 CONDITIONALS = {"gaussian_mixture": 0}
-#: dims instantiated by MM_DISPATCH in csrc/hmc_common.cuh (Rosenbrock at
-#: all three, the Gaussian at 2)
+#: dims instantiated by MM_DISPATCH in csrc/hmc_common.cuh (Rosenbrock and
+#: the funnel at all three, the Gaussian at 2), each plain, transformed,
+#: whitened and whitened over transformed
 KERNEL_DIMS = (2, 3, 4)
+#: the head of a transformed target's bijector table: (a, s, 1 / s) of
+#: each soft saturation (models/transforms.py:soft_saturation_constants)
+TRANSFORM_HEAD = 6
 #: (target, proposal, state dtype, D) instantiated by csrc/mh_multistep.cu
 MH_INSTANCES = (
     ("gaussian2d", "isotropic_gaussian", torch.float32, 2),
@@ -87,21 +91,44 @@ def form_id(name: str | None, table: dict, kind: str) -> int:
     return table[name]
 
 
+def supported(target) -> None:
+    """Raise for a target whose wrappers the kernels cannot run
+    (``Target.cuda_unsupported``: a custom bijector, or a transform around
+    a whitened or transformed target)."""
+    if target.cuda_unsupported is not None:
+        raise ValueError(
+            f"use_pallas cannot run this target on CUDA: "
+            f"{target.cuda_unsupported}. Use use_pallas=False.")
+
+
 def functor_id(target) -> int:
     """The kernel id of ``target``'s built-in CUDA density; raises for a
-    target that has none (the kernels cannot run a Python density)."""
-    return form_id(target.cuda_functor, FUNCTORS, "Target")
+    target that has none (the kernels cannot run a Python density) or
+    whose wrappers they cannot run."""
+    fid = form_id(target.cuda_functor, FUNCTORS, "Target")
+    supported(target)
+    return fid
 
 
-def unwhitened(target, what: str) -> None:
-    """Raise for a whitened target (``Target.cuda_affine``): only Kernels
-    1-4 (the affine wrapper) and Kernel 7 (a diagonal metric) run one, and
-    ``what`` would read ``L`` as the functor's own coefficients."""
-    if target.cuda_affine:
+def instance_flags(target) -> int:
+    """The ``affine`` argument of Kernels 1-4: bit 0 a whitened target
+    (``mm::Whitened``), bit 1 a transformed one (``mm::Transformed``);
+    both run ``Whitened<Transformed<T, D>, D>`` (``MM_AFFINE``)."""
+    supported(target)
+    return int(target.cuda_affine) | (2 * (target.cuda_transform
+                                           is not None))
+
+
+def plain_functor(target, what: str) -> None:
+    """Raise for a whitened or transformed target: only Kernels 1-4 and
+    the separable kernel run those wrappers, and ``what`` would read
+    ``L`` or the bijector table as the functor's own coefficients."""
+    supported(target)
+    if target.cuda_affine or target.cuda_transform is not None:
         raise ValueError(
-            f"{what} with a whitened target (metric=) does not run on "
-            "CUDA: only Kernels 1-4 and the separable kernel run the "
-            "metric's wrapper")
+            f"{what} with a whitened (metric=) or transformed "
+            "(transform=) target does not run on CUDA: only Kernels 1-4 "
+            "and the separable kernel run those wrappers")
 
 
 def proposal_id(proposal) -> int:
@@ -143,11 +170,14 @@ def params_ptr(target, device,
     device once per target and device), or ``None`` for a functor without
     coefficients. ``functor_dim``: read them for a kernel that runs the
     functor alone at that D, past a whitened target's triangle of ``L``
-    (which it carries at D <= ``KERNEL_DIMS``' largest only)."""
+    and a transformed one's bijector table (which it carries at D <=
+    ``KERNEL_DIMS``' largest only)."""
     params = tuple(target.cuda_params)
-    if (functor_dim is not None and target.cuda_affine
-            and functor_dim <= max(KERNEL_DIMS)):
-        params = params[functor_dim * (functor_dim + 1) // 2:]
+    if functor_dim is not None and functor_dim <= max(KERNEL_DIMS):
+        if target.cuda_affine:
+            params = params[functor_dim * (functor_dim + 1) // 2:]
+        if target.cuda_transform is not None:
+            params = params[TRANSFORM_HEAD + 3 * functor_dim:]
     if not params:
         return None
     return _params_on(params, torch.device(device)).data_ptr()
@@ -225,8 +255,8 @@ def lib() -> ctypes.CDLL:
         + [_LL, _LL, _P],
         "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
         + [_LL, _LL, _P],
-        "mm_hmc_separable": [_P] * 5 + [_I] * 7 + [_U] * 4 + [_P] * 4,
-        "mm_hmc_separable_step": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
+        "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
+        "mm_hmc_separable_step": [_P] * 9 + [_I] * 7 + [_U] * 4 + [_P] * 4,
         "mm_hmc_separable_clusters": [_I] * 4 + [_P],
         "mm_pt_multistep": [_P] * 5 + [_I] * 7 + [_U] * 3 + [_P] * 4
         + [_LL, _LL, _P],

@@ -74,13 +74,18 @@ def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
     logp_o = torch.empty((c,), dtype=pos.dtype, device=pos.device)
     lib = _build.lib()
     leapfrog_trajectory.launches += 1
+    leapfrog_trajectory.transformed_launches += (
+        target.cuda_transform is not None)
     _build.check(lib.mm_leapfrog_f32(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), eps.data_ptr(),
         _build.params_ptr(target, pos.device), n_leapfrog, c, d, tid,
-        int(target.cuda_affine), pos_o.data_ptr(), mom_o.data_ptr(), logp_o.data_ptr(),
-        grad_o.data_ptr(), _build.stream_ptr(pos.device),
+        _build.instance_flags(target), pos_o.data_ptr(), mom_o.data_ptr(),
+        logp_o.data_ptr(), grad_o.data_ptr(), _build.stream_ptr(pos.device),
     ))
     return pos_o, mom_o, logp_o, grad_o
 
 
 leapfrog_trajectory.launches = 0
+#: the launches of the transformed instances (``mm::Transformed``, a
+#: metric's wrapper around it included), also counted in ``launches``
+leapfrog_trajectory.transformed_launches = 0

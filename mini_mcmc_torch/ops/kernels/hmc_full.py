@@ -85,10 +85,12 @@ def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
     seed_lo, seed_hi = rng.seed_words(seed)
     lib = _build.lib()
     hmc_multistep.launches += 1
+    hmc_multistep.transformed_launches += (
+        target.cuda_transform is not None)
     _build.check(lib.mm_hmc_multistep_f32(
         pos.data_ptr(), logp.data_ptr(), grad.data_ptr(), eps.data_ptr(),
         _build.params_ptr(target, pos.device), k, n_leapfrog, c, d, tid,
-        int(target.cuda_affine), seed_lo, seed_hi, step0 & 0xFFFFFFFF,
+        _build.instance_flags(target), seed_lo, seed_hi, step0 & 0xFFFFFFFF,
         pos_o.data_ptr(), logp_o.data_ptr(), grad_o.data_ptr(), hist_ptr,
         hist_sk, hist_sc, _build.stream_ptr(pos.device),
     ))
@@ -96,3 +98,6 @@ def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
 
 
 hmc_multistep.launches = 0
+#: the launches of the transformed instances (``mm::Transformed``, a
+#: metric's wrapper around it included), also counted in ``launches``
+hmc_multistep.transformed_launches = 0

@@ -39,7 +39,13 @@ takes it by AD inside each tile. A target whitened by a diagonal metric
 (``Target.cuda_scaled``) runs the functor's scaled instance
 (``coord_targets.cuh:Scaled``, the scale folded into the precision), the
 scale its last table, as the TPU kernel runs the whitened ``sep_form``
-with ``n_tables`` one larger.
+with ``n_tables`` one larger. A transformed target
+(``Target.cuda_transform``) runs ``coord_targets.cuh:TransformedCoord``,
+which reads each coordinate's bijector (code, offset, width) from a
+packed ``[3, D]`` table built once per target (:func:`_bij_table`) and,
+under a diagonal metric, the scale from the last ``sep_form`` table; the
+twins evaluate the transformed ``sep_form`` (one mask table per bijector
+group) as the JAX package's.
 
 What bounds it on the H100: bytes at L = 10 (82 MB per step at C = 1,024,
 D = 10,000), instructions at L = 40; no ``[C, D]`` momentum or gradient is
@@ -56,6 +62,7 @@ import functools
 
 import torch
 
+from ...models.transforms import soft_saturation_constants
 from . import _build, rng
 
 _MASK = 0xFFFFFFFF
@@ -82,23 +89,62 @@ def sep_fused(dim: int, threads: int = SEP_THREADS) -> bool:
 
 def sep_functor(target) -> tuple[int, int]:
     """``(functor id, number of tables)`` of ``target``'s coordinate
-    functor. A target whitened once by a diagonal metric
+    functor (:func:`sep_instance` without its flags)."""
+    return sep_instance(target)[:2]
+
+
+def sep_instance(target) -> tuple[int, int, int]:
+    """``(functor id, number of tables, flags)`` of ``target``'s
+    coordinate functor, ``flags`` the instance's bits: 1 a diagonal
+    metric, 2 a transform. A target whitened once by a diagonal metric
     (``Target.cuda_scaled``) runs the functor's scaled instance, its
-    tables the functor's own and the scale. Raises ``ValueError`` for a
-    target without a functor and for any other whitened target (a dense
-    metric, or one whitened twice)."""
+    tables the functor's own and the scale. A transformed target
+    (``Target.cuda_transform``) runs ``TransformedCoord``, its tables the
+    functor's own, one mask per bijector group (read by the twin only) and,
+    under a diagonal metric, the scale. Raises ``ValueError`` for a target
+    without a functor, for one the kernels cannot run
+    (``Target.cuda_unsupported``) and for any other whitened target (a
+    dense metric, or one whitened twice)."""
     fid, n_tables = _build.form_id(target.cuda_functor, _build.SEP_FUNCTORS,
                                    "Target")
-    if not target.cuda_affine:
-        return fid, n_tables
-    n_whitened = len(target.sep_forms()[1])
-    if not target.cuda_scaled or n_whitened != n_tables + 1:
+    _build.supported(target)
+    scaled = int(bool(target.cuda_affine))
+    transformed = target.cuda_transform is not None
+    n_rows = (len(target.sep_forms()[1]) if scaled or transformed
+              else n_tables)
+    # a transform adds at least one mask table
+    want = n_tables + scaled + transformed
+    if ((scaled and not target.cuda_scaled) or n_rows < want
+            or (not transformed and n_rows != want)):
         raise ValueError(
             "HMC(use_pallas='separable') runs a whitened target on CUDA "
             "only when one diagonal metric whitens it once (its sep_form "
-            f"tables: the functor's {n_tables} and the scale); got "
-            f"{n_whitened} tables, cuda_scaled={target.cuda_scaled}")
-    return fid, n_tables + 1
+            f"tables: the functor's {n_tables}, a transform's masks and the "
+            f"scale); got {n_rows} tables, cuda_scaled={target.cuda_scaled}")
+    return fid, n_rows, scaled | 2 * transformed
+
+
+@functools.lru_cache(maxsize=16)
+def _bij_table(target, device: torch.device) -> torch.Tensor:
+    """A transformed target's bijector table on ``device``: its ``[3, D]``
+    rows (each coordinate's code, offset and width, float32), then the six
+    soft-saturation constants (``transforms.soft_saturation_constants``)
+    and two zeros. Built once per target and device."""
+    rows = torch.tensor(target.cuda_transform, dtype=torch.float64).T
+    head = torch.tensor(soft_saturation_constants() + (0.0, 0.0),
+                        dtype=torch.float64)
+    return torch.cat([rows.reshape(-1), head]).to(device, torch.float32)
+
+
+def _wrapper_ptrs(target, tables, flags: int):
+    """The bijector table and scale pointers of a launch: ``(bij, scale,
+    bij tensor)``, ``None`` where the instance reads none; a transformed
+    target's scale is the last row of ``tables``."""
+    if not flags & 2:
+        return None, None, None
+    bij = _bij_table(target, tables.device)
+    scale = tables[-1].data_ptr() if flags & 1 else None
+    return bij.data_ptr(), scale, bij
 
 
 def _tile_grad(fn, x, tables):
@@ -183,8 +229,8 @@ hmc_separable_step_plain.calls = 0
 
 def _check(target, pos, eps, tables, mom, threads: int):
     """The kernel's contract on its inputs; returns ``(functor id,
-    scaled)``."""
-    fid, n_tables = sep_functor(target)
+    flags)``."""
+    fid, n_tables, flags = sep_instance(target)
     if pos.dim() != 2 or pos.dtype != torch.float32:
         raise ValueError("the separable kernel takes float32 [C, D] "
                          f"positions; got {pos.dtype} {tuple(pos.shape)}")
@@ -206,7 +252,7 @@ def _check(target, pos, eps, tables, mom, threads: int):
     if threads % 32 or not 32 <= threads <= SEP_THREADS:
         raise ValueError(f"threads must be a multiple of 32 in [32, "
                          f"{SEP_THREADS}]; got {threads}")
-    return fid, bool(target.cuda_scaled)
+    return fid, flags
 
 
 def _vec(d: int, *tensors) -> int:
@@ -220,21 +266,24 @@ def _trajectory(target, pos, eps, n_leapfrog, seed, step, tables, mom,
                 chain0, threads):
     """Launch the trajectory-only form: ``(pos_prop, parts [3, C, tiles],
     mom_prop)``."""
-    fid, scaled = _check(target, pos, eps, tables, mom, threads)
+    fid, flags = _check(target, pos, eps, tables, mom, threads)
     c, d = pos.shape
     pos_o = torch.empty_like(pos)
     mom_o = None if mom is None else torch.empty_like(pos)
     parts = pos.new_empty((3, c, sep_tiles(d, threads)))
     seed_lo, seed_hi = rng.seed_words(seed)
+    bij, scale, bij_t = _wrapper_ptrs(target, tables, flags)
     lib = _build.lib()
     hmc_separable.launches += 1
-    hmc_separable.scaled_launches += int(scaled)
+    hmc_separable.scaled_launches += flags & 1
+    hmc_separable.transformed_launches += flags >> 1
     _build.check(lib.mm_hmc_separable(
         pos.data_ptr(), None if mom is None else mom.data_ptr(),
         eps.data_ptr(), _build.params_ptr(target, pos.device, d),
-        tables.data_ptr() if tables.shape[0] else None, c, d, n_leapfrog,
-        fid, int(scaled), threads,
-        _vec(d, pos, pos_o, *tables, mom, mom_o), chain0 & _MASK, seed_lo,
+        tables.data_ptr() if tables.shape[0] else None, bij, scale, c, d,
+        n_leapfrog, fid, flags, threads,
+        _vec(d, pos, pos_o, *tables, mom, mom_o, bij_t), chain0 & _MASK,
+        seed_lo,
         seed_hi, step & _MASK, pos_o.data_ptr(),
         None if mom_o is None else mom_o.data_ptr(), parts.data_ptr(),
         _build.stream_ptr(pos.device),
@@ -265,10 +314,12 @@ hmc_separable.launches = 0
 #: the launches of the scaled (diagonal-metric) instances, also counted
 #: in ``launches``
 hmc_separable.scaled_launches = 0
+#: the launches of the transformed instances, also counted in ``launches``
+hmc_separable.transformed_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _clusters(device: torch.device, fid: int, scaled: bool, threads: int,
+def _clusters(device: torch.device, fid: int, flags: int, threads: int,
               n_tiles: int) -> int:
     """The fused form's clusters that ``device`` holds at once for this
     instance and block size (``cudaOccupancyMaxActiveClusters``); raises
@@ -276,12 +327,12 @@ def _clusters(device: torch.device, fid: int, scaled: bool, threads: int,
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         _build.check(_build.lib().mm_hmc_separable_clusters(
-            fid, int(scaled), threads, n_tiles, ctypes.byref(out)))
+            fid, flags, threads, n_tiles, ctypes.byref(out)))
     if out.value < 1:
         raise RuntimeError(
             f"the device holds no cluster of {n_tiles} blocks of {threads} "
-            f"threads of the separable kernel (functor {fid}, scaled "
-            f"{scaled})")
+            f"threads of the separable kernel (functor {fid}, flags "
+            f"{flags})")
     return out.value
 
 
@@ -318,22 +369,25 @@ def hmc_separable_step(target, pos, logp, eps, n_leapfrog: int, seed: int,
         if u is None:
             u = accept_uniforms(c, step, seed, pos.device, chain0)
         return _accept(pos, logp, pos_prop, logp_prop, ke0, ke1, u)
-    fid, scaled = _check(target, pos, eps, tables, mom, threads)
-    _clusters(pos.device, fid, scaled, threads, n_tiles)
+    fid, flags = _check(target, pos, eps, tables, mom, threads)
+    _clusters(pos.device, fid, flags, threads, n_tiles)
     pos_o = torch.empty_like(pos)
     logp_o = torch.empty_like(logp)
     alpha_o = torch.empty_like(logp)
     seed_lo, seed_hi = rng.seed_words(seed)
+    bij, scale, bij_t = _wrapper_ptrs(target, tables, flags)
     lib = _build.lib()
     hmc_separable_step.launches += 1
-    hmc_separable_step.scaled_launches += int(scaled)
+    hmc_separable_step.scaled_launches += flags & 1
+    hmc_separable_step.transformed_launches += flags >> 1
     _build.check(lib.mm_hmc_separable_step(
         pos.data_ptr(), None if mom is None else mom.data_ptr(),
         None if u is None else u.data_ptr(), logp.data_ptr(),
         eps.data_ptr(), _build.params_ptr(target, pos.device, d),
-        tables.data_ptr() if tables.shape[0] else None, c, d, n_leapfrog,
-        fid, int(scaled), threads,
-        _vec(d, pos, pos_o, *tables, mom), chain0 & _MASK, seed_lo, seed_hi,
+        tables.data_ptr() if tables.shape[0] else None, bij, scale, c, d,
+        n_leapfrog, fid, flags, threads,
+        _vec(d, pos, pos_o, *tables, mom, bij_t), chain0 & _MASK, seed_lo,
+        seed_hi,
         step & _MASK, pos_o.data_ptr(), logp_o.data_ptr(),
         alpha_o.data_ptr(), _build.stream_ptr(pos.device),
     ))
@@ -346,3 +400,6 @@ hmc_separable_step.launches = 0
 #: the fused launches of the scaled (diagonal-metric) instances, also
 #: counted in ``launches``
 hmc_separable_step.scaled_launches = 0
+#: the fused launches of the transformed instances, also counted in
+#: ``launches``
+hmc_separable_step.transformed_launches = 0

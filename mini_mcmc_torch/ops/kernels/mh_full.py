@@ -66,7 +66,7 @@ def mh_instance(target, proposal, dtype, dim: int) -> tuple[int, int, int]:
     ``ValueError`` for a pair without a CUDA form or not instantiated at
     ``dtype`` and ``dim``, naming the instances that exist. Resolved once
     per (forms, dtype, D), then read from a cache on every launch."""
-    _build.unwhitened(target, "the MH kernel")
+    _build.plain_functor(target, "the MH kernel")
     return _mh_ids(target.cuda_functor, proposal.cuda_functor, dtype, dim)
 
 

@@ -258,10 +258,12 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
     stream = _build.stream_ptr(pos.device)
     lib = _build.lib()
     nuts_step.launches += 1
+    nuts_step.transformed_launches += (
+        target.cuda_transform is not None)
     _build.check(lib.mm_nuts_step_f32(
         pos.data_ptr(), eps.data_ptr(), _build.params_ptr(target, pos.device),
         depth_limit, max_depth, k0, k1, step & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-        c, d, tid, int(target.cuda_affine),
+        c, d, tid, _build.instance_flags(target),
         _counter(pos.device, stream).data_ptr(), blocks,
         None if stats is None else stats.data_ptr(), new_pos.data_ptr(),
         alpha.data_ptr(), n_alpha.data_ptr(), diverged.data_ptr(),
@@ -274,3 +276,6 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
 
 
 nuts_step.launches = 0
+#: the launches of the transformed instances (``mm::Transformed``, a
+#: metric's wrapper around it included), also counted in ``launches``
+nuts_step.transformed_launches = 0

@@ -242,11 +242,14 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
     launched = (ctypes.c_int * 3)()
     lib = _build.lib()
     subtree.launches += 1
+    subtree.transformed_launches += (
+        target.cuda_transform is not None)
     _build.check(lib.mm_nuts_subtree_f32(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), logu.data_ptr(),
         v.data_ptr(), eps.data_ptr(), joint0.data_ptr(), active.data_ptr(),
         _build.params_ptr(target, pos.device), j, max_depth, seed0, seed1, c,
-        d, tid, int(target.cuda_affine), end_pos.data_ptr(), end_mom.data_ptr(), end_grad.data_ptr(),
+        d, tid, _build.instance_flags(target), end_pos.data_ptr(),
+        end_mom.data_ptr(), end_grad.data_ptr(),
         prop_pos.data_ptr(), prop_grad.data_ptr(), prop_logp.data_ptr(),
         n.data_ptr(), s.data_ptr(), alpha.data_ptr(), n_alpha.data_ptr(),
         diverged.data_ptr(), pos.device.index,
@@ -260,3 +263,6 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
 
 
 subtree.launches = 0
+#: the launches of the transformed instances (``mm::Transformed``, a
+#: metric's wrapper around it included), also counted in ``launches``
+subtree.transformed_launches = 0

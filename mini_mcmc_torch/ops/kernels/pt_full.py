@@ -71,7 +71,7 @@ def pt_instance(target, n_temps: int, dim: int) -> int:
     """The kernel's target id; raises ``ValueError`` for a target without
     a CUDA form, a (target, D) not instantiated or a ladder longer than
     ``_build.PT_MAX_TEMPS``, naming what exists."""
-    _build.unwhitened(target, "the tempering kernel")
+    _build.plain_functor(target, "the tempering kernel")
     return _pt_id(target.cuda_functor, n_temps, dim)
 
 

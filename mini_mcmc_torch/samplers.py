@@ -25,12 +25,13 @@ from typing import Optional
 import torch
 
 from .models.base import validate_separable
-from .ops.adapt import dual_average_step_size
 from .models.precondition import (
     Preconditioner,
     estimate_preconditioner,
     precondition_target,
 )
+from .models.transforms import CoordinateTransform
+from .ops.adapt import dual_average_step_size
 from .ops.gibbs import gibbs_kernel
 from .ops.hmc import hmc_kernel
 from .ops.kernels._build import functor_id
@@ -65,18 +66,64 @@ def _generator(seed: Optional[int]) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def _check_transformed_inits(transform, y) -> None:
+    """Reject initial positions outside the transform's range
+    (``mini_mcmc_tpu/samplers.py:53-82``): a bijector's inverse gives NaN
+    or an infinity there, and the chain would cache a NaN density and
+    freeze. One host check at construction names the offenders. (Values
+    exactly on a boundary pass: the saturating inverses snap them just
+    inside.)"""
+    bad = ~torch.isfinite(y)
+    if not bool(bad.any()):
+        return
+    chains, dims = torch.nonzero(bad.reshape(y.shape[0], -1),
+                                 as_tuple=True)
+    shown = ", ".join(
+        f"(chain {c}, coordinate {d}: {transform._table[d].name})"
+        for c, d in list(zip(chains.tolist(), dims.tolist()))[:5])
+    raise ValueError(
+        f"initial positions map to non-finite unconstrained values at "
+        f"{int(bad.sum())} entries: they lie outside the transform's range "
+        f"(e.g. a negative value for a positive() coordinate, or a value "
+        f"above `high` for interval()). First offenders: {shown}. Initial "
+        "positions are given in NATURAL coordinates and must lie inside "
+        "every constrained coordinate's range.")
+
+
+def _transform_of(transform, positions):
+    """``transform`` checked: ``None`` for none or the identity, else a
+    :class:`~mini_mcmc_torch.models.transforms.CoordinateTransform` of
+    the positions' D; anything else raises ``ValueError``."""
+    if transform is None:
+        return None
+    if not isinstance(transform, CoordinateTransform):
+        raise ValueError("transform must be a CoordinateTransform (models."
+                         f"transforms); got {type(transform).__name__}")
+    if transform.dim != positions.shape[-1]:
+        raise ValueError(f"a D={transform.dim} transform for positions of "
+                         f"D={positions.shape[-1]}")
+    return None if transform.is_identity else transform
+
+
 def _wrap_sampler_target(target, positions, transform, metric):
-    """The gradient samplers' coordinate wrap
-    (``mini_mcmc_tpu/samplers.py:85-112``, its metric branch): returns
-    ``(kernel_target, positions_map, kernel_positions, metric)``, the
-    whitened target, the map from its coordinates back to the user's
-    (``None`` without a metric), the initial positions whitened, and the
-    metric on the positions' device. ``transform`` is not ported yet."""
+    """The samplers' coordinate wrap (``mini_mcmc_tpu/samplers.py:
+    85-112``): the transform first (natural -> unconstrained,
+    ``models/transforms.py``), then the metric's whitening of the
+    unconstrained coordinates (``models/precondition.py``). Returns
+    ``(kernel_target, positions_map, kernel_positions, metric)``: the
+    target the kernels run, the map from its coordinates back to the
+    user's natural ones (``None`` without either wrap), the initial
+    positions in its coordinates, and the metric on the positions'
+    device."""
+    kernel_target, positions_map = target, None
+    transform = _transform_of(transform, positions)
     if transform is not None:
-        raise ValueError("transform= is not ported yet (ROADMAP.md, "
-                         "Queue 1 item 8)")
+        kernel_target = transform.wrap(target)
+        positions_map = transform.to_x
+        positions = transform.to_y(positions)
+        _check_transformed_inits(transform, positions)
     if metric is None:
-        return target, None, positions, None
+        return kernel_target, positions_map, positions, None
     if not isinstance(metric, Preconditioner):
         raise ValueError("metric must be a Preconditioner (models."
                          f"precondition); got {type(metric).__name__}")
@@ -84,18 +131,36 @@ def _wrap_sampler_target(target, positions, transform, metric):
         raise ValueError(f"a D={metric.dim} metric for positions of D="
                          f"{positions.shape[-1]}")
     metric = metric.to(positions.device)
-    return (precondition_target(target, metric), metric.to_x,
+    if positions_map is None:
+        positions_map = metric.to_x
+    else:
+        def positions_map(p, _m=metric.to_x, _t=positions_map):
+            return _t(_m(p))
+    return (precondition_target(kernel_target, metric), positions_map,
             metric.to_y(positions), metric)
 
 
 def _unconstrained_positions(sampler) -> torch.Tensor:
-    """The ensemble in unwhitened coordinates, what
+    """The ensemble in unconstrained, unwhitened coordinates, what
     ``estimate_preconditioner`` must see (``mini_mcmc_tpu/samplers.py:
-    115-123``)."""
+    115-123``): the kernels run, and a metric whitens, the transform's
+    y-space, so estimating from the natural ``positions`` would whiten the
+    wrong space."""
     pos = sampler.state.positions
     if sampler.metric is not None:
         pos = sampler.metric.to_x(pos)
     return pos
+
+
+def _no_fused_transform(sampler: str, use_pallas, transformed: bool) -> None:
+    """MH and tempering take a transform on their lockstep tiers only: the
+    fused kernels (5 and 8) have no transformed instance yet (ROADMAP.md,
+    Queue 1)."""
+    if use_pallas and transformed:
+        raise ValueError(
+            f"{sampler}(use_pallas={use_pallas!r}) does not run a "
+            "transform= target: its fused kernel has no transformed "
+            "instance yet (ROADMAP.md, Queue 1). Use use_pallas=False.")
 
 
 def _float32_only(sampler: str, use_pallas, positions) -> None:
@@ -122,14 +187,14 @@ class _KernelSampler:
         self.state = init_fn(initial_positions)
         self._step_fn = step_fn
         self._gen = _generator(seed)
-        # positions_map: the state's (whitened) coordinates -> the user's,
-        # applied to every recorded row and to `positions`
+        # positions_map: the state's (unconstrained, whitened) coordinates
+        # -> the user's, applied to every recorded row and to `positions`
         self._positions_map = positions_map
-        positions_of = recorded or self._positions_of
         recorded = recorded or _default_positions_of
+        self._recorded = recorded
         # one step a call: the runner of run_progress's sub-K tail, and
         # NUTS's chunked path
-        self._simple_runner = make_simple_runner(step_fn, positions_of,
+        self._simple_runner = make_simple_runner(step_fn, self._positions_of,
                                                  recorded)
         self._progress_block_size = 1
         block_fn = getattr(step_fn, "block_fn", None)
@@ -145,9 +210,10 @@ class _KernelSampler:
             self._runner = self._simple_runner
 
     def _positions_of(self, state) -> torch.Tensor:
+        pos = self._recorded(state)
         if self._positions_map is None:
-            return state.positions
-        return self._positions_map(state.positions)
+            return pos
+        return self._positions_map(pos)
 
     def seed(self, seed: int):
         """Reseed the sampler (chainable)."""
@@ -172,7 +238,7 @@ class _KernelSampler:
     @property
     def positions(self) -> torch.Tensor:
         """``[n_chains, dim]`` in the user's coordinates (the state's own
-        are whitened under a metric)."""
+        are unconstrained under a transform, whitened under a metric)."""
         return self._positions_of(self.state)
 
     @property
@@ -229,8 +295,13 @@ class MetropolisHastings(_KernelSampler):
     (``"cuda"`` by default; it raises without a GPU); pass ``device="cpu"``
     for the plain tier and the kernel's plain twin on the CPU.
 
-    :meth:`tuned` adapts the proposal scale by dual averaging. Not ported
-    yet (ROADMAP.md, Queue 1): ``transform=``, which raises.
+    :meth:`tuned` adapts the proposal scale by dual averaging.
+    ``transform``: optional :class:`~mini_mcmc_torch.models.transforms.
+    CoordinateTransform`; ``target`` is then a density in natural
+    coordinates and the proposal walks the unconstrained ones, while
+    ``initial_positions``, the samples and ``positions`` stay natural. It
+    runs on the plain tier: ``use_pallas`` with a transform raises
+    ``ValueError`` (Kernel 5 has no transformed instance yet).
     ``pallas_interpret`` and ``validate_dc`` have no counterpart.
 
     Example:
@@ -249,24 +320,30 @@ class MetropolisHastings(_KernelSampler):
                  seed: Optional[int] = None, use_pallas=False,
                  steps_per_call: int = 1, transform=None, *,
                  device="cuda"):
-        if transform is not None:
-            raise ValueError("MetropolisHastings(transform=...) is not "
-                             "ported yet (ROADMAP.md, Queue 1)")
         self.target = target
         self.proposal = proposal
         #: proposal scale factor against the proposal first constructed
         #: (1.0 unless this sampler came from :meth:`tuned`)
         self.scale_factor = 1.0
         self._ctor = dict(use_pallas=use_pallas,
-                          steps_per_call=steps_per_call, device=device)
+                          steps_per_call=steps_per_call, transform=transform,
+                          device=device)
         positions = initial_positions_on(initial_positions, device)
-        init_fn, step_fn = mh_kernel(target, proposal, use_pallas=use_pallas,
+        kernel_target, positions_map, positions, _ = _wrap_sampler_target(
+            target, positions, transform, None)
+        self.transform = transform
+        _no_fused_transform("MetropolisHastings", use_pallas,
+                            positions_map is not None)
+        self.kernel_target = kernel_target
+        init_fn, step_fn = mh_kernel(kernel_target, proposal,
+                                     use_pallas=use_pallas,
                                      steps_per_call=steps_per_call)
         if use_pallas and positions.is_cuda and positions.dim() == 2:
             # a pair the kernel cannot run: raise now
             mh_instance(target, proposal, positions.dtype,
                         positions.shape[1])
-        super().__init__(init_fn, step_fn, positions, seed)
+        super().__init__(init_fn, step_fn, positions, seed,
+                         positions_map=positions_map)
 
     #: random-walk optimal acceptance rate (Roberts, Gelman & Gilks 1997)
     _default_target_accept = 0.234
@@ -294,12 +371,16 @@ class MetropolisHastings(_KernelSampler):
                 "proposals provide one")
         if target_accept is None:
             target_accept = self._default_target_accept
-        step_eps = mh_step_alpha(self.target, self.proposal.scaled)
+        # the kernel's target: under a transform the state is
+        # unconstrained (the JAX package tunes on the natural target there,
+        # mini_mcmc_tpu/samplers.py:340, a fault not copied)
+        step_eps = mh_step_alpha(self.kernel_target, self.proposal.scaled)
         state, factor, _ = dual_average_step_size(
             step_eps, self.state, self._next_key(), n_adapt, 1.0,
             target_accept)
         new = MetropolisHastings(self.target, self.proposal.scaled(factor),
-                                 state.positions, seed=seed, **self._ctor)
+                                 self._positions_of(state), seed=seed,
+                                 **self._ctor)
         # cumulative: self.proposal is already scaled by self.scale_factor
         new.scale_factor = self.scale_factor * factor
         if seed is None:
@@ -340,8 +421,16 @@ class HMC(_KernelSampler):
     the whitened target. Under ``"separable"`` a diagonal metric runs
     Kernel 7's scaled instance on CUDA (the scale as one more coordinate
     table) and its twin on the CPU; a dense metric couples the coordinates
-    and the tier's validation rejects it. ``transform`` is not ported yet
-    and raises.
+    and the tier's validation rejects it.
+
+    ``transform``: optional :class:`~mini_mcmc_torch.models.transforms.
+    CoordinateTransform`; ``target`` is then a density in natural
+    coordinates (e.g. ``tau > 0``, no Jacobian terms) and the sampler runs
+    on its unconstrained wrap (``models/transforms.py``), on every tier:
+    the kernels through their transformed instances. ``initial_positions``
+    (which must lie inside every constrained coordinate's range), the
+    samples and ``positions`` stay natural. A metric whitens the
+    unconstrained coordinates.
 
     :meth:`tuned` dual-averages the step size, :meth:`reconditioned`
     estimates a metric from the ensemble, and :meth:`warmed_up` composes
@@ -356,9 +445,11 @@ class HMC(_KernelSampler):
         self.target = target
         self.step_size = step_size
         self.n_leapfrog = n_leapfrog
+        self.transform = transform
         self._ctor = dict(step_size=step_size, n_leapfrog=n_leapfrog,
                           use_pallas=use_pallas, jitter=jitter,
-                          steps_per_call=steps_per_call, device=device)
+                          steps_per_call=steps_per_call, transform=transform,
+                          device=device)
         positions = initial_positions_on(initial_positions, device)
         kernel_target, positions_map, positions, self.metric = (
             _wrap_sampler_target(target, positions, transform, metric))
@@ -396,18 +487,17 @@ class HMC(_KernelSampler):
         ``exp(log_eps_bar)`` is frozen. ``target_accept`` defaults to the
         algorithm's optimum (0.651 for HMC, 0.574 for MALA). The step size
         is in the kernel's (whitened) coordinates; the positions go back
-        to x. Without ``seed`` the new sampler's generator is seeded from
-        this sampler's, so a seeded workflow stays reproducible."""
+        to the user's. Without ``seed`` the new sampler's generator is
+        seeded from this sampler's, so a seeded workflow stays
+        reproducible."""
         if target_accept is None:
             target_accept = self._default_target_accept
         state, eps, _ = dual_average_step_size(
             self._step_fn.step_eps, self.state, self._next_key(), n_adapt,
             self._ctor["step_size"], target_accept)
-        positions = (state.positions if self.metric is None
-                     else self.metric.to_x(state.positions))
         ctor = dict(self._ctor, step_size=eps)
-        new = type(self)._construct(self.target, positions, self.metric,
-                                    seed, ctor)
+        new = type(self)._construct(self.target, self._positions_of(state),
+                                    self.metric, seed, ctor)
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -549,8 +639,13 @@ class ParallelTempering(_KernelSampler):
     (``_build.PT_INSTANCES``) and at most ``_build.PT_MAX_TEMPS`` rungs,
     and raises ``ValueError`` otherwise. Runs on ``device`` (``"cuda"`` by
     default); ``device="cpu"`` runs the plain tier and the kernel's twin.
-    ``transform=`` is not ported yet and raises; ``pallas_interpret`` and
-    ``validate_dc`` have no counterpart.
+    ``transform``: optional :class:`~mini_mcmc_torch.models.transforms.
+    CoordinateTransform`; the replicas walk the unconstrained space (the
+    tempered densities are ``beta`` times the wrapped logp) and the cold
+    cube and ``positions`` stay natural. It runs on the plain tier:
+    ``use_pallas`` with a transform raises ``ValueError`` (Kernel 8 has no
+    transformed instance yet). ``pallas_interpret`` and ``validate_dc``
+    have no counterpart.
     """
 
     def __init__(self, target, initial_positions,
@@ -558,29 +653,31 @@ class ParallelTempering(_KernelSampler):
                  n_inner: int = 1, seed: Optional[int] = None,
                  steps_per_call: int = 1, use_pallas=False, transform=None,
                  *, device="cuda"):
-        if transform is not None:
-            raise ValueError("ParallelTempering(transform=...) is not "
-                             "ported yet (ROADMAP.md, Queue 1)")
         self.target = target
+        self.transform = transform
         self.betas = tuple(float(b) for b in (
             geometric_betas(8) if betas is None else betas))
         self._ctor = dict(proposal_std=proposal_std, n_inner=n_inner,
                           steps_per_call=steps_per_call,
-                          use_pallas=use_pallas, device=device)
+                          use_pallas=use_pallas, transform=transform,
+                          device=device)
         positions = initial_positions_on(initial_positions, device)
+        kernel_target, positions_map, positions, _ = _wrap_sampler_target(
+            target, positions, transform, None)
+        _no_fused_transform("ParallelTempering", use_pallas,
+                            positions_map is not None)
+        self.kernel_target = kernel_target
         init_fn, step_fn = tempering_kernel(
-            target, self.betas, proposal_std=proposal_std, n_inner=n_inner,
-            steps_per_call=steps_per_call, use_pallas=use_pallas)
+            kernel_target, self.betas, proposal_std=proposal_std,
+            n_inner=n_inner, steps_per_call=steps_per_call,
+            use_pallas=use_pallas)
         if use_pallas and positions.is_cuda and positions.dim() == 2:
             # a target or ladder the kernel cannot run: raise now
             pt_instance(target, len(self.betas), positions.shape[1])
             _float32_only("ParallelTempering", use_pallas, positions)
-        super().__init__(init_fn, step_fn, positions, seed, recorded=_cold)
-
-    @property
-    def positions(self) -> torch.Tensor:
-        """The cold rung, ``[n_chains, dim]``."""
-        return _cold(self.state)
+        # the cold rung, mapped to natural coordinates under a transform
+        super().__init__(init_fn, step_fn, positions, seed, recorded=_cold,
+                         positions_map=positions_map)
 
     @property
     def n_chains(self) -> int:

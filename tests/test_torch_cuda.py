@@ -1194,7 +1194,8 @@ def test_cuda_separable_step_layouts_and_refusals(cuda):
     out = torch.empty_like(x)
     code = _build.lib().mm_hmc_separable_step(
         x.data_ptr(), None, None, lp.data_ptr(), eps.data_ptr(), None,
-        tables.data_ptr(), 1024, 10_000, 10, 2, 0, 32, 1, 0, 1, 0, 0,
+        tables.data_ptr(), None, None, 1024, 10_000, 10, 2, 0, 32, 1, 0, 1,
+        0, 0,
         out.data_ptr(), lp.data_ptr(), lp.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     assert code != 0  # 40 tiles: no cluster of that size
@@ -1343,3 +1344,310 @@ def test_cuda_quantile_above_the_cap(cuda):
     s = summary(pm.T.reshape(1, -1, 2).to(cuda))
     assert all(bool(torch.isfinite(v).all()) for v in (
         s.rhat, s.ess_bulk, s.ess_tail, s.quantiles, s.mcse_sd))
+
+
+# the transformed instances of Kernels 1-4 (csrc/targets.cuh:Transformed):
+# each (target, D) of MM_DISPATCH under a mixed transform, plain and
+# whitened over the transform by a dense metric
+TRANSFORMED = [(name, d, kind) for name, d in (("rosenbrock", 2),
+                                               ("rosenbrock", 3),
+                                               ("rosenbrock", 4),
+                                               ("gaussian2d", 2),
+                                               ("funnel", 3))
+               for kind in (None, "dense")]
+TRANSFORMED_IDS = [f"{n}{d}-{k or 'plain'}" for n, d, k in TRANSFORMED]
+
+
+def _transformed(name, d, kind, c, cuda, seed):
+    """A transformed (and whitened) target and its unconstrained (and
+    whitened) states: positive() on coordinate 0, interval(-1, 3) on
+    coordinate 1 (upper_bounded(4) for the Gaussian), lower_bounded(-2)
+    on a third; natural states near the mode."""
+    from mini_mcmc_torch.models import (
+        CoordinateTransform,
+        interval,
+        lower_bounded,
+        neal_funnel,
+        positive,
+        upper_bounded,
+    )
+
+    table = {0: positive(), 1: interval(-1.0, 3.0)}
+    if d > 2:
+        table[2] = lower_bounded(-2.0)
+    if name == "rosenbrock":
+        t, x = rosenbrock_nd(), np.abs(_state(c, d, seed)[0])
+    elif name == "gaussian2d":
+        t = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+        x = np.abs(_nuts_state(c, seed)[0]) * [1.0, -1.0] + [0.0, 1.0]
+        table = {0: positive(), 1: upper_bounded(4.0)}
+    else:  # the funnel: v > 0 and x_1 in (-1, 3)
+        t = neal_funnel(3.0)
+        g = np.random.default_rng(seed)
+        x = np.abs(g.standard_normal((c, d))) * 0.5 + 0.2
+        table = {0: positive(), 1: interval(-1.0, 3.0)}
+    tf = CoordinateTransform(table, dim=d)
+    w = tf.wrap(t)
+    y = tf.to_y(torch.from_numpy(np.asarray(x, np.float32)).to(cuda))
+    assert torch.isfinite(y).all() and w.cuda_transform is not None
+    if kind is not None:
+        pre = _metric(d, kind, seed, 0.5).to(cuda)
+        w, y = precondition_target(w, pre), pre.to_y(y)
+    return w, y.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, d, kind", TRANSFORMED, ids=TRANSFORMED_IDS)
+def test_cuda_transformed_leapfrog_and_multistep_match_plain(cuda, name, d,
+                                                             kind):
+    c = 4096
+    t, y = _transformed(name, d, kind, c, cuda, seed=90 + d)
+    from mini_mcmc_torch.ops.kernels import _build
+
+    assert _build.instance_flags(t) == (3 if kind else 2)
+    m = torch.from_numpy(_state(c, d, seed=91 + d)[1]).to(cuda)
+    lp, g = t.batch_logp_and_grad(y)
+    eps = torch.tensor([0.005], device=cuda)
+    n = leapfrog_trajectory.launches
+    got = leapfrog_trajectory(t, y, m, g, eps, 8)
+    assert leapfrog_trajectory.launches == n + 1
+    want = leapfrog_trajectory_plain(t, y, m, g, eps[0], 8)
+    for a, b in zip(got, want):  # atol scaled as test_torch_models's
+        a, b = a.reshape(c, -1), b.reshape(c, -1)
+        scale = b.abs().amax(1, keepdim=True)
+        ok = (a - b).abs() <= ATOL + RTOL * (b.abs() + scale)
+        assert _share(ok.all(1)) >= 0.999
+    ks = torch.full((4,), 0.005, device=cuda)
+    hk = torch.empty((4, c, d), device=cuda)
+    hp = torch.empty_like(hk)
+    pk, lk, gk = hmc_multistep(t, y, lp, g, ks, 6, 1234, 0, hk)
+    pp, lpp, gp = hmc_multistep_plain(t, y, lp, g, ks, 6, 1234, 0, hp)
+    g_atol = ATOL + RTOL * gp.abs().amax(dim=1, keepdim=True)
+    near = (hk - hp).abs() <= ATOL + RTOL * hp.abs()
+    agree = near.all(2).all(0) & ((lk - lpp).abs() <= ATOL
+                                  + RTOL * lpp.abs())
+    agree &= ((gk - gp).abs() <= g_atol + RTOL * gp.abs()).all(1)
+    assert _share(agree) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, d, kind", TRANSFORMED, ids=TRANSFORMED_IDS)
+def test_cuda_transformed_nuts_kernels_match_plain(cuda, name, d, kind):
+    c, j = 8192, 4
+    t, y = _transformed(name, d, kind, c, cuda, seed=100 + d)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    m = torch.randn((c, d), generator=gen, device=cuda)
+    lp, g = t.batch_logp_and_grad(y)
+    eps = torch.full((c,), 0.01 if name == "rosenbrock" else 0.1,
+                     device=cuda)
+    joint0 = lp - 0.5 * (m * m).sum(1)
+    logu = joint0 - torch.empty(c, device=cuda).exponential_(generator=gen)
+    v = torch.where(torch.rand(c, generator=gen, device=cuda) < 0.5, -1,
+                    1).to(torch.int32)
+    active = torch.rand(c, generator=gen, device=cuda) < 0.75
+    args = (t, y, m, g, logu, v, j, eps, joint0, active, (12345, -6789), 10)
+    got, want = subtree(*args), subtree_plain(*args)
+    same = ((got.n == want.n) & (got.s == want.s)
+            & (got.n_alpha == want.n_alpha) & (got.diverged == want.diverged))
+    for part in (active, ~active):
+        assert _share(same[part]) >= 0.999
+    s = same & want.s
+    for a, b in zip(got[:6], want[:6]):
+        a, b = a.reshape(c, -1), b.reshape(c, -1)
+        scale = b.abs().amax(1, keepdim=True)
+        ok = ((a - b).abs() <= ATOL + RTOL * (b.abs() + scale)).all(1)
+        assert _share(ok | ~s) >= 0.999
+    n = nuts_step.launches
+    got = nuts_step(t, y, eps, 10, 0xC0FFEE, 17, 10)
+    assert nuts_step.launches == n + 1
+    want = nuts_step_plain(t, y, eps, 10, 0xC0FFEE, 17, 10)
+    same_pos = (got[0] - want[0]).abs().le(ATOL + RTOL * want[0].abs())
+    assert _share(same_pos.all(1)) >= 0.999
+    for a, b in zip(got[1:4], want[1:4]):
+        assert _share((a - b).abs() <= ATOL + RTOL * b.abs()) >= 0.999
+    assert _share(got[4] == want[4]) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_cuda_neal_funnel_kernels_match_plain(cuda, d):
+    """The NealFunnel functor through Kernels 1-4 against the twins on the
+    funnel's batch forms, from states in its body (v near 0)."""
+    from mini_mcmc_torch.models import neal_funnel
+
+    c = 8192
+    t = neal_funnel(3.0)
+    g = np.random.default_rng(110 + d)
+    x = torch.from_numpy((0.5 * g.standard_normal((c, d))).astype(
+        np.float32)).to(cuda)
+    m = torch.from_numpy(g.standard_normal((c, d)).astype(np.float32))
+    m = m.to(cuda)
+    lp, gr = t.batch_logp_and_grad(x)
+    eps1 = torch.tensor([0.05], device=cuda)
+    for a, b in zip(leapfrog_trajectory(t, x, m, gr, eps1, 8),
+                    leapfrog_trajectory_plain(t, x, m, gr, eps1[0], 8)):
+        ok = (a - b).abs() <= ATOL + RTOL * b.abs()
+        assert _share(ok.reshape(c, -1).all(1)) >= 0.999
+    ks = eps1.repeat(4)
+    pk, lk, _ = hmc_multistep(t, x, lp, gr, ks, 6, 77, 0)
+    pp, lpp, _ = hmc_multistep_plain(t, x, lp, gr, ks, 6, 77, 0)
+    ok = ((pk - pp).abs() <= ATOL + RTOL * pp.abs()).all(1)
+    assert _share(ok & ((lk - lpp).abs() <= ATOL + RTOL * lpp.abs())) >= 0.999
+    eps = torch.full((c,), 0.2, device=cuda)
+    got = nuts_step(t, x, eps, 10, 0xF00D, 3, 10)
+    want = nuts_step_plain(t, x, eps, 10, 0xF00D, 3, 10)
+    assert _share((got[0] - want[0]).abs().le(
+        ATOL + RTOL * want[0].abs()).all(1)) >= 0.999
+    assert _share(got[4] == want[4]) >= 0.999
+    joint0 = lp - 0.5 * (m * m).sum(1)
+    logu = joint0 - 1.0
+    v = torch.ones(c, dtype=torch.int32, device=cuda)
+    active = torch.ones(c, dtype=torch.bool, device=cuda)
+    for j in range(4):
+        args = (t, x, m, gr, logu, v, j, eps, joint0, active, (5, 6), 10)
+        sg, sp = subtree(*args), subtree_plain(*args)
+        assert _share((sg.n == sp.n) & (sg.s == sp.s)) >= 0.999
+
+
+def _sep_transformed(which, d, c, cuda, seed, scaled=False):
+    """(transformed target, unconstrained states, logp, tables) on the
+    separable tier: ``positive()`` on every coordinate of a standard
+    normal (the [sep_constrained] stage's), or a mixed table of five
+    blocks (identity, positive, lower_bounded(-1), upper_bounded(2),
+    interval(0, 1)) over the standard normal, the sigma table or the
+    isotropic Gaussian; ``scaled``: whitened by a diagonal metric."""
+    from mini_mcmc_torch.models import (
+        CoordinateTransform,
+        identity,
+        interval,
+        lower_bounded,
+        positive,
+        upper_bounded,
+    )
+
+    g = np.random.default_rng(seed)
+    z = torch.from_numpy(g.standard_normal((c, d)).astype(np.float32))
+    z = z.to(cuda)
+    if which == "positive":
+        tf = CoordinateTransform({i: positive() for i in range(d)}, dim=d)
+        t, x = standard_normal(), z.abs()
+    else:
+        kinds = [identity(), positive(), lower_bounded(-1.0),
+                 upper_bounded(2.0), interval(0.0, 1.0)]
+        block = torch.arange(d, device=cuda) * 5 // d
+        tf = CoordinateTransform({i: kinds[i * 5 // d] for i in range(d)},
+                                 dim=d)
+        sigma = {"mixed": torch.ones(d, device=cuda),
+                 "mixed_sigma": torch.logspace(-1, 1, d).to(cuda),
+                 "mixed_iso": torch.full((d,), 1.5, device=cuda)}[which]
+        t = {"mixed": standard_normal(),
+             "mixed_sigma": _sigma_target(sigma),
+             "mixed_iso": isotropic_gaussian_target(1.5)}[which]
+        # natural states from the target folded into each block's range
+        x = sigma * z
+        x = torch.where(block == 1, x.abs(), x)
+        x = torch.where(block == 2, -1.0 + (x + 1.0).abs(), x)
+        x = torch.where(block == 3, 2.0 - (2.0 - x).abs(), x)
+        x = torch.where(block == 4, x.abs().clamp(0.01, 0.99), x)
+    w = tf.wrap(t)
+    y = tf.to_y(x)
+    assert torch.isfinite(y).all()
+    if scaled:
+        pre = Preconditioner("diag", scale=torch.from_numpy(
+            (0.5 + g.random(d)).astype(np.float32)).to(cuda))
+        w = precondition_target(w, pre)
+        y = pre.to_y(y)
+    y = y.contiguous()
+    tables = torch.cat([s.reshape(1, -1).to(cuda).float()
+                        for s in w.sep_forms()[1]])
+    return w, y, w.batch_logp(y).float(), tables
+
+
+SEP_TRANSFORMED = [("positive", 10_000, False), ("mixed", 10_000, False),
+                   ("mixed", 10_000, True), ("mixed_sigma", 4_000, False),
+                   ("mixed_sigma", 4_000, True), ("mixed_iso", 1_001, False),
+                   ("mixed_iso", 37, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,d,scaled", SEP_TRANSFORMED)
+def test_cuda_transformed_separable_matches_plain(cuda, which, d, scaled):
+    """Kernel 7's transformed instances (csrc/coord_targets.cuh:
+    TransformedCoord, the scale multiplying y = s z ahead of the bijectors
+    under a metric) against the twins on the transformed sep_form: the
+    trajectory per chain against float64, its sums at rtol 1e-5, the draws
+    under another grid; the fused step's decisions against float64, as
+    the plain instances are held (float4 and scalar paths)."""
+    from mini_mcmc_torch.ops.kernels.hmc_sep import sep_instance
+
+    c, n_leapfrog, seed, step = 512, 10, 0x5EED_7A, 5
+    t, y, lp, tables = _sep_transformed(which, d, c, cuda, 120 + d, scaled)
+    assert sep_instance(t)[2] == 2 | scaled
+    eps = torch.tensor([0.05], device=cuda)
+    n = hmc_separable.transformed_launches
+    got = hmc_separable(t, y, eps, n_leapfrog, seed, step, tables)
+    assert hmc_separable.transformed_launches == n + 1
+    ref = hmc_separable_plain(t, y.double(), eps.double(), n_leapfrog, seed,
+                              step, tables.double())
+    torch.cuda.synchronize()
+    near = (got[0] - ref[0]).abs() <= ATOL + RTOL * ref[0].abs()
+    assert _share(near.all(1)) >= 0.999
+    for a, b in zip(got[1:4], ref[1:4]):  # the sums, against float64
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    small = hmc_separable(t, y, eps, n_leapfrog, seed, step, tables,
+                          threads=64)
+    assert torch.equal(small[0], got[0])
+    # the fused step
+    args = (t, y, lp, eps, n_leapfrog, seed, step, tables)
+    n = hmc_separable_step.transformed_launches
+    step_got = hmc_separable_step(*args)
+    assert hmc_separable_step.transformed_launches == n + 1
+    step_ref, tie, u = _sep_ref(*args)
+    _hold_step(step_got, step_ref, tie, u, y)
+
+
+@pytest.mark.cuda
+def test_cuda_transformed_samplers_and_refusals(cuda):
+    """transform= on the fused tiers launches the transformed instances;
+    the targets the kernels cannot run raise by name at construction."""
+    from mini_mcmc_torch.models import (
+        Bijector,
+        CoordinateTransform,
+        positive,
+    )
+
+    t = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+    tf = CoordinateTransform({0: positive()}, dim=2)
+    x0 = tf.to_x(torch.randn((1024, 2), device=cuda))
+    n = nuts_step.launches
+    nuts = NUTS(t, x0, 0.8, use_pallas="full", transform=tf).seed(3)
+    s = nuts.run(64, 64)
+    assert nuts_step.launches == n + 127 and (s[..., 0] > 0).all()
+    n = hmc_multistep.launches
+    h = HMC(t, x0, 0.3, 8, use_pallas="full", steps_per_call=8,
+            transform=tf).seed(3)
+    assert (h.run(64, 64)[..., 0] > 0).all()
+    assert hmc_multistep.launches == n + 16
+    custom = CoordinateTransform({0: Bijector(torch.exp, torch.log,
+                                              lambda y: y)}, dim=2)
+    for tier in (True, "full"):
+        with pytest.raises(ValueError, match="custom Bijector"):
+            HMC(t, x0, 0.3, 8, use_pallas=tier, transform=custom)
+        with pytest.raises(ValueError, match="custom Bijector"):
+            NUTS(t, x0, 0.8, use_pallas=tier, transform=custom)
+    HMC(t, x0, 0.3, 8, transform=custom).run(4)  # the plain tier runs it
+    with pytest.raises(ValueError, match="whitened"):
+        over = tf.wrap(precondition_target(t, _metric(2, "diag", 1)))
+        HMC(over, torch.randn((64, 2), device=cuda), 0.3, 8,
+            use_pallas="full")
+    with pytest.raises(ValueError, match="transformed instance"):
+        MetropolisHastings(t, isotropic_gaussian_proposal(0.5), x0,
+                           use_pallas="full", transform=tf)
+    sep = CoordinateTransform({i: positive() for i in range(64)}, dim=64)
+    xs = sep.to_x(torch.randn((256, 64), device=cuda))
+    n = hmc_separable_step.transformed_launches
+    hs = HMC(standard_normal(), xs, 0.2, 8, use_pallas="separable",
+             transform=sep).seed(1)
+    assert (hs.run(16, 16) > 0).all()
+    assert hmc_separable_step.transformed_launches == n + 32

@@ -26,8 +26,8 @@ for info in pkgutil.walk_packages(mini_mcmc_torch.__path__,
     names.append(info.name)
 import chip_smoke  # its import block; main() runs only as a script
 
-# the MH, Gibbs, separable HMC, tempering, metric and run-surface slices
-# among them
+# the MH, Gibbs, separable HMC, tempering, metric, run-surface and
+# transform slices among them
 assert {"mini_mcmc_torch.ops.mh", "mini_mcmc_torch.ops.gibbs",
         "mini_mcmc_torch.progress", "mini_mcmc_torch.stream",
         "mini_mcmc_torch.models.precondition",
@@ -37,7 +37,9 @@ assert {"mini_mcmc_torch.ops.mh", "mini_mcmc_torch.ops.gibbs",
         "mini_mcmc_torch.models.mixture",
         "mini_mcmc_torch.ops.tempering",
         "mini_mcmc_torch.ops.kernels.hmc_sep",
-        "mini_mcmc_torch.ops.kernels.pt_full"} <= set(names), names
+        "mini_mcmc_torch.ops.kernels.pt_full",
+        "mini_mcmc_torch.models.transforms",
+        "mini_mcmc_torch.examples.eight_schools"} <= set(names), names
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mini_mcmc_tpu")
@@ -52,4 +54,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr[-4000:]
     n_modules, loaded = out.stdout.split(maxsplit=1)
     assert loaded.strip() == "[]"
-    assert int(n_modules) >= 31  # every module of the package was imported
+    assert int(n_modules) >= 40  # every module of the package was imported
