@@ -179,8 +179,31 @@ Phases, one line each (every check raises on failure):
     transformed instance), and the times;
 30. eight schools' NUTS half (``[eight_schools]``, bench.py:1259-1341) on
     the lockstep tier, which runs no kernel: ``warmed_up(300, "diag")``,
-    ``run(1024, 256)`` twice, the bench's gates, leapfrogs per draw and
-    ESS/s.
+    ``run(64, 256)`` (the whitened step size's adaptation) and the timed
+    ``run(1024, 256)``, the bench's gates, leapfrogs per draw and ESS/s.
+
+31. the MH stage with x0 > 0 (``[mh_constrained]``: ``MetropolisHastings(
+    ..., use_pallas="full", transform=CoordinateTransform({0:
+    positive()}))``, 65,536 chains, K = 16, ``run(2048)`` twice): x0's
+    half-normal moments, x1 ~ N(0, 1), R-hat, the MH stage's ESS floor,
+    x0 > 0, Kernel 5's transformed instance 128 times a run, the recorded
+    row's ``to_x`` on [65536, 2]; that instance against its twin and the
+    times (``[mh_kernel]``, ``[mh_constrained_times]``);
+32. the tempering stage under ``interval(-24, 24)`` (``[pt_constrained]``,
+    cold scale 0.1 in y): the four gates, every draw inside the interval,
+    Kernel 8's transformed instance 128 times a run; that instance against
+    its twin and the times (``[pt_kernel_transformed]``);
+33. bench.py's four lockstep samplers at their stages' sizes, no kernel
+    (``[chees]``/``[chees_adapted]``, ``[ensemble]``, ``[slice]``,
+    ``[elliptical]``: bench.py:777-820, 822-856, 911-942, 944-1002):
+    warm-up, a burn-in run (the slice's 256 sweeps, the elliptical
+    stage's 1,024 steps) and the timed run,
+    each stage's gates, ESS/s,
+    draws/s, the host's loop tests a step and the idle share of a profiled
+    128-step run;
+34. eight schools' ChEES half (``[eight_schools_chees]``,
+    bench.py:1342-1372): ``warmed_up(500)``, ``run(1024, 256)`` twice, the
+    bench's moment gates, leapfrogs a draw, ESS/s.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -337,6 +360,39 @@ SEP_C_MEAN, SEP_C_VAR = math.sqrt(2.0 / math.pi), 1.0 - 2.0 / math.pi
 # eight schools' NUTS half (bench.py:1259-1341): 4,096 chains, D = 10,
 # target_accept 0.9, warmed_up(300, "diag"), run(1024, 256) twice
 ES8_CHAINS, ES8_COLLECT, ES8_DISCARD, ES8_ADAPT = 4096, 1024, 256, 300
+# its first run re-adapts the step size in the whitened space over its
+# 256 discarded steps and then collects 64 draws, not 1,024: the draws of
+# that run are not gated, and the cut keeps the script within its time
+# budget (~60 s of the lockstep tier's host calls)
+ES8_FIRST_COLLECT = 64
+# its ChEES half (bench.py:1342-1372): warmed_up(500), the same runs
+ES8_CHEES_ADAPT = 500
+
+# the MH and tempering stages under a transform: x0 > 0 on the MH stage
+# (x0 half-normal: E = sqrt(2 / pi), Var = 1 - 2 / pi), interval(-24, 24)
+# on the tempering stage at a cold scale of 0.1 in y: dx/dy ~ 10.7 at the
+# modes, so 0.1 in y is about the bench's 1.0 in x (1.0 in y passes the
+# gates too; tests/measure_transform_stages.py, both packages)
+HALF_NORMAL_MEAN = math.sqrt(2.0 / math.pi)
+HALF_NORMAL_VAR = 1.0 - 2.0 / math.pi
+PT_C_STD = 0.1
+# bench.py's bench_beyond stages of the four lockstep samplers (no kernel):
+# ChEES-HMC (:777-820), the ensemble (:822-856), coordinate slice
+# (:911-942) and elliptical slice (:944-1002)
+CHEES_CHAINS, CHEES_COLLECT, CHEES_ADAPT = 65536, 2048, 256
+ENS_CHAINS, ENS_COLLECT, ENS_WALKERS, ENS_K = 65536, 2048, 64, 16
+SLICE_CHAINS, SLICE_COLLECT, SLICE_K = 65536, 2048, 16
+# the slice stage's burn-in: 256 sweeps, not bench.py's 2,048 (its burn
+# compiles XLA too): the chains mix in ~5 sweeps (ESS 0.21 a draw on the
+# H100) and each sweep costs ~18 ms of host calls
+SLICE_BURN = 256
+GP_DIM, GP_CHAINS, GP_COLLECT, GP_K, GP_NOISE = 64, 4096, 2048, 16, 0.3
+# the elliptical stage's burn-in: 1,024 steps, not bench.py's 2,048 (~11 s
+# of host calls a 1,024): six of its slowest coordinates' autocorrelation
+# times (ESS 0.006 a draw on the H100) from the prior mean
+GP_BURN = 1024
+# the steps of a profiled run that reads these stages' idle share
+LOCKSTEP_PROFILE = 128
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over 3.35 TB/s and its operations over the issue
@@ -399,6 +455,10 @@ OPS = {
     "funnel4_grad": 24,  # the funnel's gradient at D = 4: expf, the sum of
                          # squares, five products
     "funnel4_leapfrog": 16,  # the kicks and drifts of four coordinates
+    "bij_logp_interval": 40,  # an interval coordinate's x and log-Jacobian
+                              # (targets.cuh:bij_logp): the core compare,
+                              # the sigmoid's expf and reciprocal, log1pf,
+                              # logf(w) and the adds
 }
 
 
@@ -469,6 +529,18 @@ def max_abs_err(kernel, plain, mask=None) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def device_ms_per_launch(launch, name: str, reps: int = 50) -> float:
+    """A kernel's device milliseconds a launch alone: ``reps``
+    back-to-back launches under ``torch.profiler``, the device time of the
+    kernels whose name holds ``name`` over the launches it recorded."""
+    _, _, by_name = device_profile(lambda: [launch() for _ in range(reps)],
+                                   expect=name)
+    n = sum(c for k, (c, _) in by_name.items() if name in k)
+    us = sum(u for k, (_, u) in by_name.items() if name in k)
+    check(f"profiled {name} launches", 0 < n <= reps, n)
+    return us / n * 1e-3
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls after one warm-up."""
     fn()
@@ -511,7 +583,8 @@ TWINS = {
 #: the kernels with transformed instances (a transform=, models/
 #: transforms.py): each counts those launches in ``transformed_launches``
 TRANSFORMED_KERNELS = ("hmc_multistep", "leapfrog_trajectory", "nuts_step",
-                       "nuts_subtree", "hmc_separable", "hmc_separable_step")
+                       "nuts_subtree", "hmc_separable", "hmc_separable_step",
+                       "mh_multistep", "pt_multistep")
 
 
 def reset_counts() -> None:
@@ -1633,15 +1706,26 @@ def within_tol(a, b) -> torch.Tensor:
     return ((a - b).abs() <= MH_ATOL + MH_RTOL * b.abs()) | (a == b)
 
 
+def logp_within(got, want, rounding) -> torch.Tensor:
+    """``within_tol`` widened by twice ``rounding``, a transformed
+    density's float32 rounding (``CoordinateTransform.density_rounding``)
+    that a kernel and its twin each stay within."""
+    return ((got - want).double().abs()
+            <= MH_ATOL + MH_RTOL * want.double().abs() + 2 * rounding)
+
+
 def phase_mh_kernel(mh, label: str, k_steps: int, seed: int) -> dict:
     """Kernel 5 against its twin for one K-step block from the path's
-    equilibrium state, same key: positions, logp and accepts (a row that
-    moved) per chain."""
+    equilibrium state, same key, on the sampler's kernel target (the
+    transformed instance under a transform, its logp held within
+    ``logp_within``): positions, logp and accepts (a row that moved) per
+    chain."""
     s = mh.state
     hk = torch.empty((k_steps,) + tuple(s.positions.shape),
                      dtype=s.positions.dtype, device=s.positions.device)
     hp = torch.empty_like(hk)
-    args = (mh.target, mh.proposal, s.positions, s.logp, seed, 0, k_steps)
+    args = (mh.kernel_target, mh.proposal, s.positions, s.logp, seed, 0,
+            k_steps)
     outk = mh_multistep(*args, hk)
     outp = mh_multistep_plain(*args, hp)
     torch.cuda.synchronize()
@@ -1663,6 +1747,11 @@ def phase_mh_kernel(mh, label: str, k_steps: int, seed: int) -> dict:
             (hk == hp).all(dim=2).all(dim=0).float().mean()),
     }
     agree = same_acc & pos_ok
+    if mh.transform is not None:  # the transformed density's rounding
+        logp_ok = logp_within(outk[1], outp[1],
+                              mh.transform.density_rounding(mh.target,
+                                                            outp[0]))
+        shares["logp"] = float((same_acc & logp_ok).float().mean())
     err = max(max_abs_err(hk.transpose(0, 1).double(),
                           hp.transpose(0, 1).double(), agree),
               max_abs_err(outk[1], outp[1], agree))
@@ -1677,7 +1766,9 @@ def phase_mh_kernel(mh, label: str, k_steps: int, seed: int) -> dict:
         check(f"mh kernel {label} int positions equal",
               shares["positions_equal"] >= MH_SHARE, shares)
     return {"err": err, "ms": cuda_ms(lambda: mh_multistep(*args, hk), 20),
-            "plain_ms": cuda_ms(lambda: mh_multistep_plain(*args, hp), 2)}
+            "plain_ms": cuda_ms(lambda: mh_multistep_plain(*args, hp), 2),
+            "device_ms": device_ms_per_launch(
+                lambda: mh_multistep(*args, hk), "mh_multistep_kernel")}
 
 
 def phase_gibbs_kernel(g, seed: int) -> dict:
@@ -2147,40 +2238,55 @@ def phase_pt_main_path(dev):
     return fused, counts, out
 
 
-def phase_pt_kernel(pt, seed: int) -> dict:
+def phase_pt_kernel(pt, seed: int, std: float = 1.0,
+                    label: str = "pt_kernel") -> dict:
     """Kernel 8 against its twin for one K-step block from the stage's
-    equilibrium state, same key: positions, logp, swap EWMA and the
-    history rows equal per chain."""
+    equilibrium state, same key, on the sampler's kernel target at cold
+    scale ``std``: positions, logp, swap EWMA and the history rows equal
+    per chain; under a transform (the transformed instance, whose density
+    differs from the twin's within its float32 rounding) positions and
+    history within MH_RTOL/MH_ATOL, logp within that and twice the
+    density's float32 rounding (``logp_within``)."""
     s = pt.state
     c = s.positions.shape[2]
     hk = torch.empty((PT_K, c, 1), device=s.positions.device)
     hp = torch.empty_like(hk)
-    lad = make_ladder(pt.betas, 1.0, 1, s.positions.device)
-    args = (pt.target, s.positions, s.raw_logp, s.swap_accept, s.parity,
-            lad, seed, 0, PT_K, 1)
+    lad = make_ladder(pt.betas, std, 1, s.positions.device)
+    args = (pt.kernel_target, s.positions, s.raw_logp, s.swap_accept,
+            s.parity, lad, seed, 0, PT_K, 1)
     got = pt_multistep(*args, hk)
     want = pt_multistep_plain(*args, hp)
     torch.cuda.synchronize()
+    if pt.transform is None:
+        same, logp_ok = (lambda a, b: a == b), (got[1] == want[1])
+    else:
+        t, _, c = want[0].shape
+        rounding = pt.transform.density_rounding(
+            pt.target, want[0].permute(0, 2, 1).reshape(t * c, -1))
+        rounding = rounding.reshape(t, c)
+        same, logp_ok = within_tol, logp_within(got[1], want[1], rounding)
     equal = {
-        "positions": (got[0] == want[0]).all(1).all(0),
-        "logp": (got[1] == want[1]).all(0),
+        "positions": same(got[0], want[0]).all(1).all(0),
+        "logp": logp_ok.all(0),
         "swap_accept": (got[2] == want[2]).all(0),
-        "history": (hk == hp).all(2).all(0),
+        "history": same(hk, hp).all(2).all(0),
     }
     shares = {k: float(v.float().mean()) for k, v in equal.items()}
     same = equal["positions"] & equal["history"]
     err = max(max_abs_err(hk.transpose(0, 1), hp.transpose(0, 1)),
               max_abs_err(got[0], want[0]))
-    say("pt_kernel", K=PT_K, T=PT_TEMPS, chains=c, parity=s.parity,
+    say(label, K=PT_K, T=PT_TEMPS, chains=c, parity=s.parity,
         accept_rate=float((hk[1:] != hk[:-1]).float().mean()),
         **{f"share_equal_{k}": v for k, v in shares.items()},
         share_all_equal=float((same & equal["logp"]
                                & equal["swap_accept"]).float().mean()),
         max_abs_err=err)
     for k, v in shares.items():
-        check(f"pt kernel {k} equal", v >= MH_SHARE, shares)
+        check(f"{label} {k} equal", v >= MH_SHARE, shares)
     return {"err": err, "ms": cuda_ms(lambda: pt_multistep(*args, hk), 20),
-            "plain_ms": cuda_ms(lambda: pt_multistep_plain(*args, hp), 2)}
+            "plain_ms": cuda_ms(lambda: pt_multistep_plain(*args, hp), 2),
+            "device_ms": device_ms_per_launch(
+                lambda: pt_multistep(*args, hk), "pt_multistep_kernel")}
 
 
 def phase_mala_tuned(dev):
@@ -3116,8 +3222,9 @@ def phase_eight_schools(dev) -> dict:
     tier, which runs no hand-written kernel (the posterior has no CUDA
     functor): ``make_noncentered_target()``, 4,096 chains, D = 10,
     ``NUTS(target, init_with_seed(4096, 10, seed=31), 0.9, seed=31)
-    .warmed_up(300, "diag")``, then ``run(1024, 256)`` twice (the second
-    timed); the gates of bench.py:1285-1317 (|E[mu] - exact| <= 0.25,
+    .warmed_up(300, "diag")``, then ``run(64, 256)`` (the step size
+    adapted in the whitened space, ES8_FIRST_COLLECT) and the timed
+    ``run(1024, 256)``; the gates of bench.py:1285-1317 (|E[mu] - exact| <= 0.25,
     |E[exp(log_tau)] - exact| <= 0.4, R-hat mean in [0.95, 1.05], ESS min
     >= 0.002 C n, steady-state divergence rate <= 2e-3), leapfrogs per
     draw, ESS/s and the time."""
@@ -3133,7 +3240,7 @@ def phase_eight_schools(dev) -> dict:
     warm = mt.NUTS(make_noncentered_target(), mt.init_with_seed(
         c8, 10, seed=31, device=dev), 0.9, seed=31).warmed_up(ES8_ADAPT,
                                                               "diag")
-    first = warm.run(n8, nd8)
+    first = warm.run(ES8_FIRST_COLLECT, nd8)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     del first
@@ -3171,6 +3278,360 @@ def phase_eight_schools(dev) -> dict:
     check("eight_schools steady-state divergence rate",
           m["divergence_rate"] <= 2e-3, m["divergence_rate"])
     say("eight_schools", kernels="none (the lockstep tier)",
+        **{k: repr(v) for k, v in m.items()})
+    return m
+
+
+def phase_mh_constrained(dev):
+    """The MH stage of bench.py:391-431 with x0 > 0 through the public
+    entry point: ``MetropolisHastings(gaussian2d, walk 1.0, tf.to_x(init),
+    use_pallas="full", steps_per_call=16, transform=tf)``, warm-up and
+    timed run, the gates (x0's half-normal moments, x1 ~ N(0, 1), R-hat,
+    the stage's ESS floor, every draw's x0 > 0), Kernel 5's transformed
+    instance 128 times a run; then that instance against its twin, the
+    times, and the recorded rows' map ``to_x`` on a [65536, 2] row."""
+    target = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    tf = mt.CoordinateTransform({0: mt.positive()}, dim=2)
+    init = tf.to_x(mt.init_with_seed(MH_CHAINS, 2, seed=8, device=dev))
+    reset_counts()
+    mh = mt.MetropolisHastings(target, mt.isotropic_gaussian_proposal(1.0),
+                               init, use_pallas="full", steps_per_call=MH_K,
+                               transform=tf).seed(8)
+    sample, elapsed = timed_run(mh, MH_COLLECT, 0, time_major=True)
+    counts = read_counts()
+    per_run = MH_COLLECT // MH_K
+    check("mh_constrained launches: the transformed instance, no twin",
+          counts == counts_with(mh_multistep=2 * per_run,
+                                mh_multistep_transformed=2 * per_run),
+          counts)
+    check("mh_constrained sample", tuple(sample.shape) == (
+        MH_COLLECT, MH_CHAINS, 2) and bool(torch.isfinite(sample).all()),
+        tuple(sample.shape))
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    flat = sample.reshape(-1, 2).double()
+    total = MH_CHAINS * MH_COLLECT
+    m = {"elapsed_s": elapsed, "rhat_mean": float(rhat.mean()),
+         "ess_mean": float(ess.mean()),
+         "mean": [float(v) for v in flat.mean(0)],
+         "var": [float(v) for v in flat.var(0, unbiased=False)],
+         "x0_min": float(flat[:, 0].min()),
+         "accept_rate": float((sample[1:] != sample[:-1]).any(2)
+                              .float().mean())}
+    del sample, flat
+    check("mh_constrained x0 > 0", m["x0_min"] > 0.0, m["x0_min"])
+    check("mh_constrained rhat", 0.95 <= m["rhat_mean"] <= 1.05,
+          m["rhat_mean"])
+    check("mh_constrained x0 mean (half-normal)",
+          abs(m["mean"][0] - HALF_NORMAL_MEAN) <= 0.03, m["mean"])
+    check("mh_constrained x0 var (half-normal)",
+          abs(m["var"][0] - HALF_NORMAL_VAR) <= 0.05, m["var"])
+    check("mh_constrained x1 mean", abs(m["mean"][1]) <= 0.03, m["mean"])
+    check("mh_constrained x1 var", abs(m["var"][1] - 1.0) <= 0.05, m["var"])
+    check("mh_constrained ess floor", m["ess_mean"] >= 0.02 * total,
+          (m["ess_mean"], total))
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = total / elapsed
+    m["block_us"] = elapsed / per_run * 1e6
+    row = mh.state.positions
+    m["row_to_x_ms"] = cuda_ms(lambda: tf.to_x(row), 50)
+    say("mh_constrained", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=per_run, **counts)
+    k5 = phase_mh_kernel(mh, "gauss2d_transformed", MH_K, 0x5EED_0A0A)
+    say("mh_constrained_times", shape=f"C={MH_CHAINS},gauss2d K={MH_K}",
+        **{k: repr(v) for k, v in k5.items() if k != "err"})
+    return counts, k5
+
+
+def phase_pt_constrained(dev):
+    """The tempering stage of bench.py:858-909 with ``interval(-24, 24)``
+    through the public entry point (cold scale PT_C_STD in y): warm-up and
+    timed run, the four gates of bench.py:890-898 and every draw inside
+    the interval, Kernel 8's transformed instance 128 times a run; then
+    that instance against its twin and the times."""
+    tf = mt.CoordinateTransform({0: mt.interval(-24.0, 24.0)}, dim=1)
+    reset_counts()
+    pt = mt.ParallelTempering(
+        pt_mixture(), torch.full((PT_CHAINS, 1), -8.0, device=dev),
+        betas=mt.geometric_betas(PT_TEMPS, 0.01), proposal_std=PT_C_STD,
+        steps_per_call=PT_K, use_pallas="full", transform=tf).seed(5)
+    sample, elapsed = timed_run(pt, PT_COLLECT, 0, time_major=True)
+    counts = read_counts()
+    per_run = PT_COLLECT // PT_K
+    check("pt_constrained launches: the transformed instance, no twin",
+          counts == counts_with(pt_multistep=2 * per_run,
+                                pt_multistep_transformed=2 * per_run),
+          counts)
+    xs = sample.reshape(-1)
+    plus = xs[xs > 0].double()
+    swap = pt.swap_acceptance
+    m = {"elapsed_s": elapsed, "mode_weight": float((xs > 0).float().mean()),
+         "plus_mean": float(plus.mean()),
+         "plus_std": float(plus.std(unbiased=False)),
+         "range": [float(xs.min()), float(xs.max())],
+         "swap_acceptance": [float(v) for v in swap],
+         "cold_draws_per_sec": PT_CHAINS * PT_COLLECT / elapsed,
+         "replica_updates_per_sec":
+             PT_CHAINS * PT_TEMPS * PT_COLLECT / elapsed,
+         "block_us": elapsed / per_run * 1e6}
+    del sample, xs, plus
+    check("pt_constrained inside (-24, 24)",
+          -24.0 < m["range"][0] and m["range"][1] < 24.0, m["range"])
+    check("pt_constrained mode weight",
+          abs(m["mode_weight"] - PT_W_PLUS) <= 0.05, m["mode_weight"])
+    check("pt_constrained mode mean", abs(m["plus_mean"] - 8.0) <= 0.05,
+          m["plus_mean"])
+    check("pt_constrained mode std", abs(m["plus_std"] - 0.5) <= 0.05,
+          m["plus_std"])
+    check("pt_constrained swap rates alive", bool((swap > 0.05).all()),
+          m["swap_acceptance"])
+    say("pt_constrained", **{k: repr(v) for k, v in m.items()},
+        launches_per_run=per_run, **counts)
+    k8 = phase_pt_kernel(pt, 0x5EED_8A8A, PT_C_STD, "pt_kernel_transformed")
+    say("pt_constrained_times", shape=f"C={PT_CHAINS},T={PT_TEMPS},K={PT_K},"
+        "D=1", **{k: repr(v) for k, v in k8.items() if k != "err"})
+    return counts, k8
+
+
+def moment_metrics(sample, elapsed: float) -> dict:
+    """A time-major cube's split R-hat and ESS (mean and min), per
+    coordinate mean and population variance, ESS/s and draws/s."""
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    flat = sample.reshape(-1, sample.shape[2]).double()
+    n = flat.shape[0]
+    return {"elapsed_s": elapsed, "rhat_mean": float(rhat.mean()),
+            "ess_mean": float(ess.mean()), "ess_min": float(ess.min()),
+            "mean": [float(v) for v in flat.mean(0)],
+            "var": [float(v) for v in flat.var(0, unbiased=False)],
+            "ess_per_sec": float(ess.mean()) / elapsed,
+            "draws_per_sec": n / elapsed}
+
+
+def idle_share(fn) -> dict:
+    """The device's idle share over one profiled call of ``fn`` (the
+    profiler's own overhead included in the wall time)."""
+    wall, busy, by_name = device_profile(fn)
+    return {"profiled_wall_s": wall, "device_busy_us": busy,
+            "idle_share": 1.0 - busy / (wall * 1e6),
+            "kernels_by_name": len(by_name)}
+
+
+def lockstep_stage(label, sampler, n_collect, gates, profile_steps,
+                   burn=None):
+    """A burn-in run (``burn`` steps, ``n_collect`` by default as in
+    bench.py) and the timed run of a lockstep sampler (no kernel),
+    ``gates(metrics, sample)``, the launches (none) and the host's loop
+    tests a step (``ops/slice.py:masked_loop``), then one profiled run
+    of ``profile_steps`` steps for the idle share."""
+    from mini_mcmc_torch.ops.slice import masked_loop
+
+    reset_counts()
+    warm = sampler.run(n_collect if burn is None else burn, 0,
+                       time_major=True)
+    torch.cuda.synchronize()
+    del warm
+    tests0 = masked_loop.host_tests
+    t0 = time.perf_counter()
+    sample = sampler.run(n_collect, 0, time_major=True)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    check(f"{label} runs no kernel", not any(counts[k] for k in KERNELS),
+          counts)
+    check(f"{label} sample finite", bool(torch.isfinite(sample).all()),
+          "non-finite")
+    m = moment_metrics(sample, elapsed)
+    m["host_tests_per_step"] = (masked_loop.host_tests - tests0) / n_collect
+    gates(m, sample)
+    del sample
+    m.update(idle_share(lambda: sampler.run(profile_steps, 0,
+                                            time_major=True)))
+    say(label, **{k: repr(v) for k, v in m.items()})
+    torch.cuda.empty_cache()
+    return m
+
+
+def moment_gates(label, m, truth, mean_tol, var_tol):
+    for d, (m_true, v_true) in enumerate(truth):
+        check(f"{label} mean[{d}]", abs(m["mean"][d] - m_true) <= mean_tol,
+              m["mean"])
+        check(f"{label} var[{d}]", abs(m["var"][d] - v_true) <= var_tol,
+              m["var"])
+
+
+def phase_chees(dev) -> dict:
+    """bench.py:777-820: ``ChEESHMC(diffable_gaussian2d([0, 1], [[4, 2],
+    [2, 3]]), init_with_seed(65536, 2, seed=17), step_size=0.5).seed(17)
+    .warmed_up(256)``, ``run(2048)`` after a burn-in run; the gates (the
+    trajectory grew past twice the step, R-hat, the smallest ESS at least
+    2% of the draws, the moments), ESS/s, draws/s, the warm-up's seconds
+    and the idle share."""
+    t0 = time.perf_counter()
+    ch = mt.ChEESHMC(mt.diffable_gaussian2d(NUTS_MEAN, NUTS_COV),
+                     mt.init_with_seed(CHEES_CHAINS, 2, seed=17, device=dev),
+                     step_size=0.5).seed(17).warmed_up(CHEES_ADAPT)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    def gates(m, _):
+        check("chees traj grew", ch.traj_len > 2.0 * ch.step_size,
+              (ch.traj_len, ch.step_size))
+        check("chees rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+        check("chees ess floor", m["ess_min"] >= 0.02 * CHEES_CHAINS
+              * CHEES_COLLECT, m["ess_min"])
+        moment_gates("chees", m, ((0.0, 4.0), (1.0, 3.0)), 0.05, 0.3)
+
+    m = lockstep_stage("chees", ch, CHEES_COLLECT, gates, LOCKSTEP_PROFILE)
+    m.update(eps_tuned=ch.step_size, traj_len_tuned=ch.traj_len,
+             warm_up_s=warm_s,
+             mean_leapfrogs_per_draw=ch.traj_len / (2.0 * ch.step_size))
+    say("chees_adapted", **{k: repr(m[k]) for k in (
+        "eps_tuned", "traj_len_tuned", "warm_up_s",
+        "mean_leapfrogs_per_draw")})
+    return m
+
+
+def phase_ensemble(dev) -> dict:
+    """bench.py:822-856: 1,024 ensembles x 64 walkers (65,536) on
+    ``gaussian2d([0, 1], [[4, 2], [2, 3]])``, K = 16, ``run(2048)`` after a
+    burn-in run; the gates (R-hat, ESS mean at least 0.1% of the draws,
+    moments, the covariance), ESS/s, draws/s, the idle share."""
+    es = mt.EnsembleSampler(
+        mt.gaussian2d(NUTS_MEAN, NUTS_COV),
+        mt.init_with_seed(ENS_CHAINS, 2, seed=3, device=dev),
+        walkers_per_ensemble=ENS_WALKERS, steps_per_call=ENS_K).seed(3)
+
+    def gates(m, sample):
+        mean = sample.double().mean(dim=(0, 1))
+        m["cov01"] = float(((sample[..., 0] - mean[0])
+                            * (sample[..., 1] - mean[1])).double().mean())
+        check("ensemble rhat", 0.95 <= m["rhat_mean"] <= 1.05,
+              m["rhat_mean"])
+        check("ensemble ess floor", m["ess_mean"] >= 1e-3 * ENS_CHAINS
+              * ENS_COLLECT, m["ess_mean"])
+        moment_gates("ensemble", m, ((0.0, 4.0), (1.0, 3.0)), 0.05, 0.2)
+        check("ensemble cov01", abs(m["cov01"] - 2.0) <= 0.2, m["cov01"])
+
+    return lockstep_stage("ensemble", es, ENS_COLLECT, gates,
+                          LOCKSTEP_PROFILE)
+
+
+def phase_slice(dev) -> dict:
+    """bench.py:911-942: 65,536 chains on the ensemble stage's Gaussian,
+    width 1, K = 16, ``run(2048)`` after a burn-in run of SLICE_BURN
+    sweeps; the gates (R-hat, ESS mean at least 5% of the draws,
+    moments), ESS/s, sweeps/s, the host's loop tests a sweep and the idle
+    share."""
+    sl = mt.SliceSampler(mt.gaussian2d(NUTS_MEAN, NUTS_COV),
+                         mt.init_with_seed(SLICE_CHAINS, 2, seed=7,
+                                           device=dev),
+                         width=1.0, steps_per_call=SLICE_K).seed(7)
+
+    def gates(m, _):
+        check("slice rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+        check("slice ess floor", m["ess_mean"] >= 0.05 * SLICE_CHAINS
+              * SLICE_COLLECT, m["ess_mean"])
+        moment_gates("slice", m, ((0.0, 4.0), (1.0, 3.0)), 0.05, 0.2)
+
+    return lockstep_stage("slice", sl, SLICE_COLLECT, gates, LOCKSTEP_PROFILE,
+                          burn=SLICE_BURN)
+
+
+def gp_posterior():
+    """bench.py:952-975: the 64-point latent GP with a conjugate Gaussian
+    likelihood: the float32 prior Cholesky the sampler uses, the
+    likelihood's data, and the analytic posterior mean and covariance
+    (float64, from that float32 factor)."""
+    import numpy as np
+
+    xs = np.linspace(-3.0, 3.0, GP_DIM)
+    k_gp = np.exp(-0.5 * (xs[:, None] - xs[None, :]) ** 2 / 0.6**2)
+    chol64 = np.linalg.cholesky(k_gp + 1e-4 * np.eye(GP_DIM))
+    chol32 = chol64.astype(np.float32)
+    k_eff = chol32.astype(np.float64) @ chol32.astype(np.float64).T
+    rng_np = np.random.default_rng(0)
+    f_true = chol64 @ rng_np.standard_normal(GP_DIM)
+    y64 = f_true + GP_NOISE * rng_np.standard_normal(GP_DIM)
+    a = k_eff + GP_NOISE**2 * np.eye(GP_DIM)
+    post_mean = k_eff @ np.linalg.solve(a, y64)
+    post_cov = k_eff - k_eff @ np.linalg.solve(a, k_eff)
+    return chol32, y64.astype(np.float32), post_mean, post_cov
+
+
+def phase_elliptical(dev) -> dict:
+    """bench.py:944-1002: the 64-point latent GP posterior (conjugate, so
+    the gates are analytic), 4,096 chains from 0, K = 16, ``run(2048)``
+    after a burn-in run of GP_BURN steps, the prior draw a [4096, 64] @
+    [64, 64] ``torch.matmul``; the gates (R-hat in [0.90, 1.05], the largest mean
+    error at most 0.05, the largest relative variance error at most
+    0.2), latent draws/s, the host's loop tests a step and the idle
+    share."""
+    import numpy as np
+
+    chol32, y32, post_mean, post_cov = gp_posterior()
+    y = torch.from_numpy(y32).to(dev)
+
+    def loglik(f):
+        return -0.5 * torch.sum(((y - f) / GP_NOISE) ** 2, dim=-1)
+
+    el = mt.EllipticalSliceSampler(
+        mt.models.Target(logp=loglik),
+        torch.zeros((GP_CHAINS, GP_DIM), device=dev),
+        prior_scale=torch.from_numpy(chol32), steps_per_call=GP_K).seed(9)
+
+    def gates(m, _):
+        mean, var = np.asarray(m["mean"]), np.asarray(m["var"])
+        m["max_abs_mean_err"] = float(np.max(np.abs(mean - post_mean)))
+        m["max_rel_var_err"] = float(np.max(np.abs(
+            var / np.diag(post_cov) - 1.0)))
+        m["latent_values_per_sec"] = m["draws_per_sec"] * GP_DIM
+        del m["mean"], m["var"]
+        check("elliptical rhat", 0.90 <= m["rhat_mean"] <= 1.05,
+              m["rhat_mean"])
+        check("elliptical posterior mean", m["max_abs_mean_err"] <= 0.05,
+              m["max_abs_mean_err"])
+        check("elliptical posterior var", m["max_rel_var_err"] <= 0.2,
+              m["max_rel_var_err"])
+
+    return lockstep_stage("elliptical", el, GP_COLLECT, gates,
+                          LOCKSTEP_PROFILE, burn=GP_BURN)
+
+
+def phase_eight_schools_chees(dev) -> dict:
+    """Eight schools' ChEES half (bench.py:1342-1372): ``ChEESHMC(
+    make_noncentered_target(), init_with_seed(4096, 10, seed=33),
+    step_size=0.2, seed=33).warmed_up(500)``, ``run(1024, 256)`` twice
+    (the second timed), the bench's moment gates, the adapted step size
+    and trajectory length, leapfrogs a draw, gradient evaluations per
+    effective sample, ESS/s."""
+    from mini_mcmc_torch.examples import eight_schools as es8
+
+    reset_counts()
+    t0 = time.perf_counter()
+    ch = es8.chees_adapted(device=dev, n_chains=ES8_CHAINS,
+                           n_adapt=ES8_CHEES_ADAPT)
+    first = ch.run(ES8_COLLECT, ES8_DISCARD)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del first
+    t0 = time.perf_counter()
+    sample = ch.run(ES8_COLLECT, ES8_DISCARD)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    check("eight_schools_chees runs no kernel", not any(
+        counts[k] for k in KERNELS), counts)
+    m = es8.moment_gates("eight_schools_chees", sample)
+    del sample
+    lf = ch.traj_len / (2.0 * ch.step_size)
+    steps = ES8_COLLECT + ES8_DISCARD
+    m.update(adapted_step_size=ch.step_size, adapted_traj_len=ch.traj_len,
+             mean_leapfrogs_per_draw=lf, elapsed_s=elapsed,
+             warm_up_and_first_run_s=warm_s,
+             draws_per_sec=ES8_CHAINS * steps / elapsed,
+             ess_per_sec=m["ess_mean"] / elapsed,
+             grad_evals_per_effective_sample=ES8_CHAINS * steps * (lf + 1.0)
+             / m["ess_mean"])
+    say("eight_schools_chees", kernels="none (the lockstep tier)",
         **{k: repr(v) for k, v in m.items()})
     return m
 
@@ -3362,6 +3823,20 @@ def bounds(step_details, subtree_leaves, dense_details, k1234t,
                 + active * OPS["pt_swap"])
     out["pt_multistep"] = bound(
         2 * 4 * c * (t + t + t - 1) + PT_K * c * 4, c * ops)
+    # the transformed instances of Kernels 5 and 8 (transform=): the same
+    # bytes (the bijector table is a few floats), and every density adds
+    # its coordinates' bijectors: x0's positive() and x1's identity on the
+    # MH stage, interval(-24, 24) on each rung's density
+    c = MH_CHAINS
+    out["mh_multistep_transformed"] = bound(
+        2 * c * (4 * 2 + 4) + MH_K * c * 4 * 2,
+        c * MH_K * (rng_ops(2, 1) + 2 * OPS["isotropic_propose"]
+                    + OPS["gauss2d_logp"] + OPS["mh_step"]
+                    + OPS["bij_logp"] + OPS["bij_identity"]))
+    c = PT_CHAINS
+    out["pt_multistep_transformed"] = bound(
+        2 * 4 * c * (t + t + t - 1) + PT_K * c * 4,
+        c * (ops + PT_K * t * OPS["bij_logp_interval"]))
     return out
 
 
@@ -3492,8 +3967,16 @@ def main() -> None:
             PT_COLLECT, 0, time_major=True)),))
     del pt
     torch.cuda.empty_cache()
+    mhc_counts, k5c = phase_mh_constrained(dev)
+    ptc_counts, k8c = phase_pt_constrained(dev)
+    torch.cuda.empty_cache()
+    phase_chees(dev)
+    phase_ensemble(dev)
+    phase_slice(dev)
+    phase_elliptical(dev)
     progress_launches = phase_run_progress_samplers(dev)
     phase_eight_schools(dev)
+    phase_eight_schools_chees(dev)
     b = bounds(step_details, sub_leaves, k34w["details"], k1234t, funnel)
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
@@ -3531,10 +4014,12 @@ def main() -> None:
         record("mh_multistep_gauss2d", "mh_multistep.cu", "mh_full.py:50",
                mh_counts["mh_multistep"], k5["gauss2d"]["err"],
                k5["gauss2d"]["ms"], k5["gauss2d"]["plain_ms"],
+               device_ms=k5["gauss2d"]["device_ms"],
                launches_run_progress=progress_launches["mh"]),
         record("mh_multistep_poisson", "mh_multistep.cu", "mh_full.py:50",
                pois_counts["mh_multistep"], k5["poisson"]["err"],
-               k5["poisson"]["ms"], k5["poisson"]["plain_ms"]),
+               k5["poisson"]["ms"], k5["poisson"]["plain_ms"],
+               device_ms=k5["poisson"]["device_ms"]),
         record("gibbs_multistep", "gibbs_multistep.cu", "gibbs_full.py:47",
                gibbs_counts["gibbs_multistep"], k6["err"], k6["ms"],
                k6["plain_ms"],
@@ -3553,7 +4038,7 @@ def main() -> None:
                launches_run_progress=progress_launches["separable"]),
         record("pt_multistep", "pt_multistep.cu", "tempering_full.py:61",
                pt_counts["pt_multistep"], k8["err"], k8["ms"],
-               k8["plain_ms"],
+               k8["plain_ms"], device_ms=k8["device_ms"],
                launches_run_progress=progress_launches["pt"]),
         record("hmc_multistep_mala", "hmc_multistep.cu", "hmc_full.py:86",
                mala_counts["hmc_multistep"], k2m["err"], k2m["ms"],
@@ -3605,6 +4090,14 @@ def main() -> None:
         record("nuts_step_funnel", "nuts_full.cu", "nuts_full.py:48",
                funnel["launches"], funnel["err"], funnel["ms"],
                funnel["plain_ms"]),
+        record("mh_multistep_transformed", "mh_multistep.cu",
+               "mh_full.py:50", mhc_counts["mh_multistep_transformed"],
+               k5c["err"], k5c["ms"], k5c["plain_ms"],
+               device_ms=k5c["device_ms"]),
+        record("pt_multistep_transformed", "pt_multistep.cu",
+               "tempering_full.py:61", ptc_counts["pt_multistep_transformed"],
+               k8c["err"], k8c["ms"], k8c["plain_ms"],
+               device_ms=k8c["device_ms"]),
     ]
     off_path = [
         record("leapfrog_trajectory", "hmc_leapfrog.cu", "hmc.py:46",

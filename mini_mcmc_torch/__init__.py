@@ -1,7 +1,8 @@
 """mini_mcmc_torch: the PyTorch + CUDA port of mini_mcmc_tpu.
 
-Lockstep batched Metropolis-Hastings, HMC, MALA, NUTS, Gibbs and parallel
-tempering over ``[n_chains, dim]`` tensors, constrained parameters through
+Lockstep batched Metropolis-Hastings, HMC, MALA, NUTS, ChEES-HMC, the
+ensemble stretch move, coordinate and elliptical slice sampling, Gibbs and
+parallel tempering over ``[n_chains, dim]`` tensors, constrained parameters through
 ``transform=`` (``models/transforms.py``), with the fused tiers
 (``use_pallas=True | "full" | "separable"``) run by hand-written CUDA kernels
 for Hopper (``csrc/``) on CUDA tensors and by their plain PyTorch twins on
@@ -43,9 +44,13 @@ from .ops.tempering import geometric_betas, tune_betas
 from .samplers import (
     HMC,
     MALA,
+    ChEESHMC,
+    EllipticalSliceSampler,
+    EnsembleSampler,
     GibbsSampler,
     MetropolisHastings,
     ParallelTempering,
+    SliceSampler,
 )
 from .stats import (
     RunStats,
@@ -58,7 +63,10 @@ from .stream import StreamResult, stream_run
 from .utils.init import init, init_det, init_with_seed
 
 __all__ = [
+    "ChEESHMC",
     "CoordinateTransform",
+    "EllipticalSliceSampler",
+    "EnsembleSampler",
     "GibbsSampler",
     "HMC",
     "MALA",
@@ -68,6 +76,7 @@ __all__ = [
     "ParallelTempering",
     "Preconditioner",
     "RunStats",
+    "SliceSampler",
     "StreamResult",
     "Summary",
     "basic_stats",

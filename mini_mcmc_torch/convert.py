@@ -1,9 +1,11 @@
 """Carry chain state and sampler configuration across from the JAX package.
 
 No model here has weights: what carries over is the chain state
-(positions and their cached logp, and the gradient for HMC; the positions
-and adaptation state for NUTS; the replica ladder for parallel tempering)
-and the sampler's configuration, a metric and a transform included.
+(positions and their cached logp, and the gradient for HMC and ChEES-HMC;
+the positions and adaptation state for NUTS; the replica ladder for
+parallel tempering; the cached likelihood for elliptical slice sampling)
+and the sampler's configuration, a metric, a transform and a prior
+included.
 Everything crosses as numpy arrays, so this module imports neither JAX nor
 the JAX package. States land on ``device``, ``"cuda"`` by default (raises
 without a GPU); pass ``device="cpu"`` for the CPU.
@@ -23,9 +25,12 @@ from .models.transforms import (
     positive,
     upper_bounded,
 )
+from .ops.elliptical import EllipticalState
+from .ops.ensemble import EnsembleState
 from .ops.hmc import HMCSepState, HMCState
 from .ops.mh import MHState
 from .ops.nuts import NUTSState
+from .ops.slice import SliceState
 from .ops.tempering import PTState
 from .utils.init import resolve_device
 
@@ -43,6 +48,27 @@ def hmc_state_from_numpy(positions, logp, grad, device="cuda") -> HMCState:
     device = resolve_device(device)
     return HMCState(_f32(positions, device), _f32(logp, device),
                     _f32(grad, device))
+
+
+def ensemble_state_from_numpy(positions, logp,
+                              device="cuda") -> EnsembleState:
+    """An ``EnsembleState`` of float32 tensors on ``device``."""
+    device = resolve_device(device)
+    return EnsembleState(_f32(positions, device), _f32(logp, device))
+
+
+def slice_state_from_numpy(positions, logp, device="cuda") -> SliceState:
+    """A ``SliceState`` of float32 tensors on ``device``."""
+    device = resolve_device(device)
+    return SliceState(_f32(positions, device), _f32(logp, device))
+
+
+def elliptical_state_from_numpy(positions, loglik,
+                                device="cuda") -> EllipticalState:
+    """An ``EllipticalState`` (positions and the cached likelihood, not the
+    prior) of float32 tensors on ``device``."""
+    device = resolve_device(device)
+    return EllipticalState(_f32(positions, device), _f32(loglik, device))
 
 
 def hmc_sep_state_from_numpy(positions, logp, device="cuda") -> HMCSepState:
@@ -122,6 +148,28 @@ def _closure(fn) -> dict:
     cells = fn.__closure__ or ()
     return dict(zip(fn.__code__.co_freevars,
                     (c.cell_contents for c in cells)))
+
+
+def _free_var(fn, name: str):
+    """The value of the free variable ``name`` of ``fn`` or of a function
+    it closes over (a setting a JAX kernel keeps only in its closures)."""
+    seen, todo = set(), [fn]
+    while todo:
+        f = todo.pop()
+        if id(f) in seen or not hasattr(f, "__code__"):
+            continue
+        seen.add(id(f))
+        free = _closure(f)
+        if name in free:
+            return free[name]
+        todo.extend(v for v in free.values() if callable(v))
+    raise ValueError(f"no setting {name!r} in the JAX sampler's closures")
+
+
+def _host(x):
+    """A scalar as a float, anything else as a float32 numpy array."""
+    arr = np.array(x, np.float32)
+    return float(arr) if arr.ndim == 0 else arr
 
 
 #: the JAX package's module of built-in bijectors, named, never imported
@@ -250,3 +298,55 @@ def pt_sampler_kwargs(jax_pt) -> dict:
     if not isinstance(std, (int, float)):
         kwargs["proposal_std"] = np.asarray(std, np.float32)
     return dict(kwargs, betas=tuple(jax_pt.betas))
+
+
+def chees_sampler_kwargs(jax_chees) -> dict:
+    """The port's ``ChEESHMC`` keyword arguments of a JAX ``ChEESHMC``: its
+    step size and trajectory length (adapted ones after ``warmed_up``),
+    ``max_leapfrog``, its metric and its transform. The state carries over
+    with :func:`hmc_state_from_numpy`."""
+    return _kwargs(jax_chees, "ChEESHMC", dict(
+        step_size=float(jax_chees.step_size),
+        traj_len=float(jax_chees.traj_len),
+        max_leapfrog=int(jax_chees.max_leapfrog),
+        transform=jax_chees.transform))
+
+
+def _steps_per_call(jax_sampler) -> int:
+    return getattr(jax_sampler._step_fn, "block_size", 1)
+
+
+def ensemble_sampler_kwargs(jax_es) -> dict:
+    """The port's ``EnsembleSampler`` keyword arguments of a JAX one:
+    ``walkers_per_ensemble``, ``a``, ``steps_per_call`` and its
+    transform."""
+    return _kwargs(jax_es, "EnsembleSampler", dict(
+        walkers_per_ensemble=int(jax_es.walkers_per_ensemble),
+        a=float(jax_es.a), steps_per_call=_steps_per_call(jax_es),
+        transform=jax_es.transform))
+
+
+def slice_sampler_kwargs(jax_ss) -> dict:
+    """The port's ``SliceSampler`` keyword arguments of a JAX one: its
+    width (a float, or a float32 numpy ``[D]``; an ``"auto"`` width as the
+    JAX sampler resolved it), ``max_stepouts`` and ``max_shrink`` (read
+    from its step function's closures), ``steps_per_call`` and its
+    transform."""
+    update = _free_var(jax_ss._step_fn, "_update_coordinate")
+    return _kwargs(jax_ss, "SliceSampler", dict(
+        width=_host(jax_ss.width),
+        max_stepouts=int(_free_var(update, "max_stepouts")),
+        max_shrink=int(_free_var(update, "max_shrink")),
+        steps_per_call=_steps_per_call(jax_ss), transform=jax_ss.transform))
+
+
+def elliptical_sampler_kwargs(jax_el) -> dict:
+    """The port's ``EllipticalSliceSampler`` keyword arguments of a JAX
+    one: the prior mean and scale (the ``[D, D]`` Cholesky factor when
+    given so) as floats or float32 numpy arrays, ``max_shrink`` and
+    ``steps_per_call``."""
+    return _kwargs(jax_el, "EllipticalSliceSampler", dict(
+        prior_mean=_host(jax_el.prior_mean),
+        prior_scale=_host(jax_el.prior_scale),
+        max_shrink=int(_free_var(jax_el._step_fn, "max_shrink")),
+        steps_per_call=_steps_per_call(jax_el)))

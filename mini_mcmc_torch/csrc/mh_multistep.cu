@@ -11,9 +11,15 @@
 // Kernel 2; a null `hist` writes no history.
 //
 // Positions are float or int32_t (discrete targets); the cached logp is
-// float either way (mh_full.py:22-23). Draws: one word stream per (chain0
-// + c, step0 + k) under the run's 64-bit key (philox.cuh:step_words): the
-// proposal's words<D>() words, then the accept uniform's. The plain twin
+// float either way (mh_full.py:22-23). Under a transform (transform=, the
+// JAX package's wrapped logp_dc, transforms.py:387-446) the walk runs in
+// the unconstrained y and the density is targets.cuh:Transformed<T, D>,
+// T::logp(g(y)) + log|g'(y)|, the functor Kernels 1-4 run; the kernel
+// needs its value only. The int32 instance takes no transform.
+//
+// Draws: one word stream per (chain0 + c, step0 + k) under the run's
+// 64-bit key (philox.cuh:step_words): the proposal's words<D>() words,
+// then the accept uniform's. The plain twin
 // (ops/kernels/mh_full.py) reproduces them, and the cube depends neither
 // on K nor on the grid.
 //
@@ -89,15 +95,17 @@ __global__ void __launch_bounds__(mm::kThreads)
 
 }  // namespace
 
-// The instantiated (target, proposal, state type, D) are those of
-// MH_INSTANCES in ops/kernels/_build.py; any other returns
-// cudaErrorInvalidValue.
+// The instantiated (target, proposal, state type, D, transformed) are
+// those of MH_INSTANCES in ops/kernels/_build.py; any other returns
+// cudaErrorInvalidValue. `transformed` selects Transformed<T, D>, whose
+// params are the bijector table ahead of T's own.
 extern "C" int mm_mh_multistep(const void* pos, const void* logp,
                                const void* tparams, const void* pparams,
                                int k_steps, int n_chains, int dim,
                                int target, int proposal, int state_type,
-                               uint32_t chain0, uint32_t seed_lo,
-                               uint32_t seed_hi, uint32_t step0,
+                               int transformed, uint32_t chain0,
+                               uint32_t seed_lo, uint32_t seed_hi,
+                               uint32_t step0,
                                void* pos_out, void* logp_out, void* hist,
                                long long hist_sk, long long hist_sc,
                                void* stream) {
@@ -109,19 +117,29 @@ extern "C" int mm_mh_multistep(const void* pos, const void* logp,
           (const float*)pparams, k_steps, n_chains, chain0, seed_lo,        \
           seed_hi, step0, (PosT*)pos_out, (float*)logp_out, (PosT*)hist,    \
           hist_sk, hist_sc)
+#define MM_MH_F32(T, D)                                     \
+  do {                                                      \
+    if (transformed) {                                      \
+      using Transformed_ = mm::Transformed<T, D>;           \
+      MM_MH(Transformed_, mm::IsotropicGaussian, float, D); \
+    } else {                                                \
+      MM_MH(T, mm::IsotropicGaussian, float, D);            \
+    }                                                       \
+  } while (0)
   const bool iso = proposal == mm::kIsotropicGaussian && state_type == kF32;
   if (iso && target == mm::kGaussian2D && dim == 2) {
-    MM_MH(mm::Gaussian2D, mm::IsotropicGaussian, float, 2);
+    MM_MH_F32(mm::Gaussian2D, 2);
   } else if (iso && target == mm::kRosenbrockND && dim == 2) {
-    MM_MH(mm::RosenbrockND, mm::IsotropicGaussian, float, 2);
+    MM_MH_F32(mm::RosenbrockND, 2);
   } else if (iso && target == mm::kRosenbrockND && dim == 3) {
-    MM_MH(mm::RosenbrockND, mm::IsotropicGaussian, float, 3);
+    MM_MH_F32(mm::RosenbrockND, 3);
   } else if (target == mm::kPoisson && proposal == mm::kRandomWalkInt &&
-             state_type == kI32 && dim == 1) {
+             state_type == kI32 && dim == 1 && !transformed) {
     MM_MH(mm::Poisson, mm::RandomWalkInt, int32_t, 1);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef MM_MH_F32
 #undef MM_MH
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,11 @@
 // (ops/tempering.py:287-320 in the JAX package, whose XLA form the twin
 // follows operation for operation). Every accept and swap is a true
 // select, so a -inf log density stays -inf and never becomes NaN. Only the
-// cold rung goes to hist[k, c, :] through the runner's strides.
+// cold rung goes to hist[k, c, :] through the runner's strides. Under a
+// transform the replicas walk the unconstrained y and T is
+// targets.cuh:Transformed<T, D>, each rung's density beta_t times
+// T::logp(g(y)) + log|g'(y)| (ops/tempering.py:rung_logp on the wrapped
+// target, mini_mcmc_tpu/samplers.py:805-816).
 //
 // Layout: the JAX package's [T, D, C] positions, [T, C] logp and [T-1, C]
 // EWMA. One thread per (chain, rung): lane = chain_in_warp * TMAX + t, so
@@ -166,15 +170,17 @@ __global__ void __launch_bounds__(mm::kThreads)
 
 }  // namespace
 
-// The instantiated (target, D) are those of PT_INSTANCES in
+// The instantiated (target, D, transformed) are those of PT_INSTANCES in
 // ops/kernels/_build.py, for ladders of 2 to 16 rungs (PT_MAX_TEMPS); any
-// other returns cudaErrorInvalidValue.
+// other returns cudaErrorInvalidValue. `transformed` selects
+// Transformed<T, D>, whose params are the bijector table ahead of T's own.
 extern "C" int mm_pt_multistep(const void* pos, const void* logp,
                                const void* sa, const void* tparams,
                                const void* ladder, int n_chains, int dim,
                                int n_temps, int k_steps, int n_inner,
-                               int target, int parity0, uint32_t seed_lo,
-                               uint32_t seed_hi, uint32_t step0,
+                               int target, int transformed, int parity0,
+                               uint32_t seed_lo, uint32_t seed_hi,
+                               uint32_t step0,
                                void* pos_out, void* logp_out, void* sa_out,
                                void* hist, long long hist_sk,
                                long long hist_sc, void* stream) {
@@ -200,13 +206,23 @@ extern "C" int mm_pt_multistep(const void* pos, const void* logp,
       MM_PT(T, D, 16);                \
     }                                 \
   } while (0)
+#define MM_PT_TARGET(T, D)                      \
+  do {                                          \
+    if (transformed) {                          \
+      using Transformed_ = mm::Transformed<T, D>; \
+      MM_PT_LADDER(Transformed_, D);            \
+    } else {                                    \
+      MM_PT_LADDER(T, D);                       \
+    }                                           \
+  } while (0)
   if (target == mm::kGaussian2D && dim == 2) {
-    MM_PT_LADDER(mm::Gaussian2D, 2);
+    MM_PT_TARGET(mm::Gaussian2D, 2);
   } else if (target == mm::kGaussianMixture1D && dim == 1) {
-    MM_PT_LADDER(mm::GaussianMixture1D, 1);
+    MM_PT_TARGET(mm::GaussianMixture1D, 1);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef MM_PT_TARGET
 #undef MM_PT_LADDER
 #undef MM_PT
   return (int)cudaGetLastError();

@@ -299,11 +299,13 @@ __device__ __forceinline__ float bij_logp(const BijTable& bt, int code,
 // The transformed target of models/transforms.py:CoordinateTransform.wrap,
 // logp_y(y) = T::logp(g(y)) + sum_d log|g_d'(y_d)| around any functor T
 // above, with g_y = T::grad(x) * dx/dy + dlog|dx/dy|/dy (the JAX package's
-// wrap, transforms.py:371-385). Each coordinate's bijector is a runtime
-// code read with its offset and width into registers, so one instance
-// serves every transform of a (T, D). params: the soft-saturation
-// constants (kHead floats), each coordinate's (code, offset, width), then
-// T's own.
+// wrap, transforms.py:371-385). Kernels 1-4 run its gradient and
+// density, the MH and tempering kernels (5 and 8) its density alone (at
+// D = 1 too: the mixture has no gradient, and grad is instantiated only
+// where a kernel calls it). Each coordinate's bijector is a runtime code
+// read with its offset and width into registers, so one instance serves
+// every transform of a (T, D). params: the soft-saturation constants
+// (kHead floats), each coordinate's (code, offset, width), then T's own.
 template <class T, int D>
 struct Transformed {
   static constexpr int kHead = 6;

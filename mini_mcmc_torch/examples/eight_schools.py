@@ -15,7 +15,9 @@ gradient by hand; :func:`make_natural_target` is the same posterior over
 :func:`exact_posterior_means` gives ``E[mu]`` and ``E[tau]`` by quadrature
 (``eight_schools_nuts.py:131-147``), numpy only. The targets have no CUDA
 functor: they run on the lockstep tiers, as the NUTS half of
-``bench.py:1259-1341`` does.
+``bench.py:1259-1341`` does. :func:`chees_adapted` is the ChEES half
+(``bench.py:1342-1372``) and :func:`moment_gates` the bench's gates on a
+run of either.
 """
 
 from __future__ import annotations
@@ -26,12 +28,17 @@ import numpy as np
 import torch
 
 from ..models.base import Target
+from ..samplers import ChEESHMC
+from ..stats import split_rhat_mean_ess
+from ..utils.init import init_with_seed
 
 #: Rubin (1981): estimated treatment effects and their standard errors
 Y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0], np.float32)
 SIGMA = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0], np.float32)
 MU_PRIOR_STD = 5.0
 TAU_PRIOR_SCALE = 5.0
+#: the bench stages' size (bench.py:1282-1283): chains, then run(1024, 256)
+N_CHAINS, N_COLLECT, N_DISCARD = 4096, 1024, 256
 #: log(2 / (pi * 5)), the half-Cauchy's normalizing term
 _LOG_HC = math.log(2.0 / (math.pi * TAU_PRIOR_SCALE))
 
@@ -122,3 +129,43 @@ def exact_posterior_means() -> tuple[float, float]:
     w = np.exp(log_lik + log_prior - np.max(log_lik + log_prior))
     w /= np.sum(w)
     return float(np.sum(w * b / a)), float(np.sum(w * tau))
+
+
+def moment_gates(label: str, sample: torch.Tensor) -> dict:
+    """The gates of ``bench.py:1285-1296`` on a ``[C, n, 10]`` cube of the
+    non-centered posterior: ``|E[mu] - exact| <= 0.25``, ``|E[exp(log_tau)]
+    - exact| <= 0.4`` (the quadrature means), the mean split R-hat in
+    [0.95, 1.05] and the smallest ESS at least ``0.002 C n``. Returns the
+    measures; raises ``AssertionError`` naming the first gate that
+    fails."""
+    exact_mu, exact_tau = exact_posterior_means()
+    c, n = sample.shape[:2]
+    rhat, ess = split_rhat_mean_ess(sample)
+    m = {"mu_hat": float(sample[..., 0].double().mean()),
+         "tau_hat": float(sample[..., 1].double().exp().mean()),
+         "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
+         "ess_min": float(ess.min())}
+    for gate, ok, info in (
+            ("E[mu]", abs(m["mu_hat"] - exact_mu) <= 0.25,
+             (m["mu_hat"], exact_mu)),
+            ("E[tau]", abs(m["tau_hat"] - exact_tau) <= 0.4,
+             (m["tau_hat"], exact_tau)),
+            ("rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"]),
+            ("ess floor", m["ess_min"] >= 0.002 * c * n, (m["ess_min"],
+                                                          c * n))):
+        if not ok:
+            raise AssertionError(f"{label} {gate} gate failed: {info}")
+    return m
+
+
+def chees_adapted(device="cuda", n_chains: int = N_CHAINS,
+                  n_adapt: int = 500, seed: int = 33) -> ChEESHMC:
+    """The ChEES half of ``bench.py:1342-1372``: ``ChEESHMC`` on the
+    non-centered posterior from ``init_with_seed(n_chains, 10, seed)`` at
+    step size 0.2, ``warmed_up(n_adapt)`` (the step size and trajectory
+    length adapted together). The bench then runs ``run(1024, 256)``
+    twice and applies :func:`moment_gates`; after warm-up the sampler is
+    fixed-cost HMC, about ``traj_len / (2 step_size)`` leapfrogs a draw."""
+    return ChEESHMC(make_noncentered_target(),
+                    init_with_seed(n_chains, 10, seed=seed, device=device),
+                    step_size=0.2, seed=seed, device=device).warmed_up(n_adapt)

@@ -46,8 +46,8 @@ from .base import Target
 #: the CUDA kernels' bijector codes (``csrc/targets.cuh:BijCode``)
 BIJ_IDENTITY, BIJ_POSITIVE, BIJ_LOWER, BIJ_UPPER, BIJ_INTERVAL = range(5)
 #: the largest D whose wrapped ``cuda_params`` carry the bijector table:
-#: only Kernels 1-4 read it, and they are built for ``KERNEL_DIMS``. Above
-#: it the separable kernel reads the table from a tensor of its own.
+#: Kernels 1-5 and 8 read it, all built for D <= max(``KERNEL_DIMS``).
+#: Above it the separable kernel reads the table from a tensor of its own.
 TRANSFORM_PARAMS_MAX_DIM = max(KERNEL_DIMS)
 
 
@@ -383,6 +383,28 @@ class CoordinateTransform:
                 torch.where(mask, bij.log_det(y), torch.zeros_like(y)),
                 dim=-1)
         return acc
+
+    def density_rounding(self, target: Target,
+                         y: torch.Tensor) -> torch.Tensor:
+        """A bound ``[N]`` (float64) on the float32 rounding of
+        ``self.wrap(target)``'s density at the unconstrained ``y [N, D]``:
+        eight float32 ulps of each coordinate's ``|offset| + |x|`` (``x =
+        offset + width sigmoid(y')`` loses digits to the offset) through
+        the natural density's gradient, plus eight ulps of the natural
+        density's and the log-Jacobian's magnitudes. A kernel's
+        transformed functor and its twin each round within it, so checks
+        hold them to each other within twice it. Built-in bijectors only
+        (their offsets are ``cuda_form``'s)."""
+        y64 = y.double()
+        x = self.to_x(y64).detach().requires_grad_(True)
+        with torch.enable_grad():
+            lp = target.batch_logp(x)
+            (gx,) = torch.autograd.grad(lp.sum(), x)
+        off = torch.tensor([abs(c[1]) for c in self.cuda_form],
+                           dtype=torch.float64, device=y.device)
+        return 8 * torch.finfo(torch.float32).eps * (
+            (gx.abs() * (off + x.detach().abs())).sum(-1)
+            + lp.detach().abs() + self.log_det(y64).abs())
 
     def _dx_dy(self, y: torch.Tensor) -> torch.Tensor:
         """Elementwise ``d forward / dy`` over ``[..., D]``."""

@@ -1,0 +1,133 @@
+"""Affine-invariant ensemble sampler (Goodman & Weare 2010 stretch move).
+
+Counterpart of ``mini_mcmc_tpu/ops/ensemble.py``. The ``[C, D]`` batch
+holds ``C / W`` independent ensembles of ``W`` walkers; each ensemble's
+walkers split into two fixed halves, and a sweep moves every walker of
+the first half against a random partner from the second, then every
+walker of the second half against the UPDATED first half:
+
+    y_i = x_j + z (x_i - x_j),   z = ((a - 1) u + 1)^2 / a  (g(z) ~ 1/sqrt z),
+    accept iff (D - 1) ln z + logp(y_i) - logp(x_i) > ln u'.
+
+Two batched target evaluations a sweep, no per-walker loop, and no kernel:
+the JAX package runs this in XLA. :func:`ensemble_sweep` takes the sweep's
+draws as inputs (partner indices, the z and accept uniforms of each
+half), so a test can hand it the JAX package's own; the sampler draws
+them from ``key.generator`` on the positions' device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..runner import StepKey, make_scan_block_fn
+
+
+class EnsembleState(NamedTuple):
+    positions: torch.Tensor  # [C, D], C = n_ensembles * walkers_per_ensemble
+    logp: torch.Tensor  # [C] cached target log density
+
+
+class HalfDraws(NamedTuple):
+    """One half-update's draws, each ``[E, W / 2]``."""
+
+    partner: torch.Tensor  # int64 index into the other half
+    u_z: torch.Tensor  # the stretch's uniform
+    u_accept: torch.Tensor  # the accept's uniform
+
+
+def half_draws(gen: torch.Generator, e: int, h: int,
+               like: torch.Tensor) -> HalfDraws:
+    """A half-update's draws from ``gen``, on ``like``'s device."""
+    shape, dev = (e, h), like.device
+    return HalfDraws(
+        torch.randint(0, h, shape, generator=gen, device=dev),
+        torch.rand(shape, generator=gen, dtype=like.dtype, device=dev),
+        torch.rand(shape, generator=gen, dtype=like.dtype, device=dev))
+
+
+def _half_update(target, active, active_lp, other, draws: HalfDraws,
+                 a: float):
+    """Move ``active`` ``[E, h, D]`` against partners from ``other``
+    (``ensemble.py:110-127``); returns the kept positions and logp."""
+    e, h, d = active.shape
+    idx = draws.partner[:, :, None].expand(e, h, d)
+    partners = torch.gather(other, 1, idx)
+    z = ((a - 1.0) * draws.u_z + 1.0) ** 2 / a
+    proposed = partners + z[:, :, None] * (active - partners)
+    prop_lp = target.batch_logp(proposed.reshape(e * h, d)).reshape(e, h)
+    log_accept = (d - 1.0) * torch.log(z) + prop_lp - active_lp
+    accept = log_accept > torch.log(draws.u_accept)  # strict
+    return (torch.where(accept[:, :, None], proposed, active),
+            torch.where(accept, prop_lp, active_lp))
+
+
+def ensemble_sweep(target, state: EnsembleState, walkers_per_ensemble: int,
+                   a: float, first: HalfDraws,
+                   second: HalfDraws) -> EnsembleState:
+    """One full sweep on given draws (``ensemble.py:129-145``): the first
+    half of every ensemble against the second, then the second against
+    the updated first."""
+    c, d = state.positions.shape
+    w = walkers_per_ensemble
+    e, half = c // w, w // 2
+    pos = state.positions.reshape(e, w, d)
+    lp = state.logp.reshape(e, w)
+    pos1, lp1 = _half_update(target, pos[:, :half], lp[:, :half],
+                             pos[:, half:], first, a)
+    pos2, lp2 = _half_update(target, pos[:, half:], lp[:, half:], pos1,
+                             second, a)
+    return EnsembleState(torch.cat([pos1, pos2], dim=1).reshape(c, d),
+                         torch.cat([lp1, lp2], dim=1).reshape(c))
+
+
+def ensemble_kernel(target, *, walkers_per_ensemble: int, a: float = 2.0,
+                    steps_per_call: int = 1):
+    """Build ``(init_fn, step_fn)`` for the batched stretch move.
+
+    ``init_fn(positions [C, D]) -> EnsembleState``: ``C`` a multiple of
+    ``walkers_per_ensemble``, which must be even, >= 4 and >= D + 2 (fewer
+    walkers confine the move to a proper affine subspace); use >= 2 D.
+    ``step_fn(state, key) -> EnsembleState`` is one sweep; partners never
+    cross an ensemble's boundary. ``a`` > 1 is the stretch scale;
+    ``steps_per_call`` > 1 attaches the K-sweep ``block_fn``.
+    """
+    w = walkers_per_ensemble
+    if w < 4 or w % 2 != 0:
+        raise ValueError(
+            f"walkers_per_ensemble must be even and >= 4, got {w}")
+    if not a > 1.0:
+        raise ValueError(f"stretch scale a must be > 1, got {a}")
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    half = w // 2
+
+    def init_fn(positions: torch.Tensor) -> EnsembleState:
+        c, d = positions.shape
+        if c % w != 0:
+            raise ValueError(f"n_chains={c} must be a multiple of "
+                             f"walkers_per_ensemble={w}")
+        if w < d + 2:
+            # the stretch move never leaves the ensemble's affine hull, so
+            # a small ensemble on a high-D target is silently non-ergodic
+            raise ValueError(
+                f"walkers_per_ensemble={w} cannot ergodically sample a "
+                f"{d}-D target: the stretch move is confined to the "
+                f"ensemble's affine hull (dim <= {w - 1}); need at least "
+                f"D+2 = {d + 2} walkers per ensemble, ideally >= 2*D")
+        return EnsembleState(positions, target.batch_logp(positions))
+
+    def step_fn(state: EnsembleState, key: StepKey) -> EnsembleState:
+        e = state.positions.shape[0] // w
+        gen, like = key.generator, state.positions
+        first = half_draws(gen, e, half, like)
+        second = half_draws(gen, e, half, like)
+        return ensemble_sweep(target, state, w, a, first, second)
+
+    if steps_per_call > 1:
+        step_fn.block_fn = make_scan_block_fn(step_fn, steps_per_call)
+        step_fn.block_size = steps_per_call
+
+    return init_fn, step_fn

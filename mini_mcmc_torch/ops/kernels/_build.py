@@ -39,9 +39,12 @@ FUNCTORS = {"rosenbrock_nd": 0, "gaussian2d": 1, "poisson": 2,
 #: functors -> (id in csrc/coord_targets.cuh, number of [1, D] tables)
 SEP_FUNCTORS = {"standard_normal": (0, 0), "isotropic_gaussian": (1, 0),
                 "sigma_table_normal": (2, 1)}
-#: (target, D) instantiated by csrc/pt_multistep.cu, each for ladders of
-#: up to PT_MAX_TEMPS rungs
-PT_INSTANCES = (("gaussian2d", 2), ("gaussian_mixture_1d", 1))
+#: (target, D, transformed) instantiated by csrc/pt_multistep.cu, each for
+#: ladders of up to PT_MAX_TEMPS rungs; transformed: the functor inside
+#: targets.cuh:Transformed (a transform=)
+PT_INSTANCES = tuple((t, d, tf) for t, d in (("gaussian2d", 2),
+                                              ("gaussian_mixture_1d", 1))
+                     for tf in (False, True))
 PT_MAX_TEMPS = 16
 #: Proposal.cuda_functor names -> the ids of csrc/proposals.cuh
 PROPOSALS = {"isotropic_gaussian": 0, "random_walk_int": 1}
@@ -54,13 +57,15 @@ KERNEL_DIMS = (2, 3, 4)
 #: the head of a transformed target's bijector table: (a, s, 1 / s) of
 #: each soft saturation (models/transforms.py:soft_saturation_constants)
 TRANSFORM_HEAD = 6
-#: (target, proposal, state dtype, D) instantiated by csrc/mh_multistep.cu
-MH_INSTANCES = (
-    ("gaussian2d", "isotropic_gaussian", torch.float32, 2),
-    ("rosenbrock_nd", "isotropic_gaussian", torch.float32, 2),
-    ("rosenbrock_nd", "isotropic_gaussian", torch.float32, 3),
-    ("poisson", "random_walk_int", torch.int32, 1),
-)
+#: (target, proposal, state dtype, D, transformed) instantiated by
+#: csrc/mh_multistep.cu; transformed: the functor inside
+#: targets.cuh:Transformed (a transform=), float32 states only
+MH_INSTANCES = tuple(
+    (t, "isotropic_gaussian", torch.float32, d, tf)
+    for t, d in (("gaussian2d", 2), ("rosenbrock_nd", 2),
+                 ("rosenbrock_nd", 3))
+    for tf in (False, True)) + (
+    ("poisson", "random_walk_int", torch.int32, 1, False),)
 #: (conditional, D) instantiated by csrc/gibbs_multistep.cu
 GIBBS_INSTANCES = (("gaussian_mixture", 2),)
 #: state dtypes -> csrc/mh_multistep.cu:StateType
@@ -119,16 +124,18 @@ def instance_flags(target) -> int:
                                            is not None))
 
 
-def plain_functor(target, what: str) -> None:
-    """Raise for a whitened or transformed target: only Kernels 1-4 and
-    the separable kernel run those wrappers, and ``what`` would read
-    ``L`` or the bijector table as the functor's own coefficients."""
+def unwhitened(target, what: str) -> bool:
+    """Whether ``target`` is transformed (the MH and tempering kernels'
+    ``transformed`` argument: ``mm::Transformed``); raises for a whitened
+    target, which they have no instance for (the JAX MH and tempering take
+    no ``metric=``), and for wrappers no kernel runs."""
     supported(target)
-    if target.cuda_affine or target.cuda_transform is not None:
+    if target.cuda_affine:
         raise ValueError(
-            f"{what} with a whitened (metric=) or transformed "
-            "(transform=) target does not run on CUDA: only Kernels 1-4 "
-            "and the separable kernel run those wrappers")
+            f"{what} with a whitened (metric=) target does not run on "
+            "CUDA: MH and tempering take no metric; only Kernels 1-4 and "
+            "the separable kernel run the whitened wrapper")
+    return target.cuda_transform is not None
 
 
 def proposal_id(proposal) -> int:
@@ -251,14 +258,14 @@ def lib() -> ctypes.CDLL:
         + [_P] * 11 + [_I, _P, _P],
         "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I] * 4
         + [_P, _I] + [_P] * 6 + [_I, _P, _P],
-        "mm_mh_multistep": [_P] * 4 + [_I] * 6 + [_U] * 4 + [_P] * 3
+        "mm_mh_multistep": [_P] * 4 + [_I] * 7 + [_U] * 4 + [_P] * 3
         + [_LL, _LL, _P],
         "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
         + [_LL, _LL, _P],
         "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
         "mm_hmc_separable_step": [_P] * 9 + [_I] * 7 + [_U] * 4 + [_P] * 4,
         "mm_hmc_separable_clusters": [_I] * 4 + [_P],
-        "mm_pt_multistep": [_P] * 5 + [_I] * 7 + [_U] * 3 + [_P] * 4
+        "mm_pt_multistep": [_P] * 5 + [_I] * 8 + [_U] * 3 + [_P] * 4
         + [_LL, _LL, _P],
     }
     for name, argtypes in sigs.items():

@@ -9,8 +9,13 @@ the strict accept ``(lp' - lp) > log(u)`` with true selects, and the kept
 position written to ``hist[k]``.
 
 Positions are float32 or int32 (discrete targets); the cached logp is
-float32. ``hist`` is a ``[K, C, D]`` view into the runner's preallocated
-cube (any strides with a unit D stride), written in place. ``seed`` is the
+float32. A transformed target (``transform=``) runs the float32 instances
+inside ``targets.cuh:Transformed``: the walk in the unconstrained y, the
+density ``logp(g(y)) + log|g'(y)|``, the twin's ``target.batch_logp`` of
+the wrapped target; its launches are also counted in
+``mh_multistep.transformed_launches``. ``hist`` is a ``[K, C, D]`` view
+into the runner's preallocated cube (any strides with a unit D stride),
+written in place. ``seed`` is the
 run's 64-bit Philox key, ``step0`` the global step of the block's first
 step and ``chain0`` the index of the first chain, so the draws depend on
 neither the grouping of steps into blocks nor a split of the chains.
@@ -63,25 +68,35 @@ PROPOSE_FROM_WORDS = {
 
 def mh_instance(target, proposal, dtype, dim: int) -> tuple[int, int, int]:
     """The kernel's (target, proposal, state type) ids; raises
-    ``ValueError`` for a pair without a CUDA form or not instantiated at
-    ``dtype`` and ``dim``, naming the instances that exist. Resolved once
-    per (forms, dtype, D), then read from a cache on every launch."""
-    _build.plain_functor(target, "the MH kernel")
-    return _mh_ids(target.cuda_functor, proposal.cuda_functor, dtype, dim)
+    ``ValueError`` for a whitened target, a pair without a CUDA form or
+    one not instantiated at ``dtype`` and ``dim`` (plain, or transformed
+    for a transformed target), naming the instances that exist. Resolved
+    once per (forms, dtype, D, transformed), then read from a cache on
+    every launch."""
+    transformed = _build.unwhitened(target, "the MH kernel")
+    return _mh_ids(target.cuda_functor, proposal.cuda_functor, dtype, dim,
+                   transformed)
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 @functools.cache
-def _mh_ids(target: str | None, proposal: str | None, dtype,
-            dim: int) -> tuple[int, int, int]:
+def _mh_ids(target: str | None, proposal: str | None, dtype, dim: int,
+            transformed: bool) -> tuple[int, int, int]:
     tid = _build.form_id(target, _build.FUNCTORS, "Target")
     pid = _build.form_id(proposal, _build.PROPOSALS, "Proposal")
-    if (target, proposal, dtype, dim) not in _build.MH_INSTANCES:
-        built = ", ".join(f"({t}, {p}, {str(dt).replace('torch.', '')}, "
-                          f"D={d})" for t, p, dt, d in _build.MH_INSTANCES)
+    if (target, proposal, dtype, dim, transformed) not in (
+            _build.MH_INSTANCES):
+        built = ", ".join(
+            f"({t}, {p}, {_dtype_name(dt)}, D={d}"
+            f"{', transformed' if tf else ''})"
+            for t, p, dt, d, tf in _build.MH_INSTANCES)
         raise ValueError(
             "the MH kernel is built for (target, proposal, state dtype, D) "
-            f"in {built}; got ({target}, {proposal}, "
-            f"{str(dtype).replace('torch.', '')}, D={dim})")
+            f"in {built}; got ({target}, {proposal}, {_dtype_name(dtype)}, "
+            f"D={dim}{', transformed' if transformed else ''})")
     return tid, pid, _build.STATE_TYPES[dtype]
 
 
@@ -133,6 +148,7 @@ def mh_multistep(target, proposal, pos, logp, seed: int, step0: int,
         raise ValueError(f"positions must be [C, D]; got {tuple(pos.shape)}")
     c, d = pos.shape
     tid, pid, state_type = mh_instance(target, proposal, pos.dtype, d)
+    transformed = int(target.cuda_transform is not None)
     if (logp.shape != (c,) or logp.dtype != torch.float32
             or logp.device != pos.device):
         raise ValueError(f"logp must be float32 [{c}] on {pos.device}; got "
@@ -146,11 +162,13 @@ def mh_multistep(target, proposal, pos, logp, seed: int, step0: int,
     seed_lo, seed_hi = rng.seed_words(seed)
     lib = _build.lib()
     mh_multistep.launches += 1
+    mh_multistep.transformed_launches += transformed
     _build.check(lib.mm_mh_multistep(
         pos.data_ptr(), logp.data_ptr(),
         _build.params_ptr(target, pos.device),
         _build.params_ptr(proposal, pos.device), k_steps, c, d, tid, pid,
-        state_type, chain0 & _MASK, seed_lo, seed_hi, step0 & _MASK,
+        state_type, transformed, chain0 & _MASK, seed_lo, seed_hi,
+        step0 & _MASK,
         pos_o.data_ptr(), logp_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
         _build.stream_ptr(pos.device),
     ))
@@ -158,3 +176,4 @@ def mh_multistep(target, proposal, pos, logp, seed: int, step0: int,
 
 
 mh_multistep.launches = 0
+mh_multistep.transformed_launches = 0

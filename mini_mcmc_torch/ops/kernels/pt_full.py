@@ -9,6 +9,12 @@ EWMA, with true selects throughout (a ``-inf`` log density stays
 ``-inf``). Only the cold rung goes into ``hist``, a ``[K, C, D]`` view of
 the runner's cube (unit D stride), written in place.
 
+A transformed target (``transform=``) runs the instances inside
+``targets.cuh:Transformed``: the replicas walk the unconstrained y, each
+rung's density ``beta_t`` times ``logp(g(y)) + log|g'(y)|``, the twin's
+``target.batch_logp`` of the wrapped target; those launches are also
+counted in ``pt_multistep.transformed_launches``.
+
 State layout is the JAX package's: positions ``[T, D, C]``, raw logp
 ``[T, C]``, swap EWMA ``[T-1, C]``, all float32; the parity of the first
 step is a host int and that of step k is ``(parity + k) % 2``. The draws are
@@ -68,20 +74,24 @@ def make_ladder(betas, proposal_std, dim: int, device) -> Ladder:
 
 
 def pt_instance(target, n_temps: int, dim: int) -> int:
-    """The kernel's target id; raises ``ValueError`` for a target without
-    a CUDA form, a (target, D) not instantiated or a ladder longer than
-    ``_build.PT_MAX_TEMPS``, naming what exists."""
-    _build.plain_functor(target, "the tempering kernel")
-    return _pt_id(target.cuda_functor, n_temps, dim)
+    """The kernel's target id; raises ``ValueError`` for a whitened
+    target, a target without a CUDA form, a (target, D) not instantiated
+    (plain, or transformed for a transformed target) or a ladder longer
+    than ``_build.PT_MAX_TEMPS``, naming what exists."""
+    transformed = _build.unwhitened(target, "the tempering kernel")
+    return _pt_id(target.cuda_functor, n_temps, dim, transformed)
 
 
 @functools.cache
-def _pt_id(functor: str | None, n_temps: int, dim: int) -> int:
+def _pt_id(functor: str | None, n_temps: int, dim: int,
+           transformed: bool) -> int:
     tid = _build.form_id(functor, _build.FUNCTORS, "Target")
-    if (functor, dim) not in _build.PT_INSTANCES:
-        built = ", ".join(f"({t}, D={d})" for t, d in _build.PT_INSTANCES)
+    if (functor, dim, transformed) not in _build.PT_INSTANCES:
+        built = ", ".join(f"({t}, D={d}{', transformed' if tf else ''})"
+                          for t, d, tf in _build.PT_INSTANCES)
         raise ValueError(f"the tempering kernel is built for (target, D) in "
-                         f"{built}; got ({functor}, D={dim})")
+                         f"{built}; got ({functor}, D={dim}"
+                         f"{', transformed' if transformed else ''})")
     if n_temps > _build.PT_MAX_TEMPS:
         raise ValueError(f"the tempering kernel takes at most "
                          f"{_build.PT_MAX_TEMPS} rungs; got {n_temps}")
@@ -150,6 +160,7 @@ def pt_multistep(target, pos, logp, swap_accept, parity: int, lad: Ladder,
                          f"{tuple(pos.shape)}")
     t, d, c = pos.shape
     tid = pt_instance(target, t, d)
+    transformed = int(target.cuda_transform is not None)
     want = {"pos": (pos, (t, d, c)), "logp": (logp, (t, c)),
             "swap_accept": (swap_accept, (t - 1, c)),
             "ladder": (lad.packed, (t + t - 1 + t * d,))}
@@ -168,10 +179,11 @@ def pt_multistep(target, pos, logp, swap_accept, parity: int, lad: Ladder,
     seed_lo, seed_hi = rng.seed_words(seed)
     lib = _build.lib()
     pt_multistep.launches += 1
+    pt_multistep.transformed_launches += transformed
     _build.check(lib.mm_pt_multistep(
         pos.data_ptr(), logp.data_ptr(), swap_accept.data_ptr(),
         _build.params_ptr(target, pos.device), lad.packed.data_ptr(), c, d,
-        t, k_steps, n_inner, tid, parity % 2, seed_lo, seed_hi,
+        t, k_steps, n_inner, tid, transformed, parity % 2, seed_lo, seed_hi,
         step0 & _MASK, pos_o.data_ptr(), logp_o.data_ptr(), sa_o.data_ptr(),
         hist_ptr, hist_sk, hist_sc, _build.stream_ptr(pos.device),
     ))
@@ -179,3 +191,4 @@ def pt_multistep(target, pos, logp, swap_accept, parity: int, lad: Ladder,
 
 
 pt_multistep.launches = 0
+pt_multistep.transformed_launches = 0

@@ -1,13 +1,15 @@
 """User-facing sampler objects.
 
 Counterpart of ``mini_mcmc_tpu/samplers.py`` (``_KernelSampler``,
-``MetropolisHastings``, ``HMC``, ``MALA``, ``GibbsSampler``,
-``ParallelTempering``): construct with a target and initial positions,
-optionally ``seed``, then ``run(n_collect, n_discard)`` returns the
-``[n_chains, n_collect, dim]`` sample cube. The sampler carries the state
-between runs, so consecutive runs continue the chains. ``tuned`` (HMC,
-MALA, MH) and ``warmed_up`` (HMC, MALA) return new samplers adapted by
-dual averaging (``ops/adapt.py``). ``run_progress`` runs with a live
+``MetropolisHastings``, ``HMC``, ``MALA``, ``ChEESHMC``,
+``EnsembleSampler``, ``ParallelTempering``, ``EllipticalSliceSampler``,
+``SliceSampler``, ``GibbsSampler``): construct with a target and initial
+positions, optionally ``seed``, then ``run(n_collect, n_discard)`` returns
+the ``[n_chains, n_collect, dim]`` sample cube. The sampler carries the
+state between runs, so consecutive runs continue the chains. ``tuned``
+(HMC, MALA, MH) and ``warmed_up`` (HMC, MALA, ChEES-HMC) return new
+samplers adapted by dual averaging (``ops/adapt.py``; ChEES also adapts
+its trajectory length, ``ops/chees.py``). ``run_progress`` runs with a live
 progress display and returns the cube with its :class:`~mini_mcmc_torch.
 stats.RunStats`.
 
@@ -32,6 +34,9 @@ from .models.precondition import (
 )
 from .models.transforms import CoordinateTransform
 from .ops.adapt import dual_average_step_size
+from .ops.chees import chees_adapt, chees_hmc_kernel
+from .ops.elliptical import elliptical_kernel
+from .ops.ensemble import ensemble_kernel
 from .ops.gibbs import gibbs_kernel
 from .ops.hmc import hmc_kernel
 from .ops.kernels._build import functor_id
@@ -40,6 +45,7 @@ from .ops.kernels.hmc_sep import sep_functor
 from .ops.kernels.mh_full import mh_instance
 from .ops.kernels.pt_full import pt_instance
 from .ops.mh import mh_kernel, mh_step_alpha
+from .ops.slice import slice_kernel
 from .ops.tempering import geometric_betas, tempering_kernel, tune_betas
 from .progress import progress_run
 from .runner import (
@@ -118,6 +124,13 @@ def _wrap_sampler_target(target, positions, transform, metric):
     kernel_target, positions_map = target, None
     transform = _transform_of(transform, positions)
     if transform is not None:
+        if not positions.dtype.is_floating_point:
+            # the JAX package maps an integer state to float y and walks it
+            # there, giving non-integer draws (ROADMAP.md, Queue 3)
+            raise ValueError(
+                "transform= maps positions to unconstrained real "
+                f"coordinates and needs a floating-point state; got "
+                f"{positions.dtype} (a discrete target takes no transform)")
         kernel_target = transform.wrap(target)
         positions_map = transform.to_x
         positions = transform.to_y(positions)
@@ -150,17 +163,6 @@ def _unconstrained_positions(sampler) -> torch.Tensor:
     if sampler.metric is not None:
         pos = sampler.metric.to_x(pos)
     return pos
-
-
-def _no_fused_transform(sampler: str, use_pallas, transformed: bool) -> None:
-    """MH and tempering take a transform on their lockstep tiers only: the
-    fused kernels (5 and 8) have no transformed instance yet (ROADMAP.md,
-    Queue 1)."""
-    if use_pallas and transformed:
-        raise ValueError(
-            f"{sampler}(use_pallas={use_pallas!r}) does not run a "
-            "transform= target: its fused kernel has no transformed "
-            "instance yet (ROADMAP.md, Queue 1). Use use_pallas=False.")
 
 
 def _float32_only(sampler: str, use_pallas, positions) -> None:
@@ -299,10 +301,11 @@ class MetropolisHastings(_KernelSampler):
     ``transform``: optional :class:`~mini_mcmc_torch.models.transforms.
     CoordinateTransform`; ``target`` is then a density in natural
     coordinates and the proposal walks the unconstrained ones, while
-    ``initial_positions``, the samples and ``positions`` stay natural. It
-    runs on the plain tier: ``use_pallas`` with a transform raises
-    ``ValueError`` (Kernel 5 has no transformed instance yet).
-    ``pallas_interpret`` and ``validate_dc`` have no counterpart.
+    ``initial_positions``, the samples and ``positions`` stay natural.
+    ``"full"`` runs it through Kernel 5's transformed instance
+    (``targets.cuh:Transformed``). An integer state takes no transform
+    (``ValueError``). ``pallas_interpret`` and ``validate_dc`` have no
+    counterpart.
 
     Example:
         >>> import mini_mcmc_torch as mt
@@ -332,15 +335,13 @@ class MetropolisHastings(_KernelSampler):
         kernel_target, positions_map, positions, _ = _wrap_sampler_target(
             target, positions, transform, None)
         self.transform = transform
-        _no_fused_transform("MetropolisHastings", use_pallas,
-                            positions_map is not None)
         self.kernel_target = kernel_target
         init_fn, step_fn = mh_kernel(kernel_target, proposal,
                                      use_pallas=use_pallas,
                                      steps_per_call=steps_per_call)
         if use_pallas and positions.is_cuda and positions.dim() == 2:
-            # a pair the kernel cannot run: raise now
-            mh_instance(target, proposal, positions.dtype,
+            # a pair the kernel cannot run (plain or transformed): raise now
+            mh_instance(kernel_target, proposal, positions.dtype,
                         positions.shape[1])
         super().__init__(init_fn, step_fn, positions, seed,
                          positions_map=positions_map)
@@ -589,6 +590,195 @@ class MALA(HMC):
         return super().reconditioned(kind, seed=seed, step_size=step_size)
 
 
+class ChEESHMC(_KernelSampler):
+    """Jittered-trajectory HMC with ChEES trajectory-length adaptation
+    (``mini_mcmc_tpu/samplers.py:591-711``, ``ops/chees.py``): every chain
+    integrates for one shared time ``u T`` a step, the lockstep
+    alternative to NUTS.
+
+    Construct with a rough ``step_size`` (``traj_len`` defaults to it, one
+    leapfrog), call :meth:`warmed_up` to adapt the step size (dual
+    averaging toward 0.651) and ``traj_len`` (Adam on the ChEES
+    criterion) together, then :meth:`run`. A step's leapfrog count is a
+    host integer, so ``run()`` reads nothing from the device. ``metric``
+    and ``transform`` as :class:`HMC`'s (the kernel's coordinates are
+    unconstrained, then whitened); runs on ``device`` (``"cuda"`` by
+    default; ``device="cpu"`` on the CPU).
+
+    Example:
+        >>> import mini_mcmc_torch as mt
+        >>> ch = mt.ChEESHMC(mt.gaussian2d([0., 0.], [[1., 0.], [0., 1.]]),
+        ...                  mt.init_det(64, 2, device="cpu"),
+        ...                  step_size=0.5, seed=42, device="cpu")
+        >>> tuple(ch.warmed_up(50).run(100, 20).shape)
+        (64, 100, 2)
+    """
+
+    _default_target_accept = 0.651
+
+    def __init__(self, target, initial_positions, step_size: float,
+                 traj_len: Optional[float] = None, max_leapfrog: int = 1024,
+                 seed: Optional[int] = None, metric=None, transform=None, *,
+                 device="cuda"):
+        self.target = target
+        self.step_size = step_size
+        #: the integration time T: a step integrates for u T, u ~ U(0, 1),
+        #: about T / (2 step_size) leapfrogs on average
+        self.traj_len = float(traj_len) if traj_len is not None else step_size
+        self.max_leapfrog = max_leapfrog
+        self.transform = transform
+        self._ctor = dict(max_leapfrog=max_leapfrog, transform=transform,
+                          device=device)
+        positions = initial_positions_on(initial_positions, device)
+        kernel_target, positions_map, positions, self.metric = (
+            _wrap_sampler_target(target, positions, transform, metric))
+        self.kernel_target = kernel_target
+        init_fn, step_fn = chees_hmc_kernel(kernel_target, step_size,
+                                            self.traj_len, max_leapfrog)
+        super().__init__(init_fn, step_fn, positions, seed,
+                         positions_map=positions_map)
+
+    def warmed_up(self, n_adapt: int = 500, *, target_accept=None,
+                  adam_lr: float = 0.025, seed=None) -> "ChEESHMC":
+        """A new sampler continuing from the adapted positions with the
+        step size and trajectory length tuned together
+        (``ops/chees.py:chees_adapt``: ``n_adapt`` jittered steps, Halton
+        jitter, one device read a step). The returned sampler's
+        ``warmup_trace`` holds the per-step ``alpha``, ``traj_len`` and
+        ``eps``. Without ``seed`` its generator descends from this
+        sampler's, so a seeded workflow stays reproducible."""
+        if target_accept is None:
+            target_accept = self._default_target_accept
+        state, eps, traj_len, trace = chees_adapt(
+            self.kernel_target, self.state, self._next_key(), n_adapt,
+            self.step_size, self.traj_len, target_accept=target_accept,
+            adam_lr=adam_lr, max_leapfrog=self.max_leapfrog)
+        new = ChEESHMC(self.target, self._positions_of(state), eps,
+                       traj_len, seed=seed, metric=self.metric, **self._ctor)
+        new.warmup_trace = trace
+        if seed is None:
+            new._gen = self._child_generator()
+        return new
+
+    def reconditioned(self, kind: str = "diag", *, seed=None,
+                      step_size=None, traj_len=None) -> "ChEESHMC":
+        """A new ChEESHMC continuing from the current positions, whitened
+        by a metric estimated from the ensemble (:meth:`HMC.reconditioned`'s
+        contract): the step size and the trajectory length move to whitened
+        units through ``sigma_min`` after undoing this sampler's metric;
+        ``step_size``/``traj_len`` override. A later :meth:`warmed_up`
+        tunes both anew."""
+        pre = estimate_preconditioner(_unconstrained_positions(self), kind)
+        old = self.metric.sigma_min() if self.metric is not None else 1.0
+        new = ChEESHMC(
+            self.target, self.positions,
+            step_size if step_size is not None
+            else self.step_size * old / pre.sigma_min(),
+            traj_len if traj_len is not None
+            else self.traj_len * old / pre.sigma_min(),
+            seed=seed, metric=pre, **self._ctor)
+        if seed is None:
+            new._gen = self._child_generator()
+        return new
+
+
+class EnsembleSampler(_KernelSampler):
+    """Affine-invariant ensemble sampler, the stretch move of Goodman &
+    Weare (2010) (``mini_mcmc_tpu/samplers.py:714-756``,
+    ``ops/ensemble.py``).
+
+    ``initial_positions [C, D]`` holds ``C / walkers_per_ensemble``
+    independent ensembles advancing in one batch (one ensemble of all C by
+    default); use >= 2 D walkers an ensemble and a spread initial cloud.
+    One ``run`` row is one sweep (both halves). ``steps_per_call`` > 1
+    runs K sweeps a block. ``transform``: the move interpolates in the
+    unconstrained space; samples and ``positions`` stay natural. Runs on
+    ``device`` (``"cuda"`` by default).
+    """
+
+    def __init__(self, target, initial_positions,
+                 walkers_per_ensemble: Optional[int] = None, a: float = 2.0,
+                 seed: Optional[int] = None, steps_per_call: int = 1,
+                 transform=None, *, device="cuda"):
+        self.target = target
+        self.a = a
+        self.transform = transform
+        positions = initial_positions_on(initial_positions, device)
+        kernel_target, positions_map, positions, _ = _wrap_sampler_target(
+            target, positions, transform, None)
+        self.kernel_target = kernel_target
+        if walkers_per_ensemble is None:
+            walkers_per_ensemble = positions.shape[0]
+        self.walkers_per_ensemble = walkers_per_ensemble
+        init_fn, step_fn = ensemble_kernel(
+            kernel_target, walkers_per_ensemble=walkers_per_ensemble, a=a,
+            steps_per_call=steps_per_call)
+        super().__init__(init_fn, step_fn, positions, seed,
+                         positions_map=positions_map)
+
+
+class EllipticalSliceSampler(_KernelSampler):
+    """Elliptical slice sampling (Murray, Adams & MacKay 2010) for ``p(x)
+    ~ N(x; prior_mean, Sigma) L(x)`` (``mini_mcmc_tpu/samplers.py:
+    874-912``, ``ops/elliptical.py``).
+
+    ``loglik`` is the likelihood ``L`` alone (a Target); the prior is
+    ``prior_mean`` (scalar or ``[D]``) and ``prior_scale`` (a scalar std,
+    ``[D]`` stds or the ``[D, D]`` lower Cholesky factor of Sigma), handled
+    exactly by the ellipse. Nothing to tune. Runs on ``device`` (``"cuda"``
+    by default).
+    """
+
+    def __init__(self, loglik, initial_positions, prior_mean=0.0,
+                 prior_scale=1.0, max_shrink: int = 32,
+                 seed: Optional[int] = None, steps_per_call: int = 1, *,
+                 device="cuda"):
+        self.loglik = loglik
+        self.prior_mean = prior_mean
+        self.prior_scale = prior_scale
+        positions = initial_positions_on(initial_positions, device)
+        init_fn, step_fn = elliptical_kernel(
+            loglik, prior_mean=prior_mean, prior_scale=prior_scale,
+            max_shrink=max_shrink, steps_per_call=steps_per_call)
+        super().__init__(init_fn, step_fn, positions, seed)
+
+
+class SliceSampler(_KernelSampler):
+    """Coordinate-wise slice sampler (Neal 2003): one step is one sweep
+    over the coordinates, stepping out and shrinkage in masked lockstep
+    loops (``mini_mcmc_tpu/samplers.py:915-968``, ``ops/slice.py``).
+
+    ``width``: the initial bracket, a scalar or ``[D]``, or ``"auto"``:
+    the per-coordinate cross-chain std (ddof 0) of the initial positions
+    in the kernel's coordinates, 1 where that spread is at most 1e-6. Any
+    positive width is exact. ``transform``: the bracket walks the
+    unconstrained space. Runs on ``device`` (``"cuda"`` by default).
+    """
+
+    def __init__(self, target, initial_positions, width=1.0,
+                 max_stepouts: int = 8, max_shrink: int = 32,
+                 seed: Optional[int] = None, steps_per_call: int = 1,
+                 transform=None, *, device="cuda"):
+        self.target = target
+        self.transform = transform
+        positions = initial_positions_on(initial_positions, device)
+        kernel_target, positions_map, positions, _ = _wrap_sampler_target(
+            target, positions, transform, None)
+        self.kernel_target = kernel_target
+        if isinstance(width, str):
+            if width != "auto":
+                raise ValueError(
+                    f'width must be positive or "auto", got {width!r}')
+            spread = torch.std(positions, dim=0, correction=0)
+            width = torch.where(spread > 1e-6, spread, 1.0)
+        self.width = width
+        init_fn, step_fn = slice_kernel(
+            kernel_target, width=width, max_stepouts=max_stepouts,
+            max_shrink=max_shrink, steps_per_call=steps_per_call)
+        super().__init__(init_fn, step_fn, positions, seed,
+                         positions_map=positions_map)
+
+
 class GibbsSampler(_KernelSampler):
     """Batched Gibbs sampler: one step is one full coordinate sweep
     (reference ``gibbs.rs:95-99``).
@@ -642,10 +832,9 @@ class ParallelTempering(_KernelSampler):
     ``transform``: optional :class:`~mini_mcmc_torch.models.transforms.
     CoordinateTransform`; the replicas walk the unconstrained space (the
     tempered densities are ``beta`` times the wrapped logp) and the cold
-    cube and ``positions`` stay natural. It runs on the plain tier:
-    ``use_pallas`` with a transform raises ``ValueError`` (Kernel 8 has no
-    transformed instance yet). ``pallas_interpret`` and ``validate_dc``
-    have no counterpart.
+    cube and ``positions`` stay natural. ``"full"`` runs it through Kernel
+    8's transformed instance (``targets.cuh:Transformed``).
+    ``pallas_interpret`` and ``validate_dc`` have no counterpart.
     """
 
     def __init__(self, target, initial_positions,
@@ -664,16 +853,15 @@ class ParallelTempering(_KernelSampler):
         positions = initial_positions_on(initial_positions, device)
         kernel_target, positions_map, positions, _ = _wrap_sampler_target(
             target, positions, transform, None)
-        _no_fused_transform("ParallelTempering", use_pallas,
-                            positions_map is not None)
         self.kernel_target = kernel_target
         init_fn, step_fn = tempering_kernel(
             kernel_target, self.betas, proposal_std=proposal_std,
             n_inner=n_inner, steps_per_call=steps_per_call,
             use_pallas=use_pallas)
         if use_pallas and positions.is_cuda and positions.dim() == 2:
-            # a target or ladder the kernel cannot run: raise now
-            pt_instance(target, len(self.betas), positions.shape[1])
+            # a target (plain or transformed) or ladder the kernel cannot
+            # run: raise now
+            pt_instance(kernel_target, len(self.betas), positions.shape[1])
             _float32_only("ParallelTempering", use_pallas, positions)
         # the cold rung, mapped to natural coordinates under a transform
         super().__init__(init_fn, step_fn, positions, seed, recorded=_cold,

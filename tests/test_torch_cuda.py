@@ -29,7 +29,11 @@ twins on the whitened target as the plain instances are, and with
 instances (a diagonal metric, ``csrc/coord_targets.cuh:Scaled``) as its
 plain ones, on the float4 and the scalar path. MALA's ``"full"`` blocks
 are Kernel 2 at L = 1, held to its twin per chain, and ``tuned`` leaves a
-finite step size on every tier.
+finite step size on every tier. The transformed instances of Kernels 5
+and 8 (``transform=``) are held to their twins per chain as the plain
+ones; ChEES-HMC, the ensemble, slice and elliptical samplers (no kernel)
+run on the card by default, and ChEES-HMC's ``run()`` reads nothing from
+the device.
 """
 
 import io
@@ -43,9 +47,13 @@ from mini_mcmc_torch import (
     HMC,
     MALA,
     NUTS,
+    ChEESHMC,
+    EllipticalSliceSampler,
+    EnsembleSampler,
     GibbsSampler,
     MetropolisHastings,
     ParallelTempering,
+    SliceSampler,
     RunStats,
     geometric_betas,
     split_rhat_mean_ess,
@@ -1641,9 +1649,13 @@ def test_cuda_transformed_samplers_and_refusals(cuda):
         over = tf.wrap(precondition_target(t, _metric(2, "diag", 1)))
         HMC(over, torch.randn((64, 2), device=cuda), 0.3, 8,
             use_pallas="full")
-    with pytest.raises(ValueError, match="transformed instance"):
-        MetropolisHastings(t, isotropic_gaussian_proposal(0.5), x0,
-                           use_pallas="full", transform=tf)
+    # MH under a transform runs Kernel 5's transformed instance
+    n = mh_multistep.transformed_launches
+    mh = MetropolisHastings(t, isotropic_gaussian_proposal(0.5), x0,
+                            use_pallas="full", steps_per_call=8,
+                            transform=tf).seed(3)
+    assert (mh.run(32, 32)[..., 0] > 0).all()
+    assert mh_multistep.transformed_launches == n + 8
     sep = CoordinateTransform({i: positive() for i in range(64)}, dim=64)
     xs = sep.to_x(torch.randn((256, 64), device=cuda))
     n = hmc_separable_step.transformed_launches
@@ -1651,3 +1663,188 @@ def test_cuda_transformed_samplers_and_refusals(cuda):
              transform=sep).seed(1)
     assert (hs.run(16, 16) > 0).all()
     assert hmc_separable_step.transformed_launches == n + 32
+
+
+# the transformed instances of Kernels 5 and 8 (targets.cuh:Transformed)
+MH_TRANSFORMED = [("gaussian2d", 2, 0.6), ("rosenbrock", 2, 0.1),
+                  ("rosenbrock", 3, 0.1)]
+
+
+def _logp_near(got, want, rounding):
+    """Within MH's rtol/atol and twice the transformed density's float32
+    rounding (``CoordinateTransform.density_rounding``): the kernel and
+    its twin each miss the float64 density by up to that."""
+    return ((got - want).double().abs()
+            <= 1e-6 + 1e-5 * want.double().abs() + 2 * rounding)
+
+
+def _mh_transformed(name, d, c, cuda, seed):
+    """_transformed's tables and states, with the inner target and the
+    transform."""
+    from mini_mcmc_torch.models import (
+        CoordinateTransform,
+        interval,
+        lower_bounded,
+        positive,
+        upper_bounded,
+    )
+
+    if name == "gaussian2d":
+        t = gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+        x = np.abs(_nuts_state(c, seed)[0]) * [1.0, -1.0] + [0.0, 1.0]
+        table = {0: positive(), 1: upper_bounded(4.0)}
+    else:
+        t, x = rosenbrock_nd(), np.abs(_state(c, d, seed)[0])
+        table = {0: positive(), 1: interval(-1.0, 3.0)}
+        if d > 2:
+            table[2] = lower_bounded(-2.0)
+    tf = CoordinateTransform(table, dim=d)
+    y = tf.to_y(torch.from_numpy(np.asarray(x, np.float32)).to(cuda))
+    return t, tf, tf.wrap(t), y.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, d, std", MH_TRANSFORMED)
+def test_cuda_transformed_mh_multistep_matches_plain(cuda, name, d, std):
+    c, k = 8192, 16
+    t, tf, w, y = _mh_transformed(name, d, c, cuda, seed=120 + d)
+    p = isotropic_gaussian_proposal(std)
+    lp = w.batch_logp(y)
+    hk = torch.empty((k, c, d), device=cuda)
+    hp = torch.empty_like(hk)
+    n, nt = mh_multistep.launches, mh_multistep.transformed_launches
+    pk, lk = mh_multistep(w, p, y, lp, 0xFACE, 3, k, hk)
+    assert mh_multistep.launches == n + 1
+    assert mh_multistep.transformed_launches == nt + 1
+    pp, lpp = mh_multistep_plain(w, p, y, lp, 0xFACE, 3, k, hp)
+    torch.cuda.synchronize()
+    agree = _near(hk, hp).all(2).all(0) & _near(pk, pp).all(1)
+    agree &= _logp_near(lk, lpp, tf.density_rounding(t, pp))
+    assert _share(agree) >= 0.999
+    moved = (hk[1:] != hk[:-1]).any(2)
+    assert 0.1 < _share(moved) < 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mixture", "gaussian2d"])
+def test_cuda_transformed_pt_multistep_matches_plain(cuda, which):
+    from mini_mcmc_torch.models import CoordinateTransform, interval
+
+    c, k, n_temps = 8192, 16, 8
+    if which == "mixture":
+        g = np.random.default_rng(61)
+        x = g.choice([-8.0, 8.0], (c, 1)) + 0.5 * g.standard_normal((c, 1))
+        t = _mixture()
+        tf = CoordinateTransform({0: interval(-24.0, 24.0)}, dim=1)
+        w = tf.wrap(t)
+        y = tf.to_y(torch.from_numpy(x.astype(np.float32)).to(cuda))
+        d, std = 1, 0.1
+    else:
+        t, tf, w, y = _mh_transformed("gaussian2d", 2, c, cuda, seed=62)
+        d, std = 2, [0.5, 0.3]
+    betas = geometric_betas(n_temps, 0.01)
+    pt = ParallelTempering(w, y, betas=betas, proposal_std=std, device=cuda)
+    s = pt.state
+    lad = make_ladder(betas, std, d, cuda)
+    hk = torch.empty((k, c, d), device=cuda)
+    hp = torch.empty_like(hk)
+    args = (w, s.positions, s.raw_logp, s.swap_accept, 1, lad, 0xBEEF, 7,
+            k, 1)
+    n, nt = pt_multistep.launches, pt_multistep.transformed_launches
+    got = pt_multistep(*args, hk)
+    assert pt_multistep.launches == n + 1
+    assert pt_multistep.transformed_launches == nt + 1
+    want = pt_multistep_plain(*args, hp)
+    torch.cuda.synchronize()
+    # the proposals round alike; the transformed density differs from the
+    # twin's within its float32 rounding (density_rounding), so an accept on
+    # such a tie may flip
+    same = _near(got[0], want[0]).all(1).all(0)
+    same &= (got[2] == want[2]).all(0) & _near(hk, hp).all(2).all(0)
+    tol = tf.density_rounding(t, want[0].permute(0, 2, 1).reshape(-1, d))
+    lp_ok = _logp_near(got[1], want[1], tol.reshape(n_temps, c)).all(0)
+    assert _share(same & lp_ok) >= 0.999
+    assert 0.05 < _share((hk[1:] != hk[:-1]).any(2)) < 0.95
+
+
+@pytest.mark.cuda
+def test_cuda_transformed_mh_and_pt_samplers_and_refusals(cuda):
+    from mini_mcmc_torch.models import (
+        CoordinateTransform,
+        interval,
+        positive,
+    )
+
+    tf = CoordinateTransform({0: positive()}, dim=2)
+    g2 = gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    x0 = tf.to_x(torch.randn((8192, 2), device=cuda))
+    n = mh_multistep.transformed_launches
+    mh = MetropolisHastings(g2, isotropic_gaussian_proposal(1.0), x0,
+                            use_pallas="full", steps_per_call=16,
+                            transform=tf).seed(8)
+    s = mh.run(512, 512, time_major=True)
+    assert mh_multistep.transformed_launches == n + 64
+    assert (s[..., 0] > 0).all() and torch.isfinite(s).all()
+    assert abs(float(s[..., 0].mean()) - math.sqrt(2 / math.pi)) < 0.05
+    itf = CoordinateTransform({0: interval(-24.0, 24.0)}, dim=1)
+    n = pt_multistep.transformed_launches
+    pt = ParallelTempering(_mixture(), torch.full((1024, 1), -8.0,
+                                                  device=cuda),
+                           betas=geometric_betas(8, 0.01), proposal_std=0.1,
+                           steps_per_call=16, use_pallas="full",
+                           transform=itf).seed(5)
+    s = pt.run(256, 256)
+    assert pt_multistep.transformed_launches == n + 32
+    assert ((s > -24.0) & (s < 24.0)).all()
+    assert 0.5 < float((s > 0).float().mean()) < 0.9
+    # a whitened target has no instance in either kernel
+    pre = _metric(2, "diag", 1).to(cuda)
+    with pytest.raises(ValueError, match="whitened"):
+        MetropolisHastings(precondition_target(g2, pre),
+                           isotropic_gaussian_proposal(1.0), x0,
+                           use_pallas="full")
+    with pytest.raises(ValueError, match="whitened"):
+        ParallelTempering(precondition_target(g2, pre), x0,
+                          use_pallas="full")
+
+
+@pytest.mark.cuda
+def test_cuda_new_samplers_default_to_the_card(cuda):
+    # no device argument: the state, the cube and the cached densities on
+    # the card, and each sampler's moments right at a small size
+    g = gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+    x = torch.randn((4096, 2))
+    ch = ChEESHMC(diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]),
+                  x, step_size=0.5, seed=1).warmed_up(100)
+    es = EnsembleSampler(g, x, walkers_per_ensemble=64,
+                         steps_per_call=16).seed(2)
+    sl = SliceSampler(g, x, steps_per_call=16).seed(3)
+    lik = Target(logp=lambda f: -0.5 * torch.sum((f - 1.0) ** 2, dim=-1))
+    el = EllipticalSliceSampler(lik, x, prior_scale=[1.0, 2.0],
+                                steps_per_call=16).seed(4)
+    for s, mean, var in ((ch, [0.0, 1.0], [4.0, 3.0]),
+                         (es, [0.0, 1.0], [4.0, 3.0]),
+                         (sl, [0.0, 1.0], [4.0, 3.0]),
+                         (el, [0.5, 0.8], [0.5, 0.8])):
+        assert s.state.positions.is_cuda
+        cube = s.run(128, 64)
+        assert cube.is_cuda and cube.shape == (4096, 128, 2)
+        flat = cube.reshape(-1, 2).double()
+        assert (flat.mean(0).cpu() - torch.tensor(mean)).abs().max() < 0.1
+        assert ((flat.var(0).cpu() / torch.tensor(var)) - 1).abs().max() < 0.1
+
+
+@pytest.mark.cuda
+def test_cuda_chees_run_reads_nothing_from_the_device(cuda):
+    # the production kernel's leapfrog count is a host integer (its jitter
+    # drawn by place on the host): run() makes no device-to-host read
+    ch = ChEESHMC(diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]),
+                  torch.randn((65536, 2)), step_size=0.5,
+                  seed=17).warmed_up(64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cube = ch.run(256, 0, time_major=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(cube).all()

@@ -5,7 +5,9 @@ sampled in natural ``tau > 0`` coordinates through ``transform=``.
 Tolerances: the non-centered density and its hand-written gradient at rtol
 1e-5 in float32 (JAX pinned to float32); the quadrature means at 1e-12
 (the same numpy); the natural-tau NUTS run to the JAX test's 0.3 (mu) and
-0.5 (tau) of the exact means (``tests/test_transforms.py:135-163``).
+0.5 (tau) of the exact means (``tests/test_transforms.py:135-163``); the
+ChEES stage (``bench.py:1342-1372``) at 256 chains to the bench's own
+gates.
 """
 
 import importlib.util
@@ -14,6 +16,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import mini_mcmc_torch as mt
@@ -94,3 +97,17 @@ def test_natural_tau_nuts_recovers_the_exact_means():
     assert abs(float(x[:, 0].mean()) - exact_mu) < 0.3
     assert abs(float(x[:, 1].mean()) - exact_tau) < 0.5
     assert (x[:, 1] > 0).all()  # tau stays in its natural range
+
+
+def test_chees_stage_passes_the_bench_gates_at_a_small_size():
+    # bench.py:1342-1372 at 256 chains, warmed_up(150), run(256, 64): the
+    # bench's moment gates; a shifted cube fails its E[mu] gate by name
+    ch = es.chees_adapted(device="cpu", n_chains=256, n_adapt=150)
+    assert ch.traj_len > 2.0 * ch.step_size
+    sample = ch.run(256, 64)
+    m = es.moment_gates("8schools chees", sample)
+    assert m["ess_min"] >= 0.002 * 256 * 256
+    shifted = sample.clone()
+    shifted[..., 0] += 1.0
+    with pytest.raises(AssertionError, match="8schools chees E\\[mu\\]"):
+        es.moment_gates("8schools chees", shifted)

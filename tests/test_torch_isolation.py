@@ -26,9 +26,11 @@ for info in pkgutil.walk_packages(mini_mcmc_torch.__path__,
     names.append(info.name)
 import chip_smoke  # its import block; main() runs only as a script
 
-# the MH, Gibbs, separable HMC, tempering, metric, run-surface and
-# transform slices among them
+# the MH, Gibbs, separable HMC, tempering, metric, run-surface,
+# transform and ChEES/ensemble/slice/elliptical slices among them
 assert {"mini_mcmc_torch.ops.mh", "mini_mcmc_torch.ops.gibbs",
+        "mini_mcmc_torch.ops.chees", "mini_mcmc_torch.ops.ensemble",
+        "mini_mcmc_torch.ops.slice", "mini_mcmc_torch.ops.elliptical",
         "mini_mcmc_torch.progress", "mini_mcmc_torch.stream",
         "mini_mcmc_torch.models.precondition",
         "mini_mcmc_torch.ops.kernels.mh_full",
@@ -54,4 +56,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr[-4000:]
     n_modules, loaded = out.stdout.split(maxsplit=1)
     assert loaded.strip() == "[]"
-    assert int(n_modules) >= 40  # every module of the package was imported
+    assert int(n_modules) >= 44  # every module of the package was imported

@@ -3,12 +3,18 @@ sampler cases): HMC, MALA, NUTS, MH and tempering with a transform equal
 the same sampler on ``tf.wrap(target)`` from ``tf.to_y(x0)`` bit for bit,
 their samples mapped by ``to_x``, on every tier's plain twin; a metric
 composes with a transform (estimated from, and whitening, the
-unconstrained ensemble); the fused MH and tempering tiers refuse a
-transform; ``examples/constrained_transforms.py``'s moments at 64 chains.
+unconstrained ensemble); the fused MH and tempering tiers (Kernels 5 and
+8's twins) run a transform and refuse a whitened target, and their
+transformed density equals the JAX package's wrap;
+``examples/constrained_transforms.py``'s moments at 64 chains.
 The bijectors, wrapped targets and kernel twins against the JAX package are
 in ``tests/test_torch_transforms.py``.
 """
 
+import math
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,10 +26,20 @@ from mini_mcmc_torch.models import (
     identity,
     interval,
     isotropic_gaussian_proposal,
+    lower_bounded,
     positive,
+    precondition_target,
+    upper_bounded,
 )
 from mini_mcmc_torch.models import transforms as T
+from mini_mcmc_torch.ops.kernels.mh_full import (
+    mh_instance,
+    mh_multistep_plain,
+)
+from mini_mcmc_torch.ops.kernels.pt_full import pt_instance
 from mini_mcmc_torch.samplers import _unconstrained_positions
+from mini_mcmc_tpu import models as jm
+from mini_mcmc_tpu.models import transforms as J
 
 torch.set_num_threads(1)
 
@@ -124,22 +140,157 @@ def test_mh_and_tempering_transform_equal_the_manual_wrap():
     assert rt.transform is tf and (rt.run(20)[..., 0] > 0).all()
 
 
-def test_fused_mh_and_tempering_refuse_a_transform():
+def _mixture():
+    """The tempering stage's bimodal target (bench.py:858-880) with its
+    CUDA functor."""
+    lw0, lw1 = math.log(0.3), math.log(0.7)
+
+    def logp(x):
+        a = lw0 - 0.5 * ((x[..., 0] + 8.0) / 0.5) ** 2
+        b = lw1 - 0.5 * ((x[..., 0] - 8.0) / 0.5) ** 2
+        return torch.logaddexp(a, b)
+
+    return Target(logp=logp, cuda_functor="gaussian_mixture_1d",
+                  cuda_params=(lw0, -8.0, 0.5, lw1, 8.0, 0.5))
+
+
+def test_fused_mh_and_tempering_run_a_transform():
+    # use_pallas="full" with transform= runs Kernels 5 and 8's transformed
+    # instances on CUDA and their twins here: the manual wrap's cube bit
+    # for bit, the same Philox words on the wrapped density
     tf = CoordinateTransform({0: positive()}, dim=2)
-    x0 = _natural_init(8)
-    with pytest.raises(ValueError, match="transformed instance"):
-        mt.MetropolisHastings(_scale_location(),
-                              isotropic_gaussian_proposal(0.6), x0,
-                              use_pallas="full", transform=tf, **CPU)
-    with pytest.raises(ValueError, match="transformed instance"):
-        mt.ParallelTempering(_scale_location(), x0, use_pallas="full",
-                             transform=tf, **CPU)
+    x0 = _natural_init(32)
+    g = mt.gaussian2d(MEAN, COV)
+    walk = isotropic_gaussian_proposal(0.8)
+    kw = dict(use_pallas="full", steps_per_call=4, **CPU)
+    calls = mh_multistep_plain.calls
+    mh = mt.MetropolisHastings(g, walk, x0, transform=tf, **kw).seed(3)
+    manual = mt.MetropolisHastings(tf.wrap(g), walk, tf.to_y(x0),
+                                   **kw).seed(3)
+    _same_cube(mh.run(40, 20), manual.run(40, 20), tf)
+    assert mh_multistep_plain.calls == calls + 30
+    assert (mh.positions[:, 0] > 0).all()
+    # the instance the card runs: Gaussian2D inside Transformed, D = 2
+    assert mh_instance(mh.kernel_target, walk, torch.float32, 2) == (1, 0, 0)
+    assert mh.kernel_target.cuda_transform == tf.cuda_form
+
+    itf = CoordinateTransform({0: interval(-24.0, 24.0)}, dim=1)
+    xp = torch.full((32, 1), -8.0)
+    kw = dict(betas=mt.geometric_betas(4, 0.01), proposal_std=0.4,
+              steps_per_call=5, use_pallas="full", **CPU)
+    pt = mt.ParallelTempering(_mixture(), xp, transform=itf, **kw).seed(6)
+    pt_manual = mt.ParallelTempering(itf.wrap(_mixture()), itf.to_y(xp),
+                                     **kw).seed(6)
+    s = pt.run(30, 10)
+    _same_cube(s, pt_manual.run(30, 10), itf)
+    assert ((s > -24.0) & (s < 24.0)).all()
+    assert pt_instance(pt.kernel_target, 4, 1) == 3
+    torch.testing.assert_close(pt.swap_acceptance, pt_manual.swap_acceptance,
+                               rtol=0, atol=0)
     # the identity transform is no transform
     ident = CoordinateTransform({}, dim=2)
     mh = mt.MetropolisHastings(mt.gaussian2d([0, 0], [[1, 0], [0, 1]]),
                                isotropic_gaussian_proposal(0.6), x0,
                                use_pallas="full", transform=ident, **CPU)
     assert mh.kernel_target is mh.target
+
+
+def test_fused_mh_and_tempering_refuse_a_whitened_target():
+    # Kernels 5 and 8 take a transformed target, never a whitened one
+    # (the JAX MH and tempering take no metric=)
+    g = mt.gaussian2d(MEAN, COV)
+    pre = mt.Preconditioner("diag", scale=torch.tensor([2.0, 0.5]))
+    walk = isotropic_gaussian_proposal(0.8)
+    tf = CoordinateTransform({0: positive()}, dim=2)
+    for target in (precondition_target(g, pre),
+                   precondition_target(tf.wrap(g), pre)):
+        with pytest.raises(ValueError, match="whitened"):
+            mh_instance(target, walk, torch.float32, 2)
+        with pytest.raises(ValueError, match="whitened"):
+            pt_instance(target, 8, 2)
+    # instances that do not exist are named: a transformed Gaussian at
+    # D = 3, any transformed integer walk
+    with pytest.raises(ValueError, match="transformed"):
+        pt_instance(CoordinateTransform({0: positive()}, dim=3).wrap(
+            mt.rosenbrock_nd()), 8, 3)
+    pois = CoordinateTransform({0: positive()}, dim=1).wrap(
+        mt.poisson_target(4.0))
+    with pytest.raises(ValueError, match=r"int32, D=1, transformed\)"):
+        mh_instance(pois, mt.random_walk_int_proposal(), torch.int32, 1)
+    # an integer state takes no transform on any tier (the JAX package
+    # walks it as float y: ROADMAP.md, Queue 3)
+    ints = torch.full((8, 1), 3, dtype=torch.int32)
+    for tier in (False, "full"):
+        with pytest.raises(ValueError, match="torch.int32"):
+            mt.MetropolisHastings(
+                mt.poisson_target(4.0), mt.random_walk_int_proposal(), ints,
+                use_pallas=tier,
+                transform=CoordinateTransform({0: positive()}, dim=1), **CPU)
+
+
+#: (port target, JAX target, port transform table, JAX table, D): the
+#: transformed instances of Kernels 5 and 8
+TWIN_DENSITIES = {
+    "gauss2d": (lambda: mt.gaussian2d(MEAN, COV),
+                lambda: jm.gaussian2d(MEAN, COV),
+                {0: positive(), 1: upper_bounded(4.0)},
+                {0: J.positive(), 1: J.upper_bounded(4.0)}, 2),
+    "rosen2": (mt.rosenbrock_nd, jm.rosenbrock_nd,
+               {0: positive(), 1: interval(-1.0, 3.0)},
+               {0: J.positive(), 1: J.interval(-1.0, 3.0)}, 2),
+    "rosen3": (mt.rosenbrock_nd, jm.rosenbrock_nd,
+               {0: lower_bounded(-2.0), 2: interval(-1.0, 3.0)},
+               {0: J.lower_bounded(-2.0), 2: J.interval(-1.0, 3.0)}, 3),
+    "mixture": (_mixture, None, {0: interval(-24.0, 24.0)},
+                {0: J.interval(-24.0, 24.0)}, 1),
+}
+
+
+def _jax_mixture():
+    lw0, lw1 = math.log(0.3), math.log(0.7)
+
+    def logp_batch(xs):
+        a = lw0 - 0.5 * ((xs[:, 0] + 8.0) / 0.5) ** 2
+        b = lw1 - 0.5 * ((xs[:, 0] - 8.0) / 0.5) ** 2
+        return jnp.logaddexp(a, b)
+
+    return jm.Target(logp=lambda x: logp_batch(x[None])[0],
+                     logp_batch=logp_batch)
+
+
+@pytest.mark.parametrize("name", sorted(TWIN_DENSITIES))
+def test_twins_transformed_density_matches_jax(name):
+    # what the twins of Kernels 5 and 8 evaluate (target.batch_logp of the
+    # wrapped target, csrc/targets.cuh:Transformed on the card) against
+    # the JAX package's transform.wrap(target).batch_logp, in float32: the
+    # cores, and the interval's saturated tails (y = +-30, past sigmoid's
+    # core 7.97; the exp family's tails, past 39.9, carry the eight-ulp
+    # slack of tests/test_torch_transforms.py and stay out of a density
+    # check)
+    make, make_jax, table, jtable, d = TWIN_DENSITIES[name]
+    make_jax = make_jax or _jax_mixture
+    y = (2.0 * np.random.default_rng(d).standard_normal((512, d))).astype(
+        np.float32)
+    for i, bij in table.items():
+        if bij.cuda[0] == T.BIJ_INTERVAL:
+            y[:8, i] = [30.0, -30.0, 12.0, -12.0, 7.9, -7.9, 0.0, 20.0]
+    w = CoordinateTransform(table, dim=d).wrap(make())
+    got = _np(w.batch_logp(torch.from_numpy(y)))
+    with jax.enable_x64(False):
+        jw = J.CoordinateTransform(jtable, dim=d).wrap(make_jax())
+        want = np.asarray(jw.batch_logp(jnp.asarray(y)))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert w.cuda_transform is not None
+    # inside the float32 saturation cores (where the float64 wrap is the
+    # same function) the twin's float32 density misses float64's by no
+    # more than density_rounding, what the GPU checks allow twice of
+    tf = CoordinateTransform(table, dim=d)
+    core = torch.from_numpy(np.abs(y) < 7.9).all(1)
+    yt = torch.from_numpy(y)[core]
+    err = (w.batch_logp(yt).double() - w.batch_logp(yt.double())).abs()
+    assert (err <= tf.density_rounding(make(), yt)).all()
+    assert len(w.cuda_params) == 6 + 3 * d + len(make().cuda_params)
 
 
 def test_transform_composes_with_metric_warmup():

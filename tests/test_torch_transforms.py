@@ -539,7 +539,7 @@ def test_cuda_description_of_wrapped_targets():
     assert wd.cuda_params == () and len(wd.cuda_transform) == 10_000
     assert sep_instance(wd) == (0, 1, 2)
     # the kernels refuse, by name: a custom bijector, a transform around a
-    # whitened or a transformed target; MH and tempering any wrapper
+    # whitened or a transformed target; MH and tempering a whitened one
     custom = CoordinateTransform({0: Bijector(torch.exp, torch.log,
                                               lambda y: y, "mine")}, dim=2)
     wc = custom.wrap(g2)
@@ -555,10 +555,10 @@ def test_cuda_description_of_wrapped_targets():
                 check(bad)
     with pytest.raises(ValueError, match="custom"):
         sep_instance(custom.wrap(mt.standard_normal()))
-    with pytest.raises(ValueError, match="transformed"):
-        _build.plain_functor(w, "the MH kernel")
+    assert _build.unwhitened(w, "the MH kernel") is True
+    assert _build.unwhitened(g2, "the MH kernel") is False
     with pytest.raises(ValueError, match="whitened"):
-        _build.plain_functor(precondition_target(g2, pre), "the MH kernel")
+        _build.unwhitened(precondition_target(g2, pre), "the MH kernel")
 
 
 @pytest.mark.parametrize("d", [2, 3, 4, 5])
