@@ -203,7 +203,17 @@ Phases, one line each (every check raises on failure):
     128-step run;
 34. eight schools' ChEES half (``[eight_schools_chees]``,
     bench.py:1342-1372): ``warmed_up(500)``, ``run(1024, 256)`` twice, the
-    bench's moment gates, leapfrogs a draw, ESS/s.
+    bench's moment gates, leapfrogs a draw, ESS/s;
+35. bench.py's evidence and SG-MCMC stages at full size, no kernel:
+    ``[ais]`` (65,536 particles, 64 rungs x 2 MH steps: the analytic log-Z
+    and weight-ESS gates, particle updates/s, no device-to-host read),
+    ``[smc]`` (the same target, target ESS 0.8: completion and log-Z
+    gates, stages, reads a stage), ``[sgld]`` and ``[sghmc]`` (the
+    conjugate regression's 65,536 rows, B = 1,024, 4,096 chains: the
+    analytic posterior gates, draws/s, minibatch rows/s) and ``[psgld]``
+    (the 100x anisotropic Gaussian: variance and equalization gates), each
+    with its device operations a rung, stage or step and the idle share
+    of a profiled call.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -222,6 +232,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -393,6 +404,22 @@ GP_DIM, GP_CHAINS, GP_COLLECT, GP_K, GP_NOISE = 64, 4096, 2048, 16, 0.3
 GP_BURN = 1024
 # the steps of a profiled run that reads these stages' idle share
 LOCKSTEP_PROFILE = 128
+# bench.py's evidence stages (:1003-1076): the unnormalized correlated
+# Gaussian2D (the NUTS stage's covariance), 65,536 particles, a N(0, 2.5^2)
+# prior, random-walk scale 1.0; AIS 64 linear rungs x 2 MH steps, SMC 5
+# sweeps a stage at target ESS 0.8
+EV_PARTICLES, AIS_RUNGS = 65536, 64
+AIS_KW = dict(n_mh_steps=2, proposal_std=1.0, prior_std=2.5)
+SMC_KW = dict(proposal_std=1.0, prior_std=2.5)
+# its SG-MCMC stages (:1078-1138, 1189-1257): the conjugate regression's
+# N rows, D, minibatch B, chains, steps a run and block K; the noise and
+# prior scales; pSGLD's D and its burn-in (twice the run)
+SG_ROWS, SG_DIM, SG_BATCH, SG_CHAINS, SG_STEPS, SG_K = (65536, 8, 1024,
+                                                        4096, 2048, 16)
+SG_NOISE, SG_TAU = 0.5, 2.0
+PS_DIM = 8
+# best of this many timed calls, as bench.py:_timed_best
+TIMED_REPS = 3
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over 3.35 TB/s and its operations over the issue
@@ -3248,9 +3275,7 @@ def phase_eight_schools(dev) -> dict:
     sample = warm.run(n8, nd8)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = read_counts()
-    check("eight_schools runs no kernel", not any(
-        counts[k] for k in KERNELS), counts)
+    check_no_kernel("eight_schools")
     steps = n8 + nd8 - 1
     div = int(warm.last_run_divergences.sum())
     rhat, ess = mt.split_rhat_mean_ess(sample)
@@ -3408,11 +3433,289 @@ def moment_metrics(sample, elapsed: float) -> dict:
 
 def idle_share(fn) -> dict:
     """The device's idle share over one profiled call of ``fn`` (the
-    profiler's own overhead included in the wall time)."""
+    profiler's own overhead included in the wall time), and the device
+    operations (kernels, copies, fills) it recorded, in all and those
+    whose name is a matrix product's (``gemm``)."""
     wall, busy, by_name = device_profile(fn)
     return {"profiled_wall_s": wall, "device_busy_us": busy,
             "idle_share": 1.0 - busy / (wall * 1e6),
-            "kernels_by_name": len(by_name)}
+            "kernels_by_name": len(by_name),
+            "device_ops": sum(n for n, _ in by_name.values()),
+            "gemm_ops": sum(n for k, (n, _) in by_name.items()
+                            if "gemm" in k.lower())}
+
+
+def host_syncs(fn):
+    """``fn()`` and the times it synchronized the host with the device
+    (a device-to-host read or a wait): CUDA's sync debug mode warns once a
+    synchronizing call (a prototype that PyTorch says may miss some)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def timed_best(fn, reps: int = TIMED_REPS):
+    """bench.py:_timed_best: ``reps`` calls of ``fn`` (completion
+    included), each result freed before the next; returns (the last
+    result, the fastest call's seconds, every call's seconds)."""
+    times, out = [], None
+    for _ in range(reps):
+        out = None
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, min(times), times
+
+
+def check_no_kernel(label: str) -> None:
+    counts = read_counts()
+    check(f"{label} runs no kernel", not any(counts[k] for k in KERNELS),
+          counts)
+
+
+def evidence_target(dev):
+    """bench.py:1008-1019: the unnormalized correlated Gaussian2D on
+    ``dev`` and its analytic log Z."""
+    cov = torch.tensor(NUTS_COV, dtype=torch.float64)
+    prec = torch.linalg.inv(cov).float().to(dev)
+    true_log_z = 0.5 * (2 * math.log(2 * math.pi)
+                        + math.log(float(torch.linalg.det(cov))))
+
+    def logp(xs):
+        return -0.5 * torch.einsum("ni,ij,nj->n", xs, prec, xs)
+
+    return mt.models.Target(logp=logp), true_log_z
+
+
+def phase_ais(dev) -> dict:
+    """bench.py:1003-1043: ``ais_log_z`` at 65,536 particles, 64 rungs x 2
+    MH steps (the gates: log Z within 0.05 of the analytic value, weight
+    ESS above 0.3), then ``make_anneal`` on bench.py's float64 linspace
+    schedule timed best of 3 (particle updates/s, N x 64 x 3 / s), its
+    device-to-host reads (none), device operations a rung and the idle
+    share of a profiled anneal."""
+    import numpy as np
+
+    target, true_log_z = evidence_target(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    r = mt.ais_log_z(target, EV_PARTICLES, 2, betas=AIS_RUNGS, seed=0,
+                     device=dev, **AIS_KW)
+    log_z, ess = float(r.log_z), float(r.weight_ess)
+    first_s = time.perf_counter() - t0
+    del r
+    anneal = mt.ops.make_anneal(target, tuple(
+        float(b) for b in np.linspace(0.0, 1.0, AIS_RUNGS + 1)[1:]),
+        **AIS_KW)
+    x0 = 2.5 * torch.randn((EV_PARTICLES, 2), device=dev,
+                           generator=torch.Generator(dev).manual_seed(2))
+
+    def once():
+        return anneal(x0, torch.Generator(dev).manual_seed(3))
+
+    once()
+    torch.cuda.synchronize()
+    _, reads = host_syncs(once)
+    torch.cuda.synchronize()
+    _, elapsed, times = timed_best(once)
+    check_no_kernel("ais")
+    check("ais log_z", abs(log_z - true_log_z) < 0.05, (log_z, true_log_z))
+    check("ais weight ess", ess > 0.3, ess)
+    check("ais reads nothing from the device", reads == 0, reads)
+    m = {"elapsed_s": elapsed, "times_s": times, "ais_log_z_s": first_s,
+         "particle_updates_per_sec": EV_PARTICLES * AIS_RUNGS
+         * (1 + AIS_KW["n_mh_steps"]) / elapsed,
+         "log_z": log_z, "log_z_true": true_log_z, "weight_ess": ess,
+         "device_to_host_reads": reads}
+    m.update(idle_share(once))
+    m["device_ops_per_rung"] = m["device_ops"] / AIS_RUNGS
+    say("ais", **{k: repr(v) for k, v in m.items()})
+    return m
+
+
+def phase_smc(dev) -> dict:
+    """bench.py:1045-1076: ``make_smc_run`` (target ESS 0.8, 5 MH sweeps a
+    stage) built once, its first and second calls timed (the gates on the
+    second: the anneal completes, log Z within 0.05), stages, the
+    device-to-host reads a stage (the run's count and the sync debug
+    mode's), device operations a stage and the idle share of a profiled
+    third call."""
+    target, true_log_z = evidence_target(dev)
+    run = mt.ops.make_smc_run(target, **SMC_KW)
+    x0 = 2.5 * torch.randn((EV_PARTICLES, 2), device=dev,
+                           generator=torch.Generator(dev).manual_seed(4))
+    reset_counts()
+    t0 = time.perf_counter()
+    run(x0, torch.Generator(dev).manual_seed(5))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reads0 = run.host_reads
+    t0 = time.perf_counter()
+    (_, beta, log_z, n_stages, _, _), syncs = host_syncs(
+        lambda: run(x0, torch.Generator(dev).manual_seed(6)))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    check_no_kernel("smc")
+    beta, log_z = float(beta), float(log_z)
+    check("smc completed", beta == 1.0, beta)
+    check("smc log_z", abs(log_z - true_log_z) < 0.05, (log_z, true_log_z))
+    m = {"elapsed_s": elapsed, "first_call_s": first_s,
+         "n_stages": n_stages, "log_z": log_z, "log_z_true": true_log_z,
+         "reads_per_stage": (run.host_reads - reads0) / n_stages,
+         "syncs_per_stage": syncs / n_stages}
+    m.update(idle_share(lambda: run(x0, torch.Generator(dev).manual_seed(
+        6))))
+    m["device_ops_per_stage"] = m["device_ops"] / n_stages
+    say("smc", **{k: repr(v) for k, v in m.items()})
+    return m
+
+
+def sg_regression(dev):
+    """bench.py:1085-1110: the conjugate Bayesian linear regression's rows
+    (numpy, seed 0), its analytic posterior (float64) and the minibatch
+    estimator over its rows on ``dev``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((SG_ROWS, SG_DIM)).astype(np.float32)
+    x /= np.sqrt(SG_DIM)
+    w_true = np.linspace(-1.0, 1.0, SG_DIM).astype(np.float32)
+    y = (x @ w_true
+         + SG_NOISE * rng.standard_normal(SG_ROWS)).astype(np.float32)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    prec = x64.T @ x64 / SG_NOISE**2 + np.eye(SG_DIM) / SG_TAU**2
+    post_cov = np.linalg.inv(prec)
+    post_mean = post_cov @ (x64.T @ y64) / SG_NOISE**2
+    grad_fn = mt.minibatch_grad(
+        lambda w: -0.5 * torch.sum(w * w) / SG_TAU**2,
+        lambda w, batch: -0.5 * torch.sum(
+            (batch[1] - batch[0] @ w) ** 2) / SG_NOISE**2,
+        (x, y), batch_size=SG_BATCH, device=dev)
+    return grad_fn, post_mean, np.diag(post_cov)
+
+
+def sg_stage(label, sampler, n_burn, gates, rows_per_step=None) -> dict:
+    """An SG-MCMC stage of bench.py: ``run(SG_STEPS, n_burn)``, then
+    ``run(SG_STEPS)`` timed best of 3 (chains continuing), the gates on the
+    last timed cube (time-major), draws/s (and minibatch rows/s), the
+    device-to-host reads a step over a 128-step run (none expected), and
+    a profiled 128-step run's idle share, device operations and matrix
+    products a step."""
+    reset_counts()
+    warm = sampler.run(SG_STEPS, n_burn, time_major=True)
+    torch.cuda.synchronize()
+    del warm
+    sample, elapsed, times = timed_best(
+        lambda: sampler.run(SG_STEPS, 0, time_major=True))
+    check_no_kernel(label)
+    check(f"{label} sample finite", bool(torch.isfinite(sample).all()),
+          "non-finite")
+    flat = sample.reshape(-1, sample.shape[2]).double()
+    mean, var = flat.mean(0).cpu().numpy(), flat.var(0, unbiased=False
+                                                      ).cpu().numpy()
+    del sample, flat
+    m = {"elapsed_s": elapsed, "times_s": times,
+         "draws_per_sec": SG_CHAINS * SG_STEPS / elapsed}
+    if rows_per_step:
+        m["minibatch_rows_per_sec"] = rows_per_step * SG_STEPS / elapsed
+    gates(m, mean, var)
+    _, reads = host_syncs(lambda: sampler.run(LOCKSTEP_PROFILE, 0,
+                                              time_major=True))
+    check(f"{label} reads nothing from the device", reads == 0, reads)
+    m["device_to_host_reads_per_step"] = reads / LOCKSTEP_PROFILE
+    m.update(idle_share(lambda: sampler.run(LOCKSTEP_PROFILE, 0,
+                                            time_major=True)))
+    m["device_ops_per_step"] = m["device_ops"] / LOCKSTEP_PROFILE
+    m["gemm_per_step"] = m["gemm_ops"] / LOCKSTEP_PROFILE
+    say(label, **{k: repr(v) for k, v in m.items()})
+    torch.cuda.empty_cache()
+    return m
+
+
+def posterior_gates(label, post_mean, post_var, var_tol):
+    """bench.py:1114-1119's gates: the largest posterior-mean error within
+    1 posterior sd, the largest relative variance error within
+    ``var_tol``."""
+    import numpy as np
+
+    def gates(m, mean, var):
+        m["max_mean_err_posterior_sd"] = float(np.max(
+            np.abs(mean - post_mean) / np.sqrt(post_var)))
+        m["max_rel_var_err"] = float(np.max(np.abs(var / post_var - 1.0)))
+        check(f"{label} posterior mean",
+              m["max_mean_err_posterior_sd"] <= 1.0,
+              m["max_mean_err_posterior_sd"])
+        check(f"{label} posterior var", m["max_rel_var_err"] <= var_tol,
+              m["max_rel_var_err"])
+
+    return gates
+
+
+def phase_sgld(grad_fn, post_mean, post_var, dev) -> dict:
+    """bench.py:1078-1138: SGLD on the regression, 4,096 chains,
+    ``polynomial_decay(2e-6, 50, 0.33)``, K = 16, ``run(2048, 2048)`` then
+    the timed ``run(2048)``; the gates: mean within 1 sd, variance within
+    30%."""
+    sg = mt.SGLD(grad_fn, mt.init_with_seed(SG_CHAINS, SG_DIM, seed=21,
+                                            device=dev),
+                 step_size=mt.polynomial_decay(2e-6, 50.0, 0.33), seed=21,
+                 steps_per_call=SG_K, device=dev)
+    return sg_stage("sgld", sg, SG_STEPS,
+                    posterior_gates("sgld", post_mean, post_var, 0.3),
+                    rows_per_step=SG_BATCH)
+
+
+def phase_psgld(dev) -> dict:
+    """bench.py:1189-1224: pSGLD on N(0, diag(logspace(0, 2, 8))), 4,096
+    chains, eps 0.02, ``rms_decay=0.9999``, K = 16, ``run(2048, 4096)``
+    then the timed ``run(2048)``; the gates: each coordinate's variance
+    within 30%, the scale-equalization ratio in (80, 140)."""
+    import numpy as np
+
+    sigma2 = torch.logspace(0.0, 2.0, PS_DIM, dtype=torch.float64)
+    sigma2_dev = sigma2.float().to(dev)
+
+    def aniso_grad(x, key):
+        del key
+        return -x / sigma2_dev[None, :]
+
+    ps = mt.SGLD(aniso_grad, mt.init_with_seed(SG_CHAINS, PS_DIM, seed=27,
+                                               device=dev),
+                 step_size=0.02, seed=27, preconditioner="rmsprop",
+                 rms_decay=0.9999, steps_per_call=SG_K, device=dev)
+
+    def gates(m, _, var):
+        rel = var / sigma2.numpy()
+        m["max_rel_var_err"] = float(np.max(np.abs(rel - 1.0)))
+        m["scale_equalization_ratio"] = float(var[-1] / var[0])
+        check("psgld per-coordinate variance", m["max_rel_var_err"] <= 0.3,
+              rel)
+        check("psgld scale equalization",
+              80.0 < m["scale_equalization_ratio"] < 140.0,
+              m["scale_equalization_ratio"])
+
+    return sg_stage("psgld", ps, 2 * SG_STEPS, gates)
+
+
+def phase_sghmc(grad_fn, post_mean, post_var, dev) -> dict:
+    """bench.py:1226-1257: SGHMC on the regression,
+    ``polynomial_decay(1e-6, 50, 0.33)``, friction 0.5, 4,096 chains, K =
+    16, ``run(2048, 2048)`` then the timed ``run(2048)``; the gates: mean
+    within 1 sd, variance within 40%."""
+    sh = mt.SGHMC(grad_fn, mt.init_with_seed(SG_CHAINS, SG_DIM, seed=29,
+                                             device=dev),
+                  step_size=mt.polynomial_decay(1e-6, 50.0, 0.33),
+                  friction=0.5, seed=29, steps_per_call=SG_K, device=dev)
+    return sg_stage("sghmc", sh, SG_STEPS,
+                    posterior_gates("sghmc", post_mean, post_var, 0.4),
+                    rows_per_step=SG_BATCH)
 
 
 def lockstep_stage(label, sampler, n_collect, gates, profile_steps,
@@ -3434,9 +3737,7 @@ def lockstep_stage(label, sampler, n_collect, gates, profile_steps,
     sample = sampler.run(n_collect, 0, time_major=True)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = read_counts()
-    check(f"{label} runs no kernel", not any(counts[k] for k in KERNELS),
-          counts)
+    check_no_kernel(label)
     check(f"{label} sample finite", bool(torch.isfinite(sample).all()),
           "non-finite")
     m = moment_metrics(sample, elapsed)
@@ -3617,9 +3918,7 @@ def phase_eight_schools_chees(dev) -> dict:
     sample = ch.run(ES8_COLLECT, ES8_DISCARD)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = read_counts()
-    check("eight_schools_chees runs no kernel", not any(
-        counts[k] for k in KERNELS), counts)
+    check_no_kernel("eight_schools_chees")
     m = es8.moment_gates("eight_schools_chees", sample)
     del sample
     lf = ch.traj_len / (2.0 * ch.step_size)
@@ -3977,6 +4276,14 @@ def main() -> None:
     progress_launches = phase_run_progress_samplers(dev)
     phase_eight_schools(dev)
     phase_eight_schools_chees(dev)
+    phase_ais(dev)
+    phase_smc(dev)
+    grad_fn, post_mean, post_var = sg_regression(dev)
+    phase_sgld(grad_fn, post_mean, post_var, dev)
+    phase_psgld(dev)
+    phase_sghmc(grad_fn, post_mean, post_var, dev)
+    del grad_fn
+    torch.cuda.empty_cache()
     b = bounds(step_details, sub_leaves, k34w["details"], k1234t, funnel)
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})

@@ -1,8 +1,10 @@
 """mini_mcmc_torch: the PyTorch + CUDA port of mini_mcmc_tpu.
 
 Lockstep batched Metropolis-Hastings, HMC, MALA, NUTS, ChEES-HMC, the
-ensemble stretch move, coordinate and elliptical slice sampling, Gibbs and
-parallel tempering over ``[n_chains, dim]`` tensors, constrained parameters through
+ensemble stretch move, coordinate and elliptical slice sampling, Gibbs,
+parallel tempering and stochastic-gradient SGLD/pSGLD/SGHMC over
+``[n_chains, dim]`` tensors, log-Z by annealed importance sampling and
+adaptive SMC, constrained parameters through
 ``transform=`` (``models/transforms.py``), with the fused tiers
 (``use_pallas=True | "full" | "separable"``) run by hand-written CUDA kernels
 for Hopper (``csrc/``) on CUDA tensors and by their plain PyTorch twins on
@@ -40,6 +42,9 @@ from .models import (
     upper_bounded,
 )
 from .nuts import NUTS
+from .ops.ais import AISResult, ais_log_z, linear_betas, resample
+from .ops.sgmcmc import minibatch_grad, polynomial_decay, target_grad
+from .ops.smc import SMCResult, smc_log_z
 from .ops.tempering import geometric_betas, tune_betas
 from .samplers import (
     HMC,
@@ -50,6 +55,8 @@ from .samplers import (
     GibbsSampler,
     MetropolisHastings,
     ParallelTempering,
+    SGHMC,
+    SGLD,
     SliceSampler,
 )
 from .stats import (
@@ -63,6 +70,7 @@ from .stream import StreamResult, stream_run
 from .utils.init import init, init_det, init_with_seed
 
 __all__ = [
+    "AISResult",
     "ChEESHMC",
     "CoordinateTransform",
     "EllipticalSliceSampler",
@@ -76,9 +84,13 @@ __all__ = [
     "ParallelTempering",
     "Preconditioner",
     "RunStats",
+    "SGHMC",
+    "SGLD",
+    "SMCResult",
     "SliceSampler",
     "StreamResult",
     "Summary",
+    "ais_log_z",
     "basic_stats",
     "collect_rhat",
     "diffable_gaussian2d",
@@ -92,19 +104,25 @@ __all__ = [
     "init_with_seed",
     "interval",
     "isotropic_gaussian_proposal",
+    "linear_betas",
     "lower_bounded",
+    "minibatch_grad",
     "neal_funnel",
     "poisson_target",
+    "polynomial_decay",
     "positive",
     "precondition_target",
     "random_walk_int_proposal",
+    "resample",
     "rank_normalized_diagnostics",
     "rosenbrock_nd",
     "run_stats",
+    "smc_log_z",
     "split_rhat_mean_ess",
     "standard_normal",
     "stream_run",
     "summary",
+    "target_grad",
     "transformed_target",
     "tune_betas",
     "upper_bounded",

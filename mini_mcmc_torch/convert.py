@@ -5,7 +5,8 @@ No model here has weights: what carries over is the chain state
 the positions and adaptation state for NUTS; the replica ladder for
 parallel tempering; the cached likelihood for elliptical slice sampling)
 and the sampler's configuration, a metric, a transform and a prior
-included.
+included; for SG-MCMC the positions, the RMSProp average or the momenta
+and the step count, and the minibatch estimator's data.
 Everything crosses as numpy arrays, so this module imports neither JAX nor
 the JAX package. States land on ``device``, ``"cuda"`` by default (raises
 without a GPU); pass ``device="cpu"`` for the CPU.
@@ -30,6 +31,13 @@ from .ops.ensemble import EnsembleState
 from .ops.hmc import HMCSepState, HMCState
 from .ops.mh import MHState
 from .ops.nuts import NUTSState
+from .ops.sgmcmc import (
+    PolynomialDecay,
+    SGHMCState,
+    SGLDState,
+    _tree_map,
+    polynomial_decay,
+)
 from .ops.slice import SliceState
 from .ops.tempering import PTState
 from .utils.init import resolve_device
@@ -69,6 +77,34 @@ def elliptical_state_from_numpy(positions, loglik,
     prior) of float32 tensors on ``device``."""
     device = resolve_device(device)
     return EllipticalState(_f32(positions, device), _f32(loglik, device))
+
+
+def sgld_state_from_numpy(positions, sq_avg, step,
+                          device="cuda") -> SGLDState:
+    """An ``SGLDState`` on ``device``: float32 positions and RMSProp
+    average (a 0-d zero when unused, as the JAX package keeps it) and the
+    step count as a host int."""
+    device = resolve_device(device)
+    return SGLDState(_f32(positions, device), _f32(sq_avg, device),
+                     int(step))
+
+
+def sghmc_state_from_numpy(positions, momenta, step,
+                           device="cuda") -> SGHMCState:
+    """An ``SGHMCState`` on ``device``: float32 positions and momenta and
+    the step count as a host int."""
+    device = resolve_device(device)
+    return SGHMCState(_f32(positions, device), _f32(momenta, device),
+                      int(step))
+
+
+def data_from_numpy(data, device="cuda"):
+    """``minibatch_grad``'s data, an array or a tuple, list or dict of
+    arrays (e.g. the JAX package's, through ``np.asarray``), as tensors on
+    ``device`` of the same structure and dtypes."""
+    device = resolve_device(device)
+    return _tree_map(lambda a: torch.as_tensor(np.asarray(a)).to(device),
+                     data)
 
 
 def hmc_sep_state_from_numpy(positions, logp, device="cuda") -> HMCSepState:
@@ -350,3 +386,46 @@ def elliptical_sampler_kwargs(jax_el) -> dict:
         prior_scale=_host(jax_el.prior_scale),
         max_shrink=int(_free_var(jax_el._step_fn, "max_shrink")),
         steps_per_call=_steps_per_call(jax_el)))
+
+
+def _step_size(jax_sampler, schedule) -> float | PolynomialDecay:
+    """A JAX SG-MCMC sampler's constant step size as a float, or its
+    ``polynomial_decay`` rebuilt from ``schedule = (a, b, gamma)``: the
+    JAX schedule is a closure, so its constants are passed, not read."""
+    if not callable(jax_sampler.step_size):
+        if schedule is not None:
+            raise ValueError("schedule= is for a sampler whose step size is "
+                             "a schedule; this one's is constant")
+        return float(jax_sampler.step_size)
+    if schedule is None:
+        raise ValueError("the JAX sampler's step size is a schedule (a "
+                         "closure): pass its polynomial_decay constants as "
+                         "schedule=(a, b, gamma)")
+    return polynomial_decay(*schedule)
+
+
+def sgld_sampler_kwargs(jax_sgld, schedule=None) -> dict:
+    """The port's ``SGLD`` keyword arguments of a JAX ``SGLD`` but its
+    ``grad_fn`` (a JAX function; build the port's with
+    ``minibatch_grad`` on :func:`data_from_numpy`'s data): the step size
+    (``schedule=(a, b, gamma)`` for a ``polynomial_decay``), temperature,
+    preconditioner, ``rms_decay``, ``rms_eps`` (read from its step
+    function's closures) and ``steps_per_call``."""
+    fn = jax_sgld._step_fn
+    return dict(step_size=_step_size(jax_sgld, schedule),
+                temperature=float(_free_var(fn, "temperature")),
+                preconditioner=_free_var(fn, "preconditioner"),
+                rms_decay=float(_free_var(fn, "rms_decay")),
+                rms_eps=float(_free_var(fn, "rms_eps")),
+                steps_per_call=_steps_per_call(jax_sgld))
+
+
+def sghmc_sampler_kwargs(jax_sghmc, schedule=None) -> dict:
+    """The port's ``SGHMC`` keyword arguments of a JAX ``SGHMC`` but its
+    ``grad_fn``: the step size (as :func:`sgld_sampler_kwargs`), friction,
+    temperature and ``steps_per_call``."""
+    return dict(step_size=_step_size(jax_sghmc, schedule),
+                friction=float(jax_sghmc.friction),
+                temperature=float(_free_var(jax_sghmc._step_fn,
+                                            "temperature")),
+                steps_per_call=_steps_per_call(jax_sghmc))

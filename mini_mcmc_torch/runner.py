@@ -49,6 +49,13 @@ class StepKey(NamedTuple):
     generator: torch.Generator  # on the positions' device
 
 
+def key_generator(key) -> torch.Generator:
+    """The generator of ``key``: a :class:`StepKey`'s, or ``key`` itself
+    when it is a ``torch.Generator`` (the functions that take a key, such
+    as the SG-MCMC gradient estimators and the anneals, take either)."""
+    return key.generator if isinstance(key, StepKey) else key
+
+
 def _alloc_cube(positions: torch.Tensor, n_collect: int, time_major: bool,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """A fresh ``[n_collect, C, D]`` (``time_major``) or ``[C, n_collect,

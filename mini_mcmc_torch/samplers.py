@@ -3,9 +3,10 @@
 Counterpart of ``mini_mcmc_tpu/samplers.py`` (``_KernelSampler``,
 ``MetropolisHastings``, ``HMC``, ``MALA``, ``ChEESHMC``,
 ``EnsembleSampler``, ``ParallelTempering``, ``EllipticalSliceSampler``,
-``SliceSampler``, ``GibbsSampler``): construct with a target and initial
-positions, optionally ``seed``, then ``run(n_collect, n_discard)`` returns
-the ``[n_chains, n_collect, dim]`` sample cube. The sampler carries the
+``SliceSampler``, ``GibbsSampler``, ``SGLD``, ``SGHMC``): construct with a
+target (SG-MCMC: a gradient estimator) and initial positions, optionally
+``seed``, then ``run(n_collect, n_discard)`` returns the ``[n_chains,
+n_collect, dim]`` sample cube. The sampler carries the
 state between runs, so consecutive runs continue the chains. ``tuned``
 (HMC, MALA, MH) and ``warmed_up`` (HMC, MALA, ChEES-HMC) return new
 samplers adapted by dual averaging (``ops/adapt.py``; ChEES also adapts
@@ -45,6 +46,7 @@ from .ops.kernels.hmc_sep import sep_functor
 from .ops.kernels.mh_full import mh_instance
 from .ops.kernels.pt_full import pt_instance
 from .ops.mh import mh_kernel, mh_step_alpha
+from .ops.sgmcmc import sghmc_kernel, sgld_kernel
 from .ops.slice import slice_kernel
 from .ops.tempering import geometric_betas, tempering_kernel, tune_betas
 from .progress import progress_run
@@ -899,3 +901,75 @@ class ParallelTempering(_KernelSampler):
         if seed is None:
             new._gen = self._child_generator()
         return new
+
+
+class SGLD(_KernelSampler):
+    """Stochastic-gradient Langevin dynamics (Welling & Teh 2011), with
+    optional RMSProp preconditioning (pSGLD, Li et al. 2016)
+    (``mini_mcmc_tpu/samplers.py:995-1039``, ``ops/sgmcmc.py``).
+
+    ``grad_fn(positions [C, D], key) -> [C, D]`` supplies the stochastic
+    gradient: :func:`~mini_mcmc_torch.minibatch_grad` (data subsampling)
+    or :func:`~mini_mcmc_torch.target_grad` (full-batch unadjusted
+    Langevin); ``key`` is the step's :class:`~mini_mcmc_torch.runner.
+    StepKey` (its ``generator`` on the positions' device). ``step_size`` is
+    a constant or a host schedule ``(step: int) -> float`` such as
+    :func:`~mini_mcmc_torch.polynomial_decay`. There is no accept/reject:
+    the tracker's ``p(accept)`` reads 1.0. ``steps_per_call`` > 1 runs K
+    steps a block (run lengths multiples of K). Runs on ``device``
+    (``"cuda"`` by default; it raises without a GPU).
+
+    Example:
+        >>> import torch
+        >>> import mini_mcmc_torch as mt
+        >>> data = torch.linspace(-1., 1., 256)[:, None]  # [N, 1]
+        >>> grad_fn = mt.minibatch_grad(
+        ...     lambda x: -0.5 * torch.sum(x**2),              # prior
+        ...     lambda x, b: -0.5 * torch.sum((b - x)**2),     # batch loglike
+        ...     data, batch_size=32, device="cpu")
+        >>> sgld = mt.SGLD(grad_fn, mt.init_det(8, 1, device="cpu"),
+        ...                step_size=1e-3, seed=42, device="cpu")
+        >>> tuple(sgld.run(100, 100).shape)
+        (8, 100, 1)
+    """
+
+    def __init__(self, grad_fn, initial_positions, step_size,
+                 seed: Optional[int] = None, temperature: float = 1.0,
+                 preconditioner: Optional[str] = None,
+                 rms_decay: float = 0.99, rms_eps: float = 1e-5,
+                 steps_per_call: int = 1, *, device="cuda"):
+        self.grad_fn = grad_fn
+        self.step_size = step_size
+        init_fn, step_fn = sgld_kernel(
+            grad_fn, step_size, temperature=temperature,
+            preconditioner=preconditioner, rms_decay=rms_decay,
+            rms_eps=rms_eps, steps_per_call=steps_per_call)
+        super().__init__(init_fn, step_fn,
+                         initial_positions_on(initial_positions, device),
+                         seed)
+
+
+class SGHMC(_KernelSampler):
+    """Stochastic-gradient Hamiltonian Monte Carlo (Chen, Fox & Guestrin
+    2014), the friction-damped momentum variant of :class:`SGLD`
+    (``mini_mcmc_tpu/samplers.py:1042-1074``, ``ops/sgmcmc.py``).
+
+    Same ``grad_fn``/``step_size`` contract as :class:`SGLD`; ``friction``
+    (alpha, in (0, 1]) must dominate the minibatch gradient-noise scale.
+    Momenta start at zero; discard at least ``~1/friction`` steps. Runs on
+    ``device`` (``"cuda"`` by default).
+    """
+
+    def __init__(self, grad_fn, initial_positions, step_size,
+                 seed: Optional[int] = None, friction: float = 0.1,
+                 temperature: float = 1.0, steps_per_call: int = 1, *,
+                 device="cuda"):
+        self.grad_fn = grad_fn
+        self.step_size = step_size
+        self.friction = friction
+        init_fn, step_fn = sghmc_kernel(
+            grad_fn, step_size, friction=friction, temperature=temperature,
+            steps_per_call=steps_per_call)
+        super().__init__(init_fn, step_fn,
+                         initial_positions_on(initial_positions, device),
+                         seed)

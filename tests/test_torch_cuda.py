@@ -33,7 +33,10 @@ finite step size on every tier. The transformed instances of Kernels 5
 and 8 (``transform=``) are held to their twins per chain as the plain
 ones; ChEES-HMC, the ensemble, slice and elliptical samplers (no kernel)
 run on the card by default, and ChEES-HMC's ``run()`` reads nothing from
-the device.
+the device. AIS and SMC (8,192 particles) and SGLD, pSGLD and SGHMC (1,024
+chains) run on the card by default, pass bench.py's analytic gates there,
+honour ``device="cpu"``, and an anneal or an SG-MCMC run reads nothing
+from the device.
 """
 
 import io
@@ -47,6 +50,8 @@ from mini_mcmc_torch import (
     HMC,
     MALA,
     NUTS,
+    SGHMC,
+    SGLD,
     ChEESHMC,
     EllipticalSliceSampler,
     EnsembleSampler,
@@ -55,11 +60,16 @@ from mini_mcmc_torch import (
     ParallelTempering,
     SliceSampler,
     RunStats,
+    ais_log_z,
     geometric_betas,
+    minibatch_grad,
+    polynomial_decay,
+    smc_log_z,
     split_rhat_mean_ess,
     standard_normal,
     stats,
     summary,
+    target_grad,
 )
 from mini_mcmc_torch.diagnostics import _quantile
 from mini_mcmc_torch.models import (
@@ -77,6 +87,7 @@ from mini_mcmc_torch.models import (
     random_walk_int_proposal,
     rosenbrock_nd,
 )
+from mini_mcmc_torch.ops import make_anneal
 from mini_mcmc_torch.ops.kernels import rng
 from mini_mcmc_torch.ops.kernels.gibbs_full import (
     gibbs_multistep,
@@ -1848,3 +1859,108 @@ def test_cuda_chees_run_reads_nothing_from_the_device(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(cube).all()
+
+
+def _evidence_target(device):
+    """bench.py:1008-1019's unnormalized correlated Gaussian2D on
+    ``device`` and its analytic log Z."""
+    cov = torch.tensor([[4.0, 2.0], [2.0, 3.0]], dtype=torch.float64)
+    prec = torch.linalg.inv(cov).float().to(device)
+    true = 0.5 * (2 * math.log(2 * math.pi)
+                  + math.log(float(torch.linalg.det(cov))))
+    return Target(logp=lambda xs: -0.5 * torch.einsum(
+        "ni,ij,nj->n", xs, prec, xs)), true
+
+
+@pytest.mark.cuda
+def test_cuda_evidence_estimators_on_the_card(cuda):
+    # bench.py:1003-1076's settings at 8,192 particles, no device argument
+    t, true = _evidence_target(cuda)
+    kw = dict(proposal_std=1.0, prior_std=2.5)
+    r = ais_log_z(t, 8192, 2, betas=64, n_mh_steps=2, seed=0, **kw)
+    assert r.positions.is_cuda and r.log_weights.is_cuda
+    assert abs(float(r.log_z) - true) < 0.05 and float(r.weight_ess) > 0.3
+    s = smc_log_z(t, 8192, 2, seed=1, **kw)
+    assert s.positions.is_cuda and float(s.betas[-1]) == 1.0
+    assert abs(float(s.log_z) - true) < 0.05
+    # an anneal reads nothing from the device
+    anneal = make_anneal(t, (0.25, 0.5, 1.0), n_mh_steps=2, **kw)
+    x0 = 2.5 * torch.randn((8192, 2), device=cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, log_w = anneal(x0, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(log_w).all() and x.is_cuda
+    # device="cpu" is honoured
+    tc, _ = _evidence_target("cpu")
+    assert ais_log_z(tc, 512, 2, betas=8, device="cpu",
+                     **kw).positions.device.type == "cpu"
+    assert smc_log_z(tc, 512, 2, device="cpu",
+                     **kw).positions.device.type == "cpu"
+
+
+def _regression(device, n=65536, d=8):
+    """bench.py:1085-1110's conjugate regression: the minibatch estimator
+    on ``device`` and the analytic posterior mean and variances."""
+    g = np.random.default_rng(0)
+    x = g.standard_normal((n, d)).astype(np.float32)
+    x /= np.sqrt(d)
+    y = (x @ np.linspace(-1.0, 1.0, d).astype(np.float32)
+         + 0.5 * g.standard_normal(n)).astype(np.float32)
+    x64 = x.astype(np.float64)
+    cov = np.linalg.inv(x64.T @ x64 / 0.25 + np.eye(d) / 4.0)
+    mean = cov @ (x64.T @ y.astype(np.float64)) / 0.25
+    grad_fn = minibatch_grad(
+        lambda w: -0.5 * torch.sum(w * w) / 4.0,
+        lambda w, b: -0.5 * torch.sum((b[1] - b[0] @ w) ** 2) / 0.25,
+        (x, y), batch_size=1024, device=device)
+    return grad_fn, mean, np.diag(cov)
+
+
+def _moments(cube):
+    flat = cube.reshape(-1, cube.shape[-1]).double()
+    return (flat.mean(0).cpu().numpy(),
+            flat.var(0, unbiased=False).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_sgmcmc_on_the_card(cuda):
+    # bench.py:1078-1257's three stages at 1,024 chains, no device argument
+    grad_fn, post_mean, post_var = _regression(cuda)
+    for cls, kw, var_tol in (
+            (SGLD, dict(step_size=polynomial_decay(2e-6, 50.0, 0.33)), 0.3),
+            (SGHMC, dict(step_size=polynomial_decay(1e-6, 50.0, 0.33),
+                         friction=0.5), 0.4)):
+        s = cls(grad_fn, torch.randn((1024, 8)), seed=21, steps_per_call=16,
+                **kw)
+        assert s.state.positions.is_cuda
+        s.run(2048, 2048, time_major=True)
+        mean, var = _moments(s.run(2048, time_major=True))
+        assert np.max(np.abs(mean - post_mean) / np.sqrt(post_var)) <= 1.0
+        assert np.max(np.abs(var / post_var - 1.0)) <= var_tol
+        # a run reads nothing from the device
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cube = s.run(32, time_major=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert cube.is_cuda and s.state.step == 6176
+    sigma2 = torch.logspace(0.0, 2.0, 8, device=cuda)
+    ps = SGLD(lambda x, key: -x / sigma2, torch.randn((1024, 8)),
+              step_size=0.02, seed=27, preconditioner="rmsprop",
+              rms_decay=0.9999, steps_per_call=16)
+    ps.run(2048, 4096, time_major=True)
+    _, var = _moments(ps.run(2048, time_major=True))
+    assert np.max(np.abs(var / sigma2.cpu().numpy() - 1.0)) <= 0.3
+    assert 80.0 < var[-1] / var[0] < 140.0
+    # device="cpu" is honoured
+    c = SGLD(target_grad(standard_normal()), torch.zeros((4, 2)),
+             step_size=0.05, device="cpu")
+    assert c.run(8).device.type == "cpu"
+    assert _regression("cpu", n=2048, d=2)[0](
+        torch.zeros((4, 2)), torch.Generator().manual_seed(0)
+    ).device.type == "cpu"
