@@ -214,6 +214,32 @@ Phases, one line each (every check raises on failure):
     (the 100x anisotropic Gaussian: variance and equalization gates), each
     with its device operations a rung, stage or step and the idle share
     of a profiled call.
+36. the run tooling (``checkpoint.py``, ``io/``, ``utils``): after the
+    flagship's timed run, ``[checkpoint_flagship]`` saves it
+    (``save_sampler``), continues ``run(1024)`` and restores the
+    checkpoint into a flagship from another seed for the same run: the
+    cubes and states bit for bit, Kernel 2's 64 launches in each, the save
+    and restore milliseconds and the file's bytes; ``[checkpoint_device]``
+    loads that checkpoint with ``device="cpu"`` into a CPU flagship (the
+    state bit for bit; ``load_checkpoint``'s default device is the card);
+    ``[trace]`` runs one flagship ``run(1024)`` inside
+    ``utils.profiling.trace``, timed by ``utils.time_blocked``: the trace
+    file parses as JSON and names Kernel 2. ``[io]`` writes the flagship
+    cube's first 512 chains x 2,048 draws from the card with the native
+    and the Python CSV writer (each parsed back equal to the cube, rows/s
+    of each), and Arrow and Parquet where ``pyarrow`` imports (read back;
+    a streamed Parquet file equal to the one-shot export); where it does
+    not, each of its exports must raise ``RuntimeError``
+    (``pyarrow: absent``).
+    ``[checkpoint_nuts]`` continues the adapted NUTS stage (131,072
+    chains) ``run(128)`` both ways (the cubes, epsilon, h_bar, m and the
+    divergences bit for bit, Kernel 4's 127 launches in each) and
+    restores the dense-metric sampler's checkpoint into an unmetriced
+    NUTS, which raises; ``[checkpoint_kernels]`` continues one block both
+    ways of the MH, Gibbs, separable (16 steps), tempering and
+    constrained-MH stages' samplers (Kernels 5, 6, 7, 8 and 5's
+    transformed instance, counted), and restores the constrained
+    checkpoint into an untransformed MH, which raises.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -227,10 +253,12 @@ import argparse
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -238,6 +266,7 @@ from pathlib import Path
 import torch
 
 import mini_mcmc_torch as mt
+from mini_mcmc_torch.checkpoint import restore_sampler, save_sampler
 from mini_mcmc_torch.ops.kernels import _build, rng
 from mini_mcmc_torch.ops.kernels.gibbs_full import (
     gibbs_multistep,
@@ -420,6 +449,11 @@ SG_NOISE, SG_TAU = 0.5, 2.0
 PS_DIM = 8
 # best of this many timed calls, as bench.py:_timed_best
 TIMED_REPS = 3
+# the run tooling's phases: the flagship's and the NUTS stage's
+# continuations after a checkpoint, and the exported sub-cube (the
+# flagship cube's first 512 chains x 2,048 draws, 1,048,576 rows)
+CKPT_FLAGSHIP_RUN, CKPT_NUTS_RUN, CKPT_SEP_RUN = 1024, 128, 16
+IO_CHAINS, IO_DRAWS = 512, 2048
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over 3.35 TB/s and its operations over the issue
@@ -3364,7 +3398,7 @@ def phase_mh_constrained(dev):
     k5 = phase_mh_kernel(mh, "gauss2d_transformed", MH_K, 0x5EED_0A0A)
     say("mh_constrained_times", shape=f"C={MH_CHAINS},gauss2d K={MH_K}",
         **{k: repr(v) for k, v in k5.items() if k != "err"})
-    return counts, k5
+    return counts, k5, mh
 
 
 def phase_pt_constrained(dev):
@@ -3935,6 +3969,295 @@ def phase_eight_schools_chees(dev) -> dict:
     return m
 
 
+# -- the run tooling (checkpoint.py, io/, utils' Timer and trace) ------------
+
+
+def state_copy(state):
+    """A copy of a sampler state's tensors (host ints as they are)."""
+    return type(state)(*(x.clone() if torch.is_tensor(x) else x
+                         for x in state))
+
+
+def states_equal(a, b) -> bool:
+    """Bit for bit, the tensors of ``b`` moved to ``a``'s device."""
+    return type(a) is type(b) and all(
+        torch.equal(x, y.to(x.device)) if torch.is_tensor(x) else x == y
+        for x, y in zip(a, b))
+
+
+def resume_case(label: str, sampler, fresh, run_args, path: str,
+                launches: dict) -> dict:
+    """``save_sampler`` of ``sampler``, then ``run(*run_args)`` on it and on
+    ``fresh()`` (the same configuration, another seed) restored from the
+    checkpoint: both cubes and final states equal bit for bit, and each
+    continuation's counts exactly ``launches``. Returns the save and
+    restore milliseconds (CUDA synchronised), the file's bytes, the
+    saved state, the counts, the cube's shape and the restored
+    sampler."""
+    saved = state_copy(sampler.state)
+    _, save_s = timed(lambda: save_sampler(path, sampler))
+    reset_counts()
+    cont_a = sampler.run(*run_args)
+    torch.cuda.synchronize()
+    counts_a = read_counts()
+    other = fresh()
+    _, restore_s = timed(lambda: restore_sampler(path, other))
+    check(f"{label} restored state", states_equal(saved, other.state),
+          label)
+    reset_counts()
+    cont_b = other.run(*run_args)
+    torch.cuda.synchronize()
+    counts_b = read_counts()
+    want = counts_with(**launches)
+    check(f"{label} continuation launches and no plain twin",
+          counts_a == want and counts_b == want, (counts_a, counts_b))
+    check(f"{label} continuation bit-equal", torch.equal(cont_a, cont_b)
+          and states_equal(sampler.state, other.state), label)
+    return {"save_ms": save_s * 1e3, "restore_ms": restore_s * 1e3,
+            "bytes": os.path.getsize(path + ".pt"), "saved": saved,
+            "counts": counts_a, "restored": other,
+            "shape": tuple(cont_a.shape)}
+
+
+def phase_checkpoint_flagship(hmc, dev, tmp: str) -> tuple:
+    """The flagship after its timed run (65,536 chains, D = 3, L = 192,
+    K = 16): ``save_sampler``, then ``run(1024)`` on it and on a flagship
+    built from another seed and restored from the checkpoint; both cubes
+    bit for bit and Kernel 2's 64 launches in each. Returns the
+    checkpoint's path and the saved state."""
+    path = os.path.join(tmp, "flagship")
+    per = CKPT_FLAGSHIP_RUN // STEPS_PER_CALL
+    r = resume_case("checkpoint_flagship", hmc, lambda: flagship(dev, 7),
+                    (CKPT_FLAGSHIP_RUN, 0), path,
+                    {"hmc_multistep": per})
+    say("checkpoint_flagship", chains=N_CHAINS, dim=DIM, L=N_LEAPFROG,
+        K=STEPS_PER_CALL, run=CKPT_FLAGSHIP_RUN, bit_equal=True,
+        save_ms=repr(r["save_ms"]), restore_ms=repr(r["restore_ms"]),
+        file_bytes=r["bytes"], launches_saved=per, launches_restored=per,
+        **{k: v for k, v in r["counts"].items() if v})
+    return path, r["saved"]
+
+
+def phase_checkpoint_device(path: str, saved, dev) -> None:
+    """The flagship checkpoint loaded with ``device="cpu"`` and restored
+    into a CPU flagship (the twin tier): its state equals the card's bit
+    for bit; ``load_checkpoint``'s default device is the card."""
+    state, gen = mt.load_checkpoint(path, device="cpu")
+    check("checkpoint_device cpu load", states_equal(saved, state)
+          and all(x.device.type == "cpu" for x in state), "cpu load")
+    on_card, _ = mt.load_checkpoint(path)
+    check("checkpoint_device default is the card", states_equal(
+        saved, on_card) and all(x.is_cuda for x in on_card), "card load")
+    cpu = mt.HMC(mt.rosenbrock_nd(), torch.zeros((N_CHAINS, DIM)),
+                 STEP_SIZE, N_LEAPFROG, use_pallas="full", jitter=JITTER,
+                 steps_per_call=STEPS_PER_CALL, device="cpu")
+    _, restore_s = timed(lambda: restore_sampler(path, cpu))
+    equal = states_equal(saved, cpu.state)
+    check("checkpoint_device state bit-equal on the CPU", equal
+          and cpu.state.positions.device.type == "cpu"
+          and torch.equal(cpu._gen.get_state(), gen.get_state()), equal)
+    say("checkpoint_device", chains=N_CHAINS, cpu_state_equal=equal,
+        default_device=on_card.positions.device,
+        restore_cpu_ms=repr(restore_s * 1e3))
+
+
+def phase_trace(hmc, dev, tmp: str) -> None:
+    """One flagship ``run(1024)`` inside ``utils.profiling.trace``, timed
+    with ``utils.time_blocked``: the trace file exists, parses as JSON and
+    names Kernel 2. On the H100 the profiler now and then delivers a
+    call's CUDA activity without its kernels (``device_profile``): a trace
+    that lacks the kernel is taken again, three traces at most."""
+    from mini_mcmc_torch.utils import profiling, time_blocked
+
+    per = CKPT_FLAGSHIP_RUN // STEPS_PER_CALL
+    for attempt in range(1, 4):
+        log_dir = os.path.join(tmp, f"trace{attempt}")
+        reset_counts()
+        with profiling.trace(log_dir) as where:
+            cube, secs = time_blocked(hmc.run, CKPT_FLAGSHIP_RUN, 0,
+                                      time_major=True)
+        counts = read_counts()
+        check("trace launches", counts == counts_with(hmc_multistep=per),
+              counts)
+        files = os.listdir(where)
+        check("trace file", len(files) == 1
+              and files[0].endswith(".pt.trace.json"), files)
+        trace_path = os.path.join(where, files[0])
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        k2 = [e for e in events if "multistep_kernel" in e.get("name", "")]
+        if k2:
+            break
+    check("trace names Kernel 2", bool(k2), f"{attempt} traces")
+    say("trace", run=CKPT_FLAGSHIP_RUN, time_blocked_s=repr(secs),
+        launches=per, kernel_events=len(k2), events=len(events),
+        trace_bytes=os.path.getsize(trace_path), attempts=attempt,
+        kernel=repr(k2[0]["name"][:80]), finite=bool(
+            torch.isfinite(cube).all()))
+
+
+def phase_checkpoint_nuts(nuts, tuned, dev, tmp: str) -> None:
+    """The NUTS stage's sampler after its adaptation (131,072 chains):
+    saved, then ``run(128)`` on it and on a NUTS from another seed
+    restored from the checkpoint: the cubes and epsilon, h_bar, m and the
+    divergences bit for bit, Kernel 4 once a step (127) in each. Then the
+    dense-metric sampler's checkpoint restored into that unmetriced NUTS
+    raises ``ValueError`` naming the metric."""
+    path = os.path.join(tmp, "nuts")
+    steps = CKPT_NUTS_RUN - 1  # the NUTS convention
+    r = resume_case(
+        "checkpoint_nuts", nuts,
+        lambda: mt.NUTS(nuts.target, nuts.positions, 0.8,
+                        use_pallas="full").seed(99),
+        (CKPT_NUTS_RUN,), path, {"nuts_step": steps})
+    other = r["restored"]
+    for f in ("epsilon", "epsilon_bar", "h_bar", "m", "divergences"):
+        a, b = getattr(nuts.state, f), getattr(other.state, f)
+        check(f"checkpoint_nuts {f}", torch.equal(a, b)
+              if torch.is_tensor(a) else a == b, f)
+    save_sampler(os.path.join(tmp, "nuts_dense"), tuned)
+    raised = restore_raises(os.path.join(tmp, "nuts_dense"), other,
+                            "metric")
+    say("checkpoint_nuts", chains=NUTS_CHAINS, run=CKPT_NUTS_RUN,
+        bit_equal=True, m=nuts.state.m,
+        step_size_mean=repr(float(nuts.step_size.mean())),
+        save_ms=repr(r["save_ms"]), restore_ms=repr(r["restore_ms"]),
+        file_bytes=r["bytes"], launches_saved=steps,
+        launches_restored=steps, metric_guard=repr(raised[:60]))
+
+
+def phase_checkpoint_kernels(label, sampler, fresh, run_n: int,
+                             launches: dict, tmp: str) -> dict:
+    """One sampler of the ``[checkpoint_kernels]`` phase: saved, then one
+    block (``run(run_n)``) continued on it and on ``fresh()`` restored
+    from the checkpoint, bit for bit, the kernel's launches counted."""
+    r = resume_case(f"checkpoint_{label}", sampler, fresh,
+                    (run_n, 0), os.path.join(tmp, label), launches)
+    say("checkpoint_kernels", sampler=label, run=run_n, bit_equal=True,
+        shape=r["shape"], save_ms=repr(r["save_ms"]),
+        restore_ms=repr(r["restore_ms"]), file_bytes=r["bytes"],
+        **{k: v for k, v in r["counts"].items() if v})
+    return r
+
+
+def restore_raises(path: str, sampler, word: str) -> str:
+    """The ``ValueError`` message of restoring ``path`` into ``sampler``,
+    which must raise one naming ``word``."""
+    try:
+        restore_sampler(path, sampler)
+    except ValueError as e:
+        check(f"guard names {word}", word in str(e), str(e))
+        return str(e)
+    raise AssertionError(f"check FAILED [guard {word}]: restored")
+
+
+def phase_checkpoint_constrained(mhc, tmp: str) -> None:
+    """The constrained MH stage's sampler (Kernel 5's transformed instance)
+    through ``[checkpoint_kernels]``; then its checkpoint restored into
+    the same sampler without the transform raises ``ValueError`` naming
+    the transform. The phase's last line."""
+    phase_checkpoint_kernels(
+        "mh_constrained", mhc, lambda: mt.MetropolisHastings(
+            mhc.target, mhc.proposal, mhc.positions, use_pallas="full",
+            steps_per_call=MH_K, transform=mhc.transform).seed(99), MH_K,
+        {"mh_multistep": 1, "mh_multistep_transformed": 1}, tmp)
+    plain = mt.MetropolisHastings(mhc.target, mhc.proposal, mhc.positions,
+                                  use_pallas="full", steps_per_call=MH_K)
+    guard = restore_raises(os.path.join(tmp, "mh_constrained"), plain,
+                           "transform")
+    say("checkpoint_kernels", samplers="mh,gibbs,separable,tempering,"
+        "mh_constrained", bit_equal=True, transform_guard=repr(guard[:60]))
+
+
+def phase_io(cube, tmp: str) -> dict:
+    """The flagship cube's first 512 chains x 2,048 draws (1,048,576 rows)
+    from the card: ``save_csv_tensor(native=True)`` and the Python writer,
+    each file parsed with numpy equal to the cube (values exactly, the
+    index columns), and rows/s of each writer. Arrow and Parquet where
+    ``pyarrow`` imports (written, read back, compared; a streamed Parquet
+    file equal to the one-shot export); where it does not, each of
+    ``save_arrow``, ``save_parquet`` and ``ParquetStreamWriter`` raises
+    ``RuntimeError`` naming pyarrow, and ``pyarrow: absent`` is printed."""
+    import importlib.util
+
+    import numpy as np
+
+    from mini_mcmc_torch import io as mio
+    from mini_mcmc_torch import native
+
+    c, n, d = cube.shape
+    rows = c * n
+    # the native library builds before its writer is timed
+    _, build_s = timed(native.load)
+    want = cube.double().cpu().numpy().reshape(rows, d)
+    idx = np.stack([np.repeat(np.arange(c), n), np.tile(np.arange(n), c)], 1)
+    so, flags = native.build()
+    m = {"rows": rows, "native_build_s": build_s, "native_library": so.name,
+         "native_flags": " ".join(flags)}
+    for writer, nat in (("native", True), ("python", False)):
+        path = os.path.join(tmp, f"cube_{writer}.csv")
+        _, sec = timed(lambda: mio.save_csv_tensor(cube, path, native=nat))
+        with open(path) as f:
+            header = f.readline()
+        check(f"io {writer} header", header == "chain,observation," + ",".join(
+            f"dim_{i}" for i in range(d)) + "\n", header)
+        vals = np.loadtxt(path, delimiter=",", skiprows=1)
+        check(f"io {writer} csv equals the cube", vals.shape == (rows, d + 2)
+              and np.array_equal(vals[:, 2:], want)
+              and np.array_equal(vals[:, :2], idx), writer)
+        m[f"{writer}_s"] = sec
+        m[f"{writer}_rows_per_s"] = rows / sec
+        m[f"{writer}_bytes"] = os.path.getsize(path)
+        os.remove(path)
+    m["native_over_python"] = m["native_rows_per_s"] / m["python_rows_per_s"]
+    have_pyarrow = importlib.util.find_spec("pyarrow") is not None
+    if have_pyarrow:
+        import pyarrow as pa
+        import pyarrow.ipc  # noqa: F401
+        import pyarrow.parquet as pq
+
+        arrow_path = os.path.join(tmp, "cube.arrow")
+        _, sec = timed(lambda: mio.save_arrow(cube, arrow_path))
+        table = pa.ipc.open_file(arrow_path).read_all()
+        got = np.stack([table.column(f"dim_{i}").to_numpy()
+                        for i in range(d)], 1)
+        check("io arrow equals the cube", np.array_equal(got, want), "arrow")
+        m["arrow_rows_per_s"] = rows / sec
+        tm = cube.transpose(0, 1)  # [n, c, d], the tensor schema
+        one = os.path.join(tmp, "oneshot.parquet")
+        mio.save_parquet_tensor(tm, one)
+        streamed = os.path.join(tmp, "streamed.parquet")
+        with mio.ParquetStreamWriter(streamed) as w:
+            for start in range(0, n, n // 4):
+                w.append(tm[start:start + n // 4], start)
+        check("io streamed parquet equals the one-shot export",
+              pq.read_table(streamed).equals(pq.read_table(one)), "parquet")
+        m["pyarrow"] = pa.__version__
+    else:
+        print("pyarrow: absent", flush=True)
+        raised = {}
+        for name, call in (
+                ("save_arrow", lambda: mio.save_arrow(
+                    cube, os.path.join(tmp, "x.arrow"))),
+                ("save_parquet", lambda: mio.save_parquet(
+                    cube, os.path.join(tmp, "x.parquet"))),
+                ("ParquetStreamWriter", lambda: mio.ParquetStreamWriter(
+                    os.path.join(tmp, "y.parquet")))):
+            try:
+                call()
+                raised[name] = None
+            except RuntimeError as e:
+                raised[name] = str(e)
+        check("io without pyarrow: each table export raises RuntimeError "
+              "naming it", all(v and "pyarrow" in v for v in raised.values()),
+              raised)
+        say("io_pyarrow", pyarrow="absent",
+            **{k: repr(v) for k, v in raised.items()})
+        m["pyarrow"] = "absent"
+    say("io", shape=(c, n, d), **{k: repr(v) for k, v in m.items()})
+    return m
+
+
 def bounds(step_details, subtree_leaves, dense_details, k1234t,
            funnel) -> dict:
     """bound_ms and bound_by of each kernel at the shapes of its timing."""
@@ -4146,6 +4469,15 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; nothing run")
+    # checkpoints, exports and traces, removed at the end
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        run_phases(args, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(args, tmp: str) -> None:
     dev = torch.device("cuda", 0)
     phase_device()
     so, reported = phase_build()
@@ -4159,7 +4491,10 @@ def main() -> None:
     k12w = phase_whitened_hmc(hmc, dev)
     if args.profile:
         phase_profile(hmc, dev)
-    del hmc
+    ckpt, saved = phase_checkpoint_flagship(hmc, dev, tmp)
+    phase_checkpoint_device(ckpt, saved, dev)
+    phase_trace(hmc, dev, tmp)
+    del hmc, saved
     torch.cuda.empty_cache()
     progress_cube, run_cube, _ = phase_run_progress(dev)
     if args.profile:
@@ -4172,6 +4507,8 @@ def main() -> None:
     stream_launches = phase_stream_run(run_cube, dev)
     del run_cube
     phase_summary_on_card(progress_cube, dev)
+    phase_io(progress_cube[:IO_DRAWS, :IO_CHAINS].transpose(0, 1)
+             .contiguous(), tmp)
     del progress_cube
     torch.cuda.empty_cache()
     ml, mala_counts, _ = phase_mala_tuned(dev)
@@ -4193,6 +4530,7 @@ def main() -> None:
         phase_nuts_profile(nuts, step_args)
         phase_runs_profile((("nuts_dense_metric", lambda: tuned.run(
             NUTS_COLLECT, NUTS_DISCARD)),))
+    phase_checkpoint_nuts(nuts, tuned, dev, tmp)
     del nuts, tuned
     torch.cuda.empty_cache()
     nuts_c, nc_m, nc_counts = phase_nuts_constrained(dev)
@@ -4216,6 +4554,15 @@ def main() -> None:
             ("mh", lambda: mh.run(MH_COLLECT, 0, time_major=True)),
             ("poisson", lambda: pois.run(POISSON_COLLECT, POISSON_DISCARD)),
             ("gibbs", lambda: g.run(GIBBS_COLLECT, 0, time_major=True))))
+    phase_checkpoint_kernels(
+        "mh", mh, lambda: mt.MetropolisHastings(
+            mh.target, mh.proposal, mh.positions, use_pallas="full",
+            steps_per_call=MH_K).seed(99), MH_K, {"mh_multistep": 1}, tmp)
+    phase_checkpoint_kernels(
+        "gibbs", g, lambda: mt.GibbsSampler(
+            g.conditional, g.positions, use_pallas="full",
+            steps_per_call=GIBBS_K).seed(99), GIBBS_K,
+        {"gibbs_multistep": 1}, tmp)
     del mh, pois, g
     torch.cuda.empty_cache()
     mht, mht_counts, _ = phase_mh_tuned(dev)
@@ -4234,6 +4581,11 @@ def main() -> None:
         phase_runs_profile((("sep", lambda: sep.run(
             SEP_COLLECT, SEP_COLLECT, time_major=True)),),
             sep_steps=2 * SEP_COLLECT)
+    phase_checkpoint_kernels(
+        "separable", sep, lambda: mt.HMC(
+            sep.target, sep.positions, SEP_EPS, SEP_L,
+            use_pallas="separable").seed(99), CKPT_SEP_RUN,
+        {"hmc_separable_step": CKPT_SEP_RUN}, tmp)
     del sep
     torch.cuda.empty_cache()
     warm, warm_counts, _ = phase_sep_warmed_up(dev)
@@ -4264,9 +4616,16 @@ def main() -> None:
     if args.profile:
         phase_runs_profile((("pt", lambda: pt.run(
             PT_COLLECT, 0, time_major=True)),))
+    phase_checkpoint_kernels(
+        "tempering", pt, lambda: mt.ParallelTempering(
+            pt.target, pt.positions, betas=pt.betas, proposal_std=1.0,
+            steps_per_call=PT_K, use_pallas="full").seed(99), PT_K,
+        {"pt_multistep": 1}, tmp)
     del pt
     torch.cuda.empty_cache()
-    mhc_counts, k5c = phase_mh_constrained(dev)
+    mhc_counts, k5c, mhc = phase_mh_constrained(dev)
+    phase_checkpoint_constrained(mhc, tmp)
+    del mhc
     ptc_counts, k8c = phase_pt_constrained(dev)
     torch.cuda.empty_cache()
     phase_chees(dev)

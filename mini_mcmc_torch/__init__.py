@@ -9,11 +9,15 @@ adaptive SMC, constrained parameters through
 (``use_pallas=True | "full" | "separable"``) run by hand-written CUDA kernels
 for Hopper (``csrc/``) on CUDA tensors and by their plain PyTorch twins on
 CPU tensors. Samplers and initial positions live on the GPU unless the
-caller passes ``device="cpu"``. The module names mirror ``mini_mcmc_tpu``'s,
+caller passes ``device="cpu"``. ``checkpoint`` saves and restores any
+sampler bit for bit, and ``io`` exports the sample cube as CSV, Arrow or
+Parquet. The module names mirror ``mini_mcmc_tpu``'s,
 which stays the reference the port is tested against; this package never
 imports it or JAX.
 """
 
+from . import io, models, ops, stats, utils
+from .checkpoint import load_checkpoint, save_checkpoint
 from .diagnostics import (
     ModernDiagnostics,
     Summary,
@@ -46,6 +50,7 @@ from .ops.ais import AISResult, ais_log_z, linear_betas, resample
 from .ops.sgmcmc import minibatch_grad, polynomial_decay, target_grad
 from .ops.smc import SMCResult, smc_log_z
 from .ops.tempering import geometric_betas, tune_betas
+from .runner import make_initial_recording_runner, make_simple_runner
 from .samplers import (
     HMC,
     MALA,
@@ -103,11 +108,17 @@ __all__ = [
     "init_det",
     "init_with_seed",
     "interval",
+    "io",
     "isotropic_gaussian_proposal",
     "linear_betas",
+    "load_checkpoint",
     "lower_bounded",
+    "make_initial_recording_runner",
+    "make_simple_runner",
     "minibatch_grad",
+    "models",
     "neal_funnel",
+    "ops",
     "poisson_target",
     "polynomial_decay",
     "positive",
@@ -117,13 +128,16 @@ __all__ = [
     "rank_normalized_diagnostics",
     "rosenbrock_nd",
     "run_stats",
+    "save_checkpoint",
     "smc_log_z",
     "split_rhat_mean_ess",
     "standard_normal",
+    "stats",
     "stream_run",
     "summary",
     "target_grad",
     "transformed_target",
     "tune_betas",
     "upper_bounded",
+    "utils",
 ]

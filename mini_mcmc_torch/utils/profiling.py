@@ -1,19 +1,53 @@
 """Profiling helpers (counterpart of ``mini_mcmc_tpu/utils/profiling.py``).
 
 CUDA work is asynchronous: a host clock read without a synchronize measures
-the enqueue. ``sync`` waits for the device; ``step_timer`` times on CUDA
-events for CUDA results and on the host clock otherwise; ``device_profile``
-splits one call's device time by kernel with ``torch.profiler``.
+the enqueue. ``trace`` writes a ``torch.profiler`` trace of a block;
+``sync`` waits for the device; ``step_timer`` times on CUDA events for CUDA
+results and on the host clock otherwise; ``device_profile`` splits one
+call's device time by kernel with ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import tempfile
 import time
 
 import torch
 
 #: profiled calls of :func:`device_profile` before it gives up
 _PROFILE_ATTEMPTS = 3
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Trace a block with ``torch.profiler`` (CPU and CUDA activity; the
+    CPU alone where PyTorch sees no CUDA device) and write it into
+    ``log_dir`` as a Chrome trace JSON (``*.pt.trace.json``, which
+    TensorBoard and Perfetto read). Yields ``log_dir``, by default
+    ``mini_mcmc_torch_trace`` in the temporary directory (``TMPDIR``).
+
+        with profiling.trace("runs/trace"):
+            sampler.run(1000, 100)
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "mini_mcmc_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        try:
+            yield log_dir
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
 
 
 def sync(x):

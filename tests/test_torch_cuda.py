@@ -1964,3 +1964,105 @@ def test_cuda_sgmcmc_on_the_card(cuda):
     assert _regression("cpu", n=2048, d=2)[0](
         torch.zeros((4, 2)), torch.Generator().manual_seed(0)
     ).device.type == "cpu"
+
+
+# -- the run tooling: checkpoint resume, export and load on the card ---------
+
+
+def _resume_samplers(dev):
+    """A small sampler of each fused kernel's path on ``dev``, by seed,
+    with the kernel wrapper that its runs launch."""
+    g = torch.Generator().manual_seed(31)
+    x2 = torch.randn((256, 2), generator=g)
+    x3 = torch.randn((256, 3), generator=g) * 0.3 + 1.0
+    kw = dict(device=dev)
+    return {
+        "k2_hmc": (hmc_multistep, lambda s: HMC(
+            rosenbrock_nd(), x3, 0.02, 8, use_pallas="full", jitter=0.3,
+            steps_per_call=4, **kw).seed(s)),
+        "k4_nuts": (nuts_step, lambda s: NUTS(
+            diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]), x2,
+            0.8, use_pallas="full", **kw).seed(s)),
+        "k5_mh": (mh_multistep, lambda s: MetropolisHastings(
+            gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]]),
+            isotropic_gaussian_proposal(1.0), x2, use_pallas="full",
+            steps_per_call=4, **kw).seed(s)),
+        "k6_gibbs": (gibbs_multistep, lambda s: GibbsSampler(
+            gaussian_mixture_conditional(-2.0, 1.0, 3.0, 1.5, 0.5),
+            torch.zeros((256, 2)), use_pallas="full", steps_per_call=4,
+            **kw).seed(s)),
+        "k7_separable": (hmc_separable_step, lambda s: HMC(
+            standard_normal(), torch.randn((64, 512), generator=g), 0.1, 5,
+            use_pallas="separable", **kw).seed(s)),
+        "k8_tempering": (pt_multistep, lambda s: ParallelTempering(
+            _mixture(), torch.full((256, 1), -8.0), betas=(1.0, 0.3, 0.1),
+            steps_per_call=4, use_pallas="full", **kw).seed(s)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k2_hmc", "k4_nuts", "k5_mh", "k6_gibbs",
+                                  "k7_separable", "k8_tempering"])
+def test_cuda_checkpoint_resumes_through_the_kernel(cuda, tmp_path, name):
+    from mini_mcmc_torch.checkpoint import restore_sampler, save_sampler
+
+    kernel, make = _resume_samplers(cuda)[name]
+    a = make(9)
+    a.run(8, 8 if name == "k4_nuts" else 0)
+    path = str(tmp_path / "ckpt")
+    save_sampler(path, a)
+    n = kernel.launches
+    cont_a = a.run(8)
+    launched = kernel.launches - n
+    b = make(4321)
+    restore_sampler(path, b)
+    assert b.state.positions.is_cuda
+    n = kernel.launches
+    cont_b = b.run(8)
+    assert kernel.launches - n == launched > 0
+    assert cont_a.is_cuda and torch.equal(cont_a, cont_b)
+    for x, y in zip(a.state, b.state):
+        assert torch.equal(x, y) if torch.is_tensor(x) else x == y
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_into_a_cpu_sampler(cuda, tmp_path):
+    from mini_mcmc_torch.checkpoint import (
+        load_checkpoint,
+        restore_sampler,
+        save_sampler,
+    )
+
+    _, make = _resume_samplers(cuda)["k2_hmc"]
+    a = make(3)
+    a.run(8)
+    path = str(tmp_path / "ckpt")
+    save_sampler(path, a)
+    # load_checkpoint's default device is the card
+    state, gen = load_checkpoint(path)
+    assert all(x.is_cuda for x in state)
+    assert torch.equal(gen.get_state(), a._gen.get_state())
+    # the card's checkpoint restores into the CPU twin, state bit for bit
+    cpu = HMC(rosenbrock_nd(), torch.zeros((256, 3)), 0.02, 8,
+              use_pallas="full", jitter=0.3, steps_per_call=4,
+              device="cpu")
+    restore_sampler(path, cpu)
+    for x, y in zip(cpu.state, a.state):
+        assert x.device.type == "cpu" and torch.equal(x, y.cpu())
+    cube = cpu.run(8)
+    assert cube.device.type == "cpu" and bool(torch.isfinite(cube).all())
+
+
+@pytest.mark.cuda
+def test_cuda_save_csv_tensor_native(cuda, tmp_path):
+    from mini_mcmc_torch.io import save_csv_tensor
+
+    cube = torch.randn((16, 64, 3), device=cuda)
+    path = str(tmp_path / "cube.csv")
+    save_csv_tensor(cube, path, native=True)
+    with open(path) as f:
+        assert f.readline() == "chain,observation,dim_0,dim_1,dim_2\n"
+    vals = np.loadtxt(path, delimiter=",", skiprows=1)
+    np.testing.assert_array_equal(
+        vals[:, 2:], cube.cpu().double().numpy().reshape(-1, 3))
+    np.testing.assert_array_equal(vals[:, 0], np.repeat(np.arange(16), 64))

@@ -27,9 +27,13 @@ for info in pkgutil.walk_packages(mini_mcmc_torch.__path__,
 import chip_smoke  # its import block; main() runs only as a script
 
 # the MH, Gibbs, separable HMC, tempering, metric, run-surface,
-# transform, ChEES/ensemble/slice/elliptical and AIS/SMC/SG-MCMC slices
-# among them
+# transform, ChEES/ensemble/slice/elliptical, AIS/SMC/SG-MCMC and
+# run-tooling slices among them
 assert {"mini_mcmc_torch.ops.mh", "mini_mcmc_torch.ops.gibbs",
+        "mini_mcmc_torch.checkpoint", "mini_mcmc_torch.io",
+        "mini_mcmc_torch.io.csv_io", "mini_mcmc_torch.io.arrow_io",
+        "mini_mcmc_torch.io.parquet_io", "mini_mcmc_torch.native",
+        "mini_mcmc_torch.utils.timer",
         "mini_mcmc_torch.ops.ais", "mini_mcmc_torch.ops.smc",
         "mini_mcmc_torch.ops.sgmcmc",
         "mini_mcmc_torch.ops.chees", "mini_mcmc_torch.ops.ensemble",
@@ -59,4 +63,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr[-4000:]
     n_modules, loaded = out.stdout.split(maxsplit=1)
     assert loaded.strip() == "[]"
-    assert int(n_modules) >= 47  # every module of the package was imported
+    assert int(n_modules) >= 54  # every module of the package was imported

@@ -3,8 +3,8 @@
 
 The cases of tests/test_progress.py (the display, its rotation, the NUTS
 conventions, the block runner with a sub-K tail) and of
-tests/test_stream.py but its two Parquet ones (``io/`` is not ported),
-each on the port's samplers; their statistical bounds are kept. Beside
+tests/test_stream.py (its Parquet ones through ``io.ParquetStreamWriter``,
+skipped without ``pyarrow``), each on the port's samplers; their statistical bounds are kept. Beside
 them, what keying draws by place makes exact: on every sampler's fused
 tier through its plain twin (K = 4, small C), a K-aligned
 ``run_progress`` and ``stream_run``'s chunks give the cube ``run()`` gives
@@ -311,7 +311,7 @@ def test_runner_writes_a_callers_cube_in_place():
         s._runner(s.state, s._next_key(), 8, 0, out=cube[:4])
 
 
-# -- stream_run: the cases of tests/test_stream.py but the Parquet ones ------
+# -- stream_run: the cases of tests/test_stream.py ---------------------------
 
 
 def _stream_mh(seed=3, **kw):
@@ -334,6 +334,51 @@ def test_streamed_chunks_equal_one_run():
     assert 0.0 < float(res.p_accept) < 1.0
     assert bool(torch.isfinite(res.rhat).all())
     assert "streamed 256" in str(res)
+
+
+def test_streamed_parquet_equals_one_shot_tensor_export(tmp_path):
+    # the streamed file equals save_parquet_tensor of the whole cube row
+    # for row, and the cube is the one run() gives from the same seed
+    pq = pytest.importorskip("pyarrow.parquet")
+    from mini_mcmc_torch.io import ParquetStreamWriter, save_parquet_tensor
+
+    chunks = []
+    path = str(tmp_path / "stream.parquet")
+    with ParquetStreamWriter(path) as w:
+
+        def both(chunk, start):
+            w.append(chunk, start)
+            chunks.append((start, chunk))
+
+        res = mt.stream_run(_stream_mh(), 256, 64, on_chunk=both,
+                            n_discard=32)
+    full = torch.cat([c for _, c in chunks], dim=0)
+    save_parquet_tensor(full, str(tmp_path / "oneshot.parquet"))
+    streamed = pq.read_table(path)
+    oneshot = pq.read_table(str(tmp_path / "oneshot.parquet"))
+    assert [s for s, _ in chunks] == [0, 64, 128, 192]
+    assert streamed.column_names == ["observation", "chain", "dim_0",
+                                     "dim_1"]
+    assert streamed.equals(oneshot)  # row for row, the indices included
+    assert torch.equal(full, _stream_mh().run(256, 32, time_major=True))
+    assert res.n_collected == 256 and 0.0 < float(res.p_accept) < 1.0
+
+
+def test_parquet_writer_rejects_wrong_orientation(tmp_path):
+    pytest.importorskip("pyarrow.parquet")
+    from mini_mcmc_torch.io import ParquetStreamWriter
+
+    w = ParquetStreamWriter(str(tmp_path / "x.parquet"), n_chains=8)
+    with pytest.raises(ValueError, match="TIME-major"):
+        w.append(torch.zeros((8, 32, 2)), 0)  # chain-major [C, k, D]
+    w.append(torch.zeros((32, 8, 2)), 0)
+    # a change of chain count across chunks, without the constructor's
+    w2 = ParquetStreamWriter(str(tmp_path / "y.parquet"))
+    w2.append(np.zeros((16, 8, 2)), 0)
+    with pytest.raises(ValueError, match="TIME-major"):
+        w2.append(np.zeros((8, 16, 2)), 16)
+    w.close()
+    w2.close()
 
 
 def test_stream_continues_chains_and_moments():
