@@ -240,6 +240,32 @@ Phases, one line each (every check raises on failure):
     constrained-MH stages' samplers (Kernels 5, 6, 7, 8 and 5's
     transformed instance, counted), and restores the constrained
     checkpoint into an untransformed MH, which raises.
+37. user densities in Kernels 1-4 (``ops/kernels/user_density.py``), on
+    eight schools (D = 10) in its three CUDA forms: the hand-written
+    ``cuda_source``, the same logp with the gradient of dual numbers
+    (``derive_grad_dc``) and the C++ generated from ``logp_batch``. The
+    build of 2 compiles their six libraries (each form plain and under a
+    diagonal metric) with the built-in one, every ``nvcc`` at once;
+    ``[user_build]`` gives each library's nvcc seconds and each user
+    instance's registers, stack frame and spills (none may spill);
+    ``[user_probe]`` each form's compiled logp and gradient against the
+    batch form and autograd on 4,096 rows (``validate_dc_forms`` must
+    pass); ``[eight_schools_fused]``, ``[eight_schools_fused_derived]``
+    and ``[eight_schools_fused_traced]`` the bench's fused NUTS stage
+    (bench.py:1376-1447: 4,096 chains, seed 35, target_accept 0.9,
+    ``warmed_up(300, "diag")``, an untimed ``run(1024, 256)``, then the
+    best of three timed ``run(1024, 256)``, bench.py's ``_timed_best``,
+    the forms in turns) with each form: the moment gates, R-hat, the ESS
+    floor, the divergence rate, Kernel 4's whitened user instance once a
+    step, µs a step and ESS/s, the derived and traced forms at least 0.7
+    times the hand-written ESS/s; ``[user_kernels]`` each user instance of Kernels
+    1-4 (Kernel 1 at L = 8, Kernel 2 at K = 16 and L = 8, Kernel 3 at
+    j = 4, Kernel 4 one step; plain and whitened) against its twin at the
+    hand stage's equilibrium, with its time by CUDA events and alone
+    under the profiler, and ``[user_tier_run]`` the ``use_pallas=True``
+    and ``"full"`` HMC tiers and the ``use_pallas=True`` NUTS tier on the
+    hand form, counted. The lockstep eight-schools NUTS half (30) times
+    ``run(512, 256)``, not 1,024 draws, to leave room for these phases.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -267,7 +293,7 @@ import torch
 
 import mini_mcmc_torch as mt
 from mini_mcmc_torch.checkpoint import restore_sampler, save_sampler
-from mini_mcmc_torch.ops.kernels import _build, rng
+from mini_mcmc_torch.ops.kernels import _build, rng, user_density
 from mini_mcmc_torch.ops.kernels.gibbs_full import (
     gibbs_multistep,
     gibbs_multistep_plain,
@@ -407,6 +433,20 @@ ES8_CHAINS, ES8_COLLECT, ES8_DISCARD, ES8_ADAPT = 4096, 1024, 256, 300
 ES8_FIRST_COLLECT = 64
 # its ChEES half (bench.py:1342-1372): warmed_up(500), the same runs
 ES8_CHEES_ADAPT = 500
+# the lockstep NUTS half's timed run collects 512 draws, not the bench's
+# 1,024 (its gates scale with the draws: the ESS floor is 0.002 C n): at
+# 68.7-104.5 s for 1,024 it is the slowest stage of the script, and the
+# fused stages below run the bench's full run(1024, 256) on the same
+# posterior
+ES8_NUTS_COLLECT = 512
+# eight schools on the fused NUTS tier (bench.py:1376-1447): Kernel 4's
+# user instances, seed 35, warmed_up(300, "diag"), run(1024, 256) twice,
+# the second timed, with each of the three CUDA forms of the target
+ES8_FUSED_SEED = 35
+ES8_FORMS = ("hand", "derived", "traced")
+# the derived gradient's ESS/s against the hand-written one's
+# (bench.py:1437-1438)
+ES8_DERIVED_RATE = 0.7
 
 # the MH and tempering stages under a transform: x0 > 0 on the MH stage
 # (x0 half-normal: E = sqrt(2 / pi), Var = 1 - 2 / pi), interval(-24, 24)
@@ -520,6 +560,20 @@ OPS = {
                               # (targets.cuh:bij_logp): the core compare,
                               # the sigmoid's expf and reciprocal, log1pf,
                               # logf(w) and the adds
+    # eight schools at D = 10 (examples/eight_schools.py:CUDA_SOURCE)
+    "es8_logp": 145,  # expf and log1pf of tau, per school theta, the
+                      # residual, its square over sigma^2 (a division)
+                      # and eta's square, the sums
+    "es8_grad": 120,  # the hand-written gradient: expf, t2 and its
+                      # division, per school the residual over sigma^2
+                      # (a division) and three FMAs
+    "d10_leapfrog": 30,  # the kicks and drift of ten coordinates
+    "d10_leaf_rest": 60,  # the joint (ten FMAs), the checks, expf and the
+                          # leaf row's 3D + 1 shared-memory stores
+    "d10_merge": 75,  # the U-turn dots (2D FMAs), the row's loads and the
+                      # proposal's copy, the swap ratio
+    "d10_doubling": 100,  # six D-wide end selects, the outer U-turn dots
+    "diag_d10": 20,  # x = s y and g_y = s g_x: D products each
 }
 
 
@@ -602,6 +656,28 @@ def device_ms_per_launch(launch, name: str, reps: int = 50) -> float:
     return us / n * 1e-3
 
 
+def device_ms_each(launches: dict, reps: int) -> dict:
+    """Each kernel's device milliseconds a launch alone, by kernel name,
+    from one ``torch.profiler`` call that launches each of ``launches``
+    (name -> launch) ``reps`` times back to back; ``None`` ("not
+    measured") for a kernel whose events the profiler did not deliver in
+    its three attempts (utils/profiling.py:device_profile)."""
+    try:
+        _, _, by_name = device_profile(
+            lambda: [fn() for fn in launches.values() for _ in range(reps)],
+            expect=next(iter(launches)))
+    except RuntimeError as e:
+        say("device_ms_each", not_measured=repr(list(launches)),
+            reason=repr(str(e)))
+        return dict.fromkeys(launches)
+    out = {}
+    for name in launches:
+        n = sum(c for k, (c, _) in by_name.items() if name in k)
+        us = sum(u for k, (_, u) in by_name.items() if name in k)
+        out[name] = us / n * 1e-3 if 0 < n <= reps else None
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls after one warm-up."""
     fn()
@@ -648,6 +724,13 @@ TRANSFORMED_KERNELS = ("hmc_multistep", "leapfrog_trajectory", "nuts_step",
                        "mh_multistep", "pt_multistep")
 
 
+#: the kernels with user instances (a Target's cuda_source or the C++
+#: generated from its batch form: ops/kernels/user_density.py): each counts
+#: those launches in ``user_launches``
+USER_KERNELS = ("hmc_multistep", "leapfrog_trajectory", "nuts_step",
+                "nuts_subtree")
+
+
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
@@ -657,6 +740,8 @@ def reset_counts() -> None:
     hmc_separable_step.scaled_launches = 0
     for name in TRANSFORMED_KERNELS:
         KERNELS[name].transformed_launches = 0
+    for name in USER_KERNELS:
+        KERNELS[name].user_launches = 0
 
 
 def read_counts() -> dict:
@@ -668,6 +753,9 @@ def read_counts() -> dict:
     # the transformed instances, also in the kernels' launches
     for name in TRANSFORMED_KERNELS:
         counts[f"{name}_transformed"] = KERNELS[name].transformed_launches
+    # the user instances (a user density's own library), also counted there
+    for name in USER_KERNELS:
+        counts[f"{name}_user"] = KERNELS[name].user_launches
     counts.update({name: fn.calls for name, fn in TWINS.items()})
     return counts
 
@@ -708,17 +796,13 @@ PTXAS_KERNELS = ("leapfrog_kernel", "multistep_kernel", "subtree_kernel",
                  "hmc_separable_kernel")
 
 
-def phase_build():
-    """Build the kernels; returns the library's path and the registers,
-    stack frame and spills of the PTXAS_KERNELS instances by name."""
-    t0 = time.perf_counter()
-    so = _build.build()
-    _build.lib()
-    # ptxas -v: each entry function's registers and stack, by kernel and
-    # template arguments
+def ptxas_report(log: str) -> tuple[list, dict]:
+    """``ptxas -v`` of a build log: each entry function's registers and
+    stack as lines, and the registers, stack frame and spills of the
+    PTXAS_KERNELS instances by kernel and template arguments."""
     regs, name, frame = [], "?", {}
     reported = {}
-    for line in so.with_suffix(".log").read_text().splitlines():
+    for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             name = kernel_name(entry.group(1))
@@ -735,8 +819,20 @@ def phase_build():
                         f"{used.group(2) or 0} B stack")
             if name.startswith(PTXAS_KERNELS):
                 reported[name] = dict(regs=int(n_regs), **frame)
+    return regs, reported
+
+
+def phase_build(user_requests=()):
+    """Build the kernels, and with them the libraries of
+    ``user_requests`` (``user_density.jobs``), every ``nvcc`` started
+    together; returns the library's path and the registers, stack frame
+    and spills of the PTXAS_KERNELS instances by name."""
+    t0 = time.perf_counter()
+    so = _build.build(also=user_density.jobs(user_requests))
+    _build.lib()
+    regs, reported = ptxas_report(so.with_suffix(".log").read_text())
     say("build", seconds=round(time.perf_counter() - t0, 3), lib=so.name,
-        ptxas=repr(regs))
+        user_libraries=len(user_requests), ptxas=repr(regs))
     for kernel, info in reported.items():
         say("ptxas_instance", kernel=kernel[:64], **info)
     return so, reported
@@ -3280,22 +3376,18 @@ def phase_sep_constrained(dev):
 
 def phase_eight_schools(dev) -> dict:
     """Eight schools' NUTS half (bench.py:1259-1341) on the port's lockstep
-    tier, which runs no hand-written kernel (the posterior has no CUDA
-    functor): ``make_noncentered_target()``, 4,096 chains, D = 10,
-    ``NUTS(target, init_with_seed(4096, 10, seed=31), 0.9, seed=31)
-    .warmed_up(300, "diag")``, then ``run(64, 256)`` (the step size
-    adapted in the whitened space, ES8_FIRST_COLLECT) and the timed
-    ``run(1024, 256)``; the gates of bench.py:1285-1317 (|E[mu] - exact| <= 0.25,
-    |E[exp(log_tau)] - exact| <= 0.4, R-hat mean in [0.95, 1.05], ESS min
-    >= 0.002 C n, steady-state divergence rate <= 2e-3), leapfrogs per
-    draw, ESS/s and the time."""
+    tier (``use_pallas=False``), which runs no hand-written kernel:
+    ``make_noncentered_target()``, 4,096 chains, D = 10, ``NUTS(target,
+    init_with_seed(4096, 10, seed=31), 0.9, seed=31).warmed_up(300,
+    "diag")``, then ``run(64, 256)`` (the step size adapted in the
+    whitened space, ES8_FIRST_COLLECT) and the timed ``run(512, 256)``
+    (ES8_NUTS_COLLECT); :func:`es8_gates`, leapfrogs per draw, ESS/s and
+    the time."""
     from mini_mcmc_torch.examples.eight_schools import (
-        exact_posterior_means,
         make_noncentered_target,
     )
 
-    exact_mu, exact_tau = exact_posterior_means()
-    c8, n8, nd8 = ES8_CHAINS, ES8_COLLECT, ES8_DISCARD
+    c8, n8, nd8 = ES8_CHAINS, ES8_NUTS_COLLECT, ES8_DISCARD
     reset_counts()
     t0 = time.perf_counter()
     warm = mt.NUTS(make_noncentered_target(), mt.init_with_seed(
@@ -3310,8 +3402,24 @@ def phase_eight_schools(dev) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     check_no_kernel("eight_schools")
-    steps = n8 + nd8 - 1
-    div = int(warm.last_run_divergences.sum())
+    m = es8_gates("eight_schools", sample, warm, elapsed, n8 + nd8 - 1)
+    m["warm_up_and_first_run_s"] = warm_s
+    say("eight_schools", kernels="none (the lockstep tier)",
+        **{k: repr(v) for k, v in m.items()})
+    return m
+
+
+def es8_gates(label: str, sample, nuts, elapsed: float, steps: int) -> dict:
+    """The gates of bench.py:1285-1317 on a timed eight-schools NUTS run
+    (|E[mu] - exact| <= 0.25, |E[exp(log_tau)] - exact| <= 0.4, R-hat
+    mean in [0.95, 1.05], ESS min >= 0.002 C n, steady-state divergence
+    rate <= 2e-3) and its measures: leapfrogs per draw, ESS/s, draws/s, µs
+    a step."""
+    from mini_mcmc_torch.examples.eight_schools import exact_posterior_means
+
+    exact_mu, exact_tau = exact_posterior_means()
+    c8, n8 = sample.shape[:2]
+    div = int(nuts.last_run_divergences.sum())
     rhat, ess = mt.split_rhat_mean_ess(sample)
     m = {
         "exact_mu": exact_mu, "exact_tau": exact_tau,
@@ -3320,24 +3428,21 @@ def phase_eight_schools(dev) -> dict:
         "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
         "ess_min": float(ess.min()),
         "divergence_rate": div / (c8 * steps),
-        "leapfrogs_per_draw": float(warm.last_run_leapfrogs[0]) / steps,
-        "elapsed_s": elapsed, "warm_up_and_first_run_s": warm_s,
+        "leapfrogs_per_draw": float(
+            nuts.last_run_leapfrogs.double().mean()) / steps,
+        "elapsed_s": elapsed, "us_per_step": elapsed / steps * 1e6,
         "draws_per_sec": c8 * steps / elapsed,
     }
     m["ess_per_sec"] = m["ess_mean"] / elapsed
-    del sample
-    check("eight_schools E[mu]", abs(m["mu_hat"] - exact_mu) <= 0.25,
+    check(f"{label} E[mu]", abs(m["mu_hat"] - exact_mu) <= 0.25,
           (m["mu_hat"], exact_mu))
-    check("eight_schools E[tau]", abs(m["tau_hat"] - exact_tau) <= 0.4,
+    check(f"{label} E[tau]", abs(m["tau_hat"] - exact_tau) <= 0.4,
           (m["tau_hat"], exact_tau))
-    check("eight_schools rhat", 0.95 <= m["rhat_mean"] <= 1.05,
-          m["rhat_mean"])
-    check("eight_schools ess floor", m["ess_min"] >= 0.002 * c8 * n8,
+    check(f"{label} rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    check(f"{label} ess floor", m["ess_min"] >= 0.002 * c8 * n8,
           (m["ess_min"], c8 * n8))
-    check("eight_schools steady-state divergence rate",
+    check(f"{label} steady-state divergence rate",
           m["divergence_rate"] <= 2e-3, m["divergence_rate"])
-    say("eight_schools", kernels="none (the lockstep tier)",
-        **{k: repr(v) for k, v in m.items()})
     return m
 
 
@@ -4258,6 +4363,371 @@ def phase_io(cube, tmp: str) -> dict:
     return m
 
 
+def es8_targets(dev, metric=None) -> dict:
+    """The eight-schools target in each CUDA form (ES8_FORMS), whitened
+    by ``metric`` when one is given."""
+    from mini_mcmc_torch.examples.eight_schools import make_noncentered_target
+
+    out = {f: make_noncentered_target(f) for f in ES8_FORMS}
+    if metric is not None:
+        out = {f: mt.models.precondition_target(t, metric)
+               for f, t in out.items()}
+    return out
+
+
+def user_requests(dev) -> list:
+    """The libraries the eight-schools stages run: each form at D = 10,
+    plain and under a diagonal metric (the two legs of ``warmed_up(300,
+    "diag")``), as ``(source, dim, flags)``; the traced form is traced on
+    the card. A metric's values are parameters, not source: one library
+    serves every diagonal metric."""
+    diag = mt.models.Preconditioner(
+        "diag", scale=torch.ones(10, device=dev))
+    reqs = []
+    for metric in (None, diag):
+        for t in es8_targets(dev, metric).values():
+            reqs.append((t.dc_forms(10, dev).source, 10,
+                         _build.instance_flags(t)))
+    return reqs
+
+
+def phase_user_build(reqs) -> dict:
+    """``[user_build]``: each user library's build seconds (nvcc from the
+    start of phase_build's one batch to its link) and the registers,
+    stack frame and spills of every instance in it (``ptxas -v``)."""
+    out = {}
+    for (source, dim, flags), form in zip(reqs, ES8_FORMS * 2):
+        so = user_density.library_path(source, dim, flags)
+        log = so.with_suffix(".log").read_text()
+        head = log.splitlines()[0]
+        seconds = float(head.split()[-1]) if head.startswith(
+            "build seconds") else float("nan")
+        _, reported = ptxas_report(log)
+        say("user_build", form=form, dim=dim, flags=flags, lib=so.name,
+            nvcc_seconds=seconds, instances=len(reported))
+        for kernel, info in reported.items():
+            say("user_ptxas_instance", form=form, flags=flags,
+                kernel=kernel[:72], **info)
+            check(f"user instance {kernel[:40]} spills nothing",
+                  info.get("spill_stores", 0) == 0, info)
+        out[(form, flags)] = dict(nvcc_seconds=seconds, ptxas=reported)
+    return out
+
+
+def phase_user_probe(dev) -> dict:
+    """``[user_probe]``: each form's compiled logp and gradient (the
+    per-density library's probe entry) against the batch form and
+    autograd on 4,096 rows of ``init_with_seed(4096, 10, seed=35)``: the
+    worst absolute and relative errors; ``validate_dc_forms`` (the JAX
+    tolerance rule) must pass on all of them."""
+    from mini_mcmc_torch.models import validate_dc_forms
+
+    x = mt.init_with_seed(ES8_CHAINS, 10, seed=ES8_FUSED_SEED, device=dev)
+    out = {}
+    for form, t in es8_targets(dev).items():
+        lp, g = user_density.probe(t, x)
+        want_lp, want_g = t.batch_logp_and_grad(x)
+        validate_dc_forms(t, x, max_rows=x.shape[0])
+        out[form] = {
+            "logp_max_abs_err": max_abs_err(lp, want_lp),
+            "logp_max_rel_err": float(((lp - want_lp).abs()
+                                       / want_lp.abs().clamp(min=1.0))
+                                      .max()),
+            "grad_max_abs_err": max_abs_err(g, want_g),
+            "grad_max_rel_err": float(((g - want_g).abs() / want_g.abs()
+                                       .amax(dim=1, keepdim=True)
+                                       .clamp(min=1.0)).max()),
+        }
+        say("user_probe", form=form, rows=x.shape[0],
+            grad=t.dc_forms(10, dev).grad,
+            **{k: repr(v) for k, v in out[form].items()})
+    return out
+
+
+def phase_eight_schools_fused(dev):
+    """Eight schools on the fused NUTS tier (bench.py:1376-1447) with each
+    CUDA form of the target (ES8_FORMS): ``NUTS(make_noncentered_target(
+    form), init_with_seed(4096, 10, seed=35), 0.9, seed=35,
+    use_pallas="full").warmed_up(300, "diag")`` and an untimed
+    ``run(1024, 256)``; then bench.py's ``_timed_best``: TIMED_REPS timed
+    ``run(1024, 256)`` of each form, the forms in turns, so that the
+    host's speed, which sets these host-bound stages' time, is shared.
+    Each timed run is counted (Kernel 4's whitened user instance once a
+    step, no twin); :func:`es8_gates` on each form's last run at its
+    fastest time, µs a step, ESS/s, and the derived and traced forms at
+    least ES8_DERIVED_RATE times the hand-written ESS/s. Returns the
+    samplers and the measures by form."""
+    from mini_mcmc_torch.examples.eight_schools import make_noncentered_target
+
+    c8, n8, nd8 = ES8_CHAINS, ES8_COLLECT, ES8_DISCARD
+    steps = n8 + nd8 - 1
+    samplers, warm_s = {}, {}
+    for form in ES8_FORMS:
+        t0 = time.perf_counter()
+        nuts = mt.NUTS(make_noncentered_target(form), mt.init_with_seed(
+            c8, 10, seed=ES8_FUSED_SEED, device=dev), 0.9,
+            seed=ES8_FUSED_SEED, use_pallas="full").warmed_up(ES8_ADAPT,
+                                                              "diag")
+        first = nuts.run(n8, nd8)
+        torch.cuda.synchronize()
+        warm_s[form] = time.perf_counter() - t0
+        del first
+        check(f"eight_schools_fused {form} whitened diag instance",
+              _build.instance_flags(nuts.kernel_target) == 5,
+              _build.instance_flags(nuts.kernel_target))
+        samplers[form] = nuts
+    times = {form: [] for form in ES8_FORMS}
+    samples = {}
+    for _ in range(TIMED_REPS):
+        for form, nuts in samplers.items():
+            samples[form] = None
+            reset_counts()
+            t0 = time.perf_counter()
+            samples[form] = nuts.run(n8, nd8)
+            torch.cuda.synchronize()
+            times[form].append(time.perf_counter() - t0)
+            counts = read_counts()
+            check(f"eight_schools_fused {form} launches and no twin",
+                  counts == counts_with(nuts_step=steps,
+                                        nuts_step_user=steps), counts)
+    out = {}
+    for form, nuts in samplers.items():
+        label = "eight_schools_fused" + (
+            "" if form == "hand" else f"_{form}")
+        m = es8_gates(label, samples[form], nuts, min(times[form]), steps)
+        m.update(timed_runs_s=times[form], warm_up_and_first_run_s=warm_s[
+            form], kernel4_launches=steps,
+            grad=nuts.kernel_target.dc_forms(10, dev).grad)
+        if form != "hand":
+            m["rate_vs_hand"] = m["ess_per_sec"] / out["hand"]["ess_per_sec"]
+            check(f"{label} ESS/s >= {ES8_DERIVED_RATE} x hand-written",
+                  m["rate_vs_hand"] >= ES8_DERIVED_RATE, m["rate_vs_hand"])
+        samples[form] = None
+        say(label, form=form, chains=c8, **{k: repr(v)
+                                            for k, v in m.items()})
+        out[form] = m
+    return samplers, out
+
+
+def user_starts(nuts, dev) -> dict:
+    """The starts of the user instances' checks at eight schools'
+    equilibrium (the hand stage's sampler after its timed run), by (form,
+    kind): ``plain`` the target in x at the adapted steps times the
+    metric's smallest scale, ``whitened`` the sampler's diagonal metric
+    around the target in y at the adapted steps."""
+    from types import SimpleNamespace
+
+    x, y = nuts.positions.contiguous(), nuts.state.positions.contiguous()
+    eps_y = nuts.step_size.contiguous()
+    eps_x = (eps_y * float(nuts.metric.scale.min())).contiguous()
+    out = {}
+    for kind, targets, pos, eps in (
+            ("plain", es8_targets(dev), x, eps_x),
+            ("whitened", es8_targets(dev, nuts.metric), y, eps_y)):
+        for form, t in targets.items():
+            out[(form, kind)] = SimpleNamespace(
+                kernel_target=t, state=SimpleNamespace(positions=pos),
+                step_size=eps)
+    return out
+
+
+def phase_user_kernels(nuts, dev) -> dict:
+    """``[user_kernels]``: at eight schools' equilibrium, each user
+    instance of Kernels 1-4 (three forms, plain and whitened diag) against
+    its plain twin as the built-in instances are held: Kernel 1 at L = 8
+    and Kernel 2 at K = 16, L = 8 (positions per chain, and gradients,
+    within RTOL/ATOL on NUTS_SHARE of the chains), Kernel 3 at j = 4
+    (subtree_case) and Kernel 4 for one step (phase_nuts_step); each
+    one's time by CUDA events and its device time alone
+    (``torch.profiler``), the twins' times (the hand form: a twin runs the
+    batch form whatever the source). Then the use_pallas=True and "full"
+    HMC tiers and the use_pallas=True NUTS tier on the hand form's plain
+    target, counted (Kernels 1, 2 and 3's user instances on their tiers).
+    Returns the measures by (kernel, form, kind), the twins' details for
+    the bounds and the tier launches."""
+    starts = user_starts(nuts, dev)
+    res, details, sub_leaves = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(0x5EED_1616)
+    for (form, kind), st in starts.items():
+        t, pos = st.kernel_target, st.state.positions
+        c, d = pos.shape
+        eps0 = st.step_size.median().reshape(())
+        mom = torch.randn(pos.shape, generator=gen, device=dev)
+        logp, grad = t.batch_logp_and_grad(pos)
+        k1_args = (t, pos, mom, grad, eps0, 8)
+        got, want = leapfrog_trajectory(*k1_args), \
+            leapfrog_trajectory_plain(*k1_args)
+        ok = chain_agree(got[0], want[0]) & grad_agree(got[3], want[3])
+        ok &= chain_agree(got[1], want[1]) & chain_agree(got[2], want[2])
+        e1 = max(max_abs_err(a, b) for a, b in zip(got, want))
+        check(f"user leapfrog {form} {kind}",
+              float(ok.double().mean()) >= NUTS_SHARE,
+              float(ok.double().mean()))
+        eps_k = eps0.expand(STEPS_PER_CALL).contiguous()
+        k2_args = (t, pos, logp, grad, eps_k, 8, 0x5EED_2222, 17)
+        got2, want2 = hmc_multistep(*k2_args), hmc_multistep_plain(*k2_args)
+        ok2 = chain_agree(got2[0], want2[0]) & chain_agree(got2[1], want2[1])
+        e2 = max_abs_err(got2[0], want2[0], ok2)
+        check(f"user multistep {form} {kind}",
+              float(ok2.double().mean()) >= NUTS_SHARE,
+              float(ok2.double().mean()))
+        e3, done, per_leaf = subtree_case(
+            st, dev, 4, seed=164, label=f"user_subtree_{form}_{kind}")
+        e4, det, step_args = phase_nuts_step(
+            st, dev, label=f"user_nuts_step_{form}_{kind}")
+        sub_args = subtree_inputs(st, dev, 4, seed=164)
+        launches = {
+            "leapfrog": lambda: leapfrog_trajectory(*k1_args),
+            "multistep": lambda: hmc_multistep(*k2_args),
+            "subtree": lambda: subtree(*sub_args),
+            "nuts_step": lambda: nuts_step(*step_args),
+        }
+        names = {"leapfrog": "leapfrog_kernel",
+                 "multistep": "multistep_kernel",
+                 "subtree": "subtree_kernel",
+                 "nuts_step": "nuts_step_kernel"}
+        device = device_ms_each({names[k]: fn for k, fn in launches.items()},
+                                reps=20)
+        for k, fn in launches.items():
+            res.setdefault((k, form, kind), {}).update({
+                "ms": cuda_ms(fn, 20),
+                "device_ms": device[names[k]],
+                "err": {"leapfrog": e1, "multistep": e2, "subtree": e3,
+                        "nuts_step": e4}[k],
+            })
+        if form == "hand":
+            for k, fn in (
+                    ("leapfrog", lambda: leapfrog_trajectory_plain(
+                        *k1_args)),
+                    ("multistep", lambda: hmc_multistep_plain(*k2_args)),
+                    ("subtree", lambda: subtree_plain(*sub_args)),
+                    ("nuts_step", lambda: nuts_step_plain(*step_args))):
+                plain_ms = cuda_ms(fn, 2)
+                for f in ES8_FORMS:
+                    res.setdefault((k, f, kind), {})["plain_ms"] = plain_ms
+        details[(form, kind)] = det
+        sub_leaves[(form, kind)] = done
+        say("user_kernels", form=form, kind=kind, chains=c, D=d,
+            flags=_build.instance_flags(t),
+            **{f"{k}_{q}": repr(v) for k in launches
+               for q, v in res[(k, form, kind)].items()})
+
+    # the tiers of Kernels 1-3 on the hand form's plain target, counted
+    st = starts[("hand", "plain")]
+    x, eps = st.state.positions, float(st.step_size.median())
+    tiers = {}
+    for name, run, kernel in (
+            ("hmc_true", lambda: mt.HMC(st.kernel_target, x, eps, 8,
+                                        use_pallas=True).seed(5).run(8),
+             "leapfrog_trajectory"),
+            ("hmc_full", lambda: mt.HMC(st.kernel_target, x, eps, 8,
+                                        use_pallas="full",
+                                        steps_per_call=STEPS_PER_CALL)
+             .seed(5).run(2 * STEPS_PER_CALL), "hmc_multistep"),
+            ("nuts_true", lambda: mt.NUTS(st.kernel_target, x, 0.9,
+                                          use_pallas=True).seed(5)
+             .run(4, 4), "nuts_subtree")):
+        reset_counts()
+        sample = run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(f"user tier {name} runs its kernel's user instance",
+              counts[kernel] > 0 and counts[f"{kernel}_user"]
+              == counts[kernel] and bool(torch.isfinite(sample).all()),
+              counts)
+        tiers[kernel] = counts[kernel]
+        say("user_tier_run", tier=name, kernel=kernel,
+            launches=counts[kernel], shape=tuple(sample.shape))
+    return {"res": res, "details": details, "subtree_leaves": sub_leaves,
+            "tiers": tiers}
+
+
+def user_bounds(uk) -> dict:
+    """bound_ms and bound_by of each user instance at the shapes of
+    phase_user_kernels (C = 4,096, D = 10), by (kernel, kind): the work
+    of the eight-schools density whatever the form (its hand-written
+    gradient's operations: the least the function needs), the diagonal
+    metric's products when whitened; Kernels 3 and 4 count the twin's
+    leaves, merges and doublings."""
+    c, d, k, L = ES8_CHAINS, 10, STEPS_PER_CALL, 8
+    out = {}
+    for kind in ("plain", "whitened"):
+        w = OPS["diag_d10"] if kind == "whitened" else 0
+        grad = OPS["es8_grad"] + w
+        logp = OPS["es8_logp"] + w
+        leaf = OPS["d10_leapfrog"] + grad + logp + OPS["d10_leaf_rest"]
+        out[("leapfrog", kind)] = bound(
+            4 * (3 * c * d + 1 + c * (3 * d + 1)),
+            c * (L * (OPS["d10_leapfrog"] + grad) + logp))
+        out[("multistep", kind)] = bound(
+            4 * (c * (2 * d + 1) * 2 + k + k * c * d),
+            c * k * (L * (OPS["d10_leapfrog"] + grad) + logp
+                     + rng_ops(d, 1) + OPS["hmc_step"]))
+        sub = float(uk["subtree_leaves"][("hand", kind)].double().sum())
+        out[("subtree", kind)] = bound(
+            c * (4 * (3 * d + 4) + 1) + c * (4 * 5 * d + 4 * 4 + 2),
+            c * (grad + logp) + sub * leaf
+            + max(sub - c, 0.0) * (OPS["d10_merge"] + OPS["hash_draw"]))
+        det = uk["details"][("hand", kind)]
+        leaves_c = det["leaves"].double()
+        depth_c = det["depth"].double()
+        merges_c = (leaves_c - depth_c).clamp(min=0.0)
+        out[("nuts_step", kind)] = bound(
+            4 * (c * d * 2 + c + 4 * c),
+            c * (grad + logp + OPS["nuts_step"])
+            + float(rng_ops(d, 1 + 2 * depth_c + merges_c).sum())
+            + float(leaves_c.sum()) * leaf
+            + float(merges_c.sum()) * OPS["d10_merge"]
+            + float(depth_c.sum()) * OPS["d10_doubling"])
+    return out
+
+
+def user_records(record, b: dict, uk: dict, es8m: dict,
+                 user_build: dict) -> tuple[list, list]:
+    """The kernels line's records of the user instances of Kernels 1-4
+    (eight schools, D = 10, each form): Kernel 4's whitened instance on
+    the three fused stages' main paths (its plain instance runs in their
+    first warm-up leg), Kernels 1-3 off the main paths with the hand
+    form's counted tier runs. ``b`` gains each record's bound. Returns
+    (main-path records, off-path records)."""
+    res = uk["res"]
+    src = {"nuts_step": ("nuts_full.cuh", "nuts_full.py:48"),
+           "subtree": ("nuts_subtree.cuh", "nuts_subtree.py:243"),
+           "leapfrog": ("hmc_leapfrog.cuh", "hmc.py:46"),
+           "multistep": ("hmc_multistep.cuh", "hmc_full.py:86")}
+    wrapper = {"nuts_step": "nuts_step", "subtree": "nuts_subtree",
+               "leapfrog": "leapfrog_trajectory",
+               "multistep": "hmc_multistep"}
+    main, off = [], []
+    for k in ("nuts_step", "subtree", "leapfrog", "multistep"):
+        for form in ES8_FORMS:
+            w, pl = res[(k, form, "whitened")], res[(k, form, "plain")]
+            name = f"{wrapper[k]}_user_{form}"
+            b[name] = b[f"{k}_user_whitened"]
+            rec = record(
+                name, src[k][0], src[k][1],
+                es8m[form]["kernel4_launches"] if k == "nuts_step" else 0,
+                w["err"], w["ms"], w["plain_ms"],
+                instance=f"WhitenedDiag<User<Density>, 10> ({form})",
+                device_ms=w["device_ms"], ms_plain_instance=pl["ms"],
+                device_ms_plain_instance=pl["device_ms"],
+                plain_ms_plain_instance=pl["plain_ms"],
+                max_abs_err_plain_instance=pl["err"],
+                bound_ms_plain_instance=b[f"{k}_user_plain"][0],
+                bound_by_plain_instance=b[f"{k}_user_plain"][1],
+                nvcc_seconds=user_build[(form, 5)]["nvcc_seconds"],
+                nvcc_seconds_plain_instance=user_build[(form, 0)][
+                    "nvcc_seconds"])
+            if k == "nuts_step":
+                main.append(rec)
+                continue
+            if form == "hand":
+                rec["tier_run_launches_plain_instance"] = uk["tiers"][
+                    wrapper[k]]
+            off.append(rec)
+    return main, off
+
+
 def bounds(step_details, subtree_leaves, dense_details, k1234t,
            funnel) -> dict:
     """bound_ms and bound_by of each kernel at the shapes of its timing."""
@@ -4480,7 +4950,9 @@ def main() -> None:
 def run_phases(args, tmp: str) -> None:
     dev = torch.device("cuda", 0)
     phase_device()
-    so, reported = phase_build()
+    reqs = user_requests(dev)
+    so, reported = phase_build(reqs)
+    user_build = phase_user_build(reqs)
     if args.profile:
         phase_sass(so, reported)
     phase_philox(dev)
@@ -4634,6 +5106,11 @@ def run_phases(args, tmp: str) -> None:
     phase_elliptical(dev)
     progress_launches = phase_run_progress_samplers(dev)
     phase_eight_schools(dev)
+    phase_user_probe(dev)
+    es8f, es8m = phase_eight_schools_fused(dev)
+    uk = phase_user_kernels(es8f["hand"], dev)
+    del es8f
+    torch.cuda.empty_cache()
     phase_eight_schools_chees(dev)
     phase_ais(dev)
     phase_smc(dev)
@@ -4644,6 +5121,8 @@ def run_phases(args, tmp: str) -> None:
     del grad_fn
     torch.cuda.empty_cache()
     b = bounds(step_details, sub_leaves, k34w["details"], k1234t, funnel)
+    ub = user_bounds(uk)
+    b.update({f"{k}_user_{kind}": v for (k, kind), v in ub.items()})
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
 
@@ -4815,6 +5294,9 @@ def run_phases(args, tmp: str) -> None:
                "nuts_subtree.py:243", 0, funnel["subtree_err"],
                funnel["subtree_ms"], funnel["subtree_plain_ms"]),
     ]
+    main, off = user_records(record, b, uk, es8m, user_build)
+    kernels += main
+    off_path += off
     print(json.dumps({"kernels": kernels, "off_main_path": off_path}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,7 +43,10 @@ from .ops.tempering import PTState
 from .utils.init import resolve_device
 
 #: JAX constructor keywords with no counterpart in the port
-_JAX_ONLY = ("unroll", "pallas_interpret", "validate_dc")
+_JAX_ONLY = ("unroll", "pallas_interpret")
+#: the port's samplers that take ``validate_dc`` (user densities reach
+#: Kernels 1-4 only); the others drop it
+_VALIDATE_DC = ("HMC", "MALA", "NUTS")
 
 
 def _f32(x, device):
@@ -267,7 +270,9 @@ def _kwargs(jax_sampler, name: str, ctor=None) -> dict:
     transform = ctor.pop("transform", None)
     if transform is not None:
         ctor["transform"] = transform_from_jax(transform)
-    for key in _JAX_ONLY:
+    dropped = _JAX_ONLY if name in _VALIDATE_DC else (
+        _JAX_ONLY + ("validate_dc",))
+    for key in dropped:
         ctor.pop(key, None)
     metric = getattr(jax_sampler, "metric", None)
     if metric is not None:
@@ -291,8 +296,7 @@ def sampler_kwargs(jax_hmc) -> dict:
 
 def nuts_sampler_kwargs(jax_nuts) -> dict:
     """The port's ``NUTS`` keyword arguments read from a JAX ``NUTS``'s
-    ``_ctor``, its metric and its transform; drops ``pallas_interpret``/
-    ``validate_dc``."""
+    ``_ctor``, its metric and its transform; drops ``pallas_interpret``."""
     return _kwargs(jax_nuts, "NUTS")
 
 

@@ -16,6 +16,8 @@
 namespace mm {
 
 constexpr int kThreads = 128;
+// the shared memory a block can have on the H100 (227 KB)
+constexpr size_t kMaxBlockSmem = 232448;
 
 // L leapfrog steps with the cached half-step gradient (ops/hmc.py:170-190,
 // ops/pallas/hmc.py:91-97): one gradient evaluation per step. L is a

@@ -22,6 +22,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "targets.cuh"
 
 namespace mm {
 
@@ -100,10 +101,17 @@ __device__ __forceinline__ Leaf leaf(const T& t, float (&x)[D],
     m[d] = m[d] + g[d] * half;
     x[d] = x[d] + m[d] * eps_signed;
   }
-  t.template grad<D>(x, g);
+  float lp;
+  if constexpr (has_logp_and_grad<T, D>::value) {
+    lp = t.template logp_and_grad<D>(x, g);  // one pass (targets.cuh)
 #pragma unroll
-  for (int d = 0; d < D; ++d) m[d] = m[d] + g[d] * half;
-  const float lp = t.template logp<D>(x);
+    for (int d = 0; d < D; ++d) m[d] = m[d] + g[d] * half;
+  } else {
+    t.template grad<D>(x, g);
+#pragma unroll
+    for (int d = 0; d < D; ++d) m[d] = m[d] + g[d] * half;
+    lp = t.template logp<D>(x);
+  }
 
   float ke = 0.0f;
 #pragma unroll

@@ -20,13 +20,15 @@
 //   NUTS step (Kernel 4), one evaluation per four words the step uses
 //     plus at most one per doubling: draw 0 the momentum (box_muller_pair
 //     on words x, y) and the Exp(1) uniform of the slice (word z) at
-//     D <= 2; at D = 3, 4 draw 0 the momentum (normals4_at) and draw 1's
-//     word x the slice. Draw 0x10000 + j is doubling j: sub-draw 0 its
-//     direction coin (word x) and progressive-accept uniform (word y),
-//     sub-draw 1 + q its merge uniforms of ordinals 4q..4q+3 (words x, y,
-//     z, w), the merge at leaf i, cascade position k having ordinal
-//     i - popcount(i) + k (the merges of a doubling's 2^j leaves take
-//     ordinals 0..2^j - 2).
+//     D <= 2; at D > 2 draws 0..Q-1 the momenta four to an evaluation
+//     (normals4_at: draw q, words x, y the cosine and sine of momenta
+//     4q, 4q + 1, words z, w of 4q + 2, 4q + 3; Q = ceil(D / 4), one at
+//     D = 3, 4) and draw Q's word x the slice. Draw 0x10000 + j is
+//     doubling j: sub-draw 0 its direction coin (word x) and
+//     progressive-accept uniform (word y), sub-draw 1 + q its merge
+//     uniforms of ordinals 4q..4q+3 (words x, y, z, w), the merge at
+//     leaf i, cascade position k having ordinal i - popcount(i) + k
+//     (the merges of a doubling's 2^j leaves take ordinals 0..2^j - 2).
 //   NUTS subtree seeds (use_pallas=True tier, ops/nuts.py): chain 0,
 //     draw 0x20000 + j gives the two words of doubling j's hash seed;
 //     chain 0, draw 0x30000 seeds the step's torch.Generator (the

@@ -1,12 +1,16 @@
-// Built-in target densities for the hand-written kernels.
+// Built-in target densities for the hand-written kernels, and the metric
+// and transform wrappers around any density.
 //
 // The JAX package traces a Target's jnp chains-on-lanes forms
 // (logp_dc/grad_dc, mini_mcmc_tpu/models/base.py:97-125) into its Pallas
-// bodies. CUDA cannot take a Python density, so each built-in target the
-// kernels support is a functor here, selected by the Target's
-// `cuda_functor` name (mini_mcmc_torch/ops/kernels/_build.py maps names to
-// the ids below). Densities supplied by users inside a kernel are later
-// work (ROADMAP.md, Queue 1).
+// bodies. CUDA cannot take a Python density, so a density reaches
+// Kernels 1-4 by one of two routes: a built-in functor here, selected by
+// the Target's `cuda_functor` name (mini_mcmc_torch/ops/kernels/_build.py
+// maps names to the ids below), or a functor of the user's own C++
+// (`Target.cuda_source`, or one generated from the target's PyTorch batch
+// form), compiled into a library of its own behind mm::User
+// (user_density.cuh, ops/kernels/user_density.py). The MH and tempering
+// kernels (5 and 8) run the built-in functors only.
 //
 // A functor is built once per thread from the kernel's `params` pointer
 // (Target.cuda_params on the device; null for a functor without
@@ -17,7 +21,37 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 namespace mm {
+
+// Whether T gives its logp and gradient in one pass, logp_and_grad<D>(x,
+// g) -> logp: a user density whose gradient is the dual numbers'
+// (user_density.cuh), whose value is the logp, and the wrappers around
+// one. The leaves of Kernels 3 and 4 then evaluate the density once;
+// every other functor keeps grad and logp apart, as before.
+template <class T, int D, class = void>
+struct has_logp_and_grad : std::false_type {};
+template <class T, int D>
+struct has_logp_and_grad<
+    T, D,
+    std::void_t<decltype(std::declval<const T&>().template logp_and_grad<D>(
+        std::declval<const float (&)[D]>(), std::declval<float (&)[D]>()))>>
+    : std::true_type {};
+
+// logp at x, and its gradient into g: in one pass where T has one
+template <class T, int D>
+__device__ __forceinline__ float value_and_grad(const T& t,
+                                                const float (&x)[D],
+                                                float (&g)[D]) {
+  if constexpr (has_logp_and_grad<T, D>::value) {
+    return t.template logp_and_grad<D>(x, g);
+  } else {
+    t.template grad<D>(x, g);
+    return t.template logp<D>(x);
+  }
+}
 
 enum TargetId : int {
   kRosenbrockND = 0,
@@ -408,6 +442,79 @@ struct Whitened {
     float x[D];
     to_x(y, x);
     return inner.template logp<D>(x);
+  }
+
+  template <int E, class I = T,
+            std::enable_if_t<has_logp_and_grad<I, D>::value, int> = 0>
+  __device__ __forceinline__ float logp_and_grad(const float (&y)[E],
+                                                 float (&g)[E]) const {
+    static_assert(E == D, "a Whitened functor is built for one D");
+    float x[D], gx[D];
+    to_x(y, x);
+    const float lp = inner.template logp_and_grad<D>(x, gx);
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float acc = ell[i * (i + 1) / 2 + i] * gx[i];
+#pragma unroll
+      for (int j = i + 1; j < D; ++j) {
+        acc = acc + ell[j * (j + 1) / 2 + i] * gx[j];
+      }
+      g[i] = acc;
+    }
+    return lp;
+  }
+};
+
+// The whitened target of a diagonal metric, x = s * y (the JAX package's
+// _wrap_dc_forms diag branch, mini_mcmc_tpu/models/precondition.py:
+// 164-175): logp_y(y) = T::logp(s * y), g_y = s * T::grad(s * y). Kernels
+// 1-4 run it above D = 4 (models/precondition.py), where a triangle of L
+// would be D (D + 1) / 2 floats of zeros and D scales. params: the D
+// scales, then T's own.
+template <class T, int D>
+struct WhitenedDiag {
+  float s[D];
+  T inner;
+
+  __device__ __forceinline__ explicit WhitenedDiag(const float* p)
+      : inner(p + D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) s[d] = __ldg(p + d);
+  }
+
+  template <int E>
+  __device__ __forceinline__ void grad(const float (&y)[E],
+                                       float (&g)[E]) const {
+    static_assert(E == D, "a WhitenedDiag functor is built for one D");
+    float x[D], gx[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = s[d] * y[d];
+    inner.template grad<D>(x, gx);
+#pragma unroll
+    for (int d = 0; d < D; ++d) g[d] = s[d] * gx[d];
+  }
+
+  template <int E>
+  __device__ __forceinline__ float logp(const float (&y)[E]) const {
+    static_assert(E == D, "a WhitenedDiag functor is built for one D");
+    float x[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = s[d] * y[d];
+    return inner.template logp<D>(x);
+  }
+
+  template <int E, class I = T,
+            std::enable_if_t<has_logp_and_grad<I, D>::value, int> = 0>
+  __device__ __forceinline__ float logp_and_grad(const float (&y)[E],
+                                                 float (&g)[E]) const {
+    static_assert(E == D, "a WhitenedDiag functor is built for one D");
+    float x[D], gx[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = s[d] * y[d];
+    const float lp = inner.template logp_and_grad<D>(x, gx);
+#pragma unroll
+    for (int d = 0; d < D; ++d) g[d] = s[d] * gx[d];
+    return lp;
   }
 };
 

@@ -13,11 +13,15 @@ gradient by hand; :func:`make_natural_target` is the same posterior over
 ``[mu, tau > 0, eta_1..8]`` with no Jacobian, for ``transform=`` with
 ``positive()`` on coordinate 1 (``tests/test_transforms.py:143-155``).
 :func:`exact_posterior_means` gives ``E[mu]`` and ``E[tau]`` by quadrature
-(``eight_schools_nuts.py:131-147``), numpy only. The targets have no CUDA
-functor: they run on the lockstep tiers, as the NUTS half of
-``bench.py:1259-1341`` does. :func:`chees_adapted` is the ChEES half
+(``eight_schools_nuts.py:131-147``), numpy only. The non-centered target
+carries the C++ of the example's ``logp_dc`` and ``grad_dc``
+(``eight_schools_nuts.py:73-109``) as its ``cuda_source``, so that it also
+runs on the fused NUTS tiers (``bench.py:1376-1447``): with the
+hand-written gradient, with the gradient of dual numbers
+(:func:`~mini_mcmc_torch.models.derive_grad_dc`), or from C++ generated
+from ``logp_batch`` (no source). :func:`chees_adapted` is the ChEES half
 (``bench.py:1342-1372``) and :func:`moment_gates` the bench's gates on a
-run of either.
+run of any.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.base import Target
+from ..ops.kernels.user_density import derive_grad_dc
 from ..samplers import ChEESHMC
 from ..stats import split_rhat_mean_ess
 from ..utils.init import init_with_seed
@@ -56,11 +61,77 @@ def _rows(params: torch.Tensor):
     return params.reshape(-1, params.shape[-1]), params.shape[:-1]
 
 
-def make_noncentered_target() -> Target:
+#: the example's logp_dc and grad_dc (eight_schools_nuts.py:73-105) for
+#: Kernels 1-4, term for term in their order; params: Y, then SIGMA
+CUDA_SOURCE = """\
+struct Density {
+  const float* p;
+  __device__ __forceinline__ explicit Density(const float* params)
+      : p(params) {}
+
+  // log(2 / (pi * 5)), the half-Cauchy's normalizing term
+  static constexpr float kLogHC = -2.0610206f;
+
+  template <class S, int D>
+  __device__ __forceinline__ S logp(const S (&x)[D]) const {
+    static_assert(D == 10, "[mu, log_tau, eta_1..8]");
+    const S mu = x[0], log_tau = x[1];
+    const S tau = mm::exp(log_tau);
+    const S m5 = mu / 5.0f, t5 = tau / 5.0f;
+    S acc = -0.5f * (m5 * m5);
+    acc = acc + kLogHC - mm::log1p(t5 * t5);
+    acc = acc + log_tau;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float y = __ldg(p + j), s = __ldg(p + 8 + j);
+      const S eta = x[2 + j];
+      const S r = y - (mu + tau * eta);
+      acc = acc - 0.5f * (r * r) / (s * s);
+      acc = acc - 0.5f * eta * eta;
+    }
+    return acc;
+  }
+
+  template <int D>
+  __device__ __forceinline__ void grad(const float (&x)[D],
+                                       float (&g)[D]) const {
+    static_assert(D == 10, "[mu, log_tau, eta_1..8]");
+    const float mu = x[0], tau = mm::exp(x[1]);
+    float g_mu = -mu / 25.0f;
+    const float t2 = (tau / 5.0f) * (tau / 5.0f);
+    float g_lt = 1.0f - 2.0f * t2 / (1.0f + t2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float y = __ldg(p + j), s = __ldg(p + 8 + j);
+      const float eta = x[2 + j];
+      const float r = (y - (mu + tau * eta)) / (s * s);
+      g_mu = g_mu + r;
+      g_lt = g_lt + r * tau * eta;
+      g[2 + j] = r * tau - eta;
+    }
+    g[0] = g_mu;
+    g[1] = g_lt;
+  }
+};
+"""
+#: the forms :func:`make_noncentered_target` takes for Kernels 1-4
+CUDA_FORMS = ("hand", "derived", "traced")
+
+
+def make_noncentered_target(cuda: str = "hand") -> Target:
     """``params = [mu, log_tau, eta_1..8]`` (D = 10), ``theta = mu + tau
     eta``, the ``+ log_tau`` Jacobian of ``tau = exp(log_tau)`` included.
     ``logp`` takes ``[..., 10]``; ``grad`` is the example's hand-written
-    ``grad_dc`` (``eight_schools_nuts.py:88-105``) in the batch layout."""
+    ``grad_dc`` (``eight_schools_nuts.py:88-105``) in the batch layout.
+
+    ``cuda``, the form Kernels 1-4 compile: ``"hand"`` the example's
+    ``logp_dc`` and ``grad_dc`` in C++ (:data:`CUDA_SOURCE`, ``Y`` and
+    ``SIGMA`` its ``cuda_params``); ``"derived"`` the same ``logp`` with
+    the gradient of dual numbers (``derive_grad_dc``, bench.py's
+    ``grad_dc=None``); ``"traced"`` no source, the C++ generated from
+    ``logp_batch`` (``Target.dc_forms``)."""
+    if cuda not in CUDA_FORMS:
+        raise ValueError(f"cuda must be one of {CUDA_FORMS}; got {cuda!r}")
 
     def logp_batch(params):  # [C, 10] -> [C]
         y, sig = _data(params)
@@ -90,7 +161,13 @@ def make_noncentered_target() -> Target:
         g = torch.cat([g_mu, g_lt, r * tau - eta], dim=1)
         return g.reshape(params.shape)
 
-    return Target(logp=logp, logp_batch=logp_batch, grad=grad)
+    if cuda == "traced":
+        return Target(logp=logp, logp_batch=logp_batch, grad=grad)
+    source = CUDA_SOURCE if cuda == "hand" else derive_grad_dc(CUDA_SOURCE)
+    return Target(logp=logp, logp_batch=logp_batch, grad=grad,
+                  cuda_source=source,
+                  cuda_params=tuple(float(v) for v in np.concatenate(
+                      [Y, SIGMA])))
 
 
 def make_natural_target() -> Target:

@@ -1,7 +1,13 @@
 """Targets, proposals and Gibbs conditionals (counterpart of
 ``mini_mcmc_tpu.models``)."""
 
-from .base import Conditional, Proposal, Target, validate_separable
+from .base import (
+    Conditional,
+    Proposal,
+    Target,
+    validate_dc_forms,
+    validate_separable,
+)
 from .discrete import (
     Categorical,
     binomial_target,
@@ -34,6 +40,7 @@ from .transforms import (
     transformed_target,
     upper_bounded,
 )
+from ..ops.kernels.user_density import derive_grad_dc, derive_logp_dc
 
 __all__ = [
     "Bijector",
@@ -45,6 +52,8 @@ __all__ = [
     "Target",
     "binomial_target",
     "constant_conditional",
+    "derive_grad_dc",
+    "derive_logp_dc",
     "diffable_gaussian2d",
     "estimate_preconditioner",
     "gaussian2d",
@@ -65,5 +74,6 @@ __all__ = [
     "standard_normal",
     "transformed_target",
     "upper_bounded",
+    "validate_dc_forms",
     "validate_separable",
 ]

@@ -8,11 +8,16 @@ JAX package maps a per-state function with ``vmap``; broadcasting is the
 PyTorch idiom for the same thing). Without an analytic ``grad`` the
 gradient comes from autograd.
 
-There are no ``*_dc`` forms: the ``[D, C]`` chains-on-lanes layout exists
-for the TPU's compiler. The hand-written CUDA kernels cannot run a Python
-density; a target they can run names its built-in device functor in
-``cuda_functor`` (``csrc/targets.cuh``), and so does a proposal
-(``csrc/proposals.cuh``) or a Gibbs conditional (``csrc/conditionals.cuh``).
+The JAX package's ``[D, C]`` chains-on-lanes forms exist for the TPU's
+compiler; their counterpart here is C++, one thread a chain. The
+hand-written CUDA kernels run a target's density as a built-in device
+functor named in ``cuda_functor`` (``csrc/targets.cuh``) or, in Kernels
+1-4 (HMC, MALA, NUTS), as the user's own C++, ``cuda_source``, or C++
+generated from the batch form (``Target.dc_forms``,
+``ops/kernels/user_density.py``), checked against the batch form at
+sampler construction (:func:`validate_dc_forms`). A proposal or a Gibbs
+conditional names its built-in form in ``cuda_functor`` too
+(``csrc/proposals.cuh``, ``csrc/conditionals.cuh``).
 Random draws outside the kernels come from a ``torch.Generator`` on the
 positions' device, passed as ``gen``.
 """
@@ -39,16 +44,36 @@ class Target:
         cuda_functor: name of the built-in CUDA density that the
             hand-written kernels evaluate for this target (e.g.
             ``"rosenbrock_nd"``), or ``None`` when there is none.
+        cuda_source: the C++ of this target's density for Kernels 1-4, or
+            ``None``: one functor ``Density`` with a constructor from
+            ``const float* params`` (``cuda_params``), ``template <class
+            S, int D> S logp(const S (&x)[D]) const``, templated on the
+            scalar so that dual numbers run it, and optionally ``template
+            <int D> void grad(const float (&x)[D], float (&g)[D])
+            const``; without it the kernels take the gradient from dual
+            numbers (``csrc/user_density.cuh`` states the contract and the
+            math it may call). A target with neither a functor nor a
+            source reaches Kernels 1-4 through C++ generated from its
+            batch form (:meth:`dc_forms`). Naming both a functor and a
+            source raises.
         cuda_params: the functor's coefficients, a tuple of floats handed
             to the kernels as a ``const float*`` (e.g. the Gaussian's mean,
             inverse covariance and normalizing constant); empty when the
             functor has none.
-        cuda_affine: the kernels run ``cuda_functor`` inside the affine
-            wrapper of a whitened target (``csrc/targets.cuh:Whitened``,
-            set by ``models.precondition.precondition_target``): then, at
-            D <= ``precondition.AFFINE_MAX_DIM``, ``cuda_params`` starts
-            with the lower triangle of ``L``, row by row, ``D (D + 1) / 2``
-            floats, before the functor's own.
+        cuda_base: the target whose batch form the kernels trace when this
+            one wraps it (a metric or a transform around a target with
+            neither a functor nor a source), else ``None``.
+        cuda_affine: the kernels run the target's functor inside the
+            affine wrapper of a whitened target
+            (``csrc/targets.cuh:Whitened``, set by
+            ``models.precondition.precondition_target``): then, where
+            Kernels 1-4 run it (``_build.kernel_dims``), ``cuda_params``
+            starts with the lower triangle of ``L``, row by row,
+            ``D (D + 1) / 2`` floats, before the functor's own; under
+            ``cuda_diag`` with the D scales of a diagonal metric instead
+            (``csrc/targets.cuh:WhitenedDiag``, D above
+            ``_build.DIAG_TRIANGLE_MAX_DIM``).
+        cuda_diag: see ``cuda_affine``.
         cuda_scaled: a target whitened once by a diagonal metric: the
             separable kernel runs ``cuda_functor`` at ``x = s * y``, ``s``
             the last ``sep_form`` table (``csrc/coord_targets.cuh:Scaled``);
@@ -81,13 +106,36 @@ class Target:
     logp_batch: Optional[Callable] = None
     grad: Optional[Callable] = None
     cuda_functor: Optional[str] = None
+    cuda_source: Optional[str] = None
     cuda_params: tuple = ()
+    cuda_base: Optional["Target"] = None
     cuda_affine: bool = False
+    cuda_diag: bool = False
     cuda_scaled: bool = False
     cuda_transform: Optional[tuple] = None
     cuda_unsupported: Optional[str] = None
     logp_normalized: Optional[Callable] = None
     sep_form: Optional[tuple] = None
+
+    def __post_init__(self):
+        if self.cuda_functor is not None and self.cuda_source is not None:
+            raise ValueError(
+                "a Target names a built-in cuda_functor or its own "
+                f"cuda_source, not both (got {self.cuda_functor!r} and a "
+                "source)")
+
+    def dc_forms(self, dim: int, device="cpu"):
+        """What Kernels 1-4 compile for this target at ``dim``
+        (``mini_mcmc_tpu/models/base.py:97-125``): a :class:`DcForms` of
+        the source (``cuda_source``, or the C++ :func:`derive_logp_dc`
+        generates from the batch form, traced on ``device``), every float
+        the instance reads, and whether its gradient is the source's own
+        (``"hand"``) or the dual numbers' (``"derived"``). Raises for a
+        built-in ``cuda_functor``, and for a batch form the generator
+        cannot translate, naming the operation."""
+        from ..ops.kernels.user_density import dc_forms
+
+        return dc_forms(self, dim, device)
 
     def batch_logp(self, positions: torch.Tensor) -> torch.Tensor:
         """Log density for a ``[C, D]`` batch of positions -> ``[C]``."""
@@ -122,6 +170,15 @@ class Target:
             fn, tables = self.sep_form
             return fn, tuple(_norm_sep_table(t) for t in tables)
         return (lambda x, _f=self.batch_logp: _f(x)), ()
+
+
+def cuda_base_of(target: Target) -> Optional[Target]:
+    """The ``cuda_base`` of a metric's or a transform's wrapper around
+    ``target``: the target whose batch form the kernels trace, ``None``
+    when ``target`` names a functor or a source."""
+    if target.cuda_functor is not None or target.cuda_source is not None:
+        return None
+    return target.cuda_base or target
 
 
 def _norm_sep_table(t) -> torch.Tensor:
@@ -210,6 +267,61 @@ def validate_separable(target: Target, positions, *, rtol: float = 3e-4,
                 f"target is not coordinate-separable: logp over {what} does "
                 f"not sum to the full logp (max abs err {err:.3g}). "
                 + _SEP_MSG)
+
+
+def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
+                      atol: float = 1e-4, max_rows: int = 256,
+                      need_grad: bool = True) -> None:
+    """Raise ``ValueError`` unless the compiled density of ``target`` (the
+    instance Kernels 1-4 run: ``cuda_source`` or the generated C++, inside
+    the target's metric and transform wrappers) agrees with its batch form
+    on up to ``max_rows`` of ``positions`` (kernel coordinates), the logp
+    and, with ``need_grad``, the gradient against autograd's
+    (``mini_mcmc_tpu/models/base.py:214-345``).
+
+    The tolerance is the JAX package's: ``|got - want| <= atol max(|want|,
+    1) + rtol |want|``, both ``-inf`` agreeing, the gradient compared where
+    the batch form's is finite. The probe runs where the positions lie: on
+    the card the per-density library's probe entry (built if need be), on
+    the CPU the host build of the same source (``g++``, for the tests).
+    A target with a built-in ``cuda_functor`` validates trivially. The
+    samplers call it at construction for ``use_pallas`` on CUDA
+    (``validate_dc``); it never replaces the separability check of
+    ``use_pallas="separable"``.
+    """
+    if target.cuda_functor is not None:
+        return
+    from ..ops.kernels.user_density import probe
+
+    x = torch.as_tensor(positions).detach()[:max_rows]
+    if x.dim() != 2:
+        raise ValueError("positions must be [n_chains, D]; got shape "
+                         f"{tuple(x.shape)}")
+    got_lp, got_g = probe(target, x)
+    forms = target.dc_forms(x.shape[1], x.device)
+    want_lp, want_g = target.batch_logp_and_grad(x.to(torch.float32))
+    checks = [("logp", want_lp, got_lp)]
+    if need_grad:
+        finite = torch.isfinite(want_g)
+        checks.append((f"grad ({forms.grad})", torch.where(
+            finite, want_g, 0.0), torch.where(finite, got_g, 0.0)))
+    for what, want, got in checks:
+        want, got = want.double(), got.double()
+        close = ((got - want).abs()
+                 <= atol * want.abs().clamp(min=1.0) + rtol * want.abs())
+        close |= torch.isneginf(want) & torch.isneginf(got)
+        if not bool(close.all()):
+            err = (got - want).abs().nan_to_num(nan=float("inf"))
+            worst = int(err.reshape(-1).argmax())
+            kind = "generated" if forms.traced else "cuda_source"
+            raise ValueError(
+                f"the compiled {what} of the target's {kind} disagrees with "
+                f"its batch form on the initial positions: max abs err "
+                f"{float(err.max()):.3g} (flat index {worst}: "
+                f"{float(got.reshape(-1)[worst]):.6g} vs "
+                f"{float(want.reshape(-1)[worst]):.6g}). Kernels 1-4 would "
+                "sample the WRONG posterior. Fix the source (or pass "
+                "validate_dc=False to skip this check).")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -13,13 +13,20 @@ ensemble, the lockstep analog of Stan's warm-up covariance windows:
     tuned = nuts.reconditioned("dense")            # estimate and whiten
 
 On the card the hand-written kernels run the whitened target through one
-affine wrapper around the inner target's CUDA functor
+affine wrapper around the inner target's CUDA form
 (``csrc/targets.cuh:Whitened``): :func:`precondition_target` keeps the
-inner ``cuda_functor``, prepends the lower triangle of ``L`` to its
-``cuda_params`` and sets ``cuda_affine``. A diagonal metric goes in as
-``L = diag(scale)``. Kernels 1-4 are built for D <= ``AFFINE_MAX_DIM``
-only; above it no triangle is built, and a diagonal metric reaches the
-separable kernel as one more coordinate table
+inner ``cuda_functor`` or ``cuda_source`` (or, for a Python density, the
+target the kernels trace, ``cuda_base``), prepends the lower triangle of
+``L`` to its ``cuda_params`` and sets ``cuda_affine``. A diagonal metric
+goes in as ``L = diag(scale)`` at D <= 4, where the built-in functors'
+instances are, and above it as its D scales (``cuda_diag``,
+``csrc/targets.cuh:WhitenedDiag``, the JAX package's diag branch of
+``_wrap_dc_forms``). The metric rides in ``cuda_params`` only at the D
+where Kernels 1-4 run the target (``_build.kernel_dims``: 4 for a
+built-in functor, 16 for a user density, the JAX package's
+``_DENSE_DC_MAX_DIM``): above it the triangle (D (D + 1) / 2 floats)
+would cost quadratic host time and memory for nothing, and a diagonal
+metric reaches the separable kernel as one more coordinate table
 (``csrc/coord_targets.cuh:Scaled``, ``Target.cuda_scaled``).
 """
 
@@ -30,15 +37,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.kernels._build import KERNEL_DIMS
-from .base import Target
-
-#: the largest D whose whitened ``cuda_params`` carry ``L``'s lower
-#: triangle: only Kernels 1-4 read it, and they are built for
-#: ``KERNEL_DIMS``. Above it the triangle (D (D + 1) / 2 floats) would
-#: cost quadratic host time and memory for nothing, as the JAX package
-#: stops wrapping its chains-on-lanes forms above ``_DENSE_DC_MAX_DIM``.
-AFFINE_MAX_DIM = max(KERNEL_DIMS)
+from ..ops.kernels._build import DIAG_TRIANGLE_MAX_DIM, kernel_dims
+from .base import Target, cuda_base_of
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -185,8 +185,8 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
     separable tier's validation then rejects the target. The CUDA form is
     the inner functor inside the affine wrapper (module docstring); a
     target that is whitened already composes its two maps into one ``L``.
-    ``cuda_params`` start with ``L``'s triangle only at D <=
-    ``AFFINE_MAX_DIM`` (the inner target's params alone above it), and
+    ``cuda_params`` start with the metric only where Kernels 1-4 run the
+    target (the inner target's params alone above it), and
     ``cuda_scaled`` marks a diagonal metric on an unwhitened target: the
     one form the separable kernel runs (the scale as its last table).
 
@@ -227,24 +227,41 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
         sep_form = (sep_tile_logp, tuple(inner_tabs) + (metric.scale,))
 
     cuda_params, d = tuple(target.cuda_params), metric.dim
-    if d <= AFFINE_MAX_DIM and target.cuda_unsupported is None:
+    # the metric as D scales (WhitenedDiag) or a triangle of L (Whitened),
+    # where Kernels 1-4 run the target (D <= 4 for a built-in functor)
+    diag = metric.kind == "diag" and d > DIAG_TRIANGLE_MAX_DIM
+    carried = (d <= max(kernel_dims(target))
+               and target.cuda_unsupported is None)
+    if carried:
         affine = metric
         if target.cuda_affine:
-            # x = L_in (L_out y): one lower-triangular L_in @ L_out
-            tri = d * (d + 1) // 2
+            # x = L_in (L_out y): one L_in @ L_out, diagonal if both are
+            n_in = d if target.cuda_diag else d * (d + 1) // 2
             ell_in = np.zeros((d, d))
-            ell_in[np.tril_indices(d)] = cuda_params[:tri]
-            cuda_params = cuda_params[tri:]
+            if target.cuda_diag:
+                ell_in[np.diag_indices(d)] = cuda_params[:n_in]
+            else:
+                ell_in[np.tril_indices(d)] = cuda_params[:n_in]
+            cuda_params = cuda_params[n_in:]
+            diag = diag and target.cuda_diag
             affine = Preconditioner("dense", chol=torch.from_numpy(
                 ell_in @ metric.matrix.detach().cpu().double().numpy()))
-        cuda_params = _lower_triangle(affine) + cuda_params
+        if diag:
+            head = tuple(float(v) for v in np.diag(
+                affine.matrix.detach().cpu().double().numpy()))
+        else:
+            head = _lower_triangle(affine)
+        cuda_params = head + cuda_params
     return Target(
         logp=logp,
         logp_batch=logp_batch,
         grad=grad,
         cuda_functor=target.cuda_functor,
+        cuda_source=target.cuda_source,
         cuda_params=cuda_params,
+        cuda_base=cuda_base_of(target),
         cuda_affine=True,
+        cuda_diag=diag and carried,
         cuda_scaled=metric.kind == "diag" and not target.cuda_affine,
         cuda_transform=target.cuda_transform,
         cuda_unsupported=target.cuda_unsupported,

@@ -40,15 +40,11 @@ from typing import Callable, Mapping, Optional, Sequence
 
 import torch
 
-from ..ops.kernels._build import KERNEL_DIMS
-from .base import Target
+from ..ops.kernels._build import kernel_dims
+from .base import Target, cuda_base_of
 
 #: the CUDA kernels' bijector codes (``csrc/targets.cuh:BijCode``)
 BIJ_IDENTITY, BIJ_POSITIVE, BIJ_LOWER, BIJ_UPPER, BIJ_INTERVAL = range(5)
-#: the largest D whose wrapped ``cuda_params`` carry the bijector table:
-#: Kernels 1-5 and 8 read it, all built for D <= max(``KERNEL_DIMS``).
-#: Above it the separable kernel reads the table from a tensor of its own.
-TRANSFORM_PARAMS_MAX_DIM = max(KERNEL_DIMS)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -425,11 +421,13 @@ class CoordinateTransform:
         group's membership mask rides one more coordinate table after the
         inner target's (``transforms.py:408-438`` in the JAX package).
 
-        The CUDA form: ``cuda_functor`` stays the inner target's, and
+        The CUDA form: ``cuda_functor`` or ``cuda_source`` stays the inner
+        target's (a Python density's, ``cuda_base``, the kernels trace), and
         ``cuda_transform`` describes the transform, each coordinate's
-        ``(code, offset, width)``; at D <= ``TRANSFORM_PARAMS_MAX_DIM``
-        ``cuda_params`` starts with :func:`transform_params` of it, ahead
-        of the inner target's coefficients. A transform holding a custom
+        ``(code, offset, width)``; where Kernels 1-4 run the target
+        (``_build.kernel_dims``) ``cuda_params`` starts with
+        :func:`transform_params` of it, ahead of the inner target's
+        coefficients; above, the separable kernel reads its own table. A transform holding a custom
         bijector, or around a target already whitened or transformed, sets
         ``cuda_unsupported`` instead and runs on the plain tiers only.
         """
@@ -488,16 +486,19 @@ class CoordinateTransform:
             else:
                 cuda_transform = self.cuda_form
         cuda_params = tuple(target.cuda_params)
-        if cuda_transform is not None and self.dim <= (
-                TRANSFORM_PARAMS_MAX_DIM):
+        if cuda_transform is not None and self.dim <= max(
+                kernel_dims(target)):
             cuda_params = transform_params(cuda_transform) + cuda_params
         return Target(
             logp=logp,
             logp_batch=logp_batch,
             grad=grad,
             cuda_functor=target.cuda_functor,
+            cuda_source=target.cuda_source,
             cuda_params=cuda_params,
+            cuda_base=cuda_base_of(target),
             cuda_affine=target.cuda_affine,
+            cuda_diag=target.cuda_diag,
             cuda_transform=cuda_transform,
             cuda_unsupported=unsupported,
             logp_normalized=logp_normalized,

@@ -24,13 +24,13 @@ from typing import Optional
 import torch
 
 from .models.precondition import estimate_preconditioner
-from .ops.kernels._build import functor_id
 from .ops.kernels.nuts_subtree import MAX_DEPTH
 from .ops.nuts import nuts_kernel
 from .progress import progress_run
 from .runner import make_initial_recording_runner
 from .samplers import (
     _KernelSampler,
+    check_kernel_target,
     _unconstrained_positions,
     _wrap_sampler_target,
     initial_positions_on,
@@ -53,9 +53,11 @@ class NUTS(_KernelSampler):
         seed: optional base seed.
         use_pallas: ``True`` runs each subtree in Kernel 3, ``"full"`` the
             whole step in Kernel 4 (float32 only); on CUDA tensors both
-            need a target with a built-in CUDA density
-            (``Target.cuda_functor``) and raise ``ValueError`` otherwise.
-            On CPU tensors they run the kernels' plain twins.
+            run a built-in CUDA density (``Target.cuda_functor``) or
+            compile the target's own C++ (``Target.cuda_source``, or C++
+            generated from its batch form; D <= 16) and raise
+            ``ValueError`` now for a batch form the generator cannot
+            translate. On CPU tensors they run the kernels' plain twins.
         warmup_max_depth: optional tree-depth cap during adaptation.
         metric: optional :class:`~mini_mcmc_torch.models.Preconditioner`:
             the chains run in whitened coordinates ``y = L^-1 x`` (NUTS
@@ -69,6 +71,9 @@ class NUTS(_KernelSampler):
             constrained coordinate's range), the samples and
             ``positions`` stay natural, ``state`` and ``kernel_target``
             are unconstrained (and whitened under a metric).
+        validate_dc: hold a compiled user density to its batch form on
+            the initial positions at construction on CUDA
+            (:func:`~mini_mcmc_torch.models.base.validate_dc_forms`).
         device: where the chains run, ``"cuda"`` by default (raises
             without a GPU); ``"cpu"`` runs the plain twins.
     """
@@ -77,7 +82,8 @@ class NUTS(_KernelSampler):
                  target_accept_p: float = 0.8, max_depth: int = 10,
                  seed: Optional[int] = None, use_pallas=False,
                  warmup_max_depth: Optional[int] = None, metric=None,
-                 transform=None, *, device="cuda"):
+                 transform=None, validate_dc: bool = True, *,
+                 device="cuda"):
         if warmup_max_depth is not None and not (
                 1 <= warmup_max_depth <= max_depth):
             raise ValueError(
@@ -91,13 +97,14 @@ class NUTS(_KernelSampler):
         self._ctor = dict(target_accept_p=target_accept_p,
                           max_depth=max_depth, use_pallas=use_pallas,
                           warmup_max_depth=warmup_max_depth,
-                          transform=transform, device=device)
+                          transform=transform, validate_dc=validate_dc,
+                          device=device)
         positions = initial_positions_on(initial_positions, device)
         kernel_target, positions_map, positions, self.metric = (
             _wrap_sampler_target(target, positions, transform, metric))
         self.kernel_target = kernel_target
         if use_pallas and positions.is_cuda:
-            functor_id(kernel_target)  # no CUDA density: raise now
+            check_kernel_target(kernel_target, positions, validate_dc)
             if max_depth > MAX_DEPTH:
                 raise ValueError(f"the NUTS kernels are built for max_depth "
                                  f"<= {MAX_DEPTH}; got {max_depth}")

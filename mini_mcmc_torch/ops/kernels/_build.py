@@ -8,6 +8,12 @@ an edited source builds anew and an unchanged one is reused from
 ``build/mini_mcmc_torch/`` (listed in ``.gitignore``). Nothing here runs at
 import: CPU-only installs import every module without ``nvcc``.
 
+Kernels 1-4 take a target by one of two routes (:func:`kernel_lib`): a
+built-in functor of ``csrc/targets.cuh`` (``Target.cuda_functor``), through
+this library; or the C++ of a user density (``Target.cuda_source``, or one
+generated from its batch form), through a library of its own
+(``user_density.py``).
+
 ``-use_fast_math`` is deliberately absent: ``__logf``/``__cosf`` would move
 the Box-Muller tails, and an approximate ``logf(u)`` changes which chains
 are accepted.
@@ -21,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -54,6 +61,12 @@ CONDITIONALS = {"gaussian_mixture": 0}
 #: the funnel at all three, the Gaussian at 2), each plain, transformed,
 #: whitened and whitened over transformed
 KERNEL_DIMS = (2, 3, 4)
+#: the largest D of the user instances of Kernels 1-4
+#: (``user_density.MAX_DIM``), the JAX package's ``_DENSE_DC_MAX_DIM``
+WRAPPED_MAX_DIM = 16
+#: above this D a diagonal metric enters Kernels 1-4 as D scales
+#: (``csrc/targets.cuh:WhitenedDiag``), not a triangle of L
+DIAG_TRIANGLE_MAX_DIM = max(KERNEL_DIMS)
 #: the head of a transformed target's bijector table: (a, s, 1 / s) of
 #: each soft saturation (models/transforms.py:soft_saturation_constants)
 TRANSFORM_HEAD = 6
@@ -84,10 +97,11 @@ def form_id(name: str | None, table: dict, kind: str) -> int:
     Python-only form, which the kernels cannot run) or an unknown name."""
     if name is None:
         raise ValueError(
-            f"use_pallas needs a {kind} with a built-in CUDA form "
-            f"({kind}.cuda_functor, one of {sorted(table)}); user code "
-            "inside hand-written kernels is not supported yet (ROADMAP.md, "
-            "Queue 1: 'User densities inside hand-written kernels'). Use "
+            f"use_pallas needs a {kind} with a built-in CUDA form here "
+            f"({kind}.cuda_functor, one of {sorted(table)}). A user "
+            "density reaches Kernels 1-4 (HMC, MALA, NUTS) as "
+            "Target.cuda_source or from its batch form; this kernel runs "
+            "built-in forms only (ROADMAP.md, Queue 1). Use "
             "use_pallas=False."
         )
     if name not in table:
@@ -118,10 +132,35 @@ def functor_id(target) -> int:
 def instance_flags(target) -> int:
     """The ``affine`` argument of Kernels 1-4: bit 0 a whitened target
     (``mm::Whitened``), bit 1 a transformed one (``mm::Transformed``);
-    both run ``Whitened<Transformed<T, D>, D>`` (``MM_AFFINE``)."""
+    both run ``Whitened<Transformed<T, D>, D>`` (``MM_AFFINE``); bit 2,
+    with bit 0, a diagonal metric given as D scales (``mm::WhitenedDiag``,
+    ``Target.cuda_diag``; user instances only)."""
     supported(target)
-    return int(target.cuda_affine) | (2 * (target.cuda_transform
-                                           is not None))
+    return (int(target.cuda_affine)
+            | (2 * (target.cuda_transform is not None))
+            | (4 * bool(target.cuda_affine and target.cuda_diag)))
+
+
+def kernel_lib(target, dim: int, device) -> tuple:
+    """``(library, target id, params pointer)`` of ``target`` at ``dim``
+    for Kernels 1-4: the built-in library and its functor's id for a
+    ``cuda_functor``, else the target's own library
+    (``user_density.kernel_lib``: its ``cuda_source``, or the C++
+    generated from its batch form, compiled at ``dim``). Raises for a
+    target neither route runs."""
+    if target.cuda_functor is not None:
+        tid = functor_id(target)
+        if dim not in KERNEL_DIMS:
+            raise ValueError(f"the CUDA kernels are built for D in "
+                             f"{KERNEL_DIMS}; got D={dim}")
+        return lib(), tid, params_ptr(target, device)
+    supported(target)
+    if dim not in kernel_dims(target):
+        raise ValueError(f"user densities run in Kernels 1-4 at D <= "
+                         f"{WRAPPED_MAX_DIM}; got D={dim}")
+    from . import user_density
+
+    return user_density.kernel_lib(target, dim, device)
 
 
 def unwhitened(target, what: str) -> bool:
@@ -171,20 +210,38 @@ def _params_on(params: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(params, dtype=torch.float32, device=device)
 
 
+def kernel_dims(target) -> tuple:
+    """The D at which Kernels 1-4 run ``target``: ``KERNEL_DIMS`` for a
+    built-in functor, 1 to ``WRAPPED_MAX_DIM`` for a user density."""
+    if target.cuda_functor is not None:
+        return KERNEL_DIMS
+    return tuple(range(1, WRAPPED_MAX_DIM + 1))
+
+
+def wrapper_floats(target, dim: int) -> int:
+    """The floats of ``target.cuda_params`` ahead of its functor's own at
+    ``dim``: a whitened target's triangle of ``L`` (or D scales under
+    ``cuda_diag``) and a transformed one's bijector table, which it
+    carries only where Kernels 1-4 run it (:func:`kernel_dims`)."""
+    n = 0
+    if dim <= max(kernel_dims(target)):
+        if target.cuda_affine:
+            n += dim if target.cuda_diag else dim * (dim + 1) // 2
+        if target.cuda_transform is not None:
+            n += TRANSFORM_HEAD + 3 * dim
+    return n
+
+
 def params_ptr(target, device,
                functor_dim: int | None = None) -> int | None:
     """Device pointer to ``target.cuda_params`` as float32 (copied to the
     device once per target and device), or ``None`` for a functor without
     coefficients. ``functor_dim``: read them for a kernel that runs the
-    functor alone at that D, past a whitened target's triangle of ``L``
-    and a transformed one's bijector table (which it carries at D <=
-    ``KERNEL_DIMS``' largest only)."""
+    functor alone at that D, past the wrappers' tables
+    (:func:`wrapper_floats`)."""
     params = tuple(target.cuda_params)
-    if functor_dim is not None and functor_dim <= max(KERNEL_DIMS):
-        if target.cuda_affine:
-            params = params[functor_dim * (functor_dim + 1) // 2:]
-        if target.cuda_transform is not None:
-            params = params[TRANSFORM_HEAD + 3 * functor_dim:]
+    if functor_dim is not None:
+        params = params[wrapper_floats(target, functor_dim):]
     if not params:
         return None
     return _params_on(params, torch.device(device)).data_ptr()
@@ -197,77 +254,98 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> Path:
+def compile_libraries(jobs) -> None:
+    """Compile ``jobs``, ``(sources, library path)`` pairs, each source in
+    its own ``nvcc`` process (``csrc/`` on the include path) and every
+    process of every job started together, then link each job's objects
+    into its library. A job's ``ptxas -v`` reports go to a ``.log`` beside
+    its library, whose first line gives the seconds from the start to its
+    link. Raises ``RuntimeError`` with nvcc's output if any job fails; the
+    others are linked all the same."""
+    if not jobs:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    started = []
+    for srcs, so in jobs:
+        tag = f"{so.stem}.{os.getpid()}"
+        procs = []
+        for src in srcs:
+            obj = BUILD_DIR / f".{src.stem}_{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+                   str(obj), str(src)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        started.append((so, tag, procs))
+    failed = []
+    for so, tag, procs in started:
+        log, bad = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                bad.append(f"{src.name} (code {proc.returncode}):\n"
+                           f"{out[-4000:]}")
+        tmp = BUILD_DIR / f".{tag}.so"
+        if not bad:
+            link = subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-shared", "-o", str(tmp),
+                 *(str(obj) for _, obj, _ in procs)],
+                capture_output=True, text=True)
+            log.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                bad.append(f"link (code {link.returncode}):\n{link.stderr}")
+        for _, obj, _ in procs:
+            obj.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
+        so.with_suffix(".log").write_text(
+            f"build seconds {seconds:.3f}\n" + "\n".join(log))
+        if bad:
+            failed.append(f"{so.name}:\n" + "\n".join(bad))
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
+def build(also=()) -> Path:
     """Compile ``csrc/*.cu`` into ``build/mini_mcmc_torch/`` unless a
     library of the same sources and flags is already there; returns its
-    path. Each source compiles in its own ``nvcc`` process, all at once;
-    the ``ptxas -v`` reports go to a ``.log`` beside the library."""
+    path. Each source compiles in its own ``nvcc`` process, all at once,
+    together with the jobs of ``also`` (``user_density.jobs``: the
+    libraries of user densities); the ``ptxas -v`` reports go to a
+    ``.log`` beside the library."""
     files = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in files:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    digest = h.hexdigest()[:16]
-    so = BUILD_DIR / f"libmm_kernels_{digest}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"{digest}.{os.getpid()}"
-    procs = []
-    for src in (p for p in files if p.suffix == ".cu"):
-        obj = BUILD_DIR / f".{src.stem}_{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    log, failed = [], []
-    for src, _, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {src.name}\n{out}")
-        if proc.returncode != 0:
-            failed.append(f"{src.name} (code {proc.returncode}):\n{out[-4000:]}")
-    tmp = BUILD_DIR / f".libmm_kernels_{tag}.so"
-    if not failed:
-        link = subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-             "-o", str(tmp), *(str(obj) for _, obj, _ in procs)],
-            capture_output=True, text=True)
-        log.append(f"== link\n{link.stdout}{link.stderr}")
-        if link.returncode != 0:
-            failed.append(f"link (code {link.returncode}):\n{link.stderr}")
-    for _, obj, _ in procs:
-        obj.unlink(missing_ok=True)
-    so.with_suffix(".log").write_text("\n".join(log))
-    if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    os.replace(tmp, so)
+    so = BUILD_DIR / f"libmm_kernels_{h.hexdigest()[:16]}.so"
+    jobs = list(also)
+    if not so.exists():
+        jobs.append(([p for p in files if p.suffix == ".cu"], so))
+    compile_libraries(jobs)
     return so
 
 
-@functools.cache
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    handle = ctypes.CDLL(str(build()))
-    sigs = {
-        "mm_leapfrog_f32": [_P] * 5 + [_I] * 5 + [_P] * 5,
-        "mm_hmc_multistep_f32": [_P] * 5 + [_I] * 6 + [_U] * 3
-        + [_P] * 4 + [_LL, _LL, _P],
-        "mm_philox_fill": [_P, _I, _U, _U, _U, _U, _P],
-        "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32] + [_I] * 4
-        + [_P] * 11 + [_I, _P, _P],
-        "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I] * 4
-        + [_P, _I] + [_P] * 6 + [_I, _P, _P],
-        "mm_mh_multistep": [_P] * 4 + [_I] * 7 + [_U] * 4 + [_P] * 3
-        + [_LL, _LL, _P],
-        "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
-        + [_LL, _LL, _P],
-        "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
-        "mm_hmc_separable_step": [_P] * 9 + [_I] * 7 + [_U] * 4 + [_P] * 4,
-        "mm_hmc_separable_clusters": [_I] * 4 + [_P],
-        "mm_pt_multistep": [_P] * 5 + [_I] * 8 + [_U] * 3 + [_P] * 4
-        + [_LL, _LL, _P],
-    }
+#: the C entries of Kernels 1-4, whose per-density libraries export them too
+KERNEL_SIGS = {
+    "mm_leapfrog_f32": [_P] * 5 + [_I] * 5 + [_P] * 5,
+    "mm_hmc_multistep_f32": [_P] * 5 + [_I] * 6 + [_U] * 3
+    + [_P] * 4 + [_LL, _LL, _P],
+    "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32] + [_I] * 4
+    + [_P] * 11 + [_I, _P, _P],
+    "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I] * 4
+    + [_P, _I] + [_P] * 6 + [_I, _P, _P],
+}
+
+
+def bind(handle: ctypes.CDLL, sigs: dict = KERNEL_SIGS) -> ctypes.CDLL:
+    """Set the argument and result types of ``sigs``' entries and of
+    ``mm_error_string`` on a loaded library."""
     for name, argtypes in sigs.items():
         fn = getattr(handle, name)
         fn.argtypes = argtypes
@@ -277,10 +355,28 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
-def check(code: int) -> None:
-    """Raise if a kernel's C entry returned a CUDA error code."""
+@functools.cache
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    return bind(ctypes.CDLL(str(build())), dict(KERNEL_SIGS, **{
+        "mm_philox_fill": [_P, _I, _U, _U, _U, _U, _P],
+        "mm_mh_multistep": [_P] * 4 + [_I] * 7 + [_U] * 4 + [_P] * 3
+        + [_LL, _LL, _P],
+        "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
+        + [_LL, _LL, _P],
+        "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
+        "mm_hmc_separable_step": [_P] * 9 + [_I] * 7 + [_U] * 4 + [_P] * 4,
+        "mm_hmc_separable_clusters": [_I] * 4 + [_P],
+        "mm_pt_multistep": [_P] * 5 + [_I] * 8 + [_U] * 3 + [_P] * 4
+        + [_LL, _LL, _P],
+    }))
+
+
+def check(code: int, handle: ctypes.CDLL | None = None) -> None:
+    """Raise if a kernel's C entry (of ``handle``, the built-in library by
+    default) returned a CUDA error code."""
     if code != 0:
-        msg = lib().mm_error_string(code).decode()
+        msg = (handle or lib()).mm_error_string(code).decode()
         raise RuntimeError(f"CUDA kernel launch failed ({code}): {msg}")
 
 

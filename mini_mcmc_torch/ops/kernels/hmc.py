@@ -34,15 +34,16 @@ def leapfrog_trajectory_plain(target, pos, mom, grad, eps, n_leapfrog: int):
 leapfrog_trajectory_plain.calls = 0
 
 
-def check_state(pos, *others):
+def check_state(pos, *others, dims=_build.KERNEL_DIMS):
     """Validate what the kernels take: contiguous f32 CUDA tensors, ``pos``
-    ``[C, D]`` with an instantiated D, the rest on its device."""
+    ``[C, D]`` with a D in ``dims`` (the built-in instances' by default;
+    ``_build.kernel_dims`` of a target), the rest on its device."""
     if pos.dim() != 2:
         raise ValueError(f"positions must be [C, D]; got {tuple(pos.shape)}")
-    if pos.shape[1] not in _build.KERNEL_DIMS:
+    if pos.shape[1] not in dims:
         raise ValueError(
-            f"the CUDA kernels are built for D in {_build.KERNEL_DIMS}; "
-            f"got D={pos.shape[1]}"
+            f"the CUDA kernels are built for D in {dims}; got "
+            f"D={pos.shape[1]}"
         )
     for t in (pos, *others):
         if t.dtype != torch.float32 or t.device != pos.device:
@@ -62,9 +63,9 @@ def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
     if not pos.is_cuda:
         return leapfrog_trajectory_plain(target, pos, mom, grad, eps,
                                          n_leapfrog)
-    tid = _build.functor_id(target)
     eps = eps.reshape(1)
-    check_state(pos, mom, grad, eps)
+    check_state(pos, mom, grad, eps, dims=_build.kernel_dims(target))
+    lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
     c, d = pos.shape
     if mom.shape != pos.shape or grad.shape != pos.shape:
         raise ValueError("pos, mom and grad must all be [C, D]")
@@ -72,16 +73,16 @@ def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
     mom_o = torch.empty_like(pos)
     grad_o = torch.empty_like(pos)
     logp_o = torch.empty((c,), dtype=pos.dtype, device=pos.device)
-    lib = _build.lib()
     leapfrog_trajectory.launches += 1
     leapfrog_trajectory.transformed_launches += (
         target.cuda_transform is not None)
+    leapfrog_trajectory.user_launches += target.cuda_functor is None
     _build.check(lib.mm_leapfrog_f32(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), eps.data_ptr(),
-        _build.params_ptr(target, pos.device), n_leapfrog, c, d, tid,
-        _build.instance_flags(target), pos_o.data_ptr(), mom_o.data_ptr(),
-        logp_o.data_ptr(), grad_o.data_ptr(), _build.stream_ptr(pos.device),
-    ))
+        params, n_leapfrog, c, d, tid, _build.instance_flags(target),
+        pos_o.data_ptr(), mom_o.data_ptr(), logp_o.data_ptr(),
+        grad_o.data_ptr(), _build.stream_ptr(pos.device),
+    ), lib)
     return pos_o, mom_o, logp_o, grad_o
 
 
@@ -89,3 +90,6 @@ leapfrog_trajectory.launches = 0
 #: the launches of the transformed instances (``mm::Transformed``, a
 #: metric's wrapper around it included), also counted in ``launches``
 leapfrog_trajectory.transformed_launches = 0
+#: the launches of user instances (``Target.cuda_source`` or a generated
+#: source: ``user_density.py``), also counted in ``launches``
+leapfrog_trajectory.user_launches = 0

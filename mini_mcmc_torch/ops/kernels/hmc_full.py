@@ -71,8 +71,8 @@ def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
     if not pos.is_cuda:
         return hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog,
                                    seed, step0, hist)
-    tid = _build.functor_id(target)
-    check_state(pos, logp, grad, eps)
+    check_state(pos, logp, grad, eps, dims=_build.kernel_dims(target))
+    lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
     c, d = pos.shape
     k = eps.shape[0]
     if (eps.dim() != 1 or logp.shape != (c,) or grad.shape != pos.shape):
@@ -83,17 +83,17 @@ def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
     grad_o = torch.empty_like(pos)
     logp_o = torch.empty_like(logp)
     seed_lo, seed_hi = rng.seed_words(seed)
-    lib = _build.lib()
     hmc_multistep.launches += 1
     hmc_multistep.transformed_launches += (
         target.cuda_transform is not None)
+    hmc_multistep.user_launches += target.cuda_functor is None
     _build.check(lib.mm_hmc_multistep_f32(
         pos.data_ptr(), logp.data_ptr(), grad.data_ptr(), eps.data_ptr(),
-        _build.params_ptr(target, pos.device), k, n_leapfrog, c, d, tid,
-        _build.instance_flags(target), seed_lo, seed_hi, step0 & 0xFFFFFFFF,
-        pos_o.data_ptr(), logp_o.data_ptr(), grad_o.data_ptr(), hist_ptr,
-        hist_sk, hist_sc, _build.stream_ptr(pos.device),
-    ))
+        params, k, n_leapfrog, c, d, tid, _build.instance_flags(target),
+        seed_lo, seed_hi, step0 & 0xFFFFFFFF, pos_o.data_ptr(),
+        logp_o.data_ptr(), grad_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
+        _build.stream_ptr(pos.device),
+    ), lib)
     return pos_o, logp_o, grad_o
 
 
@@ -101,3 +101,6 @@ hmc_multistep.launches = 0
 #: the launches of the transformed instances (``mm::Transformed``, a
 #: metric's wrapper around it included), also counted in ``launches``
 hmc_multistep.transformed_launches = 0
+#: the launches of user instances (``user_density.py``), also counted in
+#: ``launches``
+hmc_multistep.user_launches = 0

@@ -241,8 +241,8 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
             f"the NUTS step kernel is built for max_depth <= {MAX_DEPTH} "
             f"and 0 <= depth_limit <= max_depth; got max_depth={max_depth},"
             f" depth_limit={depth_limit}")
-    tid = _build.functor_id(target)
-    check_state(pos, eps)
+    check_state(pos, eps, dims=_build.kernel_dims(target))
+    lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
     c, d = pos.shape
     if eps.shape != (c,):
         raise ValueError(f"eps must be [C] = [{c}]; got {tuple(eps.shape)}")
@@ -256,20 +256,20 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
     launched = (ctypes.c_int * 3)()
     k0, k1 = rng.seed_words(seed)
     stream = _build.stream_ptr(pos.device)
-    lib = _build.lib()
     nuts_step.launches += 1
     nuts_step.transformed_launches += (
         target.cuda_transform is not None)
+    nuts_step.user_launches += target.cuda_functor is None
     _build.check(lib.mm_nuts_step_f32(
-        pos.data_ptr(), eps.data_ptr(), _build.params_ptr(target, pos.device),
-        depth_limit, max_depth, k0, k1, step & 0xFFFFFFFF, chain0 & 0xFFFFFFFF,
-        c, d, tid, _build.instance_flags(target),
+        pos.data_ptr(), eps.data_ptr(), params, depth_limit, max_depth, k0,
+        k1, step & 0xFFFFFFFF, chain0 & 0xFFFFFFFF, c, d, tid,
+        _build.instance_flags(target),
         _counter(pos.device, stream).data_ptr(), blocks,
         None if stats is None else stats.data_ptr(), new_pos.data_ptr(),
         alpha.data_ptr(), n_alpha.data_ptr(), diverged.data_ptr(),
         depth.data_ptr(), pos.device.index, ctypes.addressof(launched),
         stream,
-    ))
+    ), lib)
     if grid is not None:
         grid.update(zip(("blocks_per_sm", "sms", "blocks"), launched))
     return new_pos, alpha, n_alpha, diverged, depth
@@ -279,3 +279,6 @@ nuts_step.launches = 0
 #: the launches of the transformed instances (``mm::Transformed``, a
 #: metric's wrapper around it included), also counted in ``launches``
 nuts_step.transformed_launches = 0
+#: the launches of user instances (``user_density.py``), also counted in
+#: ``launches``
+nuts_step.user_launches = 0

@@ -218,10 +218,11 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
         raise ValueError(
             f"the subtree kernel is built for max_depth <= {MAX_DEPTH} and "
             f"0 <= j <= max_depth; got max_depth={max_depth}, j={j}")
-    tid = _build.functor_id(target)
     v = v.to(torch.int32).contiguous()
     active = active.to(torch.bool).contiguous()
-    check_state(pos, mom, grad, logu, eps, joint0)
+    check_state(pos, mom, grad, logu, eps, joint0,
+                dims=_build.kernel_dims(target))
+    lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
     c, d = pos.shape
     if (mom.shape != pos.shape or grad.shape != pos.shape
             or any(x.shape != (c,) for x in (logu, v, eps, joint0, active))
@@ -240,22 +241,22 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
     seed0, seed1 = (int(w) & _MASK for w in seed)
     seed0, seed1 = (w - (1 << 32) if w >> 31 else w for w in (seed0, seed1))
     launched = (ctypes.c_int * 3)()
-    lib = _build.lib()
     subtree.launches += 1
     subtree.transformed_launches += (
         target.cuda_transform is not None)
+    subtree.user_launches += target.cuda_functor is None
     _build.check(lib.mm_nuts_subtree_f32(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), logu.data_ptr(),
         v.data_ptr(), eps.data_ptr(), joint0.data_ptr(), active.data_ptr(),
-        _build.params_ptr(target, pos.device), j, max_depth, seed0, seed1, c,
-        d, tid, _build.instance_flags(target), end_pos.data_ptr(),
+        params, j, max_depth, seed0, seed1, c, d, tid,
+        _build.instance_flags(target), end_pos.data_ptr(),
         end_mom.data_ptr(), end_grad.data_ptr(),
         prop_pos.data_ptr(), prop_grad.data_ptr(), prop_logp.data_ptr(),
         n.data_ptr(), s.data_ptr(), alpha.data_ptr(), n_alpha.data_ptr(),
         diverged.data_ptr(), pos.device.index,
         None if grid is None else ctypes.addressof(launched),
         _build.stream_ptr(pos.device),
-    ))
+    ), lib)
     if grid is not None:
         grid.update(zip(("blocks_per_sm", "sms", "blocks"), launched))
     return TreeResult(end_pos, end_mom, end_grad, prop_pos, prop_grad,
@@ -266,3 +267,6 @@ subtree.launches = 0
 #: the launches of the transformed instances (``mm::Transformed``, a
 #: metric's wrapper around it included), also counted in ``launches``
 subtree.transformed_launches = 0
+#: the launches of user instances (``user_density.py``), also counted in
+#: ``launches``
+subtree.user_launches = 0

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from .models.base import validate_separable
+from .models.base import validate_dc_forms, validate_separable
 from .models.precondition import (
     Preconditioner,
     estimate_preconditioner,
@@ -40,7 +40,7 @@ from .ops.elliptical import elliptical_kernel
 from .ops.ensemble import ensemble_kernel
 from .ops.gibbs import gibbs_kernel
 from .ops.hmc import hmc_kernel
-from .ops.kernels._build import functor_id
+from .ops.kernels._build import kernel_lib
 from .ops.kernels.gibbs_full import gibbs_instance
 from .ops.kernels.hmc_sep import sep_functor
 from .ops.kernels.mh_full import mh_instance
@@ -391,6 +391,18 @@ class MetropolisHastings(_KernelSampler):
         return new
 
 
+def check_kernel_target(kernel_target, positions, validate_dc: bool) -> None:
+    """Raise now, at construction, for a target Kernels 1-4 cannot run on
+    ``positions`` (CUDA, kernel coordinates): a built-in functor at a D it
+    is not built for, or a batch form the code generator cannot translate
+    (named); this builds a user density's library. With ``validate_dc``
+    the compiled user density is held to its batch form there
+    (:func:`~mini_mcmc_torch.models.base.validate_dc_forms`)."""
+    kernel_lib(kernel_target, positions.shape[1], positions.device)
+    if validate_dc:
+        validate_dc_forms(kernel_target, positions)
+
+
 class HMC(_KernelSampler):
     """Batched Hamiltonian Monte Carlo (data-parallel leapfrog).
 
@@ -399,21 +411,25 @@ class HMC(_KernelSampler):
     tier: ``True`` fuses the leapfrog trajectory, ``"full"`` whole K-step
     blocks, ``"separable"`` the large-D tier for coordinate-separable
     targets (see :func:`~mini_mcmc_torch.ops.hmc.hmc_kernel`). On CUDA
-    positions it needs a target with a built-in CUDA density
-    (``Target.cuda_functor``; for ``"separable"`` a coordinate functor of
-    ``_build.SEP_FUNCTORS``) and raises ``ValueError`` otherwise.
-    ``"separable"`` validates separability on the initial positions
+    positions ``True`` and ``"full"`` run a built-in CUDA density
+    (``Target.cuda_functor``) or compile the target's own C++
+    (``Target.cuda_source``, or C++ generated from its batch form; D <=
+    16), raising ``ValueError`` now for a batch form the generator cannot
+    translate; with ``validate_dc`` (the default) a compiled density is
+    held to the batch form on the initial positions
+    (:func:`~mini_mcmc_torch.models.base.validate_dc_forms`).
+    ``"separable"`` needs a coordinate functor of ``_build.SEP_FUNCTORS``
+    on CUDA, validates separability on the initial positions
     (:func:`~mini_mcmc_torch.models.base.validate_separable`) on every
-    device, and nothing turns that off.
+    device, and nothing turns that off (``validate_dc`` included).
 
     The sampler runs on ``device`` (``"cuda"`` by default; it raises
     without a GPU), where it moves a copy of the initial positions; pass
     ``device="cpu"`` for the plain twins on the CPU.
 
     The JAX-only knobs have no counterpart here: ``unroll`` (no scan to
-    unroll), ``pallas_interpret`` (CPU tensors run the kernels' plain
-    twins) and ``validate_dc`` (no chains-on-lanes forms).
-    ``convert.sampler_kwargs`` drops them.
+    unroll) and ``pallas_interpret`` (CPU tensors run the kernels' plain
+    twins). ``convert.sampler_kwargs`` drops them.
 
     ``metric``: optional :class:`~mini_mcmc_torch.models.Preconditioner`;
     the sampler runs in whitened coordinates ``y = L^-1 x`` (HMC with mass
@@ -443,8 +459,8 @@ class HMC(_KernelSampler):
     def __init__(self, target, initial_positions, step_size: float,
                  n_leapfrog: int, seed: Optional[int] = None,
                  use_pallas=False, jitter: float = 0.0,
-                 steps_per_call: int = 1, metric=None, transform=None, *,
-                 device="cuda"):
+                 steps_per_call: int = 1, metric=None, transform=None,
+                 validate_dc: bool = True, *, device="cuda"):
         self.target = target
         self.step_size = step_size
         self.n_leapfrog = n_leapfrog
@@ -452,7 +468,7 @@ class HMC(_KernelSampler):
         self._ctor = dict(step_size=step_size, n_leapfrog=n_leapfrog,
                           use_pallas=use_pallas, jitter=jitter,
                           steps_per_call=steps_per_call, transform=transform,
-                          device=device)
+                          validate_dc=validate_dc, device=device)
         positions = initial_positions_on(initial_positions, device)
         kernel_target, positions_map, positions, self.metric = (
             _wrap_sampler_target(target, positions, transform, metric))
@@ -463,7 +479,7 @@ class HMC(_KernelSampler):
                 sep_functor(kernel_target)  # no coordinate functor: raise
                 _float32_only("HMC", use_pallas, positions)
         elif use_pallas and positions.is_cuda:
-            functor_id(kernel_target)  # no CUDA density: raise now
+            check_kernel_target(kernel_target, positions, validate_dc)
         init_fn, step_fn = hmc_kernel(kernel_target, step_size, n_leapfrog,
                                       use_pallas=use_pallas, jitter=jitter,
                                       steps_per_call=steps_per_call)
@@ -570,12 +586,13 @@ class MALA(HMC):
 
     def __init__(self, target, initial_positions, step_size: float,
                  seed: Optional[int] = None, use_pallas=False,
-                 steps_per_call: int = 1, metric=None, transform=None, *,
-                 device="cuda"):
+                 steps_per_call: int = 1, metric=None, transform=None,
+                 validate_dc: bool = True, *, device="cuda"):
         super().__init__(target, initial_positions, step_size, n_leapfrog=1,
                          seed=seed, use_pallas=use_pallas,
                          steps_per_call=steps_per_call, metric=metric,
-                         transform=transform, device=device)
+                         transform=transform, validate_dc=validate_dc,
+                         device=device)
 
     @classmethod
     def _construct(cls, target, positions, metric, seed, ctor):

@@ -252,7 +252,8 @@ def test_mala_kwargs_carry_over_from_jax():
                  steps_per_call=4, metric=jm.Preconditioner(
                      "diag", scale=jnp.asarray([2.0, 0.5])))
     kw = mala_sampler_kwargs(j)
-    assert set(kw) == {"step_size", "use_pallas", "steps_per_call", "metric"}
+    assert set(kw) == {"step_size", "use_pallas", "steps_per_call", "metric",
+                       "validate_dc"}
     assert kw["step_size"] == 0.7 and kw["use_pallas"] == "full"
     m = mt.MALA(standard_normal(), x, **kw, **CPU).seed(1)
     assert m.metric.kind == "diag" and m.run(8, 4).shape == (16, 8, 2)

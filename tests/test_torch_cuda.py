@@ -88,7 +88,7 @@ from mini_mcmc_torch.models import (
     rosenbrock_nd,
 )
 from mini_mcmc_torch.ops import make_anneal
-from mini_mcmc_torch.ops.kernels import rng
+from mini_mcmc_torch.ops.kernels import _build, rng
 from mini_mcmc_torch.ops.kernels.gibbs_full import (
     gibbs_multistep,
     gibbs_multistep_plain,
@@ -201,13 +201,24 @@ def test_cuda_multistep_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_target_without_functor_raises(cuda):
+    """A target without a functor runs Kernels 1 and 2 through the C++
+    generated from its batch form; one whose batch form the generator
+    cannot translate raises at construction, naming the operation."""
     plain_target = Target(logp=rosenbrock_nd().logp)
     x = torch.ones((128, 3), device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        HMC(plain_target, x, 0.02, 4, use_pallas="full")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        HMC(plain_target, x, 0.02, 4, use_pallas=True)
-    HMC(plain_target, x, 0.02, 4).run(2)  # the plain tier needs no functor
+    for tier in ("full", True):
+        launches = (hmc_multistep.user_launches,
+                    leapfrog_trajectory.user_launches)
+        out = HMC(plain_target, x, 0.02, 4, use_pallas=tier).seed(1).run(2)
+        assert torch.isfinite(out).all()
+        assert (hmc_multistep.user_launches,
+                leapfrog_trajectory.user_launches) != launches
+    untraceable = Target(logp=lambda p: -torch.sigmoid(p).sum(-1))
+    with pytest.raises(ValueError, match="sigmoid.*cuda_source"):
+        HMC(untraceable, x, 0.02, 4, use_pallas="full")
+    with pytest.raises(ValueError, match="sigmoid"):
+        HMC(untraceable, x, 0.02, 4, use_pallas=True)
+    HMC(untraceable, x, 0.02, 4).run(2)  # the plain tier needs no C++
 
 
 def _nuts_state(c, seed):
@@ -389,10 +400,14 @@ def test_cuda_nuts_full_raises_without_functor_or_f32(cuda):
     x = torch.zeros((256, 2), device=cuda)
     plain = Target(logp=diffable_gaussian2d([0.0, 0.0],
                                             [[1.0, 0.0], [0.0, 1.0]]).logp)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        NUTS(plain, x, 0.8, use_pallas="full")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        NUTS(plain, x, 0.8, use_pallas=True)
+    for tier in ("full", True):  # the C++ generated from the batch form
+        out = NUTS(plain, x, 0.8, use_pallas=tier).seed(1).run(4, 4)
+        assert torch.isfinite(out).all()
+    untraceable = Target(logp=lambda p: -torch.cumsum(p, -1).sum(-1))
+    with pytest.raises(ValueError, match="cumsum"):
+        NUTS(untraceable, x, 0.8, use_pallas="full")
+    with pytest.raises(ValueError, match="cumsum"):
+        NUTS(untraceable, x, 0.8, use_pallas=True)
     g = diffable_gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
     with pytest.raises(ValueError, match="float32"):
         NUTS(g, x.double(), 0.8, use_pallas="full")
@@ -2066,3 +2081,102 @@ def test_cuda_save_csv_tensor_native(cuda, tmp_path):
     np.testing.assert_array_equal(
         vals[:, 2:], cube.cpu().double().numpy().reshape(-1, 3))
     np.testing.assert_array_equal(vals[:, 0], np.repeat(np.arange(16), 64))
+
+
+# -- user densities in Kernels 1-4 (ops/kernels/user_density.py) ------------
+
+
+def _es8_start(form, kind, cuda, c=2048, seed=3):
+    """The eight-schools target in ``form`` at D = 10 and a start: plain
+    in x, or whitened by a diagonal metric in y."""
+    from mini_mcmc_torch.examples.eight_schools import make_noncentered_target
+
+    t = make_noncentered_target(form)
+    g = np.random.default_rng(seed)
+    pos = torch.from_numpy((0.5 * g.standard_normal((c, 10))).astype(
+        np.float32)).to(cuda)
+    eps = 0.05
+    if kind == "whitened":
+        scale = torch.linspace(0.5, 3.0, 10, device=cuda)
+        t = precondition_target(t, Preconditioner("diag", scale=scale))
+        pos, eps = pos / scale, 0.05 / 3.0
+    return t, pos.contiguous(), eps
+
+
+def _share(ok):
+    return float(ok.double().mean())
+
+
+def _rows_close(a, b):
+    ok = (a - b).abs() <= ATOL + RTOL * (b.abs() + b.abs().amax(
+        dim=-1, keepdim=True))
+    return ok.reshape(ok.shape[0], -1).all(dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["hand", "derived", "traced"])
+@pytest.mark.parametrize("kind", ["plain", "whitened"])
+def test_cuda_user_instances_match_their_twins(form, kind, cuda):
+    """Each user instance of Kernels 1-4 at D = 10 (eight schools, plain
+    and whitened diag: mm::WhitenedDiag) against its twin as the built-in
+    instances are held: positions, gradients and counts per chain on at
+    least 99.9% of the chains."""
+    t, pos, eps = _es8_start(form, kind, cuda)
+    c = pos.shape[0]
+    flags = 5 if kind == "whitened" else 0
+    assert _build.instance_flags(t) == flags
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    mom = torch.randn(pos.shape, generator=gen, device=cuda)
+    logp, grad = t.batch_logp_and_grad(pos)
+    e = torch.tensor(eps, device=cuda)
+    before = leapfrog_trajectory.user_launches
+    got = leapfrog_trajectory(t, pos, mom, grad, e, 8)
+    want = leapfrog_trajectory_plain(t, pos, mom, grad, e, 8)
+    assert leapfrog_trajectory.user_launches == before + 1
+    ok = _rows_close(got[0], want[0]) & _rows_close(got[3], want[3])
+    assert _share(ok) >= 0.999
+    got = hmc_multistep(t, pos, logp, grad, e.expand(4).contiguous(), 8,
+                        99, 3)
+    want = hmc_multistep_plain(t, pos, logp, grad, e.expand(4).contiguous(),
+                               8, 99, 3)
+    assert _share(_rows_close(got[0], want[0])) >= 0.999
+    joint0 = logp - 0.5 * (mom * mom).sum(1)
+    logu = joint0 - torch.empty_like(joint0).exponential_(generator=gen)
+    v = torch.where(torch.rand(c, generator=gen, device=cuda) < 0.5, -1,
+                    1).to(torch.int32)
+    active = torch.ones(c, dtype=torch.bool, device=cuda)
+    eps_c = torch.full((c,), eps, device=cuda)
+    args = (t, pos, mom, grad, logu, v, 3, eps_c, joint0, active, (5, 6), 10)
+    got, want = subtree(*args), subtree_plain(*args)
+    same = (got.n == want.n) & (got.s == want.s) & (
+        got.n_alpha == want.n_alpha)
+    assert _share(same) >= 0.999
+    assert _share(_rows_close(got.end_pos, want.end_pos) | ~want.s) >= 0.999
+    got = nuts_step(t, pos, eps_c * 4, 10, 0x5EED, 2, 10)
+    want = nuts_step_plain(t, pos, eps_c * 4, 10, 0x5EED, 2, 10)
+    assert _share(_rows_close(got[0], want[0])) >= 0.999
+    assert _share(got[4] == want[4]) >= 0.999
+
+
+@pytest.mark.cuda
+def test_cuda_user_source_that_fails_nvcc_raises_with_its_output(cuda):
+    bad = Target(logp=lambda p: -(p * p).sum(-1),
+                 cuda_source="struct Density { not c++ };")
+    x = torch.zeros((256, 3), device=cuda)
+    with pytest.raises(RuntimeError, match=r"(?s)nvcc failed.*error"):
+        NUTS(bad, x, 0.8, use_pallas="full")
+
+
+@pytest.mark.cuda
+def test_cuda_user_library_cache_reuses_an_unchanged_source(cuda):
+    from mini_mcmc_torch.examples.eight_schools import CUDA_SOURCE
+    from mini_mcmc_torch.ops.kernels import user_density
+
+    first = user_density.lib_for(CUDA_SOURCE, 10, 0)
+    path = user_density.library_path(CUDA_SOURCE, 10, 0)
+    built = path.stat().st_mtime_ns
+    assert user_density.lib_for(CUDA_SOURCE, 10, 0) is first
+    assert user_density.build([(CUDA_SOURCE, 10, 0)]) == [path]
+    assert path.stat().st_mtime_ns == built
+    # another D or wrapper bits is another library
+    assert user_density.library_path(CUDA_SOURCE, 10, 5) != path

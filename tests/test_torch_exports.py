@@ -25,10 +25,6 @@ REMOVALS = {
     # chain and data sharding over devices: Queue 1 item 12
     "parallel": "item 12",
     "data_parallel_grad": "item 12",
-    # user densities inside the fused kernels at any D: Queue 1 item 6
-    "derive_logp_dc": "item 6",
-    "derive_grad_dc": "item 6",
-    "validate_dc_forms": "item 6",
 }
 
 

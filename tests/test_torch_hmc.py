@@ -57,7 +57,7 @@ def _jax_sampler(use_pallas, **kw):
 def test_start_state_carries_over_through_convert():
     j = _jax_sampler(False)
     kwargs = sampler_kwargs(j)
-    assert kwargs == dict(use_pallas=False, **KW)
+    assert kwargs == dict(use_pallas=False, validate_dc=True, **KW)
     port = mt.HMC(mt.rosenbrock_nd(), _init(), **kwargs, device="cpu")
     carried = hmc_state_from_numpy(*(np.asarray(x) for x in j.state),
                                    device="cpu")
@@ -182,7 +182,7 @@ def test_sampler_kwargs_rejects_what_is_not_ported():
     ctor = dict(KW, use_pallas=False, unroll=8, pallas_interpret=False,
                 validate_dc=True, transform=None)
     assert sampler_kwargs(SimpleNamespace(_ctor=ctor, metric=None)) == dict(
-        KW, use_pallas=False)
+        KW, use_pallas=False, validate_dc=True)
     with pytest.raises(ValueError, match="transform"):
         sampler_kwargs(SimpleNamespace(_ctor=dict(ctor, transform=object()),
                                        metric=None))

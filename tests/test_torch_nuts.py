@@ -136,7 +136,8 @@ def test_port_tiers_pass_the_gates(use_pallas, monkeypatch):
                  use_pallas=use_pallas, pallas_interpret=True)
     kwargs = nuts_sampler_kwargs(j)
     assert kwargs == dict(target_accept_p=0.8, max_depth=10,
-                          use_pallas=use_pallas, warmup_max_depth=None)
+                          use_pallas=use_pallas, warmup_max_depth=None,
+                          validate_dc=True)
     s = mt.NUTS(_target(), _init(), **kwargs, **CPU).seed(7)
     first = s.run(N_ADAPT, N_ADAPT)
     assert first.shape == (C, N_ADAPT, 2) and first.dtype == torch.float32

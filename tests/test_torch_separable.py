@@ -516,7 +516,7 @@ def test_start_state_carries_over_through_convert():
                 use_pallas="separable")
     kwargs = sampler_kwargs(j)
     assert kwargs == dict(step_size=0.1, n_leapfrog=5, use_pallas="separable",
-                          jitter=0.0, steps_per_call=1)
+                          jitter=0.0, steps_per_call=1, validate_dc=True)
     port = mt.HMC(mt.standard_normal(), x, **kwargs, device="cpu")
     carried = hmc_sep_state_from_numpy(*(np.asarray(v) for v in j.state),
                                        device="cpu")
