@@ -266,6 +266,40 @@ Phases, one line each (every check raises on failure):
     and ``"full"`` HMC tiers and the ``use_pallas=True`` NUTS tier on the
     hand form, counted. The lockstep eight-schools NUTS half (30) times
     ``run(512, 256)``, not 1,024 draws, to leave room for these phases.
+38. user forms in Kernels 5-8 (``examples/user_forms.py``), at bench.py's
+    stage sizes, each stage one warm-up run and one counted, timed run
+    (``counted_run``: the user instance's launches, no twin). The build of 2
+    compiles their 15 libraries (value-only: Kernels 5 and 8 with the
+    probes, for each user density and for the built-in Gaussian2D beside
+    each user proposal; the Gibbs library of the user mixture; Kernel 7's
+    of each coordinate functor and wrapper bits) in the same batch;
+    ``[user_build]`` their nvcc seconds and registers (none may spill).
+    ``[mh_user]``: the MH stage with Gaussian2D as a user Target, traced
+    and as a hand ``cuda_source`` copying ``targets.cuh:Gaussian2D``,
+    beside the built-in from the same seed: bench.py's four gates, Kernel
+    5's 128 launches a run, the hand cube the built-in's bit for bit, the
+    traced decisions the built-in's on 99.9% of chains; then
+    examples/rosenbrock_mh.py's density traced, a run and one K-block
+    against its twin; then Kernel 5's user instance at D = 5 and 16 (past
+    D = 3 it takes the accept's logf before the proposal) one K-block
+    against its twin each. ``[mh_user_proposal]``: the isotropic walk as a user
+    source (its cube the built-in's bit for bit) and a per-coordinate
+    scale walk (gates, one block against its twin). ``[pt_user]``: the
+    tempering stage on bench's own ``logaddexp`` density, traced and hand:
+    bench.py's four gates, 128 launches a run, one block against the twin
+    each, and Kernel 8's user instance at D = 5 against its twin (normals
+    past D = 2 from draws p T + t). ``[gibbs_user]``: the Gibbs stage with
+    the mixture as a user conditional: bench.py's gates, 256 launches a
+    run, its cube the built-in's bit for bit, one block against its twin.
+    ``[sep_user]``: the separable stage with the standard normal as a plain
+    user Target (the coordinate functor generated from its batch form):
+    the gates, 256 fused launches a run, decisions the built-in's on 99.9%
+    of chains; the logistic with scales logspace(-0.5, 0.5, D) through the
+    hand ``cuda_coord_source`` and the derived route (gates on z = x / s,
+    acceptance in [0.6, 0.95], the fused step against its float32 and
+    float64 twins), and one step each of its Scaled and TransformedCoord
+    instances. Each user instance's device time alone, time by events and
+    twin time; the kernels line lists them (``k5678_user_records``).
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -574,6 +608,27 @@ OPS = {
                       # proposal's copy, the swap ratio
     "d10_doubling": 100,  # six D-wide end selects, the outer U-turn dots
     "diag_d10": 20,  # x = s y and g_y = s g_x: D products each
+    # the user forms of Kernels 5-8 (38)
+    "banana_logp": 12,  # examples/rosenbrock_mh.py's density: two
+                        # differences, three squares, the sum, the scale
+    # the least work of a user form: a division by a constant of the
+    # density is a product by its reciprocal, taken once where the
+    # constant is (a coordinate's in Kernel 7, a chain's in a launch)
+    "rcp": 4,  # a reciprocal: MUFU.RCP, its Newton step's two FFMAs and
+               # the product that rounds it
+    "gauss_coord_logp": 2,  # a Gaussian coordinate of hoisted reciprocal
+                            # standard deviation: the product and the
+                            # FFMA of its square into the sum
+    "logistic_grad": 18,  # -tanh(x r / 2) r, r = 1 / s a coordinate's
+                          # constant: tanhf (|x|, the range compare,
+                          # MUFU.EX2 and MUFU.RCP with their FMAs above
+                          # 0.6, a five-term odd polynomial below, the
+                          # select and the sign: 16) and two products
+    "logistic_coef": 5,  # per coordinate once: r = 1 / s (rcp) and r / 2
+    "logistic_logp": 53,  # |x| r (a product), expf (8), log1pf (22), logf
+                          # (s) (20), the doubling and the adds
+    "bij_grad_interval": 30,  # an interval coordinate's x and dx/dy: the
+                              # sigmoid's expf and reciprocal, products
 }
 
 
@@ -725,10 +780,12 @@ TRANSFORMED_KERNELS = ("hmc_multistep", "leapfrog_trajectory", "nuts_step",
 
 
 #: the kernels with user instances (a Target's cuda_source or the C++
-#: generated from its batch form: ops/kernels/user_density.py): each counts
-#: those launches in ``user_launches``
+#: generated from its batch form, a user proposal, conditional or
+#: coordinate functor: ops/kernels/user_density.py): each counts those
+#: launches in ``user_launches``
 USER_KERNELS = ("hmc_multistep", "leapfrog_trajectory", "nuts_step",
-                "nuts_subtree")
+                "nuts_subtree", "mh_multistep", "gibbs_multistep",
+                "hmc_separable", "hmc_separable_step", "pt_multistep")
 
 
 def reset_counts() -> None:
@@ -2396,14 +2453,16 @@ def phase_pt_main_path(dev):
 
 
 def phase_pt_kernel(pt, seed: int, std: float = 1.0,
-                    label: str = "pt_kernel") -> dict:
+                    label: str = "pt_kernel", exact: bool = True) -> dict:
     """Kernel 8 against its twin for one K-step block from the stage's
     equilibrium state, same key, on the sampler's kernel target at cold
     scale ``std``: positions, logp, swap EWMA and the history rows equal
     per chain; under a transform (the transformed instance, whose density
     differs from the twin's within its float32 rounding) positions and
     history within MH_RTOL/MH_ATOL, logp within that and twice the
-    density's float32 rounding (``logp_within``)."""
+    density's float32 rounding (``logp_within``). Without ``exact`` (a
+    user density's C++ against its batch form) every field within
+    MH_RTOL/MH_ATOL."""
     s = pt.state
     c = s.positions.shape[2]
     hk = torch.empty((PT_K, c, 1), device=s.positions.device)
@@ -2414,7 +2473,9 @@ def phase_pt_kernel(pt, seed: int, std: float = 1.0,
     got = pt_multistep(*args, hk)
     want = pt_multistep_plain(*args, hp)
     torch.cuda.synchronize()
-    if pt.transform is None:
+    if not exact:
+        same, logp_ok = within_tol, within_tol(got[1], want[1])
+    elif pt.transform is None:
         same, logp_ok = (lambda a, b: a == b), (got[1] == want[1])
     else:
         t, _, c = want[0].shape
@@ -2425,7 +2486,8 @@ def phase_pt_kernel(pt, seed: int, std: float = 1.0,
     equal = {
         "positions": same(got[0], want[0]).all(1).all(0),
         "logp": logp_ok.all(0),
-        "swap_accept": (got[2] == want[2]).all(0),
+        "swap_accept": (got[2] == want[2]).all(0) if exact
+        else within_tol(got[2], want[2]).all(0),
         "history": same(hk, hp).all(2).all(0),
     }
     shares = {k: float(v.float().mean()) for k, v in equal.items()}
@@ -4728,6 +4790,725 @@ def user_records(record, b: dict, uk: dict, es8m: dict,
     return main, off
 
 
+# --------------------------------------------------------------------------
+# User forms inside Kernels 5-8 (38)
+
+
+#: the logistic coordinates of [sep_user]: scale s_d = logspace(-0.5, 0.5,
+#: D), eps 0.15 (acceptance ~0.76 at L = 10 on the CPU twin: 0.1 gives
+#: 0.89, 0.2 0.70, 0.25 0.54)
+LOGISTIC_EPS = 0.15
+LOGISTIC_VAR = math.pi ** 2 / 3.0
+#: the D of [pt_user]'s check of Kernel 8's user instance past D = 2
+PT_USER_DIM = 5
+#: the Ds of [mh_user]'s checks of Kernel 5's user instance past D = 3
+#: (mh_multistep.cuh, kLean)
+MH_USER_DIMS = (5, 16)
+#: the scaled walk of [mh_user_proposal]
+SCALED_WALK = (0.8, 1.25)
+
+
+def logistic_scales(dev) -> torch.Tensor:
+    return torch.logspace(-0.5, 0.5, SEP_DIM, dtype=torch.float32,
+                          device=dev)
+
+
+def user_gaussian(dev, dim: int) -> "mt.models.Target":
+    """A Gaussian at D = ``dim`` with standard deviations 0.5..2.5 (a
+    closure constant the generated C++ reads with __ldg), a plain batch
+    form."""
+    s = torch.linspace(0.5, 2.5, dim, device=dev)
+    return mt.models.Target(
+        logp=lambda x: -0.5 * torch.sum((x / s.to(x.device)) ** 2, dim=-1))
+
+
+def logistic_wrapped(dev) -> dict:
+    """The hand logistic under a diagonal metric (Scaled<UserCoord>) and
+    under ``interval(-24, 24)`` on every coordinate (TransformedCoord)."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    t = F.logistic(logistic_scales(dev))
+    metric = mt.models.Preconditioner(
+        "diag", scale=logistic_scales(dev).flip(0).contiguous())
+    tf = mt.CoordinateTransform({i: mt.interval(-24.0, 24.0)
+                                 for i in range(SEP_DIM)}, dim=SEP_DIM)
+    return {"scaled": mt.models.precondition_target(t, metric),
+            "transformed": tf.wrap(t)}
+
+
+def k5678_user_requests(dev) -> list:
+    """The per-form libraries of the user stages of Kernels 5-8 (38), as
+    ``user_density.Spec``: the value-only libraries of each user density
+    (MH's isotropic walk, tempering and the value probe) and of the
+    built-in Gaussian2D beside each user proposal, the Gibbs library of the
+    user mixture conditional, and Kernel 7's libraries of each coordinate
+    functor (traced standard normal, hand and derived logistic; the hand
+    logistic scaled and transformed). Traced forms are traced on the card."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    g2 = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    reqs = [user_density.value_spec(t, None, d, dev)[0] for t, d in (
+        (F.gaussian2d_user([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]], False), 2),
+        (F.gaussian2d_user([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]]), 2),
+        (F.rosenbrock_banana(), 2), (F.bimodal(PT_W_PLUS), 1),
+        (F.bimodal(PT_W_PLUS, hand=True), 1),
+        *((user_gaussian(dev, d), d)
+          for d in sorted({PT_USER_DIM, *MH_USER_DIMS})))]
+    reqs += [user_density.value_spec(g2, p, 2, dev)[0] for p in (
+        F.isotropic_walk(1.0), F.scaled_walk(SCALED_WALK))]
+    reqs.append(user_density.gibbs_spec(F.mixture_conditional(*MIX), 2))
+    wrapped = logistic_wrapped(dev)
+    for t, flags in ((mt.models.Target(logp=mt.standard_normal().logp), 0),
+                     (F.logistic(logistic_scales(dev)), 0),
+                     (F.logistic(logistic_scales(dev), hand=False), 0),
+                     (wrapped["scaled"], 1), (wrapped["transformed"], 2)):
+        reqs.append(user_density.sep_spec(t, flags, SEP_DIM, dev)[0])
+    return reqs
+
+
+def phase_k5678_user_build(reqs) -> dict:
+    """``[user_build]`` for the libraries of Kernels 5-8's user forms:
+    nvcc seconds (from the start of phase_build's one batch to each
+    link) and each instance's registers, stack frame and spills; none
+    may spill."""
+    out = {}
+    for spec in reqs:
+        so = user_density.library_path(*spec)
+        log = so.with_suffix(".log").read_text()
+        head = log.splitlines()[0]
+        seconds = float(head.split()[-1]) if head.startswith(
+            "build seconds") else float("nan")
+        _, reported = ptxas_report(log)
+        label = f"{spec.kind}:{spec.types}:D={spec.dim}:flags={spec.flags}"
+        say("user_build", form=repr(label), lib=so.name,
+            nvcc_seconds=seconds, instances=len(reported))
+        for kernel, info in reported.items():
+            say("user_ptxas_instance", lib=so.name, kernel=kernel[:72],
+                **info)
+            check(f"user instance {kernel[:40]} spills nothing",
+                  info.get("spill_stores", 0) == 0, info)
+        out[so.name] = dict(nvcc_seconds=seconds, ptxas=reported)
+    return out
+
+
+def mh_gates(label: str, sample, elapsed: float) -> dict:
+    """bench.py:416-421's four gates on an MH stage's time-major cube
+    (R-hat, the means, the variances, the ESS floor) and its rates."""
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    mean = sample.mean(dim=(0, 1))
+    var = sample.var(dim=(0, 1), unbiased=False)
+    total = sample.shape[0] * sample.shape[1]
+    m = {"elapsed_s": elapsed, "rhat_mean": float(rhat.mean()),
+         "ess_mean": float(ess.mean()), "mean": [float(v) for v in mean],
+         "var": [float(v) for v in var],
+         "accept_rate": float((sample[1:] != sample[:-1]).any(dim=2)
+                              .float().mean())}
+    check(f"{label} rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    for d in range(sample.shape[2]):
+        check(f"{label} mean[{d}]", abs(m["mean"][d]) <= 0.03, m["mean"])
+        check(f"{label} var[{d}]", abs(m["var"][d] - 1.0) <= 0.05, m["var"])
+    check(f"{label} ess floor", m["ess_mean"] >= 0.02 * total,
+          (m["ess_mean"], total))
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = total / elapsed
+    return m
+
+
+def counted_run(label: str, sampler, run_args: tuple, want: dict,
+                time_major: bool = True):
+    """A warm-up run of ``sampler`` (its library built at construction),
+    then one timed run, its counts held to ``counts_with(**want)``:
+    ``(sample, seconds, counts)``."""
+    warm = sampler.run(*run_args, time_major=time_major)
+    torch.cuda.synchronize()
+    del warm
+    reset_counts()
+    t0 = time.perf_counter()
+    sample = sampler.run(*run_args, time_major=time_major)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    check(f"{label} launches, user instance and no twin",
+          counts == counts_with(**want), counts)
+    return sample, elapsed, counts
+
+
+def chain_decisions_agree(a, b) -> torch.Tensor:
+    """Per chain of two time-major cubes: every step's accept decision (a
+    row that moved) the same."""
+    return ((a[1:] != a[:-1]).any(dim=2) == (b[1:] != b[:-1]).any(dim=2)
+            ).all(dim=0)
+
+
+def kernel_times(fn, plain_fn, name: str) -> dict:
+    """A launch's ms by CUDA events, its device ms alone (profiler) and its
+    twin's ms."""
+    return {"ms": cuda_ms(fn, 20), "device_ms": device_ms_per_launch(
+        fn, name), "plain_ms": cuda_ms(plain_fn, 2)}
+
+
+def mh_block_args(mh, k_steps: int, seed: int):
+    s = mh.state
+    hk = torch.empty((k_steps,) + tuple(s.positions.shape),
+                     dtype=s.positions.dtype, device=s.positions.device)
+    return (mh.kernel_target, mh.proposal, s.positions, s.logp, seed, 0,
+            k_steps), hk
+
+
+def phase_mh_user(dev):
+    """``[mh_user]``: the MH stage of bench.py:391-431 (Gaussian2D, 65,536
+    chains, 2,048 draws, K = 16) with its density as a user Target, traced
+    from the batch form and as the hand ``cuda_source`` that copies
+    targets.cuh:Gaussian2D, beside the built-in functor from the same seed
+    and start: a warm-up run and one timed run each (counted_run), Kernel
+    5's 128 launches a run (the user instance's), bench.py's four gates on each, the hand cube equal
+    to the built-in's bit for bit and the traced form's per-chain accept
+    decisions the built-in's on MH_SHARE of the chains. Then
+    examples/rosenbrock_mh.py's density (proposal std 0.5) through the
+    traced route at the same shape: a counted run and one K-block against
+    its twin (phase_mh_kernel). Then the instance past D = 3 (kLean) at D
+    in MH_USER_DIMS on user_gaussian: one K-block against its twin. Each
+    user instance's times and the launches its counted run read. Returns
+    the measures by form and the built-in cube."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    mean, cov = [0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]]
+    init = mt.init_with_seed(MH_CHAINS, 2, seed=8, device=dev)
+    per_run = MH_COLLECT // MH_K
+    walk = mt.isotropic_gaussian_proposal(1.0)
+    cubes, out = {}, {}
+    for form, target in (("builtin", mt.gaussian2d(mean, cov)),
+                         ("hand", F.gaussian2d_user(mean, cov)),
+                         ("traced", F.gaussian2d_user(mean, cov, False))):
+        mh = mt.MetropolisHastings(target, walk, init, use_pallas="full",
+                                   steps_per_call=MH_K).seed(8)
+        user = per_run if form != "builtin" else 0
+        sample, elapsed, counts = counted_run(
+            f"mh_user {form}", mh, (MH_COLLECT, 0),
+            dict(mh_multistep=per_run, mh_multistep_user=user))
+        m = mh_gates(f"mh_user {form}", sample, elapsed)
+        m["launches"] = counts["mh_multistep_user"]
+        if form != "builtin":
+            args, hk = mh_block_args(mh, MH_K, 0x5EED_0A0A)
+            m.update(kernel_times(lambda: mh_multistep(*args, hk),
+                                  lambda: mh_multistep_plain(*args, hk),
+                                  "mh_multistep_kernel"))
+            m["err"] = phase_mh_kernel(mh, f"user_{form}", MH_K,
+                                       0x5EED_0B0B)["err"]
+        cubes[form] = sample
+        out[form] = m
+        del mh
+    out["hand"]["cube_equal_builtin"] = bool(torch.equal(cubes["hand"],
+                                                         cubes["builtin"]))
+    agree = chain_decisions_agree(cubes["traced"], cubes["builtin"])
+    out["traced"]["share_chains_decisions_builtin"] = float(
+        agree.float().mean())
+    out["traced"]["share_chains_cube_builtin"] = float(
+        (cubes["traced"] == cubes["builtin"]).all(dim=2).all(dim=0)
+        .float().mean())
+    check("mh_user hand cube equals the built-in's bit for bit",
+          out["hand"]["cube_equal_builtin"], "differs")
+    check("mh_user traced decisions agree with the built-in's",
+          out["traced"]["share_chains_decisions_builtin"] >= MH_SHARE,
+          out["traced"]["share_chains_decisions_builtin"])
+    builtin_cube = cubes.pop("builtin")
+    del cubes
+    # examples/rosenbrock_mh.py's density through the traced route
+    rb = mt.MetropolisHastings(F.rosenbrock_banana(),
+                               mt.isotropic_gaussian_proposal(0.5), init,
+                               use_pallas="full", steps_per_call=MH_K).seed(0)
+    sample, elapsed, counts = counted_run(
+        "mh_user rosenbrock", rb, (MH_COLLECT, 0),
+        dict(mh_multistep=per_run, mh_multistep_user=per_run))
+    m = {"elapsed_s": elapsed, "launches": counts["mh_multistep_user"],
+         "finite": bool(torch.isfinite(sample).all()),
+         "x_mean": float(sample[..., 0].mean()),
+         "y_mean": float(sample[..., 1].mean())}
+    check("mh_user rosenbrock finite", m["finite"], "non-finite")
+    del sample
+    m["err"] = phase_mh_kernel(rb, "user_rosenbrock", MH_K,
+                               0x5EED_0C0C)["err"]
+    args, hk = mh_block_args(rb, MH_K, 0x5EED_0A0A)
+    m.update(kernel_times(lambda: mh_multistep(*args, hk),
+                          lambda: mh_multistep_plain(*args, hk),
+                          "mh_multistep_kernel"))
+    out["rosenbrock"] = m
+    del rb
+    # Kernel 5's user instance past D = 3 (kLean: the accept's logf before
+    # the proposal) against its twin for one K-block
+    for dim in MH_USER_DIMS:
+        mh = mt.MetropolisHastings(
+            user_gaussian(dev, dim),
+            mt.isotropic_gaussian_proposal(2.0 / math.sqrt(dim)),
+            mt.init_with_seed(MH_CHAINS, dim, seed=9, device=dev),
+            use_pallas="full", steps_per_call=MH_K).seed(9)
+        out[f"d{dim}"] = phase_mh_kernel(mh, f"user_d{dim}", MH_K,
+                                         0x5EED_0E0E + dim)
+        del mh
+    for form, m in out.items():
+        say("mh_user", form=form, chains=MH_CHAINS, K=MH_K,
+            **{k: repr(v) for k, v in m.items()})
+    return out, builtin_cube
+
+
+def phase_mh_user_proposal(builtin_cube, dev) -> dict:
+    """``[mh_user_proposal]``: the MH stage with
+    ``isotropic_gaussian_proposal``'s walk as a user proposal source
+    (examples/user_forms.py:isotropic_walk) on the built-in Gaussian2D from
+    [mh_user]'s seed and start: one counted run, its cube equal to the
+    built-in proposal's bit for bit; then the per-coordinate-scale walk
+    (scales 0.8, 1.25): a counted run, bench.py's gates, one K-block
+    against its twin. Each instance's times."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    target = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    init = mt.init_with_seed(MH_CHAINS, 2, seed=8, device=dev)
+    per_run = MH_COLLECT // MH_K
+    out = {}
+    for form, walk in (("isotropic", F.isotropic_walk(1.0)),
+                       ("scaled", F.scaled_walk(SCALED_WALK))):
+        mh = mt.MetropolisHastings(target, walk, init, use_pallas="full",
+                                   steps_per_call=MH_K).seed(8)
+        sample, elapsed, counts = counted_run(
+            f"mh_user_proposal {form}", mh, (MH_COLLECT, 0),
+            dict(mh_multistep=per_run, mh_multistep_user=per_run))
+        m = mh_gates(f"mh_user_proposal {form}", sample, elapsed)
+        m["launches"] = counts["mh_multistep_user"]
+        if form == "isotropic":
+            m["cube_equal_builtin"] = bool(torch.equal(sample, builtin_cube))
+            check("mh_user_proposal isotropic cube equals the built-in's",
+                  m["cube_equal_builtin"], "differs")
+        del sample
+        m["err"] = phase_mh_kernel(mh, f"user_proposal_{form}", MH_K,
+                                   0x5EED_0D0D)["err"]
+        args, hk = mh_block_args(mh, MH_K, 0x5EED_0A0A)
+        m.update(kernel_times(lambda: mh_multistep(*args, hk),
+                              lambda: mh_multistep_plain(*args, hk),
+                              "mh_multistep_kernel"))
+        say("mh_user_proposal", form=form, chains=MH_CHAINS, K=MH_K,
+            **{k: repr(v) for k, v in m.items()})
+        out[form] = m
+    return out
+
+
+def pt_gates(label: str, pt, sample, elapsed: float) -> dict:
+    """bench.py:890-898's four gates on a tempering stage's cold cube."""
+    xs = sample.reshape(-1)
+    plus = xs[xs > 0].double()
+    swap = pt.swap_acceptance
+    m = {"elapsed_s": elapsed, "mode_weight": float((xs > 0).float().mean()),
+         "plus_mean": float(plus.mean()),
+         "plus_std": float(plus.std(unbiased=False)),
+         "swap_acceptance": [float(v) for v in swap],
+         "cold_draws_per_sec": sample.shape[0] * sample.shape[1] / elapsed}
+    check(f"{label} mode weight", abs(m["mode_weight"] - PT_W_PLUS) <= 0.05,
+          m["mode_weight"])
+    check(f"{label} mode mean", abs(m["plus_mean"] - 8.0) <= 0.05,
+          m["plus_mean"])
+    check(f"{label} mode std", abs(m["plus_std"] - 0.5) <= 0.05,
+          m["plus_std"])
+    check(f"{label} swap rates alive", bool((swap > 0.05).all()),
+          m["swap_acceptance"])
+    return m
+
+
+def pt_user_kernel(target, dim: int, dev, seed: int, label: str) -> dict:
+    """Kernel 8's user instance against its twin for one K-block at D =
+    ``dim`` (PT_CHAINS chains, PT_TEMPS rungs of geometric_betas(8,
+    0.01), scale 1) from a state drawn from N(0, 1): positions, logp,
+    swap EWMA and history rows within MH_RTOL/MH_ATOL (the density's
+    C++ against its batch form) on MH_SHARE of the chains, and the
+    instance's times."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    betas = mt.geometric_betas(PT_TEMPS, 0.01)
+    t, c = PT_TEMPS, PT_CHAINS
+    pos = torch.randn((t, dim, c), generator=gen, device=dev)
+    logp = target.batch_logp(pos.permute(0, 2, 1).reshape(t * c, dim))
+    logp = logp.reshape(t, c).contiguous()
+    sa = torch.zeros((t - 1, c), device=dev)
+    lad = make_ladder(betas, 1.0, dim, dev)
+    hk = torch.empty((PT_K, c, dim), device=dev)
+    hp = torch.empty_like(hk)
+    args = (target, pos, logp, sa, 0, lad, seed, 0, PT_K, 1)
+    got = pt_multistep(*args, hk)
+    want = pt_multistep_plain(*args, hp)
+    torch.cuda.synchronize()
+    ok = {"positions": within_tol(got[0], want[0]).all(1).all(0),
+          "logp": within_tol(got[1], want[1]).all(0),
+          "swap_accept": within_tol(got[2], want[2]).all(0),
+          "history": within_tol(hk, hp).all(2).all(0)}
+    shares = {k: float(v.float().mean()) for k, v in ok.items()}
+    err = max(max_abs_err(hk.transpose(0, 1), hp.transpose(0, 1)),
+              max_abs_err(got[0], want[0]))
+    m = {"err": err, **{f"share_{k}": v for k, v in shares.items()},
+         "accept_rate": float((hk[1:] != hk[:-1]).float().mean())}
+    for k, v in shares.items():
+        check(f"{label} {k}", v >= MH_SHARE, shares)
+    m.update(kernel_times(lambda: pt_multistep(*args, hk),
+                          lambda: pt_multistep_plain(*args, hp),
+                          "pt_multistep_kernel"))
+    say(label, D=dim, K=PT_K, T=t, chains=c,
+        **{k: repr(v) for k, v in m.items()})
+    return m
+
+
+def phase_pt_user(dev) -> dict:
+    """``[pt_user]``: the tempering stage of bench.py:858-905 (8,192
+    chains x 8 rungs of geometric_betas(8, 0.01), proposal std 1, K = 16,
+    run(2048) from -8) with bench's own density as a user Target, traced
+    through ``logaddexp`` and as a hand ``cuda_source``
+    (examples/user_forms.py:bimodal): a warm-up run and one timed run
+    each, Kernel 8's 128 launches a run (the user instance's), the four
+    gates of bench.py:890-898; each instance against its twin for one
+    K-block (phase_pt_kernel: equal per chain) and its times. Then Kernel
+    8's user instance at D = 5 against its twin (pt_user_kernel: the
+    normals past D = 2 from draws p T + t)."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    per_run = PT_COLLECT // PT_K
+    out = {}
+    for form, hand in (("traced", False), ("hand", True)):
+        pt = mt.ParallelTempering(
+            F.bimodal(PT_W_PLUS, hand=hand),
+            torch.full((PT_CHAINS, 1), -8.0, device=dev),
+            betas=mt.geometric_betas(PT_TEMPS, 0.01), proposal_std=1.0,
+            steps_per_call=PT_K, use_pallas="full").seed(5)
+        sample, elapsed, counts = counted_run(
+            f"pt_user {form}", pt, (PT_COLLECT, 0),
+            dict(pt_multistep=per_run, pt_multistep_user=per_run))
+        m = pt_gates(f"pt_user {form}", pt, sample, elapsed)
+        m["launches"] = counts["pt_multistep_user"]
+        del sample
+        k = phase_pt_kernel(pt, 0x5EED_8989, label=f"pt_kernel_user_{form}",
+                            exact=False)
+        m.update(err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"],
+                 device_ms=k["device_ms"])
+        say("pt_user", form=form, chains=PT_CHAINS, T=PT_TEMPS, K=PT_K,
+            **{k: repr(v) for k, v in m.items()})
+        out[form] = m
+    out["d5"] = pt_user_kernel(user_gaussian(dev, PT_USER_DIM),
+                               PT_USER_DIM, dev, 0x5EED_8A8A, "pt_user_d5")
+    return out
+
+
+def phase_gibbs_user(dev) -> dict:
+    """``[gibbs_user]``: the Gibbs stage of bench.py:434-478 (mixture,
+    65,536 chains, 8,192 + 8,192 sweeps, K = 32) with the mixture
+    conditional as a user ``cuda_source`` and ``sample_words``
+    (examples/user_forms.py:mixture_conditional) beside the built-in
+    conditional from the same seed: the warm-up run, then one timed run
+    each, Kernel 6's 256 launches a run (the user instance's), the four
+    gates of bench.py:464-467 on the user cube, which must equal the
+    built-in's bit for bit; the user instance against its twin for one
+    K-block (phase_gibbs_kernel) and its times."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    mu0, sigma0, mu1, sigma1, pi0 = MIX
+    per_run = GIBBS_COLLECT // GIBBS_K
+    cubes, samplers = {}, {}
+    for form, cond in (("builtin", mt.gaussian_mixture_conditional(*MIX)),
+                       ("user", F.mixture_conditional(*MIX))):
+        g = mt.GibbsSampler(cond, torch.zeros((MH_CHAINS, 2), device=dev),
+                            use_pallas="full", steps_per_call=GIBBS_K).seed(42)
+        user = per_run if form == "user" else 0
+        cubes[form], elapsed, counts = counted_run(
+            f"gibbs_user {form}", g, (GIBBS_COLLECT, 0),
+            dict(gibbs_multistep=per_run, gibbs_multistep_user=user))
+        samplers[form] = (g, elapsed, counts["gibbs_multistep_user"])
+    g, elapsed, launches = samplers["user"]
+    sample = cubes["user"]
+    equal = bool(torch.equal(sample, cubes["builtin"]))
+    del cubes["builtin"]
+    x = sample[:, :, 0]
+    true_mean = pi0 * mu0 + (1 - pi0) * mu1
+    true_var = (pi0 * (sigma0**2 + (mu0 - true_mean) ** 2)
+                + (1 - pi0) * (sigma1**2 + (mu1 - true_mean) ** 2))
+    rhat, _ = mt.split_rhat_mean_ess(sample, time_major=True)
+    m = {"elapsed_s": elapsed, "x_mean": float(x.mean()),
+         "x_var": float(x.var(unbiased=False)),
+         "z_freq": float(sample[:, :, 1].mean()),
+         "rhat_mean": float(rhat.mean()), "cube_equal_builtin": equal,
+         "launches": launches,
+         "draws_per_sec": MH_CHAINS * GIBBS_COLLECT / elapsed}
+    del sample, x, cubes
+    check("gibbs_user x mean", abs(m["x_mean"] - true_mean) <= 0.05,
+          m["x_mean"])
+    check("gibbs_user x var", abs(m["x_var"] - true_var) <= 0.25, m["x_var"])
+    check("gibbs_user z freq", abs(m["z_freq"] - (1 - pi0)) <= 0.02,
+          m["z_freq"])
+    check("gibbs_user rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    check("gibbs_user cube equals the built-in's bit for bit", equal,
+          "differs")
+    k = phase_gibbs_kernel(g, 0x5EED_3333)
+    m["err"] = k["err"]
+    pos = g.state.positions
+    hk = torch.empty((GIBBS_K,) + tuple(pos.shape), device=dev)
+    args = (g.conditional, pos, 0x5EED_3434, 0, GIBBS_K)
+    m.update(kernel_times(lambda: gibbs_multistep(*args, hk),
+                          lambda: gibbs_multistep_plain(*args, hk),
+                          "gibbs_multistep_kernel"))
+    say("gibbs_user", chains=MH_CHAINS, K=GIBBS_K,
+        **{k: repr(v) for k, v in m.items()})
+    return m
+
+
+def sep_run_gates(label: str, sample, elapsed: float, var_want: float,
+                  scales=None) -> dict:
+    """bench.py:635-640's gates on a separable stage's time-major cube
+    (on z = x / s for ``scales``): the mean within 0.02 sd, the variance
+    within 5%, R-hat and the ESS floor on its first SEP_DIAG_DIM
+    coordinates."""
+    z = sample if scales is None else sample.div_(scales)
+    var, mean = torch.var_mean(z, correction=0)
+    rhat, ess = mt.split_rhat_mean_ess(z[:, :, :SEP_DIAG_DIM].contiguous(),
+                                       time_major=True)
+    steps = 2 * sample.shape[0]
+    m = {"elapsed_s": elapsed, "mean": float(mean), "var": float(var),
+         "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
+         "accept_rate": float((z[1:, :, 0] != z[:-1, :, 0]).float().mean()),
+         "step_us": elapsed / steps * 1e6,
+         "coordinate_updates_per_sec":
+             steps * sample.shape[1] * sample.shape[2] / elapsed}
+    sd = math.sqrt(var_want)
+    check(f"{label} mean", abs(m["mean"]) < 0.02 * sd, m["mean"])
+    check(f"{label} var", abs(m["var"] / var_want - 1.0) < 0.05, m["var"])
+    check(f"{label} rhat", 0.95 <= m["rhat_mean"] <= 1.05, m["rhat_mean"])
+    check(f"{label} ess floor",
+          m["ess_mean"] >= 0.02 * sample.shape[1] * sample.shape[0],
+          m["ess_mean"])
+    return m
+
+
+def sep_user_times(target, pos, logp, eps_value: float) -> dict:
+    """A user instance's fused step at L = 10: ms by CUDA events, device
+    ms alone, its twin's ms."""
+    tables = sep_tables(target, pos)
+    eps = torch.tensor([eps_value], device=pos.device)
+    args = (target, pos, logp, eps, SEP_L, 0x5EED_7E7E, 3, tables)
+    return kernel_times(lambda: hmc_separable_step(*args),
+                        lambda: hmc_separable_step_plain(*args),
+                        "hmc_separable_kernel")
+
+
+def phase_sep_user(dev) -> dict:
+    """``[sep_user]``: the separable stage of bench.py:553-660 (D =
+    10,000, 1,024 chains, eps 0.1, L = 10, run(128, 128)) with
+    ``standard_normal``'s density as a plain user Target (the coordinate
+    functor generated from its batch form at D = 1) beside the built-in
+    functor from the same seed and start: one counted run each (256
+    fused launches, the user instance's), the four gates of
+    bench.py:635-640 on the user cube, and the per-chain accept decisions
+    of the two cubes the same on MH_SHARE of the chains. Then the logistic
+    with scales s_d = logspace(-0.5, 0.5, D) (examples/user_forms.py:
+    logistic) through the hand ``cuda_coord_source`` (its own grad) and
+    the derived route (the tile form traced, Dual<1>): a counted
+    run(128, 128) at eps 0.15 each, the gates on z = x / s (variance
+    pi^2 / 3) and an acceptance in [0.6, 0.95]; each functor's fused step
+    against its float32 and float64 twins (sep_step_check) and its
+    trajectory (sep_kernel_check); then one step each of the hand
+    logistic's Scaled (a diagonal metric) and TransformedCoord
+    (interval(-24, 24)) instances against their twins, and every user
+    instance's times."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    steps = 2 * SEP_COLLECT
+    init = mt.init_with_seed(SEP_CHAINS, SEP_DIM, seed=2, device=dev)
+    out, cubes = {}, {}
+    for form, target in (("builtin", mt.standard_normal()),
+                         ("traced", mt.models.Target(
+                             logp=mt.standard_normal().logp))):
+        h = mt.HMC(target, init, SEP_EPS, SEP_L,
+                   use_pallas="separable").seed(2)
+        user = steps if form == "traced" else 0
+        sample, elapsed, counts = counted_run(
+            f"sep_user {form}", h, (SEP_COLLECT, SEP_COLLECT),
+            dict(hmc_separable_step=steps, hmc_separable_step_user=user))
+        if form == "traced":
+            m = sep_run_gates("sep_user traced", sample, elapsed, 1.0)
+            m["launches"] = counts["hmc_separable_step_user"]
+            err, _ = sep_step_check(h.kernel_target, h.state.positions,
+                                    h.state.logp, SEP_EPS,
+                                    "sep_user_traced_step")
+            m["err"] = err
+            m.update(sep_user_times(h.kernel_target, h.state.positions,
+                                    h.state.logp, SEP_EPS))
+            out["traced"] = m
+        cubes[form] = sample
+        del h
+    agree = chain_decisions_agree(cubes["traced"][:, :, :1],
+                                  cubes["builtin"][:, :, :1])
+    out["traced"]["share_chains_decisions_builtin"] = float(
+        agree.float().mean())
+    del cubes
+    torch.cuda.empty_cache()
+    check("sep_user traced decisions agree with the built-in's",
+          out["traced"]["share_chains_decisions_builtin"] >= MH_SHARE,
+          out["traced"]["share_chains_decisions_builtin"])
+    scales = logistic_scales(dev)
+    for form, hand in (("logistic_hand", True), ("logistic_derived", False)):
+        h = mt.HMC(F.logistic(scales, hand=hand), init, LOGISTIC_EPS, SEP_L,
+                   use_pallas="separable").seed(4)
+        sample, elapsed, counts = counted_run(
+            f"sep_user {form}", h, (SEP_COLLECT, SEP_COLLECT),
+            dict(hmc_separable_step=steps, hmc_separable_step_user=steps))
+        m = sep_run_gates(f"sep_user {form}", sample, elapsed, LOGISTIC_VAR,
+                          scales)
+        m["launches"] = counts["hmc_separable_step_user"]
+        del sample
+        torch.cuda.empty_cache()
+        check(f"sep_user {form} acceptance in [0.6, 0.95]",
+              0.6 <= m["accept_rate"] <= 0.95, m["accept_rate"])
+        kt, pos, logp = h.kernel_target, h.state.positions, h.state.logp
+        sep_kernel_check(kt, pos, LOGISTIC_EPS, f"sep_user_{form}_kernel")
+        m["err"], _ = sep_step_check(kt, pos, logp, LOGISTIC_EPS,
+                                     f"sep_user_{form}_step")
+        m.update(sep_user_times(kt, pos, logp, LOGISTIC_EPS))
+        out[form] = m
+        if hand:
+            eq_pos = pos  # the hand logistic's equilibrium, in x
+        del h
+    for kind, wt in logistic_wrapped(dev).items():
+        if kind == "scaled":  # y = x / s, the metric's scale
+            pos = eq_pos / logistic_scales(dev).flip(0)
+        else:
+            pos = mt.CoordinateTransform(
+                {i: mt.interval(-24.0, 24.0) for i in range(SEP_DIM)},
+                dim=SEP_DIM).to_y(eq_pos.clamp(-23.0, 23.0))
+        pos = pos.contiguous()
+        logp = wt.batch_logp(pos).float()
+        reset_counts()
+        err, _ = sep_step_check(wt, pos, logp, LOGISTIC_EPS,
+                                f"sep_user_logistic_{kind}_step")
+        counts = read_counts()
+        check(f"sep_user logistic {kind} runs its user instance",
+              counts["hmc_separable_step_user"] > 0
+              and counts[f"hmc_separable_step_{kind}"] > 0, counts)
+        m = {"err": err, **sep_user_times(wt, pos, logp, LOGISTIC_EPS)}
+        out[f"logistic_{kind}"] = m
+    del eq_pos
+    for form, m in out.items():
+        say("sep_user", form=form, chains=SEP_CHAINS, D=SEP_DIM, L=SEP_L,
+            **{k: repr(v) for k, v in m.items()})
+    return out
+
+
+def k5678_user_bounds() -> dict:
+    """bound_ms and bound_by of each user instance of Kernels 5-8 at the
+    shapes of its timing, by record name: the work of the function
+    whatever the form (a hand source's operations, the least the function
+    needs), as bounds() reckons the built-in instances'."""
+    out = {}
+    c = MH_CHAINS
+    mh_bytes = 2 * c * (4 * 2 + 4) + MH_K * c * 4 * 2
+    gauss = c * MH_K * (rng_ops(2, 1) + 2 * OPS["isotropic_propose"]
+                        + OPS["gauss2d_logp"] + OPS["mh_step"])
+    for name in ("mh_multistep_user_hand", "mh_multistep_user_traced",
+                 "mh_multistep_user_proposal_isotropic",
+                 "mh_multistep_user_proposal_scaled"):
+        out[name] = bound(mh_bytes, gauss)
+    out["mh_multistep_user_rosenbrock"] = bound(
+        mh_bytes, c * MH_K * (rng_ops(2, 1) + 2 * OPS["isotropic_propose"]
+                              + OPS["banana_logp"] + OPS["mh_step"]))
+    # the Gaussians of standard deviations 0.5..2.5 at D = 5 and 16: D
+    # reciprocals a chain once, then 2 D + 1 operations an evaluation
+    for dim in MH_USER_DIMS:
+        out[f"mh_multistep_user_d{dim}"] = bound(
+            2 * c * (4 * dim + 4) + MH_K * c * 4 * dim,
+            c * (dim * OPS["rcp"] + MH_K * (
+                rng_ops(dim, 1) + dim * OPS["isotropic_propose"]
+                + dim * OPS["gauss_coord_logp"] + 1 + OPS["mh_step"])))
+    # Kernel 8 on bench's bimodal density at D = 1 (a mixture's work) and
+    # the D = 5 Gaussian: T D normals and T + active pairs uniforms a step
+    c, t = PT_CHAINS, PT_TEMPS
+
+    def pt_bound(dim, logp_ops, once=0):
+        ops = once
+        for k in range(PT_K):
+            active = len(range(k % 2, t - 1, 2))
+            ops += (rng_ops(t * dim, t + active)
+                    + t * (logp_ops + OPS["pt_update"]
+                           + 2 * (dim - 1))
+                    + active * OPS["pt_swap"])
+        return bound(2 * 4 * c * (t * dim + t + t - 1) + PT_K * c * 4 * dim,
+                     c * ops)
+
+    out["pt_multistep_user_traced"] = pt_bound(1, OPS["mixture1d_logp"])
+    out["pt_multistep_user_hand"] = out["pt_multistep_user_traced"]
+    out["pt_multistep_user_d5"] = pt_bound(
+        PT_USER_DIM, PT_USER_DIM * OPS["gauss_coord_logp"] + 1,
+        PT_USER_DIM * OPS["rcp"])
+    c = MH_CHAINS
+    out["gibbs_multistep_user"] = bound(
+        2 * c * 4 * 2 + GIBBS_K * c * 4 * 2,
+        c * GIBBS_K * (rng_ops(1, 1) + OPS["mixture_sweep"]))
+    c, d = SEP_CHAINS, SEP_DIM
+
+    def sep_bound(leapfrog_ops, coord_ops, n_tables):
+        return bound(4 * (2 * c * d + 3 * c + 1 + n_tables * d),
+                     c * (d * (SEP_L * leapfrog_ops + coord_ops)
+                          + rng_ops(d, 0) + rng_ops(0, 1)
+                          + OPS["sep_accept"]))
+
+    out["hmc_separable_user_traced"] = sep_bound(
+        OPS["sep_leapfrog"], OPS["sep_coord"], 0)
+    logistic = (OPS["sep_leapfrog"] + OPS["logistic_grad"],
+                OPS["sep_coord"] + OPS["logistic_coef"]
+                + OPS["logistic_logp"])
+    out["hmc_separable_user_logistic_hand"] = sep_bound(*logistic, 1)
+    out["hmc_separable_user_logistic_derived"] = out[
+        "hmc_separable_user_logistic_hand"]
+    # a diagonal metric's scale m folds into the coordinate's constant:
+    # F(m y) has r m in place of r, one product a coordinate
+    out["hmc_separable_user_logistic_scaled"] = sep_bound(
+        logistic[0], logistic[1] + 1, 2)
+    out["hmc_separable_user_logistic_transformed"] = sep_bound(
+        logistic[0] + OPS["bij_grad_interval"],
+        logistic[1] + OPS["bij_logp_interval"], 4)
+    return out
+
+
+def k5678_user_records(record, mhu: dict, mhp: dict, ptu: dict, gu: dict,
+                       su: dict) -> tuple[list, list]:
+    """The kernels line's records of the user instances of Kernels 5-8:
+    those that ran on the user stages' counted runs (their launches a
+    run, as their counted runs read them), and off those runs the kernel
+    checks alone (Kernel 5 at D = 5 and 16, Kernel 8 at D = 5, Kernel 7's
+    scaled and transformed logistic), launches 0. Returns (main-path
+    records, off-path records)."""
+    k5 = ("mh_multistep.cuh", "mh_full.py:50")
+    k6 = ("gibbs_multistep.cuh", "gibbs_full.py:47")
+    k7 = ("hmc_separable.cuh", "hmc_bigd.py:177")
+    k8 = ("pt_multistep.cuh", "tempering_full.py:61")
+    rows = [
+        (k5, "mh_multistep_user_hand", mhu["hand"]),
+        (k5, "mh_multistep_user_traced", mhu["traced"]),
+        (k5, "mh_multistep_user_rosenbrock", mhu["rosenbrock"]),
+        (k5, "mh_multistep_user_proposal_isotropic", mhp["isotropic"]),
+        (k5, "mh_multistep_user_proposal_scaled", mhp["scaled"]),
+        (k8, "pt_multistep_user_traced", ptu["traced"]),
+        (k8, "pt_multistep_user_hand", ptu["hand"]),
+        (k6, "gibbs_multistep_user", gu),
+        (k7, "hmc_separable_user_traced", su["traced"]),
+        (k7, "hmc_separable_user_logistic_hand", su["logistic_hand"]),
+        (k7, "hmc_separable_user_logistic_derived", su["logistic_derived"]),
+    ]
+    off_rows = [
+        *((k5, f"mh_multistep_user_d{d}", mhu[f"d{d}"])
+          for d in MH_USER_DIMS),
+        (k8, "pt_multistep_user_d5", ptu["d5"]),
+        (k7, "hmc_separable_user_logistic_scaled", su["logistic_scaled"]),
+        (k7, "hmc_separable_user_logistic_transformed",
+         su["logistic_transformed"]),
+    ]
+    main = [record(name, src, rep, m["launches"], m["err"], m["ms"],
+                   m["plain_ms"], device_ms=m["device_ms"])
+            for (src, rep), name, m in rows]
+    off = [record(name, src, rep, 0, m["err"], m["ms"], m["plain_ms"],
+                  device_ms=m["device_ms"])
+           for (src, rep), name, m in off_rows]
+    return main, off
+
+
 def bounds(step_details, subtree_leaves, dense_details, k1234t,
            funnel) -> dict:
     """bound_ms and bound_by of each kernel at the shapes of its timing."""
@@ -4951,8 +5732,10 @@ def run_phases(args, tmp: str) -> None:
     dev = torch.device("cuda", 0)
     phase_device()
     reqs = user_requests(dev)
-    so, reported = phase_build(reqs)
+    reqs5678 = k5678_user_requests(dev)
+    so, reported = phase_build(reqs + reqs5678)
     user_build = phase_user_build(reqs)
+    phase_k5678_user_build(reqs5678)
     if args.profile:
         phase_sass(so, reported)
     phase_philox(dev)
@@ -5111,6 +5894,15 @@ def run_phases(args, tmp: str) -> None:
     uk = phase_user_kernels(es8f["hand"], dev)
     del es8f
     torch.cuda.empty_cache()
+    mhu, builtin_cube = phase_mh_user(dev)
+    mhp = phase_mh_user_proposal(builtin_cube, dev)
+    del builtin_cube
+    torch.cuda.empty_cache()
+    ptu = phase_pt_user(dev)
+    gu = phase_gibbs_user(dev)
+    torch.cuda.empty_cache()
+    su = phase_sep_user(dev)
+    torch.cuda.empty_cache()
     phase_eight_schools_chees(dev)
     phase_ais(dev)
     phase_smc(dev)
@@ -5123,6 +5915,7 @@ def run_phases(args, tmp: str) -> None:
     b = bounds(step_details, sub_leaves, k34w["details"], k1234t, funnel)
     ub = user_bounds(uk)
     b.update({f"{k}_user_{kind}": v for (k, kind), v in ub.items()})
+    b.update(k5678_user_bounds())
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
 
@@ -5295,6 +6088,9 @@ def run_phases(args, tmp: str) -> None:
                funnel["subtree_ms"], funnel["subtree_plain_ms"]),
     ]
     main, off = user_records(record, b, uk, es8m, user_build)
+    kernels += main
+    off_path += off
+    main, off = k5678_user_records(record, mhu, mhp, ptu, gu, su)
     kernels += main
     off_path += off
     print(json.dumps({"kernels": kernels, "off_main_path": off_path}),

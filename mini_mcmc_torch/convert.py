@@ -44,9 +44,10 @@ from .utils.init import resolve_device
 
 #: JAX constructor keywords with no counterpart in the port
 _JAX_ONLY = ("unroll", "pallas_interpret")
-#: the port's samplers that take ``validate_dc`` (user densities reach
-#: Kernels 1-4 only); the others drop it
-_VALIDATE_DC = ("HMC", "MALA", "NUTS")
+#: the port's samplers that take ``validate_dc`` (the JAX samplers that
+#: run a user density in a fused kernel); the others drop it
+_VALIDATE_DC = ("HMC", "MALA", "NUTS", "MetropolisHastings",
+                "ParallelTempering")
 
 
 def _f32(x, device):
@@ -312,8 +313,8 @@ def mala_sampler_kwargs(jax_mala) -> dict:
 
 def mh_sampler_kwargs(jax_mh) -> dict:
     """The port's ``MetropolisHastings`` keyword arguments read from a JAX
-    ``MetropolisHastings``'s ``_ctor`` and its transform; drops
-    ``pallas_interpret``/``validate_dc``."""
+    ``MetropolisHastings``'s ``_ctor`` and its transform (and
+    ``validate_dc``); drops ``pallas_interpret``."""
     return _kwargs(jax_mh, "MetropolisHastings")
 
 
@@ -332,7 +333,7 @@ def pt_sampler_kwargs(jax_pt) -> dict:
     """The port's ``ParallelTempering`` keyword arguments read from a JAX
     ``ParallelTempering``: its ``_ctor`` and its ladder (``betas``), a
     non-scalar ``proposal_std`` as a float32 numpy array. Drops
-    ``pallas_interpret``/``validate_dc``; carries its transform."""
+    ``pallas_interpret``; carries its transform and ``validate_dc``."""
     kwargs = _kwargs(jax_pt, "ParallelTempering")
     std = kwargs["proposal_std"]
     if not isinstance(std, (int, float)):

@@ -1,4 +1,4 @@
-// Built-in Gibbs full conditionals for the fused Gibbs kernel (Kernel 6).
+// Gibbs full conditionals for the fused Gibbs kernel (Kernel 6).
 //
 // The JAX package traces a Conditional's `sample_dc(rng, i, state)` into
 // its Pallas sweep with the TPU hardware stream. Here each built-in
@@ -9,6 +9,27 @@
 // stream that it reads (philox.cuh:step_words) and draws coordinate i from
 // them given the state. The plain twin in ops/kernels/gibbs_full.py
 // reproduces the draws from the same words.
+//
+// A user conditional (Conditional.cuda_source) meets the same contract as
+// one functor named `Conditional`, pasted in a namespace of its own after
+// these headers and compiled at its D into a library of its own
+// (ops/kernels/user_density.py):
+//
+//   struct Conditional {
+//     explicit Conditional(const float* params);  // cuda_params
+//     template <int D>
+//     __host__ __device__ static constexpr int words();
+//     template <int D>
+//     float sample(int i, const float (&s)[D], const uint32_t* w) const;
+//   };
+//
+// members __device__ __forceinline__ (words also __host__): coordinate i
+// given the state s, whose coordinates < i the sweep has updated, from
+// the sweep's words. Its PyTorch twin, Conditional.sample_words(params,
+// i, states [C, D], words [C, W]) -> [C] with Conditional.cuda_words(D) =
+// words<D>(), must draw the same (models.base.validate_conditional_dc).
+// examples/user_forms.py:MIXTURE_CONDITIONAL_SOURCE is GaussianMixture
+// below written as a user source.
 #pragma once
 
 #include <stdint.h>

@@ -12,9 +12,25 @@
 // below and to the table count. The kernel's sums over coordinates give
 // logp, so a functor carries no constant that is not per coordinate.
 //
+// The contract of a coordinate functor F (the built-ins below, and
+// user_density.cuh:UserCoord around a user's own `Coord`, whose contract
+// that header states: Target.cuda_coord_source, or the functor generated
+// from the target's tile form):
+//
+//   static constexpr int kTables;          // tables read, 0-2
+//   static constexpr bool kTransformed;    // false (TransformedCoord: true)
+//   using State = ...;                     // a coordinate's constants
+//   explicit F(const float* params);       // Target.cuda_params
+//   State prepare(float t0, float t1) const;
+//   State prepare_scaled(float t0, float t1, float s) const;  // Scaled<F>
+//   float logp(float x, const State&) const;   // may be static
+//   float grad(float x, const State&) const;   // d logp / dx
+//
 // Per-coordinate constants are hoisted: `prepare(t0, t1)` runs once per
 // coordinate before the leapfrog loop and returns the functor's State,
-// the only thing `grad(x, state)` and `logp(x, state)` read. All three
+// the only thing `grad(x, state)` and `logp(x, state)` read. The wrappers
+// call logp and grad through the object, so a functor whose State holds
+// its tables and scale (UserCoord) meets the same contract. All three
 // functors are Gaussians, whose State is the coordinate's precision k:
 // the gradient is -k x and the term -k x^2 / 2, so the leapfrog holds no
 // division. Scaled<F> is F under a diagonal metric (Target.cuda_scaled),
@@ -132,11 +148,13 @@ struct Scaled {
   __device__ __forceinline__ State prepare(float t0, float t1) const {
     return f.prepare_scaled(t0, t1, F::kTables == 0 ? t0 : t1);
   }
-  __device__ __forceinline__ static float logp(float y, State k) {
-    return F::logp(y, k);
+  // through the object: a user functor (user_density.cuh:UserCoord)
+  // keeps its tables and scale in State and evaluates F(s y) itself
+  __device__ __forceinline__ float logp(float y, const State& k) const {
+    return f.logp(y, k);
   }
-  __device__ __forceinline__ static float grad(float y, State k) {
-    return F::grad(y, k);
+  __device__ __forceinline__ float grad(float y, const State& k) const {
+    return f.grad(y, k);
   }
 };
 
@@ -166,15 +184,39 @@ struct TransformedCoord {
     float ld = 0.0f;
     const float x = bij_logp(bt, st.code, st.b, st.w,
                              kScaled ? st.s * z : z, ld);
-    return F::logp(x, st.k) + ld;
+    return f.logp(x, st.k) + ld;
   }
   __device__ __forceinline__ float grad(float z, const State& st) const {
     float dx, dld;
     const float x = bij_grad(bt, st.code, st.b, st.w,
                              kScaled ? st.s * z : z, dx, dld);
-    const float g = F::grad(x, st.k) * dx + dld;
+    const float g = f.grad(x, st.k) * dx + dld;
     return kScaled ? st.s * g : g;
   }
 };
+
+// One element of the coordinate probe (ops/kernels/user_density.py:
+// coord_probe, models.base.validate_coord_dc): instance F's term and
+// derivative at x[i], with the i-th entries of its tables t0, t1, its
+// bijector (bij [3, n]: code, offset, width) and scale, as Kernel 7
+// prepares them; consts the six soft-saturation constants.
+template <class F>
+__device__ __forceinline__ void coord_probe_at(
+    const float* x, const float* t0, const float* t1, const float* bij,
+    const float* scale, int n, const float* params, const float* consts,
+    int i, float* logp, float* grad) {
+  if constexpr (F::kTransformed) {
+    const F f(params, consts);
+    const auto st = f.prepare(t0[i], t1[i], bij[i], bij[n + i],
+                              bij[2 * n + i], scale[i]);
+    logp[i] = f.logp(x[i], st);
+    grad[i] = f.grad(x[i], st);
+  } else {
+    const F f(params);
+    const auto st = f.prepare(t0[i], t1[i]);
+    logp[i] = f.logp(x[i], st);
+    grad[i] = f.grad(x[i], st);
+  }
+}
 
 }  // namespace mm

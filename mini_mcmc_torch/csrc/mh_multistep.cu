@@ -1,99 +1,11 @@
-// Kernel 5: K fused Metropolis-Hastings steps per launch.
-//
-// Replaces mini_mcmc_tpu/ops/pallas/mh_full.py:make_pallas_mh_multistep
-// (and its K = 1 form without history). For each of the K steps, per
-// chain: a symmetric proposal drawn by the proposal functor
-// (proposals.cuh), the target's logp there (targets.cuh), and the strict
-// accept `(lp' - lp) > logf(u)` (mh_full.py:91-96, reference
-// metropolis_hastings.rs:309-313) with true selects: a -inf or NaN
-// proposal compares false and leaves the kept state as it was. The kept
-// position goes to hist[k, c, :] through the runner's strides, as in
-// Kernel 2; a null `hist` writes no history.
-//
-// Positions are float or int32_t (discrete targets); the cached logp is
-// float either way (mh_full.py:22-23). Under a transform (transform=, the
-// JAX package's wrapped logp_dc, transforms.py:387-446) the walk runs in
-// the unconstrained y and the density is targets.cuh:Transformed<T, D>,
-// T::logp(g(y)) + log|g'(y)|, the functor Kernels 1-4 run; the kernel
-// needs its value only. The int32 instance takes no transform.
-//
-// Draws: one word stream per (chain0 + c, step0 + k) under the run's
-// 64-bit key (philox.cuh:step_words): the proposal's words<D>() words,
-// then the accept uniform's. The plain twin
-// (ops/kernels/mh_full.py) reproduces them, and the cube depends neither
-// on K nor on the grid.
-//
-// What bounds it on the H100: issue, in one dependent chain per thread.
-// One thread per chain, position and logp in registers for all K steps;
-// 65,536 chains fill 496 threads an SM, four warps a scheduler, and no
-// more exist. A Gaussian2D step is one Philox-10 evaluation (~40 SASS
-// instructions, the key schedule held in uniform registers), one
-// Box-Muller pair, the quadratic, the accept's logf and the selects,
-// against 8 bytes of history: about half the instructions of one
-// evaluation per draw. Evaluating step k + 1's draws beside step k's
-// density and accept (a one-step software pipeline) measured 1-3% slower
-// on the H100, and spilled at Rosenbrock D = 3, so each step draws its own.
+// Kernel 5's C entry over the built-in instances; the kernel is
+// mh_multistep.cuh's (its note says what it replaces and what bounds it).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hmc_common.cuh"
-#include "philox.cuh"
+#include "mh_multistep.cuh"
 #include "proposals.cuh"
 #include "targets.cuh"
-
-namespace {
-
-enum StateType : int { kF32 = 0, kI32 = 1 };
-
-template <class T, class P, class PosT, int D>
-__global__ void __launch_bounds__(mm::kThreads)
-    mh_multistep_kernel(const PosT* __restrict__ pos,
-                        const float* __restrict__ logp,
-                        const float* __restrict__ tparams,
-                        const float* __restrict__ pparams, int k_steps,
-                        int n_chains, uint32_t chain0, uint32_t k0,
-                        uint32_t k1, uint32_t step0,
-                        PosT* __restrict__ pos_out,
-                        float* __restrict__ logp_out,
-                        PosT* __restrict__ hist, long long hist_sk,
-                        long long hist_sc) {
-  // the accept uniform follows the proposal's words
-  constexpr int kPropWords = P::template words<D>();
-  constexpr int kWords = kPropWords + 1;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const T t(tparams);  // before the exit: a target may fill a block table
-  const P q(pparams);
-  if (c >= n_chains) return;
-  const uint32_t chain = chain0 + (uint32_t)c;
-  PosT x[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) x[d] = pos[c * D + d];
-  float lp = logp[c];
-  PosT* row = hist != nullptr ? hist + (long long)c * hist_sc : nullptr;
-
-  for (int k = 0; k < k_steps; ++k) {
-    uint32_t w[4 * mm::stream_evals<kWords>()];
-    mm::step_words<kWords>(chain, step0 + (uint32_t)k, k0, k1, w);
-    PosT y[D];
-    q.template propose<D>(x, w, y);
-    const float lpp = t.template logp<D>(y);
-    const bool accept = (lpp - lp) > logf(mm::unit_open(w[kPropWords]));
-#pragma unroll
-    for (int d = 0; d < D; ++d) x[d] = accept ? y[d] : x[d];
-    lp = accept ? lpp : lp;
-    if (row != nullptr) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) row[d] = x[d];
-      row += hist_sk;
-    }
-  }
-
-#pragma unroll
-  for (int d = 0; d < D; ++d) pos_out[c * D + d] = x[d];
-  logp_out[c] = lp;
-}
-
-}  // namespace
 
 // The instantiated (target, proposal, state type, D, transformed) are
 // those of MH_INSTANCES in ops/kernels/_build.py; any other returns
@@ -110,13 +22,10 @@ extern "C" int mm_mh_multistep(const void* pos, const void* logp,
                                long long hist_sk, long long hist_sc,
                                void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
-#define MM_MH(T, P, PosT, D)                                                \
-  mh_multistep_kernel<T, P, PosT, D>                                        \
-      <<<mm::blocks_for(n_chains), mm::kThreads, 0, (cudaStream_t)stream>>>( \
-          (const PosT*)pos, (const float*)logp, (const float*)tparams,      \
-          (const float*)pparams, k_steps, n_chains, chain0, seed_lo,        \
-          seed_hi, step0, (PosT*)pos_out, (float*)logp_out, (PosT*)hist,    \
-          hist_sk, hist_sc)
+  const mm::MhArgs a{pos,     logp,    tparams, pparams,  k_steps,
+                     n_chains, chain0, seed_lo, seed_hi,  step0,
+                     pos_out, logp_out, hist,   hist_sk,  hist_sc, stream};
+#define MM_MH(T, P, PosT, D) return mm::launch_mh<T, P, PosT, D>(a)
 #define MM_MH_F32(T, D)                                     \
   do {                                                      \
     if (transformed) {                                      \
@@ -126,7 +35,7 @@ extern "C" int mm_mh_multistep(const void* pos, const void* logp,
       MM_MH(T, mm::IsotropicGaussian, float, D);            \
     }                                                       \
   } while (0)
-  const bool iso = proposal == mm::kIsotropicGaussian && state_type == kF32;
+  const bool iso = proposal == mm::kIsotropicGaussian && state_type == mm::kF32;
   if (iso && target == mm::kGaussian2D && dim == 2) {
     MM_MH_F32(mm::Gaussian2D, 2);
   } else if (iso && target == mm::kRosenbrockND && dim == 2) {
@@ -134,12 +43,10 @@ extern "C" int mm_mh_multistep(const void* pos, const void* logp,
   } else if (iso && target == mm::kRosenbrockND && dim == 3) {
     MM_MH_F32(mm::RosenbrockND, 3);
   } else if (target == mm::kPoisson && proposal == mm::kRandomWalkInt &&
-             state_type == kI32 && dim == 1 && !transformed) {
+             state_type == mm::kI32 && dim == 1 && !transformed) {
     MM_MH(mm::Poisson, mm::RandomWalkInt, int32_t, 1);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
 #undef MM_MH_F32
 #undef MM_MH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-// Built-in MH proposals for the fused MH kernel (Kernel 5).
+// MH proposals for the fused MH kernel (Kernel 5).
 //
 // The JAX package traces a Proposal's `propose_dc(rng, pos)` into its
 // Pallas MH body with the TPU hardware stream. Here each built-in
@@ -9,6 +9,29 @@
 // reads (philox.cuh:step_words; the kernel's accept uniform takes the next
 // word) and proposes from the state and those words. The plain twin in
 // ops/kernels/mh_full.py reproduces the draws from the same words.
+//
+// A user proposal (Proposal.cuda_source) meets the same contract as one
+// functor named `Proposal`, pasted in a namespace of its own after these
+// headers (it includes nothing) and compiled with the target into a
+// library of its own (ops/kernels/user_density.py, the value-only table):
+//
+//   struct Proposal {
+//     explicit Proposal(const float* params);   // Proposal.cuda_params
+//     template <int D>
+//     __host__ __device__ static constexpr int words();
+//     template <int D>
+//     void propose(const float (&x)[D], const uint32_t* w,
+//                  float (&y)[D]) const;      // symmetric
+//   };
+//
+// members __device__ __forceinline__ (words also __host__), float32
+// states, drawing with mm::box_muller, mm::box_muller_pair and
+// mm::unit_open of philox.cuh on the words w[0..words<D>() - 1]. Its
+// PyTorch twin, Proposal.propose_words(params, current [C, D], words
+// [C, W]) -> [C, D] with Proposal.cuda_words(D) = words<D>(), must draw
+// the same (models.base.validate_proposal_dc holds the two together at
+// sampler construction). examples/user_forms.py:ISOTROPIC_WALK_SOURCE is
+// IsotropicGaussian below written as a user source.
 #pragma once
 
 #include <stdint.h>

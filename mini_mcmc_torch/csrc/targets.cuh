@@ -10,7 +10,8 @@
 // (`Target.cuda_source`, or one generated from the target's PyTorch batch
 // form), compiled into a library of its own behind mm::User
 // (user_density.cuh, ops/kernels/user_density.py). The MH and tempering
-// kernels (5 and 8) run the built-in functors only.
+// kernels (5 and 8) run either route too, the user's in a value-only
+// library of its own.
 //
 // A functor is built once per thread from the kernel's `params` pointer
 // (Target.cuda_params on the device; null for a functor without

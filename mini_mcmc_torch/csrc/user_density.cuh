@@ -1,5 +1,6 @@
-// User densities inside Kernels 1-4: the adapter mm::User<F> and the
-// dual numbers of its derived gradient.
+// User densities inside Kernels 1-5 and 8: the adapter mm::User<F> and
+// the dual numbers of its derived gradient; user coordinate functors
+// inside Kernel 7: mm::UserCoord<F>.
 //
 // Counterpart of the JAX package's Target.dc_forms
 // (mini_mcmc_tpu/models/base.py:97-125): there a Python density is traced
@@ -23,7 +24,7 @@
 // its arithmetic with + - * /, unary minus and mixed float operands, and
 // the functions below (mm::exp, mm::log, mm::log1p, mm::expm1, mm::sqrt,
 // mm::pow with a float exponent, mm::tanh, mm::sin, mm::cos, mm::abs,
-// mm::fmin, mm::fmax), which take a float or a Dual alike, and reads its
+// mm::fmin, mm::fmax, mm::logaddexp), which take a float or a Dual alike, and reads its
 // coefficients with __ldg. A value that branches on the state reads
 // mm::value(s) (the float of either type). logp must treat the
 // coordinates of one chain only: each thread is one chain.
@@ -37,6 +38,10 @@
 // and the kernels unroll the density, so each Dual's mask of live tangents
 // folds (see Dual): each operation costs the tangents its operands really
 // carry.
+//
+// The MH and tempering kernels (5 and 8) read the value alone: a target
+// used only by them compiles User<F>::logp at S = float, in a value-only
+// library (user_density.py) with no dual numbers.
 //
 // The same source compiles for the host under host_shim.h, which the CPU
 // tests alone use.
@@ -340,6 +345,44 @@ __device__ __forceinline__ Dual<N> fmax(float a, const Dual<N>& b) {
   return b.v > a ? b : Dual<N>(a);
 }
 
+// log(exp(a) + exp(b)) as torch.logaddexp computes it: an infinite a
+// equal to b gives a (so two -inf give -inf), else max + log1p(exp(-|a -
+// b|)); d/da = exp(a - r), 1/2 each where both are the same infinity
+__device__ __forceinline__ float logaddexp(float a, float b) {
+  if (isinf(a) && a == b) return a;
+  const float m = a < b ? b : a;
+  return m + log1pf(expf(-fabsf(a - b)));
+}
+template <int N>
+__device__ __forceinline__ Dual<N> logaddexp(const Dual<N>& a,
+                                             const Dual<N>& b) {
+  Dual<N> r;
+  r.v = logaddexp(a.v, b.v);
+  r.nz = a.nz | b.nz;
+  const bool tie = isinf(a.v) && a.v == b.v;
+  const float wa = tie ? 0.5f : expf(a.v - r.v);
+  const float wb = tie ? 0.5f : expf(b.v - r.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (a.has(i) && b.has(i)) {
+      r.d[i] = a.d[i] * wa + b.d[i] * wb;
+    } else if (a.has(i)) {
+      r.d[i] = a.d[i] * wa;
+    } else if (b.has(i)) {
+      r.d[i] = b.d[i] * wb;
+    }
+  }
+  return r;
+}
+template <int N>
+__device__ __forceinline__ Dual<N> logaddexp(const Dual<N>& a, float b) {
+  return logaddexp(a, Dual<N>(b));
+}
+template <int N>
+__device__ __forceinline__ Dual<N> logaddexp(float a, const Dual<N>& b) {
+  return logaddexp(Dual<N>(a), b);
+}
+
 // Whether F defines grad<D>(const float (&)[D], float (&)[D]).
 template <class F, int D, class = void>
 struct has_grad : std::false_type {};
@@ -414,5 +457,83 @@ __device__ __forceinline__ float probe_row(const T& t, const float* x,
   for (int d = 0; d < D; ++d) g[d] = gr[d];
   return lp;
 }
+
+// A user coordinate functor for the separable kernel (Kernel 7), the
+// counterpart of a Target's sep_form (mini_mcmc_tpu/models/base.py:
+// 127-149, ops/pallas/hmc_bigd.py:134-167). Target.cuda_coord_source, or
+// the C++ user_density.py:derive_coord_dc generates from the target's
+// tile_logp, defines one functor named `Coord`:
+//
+//   struct Coord {
+//     static constexpr int kTables;           // 0, 1 or 2
+//     explicit Coord(const float* params);    // Target.cuda_params
+//     template <class S>                      // S = float or mm::Dual<1>
+//     S logp(S x, const mm::CoordTables<kTables>& t) const;
+//     float grad(float x, const mm::CoordTables<kTables>& t) const;  // opt.
+//   };
+//
+// one coordinate's term of the density at x, t its entries of the
+// sep_form tables (CoordTables<N> is float[N], one unused entry at N = 0),
+// under the same rules as a Density (members __device__ __forceinline__,
+// the math of this header, coefficients read with __ldg). Without grad
+// the derivative is the tangent of logp on Dual<1>.
+template <int N>
+using CoordTables = float[N > 0 ? N : 1];
+
+template <class F, class = void>
+struct has_coord_grad : std::false_type {};
+template <class F>
+struct has_coord_grad<
+    F, std::void_t<decltype(std::declval<const F&>().grad(
+           std::declval<float>(),
+           std::declval<const CoordTables<F::kTables>&>()))>>
+    : std::true_type {};
+
+// F behind coord_targets.cuh's contract. A Gaussian folds a diagonal
+// metric's scale into its precision; a user term cannot, so its State
+// carries the coordinate's table entries and the scale s, and logp and
+// grad evaluate F(s y) and s F'(s y) (s = 1 without a metric, which the
+// compiler folds).
+template <class F>
+struct UserCoord {
+  static constexpr int kTables = F::kTables;
+  static_assert(kTables >= 0 && kTables <= 2,
+                "a coordinate functor reads at most two tables");
+  static constexpr bool kTransformed = false;
+  struct State {
+    CoordTables<kTables> t;
+    float s;
+  };
+  F f;
+
+  __device__ __forceinline__ explicit UserCoord(const float* p) : f(p) {}
+  __device__ __forceinline__ State prepare_scaled(float t0, float t1,
+                                                  float s) const {
+    State st;
+    st.t[0] = t0;
+    if constexpr (kTables > 1) st.t[1] = t1;
+    st.s = s;
+    return st;
+  }
+  __device__ __forceinline__ State prepare(float t0, float t1) const {
+    return prepare_scaled(t0, t1, 1.0f);
+  }
+  __device__ __forceinline__ float logp(float y, const State& st) const {
+    return f.logp(st.s * y, st.t);
+  }
+  __device__ __forceinline__ float grad(float y, const State& st) const {
+    const float x = st.s * y;
+    if constexpr (has_coord_grad<F>::value) {
+      return st.s * f.grad(x, st.t);
+    } else {
+      Dual<1> xd;
+      xd.v = x;
+      xd.d[0] = 1.0f;
+      xd.nz = 1u;
+      const Dual<1> r = f.logp(xd, st.t);
+      return st.s * (r.has(0) ? r.d[0] : 0.0f);
+    }
+  }
+};
 
 }  // namespace mm

@@ -15,9 +15,16 @@ functor named in ``cuda_functor`` (``csrc/targets.cuh``) or, in Kernels
 1-4 (HMC, MALA, NUTS), as the user's own C++, ``cuda_source``, or C++
 generated from the batch form (``Target.dc_forms``,
 ``ops/kernels/user_density.py``), checked against the batch form at
-sampler construction (:func:`validate_dc_forms`). A proposal or a Gibbs
-conditional names its built-in form in ``cuda_functor`` too
-(``csrc/proposals.cuh``, ``csrc/conditionals.cuh``).
+sampler construction (:func:`validate_dc_forms`); MH and tempering (5 and
+8) read its value alone, through a value-only library. The separable
+kernel (7) runs a coordinate functor: built in, ``cuda_coord_source``, or
+one generated from the ``sep_form`` (:func:`validate_coord_dc`). A
+proposal or a Gibbs conditional names its built-in form in
+``cuda_functor`` (``csrc/proposals.cuh``, ``csrc/conditionals.cuh``) or
+carries its own C++, ``cuda_source``, with a PyTorch twin that draws from
+the same Philox words (``propose_words``, ``sample_words``; checked by
+:func:`validate_proposal_dc` and :func:`validate_conditional_dc`): the
+counterparts of the JAX package's ``propose_dc`` and ``sample_dc``.
 Random draws outside the kernels come from a ``torch.Generator`` on the
 positions' device, passed as ``gen``.
 """
@@ -99,7 +106,20 @@ class Target:
             :func:`validate_separable` checks it at sampler construction.
             On CUDA tensors the tier's kernel evaluates the coordinate
             functor named by ``cuda_functor`` (``csrc/coord_targets.cuh``)
-            on the same tables instead.
+            on the same tables instead, or ``cuda_coord_source``, or the
+            functor generated from ``tile_logp`` on one coordinate.
+        cuda_coord_source: the C++ of this target's coordinate term for the
+            separable kernel, or ``None``: one functor ``Coord`` with
+            ``static constexpr int kTables`` (its ``sep_form`` tables,
+            0-2), a constructor from ``const float* params``
+            (``cuda_params``), ``template <class S> S logp(S x, const
+            mm::CoordTables<kTables>& t) const`` (one coordinate's term,
+            ``t`` its table entries; ``S`` float or ``mm::Dual<1>``) and
+            optionally ``float grad(float x, const
+            mm::CoordTables<kTables>& t) const``
+            (``csrc/user_density.cuh:UserCoord``). Without it, and
+            without a coordinate ``cuda_functor``, the kernel runs the
+            functor generated from ``sep_forms()``'s ``tile_logp``.
     """
 
     logp: Callable
@@ -108,6 +128,7 @@ class Target:
     cuda_functor: Optional[str] = None
     cuda_source: Optional[str] = None
     cuda_params: tuple = ()
+    cuda_coord_source: Optional[str] = None
     cuda_base: Optional["Target"] = None
     cuda_affine: bool = False
     cuda_diag: bool = False
@@ -174,9 +195,13 @@ class Target:
 
 def cuda_base_of(target: Target) -> Optional[Target]:
     """The ``cuda_base`` of a metric's or a transform's wrapper around
-    ``target``: the target whose batch form the kernels trace, ``None``
-    when ``target`` names a functor or a source."""
-    if target.cuda_functor is not None or target.cuda_source is not None:
+    ``target``: the target whose batch form (or tile form, for the
+    separable kernel) the kernels trace or whose coordinate source they
+    compile, ``None`` when ``target`` names a functor, or a density source
+    without a coordinate source."""
+    if target.cuda_functor is not None or (
+            target.cuda_source is not None
+            and target.cuda_coord_source is None):
         return None
     return target.cuda_base or target
 
@@ -271,7 +296,7 @@ def validate_separable(target: Target, positions, *, rtol: float = 3e-4,
 
 def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
                       atol: float = 1e-4, max_rows: int = 256,
-                      need_grad: bool = True) -> None:
+                      need_grad: bool = True, proposal=None) -> None:
     """Raise ``ValueError`` unless the compiled density of ``target`` (the
     instance Kernels 1-4 run: ``cuda_source`` or the generated C++, inside
     the target's metric and transform wrappers) agrees with its batch form
@@ -283,11 +308,16 @@ def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
     1) + rtol |want|``, both ``-inf`` agreeing, the gradient compared where
     the batch form's is finite. The probe runs where the positions lie: on
     the card the per-density library's probe entry (built if need be), on
-    the CPU the host build of the same source (``g++``, for the tests).
-    A target with a built-in ``cuda_functor`` validates trivially. The
-    samplers call it at construction for ``use_pallas`` on CUDA
-    (``validate_dc``); it never replaces the separability check of
-    ``use_pallas="separable"``.
+    the CPU the host build of the same source (``g++``, for the tests);
+    without ``need_grad`` the value-only library's (Kernels 5 and 8),
+    which compiles no dual numbers: that of (``target``, ``proposal``),
+    the library MH launches beside a user ``proposal`` (``None``: the
+    isotropic walk's, tempering's). A target with a built-in
+    ``cuda_functor`` validates trivially. The samplers call it at
+    construction for ``use_pallas`` on CUDA (``validate_dc``; MH and
+    tempering with ``need_grad=False``, as the JAX samplers,
+    ``mini_mcmc_tpu/samplers.py:295-300,805-809``); it never replaces the
+    separability check of ``use_pallas="separable"``.
     """
     if target.cuda_functor is not None:
         return
@@ -297,7 +327,7 @@ def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
     if x.dim() != 2:
         raise ValueError("positions must be [n_chains, D]; got shape "
                          f"{tuple(x.shape)}")
-    got_lp, got_g = probe(target, x)
+    got_lp, got_g = probe(target, x, need_grad, proposal)
     forms = target.dc_forms(x.shape[1], x.device)
     want_lp, want_g = target.batch_logp_and_grad(x.to(torch.float32))
     checks = [("logp", want_lp, got_lp)]
@@ -319,9 +349,133 @@ def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
                 f"its batch form on the initial positions: max abs err "
                 f"{float(err.max()):.3g} (flat index {worst}: "
                 f"{float(got.reshape(-1)[worst]):.6g} vs "
-                f"{float(want.reshape(-1)[worst]):.6g}). Kernels 1-4 would "
+                f"{float(want.reshape(-1)[worst]):.6g}). The kernels would "
                 "sample the WRONG posterior. Fix the source (or pass "
                 "validate_dc=False to skip this check).")
+
+
+def _close(got, want, rtol: float, atol: float) -> torch.Tensor:
+    """``validate_dc_forms``'s rule, elementwise: within ``atol
+    max(|want|, 1) + rtol |want|`` or both -inf (NaN in neither)."""
+    got, want = got.double(), want.double()
+    close = ((got - want).abs()
+             <= atol * want.abs().clamp(min=1.0) + rtol * want.abs())
+    return close | (torch.isneginf(want) & torch.isneginf(got))
+
+
+def _refuse(what: str, got, want, why: str) -> None:
+    err = (got.double() - want.double()).abs().nan_to_num(nan=float("inf"))
+    worst = int(err.reshape(-1).argmax())
+    raise ValueError(
+        f"the compiled {what} disagrees with its twin: max abs err "
+        f"{float(err.max()):.3g} (flat index {worst}: "
+        f"{float(got.reshape(-1)[worst]):.6g} vs "
+        f"{float(want.reshape(-1)[worst]):.6g}). {why} Fix the source (or "
+        "pass validate_dc=False to skip this check).")
+
+
+#: the fixed Philox key of the proposal and conditional probes
+_PROBE_SEED = 0x5EED_0D0C_0000_0017
+
+
+def validate_proposal_dc(proposal: "Proposal", target: Target, positions,
+                         *, rtol: float = 1e-5, atol: float = 1e-5,
+                         max_rows: int = 256) -> None:
+    """Raise ``ValueError`` unless a user proposal's compiled form
+    (``cuda_source``) and its twin (``propose_words``) propose the same
+    states from up to ``max_rows`` of ``positions`` on the same fixed
+    Philox words, at float32 tolerance, and read the same number of words
+    (``cuda_words``). The counterpart of the JAX package's single
+    ``propose_dc``, which serves both its kernel and its interpret mode:
+    here the kernel runs the source and the CPU twin the Python form, so
+    the probe keeps the CPU tests truthful about the card. On the card
+    the probe entry of Kernel 5's library of (``target``, ``proposal``),
+    on the CPU the host build. A built-in proposal validates trivially."""
+    if proposal.cuda_functor is not None:
+        return
+    from ..ops.kernels import rng
+    from ..ops.kernels.user_density import propose_probe
+
+    x = torch.as_tensor(positions).detach()[:max_rows].to(torch.float32)
+    r, d = x.shape
+    words = rng.stream_words(r, proposal.cuda_words(d), 0, _PROBE_SEED,
+                             x.device)
+    got = propose_probe(proposal, x, words, target)
+    want = proposal.propose_words(proposal.cuda_params, x, words)
+    if not bool(_close(got, want, rtol, atol).all()):
+        _refuse("proposal (Proposal.cuda_source)", got, want,
+                "The MH kernel would walk another chain than its twin.")
+
+
+def validate_conditional_dc(conditional: "Conditional", positions, *,
+                            rtol: float = 1e-5, atol: float = 1e-5,
+                            max_rows: int = 256) -> None:
+    """Raise ``ValueError`` unless a user conditional's compiled form
+    (``cuda_source``) and its twin (``sample_words``) give the same sweep
+    (coordinates ``0..D-1`` in order, each given the updated state) from
+    up to ``max_rows`` of ``positions`` on the same fixed Philox words,
+    at float32 tolerance, and read the same number of words
+    (``cuda_words``); :func:`validate_proposal_dc`'s counterpart for the
+    Gibbs kernel. A built-in conditional validates trivially."""
+    if conditional.cuda_functor is not None:
+        return
+    from ..ops.kernels import rng
+    from ..ops.kernels.user_density import sample_probe
+
+    x = torch.as_tensor(positions).detach()[:max_rows].to(torch.float32)
+    r, d = x.shape
+    words = rng.stream_words(r, conditional.cuda_words(d), 0, _PROBE_SEED,
+                             x.device)
+    got = sample_probe(conditional, x, words)
+    want = x.clone()
+    for i in range(d):
+        want[:, i] = conditional.sample_words(conditional.cuda_params, i,
+                                              want, words)
+    if not bool(_close(got, want, rtol, atol).all()):
+        _refuse("sweep (Conditional.cuda_source)", got, want,
+                "The Gibbs kernel would draw another chain than its twin.")
+
+
+def validate_coord_dc(target: Target, positions, *, rtol: float = 3e-4,
+                      atol: float = 1e-4, max_rows: int = 64) -> None:
+    """Raise ``ValueError`` unless the separable kernel's instance for
+    ``target`` (its coordinate functor, ``cuda_coord_source`` or the one
+    generated from the tile form, inside the target's metric and
+    transform wrappers: ``coord_targets.cuh:Scaled``,
+    ``TransformedCoord``) gives each coordinate's term and derivative of
+    the target's tile form, ``tile_logp`` on single coordinates and
+    autograd, at up to ``max_rows`` of ``positions`` (the kernel's
+    coordinates), at :func:`validate_dc_forms`'s tolerance (the derivative
+    where the form's is finite). The counterpart of the JAX package's
+    ``jax.vjp`` of ``tile_logp`` inside each tile
+    (``ops/pallas/hmc_bigd.py:134-167``), which needs no check. A built-in
+    coordinate functor validates trivially; :func:`validate_separable`
+    still runs beside it."""
+    if target.cuda_functor is not None:
+        return
+    from ..ops.kernels.user_density import coord_probe
+
+    x = torch.as_tensor(positions).detach()[:max_rows].to(torch.float32)
+    r, d = x.shape
+    tile_logp, tables = target.sep_forms()
+    tabs = [t.detach().to(x.device, torch.float32).reshape(1, d)
+            for t in tables]
+    got_lp, got_g = coord_probe(target, x)
+    xs = x.T.reshape(d, r, 1).detach().requires_grad_(True)
+    with torch.enable_grad():
+        vals = torch.func.vmap(lambda xc, *tc: tile_logp(xc, *tc))(
+            xs, *(t.T.reshape(d, 1, 1) for t in tabs))
+        (g,) = torch.autograd.grad(vals.sum(), xs)
+    want_lp, want_g = vals.detach().T, g.reshape(d, r).T
+    finite = torch.isfinite(want_g)
+    for what, got, want in (
+            ("coordinate term", got_lp, want_lp),
+            ("coordinate derivative", torch.where(finite, got_g, 0.0),
+             torch.where(finite, want_g, 0.0))):
+        if not bool(_close(got, want, rtol, atol).all()):
+            _refuse(f"{what} (Target.cuda_coord_source or the generated "
+                    "Coord)", got, want,
+                    "The separable kernel would sample the WRONG posterior.")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -341,6 +495,23 @@ class Proposal:
         cuda_functor: name of the built-in CUDA form that the MH kernel
             draws this proposal with (``csrc/proposals.cuh``), or ``None``.
         cuda_params: that form's coefficients (floats).
+        cuda_source: the C++ of a user proposal for the MH kernel, or
+            ``None``: one functor ``Proposal`` with a constructor from
+            ``const float*`` (``cuda_params``), ``template <int D>
+            __host__ __device__ static constexpr int words()`` (the words
+            of the step's Philox stream it reads; the accept takes the
+            next) and ``template <int D> void propose(const float (&x)[D],
+            const uint32_t* w, float (&y)[D]) const``
+            (``csrc/proposals.cuh`` states the contract). Naming both a
+            functor and a source raises.
+        propose_words: the PyTorch twin of the fused proposal, ``(params,
+            current [C, D], words [C, W]) -> proposed [C, D]`` on int64
+            Philox words: the kernel's plain twin runs it, so it must draw
+            as the source does (:func:`validate_proposal_dc`). Together
+            with ``cuda_source`` the counterpart of the JAX package's
+            ``propose_dc``.
+        cuda_words: ``D -> W``, the words ``propose_words`` and the
+            source's ``words<D>()`` read at D.
     """
 
     sample: Callable
@@ -349,6 +520,12 @@ class Proposal:
     scaled: Optional[Callable] = None
     cuda_functor: Optional[str] = None
     cuda_params: tuple = ()
+    cuda_source: Optional[str] = None
+    propose_words: Optional[Callable] = None
+    cuda_words: Optional[Callable] = None
+
+    def __post_init__(self):
+        _one_form(self)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -362,8 +539,35 @@ class Conditional:
         cuda_functor: name of the built-in CUDA form that the Gibbs kernel
             runs (``csrc/conditionals.cuh``), or ``None``.
         cuda_params: that form's coefficients (floats).
+        cuda_source: the C++ of a user conditional for the Gibbs kernel,
+            or ``None``: one functor ``Conditional`` with a constructor
+            from ``const float*`` (``cuda_params``), ``template <int D>
+            __host__ __device__ static constexpr int words()`` (the sweep's
+            words) and ``template <int D> float sample(int i, const float
+            (&s)[D], const uint32_t* w) const`` (``csrc/conditionals.cuh``
+            states the contract). Naming both raises.
+        sample_words: its PyTorch twin, ``(params, i, states [C, D], words
+            [C, W]) -> coordinate i [C]`` (:func:`validate_conditional_dc`);
+            with ``cuda_source`` the counterpart of ``sample_dc``.
+        cuda_words: ``D -> W``, the words a sweep reads at D.
     """
 
     sample: Callable
     cuda_functor: Optional[str] = None
     cuda_params: tuple = ()
+    cuda_source: Optional[str] = None
+    sample_words: Optional[Callable] = None
+    cuda_words: Optional[Callable] = None
+
+    def __post_init__(self):
+        _one_form(self)
+
+
+def _one_form(form) -> None:
+    """A proposal or conditional names a built-in form or brings its own
+    source, not both."""
+    if form.cuda_functor is not None and form.cuda_source is not None:
+        raise ValueError(
+            f"a {type(form).__name__} names a built-in cuda_functor or its "
+            f"own cuda_source, not both (got {form.cuda_functor!r} and a "
+            "source)")

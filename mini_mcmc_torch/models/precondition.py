@@ -259,6 +259,7 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
         cuda_functor=target.cuda_functor,
         cuda_source=target.cuda_source,
         cuda_params=cuda_params,
+        cuda_coord_source=target.cuda_coord_source,
         cuda_base=cuda_base_of(target),
         cuda_affine=True,
         cuda_diag=diag and carried,

@@ -496,6 +496,7 @@ class CoordinateTransform:
             cuda_functor=target.cuda_functor,
             cuda_source=target.cuda_source,
             cuda_params=cuda_params,
+            cuda_coord_source=target.cuda_coord_source,
             cuda_base=cuda_base_of(target),
             cuda_affine=target.cuda_affine,
             cuda_diag=target.cuda_diag,

@@ -19,8 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..runner import StepKey, make_scan_block_fn
-from .kernels._build import conditional_id
-from .kernels.gibbs_full import gibbs_multistep
+from .kernels.gibbs_full import gibbs_multistep, sample_form
 
 
 class GibbsState(NamedTuple):
@@ -34,10 +33,12 @@ def gibbs_kernel(conditional, *, use_pallas=False, steps_per_call: int = 1):
     ``step_fn(state, key: StepKey) -> GibbsState``.
 
     ``use_pallas="full"`` runs whole sweeps in Kernel 6: it needs a
-    conditional with a built-in CUDA form (``Conditional.cuda_functor``;
-    the plain twin draws through it on CPU tensors too), and on CUDA
-    positions an instantiated D, which the kernel reads from their shape
-    (the JAX package's ``n_dim`` has no counterpart).
+    conditional with a fused form, built in (``Conditional.cuda_functor``)
+    or the user's (``sample_words`` and ``cuda_words``, the twin's, with
+    ``cuda_source`` on CUDA positions: ``ops/gibbs.py:57-60`` in the JAX
+    package requires ``sample_dc`` likewise), and on CUDA positions an
+    instantiated D, which the kernel reads from their shape (the JAX
+    package's ``n_dim`` has no counterpart).
     ``steps_per_call`` > 1 attaches ``step_fn.block_fn``/``block_size``
     as in :func:`~.mh.mh_kernel`.
     """
@@ -49,7 +50,7 @@ def gibbs_kernel(conditional, *, use_pallas=False, steps_per_call: int = 1):
             raise ValueError(
                 "Gibbs has no trajectory to fuse separately: the only fused "
                 f'variant is use_pallas="full"; got {use_pallas!r}')
-        conditional_id(conditional)  # raises without a CUDA form
+        sample_form(conditional)  # raises without a fused form
         full = True
 
     def init_fn(positions: torch.Tensor) -> GibbsState:

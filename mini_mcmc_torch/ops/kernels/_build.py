@@ -8,11 +8,15 @@ an edited source builds anew and an unchanged one is reused from
 ``build/mini_mcmc_torch/`` (listed in ``.gitignore``). Nothing here runs at
 import: CPU-only installs import every module without ``nvcc``.
 
-Kernels 1-4 take a target by one of two routes (:func:`kernel_lib`): a
-built-in functor of ``csrc/targets.cuh`` (``Target.cuda_functor``), through
-this library; or the C++ of a user density (``Target.cuda_source``, or one
-generated from its batch form), through a library of its own
-(``user_density.py``).
+Every kernel takes a form by one of two routes: a built-in functor
+(``Target.cuda_functor``, ``Proposal.cuda_functor``,
+``Conditional.cuda_functor``: ``csrc/targets.cuh``, ``proposals.cuh``,
+``conditionals.cuh``, ``coord_targets.cuh``), through this library; or the
+user's C++ (``cuda_source``, ``Target.cuda_coord_source``, or a density or
+coordinate functor generated from its PyTorch form), through a library of
+its own (``user_density.py``): Kernels 1-4 by :func:`kernel_lib`, 5 and 8
+by ``mh_full.mh_lib`` and ``pt_full.pt_lib``, 6 by
+``gibbs_full.gibbs_lib``, 7 by ``hmc_sep._sep_lib``.
 
 ``-use_fast_math`` is deliberately absent: ``__logf``/``__cosf`` would move
 the Box-Muller tails, and an approximate ``logf(u)`` changes which chains
@@ -96,13 +100,16 @@ def form_id(name: str | None, table: dict, kind: str) -> int:
     ``kind`` (Target, Proposal, Conditional); raises for ``None`` (a
     Python-only form, which the kernels cannot run) or an unknown name."""
     if name is None:
+        own = {"Target": "Target.cuda_source (Kernels 1-5 and 8; without "
+                         "one, C++ generated from the batch form) or "
+                         "Target.cuda_coord_source (the separable kernel)",
+               "Proposal": "Proposal.cuda_source with propose_words",
+               "Conditional": "Conditional.cuda_source with sample_words"}
         raise ValueError(
-            f"use_pallas needs a {kind} with a built-in CUDA form here "
-            f"({kind}.cuda_functor, one of {sorted(table)}). A user "
-            "density reaches Kernels 1-4 (HMC, MALA, NUTS) as "
-            "Target.cuda_source or from its batch form; this kernel runs "
-            "built-in forms only (ROADMAP.md, Queue 1). Use "
-            "use_pallas=False."
+            f"no built-in CUDA form named: {kind}.cuda_functor is None "
+            f"(built in: {sorted(table)}). A user form reaches the kernels "
+            f"as {own.get(kind, kind + '.cuda_source')}; or use "
+            "use_pallas=False. Forms still to come: ROADMAP.md, Queue 1."
         )
     if name not in table:
         raise ValueError(f"unknown {kind}.cuda_functor {name!r}; built in: "
@@ -355,21 +362,26 @@ def bind(handle: ctypes.CDLL, sigs: dict = KERNEL_SIGS) -> ctypes.CDLL:
     return handle
 
 
+#: the C entries of Kernels 0 and 5-8, whose per-form libraries
+#: (``user_density.py``) export those of their kernel too
+ENTRY_SIGS = {
+    "mm_philox_fill": [_P, _I, _U, _U, _U, _U, _P],
+    "mm_mh_multistep": [_P] * 4 + [_I] * 7 + [_U] * 4 + [_P] * 3
+    + [_LL, _LL, _P],
+    "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
+    + [_LL, _LL, _P],
+    "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
+    "mm_hmc_separable_step": [_P] * 9 + [_I] * 7 + [_U] * 4 + [_P] * 4,
+    "mm_hmc_separable_clusters": [_I] * 4 + [_P],
+    "mm_pt_multistep": [_P] * 5 + [_I] * 8 + [_U] * 3 + [_P] * 4
+    + [_LL, _LL, _P],
+}
+
+
 @functools.cache
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    return bind(ctypes.CDLL(str(build())), dict(KERNEL_SIGS, **{
-        "mm_philox_fill": [_P, _I, _U, _U, _U, _U, _P],
-        "mm_mh_multistep": [_P] * 4 + [_I] * 7 + [_U] * 4 + [_P] * 3
-        + [_LL, _LL, _P],
-        "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
-        + [_LL, _LL, _P],
-        "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
-        "mm_hmc_separable_step": [_P] * 9 + [_I] * 7 + [_U] * 4 + [_P] * 4,
-        "mm_hmc_separable_clusters": [_I] * 4 + [_P],
-        "mm_pt_multistep": [_P] * 5 + [_I] * 8 + [_U] * 3 + [_P] * 4
-        + [_LL, _LL, _P],
-    }))
+    return bind(ctypes.CDLL(str(build())), dict(KERNEL_SIGS, **ENTRY_SIGS))
 
 
 def check(code: int, handle: ctypes.CDLL | None = None) -> None:

@@ -30,7 +30,11 @@ ke0, ke1, mom_prop)``: the debug form with a given momentum (its final
 momentum returned) and the two-pass form's first pass.
 
 The kernel evaluates the target's coordinate functor
-(``Target.cuda_functor``, ``_build.SEP_FUNCTORS``, ``csrc/coord_targets.cuh``)
+(``Target.cuda_functor``, ``_build.SEP_FUNCTORS``, ``csrc/coord_targets.cuh``;
+or a user's, ``Target.cuda_coord_source`` or the one generated from the
+tile form, behind ``csrc/user_density.cuh:UserCoord`` in a library of its
+own per functor and wrapper bits, any D: ``user_density.sep_lib``, its
+derivative by ``mm::Dual<1>`` unless the source gives one)
 on its ``[n_tables, D]`` tables, each coordinate's constants prepared once
 a launch (for the Gaussian functors the precision, so the leapfrog holds
 no division); the twins evaluate the Python ``Target.sep_forms()`` density
@@ -63,7 +67,7 @@ import functools
 import torch
 
 from ...models.transforms import soft_saturation_constants
-from . import _build, rng
+from . import _build, rng, user_density
 
 _MASK = 0xFFFFFFFF
 #: quads of four coordinates per thread (csrc/hmc_separable.cu:kSepGroups)
@@ -101,13 +105,27 @@ def sep_instance(target) -> tuple[int, int, int]:
     tables the functor's own and the scale. A transformed target
     (``Target.cuda_transform``) runs ``TransformedCoord``, its tables the
     functor's own, one mask per bijector group (read by the twin only) and,
-    under a diagonal metric, the scale. Raises ``ValueError`` for a target
-    without a functor, for one the kernels cannot run
-    (``Target.cuda_unsupported``) and for any other whitened target (a
-    dense metric, or one whitened twice)."""
-    fid, n_tables = _build.form_id(target.cuda_functor, _build.SEP_FUNCTORS,
-                                   "Target")
-    _build.supported(target)
+    under a diagonal metric, the scale. A target without a coordinate
+    ``cuda_functor`` runs its own functor (``cuda_coord_source``, or the
+    one generated from its tile form; ``user_density.sep_lib``), id -1.
+    Raises ``ValueError`` for an unknown functor, for a target the kernels
+    cannot run (``Target.cuda_unsupported``), past two tables and for any
+    other whitened target (a dense metric, or one whitened twice)."""
+    if target.cuda_functor is None:
+        # a user coordinate functor: cuda_coord_source, or generated from
+        # the tile form of the target the wrappers wrap
+        _build.supported(target)
+        fid = -1
+        n_tables = len(user_density.coord_base(target).sep_forms()[1])
+        if n_tables > user_density.MAX_COORD_TABLES:
+            raise ValueError(
+                f"a coordinate functor reads at most "
+                f"{user_density.MAX_COORD_TABLES} sep_form tables; the "
+                f"target has {n_tables}")
+    else:
+        fid, n_tables = _build.form_id(target.cuda_functor,
+                                       _build.SEP_FUNCTORS, "Target")
+        _build.supported(target)
     scaled = int(bool(target.cuda_affine))
     transformed = target.cuda_transform is not None
     n_rows = (len(target.sep_forms()[1]) if scaled or transformed
@@ -237,7 +255,8 @@ def _check(target, pos, eps, tables, mom, threads: int):
     d = pos.shape[1]
     if tables.shape != (n_tables, d) or tables.dtype != torch.float32:
         raise ValueError(
-            f"coordinate functor {target.cuda_functor!r} reads {n_tables} "
+            f"coordinate functor {target.cuda_functor or 'Coord'!r} reads "
+            f"{n_tables} "
             f"float32 [1, {d}] tables; got {tables.dtype} "
             f"{tuple(tables.shape)}")
     if mom is not None and (mom.shape != pos.shape
@@ -253,6 +272,15 @@ def _check(target, pos, eps, tables, mom, threads: int):
         raise ValueError(f"threads must be a multiple of 32 in [32, "
                          f"{SEP_THREADS}]; got {threads}")
     return fid, flags
+
+
+def _sep_lib(target, fid: int, flags: int, dim: int, device) -> tuple:
+    """``(library, params pointer)`` of a launch: the built-in library and
+    the functor's params past the wrappers' tables, or a user functor's
+    own library (``user_density.sep_lib``, built if need be)."""
+    if fid >= 0:
+        return _build.lib(), _build.params_ptr(target, device, dim)
+    return user_density.sep_lib(target, flags, dim, device)
 
 
 def _vec(d: int, *tensors) -> int:
@@ -273,13 +301,14 @@ def _trajectory(target, pos, eps, n_leapfrog, seed, step, tables, mom,
     parts = pos.new_empty((3, c, sep_tiles(d, threads)))
     seed_lo, seed_hi = rng.seed_words(seed)
     bij, scale, bij_t = _wrapper_ptrs(target, tables, flags)
-    lib = _build.lib()
+    lib, params = _sep_lib(target, fid, flags, d, pos.device)
     hmc_separable.launches += 1
     hmc_separable.scaled_launches += flags & 1
     hmc_separable.transformed_launches += flags >> 1
+    hmc_separable.user_launches += fid < 0
     _build.check(lib.mm_hmc_separable(
         pos.data_ptr(), None if mom is None else mom.data_ptr(),
-        eps.data_ptr(), _build.params_ptr(target, pos.device, d),
+        eps.data_ptr(), params,
         tables.data_ptr() if tables.shape[0] else None, bij, scale, c, d,
         n_leapfrog, fid, flags, threads,
         _vec(d, pos, pos_o, *tables, mom, mom_o, bij_t), chain0 & _MASK,
@@ -287,7 +316,7 @@ def _trajectory(target, pos, eps, n_leapfrog, seed, step, tables, mom,
         seed_hi, step & _MASK, pos_o.data_ptr(),
         None if mom_o is None else mom_o.data_ptr(), parts.data_ptr(),
         _build.stream_ptr(pos.device),
-    ))
+    ), lib)
     return pos_o, parts, mom_o
 
 
@@ -316,18 +345,21 @@ hmc_separable.launches = 0
 hmc_separable.scaled_launches = 0
 #: the launches of the transformed instances, also counted in ``launches``
 hmc_separable.transformed_launches = 0
+#: the launches of a user coordinate functor's instances, also counted in
+#: ``launches``
+hmc_separable.user_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _clusters(device: torch.device, fid: int, flags: int, threads: int,
+def _clusters(device: torch.device, lib, fid: int, flags: int, threads: int,
               n_tiles: int) -> int:
     """The fused form's clusters that ``device`` holds at once for this
-    instance and block size (``cudaOccupancyMaxActiveClusters``); raises
-    when it holds none."""
+    instance (of library ``lib``) and block size
+    (``cudaOccupancyMaxActiveClusters``); raises when it holds none."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        _build.check(_build.lib().mm_hmc_separable_clusters(
-            fid, flags, threads, n_tiles, ctypes.byref(out)))
+        _build.check(lib.mm_hmc_separable_clusters(
+            fid, flags, threads, n_tiles, ctypes.byref(out)), lib)
     if out.value < 1:
         raise RuntimeError(
             f"the device holds no cluster of {n_tiles} blocks of {threads} "
@@ -370,27 +402,28 @@ def hmc_separable_step(target, pos, logp, eps, n_leapfrog: int, seed: int,
             u = accept_uniforms(c, step, seed, pos.device, chain0)
         return _accept(pos, logp, pos_prop, logp_prop, ke0, ke1, u)
     fid, flags = _check(target, pos, eps, tables, mom, threads)
-    _clusters(pos.device, fid, flags, threads, n_tiles)
+    lib, params = _sep_lib(target, fid, flags, d, pos.device)
+    _clusters(pos.device, lib, fid, flags, threads, n_tiles)
     pos_o = torch.empty_like(pos)
     logp_o = torch.empty_like(logp)
     alpha_o = torch.empty_like(logp)
     seed_lo, seed_hi = rng.seed_words(seed)
     bij, scale, bij_t = _wrapper_ptrs(target, tables, flags)
-    lib = _build.lib()
     hmc_separable_step.launches += 1
     hmc_separable_step.scaled_launches += flags & 1
     hmc_separable_step.transformed_launches += flags >> 1
+    hmc_separable_step.user_launches += fid < 0
     _build.check(lib.mm_hmc_separable_step(
         pos.data_ptr(), None if mom is None else mom.data_ptr(),
         None if u is None else u.data_ptr(), logp.data_ptr(),
-        eps.data_ptr(), _build.params_ptr(target, pos.device, d),
+        eps.data_ptr(), params,
         tables.data_ptr() if tables.shape[0] else None, bij, scale, c, d,
         n_leapfrog, fid, flags, threads,
         _vec(d, pos, pos_o, *tables, mom, bij_t), chain0 & _MASK, seed_lo,
         seed_hi,
         step & _MASK, pos_o.data_ptr(), logp_o.data_ptr(),
         alpha_o.data_ptr(), _build.stream_ptr(pos.device),
-    ))
+    ), lib)
     return pos_o, logp_o, alpha_o
 
 
@@ -403,3 +436,6 @@ hmc_separable_step.scaled_launches = 0
 #: the fused launches of the transformed instances, also counted in
 #: ``launches``
 hmc_separable_step.transformed_launches = 0
+#: the fused launches of a user coordinate functor's instances, also
+#: counted in ``launches``
+hmc_separable_step.user_launches = 0

@@ -4,9 +4,14 @@
 Replaces ``mini_mcmc_tpu/ops/pallas/mh_full.py:make_pallas_mh_multistep``
 and its K = 1 form without history. Per step and chain: a symmetric
 proposal drawn from the Philox stream by the proposal's built-in form
-(``csrc/proposals.cuh``), the target's logp there (``csrc/targets.cuh``),
-the strict accept ``(lp' - lp) > log(u)`` with true selects, and the kept
-position written to ``hist[k]``.
+(``csrc/proposals.cuh``) or the user's (``Proposal.cuda_source``), the
+target's logp there (``csrc/targets.cuh``, or a user density's value:
+``Target.cuda_source`` or the C++ generated from its batch form), the
+strict accept ``(lp' - lp) > log(u)`` with true selects, and the kept
+position written to ``hist[k]``. A user form runs in a library of its own,
+the value-only table of ``user_density.py`` (:func:`mh_lib`), float32 at
+D <= 16; the twin draws a user proposal through ``propose_words``, as the
+JAX package's one ``propose_dc`` serves its kernel and interpret mode.
 
 Positions are float32 or int32 (discrete targets); the cached logp is
 float32. A transformed target (``transform=``) runs the float32 instances
@@ -41,7 +46,7 @@ import functools
 import torch
 
 from ...models.discrete import int_walk
-from . import _build, rng
+from . import _build, rng, user_density
 
 _MASK = 0xFFFFFFFF
 
@@ -66,16 +71,70 @@ PROPOSE_FROM_WORDS = {
 }
 
 
+def propose_form(proposal) -> tuple:
+    """``(words it reads at D, (params, current, words) -> proposed)`` of
+    ``proposal``'s fused form: a built-in's (``PROPOSE_FROM_WORDS``) or the
+    user's ``cuda_words`` and ``propose_words``; raises naming the missing
+    field."""
+    if proposal.cuda_functor is not None:
+        _build.proposal_id(proposal)  # raises for an unknown name
+        return PROPOSE_FROM_WORDS[proposal.cuda_functor]
+    if proposal.propose_words is None or proposal.cuda_words is None:
+        raise ValueError(
+            'use_pallas="full" needs a proposal with a built-in '
+            "cuda_functor or its own fused form: Proposal.propose_words "
+            "(the twin on Philox words) and Proposal.cuda_words, with "
+            "Proposal.cuda_source for the CUDA kernel")
+    return proposal.cuda_words, proposal.propose_words
+
+
+def user_forms(target, proposal) -> bool:
+    """Whether the pair runs in a per-form library of its own (a user
+    density or a user proposal) rather than the built-in one."""
+    return target.cuda_functor is None or proposal.cuda_functor is None
+
+
 def mh_instance(target, proposal, dtype, dim: int) -> tuple[int, int, int]:
     """The kernel's (target, proposal, state type) ids; raises
     ``ValueError`` for a whitened target, a pair without a CUDA form or
     one not instantiated at ``dtype`` and ``dim`` (plain, or transformed
-    for a transformed target), naming the instances that exist. Resolved
-    once per (forms, dtype, D, transformed), then read from a cache on
-    every launch."""
+    for a transformed target), naming the instances that exist. A user
+    density (``cuda_source``, or generated from the batch form) or a user
+    proposal (``cuda_source``) runs in a library of its own
+    (:func:`mh_lib`, float32 states, D <= 16), ids ``(-1, -1, 0)``.
+    Resolved once per (forms, dtype, D, transformed), then read from a
+    cache on every launch."""
     transformed = _build.unwhitened(target, "the MH kernel")
+    if user_forms(target, proposal):
+        propose_form(proposal)
+        if proposal.cuda_functor is None:
+            user_density.source_of(proposal, "Proposal")
+        if dtype != torch.float32:
+            raise ValueError(
+                f"user forms run in the MH kernel on float32 states; got "
+                f"{_dtype_name(dtype)} (integer user forms: ROADMAP.md, "
+                "Queue 1)")
+        if not 1 <= dim <= user_density.MAX_DIM:
+            raise ValueError(f"user forms run in the MH kernel at D <= "
+                             f"{user_density.MAX_DIM}; got D={dim}")
+        return -1, -1, _build.STATE_TYPES[dtype]
     return _mh_ids(target.cuda_functor, proposal.cuda_functor, dtype, dim,
                    transformed)
+
+
+def mh_lib(target, proposal, dtype, dim: int, device) -> tuple:
+    """``(library, target id, proposal id, state type, target params,
+    proposal params)`` of a launch: the built-in library for a built-in
+    pair, else the value-only library of the pair
+    (``user_density.value_lib``: Kernel 5's instance of the user density
+    or built-in functor beside the user or built-in proposal)."""
+    tid, pid, st = mh_instance(target, proposal, dtype, dim)
+    pparams = _build.params_ptr(proposal, device)
+    if tid >= 0:
+        return (_build.lib(), tid, pid, st,
+                _build.params_ptr(target, device), pparams)
+    handle, tparams = user_density.value_lib(target, proposal, dim, device)
+    return handle, tid, pid, st, tparams, pparams
 
 
 def _dtype_name(dtype) -> str:
@@ -110,10 +169,7 @@ def mh_multistep_plain(target, proposal, pos, logp, seed: int, step0: int,
     ``(pos', logp')``.
     """
     mh_multistep_plain.calls += 1
-    form = PROPOSE_FROM_WORDS.get(proposal.cuda_functor)
-    if form is None:
-        _build.proposal_id(proposal)  # raises, naming the built-in forms
-    words_of, propose = form
+    words_of, propose = propose_form(proposal)
     c, d = pos.shape
     accept_word = words_of(d)
     for k in range(k_steps):
@@ -147,7 +203,8 @@ def mh_multistep(target, proposal, pos, logp, seed: int, step0: int,
     if pos.dim() != 2:
         raise ValueError(f"positions must be [C, D]; got {tuple(pos.shape)}")
     c, d = pos.shape
-    tid, pid, state_type = mh_instance(target, proposal, pos.dtype, d)
+    lib, tid, pid, state_type, tparams, pparams = mh_lib(
+        target, proposal, pos.dtype, d, pos.device)
     transformed = int(target.cuda_transform is not None)
     if (logp.shape != (c,) or logp.dtype != torch.float32
             or logp.device != pos.device):
@@ -160,20 +217,21 @@ def mh_multistep(target, proposal, pos, logp, seed: int, step0: int,
     pos_o = torch.empty_like(pos)
     logp_o = torch.empty_like(logp)
     seed_lo, seed_hi = rng.seed_words(seed)
-    lib = _build.lib()
     mh_multistep.launches += 1
     mh_multistep.transformed_launches += transformed
+    mh_multistep.user_launches += tid < 0
     _build.check(lib.mm_mh_multistep(
-        pos.data_ptr(), logp.data_ptr(),
-        _build.params_ptr(target, pos.device),
-        _build.params_ptr(proposal, pos.device), k_steps, c, d, tid, pid,
-        state_type, transformed, chain0 & _MASK, seed_lo, seed_hi,
+        pos.data_ptr(), logp.data_ptr(), tparams, pparams, k_steps, c, d,
+        tid, pid, state_type, transformed, chain0 & _MASK, seed_lo, seed_hi,
         step0 & _MASK,
         pos_o.data_ptr(), logp_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
         _build.stream_ptr(pos.device),
-    ))
+    ), lib)
     return pos_o, logp_o
 
 
 mh_multistep.launches = 0
 mh_multistep.transformed_launches = 0
+#: the launches of a per-form library's instance (a user density or
+#: proposal), also counted in ``launches``
+mh_multistep.user_launches = 0

@@ -22,7 +22,13 @@ Philox by place (``csrc/philox.cuh``, Kernel 8), one evaluation per (chain,
 rung, step, sweep): counter ``(chain, step, t, i)`` gives rung t's sweep i,
 words x and y its proposal normal (the cosine branch at D = 1, the cosine
 and sine of one Box-Muller pair at D = 2), word z its accept uniform, and
-at i = 0 word w the swap uniform of pair (t, t+1).
+at i = 0 word w the swap uniform of pair (t, t+1). Past D = 2 normals
+2p and 2p + 1 are the cosine and sine of the pair on words x, y of draw
+``p T + t`` (:func:`pt_draws`).
+
+A user density (``Target.cuda_source``, or the C++ generated from its
+batch form) runs at D = 1-16 in its value-only library
+(``user_density.value_lib``), which holds Kernel 5's isotropic walk too.
 
 What bounds it on the H100: operations. One thread per (chain, rung),
 the rungs of a chain in adjacent lanes of one warp, so 8,192 chains at
@@ -43,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, rng
+from . import _build, rng, user_density
 
 _MASK = 0xFFFFFFFF
 
@@ -75,11 +81,34 @@ def make_ladder(betas, proposal_std, dim: int, device) -> Ladder:
 
 def pt_instance(target, n_temps: int, dim: int) -> int:
     """The kernel's target id; raises ``ValueError`` for a whitened
-    target, a target without a CUDA form, a (target, D) not instantiated
-    (plain, or transformed for a transformed target) or a ladder longer
-    than ``_build.PT_MAX_TEMPS``, naming what exists."""
+    target, a built-in (target, D) not instantiated (plain, or transformed
+    for a transformed target) or a ladder longer than
+    ``_build.PT_MAX_TEMPS``, naming what exists. A user density
+    (``Target.cuda_source``, or the C++ generated from its batch form)
+    runs in the value-only library of its own at D = 1-16
+    (:func:`pt_lib`), id -1."""
     transformed = _build.unwhitened(target, "the tempering kernel")
+    if target.cuda_functor is None:
+        if n_temps > _build.PT_MAX_TEMPS:
+            raise ValueError(f"the tempering kernel takes at most "
+                             f"{_build.PT_MAX_TEMPS} rungs; got {n_temps}")
+        if not 1 <= dim <= user_density.MAX_DIM:
+            raise ValueError(f"user densities run in the tempering kernel "
+                             f"at D <= {user_density.MAX_DIM}; got D={dim}")
+        return -1
     return _pt_id(target.cuda_functor, n_temps, dim, transformed)
+
+
+def pt_lib(target, n_temps: int, dim: int, device) -> tuple:
+    """``(library, target id, target params)`` of a launch: the built-in
+    library for a built-in functor, else the user density's value-only
+    library (``user_density.value_lib``, shared with Kernel 5's isotropic
+    walk)."""
+    tid = pt_instance(target, n_temps, dim)
+    if tid >= 0:
+        return _build.lib(), tid, _build.params_ptr(target, device)
+    handle, tparams = user_density.value_lib(target, None, dim, device)
+    return handle, tid, tparams
 
 
 @functools.cache
@@ -105,8 +134,9 @@ def pt_draws(n_chains: int, n_temps: int, dim: int, n_inner: int,
     swap uniforms ``[T-1, C]``. Evaluation ``(chain, step, t, i)`` gives
     rung t's sweep i: words x, y its proposal normals 0 and 1 (the cosine
     and sine of one Box-Muller pair), word z its accept uniform, and at
-    i = 0 word w the swap uniform of pair (t, t+1). Beyond the kernel's
-    D <= 2, normals 2p and 2p + 1 come from words x, y of draw p T + t."""
+    i = 0 word w the swap uniform of pair (t, t+1). Past D = 2 (the user
+    instances, D <= 16), normals 2p and 2p + 1 come from words x, y of
+    draw p T + t."""
     key = rng.seed_words(seed)
     chain = torch.arange(n_chains, device=device)
     rung = torch.arange(n_temps, device=device)[:, None]
@@ -159,7 +189,7 @@ def pt_multistep(target, pos, logp, swap_accept, parity: int, lad: Ladder,
         raise ValueError(f"positions must be [T, D, C]; got "
                          f"{tuple(pos.shape)}")
     t, d, c = pos.shape
-    tid = pt_instance(target, t, d)
+    lib, tid, tparams = pt_lib(target, t, d, pos.device)
     transformed = int(target.cuda_transform is not None)
     want = {"pos": (pos, (t, d, c)), "logp": (logp, (t, c)),
             "swap_accept": (swap_accept, (t - 1, c)),
@@ -177,18 +207,21 @@ def pt_multistep(target, pos, logp, swap_accept, parity: int, lad: Ladder,
     logp_o = torch.empty_like(logp)
     sa_o = torch.empty_like(swap_accept)
     seed_lo, seed_hi = rng.seed_words(seed)
-    lib = _build.lib()
     pt_multistep.launches += 1
     pt_multistep.transformed_launches += transformed
+    pt_multistep.user_launches += tid < 0
     _build.check(lib.mm_pt_multistep(
-        pos.data_ptr(), logp.data_ptr(), swap_accept.data_ptr(),
-        _build.params_ptr(target, pos.device), lad.packed.data_ptr(), c, d,
-        t, k_steps, n_inner, tid, transformed, parity % 2, seed_lo, seed_hi,
-        step0 & _MASK, pos_o.data_ptr(), logp_o.data_ptr(), sa_o.data_ptr(),
-        hist_ptr, hist_sk, hist_sc, _build.stream_ptr(pos.device),
-    ))
+        pos.data_ptr(), logp.data_ptr(), swap_accept.data_ptr(), tparams,
+        lad.packed.data_ptr(), c, d, t, k_steps, n_inner, tid, transformed,
+        parity % 2, seed_lo, seed_hi, step0 & _MASK, pos_o.data_ptr(),
+        logp_o.data_ptr(), sa_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
+        _build.stream_ptr(pos.device),
+    ), lib)
     return pos_o, logp_o, sa_o
 
 
 pt_multistep.launches = 0
 pt_multistep.transformed_launches = 0
+#: the launches of a user density's instance (its value-only library),
+#: also counted in ``launches``
+pt_multistep.user_launches = 0

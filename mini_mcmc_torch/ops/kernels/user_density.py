@@ -1,4 +1,5 @@
-"""User densities inside Kernels 1-4: a Target's C++ compiled per density.
+"""User forms inside the kernels: a Target's, Proposal's or Conditional's
+C++ compiled into a library of its own.
 
 Counterpart of the JAX package's ``Target.dc_forms``, ``derive_logp_dc``
 and ``derive_grad_dc`` (``mini_mcmc_tpu/models/base.py:97-125,168-211``),
@@ -25,6 +26,19 @@ error raises with nvcc's output. Nothing here traces or compiles on the
 CPU, where the fused tiers run their plain twins on ``batch_logp``; only
 the tests build a source for the host with ``g++`` (:func:`host_probe_lib`,
 ``csrc/host_shim.h``).
+
+Kernels 5-8 (:class:`Spec` kinds): MH and tempering read a density's value
+alone, so a user density (or a built-in functor beside a user proposal,
+``Proposal.cuda_source``) compiles into a value-only library
+(:func:`value_spec`: ``mm_mh_multistep``, ``mm_pt_multistep`` at D =
+1-16, ``mm_user_probe_value`` and ``mm_user_propose_probe``), with no dual
+numbers; a user conditional (``Conditional.cuda_source``) into a Gibbs
+library (:func:`gibbs_spec`); a coordinate functor (``Target.
+cuda_coord_source``, or :func:`derive_coord_dc` from the tile form) into
+Kernel 7's library, one per functor and wrapper bits, any D
+(:func:`sep_spec`). The probes hold each compiled form to its PyTorch twin
+(``models.base.validate_*_dc``); a library's name hashes its kind with the
+rest.
 """
 
 from __future__ import annotations
@@ -189,10 +203,13 @@ def _flat(shape, idx: list) -> str:
 class _Var:
     """A chain-dependent value: ``name`` holds one chain's elements, a
     row-major array of ``shape`` (a scalar when it has one element). Not a
-    tuple, so that a pytree walk sees it as one leaf."""
+    tuple, so that a pytree walk sees it as one leaf. ``chain`` False: a
+    value of a coordinate's tables alone (``[1, 1]`` in the trace), the
+    same for every chain."""
 
     name: str
     shape: tuple
+    chain: bool = True
 
 
 class _Gen:
@@ -246,11 +263,24 @@ class _Gen:
             self.consts.extend(t.detach().cpu().double().reshape(-1).tolist())
         return self._const_off[id(t)][0]
 
-    def new(self, shape: tuple, declare: bool = True) -> _Var:
+    def lead(self, node, operands: list, what: str) -> bool:
+        """Whether the node's value has the chain axis (``False``: its
+        leading axis is a table's 1, every operand a table's value);
+        raises for any other leading axis."""
+        full = tuple(node.meta["val"].shape)
+        if full and full[0] == self.chains:
+            return True
+        if (full and full[0] == 1 and not any(
+                isinstance(v, _Var) and v.chain for v in operands)):
+            return False
+        self.chain_axis(node, what)
+
+    def new(self, shape: tuple, declare: bool = True,
+            chain: bool = True) -> _Var:
         """A new value of ``shape``; ``declare``: its array now (a
         scalar is declared where it is first assigned)."""
         self._n += 1
-        v = _Var(f"v{self._n}", tuple(shape))
+        v = _Var(f"v{self._n}", tuple(shape), chain)
         if declare and _numel(shape) > 1:
             self.lines.append(f"S {v.name}[{_numel(shape)}];")
         return v
@@ -273,15 +303,14 @@ class _Gen:
         """An elementwise operation of broadcast operands; ``fmt`` takes
         their element expressions."""
         full = tuple(node.meta["val"].shape)
-        if not full or full[0] != self.chains:
-            self.chain_axis(node, "a broadcast")
+        chain = self.lead(node, operands, "a broadcast")
         for v in operands:
             if isinstance(v, _Var) and len(v.shape) + 1 != len(full):
                 self.chain_axis(node, "a broadcast")
             if (isinstance(v, torch.Tensor) and v.dim() == len(full)
                     and v.shape[0] != 1):
                 self.chain_axis(node, "a constant over the chains")
-        out = self.new(full[1:])
+        out = self.new(full[1:], chain=chain)
         self.loop(out, lambda idx: fmt(*(self.elem(v, full, idx)
                                          for v in operands)))
         return out
@@ -289,7 +318,8 @@ class _Gen:
     def gather(self, node, src: _Var, index_of) -> _Var:
         """A copy of ``src`` into the node's shape, element ``idx`` from
         ``src`` at ``index_of(idx)`` (select, slice, expand)."""
-        out = self.new(tuple(node.meta["val"].shape)[1:])
+        chain = self.lead(node, [src], "a copy")
+        out = self.new(tuple(node.meta["val"].shape)[1:], chain=chain)
         self.loop(out, lambda idx: self.elem(src, (0,) + src.shape,
                                              index_of(idx)))
         return out
@@ -303,7 +333,7 @@ class _Gen:
         red = [d - 1 for d in dims]
         kept = [k for k in range(len(src.shape)) if k not in red]
         red_shape = tuple(src.shape[k] for k in red)
-        out = self.new(tuple(node.meta["val"].shape)[1:])
+        out = self.new(tuple(node.meta["val"].shape)[1:], chain=src.chain)
         kept_shape = tuple(src.shape[k] for k in kept)
         n_red = _numel(red_shape)
 
@@ -339,7 +369,7 @@ class _Gen:
         """``a @ w``: a chain's row against a constant ``[K]`` or
         ``[K, M]``."""
         k = a.shape[-1]
-        out = self.new(tuple(node.meta["val"].shape)[1:])
+        out = self.new(tuple(node.meta["val"].shape)[1:], chain=a.chain)
         m = 1 if w.dim() == 1 else w.shape[1]
         off = self.const(w)
         row = (lambda j: f"{a.name}[{j}]") if _numel(a.shape) > 1 else (
@@ -408,14 +438,14 @@ def _emit(gen: _Gen, node, env: dict):
     x = args[0]
     if name in _VIEWS:
         full = tuple(val.shape)
-        if not full or full[0] != gen.chains:
-            gen.chain_axis(node, f"{name}")
-        if name == "unsqueeze" and args[1] % (len(x.shape) + 2) == 0:
-            gen.chain_axis(node, "unsqueeze")
-        return _Var(x.name, full[1:])
+        chain = gen.lead(node, [x], name)
+        if chain != x.chain or (name == "unsqueeze"
+                                and args[1] % (len(x.shape) + 2) == 0):
+            gen.chain_axis(node, name)
+        return _Var(x.name, full[1:], chain)
     if name == "expand":
         full = tuple(val.shape)
-        if not full or full[0] != gen.chains or len(full) != len(x.shape) + 1:
+        if len(full) != len(x.shape) + 1:
             gen.chain_axis(node, "expand")
         return gen.gather(node, x, lambda idx: idx)
     if name == "select":
@@ -468,7 +498,8 @@ def _emit(gen: _Gen, node, env: dict):
     alpha = kwargs.get("alpha", 1)
     scaled = (lambda b: b) if alpha == 1 else (
         lambda b: f"({_lit(alpha)} * {b})")
-    if name in ("add", "sub", "mul", "div", "rsub", "minimum", "maximum"):
+    if name in ("add", "sub", "mul", "div", "rsub", "minimum", "maximum",
+                "logaddexp"):
         if name == "div" and kwargs.get("rounding_mode") is not None:
             gen.fail(node, "a rounded division")
         fmt = {
@@ -479,6 +510,7 @@ def _emit(gen: _Gen, node, env: dict):
             "div": lambda a, b: f"({a} / {b})",
             "minimum": lambda a, b: f"mm::fmin({a}, {b})",
             "maximum": lambda a, b: f"mm::fmax({a}, {b})",
+            "logaddexp": lambda a, b: f"mm::logaddexp({a}, {b})",
         }[name]
         return gen.pointwise(node, args[:2], fmt)
     gen.fail(node, f"aten.{name}.{overload} is outside the code "
@@ -500,45 +532,22 @@ def derive_logp_dc(target, dim: int, device="cpu") -> tuple:
     The table: elementwise and broadcast ``+ - * /``, ``neg``, ``exp``,
     ``log``, ``log1p``, ``expm1``, ``sqrt``, ``pow`` by a number,
     ``tanh``, ``sin``, ``cos``, ``abs``, ``minimum``/``maximum``,
-    ``reciprocal`` and ``square``; ``select``, ``slice``, ``unsqueeze``,
+    ``logaddexp``, ``reciprocal`` and ``square``; ``select``, ``slice``, ``unsqueeze``,
     ``view``/``reshape`` and ``expand`` on the per-chain axes; ``sum``
     over them; ``mm``/``mv`` (``matmul``) of a chain's row against a
     constant. Any other operation raises ``ValueError`` naming it, and so
     does a reduction, index or reshape across the chain axis (one chain's
     density reading another's): write the C++ as ``Target.cuda_source``.
     """
-    from torch.fx.experimental.proxy_tensor import make_fx
-
     if not 1 <= dim <= MAX_DIM:
         raise ValueError(f"user densities run in Kernels 1-4 at D <= "
                          f"{MAX_DIM}; got D={dim}")
     chains = next(r for r in (7, 11, 13) if r != dim)
     x = torch.zeros((chains, dim), dtype=torch.float32, device=device)
-    gm = make_fx(lambda p: target.batch_logp(p))(x)
-    gen = _Gen(chains, len(target.cuda_params))
-    env: dict = {}
-    out = None
-    for node in gm.graph.nodes:
-        if node.op == "placeholder":
-            env[node.name] = _Var("x", (dim,))
-        elif node.op == "get_attr":
-            env[node.name] = getattr(gm, node.target)
-        elif node.op == "call_function":
-            env[node.name] = _emit(gen, node, env)
-        elif node.op == "output":
-            out = node.args[0]
-            out = out[0] if isinstance(out, (tuple, list)) else out
-        else:
-            gen.fail(node, f"an FX {node.op} node")
-    res = env[out.name]
-    shape = tuple(out.meta["val"].shape)
-    if shape != (chains,):
-        raise ValueError(f"derive_logp_dc: batch_logp must return [C]; got "
-                         f"{list(shape)} for a [{chains}, {dim}] input")
-    ret = (res.name if isinstance(res, _Var)
-           else _lit(res.reshape(-1)[0].item()))
-    body = "\n".join("    " + ln if not ln.startswith("#") else ln
-                     for ln in gen.lines)
+    # x is the array const S (&)[D]: at D = 1 its one element is x[0]
+    row = _Var("x[0]" if dim == 1 else "x", (dim,))
+    gen, ret, body = _trace(target.batch_logp, (x,), (row,),
+                            len(target.cuda_params), "batch_logp")
     source = f"""// generated by derive_logp_dc from the batch form, D = {dim}
 struct Density {{
   const float* p_;
@@ -554,6 +563,144 @@ struct Density {{
 """
     return source, tuple(float(v) for v in target.cuda_params) + tuple(
         float(np.float32(v)) for v in gen.consts)
+
+
+def _trace(fn, inputs: tuple, variables: tuple, offset: int, what: str):
+    """``fn`` traced by ``make_fx`` on ``inputs`` (each placeholder the
+    matching value of ``variables``), written out one node at a time:
+    ``(generator, returned expression, body lines)``. ``fn`` must return
+    ``[R]`` for the ``R`` rows of the first input."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    chains = inputs[0].shape[0]
+    gm = make_fx(lambda *a: fn(*a))(*inputs)
+    gen = _Gen(chains, offset)
+    env: dict = {}
+    out = None
+    placeholders = iter(variables)
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            env[node.name] = next(placeholders)
+        elif node.op == "get_attr":
+            env[node.name] = getattr(gm, node.target)
+        elif node.op == "call_function":
+            env[node.name] = _emit(gen, node, env)
+        elif node.op == "output":
+            out = node.args[0]
+            out = out[0] if isinstance(out, (tuple, list)) else out
+        else:
+            gen.fail(node, f"an FX {node.op} node")
+    res = env[out.name]
+    shape = tuple(out.meta["val"].shape)
+    if shape != (chains,):
+        raise ValueError(
+            f"the code generator: {what} must return [C]; got {list(shape)}"
+            f" for a {list(inputs[0].shape)} input")
+    ret = (res.name if isinstance(res, _Var)
+           else _lit(res.reshape(-1)[0].item()))
+    body = "\n".join("    " + ln if not ln.startswith("#") else ln
+                     for ln in gen.lines)
+    return gen, ret, body
+
+
+#: the most ``sep_form`` tables a coordinate functor reads
+#: (``csrc/user_density.cuh:UserCoord``)
+MAX_COORD_TABLES = 2
+
+
+def derive_coord_dc(target, device="cpu") -> tuple:
+    """The C++ of ``target``'s coordinate functor (``struct Coord``,
+    ``csrc/user_density.cuh``) generated from its ``sep_forms()`` tile
+    density, and the ``cuda_params`` it reads: ``target``'s own, then the
+    trace's tensor constants. The counterpart of the JAX package's
+    per-tile ``jax.vjp`` of ``tile_logp`` (``ops/pallas/hmc_bigd.py:
+    134-167``): the kernel differentiates the term by dual numbers.
+
+    ``tile_logp`` is traced on a single coordinate, an ``[R, 1]`` input
+    and ``[1, 1]`` tables, each table read as the coordinate's entry
+    ``t[j]``; a target without a ``sep_form`` traces its batch form at
+    D = 1 (the JAX default, ``base.py:145-149``). The operations are
+    :func:`derive_logp_dc`'s. More than ``MAX_COORD_TABLES`` tables raise.
+    """
+    tile_logp, tables = target.sep_forms()
+    n = len(tables)
+    if n > MAX_COORD_TABLES:
+        raise ValueError(
+            f"a coordinate functor reads at most {MAX_COORD_TABLES} "
+            f"sep_form tables; the target has {n}")
+    x = torch.zeros((7, 1), dtype=torch.float32, device=device)
+    tabs = tuple(torch.ones((1, 1), dtype=torch.float32, device=device)
+                 for _ in range(n))
+    variables = (_Var("x", (1,)),) + tuple(
+        _Var(f"t[{j}]", (1,), chain=False) for j in range(n))
+    gen, ret, body = _trace(tile_logp, (x,) + tabs, variables,
+                            len(target.cuda_params), "tile_logp")
+    source = f"""// generated by derive_coord_dc from the tile form, {n} tables
+struct Coord {{
+  static constexpr int kTables = {n};
+  const float* p_;
+  __device__ __forceinline__ explicit Coord(const float* p) : p_(p) {{}}
+
+  template <class S>
+  __device__ __forceinline__ S logp(S x,
+                                    const mm::CoordTables<kTables>& t) const {{
+{body}
+    return {ret};
+  }}
+}};
+"""
+    return source, tuple(float(v) for v in target.cuda_params) + tuple(
+        float(np.float32(v)) for v in gen.consts)
+
+
+class CoordForms(NamedTuple):
+    """What Kernel 7 compiles for a target (:func:`coord_forms`):
+    ``source`` the ``Coord`` functor's C++, ``params`` every float it
+    reads, ``n_tables`` its tables, ``traced`` whether it was generated."""
+
+    source: str
+    params: tuple
+    n_tables: int
+    traced: bool
+
+
+def coord_forms(target, dim: int, device="cpu") -> CoordForms:
+    """The coordinate functor Kernel 7 compiles for ``target`` (a metric's
+    or a transform's wrapper around it included) at ``dim``: its
+    ``cuda_coord_source``, or the one :func:`derive_coord_dc` traces from
+    the tile form of the target it wraps (``cuda_base``) or of itself. The
+    params are the functor's own (past a wrapper's tables,
+    ``_build.wrapper_floats``), then a trace's constants."""
+    base = coord_base(target)
+    n = len(base.sep_forms()[1])
+    own = tuple(target.cuda_params)[_build.wrapper_floats(target, dim):]
+    if target.cuda_coord_source is not None:
+        if n > MAX_COORD_TABLES:
+            raise ValueError(
+                f"a coordinate functor reads at most {MAX_COORD_TABLES} "
+                f"sep_form tables; the target has {n}")
+        return CoordForms(target.cuda_coord_source, own, n, False)
+    source, traced = _coord_traced(base, torch.device(device).type)
+    return CoordForms(source, own + traced[len(own):], n, True)
+
+
+def coord_base(target):
+    """The target whose tile form gives ``target``'s coordinate functor:
+    the one a metric or a transform wraps (``cuda_base``), or ``target``
+    itself. Raises for a wrapper around a density source without a
+    coordinate source, whose tile form it does not keep."""
+    wrapped = target.cuda_affine or target.cuda_transform is not None
+    if wrapped and target.cuda_base is None:
+        raise ValueError(
+            "the separable kernel runs a metric's or a transform's wrapper "
+            "around a target with a cuda_source only when that target "
+            "also gives Target.cuda_coord_source")
+    return target.cuda_base or target
+
+
+@functools.lru_cache(maxsize=64)
+def _coord_traced(base, device_type: str):
+    return derive_coord_dc(base, device_type)
 
 
 # --------------------------------------------------------------------------
@@ -671,41 +818,347 @@ extern "C" int mm_nuts_step_f32(const void* pos, const void* eps,
 }
 
 
-def _density_unit(source: str, dim: int, flags: int, header: str) -> str:
+def _unit(text: str, header: str, prelude: str) -> str:
+    """A generated translation unit: the headers, the user's C++ pasted
+    in ``namespace mm_user`` (``text``), then ``prelude`` (the instance's
+    constants and types) in an unnamed namespace."""
     return f"""// generated by mini_mcmc_torch/ops/kernels/user_density.py
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "user_density.cuh"
+#include "hmc_common.cuh"
 #include "targets.cuh"
+#include "coord_targets.cuh"
+#include "proposals.cuh"
+#include "conditionals.cuh"
 #include "{header}"
 
 namespace mm_user {{
-#line 1 "cuda_source"
-{source}
+{text}
 }}  // namespace mm_user
 
 namespace {{
-constexpr int kDim = {dim};
-constexpr int kFlags = {flags};
-using Inst = {instance_type(dim, flags)};
+{prelude}
 }}  // namespace
 """
 
 
-def library_sources(source: str, dim: int, flags: int) -> dict:
-    """The generated translation units of a per-density library, by
-    name: one for each kernel, Kernel 1's with the probe."""
-    return {name: _density_unit(source, dim, flags, header) + entry
-            for name, (header, entry) in _ENTRIES.items()}
+def _pasted(source: str, name: str = "cuda_source") -> str:
+    """A user source as pasted: compile errors name ``name`` and its
+    lines."""
+    return f'#line 1 "{name}"\n{source}\n'
 
 
-def library_path(source: str, dim: int, flags: int) -> Path:
-    """Where :func:`lib_for` puts the library: its name hashes the
-    source, D, the bits, nvcc's flags and every header."""
+def _density_unit(source: str, dim: int, flags: int, header: str) -> str:
+    return _unit(_pasted(source), header, f"""constexpr int kDim = {dim};
+constexpr int kFlags = {flags};
+using Inst = {instance_type(dim, flags)};""")
+
+
+_ERROR_STRING = """
+extern "C" const char* mm_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+"""
+
+# The value-only table (Kernels 5 and 8, which read a density's value
+# alone): Target and Proposal are the instance's types, a built-in
+# functor's or the user's (User<Density>, inside Transformed under a
+# transform; mm_user::Proposal).
+_VALUE_ENTRIES = {
+    "mh": ("mh_multistep.cuh", """
+extern "C" int mm_mh_multistep(const void* pos, const void* logp,
+    const void* tparams, const void* pparams, int k_steps, int n_chains,
+    int dim, int target, int proposal, int state_type, int transformed,
+    uint32_t chain0, uint32_t seed_lo, uint32_t seed_hi, uint32_t step0,
+    void* pos_out, void* logp_out, void* hist, long long hist_sk,
+    long long hist_sc, void* stream) {
+  if (n_chains <= 0) return (int)cudaSuccess;
+  if (dim != kDim || state_type != mm::kF32 || transformed != kTransformed)
+    return (int)cudaErrorInvalidValue;
+  const mm::MhArgs a{pos,     logp,    tparams, pparams,  k_steps,
+                     n_chains, chain0, seed_lo, seed_hi,  step0,
+                     pos_out, logp_out, hist,   hist_sk,  hist_sc, stream};
+  return mm::launch_mh<Target, Proposal, float, kDim>(a);
+}
+""" + _ERROR_STRING),
+    "pt": ("pt_multistep.cuh", """
+extern "C" int mm_pt_multistep(const void* pos, const void* logp,
+    const void* sa, const void* tparams, const void* ladder, int n_chains,
+    int dim, int n_temps, int k_steps, int n_inner, int target,
+    int transformed, int parity0, uint32_t seed_lo, uint32_t seed_hi,
+    uint32_t step0, void* pos_out, void* logp_out, void* sa_out, void* hist,
+    long long hist_sk, long long hist_sc, void* stream) {
+  if (n_chains <= 0) return (int)cudaSuccess;
+  if (dim != kDim || transformed != kTransformed)
+    return (int)cudaErrorInvalidValue;
+  const mm::PtArgs a{pos,      logp,    sa,      tparams, ladder,
+                     n_chains, n_temps, k_steps, n_inner, parity0,
+                     seed_lo,  seed_hi, step0,   pos_out, logp_out,
+                     sa_out,   hist,    hist_sk, hist_sc, stream};
+  return mm::launch_pt<Target, kDim>(a);
+}
+"""),
+    "probe": ("philox.cuh", """
+__global__ void value_probe_kernel(const float* __restrict__ x, int rows,
+                                   const float* __restrict__ params,
+                                   float* __restrict__ logp) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const Target t(params);
+  if (r >= rows) return;
+  float xr[kDim];
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) xr[d] = x[(long long)r * kDim + d];
+  logp[r] = t.template logp<kDim>(xr);
+}
+
+__global__ void propose_probe_kernel(const float* __restrict__ x,
+                                     const uint32_t* __restrict__ w,
+                                     int rows,
+                                     const float* __restrict__ params,
+                                     float* __restrict__ y) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const Proposal q(params);
+  if (r >= rows) return;
+  float xr[kDim], yr[kDim];
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) xr[d] = x[(long long)r * kDim + d];
+  q.template propose<kDim>(xr, w + (long long)r * kPropWords, yr);
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) y[(long long)r * kDim + d] = yr[d];
+}
+
+// the instance's logp at `rows` states [rows, D]; returns the CUDA error
+extern "C" int mm_user_probe_value(const void* x, int rows,
+                                   const void* params, void* logp,
+                                   void* stream) {
+  if (rows <= 0) return (int)cudaSuccess;
+  value_probe_kernel<<<mm::blocks_for(rows), mm::kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const float*)x, rows, (const float*)params, (float*)logp);
+  return (int)cudaGetLastError();
+}
+
+// the proposal from `rows` states [rows, D] on their words [rows, W]
+// (W = words<D>(), which `n_words` must equal) into y [rows, D]
+extern "C" int mm_user_propose_probe(const void* x, const void* words,
+                                     int rows, int n_words,
+                                     const void* params, void* y,
+                                     void* stream) {
+  if (n_words != kPropWords) return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return (int)cudaSuccess;
+  propose_probe_kernel<<<mm::blocks_for(rows), mm::kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const float*)x, (const uint32_t*)words, rows, (const float*)params,
+      (float*)y);
+  return (int)cudaGetLastError();
+}
+"""),
+}
+
+_GIBBS_ENTRIES = {
+    "gibbs": ("gibbs_multistep.cuh", """
+extern "C" int mm_gibbs_multistep(const void* pos, const void* params,
+    int k_steps, int n_chains, int dim, int conditional, uint32_t chain0,
+    uint32_t seed_lo, uint32_t seed_hi, uint32_t step0, void* pos_out,
+    void* hist, long long hist_sk, long long hist_sc, void* stream) {
+  if (n_chains <= 0) return (int)cudaSuccess;
+  if (dim != kDim) return (int)cudaErrorInvalidValue;
+  const mm::GibbsArgs a{pos,     params,  k_steps, n_chains, chain0,
+                        seed_lo, seed_hi, step0,   pos_out,  hist,
+                        hist_sk, hist_sc, stream};
+  return mm::launch_gibbs<mm_user::Conditional, kDim>(a);
+}
+""" + _ERROR_STRING),
+    "probe": ("philox.cuh", """
+__global__ void sample_probe_kernel(const float* __restrict__ x,
+                                    const uint32_t* __restrict__ w,
+                                    int rows,
+                                    const float* __restrict__ params,
+                                    float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const mm_user::Conditional cond(params);
+  float s[kDim];
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) s[d] = x[(long long)r * kDim + d];
+#pragma unroll
+  for (int i = 0; i < kDim; ++i) {
+    s[i] = cond.template sample<kDim>(i, s, w + (long long)r * kWords);
+  }
+#pragma unroll
+  for (int d = 0; d < kDim; ++d) out[(long long)r * kDim + d] = s[d];
+}
+
+// one sweep from `rows` states [rows, D] on their words [rows, W] (W =
+// words<D>(), which `n_words` must equal) into out [rows, D]
+extern "C" int mm_user_sample_probe(const void* x, const void* words,
+                                    int rows, int n_words,
+                                    const void* params, void* out,
+                                    void* stream) {
+  if (n_words != kWords) return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return (int)cudaSuccess;
+  sample_probe_kernel<<<mm::blocks_for(rows), mm::kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)x, (const uint32_t*)words, rows, (const float*)params,
+      (float*)out);
+  return (int)cudaGetLastError();
+}
+"""),
+}
+
+_SEP_ENTRIES = {
+    "sep": ("hmc_separable.cuh", """
+extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
+    const void* eps, const void* params, const void* tables, const void* bij,
+    const void* scale, int n_chains, int dim, int n_leapfrog, int functor,
+    int flags, int threads, int vec, uint32_t chain0, uint32_t seed_lo,
+    uint32_t seed_hi, uint32_t step, void* pos_out, void* mom_out,
+    void* parts, void* stream) {
+  if (flags != kFlags) return (int)cudaErrorInvalidValue;
+  const mm::SepCall c{pos,      mom_in,  nullptr,  nullptr, eps,
+                      params,   tables,  bij,      scale,   n_chains,
+                      dim,      n_leapfrog, threads, vec,   chain0,
+                      seed_lo,  seed_hi, step,     pos_out, mom_out,
+                      parts,    nullptr, nullptr,  stream};
+  return mm::sep_trajectory<Inst>(c);
+}
+
+extern "C" int mm_hmc_separable_step(const void* pos, const void* mom_in,
+    const void* u_in, const void* logp_in, const void* eps,
+    const void* params, const void* tables, const void* bij,
+    const void* scale, int n_chains, int dim, int n_leapfrog, int functor,
+    int flags, int threads, int vec, uint32_t chain0, uint32_t seed_lo,
+    uint32_t seed_hi, uint32_t step, void* pos_out, void* logp_out,
+    void* alpha_out, void* stream) {
+  if (flags != kFlags) return (int)cudaErrorInvalidValue;
+  const mm::SepCall c{pos,      mom_in,  u_in,     logp_in, eps,
+                      params,   tables,  bij,      scale,   n_chains,
+                      dim,      n_leapfrog, threads, vec,   chain0,
+                      seed_lo,  seed_hi, step,     pos_out, nullptr,
+                      nullptr,  logp_out, alpha_out, stream};
+  return mm::sep_step<Inst>(c);
+}
+
+extern "C" int mm_hmc_separable_clusters(int functor, int flags,
+                                         int threads, int n_tiles,
+                                         int* out) {
+  *out = 0;
+  if (flags != kFlags) return (int)cudaErrorInvalidValue;
+  return mm::sep_clusters<Inst>(threads, n_tiles, out);
+}
+""" + _ERROR_STRING),
+    "probe": ("philox.cuh", """
+__global__ void coord_probe_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ t0,
+                                   const float* __restrict__ t1,
+                                   const float* __restrict__ bij,
+                                   const float* __restrict__ scale, int n,
+                                   const float* __restrict__ params,
+                                   const float* __restrict__ consts,
+                                   float* __restrict__ logp,
+                                   float* __restrict__ grad) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  mm::coord_probe_at<Inst>(x, t0, t1, bij, scale, n, params, consts, i,
+                           logp, grad);
+}
+
+// the instance's term and derivative at n coordinates x [n], each with
+// its table entries t0, t1 [n], bijector code, offset and width bij
+// [3, n] and scale [n] (read as far as the instance reads them); consts
+// the six soft-saturation constants
+extern "C" int mm_user_coord_probe(const void* x, const void* t0,
+                                   const void* t1, const void* bij,
+                                   const void* scale, int n,
+                                   const void* params, const void* consts,
+                                   void* logp, void* grad, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  coord_probe_kernel<<<mm::blocks_for(n), mm::kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)t0, (const float*)t1,
+      (const float*)bij, (const float*)scale, n, (const float*)params,
+      (const float*)consts, (float*)logp, (float*)grad);
+  return (int)cudaGetLastError();
+}
+"""),
+}
+
+
+class Spec(NamedTuple):
+    """A per-form library: its user C++ (``source``, pasted in ``namespace
+    mm_user``), D (0: any), wrapper bits and ``kind``: ``"density"``
+    (Kernels 1-4 and ``mm_user_probe``, ``instance_flags`` bits),
+    ``"value"`` (Kernels 5 and 8 and the value and proposal probes;
+    ``types`` the target's and the proposal's C++ types, bit 1 a
+    transform), ``"gibbs"`` (Kernel 6 and the sweep probe) or ``"sep"``
+    (Kernel 7's three entries and the coordinate probe, any D; bits 1 a
+    diagonal metric, 2 a transform). Every field is part of the library's
+    name."""
+
+    source: str
+    dim: int
+    flags: int
+    kind: str = "density"
+    types: tuple = ()
+
+
+def _sep_inst(flags: int) -> str:
+    coord = "mm::UserCoord<mm_user::Coord>"
+    if flags & 2:
+        return f"mm::TransformedCoord<{coord}, {'true' if flags & 1 else 'false'}>"
+    return f"mm::Scaled<{coord}>" if flags & 1 else coord
+
+
+def library_sources(source: str, dim: int, flags: int, kind: str = "density",
+                    types: tuple = ()) -> dict:
+    """The generated translation units of a per-form library
+    (:class:`Spec`), by name."""
+    if kind == "density":
+        return {name: _density_unit(source, dim, flags, header) + entry
+                for name, (header, entry) in _ENTRIES.items()}
+    if kind == "value":
+        target, proposal = types
+        if flags & 2:
+            target = f"mm::Transformed<{target}, {dim}>"
+        prelude = f"""constexpr int kDim = {dim};
+constexpr int kTransformed = {flags >> 1 & 1};
+using Target = {target};
+using Proposal = {proposal};
+constexpr int kPropWords = Proposal::template words<kDim>();"""
+        names = ("mh", "pt", "probe") if "mm_user::" in target else (
+            "mh", "probe")
+        return {n: _unit(source, _VALUE_ENTRIES[n][0], prelude)
+                + _VALUE_ENTRIES[n][1] for n in names}
+    if kind == "gibbs":
+        prelude = f"""constexpr int kDim = {dim};
+constexpr int kWords = mm_user::Conditional::template words<kDim>();"""
+        return {n: _unit(source, h, prelude) + e
+                for n, (h, e) in _GIBBS_ENTRIES.items()}
+    if kind == "sep":
+        (n_tables,) = types
+        prelude = f"""constexpr int kFlags = {flags};
+using Coord = mm::UserCoord<mm_user::Coord>;
+using Inst = {_sep_inst(flags)};
+static_assert(mm_user::Coord::kTables == {n_tables},
+              "Coord::kTables must be the sep_form's {n_tables} tables");"""
+        return {n: _unit(source, h, prelude) + e
+                for n, (h, e) in _SEP_ENTRIES.items()}
+    raise ValueError(f"unknown library kind {kind!r}")
+
+
+def library_path(source: str, dim: int, flags: int, kind: str = "density",
+                 types: tuple = ()) -> Path:
+    """Where :func:`lib_for` puts the library: its name hashes every field
+    of its :class:`Spec`, its generated translation units, nvcc's flags
+    and every header."""
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
-    h.update(f"{dim}:{flags}\n".encode())
-    h.update(source.encode())
+    h.update(f"{kind}:{dim}:{flags}:{types!r}\n".encode())
+    for name, text in library_sources(source, dim, flags, kind,
+                                      types).items():
+        h.update(name.encode())
+        h.update(text.encode())
     for p in sorted(_build.CSRC_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -714,19 +1167,20 @@ def library_path(source: str, dim: int, flags: int) -> Path:
 
 def jobs(requests) -> list:
     """The compile jobs (``_build.compile_libraries``) of the libraries of
-    ``requests``, ``(source, dim, flags)`` triples, that are not built
-    yet, their translation units written to ``GEN_DIR``."""
+    ``requests``, :class:`Spec` tuples (a ``(source, dim, flags)`` triple
+    is a Kernels 1-4 library), that are not built yet, their translation
+    units written to ``GEN_DIR``."""
     out = []
-    for source, dim, flags in requests:
-        if not 1 <= dim <= MAX_DIM:
-            raise ValueError(f"user densities run in Kernels 1-4 at D <= "
-                             f"{MAX_DIM}; got D={dim}")
-        so = library_path(source, dim, flags)
+    for spec in map(lambda r: Spec(*r), requests):
+        if spec.kind != "sep" and not 1 <= spec.dim <= MAX_DIM:
+            raise ValueError(f"user forms run in the kernels at D <= "
+                             f"{MAX_DIM}; got D={spec.dim}")
+        so = library_path(*spec)
         if so.exists() or any(so == j[1] for j in out):
             continue
         GEN_DIR.mkdir(parents=True, exist_ok=True)
         srcs = []
-        for name, text in library_sources(source, dim, flags).items():
+        for name, text in library_sources(*spec).items():
             path = GEN_DIR / f"{so.stem}_{name}.cu"
             path.write_text(text)
             srcs.append(path)
@@ -735,29 +1189,47 @@ def jobs(requests) -> list:
 
 
 def build(requests) -> list:
-    """Compile the libraries of ``requests``, ``(source, dim, flags)``
-    triples, that are not built yet: every translation unit of every one
-    in its own ``nvcc`` process, all started together. Returns their
-    paths; raises ``RuntimeError`` with nvcc's output for a source that
-    does not compile. The ``ptxas -v`` reports go to a ``.log`` beside
-    each library, the seconds of its build to its first line."""
+    """Compile the libraries of ``requests`` (:func:`jobs`) that are not
+    built yet: every translation unit of every one in its own ``nvcc``
+    process, all started together. Returns their paths; raises
+    ``RuntimeError`` with nvcc's output for a source that does not
+    compile. The ``ptxas -v`` reports go to a ``.log`` beside each
+    library, the seconds of its build to its first line."""
     _build.compile_libraries(jobs(requests))
     return [library_path(*r) for r in requests]
 
 
-@functools.lru_cache(maxsize=64)
-def _load(path: str) -> ctypes.CDLL:
-    handle = _build.bind(ctypes.CDLL(path))
-    handle.mm_user_probe.argtypes = [_P, _I, _P, _P, _P, _P]
-    handle.mm_user_probe.restype = _I
-    return handle
+_SIGS = {
+    "density": dict(_build.KERNEL_SIGS, mm_user_probe=[_P, _I, _P, _P, _P,
+                                                       _P]),
+    "value": {"mm_mh_multistep": _build.ENTRY_SIGS["mm_mh_multistep"],
+              "mm_user_probe_value": [_P, _I, _P, _P, _P],
+              "mm_user_propose_probe": [_P, _P, _I, _I, _P, _P, _P]},
+    "gibbs": {"mm_gibbs_multistep": _build.ENTRY_SIGS["mm_gibbs_multistep"],
+              "mm_user_sample_probe": [_P, _P, _I, _I, _P, _P, _P]},
+    "sep": {k: _build.ENTRY_SIGS[k] for k in (
+        "mm_hmc_separable", "mm_hmc_separable_step",
+        "mm_hmc_separable_clusters")} | {
+        "mm_user_coord_probe": [_P] * 5 + [_I] + [_P] * 5},
+}
 
 
-def lib_for(source: str, dim: int, flags: int) -> ctypes.CDLL:
-    """The loaded library of ``source`` at ``dim`` under ``flags``, built
-    first if need be (cached per process)."""
-    (path,) = build([(source, dim, flags)])
-    return _load(str(path))
+@functools.lru_cache(maxsize=128)
+def _load(path: str, kind: str = "density") -> ctypes.CDLL:
+    handle = ctypes.CDLL(path)
+    sigs = dict(_SIGS[kind])
+    if kind == "value" and hasattr(handle, "mm_pt_multistep"):
+        sigs["mm_pt_multistep"] = _build.ENTRY_SIGS["mm_pt_multistep"]
+    return _build.bind(handle, sigs)
+
+
+def lib_for(source: str, dim: int, flags: int, kind: str = "density",
+            types: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of a :class:`Spec`, built first if need be
+    (cached per process)."""
+    spec = Spec(source, dim, flags, kind, types)
+    (path,) = build([spec])
+    return _load(str(path), kind)
 
 
 @functools.lru_cache(maxsize=64)
@@ -776,14 +1248,170 @@ def kernel_lib(target, dim: int, device) -> tuple:
     return handle, 0, params.data_ptr()
 
 
-def probe(target, x: torch.Tensor):
+# --------------------------------------------------------------------------
+# Kernels 5-8: user densities, proposals, conditionals and coordinate
+# functors
+
+
+#: the C++ types of the built-in functors that a user form's library
+#: instantiates beside it (csrc/targets.cuh, csrc/proposals.cuh)
+TARGET_TYPES = {"rosenbrock_nd": "mm::RosenbrockND",
+                "gaussian2d": "mm::Gaussian2D",
+                "gaussian_mixture_1d": "mm::GaussianMixture1D",
+                "neal_funnel": "mm::NealFunnel"}
+PROPOSAL_TYPES = {"isotropic_gaussian": "mm::IsotropicGaussian"}
+_USER_DENSITY = "mm::User<mm_user::Density>"
+
+
+def source_of(form, kind: str) -> str:
+    """``form.cuda_source``; raises for a form without one, naming the
+    field (the JAX package derives neither a proposal nor a
+    conditional: ``ops/mh.py:119-122``, ``ops/gibbs.py:57-60``)."""
+    if form.cuda_source is None:
+        raise ValueError(
+            f"a {kind} without a built-in cuda_functor needs its C++ as "
+            f"{kind}.cuda_source (csrc/{kind.lower()}s.cuh states the "
+            "contract) to run in the CUDA kernel; use use_pallas=False")
+    return form.cuda_source
+
+
+def value_spec(target, proposal, dim: int, device="cpu") -> tuple:
+    """``(Spec, target params)`` of Kernel 5's (and, for a user density,
+    Kernel 8's) library for ``target`` at ``dim`` under ``proposal``
+    (``None``: the isotropic walk, the library tempering runs): the user
+    density's source or a built-in functor's type, the user proposal's
+    source or a built-in one's type, bit 1 a transform. The params are
+    the density's (``dc_forms``: a transform's table, its own, a trace's
+    constants), ``None`` for a built-in functor's (``_build.params_ptr``).
+    Raises for a form neither route runs."""
+    transformed = _build.unwhitened(target, "the MH and tempering kernels")
+    text, params = "", None
+    if target.cuda_functor is None:
+        forms = dc_forms(target, dim, device)
+        text += _pasted(forms.source)
+        params = forms.params
+        ttype = _USER_DENSITY
+    elif target.cuda_functor in TARGET_TYPES:
+        if transformed and dim not in _build.KERNEL_DIMS:
+            raise ValueError(
+                f"a transformed built-in functor runs at D in "
+                f"{_build.KERNEL_DIMS} (its bijector table rides in "
+                f"cuda_params only there); got D={dim}")
+        ttype = TARGET_TYPES[target.cuda_functor]
+    else:
+        raise ValueError(
+            f"Target.cuda_functor {target.cuda_functor!r} has no float32 "
+            "instance beside a user proposal (integer user forms: "
+            "ROADMAP.md, Queue 1)")
+    if proposal is None or proposal.cuda_functor is not None:
+        name = "isotropic_gaussian" if proposal is None else (
+            proposal.cuda_functor)
+        if name not in PROPOSAL_TYPES:
+            raise ValueError(
+                f"Proposal.cuda_functor {name!r} has no float32 instance "
+                "beside a user density (integer user forms: ROADMAP.md, "
+                "Queue 1)")
+        ptype = PROPOSAL_TYPES[name]
+    else:
+        text += _pasted(source_of(proposal, "Proposal"),
+                        "proposal cuda_source")
+        ptype = "mm_user::Proposal"
+    return Spec(text, dim, 2 * transformed, "value", (ttype, ptype)), params
+
+
+@functools.lru_cache(maxsize=64)
+def _value_resolved(target, proposal, dim: int, device: torch.device):
+    spec, params = value_spec(target, proposal, dim, device)
+    handle = lib_for(*spec)
+    tparams = None if params is None else torch.tensor(
+        params or (0.0,), dtype=torch.float32, device=device)
+    return handle, tparams
+
+
+def value_lib(target, proposal, dim: int, device) -> tuple:
+    """``(library, target params pointer)`` of the value-only library of
+    :func:`value_spec` (built if need be); the pointer is ``None`` for a
+    built-in functor, whose params the caller passes
+    (``_build.params_ptr``)."""
+    handle, tparams = _value_resolved(target, proposal, dim,
+                                      torch.device(device))
+    if tparams is None:
+        return handle, _build.params_ptr(target, device)
+    return handle, tparams.data_ptr()
+
+
+def gibbs_spec(conditional, dim: int) -> Spec:
+    """The :class:`Spec` of Kernel 6's library for a user conditional at
+    ``dim``; raises for one without ``cuda_source``."""
+    return Spec(_pasted(source_of(conditional, "Conditional")), dim, 0,
+                "gibbs")
+
+
+def sep_spec(target, flags: int, dim: int, device="cpu") -> tuple:
+    """``(Spec, params)`` of Kernel 7's library for ``target``'s
+    coordinate functor (:func:`coord_forms`) under the wrapper bits
+    ``flags`` (1 a diagonal metric, 2 a transform); D-independent, the
+    params the functor's at ``dim``. Raises past ``MAX_COORD_TABLES``
+    tables, a scaled instance's scale included."""
+    forms = coord_forms(target, dim, device)
+    if flags == 1 and forms.n_tables + 1 > MAX_COORD_TABLES:
+        raise ValueError(
+            f"the separable kernel reads at most {MAX_COORD_TABLES} "
+            f"tables: a diagonal metric's scale beside the functor's "
+            f"{forms.n_tables}")
+    return (Spec(_pasted(forms.source, "coord cuda_source"), 0, flags, "sep",
+                 (forms.n_tables,)), forms.params)
+
+
+@functools.lru_cache(maxsize=64)
+def _sep_resolved(target, flags: int, dim: int, device: torch.device):
+    spec, params = sep_spec(target, flags, dim, device)
+    return lib_for(*spec), torch.tensor(params or (0.0,),
+                                        dtype=torch.float32, device=device)
+
+
+def sep_lib(target, flags: int, dim: int, device) -> tuple:
+    """``(library, params pointer)`` of :func:`sep_spec`'s library, built
+    if need be."""
+    handle, params = _sep_resolved(target, flags, dim, torch.device(device))
+    return handle, params.data_ptr()
+
+
+def _as_u32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in ``[0, 2**32)`` as a contiguous int32 tensor of the
+    same bits, for a ``const uint32_t*``."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
+
+
+def probe(target, x: torch.Tensor, need_grad: bool = True, proposal=None):
     """The compiled instance's ``(logp [R], grad [R, D])`` at the rows of
     ``x``, ``[R, D]`` float32: on the card through the per-density
     library's ``mm_user_probe`` (building it if need be), on the CPU
-    through the host build (:func:`host_probe_lib`)."""
+    through the host build (:func:`host_probe_lib`). ``need_grad`` False
+    (the value-only kernels, 5 and 8): the value-only library's
+    ``mm_user_probe_value`` on the card, which builds no dual numbers,
+    and ``grad`` is ``None``; the library is that of (``target``,
+    ``proposal``), the one MH launches (``None``: the isotropic walk's,
+    the one tempering launches)."""
     x = x.detach().to(torch.float32).contiguous()
     r, d = x.shape
     logp = torch.empty((r,), dtype=torch.float32, device=x.device)
+    if not need_grad:
+        if x.is_cuda:
+            handle, params = value_lib(target, proposal, d, x.device)
+            _build.check(handle.mm_user_probe_value(
+                x.data_ptr(), r, params, logp.data_ptr(),
+                _build.stream_ptr(x.device)), handle)
+            return logp, None
+        forms = dc_forms(target, d, "cpu")
+        flags = _build.instance_flags(target)
+        handle = _host_load(_HOST_VALUE_UNIT.format(
+            source=forms.source, dim=d, inst=instance_type(d, flags)))
+        params = np.asarray(forms.params or (0.0,), np.float32)
+        handle.mm_user_probe_value_host(x.data_ptr(), r, params.ctypes.data,
+                                        logp.data_ptr())
+        return logp, None
     grad = torch.empty_like(x)
     if x.is_cuda:
         handle, params = _resolved(target, d, x.device)
@@ -800,20 +1428,146 @@ def probe(target, x: torch.Tensor):
     return logp, grad
 
 
+def propose_probe(proposal, x: torch.Tensor, words: torch.Tensor,
+                  target) -> torch.Tensor:
+    """The compiled user proposal's ``[R, D]`` proposal from the rows of
+    ``x`` ``[R, D]`` on ``words`` ``[R, W]`` (int64, ``W =
+    proposal.cuda_words(D)``): on the card the probe entry of Kernel 5's
+    library of (``target``, the proposal), on the CPU the host build of
+    the proposal alone. Raises when the source's ``words<D>()`` is not
+    ``cuda_words(D)``."""
+    x = x.detach().to(torch.float32).contiguous()
+    r, d = x.shape
+    w = _as_u32(words[:, :proposal.cuda_words(d)])
+    y = torch.empty_like(x)
+    params = torch.tensor(tuple(proposal.cuda_params) or (0.0,),
+                          dtype=torch.float32, device=x.device)
+    if x.is_cuda:
+        handle, _ = value_lib(target, proposal, d, x.device)
+        code = handle.mm_user_propose_probe(
+            x.data_ptr(), w.data_ptr(), r, w.shape[1], params.data_ptr(),
+            y.data_ptr(), _build.stream_ptr(x.device))
+    else:
+        handle = _host_load(_HOST_PROPOSE_UNIT.format(
+            source=source_of(proposal, "Proposal"), dim=d))
+        code = handle.mm_user_propose_probe_host(
+            x.data_ptr(), w.data_ptr(), r, w.shape[1], params.data_ptr(),
+            y.data_ptr())
+    _words_check(code, "Proposal", d, proposal.cuda_words(d),
+                 handle if x.is_cuda else None)
+    return y
+
+
+def sample_probe(conditional, x: torch.Tensor,
+                 words: torch.Tensor) -> torch.Tensor:
+    """One sweep of the compiled user conditional from the rows of ``x``
+    ``[R, D]`` on ``words`` ``[R, W]`` (``W = conditional.cuda_words(D)``),
+    coordinate ``i = 0..D-1`` in order given the updated state, as Kernel
+    6 sweeps: on the card the Gibbs library's probe entry, on the CPU the
+    host build. Returns ``[R, D]``."""
+    x = x.detach().to(torch.float32).contiguous()
+    r, d = x.shape
+    w = _as_u32(words[:, :conditional.cuda_words(d)])
+    out = torch.empty_like(x)
+    params = torch.tensor(tuple(conditional.cuda_params) or (0.0,),
+                          dtype=torch.float32, device=x.device)
+    if x.is_cuda:
+        handle = lib_for(*gibbs_spec(conditional, d))
+        code = handle.mm_user_sample_probe(
+            x.data_ptr(), w.data_ptr(), r, w.shape[1], params.data_ptr(),
+            out.data_ptr(), _build.stream_ptr(x.device))
+    else:
+        handle = _host_load(_HOST_SAMPLE_UNIT.format(
+            source=source_of(conditional, "Conditional"), dim=d))
+        code = handle.mm_user_sample_probe_host(
+            x.data_ptr(), w.data_ptr(), r, w.shape[1], params.data_ptr(),
+            out.data_ptr())
+    _words_check(code, "Conditional", d, conditional.cuda_words(d),
+                 handle if x.is_cuda else None)
+    return out
+
+
+def _words_check(code: int, kind: str, dim: int, n_words: int,
+                 handle=None) -> None:
+    if code == 1:  # cudaErrorInvalidValue, and the host build's refusal
+        raise ValueError(
+            f"the {kind}'s cuda_source reads another number of words at "
+            f"D={dim} than {kind}.cuda_words({dim}) = {n_words}: the twin "
+            "and the kernel would take the accept or the next draw from "
+            "other words")
+    if code:
+        _build.check(code, handle)
+
+
+def coord_probe(target, x: torch.Tensor):
+    """The separable kernel's instance for ``target`` (its coordinate
+    functor inside the target's metric and transform wrappers, the bits
+    of ``hmc_sep.sep_instance``): each element's term and derivative at
+    ``x`` ``[R, D]`` in the kernel's coordinates, coordinate d reading
+    column d of the target's ``sep_forms()`` tables, its bijector and its
+    scale, as Kernel 7 reads them: ``(logp [R, D], grad [R, D])``. On the
+    card through Kernel 7's library's probe entry, on the CPU through the
+    host build."""
+    from .hmc_sep import _bij_table, sep_instance
+
+    x = x.detach().to(torch.float32).contiguous()
+    r, d = x.shape
+    _, n_rows, flags = sep_instance(target)
+    tables = [t.detach().to(x.device, torch.float32).reshape(d)
+              for t in target.sep_forms()[1]]
+    ones = torch.ones(d, dtype=torch.float32, device=x.device)
+
+    def each(v):  # a [D] table as every element's entry
+        return v.expand(r, d).contiguous()
+
+    t0 = each(tables[0] if n_rows > 0 else ones)
+    t1 = each(tables[1] if n_rows > 1 else ones)
+    scale = each(tables[-1] if flags == 3 else ones)
+    if flags & 2:
+        full = _bij_table(target, x.device)
+        rows = full[:3 * d].reshape(3, 1, d).expand(3, r, d).contiguous()
+        consts = full[3 * d:].contiguous()
+    else:
+        rows = torch.zeros((3, r, d), device=x.device)
+        rows[2] = 1.0
+        consts = torch.zeros(8, device=x.device)
+    logp, grad = torch.empty_like(x), torch.empty_like(x)
+    spec, params = sep_spec(target, flags, d, x.device)
+    params = torch.tensor(params or (0.0,), dtype=torch.float32,
+                          device=x.device)
+    args = (x.data_ptr(), t0.data_ptr(), t1.data_ptr(), rows.data_ptr(),
+            scale.data_ptr(), r * d, params.data_ptr(), consts.data_ptr(),
+            logp.data_ptr(), grad.data_ptr())
+    if x.is_cuda:
+        handle = lib_for(*spec)
+        _build.check(handle.mm_user_coord_probe(
+            *args, _build.stream_ptr(x.device)), handle)
+    else:
+        handle = _host_load(_HOST_COORD_UNIT.format(
+            source=spec.source, n_tables=spec.types[0],
+            inst=_sep_inst(flags)))
+        handle.mm_user_coord_probe_host(*args)
+    return logp, grad
+
+
 # --------------------------------------------------------------------------
 # The host build, for the CPU tests
 
 
-_HOST_UNIT = """// generated by mini_mcmc_torch/ops/kernels/user_density.py (host)
+_HOST_HEAD = """// generated by mini_mcmc_torch/ops/kernels/user_density.py (host)
 #include "host_shim.h"
 #include "user_density.cuh"
 #include "targets.cuh"
+#include "proposals.cuh"
+#include "conditionals.cuh"
+#include "coord_targets.cuh"
 
 namespace mm_user {{
 #line 1 "cuda_source"
 {source}
 }}  // namespace mm_user
-
+"""
+_HOST_UNIT = _HOST_HEAD + """
 using Inst = {inst};
 
 extern "C" void mm_user_probe_host(const float* x, int rows,
@@ -826,6 +1580,88 @@ extern "C" void mm_user_probe_host(const float* x, int rows,
   }}
 }}
 """
+_HOST_VALUE_UNIT = _HOST_HEAD + """
+using Inst = {inst};
+
+extern "C" void mm_user_probe_value_host(const float* x, int rows,
+                                         const float* params, float* logp) {{
+  const Inst t(params);
+  for (int r = 0; r < rows; ++r) {{
+    float xr[{dim}];
+    for (int d = 0; d < {dim}; ++d) xr[d] = x[(long long)r * {dim} + d];
+    logp[r] = t.template logp<{dim}>(xr);
+  }}
+}}
+"""
+_HOST_PROPOSE_UNIT = _HOST_HEAD + """
+extern "C" int mm_user_propose_probe_host(const float* x,
+                                          const uint32_t* w, int rows,
+                                          int n_words, const float* params,
+                                          float* y) {{
+  constexpr int kWords = mm_user::Proposal::template words<{dim}>();
+  if (n_words != kWords) return 1;
+  const mm_user::Proposal q(params);
+  for (int r = 0; r < rows; ++r) {{
+    float xr[{dim}], yr[{dim}];
+    for (int d = 0; d < {dim}; ++d) xr[d] = x[(long long)r * {dim} + d];
+    q.template propose<{dim}>(xr, w + (long long)r * kWords, yr);
+    for (int d = 0; d < {dim}; ++d) y[(long long)r * {dim} + d] = yr[d];
+  }}
+  return 0;
+}}
+"""
+_HOST_SAMPLE_UNIT = _HOST_HEAD + """
+extern "C" int mm_user_sample_probe_host(const float* x, const uint32_t* w,
+                                         int rows, int n_words,
+                                         const float* params, float* out) {{
+  constexpr int kWords = mm_user::Conditional::template words<{dim}>();
+  if (n_words != kWords) return 1;
+  const mm_user::Conditional cond(params);
+  for (int r = 0; r < rows; ++r) {{
+    float s[{dim}];
+    for (int d = 0; d < {dim}; ++d) s[d] = x[(long long)r * {dim} + d];
+    for (int i = 0; i < {dim}; ++i) {{
+      s[i] = cond.template sample<{dim}>(i, s, w + (long long)r * kWords);
+    }}
+    for (int d = 0; d < {dim}; ++d) out[(long long)r * {dim} + d] = s[d];
+  }}
+  return 0;
+}}
+"""
+_HOST_COORD_UNIT = """// generated by mini_mcmc_torch/ops/kernels/user_density.py (host)
+#include "host_shim.h"
+#include "user_density.cuh"
+#include "coord_targets.cuh"
+
+namespace mm_user {{
+{source}
+}}  // namespace mm_user
+
+using Coord = mm::UserCoord<mm_user::Coord>;
+using Inst = {inst};
+static_assert(mm_user::Coord::kTables == {n_tables},
+              "Coord::kTables must be the sep_form's {n_tables} tables");
+
+extern "C" void mm_user_coord_probe_host(const float* x, const float* t0,
+                                         const float* t1, const float* bij,
+                                         const float* scale, int n,
+                                         const float* params,
+                                         const float* consts, float* logp,
+                                         float* grad) {{
+  for (int i = 0; i < n; ++i) {{
+    mm::coord_probe_at<Inst>(x, t0, t1, bij, scale, n, params, consts, i,
+                             logp, grad);
+  }}
+}}
+"""
+#: the host units' entries and their argument types
+_HOST_SIGS = {
+    "mm_user_probe_host": ([_P, _I, _P, _P, _P], None),
+    "mm_user_probe_value_host": ([_P, _I, _P, _P], None),
+    "mm_user_propose_probe_host": ([_P, _P, _I, _I, _P, _P], _I),
+    "mm_user_sample_probe_host": ([_P, _P, _I, _I, _P, _P], _I),
+    "mm_user_coord_probe_host": ([_P] * 5 + [_I] + [_P] * 4, None),
+}
 #: g++ flags of the host build: IEEE float arithmetic, as nvcc's without
 #: -use_fast_math, and no contraction into FMAs beyond what the card does
 HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
@@ -843,6 +1679,8 @@ def host_probe_lib(source: str, dim: int, flags: int = 0) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=64)
 def _host_load(text: str) -> ctypes.CDLL:
+    """A host unit built with ``g++`` (cached by its text and the
+    headers' in ``build/mini_mcmc_torch/``), its entries bound."""
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
         raise RuntimeError("g++ not found: the host build cannot be made")
@@ -866,6 +1704,9 @@ def _host_load(text: str) -> ctypes.CDLL:
                                f"{out.stderr[-6000:]}")
         os.replace(tmp, so)
     handle = ctypes.CDLL(str(so))
-    handle.mm_user_probe_host.argtypes = [_P, _I, _P, _P, _P]
-    handle.mm_user_probe_host.restype = None
+    for name, (argtypes, restype) in _HOST_SIGS.items():
+        if hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
     return handle

@@ -20,8 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..runner import StepKey, make_scan_block_fn
-from .kernels._build import proposal_id
-from .kernels.mh_full import mh_multistep
+from .kernels.mh_full import mh_multistep, propose_form
 
 
 class MHState(NamedTuple):
@@ -72,10 +71,13 @@ def mh_kernel(target, proposal, *, use_pallas=False, steps_per_call: int = 1):
     ``step_fn(state, key: StepKey) -> MHState``.
 
     ``use_pallas="full"`` runs whole steps in Kernel 5
-    (``kernels/mh_full.py``): it needs a symmetric proposal with a
-    built-in CUDA form (``Proposal.cuda_functor``; the plain twin draws
-    through it on CPU tensors too) and, on CUDA tensors, a target with
-    one. ``steps_per_call`` > 1 attaches ``step_fn.block_fn(state, key,
+    (``kernels/mh_full.py``): it needs a symmetric proposal with a fused
+    form, built in (``Proposal.cuda_functor``) or the user's
+    (``propose_words`` and ``cuda_words``, the twin's, with
+    ``cuda_source`` on CUDA tensors; ``ops/mh.py:119-122`` in the JAX
+    package requires ``propose_dc`` likewise); on CUDA tensors the target
+    runs as a built-in functor or as its own C++ (``Target.cuda_source``,
+    or generated from its batch form). ``steps_per_call`` > 1 attaches ``step_fn.block_fn(state, key,
     out=None) -> state`` and ``step_fn.block_size`` = K: one Kernel 5
     launch per K steps with ``"full"``, else K calls of ``step_fn``.
     Every kept position is recorded; nothing is thinned.
@@ -92,7 +94,7 @@ def mh_kernel(target, proposal, *, use_pallas=False, steps_per_call: int = 1):
             raise ValueError(
                 'use_pallas="full" requires a symmetric proposal (the '
                 "kernel skips the q terms, which cancel)")
-        proposal_id(proposal)  # raises for a proposal without a CUDA form
+        propose_form(proposal)  # raises for a proposal without a fused form
         full = True
 
     def init_fn(positions: torch.Tensor) -> MHState:

@@ -27,7 +27,13 @@ from typing import Optional
 
 import torch
 
-from .models.base import validate_dc_forms, validate_separable
+from .models.base import (
+    validate_conditional_dc,
+    validate_coord_dc,
+    validate_dc_forms,
+    validate_proposal_dc,
+    validate_separable,
+)
 from .models.precondition import (
     Preconditioner,
     estimate_preconditioner,
@@ -41,10 +47,10 @@ from .ops.ensemble import ensemble_kernel
 from .ops.gibbs import gibbs_kernel
 from .ops.hmc import hmc_kernel
 from .ops.kernels._build import kernel_lib
-from .ops.kernels.gibbs_full import gibbs_instance
-from .ops.kernels.hmc_sep import sep_functor
-from .ops.kernels.mh_full import mh_instance
-from .ops.kernels.pt_full import pt_instance
+from .ops.kernels.gibbs_full import gibbs_lib
+from .ops.kernels.hmc_sep import sep_instance
+from .ops.kernels.mh_full import mh_lib
+from .ops.kernels.pt_full import pt_lib
 from .ops.mh import mh_kernel, mh_step_alpha
 from .ops.sgmcmc import sghmc_kernel, sgld_kernel
 from .ops.slice import slice_kernel
@@ -290,9 +296,18 @@ class MetropolisHastings(_KernelSampler):
     Mirrors ``mini_mcmc_tpu.MetropolisHastings``'s constructor, so one
     kwargs dict builds both packages (``convert.mh_sampler_kwargs``).
     ``use_pallas="full"`` runs K whole steps per launch of Kernel 5
-    (``ops/mh.py:mh_kernel``); it needs a symmetric proposal with a
-    built-in CUDA form and, on CUDA positions, an instantiated (target,
-    proposal, state dtype, D), and raises ``ValueError`` otherwise.
+    (``ops/mh.py:mh_kernel``); it needs a symmetric proposal with a fused
+    form (a built-in ``cuda_functor``, or ``propose_words`` and
+    ``cuda_words`` with ``cuda_source`` on CUDA) and, on CUDA positions, a
+    built-in (target, proposal, state dtype, D) or, for a user density
+    (``Target.cuda_source``, or generated from its batch form) or a user
+    proposal, a library of its own (float32, D <= 16), and raises
+    ``ValueError`` otherwise, naming what is missing. With ``validate_dc``
+    (the default) that library's density is held to the batch form and a
+    user proposal to its twin on the initial positions
+    (:func:`~mini_mcmc_torch.models.base.validate_dc_forms` with
+    ``need_grad=False``, as the JAX sampler,
+    :func:`~mini_mcmc_torch.models.base.validate_proposal_dc`).
 
     The state keeps the initial positions' dtype (an int32 init stays
     int32; its logp is float32). The sampler runs on ``device``
@@ -306,8 +321,7 @@ class MetropolisHastings(_KernelSampler):
     ``initial_positions``, the samples and ``positions`` stay natural.
     ``"full"`` runs it through Kernel 5's transformed instance
     (``targets.cuh:Transformed``). An integer state takes no transform
-    (``ValueError``). ``pallas_interpret`` and ``validate_dc`` have no
-    counterpart.
+    (``ValueError``). ``pallas_interpret`` has no counterpart.
 
     Example:
         >>> import mini_mcmc_torch as mt
@@ -323,8 +337,8 @@ class MetropolisHastings(_KernelSampler):
 
     def __init__(self, target, proposal, initial_positions,
                  seed: Optional[int] = None, use_pallas=False,
-                 steps_per_call: int = 1, transform=None, *,
-                 device="cuda"):
+                 steps_per_call: int = 1, transform=None,
+                 validate_dc: bool = True, *, device="cuda"):
         self.target = target
         self.proposal = proposal
         #: proposal scale factor against the proposal first constructed
@@ -332,7 +346,7 @@ class MetropolisHastings(_KernelSampler):
         self.scale_factor = 1.0
         self._ctor = dict(use_pallas=use_pallas,
                           steps_per_call=steps_per_call, transform=transform,
-                          device=device)
+                          validate_dc=validate_dc, device=device)
         positions = initial_positions_on(initial_positions, device)
         kernel_target, positions_map, positions, _ = _wrap_sampler_target(
             target, positions, transform, None)
@@ -342,9 +356,14 @@ class MetropolisHastings(_KernelSampler):
                                      use_pallas=use_pallas,
                                      steps_per_call=steps_per_call)
         if use_pallas and positions.is_cuda and positions.dim() == 2:
-            # a pair the kernel cannot run (plain or transformed): raise now
-            mh_instance(kernel_target, proposal, positions.dtype,
-                        positions.shape[1])
+            # a pair the kernel cannot run (plain or transformed): raise
+            # now; a user form's library is built here
+            mh_lib(kernel_target, proposal, positions.dtype,
+                   positions.shape[1], positions.device)
+            if validate_dc:
+                validate_dc_forms(kernel_target, positions, need_grad=False,
+                                  proposal=proposal)
+                validate_proposal_dc(proposal, kernel_target, positions)
         super().__init__(init_fn, step_fn, positions, seed,
                          positions_map=positions_map)
 
@@ -418,8 +437,12 @@ class HMC(_KernelSampler):
     translate; with ``validate_dc`` (the default) a compiled density is
     held to the batch form on the initial positions
     (:func:`~mini_mcmc_torch.models.base.validate_dc_forms`).
-    ``"separable"`` needs a coordinate functor of ``_build.SEP_FUNCTORS``
-    on CUDA, validates separability on the initial positions
+    ``"separable"`` runs a coordinate functor on CUDA: a built-in one
+    (``_build.SEP_FUNCTORS``), ``Target.cuda_coord_source``, or the one
+    generated from the target's tile form (at most two tables), checked
+    under ``validate_dc`` against the tile form and autograd
+    (:func:`~mini_mcmc_torch.models.base.validate_coord_dc`); it validates
+    separability on the initial positions
     (:func:`~mini_mcmc_torch.models.base.validate_separable`) on every
     device, and nothing turns that off (``validate_dc`` included).
 
@@ -476,8 +499,11 @@ class HMC(_KernelSampler):
         if use_pallas == "separable":
             validate_separable(kernel_target, positions)
             if positions.is_cuda:
-                sep_functor(kernel_target)  # no coordinate functor: raise
+                # a target the kernel cannot run: raise now
+                sep_instance(kernel_target)
                 _float32_only("HMC", use_pallas, positions)
+                if validate_dc:
+                    validate_coord_dc(kernel_target, positions)
         elif use_pallas and positions.is_cuda:
             check_kernel_target(kernel_target, positions, validate_dc)
         init_fn, step_fn = hmc_kernel(kernel_target, step_size, n_leapfrog,
@@ -804,12 +830,18 @@ class GibbsSampler(_KernelSampler):
 
     Mirrors ``mini_mcmc_tpu.GibbsSampler``'s constructor.
     ``use_pallas="full"`` runs K whole sweeps per launch of Kernel 6
-    (``ops/gibbs.py:gibbs_kernel``); it needs a conditional with a built-in
-    CUDA form (``Conditional.cuda_functor``) and, on CUDA positions,
-    float32 states at an instantiated D. ``steps_per_call`` > 1 fuses K
-    sweeps per call (run lengths must then be multiples of K). Runs on
-    ``device`` (``"cuda"`` by default); ``device="cpu"`` runs the plain
-    tier and the kernel's plain twin on the CPU.
+    (``ops/gibbs.py:gibbs_kernel``); it needs a conditional with a fused
+    form (a built-in ``cuda_functor``, or ``sample_words`` and
+    ``cuda_words`` with ``cuda_source`` on CUDA, in a library of its own
+    at D <= 16) and, on CUDA positions, float32 states at an instantiated
+    D. A user conditional's compiled sweep is always held to its twin on
+    the initial positions (:func:`~mini_mcmc_torch.models.base.
+    validate_conditional_dc`; the JAX sampler needs no such check, since
+    one ``sample_dc`` serves its kernel and its twin). ``steps_per_call``
+    > 1 fuses K sweeps per
+    call (run lengths must then be multiples of K). Runs on ``device``
+    (``"cuda"`` by default); ``device="cpu"`` runs the plain tier and the
+    kernel's plain twin on the CPU.
     """
 
     def __init__(self, conditional, initial_positions,
@@ -820,8 +852,10 @@ class GibbsSampler(_KernelSampler):
         init_fn, step_fn = gibbs_kernel(conditional, use_pallas=use_pallas,
                                         steps_per_call=steps_per_call)
         if use_pallas and positions.is_cuda:
-            gibbs_instance(conditional, positions.shape[-1])  # raise now
+            # raise now; a user conditional's library is built here
             _float32_only("GibbsSampler", use_pallas, positions)
+            gibbs_lib(conditional, positions.shape[-1])
+            validate_conditional_dc(conditional, positions)
         super().__init__(init_fn, step_fn, positions, seed)
 
 
@@ -845,22 +879,27 @@ class ParallelTempering(_KernelSampler):
     ``use_pallas="full"`` runs ``steps_per_call`` whole steps per launch
     of Kernel 8 (``ops/kernels/pt_full.py``); on CUDA positions it needs a
     target whose ``cuda_functor`` is instantiated at its D
-    (``_build.PT_INSTANCES``) and at most ``_build.PT_MAX_TEMPS`` rungs,
-    and raises ``ValueError`` otherwise. Runs on ``device`` (``"cuda"`` by
+    (``_build.PT_INSTANCES``) or a user density (``Target.cuda_source``,
+    or generated from its batch form; D <= 16, a library of its own), and
+    at most ``_build.PT_MAX_TEMPS`` rungs, and raises ``ValueError``
+    otherwise. With ``validate_dc`` (the default) a user density's
+    compiled value is held to the batch form on the initial positions
+    (:func:`~mini_mcmc_torch.models.base.validate_dc_forms` with
+    ``need_grad=False``, as the JAX sampler). Runs on ``device`` (``"cuda"`` by
     default); ``device="cpu"`` runs the plain tier and the kernel's twin.
     ``transform``: optional :class:`~mini_mcmc_torch.models.transforms.
     CoordinateTransform`; the replicas walk the unconstrained space (the
     tempered densities are ``beta`` times the wrapped logp) and the cold
     cube and ``positions`` stay natural. ``"full"`` runs it through Kernel
     8's transformed instance (``targets.cuh:Transformed``).
-    ``pallas_interpret`` and ``validate_dc`` have no counterpart.
+    ``pallas_interpret`` has no counterpart.
     """
 
     def __init__(self, target, initial_positions,
                  betas: Optional[tuple] = None, proposal_std=1.0,
                  n_inner: int = 1, seed: Optional[int] = None,
                  steps_per_call: int = 1, use_pallas=False, transform=None,
-                 *, device="cuda"):
+                 validate_dc: bool = True, *, device="cuda"):
         self.target = target
         self.transform = transform
         self.betas = tuple(float(b) for b in (
@@ -868,7 +907,7 @@ class ParallelTempering(_KernelSampler):
         self._ctor = dict(proposal_std=proposal_std, n_inner=n_inner,
                           steps_per_call=steps_per_call,
                           use_pallas=use_pallas, transform=transform,
-                          device=device)
+                          validate_dc=validate_dc, device=device)
         positions = initial_positions_on(initial_positions, device)
         kernel_target, positions_map, positions, _ = _wrap_sampler_target(
             target, positions, transform, None)
@@ -879,9 +918,12 @@ class ParallelTempering(_KernelSampler):
             use_pallas=use_pallas)
         if use_pallas and positions.is_cuda and positions.dim() == 2:
             # a target (plain or transformed) or ladder the kernel cannot
-            # run: raise now
-            pt_instance(kernel_target, len(self.betas), positions.shape[1])
+            # run: raise now; a user density's library is built here
             _float32_only("ParallelTempering", use_pallas, positions)
+            pt_lib(kernel_target, len(self.betas), positions.shape[1],
+                   positions.device)
+            if validate_dc:
+                validate_dc_forms(kernel_target, positions, need_grad=False)
         # the cold rung, mapped to natural coordinates under a transform
         super().__init__(init_fn, step_fn, positions, seed, recorded=_cold,
                          positions_map=positions_map)

@@ -556,10 +556,12 @@ def test_cuda_mh_gibbs_functor_and_dtype_errors(cuda):
     x = torch.zeros((256, 2), device=cuda)
     with pytest.raises(ValueError, match="float32, D=2"):
         MetropolisHastings(t, walk, x.double(), use_pallas="full")
+    # a user density runs in its own library, float32 states only
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        MetropolisHastings(Target(logp=t.logp), walk, x, use_pallas="full")
+        MetropolisHastings(Target(logp=t.logp), walk, x.double(),
+                           use_pallas="full")
     no_form = Proposal(sample=walk.sample, logp=walk.logp, symmetric=True)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="propose_words"):
         MetropolisHastings(t, no_form, x, use_pallas="full")
     with pytest.raises(ValueError, match="random_walk_int, int32"):
         MetropolisHastings(poisson_target(4.0), walk,
@@ -568,7 +570,7 @@ def test_cuda_mh_gibbs_functor_and_dtype_errors(cuda):
     cond = gaussian_mixture_conditional(*MIX)
     with pytest.raises(ValueError, match="float32"):
         GibbsSampler(cond, x.double(), use_pallas="full")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="sample_words"):
         GibbsSampler(constant_conditional(1.0), x, use_pallas="full")
     with pytest.raises(ValueError, match="D=2"):
         GibbsSampler(cond, torch.zeros((256, 3), device=cuda),
@@ -645,9 +647,19 @@ def test_cuda_separable_matches_plain(cuda, which, d):
 @pytest.mark.cuda
 def test_cuda_separable_sampler(cuda):
     x = torch.randn((256, 64), device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        HMC(Target(logp=standard_normal().logp), x, 0.1, 5,
-            use_pallas="separable")
+    # a plain target runs the coordinate functor generated from its batch
+    # form; a tile form of three tables raises, naming the limit
+    n = hmc_separable_step.user_launches
+    plain = HMC(Target(logp=standard_normal().logp), x, 0.1, 5,
+                use_pallas="separable").seed(1).run(4)
+    assert hmc_separable_step.user_launches == n + 4
+    assert bool(torch.isfinite(plain).all())
+    ones = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="at most 2"):
+        HMC(Target(logp=standard_normal().logp,
+                   sep_form=(lambda v, a, b, c: -0.5 * torch.sum(
+                       v * v * a * b * c, -1), (ones, ones, ones))),
+            x, 0.1, 5, use_pallas="separable")
     with pytest.raises(ValueError, match="separable"):
         HMC(rosenbrock_nd(), torch.randn((64, 3), device=cuda), 0.1, 5,
             use_pallas="separable")
@@ -734,8 +746,16 @@ def test_cuda_pt_multistep_matches_plain(cuda, which, n_temps, n_inner, c):
 @pytest.mark.cuda
 def test_cuda_pt_sampler_errors_and_runs(cuda):
     x = torch.full((1024, 1), -8.0, device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        ParallelTempering(Target(logp=_mixture().logp), x, use_pallas="full")
+    # a plain target runs its traced density (the value-only library); a
+    # user density past D = 16 raises
+    n = pt_multistep.user_launches
+    ParallelTempering(Target(logp=_mixture().logp), x, use_pallas="full",
+                      steps_per_call=4).seed(1).run(8)
+    assert pt_multistep.user_launches == n + 2
+    with pytest.raises(ValueError, match="D <= 16"):
+        ParallelTempering(Target(logp=_mixture().logp),
+                          torch.zeros((64, 17), device=cuda),
+                          use_pallas="full")
     with pytest.raises(ValueError, match="at most 16"):
         ParallelTempering(_mixture(), x, betas=geometric_betas(17),
                           use_pallas="full")
@@ -2180,3 +2200,178 @@ def test_cuda_user_library_cache_reuses_an_unchanged_source(cuda):
     assert path.stat().st_mtime_ns == built
     # another D or wrapper bits is another library
     assert user_density.library_path(CUDA_SOURCE, 10, 5) != path
+
+
+# User forms in Kernels 5-8: each user instance against its twin
+
+
+def _user_gaussian(d):
+    """A Gaussian at D = ``d`` with standard deviations 0.5..2.5, a plain
+    batch form (traced)."""
+    s = torch.linspace(0.5, 2.5, d)
+    return Target(
+        logp=lambda x: -0.5 * torch.sum((x / s.to(x.device)) ** 2, dim=-1))
+
+
+def _user_mh_case(which, c, cuda):
+    from mini_mcmc_torch.examples import user_forms as F
+
+    mean, cov = [0.5, -1.0], [[1.0, 0.3], [0.3, 2.0]]
+    g = diffable_gaussian2d(mean, cov)
+    d = {"gauss_d5": 5, "gauss_d16": 16}.get(which, 2)
+    target, walk = {
+        "traced": (F.gaussian2d_user(mean, cov, hand=False),
+                   isotropic_gaussian_proposal(1.0)),
+        "hand": (F.gaussian2d_user(mean, cov), F.isotropic_walk(1.0)),
+        "scaled_walk": (g, F.scaled_walk([0.8, 1.3])),
+        "rosenbrock": (F.rosenbrock_banana(),
+                       isotropic_gaussian_proposal(0.5)),
+        # past D = 3 Kernel 5's user instances take the accept's logf
+        # before the proposal (mh_multistep.cuh, kLean): a user density
+        # beside a user proposal at D = 5, and beside the walk at D = 16
+        "gauss_d5": (_user_gaussian(5),
+                     F.scaled_walk([0.4, 0.6, 0.8, 1.0, 1.2])),
+        "gauss_d16": (_user_gaussian(16), isotropic_gaussian_proposal(0.5)),
+    }[which]
+    x = torch.from_numpy(_state(c, d, 31)[0])
+    return target, walk, x, target.batch_logp(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["traced", "hand", "scaled_walk",
+                                   "rosenbrock", "gauss_d5", "gauss_d16"])
+def test_cuda_mh_user_instances_match_their_twins(cuda, which):
+    """Kernel 5 with a user density (value-only library) or a user
+    proposal against its twin for one K = 16 block, at D = 2, 5 and 16:
+    the same accepts and positions within rtol 1e-5 on at least 99.9% of
+    chains."""
+    t, walk, x, lp = _user_mh_case(which, 8192, cuda)
+    x, lp = x.to(cuda), lp.to(cuda)
+    hk = torch.empty((16,) + tuple(x.shape), device=cuda)
+    hp = torch.empty_like(hk)
+    mh_multistep.user_launches = 0
+    got = mh_multistep(t, walk, x, lp, 0x5EED_1701, 3, 16, hk)
+    want = mh_multistep_plain(t, walk, x, lp, 0x5EED_1701, 3, 16, hp)
+    assert mh_multistep.user_launches == 1
+    moved_k = (hk != torch.cat([x[None], hk[:-1]])).any(2)
+    moved_p = (hp != torch.cat([x[None], hp[:-1]])).any(2)
+    near = ((hk - hp).abs() <= 1e-6 + 1e-5 * hp.abs()).all(2).all(0)
+    assert _share((moved_k == moved_p).all(0) & near) >= 0.999
+    assert _share(((got[1] - want[1]).abs()
+                   <= 1e-6 + 1e-5 * want[1].abs())) >= 0.999
+
+
+@pytest.mark.cuda
+def test_cuda_user_copies_give_the_builtin_kernels_cube(cuda):
+    """The hand Gaussian2D source and the user isotropic walk, copies of
+    the built-ins' arithmetic, give the built-in instance's cube bit for
+    bit from the same seed; so does the user mixture conditional."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    mean, cov = [0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]]
+    x = torch.from_numpy(_state(4096, 2, 5)[0]).to(cuda)
+    cubes = [MetropolisHastings(t, p, x, use_pallas="full",
+                                steps_per_call=16).seed(3).run(64)
+             for t, p in ((gaussian2d(mean, cov),
+                           isotropic_gaussian_proposal(1.0)),
+                          (F.gaussian2d_user(mean, cov),
+                           isotropic_gaussian_proposal(1.0)),
+                          (gaussian2d(mean, cov), F.isotropic_walk(1.0)))]
+    assert torch.equal(cubes[0], cubes[1]) and torch.equal(cubes[0],
+                                                           cubes[2])
+    z = torch.zeros((4096, 2), device=cuda)
+    g = [GibbsSampler(cond, z, use_pallas="full", steps_per_call=8)
+         .seed(3).run(64) for cond in (gaussian_mixture_conditional(*MIX),
+                                       F.mixture_conditional(*MIX))]
+    assert torch.equal(g[0], g[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 5, 16])
+def test_cuda_pt_user_instances_match_their_twins(cuda, dim):
+    """Kernel 8's user instance (the value-only library) at D = 1, 5, 16
+    against its twin for one K = 16 block, the normals past D = 2 from
+    draws p T + t: every field within rtol 1e-5 on 99.9% of chains."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    s = torch.linspace(0.5, 2.5, dim, device=cuda)
+    t = (F.bimodal(0.7) if dim == 1 else Target(
+        logp=lambda x: -0.5 * torch.sum((x / s) ** 2, dim=-1)))
+    c, temps = 4096, 8
+    gen = torch.Generator(device=cuda).manual_seed(dim)
+    pos = torch.randn((temps, dim, c), generator=gen, device=cuda)
+    lp = t.batch_logp(pos.permute(0, 2, 1).reshape(-1, dim)).reshape(
+        temps, c).contiguous()
+    sa = torch.zeros((temps - 1, c), device=cuda)
+    lad = make_ladder(geometric_betas(temps, 0.01), 1.0, dim, cuda)
+    hk = torch.empty((16, c, dim), device=cuda)
+    hp = torch.empty_like(hk)
+    args = (t, pos, lp, sa, 0, lad, 0x5EED_1702, 0, 16, 1)
+    got = pt_multistep(*args, hk)
+    want = pt_multistep_plain(*args, hp)
+
+    def near(a, b):
+        return (a - b).abs() <= 1e-6 + 1e-5 * b.abs()
+
+    assert _share(near(got[0], want[0]).all(1).all(0)) >= 0.999
+    assert _share(near(got[1], want[1]).all(0)) >= 0.999
+    assert _share(near(hk, hp).all(2).all(0)) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["normal", "logistic_hand",
+                                   "logistic_derived", "scaled",
+                                   "transformed"])
+def test_cuda_sep_user_instances_match_the_float64_twin(cuda, which):
+    """Kernel 7's user coordinate functors (the traced standard normal,
+    the logistic's hand source and derived functor, and the hand one
+    scaled and transformed) at D = 4,096, 256 chains: one fused step
+    against the float64 twin (_hold_step), and the validation probe."""
+    from mini_mcmc_torch.examples import user_forms as F
+    from mini_mcmc_torch.models import CoordinateTransform, interval
+    from mini_mcmc_torch.models.base import validate_coord_dc
+
+    d, c = 4096, 256
+    sc = torch.logspace(-0.5, 0.5, d, device=cuda)
+    t = {"normal": Target(logp=standard_normal().logp),
+         "logistic_hand": F.logistic(sc),
+         "logistic_derived": F.logistic(sc, hand=False)}.get(which)
+    if which == "scaled":
+        t = precondition_target(F.logistic(sc), Preconditioner(
+            "diag", scale=sc.flip(0).contiguous()))
+    elif which == "transformed":
+        t = CoordinateTransform({i: interval(-24.0, 24.0) for i in range(d)},
+                                dim=d).wrap(F.logistic(sc))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((c, d), generator=gen, device=cuda)
+    lp = t.batch_logp(x).float()
+    validate_coord_dc(t, x)
+    tables = (torch.cat([tt.to(cuda) for tt in t.sep_forms()[1]])
+              if t.sep_forms()[1] else x.new_empty((0, d)))
+    eps = torch.tensor([0.15], device=cuda)
+    hmc_separable_step.user_launches = 0
+    got = hmc_separable_step(t, x, lp, eps, 10, 0x5EED_1703, 2, tables)
+    assert hmc_separable_step.user_launches == 1
+    ref, tie, u = _sep_ref(t, x, lp, eps, 10, 0x5EED_1703, 2, tables)
+    _hold_step(got, ref, tie, u, x)
+
+
+@pytest.mark.cuda
+def test_cuda_mh_and_pt_validate_in_the_value_only_library(cuda):
+    """MH and tempering with a user density build the value-only library
+    and validate there (need_grad=False): no dual-number library of
+    Kernels 1-4 is built; a wrong source raises."""
+    from mini_mcmc_torch.examples import user_forms as F
+    from mini_mcmc_torch.ops.kernels import user_density
+
+    t = F.bimodal(0.7, hand=True)
+    x = torch.linspace(-10.0, 10.0, 256, device=cuda).reshape(-1, 1)
+    MetropolisHastings(t, isotropic_gaussian_proposal(1.0), x,
+                       use_pallas="full")
+    ParallelTempering(t, x, use_pallas="full")
+    forms = t.dc_forms(1, cuda)
+    assert not user_density.library_path(forms.source, 1, 0).exists()
+    wrong = Target(logp=t.logp, cuda_source=F.BIMODAL_SOURCE,
+                   cuda_params=(-0.1, -2.0))
+    with pytest.raises(ValueError, match="compiled logp"):
+        ParallelTempering(wrong, x, use_pallas="full")

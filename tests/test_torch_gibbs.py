@@ -239,7 +239,7 @@ def test_constructor_validation():
     cond = gaussian_mixture_conditional(*MIX)
     with pytest.raises(ValueError, match='use_pallas="full"'):
         mt.GibbsSampler(cond, torch.zeros((8, 2)), use_pallas=True, **CPU)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="sample_words"):
         mt.GibbsSampler(constant_conditional(1.0), torch.zeros((8, 2)),
                         use_pallas="full", **CPU)
     with pytest.raises(ValueError, match="steps_per_call"):

@@ -450,7 +450,7 @@ def test_constructor_validation():
                               init, use_pallas="full", **CPU)
     walk = isotropic_gaussian_proposal(1.0)
     no_form = Proposal(sample=walk.sample, logp=walk.logp, symmetric=True)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="propose_words"):
         mt.MetropolisHastings(t, no_form, init, use_pallas="full", **CPU)
     with pytest.raises(ValueError, match="transform"):
         mt.MetropolisHastings(t, walk, init, transform=object(), **CPU)
@@ -543,7 +543,7 @@ def test_mh_sampler_kwargs_drops_jax_only_keys():
                                jm.isotropic_gaussian_proposal(1.0),
                                jnp.asarray(_points(8)), steps_per_call=4)
     kw = mh_sampler_kwargs(j)
-    assert kw == dict(use_pallas=False, steps_per_call=4)
+    assert kw == dict(use_pallas=False, steps_per_call=4, validate_dc=True)
     s = mt.MetropolisHastings(gaussian2d(MEAN, COV),
                               isotropic_gaussian_proposal(1.0), _points(8),
                               **kw, **CPU)

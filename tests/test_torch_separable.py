@@ -229,8 +229,8 @@ def test_coordinate_functors_are_named():
     assert sep_functor(mt.standard_normal()) == (0, 0)
     assert sep_functor(mt.models.isotropic_gaussian_target(2.0)) == (1, 0)
     assert sep_functor(_sigma_targets(np.ones(4, np.float32))[1]) == (2, 1)
-    with pytest.raises(ValueError, match="sigma_table_normal"):
-        sep_functor(Target(logp=mt.standard_normal().logp))
+    # a target without a coordinate functor runs its own (id -1)
+    assert sep_functor(Target(logp=mt.standard_normal().logp)) == (-1, 0)
     with pytest.raises(ValueError, match="unknown"):
         sep_functor(mt.rosenbrock_nd())
     # the D-tiles of one launch: 2 quads of 4 coordinates per thread

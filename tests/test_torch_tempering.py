@@ -190,8 +190,10 @@ def test_kernel_instances_and_ladder_limits():
         pt_instance(mixture(), 17, 1)
     with pytest.raises(ValueError, match=r"\(gaussian2d, D=3\)"):
         pt_instance(mt.gaussian2d(GAUSS_MEAN, GAUSS_COV), 8, 3)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        pt_instance(Target(logp=mixture().logp), 8, 1)
+    # a user density runs in a library of its own (id -1), D <= 16
+    assert pt_instance(Target(logp=mixture().logp), 8, 1) == -1
+    with pytest.raises(ValueError, match="D <= 16"):
+        pt_instance(Target(logp=mixture().logp), 8, 17)
     lad = make_ladder((1.0, 0.25), [1.0, 3.0], 2, "cpu")
     assert lad.packed.tolist() == [1.0, 0.25, 0.75, 1.0, 3.0, 2.0, 6.0]
     with pytest.raises(ValueError, match="proposal_std"):
@@ -376,7 +378,8 @@ def test_state_and_kwargs_carry_over_through_convert():
                               proposal_std=1.0, steps_per_call=4)
     kwargs = pt_sampler_kwargs(j)
     assert kwargs == dict(betas=betas, proposal_std=1.0, n_inner=1,
-                          steps_per_call=4, use_pallas=False)
+                          steps_per_call=4, use_pallas=False,
+                          validate_dc=True)
     port = mt.ParallelTempering(mixture(), x, **kwargs, device="cpu")
     for a, b in zip(state_to_numpy(port.state),
                     state_to_numpy(pt_state_from_numpy(j.state, "cpu"))):
