@@ -300,6 +300,32 @@ Phases, one line each (every check raises on failure):
     float64 twins), and one step each of its Scaled and TransformedCoord
     instances. Each user instance's device time alone, time by events and
     twin time; the kernels line lists them (``k5678_user_records``).
+39. the last state dtypes the JAX kernels take: float64 through Kernel 1
+    and int32 user forms in Kernel 5. The build of 2 adds Kernel 1's 28
+    float64 built-in instances (``mm_leapfrog_f64``) and, in the same
+    batch, the float64 libraries of the D = 5 user density (hand and
+    traced; ``[f64_ptxas]``: every float64 instance's registers, stack
+    frame and spills, reported) and the int32 value-only libraries.
+    ``[f64_leapfrog]``: Kernel 1's float64 instances against the float64
+    twin per chain (1e-9 of the row's largest entry) at 65,536 chains:
+    the flagship (Rosenbrock D = 3, L = 192, reported, and L = 8), the
+    MALA path's L = 1 at D = 2, a diag metric, positive() on x0, the
+    funnel at D = 4 and the D = 5 user density, hand and traced; each
+    case's device time alone beside the float32 instance's and the bound
+    at the FP64 rate. ``[f64_hmc_tier]``: ``HMC(rosenbrock_nd(), float64
+    init, use_pallas=True, jitter=0.3)`` at the flagship's shape,
+    2 x 2,048 draws, the x0 moments against quadrature, float64 cube and
+    state, no twin; the float32 tier beside it, and both idle shares.
+    ``[f64_mala_tuned]``: the tuned-MALA stage at float64 on
+    ``use_pallas=True`` (``tuned(256)``, ``run(2048, 0)`` twice, its
+    gates). ``[f64_samplers]``: tests/test_float64.py's samplers, steps
+    and gates on the card at float64, their plain tiers, at 4,096 chains. ``[mh_user_int32]``: the Poisson
+    stage (65,536 chains, K = 10, ``run(200, 100)``) through the hand
+    Poisson source, the traced binomial(10, 0.3) and the user int walk,
+    each counted (30 user launches a run), the hand and walk cubes the
+    built-in's bit for bit, the pmf gates, one K-block each against its
+    twin. The kernels line gains ``leapfrog_trajectory_f64`` and the
+    ``mh_multistep_user_int32_*`` records.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -799,6 +825,7 @@ def reset_counts() -> None:
         KERNELS[name].transformed_launches = 0
     for name in USER_KERNELS:
         KERNELS[name].user_launches = 0
+    leapfrog_trajectory.f64_launches = 0
 
 
 def read_counts() -> dict:
@@ -813,6 +840,8 @@ def read_counts() -> dict:
     # the user instances (a user density's own library), also counted there
     for name in USER_KERNELS:
         counts[f"{name}_user"] = KERNELS[name].user_launches
+    # Kernel 1's float64 instances, also counted in its launches
+    counts["leapfrog_trajectory_f64"] = leapfrog_trajectory.f64_launches
     counts.update({name: fn.calls for name, fn in TWINS.items()})
     return counts
 
@@ -5508,6 +5537,529 @@ def k5678_user_records(record, mhu: dict, mhp: dict, ptu: dict, gu: dict,
            for (src, rep), name, m in off_rows]
     return main, off
 
+# ---------------------------------------------------------------------------
+# 39: float64 states through Kernel 1, int32 user forms in Kernel 5
+
+#: the FP64 rate the float64 instances are bound by: 64 FP64 lanes an SM,
+#: half the FP32 issue rate above
+FP64_PER_S = ISSUE_PER_S / 2
+#: [f64_leapfrog]'s per-chain tolerance: relative to the row's largest
+#: |entry| (a Rosenbrock gradient cancels near a component's zero). The
+#: kernel contracts FMAs where the twin does not, some 1e-16 a step, which
+#: a stable L = 8 trajectory grows nowhere near 1e-9
+F64_RTOL = 1e-9
+#: the share of chains [f64_leapfrog] holds to the float64 twin at L <= 8
+F64_SHARE = 0.999
+#: [f64_hmc_tier]'s burn-in and timed run, in draws (the flagship's 8,192
+#: each cut to fit the budget; its gates' tolerances scaled by
+#: sqrt(N_COLLECT / F64_HMC_RUN))
+F64_HMC_RUN = 2048
+#: [f64_hmc_tier]'s float32 run beside it and each profiled run, draws
+F64_TIER_F32_RUN, F64_PROFILE_RUN = 512, 128
+#: the chains of [f64_samplers]: tests/test_float64.py's 4 would fail
+#: SGLD's mean gate (|mean| < 0.3) on ~27% of seeds on the port's Philox
+#: stream (SGLD's decaying step mixes over ~250 steps: a 30-seed sweep on
+#: the CPU); the card's job is many chains, at which the gates test what
+#: they mean to
+F64_SAMPLER_CHAINS = 4096
+#: [f64_samplers]' mean gates at those chains: beside the test's own bound,
+#: |mean - truth| within this many standard errors of the mean, the SE
+#: from the spread of the per-chain means (the chains are independent), so
+#: that a gate keeps its power at 4,096 chains (a 9-seed CPU sweep of the
+#: five gated samplers: |z| <= 2.5)
+F64_SAMPLER_SE = 5.0
+#: the D of the user densities of [f64_leapfrog]
+F64_USER_DIM = 5
+#: [mh_user_int32]'s binomial
+BINOM_N, BINOM_P = 10, 0.3
+OPS.update({
+    # Kernel 1 per leapfrog at D: the Rosenbrock gradient's 6 (D - 1) and
+    # the kicks' and drift's 3 D (rosen3d_leapfrog at D = 3)
+    "user_rosen5_leapfrog": 6 * 4 + 3 * 5,
+    # the binomial's value, priced as the Poisson's: k lies in [0, n], so
+    # a table read of log C(n, k), k log p + (n - k) log(1 - p) (a
+    # subtraction and two FMAs), the k < 0 and k > n compares, their or
+    # and the select (the traced source's two lgammaf, 27-54 SASS
+    # instructions a lane each, are work the function does not need)
+    "binomial_logp": 10,
+})
+
+
+def bound64(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """:func:`bound` of a float64 instance: its operations at the FP64
+    rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP64_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def int32_forms() -> dict:
+    """[mh_user_int32]'s three instances: the hand Poisson source (a copy
+    of targets.cuh:Poisson) beside the built-in walk, the traced binomial
+    beside the built-in walk reflected at 0 and n, and the built-in
+    Poisson beside the user int walk (proposals.cuh:RandomWalkInt as a
+    source)."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    return {
+        "hand": (F.poisson_user(POISSON_LAM), mt.random_walk_int_proposal()),
+        "traced": (mt.models.binomial_target(BINOM_N, BINOM_P),
+                   mt.random_walk_int_proposal(0, BINOM_N)),
+        "proposal": (mt.poisson_target(POISSON_LAM), F.int_walk()),
+    }
+
+
+def f64_int32_requests(dev) -> tuple[list, list]:
+    """The libraries of phase 39, as ``user_density.Spec``: Kernel 1's
+    float64 instance of the D = 5 user density, hand and traced (traced
+    on the card at float64), and the int32 value-only libraries of
+    :func:`int32_forms` (Kernel 5 and the probes)."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    f64 = [user_density.density_spec(F.rosenbrock_user(hand), F64_USER_DIM,
+                                     dev, torch.float64)[0]
+           for hand in (True, False)]
+    i32 = [user_density.value_spec(t, q, 1, dev, torch.int32)[0]
+           for t, q in int32_forms().values()]
+    return f64, i32
+
+
+def phase_f64_build(f64_reqs, reported: dict) -> dict:
+    """``[f64_ptxas]``: the registers, stack frame and spills of every
+    float64 instance of Kernel 1, the built-in library's (``reported``,
+    phase_build's) and the user densities' float64 libraries, with their
+    nvcc seconds. Spills are reported, not refused: a double Dual<5>
+    gradient holds twice the registers of a float one."""
+    out = {name: info for name, info in reported.items()
+           if name.startswith("leapfrog_kernel") and name.endswith("Ed")}
+    for spec in f64_reqs:
+        so = user_density.library_path(*spec)
+        log = so.with_suffix(".log").read_text()
+        head = log.splitlines()[0]
+        seconds = float(head.split()[-1]) if head.startswith(
+            "build seconds") else float("nan")
+        _, rep = ptxas_report(log)
+        say("user_build", form=repr(f"density:{spec.types}:D={spec.dim}"),
+            lib=so.name, nvcc_seconds=seconds, instances=len(rep))
+        out.update({f"user:{so.stem}:{name}": info
+                    for name, info in rep.items()})
+    for name, info in out.items():
+        say("f64_ptxas", kernel=name[:72], **info)
+    # MM_DISPATCH_S at double: Rosenbrock and the funnel at D = 2-4, the
+    # Gaussian at 2, each plain, whitened, transformed and both
+    builtin = sum(not name.startswith("user:") for name in out)
+    check("float64 Kernel 1 instances built", builtin == 28
+          and len(out) == 28 + len(f64_reqs), (builtin, len(out)))
+    return out
+
+
+def f64_agree(k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Per chain: every entry within F64_RTOL of the row's largest |entry|
+    of the twin, or non-finite in both."""
+    k, p = k.reshape(k.shape[0], -1), p.reshape(p.shape[0], -1)
+    scale = p.abs().amax(dim=1, keepdim=True).clamp(min=1e-300)
+    ok = (k - p).abs() <= F64_RTOL * scale
+    ok |= ~torch.isfinite(k) & ~torch.isfinite(p)
+    return ok.all(dim=1)
+
+
+def f64_cases(dev) -> dict:
+    """[f64_leapfrog]'s instances of Kernel 1 at float64, each on 65,536
+    chains: ``name -> (target, positions, eps, L, leapfrog ops)``."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    gen = torch.Generator(device=dev).manual_seed(64)
+    c = N_CHAINS
+
+    def normal(d, scale, shift):
+        return (torch.randn((c, d), generator=gen, device=dev,
+                            dtype=torch.float64) * scale + shift)
+
+    rosen = mt.rosenbrock_nd()
+    x3 = normal(3, 0.3, 0.8)
+    diag = mt.models.estimate_preconditioner(x3, "diag")
+    tf = mt.CoordinateTransform({0: mt.positive()}, dim=2)
+    gauss = mt.diffable_gaussian2d(MALA_MEAN, NUTS_COV)
+    bij = OPS["bij_grad"] + OPS["bij_identity"]
+    return {
+        "flagship": (rosen, x3, STEP_SIZE, N_LEAPFROG,
+                     OPS["rosen3d_leapfrog"]),
+        "flagship_L8": (rosen, x3, STEP_SIZE, 8, OPS["rosen3d_leapfrog"]),
+        "mala_d2": (gauss, normal(2, 1.5, 0.0), 1.0, 1,
+                    OPS["gauss2d_leapfrog"]),
+        "whitened_diag": (mt.models.precondition_target(rosen, diag),
+                          diag.to_y(x3), STEP_SIZE, 8,
+                          OPS["rosen3d_leapfrog"] + 2 * 3),
+        "transformed": (tf.wrap(gauss), normal(2, 0.7, 0.0), 0.2, 8,
+                        OPS["gauss2d_leapfrog"] + bij),
+        "funnel_d4": (mt.neal_funnel(FUNNEL_SCALE), normal(4, 0.8, 0.0),
+                      0.1, 8, OPS["funnel4_grad"] + OPS["funnel4_leapfrog"]),
+        "user_hand_d5": (F.rosenbrock_user(True),
+                         normal(F64_USER_DIM, 0.3, 0.8), 0.01, 8,
+                         OPS["user_rosen5_leapfrog"]),
+        "user_traced_d5": (F.rosenbrock_user(False),
+                           normal(F64_USER_DIM, 0.3, 0.8), 0.01, 8,
+                           OPS["user_rosen5_leapfrog"]),
+    }
+
+
+def phase_f64_leapfrog(dev) -> dict:
+    """``[f64_leapfrog]``: Kernel 1's float64 instances against the
+    float64 twin per chain (F64_RTOL) on each of :func:`f64_cases`, the
+    same momenta, and the float32 instance on the same case rounded to
+    float32 beside it (the built-in functors'): the share of chains that
+    agree, the largest error
+    relative to the row, the device time alone, the time by events, the
+    twin's time, and the bound at the FP64 rate. Gated at L <= 8 (99.9% of
+    chains); at the flagship's L = 192 the share is reported, as
+    phase_leapfrog reports its float32 one (a trajectory near the
+    leapfrog stability edge grows any rounding difference)."""
+    gen = torch.Generator(device=dev).manual_seed(65)
+    out = {}
+    for name, (target, x, eps, n_lf, lf_ops) in f64_cases(dev).items():
+        c, d = x.shape
+        mom = torch.randn(x.shape, generator=gen, device=dev,
+                          dtype=torch.float64)
+        _, g = target.batch_logp_and_grad(x)
+        e = torch.tensor([eps], device=dev, dtype=torch.float64)
+        reset_counts()
+        k = leapfrog_trajectory(target, x, mom, g, e, n_lf)
+        counts = read_counts()
+        check(f"f64_leapfrog {name} launched the float64 instance",
+              counts == counts_with(
+                  leapfrog_trajectory=1, leapfrog_trajectory_f64=1,
+                  leapfrog_trajectory_transformed=int(
+                      target.cuda_transform is not None),
+                  leapfrog_trajectory_user=int(target.cuda_functor is None)),
+              counts)
+        check(f"f64_leapfrog {name} float64 outputs",
+              all(v.dtype == torch.float64 for v in k), [v.dtype for v in k])
+        p = leapfrog_trajectory_plain(target, x, mom, g, e[0], n_lf)
+        agree = torch.stack([f64_agree(a, b) for a, b in zip(k, p)]).all(0)
+        finite = torch.stack([torch.isfinite(b.reshape(c, -1)).all(1)
+                              for b in p]).all(0)
+        ok = agree & finite
+        rel = max(float(((a - b).reshape(c, -1).abs() / b.reshape(
+            c, -1).abs().amax(1, keepdim=True).clamp(min=1e-300))[
+                ok].max()) for a, b in zip(k, p))
+        m = {"chains": c, "D": d, "L": n_lf,
+             "share": float(agree.float().mean()),
+             "share_twin_finite": float(finite.float().mean()),
+             "max_rel_err": rel,
+             "max_abs_err": max(max_abs_err(a, b, ok)
+                                for a, b in zip(k, p))}
+        f32 = (x.float(), mom.float(), g.float(), e.float())
+        m.update(kernel_times(
+            lambda: leapfrog_trajectory(target, x, mom, g, e, n_lf),
+            lambda: leapfrog_trajectory_plain(target, x, mom, g, e[0], n_lf),
+            "leapfrog_kernel"))
+        m["ms_f32"] = m["device_ms_f32"] = m["device_ratio_f64_f32"] = None
+        if target.cuda_functor is not None:  # a user density's float32
+            # library is not in this phase's build
+            m["ms_f32"] = cuda_ms(lambda: leapfrog_trajectory(
+                target, *f32[:3], f32[3], n_lf), 20)
+            m["device_ms_f32"] = device_ms_per_launch(
+                lambda: leapfrog_trajectory(target, *f32[:3], f32[3], n_lf),
+                "leapfrog_kernel")
+            m["device_ratio_f64_f32"] = m["device_ms"] / m["device_ms_f32"]
+        # pos, mom, grad, eps in; pos, mom, logp, grad out; the wrappers'
+        # tables and params are a few doubles
+        m["bound_ms"], m["bound_by"] = bound64(
+            8 * (3 * c * d + 1 + c * (3 * d + 1)), c * n_lf * lf_ops)
+        m["bound_ms_f32"] = bound(4 * (3 * c * d + 1 + c * (3 * d + 1)),
+                                  c * n_lf * lf_ops)[0]
+        say("f64_leapfrog", case=name, **{k2: repr(v) for k2, v in
+                                          m.items()})
+        if n_lf <= 8:
+            check(f"f64_leapfrog {name} agrees with its float64 twin",
+                  m["share"] >= F64_SHARE, m)
+        out[name] = m
+        del k, p
+    return out
+
+
+
+def phase_f64_hmc_tier(dev) -> dict:
+    """``[f64_hmc_tier]``: the flagship's target, start and step through
+    ``HMC(rosenbrock_nd(), float64 init, STEP_SIZE, N_LEAPFROG,
+    use_pallas=True, jitter=0.3)`` on 65,536 chains: a burn-in run and a
+    timed run of F64_HMC_RUN draws each, every step one launch of Kernel
+    1's float64 instance and no plain twin; the cube, state, logp and
+    gradient float64; the x0 moments against quadrature (bench.py:88-92)
+    within the flagship's tolerances scaled by sqrt(N_COLLECT /
+    F64_HMC_RUN), R-hat; draws/s and ESS/s. Beside it the same tier at
+    float32 (a timed ``run(F64_TIER_F32_RUN)`` from the float64 end state,
+    rounded) and the device's idle share over a profiled
+    ``run(F64_PROFILE_RUN)`` of each: what the float64 step costs over
+    the float32 one, and where."""
+    init = (mt.init_with_seed(N_CHAINS, DIM, seed=42, device=dev) * 0.5
+            + 1.0).double()
+    reset_counts()
+    h = mt.HMC(mt.rosenbrock_nd(), init, STEP_SIZE, N_LEAPFROG,
+               use_pallas=True, jitter=JITTER).seed(42)
+    burn = h.run(F64_HMC_RUN, 0, time_major=True)
+    torch.cuda.synchronize()
+    del burn
+    t0 = time.perf_counter()
+    sample = h.run(F64_HMC_RUN, 0, time_major=True)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    check("f64_hmc_tier launches: the float64 instance, no twin",
+          counts == counts_with(leapfrog_trajectory=2 * F64_HMC_RUN,
+                                leapfrog_trajectory_f64=2 * F64_HMC_RUN),
+          counts)
+    s = h.state
+    check("f64_hmc_tier float64 cube and state",
+          sample.dtype == torch.float64 and all(
+              v.dtype == torch.float64 for v in s), (sample.dtype, [
+                  v.dtype for v in s]))
+    check("f64_hmc_tier sample", tuple(sample.shape) == (
+        F64_HMC_RUN, N_CHAINS, DIM) and bool(torch.isfinite(sample).all()),
+        tuple(sample.shape))
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    x0 = sample[:, :, 0]
+    scale = math.sqrt(N_COLLECT / F64_HMC_RUN)
+    m = {"elapsed_s": elapsed, "rhat_mean": float(rhat.mean()),
+         "ess_mean": float(ess.mean()), "x0_mean": float(x0.mean()),
+         "x0_var": float(x0.var(unbiased=False)),
+         "tol_mean": 0.05 * scale, "tol_var": 0.04 * scale,
+         "accept_rate": float((sample[1:] != sample[:-1]).any(dim=2)
+                              .float().mean()),
+         "draws_per_sec": N_CHAINS * F64_HMC_RUN / elapsed,
+         "step_us": elapsed / F64_HMC_RUN * 1e6}
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    del sample, x0
+    h32 = mt.HMC(mt.rosenbrock_nd(), h.positions.float(), STEP_SIZE,
+                 N_LEAPFROG, use_pallas=True, jitter=JITTER).seed(43)
+    h32.run(F64_PROFILE_RUN, 0)
+    _, seconds = timed(lambda: h32.run(F64_TIER_F32_RUN, 0))
+    m["step_us_f32"] = seconds / F64_TIER_F32_RUN * 1e6
+    m["idle_share"] = idle_share(lambda: h.run(F64_PROFILE_RUN, 0))[
+        "idle_share"]
+    m["idle_share_f32"] = idle_share(lambda: h32.run(F64_PROFILE_RUN, 0))[
+        "idle_share"]
+    del h32
+    check("f64_hmc_tier rhat", 0.95 <= m["rhat_mean"] <= 1.05, m)
+    check("f64_hmc_tier x0 mean",
+          abs(m["x0_mean"] - ROSEN3D_X0_MEAN) <= m["tol_mean"], m)
+    check("f64_hmc_tier x0 var",
+          abs(m["x0_var"] - ROSEN3D_X0_VAR) <= m["tol_var"], m)
+    say("f64_hmc_tier", **{k: repr(v) for k, v in m.items()}, **counts)
+    m["launches"] = counts["leapfrog_trajectory_f64"]
+    return m
+
+
+def phase_f64_mala_tuned(dev) -> dict:
+    """``[f64_mala_tuned]``: the tuned-MALA stage of bench.py:732-779 at
+    float64 on the ``use_pallas=True`` tier: ``MALA(diffable_gaussian2d,
+    float64 init, step_size=1.0, use_pallas=True).seed(13)
+    .tuned(MALA_ADAPT)`` (the dual-averaging iterate float64), then
+    ``run(MALA_COLLECT, 0)`` twice, every step Kernel 1's float64 instance
+    at L = 1 and no twin; bench.py:757-766's gates on the timed run."""
+    target = mt.diffable_gaussian2d(MALA_MEAN, NUTS_COV)
+    init = mt.init_with_seed(MALA_CHAINS, 2, seed=13, device=dev).double()
+    reset_counts()
+    t0 = time.perf_counter()
+    ml = mt.MALA(target, init, step_size=1.0,
+                 use_pallas=True).seed(13).tuned(MALA_ADAPT)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    sample, elapsed = timed_run(ml, MALA_COLLECT, 0, time_major=True)
+    counts = read_counts()
+    n = MALA_ADAPT + 2 * MALA_COLLECT
+    check("f64_mala launches: the float64 instance, no twin",
+          counts == counts_with(leapfrog_trajectory=n,
+                                leapfrog_trajectory_f64=n), counts)
+    check("f64_mala float64 cube and state", sample.dtype == torch.float64
+          and ml.state.positions.dtype == torch.float64, sample.dtype)
+    rhat, ess = mt.split_rhat_mean_ess(sample, time_major=True)
+    var, mean = torch.var_mean(sample, dim=(0, 1), correction=0)
+    total = MALA_CHAINS * MALA_COLLECT
+    m = {"eps_tuned": ml.step_size, "tune_s": tune_s, "elapsed_s": elapsed,
+         "rhat_mean": float(rhat.mean()), "ess_mean": float(ess.mean()),
+         "mean": [float(v) for v in mean], "var": [float(v) for v in var],
+         "accept_rate": float((sample[1:] != sample[:-1]).any(dim=2)
+                              .float().mean())}
+    del sample
+    check("f64_mala tuned eps sane", 0.2 <= m["eps_tuned"] <= 5.0, m)
+    check("f64_mala rhat", 0.95 <= m["rhat_mean"] <= 1.05, m)
+    check("f64_mala ess floor", m["ess_mean"] >= 0.005 * total, m)
+    for d in range(2):
+        check(f"f64_mala mean[{d}]",
+              abs(m["mean"][d] - MALA_MEAN[d]) <= 0.05, m)
+        check(f"f64_mala var[{d}]", abs(m["var"][d] - MALA_VAR[d]) <= 0.3, m)
+    m["ess_per_sec"] = m["ess_mean"] / elapsed
+    m["draws_per_sec"] = total / elapsed
+    m["step_us"] = elapsed / MALA_COLLECT * 1e6
+    m["launches"] = counts["leapfrog_trajectory_f64"]
+    say("f64_mala_tuned", **{k: repr(v) for k, v in m.items()}, **counts)
+    return m
+
+
+def phase_f64_samplers(dev) -> None:
+    """``[f64_samplers]``: tests/test_float64.py:26-78 on the card at
+    float64, each sampler on its plain tier (no kernel launched): MH,
+    HMC, tuned MALA, slice, elliptical, SGLD and SGHMC, that test's steps,
+    dtype asserts and gates, from F64_SAMPLER_CHAINS chains
+    (``init_with_seed``) where the test starts 4 (``init_det``); each mean
+    gate also within F64_SAMPLER_SE standard errors."""
+    from mini_mcmc_torch.ops.sgmcmc import target_grad
+
+    def init(d):
+        return mt.init_with_seed(F64_SAMPLER_CHAINS, d, seed=d,
+                                 device=dev).double()
+
+    t = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    g = target_grad(t)
+    lik = mt.models.Target(
+        logp=lambda x: -0.5 * torch.sum((x - 1.0) ** 2, dim=-1))
+    def mean_gate(truth, bound):
+        """tests/test_float64.py's |mean - truth| < bound, and within
+        F64_SAMPLER_SE standard errors of the per-chain means."""
+        def gate(s):
+            chain = s.reshape(s.shape[0], -1).mean(dim=1)
+            se = float(chain.std()) / math.sqrt(chain.numel())
+            err = abs(float(s.mean()) - truth)
+            return err < bound and err <= F64_SAMPLER_SE * se, err / se
+        return gate
+
+    def finite(s):
+        return math.isfinite(float(s.mean())), None
+
+    runs = {
+        "mh": (lambda: mt.MetropolisHastings(
+            t, mt.isotropic_gaussian_proposal(1.0), init(2)
+        ).seed(42).run(500, 100), mean_gate(0.0, 0.3)),
+        "hmc": (lambda: mt.HMC(mt.rosenbrock_nd(), init(3),
+                               0.05, 8).seed(1).run(200, 100),
+                lambda s: (bool(torch.isfinite(
+                    mt.split_rhat_mean_ess(s)[0]).all()), None)),
+        "mala_tuned": (lambda: mt.MALA(
+            mt.rosenbrock_nd(), init(3), step_size=0.5
+        ).seed(4).tuned(100).run(200, 50), finite),
+        "slice": (lambda: mt.SliceSampler(t, init(2))
+                  .seed(2).run(300, 50), mean_gate(0.0, 0.3)),
+        "elliptical": (lambda: mt.EllipticalSliceSampler(
+            lik, init(2)).seed(3).run(300, 50), mean_gate(0.5, 0.25)),
+        "sgld": (lambda: mt.SGLD(
+            g, init(2),
+            step_size=mt.polynomial_decay(5e-2, 10.0, 0.55)).seed(5).run(
+                300, 100), mean_gate(0.0, 0.3)),
+        "sghmc": (lambda: mt.SGHMC(g, init(2),
+                                   step_size=0.05, friction=0.1).seed(6).run(
+            300, 100), mean_gate(0.0, 0.35)),
+    }
+    for name, (run, gate) in runs.items():
+        reset_counts()
+        (s, seconds) = timed(run)
+        check_no_kernel(f"f64_samplers {name}")
+        check(f"f64_samplers {name} float64", s.dtype == torch.float64,
+              s.dtype)
+        ok, z = gate(s)
+        check(f"f64_samplers {name} gate", ok, (float(s.mean()), z))
+        say("f64_samplers", sampler=name, shape=tuple(s.shape),
+            mean=float(s.mean()), se_z=z, seconds=seconds,
+            device=str(s.device))
+
+
+def phase_mh_user_int32(dev) -> dict:
+    """``[mh_user_int32]``: the Poisson stage of bench.py:495-525 (65,536
+    chains from 0, K = 10, ``run(200, 100)``) through Kernel 5's int32
+    user instances (:func:`int32_forms`), each a warm-up run and a
+    counted, timed run (the user instance's 30 launches a run, no twin),
+    beside the built-in Poisson from the same seed: the hand Poisson's
+    cube and the user walk's each the built-in's bit for bit, the pmf
+    gate (< 0.05, tests/test_mh.py:73-90) on each, the binomial from 5;
+    then one K-block of each against mh_multistep_plain per chain
+    (phase_mh_kernel: int32 positions equal), and each block's device
+    time alone, time by events and twin time."""
+    per_run = (POISSON_COLLECT + POISSON_DISCARD) // POISSON_K
+    run = (POISSON_COLLECT, POISSON_DISCARD)
+    cubes, out = {}, {}
+    k = torch.arange(11, dtype=torch.float64, device=dev)
+    pmfs = {
+        "poisson": torch.exp(k * math.log(POISSON_LAM) - POISSON_LAM
+                             - torch.lgamma(k + 1.0)),
+        "binomial": torch.exp(
+            torch.lgamma(torch.tensor(BINOM_N + 1.0, device=dev))
+            - torch.lgamma(k + 1.0) - torch.lgamma(BINOM_N - k + 1.0)
+            + k * math.log(BINOM_P) + (BINOM_N - k) * math.log1p(-BINOM_P)),
+    }
+    forms = {"builtin": (mt.poisson_target(POISSON_LAM),
+                         mt.random_walk_int_proposal()), **int32_forms()}
+    for form, (target, proposal) in forms.items():
+        start = 5 if form == "traced" else 0
+        init = torch.full((MH_CHAINS, 1), start, dtype=torch.int32,
+                          device=dev)
+        mh = mt.MetropolisHastings(target, proposal, init, use_pallas="full",
+                                   steps_per_call=POISSON_K).seed(42)
+        user = per_run if form != "builtin" else 0
+        sample, elapsed, counts = counted_run(
+            f"mh_user_int32 {form}", mh, run,
+            dict(mh_multistep=per_run, mh_multistep_user=user),
+            time_major=False)
+        check(f"mh_user_int32 {form} int32", sample.dtype == torch.int32
+              and mh.state.logp.dtype == torch.float32, sample.dtype)
+        ks = sample.reshape(-1).long()
+        freq = torch.bincount(ks.clamp(min=0), minlength=11)[:11].double()
+        pmf = pmfs["binomial" if form == "traced" else "poisson"]
+        m = {"elapsed_s": elapsed, "launches": counts["mh_multistep_user"],
+             "pmf_max_abs_err": float((freq / ks.numel() - pmf).abs().max()),
+             "min": int(ks.min()), "max": int(ks.max()),
+             "draws_per_sec": MH_CHAINS * sum(run) / elapsed}
+        check(f"mh_user_int32 {form} support", m["min"] >= 0 and (
+            form != "traced" or m["max"] <= BINOM_N), m)
+        check(f"mh_user_int32 {form} pmf", m["pmf_max_abs_err"] < 0.05, m)
+        if form != "builtin":
+            m.update(phase_mh_kernel(mh, f"int32_{form}", POISSON_K,
+                                     0x5EED_3232))
+        cubes[form] = sample
+        out[form] = m
+        del mh
+    for form in ("hand", "proposal"):
+        out[form]["cube_equal_builtin"] = bool(torch.equal(
+            cubes[form], cubes["builtin"]))
+        check(f"mh_user_int32 {form} cube equals the built-in's bit for bit",
+              out[form]["cube_equal_builtin"], "differs")
+    del cubes
+    for form, m in out.items():
+        say("mh_user_int32", form=form, chains=MH_CHAINS, K=POISSON_K,
+            **{k2: repr(v) for k2, v in m.items()})
+    return out
+
+
+def f64_int32_records(record, f64: dict, hmc64: dict, mala64: dict,
+                      ptx64: dict, i32: dict) -> list:
+    """The kernels line's records of phase 39: Kernel 1's float64
+    instances (the flagship case's numbers, every case's beside them, the
+    launches of [f64_hmc_tier] and of the MALA path) and Kernel 5's int32
+    user instances (each counted run's launches)."""
+    fl, gated = f64["flagship"], f64["flagship_L8"]
+    more = {}
+    for case, m in f64.items():
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms", "share",
+                    "max_rel_err", "max_abs_err", "ms_f32", "device_ms_f32",
+                    "device_ratio_f64_f32", "bound_ms_f32"):
+            more[f"{key}_{case}"] = m[key]
+    worst = max(ptx64.values(), key=lambda i: (i.get("spill_stores", 0),
+                                               i["regs"]))
+    # the error: the flagship state's L = 8 check (the gated one; at L =
+    # 192 unstable chains grow any rounding without bound)
+    recs = [record("leapfrog_trajectory_f64", "hmc_leapfrog.cu", "hmc.py:46",
+                   hmc64["launches"], gated["max_abs_err"], fl["ms"],
+                   fl["plain_ms"], device_ms=fl["device_ms"],
+                   launches_mala_path=mala64["launches"],
+                   instances=len(ptx64), worst_ptxas=worst, **more)]
+    for form in ("hand", "traced", "proposal"):
+        m = i32[form]
+        recs.append(record(f"mh_multistep_user_int32_{form}",
+                           "mh_multistep.cu", "mh_full.py:50", m["launches"],
+                           m["err"], m["ms"], m["plain_ms"],
+                           device_ms=m["device_ms"]))
+    return recs
+
 
 def bounds(step_details, subtree_leaves, dense_details, k1234t,
            funnel) -> dict:
@@ -5627,6 +6179,14 @@ def bounds(step_details, subtree_leaves, dense_details, k1234t,
         2 * c * (4 + 4) + POISSON_K * c * 4,
         c * POISSON_K * (rng_ops(0, 2) + OPS["int_walk_propose"]
                          + OPS["poisson_logp"] + OPS["mh_step"]))
+    # the int32 user instances: the Poisson's work (hand density, user
+    # walk), the binomial's value in place of the Poisson's
+    out["mh_multistep_user_int32_hand"] = out["mh_multistep_poisson"]
+    out["mh_multistep_user_int32_proposal"] = out["mh_multistep_poisson"]
+    out["mh_multistep_user_int32_traced"] = bound(
+        2 * c * (4 + 4) + POISSON_K * c * 4,
+        c * POISSON_K * (rng_ops(0, 2) + OPS["int_walk_propose"]
+                         + OPS["binomial_logp"] + OPS["mh_step"]))
     # Kernel 6, one K-sweep block: pos in and out, K history rows. A
     # mixture sweep draws a normal (x) and a uniform (z)
     out["gibbs_multistep"] = bound(
@@ -5733,9 +6293,11 @@ def run_phases(args, tmp: str) -> None:
     phase_device()
     reqs = user_requests(dev)
     reqs5678 = k5678_user_requests(dev)
-    so, reported = phase_build(reqs + reqs5678)
+    reqs64, reqs32 = f64_int32_requests(dev)
+    so, reported = phase_build(reqs + reqs5678 + reqs64 + reqs32)
     user_build = phase_user_build(reqs)
-    phase_k5678_user_build(reqs5678)
+    phase_k5678_user_build(reqs5678 + reqs32)
+    ptx64 = phase_f64_build(reqs64, reported)
     if args.profile:
         phase_sass(so, reported)
     phase_philox(dev)
@@ -5903,6 +6465,12 @@ def run_phases(args, tmp: str) -> None:
     torch.cuda.empty_cache()
     su = phase_sep_user(dev)
     torch.cuda.empty_cache()
+    f64 = phase_f64_leapfrog(dev)
+    hmc64 = phase_f64_hmc_tier(dev)
+    mala64 = phase_f64_mala_tuned(dev)
+    phase_f64_samplers(dev)
+    torch.cuda.empty_cache()
+    i32 = phase_mh_user_int32(dev)
     phase_eight_schools_chees(dev)
     phase_ais(dev)
     phase_smc(dev)
@@ -5916,6 +6484,8 @@ def run_phases(args, tmp: str) -> None:
     ub = user_bounds(uk)
     b.update({f"{k}_user_{kind}": v for (k, kind), v in ub.items()})
     b.update(k5678_user_bounds())
+    b["leapfrog_trajectory_f64"] = (f64["flagship"]["bound_ms"],
+                                    f64["flagship"]["bound_by"])
     say("bounds", **{f"{k}_bound_ms": repr(v[0]) for k, v in b.items()},
         **{f"{k}_bound_by": v[1] for k, v in b.items()})
 
@@ -6093,6 +6663,7 @@ def run_phases(args, tmp: str) -> None:
     main, off = k5678_user_records(record, mhu, mhp, ptu, gu, su)
     kernels += main
     off_path += off
+    kernels += f64_int32_records(record, f64, hmc64, mala64, ptx64, i32)
     print(json.dumps({"kernels": kernels, "off_main_path": off_path}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,15 +20,14 @@ constexpr int kThreads = 128;
 constexpr size_t kMaxBlockSmem = 232448;
 
 // L leapfrog steps with the cached half-step gradient (ops/hmc.py:170-190,
-// ops/pallas/hmc.py:91-97): one gradient evaluation per step. L is a
-// runtime loop, unrolled by two only: L = 192 unrolled in full would
-// spill the register file.
-template <class T, int D>
-__device__ __forceinline__ void leapfrog(const T& t, float (&x)[D],
-                                         float (&m)[D],
-                                         float (&g)[D], float eps,
-                                         int n_leapfrog) {
-  const float half_eps = eps * 0.5f;
+// ops/pallas/hmc.py:91-97): one gradient evaluation per step, at the
+// functor's scalar S (float, or double in Kernel 1's float64 instances).
+// L is a runtime loop, unrolled by two only: L = 192 unrolled in full
+// would spill the register file.
+template <class T, int D, class S = scalar_t<T>>
+__device__ __forceinline__ void leapfrog(const T& t, S (&x)[D], S (&m)[D],
+                                         S (&g)[D], S eps, int n_leapfrog) {
+  const S half_eps = eps * S(0.5);
 #pragma unroll 2
   for (int l = 0; l < n_leapfrog; ++l) {
 #pragma unroll
@@ -48,7 +47,9 @@ inline int blocks_for(int n_chains) {
 
 }  // namespace mm
 
-// Calls LAUNCH(TargetType, D) for the instantiated (target, dim) pairs,
+// Calls LAUNCH(TargetType, D) for the instantiated (target, dim) pairs at
+// scalar S (MM_DISPATCH: float, the instances of Kernels 1-4; Kernel 1's
+// float64 entry passes double),
 // the functor inside its wrappers by the bits of `affine`
 // (_build.instance_flags): bit 0 the affine wrapper mm::Whitened of a
 // whitened target (Target.cuda_affine), bit 1 mm::Transformed of a
@@ -74,25 +75,31 @@ inline int blocks_for(int n_chains) {
     default: return (int)cudaErrorInvalidValue;            \
   }
 
-#define MM_DISPATCH(target, dim, affine, LAUNCH)                \
+#define MM_DISPATCH_S(S, target, dim, affine, LAUNCH)          \
   do {                                                          \
+    using Rosenbrock_ = mm::Builtins<S>::Rosenbrock;            \
+    using Funnel_ = mm::Builtins<S>::Funnel;                    \
+    using Gauss_ = mm::Builtins<S>::Gauss;                      \
     if ((target) == mm::kRosenbrockND) {                        \
       switch (dim) {                                            \
-        case 2: MM_AFFINE(affine, mm::RosenbrockND, 2, LAUNCH); break; \
-        case 3: MM_AFFINE(affine, mm::RosenbrockND, 3, LAUNCH); break; \
-        case 4: MM_AFFINE(affine, mm::RosenbrockND, 4, LAUNCH); break; \
+        case 2: MM_AFFINE(affine, Rosenbrock_, 2, LAUNCH); break; \
+        case 3: MM_AFFINE(affine, Rosenbrock_, 3, LAUNCH); break; \
+        case 4: MM_AFFINE(affine, Rosenbrock_, 4, LAUNCH); break; \
         default: return (int)cudaErrorInvalidValue;             \
       }                                                         \
     } else if ((target) == mm::kNealFunnel) {                   \
       switch (dim) {                                            \
-        case 2: MM_AFFINE(affine, mm::NealFunnel, 2, LAUNCH); break; \
-        case 3: MM_AFFINE(affine, mm::NealFunnel, 3, LAUNCH); break; \
-        case 4: MM_AFFINE(affine, mm::NealFunnel, 4, LAUNCH); break; \
+        case 2: MM_AFFINE(affine, Funnel_, 2, LAUNCH); break;   \
+        case 3: MM_AFFINE(affine, Funnel_, 3, LAUNCH); break;   \
+        case 4: MM_AFFINE(affine, Funnel_, 4, LAUNCH); break;   \
         default: return (int)cudaErrorInvalidValue;             \
       }                                                         \
     } else if ((target) == mm::kGaussian2D && (dim) == 2) {     \
-      MM_AFFINE(affine, mm::Gaussian2D, 2, LAUNCH);             \
+      MM_AFFINE(affine, Gauss_, 2, LAUNCH);                     \
     } else {                                                    \
       return (int)cudaErrorInvalidValue;                        \
     }                                                           \
   } while (0)
+
+#define MM_DISPATCH(target, dim, affine, LAUNCH) \
+  MM_DISPATCH_S(float, target, dim, affine, LAUNCH)

@@ -17,6 +17,14 @@
 // latency of the dependent chain of operations, not by bandwidth. With one
 // thread per chain, 65,536 chains are about a quarter of the threads the
 // 132 SMs hold; occupancy is left to later tuning.
+//
+// The scalar S is the functor's (targets.cuh:scalar_t): float, or double
+// in the float64 instances (mm_leapfrog_f64; the JAX kernel takes the
+// state's dtype and runs float64 under jax_enable_x64). The H100 issues
+// FP64 at half its FP32 rate and has no MUFU at double, so a float64
+// trajectory is bound by the FP64 pipe: the Rosenbrock step's ~45 flops
+// at 64 lanes an SM, and each exp or log1p of a funnel or a bijector a
+// libm sequence of some twenty FP64 operations.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,20 +33,20 @@
 
 namespace mm {
 
-template <class T, int D>
+template <class T, int D, class S = scalar_t<T>>
 __global__ void __launch_bounds__(kThreads)
-    leapfrog_kernel(const float* __restrict__ pos,
-                    const float* __restrict__ mom,
-                    const float* __restrict__ grad,
-                    const float* __restrict__ eps,
-                    const float* __restrict__ params, int n_leapfrog,
-                    int n_chains, float* __restrict__ pos_out,
-                    float* __restrict__ mom_out,
-                    float* __restrict__ logp_out,
-                    float* __restrict__ grad_out) {
+    leapfrog_kernel(const S* __restrict__ pos,
+                    const S* __restrict__ mom,
+                    const S* __restrict__ grad,
+                    const S* __restrict__ eps,
+                    const S* __restrict__ params, int n_leapfrog,
+                    int n_chains, S* __restrict__ pos_out,
+                    S* __restrict__ mom_out,
+                    S* __restrict__ logp_out,
+                    S* __restrict__ grad_out) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_chains) return;
-  float x[D], m[D], g[D];
+  S x[D], m[D], g[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     x[d] = pos[c * D + d];
@@ -66,12 +74,12 @@ struct LeapfrogArgs {
 
 template <class T, int D>
 int launch_leapfrog(const LeapfrogArgs& a) {
+  using S = scalar_t<T>;
   leapfrog_kernel<T, D><<<blocks_for(a.n_chains), kThreads, 0,
                           (cudaStream_t)a.stream>>>(
-      (const float*)a.pos, (const float*)a.mom, (const float*)a.grad,
-      (const float*)a.eps, (const float*)a.params, a.n_leapfrog,
-      a.n_chains, (float*)a.pos_out, (float*)a.mom_out,
-      (float*)a.logp_out, (float*)a.grad_out);
+      (const S*)a.pos, (const S*)a.mom, (const S*)a.grad, (const S*)a.eps,
+      (const S*)a.params, a.n_leapfrog, a.n_chains, (S*)a.pos_out,
+      (S*)a.mom_out, (S*)a.logp_out, (S*)a.grad_out);
   return (int)cudaGetLastError();
 }
 

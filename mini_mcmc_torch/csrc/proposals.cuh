@@ -26,7 +26,10 @@
 //
 // members __device__ __forceinline__ (words also __host__), float32
 // states, drawing with mm::box_muller, mm::box_muller_pair and
-// mm::unit_open of philox.cuh on the words w[0..words<D>() - 1]. Its
+// mm::unit_open of philox.cuh on the words w[0..words<D>() - 1]. On int32
+// states (a discrete target's, Kernel 5's int32 instances) propose takes
+// and gives int32_t (&)[D] instead, as RandomWalkInt below;
+// examples/user_forms.py:INT_WALK_SOURCE is RandomWalkInt as a source. Its
 // PyTorch twin, Proposal.propose_words(params, current [C, D], words
 // [C, W]) -> [C, D] with Proposal.cuda_words(D) = words<D>(), must draw
 // the same (models.base.validate_proposal_dc holds the two together at

@@ -17,7 +17,14 @@
 // (Target.cuda_params on the device; null for a functor without
 // coefficients) and keeps its coefficients in registers. `logp` takes the
 // state type of the kernels that run it: float for the HMC, NUTS and MH
-// kernels' continuous targets, int32_t for the MH kernel's discrete ones.
+// kernels' continuous targets, int32_t for the MH kernel's discrete ones,
+// and double for Kernel 1's float64 instances (the JAX package's Kernel 1
+// runs float64 states under jax_enable_x64). A functor of a scalar S
+// declares `using Scalar = S` and takes `const S*` params; one without
+// (the Poisson, the mixture, a user's int32 density) is float's. The
+// continuous functors are templates on S (RosenbrockT, Gaussian2DT,
+// NealFunnelT); their float instances keep the names the kernels were
+// built with (RosenbrockND, Gaussian2D, NealFunnel) and the same code.
 #pragma once
 
 #include <stdint.h>
@@ -26,6 +33,36 @@
 #include <utility>
 
 namespace mm {
+
+// The scalar of functor T: T::Scalar where it declares one, else float.
+template <class T, class = void>
+struct scalar_of {
+  using type = float;
+};
+template <class T>
+struct scalar_of<T, std::void_t<typename T::Scalar>> {
+  using type = typename T::Scalar;
+};
+template <class T>
+using scalar_t = typename scalar_of<T>::type;
+
+// The functions the functors call, at float (the calls the float
+// instances always made) and at double (libm's double functions: no MUFU
+// exists for them, so each is a software sequence on the FP64 pipe).
+__device__ __forceinline__ float exp_of(float a) { return expf(a); }
+__device__ __forceinline__ double exp_of(double a) { return ::exp(a); }
+__device__ __forceinline__ float log_of(float a) { return logf(a); }
+__device__ __forceinline__ double log_of(double a) { return ::log(a); }
+__device__ __forceinline__ float log1p_of(float a) { return log1pf(a); }
+__device__ __forceinline__ double log1p_of(double a) { return ::log1p(a); }
+__device__ __forceinline__ float abs_of(float a) { return fabsf(a); }
+__device__ __forceinline__ double abs_of(double a) { return ::fabs(a); }
+// a / b where b is bounded away from 0 and infinity: __fdividef at float
+// (no IEEE division, no slow-path call in a leapfrog), IEEE at double
+__device__ __forceinline__ float div_of(float a, float b) {
+  return __fdividef(a, b);
+}
+__device__ __forceinline__ double div_of(double a, double b) { return a / b; }
 
 // Whether T gives its logp and gradient in one pass, logp_and_grad<D>(x,
 // g) -> logp: a user density whose gradient is the dual numbers'
@@ -38,14 +75,14 @@ template <class T, int D>
 struct has_logp_and_grad<
     T, D,
     std::void_t<decltype(std::declval<const T&>().template logp_and_grad<D>(
-        std::declval<const float (&)[D]>(), std::declval<float (&)[D]>()))>>
+        std::declval<const scalar_t<T> (&)[D]>(),
+        std::declval<scalar_t<T> (&)[D]>()))>>
     : std::true_type {};
 
 // logp at x, and its gradient into g: in one pass where T has one
-template <class T, int D>
-__device__ __forceinline__ float value_and_grad(const T& t,
-                                                const float (&x)[D],
-                                                float (&g)[D]) {
+template <class T, int D, class S = scalar_t<T>>
+__device__ __forceinline__ S value_and_grad(const T& t, const S (&x)[D],
+                                            S (&g)[D]) {
   if constexpr (has_logp_and_grad<T, D>::value) {
     return t.template logp_and_grad<D>(x, g);
   } else {
@@ -64,64 +101,72 @@ enum TargetId : int {
 
 // models/rosenbrock.py:rosenbrock_nd, arithmetic in the JAX form's order:
 // logp = -sum_i [100 (x_{i+1} - x_i^2)^2 + (1 - x_i)^2]
-struct RosenbrockND {
-  __device__ __forceinline__ explicit RosenbrockND(const float*) {}
+template <class S>
+struct RosenbrockT {
+  using Scalar = S;
+  __device__ __forceinline__ explicit RosenbrockT(const S*) {}
 
   template <int D>
-  __device__ __forceinline__ void grad(const float (&x)[D],
-                                       float (&g)[D]) const {
+  __device__ __forceinline__ void grad(const S (&x)[D], S (&g)[D]) const {
 #pragma unroll
-    for (int i = 0; i < D; ++i) g[i] = 0.0f;
+    for (int i = 0; i < D; ++i) g[i] = S(0);
 #pragma unroll
     for (int i = 0; i + 1 < D; ++i) {
-      const float lo = x[i], hi = x[i + 1];
-      const float d = hi - lo * lo;
-      g[i] += 400.0f * d * lo + 2.0f * (1.0f - lo);
-      g[i + 1] += -200.0f * d;
+      const S lo = x[i], hi = x[i + 1];
+      const S d = hi - lo * lo;
+      g[i] += S(400) * d * lo + S(2) * (S(1) - lo);
+      g[i + 1] += S(-200) * d;
     }
   }
 
   template <int D>
-  __device__ __forceinline__ float logp(const float (&x)[D]) const {
-    float s = 0.0f;
+  __device__ __forceinline__ S logp(const S (&x)[D]) const {
+    S s = S(0);
 #pragma unroll
     for (int i = 0; i + 1 < D; ++i) {
-      const float lo = x[i], hi = x[i + 1];
-      const float d = hi - lo * lo;
-      s += 100.0f * (d * d) + (1.0f - lo) * (1.0f - lo);
+      const S lo = x[i], hi = x[i + 1];
+      const S d = hi - lo * lo;
+      s += S(100) * (d * d) + (S(1) - lo) * (S(1) - lo);
     }
     return -s;
   }
+};
+struct RosenbrockND : RosenbrockT<float> {
+  using RosenbrockT<float>::RosenbrockT;
 };
 
 // models/gaussian.py:diffable_gaussian2d, the JAX package's logp_dc and
 // grad_dc (mini_mcmc_tpu/models/gaussian.py:124-135) term for term.
 // params: m0, m1, ic00, ic01, ic10, ic11, norm_const. Dispatched at D = 2
 // only.
-struct Gaussian2D {
-  float m0, m1, ic00, ic01, ic10, ic11, ic_cross, nc;
+template <class S>
+struct Gaussian2DT {
+  using Scalar = S;
+  S m0, m1, ic00, ic01, ic10, ic11, ic_cross, nc;
 
-  __device__ __forceinline__ explicit Gaussian2D(const float* p)
+  __device__ __forceinline__ explicit Gaussian2DT(const S* p)
       : m0(__ldg(p + 0)), m1(__ldg(p + 1)), ic00(__ldg(p + 2)),
         ic01(__ldg(p + 3)), ic10(__ldg(p + 4)), ic11(__ldg(p + 5)),
         ic_cross(ic01 + ic10), nc(__ldg(p + 6)) {}
 
   template <int D>
-  __device__ __forceinline__ void grad(const float (&x)[D],
-                                       float (&g)[D]) const {
+  __device__ __forceinline__ void grad(const S (&x)[D], S (&g)[D]) const {
     static_assert(D == 2, "Gaussian2D is two-dimensional");
-    const float d0 = x[0] - m0, d1 = x[1] - m1;
+    const S d0 = x[0] - m0, d1 = x[1] - m1;
     g[0] = -(ic00 * d0 + ic01 * d1);
     g[1] = -(ic10 * d0 + ic11 * d1);
   }
 
   template <int D>
-  __device__ __forceinline__ float logp(const float (&x)[D]) const {
+  __device__ __forceinline__ S logp(const S (&x)[D]) const {
     static_assert(D == 2, "Gaussian2D is two-dimensional");
-    const float d0 = x[0] - m0, d1 = x[1] - m1;
-    const float quad = ic00 * d0 * d0 + ic_cross * d0 * d1 + ic11 * d1 * d1;
-    return nc - 0.5f * quad;
+    const S d0 = x[0] - m0, d1 = x[1] - m1;
+    const S quad = ic00 * d0 * d0 + ic_cross * d0 * d1 + ic11 * d1 * d1;
+    return nc - S(0.5) * quad;
   }
+};
+struct Gaussian2D : Gaussian2DT<float> {
+  using Gaussian2DT<float>::Gaussian2DT;
 };
 
 // models/discrete.py:poisson_target over int32 states, in the JAX XLA
@@ -192,32 +237,51 @@ struct GaussianMixture1D {
 // (mini_mcmc_tpu/models/gaussian.py:270-281) and the analytic gradient of
 // its grad (:261-268): state [v, x_1, .., x_{D-1}], logp = -v^2 / (2
 // scale^2) - (D - 1) v / 2 - sum_i x_i^2 e^-v / 2. params: 1 / scale^2.
-struct NealFunnel {
-  float inv_s2;
+template <class S>
+struct NealFunnelT {
+  using Scalar = S;
+  S inv_s2;
 
-  __device__ __forceinline__ explicit NealFunnel(const float* p)
+  __device__ __forceinline__ explicit NealFunnelT(const S* p)
       : inv_s2(__ldg(p)) {}
 
   template <int D>
-  __device__ __forceinline__ void grad(const float (&x)[D],
-                                       float (&g)[D]) const {
-    const float v = x[0], e = expf(-v);
-    float ss = 0.0f;
+  __device__ __forceinline__ void grad(const S (&x)[D], S (&g)[D]) const {
+    const S v = x[0], e = exp_of(-v);
+    S ss = S(0);
 #pragma unroll
     for (int i = 1; i < D; ++i) ss += x[i] * x[i];
-    g[0] = -v * inv_s2 + 0.5f * ss * e - 0.5f * (float)(D - 1);
+    g[0] = -v * inv_s2 + S(0.5) * ss * e - S(0.5) * (S)(D - 1);
 #pragma unroll
     for (int i = 1; i < D; ++i) g[i] = -x[i] * e;
   }
 
   template <int D>
-  __device__ __forceinline__ float logp(const float (&x)[D]) const {
-    const float v = x[0], emv = expf(-v);
-    float acc = -0.5f * v * v * inv_s2 - 0.5f * (float)(D - 1) * v;
+  __device__ __forceinline__ S logp(const S (&x)[D]) const {
+    const S v = x[0], emv = exp_of(-v);
+    S acc = S(-0.5) * v * v * inv_s2 - S(0.5) * (S)(D - 1) * v;
 #pragma unroll
-    for (int i = 1; i < D; ++i) acc = acc - 0.5f * x[i] * x[i] * emv;
+    for (int i = 1; i < D; ++i) acc = acc - S(0.5) * x[i] * x[i] * emv;
     return acc;
   }
+};
+struct NealFunnel : NealFunnelT<float> {
+  using NealFunnelT<float>::NealFunnelT;
+};
+
+// The built-in functors of Kernels 1-4 at scalar S (MM_DISPATCH_S in
+// hmc_common.cuh): float's are the types the float kernels always ran.
+template <class S>
+struct Builtins {
+  using Rosenbrock = RosenbrockT<S>;
+  using Gauss = Gaussian2DT<S>;
+  using Funnel = NealFunnelT<S>;
+};
+template <>
+struct Builtins<float> {
+  using Rosenbrock = RosenbrockND;
+  using Gauss = Gaussian2D;
+  using Funnel = NealFunnel;
 };
 
 // The bijectors of models/transforms.py, x = g(y) per coordinate, in the
@@ -238,43 +302,62 @@ struct NealFunnel {
 // of models/transforms.py:_soft_saturate (~39.93 for exp, ~7.971 for
 // sigmoid); the kernels multiply by 1 / s instead of dividing, and tanh is
 // (1 - e) / (1 + e), e = exp(-2u), through __fdividef: no IEEE division
-// (no slow-path call) in a leapfrog.
-struct SoftSat {
-  float a, s, inv_s;
+// (no slow-path call) in a leapfrog. Kernel 1's float64 instances run the
+// same forms at double (IEEE division, libm's double exp and log1p) on
+// the float64 constants of the squashes (the host gives them at double).
+template <class S>
+struct SoftSatT {
+  S a, s, inv_s;
 };
+using SoftSat = SoftSatT<float>;
 
-struct BijTable {
-  SoftSat e, g;  // exp's and sigmoid's
+template <class S>
+struct BijTableT {
+  SoftSatT<S> e, g;  // exp's and sigmoid's
 
-  __device__ __forceinline__ explicit BijTable(const float* p)
+  __device__ __forceinline__ explicit BijTableT(const S* p)
       : e{__ldg(p + 0), __ldg(p + 1), __ldg(p + 2)},
         g{__ldg(p + 3), __ldg(p + 4), __ldg(p + 5)} {}
 };
+using BijTable = BijTableT<float>;
 
 // y' and its two derivatives; `u` receives u (0 in the core) for the
 // log-Jacobian. The constants come by value: a squash picked at run time
 // by reference would put the table in local memory.
-__device__ __forceinline__ float soft_pre(float a, float s, float inv_s,
-                                          float y, float& dpre,
-                                          float& dpre_ld, float& u) {
-  const float ay = fabsf(y);
+template <class S>
+__device__ __forceinline__ S soft_pre(S a, S s, S inv_s, S y, S& dpre,
+                                      S& dpre_ld, S& u) {
+  const S ay = abs_of(y);
   if (ay <= a) {
-    dpre = 1.0f;
-    dpre_ld = 0.0f;
-    u = 0.0f;
+    dpre = S(1);
+    dpre_ld = S(0);
+    u = S(0);
     return y;
   }
   u = (ay - a) * inv_s;
-  const float e = expf(-2.0f * u);
-  const float t = __fdividef(1.0f - e, 1.0f + e);  // tanh(u), u > 0
-  const float sg = y < 0.0f ? -1.0f : 1.0f;
-  dpre = (1.0f - t) * (1.0f + t);
-  dpre_ld = -2.0f * t * sg * inv_s;
+  const S e = exp_of(S(-2) * u);
+  const S t = div_of(S(1) - e, S(1) + e);  // tanh(u), u > 0
+  const S sg = y < S(0) ? S(-1) : S(1);
+  dpre = (S(1) - t) * (S(1) + t);
+  dpre_ld = S(-2) * t * sg * inv_s;
   return sg * (a + s * t);
 }
 
-__device__ __forceinline__ float sigmoid_of(float p) {
-  return __fdividef(1.0f, 1.0f + expf(-p));
+template <class S>
+__device__ __forceinline__ S sigmoid_of(S p) {
+  return div_of(S(1), S(1) + exp_of(-p));
+}
+
+// log 4, the constant of log sech^2(u) = 2 log 2 - 2u - 2 log1p(e^-2u)
+template <class S>
+__device__ __forceinline__ S log4_of();
+template <>
+__device__ __forceinline__ float log4_of<float>() {
+  return 1.3862943611198906f;
+}
+template <>
+__device__ __forceinline__ double log4_of<double>() {
+  return 1.3862943611198906;
 }
 
 // x = g(y), dx/dy and d(log|dx/dy|)/dy: what a gradient needs. The
@@ -283,52 +366,50 @@ __device__ __forceinline__ float sigmoid_of(float p) {
 // all-positive separable stage measured faster than one expf a
 // coordinate behind a warp vote on the saturation, and faster than the
 // branch-free form with selects (PERF.md, PR 12).
-__device__ __forceinline__ float bij_grad(const BijTable& bt, int code,
-                                          float b, float w, float y,
-                                          float& dx, float& dld) {
+template <class S>
+__device__ __forceinline__ S bij_grad(const BijTableT<S>& bt, int code, S b,
+                                      S w, S y, S& dx, S& dld) {
   if (code == 0) {
-    dx = 1.0f;
-    dld = 0.0f;
+    dx = S(1);
+    dld = S(0);
     return y;
   }
-  float dpre, dpre_ld, u;
+  S dpre, dpre_ld, u;
   if (code == 4) {
-    const float p = soft_pre(bt.g.a, bt.g.s, bt.g.inv_s, y, dpre, dpre_ld,
-                             u);
-    const float sig = sigmoid_of(p);
-    dx = w * sig * (1.0f - sig) * dpre;
-    dld = (1.0f - 2.0f * sig) * dpre + dpre_ld;
+    const S p = soft_pre(bt.g.a, bt.g.s, bt.g.inv_s, y, dpre, dpre_ld, u);
+    const S sig = sigmoid_of(p);
+    dx = w * sig * (S(1) - sig) * dpre;
+    dld = (S(1) - S(2) * sig) * dpre + dpre_ld;
     return b + w * sig;
   }
-  const float p = soft_pre(bt.e.a, bt.e.s, bt.e.inv_s, y, dpre, dpre_ld, u);
-  const float ex = expf(p);
+  const S p = soft_pre(bt.e.a, bt.e.s, bt.e.inv_s, y, dpre, dpre_ld, u);
+  const S ex = exp_of(p);
   dx = w * ex * dpre;
   dld = dpre + dpre_ld;
   return b + w * ex;
 }
 
 // x = g(y), adding log|dx/dy| to `ld`: what a density needs
-__device__ __forceinline__ float bij_logp(const BijTable& bt, int code,
-                                          float b, float w, float y,
-                                          float& ld) {
+template <class S>
+__device__ __forceinline__ S bij_logp(const BijTableT<S>& bt, int code, S b,
+                                      S w, S y, S& ld) {
   if (code == 0) return y;
-  float dpre, dpre_ld, u;
+  S dpre, dpre_ld, u;
   const bool sig = code == 4;
-  const float a = sig ? bt.g.a : bt.e.a;
-  const float p = soft_pre(a, sig ? bt.g.s : bt.e.s,
-                           sig ? bt.g.inv_s : bt.e.inv_s, y, dpre, dpre_ld,
-                           u);
+  const S a = sig ? bt.g.a : bt.e.a;
+  const S p = soft_pre(a, sig ? bt.g.s : bt.e.s,
+                       sig ? bt.g.inv_s : bt.e.inv_s, y, dpre, dpre_ld, u);
   // log sech^2(u) stably; 0 in the core
-  const float pre_ld =
-      fabsf(y) <= a
-          ? 0.0f
-          : 1.3862943611198906f - 2.0f * u - 2.0f * log1pf(expf(-2.0f * u));
+  const S pre_ld =
+      abs_of(y) <= a
+          ? S(0)
+          : log4_of<S>() - S(2) * u - S(2) * log1p_of(exp_of(S(-2) * u));
   if (sig) {
-    ld += logf(w) - p - 2.0f * log1pf(expf(-p)) + pre_ld;
+    ld += log_of(w) - p - S(2) * log1p_of(exp_of(-p)) + pre_ld;
     return b + w * sigmoid_of(p);
   }
   ld += p + pre_ld;
-  return b + w * expf(p);
+  return b + w * exp_of(p);
 }
 
 // The transformed target of models/transforms.py:CoordinateTransform.wrap,
@@ -343,14 +424,16 @@ __device__ __forceinline__ float bij_logp(const BijTable& bt, int code,
 // (kHead floats), each coordinate's (code, offset, width), then T's own.
 template <class T, int D>
 struct Transformed {
+  using Scalar = scalar_t<T>;
+  using S = Scalar;
   static constexpr int kHead = 6;
   static constexpr int kFloats = kHead + 3 * D;
-  BijTable bt;
+  BijTableT<S> bt;
   int code[D];
-  float b[D], w[D];
+  S b[D], w[D];
   T inner;
 
-  __device__ __forceinline__ explicit Transformed(const float* p)
+  __device__ __forceinline__ explicit Transformed(const S* p)
       : bt(p), inner(p + kFloats) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -361,10 +444,9 @@ struct Transformed {
   }
 
   template <int E>
-  __device__ __forceinline__ void grad(const float (&y)[E],
-                                       float (&g)[E]) const {
+  __device__ __forceinline__ void grad(const S (&y)[E], S (&g)[E]) const {
     static_assert(E == D, "a Transformed functor is built for one D");
-    float x[D], dx[D], dld[D], gx[D];
+    S x[D], dx[D], dld[D], gx[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       x[d] = bij_grad(bt, code[d], b[d], w[d], y[d], dx[d], dld[d]);
@@ -375,9 +457,9 @@ struct Transformed {
   }
 
   template <int E>
-  __device__ __forceinline__ float logp(const float (&y)[E]) const {
+  __device__ __forceinline__ S logp(const S (&y)[E]) const {
     static_assert(E == D, "a Transformed functor is built for one D");
-    float x[D], ld = 0.0f;
+    S x[D], ld = S(0);
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       x[d] = bij_logp(bt, code[d], b[d], w[d], y[d], ld);
@@ -396,21 +478,22 @@ struct Transformed {
 // row (kTri floats, held in registers), then T's own.
 template <class T, int D>
 struct Whitened {
+  using Scalar = scalar_t<T>;
+  using S = Scalar;
   static constexpr int kTri = D * (D + 1) / 2;
-  float ell[kTri];
+  S ell[kTri];
   T inner;
 
-  __device__ __forceinline__ explicit Whitened(const float* p)
+  __device__ __forceinline__ explicit Whitened(const S* p)
       : inner(p + kTri) {
 #pragma unroll
     for (int k = 0; k < kTri; ++k) ell[k] = __ldg(p + k);
   }
 
-  __device__ __forceinline__ void to_x(const float (&y)[D],
-                                       float (&x)[D]) const {
+  __device__ __forceinline__ void to_x(const S (&y)[D], S (&x)[D]) const {
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      float acc = ell[i * (i + 1) / 2] * y[0];
+      S acc = ell[i * (i + 1) / 2] * y[0];
 #pragma unroll
       for (int j = 1; j <= i; ++j) {
         acc = acc + ell[i * (i + 1) / 2 + j] * y[j];
@@ -420,15 +503,14 @@ struct Whitened {
   }
 
   template <int E>
-  __device__ __forceinline__ void grad(const float (&y)[E],
-                                       float (&g)[E]) const {
+  __device__ __forceinline__ void grad(const S (&y)[E], S (&g)[E]) const {
     static_assert(E == D, "a Whitened functor is built for one D");
-    float x[D], gx[D];
+    S x[D], gx[D];
     to_x(y, x);
     inner.template grad<D>(x, gx);
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      float acc = ell[i * (i + 1) / 2 + i] * gx[i];
+      S acc = ell[i * (i + 1) / 2 + i] * gx[i];
 #pragma unroll
       for (int j = i + 1; j < D; ++j) {
         acc = acc + ell[j * (j + 1) / 2 + i] * gx[j];
@@ -438,24 +520,24 @@ struct Whitened {
   }
 
   template <int E>
-  __device__ __forceinline__ float logp(const float (&y)[E]) const {
+  __device__ __forceinline__ S logp(const S (&y)[E]) const {
     static_assert(E == D, "a Whitened functor is built for one D");
-    float x[D];
+    S x[D];
     to_x(y, x);
     return inner.template logp<D>(x);
   }
 
   template <int E, class I = T,
             std::enable_if_t<has_logp_and_grad<I, D>::value, int> = 0>
-  __device__ __forceinline__ float logp_and_grad(const float (&y)[E],
-                                                 float (&g)[E]) const {
+  __device__ __forceinline__ S logp_and_grad(const S (&y)[E],
+                                             S (&g)[E]) const {
     static_assert(E == D, "a Whitened functor is built for one D");
-    float x[D], gx[D];
+    S x[D], gx[D];
     to_x(y, x);
-    const float lp = inner.template logp_and_grad<D>(x, gx);
+    const S lp = inner.template logp_and_grad<D>(x, gx);
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      float acc = ell[i * (i + 1) / 2 + i] * gx[i];
+      S acc = ell[i * (i + 1) / 2 + i] * gx[i];
 #pragma unroll
       for (int j = i + 1; j < D; ++j) {
         acc = acc + ell[j * (j + 1) / 2 + i] * gx[j];
@@ -474,20 +556,21 @@ struct Whitened {
 // scales, then T's own.
 template <class T, int D>
 struct WhitenedDiag {
-  float s[D];
+  using Scalar = scalar_t<T>;
+  using S = Scalar;
+  S s[D];
   T inner;
 
-  __device__ __forceinline__ explicit WhitenedDiag(const float* p)
+  __device__ __forceinline__ explicit WhitenedDiag(const S* p)
       : inner(p + D) {
 #pragma unroll
     for (int d = 0; d < D; ++d) s[d] = __ldg(p + d);
   }
 
   template <int E>
-  __device__ __forceinline__ void grad(const float (&y)[E],
-                                       float (&g)[E]) const {
+  __device__ __forceinline__ void grad(const S (&y)[E], S (&g)[E]) const {
     static_assert(E == D, "a WhitenedDiag functor is built for one D");
-    float x[D], gx[D];
+    S x[D], gx[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) x[d] = s[d] * y[d];
     inner.template grad<D>(x, gx);
@@ -496,9 +579,9 @@ struct WhitenedDiag {
   }
 
   template <int E>
-  __device__ __forceinline__ float logp(const float (&y)[E]) const {
+  __device__ __forceinline__ S logp(const S (&y)[E]) const {
     static_assert(E == D, "a WhitenedDiag functor is built for one D");
-    float x[D];
+    S x[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) x[d] = s[d] * y[d];
     return inner.template logp<D>(x);
@@ -506,13 +589,13 @@ struct WhitenedDiag {
 
   template <int E, class I = T,
             std::enable_if_t<has_logp_and_grad<I, D>::value, int> = 0>
-  __device__ __forceinline__ float logp_and_grad(const float (&y)[E],
-                                                 float (&g)[E]) const {
+  __device__ __forceinline__ S logp_and_grad(const S (&y)[E],
+                                             S (&g)[E]) const {
     static_assert(E == D, "a WhitenedDiag functor is built for one D");
-    float x[D], gx[D];
+    S x[D], gx[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) x[d] = s[d] * y[d];
-    const float lp = inner.template logp_and_grad<D>(x, gx);
+    const S lp = inner.template logp_and_grad<D>(x, gx);
 #pragma unroll
     for (int d = 0; d < D; ++d) g[d] = s[d] * gx[d];
     return lp;

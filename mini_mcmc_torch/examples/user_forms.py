@@ -29,6 +29,19 @@ the tests and ``chip_smoke.py`` run:
   ``-|x|/s - 2 log1p(exp(-|x|/s)) - log s`` (variance ``pi^2 s^2 / 3``),
   one table, as a ``cuda_coord_source`` with its own ``grad`` or, with
   ``hand=False``, generated from the tile form.
+- :func:`rosenbrock_user`: ``models.rosenbrock.rosenbrock_nd`` at any D
+  as a ``cuda_source`` without a gradient (the kernels take it from dual
+  numbers), written with integer literals so that its float64 instance
+  (Kernel 1 on float64 states) is exact; or, with ``hand=False``, the
+  batch form the kernels trace.
+- :func:`poisson_user`: ``models.discrete.poisson_target`` on int32
+  states as a ``cuda_source`` that copies ``targets.cuh:Poisson``, so the
+  MH kernel gives the built-in instance's cube bit for bit;
+  ``models.discrete.binomial_target`` is the traced int32 density (it
+  has no functor).
+- :func:`int_walk`: ``random_walk_int_proposal``'s +-1 walk as a user
+  int32 proposal (``proposals.cuh:RandomWalkInt`` written as a source),
+  its twin the built-in's draw.
 """
 
 from __future__ import annotations
@@ -38,10 +51,13 @@ import math
 import torch
 
 from ..models.base import Conditional, Proposal, Target
+from ..models.discrete import poisson_target, random_walk_int_proposal
 from ..models.gaussian import gaussian2d, isotropic_gaussian_proposal
+from ..models.rosenbrock import rosenbrock_nd
 from ..models.mixture import gaussian_mixture_conditional
 from ..ops.kernels import rng
 from ..ops.kernels.gibbs_full import SAMPLE_FROM_WORDS
+from ..ops.kernels.mh_full import PROPOSE_FROM_WORDS
 
 GAUSSIAN2D_SOURCE = """
 // targets.cuh:Gaussian2D, term for term
@@ -105,6 +121,87 @@ struct Proposal {
       mm::box_muller_pair(w[2 * p], w[2 * p + 1], c, s);
       y[2 * p] = x[2 * p] + __fmul_rn(std, c);
       if (2 * p + 1 < D) y[2 * p + 1] = x[2 * p + 1] + __fmul_rn(std, s);
+    }
+  }
+};
+"""
+
+ROSENBROCK_SOURCE = """
+// models/rosenbrock.py:rosenbrock_nd at any D: -sum_i [100 (x_{i+1} -
+// x_i^2)^2 + (1 - x_i)^2], its gradient from dual numbers; integer
+// literals convert exactly to float or double
+struct Density {
+  __device__ __forceinline__ explicit Density(const float*) {}
+
+  template <class S, int D>
+  __device__ __forceinline__ S logp(const S (&x)[D]) const {
+    S s = 0;
+#pragma unroll
+    for (int i = 0; i + 1 < D; ++i) {
+      const S d = x[i + 1] - x[i] * x[i];
+      s = s + 100 * (d * d) + (1 - x[i]) * (1 - x[i]);
+    }
+    return -s;
+  }
+};
+"""
+
+POISSON_SOURCE = """
+// targets.cuh:Poisson, term for term, on int32 states: (k ln(lam) - lam)
+// - lgamma(k + 1), -inf for k < 0, lgammaf(k + 1) read from a block table
+// for k < 64 (the constructor synchronises the block); params: log_lam,
+// lam
+struct Density {
+  static constexpr int kTable = 64;
+  float log_lam, lam;
+  const float* table;
+
+  __device__ __forceinline__ explicit Density(const float* p)
+      : log_lam(__ldg(p + 0)), lam(__ldg(p + 1)) {
+    __shared__ float lgamma_table[kTable];
+    for (int i = threadIdx.x; i < kTable; i += blockDim.x)
+      lgamma_table[i] = lgammaf((float)i + 1.0f);
+    __syncthreads();
+    table = lgamma_table;
+  }
+
+  template <int D>
+  __device__ __forceinline__ float logp(const int32_t (&k)[D]) const {
+    static_assert(D == 1, "Poisson is one-dimensional");
+    if (k[0] < 0) return -__int_as_float(0x7f800000);  // -inf
+    const float kf = (float)k[0];
+    const float lg = k[0] < kTable ? table[k[0]] : mm::lgamma(kf + 1.0f);
+    return (__fmul_rn(kf, log_lam) - lam) - lg;
+  }
+};
+"""
+
+INT_WALK_SOURCE = """
+// proposals.cuh:RandomWalkInt on int32 states: x +- 1 by the top bit of
+// word d (clear: +1), reflected at lo and, when has_hi, at hi; params: lo,
+// hi, has_hi
+struct Proposal {
+  int32_t lo, hi;
+  bool has_hi;
+
+  template <int D>
+  __host__ __device__ static constexpr int words() {
+    return D;
+  }
+
+  __device__ __forceinline__ explicit Proposal(const float* p)
+      : lo((int32_t)__ldg(p + 0)), hi((int32_t)__ldg(p + 1)),
+        has_hi(__ldg(p + 2) != 0.0f) {}
+
+  template <int D>
+  __device__ __forceinline__ void propose(const int32_t (&x)[D],
+                                          const uint32_t* w,
+                                          int32_t (&y)[D]) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      int32_t v = max(x[d] + ((w[d] >> 31) == 0u ? 1 : -1), lo);
+      if (has_hi) v = min(v, hi);
+      y[d] = v;
     }
   }
 };
@@ -211,6 +308,38 @@ def gaussian2d_user(mean, cov, hand: bool = True) -> Target:
         return Target(logp=g.logp, logp_normalized=g.logp_normalized)
     return Target(logp=g.logp, logp_normalized=g.logp_normalized,
                   cuda_source=GAUSSIAN2D_SOURCE, cuda_params=g.cuda_params)
+
+
+def rosenbrock_user(hand: bool = True) -> Target:
+    """``models.rosenbrock.rosenbrock_nd()`` without its functor: the
+    kernels run :data:`ROSENBROCK_SOURCE` (``hand``) or the C++ they
+    generate from the batch form."""
+    r = rosenbrock_nd()
+    if not hand:
+        return Target(logp=r.logp)
+    return Target(logp=r.logp, cuda_source=ROSENBROCK_SOURCE)
+
+
+def poisson_user(lam) -> Target:
+    """``models.discrete.poisson_target(lam)`` without its functor: the
+    MH kernel runs :data:`POISSON_SOURCE` (int32 states) on the same two
+    params; the batch form is the built-in's."""
+    p = poisson_target(lam)
+    return Target(logp=p.logp, cuda_source=POISSON_SOURCE,
+                  cuda_params=p.cuda_params)
+
+
+def int_walk(clip_low=0, clip_high=None) -> Proposal:
+    """``random_walk_int_proposal(clip_low, clip_high)`` as a user int32
+    proposal: :data:`INT_WALK_SOURCE` on the built-in's params, its twin
+    the built-in's draw (``mh_full.py``'s), so that both the kernel's and
+    the twin's cubes equal the built-in's."""
+    walk = random_walk_int_proposal(clip_low, clip_high)
+    words_of, propose_words = PROPOSE_FROM_WORDS["random_walk_int"]
+    return Proposal(sample=walk.sample, logp=walk.logp, symmetric=True,
+                    cuda_source=INT_WALK_SOURCE,
+                    cuda_params=walk.cuda_params,
+                    propose_words=propose_words, cuda_words=words_of)
 
 
 def bimodal(w_plus: float = 0.7, hand: bool = False) -> Target:

@@ -145,18 +145,20 @@ class Target:
                 f"cuda_source, not both (got {self.cuda_functor!r} and a "
                 "source)")
 
-    def dc_forms(self, dim: int, device="cpu"):
+    def dc_forms(self, dim: int, device="cpu", dtype=torch.float32):
         """What Kernels 1-4 compile for this target at ``dim``
         (``mini_mcmc_tpu/models/base.py:97-125``): a :class:`DcForms` of
         the source (``cuda_source``, or the C++ :func:`derive_logp_dc`
         generates from the batch form, traced on ``device``), every float
         the instance reads, and whether its gradient is the source's own
-        (``"hand"``) or the dual numbers' (``"derived"``). Raises for a
-        built-in ``cuda_functor``, and for a batch form the generator
-        cannot translate, naming the operation."""
+        (``"hand"``) or the dual numbers' (``"derived"``). ``dtype``: the
+        states' (float64: Kernel 1's float64 instance; int32: the MH
+        kernel's value-only int32 density). Raises for a built-in
+        ``cuda_functor``, and for a batch form the generator cannot
+        translate, naming the operation."""
         from ..ops.kernels.user_density import dc_forms
 
-        return dc_forms(self, dim, device)
+        return dc_forms(self, dim, device, dtype)
 
     def batch_logp(self, positions: torch.Tensor) -> torch.Tensor:
         """Log density for a ``[C, D]`` batch of positions -> ``[C]``."""
@@ -294,9 +296,16 @@ def validate_separable(target: Target, positions, *, rtol: float = 3e-4,
                 + _SEP_MSG)
 
 
-def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
-                      atol: float = 1e-4, max_rows: int = 256,
-                      need_grad: bool = True, proposal=None) -> None:
+#: ``validate_dc_forms``'s tolerance (rtol, atol) for a float64 probe, where
+#: the JAX package's float32 rule would pass a float64 instance that
+#: computes at float precision (``f``-suffixed literals, ``expf``)
+F64_DC_TOL = (1e-10, 1e-10)
+
+
+def validate_dc_forms(target: Target, positions, *,
+                      rtol: float | None = None, atol: float | None = None,
+                      max_rows: int = 256, need_grad: bool = True,
+                      proposal=None) -> None:
     """Raise ``ValueError`` unless the compiled density of ``target`` (the
     instance Kernels 1-4 run: ``cuda_source`` or the generated C++, inside
     the target's metric and transform wrappers) agrees with its batch form
@@ -304,9 +313,10 @@ def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
     and, with ``need_grad``, the gradient against autograd's
     (``mini_mcmc_tpu/models/base.py:214-345``).
 
-    The tolerance is the JAX package's: ``|got - want| <= atol max(|want|,
-    1) + rtol |want|``, both ``-inf`` agreeing, the gradient compared where
-    the batch form's is finite. The probe runs where the positions lie: on
+    The rule is the JAX package's: ``|got - want| <= atol max(|want|, 1)
+    + rtol |want|``, both ``-inf`` agreeing, at its tolerance (rtol 3e-4,
+    atol 1e-4) by default, and at :data:`F64_DC_TOL` for a float64 probe;
+    the gradient is compared where the batch form's is finite. The probe runs where the positions lie: on
     the card the per-density library's probe entry (built if need be), on
     the CPU the host build of the same source (``g++``, for the tests);
     without ``need_grad`` the value-only library's (Kernels 5 and 8),
@@ -318,18 +328,35 @@ def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
     tempering with ``need_grad=False``, as the JAX samplers,
     ``mini_mcmc_tpu/samplers.py:295-300,805-809``); it never replaces the
     separability check of ``use_pallas="separable"``.
+
+    Float64 positions probe Kernel 1's float64 instance against the batch
+    form at float64. Integer positions probe the MH kernel's int32
+    instance (value only) against the batch form on int32 rows, and on
+    four rows beside them that may lie off the support (every coordinate
+    -1, the rows' least less 1, their greatest plus 1, and 2**20), where
+    both must give the same value or both ``-inf``.
     """
     if target.cuda_functor is not None:
         return
-    from ..ops.kernels.user_density import probe
+    from ..ops.kernels.user_density import _state_dtype, probe
 
     x = torch.as_tensor(positions).detach()[:max_rows]
     if x.dim() != 2:
         raise ValueError("positions must be [n_chains, D]; got shape "
                          f"{tuple(x.shape)}")
+    dtype = _state_dtype(x, need_grad)
+    f64 = dtype == torch.float64
+    rtol = (F64_DC_TOL[0] if f64 else 3e-4) if rtol is None else rtol
+    atol = (F64_DC_TOL[1] if f64 else 1e-4) if atol is None else atol
+    x = x.to(dtype)
+    if dtype == torch.int32:
+        x = torch.cat([x, _support_edges(x)])
     got_lp, got_g = probe(target, x, need_grad, proposal)
-    forms = target.dc_forms(x.shape[1], x.device)
-    want_lp, want_g = target.batch_logp_and_grad(x.to(torch.float32))
+    forms = target.dc_forms(x.shape[1], x.device, dtype)
+    if need_grad:
+        want_lp, want_g = target.batch_logp_and_grad(x)
+    else:
+        want_lp, want_g = target.batch_logp(x), None
     checks = [("logp", want_lp, got_lp)]
     if need_grad:
         finite = torch.isfinite(want_g)
@@ -337,9 +364,7 @@ def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
             finite, want_g, 0.0), torch.where(finite, got_g, 0.0)))
     for what, want, got in checks:
         want, got = want.double(), got.double()
-        close = ((got - want).abs()
-                 <= atol * want.abs().clamp(min=1.0) + rtol * want.abs())
-        close |= torch.isneginf(want) & torch.isneginf(got)
+        close = _close(got, want, rtol, atol)
         if not bool(close.all()):
             err = (got - want).abs().nan_to_num(nan=float("inf"))
             worst = int(err.reshape(-1).argmax())
@@ -350,16 +375,35 @@ def validate_dc_forms(target: Target, positions, *, rtol: float = 3e-4,
                 f"{float(err.max()):.3g} (flat index {worst}: "
                 f"{float(got.reshape(-1)[worst]):.6g} vs "
                 f"{float(want.reshape(-1)[worst]):.6g}). The kernels would "
-                "sample the WRONG posterior. Fix the source (or pass "
-                "validate_dc=False to skip this check).")
+                "sample the WRONG posterior. "
+                + ("At float64 it is held to rtol and atol "
+                   f"{rtol:g}: an f-suffixed literal (0.1f) or a float "
+                   "function (expf, logf) keeps the double instance at "
+                   "float precision; write 0.1 and exp, log. " if f64
+                   else "")
+                + "Fix the source (or pass validate_dc=False to skip this "
+                "check).")
+
+
+def _support_edges(x: torch.Tensor) -> torch.Tensor:
+    """Four int32 rows like ``x``'s that may lie off a discrete target's
+    support: every coordinate -1, ``x``'s least less 1, its greatest plus
+    1, and 2**20."""
+    d = x.shape[1]
+    vals = (-1, int(x.min()) - 1, int(x.max()) + 1, 1 << 20)
+    return torch.tensor(vals, dtype=torch.int32,
+                        device=x.device)[:, None].expand(4, d)
 
 
 def _close(got, want, rtol: float, atol: float) -> torch.Tensor:
-    """``validate_dc_forms``'s rule, elementwise: within ``atol
-    max(|want|, 1) + rtol |want|`` or both -inf (NaN in neither)."""
+    """``validate_dc_forms``'s rule, elementwise: both finite and within
+    ``atol max(|want|, 1) + rtol |want|``, or both -inf (NaN in neither);
+    a finite value against -inf is far, as ``np.isclose`` holds it (the
+    tolerance scaled by an infinite |want| would pass anything)."""
     got, want = got.double(), want.double()
     close = ((got - want).abs()
              <= atol * want.abs().clamp(min=1.0) + rtol * want.abs())
+    close &= torch.isfinite(got) & torch.isfinite(want)
     return close | (torch.isneginf(want) & torch.isneginf(got))
 
 
@@ -390,13 +434,20 @@ def validate_proposal_dc(proposal: "Proposal", target: Target, positions,
     here the kernel runs the source and the CPU twin the Python form, so
     the probe keeps the CPU tests truthful about the card. On the card
     the probe entry of Kernel 5's library of (``target``, ``proposal``),
-    on the CPU the host build. A built-in proposal validates trivially."""
+    on the CPU the host build. Integer positions probe the int32 form,
+    with :func:`validate_dc_forms`' four rows beside them. A built-in
+    proposal validates trivially."""
     if proposal.cuda_functor is not None:
         return
     from ..ops.kernels import rng
     from ..ops.kernels.user_density import propose_probe
 
-    x = torch.as_tensor(positions).detach()[:max_rows].to(torch.float32)
+    x = torch.as_tensor(positions).detach()[:max_rows]
+    if x.dtype in (torch.int32, torch.int64):
+        x = x.to(torch.int32)
+        x = torch.cat([x, _support_edges(x)])
+    else:
+        x = x.to(torch.float32)
     r, d = x.shape
     words = rng.stream_words(r, proposal.cuda_words(d), 0, _PROBE_SEED,
                              x.device)

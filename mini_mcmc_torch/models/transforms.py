@@ -507,13 +507,14 @@ class CoordinateTransform:
         )
 
 
-def soft_saturation_constants() -> tuple:
-    """The float32 constants of both squashes as the kernels take them
-    from the host: ``(a, s, 1 / s)`` of ``exp``'s, then of ``sigmoid``'s
-    (``a = s`` ~= 39.93 and ~= 7.971)."""
+def soft_saturation_constants(dtype=torch.float32) -> tuple:
+    """The constants of both squashes at ``dtype`` as the kernels take
+    them from the host: ``(a, s, 1 / s)`` of ``exp``'s, then of
+    ``sigmoid``'s (``a = s`` ~= 39.93 and ~= 7.971 at float32; ~= 319.4
+    and ~= 18.02 at float64, Kernel 1's float64 instances)."""
     out = ()
     for q in (_EXP_LIM, _SIG_LIM):
-        a, s = q.params(torch.float32)
+        a, s = q.params(dtype)
         out += (a, s, 1.0 / s)
     return out
 

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from .models.precondition import estimate_preconditioner
+from .ops.kernels import nuts_full, nuts_subtree
 from .ops.kernels.nuts_subtree import MAX_DEPTH
 from .ops.nuts import nuts_kernel
 from .progress import progress_run
@@ -104,13 +105,13 @@ class NUTS(_KernelSampler):
             _wrap_sampler_target(target, positions, transform, metric))
         self.kernel_target = kernel_target
         if use_pallas and positions.is_cuda:
-            check_kernel_target(kernel_target, positions, validate_dc)
+            check_kernel_target(
+                kernel_target, positions, validate_dc,
+                nuts_full.TIER if use_pallas == "full"
+                else nuts_subtree.TIER)
             if max_depth > MAX_DEPTH:
                 raise ValueError(f"the NUTS kernels are built for max_depth "
                                  f"<= {MAX_DEPTH}; got {max_depth}")
-            if use_pallas == "full" and positions.dtype != torch.float32:
-                raise ValueError("NUTS(use_pallas='full') is float32-only; "
-                                 f"got {positions.dtype}")
         init_fn, self._prepare_fn, step_fn = nuts_kernel(
             kernel_target, target_accept_p, max_depth, use_pallas=use_pallas,
             warmup_max_depth=warmup_max_depth)

@@ -87,6 +87,21 @@ MH_INSTANCES = tuple(
 GIBBS_INSTANCES = (("gaussian_mixture", 2),)
 #: state dtypes -> csrc/mh_multistep.cu:StateType
 STATE_TYPES = {torch.float32: 0, torch.int32: 1}
+#: the state dtypes each fused tier takes on CUDA (the dtypes its JAX
+#: kernel runs), one entry a kernel module, its ``TIER`` (:func:`tier`):
+#: float32 everywhere; float64 in Kernel 1 alone (the trajectory of
+#: ``use_pallas=True`` HMC and MALA), the one JAX kernel that runs float64
+#: under ``jax_enable_x64``; int32 in Kernel 5 (MH)
+TIER_DTYPES: dict = {}
+
+
+def tier(name: str, *dtypes) -> str:
+    """Enter the CUDA tier ``name`` in :data:`TIER_DTYPES`, taking states
+    of ``dtypes``; returns ``name``, the ``TIER`` of the kernel module
+    that runs it, which its callers pass to :func:`check_tier_dtype`."""
+    TIER_DTYPES[name] = dtypes
+    return name
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -109,7 +124,7 @@ def form_id(name: str | None, table: dict, kind: str) -> int:
             f"no built-in CUDA form named: {kind}.cuda_functor is None "
             f"(built in: {sorted(table)}). A user form reaches the kernels "
             f"as {own.get(kind, kind + '.cuda_source')}; or use "
-            "use_pallas=False. Forms still to come: ROADMAP.md, Queue 1."
+            "use_pallas=False."
         )
     if name not in table:
         raise ValueError(f"unknown {kind}.cuda_functor {name!r}; built in: "
@@ -148,26 +163,45 @@ def instance_flags(target) -> int:
             | (4 * bool(target.cuda_affine and target.cuda_diag)))
 
 
-def kernel_lib(target, dim: int, device) -> tuple:
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def check_tier_dtype(tier: str, dtype) -> None:
+    """Raise unless the CUDA tier ``tier`` (a key of ``TIER_DTYPES``)
+    takes states of ``dtype``, naming what each tier takes on the card."""
+    if dtype in TIER_DTYPES[tier]:
+        return
+    takes = "; ".join(
+        f"{t}: {', '.join(dtype_name(d) for d in dts)}"
+        for t, dts in sorted(TIER_DTYPES.items()))
+    raise ValueError(
+        f"{tier} does not take {dtype_name(dtype)} states on CUDA. On the "
+        f"card each tier takes: {takes}. Use use_pallas=False (any dtype) "
+        "or a tier that takes this dtype.")
+
+
+def kernel_lib(target, dim: int, device, dtype=torch.float32) -> tuple:
     """``(library, target id, params pointer)`` of ``target`` at ``dim``
     for Kernels 1-4: the built-in library and its functor's id for a
     ``cuda_functor``, else the target's own library
     (``user_density.kernel_lib``: its ``cuda_source``, or the C++
-    generated from its batch form, compiled at ``dim``). Raises for a
-    target neither route runs."""
+    generated from its batch form, compiled at ``dim``). ``dtype``
+    float64: Kernel 1's float64 instances (their library and params at
+    double). Raises for a target neither route runs."""
     if target.cuda_functor is not None:
         tid = functor_id(target)
         if dim not in KERNEL_DIMS:
             raise ValueError(f"the CUDA kernels are built for D in "
                              f"{KERNEL_DIMS}; got D={dim}")
-        return lib(), tid, params_ptr(target, device)
+        return lib(), tid, params_ptr(target, device, dtype=dtype, dim=dim)
     supported(target)
     if dim not in kernel_dims(target):
         raise ValueError(f"user densities run in Kernels 1-4 at D <= "
                          f"{WRAPPED_MAX_DIM}; got D={dim}")
     from . import user_density
 
-    return user_density.kernel_lib(target, dim, device)
+    return user_density.kernel_lib(target, dim, device, dtype)
 
 
 def unwhitened(target, what: str) -> bool:
@@ -213,8 +247,9 @@ def hist_args(hist, k: int, c: int, d: int, dtype, device) -> tuple:
 
 
 @functools.lru_cache(maxsize=64)
-def _params_on(params: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(params, dtype=torch.float32, device=device)
+def _params_on(params: tuple, device: torch.device,
+               dtype=torch.float32) -> torch.Tensor:
+    return torch.tensor(params, dtype=dtype, device=device)
 
 
 def kernel_dims(target) -> tuple:
@@ -239,19 +274,40 @@ def wrapper_floats(target, dim: int) -> int:
     return n
 
 
-def params_ptr(target, device,
-               functor_dim: int | None = None) -> int | None:
-    """Device pointer to ``target.cuda_params`` as float32 (copied to the
-    device once per target and device), or ``None`` for a functor without
-    coefficients. ``functor_dim``: read them for a kernel that runs the
-    functor alone at that D, past the wrappers' tables
-    (:func:`wrapper_floats`)."""
+def kernel_params(target, dim: int, dtype=torch.float32) -> tuple:
+    """``target.cuda_params`` as Kernels 1-4 read them at ``dim``: at
+    float64 a transformed target's soft-saturation constants are the
+    float64 squashes' (``transforms.soft_saturation_constants``), as the
+    twin's ``y.dtype`` picks them; every other float is the target's."""
     params = tuple(target.cuda_params)
+    if (dtype == torch.float64 and target.cuda_transform is not None
+            and dim <= max(kernel_dims(target))):
+        from ...models.transforms import soft_saturation_constants
+
+        off = 0
+        if target.cuda_affine:
+            off = dim if target.cuda_diag else dim * (dim + 1) // 2
+        params = (params[:off] + soft_saturation_constants(torch.float64)
+                  + params[off + TRANSFORM_HEAD:])
+    return params
+
+
+def params_ptr(target, device, functor_dim: int | None = None, *,
+               dtype=torch.float32, dim: int | None = None) -> int | None:
+    """Device pointer to ``target.cuda_params`` as ``dtype`` (float32,
+    or float64 for Kernel 1's float64 instances, :func:`kernel_params` at
+    ``dim``; copied to the device once per target, device and dtype), or
+    ``None`` for a functor without coefficients. ``functor_dim``: read
+    them for a kernel that runs the functor alone at that D, past the
+    wrappers' tables (:func:`wrapper_floats`)."""
+    params = tuple(target.cuda_params)
+    if dim is not None:
+        params = kernel_params(target, dim, dtype)
     if functor_dim is not None:
         params = params[wrapper_floats(target, functor_dim):]
     if not params:
         return None
-    return _params_on(params, torch.device(device)).data_ptr()
+    return _params_on(params, torch.device(device), dtype).data_ptr()
 
 
 def _nvcc() -> str:
@@ -362,6 +418,9 @@ def bind(handle: ctypes.CDLL, sigs: dict = KERNEL_SIGS) -> ctypes.CDLL:
     return handle
 
 
+#: Kernel 1's float64 entry, which a float64 density library exports alone
+F64_SIGS = {"mm_leapfrog_f64": KERNEL_SIGS["mm_leapfrog_f32"]}
+
 #: the C entries of Kernels 0 and 5-8, whose per-form libraries
 #: (``user_density.py``) export those of their kernel too
 ENTRY_SIGS = {
@@ -381,7 +440,8 @@ ENTRY_SIGS = {
 @functools.cache
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    return bind(ctypes.CDLL(str(build())), dict(KERNEL_SIGS, **ENTRY_SIGS))
+    return bind(ctypes.CDLL(str(build())),
+                dict(KERNEL_SIGS, **F64_SIGS, **ENTRY_SIGS))
 
 
 def check(code: int, handle: ctypes.CDLL | None = None) -> None:

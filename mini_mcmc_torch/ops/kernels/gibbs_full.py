@@ -31,6 +31,10 @@ import torch
 from ...models.mixture import mixture_coordinate
 from . import _build, rng, user_density
 
+#: the tier that runs this kernel, and the dtypes it takes on CUDA
+TIER = _build.tier('GibbsSampler use_pallas="full" (Kernel 6)',
+                   torch.float32)
+
 _MASK = 0xFFFFFFFF
 
 

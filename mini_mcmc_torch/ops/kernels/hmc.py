@@ -6,6 +6,12 @@ grad' [C, D])``, L steps with the cached half-step gradient at a runtime
 step size. ``eps`` is a 0-d or ``[1]`` tensor on the positions' device, so
 a jittered step size never syncs the host.
 
+States are float32 or float64: the JAX kernel takes the state's dtype
+and runs float64 under ``jax_enable_x64``, so Kernel 1 has float64
+instances (``mm_leapfrog_f64``: every built-in instance, and a user
+density's own float64 library), eps, params and outputs in float64. The
+other fused kernels take float32 (``_build.TIER_DTYPES``).
+
 :func:`leapfrog_trajectory` launches the CUDA kernel for CUDA tensors and
 runs :func:`leapfrog_trajectory_plain` for CPU tensors only; it never
 falls back from one to the other.
@@ -16,6 +22,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+#: the tier that runs this kernel, and the dtypes it takes on CUDA
+TIER = _build.tier("HMC/MALA use_pallas=True (Kernel 1)", torch.float32,
+                   torch.float64)
 
 
 def leapfrog_trajectory_plain(target, pos, mom, grad, eps, n_leapfrog: int):
@@ -34,10 +44,12 @@ def leapfrog_trajectory_plain(target, pos, mom, grad, eps, n_leapfrog: int):
 leapfrog_trajectory_plain.calls = 0
 
 
-def check_state(pos, *others, dims=_build.KERNEL_DIMS):
-    """Validate what the kernels take: contiguous f32 CUDA tensors, ``pos``
-    ``[C, D]`` with a D in ``dims`` (the built-in instances' by default;
-    ``_build.kernel_dims`` of a target), the rest on its device."""
+def check_state(pos, *others, tier: str, dims=_build.KERNEL_DIMS):
+    """Validate what the kernels take: contiguous CUDA tensors of one
+    dtype that ``tier`` (a kernel module's ``TIER``) takes on CUDA
+    (``_build.TIER_DTYPES``: float32, and float64 for Kernel 1), ``pos`` ``[C, D]`` with a D in ``dims`` (the
+    built-in instances' by default; ``_build.kernel_dims`` of a target),
+    the rest on its device."""
     if pos.dim() != 2:
         raise ValueError(f"positions must be [C, D]; got {tuple(pos.shape)}")
     if pos.shape[1] not in dims:
@@ -45,11 +57,13 @@ def check_state(pos, *others, dims=_build.KERNEL_DIMS):
             f"the CUDA kernels are built for D in {dims}; got "
             f"D={pos.shape[1]}"
         )
+    _build.check_tier_dtype(tier, pos.dtype)
     for t in (pos, *others):
-        if t.dtype != torch.float32 or t.device != pos.device:
+        if t.dtype != pos.dtype or t.device != pos.device:
             raise ValueError(
-                "the CUDA kernels take float32 tensors on one device; got "
-                f"{t.dtype} on {t.device}"
+                f"the CUDA kernels take {_build.dtype_name(pos.dtype)} "
+                f"tensors on one device, the positions'; got {t.dtype} on "
+                f"{t.device}"
             )
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
@@ -64,8 +78,10 @@ def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
         return leapfrog_trajectory_plain(target, pos, mom, grad, eps,
                                          n_leapfrog)
     eps = eps.reshape(1)
-    check_state(pos, mom, grad, eps, dims=_build.kernel_dims(target))
-    lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
+    check_state(pos, mom, grad, eps, dims=_build.kernel_dims(target),
+                tier=TIER)
+    lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device,
+                                         pos.dtype)
     c, d = pos.shape
     if mom.shape != pos.shape or grad.shape != pos.shape:
         raise ValueError("pos, mom and grad must all be [C, D]")
@@ -73,11 +89,14 @@ def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
     mom_o = torch.empty_like(pos)
     grad_o = torch.empty_like(pos)
     logp_o = torch.empty((c,), dtype=pos.dtype, device=pos.device)
+    f64 = pos.dtype == torch.float64
+    entry = lib.mm_leapfrog_f64 if f64 else lib.mm_leapfrog_f32
     leapfrog_trajectory.launches += 1
+    leapfrog_trajectory.f64_launches += f64
     leapfrog_trajectory.transformed_launches += (
         target.cuda_transform is not None)
     leapfrog_trajectory.user_launches += target.cuda_functor is None
-    _build.check(lib.mm_leapfrog_f32(
+    _build.check(entry(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), eps.data_ptr(),
         params, n_leapfrog, c, d, tid, _build.instance_flags(target),
         pos_o.data_ptr(), mom_o.data_ptr(), logp_o.data_ptr(),
@@ -87,6 +106,8 @@ def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
 
 
 leapfrog_trajectory.launches = 0
+#: the launches of the float64 instances, also counted in ``launches``
+leapfrog_trajectory.f64_launches = 0
 #: the launches of the transformed instances (``mm::Transformed``, a
 #: metric's wrapper around it included), also counted in ``launches``
 leapfrog_trajectory.transformed_launches = 0

@@ -27,6 +27,9 @@ import torch
 from . import _build, rng
 from .hmc import check_state, leapfrog_trajectory_plain
 
+#: the tier that runs this kernel, and the dtypes it takes on CUDA
+TIER = _build.tier('HMC/MALA use_pallas="full" (Kernel 2)', torch.float32)
+
 
 def hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog: int,
                         seed: int, step0: int, hist=None, *, mom=None,
@@ -71,7 +74,8 @@ def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
     if not pos.is_cuda:
         return hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog,
                                    seed, step0, hist)
-    check_state(pos, logp, grad, eps, dims=_build.kernel_dims(target))
+    check_state(pos, logp, grad, eps, tier=TIER,
+                dims=_build.kernel_dims(target))
     lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
     c, d = pos.shape
     k = eps.shape[0]

@@ -69,6 +69,9 @@ import torch
 from ...models.transforms import soft_saturation_constants
 from . import _build, rng, user_density
 
+#: the tier that runs this kernel, and the dtypes it takes on CUDA
+TIER = _build.tier('HMC use_pallas="separable" (Kernel 7)', torch.float32)
+
 _MASK = 0xFFFFFFFF
 #: quads of four coordinates per thread (csrc/hmc_separable.cu:kSepGroups)
 SEP_GROUPS = 2

@@ -9,9 +9,12 @@ target's logp there (``csrc/targets.cuh``, or a user density's value:
 ``Target.cuda_source`` or the C++ generated from its batch form), the
 strict accept ``(lp' - lp) > log(u)`` with true selects, and the kept
 position written to ``hist[k]``. A user form runs in a library of its own,
-the value-only table of ``user_density.py`` (:func:`mh_lib`), float32 at
-D <= 16; the twin draws a user proposal through ``propose_words``, as the
-JAX package's one ``propose_dc`` serves its kernel and interpret mode.
+the value-only table of ``user_density.py`` (:func:`mh_lib`), float32 or
+int32 states at D <= 16 (an int32 density is value-only C++ on int32
+states with a float32 logp, ``csrc/user_density.cuh``; an int32 proposal
+reads and writes int32 states, ``csrc/proposals.cuh``); the twin draws a
+user proposal through ``propose_words``, as the JAX package's one
+``propose_dc`` serves its kernel and interpret mode.
 
 Positions are float32 or int32 (discrete targets); the cached logp is
 float32. A transformed target (``transform=``) runs the float32 instances
@@ -49,6 +52,9 @@ from ...models.discrete import int_walk
 from . import _build, rng, user_density
 
 _MASK = 0xFFFFFFFF
+#: the tier that runs this kernel, and the dtypes it takes on CUDA
+TIER = _build.tier('MetropolisHastings use_pallas="full" (Kernel 5)',
+                   torch.float32, torch.int32)
 
 
 def _isotropic_from_words(params, current, words):
@@ -101,19 +107,19 @@ def mh_instance(target, proposal, dtype, dim: int) -> tuple[int, int, int]:
     for a transformed target), naming the instances that exist. A user
     density (``cuda_source``, or generated from the batch form) or a user
     proposal (``cuda_source``) runs in a library of its own
-    (:func:`mh_lib`, float32 states, D <= 16), ids ``(-1, -1, 0)``.
-    Resolved once per (forms, dtype, D, transformed), then read from a
-    cache on every launch."""
+    (:func:`mh_lib`, float32 or int32 states, D <= 16; an int32 one takes
+    no transform), ids ``(-1, -1, state type)``. Resolved once per
+    (forms, dtype, D, transformed), then read from a cache on every
+    launch."""
     transformed = _build.unwhitened(target, "the MH kernel")
     if user_forms(target, proposal):
         propose_form(proposal)
         if proposal.cuda_functor is None:
             user_density.source_of(proposal, "Proposal")
-        if dtype != torch.float32:
-            raise ValueError(
-                f"user forms run in the MH kernel on float32 states; got "
-                f"{_dtype_name(dtype)} (integer user forms: ROADMAP.md, "
-                "Queue 1)")
+        _build.check_tier_dtype(TIER, dtype)
+        if dtype == torch.int32 and transformed:
+            raise ValueError("an integer state takes no transform: the MH "
+                             "kernel's int32 instances run no bijector")
         if not 1 <= dim <= user_density.MAX_DIM:
             raise ValueError(f"user forms run in the MH kernel at D <= "
                              f"{user_density.MAX_DIM}; got D={dim}")
@@ -133,12 +139,9 @@ def mh_lib(target, proposal, dtype, dim: int, device) -> tuple:
     if tid >= 0:
         return (_build.lib(), tid, pid, st,
                 _build.params_ptr(target, device), pparams)
-    handle, tparams = user_density.value_lib(target, proposal, dim, device)
+    handle, tparams = user_density.value_lib(target, proposal, dim, device,
+                                             dtype)
     return handle, tid, pid, st, tparams, pparams
-
-
-def _dtype_name(dtype) -> str:
-    return str(dtype).replace("torch.", "")
 
 
 @functools.cache
@@ -149,13 +152,14 @@ def _mh_ids(target: str | None, proposal: str | None, dtype, dim: int,
     if (target, proposal, dtype, dim, transformed) not in (
             _build.MH_INSTANCES):
         built = ", ".join(
-            f"({t}, {p}, {_dtype_name(dt)}, D={d}"
+            f"({t}, {p}, {_build.dtype_name(dt)}, D={d}"
             f"{', transformed' if tf else ''})"
             for t, p, dt, d, tf in _build.MH_INSTANCES)
         raise ValueError(
             "the MH kernel is built for (target, proposal, state dtype, D) "
-            f"in {built}; got ({target}, {proposal}, {_dtype_name(dtype)}, "
-            f"D={dim}{', transformed' if transformed else ''})")
+            f"in {built}; got ({target}, {proposal}, "
+            f"{_build.dtype_name(dtype)}, D={dim}"
+            f"{', transformed' if transformed else ''})")
     return tid, pid, _build.STATE_TYPES[dtype]
 
 

@@ -45,6 +45,9 @@ from . import _build, rng
 from .hmc import check_state
 from .nuts_subtree import MAX_DEPTH, build_subtree_plain, popcount
 
+#: the tier that runs this kernel, and the dtypes it takes on CUDA
+TIER = _build.tier('NUTS use_pallas="full" (Kernel 4)', torch.float32)
+
 #: Philox draw index of doubling j (its coin, accept and merge uniforms) is
 #: DOUBLING_DRAW + j
 DOUBLING_DRAW = 0x10000
@@ -241,7 +244,8 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
             f"the NUTS step kernel is built for max_depth <= {MAX_DEPTH} "
             f"and 0 <= depth_limit <= max_depth; got max_depth={max_depth},"
             f" depth_limit={depth_limit}")
-    check_state(pos, eps, dims=_build.kernel_dims(target))
+    check_state(pos, eps, dims=_build.kernel_dims(target),
+                tier=TIER)
     lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
     c, d = pos.shape
     if eps.shape != (c,):

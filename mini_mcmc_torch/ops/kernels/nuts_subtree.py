@@ -28,6 +28,9 @@ import torch
 from . import _build
 from .hmc import check_state
 
+#: the tier that runs this kernel, and the dtypes it takes on CUDA
+TIER = _build.tier("NUTS use_pallas=True (Kernel 3)", torch.float32)
+
 #: csrc/nuts_tree.cuh kMaxDepth: the kernels take max_depth up to this
 MAX_DEPTH = 10
 #: divergence threshold: s' = (logu - 1000) < joint (nuts.rs:807)
@@ -221,7 +224,8 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
     v = v.to(torch.int32).contiguous()
     active = active.to(torch.bool).contiguous()
     check_state(pos, mom, grad, logu, eps, joint0,
-                dims=_build.kernel_dims(target))
+                dims=_build.kernel_dims(target),
+                tier=TIER)
     lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
     c, d = pos.shape
     if (mom.shape != pos.shape or grad.shape != pos.shape

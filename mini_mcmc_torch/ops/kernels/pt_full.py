@@ -51,6 +51,10 @@ import torch
 
 from . import _build, rng, user_density
 
+#: the tier that runs this kernel, and the dtypes it takes on CUDA
+TIER = _build.tier('ParallelTempering use_pallas="full" (Kernel 8)',
+                   torch.float32)
+
 _MASK = 0xFFFFFFFF
 
 

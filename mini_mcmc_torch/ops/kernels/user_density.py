@@ -120,42 +120,47 @@ struct Density {{
 """
 
 
-def dc_forms(target, dim: int, device="cpu") -> DcForms:
-    """The C++ the kernels compile for ``target`` at ``dim``: its
-    ``cuda_source``, or the one :func:`derive_logp_dc` traces from the
-    batch form of the target it wraps (``cuda_base``) or of itself, the
-    trace on ``device``."""
+def dc_forms(target, dim: int, device="cpu",
+             dtype=torch.float32) -> DcForms:
+    """The C++ the kernels compile for ``target`` at ``dim`` for states
+    of ``dtype``: its ``cuda_source``, or the one :func:`derive_logp_dc`
+    traces from the batch form of the target it wraps (``cuda_base``) or
+    of itself, the trace on ``device`` at ``dtype``. At float64 the params
+    are :func:`_build.kernel_params`' (a transform's float64 squashes);
+    an int32 source is value-only (``grad`` ``"none"``)."""
     if target.cuda_functor is not None:
         raise ValueError(
             f"Target.cuda_functor {target.cuda_functor!r} is built in "
             "(csrc/targets.cuh): it has no source to compile")
-    params = tuple(target.cuda_params)
+    params = _build.kernel_params(target, dim, dtype)
     if target.cuda_source is not None:
         return DcForms(target.cuda_source, params,
-                       grad_kind(target.cuda_source), False)
+                       "none" if dtype == torch.int32
+                       else grad_kind(target.cuda_source), False)
     base = target.cuda_base or target
-    source, traced = _traced(base, dim, torch.device(device).type)
+    source, traced = _traced(base, dim, torch.device(device).type, dtype)
     return DcForms(source, params + traced[len(base.cuda_params):],
-                   "derived", True)
+                   "none" if dtype == torch.int32 else "derived", True)
 
 
 @functools.lru_cache(maxsize=64)
-def _traced(base, dim: int, device_type: str):
-    return derive_logp_dc(base, dim, device_type)
+def _traced(base, dim: int, device_type: str, dtype=torch.float32):
+    return derive_logp_dc(base, dim, device_type, dtype)
 
 
 # --------------------------------------------------------------------------
 # The tracer and its code generator
 
 
-def _lit(v) -> str:
-    """A float32 C++ literal of ``v``, exact."""
-    f = float(np.float32(v))
+def _lit(v, f64: bool = False) -> str:
+    """A float32 C++ literal of ``v``, exact; ``f64``: a double literal of
+    ``v`` (no ``f`` suffix), for a float64 instance."""
+    f = float(v) if f64 else float(np.float32(v))
     if math.isnan(f):
         return "NAN"
     if math.isinf(f):
         return "INFINITY" if f > 0 else "(-INFINITY)"
-    s = f.hex() + "f"
+    s = f.hex() + ("" if f64 else "f")
     return f"({s})" if f < 0 else s
 
 
@@ -210,19 +215,61 @@ class _Var:
     name: str
     shape: tuple
     chain: bool = True
+    ctype: str = "S"
+
+
+#: the C++ type of a value of each dtype in an int32 density's body
+#: (value only, ``S`` is float there)
+_INT_CTYPES = {torch.float32: "S", torch.int32: "int32_t",
+               torch.bool: "bool"}
 
 
 class _Gen:
     """One trace's code generator: the lines of ``logp``'s body and the
-    constants it reads from ``params``."""
+    constants it reads from ``params``. ``dtype``: the scalar of its
+    floating values, float32 or float64 (a float64 instance's literals
+    are doubles); ``ints``: an int32 density's body, whose values are
+    float32, int32 or bool (``_INT_CTYPES``)."""
 
-    def __init__(self, chains: int, offset: int):
+    def __init__(self, chains: int, offset: int, dtype=torch.float32,
+                 ints: bool = False):
         self.chains = chains
         self.lines: list = []
         self.consts: list = []
         self.offset = offset
+        self.dtype = dtype
+        self.ints = ints
+        #: the literal 1 of the scalar (float32's text is the one the
+        #: float32 instances were always generated with)
+        self.one = "1.0" if dtype == torch.float64 else "1.0f"
         self._const_off: dict = {}
         self._n = 0
+
+    def lit(self, v) -> str:
+        """A C++ literal of the number ``v``: an integer or a bool as such
+        in an int32 body, else a float of the generator's scalar."""
+        if self.ints and isinstance(v, (bool, int)):
+            return ("true" if v else "false") if isinstance(v, bool) else (
+                str(int(v)))
+        return _lit(v, self.dtype == torch.float64)
+
+    def ctype(self, node) -> str:
+        """The C++ type of ``node``'s value; raises for a dtype the body
+        cannot hold (anything but the scalar, and int32 and bool in an
+        int32 body)."""
+        val = node.meta.get("val")
+        dt = getattr(val, "dtype", None)
+        if isinstance(val, torch.Tensor):
+            if dt == self.dtype:
+                return "S"
+            if self.ints and dt in _INT_CTYPES:
+                return _INT_CTYPES[dt]
+        name = getattr(node.target, "_opname", str(node.target))
+        overload = getattr(node.target, "_overloadname", "")
+        self.fail(node, f"{name}.{overload} gives "
+                        f"{dt if dt is not None else type(val).__name__}, "
+                        f"not a {str(self.dtype).replace('torch.', '')} "
+                        "tensor")
 
     def fail(self, node, why: str):
         raise ValueError(
@@ -247,13 +294,13 @@ class _Gen:
             return f"{v.name}[{_flat(v.shape, idx)}]"
         if isinstance(v, torch.Tensor):
             if v.numel() == 1:
-                return _lit(v.reshape(()).item())
+                return self.lit(v.reshape(()).item())
             lead = len(out_full) - v.dim()
             # const dim j <-> output dim lead + j <-> per-chain idx lead+j-1
             cidx = [idx[lead + j - 1] if lead + j >= 1 else "0"
                     for j in range(v.dim())]
             return f"__ldg(p_ + {self.const(v)} + {_flat(v.shape, cidx)})"
-        return _lit(v)
+        return self.lit(v)
 
     def const(self, t: torch.Tensor) -> int:
         """The offset in ``params`` of constant ``t``, appended once."""
@@ -276,13 +323,13 @@ class _Gen:
         self.chain_axis(node, what)
 
     def new(self, shape: tuple, declare: bool = True,
-            chain: bool = True) -> _Var:
+            chain: bool = True, ctype: str = "S") -> _Var:
         """A new value of ``shape``; ``declare``: its array now (a
         scalar is declared where it is first assigned)."""
         self._n += 1
-        v = _Var(f"v{self._n}", tuple(shape), chain)
+        v = _Var(f"v{self._n}", tuple(shape), chain, ctype)
         if declare and _numel(shape) > 1:
-            self.lines.append(f"S {v.name}[{_numel(shape)}];")
+            self.lines.append(f"{ctype} {v.name}[{_numel(shape)}];")
         return v
 
     def loop(self, out: _Var, body) -> None:
@@ -291,7 +338,7 @@ class _Gen:
         n = _numel(out.shape)
         if n == 1:
             self.lines.append(
-                f"S {out.name} = {body(['0'] * len(out.shape))};")
+                f"{out.ctype} {out.name} = {body(['0'] * len(out.shape))};")
             return
         self.lines.append("#pragma unroll")
         self.lines.append(f"for (int i = 0; i < {n}; ++i) "
@@ -310,7 +357,7 @@ class _Gen:
             if (isinstance(v, torch.Tensor) and v.dim() == len(full)
                     and v.shape[0] != 1):
                 self.chain_axis(node, "a constant over the chains")
-        out = self.new(full[1:], chain=chain)
+        out = self.new(full[1:], chain=chain, ctype=self.ctype(node))
         self.loop(out, lambda idx: fmt(*(self.elem(v, full, idx)
                                          for v in operands)))
         return out
@@ -319,7 +366,8 @@ class _Gen:
         """A copy of ``src`` into the node's shape, element ``idx`` from
         ``src`` at ``index_of(idx)`` (select, slice, expand)."""
         chain = self.lead(node, [src], "a copy")
-        out = self.new(tuple(node.meta["val"].shape)[1:], chain=chain)
+        out = self.new(tuple(node.meta["val"].shape)[1:], chain=chain,
+                       ctype=self.ctype(node))
         self.loop(out, lambda idx: self.elem(src, (0,) + src.shape,
                                              index_of(idx)))
         return out
@@ -401,7 +449,7 @@ _IDENTITY = {"clone", "alias", "detach", "lift_fresh_copy", "_to_copy"}
 _VIEWS = {"view", "_unsafe_view", "reshape", "unsqueeze", "squeeze"}
 
 
-def _pow(a: str, p) -> str:
+def _pow(gen: _Gen, a: str, p) -> str:
     if p == 1:
         return a
     if p == 2:
@@ -409,10 +457,17 @@ def _pow(a: str, p) -> str:
     if p == 3:
         return f"({a} * {a} * {a})"
     if p == -1:
-        return f"(1.0f / {a})"
+        return f"({gen.one} / {a})"
     if p == 0.5:
         return f"mm::sqrt({a})"
-    return f"mm::pow({a}, {_lit(p)})"
+    return f"mm::pow({a}, {gen.lit(float(p))})"
+
+
+#: an int32 density's comparisons, logic and selects (value only)
+_COMPARE = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
+            "ne": "!="}
+_LOGIC = {"logical_or": "||", "bitwise_or": "||", "logical_and": "&&",
+          "bitwise_and": "&&"}
 
 
 def _emit(gen: _Gen, node, env: dict):
@@ -425,16 +480,21 @@ def _emit(gen: _Gen, node, env: dict):
     if not any(isinstance(a, _Var) for a in tree_leaves((args, kwargs))):
         return op(*args, **kwargs)  # no chain in it: a constant
     val = node.meta.get("val")
-    if not isinstance(val, torch.Tensor) or val.dtype != torch.float32:
-        gen.fail(node, f"{name}.{overload} gives "
-                       f"{getattr(val, 'dtype', type(val).__name__)}, not "
-                       "a float32 tensor")
+    ctype = gen.ctype(node)  # raises for a dtype the body cannot hold
 
     if name in _IDENTITY:
-        if name == "_to_copy" and kwargs.get("dtype", torch.float32) not in (
-                None, torch.float32):
-            gen.fail(node, "a cast away from float32")
-        return args[0]
+        src = args[0]
+        if name == "_to_copy" and isinstance(src, _Var) and (
+                src.ctype != ctype):
+            if ctype != "S":
+                gen.fail(node, f"a cast from {src.ctype} to {ctype}")
+            return gen.pointwise(node, [src],
+                                 lambda a: f"static_cast<S>({a})")
+        if name == "_to_copy" and kwargs.get("dtype") not in (
+                None, gen.dtype) and ctype == "S":
+            gen.fail(node, "a cast away from "
+                           f"{str(gen.dtype).replace('torch.', '')}")
+        return src
     x = args[0]
     if name in _VIEWS:
         full = tuple(val.shape)
@@ -442,7 +502,7 @@ def _emit(gen: _Gen, node, env: dict):
         if chain != x.chain or (name == "unsqueeze"
                                 and args[1] % (len(x.shape) + 2) == 0):
             gen.chain_axis(node, name)
-        return _Var(x.name, full[1:], chain)
+        return _Var(x.name, full[1:], chain, x.ctype)
     if name == "expand":
         full = tuple(val.shape)
         if len(full) != len(x.shape) + 1:
@@ -475,7 +535,7 @@ def _emit(gen: _Gen, node, env: dict):
     if name == "sum":
         if overload == "default":
             gen.chain_axis(node, "a sum over every axis")
-        if kwargs.get("dtype") not in (None, torch.float32):
+        if kwargs.get("dtype") not in (None, gen.dtype):
             gen.fail(node, "a sum in another dtype")
         return gen.reduce_sum(node, x, list(args[1] or []))
     if name in ("mm", "mv"):
@@ -483,21 +543,27 @@ def _emit(gen: _Gen, node, env: dict):
             gen.fail(node, f"{name} of anything but a chain's row and a "
                            "constant")
         return gen.matmul(node, x, args[1])
+    if gen.ints:
+        code = _int_body_node(gen, node, name, overload, args, ctype)
+        if code is not None:
+            return code
+    if ctype != "S":
+        gen.fail(node, f"aten.{name}.{overload} giving {ctype}")
     if name in _UNARY:
         f = _UNARY[name]
         return gen.pointwise(node, [x], lambda a: f"{f}({a})")
     if name == "neg":
         return gen.pointwise(node, [x], lambda a: f"(-{a})")
     if name == "reciprocal":
-        return gen.pointwise(node, [x], lambda a: f"(1.0f / {a})")
+        return gen.pointwise(node, [x], lambda a: f"({gen.one} / {a})")
     if name == "square":
         return gen.pointwise(node, [x], lambda a: f"({a} * {a})")
     if name == "pow" and overload == "Tensor_Scalar":
         p = args[1]
-        return gen.pointwise(node, [x], lambda a: _pow(a, p))
+        return gen.pointwise(node, [x], lambda a: _pow(gen, a, p))
     alpha = kwargs.get("alpha", 1)
     scaled = (lambda b: b) if alpha == 1 else (
-        lambda b: f"({_lit(alpha)} * {b})")
+        lambda b: f"({gen.lit(alpha)} * {b})")
     if name in ("add", "sub", "mul", "div", "rsub", "minimum", "maximum",
                 "logaddexp"):
         if name == "div" and kwargs.get("rounding_mode") is not None:
@@ -517,7 +583,29 @@ def _emit(gen: _Gen, node, env: dict):
                    "generator's table")
 
 
-def derive_logp_dc(target, dim: int, device="cpu") -> tuple:
+def _int_body_node(gen: _Gen, node, name: str, overload: str, args: list,
+                   ctype: str):
+    """The nodes only an int32 density's body takes (value only, floats
+    at float32): comparisons to bool, ``||``/``&&`` of bools, ``where``
+    (a select, ``-inf`` off the support) and ``lgamma`` (``mm::lgamma``,
+    CUDA's ``lgammaf``: what ``torch.lgamma`` computes); ``None`` for any
+    other node."""
+    if name in _COMPARE:
+        op = _COMPARE[name]
+        return gen.pointwise(node, args[:2], lambda a, b: f"({a} {op} {b})")
+    if name in _LOGIC and ctype == "bool":
+        op = _LOGIC[name]
+        return gen.pointwise(node, args[:2], lambda a, b: f"({a} {op} {b})")
+    if name == "where" and overload == "self":
+        return gen.pointwise(node, args[:3],
+                             lambda c, a, b: f"({c} ? {a} : {b})")
+    if name == "lgamma" and ctype == "S":
+        return gen.pointwise(node, args[:1], lambda a: f"mm::lgamma({a})")
+    return None
+
+
+def derive_logp_dc(target, dim: int, device="cpu",
+                   dtype=torch.float32) -> tuple:
     """The C++ source of ``target``'s density at ``dim``, generated from
     its batch form, and the ``cuda_params`` it reads: ``target``'s own,
     then the tensor constants of the trace. The counterpart of the JAX
@@ -538,20 +626,51 @@ def derive_logp_dc(target, dim: int, device="cpu") -> tuple:
     constant. Any other operation raises ``ValueError`` naming it, and so
     does a reduction, index or reshape across the chain axis (one chain's
     density reading another's): write the C++ as ``Target.cuda_source``.
+
+    ``dtype``: the states' dtype. float32 gives the source every kernel
+    compiles; float64 traces the batch form at float64 for Kernel 1's
+    float64 instance, its literals and constants doubles (``const double*
+    p_``). int32 traces it on int32 states for the MH kernel, a
+    value-only ``template <int D> float logp(const int32_t (&x)[D])``
+    whose floats are float32 (``csrc/user_density.cuh``); its body adds
+    the int32 to float32 cast, comparisons, ``|``/``&`` of bools,
+    ``where`` (``-inf`` off the support) and ``lgamma`` to the table.
     """
     if not 1 <= dim <= MAX_DIM:
         raise ValueError(f"user densities run in Kernels 1-4 at D <= "
                          f"{MAX_DIM}; got D={dim}")
+    ints = dtype == torch.int32
+    scalar = torch.float32 if ints else dtype
     chains = next(r for r in (7, 11, 13) if r != dim)
-    x = torch.zeros((chains, dim), dtype=torch.float32, device=device)
+    x = torch.zeros((chains, dim), dtype=dtype, device=device)
     # x is the array const S (&)[D]: at D = 1 its one element is x[0]
-    row = _Var("x[0]" if dim == 1 else "x", (dim,))
+    row = _Var("x[0]" if dim == 1 else "x", (dim,),
+               ctype="int32_t" if ints else "S")
     gen, ret, body = _trace(target.batch_logp, (x,), (row,),
-                            len(target.cuda_params), "batch_logp")
-    source = f"""// generated by derive_logp_dc from the batch form, D = {dim}
+                            len(target.cuda_params), "batch_logp", scalar,
+                            ints)
+    head = f"// generated by derive_logp_dc from the batch form, D = {dim}"
+    if ints:
+        source = f"""{head}, int32 states
 struct Density {{
   const float* p_;
   __device__ __forceinline__ explicit Density(const float* p) : p_(p) {{}}
+
+  template <int D>
+  __device__ __forceinline__ float logp(const int32_t (&x)[D]) const {{
+    static_assert(D == {dim}, "traced at D = {dim}");
+    using S = float;
+{body}
+    return {ret};
+  }}
+}};
+"""
+    else:
+        real = "double" if dtype == torch.float64 else "float"
+        source = f"""{head}{', float64' if real == 'double' else ''}
+struct Density {{
+  const {real}* p_;
+  __device__ __forceinline__ explicit Density(const {real}* p) : p_(p) {{}}
 
   template <class S, int D>
   __device__ __forceinline__ S logp(const S (&x)[D]) const {{
@@ -561,20 +680,23 @@ struct Density {{
   }}
 }};
 """
+    rnd = float if dtype == torch.float64 else (lambda v: float(np.float32(v)))
     return source, tuple(float(v) for v in target.cuda_params) + tuple(
-        float(np.float32(v)) for v in gen.consts)
+        rnd(v) for v in gen.consts)
 
 
-def _trace(fn, inputs: tuple, variables: tuple, offset: int, what: str):
+def _trace(fn, inputs: tuple, variables: tuple, offset: int, what: str,
+           dtype=torch.float32, ints: bool = False):
     """``fn`` traced by ``make_fx`` on ``inputs`` (each placeholder the
     matching value of ``variables``), written out one node at a time:
     ``(generator, returned expression, body lines)``. ``fn`` must return
-    ``[R]`` for the ``R`` rows of the first input."""
+    ``[R]`` for the ``R`` rows of the first input; ``dtype`` and ``ints``
+    are the generator's (:class:`_Gen`)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     chains = inputs[0].shape[0]
     gm = make_fx(lambda *a: fn(*a))(*inputs)
-    gen = _Gen(chains, offset)
+    gen = _Gen(chains, offset, dtype, ints)
     env: dict = {}
     out = None
     placeholders = iter(variables)
@@ -597,7 +719,7 @@ def _trace(fn, inputs: tuple, variables: tuple, offset: int, what: str):
             f"the code generator: {what} must return [C]; got {list(shape)}"
             f" for a {list(inputs[0].shape)} input")
     ret = (res.name if isinstance(res, _Var)
-           else _lit(res.reshape(-1)[0].item()))
+           else gen.lit(res.reshape(-1)[0].item()))
     body = "\n".join("    " + ln if not ln.startswith("#") else ln
                      for ln in gen.lines)
     return gen, ret, body
@@ -707,10 +829,13 @@ def _coord_traced(base, device_type: str):
 # Per-density libraries
 
 
-def instance_type(dim: int, flags: int) -> str:
+def instance_type(dim: int, flags: int, scalar: str = "float") -> str:
     """The C++ type of the instance of ``mm::User<Density>`` at ``dim``
-    under the wrapper bits ``flags`` (``_build.instance_flags``)."""
-    t = "mm::User<mm_user::Density>"
+    under the wrapper bits ``flags`` (``_build.instance_flags``);
+    ``scalar`` ``"double"``: Kernel 1's float64 instance,
+    ``mm::UserS<Density, double>``."""
+    t = ("mm::User<mm_user::Density>" if scalar == "float"
+         else f"mm::UserS<mm_user::Density, {scalar}>")
     if flags & 2:
         t = f"mm::Transformed<{t}, {dim}>"
     if flags & 1:
@@ -818,6 +943,68 @@ extern "C" int mm_nuts_step_f32(const void* pos, const void* eps,
 }
 
 
+#: Kernel 1's float64 entry and the probe at double, the one unit of a
+#: float64 density library (the JAX package runs float64 through its
+#: Kernel 1 alone)
+_F64_ENTRIES = {
+    "leapfrog": ("hmc_leapfrog.cuh", """
+extern "C" int mm_leapfrog_f64(const void* pos, const void* mom,
+    const void* grad, const void* eps, const void* params, int n_leapfrog,
+    int n_chains, int dim, int target, int affine, void* pos_out,
+    void* mom_out, void* logp_out, void* grad_out, void* stream) {
+  if (n_chains <= 0) return (int)cudaSuccess;
+  if (dim != kDim || affine != kFlags) return (int)cudaErrorInvalidValue;
+  const mm::LeapfrogArgs a{pos, mom, grad, eps, params, n_leapfrog,
+                           n_chains, pos_out, mom_out, logp_out, grad_out,
+                           stream};
+  return mm::launch_leapfrog<Inst, kDim>(a);
+}
+
+extern "C" const char* mm_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+__global__ void probe_kernel(const double* __restrict__ x, int rows,
+                             const double* __restrict__ params,
+                             double* __restrict__ logp,
+                             double* __restrict__ grad) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const Inst t(params);
+  logp[r] = mm::probe_row<Inst, kDim>(t, x + (long long)r * kDim,
+                                      grad + (long long)r * kDim);
+}
+
+// the instance's logp and gradient at `rows` states [rows, D], float64;
+// returns the CUDA error.
+extern "C" int mm_user_probe(const void* x, int rows, const void* params,
+                             void* logp, void* grad, void* stream) {
+  if (rows <= 0) return (int)cudaSuccess;
+  probe_kernel<<<mm::blocks_for(rows), mm::kThreads, 0,
+                 (cudaStream_t)stream>>>((const double*)x, rows,
+                                         (const double*)params,
+                                         (double*)logp, (double*)grad);
+  return (int)cudaGetLastError();
+}
+"""),
+}
+
+_FLOAT_KEYWORD = re.compile(r"\bfloat\b")
+
+
+#: ahead of a float64 instance's source: its ``mm::`` is ``mm::f64``, the
+#: functions at double (``csrc/user_density.cuh``)
+F64_MATH = "namespace mm = ::mm::f64;\n"
+
+
+def as_double(source: str) -> str:
+    """A density source as a float64 instance compiles it: each ``float``
+    keyword read as ``double`` (the params pointer, the gradient, the
+    locals), pasted after :data:`F64_MATH`. An ``f``-suffixed literal
+    stays a float constant."""
+    return _FLOAT_KEYWORD.sub("double", source)
+
+
 def _unit(text: str, header: str, prelude: str) -> str:
     """A generated translation unit: the headers, the user's C++ pasted
     in ``namespace mm_user`` (``text``), then ``prelude`` (the instance's
@@ -850,10 +1037,11 @@ def _pasted(source: str, name: str = "cuda_source") -> str:
     return f'#line 1 "{name}"\n{source}\n'
 
 
-def _density_unit(source: str, dim: int, flags: int, header: str) -> str:
+def _density_unit(source: str, dim: int, flags: int, header: str,
+                  scalar: str = "float") -> str:
     return _unit(_pasted(source), header, f"""constexpr int kDim = {dim};
 constexpr int kFlags = {flags};
-using Inst = {instance_type(dim, flags)};""")
+using Inst = {instance_type(dim, flags, scalar)};""")
 
 
 _ERROR_STRING = """
@@ -956,6 +1144,35 @@ extern "C" int mm_user_propose_probe(const void* x, const void* words,
 }
 """),
 }
+
+#: the int32 state's words in the value-only entries (Kernel 5's int32
+#: instances and their probes): (float32 text, int32 text, count)
+_INT32_TEXT = {
+    "mh": (("state_type != mm::kF32", "state_type != mm::kI32", 1),
+           ("launch_mh<Target, Proposal, float, kDim>",
+            "launch_mh<Target, Proposal, int32_t, kDim>", 1)),
+    "probe": (("const float* __restrict__ x,", "const int32_t* __restrict__ x,",
+               2),
+              ("float xr[kDim];", "int32_t xr[kDim];", 1),
+              ("float xr[kDim], yr[kDim];", "int32_t xr[kDim], yr[kDim];", 1),
+              ("float* __restrict__ y)", "int32_t* __restrict__ y)", 1),
+              ("(const float*)x,", "(const int32_t*)x,", 2),
+              ("(float*)y)", "(int32_t*)y)", 1)),
+}
+
+
+def _value_entry(name: str, pos: str) -> str:
+    """The C entries of value-only unit ``name`` at state type ``pos``
+    (``"float"``, or ``"int32_t"``: :data:`_INT32_TEXT`)."""
+    text = _VALUE_ENTRIES[name][1]
+    if pos == "float":
+        return text
+    for old, new, count in _INT32_TEXT[name]:
+        if text.count(old) != count:
+            raise AssertionError(f"value entry {name}: {old!r}")
+        text = text.replace(old, new)
+    return text
+
 
 _GIBBS_ENTRIES = {
     "gibbs": ("gibbs_multistep.cuh", """
@@ -1089,10 +1306,14 @@ extern "C" int mm_user_coord_probe(const void* x, const void* t0,
 class Spec(NamedTuple):
     """A per-form library: its user C++ (``source``, pasted in ``namespace
     mm_user``), D (0: any), wrapper bits and ``kind``: ``"density"``
-    (Kernels 1-4 and ``mm_user_probe``, ``instance_flags`` bits),
+    (Kernels 1-4 and ``mm_user_probe``, ``instance_flags`` bits; ``types``
+    ``("double",)``: Kernel 1's float64 instance and the probe at double
+    alone, the source read by :func:`as_double`),
     ``"value"`` (Kernels 5 and 8 and the value and proposal probes;
     ``types`` the target's and the proposal's C++ types, bit 1 a
-    transform), ``"gibbs"`` (Kernel 6 and the sweep probe) or ``"sep"``
+    transform; a third type ``"int32_t"``: int32 states, Kernel 5 and
+    the probes alone), ``"gibbs"`` (Kernel 6 and the sweep probe) or
+    ``"sep"``
     (Kernel 7's three entries and the coordinate probe, any D; bits 1 a
     diagonal metric, 2 a transform). Every field is part of the library's
     name."""
@@ -1115,11 +1336,19 @@ def library_sources(source: str, dim: int, flags: int, kind: str = "density",
                     types: tuple = ()) -> dict:
     """The generated translation units of a per-form library
     (:class:`Spec`), by name."""
+    if kind == "density" and types == ("double",):
+        text = F64_MATH + _pasted(as_double(source))
+        prelude = f"""constexpr int kDim = {dim};
+constexpr int kFlags = {flags};
+using Inst = {instance_type(dim, flags, "double")};"""
+        return {name: _unit(text, header, prelude) + entry
+                for name, (header, entry) in _F64_ENTRIES.items()}
     if kind == "density":
         return {name: _density_unit(source, dim, flags, header) + entry
                 for name, (header, entry) in _ENTRIES.items()}
     if kind == "value":
-        target, proposal = types
+        target, proposal = types[:2]
+        pos = types[2] if len(types) > 2 else "float"
         if flags & 2:
             target = f"mm::Transformed<{target}, {dim}>"
         prelude = f"""constexpr int kDim = {dim};
@@ -1127,10 +1356,10 @@ constexpr int kTransformed = {flags >> 1 & 1};
 using Target = {target};
 using Proposal = {proposal};
 constexpr int kPropWords = Proposal::template words<kDim>();"""
-        names = ("mh", "pt", "probe") if "mm_user::" in target else (
-            "mh", "probe")
+        names = ("mh", "pt", "probe") if (
+            "mm_user::" in target and pos == "float") else ("mh", "probe")
         return {n: _unit(source, _VALUE_ENTRIES[n][0], prelude)
-                + _VALUE_ENTRIES[n][1] for n in names}
+                + _value_entry(n, pos) for n in names}
     if kind == "gibbs":
         prelude = f"""constexpr int kDim = {dim};
 constexpr int kWords = mm_user::Conditional::template words<kDim>();"""
@@ -1202,6 +1431,8 @@ def build(requests) -> list:
 _SIGS = {
     "density": dict(_build.KERNEL_SIGS, mm_user_probe=[_P, _I, _P, _P, _P,
                                                        _P]),
+    "density64": dict(_build.F64_SIGS, mm_user_probe=[_P, _I, _P, _P, _P,
+                                                      _P]),
     "value": {"mm_mh_multistep": _build.ENTRY_SIGS["mm_mh_multistep"],
               "mm_user_probe_value": [_P, _I, _P, _P, _P],
               "mm_user_propose_probe": [_P, _P, _I, _I, _P, _P, _P]},
@@ -1229,22 +1460,34 @@ def lib_for(source: str, dim: int, flags: int, kind: str = "density",
     (cached per process)."""
     spec = Spec(source, dim, flags, kind, types)
     (path,) = build([spec])
-    return _load(str(path), kind)
+    return _load(str(path), "density64" if (kind, types) == (
+        "density", ("double",)) else kind)
+
+
+def density_spec(target, dim: int, device="cpu",
+                 dtype=torch.float32) -> tuple:
+    """``(Spec, params)`` of the density library Kernels 1-4 run for
+    ``target`` at ``dim``: the float32 one, or at float64 Kernel 1's
+    float64 instance (``types`` ``("double",)``)."""
+    forms = dc_forms(target, dim, device, dtype)
+    types = ("double",) if dtype == torch.float64 else ()
+    return (Spec(forms.source, dim, _build.instance_flags(target),
+                 "density", types), forms.params)
 
 
 @functools.lru_cache(maxsize=64)
-def _resolved(target, dim: int, device: torch.device):
-    forms = dc_forms(target, dim, device)
-    handle = lib_for(forms.source, dim, _build.instance_flags(target))
-    params = torch.tensor(forms.params or (0.0,), dtype=torch.float32,
-                          device=device)
+def _resolved(target, dim: int, device: torch.device, dtype=torch.float32):
+    spec, params = density_spec(target, dim, device, dtype)
+    handle = lib_for(*spec)
+    params = torch.tensor(params or (0.0,), dtype=dtype, device=device)
     return handle, params
 
 
-def kernel_lib(target, dim: int, device) -> tuple:
+def kernel_lib(target, dim: int, device, dtype=torch.float32) -> tuple:
     """``(library, target id, params pointer)`` of a user target's
-    instance for Kernels 1-4 (the id is unused: a library holds one)."""
-    handle, params = _resolved(target, dim, torch.device(device))
+    instance for Kernels 1-4 at ``dtype`` (float64: Kernel 1's float64
+    library; the id is unused: a library holds one)."""
+    handle, params = _resolved(target, dim, torch.device(device), dtype)
     return handle, 0, params.data_ptr()
 
 
@@ -1260,7 +1503,12 @@ TARGET_TYPES = {"rosenbrock_nd": "mm::RosenbrockND",
                 "gaussian_mixture_1d": "mm::GaussianMixture1D",
                 "neal_funnel": "mm::NealFunnel"}
 PROPOSAL_TYPES = {"isotropic_gaussian": "mm::IsotropicGaussian"}
+#: the same at int32 states (Kernel 5's discrete instances)
+INT_TARGET_TYPES = {"poisson": "mm::Poisson"}
+INT_PROPOSAL_TYPES = {"random_walk_int": "mm::RandomWalkInt"}
 _USER_DENSITY = "mm::User<mm_user::Density>"
+#: an int32 user density runs as it is: its logp takes int32 states
+_USER_INT_DENSITY = "mm_user::Density"
 
 
 def source_of(form, kind: str) -> str:
@@ -1275,66 +1523,81 @@ def source_of(form, kind: str) -> str:
     return form.cuda_source
 
 
-def value_spec(target, proposal, dim: int, device="cpu") -> tuple:
-    """``(Spec, target params)`` of Kernel 5's (and, for a user density,
-    Kernel 8's) library for ``target`` at ``dim`` under ``proposal``
-    (``None``: the isotropic walk, the library tempering runs): the user
-    density's source or a built-in functor's type, the user proposal's
-    source or a built-in one's type, bit 1 a transform. The params are
-    the density's (``dc_forms``: a transform's table, its own, a trace's
-    constants), ``None`` for a built-in functor's (``_build.params_ptr``).
-    Raises for a form neither route runs."""
+def value_spec(target, proposal, dim: int, device="cpu",
+               dtype=torch.float32) -> tuple:
+    """``(Spec, target params)`` of Kernel 5's (and, for a float32 user
+    density, Kernel 8's) library for ``target`` at ``dim`` under
+    ``proposal`` (``None``: the isotropic walk, the library tempering
+    runs) on states of ``dtype``: the user density's source or a built-in
+    functor's type, the user proposal's source or a built-in one's type,
+    bit 1 a transform. int32 states (``dtype`` ``torch.int32``) take the
+    int32 forms (``INT_TARGET_TYPES``, ``INT_PROPOSAL_TYPES``, a source's
+    int32 contract, ``csrc/user_density.cuh``), the third type
+    ``"int32_t"``, and no transform. The params are the density's
+    (``dc_forms``: a transform's table, its own, a trace's constants),
+    ``None`` for a built-in functor's (``_build.params_ptr``). Raises for
+    a form neither route runs."""
     transformed = _build.unwhitened(target, "the MH and tempering kernels")
+    ints = dtype == torch.int32
+    where = "int32" if ints else "float32"
+    if ints and transformed:
+        raise ValueError("an integer state takes no transform: the MH "
+                         "kernel's int32 instances run no bijector")
+    targets = INT_TARGET_TYPES if ints else TARGET_TYPES
+    proposals = INT_PROPOSAL_TYPES if ints else PROPOSAL_TYPES
     text, params = "", None
     if target.cuda_functor is None:
-        forms = dc_forms(target, dim, device)
+        forms = dc_forms(target, dim, device, dtype)
         text += _pasted(forms.source)
         params = forms.params
-        ttype = _USER_DENSITY
-    elif target.cuda_functor in TARGET_TYPES:
+        ttype = _USER_INT_DENSITY if ints else _USER_DENSITY
+    elif target.cuda_functor in targets:
         if transformed and dim not in _build.KERNEL_DIMS:
             raise ValueError(
                 f"a transformed built-in functor runs at D in "
                 f"{_build.KERNEL_DIMS} (its bijector table rides in "
                 f"cuda_params only there); got D={dim}")
-        ttype = TARGET_TYPES[target.cuda_functor]
+        ttype = targets[target.cuda_functor]
     else:
         raise ValueError(
-            f"Target.cuda_functor {target.cuda_functor!r} has no float32 "
-            "instance beside a user proposal (integer user forms: "
-            "ROADMAP.md, Queue 1)")
+            f"Target.cuda_functor {target.cuda_functor!r} has no {where} "
+            "instance beside a user proposal: the MH kernel takes "
+            f"{sorted(targets)} on {where} states")
     if proposal is None or proposal.cuda_functor is not None:
         name = "isotropic_gaussian" if proposal is None else (
             proposal.cuda_functor)
-        if name not in PROPOSAL_TYPES:
+        if name not in proposals:
             raise ValueError(
-                f"Proposal.cuda_functor {name!r} has no float32 instance "
-                "beside a user density (integer user forms: ROADMAP.md, "
-                "Queue 1)")
-        ptype = PROPOSAL_TYPES[name]
+                f"Proposal.cuda_functor {name!r} has no {where} instance "
+                f"beside a user density: the MH kernel takes "
+                f"{sorted(proposals)} on {where} states")
+        ptype = proposals[name]
     else:
         text += _pasted(source_of(proposal, "Proposal"),
                         "proposal cuda_source")
         ptype = "mm_user::Proposal"
-    return Spec(text, dim, 2 * transformed, "value", (ttype, ptype)), params
+    types = (ttype, ptype, "int32_t") if ints else (ttype, ptype)
+    return Spec(text, dim, 2 * transformed, "value", types), params
 
 
 @functools.lru_cache(maxsize=64)
-def _value_resolved(target, proposal, dim: int, device: torch.device):
-    spec, params = value_spec(target, proposal, dim, device)
+def _value_resolved(target, proposal, dim: int, device: torch.device,
+                    dtype=torch.float32):
+    spec, params = value_spec(target, proposal, dim, device, dtype)
     handle = lib_for(*spec)
     tparams = None if params is None else torch.tensor(
         params or (0.0,), dtype=torch.float32, device=device)
     return handle, tparams
 
 
-def value_lib(target, proposal, dim: int, device) -> tuple:
+def value_lib(target, proposal, dim: int, device,
+              dtype=torch.float32) -> tuple:
     """``(library, target params pointer)`` of the value-only library of
     :func:`value_spec` (built if need be); the pointer is ``None`` for a
     built-in functor, whose params the caller passes
     (``_build.params_ptr``)."""
     handle, tparams = _value_resolved(target, proposal, dim,
-                                      torch.device(device))
+                                      torch.device(device), dtype)
     if tparams is None:
         return handle, _build.params_ptr(target, device)
     return handle, tparams.data_ptr()
@@ -1384,44 +1647,65 @@ def _as_u32(words: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
 
 
+def _state_dtype(x: torch.Tensor, need_grad: bool = True):
+    """The probe's state dtype for ``x``: int32 for integer states, float64
+    for float64 ones where Kernel 1 runs them (``need_grad``), else
+    float32."""
+    if x.dtype in (torch.int32, torch.int64):
+        return torch.int32
+    if x.dtype == torch.float64 and need_grad:
+        return torch.float64
+    return torch.float32
+
+
 def probe(target, x: torch.Tensor, need_grad: bool = True, proposal=None):
     """The compiled instance's ``(logp [R], grad [R, D])`` at the rows of
-    ``x``, ``[R, D]`` float32: on the card through the per-density
+    ``x``, ``[R, D]`` float32 (or float64: Kernel 1's float64 instance,
+    logp and gradient float64): on the card through the per-density
     library's ``mm_user_probe`` (building it if need be), on the CPU
     through the host build (:func:`host_probe_lib`). ``need_grad`` False
     (the value-only kernels, 5 and 8): the value-only library's
     ``mm_user_probe_value`` on the card, which builds no dual numbers,
     and ``grad`` is ``None``; the library is that of (``target``,
     ``proposal``), the one MH launches (``None``: the isotropic walk's,
-    the one tempering launches)."""
-    x = x.detach().to(torch.float32).contiguous()
+    the one tempering launches); an int32 ``x`` probes Kernel 5's int32
+    instance (a float32 logp)."""
+    dtype = _state_dtype(x, need_grad)
+    x = x.detach().to(dtype).contiguous()
     r, d = x.shape
-    logp = torch.empty((r,), dtype=torch.float32, device=x.device)
+    real = torch.float64 if dtype == torch.float64 else torch.float32
+    logp = torch.empty((r,), dtype=real, device=x.device)
     if not need_grad:
         if x.is_cuda:
-            handle, params = value_lib(target, proposal, d, x.device)
+            handle, params = value_lib(target, proposal, d, x.device, dtype)
             _build.check(handle.mm_user_probe_value(
                 x.data_ptr(), r, params, logp.data_ptr(),
                 _build.stream_ptr(x.device)), handle)
             return logp, None
-        forms = dc_forms(target, d, "cpu")
+        forms = dc_forms(target, d, "cpu", dtype)
         flags = _build.instance_flags(target)
+        ints = dtype == torch.int32
         handle = _host_load(_HOST_VALUE_UNIT.format(
-            source=forms.source, dim=d, inst=instance_type(d, flags)))
+            source=forms.source, dim=d,
+            inst=_USER_INT_DENSITY if ints else instance_type(d, flags),
+            pos="int32_t" if ints else "float"))
         params = np.asarray(forms.params or (0.0,), np.float32)
         handle.mm_user_probe_value_host(x.data_ptr(), r, params.ctypes.data,
                                         logp.data_ptr())
         return logp, None
     grad = torch.empty_like(x)
     if x.is_cuda:
-        handle, params = _resolved(target, d, x.device)
+        handle, params = _resolved(target, d, x.device, dtype)
         _build.check(handle.mm_user_probe(
             x.data_ptr(), r, params.data_ptr(), logp.data_ptr(),
             grad.data_ptr(), _build.stream_ptr(x.device)), handle)
         return logp, grad
-    forms = dc_forms(target, d, "cpu")
-    handle = host_probe_lib(forms.source, d, _build.instance_flags(target))
-    params = np.asarray(forms.params or (0.0,), np.float32)
+    forms = dc_forms(target, d, "cpu", dtype)
+    f64 = dtype == torch.float64
+    handle = host_probe_lib(forms.source, d, _build.instance_flags(target),
+                            "double" if f64 else "float")
+    params = np.asarray(forms.params or (0.0,),
+                        np.float64 if f64 else np.float32)
     handle.mm_user_probe_host(
         x.data_ptr(), r, params.ctypes.data, logp.data_ptr(),
         grad.data_ptr())
@@ -1431,25 +1715,27 @@ def probe(target, x: torch.Tensor, need_grad: bool = True, proposal=None):
 def propose_probe(proposal, x: torch.Tensor, words: torch.Tensor,
                   target) -> torch.Tensor:
     """The compiled user proposal's ``[R, D]`` proposal from the rows of
-    ``x`` ``[R, D]`` on ``words`` ``[R, W]`` (int64, ``W =
-    proposal.cuda_words(D)``): on the card the probe entry of Kernel 5's
-    library of (``target``, the proposal), on the CPU the host build of
-    the proposal alone. Raises when the source's ``words<D>()`` is not
-    ``cuda_words(D)``."""
-    x = x.detach().to(torch.float32).contiguous()
+    ``x`` ``[R, D]`` (float32, or int32 for an int32 proposal) on
+    ``words`` ``[R, W]`` (int64, ``W = proposal.cuda_words(D)``): on the
+    card the probe entry of Kernel 5's library of (``target``, the
+    proposal), on the CPU the host build of the proposal alone. Raises
+    when the source's ``words<D>()`` is not ``cuda_words(D)``."""
+    dtype = _state_dtype(x, need_grad=False)
+    x = x.detach().to(dtype).contiguous()
     r, d = x.shape
     w = _as_u32(words[:, :proposal.cuda_words(d)])
     y = torch.empty_like(x)
     params = torch.tensor(tuple(proposal.cuda_params) or (0.0,),
                           dtype=torch.float32, device=x.device)
     if x.is_cuda:
-        handle, _ = value_lib(target, proposal, d, x.device)
+        handle, _ = value_lib(target, proposal, d, x.device, dtype)
         code = handle.mm_user_propose_probe(
             x.data_ptr(), w.data_ptr(), r, w.shape[1], params.data_ptr(),
             y.data_ptr(), _build.stream_ptr(x.device))
     else:
         handle = _host_load(_HOST_PROPOSE_UNIT.format(
-            source=source_of(proposal, "Proposal"), dim=d))
+            source=source_of(proposal, "Proposal"), dim=d,
+            pos="int32_t" if dtype == torch.int32 else "float"))
         code = handle.mm_user_propose_probe_host(
             x.data_ptr(), w.data_ptr(), r, w.shape[1], params.data_ptr(),
             y.data_ptr())
@@ -1570,9 +1856,9 @@ namespace mm_user {{
 _HOST_UNIT = _HOST_HEAD + """
 using Inst = {inst};
 
-extern "C" void mm_user_probe_host(const float* x, int rows,
-                                   const float* params, float* logp,
-                                   float* grad) {{
+extern "C" void mm_user_probe_host(const {real}* x, int rows,
+                                   const {real}* params, {real}* logp,
+                                   {real}* grad) {{
   const Inst t(params);
   for (int r = 0; r < rows; ++r) {{
     logp[r] = mm::probe_row<Inst, {dim}>(t, x + (long long)r * {dim},
@@ -1583,26 +1869,26 @@ extern "C" void mm_user_probe_host(const float* x, int rows,
 _HOST_VALUE_UNIT = _HOST_HEAD + """
 using Inst = {inst};
 
-extern "C" void mm_user_probe_value_host(const float* x, int rows,
+extern "C" void mm_user_probe_value_host(const {pos}* x, int rows,
                                          const float* params, float* logp) {{
   const Inst t(params);
   for (int r = 0; r < rows; ++r) {{
-    float xr[{dim}];
+    {pos} xr[{dim}];
     for (int d = 0; d < {dim}; ++d) xr[d] = x[(long long)r * {dim} + d];
     logp[r] = t.template logp<{dim}>(xr);
   }}
 }}
 """
 _HOST_PROPOSE_UNIT = _HOST_HEAD + """
-extern "C" int mm_user_propose_probe_host(const float* x,
+extern "C" int mm_user_propose_probe_host(const {pos}* x,
                                           const uint32_t* w, int rows,
                                           int n_words, const float* params,
-                                          float* y) {{
+                                          {pos}* y) {{
   constexpr int kWords = mm_user::Proposal::template words<{dim}>();
   if (n_words != kWords) return 1;
   const mm_user::Proposal q(params);
   for (int r = 0; r < rows; ++r) {{
-    float xr[{dim}], yr[{dim}];
+    {pos} xr[{dim}], yr[{dim}];
     for (int d = 0; d < {dim}; ++d) xr[d] = x[(long long)r * {dim} + d];
     q.template propose<{dim}>(xr, w + (long long)r * kWords, yr);
     for (int d = 0; d < {dim}; ++d) y[(long long)r * {dim} + d] = yr[d];
@@ -1667,13 +1953,19 @@ _HOST_SIGS = {
 HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
 
-def host_probe_lib(source: str, dim: int, flags: int = 0) -> ctypes.CDLL:
+def host_probe_lib(source: str, dim: int, flags: int = 0,
+                   scalar: str = "float") -> ctypes.CDLL:
     """``source`` at ``dim`` under ``flags`` built for the host with
     ``g++`` and ``csrc/host_shim.h``: ``mm_user_probe_host(x, rows,
-    params, logp, grad)`` evaluates the instance on host arrays. The CPU
-    tests alone use it; a compile error raises with g++'s output."""
-    text = _HOST_UNIT.format(source=source, dim=dim,
-                             inst=instance_type(dim, flags))
+    params, logp, grad)`` evaluates the instance on host arrays of
+    ``scalar`` (``"double"``: the float64 instance, the source read by
+    :func:`as_double`). The CPU tests alone use it; a compile error
+    raises with g++'s output."""
+    if scalar == "double":
+        source = (F64_MATH + '#line 1 "cuda_source"\n'
+                  + as_double(source))
+    text = _HOST_UNIT.format(source=source, dim=dim, real=scalar,
+                             inst=instance_type(dim, flags, scalar))
     return _host_load(text)
 
 

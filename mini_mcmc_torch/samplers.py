@@ -46,7 +46,8 @@ from .ops.elliptical import elliptical_kernel
 from .ops.ensemble import ensemble_kernel
 from .ops.gibbs import gibbs_kernel
 from .ops.hmc import hmc_kernel
-from .ops.kernels._build import kernel_lib
+from .ops.kernels import gibbs_full, hmc, hmc_full, hmc_sep, pt_full
+from .ops.kernels._build import check_tier_dtype, kernel_lib
 from .ops.kernels.gibbs_full import gibbs_lib
 from .ops.kernels.hmc_sep import sep_instance
 from .ops.kernels.mh_full import mh_lib
@@ -171,13 +172,6 @@ def _unconstrained_positions(sampler) -> torch.Tensor:
     if sampler.metric is not None:
         pos = sampler.metric.to_x(pos)
     return pos
-
-
-def _float32_only(sampler: str, use_pallas, positions) -> None:
-    """The CUDA kernels of the fused tiers take float32 states."""
-    if positions.dtype != torch.float32:
-        raise ValueError(f"{sampler}(use_pallas={use_pallas!r}) is "
-                         f"float32-only; got {positions.dtype}")
 
 
 class _KernelSampler:
@@ -410,14 +404,19 @@ class MetropolisHastings(_KernelSampler):
         return new
 
 
-def check_kernel_target(kernel_target, positions, validate_dc: bool) -> None:
+def check_kernel_target(kernel_target, positions, validate_dc: bool,
+                        tier: str) -> None:
     """Raise now, at construction, for a target Kernels 1-4 cannot run on
-    ``positions`` (CUDA, kernel coordinates): a built-in functor at a D it
-    is not built for, or a batch form the code generator cannot translate
-    (named); this builds a user density's library. With ``validate_dc``
-    the compiled user density is held to its batch form there
+    ``positions`` (CUDA, kernel coordinates): a state dtype that ``tier``
+    (a kernel module's ``TIER``) does not take, a built-in functor at a D
+    it is not built for, or a batch form the code generator cannot
+    translate (named); this builds a user density's library (Kernel 1's
+    float64 one for float64 positions). With ``validate_dc`` the compiled
+    user density is held to its batch form there
     (:func:`~mini_mcmc_torch.models.base.validate_dc_forms`)."""
-    kernel_lib(kernel_target, positions.shape[1], positions.device)
+    check_tier_dtype(tier, positions.dtype)
+    kernel_lib(kernel_target, positions.shape[1], positions.device,
+               positions.dtype)
     if validate_dc:
         validate_dc_forms(kernel_target, positions)
 
@@ -501,11 +500,13 @@ class HMC(_KernelSampler):
             if positions.is_cuda:
                 # a target the kernel cannot run: raise now
                 sep_instance(kernel_target)
-                _float32_only("HMC", use_pallas, positions)
+                check_tier_dtype(hmc_sep.TIER, positions.dtype)
                 if validate_dc:
                     validate_coord_dc(kernel_target, positions)
         elif use_pallas and positions.is_cuda:
-            check_kernel_target(kernel_target, positions, validate_dc)
+            check_kernel_target(
+                kernel_target, positions, validate_dc,
+                hmc_full.TIER if use_pallas == "full" else hmc.TIER)
         init_fn, step_fn = hmc_kernel(kernel_target, step_size, n_leapfrog,
                                       use_pallas=use_pallas, jitter=jitter,
                                       steps_per_call=steps_per_call)
@@ -853,7 +854,7 @@ class GibbsSampler(_KernelSampler):
                                         steps_per_call=steps_per_call)
         if use_pallas and positions.is_cuda:
             # raise now; a user conditional's library is built here
-            _float32_only("GibbsSampler", use_pallas, positions)
+            check_tier_dtype(gibbs_full.TIER, positions.dtype)
             gibbs_lib(conditional, positions.shape[-1])
             validate_conditional_dc(conditional, positions)
         super().__init__(init_fn, step_fn, positions, seed)
@@ -919,7 +920,7 @@ class ParallelTempering(_KernelSampler):
         if use_pallas and positions.is_cuda and positions.dim() == 2:
             # a target (plain or transformed) or ladder the kernel cannot
             # run: raise now; a user density's library is built here
-            _float32_only("ParallelTempering", use_pallas, positions)
+            check_tier_dtype(pt_full.TIER, positions.dtype)
             pt_lib(kernel_target, len(self.betas), positions.shape[1],
                    positions.device)
             if validate_dc:

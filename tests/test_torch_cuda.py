@@ -20,7 +20,12 @@ fused step makes the float64 twin's accept decision on at least 99.9% of
 chains, in every layout (clusters up to the 16-tile limit, on two
 streams at once) and in the two-pass form past the limit, with the positions per chain against float64; the
 tempering kernel (Kernel 8) must equal its twin (positions, logp, swap
-EWMA, history) on at least 99.9% of chains. Kernels 4, 5 and 6 must give
+EWMA, history) on at least 99.9% of chains. Kernel 1's float64 instances
+are held to the float64 twin per chain at 1e-9 of the row's largest
+entry (every chain, L = 8); Kernel 5's int32 user instances to theirs
+with int32 positions equal, the copies of built-ins bit for bit; a
+float64 state on any other fused tier raises at construction. Kernels 4,
+5 and 6 must give
 bit-identical results under any launch grid, block of steps or chain
 split, and Kernel 4 on two streams at once. The whitened instances of
 Kernels 1-4 (a metric, ``csrc/targets.cuh:Whitened``) are held to their
@@ -556,8 +561,8 @@ def test_cuda_mh_gibbs_functor_and_dtype_errors(cuda):
     x = torch.zeros((256, 2), device=cuda)
     with pytest.raises(ValueError, match="float32, D=2"):
         MetropolisHastings(t, walk, x.double(), use_pallas="full")
-    # a user density runs in its own library, float32 states only
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    # a user density runs in its own library, float32 or int32 states
+    with pytest.raises(ValueError, match="does not take float64"):
         MetropolisHastings(Target(logp=t.logp), walk, x.double(),
                            use_pallas="full")
     no_form = Proposal(sample=walk.sample, logp=walk.logp, symmetric=True)
@@ -2375,3 +2380,197 @@ def test_cuda_mh_and_pt_validate_in_the_value_only_library(cuda):
                    cuda_params=(-0.1, -2.0))
     with pytest.raises(ValueError, match="compiled logp"):
         ParallelTempering(wrong, x, use_pallas="full")
+
+
+# -- float64 through Kernel 1, int32 user forms in Kernel 5 ----------------
+
+
+def _f64_cases(cuda):
+    from mini_mcmc_torch import CoordinateTransform, neal_funnel, positive
+    from mini_mcmc_torch.examples import user_forms as F
+
+    g = torch.Generator(device=cuda).manual_seed(64)
+
+    def normal(d, scale, shift):
+        return (torch.randn((2048, d), generator=g, device=cuda,
+                            dtype=torch.float64) * scale + shift)
+
+    diag = Preconditioner("diag", scale=torch.tensor(
+        [0.9, 0.6, 0.4], dtype=torch.float64, device=cuda))
+    gauss = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+    return {
+        "rosenbrock3": (rosenbrock_nd(), normal(3, 0.3, 0.8), 0.02),
+        "gaussian2d_L1": (gauss, normal(2, 1.5, 0.0), 1.0),
+        "whitened_diag": (precondition_target(rosenbrock_nd(), diag),
+                          normal(3, 0.3, 1.0), 0.02),
+        "positive": (CoordinateTransform({0: positive()}, dim=2).wrap(gauss),
+                     normal(2, 0.7, 0.0), 0.2),
+        "funnel4": (neal_funnel(3.0), normal(4, 0.8, 0.0), 0.1),
+        "user_hand5": (F.rosenbrock_user(True), normal(5, 0.3, 0.8), 0.01),
+        "user_traced5": (F.rosenbrock_user(False), normal(5, 0.3, 0.8),
+                         0.01),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rosenbrock3", "gaussian2d_L1",
+                                  "whitened_diag", "positive", "funnel4",
+                                  "user_hand5", "user_traced5"])
+def test_cuda_leapfrog_f64_matches_the_float64_twin(cuda, case):
+    t, x, eps = _f64_cases(cuda)[case]
+    n_lf = 1 if case.endswith("L1") else 8
+    mom = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda, dtype=torch.float64)
+    _, g = t.batch_logp_and_grad(x)
+    e = torch.tensor([eps], device=cuda, dtype=torch.float64)
+    n, n64 = leapfrog_trajectory.launches, leapfrog_trajectory.f64_launches
+    got = leapfrog_trajectory(t, x, mom, g, e, n_lf)
+    assert (leapfrog_trajectory.launches - n,
+            leapfrog_trajectory.f64_launches - n64) == (1, 1)
+    want = leapfrog_trajectory_plain(t, x, mom, g, e[0], n_lf)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+        scale = b.abs().amax(1, keepdim=True)
+        assert bool(((a - b).abs() <= 1e-9 * scale).all()), float(
+            ((a - b).abs() / scale).max())
+
+
+@pytest.mark.cuda
+def test_cuda_hmc_and_mala_run_float64_through_kernel1(cuda):
+    x = torch.from_numpy(_state(1024, 3, 3)[0]).to(cuda).double()
+    leapfrog_trajectory.f64_launches = 0
+    calls = leapfrog_trajectory_plain.calls
+    h = HMC(rosenbrock_nd(), x, 0.02, 16, use_pallas=True,
+            jitter=0.3).seed(1)
+    s = h.run(32, 0)
+    assert s.dtype == torch.float64 and h.state.grad.dtype == torch.float64
+    assert leapfrog_trajectory.f64_launches == 32
+    ml = MALA(rosenbrock_nd(), x, step_size=0.1, use_pallas=True).seed(
+        2).tuned(20)
+    assert leapfrog_trajectory.f64_launches == 52
+    assert ml.run(8).dtype == torch.float64
+    assert leapfrog_trajectory_plain.calls == calls
+
+
+@pytest.mark.cuda
+def test_cuda_float64_validation_holds_the_double_instance(cuda):
+    """HMC(use_pallas=True) on float64 states validates a user density's
+    float64 library on the card at F64_DC_TOL: the hand Rosenbrock passes;
+    a source whose 0.1f keeps the double instance at float precision is
+    refused at float64 and still passes at float32."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    src = """
+struct Density {
+  __device__ __forceinline__ explicit Density(const float*) {}
+
+  template <class S, int D>
+  __device__ __forceinline__ S logp(const S (&x)[D]) const {
+    S s = 0;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const S d = x[i] - 0.1f;
+      s = s + d * d;
+    }
+    return -s / 2;
+  }
+};
+"""
+    x = torch.from_numpy(_state(256, 5, 5)[0]).to(cuda).double() * 0.3
+    HMC(F.rosenbrock_user(True), x, 0.02, 8, use_pallas=True)
+    shifted = Target(logp=lambda y: -0.5 * ((y - 0.1) ** 2).sum(dim=-1),
+                     cuda_source=src)
+    HMC(shifted, x.float(), 0.02, 8, use_pallas=True)
+    with pytest.raises(ValueError, match="f-suffixed literal"):
+        HMC(shifted, x, 0.02, 8, use_pallas=True)
+
+
+@pytest.mark.cuda
+def test_cuda_float64_raises_on_the_other_tiers(cuda):
+    """Every fused tier but Kernel 1's refuses float64 at construction,
+    naming what each tier takes; use_pallas=False takes it."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    x = torch.from_numpy(_state(256, 2, 4)[0]).to(cuda).double()
+    g = diffable_gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    takes = "HMC/MALA use_pallas=True \\(Kernel 1\\): float32, float64"
+    for make in (
+            lambda: HMC(g, x, 0.1, 4, use_pallas="full"),
+            lambda: MALA(g, x, 0.1, use_pallas="full"),
+            lambda: NUTS(g, x, 0.8, use_pallas=True),
+            lambda: NUTS(g, x, 0.8, use_pallas="full"),
+            lambda: HMC(standard_normal(), x, 0.1, 4,
+                        use_pallas="separable"),
+            lambda: MetropolisHastings(F.rosenbrock_banana(),
+                                       isotropic_gaussian_proposal(1.0), x,
+                                       use_pallas="full"),
+            lambda: GibbsSampler(gaussian_mixture_conditional(*MIX), x,
+                                 use_pallas="full"),
+            lambda: ParallelTempering(F.bimodal(0.7), x[:, :1],
+                                      use_pallas="full")):
+        with pytest.raises(ValueError, match=takes):
+            make()
+    assert HMC(g, x, 0.1, 4).run(2).dtype == torch.float64
+
+
+def _int32_case(which):
+    from mini_mcmc_torch.examples import user_forms as F
+    from mini_mcmc_torch.models import binomial_target
+
+    return {
+        "hand": (F.poisson_user(4.0), random_walk_int_proposal(), 0),
+        "traced": (binomial_target(10, 0.3), random_walk_int_proposal(0, 10),
+                   5),
+        "proposal": (poisson_target(4.0), F.int_walk(), 0),
+    }[which]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["hand", "traced", "proposal"])
+def test_cuda_mh_int32_user_instances_match_their_twins(cuda, which):
+    """Kernel 5's int32 user instances against the twin for one K = 10
+    block: positions equal, logp within rtol 1e-5, on every chain but
+    0.1%; the hand Poisson and the user walk give the built-in's cube bit
+    for bit."""
+    t, walk, start = _int32_case(which)
+    x = torch.full((8192, 1), start, dtype=torch.int32, device=cuda)
+    x = x + torch.randint(0, 4, x.shape, device=cuda, dtype=torch.int32)
+    lp = t.batch_logp(x)
+    hk = torch.empty((10,) + tuple(x.shape), dtype=torch.int32, device=cuda)
+    hp = torch.empty_like(hk)
+    mh_multistep.user_launches = 0
+    got = mh_multistep(t, walk, x, lp, 0x5EED_1801, 3, 10, hk)
+    want = mh_multistep_plain(t, walk, x, lp, 0x5EED_1801, 3, 10, hp)
+    assert mh_multistep.user_launches == 1
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
+    same = (hk == hp).all(2).all(0) & (got[0] == want[0]).all(1)
+    near = (got[1] - want[1]).abs() <= 1e-6 + 1e-5 * want[1].abs()
+    near |= torch.isneginf(got[1]) & torch.isneginf(want[1])
+    assert _share(same) >= 0.999 and _share(near) >= 0.999
+    if which != "traced":
+        cubes = [MetropolisHastings(tt, ww, x, use_pallas="full",
+                                    steps_per_call=10).seed(3).run(50, 20)
+                 for tt, ww in ((t, walk), (poisson_target(4.0),
+                                            random_walk_int_proposal()))]
+        assert torch.equal(cubes[0], cubes[1])
+
+
+@pytest.mark.cuda
+def test_cuda_int32_forms_validate_in_their_library(cuda):
+    """MH with int32 user forms validates on the card (the int32 value
+    probe with the off-support rows, the int32 proposal probe); a wrong
+    source raises."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    x = torch.arange(0, 11, dtype=torch.int32, device=cuda).reshape(-1, 1)
+    for which in ("hand", "traced", "proposal"):
+        t, walk, _ = _int32_case(which)
+        MetropolisHastings(t, walk, x, use_pallas="full")
+    wrong = Target(logp=poisson_target(4.0).logp,
+                   cuda_source=F.POISSON_SOURCE.replace(
+                       "- lam)", "- 1.01f * lam)"),
+                   cuda_params=poisson_target(4.0).cuda_params)
+    with pytest.raises(ValueError, match="compiled logp"):
+        MetropolisHastings(wrong, random_walk_int_proposal(), x,
+                           use_pallas="full")

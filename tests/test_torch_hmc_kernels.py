@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from mini_mcmc_torch.models import Target, rosenbrock_nd
-from mini_mcmc_torch.ops.kernels import _build, rng
+from mini_mcmc_torch.ops.kernels import _build, hmc_full, rng
 from mini_mcmc_torch.ops.kernels.hmc import (
     check_state,
     leapfrog_trajectory,
@@ -245,7 +245,8 @@ def test_wrappers_run_plain_twins_on_cpu():
 
 def test_functor_lookup_names_the_roadmap_item():
     assert _build.functor_id(rosenbrock_nd()) == 0
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    # no built-in functor: the message names the user routes
+    with pytest.raises(ValueError, match="Target.cuda_source"):
         _build.functor_id(Target(logp=rosenbrock_nd().logp))
     with pytest.raises(ValueError, match="unknown"):
         _build.functor_id(Target(logp=lambda p: p, cuda_functor="nope"))
@@ -253,12 +254,13 @@ def test_functor_lookup_names_the_roadmap_item():
 
 def test_kernel_input_validation():
     x = torch.zeros((4, 3))
-    check_state(x, torch.zeros(4), torch.zeros((4, 3)))
+    tier = hmc_full.TIER
+    check_state(x, torch.zeros(4), torch.zeros((4, 3)), tier=tier)
     with pytest.raises(ValueError, match="D in"):
-        check_state(torch.zeros((4, 5)))
+        check_state(torch.zeros((4, 5)), tier=tier)
     with pytest.raises(ValueError, match="float32"):
-        check_state(x, torch.zeros(4, dtype=torch.float64))
+        check_state(x, torch.zeros(4, dtype=torch.float64), tier=tier)
     with pytest.raises(ValueError, match="contiguous"):
-        check_state(x, torch.zeros((3, 4)).t())
+        check_state(x, torch.zeros((3, 4)).t(), tier=tier)
     with pytest.raises(ValueError, match=r"\[C, D\]"):
-        check_state(torch.zeros(4))
+        check_state(torch.zeros(4), tier=tier)

@@ -469,9 +469,13 @@ def test_kernel_instances_are_named_in_errors():
     with pytest.raises(ValueError, match=r"\(poisson, random_walk_int, "
                        r"int32, D=1\)"):
         mh_instance(t, p, torch.float32, 1)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    # an int32 user density runs in a library of its own; float64 states
+    # raise, naming what each tier takes
+    assert mh_instance(Target(logp=t.logp), random_walk_int_proposal(),
+                       torch.int32, 1) == (-1, -1, 1)
+    with pytest.raises(ValueError, match="does not take float64"):
         mh_instance(Target(logp=t.logp), random_walk_int_proposal(),
-                    torch.int32, 1)
+                    torch.float64, 1)
     assert mh_instance(gaussian2d(MEAN, COV), p, torch.float32, 2) == (
         1, 0, 0)
     assert mh_instance(t, random_walk_int_proposal(), torch.int32, 1) == (

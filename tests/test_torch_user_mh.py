@@ -225,10 +225,10 @@ def test_refusals_name_the_missing_field():
     with pytest.raises(ValueError, match="not both"):
         Proposal(sample=walk.sample, logp=walk.logp,
                  cuda_functor="isotropic_gaussian", cuda_source="x")
-    # user forms: float32 states, D <= 16
+    # user forms: float32 (or int32) states, D <= 16
     assert mh_instance(Target(logp=g.logp), walk, torch.float32, 2) == (
         -1, -1, 0)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="does not take float64"):
         mh_instance(Target(logp=g.logp), walk, torch.float64, 2)
     with pytest.raises(ValueError, match="D <= 16"):
         mh_instance(Target(logp=g.logp), walk, torch.float32, 17)
@@ -245,7 +245,7 @@ def test_the_value_probe_uses_the_library_mh_launches():
     alone = U.value_spec(t, None, 2)[0]
     assert U.value_spec(t, mt.isotropic_gaussian_proposal(0.5), 2)[0] == alone
     assert U.value_spec(t, F.isotropic_walk(0.5), 2)[0] != alone
-    with pytest.raises(ValueError, match="random_walk_int.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="random_walk_int.*float32"):
         U.value_spec(t, random_walk_int_proposal(), 2)
     x = torch.from_numpy(_points(64, 2, seed=9))
     validate_dc_forms(t, x, need_grad=False, proposal=F.isotropic_walk(0.5))
@@ -257,8 +257,8 @@ def test_mh_lib_asks_for_the_pairs_library(monkeypatch):
     from mini_mcmc_torch.ops.kernels import mh_full
 
     asked = []
-    monkeypatch.setattr(U, "value_lib", lambda t, p, d, dev: asked.append(
-        (t, p, d)) or (None, 0))
+    monkeypatch.setattr(U, "value_lib", lambda t, p, d, dev, dtype: (
+        asked.append((t, p, d)) or (None, 0)))
     t = F.rosenbrock_banana()
     for p in (mt.isotropic_gaussian_proposal(0.5), F.isotropic_walk(0.5)):
         mh_full.mh_lib(t, p, torch.float32, 2, "cpu")
