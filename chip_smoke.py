@@ -262,7 +262,10 @@ Phases, one line each (every check raises on failure):
     1-4 (Kernel 1 at L = 8, Kernel 2 at K = 16 and L = 8, Kernel 3 at
     j = 4, Kernel 4 one step; plain and whitened) against its twin at the
     hand stage's equilibrium, with its time by CUDA events and alone
-    under the profiler, and ``[user_tier_run]`` the ``use_pallas=True``
+    under the profiler (``[k4_user_alone]``: Kernel 4's grid at D = 10,
+    its deepest chain, each instance's device µs and the hand stage's
+    idle share over a profiled ``run(64, 0)``), and
+    ``[user_tier_run]`` the ``use_pallas=True``
     and ``"full"`` HMC tiers and the ``use_pallas=True`` NUTS tier on the
     hand form, counted. The lockstep eight-schools NUTS half (30) times
     ``run(512, 256)``, not 1,024 draws, to leave room for these phases.
@@ -1702,7 +1705,9 @@ def phase_nuts_step(nuts, dev, label="nuts_step"):
         leaves - int(details["leaves"].sum())) <= 0.001 * leaves,
         (leaves, int(details["leaves"].sum())))
     check(f"{label} persistent grid", grid["blocks"] == min(
-        grid["blocks_per_sm"] * grid["sms"], n_chains // 128), grid)
+        grid["blocks_per_sm"] * grid["sms"],
+        -(-n_chains // grid["threads"])), grid)
+    details["grid"] = grid
     for kw in (dict(blocks=1), dict(blocks=grid["sms"])):
         other = nuts_step(*args, **kw)
         same = all(torch.equal(a, b) for a, b in zip(got, other))
@@ -4733,6 +4738,27 @@ def phase_user_kernels(nuts, dev) -> dict:
             "tiers": tiers}
 
 
+def phase_k4_user_alone(uk, nuts) -> None:
+    """``[k4_user_alone]``: Kernel 4's user instances at eight schools'
+    shape (D = 10, 4,096 chains) as phase_user_kernels launched them:
+    the launched grid (threads a block, a chain a thread; blocks per SM
+    and blocks), the deepest chain's doublings and each instance's device
+    µs alone; and the device's idle share over a profiled ``run(64, 0)``
+    of the hand stage's sampler ``nuts``."""
+    det = uk["details"][("hand", "whitened")]
+    grid = det["grid"]
+    idle = idle_share(lambda: nuts.run(64, 0))
+    say("k4_user_alone", threads=grid["threads"],
+        blocks_per_sm=grid["blocks_per_sm"], blocks=grid["blocks"],
+        chain_depth_max=int(det["depth"].max()),
+        fused_idle_share=idle["idle_share"],
+        fused_profiled_us_per_step=idle["profiled_wall_s"] / 64 * 1e6,
+        **{f"{form}_{kind}_us": repr(None if v["device_ms"] is None
+                                     else v["device_ms"] * 1e3)
+           for (k, form, kind), v in uk["res"].items()
+           if k == "nuts_step"})
+
+
 def user_bounds(uk) -> dict:
     """bound_ms and bound_by of each user instance at the shapes of
     phase_user_kernels (C = 4,096, D = 10), by (kernel, kind): the work
@@ -6454,6 +6480,7 @@ def run_phases(args, tmp: str) -> None:
     phase_user_probe(dev)
     es8f, es8m = phase_eight_schools_fused(dev)
     uk = phase_user_kernels(es8f["hand"], dev)
+    phase_k4_user_alone(uk, es8f["hand"])
     del es8f
     torch.cuda.empty_cache()
     mhu, builtin_cube = phase_mh_user(dev)

@@ -10,7 +10,8 @@
 // stream takes another counter, or the two would steal chains. blocks:
 // the grid, 0 for the resident blocks (occupancy x SMs). stats: null, or
 // two zeroed uint64 that receive the lane-iterations and the leaves. grid:
-// null, or three ints that receive blocks per SM, SMs and blocks launched.
+// null, or four ints that receive blocks per SM, SMs, blocks launched and
+// threads a block.
 extern "C" int mm_nuts_step_f32(const void* pos, const void* eps,
                                 const void* params, int depth_limit,
                                 int max_depth, uint32_t k0, uint32_t k1,

@@ -336,7 +336,8 @@ struct StepArgs {
   int n_chains, blocks;
   void *counter, *stats, *pos_out, *alpha, *n_alpha, *diverged, *depth;
   int device;
-  int* grid;  // when given: blocks per SM, SMs, and the launch's blocks
+  int* grid;  // when given: blocks per SM, SMs, the launch's blocks and
+              // threads a block
   void* stream;
 };
 
@@ -372,6 +373,7 @@ int launch_step(const StepArgs& a) {
     a.grid[0] = per_sm;
     a.grid[1] = sms;
     a.grid[2] = blocks;
+    a.grid[3] = kT;
   }
   kernel<<<blocks, kT, smem, (cudaStream_t)a.stream>>>(
       (const float*)a.pos, (const float*)a.eps, (const float*)a.params,

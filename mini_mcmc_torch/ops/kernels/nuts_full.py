@@ -230,7 +230,8 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
     On the card, none of these changes a result: ``blocks`` sets the grid
     (0: the resident blocks); ``stats``, a zeroed int64 ``[2]`` tensor on
     the device, receives the launch's lane-iterations and leaves; ``grid``,
-    a dict, receives ``blocks_per_sm``, ``sms`` and the ``blocks`` launched.
+    a dict, receives ``blocks_per_sm``, ``sms`` and the ``blocks`` and
+    ``threads`` a block launched.
     """
     if pos.dtype != torch.float32:
         raise ValueError(
@@ -257,7 +258,7 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
     alpha, n_alpha, diverged, depth = (
         torch.empty((c,), dtype=torch.float32, device=pos.device)
         for _ in range(4))
-    launched = (ctypes.c_int * 3)()
+    launched = (ctypes.c_int * 4)()
     k0, k1 = rng.seed_words(seed)
     stream = _build.stream_ptr(pos.device)
     nuts_step.launches += 1
@@ -275,7 +276,8 @@ def nuts_step(target, pos, eps, depth_limit: int, seed: int, step: int,
         stream,
     ), lib)
     if grid is not None:
-        grid.update(zip(("blocks_per_sm", "sms", "blocks"), launched))
+        grid.update(zip(("blocks_per_sm", "sms", "blocks", "threads"),
+                        launched))
     return new_pos, alpha, n_alpha, diverged, depth
 
 

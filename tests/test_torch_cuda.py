@@ -2183,6 +2183,145 @@ def test_cuda_user_instances_match_their_twins(form, kind, cuda):
     assert _share(got[4] == want[4]) >= 0.999
 
 
+#: Kernel 4's threads a block by D (csrc/nuts_full.cuh:step_threads): 128
+#: while a lane's depth-10 stack, 3 D + 1 floats a row, fits 128 lanes in
+#: a block's 232,448 B (D <= 14), else 64
+K4_THREADS = {**dict.fromkeys(range(1, 15), 128), 15: 64, 16: 64}
+
+
+def _banded_gaussian(d):
+    """A Gaussian at D = ``d`` with neighbours coupled, traced: ``z = x /
+    s``, ``logp = -z.z / 2 - sum(z_i z_(i+1)) / 4`` (its precision
+    ``I + (shift + shift^T) / 4`` is positive definite), ``s`` 0.5..2.0,
+    so that each coordinate's gradient reads its neighbours."""
+    s = torch.linspace(0.5, 2.0, d)
+
+    def logp(x):
+        z = x / s.to(x.device)
+        return (-0.5 * torch.sum(z * z, dim=-1)
+                - 0.25 * torch.sum(z[..., :-1] * z[..., 1:], dim=-1))
+    return Target(logp=logp)
+
+
+def _k4_user_case(case, kind, cuda, c=4096, seed=41):
+    """Kernel 4's user instance and a start: ``"gauss<D>"`` the
+    traced banded Gaussian, else eight schools' form ``case`` at
+    D = 10; plain in x, or whitened by a diagonal metric in y."""
+    from mini_mcmc_torch.examples.eight_schools import make_noncentered_target
+
+    if case.startswith("gauss"):
+        d = int(case[5:])
+        t, lo, hi = _banded_gaussian(d), 0.15, 0.45
+    else:
+        d = 10
+        t, lo, hi = make_noncentered_target(case), 0.05, 0.2
+    g = np.random.default_rng(seed + d)
+    pos = torch.from_numpy((0.8 * g.standard_normal((c, d))).astype(
+        np.float32)).to(cuda)
+    eps = torch.from_numpy(g.uniform(lo, hi, c).astype(np.float32)).to(cuda)
+    if kind == "whitened":
+        scale = torch.linspace(0.5, 2.0, d, device=cuda)
+        t = precondition_target(t, Preconditioner("diag", scale=scale))
+        pos = pos / scale
+    return t, pos.contiguous(), eps
+
+
+def _k4_against_twin(t, pos, eps, key=0xC0FFEE, step=17):
+    """Kernel 4 and its twin for one step: the kernel's outputs, its grid
+    and stats, the twin's outputs and details."""
+    stats = torch.zeros(2, dtype=torch.int64, device=pos.device)
+    grid, details = {}, {}
+    got = nuts_step(t, pos, eps, 10, key, step, 10, stats=stats, grid=grid)
+    want = nuts_step_plain(t, pos, eps, 10, key, step, 10, details=details)
+    torch.cuda.synchronize()
+    return got, grid, stats.cpu(), want, details
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "whitened"])
+@pytest.mark.parametrize("case", ["gauss5", "gauss6", "gauss8", "gauss10",
+                                  "gauss12", "gauss15", "gauss16", "hand",
+                                  "derived", "traced"])
+def test_cuda_nuts_step_user_dims_match_their_twin(case, kind, cuda):
+    """Kernel 4's user instances at D = 5-16 (the last quad of momenta
+    partly filled at D = 5, 6 and 15), plain and whitened diag, against
+    the twin: whole rows of positions, alpha, n_alpha, divergences and
+    each chain's depth on at least 99.9% of the chains, a chain a lane in
+    blocks of K4_THREADS[D] threads on the persistent grid."""
+    t, pos, eps = _k4_user_case(case, kind, cuda)
+    c, d = pos.shape
+    got, grid, _, want, _ = _k4_against_twin(t, pos, eps)
+    assert grid["threads"] == K4_THREADS[d]
+    assert grid["blocks"] == min(grid["blocks_per_sm"] * grid["sms"],
+                                 -(-c // grid["threads"]))
+    assert _share(_rows_close(got[0], want[0])) >= 0.999
+    for a, b in zip(got[1:4], want[1:4]):
+        assert _share((a - b).abs() <= ATOL + RTOL * b.abs()) >= 0.999
+    assert _share(got[4] == want[4]) >= 0.999
+    assert int(got[4].max()) >= 2 and torch.isfinite(got[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, kind", [("gauss15", "whitened"),
+                                        ("gauss16", "plain")])
+def test_cuda_nuts_step_user_trees_match_the_twin(case, kind, cuda):
+    """A tree that stopped early or late, or a row written to another
+    chain, at D = 15 and 16 (64-thread blocks): each chain's depth and
+    n_alpha equal the twin's exactly on at least 99.9% of the chains,
+    every coordinate of the row with them, and the launch's leaves equal
+    the twin's within 0.1%."""
+    t, pos, eps = _k4_user_case(case, kind, cuda, seed=43)
+    got, _, stats, want, details = _k4_against_twin(t, pos, eps, step=23)
+    same = (got[4] == want[4]) & (got[2] == want[2])
+    assert _share(same) >= 0.999
+    assert _share(same & _rows_close(got[0], want[0])) >= 0.999
+    twin = int(details["leaves"].sum())
+    assert abs(int(stats[1]) - twin) <= 0.001 * twin
+    # lane-iterations: at least one a leaf
+    assert int(stats[1]) <= int(stats[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hand", "gauss16"])
+def test_cuda_nuts_step_user_instances_are_the_same_under_any_grid(case,
+                                                                 cuda):
+    """Eight schools (D = 10, 128-thread blocks) and D = 16 (64-thread
+    blocks): each chain's result depends on (key, step, chain) alone, so the
+    resident grid, one block and one block an SM agree bit for bit."""
+    t, pos, eps = _k4_user_case(case, "whitened", cuda, seed=44)
+    grid = {}
+    full = nuts_step(t, pos, eps, 10, 0xC0FFEE, 17, 10, grid=grid)
+    for blocks in (1, grid["sms"]):
+        other = nuts_step(t, pos, eps, 10, 0xC0FFEE, 17, 10, blocks=blocks)
+        for a, b in zip(full, other):
+            assert torch.equal(a, b), blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["derived", "gauss16"])
+def test_cuda_nuts_step_user_instances_on_two_streams_at_once(case, cuda):
+    """D = 10 and 16: two launches in flight on two streams, each on half
+    of the chains with its own counter, give the single-stream results bit
+    for bit."""
+    t, pos, eps = _k4_user_case(case, "whitened", cuda, seed=45)
+    c = pos.shape[0]
+    halves = (slice(0, c // 2), slice(c // 2, c))
+    args = [(t, pos[sl], eps[sl], 10, 0xC0FFEE, 17, 10, sl.start)
+            for sl in halves]
+    want = [nuts_step(*a, blocks=8) for a in args]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(cuda), torch.cuda.Stream(cuda))
+    got = []
+    for _ in range(4):
+        for a, stream in zip(args, streams):
+            with torch.cuda.stream(stream):
+                got.append(nuts_step(*a, blocks=8))
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        for a, b in zip(out, want[i % 2]):
+            assert torch.equal(a, b), i
+
+
 @pytest.mark.cuda
 def test_cuda_user_source_that_fails_nvcc_raises_with_its_output(cuda):
     bad = Target(logp=lambda p: -(p * p).sum(-1),

@@ -80,7 +80,7 @@ def _words(chain, step, draw, seed):
         torch.tensor([chain]), step, draw, 0, rng.seed_words(seed))]
 
 
-@pytest.mark.parametrize("dim", [5, 8, 10, 16])
+@pytest.mark.parametrize("dim", [5, 6, 8, 10, 12, 16])
 def test_step_draws_above_one_quad_follow_the_counter_layout(dim):
     """Kernel 4 at D > 4: draw q gives momenta 4q..4q+3 (words x, y the
     cosine and sine of one Box-Muller pair, z, w of the next), draw
