@@ -9,7 +9,10 @@
 // the runner's [C, D] tensors as they are.
 #pragma once
 
+// nvcc; the g++ build of Kernel 1's chain body (host_shim.h) has no runtime
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 #include "targets.cuh"
 

@@ -396,7 +396,7 @@ def build(also=()) -> Path:
 
 #: the C entries of Kernels 1-4, whose per-density libraries export them too
 KERNEL_SIGS = {
-    "mm_leapfrog_f32": [_P] * 5 + [_I] * 5 + [_P] * 5,
+    "mm_leapfrog_f32": [_P] * 5 + [_I] * 6 + [_P] * 5,
     "mm_hmc_multistep_f32": [_P] * 5 + [_I] * 6 + [_U] * 3
     + [_P] * 4 + [_LL, _LL, _P],
     "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32] + [_I] * 4

@@ -96,11 +96,15 @@ def leapfrog_trajectory(target, pos, mom, grad, eps, n_leapfrog: int):
     leapfrog_trajectory.transformed_launches += (
         target.cuda_transform is not None)
     leapfrog_trajectory.user_launches += target.cuda_functor is None
+    # the kernel moves rows in 16-byte pieces where every [C, D] pointer
+    # allows it (a view at a row offset does not), element by element else
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (pos, mom, grad, pos_o, mom_o, grad_o))
     _build.check(entry(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), eps.data_ptr(),
         params, n_leapfrog, c, d, tid, _build.instance_flags(target),
-        pos_o.data_ptr(), mom_o.data_ptr(), logp_o.data_ptr(),
-        grad_o.data_ptr(), _build.stream_ptr(pos.device),
+        int(aligned), pos_o.data_ptr(), mom_o.data_ptr(),
+        logp_o.data_ptr(), grad_o.data_ptr(), _build.stream_ptr(pos.device),
     ), lib)
     return pos_o, mom_o, logp_o, grad_o
 

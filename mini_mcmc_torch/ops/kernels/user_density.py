@@ -848,13 +848,14 @@ _ENTRIES = {
     "leapfrog": ("hmc_leapfrog.cuh", """
 extern "C" int mm_leapfrog_f32(const void* pos, const void* mom,
     const void* grad, const void* eps, const void* params, int n_leapfrog,
-    int n_chains, int dim, int target, int affine, void* pos_out,
-    void* mom_out, void* logp_out, void* grad_out, void* stream) {
+    int n_chains, int dim, int target, int affine, int aligned,
+    void* pos_out, void* mom_out, void* logp_out, void* grad_out,
+    void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
   if (dim != kDim || affine != kFlags) return (int)cudaErrorInvalidValue;
   const mm::LeapfrogArgs a{pos, mom, grad, eps, params, n_leapfrog,
-                           n_chains, pos_out, mom_out, logp_out, grad_out,
-                           stream};
+                           n_chains, aligned, pos_out, mom_out, logp_out,
+                           grad_out, stream};
   return mm::launch_leapfrog<Inst, kDim>(a);
 }
 
@@ -950,13 +951,14 @@ _F64_ENTRIES = {
     "leapfrog": ("hmc_leapfrog.cuh", """
 extern "C" int mm_leapfrog_f64(const void* pos, const void* mom,
     const void* grad, const void* eps, const void* params, int n_leapfrog,
-    int n_chains, int dim, int target, int affine, void* pos_out,
-    void* mom_out, void* logp_out, void* grad_out, void* stream) {
+    int n_chains, int dim, int target, int affine, int aligned,
+    void* pos_out, void* mom_out, void* logp_out, void* grad_out,
+    void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
   if (dim != kDim || affine != kFlags) return (int)cudaErrorInvalidValue;
   const mm::LeapfrogArgs a{pos, mom, grad, eps, params, n_leapfrog,
-                           n_chains, pos_out, mom_out, logp_out, grad_out,
-                           stream};
+                           n_chains, aligned, pos_out, mom_out, logp_out,
+                           grad_out, stream};
   return mm::launch_leapfrog<Inst, kDim>(a);
 }
 

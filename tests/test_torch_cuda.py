@@ -2713,3 +2713,166 @@ def test_cuda_int32_forms_validate_in_their_library(cuda):
     with pytest.raises(ValueError, match="compiled logp"):
         MetropolisHastings(wrong, random_walk_int_proposal(), x,
                            use_pallas="full")
+
+
+# -- Kernel 1: rows in 16-byte pieces, the last logp with the last gradient
+
+
+#: Kernel 1's built-in instances: (functor, D)
+K1_BUILTINS = [("rosenbrock", 2), ("rosenbrock", 3), ("rosenbrock", 4),
+               ("funnel", 2), ("funnel", 3), ("funnel", 4), ("gaussian", 2)]
+
+
+def _k1_builtin(name, d):
+    from mini_mcmc_torch import neal_funnel
+
+    if name == "rosenbrock":
+        return rosenbrock_nd(), 0.3, 0.9, 0.02
+    if name == "funnel":
+        return neal_funnel(3.0), 0.8, 0.0, 0.1
+    return diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]), 1.5, \
+        0.0, 0.3
+
+
+def _k1_inputs(c, d, scale, shift, dtype, cuda, seed):
+    """Positions, momenta, eps on the card, from a numpy seed."""
+    g = np.random.default_rng(seed)
+    pos = torch.from_numpy(g.standard_normal((c, d)) * scale + shift)
+    mom = torch.from_numpy(g.standard_normal((c, d)))
+    return pos.to(cuda, dtype), mom.to(cuda, dtype)
+
+
+def _k1_agree(got, want):
+    """Every output row within RTOL/ATOL of the twin's, the atol scaled to
+    the row's largest entry (float32), or within 1e-9 of it (float64)."""
+    for a, b in zip(got, want):
+        a, b = a.reshape(len(a), -1), b.reshape(len(b), -1)
+        if a.dtype == torch.float64:
+            scale = b.abs().amax(1, keepdim=True)
+            assert bool(((a - b).abs() <= 1e-9 * scale).all())
+        else:
+            assert bool(_rows_close(a, b).all()), float((a - b).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name, d", K1_BUILTINS)
+def test_cuda_leapfrog_rows_ragged_and_offset(name, d, dtype, cuda):
+    """Every built-in instance of Kernel 1 at float32 and float64, on
+    ragged chain counts (1, 127, 129, 1,000: a block of one chain, a
+    ragged last block on each side of 128), against its twin; and on a
+    contiguous view at a one-row offset against the twin and, bit for bit,
+    against the launch on a copy of it in its own allocation. Where a row
+    is not a multiple of 16 bytes the view's base is off 16 bytes, so the
+    view takes the element path and the copy the vector or staged one."""
+    t, scale, shift, eps = _k1_builtin(name, d)
+    e = torch.tensor([eps], device=cuda, dtype=dtype)
+    row_bytes = d * (8 if dtype == torch.float64 else 4)
+    for c in (1, 127, 129, 1000):
+        pos, mom = _k1_inputs(c + 1, d, scale, shift, dtype, cuda, c + d)
+        _, grad = t.batch_logp_and_grad(pos)
+        x, m, g = pos[:c].contiguous(), mom[:c].contiguous(), \
+            grad[:c].contiguous()
+        got = leapfrog_trajectory(t, x, m, g, e, 8)
+        _k1_agree(got, leapfrog_trajectory_plain(t, x, m, g, e[0], 8))
+        # rows 1..c of a [c + 1, D] tensor: views at a one-row offset
+        views = pos[1:], mom[1:], grad[1:]
+        copies = [v.clone() for v in views]
+        for v, k in zip(views, copies):
+            assert v.is_contiguous() and k.data_ptr() % 16 == 0
+            assert (v.data_ptr() % 16 != 0) == (row_bytes % 16 != 0)
+        offset = leapfrog_trajectory(t, *views, e, 8)
+        _k1_agree(offset, leapfrog_trajectory_plain(t, *views, e[0], 8))
+        aligned = leapfrog_trajectory(t, *copies, e, 8)
+        for a, b in zip(offset, aligned):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [5, 7, 15])
+def test_cuda_leapfrog_f64_user_staged_rows_ragged(d, cuda):
+    """A traced user Rosenbrock at float64 and odd D (the rows staged
+    through shared memory, 3 x 128 x 15 doubles a block at D = 15) on
+    ragged chain counts, against the float64 twin at 1e-9 of the row's
+    largest entry; and a view at a one-row offset (the element path) bit
+    for bit the staged launch on a copy of it."""
+    from mini_mcmc_torch.examples import user_forms as F
+
+    t = F.rosenbrock_user(False)
+    e = torch.tensor([0.01], device=cuda, dtype=torch.float64)
+    for c in (129, 1000):
+        pos, mom = _k1_inputs(c + 1, d, 0.3, 0.8, torch.float64, cuda, c + d)
+        _, grad = t.batch_logp_and_grad(pos)
+        x, m, g = pos[:c].clone(), mom[:c].clone(), grad[:c].clone()
+        before = leapfrog_trajectory.f64_launches
+        got = leapfrog_trajectory(t, x, m, g, e, 8)
+        assert leapfrog_trajectory.f64_launches == before + 1
+        _k1_agree(got, leapfrog_trajectory_plain(t, x, m, g, e[0], 8))
+        views = pos[1:], mom[1:], grad[1:]
+        assert all(v.data_ptr() % 16 != 0 for v in views)
+        offset = leapfrog_trajectory(t, *views, e, 8)
+        aligned = leapfrog_trajectory(t, *(v.clone() for v in views), e, 8)
+        for a, b in zip(offset, aligned):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rosenbrock3_f32", "gaussian2_f32",
+                                  "rosenbrock3_f64", "gaussian2_f64",
+                                  "user_dual5", "user_hand10"])
+def test_cuda_leapfrog_at_l0_returns_the_gradient_passed(case, cuda):
+    """L = 0: positions, momenta and the gradient come back as passed, bit
+    for bit (the gradient is not recomputed), the logp is the density at
+    the positions (the twin's), for the built-ins and a user density whose
+    gradient is a dual pass."""
+    from mini_mcmc_torch.examples.eight_schools import make_noncentered_target
+
+    dtype = torch.float64 if case.endswith("f64") else torch.float32
+    if case.startswith("rosenbrock"):
+        t, d = rosenbrock_nd(), 3
+    elif case.startswith("gaussian"):
+        t, d = _k1_builtin("gaussian", 2)[0], 2
+    elif case == "user_dual5":
+        t, d = _banded_gaussian(5), 5
+    else:
+        t, d = make_noncentered_target("hand"), 10
+    pos, mom = _k1_inputs(1000, d, 0.5, 0.5, dtype, cuda, 3)
+    # a gradient that is not the density's: L = 0 must not recompute it
+    grad = torch.randn(pos.shape, device=cuda, dtype=dtype)
+    e = torch.tensor([0.1], device=cuda, dtype=dtype)
+    got = leapfrog_trajectory(t, pos, mom, grad, e, 0)
+    assert torch.equal(got[0], pos) and torch.equal(got[1], mom)
+    assert torch.equal(got[3], grad)
+    _k1_agree(got[2:3], (t.batch_logp(pos),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gauss1", "gauss3", "gauss5", "hand10",
+                                  "derived10", "gauss16",
+                                  "gauss5_whitened"])
+def test_cuda_leapfrog_user_dims_match_their_twin(case, cuda):
+    """User densities at float32 and D = 1, 3, 5, 10 and 16 (a row of one
+    scalar, rows element by element at D = 3, 5 and 10, 16-byte vectors
+    at D = 16): the traced Gaussians (banded past D = 1) and eight
+    schools' hand and derived forms, each gradient then logp; all four
+    outputs, logp included, against the twin on ragged chain counts."""
+    from mini_mcmc_torch.examples.eight_schools import make_noncentered_target
+
+    if case.startswith("gauss"):
+        d = int(case[5:].split("_")[0])
+        # at D = 1 the banded Gaussian's neighbour product is empty
+        t = _banded_gaussian(d) if d > 1 else _user_gaussian(1)
+    else:
+        d = 10
+        t = make_noncentered_target(case[:-2])
+    if case.endswith("whitened"):
+        t = precondition_target(t, Preconditioner(
+            "diag", scale=torch.linspace(0.5, 2.0, d, device=cuda)))
+    e = torch.tensor([0.05], device=cuda)
+    for c in (129, 1000):
+        pos, mom = _k1_inputs(c, d, 0.5, 0.0, torch.float32, cuda, c + d)
+        _, grad = t.batch_logp_and_grad(pos)
+        before = leapfrog_trajectory.user_launches
+        got = leapfrog_trajectory(t, pos, mom, grad, e, 8)
+        assert leapfrog_trajectory.user_launches == before + 1
+        _k1_agree(got, leapfrog_trajectory_plain(t, pos, mom, grad, e[0], 8))
