@@ -329,6 +329,22 @@ Phases, one line each (every check raises on failure):
     built-in's bit for bit, the pmf gates, one K-block each against its
     twin. The kernels line gains ``leapfrog_trajectory_f64`` and the
     ``mh_multistep_user_int32_*`` records.
+40. ``[examples]``: the port's examples (``mini_mcmc_torch/examples/``,
+    one per mesh-free script of ``examples/``), each ``main(device=
+    "cuda")`` at its own defaults in turn, a line each with its wall
+    seconds and its return value; its asserts are the example's own.
+    Each example's launches are counted: ``bigd_separable_hmc`` runs
+    1,024 chains x D = 10,000 on ``use_pallas="separable"``, Kernel 7's
+    fused step 128 times a half (the transformed instance in the
+    constrained half), and each half's printed moments must lie within
+    0.02 of the exact ones (0 and 1; sqrt(2 / pi) and 1 - 2 / pi; every
+    draw > 0); the NUTS examples but logistic regression take NUTS's
+    fused tier on the card (``examples.nuts_tier``) and launch Kernel 4
+    alone (their user libraries, ``example_requests``, built in 2's
+    batch); every other example runs the lockstep tiers and launches no
+    kernel. Without ``pyarrow`` the two Parquet examples (``gauss_mh``,
+    ``streaming_production_run``) are named as not run, for that
+    reason.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -339,6 +355,8 @@ launches on the main paths); the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -388,7 +406,8 @@ from mini_mcmc_torch.ops.kernels.pt_full import (
     pt_multistep,
     pt_multistep_plain,
 )
-from mini_mcmc_torch.utils.profiling import device_profile
+from mini_mcmc_torch.utils.profiling import (ProfilerDroppedEvents,
+                                             device_profile)
 
 # the flagship configuration of bench.py:64-92
 N_CHAINS = 65536
@@ -489,19 +508,21 @@ SEP_C_MEAN, SEP_C_VAR = math.sqrt(2.0 / math.pi), 1.0 - 2.0 / math.pi
 # eight schools' NUTS half (bench.py:1259-1341): 4,096 chains, D = 10,
 # target_accept 0.9, warmed_up(300, "diag"), run(1024, 256) twice
 ES8_CHAINS, ES8_COLLECT, ES8_DISCARD, ES8_ADAPT = 4096, 1024, 256, 300
-# its first run re-adapts the step size in the whitened space over its
-# 256 discarded steps and then collects 64 draws, not 1,024: the draws of
+# its lockstep first run re-adapts the step size in the whitened space
+# over its discarded steps and then collects 64 draws, not 1,024: the draws of
 # that run are not gated, and the cut keeps the script within its time
 # budget (~60 s of the lockstep tier's host calls)
 ES8_FIRST_COLLECT = 64
 # its ChEES half (bench.py:1342-1372): warmed_up(500), the same runs
 ES8_CHEES_ADAPT = 500
-# the lockstep NUTS half's timed run collects 512 draws, not the bench's
-# 1,024 (its gates scale with the draws: the ESS floor is 0.002 C n): at
-# 68.7-104.5 s for 1,024 it is the slowest stage of the script, and the
-# fused stages below run the bench's full run(1024, 256) on the same
-# posterior
-ES8_NUTS_COLLECT = 512
+# the lockstep NUTS half's timed run collects 256 draws after 128, not the
+# bench's 1,024 after 256 (its gates scale with the draws: the ESS floor
+# is 0.002 C n), after warmed_up(150) and a first run re-adapting over
+# 128 discarded steps: at 109 ms a step on an H100 80GB HBM3 at 700 W
+# (191 s of warm-up and first run, 84 s for run(512, 256)) it is the slowest
+# stage of the script, and the fused stages below run the bench's full
+# warmed_up(300) and run(1024, 256) on the same posterior
+ES8_NUTS_COLLECT, ES8_LOCKSTEP_DISCARD, ES8_LOCKSTEP_ADAPT = 256, 128, 150
 # eight schools on the fused NUTS tier (bench.py:1376-1447): Kernel 4's
 # user instances, seed 35, warmed_up(300, "diag"), run(1024, 256) twice,
 # the second timed, with each of the three CUDA forms of the target
@@ -524,18 +545,23 @@ PT_C_STD = 0.1
 # (:911-942) and elliptical slice (:944-1002)
 CHEES_CHAINS, CHEES_COLLECT, CHEES_ADAPT = 65536, 2048, 256
 ENS_CHAINS, ENS_COLLECT, ENS_WALKERS, ENS_K = 65536, 2048, 64, 16
-SLICE_CHAINS, SLICE_COLLECT, SLICE_K = 65536, 2048, 16
+# the slice and elliptical stages collect 1,024 draws, not bench.py's
+# 2,048 (their gates scale with the draws), to make room for the
+# examples: 46 and 24 s for 2,048 on an H100 80GB HBM3 at 700 W
+SLICE_CHAINS, SLICE_COLLECT, SLICE_K = 65536, 1024, 16
 # the slice stage's burn-in: 256 sweeps, not bench.py's 2,048 (its burn
 # compiles XLA too): the chains mix in ~5 sweeps (ESS 0.21 a draw on the
 # H100) and each sweep costs ~18 ms of host calls
 SLICE_BURN = 256
-GP_DIM, GP_CHAINS, GP_COLLECT, GP_K, GP_NOISE = 64, 4096, 2048, 16, 0.3
+GP_DIM, GP_CHAINS, GP_COLLECT, GP_K, GP_NOISE = 64, 4096, 1024, 16, 0.3
 # the elliptical stage's burn-in: 1,024 steps, not bench.py's 2,048 (~11 s
 # of host calls a 1,024): six of its slowest coordinates' autocorrelation
 # times (ESS 0.006 a draw on the H100) from the prior mean
 GP_BURN = 1024
-# the steps of a profiled run that reads these stages' idle share
-LOCKSTEP_PROFILE = 128
+# the steps of a profiled run that reads these stages' idle share (32: the
+# profiler's own overhead on their many small operations costs tens of
+# seconds a stage at 128)
+LOCKSTEP_PROFILE = 32
 # bench.py's evidence stages (:1003-1076): the unnormalized correlated
 # Gaussian2D (the NUTS stage's covariance), 65,536 particles, a N(0, 2.5^2)
 # prior, random-walk scale 1.0; AIS 64 linear rungs x 2 MH steps, SMC 5
@@ -691,7 +717,12 @@ def rng_ops(normals, uniforms):
 RTOL, ATOL = 1e-3, 1e-4
 
 
+#: the script's start, for the command seconds each line is printed at
+T0 = time.perf_counter()
+
+
 def say(phase: str, **vals) -> None:
+    vals["at_s"] = f"{time.perf_counter() - T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in vals.items()),
           flush=True)
 
@@ -728,12 +759,20 @@ def max_abs_err(kernel, plain, mask=None) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def device_ms_per_launch(launch, name: str, reps: int = 50) -> float:
+def device_ms_per_launch(launch, name: str, reps: int = 50):
     """A kernel's device milliseconds a launch alone: ``reps``
     back-to-back launches under ``torch.profiler``, the device time of the
-    kernels whose name holds ``name`` over the launches it recorded."""
-    _, _, by_name = device_profile(lambda: [launch() for _ in range(reps)],
-                                   expect=name)
+    kernels whose name holds ``name`` over the launches it recorded;
+    ``None`` ("not measured") when the profiler delivered none of its
+    events in three attempts (utils/profiling.py:device_profile), as
+    :func:`device_ms_each` reports it; an error of the launch itself fails
+    the run."""
+    try:
+        _, _, by_name = device_profile(
+            lambda: [launch() for _ in range(reps)], expect=name)
+    except ProfilerDroppedEvents as e:
+        say("device_ms_per_launch", not_measured=name, reason=repr(str(e)))
+        return None
     n = sum(c for k, (c, _) in by_name.items() if name in k)
     us = sum(u for k, (_, u) in by_name.items() if name in k)
     check(f"profiled {name} launches", 0 < n <= reps, n)
@@ -745,12 +784,13 @@ def device_ms_each(launches: dict, reps: int) -> dict:
     from one ``torch.profiler`` call that launches each of ``launches``
     (name -> launch) ``reps`` times back to back; ``None`` ("not
     measured") for a kernel whose events the profiler did not deliver in
-    its three attempts (utils/profiling.py:device_profile)."""
+    its three attempts (utils/profiling.py:device_profile); an error of a
+    launch itself fails the run."""
     try:
         _, _, by_name = device_profile(
             lambda: [fn() for fn in launches.values() for _ in range(reps)],
             expect=next(iter(launches)))
-    except RuntimeError as e:
+    except ProfilerDroppedEvents as e:
         say("device_ms_each", not_measured=repr(list(launches)),
             reason=repr(str(e)))
         return dict.fromkeys(launches)
@@ -1646,6 +1686,15 @@ def phase_k3_alone(nuts, dev, reps: int = 20) -> dict:
     return out
 
 
+def warp_max(v: torch.Tensor) -> torch.Tensor:
+    """Each element's largest value over its warp of 32 consecutive
+    elements (the last warp may hold fewer)."""
+    warp = torch.arange(v.numel(), device=v.device) // 32
+    top = torch.full((int(warp[-1]) + 1,), torch.iinfo(v.dtype).min,
+                     dtype=v.dtype, device=v.device)
+    return top.scatter_reduce(0, warp, v, "amax")[warp]
+
+
 def phase_nuts_step(nuts, dev, label="nuts_step"):
     """Kernel 4 against its twin for one step from the NUTS equilibrium,
     same key and step, depth_limit 10: positions, alpha, n_alpha,
@@ -1682,10 +1731,10 @@ def phase_nuts_step(nuts, dev, label="nuts_step"):
         "chain_depth_counts": torch.bincount(details["depth"]).tolist(),
         "leaves_per_chain": float(details["leaves"].double().mean()),
         # what a warp of 32 fixed chains would integrate: 2^(its deepest
-        # depth) - 1 leaves for each of them (the one-thread-per-chain form)
+        # depth) - 1 leaves for each of them (the one-thread-per-chain form;
+        # the last warp holds what is left of the chains)
         "fixed_warp_leaves_per_chain": float(
-            (2.0 ** details["depth"].reshape(-1, 32).amax(dim=1).double()
-             - 1).mean()),
+            (2.0 ** warp_max(details["depth"]).double() - 1).mean()),
     }
     n_chains = args[1].shape[0]
     say(label, chains=n_chains, depth_limit=NUTS_MAX_DEPTH,
@@ -3474,21 +3523,21 @@ def phase_eight_schools(dev) -> dict:
     """Eight schools' NUTS half (bench.py:1259-1341) on the port's lockstep
     tier (``use_pallas=False``), which runs no hand-written kernel:
     ``make_noncentered_target()``, 4,096 chains, D = 10, ``NUTS(target,
-    init_with_seed(4096, 10, seed=31), 0.9, seed=31).warmed_up(300,
-    "diag")``, then ``run(64, 256)`` (the step size adapted in the
-    whitened space, ES8_FIRST_COLLECT) and the timed ``run(512, 256)``
-    (ES8_NUTS_COLLECT); :func:`es8_gates`, leapfrogs per draw, ESS/s and
-    the time."""
+    init_with_seed(4096, 10, seed=31), 0.9, seed=31).warmed_up(150,
+    "diag")`` (ES8_LOCKSTEP_ADAPT), then ``run(64, 128)`` (the step size
+    adapted in the whitened space, ES8_FIRST_COLLECT) and the timed
+    ``run(256, 128)`` (ES8_NUTS_COLLECT, ES8_LOCKSTEP_DISCARD);
+    :func:`es8_gates`, leapfrogs per draw, ESS/s and the time."""
     from mini_mcmc_torch.examples.eight_schools import (
         make_noncentered_target,
     )
 
-    c8, n8, nd8 = ES8_CHAINS, ES8_NUTS_COLLECT, ES8_DISCARD
+    c8, n8, nd8 = ES8_CHAINS, ES8_NUTS_COLLECT, ES8_LOCKSTEP_DISCARD
     reset_counts()
     t0 = time.perf_counter()
     warm = mt.NUTS(make_noncentered_target(), mt.init_with_seed(
-        c8, 10, seed=31, device=dev), 0.9, seed=31).warmed_up(ES8_ADAPT,
-                                                              "diag")
+        c8, 10, seed=31, device=dev), 0.9, seed=31).warmed_up(
+            ES8_LOCKSTEP_ADAPT, "diag")
     first = warm.run(ES8_FIRST_COLLECT, nd8)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
@@ -5788,7 +5837,9 @@ def phase_f64_leapfrog(dev) -> dict:
             m["device_ms_f32"] = device_ms_per_launch(
                 lambda: leapfrog_trajectory(target, *f32[:3], f32[3], n_lf),
                 "leapfrog_kernel")
-            m["device_ratio_f64_f32"] = m["device_ms"] / m["device_ms_f32"]
+            if None not in (m["device_ms"], m["device_ms_f32"]):
+                m["device_ratio_f64_f32"] = (m["device_ms"]
+                                             / m["device_ms_f32"])
         # pos, mom, grad, eps in; pos, mom, logp, grad out; the wrappers'
         # tables and params are a few doubles
         m["bound_ms"], m["bound_by"] = bound64(
@@ -6299,6 +6350,182 @@ def bounds(step_details, subtree_leaves, dense_details, k1234t,
     return out
 
 
+#: the port's examples, in the order the [examples] phase drives them
+EXAMPLES = ("minimal_mh", "gauss_mh", "rosenbrock_mh", "mixture_gibbs",
+            "minimal_hmc", "rosenbrock3d_hmc", "minimal_nuts", "metric_nuts",
+            "logistic_regression_nuts", "eight_schools", "ensemble_walkers",
+            "chees_trajectory_adaptation", "bimodal_tempering", "ais_log_z",
+            "gp_robust_regression", "streaming_production_run",
+            "sgld_minibatch_logreg", "constrained_transforms",
+            "bigd_separable_hmc")
+#: the examples that write Parquet, so need pyarrow
+PARQUET_EXAMPLES = ("gauss_mh", "streaming_production_run")
+#: bigd_separable_hmc's steps a half, run(64, 64): one fused launch each
+BIGD_STEPS = 128
+BIGD_TOL = 0.02
+_BIGD_LINE = re.compile(r"mean ([-+0-9.e]+) .*?var ([-+0-9.e]+)"
+                        r"(?: .*?min ([-+0-9.e]+))?")
+
+
+def nuts_steps(*runs) -> int:
+    """Kernel 4's launches in NUTS ``run(n_collect, n_discard)`` calls, a
+    launch a step: ``n_collect + n_discard - 1`` steps a run (the first
+    draw is the start, ``nuts.py``'s docstring)."""
+    return sum(n_collect + n_discard - 1 for n_collect, n_discard in runs)
+
+
+#: the examples whose NUTS takes Kernel 4 on the card
+#: (``mini_mcmc_torch.examples.nuts_tier``) and the exact launches of each
+#: example's main: every step a fused launch, of a user library
+#: (``nuts_step_user``) where the target has no built-in instance, inside
+#: a transform's bijectors (``nuts_step_transformed``) under
+#: ``transform=``; every other example but bigd_separable_hmc launches no
+#: kernel
+FUSED_NUTS_EXAMPLES = {
+    "minimal_nuts": dict(nuts_step=nuts_steps((400, 400)),
+                         nuts_step_user=nuts_steps((400, 400))),
+    "metric_nuts": dict(nuts_step=nuts_steps((100, 200), (500, 100))),
+    # two runs of each of the non-centered and the centered forms
+    "eight_schools": dict(nuts_step=nuts_steps(*[(1000, 500)] * 4),
+                          nuts_step_user=nuts_steps(*[(1000, 500)] * 4)),
+    "constrained_transforms": dict(
+        nuts_step=nuts_steps((500, 300)),
+        nuts_step_user=nuts_steps((500, 300)),
+        nuts_step_transformed=nuts_steps((500, 300))),
+}
+
+
+def phase_example_nuts_steps(dev) -> None:
+    """``[examples_k4_<example>]``: Kernel 4 against its twin with
+    :func:`phase_nuts_step`'s checks (positions, alpha, n_alpha,
+    divergences and depths on at least NUTS_SHARE of the chains, the
+    launch's leaves, the grid, the same results under other grids) on
+    each fused NUTS example's own sampler, built as its ``main`` builds
+    it, at its chain count and in the state its first run leaves:
+    minimal_nuts' traced 2D Rosenbrock (4 chains), metric_nuts'
+    Gaussian2D whitened by its dense metric (256), eight schools'
+    traced centered form (16) and constrained_transforms' natural target
+    traced inside its bijectors (64). Eight schools' non-centered hand
+    source is held at 4,096 chains by phase_user_kernels."""
+    from mini_mcmc_torch.examples import constrained_transforms as ct
+    from mini_mcmc_torch.examples import eight_schools as es
+
+    kw = dict(device=dev, use_pallas="full")
+    s = mt.NUTS(mt.models.rosenbrock2d(a=1.0, b=100.0),
+                mt.init(4, 2, device=dev), target_accept_p=0.95,
+                **kw).seed(42)
+    s.run(400, 400)
+    phase_nuts_step(s, dev, "examples_k4_minimal_nuts")
+    s = mt.NUTS(mt.models.diffable_gaussian2d(
+        [0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]), mt.init_det(256, 2,
+                                                         device=dev),
+        0.8, **kw).seed(0)
+    s.run(100, 200)
+    phase_nuts_step(s.reconditioned("dense", seed=1), dev,
+                    "examples_k4_metric_nuts")
+    s = mt.NUTS(es.make_centered_target(), mt.init_with_seed(
+        16, 10, seed=5, device=dev), 0.8, **kw).seed(5)
+    s.run(1000, 500)
+    phase_nuts_step(s, dev, "examples_k4_eight_schools_centered")
+    transform = ct.make_transform()
+    s = mt.NUTS(ct.make_natural_target(), transform.to_x(mt.init_with_seed(
+        64, 2, seed=7, device=dev)), 0.8, transform=transform, **kw).seed(7)
+    s.run(500, 300)
+    phase_nuts_step(s, dev, "examples_k4_constrained_transforms")
+
+
+def example_requests(dev) -> list:
+    """The user libraries the fused NUTS examples' Kernel 4 runs, as
+    ``(source, dim, flags)``, so that phase_build's one nvcc batch builds
+    them: minimal_nuts' 2D Rosenbrock and eight schools' centered form,
+    traced from their batch forms, and constrained_transforms' natural
+    target traced inside its transform's bijectors (eight schools'
+    non-centered source is one of ``user_requests``')."""
+    from mini_mcmc_torch.examples import constrained_transforms as ct
+    from mini_mcmc_torch.examples import eight_schools as es
+
+    return [(t.dc_forms(d, dev).source, d, _build.instance_flags(t))
+            for t, d in ((mt.models.rosenbrock2d(1.0, 100.0), 2),
+                         (es.make_centered_target(), 10),
+                         (ct.make_transform().wrap(
+                             ct.make_natural_target()), 2))]
+
+
+def bigd_moments(text: str) -> list:
+    """The (mean, var, min) each half of ``bigd_separable_hmc`` printed
+    (``min`` None for the plain half)."""
+    out = []
+    for line in text.splitlines():
+        m = _BIGD_LINE.search(line)
+        if m:
+            out.append(tuple(None if v is None else float(v)
+                             for v in m.groups()))
+    check("bigd_separable_hmc printed both halves", len(out) == 2, text)
+    return out
+
+
+def phase_examples(names=EXAMPLES) -> dict:
+    """Each example's ``main(device="cuda")`` in turn (phase 40): its wall
+    seconds (the device synchronised), its return value, and its launch
+    counts, reset just before it and read just after; every example but
+    ``bigd_separable_hmc`` and the fused NUTS examples launches no kernel.
+    Returns the counts of ``bigd_separable_hmc``'s run by name and the
+    Kernel 4 launches of the NUTS examples."""
+    have_pyarrow = importlib.util.find_spec("pyarrow") is not None
+    out = {"nuts_step": 0}
+    for name in names:
+        if name in PARQUET_EXAMPLES and not have_pyarrow:
+            say("examples", example=name, run="not run",
+                why="pyarrow: absent")
+            continue
+        mod = importlib.import_module(f"mini_mcmc_torch.examples.{name}")
+        text, progress = io.StringIO(), io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text), \
+                contextlib.redirect_stderr(progress):
+            ret = mod.main(device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        more = {}
+        if name == "bigd_separable_hmc":
+            check("bigd_separable_hmc launches: the fused step 128 a half, "
+                  "the transformed instance in the constrained half",
+                  counts == counts_with(
+                      hmc_separable_step=2 * BIGD_STEPS,
+                      hmc_separable_step_transformed=BIGD_STEPS), counts)
+            (m0, v0, _), (m1, v1, lo) = bigd_moments(text.getvalue())
+            half_mean, half_var = math.sqrt(2 / math.pi), 1 - 2 / math.pi
+            for what, got, want in (("mean", m0, 0.0), ("var", v0, 1.0),
+                                    ("constrained mean", m1, half_mean),
+                                    ("constrained var", v1, half_var)):
+                check(f"bigd_separable_hmc {what}",
+                      abs(got - want) <= BIGD_TOL, (got, want))
+            check("bigd_separable_hmc constrained min > 0", lo > 0.0, lo)
+            out["counts"] = counts
+            more = dict(launches_fused=counts["hmc_separable_step"],
+                        launches_transformed=counts[
+                            "hmc_separable_step_transformed"],
+                        mean=m0, var=v0, constrained_mean=m1,
+                        constrained_var=v1, constrained_min=lo)
+        elif name in FUSED_NUTS_EXAMPLES:
+            check(f"example {name} launches Kernel 4 a step and nothing "
+                  "else", counts == counts_with(**FUSED_NUTS_EXAMPLES[name]),
+                  counts)
+            more = dict(launches_nuts_step=counts["nuts_step"],
+                        launches_user=counts["nuts_step_user"],
+                        launches_transformed=counts[
+                            "nuts_step_transformed"])
+            out["nuts_step"] += counts["nuts_step"]
+        else:
+            check_no_kernel(f"example {name}")
+        say("examples", example=name, wall_s=repr(wall),
+            returned=repr(ret).replace(" ", ""), **{
+                k: repr(v) for k, v in more.items()})
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -6320,7 +6547,8 @@ def run_phases(args, tmp: str) -> None:
     reqs = user_requests(dev)
     reqs5678 = k5678_user_requests(dev)
     reqs64, reqs32 = f64_int32_requests(dev)
-    so, reported = phase_build(reqs + reqs5678 + reqs64 + reqs32)
+    so, reported = phase_build(reqs + reqs5678 + reqs64 + reqs32
+                               + example_requests(dev))
     user_build = phase_user_build(reqs)
     phase_k5678_user_build(reqs5678 + reqs32)
     ptx64 = phase_f64_build(reqs64, reported)
@@ -6507,6 +6735,10 @@ def run_phases(args, tmp: str) -> None:
     phase_sghmc(grad_fn, post_mean, post_var, dev)
     del grad_fn
     torch.cuda.empty_cache()
+    phase_example_nuts_steps(dev)
+    examples = phase_examples()
+    bigd = examples["counts"]
+    torch.cuda.empty_cache()
     b = bounds(step_details, sub_leaves, k34w["details"], k1234t, funnel)
     ub = user_bounds(uk)
     b.update({f"{k}_user_{kind}": v for (k, kind), v in ub.items()})
@@ -6542,6 +6774,7 @@ def run_phases(args, tmp: str) -> None:
         record("nuts_step", "nuts_full.cu", "nuts_full.py:48",
                nuts_counts["nuts_step"], step_err, t["nuts_step_ms"],
                t["nuts_step_plain_ms"],
+               launches_examples=examples["nuts_step"],
                launches_run_progress=progress_launches["nuts"]),
         record("nuts_step_dense_metric", "nuts_full.cu", "nuts_full.py:48",
                dense_counts["nuts_step"], k34w["err"], k34w["ms"],
@@ -6567,6 +6800,8 @@ def run_phases(args, tmp: str) -> None:
                ms_trajectory_only=k7["ms_trajectory_only"],
                bound_ms_trajectory_only=b["hmc_separable_trajectory"][0],
                launches_L40=sep40["separable"]["launches"],
+               launches_examples=(bigd["hmc_separable_step"]
+                                  - bigd["hmc_separable_step_transformed"]),
                ms_L40=k7["ms_L40"], plain_ms_L40=k7["plain_ms_L40"],
                bound_ms_L40=b["hmc_separable_L40"][0],
                bound_by_L40=b["hmc_separable_L40"][1],
@@ -6614,6 +6849,7 @@ def run_phases(args, tmp: str) -> None:
                sepc_counts["hmc_separable_step_transformed"], k7t["err"],
                k7t["positive_ms"], k7t["positive_plain_ms"],
                launches_two_pass=sepc_counts["hmc_separable_transformed"],
+               launches_examples=bigd["hmc_separable_step_transformed"],
                ms_mixed=k7t["ms"], plain_ms_mixed=k7t["plain_ms"],
                ms_mixed_trajectory_only=k7t["ms_trajectory_only"],
                bound_ms_mixed=b["hmc_separable_mixed"][0],

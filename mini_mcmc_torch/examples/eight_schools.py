@@ -21,7 +21,11 @@ hand-written gradient, with the gradient of dual numbers
 (:func:`~mini_mcmc_torch.models.derive_grad_dc`), or from C++ generated
 from ``logp_batch`` (no source). :func:`chees_adapted` is the ChEES half
 (``bench.py:1342-1372``) and :func:`moment_gates` the bench's gates on a
-run of any.
+run of any. :func:`make_centered_target` is the funnel parameterization
+``[mu, log_tau, theta_1..8]``, and :func:`main` the example itself
+(``eight_schools_nuts.py:150-200``): NUTS on both parameterizations, two
+runs each, the non-centered posterior means against the quadrature and
+the centered one's steady-state divergences.
 """
 
 from __future__ import annotations
@@ -31,11 +35,14 @@ import math
 import numpy as np
 import torch
 
+from ..diagnostics import rank_normalized_diagnostics, summary
 from ..models.base import Target
+from ..nuts import NUTS
 from ..ops.kernels.user_density import derive_grad_dc
 from ..samplers import ChEESHMC
-from ..stats import split_rhat_mean_ess
+from ..stats import run_stats, split_rhat_mean_ess
 from ..utils.init import init_with_seed
+from . import nuts_tier
 
 #: Rubin (1981): estimated treatment effects and their standard errors
 Y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0], np.float32)
@@ -191,6 +198,28 @@ def make_natural_target() -> Target:
     return Target(logp=logp, logp_batch=logp_batch)
 
 
+def make_centered_target() -> Target:
+    """``params = [mu, log_tau, theta_1..8]``, the funnel
+    parameterization (``eight_schools_nuts.py:113-128``)."""
+
+    def logp_batch(params):  # [C, 10] -> [C]
+        y, sig = _data(params)
+        mu, log_tau, theta = params[:, :1], params[:, 1:2], params[:, 2:]
+        tau = torch.exp(log_tau)
+        loglik = -0.5 * torch.sum(((y - theta) / sig) ** 2, dim=1)
+        logp_theta = (-0.5 * torch.sum(((theta - mu) / tau) ** 2, dim=1)
+                      - 8.0 * log_tau[:, 0])
+        logp_mu = -0.5 * (mu[:, 0] / MU_PRIOR_STD) ** 2
+        logp_tau = _log_half_cauchy(tau[:, 0]) + log_tau[:, 0]
+        return loglik + logp_theta + logp_mu + logp_tau
+
+    def logp(params):
+        rows, lead = _rows(params)
+        return logp_batch(rows).reshape(lead)
+
+    return Target(logp=logp, logp_batch=logp_batch)
+
+
 def exact_posterior_means() -> tuple[float, float]:
     """``E[mu | y]`` and ``E[tau | y]`` by 1-D quadrature over the tau
     marginal: given tau, theta and mu integrate out in closed form
@@ -246,3 +275,81 @@ def chees_adapted(device="cuda", n_chains: int = N_CHAINS,
     return ChEESHMC(make_noncentered_target(),
                     init_with_seed(n_chains, 10, seed=seed, device=device),
                     step_size=0.2, seed=seed, device=device).warmed_up(n_adapt)
+
+
+def _run_twice(target, chains, seed, n_collect, n_discard, device):
+    """NUTS from ``init_with_seed(chains, 10, seed)`` at step size 0.8,
+    run twice: the first run adapts (epsilon search + dual averaging) and
+    burns in; the second is the steady state, whose per-run divergence
+    delta (``last_run_divergences``) is the honest geometry diagnostic.
+    Returns the second run's sample and its divergences a step."""
+    tier = nuts_tier(device)
+    s = NUTS(target, init_with_seed(chains, 10, seed=seed, device=device),
+             0.8, device=device, **tier).seed(seed)
+    s.run(n_collect, n_discard)
+    sample = s.run(n_collect, n_discard)
+    steps = chains * (n_collect + n_discard)
+    # executed-leapfrog accounting, one gradient eval per leapfrog:
+    # lockstep, every chain pays the deepest tree; fused, chain 0's own
+    lf_per_draw = float(s.last_run_leapfrogs[0]) / (
+        n_collect + n_discard - 1)
+    print(f"    ({lf_per_draw:.0f} leapfrog grad evals per draw, "
+          f"{'fused' if tier else 'lockstep'})")
+    return sample, int(s.last_run_divergences.sum()) / steps
+
+
+def noncentered_half(n_chains=32, n_collect=1000, n_discard=500,
+                     device="cuda"):
+    """The example's non-centered half (``eight_schools_nuts.py:172-185``
+    and its four asserts, ``:195-199``): NUTS on the non-centered
+    posterior, ``n_chains`` chains, seed 3, two runs; the second run's
+    posterior means within 0.3 and 0.5 of the quadrature, its largest
+    rank-normalized R-hat under 1.05 and its steady-state divergence rate
+    under 0.5%. Returns ``(E[mu], E[tau])``."""
+    exact_mu, exact_tau = exact_posterior_means()
+    sample, rate_nc = _run_twice(make_noncentered_target(), n_chains, 3,
+                                 n_collect, n_discard, device)
+    flat = sample.reshape(-1, 10).double()
+    mu_hat = float(flat[:, 0].mean())
+    tau_hat = float(flat[:, 1].exp().mean())
+    print(f"non-centered: E[mu]={mu_hat:.3f}  E[tau]={tau_hat:.3f}  "
+          f"steady-state divergence rate={rate_nc:.2%}")
+    print(run_stats(sample))
+    modern = rank_normalized_diagnostics(sample)
+    print(modern)
+    # the one-stop per-parameter report for the interesting coordinates
+    print(summary(sample[:, :, :2], param_names=("mu", "log_tau")))
+
+    # Exact-moment gates (quadrature ground truth, generous MCSE margin).
+    assert abs(mu_hat - exact_mu) < 0.3, (mu_hat, exact_mu)
+    assert abs(tau_hat - exact_tau) < 0.5, (tau_hat, exact_tau)
+    assert float(modern.rhat.max()) < 1.05
+    assert rate_nc < 0.005, rate_nc  # non-centered: clean steady state
+    return mu_hat, tau_hat
+
+
+def centered_half(n_collect=1000, n_discard=500, device="cuda"):
+    """The example's centered half (``eight_schools_nuts.py:187-193``):
+    NUTS on the funnel parameterization, 16 chains, seed 5, two runs. The
+    same posterior, but its per-run divergence delta stays high after
+    adaptation, the signal to reparameterize or raise
+    ``target_accept_p``. Returns the steady-state divergence rate."""
+    _, rate_cen = _run_twice(make_centered_target(), 16, 5, n_collect,
+                             n_discard, device)
+    print(f"centered:     steady-state divergence rate={rate_cen:.2%} "
+          "(funnel geometry)")
+    return rate_cen
+
+
+def main(n_chains=32, n_collect=1000, n_discard=500, device="cuda"):
+    """The example (``eight_schools_nuts.py:150-200``): the quadrature's
+    means, :func:`noncentered_half` (its asserts the example's four) and
+    :func:`centered_half`. Returns ``(E[mu], E[tau])``. On CUDA NUTS
+    takes its fused tier (:func:`~mini_mcmc_torch.examples.nuts_tier`):
+    Kernel 4 runs the non-centered form's hand-written C++ and the
+    centered form's traced from its batch form."""
+    exact_mu, exact_tau = exact_posterior_means()
+    print(f"exact:        E[mu]={exact_mu:.3f}  E[tau]={exact_tau:.3f}")
+    out = noncentered_half(n_chains, n_collect, n_discard, device)
+    centered_half(n_collect, n_discard, device)
+    return out

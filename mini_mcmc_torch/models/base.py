@@ -184,6 +184,17 @@ class Target:
             (grads,) = torch.autograd.grad(vals.sum(), x)
         return vals.detach(), grads
 
+    def logp_and_grad(self, position: torch.Tensor):
+        """Value and gradient for a single ``[D]`` state -> (scalar,
+        ``[D]``), on the state's own device."""
+        if self.grad is not None:
+            return self.logp(position), self.grad(position)
+        x = position.detach().requires_grad_(True)
+        with torch.enable_grad():
+            val = self.logp(x)
+            (grad,) = torch.autograd.grad(val, x)
+        return val.detach(), grad
+
     def sep_forms(self):
         """``(tile_logp, tables)`` for the separable HMC tier, the tables
         normalized to ``[1, D]`` tensors (``base.py:127-149`` in the JAX

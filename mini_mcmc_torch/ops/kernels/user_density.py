@@ -334,8 +334,11 @@ class _Gen:
 
     def loop(self, out: _Var, body) -> None:
         """``out[i] = body(idx)`` over ``out``'s elements; ``body`` takes
-        the per-chain multi-index (C++ expressions)."""
+        the per-chain multi-index (C++ expressions). An empty ``out``
+        (numel 0) has no array and emits nothing."""
         n = _numel(out.shape)
+        if n == 0:
+            return
         if n == 1:
             self.lines.append(
                 f"{out.ctype} {out.name} = {body(['0'] * len(out.shape))};")
@@ -396,6 +399,9 @@ class _Gen:
             return self.elem(src, full_in, idx)
 
         n_out = _numel(out.shape)
+        if n_red == 0 or n_out == 0:  # a sum over an empty extent is 0
+            self.loop(out, lambda idx: "S(0)")
+            return out
         if n_out == 1:
             self.lines.append(f"S {out.name} = {at('0', '0')};")
             if n_red > 1:
@@ -419,6 +425,9 @@ class _Gen:
         k = a.shape[-1]
         out = self.new(tuple(node.meta["val"].shape)[1:], chain=a.chain)
         m = 1 if w.dim() == 1 else w.shape[1]
+        if k == 0 or _numel(out.shape) == 0:  # an empty contraction is 0
+            self.loop(out, lambda idx: "S(0)")
+            return out
         off = self.const(w)
         row = (lambda j: f"{a.name}[{j}]") if _numel(a.shape) > 1 else (
             lambda j: a.name)

@@ -80,6 +80,13 @@ def step_timer(fn, *args, repeats: int = 3, **kwargs):
     return result, times[len(times) // 2]
 
 
+class ProfilerDroppedEvents(RuntimeError):
+    """:func:`device_profile` got no device event (or none of the kernel it
+    expected) from any of its profiled calls: the profiler dropped them.
+    Only this is a time "not measured"; an error of the profiled call
+    itself is not."""
+
+
 def device_profile(fn, *args, expect: str | None = None, **kwargs):
     """Run ``fn(*args, **kwargs)`` once under ``torch.profiler`` with CUDA
     activity, completion included.
@@ -92,7 +99,8 @@ def device_profile(fn, *args, expect: str | None = None, **kwargs):
     call now and then arrives without the kernels it ran; a call that
     recorded no device event, or none whose name holds ``expect``, is
     profiled again, up to three calls in all (``fn`` runs again each
-    time), and ``RuntimeError`` is raised if none did.
+    time), and :class:`ProfilerDroppedEvents` is raised if none did. Any
+    other error of ``fn`` propagates as it was raised.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,5 +123,6 @@ def device_profile(fn, *args, expect: str | None = None, **kwargs):
             busy = sum(us for _, us in by_name.values())
             return wall, busy, by_name
     what = "" if expect is None else f" of {expect!r}"
-    raise RuntimeError(f"torch.profiler recorded no device event{what} in "
-                       f"{_PROFILE_ATTEMPTS} profiled calls")
+    raise ProfilerDroppedEvents(f"torch.profiler recorded no device event"
+                                f"{what} in {_PROFILE_ATTEMPTS} profiled "
+                                "calls")

@@ -90,6 +90,7 @@ from mini_mcmc_torch.models import (
     poisson_target,
     precondition_target,
     random_walk_int_proposal,
+    rosenbrock2d,
     rosenbrock_nd,
 )
 from mini_mcmc_torch.ops import make_anneal
@@ -2203,15 +2204,34 @@ def _banded_gaussian(d):
     return Target(logp=logp)
 
 
+def _example_k4_target(case):
+    """The user libraries the port's NUTS examples run in Kernel 4 on the
+    card, with their D and a range of step sizes: minimal_nuts' 2D
+    Rosenbrock, eight schools' centered form and constrained_transforms'
+    natural target inside its transform's bijectors, each traced from its
+    batch form."""
+    from mini_mcmc_torch.examples import constrained_transforms as ct
+    from mini_mcmc_torch.examples.eight_schools import make_centered_target
+
+    if case == "rosenbrock2":
+        return rosenbrock2d(1.0, 100.0), 2, 0.01, 0.05
+    if case == "centered":
+        return make_centered_target(), 10, 0.05, 0.2
+    return ct.make_transform().wrap(ct.make_natural_target()), 2, 0.05, 0.2
+
+
 def _k4_user_case(case, kind, cuda, c=4096, seed=41):
     """Kernel 4's user instance and a start: ``"gauss<D>"`` the
-    traced banded Gaussian, else eight schools' form ``case`` at
+    traced banded Gaussian, an example's target
+    (:func:`_example_k4_target`), else eight schools' form ``case`` at
     D = 10; plain in x, or whitened by a diagonal metric in y."""
     from mini_mcmc_torch.examples.eight_schools import make_noncentered_target
 
     if case.startswith("gauss"):
         d = int(case[5:])
         t, lo, hi = _banded_gaussian(d), 0.15, 0.45
+    elif case in ("rosenbrock2", "centered", "constrained"):
+        t, d, lo, hi = _example_k4_target(case)
     else:
         d = 10
         t, lo, hi = make_noncentered_target(case), 0.05, 0.2
@@ -2241,10 +2261,12 @@ def _k4_against_twin(t, pos, eps, key=0xC0FFEE, step=17):
 @pytest.mark.parametrize("kind", ["plain", "whitened"])
 @pytest.mark.parametrize("case", ["gauss5", "gauss6", "gauss8", "gauss10",
                                   "gauss12", "gauss15", "gauss16", "hand",
-                                  "derived", "traced"])
+                                  "derived", "traced", "rosenbrock2",
+                                  "centered", "constrained"])
 def test_cuda_nuts_step_user_dims_match_their_twin(case, kind, cuda):
-    """Kernel 4's user instances at D = 5-16 (the last quad of momenta
-    partly filled at D = 5, 6 and 15), plain and whitened diag, against
+    """Kernel 4's user instances at D = 2-16 (the last quad of momenta
+    partly filled at D = 2, 5, 6 and 15; at D = 2 and 10 the examples'
+    own targets), plain and whitened diag, against
     the twin: whole rows of positions, alpha, n_alpha, divergences and
     each chain's depth on at least 99.9% of the chains, a chain a lane in
     blocks of K4_THREADS[D] threads on the persistent grid."""
@@ -2853,15 +2875,15 @@ def test_cuda_leapfrog_at_l0_returns_the_gradient_passed(case, cuda):
 def test_cuda_leapfrog_user_dims_match_their_twin(case, cuda):
     """User densities at float32 and D = 1, 3, 5, 10 and 16 (a row of one
     scalar, rows element by element at D = 3, 5 and 10, 16-byte vectors
-    at D = 16): the traced Gaussians (banded past D = 1) and eight
-    schools' hand and derived forms, each gradient then logp; all four
-    outputs, logp included, against the twin on ragged chain counts."""
+    at D = 16): the traced banded Gaussians (at D = 1 its neighbour sum
+    is empty, an S(0) in the generated C++) and eight schools' hand and
+    derived forms, each gradient then logp; all four outputs, logp
+    included, against the twin on ragged chain counts."""
     from mini_mcmc_torch.examples.eight_schools import make_noncentered_target
 
     if case.startswith("gauss"):
         d = int(case[5:].split("_")[0])
-        # at D = 1 the banded Gaussian's neighbour product is empty
-        t = _banded_gaussian(d) if d > 1 else _user_gaussian(1)
+        t = _banded_gaussian(d)
     else:
         d = 10
         t = make_noncentered_target(case[:-2])

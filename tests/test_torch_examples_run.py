@@ -1,0 +1,66 @@
+"""The port's other examples run end to end on the CPU: each
+``main(device="cpu")`` at the JAX example's defaults, its asserts the JAX
+example's own and its return value that of the JAX ``main``; without a
+GPU and without ``device`` each raises, as the samplers it builds do.
+``bigd_separable_hmc`` takes its CPU shape, (64, 128, 64) on the plain
+path, as the JAX example does off the accelerator."""
+
+import importlib
+import math
+
+import pytest
+
+EXAMPLES = ["minimal_mh", "gauss_mh", "rosenbrock_mh", "mixture_gibbs",
+            "minimal_hmc", "rosenbrock3d_hmc", "ensemble_walkers",
+            "chees_trajectory_adaptation", "bimodal_tempering",
+            "gp_robust_regression", "streaming_production_run"]
+#: every example of mini_mcmc_torch/examples/ with a main()
+ALL = EXAMPLES + ["bigd_separable_hmc", "minimal_nuts", "metric_nuts",
+                  "logistic_regression_nuts", "eight_schools", "ais_log_z",
+                  "sgld_minibatch_logreg", "constrained_transforms"]
+
+
+def _module(name):
+    return importlib.import_module(f"mini_mcmc_torch.examples.{name}")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_runs(name, capsys):
+    assert _module(name).main(device="cpu") is None
+    assert capsys.readouterr().out
+
+
+def test_bigd_separable_hmc_moments(capsys):
+    """Both halves' printed moments: the standard normal's and the
+    half-normal's, every draw positive."""
+    assert _module("bigd_separable_hmc").main(device="cpu") is None
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if "mean" in ln]
+    plain = lines[0].split()
+    cons = lines[1].split()
+    mean, var = float(plain[plain.index("mean") + 1]), float(
+        plain[plain.index("var") + 1])
+    assert abs(mean) < 0.05 and abs(var - 1.0) < 0.05
+    mean, var, lo = (float(cons[cons.index(k) + 1])
+                     for k in ("mean", "var", "min"))
+    assert abs(mean - math.sqrt(2 / math.pi)) < 0.05
+    assert abs(var - (1 - 2 / math.pi)) < 0.05 and lo > 0
+
+
+def test_ais_log_z_within_005_of_the_evidence():
+    from mini_mcmc_torch.examples import ais_log_z as ais
+
+    log_z = ais.main(device="cpu")
+    assert abs(log_z - ais.exact_log_z()) < 0.05
+
+
+def test_sgld_lands_on_the_mala_posterior():
+    """The example asserts SGLD's mean within 4 MALA sds + 0.05 of MALA's;
+    it returns SGLD's posterior mean."""
+    mean = _module("sgld_minibatch_logreg").main(device="cpu")
+    assert mean.shape == (4,)
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_example_needs_a_gpu_by_default(name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _module(name).main()
