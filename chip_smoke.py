@@ -268,7 +268,7 @@ Phases, one line each (every check raises on failure):
     ``[user_tier_run]`` the ``use_pallas=True``
     and ``"full"`` HMC tiers and the ``use_pallas=True`` NUTS tier on the
     hand form, counted. The lockstep eight-schools NUTS half (30) times
-    ``run(512, 256)``, not 1,024 draws, to leave room for these phases.
+    ``run(128, 64)``, not 1,024 draws, to leave room for these phases.
 38. user forms in Kernels 5-8 (``examples/user_forms.py``), at bench.py's
     stage sizes, each stage one warm-up run and one counted, timed run
     (``counted_run``: the user instance's launches, no twin). The build of 2
@@ -344,7 +344,32 @@ Phases, one line each (every check raises on failure):
     batch); every other example runs the lockstep tiers and launches no
     kernel. Without ``pyarrow`` the two Parquet examples (``gauss_mh``,
     ``streaming_production_run``) are named as not run, for that
-    reason.
+    reason. The three mesh examples (``poisson_mh``: Kernel 5's int32
+    Poisson instance through a one-rank chain mesh, 3 launches;
+    ``sharded_chains``; ``sgld_data_parallel``: ``data_parallel_grad``
+    on a one-rank data mesh) run here too.
+41. ``[parallel]``: chain and data parallelism (``mini_mcmc_torch.
+    parallel``) on the card. The card machine has one GPU, so the mesh
+    has one rank: ``chain_mesh()`` starts a one-rank NCCL group. The
+    flagship (Kernel 2, ``run(1024)``), the tempering stage (Kernel 8,
+    ``run(512)``) and NUTS on ``use_pallas=True`` (Kernel 3, 4,096
+    chains, depth 4), each from one seed unsharded and through
+    ``shard_sampler_state``: cubes equal bit for bit, the same launches,
+    no collective in the fused runs (scalar reductions only in NUTS's
+    lockstep loops), the split R-hat and ESS of the sharded cube equal,
+    and the wall seconds of each (the one-rank mesh's overhead).
+    ``[parallel_split]``: each of Kernels 2-8 launched on chains ``[0,
+    s)`` at ``chain0 = 0`` and ``[s, C)`` at ``chain0 = s`` at its main
+    path's shape, for ``s = C / 2`` and an odd ``s``: the two launches
+    give one launch's outputs bit for bit. ``[parallel_dpg]``:
+    ``data_parallel_grad`` on a one-rank data mesh (65,536 rows x 8,
+    1,024 chains, B = 4,096): one all-reduce a call (counted), finite,
+    the mean over 256 keys at the full-data gradient's scale, its ms a
+    call and the all-reduce's alone. ``[parallel_draws]``: a lockstep
+    HMC step's draws at 65,536 x 3 and at a 2- and 4-rank shard's share
+    (the global shape every shard draws). Kernels 2-8 at ``chain0`` =
+    1,000,003 against their twins by the checks of 6, 9, 10, 16 and 22
+    (lines ``*_chain0``).
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -515,14 +540,14 @@ ES8_CHAINS, ES8_COLLECT, ES8_DISCARD, ES8_ADAPT = 4096, 1024, 256, 300
 ES8_FIRST_COLLECT = 64
 # its ChEES half (bench.py:1342-1372): warmed_up(500), the same runs
 ES8_CHEES_ADAPT = 500
-# the lockstep NUTS half's timed run collects 256 draws after 128, not the
+# the lockstep NUTS half's timed run collects 128 draws after 64, not the
 # bench's 1,024 after 256 (its gates scale with the draws: the ESS floor
-# is 0.002 C n), after warmed_up(150) and a first run re-adapting over
-# 128 discarded steps: at 109 ms a step on an H100 80GB HBM3 at 700 W
-# (191 s of warm-up and first run, 84 s for run(512, 256)) it is the slowest
-# stage of the script, and the fused stages below run the bench's full
-# warmed_up(300) and run(1024, 256) on the same posterior
-ES8_NUTS_COLLECT, ES8_LOCKSTEP_DISCARD, ES8_LOCKSTEP_ADAPT = 256, 128, 150
+# is 0.002 C n), after warmed_up(100) and a first run re-adapting over
+# 64 discarded steps: at 109-250 ms a step on an H100 80GB HBM3 at 700 W
+# (113-183 s for the stage at warmed_up(150), run(64, 128), run(256, 128))
+# it is the slowest stage of the script, and the fused stages below run
+# the bench's full warmed_up(300) and run(1024, 256) on the same posterior
+ES8_NUTS_COLLECT, ES8_LOCKSTEP_DISCARD, ES8_LOCKSTEP_ADAPT = 128, 64, 100
 # eight schools on the fused NUTS tier (bench.py:1376-1447): Kernel 4's
 # user instances, seed 35, warmed_up(300, "diag"), run(1024, 256) twice,
 # the second timed, with each of the three CUDA forms of the target
@@ -545,10 +570,11 @@ PT_C_STD = 0.1
 # (:911-942) and elliptical slice (:944-1002)
 CHEES_CHAINS, CHEES_COLLECT, CHEES_ADAPT = 65536, 2048, 256
 ENS_CHAINS, ENS_COLLECT, ENS_WALKERS, ENS_K = 65536, 2048, 64, 16
-# the slice and elliptical stages collect 1,024 draws, not bench.py's
-# 2,048 (their gates scale with the draws), to make room for the
-# examples: 46 and 24 s for 2,048 on an H100 80GB HBM3 at 700 W
-SLICE_CHAINS, SLICE_COLLECT, SLICE_K = 65536, 1024, 16
+# the slice stage collects 512 draws and the elliptical 1,024, not
+# bench.py's 2,048 (their gates scale with the draws), to make room for
+# the examples: 46 and 24 s for 2,048 on an H100 80GB HBM3 at 700 W, and
+# slice 29-53 s for 1,024
+SLICE_CHAINS, SLICE_COLLECT, SLICE_K = 65536, 512, 16
 # the slice stage's burn-in: 256 sweeps, not bench.py's 2,048 (its burn
 # compiles XLA too): the chains mix in ~5 sweeps (ESS 0.21 a draw on the
 # H100) and each sweep costs ~18 ms of host calls
@@ -1238,10 +1264,11 @@ def phase_leapfrog(target, state, dev, step_size=STEP_SIZE,
 
 
 def phase_multistep(target, s, dev, step_size=STEP_SIZE,
-                    label="multistep", n_leapfrog=8) -> float:
+                    label="multistep", n_leapfrog=8, chain0=0) -> float:
     """Kernel 2 against its plain twin for one K = 16, L = ``n_leapfrog``
-    block from ``s`` (as :func:`phase_leapfrog`), same key: the accepts,
-    the rows and the returned state per chain."""
+    block from ``s`` (as :func:`phase_leapfrog`), same key and first
+    global chain ``chain0``: the accepts, the rows and the returned state
+    per chain."""
     k_steps, seed = STEPS_PER_CALL, 0x5EED_1234_ABCD
     gen = torch.Generator(device=dev).manual_seed(13)
     eps = step_size * (1.0 + JITTER * (
@@ -1249,9 +1276,9 @@ def phase_multistep(target, s, dev, step_size=STEP_SIZE,
     hk = torch.empty((k_steps,) + tuple(s.positions.shape), device=dev)
     hp = torch.empty_like(hk)
     outk = hmc_multistep(target, s.positions, s.logp, s.grad, eps,
-                         n_leapfrog, seed, 0, hk)
+                         n_leapfrog, seed, 0, hk, chain0=chain0)
     outp = hmc_multistep_plain(target, s.positions, s.logp, s.grad, eps,
-                               n_leapfrog, seed, 0, hp)
+                               n_leapfrog, seed, 0, hp, chain0=chain0)
     torch.cuda.synchronize()
 
     def accepts(h):
@@ -1275,7 +1302,7 @@ def phase_multistep(target, s, dev, step_size=STEP_SIZE,
     share_self = float(self_ok.float().mean())
     err = max_abs_err(hk.transpose(0, 1), hp.transpose(0, 1), same_acc)
     say(label, K=k_steps, L=n_leapfrog, chains=s.positions.shape[0],
-        accept_rate=float(acc_k.float().mean()),
+        chain0=chain0, accept_rate=float(acc_k.float().mean()),
         share_same_accepts=share_acc,
         **{f"share_{k}_within_tol": v for k, v in shares.items()},
         share_state_is_density_at_pos=share_self,
@@ -1583,19 +1610,20 @@ def subtree_inputs(nuts, dev, j: int, seed: int, eps_scale: float = 1.0):
 
 
 def subtree_case(nuts, dev, j: int, cut: int = 0, seed: int | None = None,
-                 label: str = "subtree"):
-    """Kernel 3 against its twin at ``j`` with the steps times 2^-cut:
-    counts and flags on every chain, active and inactive apart, floats
-    where the subtree continues (a stopped chain's end state and proposal
-    are not read). Returns the largest error, the twin's leaves per chain
-    and the lane-iterations per leaf."""
+                 label: str = "subtree", chain0: int = 0):
+    """Kernel 3 against its twin at ``j`` with the steps times 2^-cut and
+    the hash's lanes from global chain ``chain0``: counts and flags on
+    every chain, active and inactive apart, floats where the subtree
+    continues (a stopped chain's end state and proposal are not read).
+    Returns the largest error, the twin's leaves per chain and the
+    lane-iterations per leaf."""
     seed = 40 + j + 20 * (cut > 0) if seed is None else seed
     args = subtree_inputs(nuts, dev, j, seed=seed, eps_scale=2.0 ** -cut)
     grid = {}
-    got = subtree(*args, grid=grid)
+    got = subtree(*args, grid=grid, chain0=chain0)
     n_chains = args[1].shape[0]
     done = torch.zeros(n_chains, dtype=torch.int32, device=dev)
-    want = subtree_plain(*args, leaves=done)
+    want = subtree_plain(*args, leaves=done, chain0=chain0)
     torch.cuda.synchronize()
     active = args[9]
     same = ((got.n == want.n) & (got.s == want.s)
@@ -1630,7 +1658,7 @@ def subtree_case(nuts, dev, j: int, cut: int = 0, seed: int | None = None,
     e = max(max_abs_err(a, b, s) for a, b in zip(got[:6], want[:6]))
     e = max(e, max_abs_err(got.alpha, want.alpha, same))
     share_full = float(full.double().mean())
-    say(label, j=j, eps_scale=f"2^-{cut}", chains=n_chains,
+    say(label, j=j, eps_scale=f"2^-{cut}", chains=n_chains, chain0=chain0,
         **{f"share_{k}": v for k, v in shares.items()},
         share_s=float(want.s.double().mean()),
         share_all_leaves=share_full,
@@ -1695,17 +1723,18 @@ def warp_max(v: torch.Tensor) -> torch.Tensor:
     return top.scatter_reduce(0, warp, v, "amax")[warp]
 
 
-def phase_nuts_step(nuts, dev, label="nuts_step"):
+def phase_nuts_step(nuts, dev, label="nuts_step", chain0=0):
     """Kernel 4 against its twin for one step from the NUTS equilibrium,
-    same key and step, depth_limit 10: positions, alpha, n_alpha,
-    divergences and each chain's own depth per chain, the launch's leaves
-    against the twin's, its persistent grid and its results bit for bit
-    under other grids. The state is the sampler's own (whitened under a
-    metric). Returns the largest error, the twin's details and the
-    arguments."""
+    same key and step, depth_limit 10, draws from global chain ``chain0``
+    on: positions, alpha, n_alpha, divergences and each chain's own depth
+    per chain, the launch's leaves against the twin's, its persistent grid
+    and its results bit for bit under other grids. The state is the
+    sampler's own (whitened under a metric). Returns the largest error,
+    the twin's details and the arguments."""
     args = (nuts.kernel_target, nuts.state.positions,
             nuts.step_size.contiguous(), NUTS_MAX_DEPTH,
-            0x5EED_0123_4567_89AB, 9, NUTS_MAX_DEPTH)
+            0x5EED_0123_4567_89AB, 9, NUTS_MAX_DEPTH) + (
+                (chain0,) if chain0 else ())
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
     grid = {}
     got = nuts_step(*args, stats=stats, grid=grid)
@@ -2011,20 +2040,22 @@ def logp_within(got, want, rounding) -> torch.Tensor:
             <= MH_ATOL + MH_RTOL * want.double().abs() + 2 * rounding)
 
 
-def phase_mh_kernel(mh, label: str, k_steps: int, seed: int) -> dict:
+def phase_mh_kernel(mh, label: str, k_steps: int, seed: int,
+                    chain0: int = 0) -> dict:
     """Kernel 5 against its twin for one K-step block from the path's
-    equilibrium state, same key, on the sampler's kernel target (the
-    transformed instance under a transform, its logp held within
-    ``logp_within``): positions, logp and accepts (a row that moved) per
-    chain."""
+    equilibrium state, same key and first global chain ``chain0``, on the
+    sampler's kernel target (the transformed instance under a transform,
+    its logp held within ``logp_within``): positions, logp and accepts (a
+    row that moved) per chain. At ``chain0`` != 0 the check alone: no
+    times."""
     s = mh.state
     hk = torch.empty((k_steps,) + tuple(s.positions.shape),
                      dtype=s.positions.dtype, device=s.positions.device)
     hp = torch.empty_like(hk)
     args = (mh.kernel_target, mh.proposal, s.positions, s.logp, seed, 0,
             k_steps)
-    outk = mh_multistep(*args, hk)
-    outp = mh_multistep_plain(*args, hp)
+    outk = mh_multistep(*args, hk, chain0=chain0)
+    outp = mh_multistep_plain(*args, hp, chain0=chain0)
     torch.cuda.synchronize()
 
     def accepts(h):
@@ -2053,7 +2084,7 @@ def phase_mh_kernel(mh, label: str, k_steps: int, seed: int) -> dict:
                           hp.transpose(0, 1).double(), agree),
               max_abs_err(outk[1], outp[1], agree))
     say("mh_kernel", path=label, K=k_steps, chains=s.positions.shape[0],
-        dtype=str(s.positions.dtype), accept_rate=float(
+        chain0=chain0, dtype=str(s.positions.dtype), accept_rate=float(
             acc_k.float().mean()),
         **{f"share_{k}": v for k, v in shares.items()}, max_abs_err=err)
     for name in ("accepts", "positions", "logp"):
@@ -2062,22 +2093,25 @@ def phase_mh_kernel(mh, label: str, k_steps: int, seed: int) -> dict:
     if s.positions.dtype == torch.int32:
         check(f"mh kernel {label} int positions equal",
               shares["positions_equal"] >= MH_SHARE, shares)
+    if chain0:
+        return {"err": err}
     return {"err": err, "ms": cuda_ms(lambda: mh_multistep(*args, hk), 20),
             "plain_ms": cuda_ms(lambda: mh_multistep_plain(*args, hp), 2),
             "device_ms": device_ms_per_launch(
                 lambda: mh_multistep(*args, hk), "mh_multistep_kernel")}
 
 
-def phase_gibbs_kernel(g, seed: int) -> dict:
+def phase_gibbs_kernel(g, seed: int, chain0: int = 0) -> dict:
     """Kernel 6 against its twin for one K-sweep block from the Gibbs
-    equilibrium state, same key: x within tolerance and z equal per
-    chain."""
+    equilibrium state, same key and first global chain ``chain0``: x
+    within tolerance and z equal per chain. At ``chain0`` != 0 the check
+    alone: no times."""
     pos = g.state.positions
     hk = torch.empty((GIBBS_K,) + tuple(pos.shape), device=pos.device)
     hp = torch.empty_like(hk)
     args = (g.conditional, pos, seed, 0, GIBBS_K)
-    outk = gibbs_multistep(*args, hk)
-    outp = gibbs_multistep_plain(*args, hp)
+    outk = gibbs_multistep(*args, hk, chain0=chain0)
+    outp = gibbs_multistep_plain(*args, hp, chain0=chain0)
     torch.cuda.synchronize()
     x_ok = (within_tol(hk[..., 0], hp[..., 0]).all(dim=0)
             & within_tol(outk[:, 0], outp[:, 0]))
@@ -2090,10 +2124,12 @@ def phase_gibbs_kernel(g, seed: int) -> dict:
                          .float().mean()),
     }
     err = max_abs_err(hk.transpose(0, 1), hp.transpose(0, 1), x_ok & z_ok)
-    say("gibbs_kernel", K=GIBBS_K, chains=pos.shape[0],
+    say("gibbs_kernel", K=GIBBS_K, chains=pos.shape[0], chain0=chain0,
         z_freq=float(hk[..., 1].mean()),
         **{f"share_{k}": v for k, v in shares.items()}, max_abs_err=err)
     check("gibbs kernel x and z", shares["both"] >= MH_SHARE, shares)
+    if chain0:
+        return {"err": err}
     return {"err": err, "ms": cuda_ms(lambda: gibbs_multistep(*args, hk), 20),
             "plain_ms": cuda_ms(lambda: gibbs_multistep_plain(*args, hp), 2)}
 
@@ -2350,7 +2386,8 @@ def decisions(new_pos, pos) -> torch.Tensor:
     return (new_pos != pos.to(new_pos.dtype)).any(dim=1)
 
 
-def sep_step_check(target, pos, logp, eps_value: float, label: str):
+def sep_step_check(target, pos, logp, eps_value: float, label: str,
+                   chain0: int = 0):
     """Kernel 7's fused step against its twins for one L = 10 step from
     ``(pos, logp)``, same key and step: the accept decisions per chain
     (>= 99.9% equal to the float32 twin's and to the float64 twin's on the
@@ -2363,32 +2400,33 @@ def sep_step_check(target, pos, logp, eps_value: float, label: str):
     no NaN within 1e-2 of the float64 twin's; then the same step in
     clusters of 10 (threads=128) and in the two-pass
     form (threads=32: 40 tiles, past the cluster limit; one trajectory
-    launch counted apart). Returns (max abs error against the float32
-    twin, the launch's arguments)."""
+    launch counted apart). Draws from global chain ``chain0`` on. Returns
+    (max abs error against the float32 twin, the launch's arguments)."""
     tables = sep_tables(target, pos)
     eps = torch.tensor([eps_value], device=pos.device)
     seed, step = 0x5EED_7777_0202, 6
     args = (target, pos, logp, eps, SEP_L, seed, step, tables)
-    got = hmc_separable_step(*args)
-    want = hmc_separable_step_plain(*args)
+    got = hmc_separable_step(*args, chain0=chain0)
+    want = hmc_separable_step_plain(*args, chain0=chain0)
     ref = hmc_separable_step_plain(target, pos.double(), logp.double(),
                                    eps.double(), SEP_L, seed, step,
-                                   tables.double())
-    other = {"clusters_of_10": hmc_separable_step(*args, threads=128)}
+                                   tables.double(), chain0=chain0)
+    other = {"clusters_of_10": hmc_separable_step(*args, threads=128,
+                                                  chain0=chain0)}
     check(f"{label} threads=32 is past the cluster limit",
           not sep_fused(pos.shape[1], 32), pos.shape[1])
     n_two = hmc_separable.launches
-    other["two_pass"] = hmc_separable_step(*args, threads=32)
+    other["two_pass"] = hmc_separable_step(*args, threads=32, chain0=chain0)
     check(f"{label} two-pass form: one trajectory launch",
           hmc_separable.launches == n_two + 1, hmc_separable.launches - n_two)
     torch.cuda.synchronize()
     # the float64 sums and the ties
     _, lp_prop, ke0, ke1, _ = hmc_separable_plain(
         target, pos.double(), eps.double(), SEP_L, seed, step,
-        tables.double())
+        tables.double(), chain0=chain0)
     lp64 = logp.double()
     mag = lp64.abs() + lp_prop.abs() + ke0 + ke1
-    u = accept_uniforms(pos.shape[0], step, seed, pos.device)
+    u = accept_uniforms(pos.shape[0], step, seed, pos.device, chain0)
     # a float32 sum of D terms in (log2(D) + 8) rounds errs by at most
     # that many ulps of the terms' magnitude
     ulps = (math.log2(pos.shape[1]) + 8) * 2.0 ** -24
@@ -2420,7 +2458,7 @@ def sep_step_check(target, pos, logp, eps_value: float, label: str):
     alpha_err = float(alpha_d.max()) if alpha_d.numel() else 0.0
     err = max_abs_err(got[0], want[0], acc_k == acc_p)
     say(label, chains=pos.shape[0], D=pos.shape[1], L=SEP_L,
-        tables=tables.shape[0], scaled=target.cuda_scaled,
+        tables=tables.shape[0], scaled=target.cuda_scaled, chain0=chain0,
         accept_rate=float(acc_k.float().mean()),
         mean_alpha=float(got[2].mean()), ties=int(tie.sum()),
         **{f"share_{k}": v for k, v in shares.items()},
@@ -2536,7 +2574,8 @@ def phase_pt_main_path(dev):
 
 
 def phase_pt_kernel(pt, seed: int, std: float = 1.0,
-                    label: str = "pt_kernel", exact: bool = True) -> dict:
+                    label: str = "pt_kernel", exact: bool = True,
+                    chain0: int = 0) -> dict:
     """Kernel 8 against its twin for one K-step block from the stage's
     equilibrium state, same key, on the sampler's kernel target at cold
     scale ``std``: positions, logp, swap EWMA and the history rows equal
@@ -2545,7 +2584,8 @@ def phase_pt_kernel(pt, seed: int, std: float = 1.0,
     history within MH_RTOL/MH_ATOL, logp within that and twice the
     density's float32 rounding (``logp_within``). Without ``exact`` (a
     user density's C++ against its batch form) every field within
-    MH_RTOL/MH_ATOL."""
+    MH_RTOL/MH_ATOL. Draws from global chain ``chain0`` on; at ``chain0``
+    != 0 the check alone: no times."""
     s = pt.state
     c = s.positions.shape[2]
     hk = torch.empty((PT_K, c, 1), device=s.positions.device)
@@ -2553,8 +2593,8 @@ def phase_pt_kernel(pt, seed: int, std: float = 1.0,
     lad = make_ladder(pt.betas, std, 1, s.positions.device)
     args = (pt.kernel_target, s.positions, s.raw_logp, s.swap_accept,
             s.parity, lad, seed, 0, PT_K, 1)
-    got = pt_multistep(*args, hk)
-    want = pt_multistep_plain(*args, hp)
+    got = pt_multistep(*args, hk, chain0=chain0)
+    want = pt_multistep_plain(*args, hp, chain0=chain0)
     torch.cuda.synchronize()
     if not exact:
         same, logp_ok = within_tol, within_tol(got[1], want[1])
@@ -2577,7 +2617,7 @@ def phase_pt_kernel(pt, seed: int, std: float = 1.0,
     same = equal["positions"] & equal["history"]
     err = max(max_abs_err(hk.transpose(0, 1), hp.transpose(0, 1)),
               max_abs_err(got[0], want[0]))
-    say(label, K=PT_K, T=PT_TEMPS, chains=c, parity=s.parity,
+    say(label, K=PT_K, T=PT_TEMPS, chains=c, chain0=chain0, parity=s.parity,
         accept_rate=float((hk[1:] != hk[:-1]).float().mean()),
         **{f"share_equal_{k}": v for k, v in shares.items()},
         share_all_equal=float((same & equal["logp"]
@@ -2585,6 +2625,8 @@ def phase_pt_kernel(pt, seed: int, std: float = 1.0,
         max_abs_err=err)
     for k, v in shares.items():
         check(f"{label} {k} equal", v >= MH_SHARE, shares)
+    if chain0:
+        return {"err": err}
     return {"err": err, "ms": cuda_ms(lambda: pt_multistep(*args, hk), 20),
             "plain_ms": cuda_ms(lambda: pt_multistep_plain(*args, hp), 2),
             "device_ms": device_ms_per_launch(
@@ -3523,10 +3565,10 @@ def phase_eight_schools(dev) -> dict:
     """Eight schools' NUTS half (bench.py:1259-1341) on the port's lockstep
     tier (``use_pallas=False``), which runs no hand-written kernel:
     ``make_noncentered_target()``, 4,096 chains, D = 10, ``NUTS(target,
-    init_with_seed(4096, 10, seed=31), 0.9, seed=31).warmed_up(150,
-    "diag")`` (ES8_LOCKSTEP_ADAPT), then ``run(64, 128)`` (the step size
+    init_with_seed(4096, 10, seed=31), 0.9, seed=31).warmed_up(100,
+    "diag")`` (ES8_LOCKSTEP_ADAPT), then ``run(64, 64)`` (the step size
     adapted in the whitened space, ES8_FIRST_COLLECT) and the timed
-    ``run(256, 128)`` (ES8_NUTS_COLLECT, ES8_LOCKSTEP_DISCARD);
+    ``run(128, 64)`` (ES8_NUTS_COLLECT, ES8_LOCKSTEP_DISCARD);
     :func:`es8_gates`, leapfrogs per draw, ESS/s and the time."""
     from mini_mcmc_torch.examples.eight_schools import (
         make_noncentered_target,
@@ -6357,7 +6399,11 @@ EXAMPLES = ("minimal_mh", "gauss_mh", "rosenbrock_mh", "mixture_gibbs",
             "chees_trajectory_adaptation", "bimodal_tempering", "ais_log_z",
             "gp_robust_regression", "streaming_production_run",
             "sgld_minibatch_logreg", "constrained_transforms",
-            "bigd_separable_hmc")
+            "bigd_separable_hmc", "poisson_mh", "sharded_chains",
+            "sgld_data_parallel")
+#: the examples that launch a kernel besides the fused NUTS ones, and
+#: their launches: poisson_mh's run(200, 100) in 100-step blocks
+KERNEL_EXAMPLES = {"poisson_mh": dict(mh_multistep=3)}
 #: the examples that write Parquet, so need pyarrow
 PARQUET_EXAMPLES = ("gauss_mh", "streaming_production_run")
 #: bigd_separable_hmc's steps a half, run(64, 64): one fused launch each
@@ -6518,11 +6564,349 @@ def phase_examples(names=EXAMPLES) -> dict:
                         launches_transformed=counts[
                             "nuts_step_transformed"])
             out["nuts_step"] += counts["nuts_step"]
+        elif name in KERNEL_EXAMPLES:
+            check(f"example {name} launches", counts == counts_with(
+                **KERNEL_EXAMPLES[name]), counts)
+            more = {f"launches_{k}": counts[k] for k in KERNEL_EXAMPLES[name]}
+            out.update({f"{name}_{k}": counts[k]
+                        for k in KERNEL_EXAMPLES[name]})
         else:
             check_no_kernel(f"example {name}")
+        if isinstance(ret, torch.Tensor):  # sgld_data_parallel's cube
+            ret = f"tensor{tuple(ret.shape)}"
         say("examples", example=name, wall_s=repr(wall),
             returned=repr(ret).replace(" ", ""), **{
                 k: repr(v) for k, v in more.items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 41. [parallel]: chain and data parallelism through a one-rank mesh
+# ---------------------------------------------------------------------------
+
+#: the chain offset of the kernels' checks at chain0 != 0 (a shard's first
+#: global chain need not sit at a warp or block boundary)
+PAR_CHAIN0 = 1_000_003
+#: the one-rank mesh's runs: the flagship's (64 Kernel 2 launches a run),
+#: tempering's (32 Kernel 8 launches) and NUTS's on use_pallas=True
+PAR_HMC_COLLECT, PAR_PT_COLLECT = 1024, 512
+PAR_NUTS_CHAINS, PAR_NUTS_DEPTH, PAR_NUTS_RUN = 4096, 4, (8, 8)
+#: data_parallel_grad's problem and the keys of its scale check
+PAR_DPG_ROWS, PAR_DPG_DIM, PAR_DPG_CHAINS, PAR_DPG_BATCH = 65536, 8, 1024, 4096
+PAR_DPG_KEYS = 256
+
+
+def parallel_pair(label: str, make, run_args, mesh, time_major=False,
+                  scalar_only=False) -> dict:
+    """One sampler from one seed, unsharded and through
+    ``shard_sampler_state(mesh, ...)``, each by :func:`timed_run` (a
+    warm-up, then the timed run): the timed cubes equal bit for bit, the
+    same kernel launches and twin calls, no collective in the sharded runs
+    (with ``scalar_only``: one-element all-reduces only), the split R-hat
+    and ESS of the sharded cube the unsharded one's. Returns the seconds
+    and the counts."""
+    from mini_mcmc_torch.parallel import collectives, shard_sampler_state
+
+    a = make()
+    reset_counts()
+    want, wall_a = timed_run(a, *run_args, time_major=time_major)
+    counts_a = read_counts()
+    b = make()
+    b.state = shard_sampler_state(mesh, b.state)
+    reset_counts()
+    collectives.reset_counts()
+    got, wall_b = timed_run(b, *run_args, time_major=time_major)
+    counts_b, coll = read_counts(), collectives.counts()
+    local = got.to_local()
+    equal = bool(torch.equal(want, local))
+    ra, ea = mt.split_rhat_mean_ess(want, time_major=time_major)
+    rb, eb = mt.split_rhat_mean_ess(got, time_major=time_major)
+    diag = bool(torch.equal(ra, rb) and torch.equal(ea, eb))
+    launched = {k: v for k, v in counts_b.items() if v}
+    say("parallel", path=label, chains=b.n_chains,
+        cube=tuple(got.shape), placement=str(got.placements[0]),
+        cube_equal=equal, diagnostics_equal=diag,
+        launches=repr(launched).replace(" ", ""),
+        launches_equal=counts_a == counts_b,
+        collectives=repr(coll).replace(" ", ""),
+        unsharded_s=repr(wall_a), sharded_s=repr(wall_b),
+        overhead=repr(wall_b / wall_a - 1.0))
+    check(f"parallel {label} cube equal", equal, label)
+    check(f"parallel {label} launches equal", counts_a == counts_b,
+          (counts_a, counts_b))
+    check(f"parallel {label} diagnostics equal", diag,
+          (ra, rb, ea, eb))
+    if scalar_only:
+        check(f"parallel {label} scalar reductions only",
+              coll["all_reduce"] == coll["all_reduce_scalar"]
+              and not coll["all_gather"] and not coll["broadcast"], coll)
+    else:
+        check(f"parallel {label} no collective", not any(coll.values()),
+              coll)
+    return {"unsharded_s": wall_a, "sharded_s": wall_b, "counts": counts_b,
+            "collectives": coll}
+
+
+def split_cases(dev) -> dict:
+    """Kernels 2-8 at their main paths' shapes, from states drawn from
+    their targets: name -> (C, launch(lo, hi, chain0) -> [(output, its
+    chain axis)]), the launch running chains ``[lo, hi)`` as global
+    chains ``chain0 ...``."""
+    gen = torch.Generator(device=dev).manual_seed(4141)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    cases = {}
+    # Kernel 2: the flagship block, K = 16, L = 192, jittered steps
+    rosen = mt.rosenbrock_nd()
+    x2 = randn(N_CHAINS, DIM) * 0.3 + 0.9
+    lp2, g2 = rosen.batch_logp_and_grad(x2)
+    eps2 = STEP_SIZE * (1.0 + JITTER * (2.0 * torch.rand(
+        (STEPS_PER_CALL,), generator=gen, device=dev) - 1.0))
+
+    def k2(lo, hi, c0):
+        h = torch.empty((STEPS_PER_CALL, hi - lo, DIM), device=dev)
+        o = hmc_multistep(rosen, x2[lo:hi], lp2[lo:hi], g2[lo:hi], eps2,
+                          N_LEAPFROG, 0x5EED_2222, 11, h, chain0=c0)
+        return [(o[0], 0), (o[1], 0), (o[2], 0), (h, 1)]
+
+    cases["hmc_multistep"] = (N_CHAINS, k2)
+    # Kernels 3 and 4: the NUTS stage's Gaussian at 131,072 chains
+    gauss = mt.diffable_gaussian2d(NUTS_MEAN, NUTS_COV)
+    x3 = randn(NUTS_CHAINS, 2) * 1.5 + torch.tensor(NUTS_MEAN, device=dev)
+    m3 = randn(NUTS_CHAINS, 2)
+    lp3, g3 = gauss.batch_logp_and_grad(x3)
+    joint0 = lp3 - 0.5 * (m3 * m3).sum(dim=1)
+    logu = joint0 - torch.empty_like(joint0).exponential_(generator=gen)
+    u = torch.rand((3, NUTS_CHAINS), generator=gen, device=dev)
+    v = torch.where(u[0] < 0.5, -1, 1).to(torch.int32)
+    active = u[1] < 0.9
+    eps3 = 0.3 + 0.9 * u[2]
+
+    def k3(lo, hi, c0):
+        r = subtree(gauss, x3[lo:hi], m3[lo:hi], g3[lo:hi], logu[lo:hi],
+                    v[lo:hi], 4, eps3[lo:hi], joint0[lo:hi],
+                    active[lo:hi], (0x1234567, -0x7654321), NUTS_MAX_DEPTH,
+                    chain0=c0)
+        return [(t, 0) for t in r]
+
+    def k4(lo, hi, c0):
+        return [(t, 0) for t in nuts_step(
+            gauss, x3[lo:hi], eps3[lo:hi], NUTS_MAX_DEPTH,
+            0x5EED_0123_4567_89AB, 9, NUTS_MAX_DEPTH, c0)]
+
+    cases["nuts_subtree"] = (NUTS_CHAINS, k3)
+    cases["nuts_step"] = (NUTS_CHAINS, k4)
+    # Kernel 5: the MH stage's Gaussian2D, K = 16
+    g2d = mt.gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    walk = mt.isotropic_gaussian_proposal(1.0)
+    x5 = randn(MH_CHAINS, 2)
+    lp5 = g2d.batch_logp(x5)
+
+    def k5(lo, hi, c0):
+        h = torch.empty((MH_K, hi - lo, 2), device=dev)
+        o = mh_multistep(g2d, walk, x5[lo:hi], lp5[lo:hi], 0x5EED_0808, 3,
+                         MH_K, h, chain0=c0)
+        return [(o[0], 0), (o[1], 0), (h, 1)]
+
+    cases["mh_multistep"] = (MH_CHAINS, k5)
+    # Kernel 6: the mixture's Gibbs sweeps, K = 32
+    cond = mt.gaussian_mixture_conditional(*MIX)
+    z = (torch.rand(MH_CHAINS, generator=gen, device=dev) >= MIX[4]).float()
+    n = randn(MH_CHAINS)
+    x6 = torch.stack([torch.where(z > 0, MIX[2] + MIX[3] * n,
+                                  MIX[0] + MIX[1] * n), z], dim=1)
+
+    def k6(lo, hi, c0):
+        h = torch.empty((GIBBS_K, hi - lo, 2), device=dev)
+        o = gibbs_multistep(cond, x6[lo:hi], 0x5EED_3232, 5, GIBBS_K, h,
+                            chain0=c0)
+        return [(o, 0), (h, 1)]
+
+    cases["gibbs_multistep"] = (MH_CHAINS, k6)
+    # Kernel 7: the separable stage's fused step, 1,024 x 10,000, L = 10
+    sn = mt.standard_normal()
+    x7 = randn(SEP_CHAINS, SEP_DIM)
+    lp7 = sn.batch_logp(x7)
+    eps7 = torch.tensor([SEP_EPS], device=dev)
+    tables = x7.new_empty((0, SEP_DIM))
+
+    def k7(lo, hi, c0):
+        return [(t, 0) for t in hmc_separable_step(
+            sn, x7[lo:hi], lp7[lo:hi], eps7, SEP_L, 0x5EED_7777, 6, tables,
+            chain0=c0)]
+
+    cases["hmc_separable_step"] = (SEP_CHAINS, k7)
+    # Kernel 8: the tempering stage's mixture, 8,192 chains x 8 rungs
+    mix = pt_mixture()
+    side = torch.where(torch.rand((PT_TEMPS, 1, PT_CHAINS), generator=gen,
+                                  device=dev) < PT_W_PLUS, 8.0, -8.0)
+    x8 = side + 0.5 * randn(PT_TEMPS, 1, PT_CHAINS)
+    lp8 = mix.batch_logp(x8.permute(0, 2, 1).reshape(-1, 1)).reshape(
+        PT_TEMPS, PT_CHAINS)
+    sa8 = torch.zeros((PT_TEMPS - 1, PT_CHAINS), device=dev)
+    lad = make_ladder(mt.geometric_betas(PT_TEMPS, 0.01), 1.0, 1, dev)
+
+    def k8(lo, hi, c0):
+        h = torch.empty((PT_K, hi - lo, 1), device=dev)
+        o = pt_multistep(mix, x8[..., lo:hi].contiguous(),
+                         lp8[:, lo:hi].contiguous(),
+                         sa8[:, lo:hi].contiguous(), 1, lad, 0x5EED_8888, 7,
+                         PT_K, 1, h, chain0=c0)
+        return [(o[0], 2), (o[1], 1), (o[2], 1), (h, 1)]
+
+    cases["pt_multistep"] = (PT_CHAINS, k8)
+    return cases
+
+
+def phase_parallel_split(dev) -> dict:
+    """``[parallel_split]``: each of Kernels 2-8 launched on chains ``[0,
+    s)`` at chain0 = 0 and on ``[s, C)`` at chain0 = s, for s = C / 2 and
+    an odd s (C / 3 made odd: no warp, block or cluster boundary of the
+    one launch), against one launch over ``[0, C)``: every output bit for
+    bit. Returns, by kernel, whether both splits matched."""
+    out = {}
+    for name, (c, launch) in split_cases(dev).items():
+        full = launch(0, c, 0)
+        ok = {}
+        for s in (c // 2, (c // 3) | 1):
+            lo, hi = launch(0, s, 0), launch(s, c, s)
+            ok[s] = all(bool(torch.equal(torch.cat([a, b], dim=ax), f))
+                        for (f, ax), (a, _), (b, _) in zip(full, lo, hi))
+        torch.cuda.synchronize()
+        say("parallel_split", kernel=name, chains=c,
+            **{f"split_{s}_equal": v for s, v in ok.items()})
+        check(f"parallel split {name}", all(ok.values()), ok)
+        out[name] = all(ok.values())
+    return out
+
+
+def phase_parallel_dpg(dev) -> dict:
+    """``[parallel_dpg]``: ``data_parallel_grad`` on a one-rank data mesh
+    over a linear regression's rows (N = 65,536, D = 8), 1,024 chains, B
+    = 4,096: one all-reduce a call, finite, the mean over 256 keys at the
+    full-data gradient's scale (ratio within 10%: a doubled reduction
+    gives 2), the ms a call (CUDA events) and the all-reduce's alone on
+    the ``[C, D]`` partial."""
+    import torch.distributed as dist
+
+    from mini_mcmc_torch.parallel import collectives, data_mesh
+
+    mesh = data_mesh()
+    gen = torch.Generator(device=dev).manual_seed(77)
+    x = torch.randn((PAR_DPG_ROWS, PAR_DPG_DIM), generator=gen, device=dev)
+    w = torch.linspace(-1.0, 1.0, PAR_DPG_DIM, device=dev)
+    y = x @ w + 0.5 * torch.randn(PAR_DPG_ROWS, generator=gen, device=dev)
+
+    def log_prior(b):
+        return -0.5 * torch.sum(b * b)
+
+    def log_like(b, batch):
+        r = batch[1] - batch[0] @ b
+        return -2.0 * torch.sum(r * r)
+
+    gf = mt.data_parallel_grad(log_prior, log_like, (x, y), PAR_DPG_BATCH,
+                               mesh)
+    pos = 0.1 * torch.randn((PAR_DPG_CHAINS, PAR_DPG_DIM), generator=gen,
+                            device=dev)
+    key = torch.Generator(device=dev).manual_seed(3)
+    collectives.reset_counts()
+    g = gf(pos, key)
+    one = collectives.counts()
+    check("parallel dpg one all-reduce a call", one["all_reduce"] == 1
+          and sum(one.values()) - one["all_reduce_scalar"] == 1, one)
+    check("parallel dpg finite", bool(torch.isfinite(g).all()), "nan")
+    avg = torch.zeros_like(g, dtype=torch.float64)
+    for _ in range(PAR_DPG_KEYS):
+        avg += gf(pos, key).double()
+    avg /= PAR_DPG_KEYS
+    b = pos.detach().requires_grad_(True)
+    full = torch.autograd.grad(
+        (torch.func.vmap(log_prior)(b)
+         + torch.func.vmap(log_like, in_dims=(0, None))(b, (x, y))).sum(),
+        b)[0].double()
+    ratio = float((avg * full).sum() / (full * full).sum())
+    part = torch.zeros_like(g)
+    group = mesh.get_group(0)
+    t = {"ms": cuda_ms(lambda: gf(pos, key), 50),
+         "all_reduce_ms": cuda_ms(lambda: dist.all_reduce(part,
+                                                          group=group), 200)}
+    say("parallel_dpg", rows=PAR_DPG_ROWS, dim=PAR_DPG_DIM,
+        chains=PAR_DPG_CHAINS, batch=PAR_DPG_BATCH, keys=PAR_DPG_KEYS,
+        collectives_per_call=repr(one).replace(" ", ""),
+        scale_ratio=repr(ratio), **{k: repr(v) for k, v in t.items()})
+    check("parallel dpg at the full gradient's scale",
+          abs(ratio - 1.0) <= 0.1, ratio)
+    return t
+
+
+def phase_parallel_draws(dev) -> dict:
+    """``[parallel_draws]``: what drawing the global shape costs a shard of
+    the lockstep tiers (``collectives.chain_draw``): one lockstep HMC
+    step's draws, a ``[C, D]`` normal and a ``[C]`` uniform from the
+    step's generator, at the flagship's 65,536 x 3 (what every shard
+    draws) and at its share on 2 and 4 ranks (what it keeps), CUDA events
+    over 200 draws. A one-rank mesh draws its own shape."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def step_draws(c):
+        torch.randn((c, DIM), generator=gen, device=dev)
+        torch.rand((c,), generator=gen, device=dev)
+
+    out = {f"draws_ms_{N_CHAINS // r}": cuda_ms(
+        lambda r=r: step_draws(N_CHAINS // r), 200) for r in (1, 2, 4)}
+    say("parallel_draws", dim=DIM, **{k: repr(v) for k, v in out.items()})
+    return out
+
+
+def phase_parallel(dev) -> dict:
+    """``[parallel]`` (41): the one-rank NCCL chain mesh's runs of the
+    flagship (Kernel 2), tempering (Kernel 8) and NUTS on
+    ``use_pallas=True`` (Kernel 3), the split launches of Kernels 2-8 and
+    ``data_parallel_grad``. Returns the runs' launches and seconds."""
+    import torch.distributed as dist
+
+    from mini_mcmc_torch.parallel import chain_mesh
+
+    t0 = time.perf_counter()
+    mesh = chain_mesh()
+    say("parallel_mesh", ranks=mesh.size(), backend=dist.get_backend(),
+        device_type=mesh.device_type)
+    check("parallel one-rank NCCL mesh", mesh.size() == 1
+          and dist.get_backend() == "nccl", mesh)
+    out = {"hmc": parallel_pair(
+        "hmc_full", lambda: flagship(dev, seed=42), (PAR_HMC_COLLECT, 0),
+        mesh, time_major=True)}
+    check("parallel hmc_full Kernel 2 launches",
+          out["hmc"]["counts"]["hmc_multistep"]
+          == 2 * PAR_HMC_COLLECT // STEPS_PER_CALL, out["hmc"]["counts"])
+    out["pt"] = parallel_pair(
+        "pt_full", lambda: mt.ParallelTempering(
+            pt_mixture(), torch.full((PT_CHAINS, 1), -8.0, device=dev),
+            betas=mt.geometric_betas(PT_TEMPS, 0.01), proposal_std=1.0,
+            steps_per_call=PT_K, use_pallas="full").seed(5),
+        (PAR_PT_COLLECT, 0), mesh, time_major=True)
+    check("parallel pt_full Kernel 8 launches",
+          out["pt"]["counts"]["pt_multistep"] == 2 * PAR_PT_COLLECT // PT_K,
+          out["pt"]["counts"])
+    init = mt.init_with_seed(PAR_NUTS_CHAINS, 2, seed=3, device=dev)
+    out["nuts"] = parallel_pair(
+        "nuts_true", lambda: mt.NUTS(
+            mt.diffable_gaussian2d(NUTS_MEAN, NUTS_COV), init, 0.8,
+            max_depth=PAR_NUTS_DEPTH, use_pallas=True).seed(9),
+        PAR_NUTS_RUN, mesh, scalar_only=True)
+    check("parallel nuts_true Kernel 3 launched",
+          out["nuts"]["counts"]["nuts_subtree"] > 0, out["nuts"]["counts"])
+    out["split"] = phase_parallel_split(dev)
+    out["dpg"] = phase_parallel_dpg(dev)
+    out["draws"] = phase_parallel_draws(dev)
+    out["seconds"] = time.perf_counter() - t0
+    say("parallel_times", seconds=repr(out["seconds"]),
+        **{f"{k}_unsharded_s": repr(out[k]["unsharded_s"])
+           for k in ("hmc", "pt", "nuts")},
+        **{f"{k}_sharded_s": repr(out[k]["sharded_s"])
+           for k in ("hmc", "pt", "nuts")})
     return out
 
 
@@ -6558,6 +6942,8 @@ def run_phases(args, tmp: str) -> None:
     hmc, counts, tier_counts = phase_main_path(dev)
     lf = phase_leapfrog(hmc.target, hmc.state, dev)
     ms_err = phase_multistep(hmc.target, hmc.state, dev)
+    phase_multistep(hmc.target, hmc.state, dev, label="multistep_chain0",
+                    chain0=PAR_CHAIN0)
     t = phase_times(hmc, dev)
     k12w = phase_whitened_hmc(hmc, dev)
     if args.profile:
@@ -6593,8 +6979,10 @@ def run_phases(args, tmp: str) -> None:
     tuned, dense_m, dense_counts, dense_tier_counts = (
         phase_nuts_dense_metric(nuts, dev))
     sub_err, sub_leaves, sub_per_leaf = phase_subtree(nuts, dev)
+    subtree_case(nuts, dev, 4, label="subtree_chain0", chain0=PAR_CHAIN0)
     k3_us = phase_k3_alone(nuts, dev) if args.profile else None
     step_err, step_details, step_args = phase_nuts_step(nuts, dev)
+    phase_nuts_step(nuts, dev, "nuts_step_chain0", PAR_CHAIN0)
     t.update(phase_nuts_times(nuts, dev, step_args))
     k34w = phase_whitened_nuts(tuned, dev, args.profile)
     if args.profile:
@@ -6611,10 +6999,13 @@ def run_phases(args, tmp: str) -> None:
     funnel = phase_funnel_kernels(dev)
     mh, mh_counts = phase_mh_main_path(dev)
     k5 = {"gauss2d": phase_mh_kernel(mh, "gauss2d", MH_K, 0x5EED_0808)}
+    phase_mh_kernel(mh, "gauss2d_chain0", MH_K, 0x5EED_0808,
+                    chain0=PAR_CHAIN0)
     pois, pois_counts = phase_poisson_main_path(dev)
     k5["poisson"] = phase_mh_kernel(pois, "poisson", POISSON_K, 0x5EED_4242)
     g, gibbs_counts = phase_gibbs_main_path(dev)
     k6 = phase_gibbs_kernel(g, 0x5EED_3232)
+    phase_gibbs_kernel(g, 0x5EED_3232, chain0=PAR_CHAIN0)
     say("mh_gibbs_times", shape=f"C={MH_CHAINS},gauss2d K={MH_K},poisson "
         f"K={POISSON_K},gibbs K={GIBBS_K}",
         **{f"{p}_{k}": repr(v) for p, r in (*k5.items(), ("gibbs", k6))
@@ -6648,6 +7039,8 @@ def run_phases(args, tmp: str) -> None:
     sep, sep_counts, _ = phase_sep_main_path(dev)
     sep40 = phase_sep_l40(dev)
     k7 = phase_sep_kernel(sep, dev)
+    sep_step_check(sep.target, sep.state.positions, sep.state.logp, SEP_EPS,
+                   "sep_step_chain0", chain0=PAR_CHAIN0)
     if args.profile:
         phase_runs_profile((("sep", lambda: sep.run(
             SEP_COLLECT, SEP_COLLECT, time_major=True)),),
@@ -6682,6 +7075,8 @@ def run_phases(args, tmp: str) -> None:
     torch.cuda.empty_cache()
     pt, pt_counts, _ = phase_pt_main_path(dev)
     k8 = phase_pt_kernel(pt, 0x5EED_8888)
+    phase_pt_kernel(pt, 0x5EED_8888, label="pt_kernel_chain0",
+                    chain0=PAR_CHAIN0)
     say("pt_times", shape=f"C={PT_CHAINS},T={PT_TEMPS},K={PT_K},D=1",
         **{k: repr(v) for k, v in k8.items() if k != "err"})
     if args.profile:
@@ -6735,6 +7130,8 @@ def run_phases(args, tmp: str) -> None:
     phase_sghmc(grad_fn, post_mean, post_var, dev)
     del grad_fn
     torch.cuda.empty_cache()
+    par = phase_parallel(dev)
+    torch.cuda.empty_cache()
     phase_example_nuts_steps(dev)
     examples = phase_examples()
     bigd = examples["counts"]
@@ -6770,12 +7167,15 @@ def run_phases(args, tmp: str) -> None:
                bound_ms_whitened=b["hmc_multistep_whitened"][0],
                bound_by_whitened=b["hmc_multistep_whitened"][1],
                launches_run_progress=2 * N_COLLECT // STEPS_PER_CALL,
-               launches_stream_run=stream_launches),
+               launches_stream_run=stream_launches,
+               launches_parallel=par["hmc"]["counts"]["hmc_multistep"],
+               split_launches_equal=par["split"]["hmc_multistep"]),
         record("nuts_step", "nuts_full.cu", "nuts_full.py:48",
                nuts_counts["nuts_step"], step_err, t["nuts_step_ms"],
                t["nuts_step_plain_ms"],
                launches_examples=examples["nuts_step"],
-               launches_run_progress=progress_launches["nuts"]),
+               launches_run_progress=progress_launches["nuts"],
+               split_launches_equal=par["split"]["nuts_step"]),
         record("nuts_step_dense_metric", "nuts_full.cu", "nuts_full.py:48",
                dense_counts["nuts_step"], k34w["err"], k34w["ms"],
                k34w["plain_ms"]),
@@ -6783,15 +7183,18 @@ def run_phases(args, tmp: str) -> None:
                mh_counts["mh_multistep"], k5["gauss2d"]["err"],
                k5["gauss2d"]["ms"], k5["gauss2d"]["plain_ms"],
                device_ms=k5["gauss2d"]["device_ms"],
-               launches_run_progress=progress_launches["mh"]),
+               launches_run_progress=progress_launches["mh"],
+               split_launches_equal=par["split"]["mh_multistep"]),
         record("mh_multistep_poisson", "mh_multistep.cu", "mh_full.py:50",
                pois_counts["mh_multistep"], k5["poisson"]["err"],
                k5["poisson"]["ms"], k5["poisson"]["plain_ms"],
-               device_ms=k5["poisson"]["device_ms"]),
+               device_ms=k5["poisson"]["device_ms"],
+               launches_examples=examples["poisson_mh_mh_multistep"]),
         record("gibbs_multistep", "gibbs_multistep.cu", "gibbs_full.py:47",
                gibbs_counts["gibbs_multistep"], k6["err"], k6["ms"],
                k6["plain_ms"],
-               launches_run_progress=progress_launches["gibbs"]),
+               launches_run_progress=progress_launches["gibbs"],
+               split_launches_equal=par["split"]["gibbs_multistep"]),
         record("hmc_separable", "hmc_separable.cu", "hmc_bigd.py:177",
                sep_counts["hmc_separable_step"]
                + sep_counts["hmc_separable"], k7["err"], k7["ms"],
@@ -6805,11 +7208,14 @@ def run_phases(args, tmp: str) -> None:
                ms_L40=k7["ms_L40"], plain_ms_L40=k7["plain_ms_L40"],
                bound_ms_L40=b["hmc_separable_L40"][0],
                bound_by_L40=b["hmc_separable_L40"][1],
-               launches_run_progress=progress_launches["separable"]),
+               launches_run_progress=progress_launches["separable"],
+               split_launches_equal=par["split"]["hmc_separable_step"]),
         record("pt_multistep", "pt_multistep.cu", "tempering_full.py:61",
                pt_counts["pt_multistep"], k8["err"], k8["ms"],
                k8["plain_ms"], device_ms=k8["device_ms"],
-               launches_run_progress=progress_launches["pt"]),
+               launches_run_progress=progress_launches["pt"],
+               launches_parallel=par["pt"]["counts"]["pt_multistep"],
+               split_launches_equal=par["split"]["pt_multistep"]),
         record("hmc_multistep_mala", "hmc_multistep.cu", "hmc_full.py:86",
                mala_counts["hmc_multistep"], k2m["err"], k2m["ms"],
                k2m["plain_ms"]),
@@ -6892,6 +7298,8 @@ def run_phases(args, tmp: str) -> None:
                ms_whitened=k34w["subtree_ms"],
                max_abs_err_whitened=k34w["subtree_err"],
                tier_run_launches_whitened=dense_tier_counts["nuts_subtree"],
+               launches_parallel=par["nuts"]["counts"]["nuts_subtree"],
+               split_launches_equal=par["split"]["nuts_subtree"],
                bound_ms_by_j=[b[f"nuts_subtree_j{j}"][0] for j in range(6)],
                lane_iterations_per_leaf_by_j=[sub_per_leaf[j]
                                               for j in range(6)]),

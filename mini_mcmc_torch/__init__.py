@@ -9,14 +9,16 @@ adaptive SMC, constrained parameters through
 (``use_pallas=True | "full" | "separable"``) run by hand-written CUDA kernels
 for Hopper (``csrc/``) on CUDA tensors and by their plain PyTorch twins on
 CPU tensors. Samplers and initial positions live on the GPU unless the
-caller passes ``device="cpu"``. ``checkpoint`` saves and restores any
-sampler bit for bit, and ``io`` exports the sample cube as CSV, Arrow or
+caller passes ``device="cpu"``. ``parallel`` shards the chains over a
+``torch.distributed`` mesh, and ``data_parallel_grad`` a dataset.
+``checkpoint`` saves and restores any sampler bit for bit, and ``io``
+exports the sample cube as CSV, Arrow or
 Parquet. The module names mirror ``mini_mcmc_tpu``'s,
 which stays the reference the port is tested against; this package never
 imports it or JAX.
 """
 
-from . import io, models, ops, stats, utils
+from . import io, models, ops, parallel, stats, utils
 from .checkpoint import load_checkpoint, save_checkpoint
 from .diagnostics import (
     ModernDiagnostics,
@@ -47,7 +49,12 @@ from .models import (
 )
 from .nuts import NUTS
 from .ops.ais import AISResult, ais_log_z, linear_betas, resample
-from .ops.sgmcmc import minibatch_grad, polynomial_decay, target_grad
+from .ops.sgmcmc import (
+    data_parallel_grad,
+    minibatch_grad,
+    polynomial_decay,
+    target_grad,
+)
 from .ops.smc import SMCResult, smc_log_z
 from .ops.tempering import geometric_betas, tune_betas
 from .runner import make_initial_recording_runner, make_simple_runner
@@ -98,6 +105,7 @@ __all__ = [
     "ais_log_z",
     "basic_stats",
     "collect_rhat",
+    "data_parallel_grad",
     "diffable_gaussian2d",
     "estimate_preconditioner",
     "gaussian2d",
@@ -119,6 +127,7 @@ __all__ = [
     "models",
     "neal_funnel",
     "ops",
+    "parallel",
     "poisson_target",
     "polynomial_decay",
     "positive",

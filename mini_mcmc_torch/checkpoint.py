@@ -22,6 +22,13 @@ device: ``load_checkpoint(path, device=...)`` places the state, and
 :func:`restore_sampler` moves each field to the restoring sampler's
 device and dtype, so a state saved on the GPU restores into a CPU sampler
 and the other way round.
+
+A state sharded over a chain mesh (``parallel/``) saves as a collective,
+as the JAX package's does (``mini_mcmc_tpu/checkpoint.py:39-50``): every
+rank gathers each field along its chain axis, rank 0 of the chain group
+writes the one file, and every rank waits at a barrier. The file is the
+unsharded state's. :func:`restore_sampler` takes ``mesh=`` to shard the
+restored state over it.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ from .ops.nuts import NUTSState
 from .ops.sgmcmc import SGHMCState, SGLDState
 from .ops.slice import SliceState
 from .ops.tempering import PTState
+from .parallel.collectives import barrier, gather_chains
+from .parallel.mesh import local_state, shard_sampler_state
 from .stats import TrackerState
 from .utils.init import resolve_device
 
@@ -86,8 +95,24 @@ def save_checkpoint(path: str, state: Any,
     side record of plain values, tensors, lists and dicts stored alongside
     (``save_sampler`` puts the metric and transform records there). The
     file is written under a name of its own and renamed into place.
+
+    A sharded state (DTensor leaves) is gathered whole on every rank, rank
+    0 of its chain group writes, and all ranks wait for the file: every
+    rank of the group must call this.
     """
     _check_backend(backend)
+    state, layout = local_state(state)
+    if layout is not None:
+        chains = layout.chains
+        state = type(state)(*[
+            gather_chains(x, chains, axis)
+            if isinstance(axis, int) and axis is not False
+            else x for x, axis in zip(state, layout.axes)])
+        if chains.rank == 0:
+            save_checkpoint(path, state, generator, backend=backend,
+                            extra=extra)
+        barrier(chains.group)
+        return
     name = type(state).__name__
     if STATE_TYPES.get(name) is not type(state):
         raise ValueError(f"cannot checkpoint a {name}: not a state type of "
@@ -230,11 +255,15 @@ def _metric_kind(rec):
     return "dense" if rec["dense"] else "diag"
 
 
-def restore_sampler(path: str, sampler):
+def restore_sampler(path: str, sampler, *, mesh=None):
     """Restore a checkpoint's state and generator into ``sampler``, built
     with the configuration of the saved one (any seed, any device).
     Returns the sampler; its next ``run`` continues the saved sampler's
     chains bit for bit.
+
+    ``mesh``: a chain mesh (``parallel.chain_mesh``) to shard the restored
+    state over; a sharded sampler restored without one is resharded over
+    its own mesh. The shards then continue the chains bit for bit too.
 
     Each field moves to the device and dtype of the sampler's own. Raises
     ``ValueError`` when the checkpoint holds another state type (an NUTS
@@ -294,7 +323,12 @@ def restore_sampler(path: str, sampler):
                     "sampler constructed with the same configuration?")
             new = new.to(device=ref.device, dtype=ref.dtype)
         fields[name] = new
-    sampler.state = type(cur)(**fields)
+    state = type(cur)(**fields)
+    layout = getattr(sampler, "_layout", None)
+    if mesh is None and layout is not None:
+        mesh = layout.mesh
+    sampler.state = (state if mesh is None
+                     else shard_sampler_state(mesh, state))
     gen = _generator(payload["generator"])
     if gen is not None:
         sampler._gen = gen

@@ -29,14 +29,14 @@ __global__ void philox_fill_kernel(uint32_t* __restrict__ out, int n,
 extern "C" int mm_hmc_multistep_f32(
     const void* pos, const void* logp, const void* grad, const void* eps,
     const void* params, int k_steps, int n_leapfrog, int n_chains, int dim,
-    int target, int affine, uint32_t seed_lo, uint32_t seed_hi,
-    uint32_t step0, void* pos_out,
+    int target, int affine, uint32_t chain0, uint32_t seed_lo,
+    uint32_t seed_hi, uint32_t step0, void* pos_out,
     void* logp_out, void* grad_out, void* hist, long long hist_sk,
     long long hist_sc, void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
   const mm::MultistepArgs a{pos,      logp,     grad,     eps,     params,
-                            k_steps,  n_leapfrog, n_chains, seed_lo,
-                            seed_hi,  step0,    pos_out,  logp_out,
+                            k_steps,  n_leapfrog, n_chains, chain0,
+                            seed_lo,  seed_hi,  step0,    pos_out,  logp_out,
                             grad_out, hist,     hist_sk,  hist_sc, stream};
 #define MM_LAUNCH(T, D) return mm::launch_multistep<T, D>(a)
   MM_DISPATCH(target, dim, affine, MM_LAUNCH);

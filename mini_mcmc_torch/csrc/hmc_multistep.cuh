@@ -7,7 +7,8 @@
 // Replaces mini_mcmc_tpu/ops/pallas/hmc_full.py:make_pallas_hmc_multistep
 // (and make_pallas_hmc_step, its K = 1 case without history). For each of
 // the K steps, per chain: N(0, 1) momentum from the (chain, step)'s Philox
-// word stream (philox.cuh:step_words, paired Box-Muller),
+// word stream (philox.cuh:step_words, paired Box-Muller; the chain its
+// global index, chain0 + the launch's chain),
 // h_cur, L leapfrog steps at eps[k], logp and h_prop, the accept
 // `(h_cur - h_prop) >= logf(u)` with true selects (a NaN or -inf proposal
 // compares false and is rejected without touching the kept state), and the
@@ -46,8 +47,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ grad,
                      const float* __restrict__ eps,
                      const float* __restrict__ params, int k_steps,
-                     int n_leapfrog, int n_chains, uint32_t seed_lo,
-                     uint32_t seed_hi, uint32_t step0,
+                     int n_leapfrog, int n_chains, uint32_t chain0,
+                     uint32_t seed_lo, uint32_t seed_hi, uint32_t step0,
                      float* __restrict__ pos_out,
                      float* __restrict__ logp_out,
                      float* __restrict__ grad_out, float* __restrict__ hist,
@@ -70,7 +71,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < k_steps; ++k) {
     const uint32_t step = step0 + (uint32_t)k;
     uint32_t w[4 * stream_evals<kWords>()];
-    step_words<kWords>((uint32_t)c, step, seed_lo, seed_hi, w);
+    step_words<kWords>(chain0 + (uint32_t)c, step, seed_lo, seed_hi, w);
     float m[D], xp[D], gp[D];
 #pragma unroll
     for (int p = 0; p < kPairs; ++p) {
@@ -122,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
 struct MultistepArgs {
   const void *pos, *logp, *grad, *eps, *params;
   int k_steps, n_leapfrog, n_chains;
-  uint32_t seed_lo, seed_hi, step0;
+  uint32_t chain0, seed_lo, seed_hi, step0;
   void *pos_out, *logp_out, *grad_out, *hist;
   long long hist_sk, hist_sc;
   void* stream;
@@ -134,7 +135,8 @@ int launch_multistep(const MultistepArgs& a) {
                            (cudaStream_t)a.stream>>>(
       (const float*)a.pos, (const float*)a.logp, (const float*)a.grad,
       (const float*)a.eps, (const float*)a.params, a.k_steps, a.n_leapfrog,
-      a.n_chains, a.seed_lo, a.seed_hi, a.step0, (float*)a.pos_out,
+      a.n_chains, a.chain0, a.seed_lo, a.seed_hi, a.step0,
+      (float*)a.pos_out,
       (float*)a.logp_out, (float*)a.grad_out, (float*)a.hist, a.hist_sk,
       a.hist_sc);
   return (int)cudaGetLastError();

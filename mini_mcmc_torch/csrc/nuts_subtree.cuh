@@ -11,10 +11,11 @@
 // The leaf and the merge rule are nuts_tree.cuh's, shared with Kernel 4.
 //
 // Merge uniforms come from the TPU kernel's own murmur3 counter hash over
-// (seed0, seed1, i * (max_depth + 1) + k, lane), with the chain index as
-// the lane: the plain twin (ops/kernels/nuts_subtree.py) and the JAX
-// kernel in interpret mode draw the same numbers, so this tier is the one
-// NUTS path held to the JAX package chain for chain.
+// (seed0, seed1, i * (max_depth + 1) + k, lane), with the chain's global
+// index (chain0 + the launch's chain) as the lane: the plain twin
+// (ops/kernels/nuts_subtree.py) and the JAX kernel in interpret mode draw
+// the same numbers, so this tier is the one NUTS path held to the JAX
+// package chain for chain.
 //
 // One thread per chain, on one wave of blocks. The 2^j leaves are visited
 // chronologically; after leaf i the recursion's bottom-up merges are the
@@ -103,8 +104,9 @@ __global__ void __launch_bounds__(subtree_threads<D>(),
                    const float* __restrict__ joint0_in,
                    const uint8_t* __restrict__ active_in,
                    const float* __restrict__ params, int j, int max_depth,
-                   int32_t seed0, int32_t seed1, int n_chains,
-                   float* __restrict__ end_pos, float* __restrict__ end_mom,
+                   int32_t seed0, int32_t seed1, uint32_t chain0,
+                   int n_chains, float* __restrict__ end_pos,
+                   float* __restrict__ end_mom,
                    float* __restrict__ end_grad,
                    float* __restrict__ prop_pos,
                    float* __restrict__ prop_grad,
@@ -125,6 +127,8 @@ __global__ void __launch_bounds__(subtree_threads<D>(),
 
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_chains) return;
+  // the hash's lane: the chain's global index
+  const int32_t lane = (int32_t)(chain0 + (uint32_t)c);
   const T t(params);
   float x[D], m[D], g[D];
 #pragma unroll
@@ -169,7 +173,7 @@ __global__ void __launch_bounds__(subtree_threads<D>(),
     // just written, then each merged row in turn
     const int n_merges = __ffs(i + 1) - 1;
     for (int k = 0; k < n_merges; ++k) {
-      const float uk = hash_unit(seed0, seed1, i * events + k, c);
+      const float uk = hash_unit(seed0, seed1, i * events + k, lane);
       float* const a = row(sp - 1 - k);
       const float* const b = row(sp - k);
       const float n_a = a[kN * S], n_b = b[kN * S];
@@ -210,6 +214,7 @@ struct SubtreeArgs {
   const void *pos, *mom, *grad, *logu, *v, *eps, *joint0, *active, *params;
   int j, max_depth;
   int32_t seed0, seed1;
+  uint32_t chain0;
   int n_chains;
   void *end_pos, *end_mom, *end_grad, *prop_pos, *prop_grad, *prop_logp,
       *n, *s, *alpha, *n_alpha, *diverged;
@@ -251,7 +256,8 @@ int launch_subtree(const SubtreeArgs& a) {
       (const float*)a.logu, (const int32_t*)a.v, (const float*)a.eps,
       (const float*)a.joint0, (const uint8_t*)a.active,
       (const float*)a.params, a.j, a.max_depth, a.seed0, a.seed1,
-      a.n_chains, (float*)a.end_pos, (float*)a.end_mom, (float*)a.end_grad,
+      a.chain0, a.n_chains, (float*)a.end_pos, (float*)a.end_mom,
+      (float*)a.end_grad,
       (float*)a.prop_pos, (float*)a.prop_grad, (float*)a.prop_logp,
       (int32_t*)a.n, (uint8_t*)a.s, (float*)a.alpha, (int32_t*)a.n_alpha,
       (uint8_t*)a.diverged);

@@ -15,7 +15,8 @@ extern "C" int mm_pt_multistep(const void* pos, const void* logp,
                                const void* ladder, int n_chains, int dim,
                                int n_temps, int k_steps, int n_inner,
                                int target, int transformed, int parity0,
-                               uint32_t seed_lo, uint32_t seed_hi,
+                               uint32_t chain0, uint32_t seed_lo,
+                               uint32_t seed_hi,
                                uint32_t step0,
                                void* pos_out, void* logp_out, void* sa_out,
                                void* hist, long long hist_sk,
@@ -23,7 +24,7 @@ extern "C" int mm_pt_multistep(const void* pos, const void* logp,
   if (n_chains <= 0) return (int)cudaSuccess;
   const mm::PtArgs a{pos,      logp,    sa,      tparams, ladder,
                      n_chains, n_temps, k_steps, n_inner, parity0,
-                     seed_lo,  seed_hi, step0,   pos_out, logp_out,
+                     chain0,   seed_lo, seed_hi, step0,   pos_out, logp_out,
                      sa_out,   hist,    hist_sk, hist_sc, stream};
 #define MM_PT_TARGET(T, D)                          \
   do {                                              \

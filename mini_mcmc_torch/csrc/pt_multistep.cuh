@@ -33,7 +33,8 @@
 // are disjoint, so this equals the JAX package's shift-and-select.
 //
 // Draws: one Philox evaluation per (chain, rung, step, sweep), counter
-// (c, step0 + k, t, i) under the run's 64-bit key (philox.cuh, Kernel 8):
+// (chain0 + c, step0 + k, t, i) under the run's 64-bit key (philox.cuh,
+// Kernel 8; chain0 the launch's first global chain):
 // words x, y the proposal normal(s), word z the accept uniform, word w at
 // i = 0 the swap uniform of pair (t, t+1). Past D = 2, normals 2p and
 // 2p + 1 are the cosine and sine of box_muller_pair on words x, y of
@@ -71,7 +72,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ tparams,
                         const float* __restrict__ ladder, int n_chains,
                         int n_temps, int k_steps, int n_inner, int parity0,
-                        uint32_t k0, uint32_t k1, uint32_t step0,
+                        uint32_t chain0, uint32_t k0, uint32_t k1,
+                        uint32_t step0,
                         float* __restrict__ pos_out,
                         float* __restrict__ logp_out,
                         float* __restrict__ sa_out, float* __restrict__ hist,
@@ -86,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
   const bool live = c < n_chains && r < n_temps;
   const bool has_pair = live && r + 1 < n_temps;
   const T t(tparams);
-  const uint32_t chain = (uint32_t)c;
+  const uint32_t chain = chain0 + (uint32_t)c;  // the global chain
 
   float x[D], lp = 0.0f, sa = 0.0f, beta = 0.0f, dbeta = 0.0f, scale[D];
 #pragma unroll
@@ -194,7 +196,7 @@ struct PtArgs {
   const void* tparams;
   const void* ladder;
   int n_chains, n_temps, k_steps, n_inner, parity0;
-  uint32_t k0, k1, step0;
+  uint32_t chain0, k0, k1, step0;
   void* pos_out;
   void* logp_out;
   void* sa_out;
@@ -210,7 +212,8 @@ int launch_pt_ladder(const PtArgs& a) {
          kThreads, 0, (cudaStream_t)a.stream>>>(
           (const float*)a.pos, (const float*)a.logp, (const float*)a.sa,
           (const float*)a.tparams, (const float*)a.ladder, a.n_chains,
-          a.n_temps, a.k_steps, a.n_inner, a.parity0, a.k0, a.k1, a.step0,
+          a.n_temps, a.k_steps, a.n_inner, a.parity0, a.chain0, a.k0, a.k1,
+          a.step0,
           (float*)a.pos_out, (float*)a.logp_out, (float*)a.sa_out,
           (float*)a.hist, a.hist_sk, a.hist_sc);
   return (int)cudaGetLastError();

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from .stats import _ess, _splitcat, _withinvar
+from .stats import _ess, _splitcat, _withinvar, full_cube
 
 
 def _quantile(pm: torch.Tensor, q) -> torch.Tensor:
@@ -99,8 +99,11 @@ def rank_normalized_diagnostics(sample: torch.Tensor, *,
     Args:
         sample: ``[chains, observations, parameters]`` cube, or
             ``[observations, chains, parameters]`` with ``time_major=True``.
+            A cube sharded on its chain axis (a DTensor) is gathered whole
+            on every rank first (one all-gather): the ranks and quantiles
+            run over all draws.
     """
-    sample = torch.as_tensor(sample).to(torch.float32)
+    sample = torch.as_tensor(full_cube(sample, time_major)).to(torch.float32)
     if sample.dim() != 3:
         raise ValueError(
             f"sample must be a 3-D cube; got shape {tuple(sample.shape)}"
@@ -192,8 +195,11 @@ def summary(sample: torch.Tensor, *, quantiles=(0.05, 0.5, 0.95),
             ``[observations, chains, parameters]`` with ``time_major=True``.
         quantiles: the quantile levels to report.
         param_names: ``[P]`` row labels (default ``x0..x{P-1}``).
+
+    A cube sharded on its chain axis (a DTensor) is gathered whole on
+    every rank first (one all-gather).
     """
-    sample = torch.as_tensor(sample).to(torch.float32)
+    sample = torch.as_tensor(full_cube(sample, time_major)).to(torch.float32)
     if sample.dim() != 3:
         raise ValueError(
             f"sample must be a 3-D cube; got shape {tuple(sample.shape)}"

@@ -132,8 +132,9 @@ class NUTS(_KernelSampler):
         averages again in the whitened space. Without ``seed`` its
         generator is seeded from this sampler's."""
         pre = estimate_preconditioner(_unconstrained_positions(self), kind)
-        new = NUTS(self.target, self.positions, metric=pre, seed=seed,
-                   **self._ctor)
+        new = self._shard_like(NUTS(
+            self.target, self._positions_of(self._state), metric=pre,
+            seed=seed, **self._ctor))
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -153,19 +154,19 @@ class NUTS(_KernelSampler):
         """Per-chain step size ``[C]``: the dual-averaging ``epsilon``
         during adaptation, ``epsilon_bar`` after; ``-1.0`` before the first
         run (found by ``find_reasonable_epsilon``)."""
-        return self.state.epsilon
+        return self._out(self._state.epsilon)
 
     @property
     def divergences(self) -> torch.Tensor:
         """Per-chain divergent transitions, cumulative over every run."""
-        return self.state.divergences
+        return self._out(self._state.divergences)
 
     @property
     def last_run_divergences(self) -> torch.Tensor:
         """Per-chain divergences of the most recent ``run`` only."""
         if self._div_before_run is None:
-            return torch.zeros_like(self.state.divergences)
-        return self.state.divergences - self._div_before_run
+            return self._out(torch.zeros_like(self._state.divergences))
+        return self._out(self._state.divergences - self._div_before_run)
 
     @property
     def leapfrogs(self) -> torch.Tensor:
@@ -177,27 +178,27 @@ class NUTS(_KernelSampler):
         (its own tree's cost; the kernel runs a warp of 32 chains to its
         deepest, and the JAX package's fused kernel reports per 8,192-chain
         grid block). Saturates at ~2.0e9 instead of wrapping."""
-        return self.state.leapfrogs
+        return self._out(self._state.leapfrogs)
 
     @property
     def last_run_leapfrogs(self) -> torch.Tensor:
         """Per-chain executed leapfrogs of the most recent ``run`` only."""
         if self._lf_before_run is None:
-            return torch.zeros_like(self.state.leapfrogs)
-        return self.state.leapfrogs - self._lf_before_run
+            return self._out(torch.zeros_like(self._state.leapfrogs))
+        return self._out(self._state.leapfrogs - self._lf_before_run)
 
     def _snapshot_divergences(self) -> None:
         """The counters before a run, for ``last_run_*``."""
-        self._div_before_run = self.state.divergences.clone()
-        self._lf_before_run = self.state.leapfrogs.clone()
+        self._div_before_run = self._state.divergences.clone()
+        self._lf_before_run = self._state.leapfrogs.clone()
 
     def run(self, n_collect: int, n_discard: int = 0, *,
             time_major: bool = False) -> torch.Tensor:
         """Sample; returns ``[n_chains, n_collect, D]``, or
         ``[n_collect, n_chains, D]`` with ``time_major=True``."""
         self._snapshot_divergences()
-        self.state = self._prepare_fn(self.state, self._next_key(),
-                                      n_discard)
+        self._state = self._prepare_fn(self._state, self._next_key(),
+                                       n_discard)
         return super().run(n_collect, n_discard, time_major=time_major)
 
     def run_progress(self, n_collect: int, n_discard: int = 0, *,
@@ -212,13 +213,15 @@ class NUTS(_KernelSampler):
         otherwise ``n_discard - 1`` unrecorded steps do, the convention of
         :meth:`run`, whose cube it equals from the same seed."""
         self._snapshot_divergences()
-        self.state = self._prepare_fn(self.state, self._next_key(),
-                                      n_discard)
-        kw = dict(n_chains=self.n_chains, dim=self.dim, stream=stream,
-                  time_major=time_major)
+        self._state = self._prepare_fn(self._state, self._next_key(),
+                                       n_discard)
+        kw = dict(n_chains=self._state.positions.shape[0], dim=self.dim,
+                  stream=stream, time_major=time_major)
         if n_discard == 0 and n_collect > 0:
-            kw["initial_rows"] = self.positions[None]  # [1, C, D]
-        self.state, sample = progress_run(
-            self._simple_runner, self.state, self._next_key(), n_collect,
+            # [1, C, D]
+            kw["initial_rows"] = self._positions_of(self._state)[None]
+        self._state, sample = progress_run(
+            self._simple_runner, self._state, self._next_key(), n_collect,
             max(n_discard - 1, 0), **kw)
+        sample = self._out(sample, 1 if time_major else 0)
         return sample, run_stats(sample, time_major=time_major)

@@ -22,6 +22,12 @@ is done on the host in numpy float32, as XLA does it on the device, and
 enters the device ops as scalars: an anneal makes no device-to-host read
 until its result. Nothing reduces across particles inside the loop.
 
+A particle batch sharded over a chain mesh (a DTensor ``x0``, from
+``parallel.shard_chains``) anneals each rank's own particles with the
+draws of their global places and no collective; the log-Z ``logsumexp``
+and the weight ESS gather the ``[N]`` weights after the loop (one
+all-gather).
+
 The Gaussian prior, the tempered-MH sweep and the systematic-resampling
 strata here are the building blocks of the adaptive sampler too
 (``ops/smc.py`` imports them): one implementation, two estimators.
@@ -39,7 +45,10 @@ from typing import Callable, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..parallel.collectives import chain_draw, gather_chains
+from ..parallel.mesh import local_state
 from ..runner import key_generator
+from ..stats import local_cube
 from ..utils.init import resolve_device
 
 #: float32 strata (``(u + arange(n)) / n``) collapse above 2^24: distinct
@@ -130,14 +139,15 @@ def _gaussian_prior(prior_mean, prior_std, dim: int, device):
     return mean, std, prior_logp
 
 
-def _mh_draws(gen: torch.Generator, n_mh_steps: int, x: torch.Tensor):
+def _mh_draws(gen: torch.Generator, n_mh_steps: int, x: torch.Tensor,
+              chains=None):
     """The proposal normals ``[M, N, D]`` and accept uniforms ``[M, N]``
-    of ``n_mh_steps`` sweeps, on ``x``'s device."""
+    of ``n_mh_steps`` sweeps, on ``x``'s device (a shard's particles of
+    the global draws under ``chains``)."""
     shape = (n_mh_steps,) + tuple(x.shape)
-    normals = torch.randn(shape, generator=gen, dtype=x.dtype,
-                          device=x.device)
-    uniforms = torch.rand(shape[:2], generator=gen, dtype=x.dtype,
-                          device=x.device)
+    f = dict(generator=gen, dtype=x.dtype, device=x.device)
+    normals = chain_draw(chains, lambda s: torch.randn(s, **f), shape, 1)
+    uniforms = chain_draw(chains, lambda s: torch.rand(s, **f), shape[:2], 1)
     return normals, uniforms
 
 
@@ -231,7 +241,10 @@ def ais_log_z(
 
 def _ais_result(x, log_w) -> AISResult:
     """The estimate and the weight ESS of an anneal's particles and
-    weights: the only cross-particle reductions, once, after the loop."""
+    weights: the only cross-particle reductions, once, after the loop (a
+    sharded anneal's weights gathered first, one all-gather)."""
+    local, chains = local_cube(log_w)
+    log_w = gather_chains(local, chains)
     n = log_w.shape[0]
     log_z = torch.logsumexp(log_w, dim=0) - math.log(n)
     w = torch.exp(log_w - torch.max(log_w))
@@ -279,7 +292,9 @@ def make_anneal(
     [N])``, ``key`` a ``torch.Generator`` on ``x0``'s device or a
     :class:`~mini_mcmc_torch.runner.StepKey`, and its form on given draws
     ``anneal.on_draws(x0, normals [K, M, N, D], uniforms [K, M, N])``
-    (rung k's M sweeps' proposal normals and accept uniforms).
+    (rung k's M sweeps' proposal normals and accept uniforms). An ``x0``
+    sharded over a chain mesh (a DTensor) anneals each rank's particles,
+    with no collective, and returns DTensors.
 
     The loop of :func:`ais_log_z`: nothing inside reduces across particles
     and nothing is read back to the host. ``x0`` MUST be distributed as
@@ -312,7 +327,13 @@ def make_anneal(
 
     def anneal(x0, key):
         gen = key_generator(key)
-        return run(x0, lambda k, x: _mh_draws(gen, n_mh_steps, x))
+        local, layout = local_state(x0)
+        chains = None if layout is None else layout.chains
+        x, log_w = run(local, lambda k, x: _mh_draws(gen, n_mh_steps, x,
+                                                     chains))
+        if layout is None:
+            return x, log_w
+        return layout.wrap_chains(x), layout.wrap_chains(log_w)
 
     def on_draws(x0, normals, uniforms):
         return run(x0, lambda k, x: (normals[k], uniforms[k]))

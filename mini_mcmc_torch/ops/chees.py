@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from ..parallel.collectives import chain_draw, gather_chains
 from ..runner import StepKey
 from .hmc import HMCState
 from .kernels import rng
@@ -108,12 +109,15 @@ def jittered_step(target, state: HMCState, eps: float, n_steps: int,
     return new_state, pos_prop, mom_prop, alpha_c
 
 
-def step_draws(positions: torch.Tensor, gen: torch.Generator):
+def step_draws(positions: torch.Tensor, gen: torch.Generator, chains=None):
     """A step's momentum ``[C, D]`` and accept uniforms ``[C]`` from
-    ``gen`` on the positions' device."""
+    ``gen`` on the positions' device (a shard's rows of the global draws
+    under ``chains``)."""
     like = dict(dtype=positions.dtype, device=positions.device)
-    mom0 = torch.randn(positions.shape, generator=gen, **like)
-    u_acc = torch.rand((positions.shape[0],), generator=gen, **like)
+    mom0 = chain_draw(chains, lambda s: torch.randn(s, generator=gen,
+                                                    **like), positions.shape)
+    u_acc = chain_draw(chains, lambda s: torch.rand(s, generator=gen, **like),
+                       (positions.shape[0],))
     return mom0, u_acc
 
 
@@ -137,6 +141,19 @@ def chees_grad_logT(positions, pos_prop, mom_prop, alpha_c,
                                                               min=1e-12),
         0.0)
     return g * t
+
+
+def _all_chains(chains, positions, pos_prop, mom_prop, alpha_c):
+    """The step's ``[C, D]`` endpoints, momenta and ``[C]`` acceptances
+    over every shard (one all-gather), as the unsharded step has them."""
+    if chains is None:
+        return positions, pos_prop, mom_prop, alpha_c
+    d = positions.shape[1]
+    packed = torch.cat([positions, pos_prop, mom_prop,
+                        alpha_c[:, None].to(positions.dtype)], dim=1)
+    full = gather_chains(packed, chains)
+    return (full[:, :d], full[:, d:2 * d], full[:, 2 * d:3 * d],
+            full[:, 3 * d].to(alpha_c.dtype))
 
 
 def chees_adapt(target, state: HMCState, key: StepKey, n_adapt: int,
@@ -178,14 +195,18 @@ def chees_adapt(target, state: HMCState, key: StepKey, n_adapt: int,
         traj_len = torch.exp(log_T)
         u = halton_u(m)
         t = u * traj_len
-        mom0, u_acc = step_draws(state.positions, key.generator)
+        mom0, u_acc = step_draws(state.positions, key.generator, key.chains)
         new_state, pos_prop, mom_prop, alpha_c = jittered_step(
             target, state, float(eps),
             n_leapfrog(u, traj_len, eps, max_leapfrog), mom0, u_acc)
-        g_dev = chees_grad_logT(state.positions, pos_prop, mom_prop,
-                                alpha_c, float(t))
+        # the cross-chain centring and means over every shard's chains
+        # (one all-gather a step under a chain mesh)
+        pos_all, prop_all, mom_all, alpha_all = _all_chains(
+            key.chains, state.positions, pos_prop, mom_prop, alpha_c)
+        g_dev = chees_grad_logT(pos_all, prop_all, mom_all, alpha_all,
+                                float(t))
         # the leg's one device read a step
-        alpha, g = torch.stack([alpha_c.mean(), g_dev]).to(
+        alpha, g = torch.stack([alpha_all.mean(), g_dev]).to(
             torch.float32).cpu()
         state = new_state
 
@@ -243,7 +264,7 @@ def chees_hmc_kernel(target, step_size: float, traj_len: float,
 
     def step_fn(state: HMCState, key: StepKey) -> HMCState:
         u = production_u(key.seed, key.step)
-        mom0, u_acc = step_draws(state.positions, key.generator)
+        mom0, u_acc = step_draws(state.positions, key.generator, key.chains)
         state, _, _, _ = jittered_step(
             target, state, eps, n_leapfrog(u, traj_len, eps, max_leapfrog),
             mom0, u_acc)

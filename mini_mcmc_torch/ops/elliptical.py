@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.collectives import chain_draw
 from ..runner import StepKey, make_scan_block_fn
 from .slice import TEST_EVERY, masked_loop
 
@@ -65,17 +66,24 @@ def _as_scale(prior_scale, dim: int, dtype, device=None) -> torch.Tensor:
 
 
 def elliptical_draws(gen: torch.Generator, n_chains: int, dim: int,
-                     max_shrink: int, like: torch.Tensor) -> EllipticalDraws:
-    """An update's draws from ``gen``, on ``like``'s device."""
+                     max_shrink: int, like: torch.Tensor,
+                     chains=None) -> EllipticalDraws:
+    """An update's draws from ``gen``, on ``like``'s device (a shard's
+    rows of the global draws under ``chains``)."""
     f = dict(generator=gen, dtype=like.dtype, device=like.device)
+
+    def rand(shape, axis=0):
+        return chain_draw(chains, lambda s: torch.rand(s, **f), shape, axis)
+
     return EllipticalDraws(
-        torch.randn((n_chains, dim), **f), torch.rand((n_chains,), **f),
-        torch.rand((n_chains,), **f), torch.rand((max_shrink, n_chains), **f))
+        chain_draw(chains, lambda s: torch.randn(s, **f), (n_chains, dim)),
+        rand((n_chains,)), rand((n_chains,)), rand((max_shrink, n_chains), 1))
 
 
 def elliptical_step(loglik, state: EllipticalState, mu: torch.Tensor,
                     chol: torch.Tensor, draws: EllipticalDraws,
-                    test_every: int = TEST_EVERY) -> EllipticalState:
+                    test_every: int = TEST_EVERY,
+                    chains=None) -> EllipticalState:
     """One elliptical slice update of every chain on given draws
     (``elliptical.py:120-168``): prior mean ``mu [D]``, Cholesky ``chol
     [D, D]``; the same for any ``test_every``."""
@@ -106,7 +114,8 @@ def elliptical_step(loglik, state: EllipticalState, mu: torch.Tensor,
     pending0 = torch.ones((c,), dtype=torch.bool, device=pos.device)
     carry = masked_loop(
         body, (theta0, theta0 - two_pi, theta0, pos, state.loglik, pending0),
-        lambda carry: carry[5].any(), draws.u_shrink.shape[0], test_every)
+        lambda carry: carry[5].any(), draws.u_shrink.shape[0], test_every,
+        chains)
     return EllipticalState(carry[3], carry[4])
 
 
@@ -145,8 +154,9 @@ def elliptical_kernel(loglik, *, prior_mean=0.0, prior_scale=1.0,
         c, d = state.positions.shape
         mu, chol = _prior(state.positions)
         draws = elliptical_draws(key.generator, c, d, max_shrink,
-                                 state.positions)
-        return elliptical_step(loglik, state, mu, chol, draws)
+                                 state.positions, key.chains)
+        return elliptical_step(loglik, state, mu, chol, draws,
+                               chains=key.chains)
 
     if steps_per_call > 1:
         step_fn.block_fn = make_scan_block_fn(step_fn, steps_per_call)

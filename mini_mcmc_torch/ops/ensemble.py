@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.collectives import chain_draw
 from ..runner import StepKey, make_scan_block_fn
 
 
@@ -39,13 +40,18 @@ class HalfDraws(NamedTuple):
 
 
 def half_draws(gen: torch.Generator, e: int, h: int,
-               like: torch.Tensor) -> HalfDraws:
-    """A half-update's draws from ``gen``, on ``like``'s device."""
+               like: torch.Tensor, ensembles=None) -> HalfDraws:
+    """A half-update's draws from ``gen``, on ``like``'s device: under
+    ``ensembles`` (a ChainGroup counted in ensembles) a shard's rows of the
+    global draws."""
     shape, dev = (e, h), like.device
     return HalfDraws(
-        torch.randint(0, h, shape, generator=gen, device=dev),
-        torch.rand(shape, generator=gen, dtype=like.dtype, device=dev),
-        torch.rand(shape, generator=gen, dtype=like.dtype, device=dev))
+        chain_draw(ensembles, lambda s: torch.randint(
+            0, h, s, generator=gen, device=dev), shape),
+        chain_draw(ensembles, lambda s: torch.rand(
+            s, generator=gen, dtype=like.dtype, device=dev), shape),
+        chain_draw(ensembles, lambda s: torch.rand(
+            s, generator=gen, dtype=like.dtype, device=dev), shape))
 
 
 def _half_update(target, active, active_lp, other, draws: HalfDraws,
@@ -122,8 +128,11 @@ def ensemble_kernel(target, *, walkers_per_ensemble: int, a: float = 2.0,
     def step_fn(state: EnsembleState, key: StepKey) -> EnsembleState:
         e = state.positions.shape[0] // w
         gen, like = key.generator, state.positions
-        first = half_draws(gen, e, half, like)
-        second = half_draws(gen, e, half, like)
+        # a shard holds whole ensembles (EnsembleSampler checks it)
+        ens = (None if key.chains is None else key.chains._replace(
+            chain0=key.chains.chain0 // w, n_chains=key.chains.n_chains // w))
+        first = half_draws(gen, e, half, like, ens)
+        second = half_draws(gen, e, half, like, ens)
         return ensemble_sweep(target, state, w, a, first, second)
 
     if steps_per_call > 1:

@@ -18,7 +18,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..runner import StepKey, make_scan_block_fn
+from ..parallel.collectives import chain_call
+from ..runner import StepKey, chain0, make_scan_block_fn
 from .kernels.gibbs_full import gibbs_multistep, sample_form
 
 
@@ -59,10 +60,15 @@ def gibbs_kernel(conditional, *, use_pallas=False, steps_per_call: int = 1):
     def step_fn(state: GibbsState, key: StepKey) -> GibbsState:
         if full:
             return GibbsState(gibbs_multistep(conditional, state.positions,
-                                              key.seed, key.step, 1))
+                                              key.seed, key.step, 1,
+                                              chain0=chain0(key)))
         positions = state.positions.clone()
         for i in range(positions.shape[1]):
-            positions[:, i] = conditional.sample(key.generator, i, positions)
+            # a shard samples from the global shape's draws
+            positions[:, i] = chain_call(
+                key.chains,
+                lambda x, i=i: conditional.sample(key.generator, i, x),
+                positions)
         return GibbsState(positions)
 
     if steps_per_call > 1:
@@ -72,7 +78,7 @@ def gibbs_kernel(conditional, *, use_pallas=False, steps_per_call: int = 1):
             def block_fn(state: GibbsState, key: StepKey, out=None):
                 return GibbsState(gibbs_multistep(
                     conditional, state.positions, key.seed, key.step, k,
-                    out))
+                    out, chain0=chain0(key)))
         else:
             block_fn = make_scan_block_fn(step_fn, k)
         step_fn.block_fn = block_fn

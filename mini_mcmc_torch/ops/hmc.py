@@ -12,6 +12,11 @@ fused tier (``"full"``) draws momentum and accept uniforms from the Philox
 stream at ``(key.seed, chain, key.step)`` inside the kernel, and so does
 the separable tier (``"separable"``) inside Kernel 7; the step-size jitter
 alone comes from ``key.generator`` there.
+
+Under a chain mesh (``key.chains``) the generator's draws are the global
+shape's, narrowed to the shard's chains, the kernels take the shard's first
+global chain as ``chain0``, and ``step_eps``'s mean acceptance covers every
+shard (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..runner import StepKey, make_scan_block_fn
+from ..parallel.collectives import chain_draw, gather_chains
+from ..runner import StepKey, chain0, make_scan_block_fn
 from .kernels.hmc import leapfrog_trajectory, leapfrog_trajectory_plain
 from .kernels.hmc_full import hmc_multistep
 from .kernels.hmc_sep import hmc_separable_step
@@ -116,19 +122,17 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
                               device=pos.device).reshape(1)
         positions, logp, alpha_c = hmc_separable_step(
             target, pos, state.logp, eps, n_leapfrog, key.seed, key.step,
-            _tables(pos))
+            _tables(pos), chain0=chain0(key))
         return HMCSepState(positions, logp), alpha_c
 
-    def step_eps(state: HMCState, key: StepKey, eps):
-        """One non-fused HMC step at step size ``eps``, also returning the
-        cross-chain mean acceptance probability (NaN counts as 0)."""
-        if separable:
-            state, alpha_c = sep_step(state, key, eps)
-            return state, alpha_c.mean()
+    def plain_step(state: HMCState, key: StepKey, eps):
+        """One non-fused HMC step at step size ``eps``: the new state and
+        each chain's acceptance probability ``alpha_c``."""
         pos = state.positions
         gen = key.generator
-        mom0 = torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
-                           device=pos.device)
+        like = dict(dtype=pos.dtype, device=pos.device)
+        mom0 = chain_draw(key.chains, lambda s: torch.randn(
+            s, generator=gen, **like), pos.shape)
         h_current = -state.logp + 0.5 * torch.sum(mom0 * mom0, dim=1)
         pos_prop, mom_prop, logp_prop, grad_prop = traj(
             target, pos, mom0, state.grad, eps, n_leapfrog
@@ -137,23 +141,34 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
         # accept iff H_cur - H_prop >= ln(u) per chain (hmc.rs:343-376)
         accept_logp = h_current - h_proposed
         alpha_c = torch.exp(torch.clamp(accept_logp, max=0.0))
-        alpha = torch.mean(torch.nan_to_num(alpha_c, nan=0.0))
-        u = torch.rand((pos.shape[0],), generator=gen, dtype=pos.dtype,
-                       device=pos.device)
+        u = chain_draw(key.chains, lambda s: torch.rand(
+            s, generator=gen, **like), (pos.shape[0],))
         accept = accept_logp >= torch.log(u)  # NaN compares False
         positions = torch.where(accept[:, None], pos_prop, pos)
         logp = torch.where(accept, logp_prop, state.logp)
         grad = torch.where(accept[:, None], grad_prop, state.grad)
-        return HMCState(positions, logp, grad), alpha
+        return HMCState(positions, logp, grad), alpha_c
+
+    def step_eps(state, key: StepKey, eps):
+        """One non-fused step at step size ``eps`` and the cross-chain
+        mean acceptance probability (NaN counts as 0), over every shard
+        under a chain mesh (one all-gather of ``[C]``)."""
+        if separable:
+            state, alpha_c = sep_step(state, key, eps)
+            return state, gather_chains(alpha_c, key.chains).mean()
+        state, alpha_c = plain_step(state, key, eps)
+        return state, torch.mean(torch.nan_to_num(
+            gather_chains(alpha_c, key.chains), nan=0.0))
 
     def step_fn(state, key: StepKey):
         eps = _eps(key, 1, state.positions)
         if full:
             return HMCState(*hmc_multistep(
                 target, state.positions, state.logp, state.grad, eps,
-                n_leapfrog, key.seed, key.step,
+                n_leapfrog, key.seed, key.step, chain0=chain0(key),
             ))
-        state, _ = (sep_step if separable else step_eps)(state, key, eps[0])
+        state, _ = (sep_step if separable else plain_step)(state, key,
+                                                           eps[0])
         return state
 
     step_fn.step_eps = step_eps
@@ -166,7 +181,7 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
                 return HMCState(*hmc_multistep(
                     target, state.positions, state.logp, state.grad,
                     _eps(key, k, state.positions), n_leapfrog, key.seed,
-                    key.step, out,
+                    key.step, out, chain0=chain0(key),
                 ))
         else:
             block_fn = make_scan_block_fn(step_fn, k)

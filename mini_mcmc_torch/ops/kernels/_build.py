@@ -397,9 +397,9 @@ def build(also=()) -> Path:
 #: the C entries of Kernels 1-4, whose per-density libraries export them too
 KERNEL_SIGS = {
     "mm_leapfrog_f32": [_P] * 5 + [_I] * 6 + [_P] * 5,
-    "mm_hmc_multistep_f32": [_P] * 5 + [_I] * 6 + [_U] * 3
+    "mm_hmc_multistep_f32": [_P] * 5 + [_I] * 6 + [_U] * 4
     + [_P] * 4 + [_LL, _LL, _P],
-    "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32] + [_I] * 4
+    "mm_nuts_subtree_f32": [_P] * 9 + [_I, _I, _I32, _I32, _U] + [_I] * 4
     + [_P] * 11 + [_I, _P, _P],
     "mm_nuts_step_f32": [_P] * 3 + [_I, _I] + [_U] * 4 + [_I] * 4
     + [_P, _I] + [_P] * 6 + [_I, _P, _P],
@@ -432,7 +432,7 @@ ENTRY_SIGS = {
     "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
     "mm_hmc_separable_step": [_P] * 9 + [_I] * 7 + [_U] * 4 + [_P] * 4,
     "mm_hmc_separable_clusters": [_I] * 4 + [_P],
-    "mm_pt_multistep": [_P] * 5 + [_I] * 8 + [_U] * 3 + [_P] * 4
+    "mm_pt_multistep": [_P] * 5 + [_I] * 8 + [_U] * 4 + [_P] * 4
     + [_LL, _LL, _P],
 }
 

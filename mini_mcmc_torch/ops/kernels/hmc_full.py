@@ -10,6 +10,11 @@ D = 3, 4), L leapfrog steps at ``eps[k]``, the accept ``(h_cur - h_prop)
 >= log(u)`` with true selects, and the kept position written to
 ``hist[k]``.
 
+``chain0`` is the global index of the launch's first chain (a shard's
+offset under a chain mesh): chain ``c`` draws from the stream of chain
+``chain0 + c``, so the rows of one launch over all chains equal those of
+launches over any split of them.
+
 ``hist`` is a ``[K, C, D]`` view into the runner's preallocated sample cube
 (time-major or chain-major; any strides with a unit D stride), written in
 place. ``eps [K]`` lives on the positions' device. ``seed`` is the run's
@@ -33,7 +38,7 @@ TIER = _build.tier('HMC/MALA use_pallas="full" (Kernel 2)', torch.float32)
 
 def hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog: int,
                         seed: int, step0: int, hist=None, *, mom=None,
-                        u=None):
+                        u=None, chain0: int = 0):
     """Plain PyTorch twin of the kernel, drawing the same Philox stream.
 
     ``mom [K, C, D]`` and ``u [K, C]``, given together, replace the
@@ -46,7 +51,7 @@ def hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog: int,
     for k in range(eps.shape[0]):
         if mom is None:
             w = rng.stream_words(c, accept_word + 1, (step0 + k) & 0xFFFFFFFF,
-                                 seed, pos.device)
+                                 seed, pos.device, chain0)
             m = rng.pair_normals(w, d)
             uk = rng.unit_open(w[:, accept_word])
         else:
@@ -68,12 +73,12 @@ hmc_multistep_plain.calls = 0
 
 
 def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
-                  step0: int, hist=None):
+                  step0: int, hist=None, *, chain0: int = 0):
     """K = ``len(eps)`` HMC steps of ``target``; returns
     ``(pos', logp', grad')`` and writes the K kept rows into ``hist``."""
     if not pos.is_cuda:
         return hmc_multistep_plain(target, pos, logp, grad, eps, n_leapfrog,
-                                   seed, step0, hist)
+                                   seed, step0, hist, chain0=chain0)
     check_state(pos, logp, grad, eps, tier=TIER,
                 dims=_build.kernel_dims(target))
     lib, tid, params = _build.kernel_lib(target, pos.shape[1], pos.device)
@@ -94,8 +99,8 @@ def hmc_multistep(target, pos, logp, grad, eps, n_leapfrog: int, seed: int,
     _build.check(lib.mm_hmc_multistep_f32(
         pos.data_ptr(), logp.data_ptr(), grad.data_ptr(), eps.data_ptr(),
         params, k, n_leapfrog, c, d, tid, _build.instance_flags(target),
-        seed_lo, seed_hi, step0 & 0xFFFFFFFF, pos_o.data_ptr(),
-        logp_o.data_ptr(), grad_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
+        chain0 & 0xFFFFFFFF, seed_lo, seed_hi, step0 & 0xFFFFFFFF,
+        pos_o.data_ptr(), logp_o.data_ptr(), grad_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
         _build.stream_ptr(pos.device),
     ), lib)
     return pos_o, logp_o, grad_o

@@ -41,6 +41,7 @@ from typing import Callable
 
 import torch
 
+from ...parallel.collectives import any_chains
 from . import _build, rng
 from .hmc import check_state
 from .nuts_subtree import MAX_DEPTH, build_subtree_plain, popcount
@@ -55,7 +56,7 @@ DOUBLING_DRAW = 0x10000
 
 def doubling_loop(positions, mom_0, grad, joint, depth_limit: int,
                   draw_direction: Callable, draw_accept: Callable,
-                  subtree: Callable):
+                  subtree: Callable, chains=None):
     """The NUTS doubling loop for all chains in lockstep
     (``mini_mcmc_tpu/ops/nuts.py:_nuts_step_batched``, reference
     ``nuts.rs:578-674``), shared by every tier's plain path.
@@ -64,7 +65,10 @@ def doubling_loop(positions, mom_0, grad, joint, depth_limit: int,
     ``[C]`` uniforms; ``subtree(j, pos, mom, grad, v, active)`` builds its
     subtree (a ``TreeResult``). Runs while ``j < depth_limit`` and any chain
     continues. Returns ``(position_sel, alpha, n_alpha, diverged, depth)``
-    with ``depth [C]`` int32 the doublings each chain took part in.
+    with ``depth [C]`` int32 the doublings each chain took part in. Under
+    ``chains`` (a sharded lockstep run's ChainGroup) it runs while a chain
+    of any shard continues, so every rank builds the same subtrees and
+    their leaf loops' reductions pair up.
     """
     dtype = positions.dtype
     c = positions.shape[0]
@@ -80,7 +84,7 @@ def doubling_loop(positions, mom_0, grad, joint, depth_limit: int,
     diverged = torch.zeros((c,), dtype=torch.bool, device=dev)
     depth = torch.zeros((c,), dtype=torch.int32, device=dev)
     j = 0
-    while j < depth_limit and bool(s.any()):
+    while j < depth_limit and any_chains(s, chains):
         v = torch.where(draw_direction(j) < 0.5, -1, 1).to(torch.int32)
         neg = (v == -1)[:, None]
         res = subtree(j, torch.where(neg, pos_m, pos_p),

@@ -10,7 +10,8 @@ as ``draw_uniform(i, k)``: the ``use_pallas=False`` tier passes the step's
 twin (``nuts_full.py``) Philox.
 
 The hash is the TPU kernel's own (``_mix32``/``_hash_u24``/``_hash_unit``)
-over ``(seed0, seed1, i * (max_depth + 1) + k, chain)``, in int32
+over ``(seed0, seed1, i * (max_depth + 1) + k, chain0 + c)`` (the
+chain's global index, ``chain0`` a shard's offset), in int32
 semantics (wrapping multiplies, arithmetic shifts) computed on int64
 tensors, so the twin reproduces the JAX kernel run in interpret mode.
 
@@ -25,6 +26,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ...parallel.collectives import any_chains
 from . import _build
 from .hmc import check_state
 
@@ -68,7 +70,8 @@ def trailing_ones(i: int) -> int:
 
 def build_subtree_plain(target, max_depth: int, pos, mom, grad, logu, v,
                         j: int, epsilon, joint_0, active,
-                        draw_uniform: Callable, leaves=None) -> TreeResult:
+                        draw_uniform: Callable, leaves=None, *,
+                        chains=None) -> TreeResult:
     """Grow the 2^j-leaf subtree for all chains in lockstep
     (``mini_mcmc_tpu/ops/nuts.py:_build_subtree_batched``, reference
     ``nuts.rs:763-946``).
@@ -80,6 +83,9 @@ def build_subtree_plain(target, max_depth: int, pos, mom, grad, logu, v,
     end state and proposal are not used by the caller. ``leaves``, an
     optional ``[C]`` int tensor, is incremented in place by the leaves each
     chain integrates before it stops (the work of a kernel thread).
+    Under ``chains`` (a sharded run's
+    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`) the leaf
+    loop runs while a chain of any shard runs, one scalar reduction a leaf.
     """
     dtype = pos.dtype
     c, dim = pos.shape
@@ -100,7 +106,7 @@ def build_subtree_plain(target, max_depth: int, pos, mom, grad, logu, v,
     diverged = torch.zeros((c,), dtype=torch.bool, device=pos.device)
 
     for i in range(1 << j):
-        if i and not bool(s_run.any()):
+        if i and not any_chains(s_run, chains):
             break
         if leaves is not None:
             leaves += s_run
@@ -189,34 +195,42 @@ def hash_unit(seed0, seed1, event, lane) -> torch.Tensor:
 
 
 def subtree_plain(target, pos, mom, grad, logu, v, j: int, eps, joint0,
-                  active, seed, max_depth: int, leaves=None) -> TreeResult:
+                  active, seed, max_depth: int, leaves=None, *,
+                  chain0: int = 0, chains=None) -> TreeResult:
     """Plain PyTorch twin of the kernel: :func:`build_subtree_plain` with
-    the hash's merge uniforms, lane = chain index (``leaves`` as there)."""
+    the hash's merge uniforms, lane = ``chain0`` + chain index (``leaves``
+    and ``chains`` as there)."""
     subtree_plain.calls += 1
-    lane = torch.arange(pos.shape[0], device=pos.device)
+    lane = torch.arange(chain0, chain0 + pos.shape[0], device=pos.device)
     seed0, seed1 = seed
     events = max_depth + 1
     return build_subtree_plain(
         target, max_depth, pos, mom, grad, logu, v, j, eps, joint0, active,
         lambda i, k: hash_unit(seed0, seed1, i * events + k, lane).to(
-            pos.dtype), leaves)
+            pos.dtype), leaves, chains=chains)
 
 
 subtree_plain.calls = 0
 
 
 def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
-            seed, max_depth: int, *, grid: dict | None = None) -> TreeResult:
+            seed, max_depth: int, *, grid: dict | None = None,
+            chain0: int = 0, chains=None) -> TreeResult:
     """The 2^j-leaf subtree of ``target`` from ``(pos, mom, grad)`` in
     direction ``v`` (``[C]`` int, +-1) at step ``eps [C]``; ``seed`` is the
-    hash's two int32 words. Returns a :class:`TreeResult`.
+    hash's two int32 words, ``chain0`` the global index of the first chain
+    (the hash's lane is the chain's global index). Returns a
+    :class:`TreeResult`. ``chains`` (a sharded run's
+    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`) reaches the
+    twin's leaf loop only: its exit tests every shard's chains.
 
     On the card ``grid``, a dict, receives ``blocks_per_sm`` (the blocks an
     SM holds at this ``j``), ``sms`` and the ``blocks`` launched; it
     changes no result."""
     if not pos.is_cuda:
         return subtree_plain(target, pos, mom, grad, logu, v, j, eps, joint0,
-                             active, seed, max_depth)
+                             active, seed, max_depth, chain0=chain0,
+                             chains=chains)
     if max_depth > MAX_DEPTH or not 0 <= j <= max_depth:
         raise ValueError(
             f"the subtree kernel is built for max_depth <= {MAX_DEPTH} and "
@@ -252,7 +266,7 @@ def subtree(target, pos, mom, grad, logu, v, j: int, eps, joint0, active,
     _build.check(lib.mm_nuts_subtree_f32(
         pos.data_ptr(), mom.data_ptr(), grad.data_ptr(), logu.data_ptr(),
         v.data_ptr(), eps.data_ptr(), joint0.data_ptr(), active.data_ptr(),
-        params, j, max_depth, seed0, seed1, c, d, tid,
+        params, j, max_depth, seed0, seed1, chain0 & _MASK, c, d, tid,
         _build.instance_flags(target), end_pos.data_ptr(),
         end_mom.data_ptr(), end_grad.data_ptr(),
         prop_pos.data_ptr(), prop_grad.data_ptr(), prop_logp.data_ptr(),

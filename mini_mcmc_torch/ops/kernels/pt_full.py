@@ -132,7 +132,7 @@ def _pt_id(functor: str | None, n_temps: int, dim: int,
 
 
 def pt_draws(n_chains: int, n_temps: int, dim: int, n_inner: int,
-             step: int, seed: int, device=None):
+             step: int, seed: int, device=None, chain0: int = 0):
     """One step's Philox draws, as the kernel takes them: ``n_inner``
     normals ``[T, D, C]``, ``n_inner`` accept uniforms ``[T, C]`` and the
     swap uniforms ``[T-1, C]``. Evaluation ``(chain, step, t, i)`` gives
@@ -140,9 +140,9 @@ def pt_draws(n_chains: int, n_temps: int, dim: int, n_inner: int,
     and sine of one Box-Muller pair), word z its accept uniform, and at
     i = 0 word w the swap uniform of pair (t, t+1). Past D = 2 (the user
     instances, D <= 16), normals 2p and 2p + 1 come from words x, y of
-    draw p T + t."""
+    draw p T + t. Chain ``c`` draws as global chain ``chain0 + c``."""
     key = rng.seed_words(seed)
-    chain = torch.arange(n_chains, device=device)
+    chain = torch.arange(chain0, chain0 + n_chains, device=device) & _MASK
     rung = torch.arange(n_temps, device=device)[:, None]
     pair = torch.arange((dim + 1) // 2, device=device)[:, None, None]
     noises, us = [], []
@@ -159,7 +159,7 @@ def pt_draws(n_chains: int, n_temps: int, dim: int, n_inner: int,
 
 def pt_multistep_plain(target, pos, logp, swap_accept, parity: int,
                        lad: Ladder, seed: int, step0: int, k_steps: int,
-                       n_inner: int, hist=None):
+                       n_inner: int, hist=None, *, chain0: int = 0):
     """Plain PyTorch twin of the kernel: :func:`ops.tempering.pt_step` on
     the kernel's Philox draws. Returns ``(pos', logp', swap_accept')``."""
     from ..tempering import PTState, pt_step  # that module imports this one
@@ -169,7 +169,8 @@ def pt_multistep_plain(target, pos, logp, swap_accept, parity: int,
     state = PTState(pos, logp, parity, swap_accept)
     for k in range(k_steps):
         noises, us, u_swap = pt_draws(c, t, d, n_inner,
-                                      (step0 + k) & _MASK, seed, pos.device)
+                                      (step0 + k) & _MASK, seed, pos.device,
+                                      chain0)
         state = pt_step(target, state, lad.beta, lad.sigma_l, noises, us,
                         u_swap)
         if hist is not None:
@@ -182,13 +183,15 @@ pt_multistep_plain.calls = 0
 
 def pt_multistep(target, pos, logp, swap_accept, parity: int, lad: Ladder,
                  seed: int, step0: int, k_steps: int, n_inner: int,
-                 hist=None):
+                 hist=None, *, chain0: int = 0):
     """``k_steps`` PT steps of the ``[T, D, C]`` replica batch from global
     step ``step0``; returns ``(pos', logp', swap_accept')`` and writes the
-    cold rung of each step into ``hist`` when given."""
+    cold rung of each step into ``hist`` when given. ``chain0`` is the
+    global index of the first chain: chain ``c`` draws as ``chain0 + c``."""
     if not pos.is_cuda:
         return pt_multistep_plain(target, pos, logp, swap_accept, parity,
-                                  lad, seed, step0, k_steps, n_inner, hist)
+                                  lad, seed, step0, k_steps, n_inner, hist,
+                                  chain0=chain0)
     if pos.dim() != 3:
         raise ValueError(f"positions must be [T, D, C]; got "
                          f"{tuple(pos.shape)}")
@@ -217,7 +220,8 @@ def pt_multistep(target, pos, logp, swap_accept, parity: int, lad: Ladder,
     _build.check(lib.mm_pt_multistep(
         pos.data_ptr(), logp.data_ptr(), swap_accept.data_ptr(), tparams,
         lad.packed.data_ptr(), c, d, t, k_steps, n_inner, tid, transformed,
-        parity % 2, seed_lo, seed_hi, step0 & _MASK, pos_o.data_ptr(),
+        parity % 2, chain0 & _MASK, seed_lo, seed_hi, step0 & _MASK,
+        pos_o.data_ptr(),
         logp_o.data_ptr(), sa_o.data_ptr(), hist_ptr, hist_sk, hist_sc,
         _build.stream_ptr(pos.device),
     ), lib)

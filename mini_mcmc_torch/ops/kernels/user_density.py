@@ -899,15 +899,15 @@ extern "C" int mm_user_probe(const void* x, int rows, const void* params,
 extern "C" int mm_hmc_multistep_f32(const void* pos, const void* logp,
     const void* grad, const void* eps, const void* params, int k_steps,
     int n_leapfrog, int n_chains, int dim, int target, int affine,
-    uint32_t seed_lo, uint32_t seed_hi, uint32_t step0, void* pos_out,
-    void* logp_out, void* grad_out, void* hist, long long hist_sk,
-    long long hist_sc, void* stream) {
+    uint32_t chain0, uint32_t seed_lo, uint32_t seed_hi, uint32_t step0,
+    void* pos_out, void* logp_out, void* grad_out, void* hist,
+    long long hist_sk, long long hist_sc, void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
   if (dim != kDim || affine != kFlags) return (int)cudaErrorInvalidValue;
   const mm::MultistepArgs a{pos, logp, grad, eps, params, k_steps,
-                            n_leapfrog, n_chains, seed_lo, seed_hi, step0,
-                            pos_out, logp_out, grad_out, hist, hist_sk,
-                            hist_sc, stream};
+                            n_leapfrog, n_chains, chain0, seed_lo, seed_hi,
+                            step0, pos_out, logp_out, grad_out, hist,
+                            hist_sk, hist_sc, stream};
   return mm::launch_multistep<Inst, kDim>(a);
 }
 """),
@@ -915,20 +915,20 @@ extern "C" int mm_hmc_multistep_f32(const void* pos, const void* logp,
 extern "C" int mm_nuts_subtree_f32(const void* pos, const void* mom,
     const void* grad, const void* logu, const void* v, const void* eps,
     const void* joint0, const void* active, const void* params, int j,
-    int max_depth, int32_t seed0, int32_t seed1, int n_chains, int dim,
-    int target, int affine, void* end_pos, void* end_mom, void* end_grad,
-    void* prop_pos, void* prop_grad, void* prop_logp, void* n, void* s,
-    void* alpha, void* n_alpha, void* diverged, int device, int* grid,
-    void* stream) {
+    int max_depth, int32_t seed0, int32_t seed1, uint32_t chain0,
+    int n_chains, int dim, int target, int affine, void* end_pos,
+    void* end_mom, void* end_grad, void* prop_pos, void* prop_grad,
+    void* prop_logp, void* n, void* s, void* alpha, void* n_alpha,
+    void* diverged, int device, int* grid, void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
   if (j < 0 || j > max_depth || max_depth > mm::kMaxDepth ||
       dim != kDim || affine != kFlags)
     return (int)cudaErrorInvalidValue;
   const mm::SubtreeArgs a{pos, mom, grad, logu, v, eps, joint0, active,
-                          params, j, max_depth, seed0, seed1, n_chains,
-                          end_pos, end_mom, end_grad, prop_pos, prop_grad,
-                          prop_logp, n, s, alpha, n_alpha, diverged, device,
-                          grid, stream};
+                          params, j, max_depth, seed0, seed1, chain0,
+                          n_chains, end_pos, end_mom, end_grad, prop_pos,
+                          prop_grad, prop_logp, n, s, alpha, n_alpha,
+                          diverged, device, grid, stream};
   return mm::launch_subtree<Inst, kDim>(a);
 }
 """),
@@ -1086,15 +1086,16 @@ extern "C" int mm_mh_multistep(const void* pos, const void* logp,
 extern "C" int mm_pt_multistep(const void* pos, const void* logp,
     const void* sa, const void* tparams, const void* ladder, int n_chains,
     int dim, int n_temps, int k_steps, int n_inner, int target,
-    int transformed, int parity0, uint32_t seed_lo, uint32_t seed_hi,
-    uint32_t step0, void* pos_out, void* logp_out, void* sa_out, void* hist,
-    long long hist_sk, long long hist_sc, void* stream) {
+    int transformed, int parity0, uint32_t chain0, uint32_t seed_lo,
+    uint32_t seed_hi, uint32_t step0, void* pos_out, void* logp_out,
+    void* sa_out, void* hist, long long hist_sk, long long hist_sc,
+    void* stream) {
   if (n_chains <= 0) return (int)cudaSuccess;
   if (dim != kDim || transformed != kTransformed)
     return (int)cudaErrorInvalidValue;
   const mm::PtArgs a{pos,      logp,    sa,      tparams, ladder,
                      n_chains, n_temps, k_steps, n_inner, parity0,
-                     seed_lo,  seed_hi, step0,   pos_out, logp_out,
+                     chain0,   seed_lo, seed_hi, step0,   pos_out, logp_out,
                      sa_out,   hist,    hist_sk, hist_sc, stream};
   return mm::launch_pt<Target, kDim>(a);
 }

@@ -10,7 +10,8 @@ the state, so each step evaluates the target once.
 Randomness: the plain tier draws the proposal and the accept uniform from
 ``key.generator``; the fused tier (``use_pallas="full"``) draws both from
 the Philox stream at ``(key.seed, chain, key.step, draw)`` inside Kernel 5
-(``kernels/mh_full.py``).
+(``kernels/mh_full.py``). Under a chain mesh a shard draws what the
+unsharded run draws for its chains (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..runner import StepKey, make_scan_block_fn
+from ..parallel.collectives import chain_call, chain_draw, gather_chains
+from ..runner import StepKey, chain0, make_scan_block_fn
 from .kernels.mh_full import mh_multistep, propose_form
 
 
@@ -36,13 +38,15 @@ def _plain_mh_step(target, proposal, state: MHState, key: StepKey):
     (``metropolis_hastings.rs:309-313``); HMC's accept is ``>=``."""
     pos = state.positions
     gen = key.generator
-    proposed = proposal.sample(gen, pos)
+    # a shard proposes from the global shape's draws (collectives.py)
+    proposed = chain_call(key.chains, lambda x: proposal.sample(gen, x), pos)
     proposed_lp = target.batch_logp(proposed)
     log_q_fwd = proposal.logp(pos, proposed)
     log_q_bwd = proposal.logp(proposed, pos)
     log_accept = (proposed_lp + log_q_bwd) - (state.logp + log_q_fwd)
-    u = torch.rand((pos.shape[0],), generator=gen, dtype=log_accept.dtype,
-                   device=pos.device)
+    u = chain_draw(key.chains, lambda s: torch.rand(
+        s, generator=gen, dtype=log_accept.dtype, device=pos.device),
+        (pos.shape[0],))
     accept = log_accept > torch.log(u)  # NaN compares False
     positions = torch.where(accept[:, None], proposed, pos)
     logp = torch.where(accept, proposed_lp, state.logp)
@@ -53,13 +57,15 @@ def mh_step_alpha(target, proposal_family):
     """Adaptation hook for the proposal scale: ``proposal_family(factor) ->
     Proposal`` (``Proposal.scaled``). Returns ``step_eps(state, key,
     factor) -> (MHState, mean_alpha)``, ``mean_alpha`` the cross-chain mean
-    of ``min(1, exp(log_accept))`` with NaN counted as 0."""
+    of ``min(1, exp(log_accept))`` with NaN counted as 0 (over every shard
+    under a chain mesh)."""
 
     def step_eps(state: MHState, key: StepKey, factor):
         state, log_accept = _plain_mh_step(
             target, proposal_family(float(factor)), state, key)
         alpha = torch.clamp(torch.exp(log_accept), max=1.0)
-        return state, torch.mean(torch.nan_to_num(alpha, nan=0.0))
+        return state, torch.mean(torch.nan_to_num(
+            gather_chains(alpha, key.chains), nan=0.0))
 
     return step_eps
 
@@ -103,7 +109,8 @@ def mh_kernel(target, proposal, *, use_pallas=False, steps_per_call: int = 1):
     def step_fn(state: MHState, key: StepKey) -> MHState:
         if full:
             return MHState(*mh_multistep(target, proposal, state.positions,
-                                         state.logp, key.seed, key.step, 1))
+                                         state.logp, key.seed, key.step, 1,
+                                         chain0=chain0(key)))
         return _plain_mh_step(target, proposal, state, key)[0]
 
     if steps_per_call > 1:
@@ -113,7 +120,7 @@ def mh_kernel(target, proposal, *, use_pallas=False, steps_per_call: int = 1):
             def block_fn(state: MHState, key: StepKey, out=None):
                 return MHState(*mh_multistep(
                     target, proposal, state.positions, state.logp, key.seed,
-                    key.step, k, out))
+                    key.step, k, out, chain0=chain0(key)))
         else:
             block_fn = make_scan_block_fn(step_fn, k)
         step_fn.block_fn = block_fn

@@ -23,6 +23,14 @@ plain PyTorch on every tier, as the JAX package leaves them to XLA. The
 step count ``m`` and the adaptation horizon ``n_discard`` are the same for
 every chain, so the state keeps them as host integers: the warm-up depth
 cap and the adaptation switch then need no device read.
+
+Under a chain mesh (``key.chains``) the generator tiers draw the global
+shapes and keep the shard's chains, Kernels 3 and 4 take the shard's first
+global chain, the lockstep doubling and leaf loops run while a chain of
+any shard runs, and the executed-leapfrog count is the deepest chain's
+over every shard.
+The step-size search stays local: it draws nothing inside its loop, so a
+shard with no sentinel chain skipping it changes no draw.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..runner import StepKey
+from ..parallel.collectives import chain_draw, max_chains
+from ..runner import StepKey, chain0
 from .kernels import rng
 from .kernels.nuts_full import doubling_loop, nuts_step
 from .kernels.nuts_subtree import build_subtree_plain, popcount, subtree
@@ -293,8 +302,9 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
     def prepare_fn(state: NUTSState, key: StepKey,
                    n_discard: int) -> NUTSState:
         pos = state.positions
-        mom_0 = torch.randn(pos.shape, generator=key.generator,
-                            dtype=pos.dtype, device=pos.device)
+        mom_0 = chain_draw(key.chains, lambda s: torch.randn(
+            s, generator=key.generator, dtype=pos.dtype, device=pos.device),
+            pos.shape)
         sentinel = (state.epsilon + 1.0).abs() <= torch.finfo(pos.dtype).eps
         epsilon = state.epsilon
         # the search runs only while some chain carries the sentinel (the
@@ -312,7 +322,7 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
                                    warmup_max_depth)
         sel, alpha, n_alpha, diverged, depth = nuts_step(
             target, state.positions, state.epsilon, depth_limit, key.seed,
-            key.step, max_depth)
+            key.step, max_depth, chain0(key))
         inc = torch.pow(2, depth.to(torch.int64)) - 1
         return _finish_step(state, target_accept_p, m, sel, alpha, n_alpha,
                             diverged > 0.5, inc)
@@ -323,35 +333,48 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
         kw = dict(dtype=positions.dtype, device=positions.device)
         gen = step_generator(key.seed, key.step, positions.device)
         m = state.m + 1
-        mom_0 = torch.randn(positions.shape, generator=gen, **kw)
+        chains = key.chains
+
+        def draw(fn, shape, axis=0):
+            return chain_draw(chains, fn, shape, axis)
+
+        mom_0 = draw(lambda s: torch.randn(s, generator=gen, **kw),
+                     positions.shape)
         logp, grad = target.batch_logp_and_grad(positions)
         joint = logp - 0.5 * torch.sum(mom_0 * mom_0, dim=1)
-        logu = joint - torch.empty((c,), **kw).exponential_(generator=gen)
+        logu = joint - draw(lambda s: torch.empty(s, **kw).exponential_(
+            generator=gen), (c,))
         depth_limit = _depth_limit(m, state.n_discard, max_depth,
                                    warmup_max_depth)
         # the direction and progressive-accept uniforms of every doubling,
         # and each subtree's 2^j - 1 merge uniforms in one block drawn when
         # the doubling starts: how many draws precede any one is fixed, so
         # a chain's draws do not depend on how long other chains run
-        directions = torch.rand((max_depth, c), generator=gen, **kw)
-        accepts = torch.rand((max_depth, c), generator=gen, **kw)
+        def uniforms(shape):
+            return draw(lambda s: torch.rand(s, generator=gen, **kw), shape,
+                        1)
+
+        directions = uniforms((max_depth, c))
+        accepts = uniforms((max_depth, c))
 
         def tree(j, p, mo, g, v, active):
             if use_pallas:
                 return subtree(target, p, mo, g, logu, v, j, state.epsilon,
                                joint, active,
-                               subtree_seed(key.seed, key.step, j), max_depth)
-            merges = torch.rand(((1 << j) - 1, c), generator=gen, **kw)
+                               subtree_seed(key.seed, key.step, j), max_depth,
+                               chain0=chain0(key), chains=chains)
+            merges = uniforms(((1 << j) - 1, c))
             return build_subtree_plain(
                 target, max_depth, p, mo, g, logu, v, j, state.epsilon,
                 joint, active,
-                lambda i, k: merges[i - popcount(i) + k])
+                lambda i, k: merges[i - popcount(i) + k], chains=chains)
 
         sel, alpha, n_alpha, diverged, depth = doubling_loop(
             positions, mom_0, grad, joint, depth_limit,
-            directions.__getitem__, accepts.__getitem__, tree)
-        # every chain pays the lockstep loop: 2^J - 1 leapfrogs
-        n_doublings = int(depth.max()) if c else 0
+            directions.__getitem__, accepts.__getitem__, tree, chains)
+        # every chain pays the lockstep loop: 2^J - 1 leapfrogs, J the
+        # deepest chain's over every shard
+        n_doublings = max(max_chains(depth, chains), 0)
         return _finish_step(state, target_accept_p, m, sel, alpha, n_alpha,
                             diverged, (1 << n_doublings) - 1)
 

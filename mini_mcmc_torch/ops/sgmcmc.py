@@ -1,7 +1,6 @@
 """Stochastic-gradient MCMC: SGLD, pSGLD, SGHMC.
 
-Counterpart of ``mini_mcmc_tpu/ops/sgmcmc.py`` (all but
-``data_parallel_grad``, which needs a device mesh):
+Counterpart of ``mini_mcmc_tpu/ops/sgmcmc.py``:
 
 - **SGLD** (Welling & Teh, ICML 2011): Langevin dynamics driven by an
   unbiased minibatch estimate of ``grad log pi``; with a decaying step size
@@ -10,6 +9,9 @@ Counterpart of ``mini_mcmc_tpu/ops/sgmcmc.py`` (all but
   preconditioner, for badly scaled posteriors.
 - **SGHMC** (Chen, Fox & Guestrin, ICML 2014): underdamped Langevin with
   friction, the momentum variant that survives gradient noise.
+- :func:`data_parallel_grad`: the minibatch gradient over a dataset whose
+  rows are split over a ``"data"`` mesh (``parallel/mesh.py``), one
+  all-reduce a call.
 
 :func:`minibatch_grad` hands the whole minibatch to the user's
 ``log_like(position, batch) -> scalar``, maps it over the chains with
@@ -37,7 +39,8 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from ..runner import StepKey, key_generator, make_scan_block_fn
+from ..parallel.collectives import all_reduce, chain_draw
+from ..runner import StepKey, key_chains, key_generator, make_scan_block_fn
 from ..utils.init import resolve_device
 
 
@@ -176,13 +179,136 @@ def minibatch_grad(
         return g
 
     def grad_fn(positions, key):
-        shape = ((batch_size,) if shared_batch
-                 else (positions.shape[0], batch_size))
-        idx = torch.randint(0, n, shape, generator=key_generator(key),
-                            device=positions.device)
+        def draw(shape):
+            return torch.randint(0, n, shape, generator=key_generator(key),
+                                 device=positions.device)
+
+        if shared_batch:
+            idx = draw((batch_size,))
+        else:  # a chain shard's rows of the global draw
+            idx = chain_draw(key_chains(key), draw,
+                             (positions.shape[0], batch_size))
         return on_indices(positions, idx)
 
     grad_fn.on_indices = on_indices
+    return grad_fn
+
+
+def data_parallel_grad(log_prior: Callable, log_like: Callable, data,
+                       batch_size: int, mesh, *,
+                       axis: Optional[str] = None) -> Callable:
+    """Data-sharded stochastic gradient for SG-MCMC over a mesh
+    (``mini_mcmc_tpu/ops/sgmcmc.py:162-301``).
+
+    :func:`minibatch_grad` keeps the dataset on one device; this is its
+    sibling for a dataset split over the ranks of a mesh axis. The rows
+    split on the leading axis, ``N / n_shards`` a rank. Every call each
+    rank draws ``batch_size / n_shards`` rows from its own shard, takes the
+    partial minibatch-likelihood gradient of the (replicated) ``[C, D]``
+    chains, and the partials reduce with ONE all-reduce of ``[C, D]``: the
+    one collective a call. The prior's gradient is taken locally. The
+    estimator is unbiased for equal shards: uniform draws within each
+    shard, scaled by ``N / B`` as :func:`minibatch_grad` scales them
+    (stratified by shard, each datum counted with weight ``N / B`` in
+    expectation).
+
+    Args:
+        log_prior / log_like / batch_size: as :func:`minibatch_grad`
+            (``log_like`` receives the rank's minibatch).
+        data: a ``[N, ...]`` tensor or array, or a tuple, list or dict of
+            them sharing the leading axis. ``N`` and ``batch_size`` must
+            divide by the axis size. Each rank keeps its own rows, moved to
+            the mesh's device; a leaf that is already a DTensor is taken
+            only as ``Shard(0)`` over ``axis`` of this mesh (anything else
+            raises: a reshard every call would add collectives).
+        mesh: a mesh (:func:`~mini_mcmc_torch.parallel.data_mesh`).
+        axis: the mesh axis the rows split over (default: the mesh's
+            first). The chains are replicated over it: do not shard them
+            over the same axis.
+
+    Returns:
+        ``grad_fn(positions [C, D], key) -> [C, D]``, usable with
+        :class:`~mini_mcmc_torch.SGLD` / :class:`~mini_mcmc_torch.SGHMC`.
+        Rank r's indices are row r of one ``[n_shards, B / n_shards]``
+        draw from the key's generator: distinct per rank, fixed by the
+        key, and every rank's generator advances alike.
+    """
+    from ..parallel.mesh import _dtensor, _mesh_device
+
+    dtensor, shard, _ = _dtensor()
+    leaves = _leaves(data)
+    if not leaves:
+        raise ValueError("data must contain at least one array")
+    n = leaves[0].shape[0]
+    for leaf in leaves:
+        if leaf.shape[0] != n:
+            raise ValueError(
+                "all data leaves must share the leading axis; got "
+                f"{[leaf.shape[0] for leaf in leaves]}"
+            )
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis is None:
+        axis = names[0]
+    if axis not in names:
+        raise ValueError(f"the mesh has no '{axis}' axis; got {names}")
+    dim = names.index(axis)
+    n_shards, rank = mesh.size(dim), mesh.get_local_rank(dim)
+    if n % n_shards != 0:
+        raise ValueError(
+            f"N={n} must divide by the '{axis}' mesh axis ({n_shards}); "
+            "pad or trim the dataset to equal shards (unequal shards "
+            "bias the estimator)"
+        )
+    if batch_size % n_shards != 0 or not 1 <= batch_size <= n:
+        raise ValueError(
+            f"batch_size must be in [1, {n}] and divide by the mesh "
+            f"axis size {n_shards}, got {batch_size}"
+        )
+    b_loc, n_loc = batch_size // n_shards, n // n_shards
+    scale = n / batch_size
+    device = _mesh_device(mesh)
+    group = mesh.get_group(dim)
+
+    def local_rows(a):
+        if isinstance(a, dtensor):
+            want = [f"Shard(dim=0) on '{axis}'" if i == dim else "Replicate()"
+                    for i in range(mesh.ndim)]
+            ok = (a.device_mesh == mesh and all(
+                isinstance(p, shard) and p.dim == 0 if i == dim
+                else not isinstance(p, shard)
+                for i, p in enumerate(a.placements)))
+            if not ok:
+                raise ValueError(
+                    "data_parallel_grad: a data leaf is pre-sharded as "
+                    f"{tuple(a.placements)} on a mesh with axes "
+                    f"{tuple(a.device_mesh.mesh_dim_names or ())}, which "
+                    f"does not match the required layout {want} on this "
+                    f"mesh's axes {names}; pass it unsharded (each rank "
+                    f"keeps its rows) or shard it over the mesh's '{axis}' "
+                    "axis on dimension 0")
+            return a.to_local().to(device)
+        a = torch.as_tensor(a)
+        return a.narrow(0, rank * n_loc, n_loc).to(device)
+
+    local = _tree_map(local_rows, data)
+
+    def like_hat(x, batch):
+        return scale * log_like(x, batch)
+
+    like_batched = torch.func.vmap(like_hat, in_dims=(0, None))
+    prior_batched = torch.func.vmap(log_prior)
+
+    def grad_fn(positions, key):
+        idx = torch.randint(0, n_loc, (n_shards, b_loc),
+                            generator=key_generator(key),
+                            device=positions.device)[rank]
+        batch = _tree_map(lambda a: a[idx], local)
+        x = positions.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (g_like,) = torch.autograd.grad(like_batched(x, batch).sum(), x)
+            (g_prior,) = torch.autograd.grad(prior_batched(x).sum(), x)
+        return g_prior + all_reduce(g_like, group).to(positions.dtype)
+
     return grad_fn
 
 
@@ -269,8 +395,9 @@ def _check_common(temperature: float, steps_per_call: int) -> None:
 
 
 def _noise(x: torch.Tensor, key) -> torch.Tensor:
-    return torch.randn(x.shape, generator=key_generator(key), dtype=x.dtype,
-                       device=x.device)
+    return chain_draw(key_chains(key), lambda s: torch.randn(
+        s, generator=key_generator(key), dtype=x.dtype, device=x.device),
+        x.shape)
 
 
 def _with_blocks(step_fn, steps_per_call: int):

@@ -22,6 +22,11 @@ update's draws are made up front (``max_shrink`` shrink uniforms), so the
 result does not depend on how often the host tests. No kernel: the JAX
 package runs these loops in XLA. :func:`slice_update` takes its draws as
 inputs, so a test can hand it the JAX package's own.
+
+Under a chain mesh (``key.chains``) a shard draws the global shapes and
+keeps its chains' draws, and a loop's test asks whether a chain of any
+shard is pending (one scalar all-reduce a test), so every rank runs the
+same iterations (``mini_mcmc_tpu``'s global ``any``).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..parallel.collectives import any_chains, chain_draw
 from ..runner import StepKey, make_scan_block_fn
 
 
@@ -48,18 +54,19 @@ class CoordinateDraws(NamedTuple):
 
 
 def masked_loop(body: Callable, carry, pending: Callable, n_max: int,
-                test_every: int):
+                test_every: int, chains=None):
     """``carry = body(carry, i)`` for ``i = 0, 1, ...`` while
     ``pending(carry)`` (a 0-d bool device tensor) and ``i < n_max``, as a
     ``lax.while_loop`` would; ``pending`` is read on the host before every
     ``test_every``-th iteration only. Exact when a body with nothing
     pending returns its carry unchanged and nothing once done becomes
-    pending again. Each read adds one to ``masked_loop.host_tests``."""
+    pending again. Each read adds one to ``masked_loop.host_tests``. Under
+    ``chains`` (a sharded run's ChainGroup) a test reads every shard's."""
     i = 0
     while i < n_max:
         if i % test_every == 0:
             masked_loop.host_tests += 1
-            if not bool(pending(carry)):
+            if not any_chains(pending(carry), chains):
                 break
         carry = body(carry, i)
         i += 1
@@ -75,19 +82,26 @@ TEST_EVERY = 2
 
 
 def coordinate_draws(gen: torch.Generator, n_chains: int, max_stepouts: int,
-                     max_shrink: int, like: torch.Tensor) -> CoordinateDraws:
-    """A coordinate update's draws from ``gen``, on ``like``'s device."""
+                     max_shrink: int, like: torch.Tensor,
+                     chains=None) -> CoordinateDraws:
+    """A coordinate update's draws from ``gen``, on ``like``'s device (a
+    shard's rows of the global draws under ``chains``)."""
     f = dict(generator=gen, dtype=like.dtype, device=like.device)
+
+    def rand(shape, axis=0):
+        return chain_draw(chains, lambda s: torch.rand(s, **f), shape, axis)
+
     return CoordinateDraws(
-        torch.rand((n_chains,), **f), torch.rand((n_chains,), **f),
-        torch.randint(0, max_stepouts, (n_chains,), generator=gen,
-                      device=like.device),
-        torch.rand((max_shrink, n_chains), **f))
+        rand((n_chains,)), rand((n_chains,)),
+        chain_draw(chains, lambda s: torch.randint(
+            0, max_stepouts, s, generator=gen, device=like.device),
+            (n_chains,)),
+        rand((max_shrink, n_chains), 1))
 
 
 def slice_update(target, positions, logp, i: int, w: float,
                  draws: CoordinateDraws, max_stepouts: int,
-                 test_every: int = TEST_EVERY):
+                 test_every: int = TEST_EVERY, chains=None):
     """One slice update of coordinate ``i`` for every chain on given draws
     (``slice.py:105-190``), bracket width ``w`` (a float32 value). Returns
     the new ``(positions, logp)``, the same for any ``test_every``."""
@@ -126,7 +140,7 @@ def slice_update(target, positions, logp, i: int, w: float,
     left, right, *_ = masked_loop(
         out_body, (left, right, jb, kb, fl, fr, *grow(jb, kb, fl, fr)),
         lambda carry: (carry[6] | carry[7]).any(), max_stepouts - 1,
-        test_every)
+        test_every, chains)
 
     def shr_body(carry, it):
         lv, rv, x_new, lp_new, pending = carry
@@ -145,7 +159,8 @@ def slice_update(target, positions, logp, i: int, w: float,
     pending0 = torch.ones((c,), dtype=torch.bool, device=positions.device)
     _, _, x_new, lp_new, _ = masked_loop(
         shr_body, (left, right, x, logp, pending0),
-        lambda carry: carry[4].any(), draws.u_shrink.shape[0], test_every)
+        lambda carry: carry[4].any(), draws.u_shrink.shape[0], test_every,
+        chains)
     return torch.where(column, x_new[:, None], positions), lp_new
 
 
@@ -185,9 +200,10 @@ def slice_kernel(target, *, width=1.0, max_stepouts: int = 8,
         widths = width.to(positions.dtype).expand(d).tolist()
         for i in range(d):
             draws = coordinate_draws(key.generator, c, max_stepouts,
-                                     max_shrink, positions)
+                                     max_shrink, positions, key.chains)
             positions, logp = slice_update(target, positions, logp, i,
-                                           widths[i], draws, max_stepouts)
+                                           widths[i], draws, max_stepouts,
+                                           chains=key.chains)
         return SliceState(positions, logp)
 
     if steps_per_call > 1:

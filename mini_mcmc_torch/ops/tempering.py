@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..runner import StepKey
+from ..parallel.collectives import chain_draw
+from ..runner import StepKey, chain0
 from .kernels.pt_full import make_ladder, pt_multistep
 
 #: EWMA weight of the swap-acceptance diagnostic
@@ -40,6 +41,12 @@ class PTState(NamedTuple):
     raw_logp: torch.Tensor  # [T, C] untempered log density
     parity: int  # which pair parity swaps next (a host int)
     swap_accept: torch.Tensor  # [T-1, C] EWMA of the swap accepts
+
+    #: chain axis per field for ``parallel.shard_sampler_state``
+    #: (``mini_mcmc_tpu/ops/tempering.py:84-89``): the chains sit behind
+    #: the ladder, so the swap sweep's ladder-axis shifts stay local
+    CHAIN_AXIS_INDEX = {"positions": 2, "raw_logp": 1, "swap_accept": 1,
+                        "parity": None}
 
 
 def geometric_betas(n_temps: int, beta_min: float = 0.01) -> tuple:
@@ -188,15 +195,19 @@ def tempering_kernel(target, betas: Sequence[float], *, proposal_std=1.0,
     def plain_step(state: PTState, key: StepKey) -> PTState:
         lad = _ladder(state.positions)
         gen, pos = key.generator, state.positions
+        f = dict(generator=gen, dtype=state.raw_logp.dtype, device=pos.device)
+
+        def rand(shape):  # [..., C]: a shard's chains of the global draw
+            return chain_draw(key.chains, lambda s: torch.rand(s, **f),
+                              shape, len(shape) - 1)
+
         noises, us = [], []
         for _ in range(n_inner):
-            noises.append(torch.randn(pos.shape, generator=gen,
-                                      dtype=pos.dtype, device=pos.device))
-            us.append(torch.rand(state.raw_logp.shape, generator=gen,
-                                 dtype=state.raw_logp.dtype,
-                                 device=pos.device))
-        u_swap = torch.rand(state.swap_accept.shape, generator=gen,
-                            dtype=state.raw_logp.dtype, device=pos.device)
+            noises.append(chain_draw(key.chains, lambda s: torch.randn(
+                s, generator=gen, dtype=pos.dtype, device=pos.device),
+                pos.shape, 2))
+            us.append(rand(state.raw_logp.shape))
+        u_swap = rand(state.swap_accept.shape)
         return pt_step(target, state, lad.beta, lad.sigma_l, noises, us,
                        u_swap)
 
@@ -204,7 +215,7 @@ def tempering_kernel(target, betas: Sequence[float], *, proposal_std=1.0,
         pos, lp, sa = pt_multistep(
             target, state.positions, state.raw_logp, state.swap_accept,
             state.parity, _ladder(state.positions), key.seed, key.step,
-            k_steps, n_inner, out)
+            k_steps, n_inner, out, chain0=chain0(key))
         return PTState(pos, lp, (state.parity + k_steps) % 2, sa)
 
     if use_pallas:

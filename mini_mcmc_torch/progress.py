@@ -104,12 +104,14 @@ def _chunk_size(total: int, k: int) -> int:
     return chunk
 
 
-def _tick(tracker) -> tuple:
+def _tick(tracker, chains=None) -> tuple:
     """``(p_accept, p_accept_chains, max_rhat)`` on the host, in one
-    transfer."""
-    host = torch.cat([tracker.p_accept.reshape(1),
-                      stats_mod.tracker_max_rhat(tracker).reshape(1),
-                      tracker.p_accept_chains]).cpu()
+    transfer; a sharded run's global acceptance and R-hat beside its own
+    chains' (``chains``, :func:`~mini_mcmc_torch.stats.tracker_stats`)."""
+    host = torch.cat([
+        stats_mod.tracker_stats(tracker, chains).p_accept.reshape(1),
+        stats_mod.tracker_max_rhat(tracker, chains).reshape(1),
+        tracker.p_accept_chains]).cpu()
     return float(host[0]), host[2:], float(host[1])
 
 
@@ -135,6 +137,8 @@ def progress_run(runner: Callable, state, key, n_collect: int,
     cube and count toward ``n_collect``.
     """
     stream = stream if stream is not None else sys.stderr
+    chains = getattr(key, "chains", None)
+    collective_ticks = chains is not None and chains.size > 1
     k = max(1, block_size)
     tail_runner = tail_runner if tail_runner is not None else runner
     n_initial = 0 if initial_rows is None else int(initial_rows.shape[0])
@@ -203,11 +207,14 @@ def progress_run(runner: Callable, state, key, n_collect: int,
 
         now = time.monotonic()
         final = done >= total
-        if stats is None or now - last_stats >= _STATS_SECONDS or final:
+        # a sharded run's tick reduces across ranks, so every rank ticks
+        # at every chunk: a clock's tick would fall on one rank alone
+        if (stats is None or now - last_stats >= _STATS_SECONDS or final
+                or collective_ticks):
             # the stats tick: one transfer to the host, then rotate
             if stats is not None:
                 display.rotate()
-            stats = _tick(tracker)
+            stats = _tick(tracker, chains)
             last_stats = now
         if now - last_render >= _REFRESH_SECONDS or final:
             display.render(done + n_initial, stats[0], stats[1], stats[2],

@@ -23,7 +23,9 @@ Every runner takes ``tracker=`` (a :class:`~mini_mcmc_torch.stats.
 TrackerState`, or ``None``) and ``out=`` (a caller's cube, or a view of its
 rows ``lo:hi``, in place of a fresh one) and returns ``(state, cube,
 tracker)``. The tracker folds every step, burn-in included, in the user's
-coordinates, as in the JAX package (``mini_mcmc_tpu/runner.py:35-65``).
+coordinates, as in the JAX package (``mini_mcmc_tpu/runner.py:35-65``);
+under a chain mesh it folds the shard's chains at their global places
+(``key.chains``).
 Without a tracker a run launches and writes exactly what it would without
 the keyword.
 """
@@ -42,11 +44,32 @@ def _default_positions_of(state):
 
 
 class StepKey(NamedTuple):
-    """Randomness of one sampler step, or of the first step of a block."""
+    """Randomness of one sampler step, or of the first step of a block.
+
+    ``chains`` places a sharded run's chains among every shard's (a
+    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`: the first
+    global chain, the global count, the group); ``None`` unsharded. The
+    kernels draw as global chain ``chains.chain0 + c``, the lockstep tiers
+    draw the global shape and keep their rows, and a loop's exit or a
+    cross-chain mean reduces over the group."""
 
     seed: int  # the run's 64-bit Philox key
     step: int  # global step index within the run
     generator: torch.Generator  # on the positions' device
+    chains: object = None  # a ChainGroup under a chain mesh
+
+
+def chain0(key) -> int:
+    """The global index of the first chain a step of ``key`` runs: 0
+    unsharded."""
+    chains = getattr(key, "chains", None)
+    return 0 if chains is None else chains.chain0
+
+
+def key_chains(key):
+    """``key.chains`` of a :class:`StepKey`, ``None`` for a bare
+    generator."""
+    return getattr(key, "chains", None)
 
 
 def key_generator(key) -> torch.Generator:
@@ -100,7 +123,7 @@ def make_simple_runner(step_fn: Callable,
                 continue
             pos = positions_of(state)
             if tracker is not None:
-                tracker = tracker_update(tracker, pos)
+                tracker = tracker_update(tracker, pos, key.chains)
             if i >= n_discard:
                 j = i - n_discard
                 _rows(cube, j, j + 1, time_major)[0].copy_(pos)
@@ -164,7 +187,7 @@ def make_block_runner(block_fn: Callable, block_size: int,
             if scratch is not None:
                 tracker = tracker_update_rows(
                     tracker, scratch if positions_map is None
-                    else positions_map(scratch))
+                    else positions_map(scratch), key.chains)
         for lo in range(0, n_collect, k):
             rows = _rows(cube, lo, lo + k, time_major)
             state = block_fn(
@@ -172,7 +195,7 @@ def make_block_runner(block_fn: Callable, block_size: int,
             if positions_map is not None:
                 rows.copy_(positions_map(rows))
             if tracker is not None:
-                tracker = tracker_update_rows(tracker, rows)
+                tracker = tracker_update_rows(tracker, rows, key.chains)
         return state, cube, tracker
 
     return run
@@ -208,7 +231,7 @@ def make_initial_recording_runner(
                 continue
             pos = positions_of(state)
             if tracker is not None:
-                tracker = tracker_update(tracker, pos)
+                tracker = tracker_update(tracker, pos, key.chains)
             if i >= skip:
                 r = first_row + i - skip
                 _rows(cube, r, r + 1, time_major)[0].copy_(pos)

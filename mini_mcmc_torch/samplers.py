@@ -18,6 +18,15 @@ Seeding: each sampler owns a CPU ``torch.Generator``. Every ``run()`` takes
 fresh words from it: a 64-bit Philox key for the fused kernel, and the seed
 of a generator on the positions' device for the step-size jitter and the
 non-fused tiers' draws, so no draw syncs the host.
+
+Chain sharding: ``sampler.state = parallel.shard_sampler_state(mesh,
+sampler.state)`` lays the chains out over a chain mesh (``parallel/``).
+The sampler then keeps its rank's rows (``_state``) and where they lie
+(``_layout``); ``state``, ``positions`` and the sample cubes come back as
+DTensors sharded on their chain axis, and every step draws at its chains'
+global places (``StepKey.chains``), so a shard's rows equal the unsharded
+run's from the same seed. Assigning a sharded state hands every rank
+rank 0's generator (one broadcast).
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ from .ops.mh import mh_kernel, mh_step_alpha
 from .ops.sgmcmc import sghmc_kernel, sgld_kernel
 from .ops.slice import slice_kernel
 from .ops.tempering import geometric_betas, tempering_kernel, tune_betas
+from .parallel.collectives import broadcast, gather_chains
+from .parallel.mesh import _mesh_device, local_state
 from .progress import progress_run
 from .runner import (
     StepKey,
@@ -168,7 +179,7 @@ def _unconstrained_positions(sampler) -> torch.Tensor:
     115-123``): the kernels run, and a metric whitens, the transform's
     y-space, so estimating from the natural ``positions`` would whiten the
     wrong space."""
-    pos = sampler.state.positions
+    pos = gather_chains(sampler._state.positions, sampler._chains)
     if sampler.metric is not None:
         pos = sampler.metric.to_x(pos)
     return pos
@@ -188,6 +199,7 @@ class _KernelSampler:
                 "initial_positions must be [n_chains, dim]; got shape "
                 f"{tuple(initial_positions.shape)}"
             )
+        self._layout = None
         self.state = init_fn(initial_positions)
         self._step_fn = step_fn
         self._gen = _generator(seed)
@@ -219,6 +231,52 @@ class _KernelSampler:
             return pos
         return self._positions_map(pos)
 
+    @property
+    def state(self):
+        """The chains' state NamedTuple; under a chain mesh its tensor
+        leaves are DTensors (``parallel.shard_sampler_state``). Assigning
+        a sharded state shards this sampler."""
+        return (self._state if self._layout is None
+                else self._layout.wrap(self._state))
+
+    @state.setter
+    def state(self, value):
+        local, layout = local_state(value)
+        if layout is not None:
+            self._check_shard(local)
+            if layout.chains.size > 1:
+                self._share_generator(layout)
+        self._state, self._layout = local, layout
+
+    def _check_shard(self, local) -> None:
+        """Raise for a shard this sampler cannot run (the ensemble
+        sampler's whole ensembles)."""
+
+    def _share_generator(self, layout) -> None:
+        """Every rank takes group rank 0's generator, so that a sharded
+        run draws one stream whatever seed each rank was built with."""
+        g = self._gen.get_state().to(_mesh_device(layout.mesh))
+        broadcast(g, layout.chains.group)
+        self._gen.set_state(g.cpu())
+
+    @property
+    def _chains(self):
+        """The rank's :class:`~mini_mcmc_torch.parallel.collectives.
+        ChainGroup`, ``None`` unsharded."""
+        return None if self._layout is None else self._layout.chains
+
+    def _out(self, x: torch.Tensor, axis: int = 0):
+        """A local tensor whose axis ``axis`` holds the rank's chains, as
+        the caller sees it: itself unsharded, else a DTensor."""
+        return x if self._layout is None else self._layout.wrap_chains(x,
+                                                                       axis)
+
+    def _shard_like(self, new):
+        """``new`` (built from this sampler's local rows) sharded as this
+        sampler is."""
+        new._layout = self._layout
+        return new
+
     def seed(self, seed: int):
         """Reseed the sampler (chainable)."""
         self._gen = _generator(seed)
@@ -235,35 +293,40 @@ class _KernelSampler:
     def _next_key(self) -> StepKey:
         w = torch.randint(0, 2**32, (3,), generator=self._gen,
                           dtype=torch.int64).tolist()
-        device = self.state.positions.device
+        device = self._state.positions.device
         gen = torch.Generator(device=device).manual_seed(w[2])
-        return StepKey(seed=w[0] | (w[1] << 32), step=0, generator=gen)
+        return StepKey(seed=w[0] | (w[1] << 32), step=0, generator=gen,
+                       chains=self._chains)
 
     @property
     def positions(self) -> torch.Tensor:
         """``[n_chains, dim]`` in the user's coordinates (the state's own
         are unconstrained under a transform, whitened under a metric)."""
-        return self._positions_of(self.state)
+        return self._out(self._positions_of(self._state))
 
     @property
     def n_chains(self) -> int:
-        return self.state.positions.shape[0]
+        """The chains over every shard."""
+        if self._layout is not None:
+            return self._layout.chains.n_chains
+        return self._recorded(self._state).shape[0]
 
     @property
     def dim(self) -> int:
-        return self.state.positions.shape[1]
+        return self._state.positions.shape[1]
 
     def run(self, n_collect: int, n_discard: int = 0, *,
             time_major: bool = False) -> torch.Tensor:
         """Advance ``n_collect + n_discard`` steps; return the last
         ``n_collect`` states as ``[n_chains, n_collect, dim]``, or
         ``[n_collect, n_chains, dim]`` with ``time_major=True`` (the layout
-        the fused kernel writes rows into contiguously)."""
-        self.state, sample, _ = self._runner(
-            self.state, self._next_key(), n_collect, n_discard,
+        the fused kernel writes rows into contiguously). A sharded sampler
+        returns the cube as a DTensor sharded on its chain axis."""
+        self._state, sample, _ = self._runner(
+            self._state, self._next_key(), n_collect, n_discard,
             time_major=time_major,
         )
-        return sample
+        return self._out(sample, 1 if time_major else 0)
 
     def run_progress(self, n_collect: int, n_discard: int = 0, *,
                      stream=None, time_major: bool = False
@@ -274,13 +337,16 @@ class _KernelSampler:
         ``(sample, run_stats(sample))``. A fused sampler runs its K-step
         blocks for the K-aligned bulk and single steps for a sub-K tail;
         at K-aligned lengths the cube is the one :meth:`run` gives from
-        the same seed."""
-        self.state, sample = progress_run(
-            self._runner, self.state, self._next_key(), n_collect,
-            n_discard, n_chains=self.n_chains, dim=self.dim, stream=stream,
-            time_major=time_major, block_size=self._progress_block_size,
+        the same seed. A sharded sampler's display shows the global
+        acceptance and R-hat and its rank's chains."""
+        self._state, sample = progress_run(
+            self._runner, self._state, self._next_key(), n_collect,
+            n_discard, n_chains=self._recorded(self._state).shape[0],
+            dim=self.dim, stream=stream, time_major=time_major,
+            block_size=self._progress_block_size,
             tail_runner=self._simple_runner,
         )
+        sample = self._out(sample, 1 if time_major else 0)
         return sample, run_stats(sample, time_major=time_major)
 
 
@@ -392,11 +458,11 @@ class MetropolisHastings(_KernelSampler):
         # mini_mcmc_tpu/samplers.py:340, a fault not copied)
         step_eps = mh_step_alpha(self.kernel_target, self.proposal.scaled)
         state, factor, _ = dual_average_step_size(
-            step_eps, self.state, self._next_key(), n_adapt, 1.0,
+            step_eps, self._state, self._next_key(), n_adapt, 1.0,
             target_accept)
-        new = MetropolisHastings(self.target, self.proposal.scaled(factor),
-                                 self._positions_of(state), seed=seed,
-                                 **self._ctor)
+        new = self._shard_like(MetropolisHastings(
+            self.target, self.proposal.scaled(factor),
+            self._positions_of(state), seed=seed, **self._ctor))
         # cumulative: self.proposal is already scaled by self.scale_factor
         new.scale_factor = self.scale_factor * factor
         if seed is None:
@@ -539,11 +605,11 @@ class HMC(_KernelSampler):
         if target_accept is None:
             target_accept = self._default_target_accept
         state, eps, _ = dual_average_step_size(
-            self._step_fn.step_eps, self.state, self._next_key(), n_adapt,
+            self._step_fn.step_eps, self._state, self._next_key(), n_adapt,
             self._ctor["step_size"], target_accept)
         ctor = dict(self._ctor, step_size=eps)
-        new = type(self)._construct(self.target, self._positions_of(state),
-                                    self.metric, seed, ctor)
+        new = self._shard_like(type(self)._construct(
+            self.target, self._positions_of(state), self.metric, seed, ctor))
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -581,8 +647,8 @@ class HMC(_KernelSampler):
             step_size if step_size is not None else eps_x / pre.sigma_min())
         if n_leapfrog is not None:
             ctor["n_leapfrog"] = n_leapfrog
-        new = type(self)._construct(self.target, self.positions, pre, seed,
-                                    ctor)
+        new = self._shard_like(type(self)._construct(
+            self.target, self._positions_of(self._state), pre, seed, ctor))
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -696,11 +762,12 @@ class ChEESHMC(_KernelSampler):
         if target_accept is None:
             target_accept = self._default_target_accept
         state, eps, traj_len, trace = chees_adapt(
-            self.kernel_target, self.state, self._next_key(), n_adapt,
+            self.kernel_target, self._state, self._next_key(), n_adapt,
             self.step_size, self.traj_len, target_accept=target_accept,
             adam_lr=adam_lr, max_leapfrog=self.max_leapfrog)
-        new = ChEESHMC(self.target, self._positions_of(state), eps,
-                       traj_len, seed=seed, metric=self.metric, **self._ctor)
+        new = self._shard_like(ChEESHMC(
+            self.target, self._positions_of(state), eps, traj_len,
+            seed=seed, metric=self.metric, **self._ctor))
         new.warmup_trace = trace
         if seed is None:
             new._gen = self._child_generator()
@@ -716,13 +783,13 @@ class ChEESHMC(_KernelSampler):
         tunes both anew."""
         pre = estimate_preconditioner(_unconstrained_positions(self), kind)
         old = self.metric.sigma_min() if self.metric is not None else 1.0
-        new = ChEESHMC(
-            self.target, self.positions,
+        new = self._shard_like(ChEESHMC(
+            self.target, self._positions_of(self._state),
             step_size if step_size is not None
             else self.step_size * old / pre.sigma_min(),
             traj_len if traj_len is not None
             else self.traj_len * old / pre.sigma_min(),
-            seed=seed, metric=pre, **self._ctor)
+            seed=seed, metric=pre, **self._ctor))
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -761,6 +828,15 @@ class EnsembleSampler(_KernelSampler):
             steps_per_call=steps_per_call)
         super().__init__(init_fn, step_fn, positions, seed,
                          positions_map=positions_map)
+
+    def _check_shard(self, local) -> None:
+        # a shard holds whole ensembles: partners never cross a rank
+        c = local.positions.shape[0]
+        if c % self.walkers_per_ensemble:
+            raise ValueError(
+                f"a shard of {c} chains does not hold whole ensembles of "
+                f"walkers_per_ensemble={self.walkers_per_ensemble}; shard "
+                "a chain count whose share per rank is a multiple of it")
 
 
 class EllipticalSliceSampler(_KernelSampler):
@@ -930,23 +1006,20 @@ class ParallelTempering(_KernelSampler):
                          positions_map=positions_map)
 
     @property
-    def n_chains(self) -> int:
-        return self.state.positions.shape[2]
-
-    @property
     def dim(self) -> int:
-        return self.state.positions.shape[1]
+        return self._state.positions.shape[1]
 
     @property
     def n_replicas(self) -> int:
-        t, _, c = self.state.positions.shape
-        return t * c
+        return self._state.positions.shape[0] * self.n_chains
 
     @property
     def swap_acceptance(self) -> torch.Tensor:
         """``[T-1]`` swap-accept EWMA per pair, the mean over chains (the
-        per-chain ``[T-1, C]`` is ``state.swap_accept``)."""
-        return self.state.swap_accept.mean(dim=1)
+        per-chain ``[T-1, C]`` is ``state.swap_accept``; a sharded
+        sampler's mean covers every shard, one all-gather)."""
+        return gather_chains(self._state.swap_accept, self._chains,
+                             1).mean(dim=1)
 
     def retuned(self, n_temps: Optional[int] = None, *,
                 seed=None) -> "ParallelTempering":
@@ -956,8 +1029,9 @@ class ParallelTempering(_KernelSampler):
         Without ``seed`` its generator is seeded from this sampler's, so a
         seeded workflow stays reproducible."""
         tuned = tune_betas(self.betas, self.swap_acceptance, n_temps=n_temps)
-        new = ParallelTempering(self.target, self.positions, betas=tuned,
-                                seed=seed, **self._ctor)
+        new = self._shard_like(ParallelTempering(
+            self.target, self._positions_of(self._state), betas=tuned,
+            seed=seed, **self._ctor))
         if seed is None:
             new._gen = self._child_generator()
         return new

@@ -43,7 +43,37 @@ from typing import NamedTuple
 
 import torch
 
+from .parallel.collectives import (
+    all_gather,
+    all_reduce,
+    gather_chains,
+)
 from .utils.init import resolve_device
+
+
+def local_cube(sample, time_major: bool = False):
+    """``(local, chains)``: a cube sharded on its chain axis (a DTensor
+    from a sharded sampler) as this rank's rows and its
+    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`, or
+    ``(sample, None)`` for any other cube."""
+    from .parallel.mesh import local_state
+
+    local, layout = local_state(sample)
+    if layout is None:
+        return sample, None
+    if layout.axes != (1 if time_major else 0):
+        raise ValueError(
+            f"a {'time' if time_major else 'chain'}-major cube is sharded "
+            f"on axis {1 if time_major else 0}; this one on "
+            f"{layout.axes}")
+    return local, layout.chains
+
+
+def full_cube(sample, time_major: bool = False):
+    """A cube sharded on its chain axis gathered whole on every rank (one
+    all-gather); any other cube as it is."""
+    local, chains = local_cube(sample, time_major)
+    return gather_chains(local, chains, 1 if time_major else 0)
 
 ALPHA = 0.01  # EWMA coefficient of the acceptance tracking (stats.rs:13)
 
@@ -112,17 +142,33 @@ def _as_rows(positions: torch.Tensor, dim: int) -> torch.Tensor:
     return positions[..., None] if positions.dim() == dim - 1 else positions
 
 
-def tracker_update(tracker: TrackerState,
-                   positions: torch.Tensor) -> TrackerState:
+def _ewma_weights(k: int, n_chains: int, chains, device) -> tuple:
+    """``(decay, n)``: the EWMA weights of the ``[K, C_local]`` values a
+    block folds, flattened, and the global chain count. Value ``(k, c)``
+    is global value ``k C + chain0 + c`` of the K*C in order; a shard
+    folds its own at their global weights, and the global EWMA is the sum
+    of every shard's (:func:`tracker_stats` reduces it)."""
+    if chains is None:
+        return _decay(k * n_chains, device), n_chains
+    n = chains.n_chains
+    w = _decay(k * n, device).view(k, n)
+    return w[:, chains.chain0:chains.chain0 + n_chains].reshape(-1), n
+
+
+def tracker_update(tracker: TrackerState, positions: torch.Tensor,
+                   chains=None) -> TrackerState:
     """One streaming update with a step's ``[C, P]`` positions
     (``stats.rs:228-259``, ``mini_mcmc_tpu/stats.py:85-126``).
 
     The reference folds the acceptance EWMA over the chain rows in order;
     the closed form weighs row i by ``alpha * (1-alpha)^(C-1-i)`` and the
-    old value by ``(1-alpha)^C``.
+    old value by ``(1-alpha)^C``. Under ``chains`` (a sharded run's
+    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`) the rows are
+    the shard's, weighed at their global places, and ``p_accept`` holds
+    the shard's share of the global EWMA (every share starts at 0).
     """
     x = _as_rows(positions, 2)
-    n_chains = x.shape[0]
+    decay, n_chains = _ewma_weights(1, x.shape[0], chains, x.device)
     n = float(tracker.n + 1)
     last = tracker.last_state
     # the JAX package's rounding: no fused multiply-add (a row's rounding
@@ -131,7 +177,7 @@ def tracker_update(tracker: TrackerState,
     mean_sq = (tracker.mean_sq * (n - 1.0) + x * x) / n
     accepted = (x != last).any(dim=1).to(torch.float32)
     p_accept = (tracker.p_accept * (1.0 - ALPHA) ** n_chains).add_(
-        torch.dot(_decay(n_chains, x.device), accepted), alpha=ALPHA)
+        torch.dot(decay, accepted), alpha=ALPHA)
     # each chain's EWMA, the ChainTracker first-step rule
     # (stats.rs:110-116): its seed compares coordinate 0 only
     pac = tracker.p_accept_chains
@@ -147,8 +193,8 @@ def tracker_update(tracker: TrackerState,
     )
 
 
-def tracker_update_rows(tracker: TrackerState,
-                        rows: torch.Tensor) -> TrackerState:
+def tracker_update_rows(tracker: TrackerState, rows: torch.Tensor,
+                        chains=None) -> TrackerState:
     """K updates at once with a block's ``[K, C, P]`` rows, row 0 first:
     the result of K calls of :func:`tracker_update` (the JAX package makes
     those K calls, ``mini_mcmc_tpu/runner.py:149-154``), up to float32
@@ -158,9 +204,11 @@ def tracker_update_rows(tracker: TrackerState,
     from row k-1 (row 0 from ``last_state``); the global EWMA is its
     closed form over the K*C (step, chain) values in order, and each
     chain's over its K values; the first-step rule reaches row 0 only.
+    ``chains`` as :func:`tracker_update`'s.
     """
     x = _as_rows(rows, 3)
-    k, n_chains = x.shape[0], x.shape[1]
+    k = x.shape[0]
+    decay, n_chains = _ewma_weights(k, x.shape[1], chains, x.device)
     n0 = float(tracker.n)
     n = n0 + k
     last = tracker.last_state
@@ -171,8 +219,7 @@ def tracker_update_rows(tracker: TrackerState,
         torch.float32)  # [K, C]
     # value j of the K*C in order weighs (1-alpha)^(K*C-1-j)
     p_accept = (tracker.p_accept * (1.0 - ALPHA) ** (n_chains * k)).add_(
-        torch.dot(_decay(k * n_chains, x.device), accepted.view(-1)),
-        alpha=ALPHA)
+        torch.dot(decay, accepted.reshape(-1)), alpha=ALPHA)
     pac = tracker.p_accept_chains
     base = torch.where(pac < 0.0, x[0, :, 0] != last[:, 0], pac)
     return TrackerState(
@@ -200,30 +247,43 @@ def _sm2(tracker: TrackerState) -> torch.Tensor:
     return (tracker.mean_sq - tracker.mean ** 2) * n / (n - 1.0)
 
 
-def tracker_stats(tracker: TrackerState) -> ChainStats:
+def _p_accept(tracker: TrackerState, chains) -> torch.Tensor:
+    """The global acceptance EWMA: the sum of every shard's share."""
+    if chains is None:
+        return tracker.p_accept
+    return all_reduce(tracker.p_accept.clone(), chains.group)
+
+
+def tracker_stats(tracker: TrackerState, chains=None) -> ChainStats:
     """Bias-corrected snapshot: ``sm2 = (mean_sq - mean^2) * n/(n-1)``
-    (``stats.rs:132-140``, ``:300``)."""
-    return ChainStats(n=tracker.n, p_accept=tracker.p_accept,
+    (``stats.rs:132-140``, ``:300``). A sharded run's tracker (``chains``)
+    gives the global ``p_accept`` (one scalar all-reduce) beside its own
+    chains' moments."""
+    return ChainStats(n=tracker.n, p_accept=_p_accept(tracker, chains),
                       mean=tracker.mean, sm2=_sm2(tracker))
 
 
-def tracker_rhat(tracker: TrackerState) -> torch.Tensor:
+def tracker_rhat(tracker: TrackerState, chains=None) -> torch.Tensor:
     """Live R-hat per parameter from the streaming moments
     (``MultiChainTracker::rhat``, ``stats.rs:282-306``): ``sqrt(var /
-    W)``, the inverse of the final split R-hat."""
-    n_chains = tracker.mean.shape[0]
+    W)``, the inverse of the final split R-hat. A sharded run's tracker
+    (``chains``) gathers every shard's ``[C, P]`` moments first (one
+    all-gather), so the value is the unsharded run's."""
+    moments = gather_chains(torch.stack([tracker.mean, _sm2(tracker)],
+                                        dim=1), chains)
+    means, sm2 = moments[:, 0], moments[:, 1]
+    n_chains = means.shape[0]
     n = float(tracker.n)
-    mean_chain = torch.mean(tracker.mean, dim=0)
+    mean_chain = torch.mean(means, dim=0)
     fac = n / (n_chains - 1.0)
-    between = torch.sum((tracker.mean - mean_chain[None, :]) ** 2,
-                        dim=0) * fac
-    within = torch.mean(_sm2(tracker), dim=0)
+    between = torch.sum((means - mean_chain[None, :]) ** 2, dim=0) * fac
+    within = torch.mean(sm2, dim=0)
     var = within * ((n - 1.0) / n) + between * (1.0 / n)
     return torch.sqrt(var / within)
 
 
-def tracker_max_rhat(tracker: TrackerState) -> torch.Tensor:
-    return torch.max(tracker_rhat(tracker))
+def tracker_max_rhat(tracker: TrackerState, chains=None) -> torch.Tensor:
+    return torch.max(tracker_rhat(tracker, chains))
 
 
 class ChainTracker:
@@ -342,11 +402,25 @@ def _bwv_from_moments(chain_means, squares, nf: float):
     return w, v
 
 
-def _withinvar(splitted: torch.Tensor):
-    """W and pooled var per parameter of a ``[2C, n', P]`` split cube."""
+def _split_moments(chain_means, squares, chains):
+    """``[2C, P]`` split-chain means and biased variances over every
+    shard, from a shard's ``[2 C_local, P]`` (first halves, then last
+    halves): one all-gather, rows in the unsharded order."""
+    if chains is None:
+        return chain_means, squares
+    c, p = chain_means.shape[0] // 2, chain_means.shape[1]
+    both = torch.stack([chain_means, squares]).view(2, 2, c, p)
+    both = all_gather(both, chains.group, axis=2)
+    return both[0].reshape(-1, p), both[1].reshape(-1, p)
+
+
+def _withinvar(splitted: torch.Tensor, chains=None):
+    """W and pooled var per parameter of a ``[2C, n', P]`` split cube
+    (a shard's, under ``chains``)."""
     chain_means = torch.mean(splitted, dim=1)
     squares = torch.mean((splitted - chain_means[:, None, :]) ** 2, dim=1)
-    return _bwv_from_moments(chain_means, squares, float(splitted.shape[1]))
+    return _bwv_from_moments(*_split_moments(chain_means, squares, chains),
+                             float(splitted.shape[1]))
 
 
 def _geyer_tau(rho: torch.Tensor) -> torch.Tensor:
@@ -368,18 +442,28 @@ def _geyer_tau(rho: torch.Tensor) -> torch.Tensor:
 _AUTOCOV_CHUNK = 8192
 
 
-def _ess(splitted: torch.Tensor, within, var) -> torch.Tensor:
-    """ESS per parameter (stats.rs:496-546) of a ``[2C, n', P]`` cube."""
+def _chain_sum(acc: torch.Tensor, chains) -> torch.Tensor:
+    """A shard's sum over its chains summed over every shard."""
+    return acc if chains is None else all_reduce(acc, chains.group)
+
+
+def _ess(splitted: torch.Tensor, within, var, chains=None) -> torch.Tensor:
+    """ESS per parameter (stats.rs:496-546) of a ``[2C, n', P]`` cube (a
+    shard's, under ``chains``: its autocovariances summed over every
+    shard, one all-reduce)."""
     n_chains, n_steps = splitted.shape[0], splitted.shape[1]
     acc = torch.zeros(splitted.shape[1:], dtype=torch.float32,
                       device=splitted.device)
     for i in range(0, n_chains, _AUTOCOV_CHUNK):
         acc = acc + torch.sum(autocov(splitted[i:i + _AUTOCOV_CHUNK]), dim=0)
+    if chains is not None:
+        acc = _chain_sum(acc, chains)
+        n_chains = 2 * chains.n_chains
     rho = 1.0 - (within[None, :] - acc / n_chains) / var[None, :]
     return (n_chains * n_steps) / _geyer_tau(rho)
 
 
-def _tm_moments(sample: torch.Tensor):
+def _tm_moments(sample: torch.Tensor, chains=None):
     """Split moments of a time-major ``[N, C, P]`` cube -> (rhat, W, var),
     read from the cube in place (half-cube views, no split copy)."""
     n = sample.shape[0]
@@ -393,18 +477,20 @@ def _tm_moments(sample: torch.Tensor):
         torch.mean((first - cm_first[None]) ** 2, dim=0),
         torch.mean((last - cm_last[None]) ** 2, dim=0),
     ], dim=0)
-    within, var = _bwv_from_moments(chain_means, squares, float(half))
+    within, var = _bwv_from_moments(
+        *_split_moments(chain_means, squares, chains), float(half))
     return torch.sqrt(within / var), within, var
 
 
-def _split_rhat_mean_ess_tm(sample: torch.Tensor):
+def _split_rhat_mean_ess_tm(sample: torch.Tensor, chains=None):
     """Time-major ``[N, C, P]`` variant of :func:`split_rhat_mean_ess`: the
     autocovariance slices one chain block of the cube at a time, so the
     peak is one cube plus a chunk (no ``_splitcat`` copy)."""
     n = sample.shape[0]
     half = n // 2
-    rhat, within, var = _tm_moments(sample)
-    n_chains_total = 2 * sample.shape[1]
+    rhat, within, var = _tm_moments(sample, chains)
+    n_chains_total = 2 * (sample.shape[1] if chains is None
+                          else chains.n_chains)
     acc = torch.zeros((half,) + tuple(sample.shape[2:]), dtype=torch.float32,
                       device=sample.device)
     step = max(1, _AUTOCOV_CHUNK // 2)
@@ -412,6 +498,7 @@ def _split_rhat_mean_ess_tm(sample: torch.Tensor):
         for lo in (0, n - half):
             blk = sample[lo:lo + half, i:i + step].transpose(0, 1)
             acc = acc + torch.sum(autocov(blk), dim=0)
+    acc = _chain_sum(acc, chains)
     rho = 1.0 - (within[None, :] - acc / n_chains_total) / var[None, :]
     ess = (n_chains_total * half) / _geyer_tau(rho)
     return rhat, ess
@@ -427,13 +514,20 @@ def split_rhat_mean_ess(sample: torch.Tensor, *, time_major: bool = False):
     Returns:
         ``(rhat [P], ess [P])``. The reference's split R-hat is
         ``sqrt(W / var)`` (stats.rs:425-427), preserved here.
+
+    A cube sharded on its chain axis (a sharded sampler's, a DTensor)
+    stays where it is: each rank reduces its own chains, and the split
+    means and variances (one all-gather of ``[2, 2C, P]``) and the summed
+    autocovariances (one all-reduce of ``[n', P]``) cross ranks. Every
+    rank gets the unsharded cube's values, up to the order of that sum.
     """
+    sample, chains = local_cube(sample, time_major)
     sample = torch.as_tensor(sample).to(torch.float32)
     if time_major:
-        return _split_rhat_mean_ess_tm(sample)
+        return _split_rhat_mean_ess_tm(sample, chains)
     splitted = _splitcat(sample)
-    within, var = _withinvar(splitted)
-    return torch.sqrt(within / var), _ess(splitted, within, var)
+    within, var = _withinvar(splitted, chains)
+    return torch.sqrt(within / var), _ess(splitted, within, var, chains)
 
 
 def ess_from_chainstats(sample, means, sm2s, ns) -> torch.Tensor:

@@ -92,20 +92,23 @@ def stream_run(sampler, n_total: int, chunk_size: int, on_chunk=None,
     prepare = getattr(sampler, "_prepare_fn", None)
     if prepare is not None:
         sampler._snapshot_divergences()
-        sampler.state = prepare(sampler.state, sampler._next_key(),
-                                n_discard)
+        sampler._state = prepare(sampler._state, sampler._next_key(),
+                                 n_discard)
         first_discard = max(0, n_discard - 1)
         runner = sampler._simple_runner
     key = sampler._next_key()
-    tracker = stats_mod.tracker_init(sampler.n_chains, sampler.dim,
-                                     device=sampler.state.positions.device)
+    local = sampler._state.positions
+    tracker = stats_mod.tracker_init(
+        sampler._recorded(sampler._state).shape[0], sampler.dim,
+        device=local.device)
     step = 0
     pending = None
     for i in range(n_total // chunk_size):
         n_dis = first_discard if i == 0 else 0
-        sampler.state, chunk, tracker = runner(
-            sampler.state, key._replace(step=key.step + step), chunk_size,
+        sampler._state, chunk, tracker = runner(
+            sampler._state, key._replace(step=key.step + step), chunk_size,
             n_dis, time_major=time_major, tracker=tracker)
+        chunk = sampler._out(chunk, 1 if time_major else 0)
         step += chunk_size + n_dis
         if on_chunk is not None:
             if pending is not None:
@@ -115,6 +118,6 @@ def stream_run(sampler, n_total: int, chunk_size: int, on_chunk=None,
         on_chunk(*pending)
     return StreamResult(
         n_collected=n_total,
-        p_accept=stats_mod.tracker_stats(tracker).p_accept,
-        rhat=stats_mod.tracker_rhat(tracker),
+        p_accept=stats_mod.tracker_stats(tracker, key.chains).p_accept,
+        rhat=stats_mod.tracker_rhat(tracker, key.chains),
     )

@@ -2898,3 +2898,180 @@ def test_cuda_leapfrog_user_dims_match_their_twin(case, cuda):
         got = leapfrog_trajectory(t, pos, mom, grad, e, 8)
         assert leapfrog_trajectory.user_launches == before + 1
         _k1_agree(got, leapfrog_trajectory_plain(t, pos, mom, grad, e[0], 8))
+
+
+# ---------------------------------------------------------------------------
+# Chain offsets (chain0) and the one-rank chain mesh
+# ---------------------------------------------------------------------------
+
+#: a shard's first global chain, off every warp, block and cluster boundary
+CHAIN0 = 1_000_003
+
+
+def _split_cases(dev, c=4096):
+    """Kernels 2-8 on ``c`` chains (Kernel 7: 256 chains x D = 512, its
+    rows indexed alone; Kernel 8: ``c`` chains x 8 rungs): name ->
+    launch(lo, hi, chain0) -> [(output, its chain axis)] over chains
+    ``[lo, hi)`` as global chains chain0..."""
+    gen = torch.Generator(device=dev).manual_seed(5151)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rosen = rosenbrock_nd()
+    x2 = randn(c, 3) * 0.3 + 0.9
+    lp2, g2 = rosen.batch_logp_and_grad(x2)
+    eps2 = torch.full((4,), 0.01, device=dev)
+    gauss = diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]])
+    x3 = randn(c, 2) * 1.5
+    m3 = randn(c, 2)
+    lp3, g3 = gauss.batch_logp_and_grad(x3)
+    j0 = lp3 - 0.5 * (m3 * m3).sum(1)
+    logu = j0 - torch.empty_like(j0).exponential_(generator=gen)
+    u = torch.rand((3, c), generator=gen, device=dev)
+    v = torch.where(u[0] < 0.5, -1, 1).to(torch.int32)
+    eps3 = 0.3 + 0.9 * u[2]
+    g2d = gaussian2d([0.0, 0.0], [[1.0, 0.0], [0.0, 1.0]])
+    walk = isotropic_gaussian_proposal(1.0)
+    lp5 = g2d.batch_logp(x3)
+    cond = gaussian_mixture_conditional(-2.0, 1.0, 3.0, 1.5, 0.5)
+    x6 = torch.stack([x3[:, 0], (u[1] < 0.5).float()], dim=1)
+    sn = standard_normal()
+    x7 = randn(256, 512)
+    lp7 = sn.batch_logp(x7)
+    mix = _mixture()
+    x8 = torch.where(torch.rand((8, 1, c), generator=gen, device=dev) < 0.7,
+                     8.0, -8.0) + 0.5 * randn(8, 1, c)
+    lp8 = mix.batch_logp(x8.permute(0, 2, 1).reshape(-1, 1)).reshape(8, c)
+    sa8 = torch.zeros((7, c), device=dev)
+    lad = make_ladder(geometric_betas(8, 0.01), 1.0, 1, dev)
+
+    def hist(k, n, d):
+        return torch.empty((k, n, d), device=dev)
+
+    def k2(lo, hi, c0, plain=False):
+        h = hist(4, hi - lo, 3)
+        fn = hmc_multistep_plain if plain else hmc_multistep
+        o = fn(rosen, x2[lo:hi], lp2[lo:hi], g2[lo:hi], eps2, 6, 1234, 3, h,
+               chain0=c0)
+        return [(o[0], 0), (o[1], 0), (o[2], 0), (h, 1)]
+
+    def k3(lo, hi, c0, plain=False):
+        fn = subtree_plain if plain else subtree
+        r = fn(gauss, x3[lo:hi], m3[lo:hi], g3[lo:hi], logu[lo:hi],
+               v[lo:hi], 4, eps3[lo:hi], j0[lo:hi], u[1, lo:hi] < 0.9,
+               (0x1234567, -0x7654321), 10, chain0=c0)
+        return [(t, 0) for t in r]
+
+    def k4(lo, hi, c0):
+        return [(t, 0) for t in nuts_step(gauss, x3[lo:hi], eps3[lo:hi], 10,
+                                          77, 9, 10, c0)]
+
+    def k5(lo, hi, c0):
+        h = hist(8, hi - lo, 2)
+        o = mh_multistep(g2d, walk, x3[lo:hi], lp5[lo:hi], 88, 2, 8, h,
+                         chain0=c0)
+        return [(o[0], 0), (o[1], 0), (h, 1)]
+
+    def k6(lo, hi, c0):
+        h = hist(8, hi - lo, 2)
+        o = gibbs_multistep(cond, x6[lo:hi], 66, 1, 8, h, chain0=c0)
+        return [(o, 0), (h, 1)]
+
+    def k7(lo, hi, c0):  # rows of x7's 256
+        return [(t, 0) for t in hmc_separable_step(
+            sn, x7[lo:hi], lp7[lo:hi], torch.tensor([0.1], device=dev), 8,
+            55, 4, x7.new_empty((0, 512)), chain0=c0)]
+
+    def k8(lo, hi, c0, plain=False):
+        h = hist(8, hi - lo, 1)
+        fn = pt_multistep_plain if plain else pt_multistep
+        o = fn(mix, x8[..., lo:hi].contiguous(), lp8[:, lo:hi].contiguous(),
+               sa8[:, lo:hi].contiguous(), 1, lad, 99, 5, 8, 1, h, chain0=c0)
+        return [(o[0], 2), (o[1], 1), (o[2], 1), (h, 1)]
+
+    return dict(k2=k2, k3=k3, k4=k4, k5=k5, k6=k6, k7=k7, k8=k8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k2", "k3", "k4", "k5", "k6", "k7",
+                                    "k8"])
+@pytest.mark.parametrize("split", ["half", "odd"])
+def test_cuda_split_launches_equal_one_launch(cuda, kernel, split):
+    """Chains [0, s) at chain0 = 0 and [s, C) at chain0 = s give one
+    launch's outputs over [0, C) bit for bit: the offset acts on the
+    global chain index alone, never on the thread layout (Kernel 8's
+    chains a warp, Kernel 4's persistent grid, Kernel 7's clusters)."""
+    c = 256 if kernel == "k7" else 4096
+    s = c // 2 if split == "half" else (c // 3) | 1
+    launch = _split_cases(cuda)[kernel]
+    full = launch(0, c, 0)
+    lo, hi = launch(0, s, 0), launch(s, c, s)
+    for (f, ax), (a, _), (b, _) in zip(full, lo, hi):
+        assert torch.equal(torch.cat([a, b], dim=ax), f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k2", "k3", "k8"])
+def test_cuda_chain0_launch_matches_twin(cuda, kernel):
+    """Kernels 2, 3 and 8 at chain0 = 1,000,003 against their twins at the
+    same offset, by each kernel's own test's criteria: Kernel 2's rows,
+    state and accepts per chain within RTOL/ATOL on >= 99.9% of chains;
+    Kernel 3's counts and flags equal on >= 99.9%; Kernel 8 equal to its
+    twin on >= 99.9% (the mixture rounds as the twin)."""
+    launch = _split_cases(cuda)[kernel]
+    got = [t for t, _ in launch(0, 4096, CHAIN0)]
+    want = [t for t, _ in launch(0, 4096, CHAIN0, plain=True)]
+    torch.cuda.synchronize()
+    if kernel == "k2":
+        def near(a, b):
+            return (a - b).abs() <= ATOL + RTOL * b.abs()
+
+        ok = (near(got[3], want[3]).all(2).all(0)
+              & near(got[0], want[0]).all(1) & near(got[1], want[1]))
+    elif kernel == "k3":
+        ok = ((got[6] == want[6]) & (got[7] == want[7])
+              & (got[9] == want[9]) & (got[10] == want[10]))
+    else:
+        ok = ((got[0] == want[0]).all(1).all(0) & (got[1] == want[1]).all(0)
+              & (got[3] == want[3]).all(2).all(0))
+    assert _share(ok) >= 0.999
+    # and the offset moved the draws: chain0 = 0 gives other outputs (for
+    # Kernel 3 its proposals: the merges' uniforms move, its ends do not)
+    other = [t for t, _ in launch(0, 4096, 0)]
+    assert any(not torch.equal(a, b) for a, b in zip(other, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["hmc_full", "pt_full", "nuts_true"])
+def test_cuda_one_rank_mesh_runs_equal_unsharded(cuda, tier):
+    """Through a one-rank NCCL chain mesh (``parallel.chain_mesh()``) the
+    sampler's cube is the unsharded run's bit for bit, as a DTensor
+    sharded on its chain axis, with the same kernel launches."""
+    from mini_mcmc_torch.parallel import chain_mesh, shard_sampler_state
+
+    def make():
+        if tier == "hmc_full":
+            return HMC(rosenbrock_nd(), torch.ones((4096, 3), device=cuda),
+                       0.02, 8, use_pallas="full", steps_per_call=8).seed(4)
+        if tier == "pt_full":
+            return ParallelTempering(
+                _mixture(), torch.full((4096, 1), -8.0, device=cuda),
+                betas=geometric_betas(8, 0.01), steps_per_call=8,
+                use_pallas="full").seed(5)
+        return NUTS(diffable_gaussian2d([0.0, 1.0], [[4.0, 2.0],
+                                                     [2.0, 3.0]]),
+                    torch.zeros((1024, 2), device=cuda), 0.8, max_depth=4,
+                    use_pallas=True).seed(6)
+
+    counter = {"hmc_full": hmc_multistep, "pt_full": pt_multistep,
+               "nuts_true": subtree}[tier]
+    a, b = make(), make()
+    b.state = shard_sampler_state(chain_mesh(), b.state)
+    n = counter.launches
+    want = a.run(16, 8)
+    launches = counter.launches - n
+    got = b.run(16, 8)
+    assert counter.launches - n == 2 * launches > 0
+    assert type(got).__name__ == "DTensor"
+    assert torch.equal(got.to_local(), want)

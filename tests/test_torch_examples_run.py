@@ -17,7 +17,15 @@ EXAMPLES = ["minimal_mh", "gauss_mh", "rosenbrock_mh", "mixture_gibbs",
 #: every example of mini_mcmc_torch/examples/ with a main()
 ALL = EXAMPLES + ["bigd_separable_hmc", "minimal_nuts", "metric_nuts",
                   "logistic_regression_nuts", "eight_schools", "ais_log_z",
-                  "sgld_minibatch_logreg", "constrained_transforms"]
+                  "sgld_minibatch_logreg", "constrained_transforms",
+                  "poisson_mh", "sharded_chains", "sgld_data_parallel"]
+#: the examples on a mesh, run here on a one-rank gloo group (their
+#: two-rank runs are test_torch_parallel.py's), and a line each prints
+MESH_EXAMPLES = {
+    "poisson_mh": "65536 chains x 200 draws over 1 device(s)",
+    "sharded_chains": "512 chains sharded over 1 device(s)",
+    "sgld_data_parallel": "data mesh: 1 device(s), 8192 rows",
+}
 
 
 def _module(name):
@@ -58,6 +66,16 @@ def test_sgld_lands_on_the_mala_posterior():
     it returns SGLD's posterior mean."""
     mean = _module("sgld_minibatch_logreg").main(device="cpu")
     assert mean.shape == (4,)
+
+
+@pytest.mark.parametrize("name", sorted(MESH_EXAMPLES))
+def test_mesh_example_runs_on_one_rank(name, capsys):
+    """main(device="cpu") builds its mesh on a one-rank gloo group of its
+    own and passes the JAX example's asserts."""
+    out = _module(name).main(device="cpu")
+    if name == "sgld_data_parallel":
+        assert tuple(out.shape) == (64, 1500, 4)
+    assert MESH_EXAMPLES[name] in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("name", ALL)

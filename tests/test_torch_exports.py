@@ -17,14 +17,14 @@ MODULES = {
     "mini_mcmc_tpu.ops": "mini_mcmc_torch.ops",
     "mini_mcmc_tpu.models": "mini_mcmc_torch.models",
     "mini_mcmc_tpu.utils": "mini_mcmc_torch.utils",
+    "mini_mcmc_tpu.parallel": "mini_mcmc_torch.parallel",
 }
 #: names the port does not export, and why (ROADMAP.md)
 REMOVALS = {
     # keys draws by place under one Philox key: no per-chain keys
     "chain_keys": "removal",
-    # chain and data sharding over devices: Queue 1 item 12
-    "parallel": "item 12",
-    "data_parallel_grad": "item 12",
+    # the state dimension split over a "state" mesh axis: Queue 1 item 12b
+    "chain_state_mesh": "item 12b",
 }
 
 
