@@ -370,6 +370,36 @@ Phases, one line each (every check raises on failure):
     (the global shape every shard draws). Kernels 2-8 at ``chain0`` =
     1,000,003 against their twins by the checks of 6, 9, 10, 16 and 22
     (lines ``*_chain0``).
+42. ``[state_mesh]``: the state dimension over a ``"state"`` axis
+    (``chain_state_mesh``, ``shard_sampler_state(...,
+    shard_state_dim=True)``) on a one-rank ``1 x 1`` NCCL mesh (the card
+    machine has one GPU; the multi-rank split runs on the CPU's gloo
+    ranks, ``tests/test_torch_state_mesh.py``): the separable stage's
+    1,024 x 10,000, L = 10 sampler from one seed unsharded and split, its
+    cubes and Kernel 7's launches equal bit for bit (a state axis of one
+    rank takes the fused form, no collective); lockstep HMC
+    (``use_pallas=False``) at the same shape the same way.
+    ``[state_mesh_split]``: Kernel 7's trajectory form on one state whole
+    and split into 2 and 4 D-slices (``d0`` = 0, 5,000 and 0, 2,500,
+    5,000, 7,500), on the standard normal and the sigma table: the
+    slices' positions concatenated equal the one launch's bit for bit,
+    their summed energies within 1e-5 relative, each slice held to its
+    float64 twin at its ``d0`` as the fused step's checks hold positions
+    and sums; the phase's seconds (at most 30).
+42b. ``[state_mesh_ranks]``: a split over two ranks on the one card (two
+    spawned processes in a gloo group on CUDA tensors,
+    ``chain_state_mesh(1, 2)``): the separable and lockstep samplers of
+    42 at 1,024 x 10,000, L = 10, split against unsharded: each rank's
+    block of the cube (D-slice 0 or 5,000) equal to the unsharded cube's
+    bit for bit on at least 99% of chains (the energies are summed in
+    another order, so a chain whose accept test is within rounding of its
+    uniform may decide the other way), every shard of a chain moving in
+    the same steps, each chain that differs differing first at a step
+    where one run accepted and the other did not (no run discards, so
+    every step is seen), the separable run two-pass Kernel 7 launches one a
+    step and the lockstep run none, one all-reduce a step among the
+    port's own collectives (``parallel.collectives``) and none of another
+    kind; within 240 s.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -6910,6 +6940,353 @@ def phase_parallel(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 42. [state_mesh]: the state dimension over a "state" axis, one rank
+# ---------------------------------------------------------------------------
+
+#: the D-slices of the split check, and the runs on the 1 x 1 mesh
+STATE_SPLITS = (2, 4)
+STATE_SEP_RUN, STATE_LOCKSTEP_RUN = (16, 16), (4, 4)
+#: the phase's limit in seconds
+STATE_MESH_S = 30.0
+
+
+def state_split_check(name: str, target, x, eps) -> dict:
+    """Kernel 7's trajectory form on ``x`` whole and in 2 and 4 D-slices
+    (``d0`` the slice's first coordinate): positions bit for bit, summed
+    energies within ``SEP_SUM_RTOL``, each slice against its float64 twin
+    at its ``d0`` (positions per chain on >= 99.9% of chains, the three
+    sums within ``SEP_SUM_RTOL``). Returns the results by split."""
+    c, d = x.shape
+    tables = sep_tables(target, x)
+    seed, step = 0x5EED_2323_0707, 9
+    whole = hmc_separable(target, x, eps, SEP_L, seed, step, tables)
+    out = {}
+    for n in STATE_SPLITS:
+        w = d // n
+        slices = []
+        for d0 in range(0, d, w):
+            xs = x[:, d0:d0 + w].contiguous()
+            ts = tables[:, d0:d0 + w].contiguous()
+            got = hmc_separable(target, xs, eps, SEP_L, seed, step, ts,
+                                d0=d0, n_dim=d)
+            ref = hmc_separable_plain(target, xs.double(), eps.double(),
+                                      SEP_L, seed, step, ts.double(), d0=d0)
+            agree = float(chain_agree(got[0], ref[0].float()).float().mean())
+            sums = max(float(((g.double() - r).abs() / r.abs().clamp_min(
+                1e-30)).max()) for g, r in zip(got[1:4], ref[1:4]))
+            slices.append((d0, got, agree, sums))
+        torch.cuda.synchronize()
+        pos_equal = bool(torch.equal(
+            torch.cat([g[0] for _, g, _, _ in slices], dim=1), whole[0]))
+        sum_err = max(float(((sum(g[i] for _, g, _, _ in slices).double()
+                              - whole[i].double()).abs()
+                             / whole[i].double().abs()).max())
+                      for i in (1, 2, 3))
+        twin = min(a for _, _, a, _ in slices)
+        twin_sums = max(e for _, _, _, e in slices)
+        say("state_mesh_split", target=name, chains=c, D=d, slices=n,
+            d0=",".join(str(d0) for d0, _, _, _ in slices),
+            positions_equal=pos_equal, sums_rel_err=repr(sum_err),
+            twin_positions_share=repr(twin), twin_sums_rel_err=repr(
+                twin_sums))
+        check(f"state split {name} {n} slices positions equal one launch",
+              pos_equal, n)
+        check(f"state split {name} {n} slices sums",
+              sum_err <= SEP_SUM_RTOL, sum_err)
+        check(f"state split {name} {n} slices against the twin at d0",
+              twin >= 0.999 and twin_sums <= SEP_SUM_RTOL,
+              (twin, twin_sums))
+        out[n] = pos_equal and sum_err <= SEP_SUM_RTOL
+    return out
+
+
+def state_mesh_pair(label: str, make, run_args, mesh) -> dict:
+    """One sampler from one seed, unsharded and through
+    ``shard_sampler_state(mesh, ..., shard_state_dim=True)``: cubes equal
+    bit for bit, the same kernel launches and twin calls, no collective
+    in the split run. Returns the split run's counts."""
+    from mini_mcmc_torch.parallel import collectives, shard_sampler_state
+
+    a = make()
+    reset_counts()
+    want = a.run(*run_args, time_major=True)
+    counts_a = read_counts()
+    b = make()
+    b.state = shard_sampler_state(mesh, b.state, shard_state_dim=True)
+    reset_counts()
+    collectives.reset_counts()
+    got = b.run(*run_args, time_major=True)
+    torch.cuda.synchronize()
+    counts_b, coll = read_counts(), collectives.counts()
+    equal = bool(torch.equal(want, got.to_local()))
+    launched = {k: v for k, v in counts_b.items() if v}
+    say("state_mesh", path=label, chains=b.n_chains, dim=b.dim,
+        cube=tuple(got.shape),
+        placements=",".join(str(p) for p in got.placements),
+        cube_equal=equal, launches=repr(launched).replace(" ", ""),
+        launches_equal=counts_a == counts_b,
+        collectives=repr(coll).replace(" ", ""))
+    check(f"state mesh {label} cube equal", equal, label)
+    check(f"state mesh {label} launches equal", counts_a == counts_b,
+          (counts_a, counts_b))
+    check(f"state mesh {label} no collective", not any(coll.values()), coll)
+    check(f"state mesh {label} D on the state axis",
+          str(got.placements[1]) == "S(2)", got.placements)
+    return counts_b
+
+
+def phase_state_mesh(dev) -> dict:
+    """``[state_mesh]`` (42): the one-rank ``chain_state_mesh(1, 1)``'s
+    separable and lockstep runs against unsharded, and Kernel 7 at
+    D-slices (:func:`state_split_check`). Returns Kernel 7's launches on
+    the mesh, the split results and the seconds."""
+    import torch.distributed as dist
+
+    from mini_mcmc_torch.parallel import chain_state_mesh
+
+    t0 = time.perf_counter()
+    mesh = chain_state_mesh(1, 1)
+    say("state_mesh_mesh", shape=tuple(mesh.shape),
+        dims=",".join(mesh.mesh_dim_names), backend=dist.get_backend())
+
+    def make(tier):
+        return lambda: mt.HMC(
+            mt.standard_normal(),
+            mt.init_with_seed(SEP_CHAINS, SEP_DIM, seed=12, device=dev),
+            SEP_EPS, SEP_L, use_pallas=tier).seed(12)
+
+    counts = state_mesh_pair("separable", make("separable"), STATE_SEP_RUN,
+                             mesh)
+    steps = sum(STATE_SEP_RUN)
+    check("state mesh separable: the fused Kernel 7 each step",
+          counts == counts_with(hmc_separable_step=steps), counts)
+    lock = state_mesh_pair("lockstep", make(False), STATE_LOCKSTEP_RUN, mesh)
+    check("state mesh lockstep launches no kernel",
+          not any(lock[k] for k in KERNELS), lock)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    z = torch.randn((SEP_CHAINS, SEP_DIM), generator=gen, device=dev)
+    sigma = torch.logspace(-1, 1, SEP_DIM, device=dev)
+    split = {
+        "standard_normal": state_split_check(
+            "standard_normal", mt.standard_normal(), z,
+            torch.tensor([SEP_EPS], device=dev)),
+        "sigma_table": state_split_check(
+            "sigma_table", sigma_table_normal(sigma), z * sigma,
+            torch.tensor([0.01], device=dev)),
+    }
+    seconds = time.perf_counter() - t0
+    say("state_mesh_times", seconds=repr(seconds), limit_s=STATE_MESH_S)
+    check(f"state mesh phase within {STATE_MESH_S} s",
+          seconds <= STATE_MESH_S, seconds)
+    return {"launches": counts["hmc_separable_step"], "split": split,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# 42b. [state_mesh_ranks]: a two-rank state split on the one card
+# ---------------------------------------------------------------------------
+
+#: the ranks of the split, their runs, their limit in seconds
+STATE_RANKS = 2
+STATE_RANK_SEP_RUN, STATE_RANK_LOCKSTEP_RUN = (16, 0), (4, 0)
+STATE_RANKS_S = 240.0
+#: the share of chains whose split cube must equal the unsharded cube bit
+#: for bit: the energies are summed in another order, so a chain whose
+#: accept test lies within float32 rounding of its uniform may decide the
+#: other way (and then differ from that step on)
+STATE_RANK_SHARE = 0.99
+
+
+def state_rank_runs(rank: int, world: int, init_method: str, device: str,
+                    chains: int, dim: int) -> dict:
+    """On rank ``rank`` of a ``world``-rank gloo group on ``device``
+    (every rank on the one card): the separable tier (two-pass Kernel 7 at
+    the rank's D-slice, one all-reduce a step) and lockstep HMC at
+    ``chains x dim`` on ``chain_state_mesh(1, world)``, each from one
+    seed unsharded and split. Returns, per path, the share of chains
+    whose block equals the unsharded cube's bit for bit, the largest
+    difference, each step's per-chain moves (one decision per chain on
+    every shard), the kernel launches and the port's collectives."""
+    import torch.distributed as dist
+
+    from mini_mcmc_torch.parallel import (chain_state_mesh, collectives,
+                                          shard_sampler_state)
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device(device)
+        mesh = chain_state_mesh(1, world, device=device)
+        out = {}
+        for label, tier, run_args in (
+                ("separable", "separable", STATE_RANK_SEP_RUN),
+                ("lockstep", False, STATE_RANK_LOCKSTEP_RUN)):
+            def make():
+                return mt.HMC(mt.standard_normal(),
+                              mt.init_with_seed(chains, dim, seed=12,
+                                                device=dev),
+                              SEP_EPS, SEP_L, use_pallas=tier,
+                              device=dev).seed(12)
+
+            a = make()
+            x0 = a.state.positions.clone()
+            want = a.run(*run_args, time_major=True)
+            b = make()
+            b.state = shard_sampler_state(mesh, b.state,
+                                          shard_state_dim=True)
+            reset_counts()
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            got = b.run(*run_args, time_major=True)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts, coll = read_counts(), collectives.counts()
+            local = got.to_local()
+            w = local.shape[2]
+            block = want[:, :, rank * w:(rank + 1) * w]
+            start = x0[None, :, rank * w:(rank + 1) * w]
+            same = (local == block).all(dim=2).all(dim=0)
+            # a chain that differs first differs at an accept decision
+            # that went the other way: one run moved and the other stayed
+            moved_a, moved_b = ((torch.cat([start, c])[1:]
+                                 != torch.cat([start, c])[:-1]).any(dim=2)
+                                for c in (block, local))
+            differ = (local != block).any(dim=2)
+            first = differ.float().argmax(dim=0)[~same]
+            cols = (~same).nonzero().flatten()
+            out[label] = dict(
+                share=float(same.float().mean()),
+                flips_only=bool((moved_a[first, cols]
+                                 != moved_b[first, cols]).all()),
+                max_err=float((local - block).abs().max()),
+                # a list: a tensor would cross the queue as a shared
+                # file, gone when this process exits
+                moved=(local[1:] != local[:-1]).any(dim=2).tolist(),
+                local=tuple(local.shape), d0=rank * w,
+                placements=",".join(str(p) for p in got.placements),
+                launches={k: v for k, v in counts.items() if v},
+                collectives={k: v for k, v in coll.items() if v},
+                seconds=seconds)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _state_rank_child(rank, world, init_method, device, chains, dim, out):
+    try:
+        out.put((rank, None, state_rank_runs(rank, world, init_method,
+                                             device, chains, dim)))
+    except BaseException:  # reported to the parent, which raises
+        import traceback
+        out.put((rank, traceback.format_exc(), None))
+
+
+def spawn_state_ranks(tmp: str, device: str, chains: int, dim: int,
+                      timeout: float) -> list:
+    """:func:`state_rank_runs` on ``STATE_RANKS`` spawned processes, joined
+    through a rendezvous file under ``tmp``; the ranks' results in rank
+    order. A rank's error, or a group past ``timeout`` seconds, raises;
+    every child is stopped on the way out."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    init = "file://" + os.path.join(tmp, "state_ranks_rendezvous")
+    procs = [ctx.Process(target=_state_rank_child,
+                         args=(r, STATE_RANKS, init, device, chains, dim,
+                               out))
+             for r in range(STATE_RANKS)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < STATE_RANKS:
+            try:
+                rank, err, res = out.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise AssertionError(
+                    f"check FAILED [state ranks within {timeout} s]: "
+                    f"{sorted(results)} answered") from None
+            check(f"state rank {rank} ran", err is None, err)
+            results[rank] = res
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(STATE_RANKS)]
+
+
+def check_state_ranks(results: list, chains: int, dim: int) -> dict:
+    """The checks of ``[state_mesh_ranks]`` on the ranks' results: the
+    blocks, one decision per chain on every shard, the launches (the
+    two-pass Kernel 7 each separable step, no kernel in lockstep) and the
+    collectives (one all-reduce a step of the port's own, nothing else).
+    Returns the separable path's launches on rank 0."""
+    w = dim // STATE_RANKS
+    for label, run_args in (("separable", STATE_RANK_SEP_RUN),
+                            ("lockstep", STATE_RANK_LOCKSTEP_RUN)):
+        steps = sum(run_args)
+        rs = [r[label] for r in results]
+        share = min(r["share"] for r in rs)
+        one_decision = all(r["moved"] == rs[0]["moved"] for r in rs)
+        say("state_mesh_ranks", path=label, ranks=STATE_RANKS,
+            chains=chains, D=dim, local=rs[0]["local"],
+            d0=",".join(str(r["d0"]) for r in rs),
+            placements=rs[0]["placements"], chains_equal_share=repr(share),
+            max_abs_err=repr(max(r["max_err"] for r in rs)),
+            one_decision_per_chain=one_decision,
+            differing_chains_flipped=all(r["flips_only"] for r in rs),
+            launches=repr(rs[0]["launches"]).replace(" ", ""),
+            collectives=repr(rs[0]["collectives"]).replace(" ", ""),
+            seconds=repr(max(r["seconds"] for r in rs)))
+        check(f"state ranks {label} blocks", all(
+            r["local"] == (run_args[0], chains, w) and r["d0"] == i * w
+            for i, r in enumerate(rs)), [r["local"] for r in rs])
+        check(f"state ranks {label} chains equal unsharded",
+              share >= STATE_RANK_SHARE, share)
+        check(f"state ranks {label} one decision per chain", one_decision,
+              label)
+        check(f"state ranks {label} differing chains differ at a flipped "
+              "decision", all(r["flips_only"] for r in rs), label)
+        check(f"state ranks {label} one all-reduce a step", all(
+            r["collectives"] == {"all_reduce": steps} for r in rs),
+            [r["collectives"] for r in rs])
+    for r in results:
+        check("state ranks separable: the two-pass Kernel 7 each step",
+              r["separable"]["launches"] == {
+                  "hmc_separable": sum(STATE_RANK_SEP_RUN)},
+              r["separable"]["launches"])
+        check("state ranks lockstep launches no kernel",
+              not any(r["lockstep"]["launches"].get(k) for k in KERNELS),
+              r["lockstep"]["launches"])
+    return results[0]["separable"]["launches"]
+
+
+def phase_state_mesh_ranks(tmp: str) -> dict:
+    """``[state_mesh_ranks]`` (42b): :func:`spawn_state_ranks` at the
+    separable stage's 1,024 x 10,000, L = 10, both ranks on the one card,
+    checked by :func:`check_state_ranks`; within ``STATE_RANKS_S``."""
+    t0 = time.perf_counter()
+    results = spawn_state_ranks(tmp, "cuda", SEP_CHAINS, SEP_DIM,
+                                STATE_RANKS_S)
+    launches = check_state_ranks(results, SEP_CHAINS, SEP_DIM)
+    seconds = time.perf_counter() - t0
+    say("state_mesh_ranks_times", seconds=repr(seconds),
+        limit_s=STATE_RANKS_S)
+    check(f"state mesh ranks within {STATE_RANKS_S} s",
+          seconds <= STATE_RANKS_S, seconds)
+    return {"launches": launches["hmc_separable"], "seconds": seconds}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -7132,6 +7509,9 @@ def run_phases(args, tmp: str) -> None:
     torch.cuda.empty_cache()
     par = phase_parallel(dev)
     torch.cuda.empty_cache()
+    state_mesh = phase_state_mesh(dev)
+    torch.cuda.empty_cache()
+    state_ranks = phase_state_mesh_ranks(tmp)
     phase_example_nuts_steps(dev)
     examples = phase_examples()
     bigd = examples["counts"]
@@ -7209,7 +7589,13 @@ def run_phases(args, tmp: str) -> None:
                bound_ms_L40=b["hmc_separable_L40"][0],
                bound_by_L40=b["hmc_separable_L40"][1],
                launches_run_progress=progress_launches["separable"],
-               split_launches_equal=par["split"]["hmc_separable_step"]),
+               split_launches_equal=par["split"]["hmc_separable_step"],
+               launches_state_mesh=state_mesh["launches"],
+               launches_state_ranks=state_ranks["launches"],
+               d_slices_equal={
+                   f"{name}_{n}": ok
+                   for name, by_n in state_mesh["split"].items()
+                   for n, ok in by_n.items()}),
         record("pt_multistep", "pt_multistep.cu", "tempering_full.py:61",
                pt_counts["pt_multistep"], k8["err"], k8["ms"],
                k8["plain_ms"], device_ms=k8["device_ms"],

@@ -25,10 +25,10 @@ and the other way round.
 
 A state sharded over a chain mesh (``parallel/``) saves as a collective,
 as the JAX package's does (``mini_mcmc_tpu/checkpoint.py:39-50``): every
-rank gathers each field along its chain axis, rank 0 of the chain group
-writes the one file, and every rank waits at a barrier. The file is the
-unsharded state's. :func:`restore_sampler` takes ``mesh=`` to shard the
-restored state over it.
+rank gathers each field along its chain axis (and, under a state split,
+its state axis), mesh rank 0 writes the one file, and every rank waits at
+a barrier. The file is the unsharded state's. :func:`restore_sampler`
+takes ``mesh=`` to shard the restored state's chains over it.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ from .ops.nuts import NUTSState
 from .ops.sgmcmc import SGHMCState, SGLDState
 from .ops.slice import SliceState
 from .ops.tempering import PTState
-from .parallel.collectives import barrier, gather_chains
+from .parallel.collectives import barrier, gather_chains, gather_state, split
 from .parallel.mesh import local_state, shard_sampler_state
 from .stats import TrackerState
 from .utils.init import resolve_device
@@ -96,22 +96,32 @@ def save_checkpoint(path: str, state: Any,
     (``save_sampler`` puts the metric and transform records there). The
     file is written under a name of its own and renamed into place.
 
-    A sharded state (DTensor leaves) is gathered whole on every rank, rank
-    0 of its chain group writes, and all ranks wait for the file: every
-    rank of the group must call this.
+    A sharded state (DTensor leaves) is gathered whole on every rank, mesh
+    rank 0 writes, and all ranks wait for the file: every rank of the mesh
+    must call this.
     """
     _check_backend(backend)
     state, layout = local_state(state)
     if layout is not None:
-        chains = layout.chains
-        state = type(state)(*[
-            gather_chains(x, chains, axis)
-            if isinstance(axis, int) and axis is not False
-            else x for x, axis in zip(state, layout.axes)])
-        if chains.rank == 0:
+        chains, st = layout.chains, layout.state
+
+        def whole(x, axis, s_axis):
+            if axis is False or not isinstance(axis, int):
+                return x
+            x = gather_chains(x, chains, axis)
+            return x if s_axis is None else gather_state(x, st, s_axis)
+
+        state = type(state)(*map(whole, state, layout.axes,
+                                 layout.state_axes or (None,) * len(state)))
+        if chains.rank == 0 and (st is None or st.rank == 0):
             save_checkpoint(path, state, generator, backend=backend,
                             extra=extra)
+        # every rank waits for mesh rank 0: its chain group's barrier,
+        # then its state group's (whose rank 0 passed its own chain
+        # group's barrier after the writer)
         barrier(chains.group)
+        if split(st):
+            barrier(st.group)
         return
     name = type(state).__name__
     if STATE_TYPES.get(name) is not type(state):
@@ -262,8 +272,10 @@ def restore_sampler(path: str, sampler, *, mesh=None):
     chains bit for bit.
 
     ``mesh``: a chain mesh (``parallel.chain_mesh``) to shard the restored
-    state over; a sharded sampler restored without one is resharded over
-    its own mesh. The shards then continue the chains bit for bit too.
+    state's chains over (chains only, as the JAX package's); a sharded
+    sampler restored without one is resharded over its own mesh, its D
+    split again if it was. The shards then continue the chains bit for bit
+    too.
 
     Each field moves to the device and dtype of the sampler's own. Raises
     ``ValueError`` when the checkpoint holds another state type (an NUTS
@@ -325,10 +337,12 @@ def restore_sampler(path: str, sampler, *, mesh=None):
         fields[name] = new
     state = type(cur)(**fields)
     layout = getattr(sampler, "_layout", None)
+    split_d = False
     if mesh is None and layout is not None:
-        mesh = layout.mesh
+        mesh, split_d = layout.mesh, layout.state is not None
     sampler.state = (state if mesh is None
-                     else shard_sampler_state(mesh, state))
+                     else shard_sampler_state(mesh, state,
+                                              shard_state_dim=split_d))
     gen = _generator(payload["generator"])
     if gen is not None:
         sampler._gen = gen

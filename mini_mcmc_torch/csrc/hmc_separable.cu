@@ -44,7 +44,10 @@
 // the [C, D] momentum and `mom_out` receives the final one (the debug
 // form). `eps` is a device float, `tables` [n_tables, D] (null without
 // tables). Writes pos_out [C, D] and parts [3, C, G], G = ceil(ceil(D / 4)
-// / (threads * 2)). `functor` is a CoordId
+// / (threads * 2)). `d0` places the rows at a D-slice of a wider state:
+// pos, tables, bij and scale hold the slice's columns, and the momentum of
+// coordinate d is drawn as global coordinate d0 + d (d0 a multiple of 4,
+// else cudaErrorInvalidValue; 0 for a whole state). `functor` is a CoordId
 // (_build.SEP_FUNCTORS), run by the bits of `flags` (MM_SEP_DISPATCH):
 // Scaled<functor> for 1 (the scale the last table), TransformedCoord for
 // 2 and 3, its table `bij` ([3, D] code, offset, width, then the six
@@ -58,14 +61,15 @@ extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
                                 const void* scale, int n_chains, int dim,
                                 int n_leapfrog, int functor, int flags,
                                 int threads, int vec, uint32_t chain0,
-                                uint32_t seed_lo, uint32_t seed_hi,
-                                uint32_t step, void* pos_out, void* mom_out,
-                                void* parts, void* stream) {
+                                uint32_t d0, uint32_t seed_lo,
+                                uint32_t seed_hi, uint32_t step,
+                                void* pos_out, void* mom_out, void* parts,
+                                void* stream) {
   const mm::SepCall c{pos,      mom_in,  nullptr,  nullptr, eps,
                       params,   tables,  bij,      scale,   n_chains,
                       dim,      n_leapfrog, threads, vec,   chain0,
                       seed_lo,  seed_hi, step,     pos_out, mom_out,
-                      parts,    nullptr, nullptr,  stream};
+                      parts,    nullptr, nullptr,  stream,  d0};
 #define MM_SEP(F) return mm::sep_trajectory<F>(c)
   MM_SEP_DISPATCH(functor, flags, MM_SEP);
 #undef MM_SEP

@@ -29,7 +29,12 @@
 // Layout: one block per (chain, D-tile), threads along D. A thread owns G
 // quads of four consecutive coordinates (one Philox evaluation each);
 // quad q = (tile * G + j) * blockDim.x + threadIdx.x, so a warp's loads
-// are consecutive 16-byte vectors. No [C, D] momentum or gradient ever
+// are consecutive 16-byte vectors. The trajectory-only form also runs a
+// D-slice of a state split over ranks: its rows are the slice's, and
+// its momenta are keyed by global quad q0 + q (q0 = d0 / 4, the slice's
+// first coordinate a multiple of 4), so the slices of a state draw the
+// whole state's momenta. The fused form runs whole rows (q0 = 0) and never
+// reads q0. No [C, D] momentum or gradient ever
 // reaches device memory. Each block reduces its three sums with warp
 // shuffles and shared memory.
 //
@@ -97,6 +102,7 @@ struct SepArgs {
   float* parts;      // [3, C, n_tiles] (trajectory form)
   float* logp_out;   // [C] (fused)
   float* alpha_out;  // [C] (fused)
+  uint32_t q0;       // the slice's first global quad (trajectory form)
 };
 
 // Four coordinates of quad q from `row`: one 16-byte load when `vec` (D is
@@ -203,7 +209,9 @@ __global__ void __launch_bounds__(kSepMaxThreads)
       if (a.mom_in != nullptr) {
         load4(a.mom_in + row, q, a.dim, a.vec, 0.0f, m[j]);
       } else {
-        normals4_at(chain, a.step, (uint32_t)q, a.k0, a.k1, m[j]);
+        // momenta keyed by global quad: the fused form's rows are whole
+        const uint32_t qg = kFused ? (uint32_t)q : a.q0 + (uint32_t)q;
+        normals4_at(chain, a.step, qg, a.k0, a.k1, m[j]);
       }
     }
 #pragma unroll
@@ -371,7 +379,7 @@ inline int sep_tiles(int dim, int threads) {
 }
 
 
-// The raw arguments of the three C entries (mm_hmc_separable,
+// The raw arguments of the C entries (mm_hmc_separable,
 // mm_hmc_separable_step; see hmc_separable.cu for each one's contract).
 struct SepCall {
   const void* pos;
@@ -391,6 +399,7 @@ struct SepCall {
   void* logp_out;
   void* alpha_out;
   void* stream;
+  uint32_t d0;  // the slice's first coordinate (trajectory form; else 0)
 };
 
 inline SepArgs sep_args(const SepCall& c, int n_tiles) {
@@ -418,6 +427,7 @@ inline SepArgs sep_args(const SepCall& c, int n_tiles) {
   a.parts = (float*)c.parts;
   a.logp_out = (float*)c.logp_out;
   a.alpha_out = (float*)c.alpha_out;
+  a.q0 = c.d0 >> 2;
   return a;
 }
 
@@ -426,7 +436,7 @@ template <class F>
 int sep_trajectory(const SepCall& c) {
   if (c.n_chains <= 0 || c.dim <= 0) return (int)cudaSuccess;
   const int n_tiles = sep_tiles(c.dim, c.threads);
-  if (n_tiles < 0) return (int)cudaErrorInvalidValue;
+  if (n_tiles < 0 || c.d0 % 4 != 0) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)c.n_chains * n_tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const SepArgs a = sep_args(c, n_tiles);

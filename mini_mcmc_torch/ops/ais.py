@@ -48,7 +48,7 @@ import torch
 from ..parallel.collectives import chain_draw, gather_chains
 from ..parallel.mesh import local_state
 from ..runner import key_generator
-from ..stats import local_cube
+from ..stats import split_cube
 from ..utils.init import resolve_device
 
 #: float32 strata (``(u + arange(n)) / n``) collapse above 2^24: distinct
@@ -243,7 +243,7 @@ def _ais_result(x, log_w) -> AISResult:
     """The estimate and the weight ESS of an anneal's particles and
     weights: the only cross-particle reductions, once, after the loop (a
     sharded anneal's weights gathered first, one all-gather)."""
-    local, chains = local_cube(log_w)
+    local, chains, _ = split_cube(log_w)
     log_w = gather_chains(local, chains)
     n = log_w.shape[0]
     log_z = torch.logsumexp(log_w, dim=0) - math.log(n)
@@ -328,6 +328,13 @@ def make_anneal(
     def anneal(x0, key):
         gen = key_generator(key)
         local, layout = local_state(x0)
+        if layout is not None and layout.state is not None:
+            raise ValueError(
+                "make_anneal's anneal takes each particle's whole state: "
+                "an x0 split over a 'state' axis (shard_state_dim=True) "
+                "runs only on HMC and MALA with use_pallas=False and on "
+                "HMC(use_pallas='separable'); shard the particles alone "
+                "(shard_chains or shard_state_dim=False)")
         chains = None if layout is None else layout.chains
         x, log_w = run(local, lambda k, x: _mh_draws(gen, n_mh_steps, x,
                                                      chains))

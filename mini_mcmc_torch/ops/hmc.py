@@ -17,6 +17,16 @@ Under a chain mesh (``key.chains``) the generator's draws are the global
 shape's, narrowed to the shard's chains, the kernels take the shard's first
 global chain as ``chain0``, and ``step_eps``'s mean acceptance covers every
 shard (``parallel/collectives.py``).
+
+Under a state split (``key.state``: D split over a ``"state"`` axis) the
+lockstep step draws the global ``[C, D]`` momenta narrowed to its block,
+runs the target on a DTensor view of its D-slice
+(``parallel.mesh.SliceTarget``) and sums the kinetic energies over the axis
+(one all-reduce of ``[2, C]``); the separable step runs Kernel 7's
+trajectory at the slice (``d0``) and all-reduces its ``[3, C]`` sums, one
+all-reduce a step, before the accept. Every shard of a chain draws the
+same accept uniform and so takes the same decision. A state axis of one
+rank runs the unsplit code.
 """
 
 from __future__ import annotations
@@ -25,7 +35,14 @@ from typing import NamedTuple
 
 import torch
 
-from ..parallel.collectives import chain_draw, gather_chains
+from ..parallel.collectives import (
+    chain_draw,
+    gather_chains,
+    split,
+    state_draw,
+    state_sum,
+)
+from ..parallel.mesh import SliceTarget
 from ..runner import StepKey, chain0, make_scan_block_fn
 from .kernels.hmc import leapfrog_trajectory, leapfrog_trajectory_plain
 from .kernels.hmc_full import hmc_multistep
@@ -37,6 +54,10 @@ class HMCState(NamedTuple):
     logp: torch.Tensor  # [C] cached target log density at positions
     grad: torch.Tensor  # [C, D] cached gradient at positions
 
+    #: the state-dimension axis per field for ``parallel.
+    #: shard_sampler_state(..., shard_state_dim=True)``
+    STATE_AXIS_INDEX = {"positions": 1, "grad": 1}
+
 
 class HMCSepState(NamedTuple):
     """State of the separable tier: no gradient cache, since Kernel 7
@@ -44,6 +65,8 @@ class HMCSepState(NamedTuple):
 
     positions: torch.Tensor  # [C, D]
     logp: torch.Tensor  # [C] cached target log density at positions
+
+    STATE_AXIS_INDEX = {"positions": 1}
 
 
 def hmc_kernel(target, step_size: float, n_leapfrog: int,
@@ -89,11 +112,14 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
     sep_tables = target.sep_forms()[1] if separable else ()
     tables_on = {}  # the [n_tables, D] table tensor per (device, dtype)
 
-    def _tables(like: torch.Tensor) -> torch.Tensor:
-        key = (like.device, like.dtype)
+    def _tables(like: torch.Tensor, d0: int = 0) -> torch.Tensor:
+        """The tables of ``like``'s columns, a D-slice from ``d0``."""
+        key = (like.device, like.dtype, d0, like.shape[1])
         if key not in tables_on:
             tables_on[key] = (
-                torch.cat([t.to(like.device, like.dtype) for t in sep_tables])
+                torch.cat([t.to(like.device, like.dtype)
+                           for t in sep_tables])[:, d0:d0 + like.shape[1]]
+                .contiguous()
                 if sep_tables else like.new_empty((0, like.shape[1])))
         return tables_on[key]
 
@@ -120,9 +146,14 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
         pos = state.positions
         eps = torch.as_tensor(eps, dtype=pos.dtype,
                               device=pos.device).reshape(1)
+        st = key.state
+        # a D-slice: the two-pass form, its [3, C] sums over the state axis
+        d0, n_dim, reduce = ((st.d0, st.n_dim, lambda s: state_sum(s, st))
+                             if split(st) else (0, None, None))
         positions, logp, alpha_c = hmc_separable_step(
             target, pos, state.logp, eps, n_leapfrog, key.seed, key.step,
-            _tables(pos), chain0=chain0(key))
+            _tables(pos, d0), chain0=chain0(key), d0=d0, n_dim=n_dim,
+            reduce=reduce)
         return HMCSepState(positions, logp), alpha_c
 
     def plain_step(state: HMCState, key: StepKey, eps):
@@ -131,13 +162,19 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
         pos = state.positions
         gen = key.generator
         like = dict(dtype=pos.dtype, device=pos.device)
-        mom0 = chain_draw(key.chains, lambda s: torch.randn(
+        st = key.state
+        mom0 = state_draw(key.chains, st, lambda s: torch.randn(
             s, generator=gen, **like), pos.shape)
-        h_current = -state.logp + 0.5 * torch.sum(mom0 * mom0, dim=1)
+        ke0 = torch.sum(mom0 * mom0, dim=1)
         pos_prop, mom_prop, logp_prop, grad_prop = traj(
-            target, pos, mom0, state.grad, eps, n_leapfrog
+            SliceTarget(target, st) if split(st) else target, pos, mom0,
+            state.grad, eps, n_leapfrog
         )
-        h_proposed = -logp_prop + 0.5 * torch.sum(mom_prop * mom_prop, dim=1)
+        ke1 = torch.sum(mom_prop * mom_prop, dim=1)
+        if split(st):  # the D-slices' shares, summed over the axis
+            ke0, ke1 = state_sum(torch.stack([ke0, ke1]), st)
+        h_current = -state.logp + 0.5 * ke0
+        h_proposed = -logp_prop + 0.5 * ke1
         # accept iff H_cur - H_prop >= ln(u) per chain (hmc.rs:343-376)
         accept_logp = h_current - h_proposed
         alpha_c = torch.exp(torch.clamp(accept_logp, max=0.0))

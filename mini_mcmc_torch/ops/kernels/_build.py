@@ -429,7 +429,7 @@ ENTRY_SIGS = {
     + [_LL, _LL, _P],
     "mm_gibbs_multistep": [_P] * 2 + [_I] * 4 + [_U] * 4 + [_P] * 2
     + [_LL, _LL, _P],
-    "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 4 + [_P] * 4,
+    "mm_hmc_separable": [_P] * 7 + [_I] * 7 + [_U] * 5 + [_P] * 4,
     "mm_hmc_separable_step": [_P] * 9 + [_I] * 7 + [_U] * 4 + [_P] * 4,
     "mm_hmc_separable_clusters": [_I] * 4 + [_P],
     "mm_pt_multistep": [_P] * 5 + [_I] * 8 + [_U] * 4 + [_P] * 4

@@ -27,7 +27,12 @@ beyond the order of the sums.
 
 :func:`hmc_separable` is the trajectory alone, ``(pos_prop, logp_prop,
 ke0, ke1, mom_prop)``: the debug form with a given momentum (its final
-momentum returned) and the two-pass form's first pass.
+momentum returned), the two-pass form's first pass, and the step of a
+state whose D is split over ranks (``ops/hmc.py:sep_step``). There ``d0``
+places the rows at a D-slice of the state (a multiple of 4): the tables,
+the scale and the bijector table are read at the slice's columns, the
+momenta drawn as global coordinates ``d0 ..`` (a slice's drawn momenta are
+the whole state's columns), and the three sums are the slice's share.
 
 The kernel evaluates the target's coordinate functor
 (``Target.cuda_functor``, ``_build.SEP_FUNCTORS``, ``csrc/coord_targets.cuh``;
@@ -146,24 +151,28 @@ def sep_instance(target) -> tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=16)
-def _bij_table(target, device: torch.device) -> torch.Tensor:
-    """A transformed target's bijector table on ``device``: its ``[3, D]``
-    rows (each coordinate's code, offset and width, float32), then the six
+def _bij_table(target, device: torch.device, d0: int,
+               width: int) -> torch.Tensor:
+    """A transformed target's bijector table on ``device`` for the
+    coordinates ``[d0, d0 + width)``: its ``[3, width]`` rows (each
+    coordinate's code, offset and width, float32), then the six
     soft-saturation constants (``transforms.soft_saturation_constants``)
-    and two zeros. Built once per target and device."""
-    rows = torch.tensor(target.cuda_transform, dtype=torch.float64).T
+    and two zeros. Built once per target, device and slice."""
+    rows = torch.tensor(target.cuda_transform,
+                        dtype=torch.float64).T[:, d0:d0 + width]
     head = torch.tensor(soft_saturation_constants() + (0.0, 0.0),
                         dtype=torch.float64)
     return torch.cat([rows.reshape(-1), head]).to(device, torch.float32)
 
 
-def _wrapper_ptrs(target, tables, flags: int):
+def _wrapper_ptrs(target, tables, flags: int, d0: int = 0):
     """The bijector table and scale pointers of a launch: ``(bij, scale,
     bij tensor)``, ``None`` where the instance reads none; a transformed
-    target's scale is the last row of ``tables``."""
+    target's scale is the last row of ``tables``. The bijector table is
+    that of the coordinates ``tables`` covers, from ``d0``."""
     if not flags & 2:
         return None, None, None
-    bij = _bij_table(target, tables.device)
+    bij = _bij_table(target, tables.device, d0, tables.shape[1])
     scale = tables[-1].data_ptr() if flags & 1 else None
     return bij.data_ptr(), scale, bij
 
@@ -178,19 +187,22 @@ def _tile_grad(fn, x, tables):
 
 
 def hmc_separable_plain(target, pos, eps, n_leapfrog: int, seed: int,
-                        step: int, tables, mom=None, *, chain0: int = 0):
+                        step: int, tables, mom=None, *, chain0: int = 0,
+                        d0: int = 0):
     """Plain PyTorch twin of the trajectory. ``tables`` is the ``[n_tables,
     D]`` tensor of the target's ``sep_forms()`` tables and ``eps`` a
     one-element tensor. ``mom [C, D]`` replaces the Philox momentum (the
-    debug form). Returns ``(pos_prop, logp_prop [C], ke0 [C], ke1 [C],
-    mom_prop)``; ``mom_prop`` is ``None`` without ``mom``."""
+    debug form). ``d0`` (a multiple of 4): ``pos`` and ``tables`` hold a
+    D-slice starting at coordinate ``d0``, whose momenta are drawn as
+    those global coordinates. Returns ``(pos_prop, logp_prop [C], ke0
+    [C], ke1 [C], mom_prop)``; ``mom_prop`` is ``None`` without ``mom``."""
     hmc_separable_plain.calls += 1
     fn, _ = target.sep_forms()
     tabs = tuple(tables[i:i + 1] for i in range(tables.shape[0]))
     c, d = pos.shape
     if mom is None:
         mom0 = rng.paired_normals(c, d, step & _MASK, seed, pos.device,
-                                  chain0).to(pos.dtype)
+                                  chain0, d0).to(pos.dtype)
     else:
         mom0 = mom
     eps = eps.reshape(-1)[0]
@@ -248,10 +260,13 @@ def hmc_separable_step_plain(target, pos, logp, eps, n_leapfrog: int,
 hmc_separable_step_plain.calls = 0
 
 
-def _check(target, pos, eps, tables, mom, threads: int):
+def _check(target, pos, eps, tables, mom, threads: int, d0: int = 0):
     """The kernel's contract on its inputs; returns ``(functor id,
     flags)``."""
     fid, n_tables, flags = sep_instance(target)
+    if d0 < 0 or d0 % 4:
+        raise ValueError(f"a D-slice starts at a multiple of 4 (Kernel 7's "
+                         f"coordinate quads); got d0={d0}")
     if pos.dim() != 2 or pos.dtype != torch.float32:
         raise ValueError("the separable kernel takes float32 [C, D] "
                          f"positions; got {pos.dtype} {tuple(pos.shape)}")
@@ -294,17 +309,17 @@ def _vec(d: int, *tensors) -> int:
 
 
 def _trajectory(target, pos, eps, n_leapfrog, seed, step, tables, mom,
-                chain0, threads):
+                chain0, threads, d0=0, n_dim=None):
     """Launch the trajectory-only form: ``(pos_prop, parts [3, C, tiles],
-    mom_prop)``."""
-    fid, flags = _check(target, pos, eps, tables, mom, threads)
+    mom_prop)``; ``d0`` and ``n_dim`` as :func:`hmc_separable`'s."""
+    fid, flags = _check(target, pos, eps, tables, mom, threads, d0)
     c, d = pos.shape
     pos_o = torch.empty_like(pos)
     mom_o = None if mom is None else torch.empty_like(pos)
     parts = pos.new_empty((3, c, sep_tiles(d, threads)))
     seed_lo, seed_hi = rng.seed_words(seed)
-    bij, scale, bij_t = _wrapper_ptrs(target, tables, flags)
-    lib, params = _sep_lib(target, fid, flags, d, pos.device)
+    bij, scale, bij_t = _wrapper_ptrs(target, tables, flags, d0)
+    lib, params = _sep_lib(target, fid, flags, n_dim or d0 + d, pos.device)
     hmc_separable.launches += 1
     hmc_separable.scaled_launches += flags & 1
     hmc_separable.transformed_launches += flags >> 1
@@ -315,8 +330,7 @@ def _trajectory(target, pos, eps, n_leapfrog, seed, step, tables, mom,
         tables.data_ptr() if tables.shape[0] else None, bij, scale, c, d,
         n_leapfrog, fid, flags, threads,
         _vec(d, pos, pos_o, *tables, mom, mom_o, bij_t), chain0 & _MASK,
-        seed_lo,
-        seed_hi, step & _MASK, pos_o.data_ptr(),
+        d0, seed_lo, seed_hi, step & _MASK, pos_o.data_ptr(),
         None if mom_o is None else mom_o.data_ptr(), parts.data_ptr(),
         _build.stream_ptr(pos.device),
     ), lib)
@@ -324,20 +338,25 @@ def _trajectory(target, pos, eps, n_leapfrog, seed, step, tables, mom,
 
 
 def hmc_separable(target, pos, eps, n_leapfrog: int, seed: int, step: int,
-                  tables, mom=None, *, chain0: int = 0,
-                  threads: int = SEP_THREADS):
+                  tables, mom=None, *, chain0: int = 0, d0: int = 0,
+                  n_dim: int | None = None, threads: int = SEP_THREADS):
     """One trajectory per chain of ``pos [C, D]`` at step size ``eps`` (a
     one-element tensor on the positions' device), drawing the momentum at
     ``(seed, chain0 + c, step)`` unless ``mom`` is given. Returns
     ``(pos_prop, logp_prop, ke0, ke1, mom_prop)`` as
-    :func:`hmc_separable_plain`. ``threads`` sets the launch's block size
-    and so its D-tiles; the results do not depend on it beyond the order
-    of the sums."""
+    :func:`hmc_separable_plain`. ``d0`` (a multiple of 4; else
+    ``ValueError``) places ``pos`` and ``tables`` at a D-slice of a state
+    of ``n_dim`` coordinates (default ``d0 + D``; the functor's params
+    are read at it), its momenta drawn as global coordinates ``d0 ..``
+    and its sums the slice's share. ``threads`` sets the launch's block
+    size and so its D-tiles; the results do not depend on it beyond the
+    order of the sums."""
     if not pos.is_cuda:
         return hmc_separable_plain(target, pos, eps, n_leapfrog, seed, step,
-                                   tables, mom, chain0=chain0)
+                                   tables, mom, chain0=chain0, d0=d0)
     pos_o, parts, mom_o = _trajectory(target, pos, eps, n_leapfrog, seed,
-                                      step, tables, mom, chain0, threads)
+                                      step, tables, mom, chain0, threads,
+                                      d0, n_dim)
     logp, ke0, ke1 = parts.sum(dim=2)
     return pos_o, logp, ke0, ke1, mom_o
 
@@ -373,7 +392,9 @@ def _clusters(device: torch.device, lib, fid: int, flags: int, threads: int,
 
 def hmc_separable_step(target, pos, logp, eps, n_leapfrog: int, seed: int,
                        step: int, tables, *, mom=None, u=None,
-                       chain0: int = 0, threads: int = SEP_THREADS):
+                       chain0: int = 0, d0: int = 0,
+                       n_dim: int | None = None, reduce=None,
+                       threads: int = SEP_THREADS):
     """One whole separable HMC step of every chain of ``pos [C, D]`` with
     cached density ``logp [C]`` at step size ``eps`` (a one-element tensor
     on the positions' device). Returns ``(positions, logp, alpha_c)``,
@@ -384,23 +405,29 @@ def hmc_separable_step(target, pos, logp, eps, n_leapfrog: int, seed: int,
     uniform (parity tests). ``threads`` sets the launch's block size and
     so its D-tiles; results do not depend on it beyond the order of the
     sums. The form follows the shape rule of the module's docstring
-    (:func:`sep_fused`)."""
-    if not pos.is_cuda:
+    (:func:`sep_fused`). ``reduce`` makes ``pos`` and ``tables`` a D-slice
+    from ``d0`` of a state of ``n_dim`` coordinates (as
+    :func:`hmc_separable`): the step takes the two-pass form on either
+    device, and ``reduce`` maps the slice's ``[3, C]`` sums (logp, the
+    two kinetic energies) to the whole state's before the accept."""
+    if reduce is None and not pos.is_cuda:
         return hmc_separable_step_plain(target, pos, logp, eps, n_leapfrog,
                                         seed, step, tables, mom=mom, u=u,
                                         chain0=chain0)
     c, d = pos.shape
     for name, t in (("logp", logp), ("u", u)):
-        if t is not None and (t.shape != (c,) or t.dtype != torch.float32
-                              or t.device != pos.device
-                              or not t.is_contiguous()):
+        if t is not None and pos.is_cuda and (
+                t.shape != (c,) or t.dtype != torch.float32
+                or t.device != pos.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 [C] "
                              "tensor on the positions' device")
     n_tiles = sep_tiles(d, threads)
-    if n_tiles > SEP_MAX_CLUSTER:  # the two-pass form
-        pos_prop, parts, _ = _trajectory(target, pos, eps, n_leapfrog, seed,
-                                         step, tables, mom, chain0, threads)
-        logp_prop, ke0, ke1 = parts.sum(dim=2)
+    if reduce is not None or n_tiles > SEP_MAX_CLUSTER:  # the two-pass form
+        pos_prop, *sums, _ = hmc_separable(
+            target, pos, eps, n_leapfrog, seed, step, tables, mom,
+            chain0=chain0, d0=d0, n_dim=n_dim, threads=threads)
+        logp_prop, ke0, ke1 = (sums if reduce is None
+                               else reduce(torch.stack(sums)))
         if u is None:
             u = accept_uniforms(c, step, seed, pos.device, chain0)
         return _accept(pos, logp, pos_prop, logp_prop, ke0, ke1, u)

@@ -122,13 +122,14 @@ def box_muller_pair(a: torch.Tensor, b: torch.Tensor):
 
 
 def stream_words(n_chains: int, n_words: int, step: int, seed: int,
-                 device=None, chain0: int = 0) -> torch.Tensor:
+                 device=None, chain0: int = 0, q0: int = 0) -> torch.Tensor:
     """One step's word stream for every chain (``philox.cuh:step_words``,
     Kernels 2, 5 and 6): int64 ``[C, 4 ceil(n_words / 4)]``, word ``4q + j``
-    being word ``j`` of the counter ``(chain0 + c, step, q, 0)``."""
+    being word ``j`` of the counter ``(chain0 + c, step, q0 + q, 0)``."""
     chain = torch.arange(chain0, chain0 + n_chains,
                          device=device).reshape(-1, 1)
-    quad = torch.arange((n_words + 3) // 4, device=device).reshape(1, -1)
+    quad = torch.arange(q0, q0 + (n_words + 3) // 4,
+                        device=device).reshape(1, -1)
     w = philox4x32_10(chain, step, quad, 0, seed_words(seed))
     return torch.stack(w, dim=2).reshape(n_chains, -1)
 
@@ -144,13 +145,17 @@ def pair_normals(words: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def paired_normals(n_chains: int, dim: int, step: int, seed: int,
-                   device=None, chain0: int = 0) -> torch.Tensor:
+                   device=None, chain0: int = 0, d0: int = 0) -> torch.Tensor:
     """``[C, D]`` momenta of the separable kernel (``philox.cuh``,
     Kernel 7): the counter ``(chain0 + c, step, q, 0)`` gives coordinates
     ``4q..4q+3``, words x and y the cosine and sine of one Box-Muller pair,
-    words z and w of the next."""
+    words z and w of the next. ``d0`` (a multiple of 4) places the D
+    columns at global coordinates ``d0 ..``: the columns of a wider
+    state's momenta."""
+    if d0 % 4:
+        raise ValueError(f"a D-slice starts at a multiple of 4; got d0={d0}")
     return pair_normals(
-        stream_words(n_chains, dim, step, seed, device, chain0), dim)
+        stream_words(n_chains, dim, step, seed, device, chain0, d0 // 4), dim)
 
 
 def uniform_at(chain, step: int, draw: int, seed: int, sub=0):

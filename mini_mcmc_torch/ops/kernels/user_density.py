@@ -1242,15 +1242,15 @@ _SEP_ENTRIES = {
 extern "C" int mm_hmc_separable(const void* pos, const void* mom_in,
     const void* eps, const void* params, const void* tables, const void* bij,
     const void* scale, int n_chains, int dim, int n_leapfrog, int functor,
-    int flags, int threads, int vec, uint32_t chain0, uint32_t seed_lo,
-    uint32_t seed_hi, uint32_t step, void* pos_out, void* mom_out,
-    void* parts, void* stream) {
+    int flags, int threads, int vec, uint32_t chain0, uint32_t d0,
+    uint32_t seed_lo, uint32_t seed_hi, uint32_t step, void* pos_out,
+    void* mom_out, void* parts, void* stream) {
   if (flags != kFlags) return (int)cudaErrorInvalidValue;
   const mm::SepCall c{pos,      mom_in,  nullptr,  nullptr, eps,
                       params,   tables,  bij,      scale,   n_chains,
                       dim,      n_leapfrog, threads, vec,   chain0,
                       seed_lo,  seed_hi, step,     pos_out, mom_out,
-                      parts,    nullptr, nullptr,  stream};
+                      parts,    nullptr, nullptr,  stream,  d0};
   return mm::sep_trajectory<Inst>(c);
 }
 
@@ -1822,7 +1822,7 @@ def coord_probe(target, x: torch.Tensor):
     t1 = each(tables[1] if n_rows > 1 else ones)
     scale = each(tables[-1] if flags == 3 else ones)
     if flags & 2:
-        full = _bij_table(target, x.device)
+        full = _bij_table(target, x.device, 0, d)
         rows = full[:3 * d].reshape(3, 1, d).expand(3, r, d).contiguous()
         consts = full[3 * d:].contiguous()
     else:

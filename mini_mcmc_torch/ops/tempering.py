@@ -47,6 +47,9 @@ class PTState(NamedTuple):
     #: the ladder, so the swap sweep's ladder-axis shifts stay local
     CHAIN_AXIS_INDEX = {"positions": 2, "raw_logp": 1, "swap_accept": 1,
                         "parity": None}
+    #: the state-dimension axis per field (``shard_state_dim=True``): D
+    #: sits before the chains, so the JAX rule's last axis would be wrong
+    STATE_AXIS_INDEX = {"positions": 1}
 
 
 def geometric_betas(n_temps: int, beta_min: float = 0.01) -> tuple:

@@ -1,11 +1,11 @@
-"""Chain and data parallelism over a ``torch.distributed`` mesh
-(counterpart of ``mini_mcmc_tpu.parallel``; ``chain_state_mesh``, the state
-dimension split over a ``"state"`` axis, is not ported yet)."""
+"""Chain, state-dimension and data parallelism over a ``torch.distributed``
+mesh (counterpart of ``mini_mcmc_tpu.parallel``)."""
 
 from . import collectives, multihost
 from .mesh import (
     chain_mesh,
     chain_sharding,
+    chain_state_mesh,
     data_mesh,
     replicated_sharding,
     shard_chains,
@@ -15,6 +15,7 @@ from .mesh import (
 __all__ = [
     "chain_mesh",
     "chain_sharding",
+    "chain_state_mesh",
     "data_mesh",
     "replicated_sharding",
     "shard_chains",

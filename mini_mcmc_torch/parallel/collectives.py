@@ -1,4 +1,4 @@
-"""Every collective of the port, and the draws of a chain shard.
+"""Every collective of the port, and the draws of a chain or state shard.
 
 A run over a chain mesh (``parallel/mesh.py``) advances each rank's own
 chains, its shard, and reaches the other ranks only through the functions
@@ -21,6 +21,13 @@ global chain as ``chain0``. The lockstep tiers draw from a
 :func:`chain_draw` draws the global shape and keeps the shard's rows: every
 rank's generator advances alike, and a shard's rows equal the unsharded
 run's.
+
+A state split over a ``"state"`` axis (``mesh.chain_state_mesh``) keeps a
+D-slice of every chain on each rank of that axis (:class:`StateGroup`).
+The lockstep HMC step sums a chain's energies over its D-slice and then
+over the axis (:func:`state_sum`, one all-reduce), and draws the global
+``[C, D]`` shape, narrowed to its chains and coordinates
+(:func:`state_draw`).
 """
 
 from __future__ import annotations
@@ -54,6 +61,23 @@ class ChainGroup(NamedTuple):
     group: object  # the axis's torch.distributed ProcessGroup
     size: int  # shards on the axis
     rank: int  # this shard's place on the axis
+
+
+class StateGroup(NamedTuple):
+    """A rank's place among the shards of a state (``"state"``) axis: its
+    D-slice ``[d0, d0 + D / size)``."""
+
+    d0: int  # global index of this shard's first coordinate
+    n_dim: int  # coordinates over all shards
+    group: object  # the axis's torch.distributed ProcessGroup
+    size: int  # shards on the axis
+    rank: int  # this shard's place on the axis
+    mesh: object = None  # the axis's 1-D DeviceMesh, for DTensor views
+
+
+def split(state: StateGroup | None) -> bool:
+    """Whether ``state`` splits D over more than one rank."""
+    return state is not None and state.size > 1
 
 
 def _dist():
@@ -139,6 +163,40 @@ def chain_draw(chains: ChainGroup | None, draw: Callable, shape,
     local = full[axis]
     full[axis] = chains.n_chains
     return draw(tuple(full)).narrow(axis, chains.chain0, local)
+
+
+def state_draw(chains: ChainGroup | None, state: StateGroup | None,
+               draw: Callable, shape) -> torch.Tensor:
+    """``draw(shape)`` for this rank's ``[C_local, D_local]`` block:
+    :func:`chain_draw` unless the state is split, else the draw of the
+    global ``[C, D]`` shape narrowed to the rank's chains and D-slice, so
+    that every rank's generator advances alike and a block equals the
+    unsharded run's. It costs one global ``[C, D]`` draw a rank."""
+    if not split(state):
+        return chain_draw(chains, draw, shape)
+    c, d = shape
+    n = c if chains is None else chains.n_chains
+    c0 = 0 if chains is None else chains.chain0
+    return draw((n, state.n_dim)).narrow(0, c0, c).narrow(1, state.d0, d)
+
+
+def state_sum(x: torch.Tensor, state: StateGroup | None) -> torch.Tensor:
+    """A sum over D of which ``x`` holds this rank's D-slice's share,
+    summed over every shard of the state axis (one all-reduce, counted
+    as ``all_reduce``); ``x`` itself unless the state is split."""
+    if not split(state):
+        return x
+    return all_reduce(x.contiguous(), state.group)
+
+
+def gather_state(x: torch.Tensor, state: StateGroup | None,
+                 axis: int = -1) -> torch.Tensor:
+    """``x``'s D-slice along ``axis`` gathered over every shard of the
+    state axis (one all-gather), the coordinates in global order;
+    ``x`` itself unless the state is split."""
+    if not split(state):
+        return x
+    return all_gather(x, state.group, axis % x.dim())
 
 
 def chain_call(chains: ChainGroup | None, fn: Callable, x: torch.Tensor,

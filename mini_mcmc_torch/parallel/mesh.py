@@ -1,4 +1,4 @@
-"""Device mesh and chain sharding (counterpart of
+"""Device mesh, chain and state sharding (counterpart of
 ``mini_mcmc_tpu/parallel/mesh.py``).
 
 The JAX package lays chains out over a 1-D ``jax.sharding.Mesh`` and lets
@@ -15,12 +15,19 @@ diagnostics cross ranks (``collectives.py``).
 
 A mesh lives on CUDA unless the caller asks for the CPU (``device="cpu"``:
 gloo collectives, as the tests run them). With no process group yet,
-:func:`chain_mesh` and :func:`data_mesh` start a one-rank group of their
-own (NCCL on CUDA, gloo on the CPU), needing no environment variables, as
-a one-device JAX mesh needs none; a job of several ranks starts its group
-first (``multihost.initialize``). The state dimension is not split here:
-``shard_state_dim=True`` keeps the JAX guard, and a mesh with a
-``"state"`` axis is not built (``chain_state_mesh``, ROADMAP item 12b).
+:func:`chain_mesh`, :func:`data_mesh` and :func:`chain_state_mesh` start a
+one-rank group of their own (NCCL on CUDA, gloo on the CPU), needing no
+environment variables, as a one-device JAX mesh needs none; a job of
+several ranks starts its group first (``multihost.initialize``).
+
+:func:`chain_state_mesh` adds a ``"state"`` axis, and
+``shard_sampler_state(..., shard_state_dim=True)`` splits the state
+dimension over it: each rank keeps a D-slice of its chains. Where the JAX
+package lets GSPMD partition the density, the lockstep HMC and MALA steps
+run the target on a ``DTensor`` view of the slice and sum their energies
+over the axis (``ops/hmc.py``), and the separable tier runs Kernel 7 at
+the slice's first coordinate (``ops/kernels/hmc_sep.py``). Every other
+sampler and fused tier refuses such a state (``samplers.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..utils.init import resolve_device
-from .collectives import ChainGroup
+from .collectives import ChainGroup, StateGroup
 
 CHAIN_AXIS = "chains"
 DATA_AXIS = "data"
@@ -58,22 +65,34 @@ def _start_group(device: torch.device) -> None:
                             store=dist.HashStore(), rank=0, world_size=1)
 
 
-def _mesh(axis: str, n_devices: Optional[int], devices,
-          device) -> "torch.distributed.device_mesh.DeviceMesh":
+def _group(device) -> tuple:
+    """``(device, world size)`` of the running process group, started if
+    need be; a multi-rank CUDA group puts each rank on its own card."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
 
     dev = resolve_device(device)
     _start_group(dev)
     world = dist.get_world_size()
-    if devices is None:
-        devices = list(range(world if n_devices is None else n_devices))
-    ranks = [int(r) for r in devices]
+    if dev.type == "cuda" and world > 1:
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return dev, world
+
+
+def _check_ranks(ranks, world: int) -> None:
     if not ranks or min(ranks) < 0 or max(ranks) >= world:
         raise ValueError(f"a mesh takes ranks of the process group, 0 to "
                          f"{world - 1}; got {ranks}")
-    if dev.type == "cuda" and world > 1:
-        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+
+
+def _mesh(axis: str, n_devices: Optional[int], devices,
+          device) -> "torch.distributed.device_mesh.DeviceMesh":
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev, world = _group(device)
+    if devices is None:
+        devices = list(range(world if n_devices is None else n_devices))
+    ranks = [int(r) for r in devices]
+    _check_ranks(ranks, world)
     return DeviceMesh(dev.type, ranks, mesh_dim_names=(axis,))
 
 
@@ -98,6 +117,43 @@ def data_mesh(n_devices: Optional[int] = None, devices=None, *,
     return _mesh(DATA_AXIS, n_devices, devices, device)
 
 
+def chain_state_mesh(n_chain_shards: int, n_state_shards: int, devices=None,
+                     *, device="cuda"):
+    """2-D ``("chains", "state")`` mesh for states too large for one
+    card: chains split over the first axis, the state dimension over the
+    second (``mini_mcmc_tpu/parallel/mesh.py:chain_state_mesh``). Rank
+    ``r`` of ``devices`` (default: the process group's ranks) sits at
+    chain shard ``r // n_state_shards`` and state shard ``r %
+    n_state_shards``. With ``n_chain_shards=1`` this is pure
+    state-dimension sharding.
+
+    Under this mesh, :func:`shard_sampler_state` with
+    ``shard_state_dim=True`` lays every ``[C, D]`` leaf out as
+    ``(Shard(0), Shard(1))``. A lockstep HMC or MALA step then
+    communicates only its energy sums across the state axis (all-reduces;
+    an elementwise density's leapfrog never communicates), and the
+    separable tier one all-reduce a step.
+
+    Raises ``ValueError`` with fewer ranks than ``n_chain_shards *
+    n_state_shards``. ``device``: ``"cuda"`` (default; raises without a
+    GPU) or ``"cpu"``.
+    """
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev, world = _group(device)
+    if devices is None:
+        devices = list(range(world))
+    n = n_chain_shards * n_state_shards
+    if len(devices) < n:
+        raise ValueError(
+            f"need {n} devices for a {n_chain_shards}x{n_state_shards} "
+            f"mesh; have {len(devices)}")
+    ranks = [int(r) for r in devices[:n]]
+    _check_ranks(ranks, world)
+    grid = torch.tensor(ranks).reshape(n_chain_shards, n_state_shards)
+    return DeviceMesh(dev.type, grid, mesh_dim_names=(CHAIN_AXIS, STATE_AXIS))
+
+
 class Sharding(NamedTuple):
     """Where a tensor lies on a mesh: the counterpart of a
     ``NamedSharding``, one placement per mesh dimension."""
@@ -115,13 +171,21 @@ def _chain_dim(mesh) -> int:
     return names.index(CHAIN_AXIS)
 
 
-def _placements(mesh, axis: Optional[int]):
+def _state_dim(mesh) -> Optional[int]:
+    names = tuple(mesh.mesh_dim_names or ())
+    return names.index(STATE_AXIS) if STATE_AXIS in names else None
+
+
+def _placements(mesh, axis: Optional[int], state_axis: Optional[int] = None):
     """One placement a mesh dimension: ``Shard(axis)`` on the chains
+    dimension (``None``: replicated), ``Shard(state_axis)`` on the state
     dimension (``None``: replicated), replicated on the others."""
     _, shard, replicate = _dtensor()
     out = [replicate()] * mesh.ndim
     if axis is not None:
         out[_chain_dim(mesh)] = shard(axis)
+    if state_axis is not None:
+        out[_state_dim(mesh)] = shard(state_axis)
     return tuple(out)
 
 
@@ -143,26 +207,31 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _place(x: torch.Tensor, mesh, axis: Optional[int]):
+def _place(x: torch.Tensor, mesh, axis: Optional[int],
+           state_axis: Optional[int] = None):
     """``x`` (the full tensor, the same on every rank) as a DTensor with
-    its axis ``axis`` split over the mesh (``None``: replicated). Each rank
-    keeps its own rows; nothing is communicated."""
+    its axis ``axis`` split over the chains dimension and ``state_axis``
+    over the state dimension (``None``: replicated). Each rank keeps its
+    own block; nothing is communicated."""
     dtensor, _, _ = _dtensor()
     if isinstance(x, dtensor):
         x = x.full_tensor()
     x = x.to(_mesh_device(mesh))
-    placements = _placements(mesh, axis)
-    if axis is not None:
-        dim = _chain_dim(mesh)
+    placements = _placements(mesh, axis, state_axis)
+    for ax, dim, what in ((axis, _chain_dim(mesh), "chains"),
+                          (state_axis, _state_dim(mesh), "coordinates")):
+        if ax is None:
+            continue
         size, rank = mesh.size(dim), mesh.get_local_rank(dim)
-        n = x.shape[axis]
+        n = x.shape[ax]
         if n % size:
             raise ValueError(
-                f"{n} chains do not divide over the mesh's {size} "
-                f"'{mesh.mesh_dim_names[dim]}' shards; use a chain count "
-                f"that is a multiple of {size}")
-        x = x.narrow(axis, rank * (n // size), n // size).contiguous()
-    return dtensor.from_local(x, mesh, placements, run_check=False)
+                f"{n} {what} do not divide over the mesh's {size} "
+                f"'{mesh.mesh_dim_names[dim]}' shards; use a count of "
+                f"{what} that is a multiple of {size}")
+        x = x.narrow(ax, rank * (n // size), n // size)
+    return dtensor.from_local(x.contiguous(), mesh, placements,
+                              run_check=False)
 
 
 def shard_chains(mesh, array: torch.Tensor):
@@ -172,6 +241,21 @@ def shard_chains(mesh, array: torch.Tensor):
 
 def _is_state(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _state_axis_of(state, name: str, x, chain_axis) -> Optional[int]:
+    """The axis of field ``name`` (``x``) that a state split puts on the
+    ``"state"`` axis: the state type's ``STATE_AXIS_INDEX`` entry where it
+    has one (a field it leaves out stays whole), else the JAX rule, the
+    last axis of a chain-sharded leaf of rank >= 2 that is not its chain
+    axis."""
+    marks = getattr(type(state), "STATE_AXIS_INDEX", None)
+    if chain_axis is None or not isinstance(x, torch.Tensor):
+        return None
+    if marks is not None:
+        return marks.get(name)
+    last = x.dim() - 1
+    return last if x.dim() >= 2 and last != chain_axis else None
 
 
 def shard_sampler_state(mesh, state, *, shard_state_dim: bool = False):
@@ -184,9 +268,15 @@ def shard_sampler_state(mesh, state, *, shard_state_dim: bool = False):
     as the tempering state does (``ops/tempering.py``). A chain count that
     does not divide by the mesh raises ``ValueError``.
 
-    ``shard_state_dim=True`` needs a mesh with a ``"state"`` axis, which
-    this package does not build yet (ROADMAP item 12b): the guard raises
-    the JAX package's ``ValueError`` without one.
+    ``shard_state_dim=True`` (a mesh with a ``"state"`` axis,
+    :func:`chain_state_mesh`) also splits the state dimension of every
+    chain-sharded leaf over that axis. A state type names that axis per
+    field with a ``STATE_AXIS_INDEX`` class attribute (field -> axis;
+    a field it leaves out, or marks ``None``, stays whole: a table whose
+    last axis is not D); without one, the last axis of every leaf of rank
+    >= 2 whose last axis is not its chain axis, as the JAX package splits
+    it. Fields replicated by ``CHAIN_AXIS_INDEX`` stay replicated. A D
+    that does not divide by the axis raises ``ValueError``.
     """
     _chain_dim(mesh)
     names = tuple(mesh.mesh_dim_names or ())
@@ -194,23 +284,28 @@ def shard_sampler_state(mesh, state, *, shard_state_dim: bool = False):
         raise ValueError(
             f"shard_state_dim=True needs a mesh with a '{STATE_AXIS}' axis "
             f"(see chain_state_mesh); got axes {names}")
-    if shard_state_dim:
-        raise NotImplementedError(
-            "splitting the state dimension over a 'state' axis is not "
-            "ported yet (ROADMAP item 12b)")
 
-    def place(x, axis):
+    def place(x, axis, state_axis=None):
         if _is_state(x):
-            return shard_sampler_state(mesh, x)
+            return shard_sampler_state(mesh, x,
+                                       shard_state_dim=shard_state_dim)
         if not isinstance(x, torch.Tensor):
             return x
-        return _place(x, mesh, axis if x.dim() >= 1 else None)
+        if x.dim() < 1:
+            return _place(x, mesh, None)
+        return _place(x, mesh, axis, state_axis)
 
     if not _is_state(state):
-        return place(state, 0)
+        axis = 0 if isinstance(state, torch.Tensor) and state.dim() else None
+        return place(state, 0, _state_axis_of(state, "", state, axis)
+                     if shard_state_dim else None)
     axis_of = getattr(type(state), "CHAIN_AXIS_INDEX", None) or {}
-    return type(state)(*[place(getattr(state, name), axis_of.get(name, 0))
-                         for name in state._fields])
+    out = []
+    for name in state._fields:
+        x, axis = getattr(state, name), axis_of.get(name, 0)
+        out.append(place(x, axis, _state_axis_of(state, name, x, axis)
+                         if shard_state_dim else None))
+    return type(state)(*out)
 
 
 def from_local_state(mesh, state):
@@ -235,32 +330,47 @@ def from_local_state(mesh, state):
 class StateLayout(NamedTuple):
     """How a sharded state lies on its mesh: ``axes`` mirrors the state,
     each tensor leaf's chain axis (``None``: replicated; ``False``: a leaf
-    that was not a DTensor), and ``chains`` is this rank's
-    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`."""
+    that was not a DTensor), ``chains`` is this rank's
+    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`; under a
+    state split ``state_axes`` mirrors each leaf's state axis (``None``:
+    whole) and ``state`` is the rank's
+    :class:`~mini_mcmc_torch.parallel.collectives.StateGroup`, else both
+    are ``None``."""
 
     mesh: object
     axes: object
     chains: ChainGroup
+    state_axes: object = None
+    state: Optional[StateGroup] = None
 
     def wrap(self, state):
         """The rank's local ``state`` as DTensors again."""
-        return _wrap(state, self.axes, self.mesh)
+        return _wrap(state, self.axes, self.mesh, self.state_axes)
 
     def wrap_chains(self, x: torch.Tensor, axis: int = 0):
         """A local tensor whose axis ``axis`` holds this shard's chains
-        (a sample cube, a per-chain read-out) as a DTensor."""
+        (a sample cube, a per-chain read-out) as a DTensor; under a state
+        split its last axis is the D-slice when it has one beside the
+        chain axis (the JAX rule)."""
         dtensor, _, _ = _dtensor()
-        return dtensor.from_local(x, self.mesh, _placements(self.mesh, axis),
-                                  run_check=False)
+        last = x.dim() - 1
+        state_axis = (last if self.state is not None and x.dim() >= 2
+                      and last != axis else None)
+        return dtensor.from_local(
+            x, self.mesh, _placements(self.mesh, axis, state_axis),
+            run_check=False)
 
 
-def _wrap(x, axes, mesh):
+def _wrap(x, axes, mesh, state_axes=None):
     if _is_state(x):
-        return type(x)(*[_wrap(v, a, mesh) for v, a in zip(x, axes)])
+        if state_axes is None:
+            state_axes = (None,) * len(x)
+        return type(x)(*[_wrap(v, a, mesh, s)
+                         for v, a, s in zip(x, axes, state_axes)])
     if axes is False or not isinstance(x, torch.Tensor):
         return x
     dtensor, _, _ = _dtensor()
-    return dtensor.from_local(x, mesh, _placements(mesh, axes),
+    return dtensor.from_local(x, mesh, _placements(mesh, axes, state_axes),
                               run_check=False)
 
 
@@ -273,10 +383,12 @@ def local_state(state):
 
     def unwrap(x):
         if _is_state(x):
-            pairs = [unwrap(v) for v in x]
-            return type(x)(*[p[0] for p in pairs]), tuple(p[1] for p in pairs)
+            triples = [unwrap(v) for v in x]
+            return (type(x)(*[t[0] for t in triples]),
+                    tuple(t[1] for t in triples),
+                    tuple(t[2] for t in triples))
         if not isinstance(x, dtensor):
-            return x, False
+            return x, False, None
         mesh = found.setdefault("mesh", x.device_mesh)
         if mesh is not x.device_mesh and mesh != x.device_mesh:
             raise ValueError("a sharded state's leaves lie on one mesh")
@@ -287,9 +399,17 @@ def local_state(state):
             if n != x.shape[axis]:
                 raise ValueError(f"a sharded state's leaves hold {n} and "
                                  f"{x.shape[axis]} chains")
-        return x.to_local(), axis
+        sdim = _state_dim(mesh)
+        q = None if sdim is None else x.placements[sdim]
+        state_axis = q.dim if isinstance(q, shard) else None
+        if state_axis is not None:
+            d = found.setdefault("n_dim", x.shape[state_axis])
+            if d != x.shape[state_axis]:
+                raise ValueError(f"a state-split state's leaves hold {d} "
+                                 f"and {x.shape[state_axis]} coordinates")
+        return x.to_local(), axis, state_axis
 
-    local, axes = unwrap(state)
+    local, axes, state_axes = unwrap(state)
     if "mesh" not in found:
         return state, None
     mesh = found["mesh"]
@@ -298,4 +418,64 @@ def local_state(state):
     n = found.get("n_chains", 0)
     chains = ChainGroup(chain0=rank * (n // size), n_chains=n,
                         group=mesh.get_group(dim), size=size, rank=rank)
-    return local, StateLayout(mesh, axes, chains)
+    if "n_dim" not in found:
+        return local, StateLayout(mesh, axes, chains)
+    sdim = _state_dim(mesh)
+    size, rank = mesh.size(sdim), mesh.get_local_rank(sdim)
+    d = found["n_dim"]
+    state = StateGroup(d0=rank * (d // size), n_dim=d,
+                       group=mesh.get_group(sdim), size=size, rank=rank,
+                       mesh=mesh[STATE_AXIS])
+    return local, StateLayout(mesh, axes, chains, state_axes, state)
+
+
+class SliceTarget:
+    """``target`` as a rank of a state split sees it: each call takes the
+    rank's ``[C, D / size]`` D-slice, runs the target on a DTensor view of
+    it (``Shard(1)`` on the ``"state"`` axis's mesh, as GSPMD partitions
+    the JAX package's density) and returns the rank's share: the
+    gradient's D-slice, the log density whole (redistributed to
+    ``Replicate()``: the all-reduce of a sum over D). An elementwise
+    density's gradient needs no collective. The target runs under
+    DTensor's implicit replication: a plain tensor it holds (a ``[D]``
+    per-coordinate scale) counts as replicated and is narrowed to the
+    slice on the rank, with no collective. A density built from ops that
+    DTensor has no rule for raises there."""
+
+    def __init__(self, target, state):
+        self.target = target
+        self.state = state
+
+    def _view(self, x: torch.Tensor):
+        dtensor, shard, _ = _dtensor()
+        return dtensor.from_local(x, self.state.mesh, (shard(1),),
+                                  run_check=False)
+
+    def _whole(self, v) -> torch.Tensor:
+        _, _, replicate = _dtensor()
+        return v.redistribute(self.state.mesh, (replicate(),)).to_local()
+
+    def _slice(self, g) -> torch.Tensor:
+        _, shard, _ = _dtensor()
+        return g.redistribute(self.state.mesh, (shard(1),)).to_local()
+
+    def _call(self, name: str, x: torch.Tensor):
+        """The target's method ``name`` on the DTensor view of ``x``."""
+        try:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+        except ImportError:  # PyTorch before 2.4
+            from torch.distributed._tensor.experimental import (
+                implicit_replication)
+        with implicit_replication():
+            return getattr(self.target, name)(self._view(x))
+
+    def batch_logp(self, x: torch.Tensor) -> torch.Tensor:
+        return self._whole(self._call("batch_logp", x))
+
+    def batch_grad(self, x: torch.Tensor) -> torch.Tensor:
+        return self._slice(self._call("batch_grad", x))
+
+    def batch_logp_and_grad(self, x: torch.Tensor):
+        logp, grad = self._call("batch_logp_and_grad", x)
+        return self._whole(logp), self._slice(grad)

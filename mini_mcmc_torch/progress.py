@@ -28,6 +28,7 @@ from typing import Callable
 import torch
 
 from . import stats as stats_mod
+from .parallel.collectives import split
 
 #: worker-side throttle: least seconds between stats fetches (core.rs:105)
 _STATS_SECONDS = 1.0
@@ -104,13 +105,14 @@ def _chunk_size(total: int, k: int) -> int:
     return chunk
 
 
-def _tick(tracker, chains=None) -> tuple:
+def _tick(tracker, chains=None, state=None) -> tuple:
     """``(p_accept, p_accept_chains, max_rhat)`` on the host, in one
     transfer; a sharded run's global acceptance and R-hat beside its own
-    chains' (``chains``, :func:`~mini_mcmc_torch.stats.tracker_stats`)."""
+    chains' (``chains``, :func:`~mini_mcmc_torch.stats.tracker_stats`),
+    the R-hat over every D-slice of a state split (``state``)."""
     host = torch.cat([
         stats_mod.tracker_stats(tracker, chains).p_accept.reshape(1),
-        stats_mod.tracker_max_rhat(tracker, chains).reshape(1),
+        stats_mod.tracker_max_rhat(tracker, chains, state).reshape(1),
         tracker.p_accept_chains]).cpu()
     return float(host[0]), host[2:], float(host[1])
 
@@ -137,8 +139,10 @@ def progress_run(runner: Callable, state, key, n_collect: int,
     cube and count toward ``n_collect``.
     """
     stream = stream if stream is not None else sys.stderr
-    chains = getattr(key, "chains", None)
-    collective_ticks = chains is not None and chains.size > 1
+    chains, d_slice = getattr(key, "chains", None), getattr(key, "state",
+                                                            None)
+    collective_ticks = ((chains is not None and chains.size > 1)
+                        or split(d_slice))
     k = max(1, block_size)
     tail_runner = tail_runner if tail_runner is not None else runner
     n_initial = 0 if initial_rows is None else int(initial_rows.shape[0])
@@ -214,7 +218,7 @@ def progress_run(runner: Callable, state, key, n_collect: int,
             # the stats tick: one transfer to the host, then rotate
             if stats is not None:
                 display.rotate()
-            stats = _tick(tracker, chains)
+            stats = _tick(tracker, chains, d_slice)
             last_stats = now
         if now - last_render >= _REFRESH_SECONDS or final:
             display.render(done + n_initial, stats[0], stats[1], stats[2],

@@ -51,12 +51,18 @@ class StepKey(NamedTuple):
     global chain, the global count, the group); ``None`` unsharded. The
     kernels draw as global chain ``chains.chain0 + c``, the lockstep tiers
     draw the global shape and keep their rows, and a loop's exit or a
-    cross-chain mean reduces over the group."""
+    cross-chain mean reduces over the group.
+
+    ``state`` places a state-split run's D-slice (a
+    :class:`~mini_mcmc_torch.parallel.collectives.StateGroup`: the first
+    global coordinate, the global D, the group); ``None`` when D is
+    whole. The energy sums then cross the group."""
 
     seed: int  # the run's 64-bit Philox key
     step: int  # global step index within the run
     generator: torch.Generator  # on the positions' device
     chains: object = None  # a ChainGroup under a chain mesh
+    state: object = None  # a StateGroup under a state split
 
 
 def chain0(key) -> int:

@@ -26,7 +26,14 @@ The sampler then keeps its rank's rows (``_state``) and where they lie
 DTensors sharded on their chain axis, and every step draws at its chains'
 global places (``StepKey.chains``), so a shard's rows equal the unsharded
 run's from the same seed. Assigning a sharded state hands every rank
-rank 0's generator (one broadcast).
+rank 0's generator (one broadcast an axis of the mesh).
+
+State splitting: ``shard_sampler_state(chain_state_mesh(a, b), state,
+shard_state_dim=True)`` also splits D over the mesh's ``"state"`` axis
+(``StepKey.state``). HMC and MALA take such a state on the lockstep tier
+(``use_pallas=False``) and on the separable tier, without a metric or a
+transform; every other sampler and tier raises ``ValueError`` at the
+assignment (the fused tiers keep a chain's whole row in one thread).
 """
 
 from __future__ import annotations
@@ -65,7 +72,7 @@ from .ops.mh import mh_kernel, mh_step_alpha
 from .ops.sgmcmc import sghmc_kernel, sgld_kernel
 from .ops.slice import slice_kernel
 from .ops.tempering import geometric_betas, tempering_kernel, tune_betas
-from .parallel.collectives import broadcast, gather_chains
+from .parallel.collectives import broadcast, gather_chains, split
 from .parallel.mesh import _mesh_device, local_state
 from .progress import progress_run
 from .runner import (
@@ -243,20 +250,57 @@ class _KernelSampler:
     def state(self, value):
         local, layout = local_state(value)
         if layout is not None:
-            self._check_shard(local)
-            if layout.chains.size > 1:
+            self._check_shard(local, layout)
+            if layout.chains.size > 1 or split(layout.state):
                 self._share_generator(layout)
         self._state, self._layout = local, layout
 
-    def _check_shard(self, local) -> None:
-        """Raise for a shard this sampler cannot run (the ensemble
-        sampler's whole ensembles)."""
+    #: what takes a state split over a "state" axis, for the refusals
+    _STATE_SPLIT_TAKERS = (
+        "HMC and MALA with use_pallas=False, and HMC(use_pallas="
+        "'separable'), each without a metric or a transform")
+
+    def _takes_state_split(self) -> bool:
+        """Whether this sampler runs a state whose D is split over a
+        ``"state"`` axis (HMC and MALA override)."""
+        return False
+
+    def _check_shard(self, local, layout) -> None:
+        """Raise for a shard this sampler cannot run: a split D where it
+        does not take one (and, in the ensemble sampler, broken
+        ensembles)."""
+        if layout.state is not None and not self._takes_state_split():
+            raise ValueError(
+                f"{self._tier_name()} takes its chains' whole state: a "
+                "state split over a 'state' axis (shard_state_dim=True) "
+                f"runs only on {self._STATE_SPLIT_TAKERS}; shard the "
+                "chains alone (shard_state_dim=False)")
+
+    def _tier_name(self) -> str:
+        tier = getattr(self, "_ctor", {}).get("use_pallas", False)
+        return (f"{type(self).__name__}(use_pallas={tier!r})" if tier
+                else type(self).__name__)
+
+    def _whole_state(self, what: str) -> None:
+        """Raise for ``what`` (a rebuild from the positions) under a
+        state split."""
+        if self._layout is not None and self._layout.state is not None:
+            raise ValueError(
+                f"{what} rebuilds the sampler from the whole state and "
+                "does not run on a state split over a 'state' axis "
+                "(shard_state_dim=True); adapt before splitting the state")
 
     def _share_generator(self, layout) -> None:
-        """Every rank takes group rank 0's generator, so that a sharded
-        run draws one stream whatever seed each rank was built with."""
+        """Every rank takes mesh rank 0's generator, so that a sharded
+        run draws one stream whatever seed each rank was built with: one
+        broadcast over the chain axis, then one over the state axis (a
+        rank's state group then holds its chain shard's rank 0's, which
+        is mesh rank 0's)."""
         g = self._gen.get_state().to(_mesh_device(layout.mesh))
-        broadcast(g, layout.chains.group)
+        if layout.chains.size > 1:
+            broadcast(g, layout.chains.group)
+        if split(layout.state):
+            broadcast(g, layout.state.group)
         self._gen.set_state(g.cpu())
 
     @property
@@ -296,7 +340,9 @@ class _KernelSampler:
         device = self._state.positions.device
         gen = torch.Generator(device=device).manual_seed(w[2])
         return StepKey(seed=w[0] | (w[1] << 32), step=0, generator=gen,
-                       chains=self._chains)
+                       chains=self._chains,
+                       state=None if self._layout is None
+                       else self._layout.state)
 
     @property
     def positions(self) -> torch.Tensor:
@@ -313,6 +359,9 @@ class _KernelSampler:
 
     @property
     def dim(self) -> int:
+        """The state dimension over every shard."""
+        if self._layout is not None and self._layout.state is not None:
+            return self._layout.state.n_dim
         return self._state.positions.shape[1]
 
     def run(self, n_collect: int, n_discard: int = 0, *,
@@ -342,7 +391,8 @@ class _KernelSampler:
         self._state, sample = progress_run(
             self._runner, self._state, self._next_key(), n_collect,
             n_discard, n_chains=self._recorded(self._state).shape[0],
-            dim=self.dim, stream=stream, time_major=time_major,
+            dim=self._recorded(self._state).shape[1], stream=stream,
+            time_major=time_major,
             block_size=self._progress_block_size,
             tail_runner=self._simple_runner,
         )
@@ -583,6 +633,26 @@ class HMC(_KernelSampler):
     #: fixed-L HMC (Beskos et al. 2013); MALA overrides it with 0.574
     _default_target_accept = 0.651
 
+    def _takes_state_split(self) -> bool:
+        return (self._ctor["use_pallas"] in (False, "separable")
+                and self._positions_map is None)
+
+    def _tier_name(self) -> str:
+        name = super()._tier_name()
+        return (name if self._positions_map is None
+                else f"{name} with a metric or a transform")
+
+    def _check_shard(self, local, layout) -> None:
+        super()._check_shard(local, layout)
+        state = layout.state
+        if (split(state) and self._ctor["use_pallas"] == "separable"
+                and state.n_dim % (4 * state.size)):
+            raise ValueError(
+                f"HMC(use_pallas='separable') splits D at multiples of 4 "
+                f"(Kernel 7's coordinate quads): D = {state.n_dim} over "
+                f"{state.size} 'state' shards needs D a multiple of "
+                f"{4 * state.size}")
+
     @classmethod
     def _construct(cls, target, positions, metric, seed, ctor):
         """The rebuild of :meth:`tuned` and :meth:`reconditioned`: a
@@ -602,6 +672,7 @@ class HMC(_KernelSampler):
         to the user's. Without ``seed`` the new sampler's generator is
         seeded from this sampler's, so a seeded workflow stays
         reproducible."""
+        self._whole_state("tuned()")
         if target_accept is None:
             target_accept = self._default_target_accept
         state, eps, _ = dual_average_step_size(
@@ -639,6 +710,7 @@ class HMC(_KernelSampler):
         (``eps_x = eps_y * sigma_min``); ``step_size``/``n_leapfrog``
         override. Without ``seed`` the new sampler's generator is seeded
         from this sampler's, so a seeded workflow stays reproducible."""
+        self._whole_state("reconditioned()")
         pre = estimate_preconditioner(_unconstrained_positions(self), kind)
         ctor = dict(self._ctor)
         eps_x = ctor["step_size"] * (
@@ -829,7 +901,8 @@ class EnsembleSampler(_KernelSampler):
         super().__init__(init_fn, step_fn, positions, seed,
                          positions_map=positions_map)
 
-    def _check_shard(self, local) -> None:
+    def _check_shard(self, local, layout) -> None:
+        super()._check_shard(local, layout)
         # a shard holds whole ensembles: partners never cross a rank
         c = local.positions.shape[0]
         if c % self.walkers_per_ensemble:

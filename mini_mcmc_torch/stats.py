@@ -47,33 +47,40 @@ from .parallel.collectives import (
     all_gather,
     all_reduce,
     gather_chains,
+    gather_state,
+    split,
 )
 from .utils.init import resolve_device
 
 
-def local_cube(sample, time_major: bool = False):
-    """``(local, chains)``: a cube sharded on its chain axis (a DTensor
-    from a sharded sampler) as this rank's rows and its
-    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`, or
-    ``(sample, None)`` for any other cube."""
+def split_cube(sample, time_major: bool = False):
+    """``(local, chains, state)``: a cube sharded on its chain axis (a
+    DTensor from a sharded sampler) as this rank's block, its
+    :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup` and, when
+    its last axis (D) is split over a ``"state"`` axis, its
+    :class:`~mini_mcmc_torch.parallel.collectives.StateGroup`;
+    ``(sample, None, None)`` for any other cube."""
     from .parallel.mesh import local_state
 
     local, layout = local_state(sample)
     if layout is None:
-        return sample, None
+        return sample, None, None
     if layout.axes != (1 if time_major else 0):
         raise ValueError(
             f"a {'time' if time_major else 'chain'}-major cube is sharded "
             f"on axis {1 if time_major else 0}; this one on "
             f"{layout.axes}")
-    return local, layout.chains
+    return local, layout.chains, layout.state
 
 
 def full_cube(sample, time_major: bool = False):
     """A cube sharded on its chain axis gathered whole on every rank (one
-    all-gather); any other cube as it is."""
-    local, chains = local_cube(sample, time_major)
-    return gather_chains(local, chains, 1 if time_major else 0)
+    all-gather, and one more over the ``"state"`` axis when D is split);
+    any other cube as it is."""
+    local, chains, state = split_cube(sample, time_major)
+    return gather_state(gather_chains(local, chains, 1 if time_major else 0),
+                        state)
+
 
 ALPHA = 0.01  # EWMA coefficient of the acceptance tracking (stats.rs:13)
 
@@ -263,12 +270,14 @@ def tracker_stats(tracker: TrackerState, chains=None) -> ChainStats:
                       mean=tracker.mean, sm2=_sm2(tracker))
 
 
-def tracker_rhat(tracker: TrackerState, chains=None) -> torch.Tensor:
+def tracker_rhat(tracker: TrackerState, chains=None,
+                 state=None) -> torch.Tensor:
     """Live R-hat per parameter from the streaming moments
     (``MultiChainTracker::rhat``, ``stats.rs:282-306``): ``sqrt(var /
     W)``, the inverse of the final split R-hat. A sharded run's tracker
     (``chains``) gathers every shard's ``[C, P]`` moments first (one
-    all-gather), so the value is the unsharded run's."""
+    all-gather), so the value is the unsharded run's; a state-split run's
+    (``state``) gathers its D-slices' values (one more)."""
     moments = gather_chains(torch.stack([tracker.mean, _sm2(tracker)],
                                         dim=1), chains)
     means, sm2 = moments[:, 0], moments[:, 1]
@@ -279,11 +288,12 @@ def tracker_rhat(tracker: TrackerState, chains=None) -> torch.Tensor:
     between = torch.sum((means - mean_chain[None, :]) ** 2, dim=0) * fac
     within = torch.mean(sm2, dim=0)
     var = within * ((n - 1.0) / n) + between * (1.0 / n)
-    return torch.sqrt(var / within)
+    return gather_state(torch.sqrt(var / within), state)
 
 
-def tracker_max_rhat(tracker: TrackerState, chains=None) -> torch.Tensor:
-    return torch.max(tracker_rhat(tracker, chains))
+def tracker_max_rhat(tracker: TrackerState, chains=None,
+                     state=None) -> torch.Tensor:
+    return torch.max(tracker_rhat(tracker, chains, state))
 
 
 class ChainTracker:
@@ -519,15 +529,23 @@ def split_rhat_mean_ess(sample: torch.Tensor, *, time_major: bool = False):
     stays where it is: each rank reduces its own chains, and the split
     means and variances (one all-gather of ``[2, 2C, P]``) and the summed
     autocovariances (one all-reduce of ``[n', P]``) cross ranks. Every
-    rank gets the unsharded cube's values, up to the order of that sum.
+    rank gets the unsharded cube's values, up to the order of that sum. A
+    cube whose D is split over a ``"state"`` axis gives each rank its
+    D-slice's values, then gathers every slice's (one all-gather of
+    ``[2, P]``).
     """
-    sample, chains = local_cube(sample, time_major)
+    sample, chains, state = split_cube(sample, time_major)
     sample = torch.as_tensor(sample).to(torch.float32)
     if time_major:
-        return _split_rhat_mean_ess_tm(sample, chains)
-    splitted = _splitcat(sample)
-    within, var = _withinvar(splitted, chains)
-    return torch.sqrt(within / var), _ess(splitted, within, var, chains)
+        rhat, ess = _split_rhat_mean_ess_tm(sample, chains)
+    else:
+        splitted = _splitcat(sample)
+        within, var = _withinvar(splitted, chains)
+        rhat = torch.sqrt(within / var)
+        ess = _ess(splitted, within, var, chains)
+    if split(state):  # the D-slices' parameters, gathered in one call
+        rhat, ess = gather_state(torch.stack([rhat, ess]), state)
+    return rhat, ess
 
 
 def ess_from_chainstats(sample, means, sm2s, ns) -> torch.Tensor:

@@ -99,8 +99,7 @@ def stream_run(sampler, n_total: int, chunk_size: int, on_chunk=None,
     key = sampler._next_key()
     local = sampler._state.positions
     tracker = stats_mod.tracker_init(
-        sampler._recorded(sampler._state).shape[0], sampler.dim,
-        device=local.device)
+        *sampler._recorded(sampler._state).shape, device=local.device)
     step = 0
     pending = None
     for i in range(n_total // chunk_size):
@@ -119,5 +118,5 @@ def stream_run(sampler, n_total: int, chunk_size: int, on_chunk=None,
     return StreamResult(
         n_collected=n_total,
         p_accept=stats_mod.tracker_stats(tracker, key.chains).p_accept,
-        rhat=stats_mod.tracker_rhat(tracker, key.chains),
+        rhat=stats_mod.tracker_rhat(tracker, key.chains, key.state),
     )

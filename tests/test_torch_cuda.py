@@ -3075,3 +3075,97 @@ def test_cuda_one_rank_mesh_runs_equal_unsharded(cuda, tier):
     assert counter.launches - n == 2 * launches > 0
     assert type(got).__name__ == "DTensor"
     assert torch.equal(got.to_local(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["standard_normal", "sigma_table"])
+@pytest.mark.parametrize("d0", [2500, 5000, 7500])
+def test_cuda_separable_trajectory_at_a_d_slice_matches_twin(cuda, which,
+                                                             d0):
+    """Kernel 7's trajectory form on the D-slice ``[d0, 10,000)`` of a
+    state, its momenta drawn as global coordinates ``d0 ..``, against the
+    float64 twin at the same ``d0``: positions per chain within RTOL/ATOL
+    and the three sums at rtol 1e-5 on >= 99.9% of 1,024 chains; the same
+    slice at ``d0 = 0`` draws other momenta."""
+    c, d = 1024, 10_000
+    t, x, _, tables = _sep_step_case(which, d, c, cuda, 61)
+    xs, ts = x[:, d0:].contiguous(), tables[:, d0:].contiguous()
+    eps = torch.tensor([0.01 if which == "sigma_table" else 0.1],
+                       device=cuda)
+    n = hmc_separable.launches
+    got = hmc_separable(t, xs, eps, 10, 0x5EED_D0, 5, ts, chain0=3, d0=d0,
+                        n_dim=d)
+    assert hmc_separable.launches == n + 1
+    ref = hmc_separable_plain(t, xs.double(), eps.double(), 10, 0x5EED_D0,
+                              5, ts.double(), chain0=3, d0=d0)
+    torch.cuda.synchronize()
+    near = ((got[0] - ref[0]).abs() <= ATOL + RTOL * ref[0].abs()).all(1)
+    assert _share(near) >= 0.999
+    for g, r in zip(got[1:4], ref[1:4]):
+        assert _share((g.double() - r).abs() <= 1e-5 * r.abs()) >= 0.999
+    at0 = hmc_separable(t, xs, eps, 10, 0x5EED_D0, 5, ts, chain0=3)
+    assert not torch.equal(at0[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sigma_table", "scaled_sigma_table",
+                                   "mixed_sigma_scaled"])
+@pytest.mark.parametrize("d", [10_000, 65_536])
+@pytest.mark.parametrize("n_slices", [2, 4])
+def test_cuda_separable_split_launches_equal_one_launch(cuda, which, d,
+                                                        n_slices):
+    """A state split into 2 or 4 D-slices, each launched at its ``d0``
+    with its columns of the tables (the scale, a transform's masks) and
+    of the bijector table: the slices' positions concatenated equal one
+    launch's bit for bit (at D = 65,536 past 16 tiles too), their summed
+    energies within rtol 1e-5 of the one launch's; a ``d0`` that is no
+    multiple of 4 raises."""
+    c = 1024
+    if which == "mixed_sigma_scaled":
+        t, x, _, tables = _sep_transformed("mixed_sigma", d, c, cuda, 62,
+                                           scaled=True)
+    else:
+        t, x, _, tables = _sep_step_case(which, d, c, cuda, 62)
+    eps = torch.tensor([0.01], device=cuda)
+    whole = hmc_separable(t, x, eps, 10, 0x5EED_5A, 8, tables)
+    w = d // n_slices
+    parts = [hmc_separable(t, x[:, d0:d0 + w].contiguous(), eps, 10,
+                           0x5EED_5A, 8, tables[:, d0:d0 + w].contiguous(),
+                           d0=d0, n_dim=d) for d0 in range(0, d, w)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([p[0] for p in parts], dim=1), whole[0])
+    for i in (1, 2, 3):
+        total = sum(p[i].double() for p in parts)
+        assert bool(((total - whole[i].double()).abs()
+                     <= 1e-5 * whole[i].double().abs()).all())
+    with pytest.raises(ValueError, match="multiple of 4"):
+        hmc_separable(t, x[:, 2:].contiguous(), eps, 10, 0x5EED_5A, 8,
+                      tables[:, 2:].contiguous(), d0=2, n_dim=d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["separable", False])
+def test_cuda_one_by_one_state_mesh_runs_equal_unsharded(cuda, tier):
+    """Through a one-rank ``chain_state_mesh(1, 1)`` with the state
+    dimension split (``shard_state_dim=True``), the separable and the
+    lockstep tiers' cubes are the unsharded runs' bit for bit, D on the
+    state axis, with the same Kernel 7 launches (a state axis of one rank
+    takes the fused form)."""
+    from mini_mcmc_torch.parallel import chain_state_mesh, shard_sampler_state
+
+    def make():
+        return HMC(standard_normal(), torch.randn(
+            (1024, 10_000), generator=torch.Generator().manual_seed(8)).to(
+                cuda), 0.1, 10, use_pallas=tier).seed(8)
+
+    a, b = make(), make()
+    b.state = shard_sampler_state(chain_state_mesh(1, 1), b.state,
+                                  shard_state_dim=True)
+    n = hmc_separable_step.launches
+    want = a.run(8, 8)
+    launches = hmc_separable_step.launches - n
+    got = b.run(8, 8)
+    assert hmc_separable_step.launches - n == 2 * launches
+    assert launches == (16 if tier else 0)
+    assert tuple(str(p) for p in got.placements) == ("S(0)", "S(2)")
+    assert torch.equal(got.to_local(), want)

@@ -23,8 +23,6 @@ MODULES = {
 REMOVALS = {
     # keys draws by place under one Philox key: no per-chain keys
     "chain_keys": "removal",
-    # the state dimension split over a "state" mesh axis: Queue 1 item 12b
-    "chain_state_mesh": "item 12b",
 }
 
 

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of Kernels 2, 3 and 8 alone (the kernels whose draws take a
-chain offset, ``chain0``), for a comparison of two trees on one card.
+"""Device time of Kernels 2, 3, 7 and 8 alone (the kernels whose draws
+take an offset: a chain offset, ``chain0``, in 2, 3 and 8, a coordinate
+offset, ``d0``, in 7's trajectory form), for a comparison of two trees on
+one card.
 
 Run from the root of a checkout of the port (it imports the
 ``mini_mcmc_torch`` found there and builds its kernels into that
@@ -12,13 +14,15 @@ checkout's ``build/``); to compare two trees, run it in each, in turns
 At the main paths' shapes of ``chip_smoke.py``, from states drawn from
 their targets: Kernel 2's flagship block (Rosenbrock D = 3, 65,536
 chains, K = 16, L = 192), Kernel 3 on the NUTS stage's Gaussian (131,072
-chains, j = 4) and Kernel 8 on the 0.3/0.7 mixture (8,192 chains, 8
-rungs, K = 16), each launched with the wrapper's default first chain, 50
-launches under ``torch.profiler`` three times. Prints one JSON line: the
-card's name and power limit, the microseconds a launch of each (three
-profiled calls), a hash of each kernel's outputs (a tree whose offset
-leaves chain 0's draws alone gives its parent's) and each instance's
-``ptxas -v`` line.
+chains, j = 4), Kernel 8 on the 0.3/0.7 mixture (8,192 chains, 8
+rungs, K = 16) and Kernel 7 on the separable stage's standard normal
+(1,024 chains, D = 10,000, L = 10: the fused step and the trajectory-only
+form), each launched with the wrappers' default offsets, 50 launches
+under ``torch.profiler`` three times. Prints one JSON line: the card's
+name and power limit, the microseconds a launch of each (three profiled
+calls), a hash of each kernel's outputs (a tree whose offset leaves the
+default's draws alone gives its parent's) and each instance's ``ptxas
+-v`` line.
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ import torch  # noqa: E402
 import mini_mcmc_torch as mt  # noqa: E402
 from mini_mcmc_torch.ops.kernels import _build  # noqa: E402
 from mini_mcmc_torch.ops.kernels.hmc_full import hmc_multistep  # noqa: E402
+from mini_mcmc_torch.ops.kernels.hmc_sep import (  # noqa: E402
+    hmc_separable,
+    hmc_separable_step,
+)
 from mini_mcmc_torch.ops.kernels.nuts_subtree import subtree  # noqa: E402
 from mini_mcmc_torch.ops.kernels.pt_full import (  # noqa: E402
     make_ladder,
@@ -80,6 +88,11 @@ def cases(dev):
     sa8 = torch.zeros((t - 1, c8), device=dev)
     lad = make_ladder(mt.geometric_betas(t, 0.01), 1.0, 1, dev)
     h8 = torch.empty((16, c8, 1), device=dev)
+    sn = mt.standard_normal()
+    x7 = torch.randn((1024, 10_000), generator=gen, device=dev)
+    lp7 = sn.batch_logp(x7)
+    eps7 = torch.tensor([0.1], device=dev)
+    t7 = x7.new_empty((0, 10_000))
     return {
         "multistep_kernel": lambda: (*hmc_multistep(
             rosen, x2, lp2, g2, eps2, 192, 0x5EED, 0, h2), h2),
@@ -88,7 +101,18 @@ def cases(dev):
             (0x1234567, -0x7654321), 10)),
         "pt_multistep_kernel": lambda: (*pt_multistep(
             mix, x8, lp8, sa8, 0, lad, 0x5EED, 0, 16, 1, h8), h8),
+        "hmc_separable_kernel_fused": lambda: hmc_separable_step(
+            sn, x7, lp7, eps7, 10, 0x5EED, 6, t7),
+        "hmc_separable_kernel_trajectory": lambda: hmc_separable(
+            sn, x7, eps7, 10, 0x5EED, 6, t7)[:4],
     }
+
+
+#: a profiled case's kernel: the name its events hold, and for Kernel 7's
+#: two forms the template flag that tells them apart
+EVENTS = {"hmc_separable_kernel_fused": ("hmc_separable_kernel", "true>"),
+          "hmc_separable_kernel_trajectory": ("hmc_separable_kernel",
+                                              "false>")}
 
 
 def digest(tensors) -> str:
@@ -114,10 +138,12 @@ def ptxas_lines(log: str) -> dict:
         if m and name:
             out.setdefault(name, {})["regs"] = int(m.group(1))
     # the flagship's and the stages' instances: Rosenbrock D = 3, the
-    # diffable Gaussian at D = 2, the mixture at D = 1
+    # diffable Gaussian at D = 2, the mixture at D = 1, the standard
+    # normal's coordinate functor in Kernel 7's two forms
     return {k: v for k, v in out.items() if re.search(
         r"multistep_kernel.*Rosenbrock.*Li3E|subtree_kernel.*Gaussian2D"
-        r".*Li2E|pt_multistep_kernel.*GaussianMixture1D", k)}
+        r".*Li2E|pt_multistep_kernel.*GaussianMixture1D|"
+        r"hmc_separable_kernelIN2mm\d+StandardNormalCoordE", k)}
 
 
 def main() -> None:
@@ -133,12 +159,15 @@ def main() -> None:
     torch.cuda.synchronize()
     times = {}
     for name, fn in launches.items():
+        event, flag = EVENTS.get(name, (name, ""))
         us = []
         for _ in range(3):
             _, _, by_name = device_profile(
-                lambda: [fn() for _ in range(REPS)], expect=name)
-            n = sum(c for k, (c, _) in by_name.items() if name in k)
-            t = sum(u for k, (_, u) in by_name.items() if name in k)
+                lambda: [fn() for _ in range(REPS)], expect=event)
+            hit = {k: v for k, v in by_name.items()
+                   if event in k and flag in k}
+            n = sum(c for c, _ in hit.values())
+            t = sum(u for _, u in hit.values())
             us.append(t / n if n else None)
         times[name] = us
     print(json.dumps({"card": smi, "tree": os.getcwd(), "device_us": times,
