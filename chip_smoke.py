@@ -378,14 +378,18 @@ Phases, one line each (every check raises on failure):
     1,024 x 10,000, L = 10 sampler from one seed unsharded and split, its
     cubes and Kernel 7's launches equal bit for bit (a state axis of one
     rank takes the fused form, no collective); lockstep HMC
-    (``use_pallas=False``) at the same shape the same way.
+    (``use_pallas=False``) at the same shape the same way, and so
+    lockstep MH ``run(16, 0)`` (an isotropic walk, 0.024), SGLD ``run(16,
+    0)`` (a standard normal's gradient) and NUTS ``run(4, 4)`` (tree
+    depth at most 6; only its chain axis's scalar loop exits
+    communicate), each path's seconds.
     ``[state_mesh_split]``: Kernel 7's trajectory form on one state whole
     and split into 2 and 4 D-slices (``d0`` = 0, 5,000 and 0, 2,500,
     5,000, 7,500), on the standard normal and the sigma table: the
     slices' positions concatenated equal the one launch's bit for bit,
     their summed energies within 1e-5 relative, each slice held to its
     float64 twin at its ``d0`` as the fused step's checks hold positions
-    and sums; the phase's seconds (at most 30).
+    and sums; the phase's seconds (at most 45).
 42b. ``[state_mesh_ranks]``: a split over two ranks on the one card (two
     spawned processes in a gloo group on CUDA tensors,
     ``chain_state_mesh(1, 2)``): the separable and lockstep samplers of
@@ -399,7 +403,17 @@ Phases, one line each (every check raises on failure):
     every step is seen), the separable run two-pass Kernel 7 launches one a
     step and the lockstep run none, one all-reduce a step among the
     port's own collectives (``parallel.collectives``) and none of another
-    kind; within 240 s.
+    kind. Then MH ``run(16, 0)``, SGLD ``run(16, 0)`` and NUTS ``run(4,
+    0)`` of 42 in float32 the same way (SGLD bit for bit on every chain;
+    a NUTS chain may also differ first by a jump, a flipped merge), and
+    NUTS ``run(4, 4)`` on float64 states within 1e-6 of unsharded on every
+    chain and its step sizes within 1e-6 (its dual averaging amplifies
+    the sums' rounding, so no float32 chain stays bit for bit under
+    adaptation); every shard of a chain holding the same step sizes; no
+    kernel; MH two all-reduces a step (DTensor's: the logp and both q
+    terms), SGLD none, NUTS between one and two of the port's state-axis
+    sums a target evaluation besides the chain axis's scalars; each
+    path's seconds; within 240 s.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -7001,11 +7015,65 @@ def state_split_check(name: str, target, x, eps) -> dict:
     return out
 
 
-def state_mesh_pair(label: str, make, run_args, mesh) -> dict:
+#: the samplers this slice splits, their runs at the separable stage's
+#: 1,024 x 10,000: MH's isotropic walk (2.4 / sqrt(D), the random walk's
+#: optimal scale), SGLD on a standard normal's gradient, lockstep NUTS
+STATE_MH_RUN, STATE_SGLD_RUN, STATE_NUTS_RUN = (16, 0), (16, 0), (4, 4)
+STATE_MH_STD, STATE_SGLD_EPS = 0.024, 0.05
+#: NUTS's tree-depth cap on these paths: the lockstep loop runs the
+#: deepest of 1,024 trees, at the default 10 up to 1,023 leaves a step
+#: (5,410 leaves in 7 steps, 8.7 s on an H100 at 700 W; PERF.md)
+STATE_NUTS_DEPTH = 6
+
+
+def state_sampler_makes(dev, chains: int, dim: int,
+                        dtype=torch.float32) -> tuple:
+    """``(label, make, run_args)`` of lockstep MH, SGLD and NUTS at
+    ``chains x dim`` from seed 12 on ``dev``."""
+    from mini_mcmc_torch.models import isotropic_gaussian_proposal
+
+    def init():
+        return mt.init_with_seed(chains, dim, seed=12,
+                                 device=dev).to(dtype)
+
+    return (
+        ("mh", lambda: mt.MetropolisHastings(
+            mt.standard_normal(), isotropic_gaussian_proposal(STATE_MH_STD),
+            init(), device=dev).seed(12), STATE_MH_RUN),
+        ("sgld", lambda: mt.SGLD(mt.target_grad(mt.standard_normal()),
+                                 init(), STATE_SGLD_EPS,
+                                 device=dev).seed(12), STATE_SGLD_RUN),
+        ("nuts", lambda: mt.NUTS(counted_normal(), init(),
+                                 max_depth=STATE_NUTS_DEPTH,
+                                 device=dev).seed(12), STATE_NUTS_RUN),
+    )
+
+
+#: the gradient calls of :func:`counted_normal` targets: one a target
+#: evaluation (a step's start, a leaf, a step-size trial)
+NORMAL_CALLS = [0]
+
+
+def counted_normal():
+    """A standard normal whose gradient counts its calls in
+    ``NORMAL_CALLS``: the lockstep NUTS paths' target evaluations."""
+    from mini_mcmc_torch.models.base import Target
+
+    def grad(x):
+        NORMAL_CALLS[0] += 1
+        return -x
+
+    return Target(logp=lambda x: -0.5 * torch.sum(x * x, dim=-1),
+                  grad=grad)
+
+
+def state_mesh_pair(label: str, make, run_args, mesh,
+                    scalar_only: bool = False) -> dict:
     """One sampler from one seed, unsharded and through
     ``shard_sampler_state(mesh, ..., shard_state_dim=True)``: cubes equal
     bit for bit, the same kernel launches and twin calls, no collective
-    in the split run. Returns the split run's counts."""
+    in the split run (``scalar_only``: none but the chain axis's scalar
+    loop exits, NUTS's). Returns the split run's counts."""
     from mini_mcmc_torch.parallel import collectives, shard_sampler_state
 
     a = make()
@@ -7016,21 +7084,29 @@ def state_mesh_pair(label: str, make, run_args, mesh) -> dict:
     b.state = shard_sampler_state(mesh, b.state, shard_state_dim=True)
     reset_counts()
     collectives.reset_counts()
+    t0 = time.perf_counter()
     got = b.run(*run_args, time_major=True)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     counts_b, coll = read_counts(), collectives.counts()
     equal = bool(torch.equal(want, got.to_local()))
     launched = {k: v for k, v in counts_b.items() if v}
     say("state_mesh", path=label, chains=b.n_chains, dim=b.dim,
-        cube=tuple(got.shape),
+        run=",".join(map(str, run_args)), cube=tuple(got.shape),
         placements=",".join(str(p) for p in got.placements),
         cube_equal=equal, launches=repr(launched).replace(" ", ""),
         launches_equal=counts_a == counts_b,
-        collectives=repr(coll).replace(" ", ""))
+        collectives=repr(coll).replace(" ", ""), seconds=repr(seconds))
     check(f"state mesh {label} cube equal", equal, label)
     check(f"state mesh {label} launches equal", counts_a == counts_b,
           (counts_a, counts_b))
-    check(f"state mesh {label} no collective", not any(coll.values()), coll)
+    if scalar_only:
+        check(f"state mesh {label} chain-axis scalars only",
+              coll["all_reduce"] == coll["all_reduce_scalar"]
+              and not coll["all_gather"] and not coll["broadcast"], coll)
+    else:
+        check(f"state mesh {label} no collective", not any(coll.values()),
+              coll)
     check(f"state mesh {label} D on the state axis",
           str(got.placements[1]) == "S(2)", got.placements)
     return counts_b
@@ -7064,6 +7140,12 @@ def phase_state_mesh(dev) -> dict:
     lock = state_mesh_pair("lockstep", make(False), STATE_LOCKSTEP_RUN, mesh)
     check("state mesh lockstep launches no kernel",
           not any(lock[k] for k in KERNELS), lock)
+    for label, sampler, run_args in state_sampler_makes(dev, SEP_CHAINS,
+                                                        SEP_DIM):
+        got = state_mesh_pair(label, sampler, run_args, mesh,
+                              scalar_only=label.startswith("nuts"))
+        check(f"state mesh {label} launches no kernel",
+              not any(got[k] for k in KERNELS), got)
     gen = torch.Generator(device=dev).manual_seed(23)
     z = torch.randn((SEP_CHAINS, SEP_DIM), generator=gen, device=dev)
     sigma = torch.logspace(-1, 1, SEP_DIM, device=dev)
@@ -7096,6 +7178,11 @@ STATE_RANKS_S = 240.0
 #: accept test lies within float32 rounding of its uniform may decide the
 #: other way (and then differ from that step on)
 STATE_RANK_SHARE = 0.99
+#: NUTS without adaptation in the ranks' phase (its step-size search, then
+#: the steps at the found size), and the float64 adaptation run's bound on
+#: each chain's distance from unsharded
+STATE_RANK_NUTS_RUN = (4, 0)
+STATE_ADAPT_ATOL = 1e-6
 
 
 def state_rank_runs(rank: int, world: int, init_method: str, device: str,
@@ -7170,9 +7257,101 @@ def state_rank_runs(rank: int, world: int, init_method: str, device: str,
                 launches={k: v for k, v in counts.items() if v},
                 collectives={k: v for k, v in coll.items() if v},
                 seconds=seconds)
+        out.update(state_rank_sampler_runs(rank, dev, mesh, chains, dim))
         return out
     finally:
         dist.destroy_process_group()
+
+
+def _rank_block(full: torch.Tensor, local: torch.Tensor, rank: int):
+    """The rank's D-slice of an unsharded ``[N, C, D]`` cube."""
+    w = local.shape[2]
+    return full[:, :, rank * w:(rank + 1) * w]
+
+
+def _chains_decided(block, local, start, merges: bool = False) -> tuple:
+    """``(share of chains equal bit for bit, whether each differing chain
+    first differs where one run moved and the other stayed, or, with
+    ``merges`` (NUTS), jumped more than rounding, a flipped merge)`` for a
+    rank's ``[N, C, w]`` cube against the unsharded block, ``start`` the
+    ``[1, C, w]`` positions before it."""
+    same = (local == block).all(dim=2).all(dim=0)
+    moved_a, moved_b = ((torch.cat([start, c])[1:]
+                         != torch.cat([start, c])[:-1]).any(dim=2)
+                        for c in (block, local))
+    differ = (local != block).any(dim=2)
+    first = differ.float().argmax(dim=0)[~same]
+    cols = (~same).nonzero().flatten()
+    jump = (local[first, cols] - block[first, cols]).abs().amax(dim=1)
+    flipped = moved_a[first, cols] != moved_b[first, cols]
+    return (float(same.float().mean()),
+            bool((flipped | (merges & (jump > 1e-3))).all()))
+
+
+def state_rank_sampler_runs(rank: int, dev, mesh, chains: int,
+                            dim: int) -> dict:
+    """This slice's split samplers on one rank of ``[state_mesh_ranks]``:
+    MH run(16, 0), SGLD run(16, 0) and NUTS run(4, 0) in float32 against
+    unsharded chain by chain, and NUTS run(4, 4) on float64 states within
+    ``STATE_ADAPT_ATOL`` (its dual averaging amplifies the reordered sums'
+    rounding, so no float32 chain stays bit for bit under adaptation).
+    Each path's kernel launches, the port's collectives and DTensor's
+    (``CommDebugMode``), the executed leapfrogs and its seconds."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from mini_mcmc_torch.parallel import collectives, shard_sampler_state
+
+    paths = list(state_sampler_makes(dev, chains, dim))
+    paths[2] = ("nuts", paths[2][1], STATE_RANK_NUTS_RUN)
+    paths.append(("nuts_adapt", state_sampler_makes(
+        dev, chains, dim, torch.float64)[2][1], STATE_NUTS_RUN))
+    out = {}
+    for label, make, run_args in paths:
+        a = make()
+        x0 = a.positions.clone()
+        want = a.run(*run_args, time_major=True)
+        b = make()
+        b.state = shard_sampler_state(mesh, b.state, shard_state_dim=True)
+        reset_counts()
+        collectives.reset_counts()
+        NORMAL_CALLS[0] = 0
+        t0 = time.perf_counter()
+        with CommDebugMode() as comm:
+            got = b.run(*run_args, time_major=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, coll = read_counts(), collectives.counts()
+        local = got.to_local()
+        block = _rank_block(want, local, rank)
+        start = x0[None, :, rank * local.shape[2]:
+                   (rank + 1) * local.shape[2]]
+        share, decided = _chains_decided(block, local, start,
+                                         merges=label.startswith("nuts"))
+        err = (local - block).abs().amax(dim=(0, 2))
+        res = dict(
+            share=share, decided=decided, max_err=float(err.max()),
+            close_share=float((err <= STATE_ADAPT_ATOL).float().mean()),
+            moved=(local[1:] != local[:-1]).any(dim=2).tolist(),
+            local=tuple(local.shape), d0=rank * local.shape[2],
+            launches={k: v for k, v in counts.items() if v},
+            collectives={k: v for k, v in coll.items() if v},
+            dtensor_all_reduces=sum(
+                n for op, n in comm.get_comm_counts().items()
+                if "all_reduce" in str(op)),
+            steps=sum(run_args), seconds=seconds)
+        if label.startswith("nuts"):
+            res["evaluations"] = NORMAL_CALLS[0]
+            res["leapfrogs"] = int(b.last_run_leapfrogs.to_local()[0])
+            res["eps"] = b.step_size.to_local().tolist()
+            res["eps_rel_err"] = float(
+                ((b.step_size.to_local() - a.step_size).abs()
+                 / a.step_size.abs()).max())
+        out[label] = res
+        del a, b, want, got
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def _state_rank_child(rank, world, init_method, device, chains, dim, out):
@@ -7268,7 +7447,93 @@ def check_state_ranks(results: list, chains: int, dim: int) -> dict:
         check("state ranks lockstep launches no kernel",
               not any(r["lockstep"]["launches"].get(k) for k in KERNELS),
               r["lockstep"]["launches"])
+    check_state_rank_samplers(results, chains, dim)
     return results[0]["separable"]["launches"]
+
+
+def check_state_rank_samplers(results: list, chains: int, dim: int) -> None:
+    """The checks of this slice's split samplers in ``[state_mesh_ranks]``:
+    the blocks; MH and NUTS (float32, no adaptation) equal unsharded on at
+    least ``STATE_RANK_SHARE`` of chains, the others first differing at
+    a flipped decision; SGLD bit for bit; NUTS under adaptation (float64)
+    within ``STATE_ADAPT_ATOL`` on every chain and its step sizes within
+    1e-6; every shard of a chain moving in the same steps (and, NUTS,
+    holding the same step sizes); no kernel; the collectives: MH two
+    all-reduces a step (DTensor's: the logp and both q terms), SGLD none,
+    NUTS between one and two of the port's state-axis sums a target
+    evaluation, besides the chain axis's scalar loop exits."""
+    w = dim // STATE_RANKS
+    for label in ("mh", "sgld", "nuts", "nuts_adapt"):
+        rs = [r[label] for r in results]
+        share = min(r["share"] for r in rs)
+        one_decision = all(r["moved"] == rs[0]["moved"] for r in rs)
+        coll = rs[0]["collectives"]
+        sums = coll.get("all_reduce", 0) - coll.get("all_reduce_scalar", 0)
+        extra = {}
+        if label.startswith("nuts"):
+            one_decision = one_decision and all(r["eps"] == rs[0]["eps"]
+                                                for r in rs)
+            extra = dict(leapfrogs=rs[0]["leapfrogs"],
+                         evaluations=rs[0]["evaluations"],
+                         state_sums=sums, sums_per_evaluation=repr(
+                             sums / max(rs[0]["evaluations"], 1)),
+                         eps_rel_err=repr(max(r["eps_rel_err"]
+                                              for r in rs)))
+        say("state_mesh_ranks", path=label, ranks=STATE_RANKS,
+            chains=chains, D=dim, local=rs[0]["local"],
+            d0=",".join(str(r["d0"]) for r in rs),
+            chains_equal_share=repr(share),
+            chains_close_share=repr(min(r["close_share"] for r in rs)),
+            max_abs_err=repr(max(r["max_err"] for r in rs)),
+            one_decision_per_chain=one_decision,
+            differing_chains_decided=all(r["decided"] for r in rs),
+            launches=repr(rs[0]["launches"]).replace(" ", ""),
+            collectives=repr(coll).replace(" ", ""),
+            dtensor_all_reduces=rs[0]["dtensor_all_reduces"],
+            steps=rs[0]["steps"], seconds=repr(max(r["seconds"]
+                                                  for r in rs)), **extra)
+        check(f"state ranks {label} blocks", all(
+            r["local"][1:] == (chains, w) and r["d0"] == i * w
+            for i, r in enumerate(rs)), [r["local"] for r in rs])
+        check(f"state ranks {label} one decision per chain", one_decision,
+              label)
+        check(f"state ranks {label} launches no kernel", all(
+            not any(r["launches"].get(k) for k in KERNELS) for r in rs),
+            [r["launches"] for r in rs])
+        check(f"state ranks {label} no all-gather or broadcast", all(
+            not r["collectives"].get("all_gather")
+            and not r["collectives"].get("broadcast") for r in rs),
+            [r["collectives"] for r in rs])
+        if label == "nuts_adapt":
+            check("state ranks nuts_adapt every chain within "
+                  f"{STATE_ADAPT_ATOL}", all(r["close_share"] == 1.0
+                                             for r in rs),
+                  [r["max_err"] for r in rs])
+            check("state ranks nuts_adapt step sizes", all(
+                r["eps_rel_err"] <= 1e-6 for r in rs),
+                [r["eps_rel_err"] for r in rs])
+        elif label == "sgld":
+            check("state ranks sgld bit for bit", share == 1.0, share)
+        else:
+            check(f"state ranks {label} chains equal unsharded",
+                  share >= STATE_RANK_SHARE, share)
+            check(f"state ranks {label} differing chains differ at a "
+                  "flipped decision", all(r["decided"] for r in rs), label)
+        if label == "mh":
+            check("state ranks mh two all-reduces a step", all(
+                not r["collectives"] and r["dtensor_all_reduces"]
+                == 2 * r["steps"] for r in rs),
+                [(r["collectives"], r["dtensor_all_reduces"]) for r in rs])
+        elif label == "sgld":
+            check("state ranks sgld no collective", all(
+                not r["collectives"] and not r["dtensor_all_reduces"]
+                for r in rs), [r["collectives"] for r in rs])
+        else:
+            n = rs[0]["evaluations"]
+            check(f"state ranks {label} at most two sums an evaluation",
+                  n <= sums <= 2 * n and all(
+                      not r["dtensor_all_reduces"] for r in rs),
+                  (n, coll, rs[0]["dtensor_all_reduces"]))
 
 
 def phase_state_mesh_ranks(tmp: str) -> dict:

@@ -200,11 +200,15 @@ def load_checkpoint(path: str, device="cuda"):
 
 def _metric_record(sampler):
     """The sampler's metric as a comparable record (``None`` when
-    unmetriced): ``dense`` 0 or 1 and its ``scale`` or ``chol``."""
+    unmetriced): ``dense`` 0 or 1 and its ``scale`` or ``chol``, a scale
+    split over a state axis gathered whole (every rank of the axis
+    calls this)."""
     metric = getattr(sampler, "metric", None)
     if metric is None:
         return None
     arr = metric.scale if metric.kind == "diag" else metric.chol
+    if type(arr).__name__ == "DTensor":
+        arr = arr.full_tensor()
     return {"dense": int(metric.kind == "dense"), "arr": _to_host(arr)}
 
 

@@ -574,6 +574,11 @@ class Proposal:
             ``propose_dc``.
         cuda_words: ``D -> W``, the words ``propose_words`` and the
             source's ``words<D>()`` read at D.
+        takes_state_split: whether MH may run this proposal on a state
+            whose D is split over a ``"state"`` axis: ``sample``'s draw at
+            a coordinate reads no other coordinate of the row and ``logp``
+            is a sum over D that runs on DTensor views (a random walk; the
+            built-in walks set it). MH refuses a split D for any other.
     """
 
     sample: Callable
@@ -585,6 +590,7 @@ class Proposal:
     cuda_source: Optional[str] = None
     propose_words: Optional[Callable] = None
     cuda_words: Optional[Callable] = None
+    takes_state_split: bool = False
 
     def __post_init__(self):
         _one_form(self)

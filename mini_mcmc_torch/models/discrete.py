@@ -123,4 +123,5 @@ def random_walk_int_proposal(clip_low=0, clip_high=None) -> Proposal:
                     cuda_functor="random_walk_int",
                     cuda_params=(float(clip_low),
                                  float(clip_high) if has_high else 0.0,
-                                 float(has_high)))
+                                 float(has_high)),
+                    takes_state_split=True)

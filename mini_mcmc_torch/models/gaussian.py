@@ -101,7 +101,8 @@ def isotropic_gaussian_proposal(std) -> Proposal:
 
     return Proposal(sample=sample, logp=logp, symmetric=True,
                     scaled=lambda f: isotropic_gaussian_proposal(std * f),
-                    cuda_functor="isotropic_gaussian", cuda_params=(std,))
+                    cuda_functor="isotropic_gaussian", cuda_params=(std,),
+                    takes_state_split=True)
 
 
 def gaussian_random_walk_proposal(scales) -> Proposal:
@@ -124,7 +125,8 @@ def gaussian_random_walk_proposal(scales) -> Proposal:
 
     return Proposal(sample=sample, logp=logp,
                     scaled=lambda f: gaussian_random_walk_proposal(
-                        scales * f))
+                        scales * f),
+                    takes_state_split=True)
 
 
 def isotropic_gaussian_target(std) -> Target:

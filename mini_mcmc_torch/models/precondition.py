@@ -28,6 +28,15 @@ built-in functor, 16 for a user density, the JAX package's
 would cost quadratic host time and memory for nothing, and a diagonal
 metric reaches the separable kernel as one more coordinate table
 (``csrc/coord_targets.cuh:Scaled``, ``Target.cuda_scaled``).
+
+On a state whose D is split over a ``"state"`` axis
+(``parallel.chain_state_mesh``) a diagonal metric acts coordinate by
+coordinate: the whitened target runs on a DTensor view of a rank's D-slice
+(``parallel.mesh.SliceTarget``), where the scale is narrowed to the slice,
+and the row maps use :meth:`Preconditioner.at_slice`. An estimate on such
+a state (:func:`estimate_preconditioner` with ``state=``) keeps each
+rank's slice of the scale, a DTensor sharded over the axis. A dense metric
+couples the coordinates and does not take a split D.
 """
 
 from __future__ import annotations
@@ -38,7 +47,12 @@ import numpy as np
 import torch
 
 from ..ops.kernels._build import DIAG_TRIANGLE_MAX_DIM, kernel_dims
+from ..parallel.collectives import all_reduce, split, state_sum
 from .base import Target, cuda_base_of
+
+
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -88,11 +102,33 @@ class Preconditioner:
         """Smallest singular value of ``L``, the stiffest direction's
         width: ``eps_y = eps_x / sigma_min`` keeps a tuned step size's
         stability margin in whitened coordinates. A host float, so that
-        ``reconditioned`` stays deterministic."""
+        ``reconditioned`` stays deterministic; a scale split over a state
+        axis takes its minimum over the axis (one scalar all-reduce)."""
+        if self.kind == "diag" and _is_dtensor(self.scale):
+            m = torch.min(torch.abs(self.scale.to_local())).reshape(1)
+            return float(all_reduce(m, self.scale.device_mesh.get_group(),
+                                    "min")[0])
         if self.kind == "diag":
             return float(np.min(np.abs(self.scale.detach().cpu().numpy())))
         return float(np.linalg.svd(self.chol.detach().cpu().numpy(),
                                    compute_uv=False)[-1])
+
+    def at_slice(self, state) -> "Preconditioner":
+        """The map of a rank's D-slice of a split state (``state``, a
+        :class:`~mini_mcmc_torch.parallel.collectives.StateGroup`): a
+        diagonal metric with its scale narrowed to the slice (the rank's
+        own part of a scale that is itself split). A dense metric couples
+        the coordinates and raises ``ValueError``."""
+        if self.kind != "diag":
+            raise ValueError(
+                "a dense metric couples every coordinate and does not run "
+                "on a state split over a 'state' axis (shard_state_dim="
+                "True); use a diagonal metric (kind='diag')")
+        if _is_dtensor(self.scale):
+            return dataclasses.replace(self, scale=self.scale.to_local())
+        d = state.n_dim // state.size
+        return dataclasses.replace(self,
+                                   scale=self.scale.narrow(0, state.d0, d))
 
     def _on(self, like: torch.Tensor) -> torch.Tensor:
         arr = self.scale if self.kind == "diag" else self.chol
@@ -132,7 +168,8 @@ class Preconditioner:
 
 
 def estimate_preconditioner(positions, kind: str = "diag", *,
-                            reg: float = 1e-8) -> Preconditioner:
+                            reg: float = 1e-8,
+                            state=None) -> Preconditioner:
     """Estimate a whitening map from a ``[C, D]`` chain ensemble.
 
     One cross-chain moment snapshot: the ``ddof=1`` variance (diag), or the
@@ -141,9 +178,21 @@ def estimate_preconditioner(positions, kind: str = "diag", *,
     ensemble stays invertible. Computed where the positions lie, in their
     dtype promoted to at least float32 (the JAX package picks float64 under
     ``jax_enable_x64``; the port has no such switch).
+
+    ``state``: the :class:`~mini_mcmc_torch.parallel.collectives.
+    StateGroup` of a split D, ``positions`` then every chain's slice on
+    this rank. The variance is per coordinate, so each rank estimates its
+    slice; the ridge's mean over D crosses the axis (one scalar
+    all-reduce), and the scale comes back as a DTensor sharded over the
+    axis, each rank keeping its slice. ``kind="dense"`` raises there.
     """
     if kind not in ("diag", "dense"):
         raise ValueError(f"kind must be 'diag' or 'dense', got {kind!r}")
+    if split(state) and kind == "dense":
+        raise ValueError(
+            "a dense metric couples every coordinate and is not estimated "
+            "on a state split over a 'state' axis (shard_state_dim=True); "
+            "use kind='diag'")
     x = torch.as_tensor(positions).detach()
     x = x.to(torch.promote_types(x.dtype, torch.float32))
     if x.dim() != 2 or x.shape[0] < 2:
@@ -151,6 +200,12 @@ def estimate_preconditioner(positions, kind: str = "diag", *,
             f"positions must be [n_chains >= 2, D]; got shape "
             f"{tuple(x.shape)}")
     var = torch.var(x, dim=0, correction=1)
+    if split(state):
+        from ..parallel.mesh import slice_view
+
+        mean = state_sum(var.sum().reshape(1), state)[0] / state.n_dim
+        return Preconditioner(kind="diag", scale=slice_view(
+            torch.sqrt(var + (reg * mean + 1e-30)), state))
     ridge = reg * torch.mean(var) + 1e-30
     if kind == "diag":
         return Preconditioner(kind="diag", scale=torch.sqrt(var + ridge))
@@ -231,7 +286,8 @@ def precondition_target(target: Target, metric: Preconditioner) -> Target:
     # where Kernels 1-4 run the target (D <= 4 for a built-in functor)
     diag = metric.kind == "diag" and d > DIAG_TRIANGLE_MAX_DIM
     carried = (d <= max(kernel_dims(target))
-               and target.cuda_unsupported is None)
+               and target.cuda_unsupported is None
+               and not _is_dtensor(metric.scale))
     if carried:
         affine = metric
         if target.cuda_affine:

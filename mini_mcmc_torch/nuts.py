@@ -15,6 +15,12 @@ samples a natural-coordinates density on its unconstrained wrap
 transformed instances, the metric (if any) on the unconstrained
 coordinates. ``run_progress`` samples with a live progress display and
 returns the cube with its ``RunStats``.
+
+A state split over a ``"state"`` axis (``parallel.shard_sampler_state(
+chain_state_mesh(a, b), ..., shard_state_dim=True)``) runs on the lockstep
+tier (``use_pallas=False``), with a diagonal metric or none and no
+transform (``ops/nuts.py``); ``reconditioned("diag")`` and ``warmed_up``
+then estimate each rank's D-slice of the metric and stay split.
 """
 
 from __future__ import annotations
@@ -23,7 +29,6 @@ from typing import Optional
 
 import torch
 
-from .models.precondition import estimate_preconditioner
 from .ops.kernels import nuts_full, nuts_subtree
 from .ops.kernels.nuts_subtree import MAX_DEPTH
 from .ops.nuts import nuts_kernel
@@ -31,9 +36,9 @@ from .progress import progress_run
 from .runner import make_initial_recording_runner
 from .samplers import (
     _KernelSampler,
-    check_kernel_target,
-    _unconstrained_positions,
+    _estimate_metric,
     _wrap_sampler_target,
+    check_kernel_target,
     initial_positions_on,
 )
 from .stats import RunStats, run_stats
@@ -84,7 +89,7 @@ class NUTS(_KernelSampler):
                  seed: Optional[int] = None, use_pallas=False,
                  warmup_max_depth: Optional[int] = None, metric=None,
                  transform=None, validate_dc: bool = True, *,
-                 device="cuda"):
+                 device="cuda", _layout=None):
         if warmup_max_depth is not None and not (
                 1 <= warmup_max_depth <= max_depth):
             raise ValueError(
@@ -101,8 +106,9 @@ class NUTS(_KernelSampler):
                           transform=transform, validate_dc=validate_dc,
                           device=device)
         positions = initial_positions_on(initial_positions, device)
-        kernel_target, positions_map, positions, self.metric = (
-            _wrap_sampler_target(target, positions, transform, metric))
+        kernel_target, positions, self.metric = (
+            _wrap_sampler_target(target, positions, transform, metric,
+                                 _layout))
         self.kernel_target = kernel_target
         if use_pallas and positions.is_cuda:
             check_kernel_target(
@@ -118,9 +124,13 @@ class NUTS(_KernelSampler):
         super().__init__(init_fn, step_fn, positions, seed,
                          runner=make_initial_recording_runner(
                              step_fn, self._positions_of),
-                         positions_map=positions_map)
+                         layout=_layout)
         self._div_before_run = None
         self._lf_before_run = None
+
+    def _takes_state_split(self) -> bool:
+        return (not self._ctor["use_pallas"] and not self._transformed()
+                and (self.metric is None or self.metric.kind == "diag"))
 
     def reconditioned(self, kind: str = "diag", *, seed=None) -> "NUTS":
         """A new NUTS continuing from the current positions, whitened by a
@@ -130,11 +140,13 @@ class NUTS(_KernelSampler):
         that the ensemble is in the typical set. The new sampler starts at
         ``epsilon = -1``: its first ``run`` finds a step size and dual
         averages again in the whitened space. Without ``seed`` its
-        generator is seeded from this sampler's."""
-        pre = estimate_preconditioner(_unconstrained_positions(self), kind)
-        new = self._shard_like(NUTS(
+        generator is seeded from this sampler's. On a split state each rank
+        estimates its D-slice of a diagonal metric (``kind="dense"``
+        raises there) and the new sampler is split as this one is."""
+        pre = _estimate_metric(self, kind)
+        new = self._rebuild(lambda layout: NUTS(
             self.target, self._positions_of(self._state), metric=pre,
-            seed=seed, **self._ctor))
+            seed=seed, _layout=layout, **self._ctor))
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -215,7 +227,8 @@ class NUTS(_KernelSampler):
         self._snapshot_divergences()
         self._state = self._prepare_fn(self._state, self._next_key(),
                                        n_discard)
-        kw = dict(n_chains=self._state.positions.shape[0], dim=self.dim,
+        kw = dict(n_chains=self._state.positions.shape[0],
+                  dim=self._state.positions.shape[1],
                   stream=stream, time_major=time_major)
         if n_discard == 0 and n_collect > 0:
             # [1, C, D]

@@ -74,7 +74,8 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
                steps_per_call: int = 1):
     """Build ``(init_fn, step_fn)`` for batched HMC.
 
-    ``init_fn(positions [C, D]) -> HMCState``;
+    ``init_fn(positions [C, D], state=None) -> HMCState`` (``state``: the
+    ``StateGroup`` of a rank's D-slice);
     ``step_fn(state, key: StepKey) -> HMCState``, with
     ``step_fn.step_eps(state, key, eps) -> (state, alpha)``.
 
@@ -123,11 +124,12 @@ def hmc_kernel(target, step_size: float, n_leapfrog: int,
                 if sep_tables else like.new_empty((0, like.shape[1])))
         return tables_on[key]
 
-    def init_fn(positions: torch.Tensor):
+    def init_fn(positions: torch.Tensor, state=None):
+        tgt = SliceTarget(target, state) if split(state) else target
         if separable:
             return HMCSepState(
-                positions, target.batch_logp(positions).to(positions.dtype))
-        logp, grad = target.batch_logp_and_grad(positions)
+                positions, tgt.batch_logp(positions).to(positions.dtype))
+        logp, grad = tgt.batch_logp_and_grad(positions)
         return HMCState(positions, logp, grad)
 
     def _eps(key: StepKey, n: int, like: torch.Tensor) -> torch.Tensor:

@@ -41,7 +41,7 @@ from typing import Callable
 
 import torch
 
-from ...parallel.collectives import any_chains
+from ...parallel.collectives import any_chains, split, state_sum
 from . import _build, rng
 from .hmc import check_state
 from .nuts_subtree import MAX_DEPTH, build_subtree_plain, popcount
@@ -56,7 +56,7 @@ DOUBLING_DRAW = 0x10000
 
 def doubling_loop(positions, mom_0, grad, joint, depth_limit: int,
                   draw_direction: Callable, draw_accept: Callable,
-                  subtree: Callable, chains=None):
+                  subtree: Callable, chains=None, state=None):
     """The NUTS doubling loop for all chains in lockstep
     (``mini_mcmc_tpu/ops/nuts.py:_nuts_step_batched``, reference
     ``nuts.rs:578-674``), shared by every tier's plain path.
@@ -68,7 +68,9 @@ def doubling_loop(positions, mom_0, grad, joint, depth_limit: int,
     with ``depth [C]`` int32 the doublings each chain took part in. Under
     ``chains`` (a sharded lockstep run's ChainGroup) it runs while a chain
     of any shard continues, so every rank builds the same subtrees and
-    their leaf loops' reductions pair up.
+    their leaf loops' reductions pair up. Under ``state`` (a split D's
+    ``StateGroup``) the U-turn products between the ends cross the axis,
+    one all-reduce a doubling.
     """
     dtype = positions.dtype
     c = positions.shape[0]
@@ -106,8 +108,10 @@ def doubling_loop(positions, mom_0, grad, joint, depth_limit: int,
 
         n = n + torch.where(s, res.n, 0)
         d = pos_p - pos_m
-        no_uturn = ((torch.sum(d * mom_m, dim=1) >= 0)
-                    & (torch.sum(d * mom_p, dim=1) >= 0))
+        dot_m, dot_p = torch.sum(d * mom_m, dim=1), torch.sum(d * mom_p, dim=1)
+        if split(state):
+            dot_m, dot_p = state_sum(torch.stack([dot_m, dot_p]), state)
+        no_uturn = (dot_m >= 0) & (dot_p >= 0)
         alpha = torch.where(s, res.alpha, alpha)
         n_alpha = torch.where(s, res.n_alpha, n_alpha)
         diverged = diverged | (s & res.diverged)

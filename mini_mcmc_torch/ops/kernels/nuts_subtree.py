@@ -71,7 +71,7 @@ def trailing_ones(i: int) -> int:
 def build_subtree_plain(target, max_depth: int, pos, mom, grad, logu, v,
                         j: int, epsilon, joint_0, active,
                         draw_uniform: Callable, leaves=None, *,
-                        chains=None) -> TreeResult:
+                        chains=None, state=None) -> TreeResult:
     """Grow the 2^j-leaf subtree for all chains in lockstep
     (``mini_mcmc_tpu/ops/nuts.py:_build_subtree_batched``, reference
     ``nuts.rs:763-946``).
@@ -86,7 +86,15 @@ def build_subtree_plain(target, max_depth: int, pos, mom, grad, logu, v,
     Under ``chains`` (a sharded run's
     :class:`~mini_mcmc_torch.parallel.collectives.ChainGroup`) the leaf
     loop runs while a chain of any shard runs, one scalar reduction a leaf.
+    Under ``state`` (a split D's
+    :class:`~mini_mcmc_torch.parallel.collectives.StateGroup`) ``pos``,
+    ``mom`` and ``grad`` are the rank's D-slices: a leaf's logp share,
+    kinetic energy and the two U-turn dot products of every merge after
+    it cross the axis in one all-reduce (``ops/nuts.py:summed``), so every
+    shard of a chain holds the same ``s``.
     """
+    from ..nuts import logp_and_grad, summed
+
     dtype = pos.dtype
     c, dim = pos.shape
     # stack row: [first_pos | first_mom | prop_pos | prop_grad | prop_logp | n]
@@ -113,9 +121,21 @@ def build_subtree_plain(target, max_depth: int, pos, mom, grad, logu, v,
         # leaf: one leapfrog for every chain (nuts.rs:795-830)
         mom = mom + grad * half
         pos = pos + mom * e
-        logp, grad = target.batch_logp_and_grad(pos)
+        logp, grad = logp_and_grad(target, pos, state)
         mom = mom + grad * half
-        joint = logp - 0.5 * torch.sum(mom * mom, dim=1)
+        sp = popcount(i)
+        # the U-turn products of the merges after this leaf: the leaf
+        # against the stack rows the carries meet (each read before the
+        # cascade writes over it)
+        dots = []
+        for k in range(trailing_ones(i)):
+            a = stack[sp - 1 - k]
+            d_chrono = pos - a[:, fp]
+            dots += [torch.sum(d_chrono * a[:, fm], dim=1),
+                     torch.sum(d_chrono * mom, dim=1)]
+        logp, ke, *dots = summed(state, logp, torch.sum(mom * mom, dim=1),
+                                 *dots)
+        joint = logp - 0.5 * ke
         n_leaf = logu < joint
         s_leaf = (logu - DIVERGENCE_DELTA) < joint
         alpha_leaf = torch.clamp(torch.exp(joint - joint_0), max=1.0)
@@ -130,7 +150,6 @@ def build_subtree_plain(target, max_depth: int, pos, mom, grad, logu, v,
         diverged = diverged | (live & ~s_leaf)
         s_run = s_run & s_leaf
 
-        sp = popcount(i)
         top = torch.cat([pos, mom, pos, grad, logp[:, None],
                          n_leaf.to(dtype)[:, None]], dim=1)
         stack[sp] = top
@@ -141,9 +160,7 @@ def build_subtree_plain(target, max_depth: int, pos, mom, grad, logu, v,
             n_a, n_b = a[:, i_n], top[:, i_n]
             u = draw_uniform(i, k)
             take_b = (u < n_b / torch.clamp(n_a + n_b, min=1.0))[:, None]
-            d_chrono = pos - a[:, fp]
-            ok = ((vf * torch.sum(d_chrono * a[:, fm], dim=1) >= 0)
-                  & (vf * torch.sum(d_chrono * mom, dim=1) >= 0))
+            ok = (vf * dots[2 * k] >= 0) & (vf * dots[2 * k + 1] >= 0)
             top = torch.cat([
                 a[:, fp], a[:, fm],
                 torch.where(take_b, top[:, pp], a[:, pp]),

@@ -12,6 +12,15 @@ Randomness: the plain tier draws the proposal and the accept uniform from
 the Philox stream at ``(key.seed, chain, key.step, draw)`` inside Kernel 5
 (``kernels/mh_full.py``). Under a chain mesh a shard draws what the
 unsharded run draws for its chains (``parallel/collectives.py``).
+
+Under a state split (``key.state``: D split over a ``"state"`` axis) the
+plain step proposes the global ``[C, D]`` draw's block and evaluates the
+target and both q terms on DTensor views of its D-slice
+(``parallel.mesh.SliceTarget``, ``SliceProposal``): two all-reduces a
+step, the logp's and the q terms' (both in one call). The accept uniform
+is the chain's, the same on every state shard, so each chain takes one
+decision on all its shards. The sampler admits only a proposal that sets
+``Proposal.takes_state_split`` (a random walk) there.
 """
 
 from __future__ import annotations
@@ -20,7 +29,13 @@ from typing import NamedTuple
 
 import torch
 
-from ..parallel.collectives import chain_call, chain_draw, gather_chains
+from ..parallel.collectives import (
+    chain_call,
+    chain_draw,
+    gather_chains,
+    split,
+)
+from ..parallel.mesh import SliceProposal, SliceTarget
 from ..runner import StepKey, chain0, make_scan_block_fn
 from .kernels.mh_full import mh_multistep, propose_form
 
@@ -28,6 +43,10 @@ from .kernels.mh_full import mh_multistep, propose_form
 class MHState(NamedTuple):
     positions: torch.Tensor  # [C, D], float or integer dtype
     logp: torch.Tensor  # [C] cached target log density at positions
+
+    #: the state-dimension axis per field for ``parallel.
+    #: shard_sampler_state(..., shard_state_dim=True)``
+    STATE_AXIS_INDEX = {"positions": 1}
 
 
 def _plain_mh_step(target, proposal, state: MHState, key: StepKey):
@@ -38,11 +57,20 @@ def _plain_mh_step(target, proposal, state: MHState, key: StepKey):
     (``metropolis_hastings.rs:309-313``); HMC's accept is ``>=``."""
     pos = state.positions
     gen = key.generator
-    # a shard proposes from the global shape's draws (collectives.py)
-    proposed = chain_call(key.chains, lambda x: proposal.sample(gen, x), pos)
-    proposed_lp = target.batch_logp(proposed)
-    log_q_fwd = proposal.logp(pos, proposed)
-    log_q_bwd = proposal.logp(proposed, pos)
+    st = key.state
+    if split(st):  # D-slices: the sums over D cross the state axis
+        walk = SliceProposal(proposal, key.chains, st)
+        proposed = walk.sample(gen, pos)
+        proposed_lp = SliceTarget(target, st).batch_logp(proposed)
+        log_q_fwd, log_q_bwd = walk.logp(torch.stack([pos, proposed]),
+                                         torch.stack([proposed, pos]))
+    else:
+        # a shard proposes from the global shape's draws (collectives.py)
+        proposed = chain_call(key.chains,
+                              lambda x: proposal.sample(gen, x), pos)
+        proposed_lp = target.batch_logp(proposed)
+        log_q_fwd = proposal.logp(pos, proposed)
+        log_q_bwd = proposal.logp(proposed, pos)
     log_accept = (proposed_lp + log_q_bwd) - (state.logp + log_q_fwd)
     u = chain_draw(key.chains, lambda s: torch.rand(
         s, generator=gen, dtype=log_accept.dtype, device=pos.device),
@@ -73,7 +101,8 @@ def mh_step_alpha(target, proposal_family):
 def mh_kernel(target, proposal, *, use_pallas=False, steps_per_call: int = 1):
     """Build ``(init_fn, step_fn)`` for batched MH.
 
-    ``init_fn(positions [C, D]) -> MHState``;
+    ``init_fn(positions [C, D], state=None) -> MHState`` (``state``: the
+    ``StateGroup`` of a rank's D-slice);
     ``step_fn(state, key: StepKey) -> MHState``.
 
     ``use_pallas="full"`` runs whole steps in Kernel 5
@@ -103,8 +132,11 @@ def mh_kernel(target, proposal, *, use_pallas=False, steps_per_call: int = 1):
         propose_form(proposal)  # raises for a proposal without a fused form
         full = True
 
-    def init_fn(positions: torch.Tensor) -> MHState:
-        return MHState(positions, target.batch_logp(positions))
+    def init_fn(positions: torch.Tensor, state=None) -> MHState:
+        """The state at ``positions``; ``state`` (a ``StateGroup``) when
+        they are a rank's D-slice."""
+        tgt = SliceTarget(target, state) if split(state) else target
+        return MHState(positions, tgt.batch_logp(positions))
 
     def step_fn(state: MHState, key: StepKey) -> MHState:
         if full:

@@ -31,6 +31,17 @@ any shard runs, and the executed-leapfrog count is the deepest chain's
 over every shard.
 The step-size search stays local: it draws nothing inside its loop, so a
 shard with no sentinel chain skipping it changes no draw.
+
+Under a state split (``key.state``: D split over a ``"state"`` axis) the
+lockstep tier draws the global ``[C, D]`` momenta's block and runs the
+target on a DTensor view of its D-slice (``parallel.mesh.SliceTarget``),
+taking the rank's share of each logp. Every sum over D of a step crosses
+the axis in one all-reduce where it is taken: the step's start (its logp
+and kinetic energy), each leaf (logp, kinetic energy and the U-turn dot
+products of the merges after it, ``kernels/nuts_subtree.py``) and each
+doubling (the U-turn between the trajectory's ends). Every state shard of
+a chain then holds the same energies and takes the same decisions, and
+the step-size search's loops stop together on every shard.
 """
 
 from __future__ import annotations
@@ -40,7 +51,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..parallel.collectives import chain_draw, max_chains
+from ..parallel.collectives import (
+    chain_draw,
+    max_chains,
+    split,
+    state_draw,
+    state_sum,
+)
+from ..parallel.mesh import SliceTarget
 from ..runner import StepKey, chain0
 from .kernels import rng
 from .kernels.nuts_full import doubling_loop, nuts_step
@@ -79,6 +97,11 @@ class NUTSState(NamedTuple):
     #: executed cost) and each chain's own under use_pallas="full" (its own
     #: tree's cost); saturates at _LEAPFROG_SAT
     leapfrogs: torch.Tensor
+
+    #: the state-dimension axis per field for ``parallel.
+    #: shard_sampler_state(..., shard_state_dim=True)``: the [C] dual
+    #: averaging and counters stay whole
+    STATE_AXIS_INDEX = {"positions": 1}
 
 
 def _leapfrog_batch(target, pos, mom, grad, eps):
@@ -135,43 +158,73 @@ def find_reasonable_epsilon(target, position, mom):
     return epsilon[0]
 
 
-def find_reasonable_epsilon_batch(target, positions, mom):
+def summed(state, *shares):
+    """``[C]`` shares of sums over D, summed over the state axis in one
+    all-reduce (``collectives.state_sum``); the shares themselves unless
+    ``state`` splits D."""
+    if not split(state):
+        return shares
+    return tuple(state_sum(torch.stack(shares), state).unbind(0))
+
+
+def logp_and_grad(target, pos, state=None):
+    """``target``'s logp and gradient at ``pos``; on a rank's D-slice
+    (``state`` split) the rank's share of the logp, for :func:`summed`,
+    and the gradient's slice."""
+    if split(state):
+        return SliceTarget(target, state).batch_logp_and_grad_share(pos)
+    return target.batch_logp_and_grad(pos)
+
+
+def find_reasonable_epsilon_batch(target, positions, mom, state=None):
     """:func:`find_reasonable_epsilon` for ``[C, D]`` chains at once -> ``[C]``.
 
     One masked loop over batched tensors: each iteration is one ``[C, D]``
     leapfrog, and a chain freezes once its own exit condition holds, so
     per-chain iteration counts (and the safety cap) match the scalar loop.
+    On a rank's D-slice (``state`` split) each leapfrog's logp, kinetic
+    energy and count of non-finite gradient coordinates cross the axis in
+    one all-reduce, so every shard of a chain iterates alike.
     """
     c = positions.shape[0]
     one = torch.ones((c,), dtype=positions.dtype, device=positions.device)
     ln2 = math.log(2.0)
-    logp0, grad0 = target.batch_logp_and_grad(positions)
-    ke0 = 0.5 * torch.sum(mom * mom, dim=-1)
+    logp0, grad0 = logp_and_grad(target, positions, state)
+    logp0, ke0 = summed(state, logp0, torch.sum(mom * mom, dim=-1))
+    ke0 = 0.5 * ke0
 
     def lf(eps):
-        _, mom_p, grad_p, logp_p = _leapfrog_batch(target, positions, mom,
-                                                   grad0, eps)
-        return mom_p, grad_p, logp_p
+        """``(kinetic sum, whether every gradient coordinate is finite,
+        logp)`` after one leapfrog at ``eps``."""
+        e = eps[:, None]
+        mom_p = mom + grad0 * (e * 0.5)
+        logp_p, grad_p = logp_and_grad(target, positions + mom_p * e, state)
+        mom_p = mom_p + grad_p * (e * 0.5)
+        ke_p = torch.sum(mom_p * mom_p, dim=-1)
+        if not split(state):
+            return ke_p, torch.isfinite(grad_p).all(dim=-1), logp_p
+        n_bad = (~torch.isfinite(grad_p)).sum(dim=-1).to(ke_p.dtype)
+        logp_p, ke_p, n_bad = summed(state, logp_p, ke_p, n_bad)
+        return ke_p, n_bad == 0, logp_p
 
-    def bad(logp_p, grad_p):
+    def bad(logp_p, fin_p):
         # nuts.rs:717 quirk: continue only while logp AND grad are non-real
-        return ~torch.isfinite(logp_p) & ~torch.isfinite(grad_p).all(dim=-1)
+        return ~torch.isfinite(logp_p) & ~fin_p
 
     k = one
-    mom_p, grad_p, logp_p = lf(k)
+    ke_p, fin_p, logp_p = lf(k)
     it = 0
-    while bool(bad(logp_p, grad_p).any()) and it < _FIND_EPS_MAX_ITERS:
-        active = bad(logp_p, grad_p)
+    while bool(bad(logp_p, fin_p).any()) and it < _FIND_EPS_MAX_ITERS:
+        active = bad(logp_p, fin_p)
         k = torch.where(active, k * 0.5, k)
-        mom_n, grad_n, logp_n = lf(k)
-        mom_p = torch.where(active[:, None], mom_n, mom_p)
-        grad_p = torch.where(active[:, None], grad_n, grad_p)
+        ke_n, fin_n, logp_n = lf(k)
+        ke_p = torch.where(active, ke_n, ke_p)
+        fin_p = torch.where(active, fin_n, fin_p)
         logp_p = torch.where(active, logp_n, logp_p)
         it += 1
 
     epsilon = 0.5 * k
-    log_accept = logp_p - logp0 - (0.5 * torch.sum(mom_p * mom_p, dim=-1)
-                                   - ke0)
+    log_accept = logp_p - logp0 - (0.5 * ke_p - ke0)
     a = torch.where(log_accept > -ln2, one, -one)
     two_pow_a = torch.pow(2.0, a)
     it = 0
@@ -179,8 +232,8 @@ def find_reasonable_epsilon_batch(target, positions, mom):
            and it < _FIND_EPS_MAX_ITERS):
         active = a * log_accept > -a * ln2
         epsilon = torch.where(active, epsilon * two_pow_a, epsilon)
-        mom_p, _, logp_p = lf(epsilon)
-        la = logp_p - logp0 - (0.5 * torch.sum(mom_p * mom_p, dim=-1) - ke0)
+        ke_p, _, logp_p = lf(epsilon)
+        la = logp_p - logp0 - (0.5 * ke_p - ke0)
         log_accept = torch.where(active, la, log_accept)
         it += 1
     return epsilon
@@ -274,8 +327,9 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
                 use_pallas=False, warmup_max_depth: Optional[int] = None):
     """Build ``(init_fn, prepare_fn, step_fn)`` for batched NUTS.
 
-    ``init_fn(positions [C, D]) -> NUTSState`` (epsilon sentinel -1,
-    nuts.rs:415-433); ``prepare_fn(state, key, n_discard)`` runs
+    ``init_fn(positions [C, D], state=None) -> NUTSState`` (epsilon
+    sentinel -1, nuts.rs:415-433; ``state`` places a rank's D-slice and
+    changes nothing here); ``prepare_fn(state, key, n_discard)`` runs
     ``find_reasonable_epsilon`` for sentinel chains and resets
     ``mu = ln(10 * eps)`` (nuts.rs:528-545); ``step_fn(state, key)``.
     """
@@ -283,7 +337,7 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
         raise ValueError(
             f"use_pallas must be False, True or 'full'; got {use_pallas!r}")
 
-    def init_fn(positions: torch.Tensor) -> NUTSState:
+    def init_fn(positions: torch.Tensor, state=None) -> NUTSState:
         c = positions.shape[0]
         kw = dict(dtype=positions.dtype, device=positions.device)
         ints = dict(dtype=torch.int32, device=positions.device)
@@ -302,7 +356,7 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
     def prepare_fn(state: NUTSState, key: StepKey,
                    n_discard: int) -> NUTSState:
         pos = state.positions
-        mom_0 = chain_draw(key.chains, lambda s: torch.randn(
+        mom_0 = state_draw(key.chains, key.state, lambda s: torch.randn(
             s, generator=key.generator, dtype=pos.dtype, device=pos.device),
             pos.shape)
         sentinel = (state.epsilon + 1.0).abs() <= torch.finfo(pos.dtype).eps
@@ -310,7 +364,8 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
         # the search runs only while some chain carries the sentinel (the
         # first run), like the reference's guard (nuts.rs:540-543)
         if bool(sentinel.any()):
-            found = find_reasonable_epsilon_batch(target, pos, mom_0)
+            found = find_reasonable_epsilon_batch(target, pos, mom_0,
+                                                  key.state)
             epsilon = torch.where(sentinel, found, epsilon)
         return state._replace(epsilon=epsilon,
                               mu=torch.log(10.0 * epsilon),
@@ -333,15 +388,16 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
         kw = dict(dtype=positions.dtype, device=positions.device)
         gen = step_generator(key.seed, key.step, positions.device)
         m = state.m + 1
-        chains = key.chains
+        chains, st = key.chains, key.state
 
         def draw(fn, shape, axis=0):
             return chain_draw(chains, fn, shape, axis)
 
-        mom_0 = draw(lambda s: torch.randn(s, generator=gen, **kw),
-                     positions.shape)
-        logp, grad = target.batch_logp_and_grad(positions)
-        joint = logp - 0.5 * torch.sum(mom_0 * mom_0, dim=1)
+        mom_0 = state_draw(chains, st, lambda s: torch.randn(
+            s, generator=gen, **kw), positions.shape)
+        logp, grad = logp_and_grad(target, positions, st)
+        logp, ke = summed(st, logp, torch.sum(mom_0 * mom_0, dim=1))
+        joint = logp - 0.5 * ke
         logu = joint - draw(lambda s: torch.empty(s, **kw).exponential_(
             generator=gen), (c,))
         depth_limit = _depth_limit(m, state.n_discard, max_depth,
@@ -367,11 +423,12 @@ def nuts_kernel(target, target_accept_p: float, max_depth: int = 10,
             return build_subtree_plain(
                 target, max_depth, p, mo, g, logu, v, j, state.epsilon,
                 joint, active,
-                lambda i, k: merges[i - popcount(i) + k], chains=chains)
+                lambda i, k: merges[i - popcount(i) + k], chains=chains,
+                state=st)
 
         sel, alpha, n_alpha, diverged, depth = doubling_loop(
             positions, mom_0, grad, joint, depth_limit,
-            directions.__getitem__, accepts.__getitem__, tree, chains)
+            directions.__getitem__, accepts.__getitem__, tree, chains, st)
         # every chain pays the lockstep loop: 2^J - 1 leapfrogs, J the
         # deepest chain's over every shard
         n_doublings = max(max_chains(depth, chains), 0)

@@ -29,6 +29,18 @@ evaluates it, and no step reads the device. The scalar algebra of a step
 :func:`sgld_update` and :func:`sghmc_update` are a step on a given gradient
 and given normals, and ``grad_fn.on_indices`` a gradient on given batch
 indices, so the CPU tests feed them the JAX package's own draws.
+
+Under a state split (``key.state``: D split over a ``"state"`` axis) a
+step's positions are the rank's D-slice: the normals are the global
+``[C, D]`` draw's block (``collectives.state_draw``), and
+:func:`minibatch_grad` and :func:`target_grad` take the gradient on a
+DTensor view of the slice (``parallel.mesh.on_slice``), so a likelihood's
+``X @ p`` all-reduces inside and an elementwise gradient needs no
+collective. The minibatch indices are drawn once per chain, the same on
+every state shard. Both set ``grad_fn.takes_state_split``; a ``grad_fn``
+of the caller's own runs on a split D only when it sets it too (it then
+receives the slice and returns its gradient), and the samplers refuse any
+other. :func:`data_parallel_grad` refuses a split D.
 """
 
 from __future__ import annotations
@@ -39,7 +51,8 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from ..parallel.collectives import all_reduce, chain_draw
+from ..parallel.collectives import all_reduce, chain_draw, split, state_draw
+from ..parallel.mesh import SliceTarget, on_slice
 from ..runner import StepKey, key_chains, key_generator, make_scan_block_fn
 from ..utils.init import resolve_device
 
@@ -49,11 +62,18 @@ class SGLDState(NamedTuple):
     sq_avg: torch.Tensor  # [C, D] RMSProp EWMA of grad^2 (a 0-d zero unused)
     step: int  # host step counter (drives step-size schedules)
 
+    #: the state-dimension axis per field for ``parallel.
+    #: shard_sampler_state(..., shard_state_dim=True)`` (a 0-d ``sq_avg``
+    #: stays replicated)
+    STATE_AXIS_INDEX = {"positions": 1, "sq_avg": 1}
+
 
 class SGHMCState(NamedTuple):
     positions: torch.Tensor  # [C, D]
     momenta: torch.Tensor  # [C, D] velocity v (position-increment units)
     step: int  # host step counter
+
+    STATE_AXIS_INDEX = {"positions": 1, "momenta": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +126,31 @@ def _leaves(data) -> list:
     return out
 
 
+def _key_state(key):
+    """The ``StateGroup`` of a :class:`StepKey`, ``None`` for a bare
+    generator."""
+    return getattr(key, "state", None)
+
+
+def _grad_of_sum(fn: Callable, positions: torch.Tensor, state=None):
+    """The gradient of ``fn(x).sum()`` at ``positions`` (the rows are
+    independent, so each row's own); on a rank's D-slice (``state``
+    split) taken on its DTensor view, the slice's share returned."""
+    def grad(x):
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(fn(x).sum(), x)
+        return g
+
+    if not split(state):
+        return grad(positions)
+    from ..parallel.mesh import _dtensor
+
+    _, shard, _ = _dtensor()
+    g = on_slice(state, grad, positions)
+    return g.redistribute(state.mesh, (shard(1),)).to_local()
+
+
 def minibatch_grad(
     log_prior: Callable,
     log_like: Callable,
@@ -140,8 +185,9 @@ def minibatch_grad(
         ``grad_fn(positions [C, D], key) -> [C, D]`` stochastic gradients,
         ``key`` a :class:`~mini_mcmc_torch.runner.StepKey` or a
         ``torch.Generator`` on the positions' device, and
-        ``grad_fn.on_indices(positions, idx)`` the gradient on given batch
-        indices (``[B]`` shared, ``[C, B]`` per chain).
+        ``grad_fn.on_indices(positions, idx, state=None)`` the gradient
+        on given batch indices (``[B]`` shared, ``[C, B]`` per chain;
+        ``state``: the ``StateGroup`` of a rank's D-slice).
     """
     device = resolve_device(device)
     data = _tree_map(lambda a: torch.as_tensor(a).to(device), data)
@@ -167,16 +213,13 @@ def minibatch_grad(
     logp_shared = torch.func.vmap(logp_hat, in_dims=(0, None))
     logp_per_chain = torch.func.vmap(logp_hat)  # batch leaves [C, B, ...]
 
-    def on_indices(positions, idx):
+    def on_indices(positions, idx, state=None):
         batch = _tree_map(lambda a: a[idx], data)
         logp = logp_shared if idx.dim() == 1 else logp_per_chain
         # the chains are independent: the gradient of the summed [C]
         # values is each chain's own (fewer host calls a step than a
         # vmap of torch.func.grad)
-        x = positions.detach().requires_grad_(True)
-        with torch.enable_grad():
-            (g,) = torch.autograd.grad(logp(x, batch).sum(), x)
-        return g
+        return _grad_of_sum(lambda x: logp(x, batch), positions, state)
 
     def grad_fn(positions, key):
         def draw(shape):
@@ -188,9 +231,10 @@ def minibatch_grad(
         else:  # a chain shard's rows of the global draw
             idx = chain_draw(key_chains(key), draw,
                              (positions.shape[0], batch_size))
-        return on_indices(positions, idx)
+        return on_indices(positions, idx, _key_state(key))
 
     grad_fn.on_indices = on_indices
+    grad_fn.takes_state_split = True
     return grad_fn
 
 
@@ -299,6 +343,11 @@ def data_parallel_grad(log_prior: Callable, log_like: Callable, data,
     prior_batched = torch.func.vmap(log_prior)
 
     def grad_fn(positions, key):
+        if split(_key_state(key)):
+            raise ValueError(
+                "data_parallel_grad takes the chains' whole state: it does "
+                "not run on a state split over a 'state' axis "
+                "(shard_state_dim=True); use minibatch_grad there")
         idx = torch.randint(0, n_loc, (n_shards, b_loc),
                             generator=key_generator(key),
                             device=positions.device)[rank]
@@ -309,18 +358,23 @@ def data_parallel_grad(log_prior: Callable, log_like: Callable, data,
             (g_prior,) = torch.autograd.grad(prior_batched(x).sum(), x)
         return g_prior + all_reduce(g_like, group).to(positions.dtype)
 
+    #: the samplers refuse a state split at the assignment
+    grad_fn.data_parallel = True
     return grad_fn
 
 
 def target_grad(target) -> Callable:
     """Full-batch ``grad_fn`` from a :class:`~mini_mcmc_torch.models.Target`
-    (ignores the key): SGLD/SGHMC then run as exact unadjusted Langevin /
+    (the key places a D-slice, nothing more): SGLD/SGHMC then run as exact unadjusted Langevin /
     underdamped Langevin on any target."""
 
     def grad_fn(positions, key):
-        del key
+        st = _key_state(key)
+        if split(st):
+            return SliceTarget(target, st).batch_grad(positions)
         return target.batch_logp_and_grad(positions)[1]
 
+    grad_fn.takes_state_split = True
     return grad_fn
 
 
@@ -395,7 +449,7 @@ def _check_common(temperature: float, steps_per_call: int) -> None:
 
 
 def _noise(x: torch.Tensor, key) -> torch.Tensor:
-    return chain_draw(key_chains(key), lambda s: torch.randn(
+    return state_draw(key_chains(key), _key_state(key), lambda s: torch.randn(
         s, generator=key_generator(key), dtype=x.dtype, device=x.device),
         x.shape)
 
@@ -440,7 +494,7 @@ def sgld_kernel(
     _check_common(temperature, steps_per_call)
     eps_of = _resolve_step_size(step_size)
 
-    def init_fn(positions: torch.Tensor) -> SGLDState:
+    def init_fn(positions: torch.Tensor, state=None) -> SGLDState:
         # the unused EWMA is a 0-d zero, so every state round-trips through
         # a checkpoint (no zero-size tensor)
         sq_avg = (torch.zeros_like(positions) if preconditioner == "rmsprop"
@@ -479,7 +533,7 @@ def sghmc_kernel(
     _check_common(temperature, steps_per_call)
     eps_of = _resolve_step_size(step_size)
 
-    def init_fn(positions: torch.Tensor) -> SGHMCState:
+    def init_fn(positions: torch.Tensor, state=None) -> SGHMCState:
         return SGHMCState(positions=positions,
                           momenta=torch.zeros_like(positions), step=0)
 

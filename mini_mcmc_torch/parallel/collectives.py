@@ -24,10 +24,10 @@ run's.
 
 A state split over a ``"state"`` axis (``mesh.chain_state_mesh``) keeps a
 D-slice of every chain on each rank of that axis (:class:`StateGroup`).
-The lockstep HMC step sums a chain's energies over its D-slice and then
-over the axis (:func:`state_sum`, one all-reduce), and draws the global
-``[C, D]`` shape, narrowed to its chains and coordinates
-(:func:`state_draw`).
+The lockstep steps sum a chain's energies over its D-slice and then over
+the axis (:func:`state_sum`, one all-reduce), and draw the global
+``[C, D]`` shape, narrowed to their chains and coordinates
+(:func:`state_draw`, :func:`state_call`).
 """
 
 from __future__ import annotations
@@ -213,3 +213,21 @@ def chain_call(chains: ChainGroup | None, fn: Callable, x: torch.Tensor,
     full = x.new_zeros(shape)
     full.narrow(axis, chains.chain0, local).copy_(x)
     return fn(full).narrow(axis, chains.chain0, local)
+
+
+def state_call(chains: ChainGroup | None, state: StateGroup | None,
+               fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a function that draws in the ``[C, D]`` shape of
+    ``x`` (a random walk's ``sample``): :func:`chain_call` unless the state
+    is split, else ``fn`` on a global ``[C, D]`` tensor with this rank's
+    block in place (zeros elsewhere), narrowed back to the block, so that
+    it draws what the unsharded run draws. A draw at one coordinate must
+    not depend on the row's other coordinates."""
+    if not split(state):
+        return chain_call(chains, fn, x)
+    c, d = x.shape
+    n = c if chains is None else chains.n_chains
+    c0 = 0 if chains is None else chains.chain0
+    full = x.new_zeros((n, state.n_dim))
+    full[c0:c0 + c, state.d0:state.d0 + d] = x
+    return fn(full)[c0:c0 + c, state.d0:state.d0 + d]

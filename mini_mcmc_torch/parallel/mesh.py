@@ -23,11 +23,14 @@ several ranks starts its group first (``multihost.initialize``).
 :func:`chain_state_mesh` adds a ``"state"`` axis, and
 ``shard_sampler_state(..., shard_state_dim=True)`` splits the state
 dimension over it: each rank keeps a D-slice of its chains. Where the JAX
-package lets GSPMD partition the density, the lockstep HMC and MALA steps
-run the target on a ``DTensor`` view of the slice and sum their energies
-over the axis (``ops/hmc.py``), and the separable tier runs Kernel 7 at
-the slice's first coordinate (``ops/kernels/hmc_sep.py``). Every other
-sampler and fused tier refuses such a state (``samplers.py``).
+package lets GSPMD partition the density, the lockstep HMC, MALA, NUTS and
+MH steps run the target on a ``DTensor`` view of the slice
+(:class:`SliceTarget`, MH's proposal density :class:`SliceProposal`) and
+sum their energies over the axis (``ops/hmc.py``, ``ops/nuts.py``,
+``ops/mh.py``), SGLD and SGHMC take the gradient on that view
+(``ops/sgmcmc.py``), and the separable tier runs Kernel 7 at the slice's
+first coordinate (``ops/kernels/hmc_sep.py``). Every other sampler and
+fused tier refuses such a state (``samplers.py``).
 """
 
 from __future__ import annotations
@@ -429,31 +432,79 @@ def local_state(state):
     return local, StateLayout(mesh, axes, chains, state_axes, state)
 
 
+def _implicit_replication():
+    try:
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+    except ImportError:  # PyTorch before 2.4
+        from torch.distributed._tensor.experimental import (
+            implicit_replication)
+    return implicit_replication()
+
+
+def slice_view(x: torch.Tensor, state: StateGroup):
+    """The rank's D-slice ``x`` (D on its last axis) as a DTensor of the
+    global shape, ``Shard`` on the ``"state"`` axis's mesh; nothing is
+    communicated."""
+    dtensor, shard, _ = _dtensor()
+    return dtensor.from_local(x, state.mesh, (shard(x.dim() - 1),),
+                              run_check=False)
+
+
+def on_slice(state: StateGroup, fn, *xs):
+    """``fn`` on the DTensor views (:func:`slice_view`) of the rank's
+    D-slices ``xs``, under DTensor's implicit replication: a plain tensor
+    ``fn`` holds (a ``[D]`` table, a dataset) counts as replicated and is
+    narrowed to the slice on the rank, with no collective."""
+    with _implicit_replication():
+        return fn(*[slice_view(x, state) for x in xs])
+
+
+def whole(v, state: StateGroup) -> torch.Tensor:
+    """A DTensor result on the state mesh (a sum over D) whole on every
+    rank: the all-reduce of a partial sum, nothing for a replicated one
+    or for a plain tensor (a result that read no D-slice, such as the
+    integer walk's constant log q)."""
+    dtensor, _, replicate = _dtensor()
+    if not isinstance(v, dtensor):
+        return v
+    return v.redistribute(state.mesh, (replicate(),)).to_local()
+
+
+def share(v, state: StateGroup) -> torch.Tensor:
+    """This rank's share of a result ``v`` on the state mesh, the shares
+    summing to ``v`` over the axis (``collectives.state_sum``): a partial
+    sum's local part, else the whole value on the axis's rank 0 and zeros
+    elsewhere (an exact sum). Nothing is communicated unless ``v`` is a
+    partial reduction other than a sum."""
+    dtensor, _, _ = _dtensor()
+    if not isinstance(v, dtensor):
+        return v if state.rank == 0 else torch.zeros_like(v)
+    p = v.placements[0]
+    if p.is_partial() and getattr(p, "reduce_op", "sum") == "sum":
+        return v.to_local()
+    v = whole(v, state)
+    return v if state.rank == 0 else torch.zeros_like(v)
+
+
 class SliceTarget:
     """``target`` as a rank of a state split sees it: each call takes the
     rank's ``[C, D / size]`` D-slice, runs the target on a DTensor view of
     it (``Shard(1)`` on the ``"state"`` axis's mesh, as GSPMD partitions
     the JAX package's density) and returns the rank's share: the
     gradient's D-slice, the log density whole (redistributed to
-    ``Replicate()``: the all-reduce of a sum over D). An elementwise
-    density's gradient needs no collective. The target runs under
-    DTensor's implicit replication: a plain tensor it holds (a ``[D]``
-    per-coordinate scale) counts as replicated and is narrowed to the
-    slice on the rank, with no collective. A density built from ops that
-    DTensor has no rule for raises there."""
+    ``Replicate()``: the all-reduce of a sum over D), or, from the
+    ``*_share`` calls, the rank's share of it (:func:`share`), for the
+    caller to sum over the axis beside its own sums in one all-reduce. An
+    elementwise density's gradient needs no collective. The target runs
+    under DTensor's implicit replication (:func:`on_slice`): a plain
+    tensor it holds (a ``[D]`` per-coordinate scale) counts as replicated
+    and is narrowed to the slice on the rank, with no collective. A
+    density built from ops that DTensor has no rule for raises there."""
 
     def __init__(self, target, state):
         self.target = target
         self.state = state
-
-    def _view(self, x: torch.Tensor):
-        dtensor, shard, _ = _dtensor()
-        return dtensor.from_local(x, self.state.mesh, (shard(1),),
-                                  run_check=False)
-
-    def _whole(self, v) -> torch.Tensor:
-        _, _, replicate = _dtensor()
-        return v.redistribute(self.state.mesh, (replicate(),)).to_local()
 
     def _slice(self, g) -> torch.Tensor:
         _, shard, _ = _dtensor()
@@ -461,21 +512,43 @@ class SliceTarget:
 
     def _call(self, name: str, x: torch.Tensor):
         """The target's method ``name`` on the DTensor view of ``x``."""
-        try:
-            from torch.distributed.tensor.experimental import (
-                implicit_replication)
-        except ImportError:  # PyTorch before 2.4
-            from torch.distributed._tensor.experimental import (
-                implicit_replication)
-        with implicit_replication():
-            return getattr(self.target, name)(self._view(x))
+        return on_slice(self.state, getattr(self.target, name), x)
 
     def batch_logp(self, x: torch.Tensor) -> torch.Tensor:
-        return self._whole(self._call("batch_logp", x))
+        return whole(self._call("batch_logp", x), self.state)
 
     def batch_grad(self, x: torch.Tensor) -> torch.Tensor:
         return self._slice(self._call("batch_grad", x))
 
     def batch_logp_and_grad(self, x: torch.Tensor):
         logp, grad = self._call("batch_logp_and_grad", x)
-        return self._whole(logp), self._slice(grad)
+        return whole(logp, self.state), self._slice(grad)
+
+    def batch_logp_and_grad_share(self, x: torch.Tensor):
+        """``(this rank's share of logp [C], the gradient's D-slice)``."""
+        logp, grad = self._call("batch_logp_and_grad", x)
+        return share(logp, self.state), self._slice(grad)
+
+
+class SliceProposal:
+    """A random walk's :class:`~mini_mcmc_torch.models.Proposal` as a rank
+    of a state split sees it: ``sample`` draws the global ``[C, D]`` shape
+    around this rank's block (``collectives.state_call``), so the block is
+    the unsharded run's; ``logp`` runs on DTensor views of the D-slices
+    (their last axis) and returns the sum over D whole (one all-reduce a
+    call: stack both q terms of a step into one call)."""
+
+    def __init__(self, proposal, chains, state):
+        self.proposal = proposal
+        self.chains = chains
+        self.state = state
+
+    def sample(self, gen, x: torch.Tensor) -> torch.Tensor:
+        from .collectives import state_call
+
+        return state_call(self.chains, self.state,
+                          lambda full: self.proposal.sample(gen, full), x)
+
+    def logp(self, frm: torch.Tensor, to: torch.Tensor) -> torch.Tensor:
+        return whole(on_slice(self.state, self.proposal.logp, frm, to),
+                     self.state)

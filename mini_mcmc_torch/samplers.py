@@ -30,10 +30,17 @@ rank 0's generator (one broadcast an axis of the mesh).
 
 State splitting: ``shard_sampler_state(chain_state_mesh(a, b), state,
 shard_state_dim=True)`` also splits D over the mesh's ``"state"`` axis
-(``StepKey.state``). HMC and MALA take such a state on the lockstep tier
-(``use_pallas=False``) and on the separable tier, without a metric or a
-transform; every other sampler and tier raises ``ValueError`` at the
-assignment (the fused tiers keep a chain's whole row in one thread).
+(``StepKey.state``). HMC, MALA and NUTS take such a state on the lockstep
+tier (``use_pallas=False``, a diagonal metric allowed), HMC also on the
+separable tier without a metric, MetropolisHastings on its plain tier
+with a proposal that sets ``Proposal.takes_state_split`` (the built-in
+random walks), and SGLD, pSGLD and SGHMC on a ``grad_fn`` that sets
+``takes_state_split`` (``minibatch_grad``, ``target_grad``), each without
+a transform; every other sampler, tier, proposal and gradient raises
+``ValueError`` at the assignment (the fused tiers keep a chain's whole row
+in one thread). ``tuned``, ``reconditioned("diag")`` and
+``warmed_up`` of a split sampler build the new sampler on the split state,
+each rank from its own D-slice.
 """
 
 from __future__ import annotations
@@ -138,17 +145,19 @@ def _transform_of(transform, positions):
     return None if transform.is_identity else transform
 
 
-def _wrap_sampler_target(target, positions, transform, metric):
+def _wrap_sampler_target(target, positions, transform, metric, layout=None):
     """The samplers' coordinate wrap (``mini_mcmc_tpu/samplers.py:
     85-112``): the transform first (natural -> unconstrained,
     ``models/transforms.py``), then the metric's whitening of the
     unconstrained coordinates (``models/precondition.py``). Returns
-    ``(kernel_target, positions_map, kernel_positions, metric)``: the
-    target the kernels run, the map from its coordinates back to the
-    user's natural ones (``None`` without either wrap), the initial
-    positions in its coordinates, and the metric on the positions'
-    device."""
-    kernel_target, positions_map = target, None
+    ``(kernel_target, kernel_positions, metric)``: the target the kernels
+    run, the initial positions in its coordinates, and the metric on the
+    positions' device (the map back is :meth:`_KernelSampler.
+    _set_row_map`'s). Under a rebuild on a split state (``layout``, the
+    rank's) the positions are the rank's D-slice: the metric's D is the
+    global one and the rows whiten through its slice
+    (:meth:`~mini_mcmc_torch.models.Preconditioner.at_slice`)."""
+    kernel_target = target
     transform = _transform_of(transform, positions)
     if transform is not None:
         if not positions.dtype.is_floating_point:
@@ -159,25 +168,22 @@ def _wrap_sampler_target(target, positions, transform, metric):
                 f"coordinates and needs a floating-point state; got "
                 f"{positions.dtype} (a discrete target takes no transform)")
         kernel_target = transform.wrap(target)
-        positions_map = transform.to_x
         positions = transform.to_y(positions)
         _check_transformed_inits(transform, positions)
     if metric is None:
-        return kernel_target, positions_map, positions, None
+        return kernel_target, positions, None
     if not isinstance(metric, Preconditioner):
         raise ValueError("metric must be a Preconditioner (models."
                          f"precondition); got {type(metric).__name__}")
-    if metric.dim != positions.shape[-1]:
+    st = None if layout is None else layout.state
+    dim = positions.shape[-1] if st is None else st.n_dim
+    if metric.dim != dim:
         raise ValueError(f"a D={metric.dim} metric for positions of D="
-                         f"{positions.shape[-1]}")
+                         f"{dim}")
     metric = metric.to(positions.device)
-    if positions_map is None:
-        positions_map = metric.to_x
-    else:
-        def positions_map(p, _m=metric.to_x, _t=positions_map):
-            return _t(_m(p))
-    return (precondition_target(kernel_target, metric), positions_map,
-            metric.to_y(positions), metric)
+    rows = metric if st is None else metric.at_slice(st)
+    return (precondition_target(kernel_target, metric), rows.to_y(positions),
+            metric)
 
 
 def _unconstrained_positions(sampler) -> torch.Tensor:
@@ -185,11 +191,24 @@ def _unconstrained_positions(sampler) -> torch.Tensor:
     ``estimate_preconditioner`` must see (``mini_mcmc_tpu/samplers.py:
     115-123``): the kernels run, and a metric whitens, the transform's
     y-space, so estimating from the natural ``positions`` would whiten the
-    wrong space."""
+    wrong space. Under a state split, every chain's D-slice of this
+    rank."""
     pos = gather_chains(sampler._state.positions, sampler._chains)
     if sampler.metric is not None:
-        pos = sampler.metric.to_x(pos)
+        st = sampler._state_group
+        pos = (sampler.metric if st is None
+               else sampler.metric.at_slice(st)).to_x(pos)
     return pos
+
+
+def _estimate_metric(sampler, kind: str) -> Preconditioner:
+    """The metric ``reconditioned(kind)`` estimates from ``sampler``'s
+    ensemble: over every chain shard's chains (one all-gather of the
+    rank's rows over the chain axis, so the estimate is the unsharded
+    one), each rank of a state split its D-slice
+    (:func:`~mini_mcmc_torch.models.estimate_preconditioner`)."""
+    return estimate_preconditioner(_unconstrained_positions(sampler), kind,
+                                   state=sampler._state_group)
 
 
 class _KernelSampler:
@@ -200,19 +219,22 @@ class _KernelSampler:
     """
 
     def __init__(self, init_fn, step_fn, initial_positions, seed=None,
-                 runner=None, positions_map=None, recorded=None):
+                 runner=None, recorded=None, layout=None):
         if initial_positions.dim() != 2:
             raise ValueError(
                 "initial_positions must be [n_chains, dim]; got shape "
                 f"{tuple(initial_positions.shape)}"
             )
-        self._layout = None
-        self.state = init_fn(initial_positions)
+        if layout is None:
+            self._layout = None
+            self.state = init_fn(initial_positions)
+        else:  # a rebuild's rank (_rebuild): its rows, D-slices evaluated
+            # on the split under a state split
+            self._state = init_fn(initial_positions, layout.state)
+            self._layout = layout
+            self._set_row_map()
         self._step_fn = step_fn
         self._gen = _generator(seed)
-        # positions_map: the state's (unconstrained, whitened) coordinates
-        # -> the user's, applied to every recorded row and to `positions`
-        self._positions_map = positions_map
         recorded = recorded or _default_positions_of
         self._recorded = recorded
         # one step a call: the runner of run_progress's sub-K tail, and
@@ -225,9 +247,10 @@ class _KernelSampler:
             self._runner = runner
         elif block_fn is not None:
             # K fused sampler steps per call; run() lengths are multiples of K
-            self._runner = make_block_runner(block_fn, step_fn.block_size,
-                                             recorded=recorded,
-                                             positions_map=positions_map)
+            self._runner = make_block_runner(
+                block_fn, step_fn.block_size, recorded=recorded,
+                positions_map=None if self._positions_map is None
+                else lambda rows: self._positions_map(rows))
             self._progress_block_size = step_fn.block_size
         else:
             self._runner = self._simple_runner
@@ -254,16 +277,47 @@ class _KernelSampler:
             if layout.chains.size > 1 or split(layout.state):
                 self._share_generator(layout)
         self._state, self._layout = local, layout
+        self._set_row_map()
+
+    def _set_row_map(self) -> None:
+        """Set ``_positions_map``, the map from the state's (unconstrained,
+        whitened) rows to the user's coordinates applied to every recorded
+        row and to ``positions``: the metric's un-whitening (its D-slice's
+        under a state split), then the transform's; ``None`` without
+        either."""
+        metric = getattr(self, "metric", None)
+        st = self._state_group
+        rows = (None if metric is None
+                else (metric if st is None else metric.at_slice(st)).to_x)
+        natural = self.transform.to_x if self._transformed() else None
+        if rows is None or natural is None:
+            self._positions_map = rows or natural
+        else:
+            self._positions_map = lambda p: natural(rows(p))
+
+    @property
+    def _state_group(self):
+        """The rank's :class:`~mini_mcmc_torch.parallel.collectives.
+        StateGroup` under a state split, else ``None``."""
+        return None if self._layout is None else self._layout.state
 
     #: what takes a state split over a "state" axis, for the refusals
     _STATE_SPLIT_TAKERS = (
-        "HMC and MALA with use_pallas=False, and HMC(use_pallas="
-        "'separable'), each without a metric or a transform")
+        "lockstep HMC, MALA and NUTS (use_pallas=False; a diagonal metric "
+        "allowed), HMC(use_pallas='separable') without a metric, "
+        "MetropolisHastings(use_pallas=False) with a proposal that sets "
+        "takes_state_split (the built-in random walks), and SGLD, pSGLD "
+        "and SGHMC with a grad_fn that sets it (minibatch_grad, "
+        "target_grad), each without a transform")
 
     def _takes_state_split(self) -> bool:
         """Whether this sampler runs a state whose D is split over a
-        ``"state"`` axis (HMC and MALA override)."""
+        ``"state"`` axis (the samplers that do override)."""
         return False
+
+    def _transformed(self) -> bool:
+        transform = getattr(self, "transform", None)
+        return transform is not None and not transform.is_identity
 
     def _check_shard(self, local, layout) -> None:
         """Raise for a shard this sampler cannot run: a split D where it
@@ -278,17 +332,15 @@ class _KernelSampler:
 
     def _tier_name(self) -> str:
         tier = getattr(self, "_ctor", {}).get("use_pallas", False)
-        return (f"{type(self).__name__}(use_pallas={tier!r})" if tier
+        name = (f"{type(self).__name__}(use_pallas={tier!r})" if tier
                 else type(self).__name__)
+        metric = getattr(self, "metric", None)
+        if self._transformed():
+            return f"{name} with a transform"
+        if metric is not None:
+            return f"{name} with a {metric.kind} metric"
+        return name
 
-    def _whole_state(self, what: str) -> None:
-        """Raise for ``what`` (a rebuild from the positions) under a
-        state split."""
-        if self._layout is not None and self._layout.state is not None:
-            raise ValueError(
-                f"{what} rebuilds the sampler from the whole state and "
-                "does not run on a state split over a 'state' axis "
-                "(shard_state_dim=True); adapt before splitting the state")
 
     def _share_generator(self, layout) -> None:
         """Every rank takes mesh rank 0's generator, so that a sharded
@@ -319,6 +371,19 @@ class _KernelSampler:
         """``new`` (built from this sampler's local rows) sharded as this
         sampler is."""
         new._layout = self._layout
+        return new
+
+    def _rebuild(self, build):
+        """The sampler ``build(layout)`` constructs from this sampler's
+        local rows and layout (a rebuild of ``tuned`` or
+        ``reconditioned``), sharded as this one is. Under a state split the
+        constructor evaluates the target on the split (its ``init_fn``
+        given the ``StateGroup``) and maps the rows through the metric's
+        slice; a new sampler that does not take the split raises, as an
+        assignment would."""
+        new = build(self._layout)
+        if self._layout is not None:
+            new._check_shard(new._state, self._layout)
         return new
 
     def seed(self, seed: int):
@@ -424,7 +489,12 @@ class MetropolisHastings(_KernelSampler):
     (``"cuda"`` by default; it raises without a GPU); pass ``device="cpu"``
     for the plain tier and the kernel's plain twin on the CPU.
 
-    :meth:`tuned` adapts the proposal scale by dual averaging.
+    :meth:`tuned` adapts the proposal scale by dual averaging. The plain
+    tier takes a state split over a ``"state"`` axis (``ops/mh.py``) with
+    a proposal that sets ``Proposal.takes_state_split`` (a random walk,
+    whose draw at a coordinate reads no other coordinate and whose
+    ``logp`` runs on DTensor views; the built-in walks set it); the
+    assignment refuses any other proposal.
     ``transform``: optional :class:`~mini_mcmc_torch.models.transforms.
     CoordinateTransform`; ``target`` is then a density in natural
     coordinates and the proposal walks the unconstrained ones, while
@@ -448,7 +518,7 @@ class MetropolisHastings(_KernelSampler):
     def __init__(self, target, proposal, initial_positions,
                  seed: Optional[int] = None, use_pallas=False,
                  steps_per_call: int = 1, transform=None,
-                 validate_dc: bool = True, *, device="cuda"):
+                 validate_dc: bool = True, *, device="cuda", _layout=None):
         self.target = target
         self.proposal = proposal
         #: proposal scale factor against the proposal first constructed
@@ -458,7 +528,7 @@ class MetropolisHastings(_KernelSampler):
                           steps_per_call=steps_per_call, transform=transform,
                           validate_dc=validate_dc, device=device)
         positions = initial_positions_on(initial_positions, device)
-        kernel_target, positions_map, positions, _ = _wrap_sampler_target(
+        kernel_target, positions, _ = _wrap_sampler_target(
             target, positions, transform, None)
         self.transform = transform
         self.kernel_target = kernel_target
@@ -475,10 +545,20 @@ class MetropolisHastings(_KernelSampler):
                                   proposal=proposal)
                 validate_proposal_dc(proposal, kernel_target, positions)
         super().__init__(init_fn, step_fn, positions, seed,
-                         positions_map=positions_map)
+                         layout=_layout)
 
     #: random-walk optimal acceptance rate (Roberts, Gelman & Gilks 1997)
     _default_target_accept = 0.234
+
+    def _takes_state_split(self) -> bool:
+        return (not self._ctor["use_pallas"] and not self._transformed()
+                and self.proposal.takes_state_split)
+
+    def _tier_name(self) -> str:
+        name = super()._tier_name()
+        if self.proposal.takes_state_split:
+            return name
+        return f"{name} with a proposal that does not set takes_state_split"
 
     def tuned(self, n_adapt: int = 500, *, target_accept=None,
               seed=None) -> "MetropolisHastings":
@@ -495,7 +575,9 @@ class MetropolisHastings(_KernelSampler):
         fused kernel gets it in ``cuda_params``; ``scale_factor`` is the
         cumulative factor against the first proposal. Without ``seed`` the
         new sampler's generator is seeded from this sampler's, so a seeded
-        workflow stays reproducible."""
+        workflow stays reproducible. On a split state the factor is the
+        same host float on every rank and the new sampler is split as
+        this one is."""
         if self.proposal.scaled is None:
             raise ValueError(
                 "tuned() needs a proposal with a `scaled` family "
@@ -510,9 +592,10 @@ class MetropolisHastings(_KernelSampler):
         state, factor, _ = dual_average_step_size(
             step_eps, self._state, self._next_key(), n_adapt, 1.0,
             target_accept)
-        new = self._shard_like(MetropolisHastings(
+        new = self._rebuild(lambda layout: MetropolisHastings(
             self.target, self.proposal.scaled(factor),
-            self._positions_of(state), seed=seed, **self._ctor))
+            self._positions_of(state), seed=seed, _layout=layout,
+            **self._ctor))
         # cumulative: self.proposal is already scaled by self.scale_factor
         new.scale_factor = self.scale_factor * factor
         if seed is None:
@@ -598,7 +681,7 @@ class HMC(_KernelSampler):
                  n_leapfrog: int, seed: Optional[int] = None,
                  use_pallas=False, jitter: float = 0.0,
                  steps_per_call: int = 1, metric=None, transform=None,
-                 validate_dc: bool = True, *, device="cuda"):
+                 validate_dc: bool = True, *, device="cuda", _layout=None):
         self.target = target
         self.step_size = step_size
         self.n_leapfrog = n_leapfrog
@@ -608,16 +691,21 @@ class HMC(_KernelSampler):
                           steps_per_call=steps_per_call, transform=transform,
                           validate_dc=validate_dc, device=device)
         positions = initial_positions_on(initial_positions, device)
-        kernel_target, positions_map, positions, self.metric = (
-            _wrap_sampler_target(target, positions, transform, metric))
+        kernel_target, positions, self.metric = (
+            _wrap_sampler_target(target, positions, transform, metric,
+                                 _layout))
         self.kernel_target = kernel_target
+        # a rebuild on a split state holds D-slices: its target was
+        # validated on the whole state when the first sampler was built
+        whole = _layout is None or _layout.state is None
         if use_pallas == "separable":
-            validate_separable(kernel_target, positions)
+            if whole:
+                validate_separable(kernel_target, positions)
             if positions.is_cuda:
                 # a target the kernel cannot run: raise now
                 sep_instance(kernel_target)
                 check_tier_dtype(hmc_sep.TIER, positions.dtype)
-                if validate_dc:
+                if validate_dc and whole:
                     validate_coord_dc(kernel_target, positions)
         elif use_pallas and positions.is_cuda:
             check_kernel_target(
@@ -627,20 +715,19 @@ class HMC(_KernelSampler):
                                       use_pallas=use_pallas, jitter=jitter,
                                       steps_per_call=steps_per_call)
         super().__init__(init_fn, step_fn, positions, seed,
-                         positions_map=positions_map)
+                         layout=_layout)
 
     #: the dual-averaging default: the optimal acceptance rate of
     #: fixed-L HMC (Beskos et al. 2013); MALA overrides it with 0.574
     _default_target_accept = 0.651
 
     def _takes_state_split(self) -> bool:
-        return (self._ctor["use_pallas"] in (False, "separable")
-                and self._positions_map is None)
-
-    def _tier_name(self) -> str:
-        name = super()._tier_name()
-        return (name if self._positions_map is None
-                else f"{name} with a metric or a transform")
+        tier = self._ctor["use_pallas"]
+        if self._transformed():
+            return False
+        if self.metric is None:
+            return tier in (False, "separable")
+        return tier is False and self.metric.kind == "diag"
 
     def _check_shard(self, local, layout) -> None:
         super()._check_shard(local, layout)
@@ -654,10 +741,12 @@ class HMC(_KernelSampler):
                 f"{4 * state.size}")
 
     @classmethod
-    def _construct(cls, target, positions, metric, seed, ctor):
-        """The rebuild of :meth:`tuned` and :meth:`reconditioned`: a
-        subclass with a narrower signature (MALA) filters ``ctor`` here."""
-        return cls(target, positions, metric=metric, seed=seed, **ctor)
+    def _construct(cls, target, positions, metric, seed, ctor, layout):
+        """The rebuild of :meth:`tuned` and :meth:`reconditioned` on the
+        rank's ``layout``: a subclass with a narrower signature (MALA)
+        filters ``ctor`` here."""
+        return cls(target, positions, metric=metric, seed=seed,
+                   _layout=layout, **ctor)
 
     def tuned(self, n_adapt: int = 500, *, target_accept=None,
               seed=None) -> "HMC":
@@ -671,16 +760,18 @@ class HMC(_KernelSampler):
         is in the kernel's (whitened) coordinates; the positions go back
         to the user's. Without ``seed`` the new sampler's generator is
         seeded from this sampler's, so a seeded workflow stays
-        reproducible."""
-        self._whole_state("tuned()")
+        reproducible. A split sampler tunes on its split state (the mean
+        acceptance is every chain's, the same on every rank) and returns
+        a split sampler."""
         if target_accept is None:
             target_accept = self._default_target_accept
         state, eps, _ = dual_average_step_size(
             self._step_fn.step_eps, self._state, self._next_key(), n_adapt,
             self._ctor["step_size"], target_accept)
         ctor = dict(self._ctor, step_size=eps)
-        new = self._shard_like(type(self)._construct(
-            self.target, self._positions_of(state), self.metric, seed, ctor))
+        new = self._rebuild(lambda layout: type(self)._construct(
+            self.target, self._positions_of(state), self.metric, seed, ctor,
+            layout))
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -709,9 +800,11 @@ class HMC(_KernelSampler):
         sigma_min(metric)``, after undoing this sampler's own metric
         (``eps_x = eps_y * sigma_min``); ``step_size``/``n_leapfrog``
         override. Without ``seed`` the new sampler's generator is seeded
-        from this sampler's, so a seeded workflow stays reproducible."""
-        self._whole_state("reconditioned()")
-        pre = estimate_preconditioner(_unconstrained_positions(self), kind)
+        from this sampler's, so a seeded workflow stays reproducible. On a
+        split state each rank estimates its D-slice of a diagonal metric
+        (``kind="dense"`` raises there) and the new sampler is split as
+        this one is."""
+        pre = _estimate_metric(self, kind)
         ctor = dict(self._ctor)
         eps_x = ctor["step_size"] * (
             self.metric.sigma_min() if self.metric is not None else 1.0)
@@ -719,8 +812,9 @@ class HMC(_KernelSampler):
             step_size if step_size is not None else eps_x / pre.sigma_min())
         if n_leapfrog is not None:
             ctor["n_leapfrog"] = n_leapfrog
-        new = self._shard_like(type(self)._construct(
-            self.target, self._positions_of(self._state), pre, seed, ctor))
+        new = self._rebuild(lambda layout: type(self)._construct(
+            self.target, self._positions_of(self._state), pre, seed, ctor,
+            layout))
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -752,18 +846,19 @@ class MALA(HMC):
     def __init__(self, target, initial_positions, step_size: float,
                  seed: Optional[int] = None, use_pallas=False,
                  steps_per_call: int = 1, metric=None, transform=None,
-                 validate_dc: bool = True, *, device="cuda"):
+                 validate_dc: bool = True, *, device="cuda", _layout=None):
         super().__init__(target, initial_positions, step_size, n_leapfrog=1,
                          seed=seed, use_pallas=use_pallas,
                          steps_per_call=steps_per_call, metric=metric,
                          transform=transform, validate_dc=validate_dc,
-                         device=device)
+                         device=device, _layout=_layout)
 
     @classmethod
-    def _construct(cls, target, positions, metric, seed, ctor):
+    def _construct(cls, target, positions, metric, seed, ctor, layout):
         ctor = {k: v for k, v in ctor.items()
                 if k not in ("n_leapfrog", "jitter")}
-        return cls(target, positions, metric=metric, seed=seed, **ctor)
+        return cls(target, positions, metric=metric, seed=seed,
+                   _layout=layout, **ctor)
 
     def reconditioned(self, kind: str = "diag", *, seed=None,
                       step_size=None, n_leapfrog=None) -> "MALA":
@@ -814,13 +909,12 @@ class ChEESHMC(_KernelSampler):
         self._ctor = dict(max_leapfrog=max_leapfrog, transform=transform,
                           device=device)
         positions = initial_positions_on(initial_positions, device)
-        kernel_target, positions_map, positions, self.metric = (
+        kernel_target, positions, self.metric = (
             _wrap_sampler_target(target, positions, transform, metric))
         self.kernel_target = kernel_target
         init_fn, step_fn = chees_hmc_kernel(kernel_target, step_size,
                                             self.traj_len, max_leapfrog)
-        super().__init__(init_fn, step_fn, positions, seed,
-                         positions_map=positions_map)
+        super().__init__(init_fn, step_fn, positions, seed)
 
     def warmed_up(self, n_adapt: int = 500, *, target_accept=None,
                   adam_lr: float = 0.025, seed=None) -> "ChEESHMC":
@@ -889,7 +983,7 @@ class EnsembleSampler(_KernelSampler):
         self.a = a
         self.transform = transform
         positions = initial_positions_on(initial_positions, device)
-        kernel_target, positions_map, positions, _ = _wrap_sampler_target(
+        kernel_target, positions, _ = _wrap_sampler_target(
             target, positions, transform, None)
         self.kernel_target = kernel_target
         if walkers_per_ensemble is None:
@@ -898,8 +992,7 @@ class EnsembleSampler(_KernelSampler):
         init_fn, step_fn = ensemble_kernel(
             kernel_target, walkers_per_ensemble=walkers_per_ensemble, a=a,
             steps_per_call=steps_per_call)
-        super().__init__(init_fn, step_fn, positions, seed,
-                         positions_map=positions_map)
+        super().__init__(init_fn, step_fn, positions, seed)
 
     def _check_shard(self, local, layout) -> None:
         super()._check_shard(local, layout)
@@ -957,7 +1050,7 @@ class SliceSampler(_KernelSampler):
         self.target = target
         self.transform = transform
         positions = initial_positions_on(initial_positions, device)
-        kernel_target, positions_map, positions, _ = _wrap_sampler_target(
+        kernel_target, positions, _ = _wrap_sampler_target(
             target, positions, transform, None)
         self.kernel_target = kernel_target
         if isinstance(width, str):
@@ -970,8 +1063,7 @@ class SliceSampler(_KernelSampler):
         init_fn, step_fn = slice_kernel(
             kernel_target, width=width, max_stepouts=max_stepouts,
             max_shrink=max_shrink, steps_per_call=steps_per_call)
-        super().__init__(init_fn, step_fn, positions, seed,
-                         positions_map=positions_map)
+        super().__init__(init_fn, step_fn, positions, seed)
 
 
 class GibbsSampler(_KernelSampler):
@@ -1059,7 +1151,7 @@ class ParallelTempering(_KernelSampler):
                           use_pallas=use_pallas, transform=transform,
                           validate_dc=validate_dc, device=device)
         positions = initial_positions_on(initial_positions, device)
-        kernel_target, positions_map, positions, _ = _wrap_sampler_target(
+        kernel_target, positions, _ = _wrap_sampler_target(
             target, positions, transform, None)
         self.kernel_target = kernel_target
         init_fn, step_fn = tempering_kernel(
@@ -1075,8 +1167,7 @@ class ParallelTempering(_KernelSampler):
             if validate_dc:
                 validate_dc_forms(kernel_target, positions, need_grad=False)
         # the cold rung, mapped to natural coordinates under a transform
-        super().__init__(init_fn, step_fn, positions, seed, recorded=_cold,
-                         positions_map=positions_map)
+        super().__init__(init_fn, step_fn, positions, seed, recorded=_cold)
 
     @property
     def dim(self) -> int:
@@ -1110,7 +1201,26 @@ class ParallelTempering(_KernelSampler):
         return new
 
 
-class SGLD(_KernelSampler):
+class _SGSampler(_KernelSampler):
+    """SGLD and SGHMC: a state split runs on a gradient that takes the
+    rank's D-slice, one that sets ``grad_fn.takes_state_split``
+    (:func:`~mini_mcmc_torch.minibatch_grad`, :func:`~mini_mcmc_torch.
+    target_grad`)."""
+
+    def _takes_state_split(self) -> bool:
+        return getattr(self.grad_fn, "takes_state_split", False)
+
+    def _tier_name(self) -> str:
+        name = type(self).__name__
+        if getattr(self.grad_fn, "data_parallel", False):
+            return f"{name} with data_parallel_grad"
+        if not self._takes_state_split():
+            return (f"{name} with a grad_fn that does not set "
+                    "takes_state_split")
+        return name
+
+
+class SGLD(_SGSampler):
     """Stochastic-gradient Langevin dynamics (Welling & Teh 2011), with
     optional RMSProp preconditioning (pSGLD, Li et al. 2016)
     (``mini_mcmc_tpu/samplers.py:995-1039``, ``ops/sgmcmc.py``).
@@ -1124,7 +1234,12 @@ class SGLD(_KernelSampler):
     :func:`~mini_mcmc_torch.polynomial_decay`. There is no accept/reject:
     the tracker's ``p(accept)`` reads 1.0. ``steps_per_call`` > 1 runs K
     steps a block (run lengths multiples of K). Runs on ``device``
-    (``"cuda"`` by default; it raises without a GPU).
+    (``"cuda"`` by default; it raises without a GPU). A state split over
+    a ``"state"`` axis runs on a ``grad_fn`` that sets
+    ``takes_state_split``: it receives the rank's D-slice and returns its
+    gradient (``minibatch_grad`` and ``target_grad`` set it and take the
+    gradient on a DTensor view of the slice); the assignment refuses any
+    other ``grad_fn``, ``data_parallel_grad``'s included.
 
     Example:
         >>> import torch
@@ -1156,7 +1271,7 @@ class SGLD(_KernelSampler):
                          seed)
 
 
-class SGHMC(_KernelSampler):
+class SGHMC(_SGSampler):
     """Stochastic-gradient Hamiltonian Monte Carlo (Chen, Fox & Guestrin
     2014), the friction-damped momentum variant of :class:`SGLD`
     (``mini_mcmc_tpu/samplers.py:1042-1074``, ``ops/sgmcmc.py``).

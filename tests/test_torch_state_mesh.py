@@ -258,22 +258,20 @@ def test_chain_sharding_on_a_state_mesh(mesh, eight, four):
         assert local == (16 // n_chain, 8)
 
 
-REFUSALS = list(cases._refusing_samplers()) + ["ais", "tuned",
-                                                "reconditioned"]
+REFUSALS = list(cases._refusing_samplers()) + ["ais"]
 
 
 @pytest.mark.parametrize("name", REFUSALS)
 def test_refusals(name, four):
     """Every sampler and tier that does not take a split D raises a named
-    ValueError at the assignment (no silent gather of D), make_anneal's
-    anneal on a split x0 at its call; tuned() and reconditioned() refuse
-    a split sampler."""
+    ValueError at the assignment (no silent gather of D), naming what
+    does; make_anneal's anneal on a split x0 at its call."""
     for res in _case(four, "refusals_2x2"):
         msg = res[name]
         assert msg is not None and not msg.startswith("construct"), msg
         assert "'state' axis" in msg
-        if name not in ("tuned", "reconditioned"):
-            assert "HMC and MALA with use_pallas=False" in msg
+        if name != "ais":
+            assert "lockstep HMC, MALA and NUTS (use_pallas=False" in msg
 
 
 def test_hmc_separable_plain_at_a_d_slice():

@@ -22,11 +22,7 @@ from typing import NamedTuple
 import torch
 
 import mini_mcmc_torch as mt
-from mini_mcmc_torch.models import (
-    gaussian2d,
-    isotropic_gaussian_proposal,
-    rosenbrock_nd,
-)
+from mini_mcmc_torch.models import rosenbrock_nd
 from mini_mcmc_torch.models.base import Target
 from mini_mcmc_torch.parallel import (
     chain_sharding,
@@ -318,19 +314,14 @@ def _error(fn):
 
 def _refusing_samplers():
     """Every sampler and tier that refuses a split D, at D = 4, 16 chains
-    (tempering and Gibbs at their own D)."""
-    sn, g2 = mt.standard_normal(), gaussian2d([0.0, 0.0],
-                                              [[1.0, 0.0], [0.0, 1.0]])
+    (tempering and Gibbs at their own D); the split samplers' own refusals
+    are ``torch_state_mesh_sampler_cases.py``'s."""
+    sn = mt.standard_normal()
     x = mt.init_det(16, 4, **CPU)
-    walk = isotropic_gaussian_proposal(1.0)
-    pre = mt.models.Preconditioner("diag", scale=torch.ones(4))
     return {
         "hmc_true": lambda: mt.HMC(sn, x, 0.1, 3, use_pallas=True, **CPU),
         "hmc_full": lambda: mt.HMC(sn, x, 0.1, 3, use_pallas="full", **CPU),
         "mala_full": lambda: mt.MALA(sn, x, 0.1, use_pallas="full", **CPU),
-        "hmc_metric": lambda: mt.HMC(sn, x, 0.1, 3, metric=pre, **CPU),
-        "nuts": lambda: mt.NUTS(sn, x, **CPU),
-        "mh": lambda: mt.MetropolisHastings(sn, walk, x, **CPU),
         "gibbs": lambda: mt.GibbsSampler(
             mt.gaussian_mixture_conditional(-2, 1, 3, 1.5, 0.5),
             torch.zeros(16, 2), **CPU),
@@ -340,17 +331,12 @@ def _refusing_samplers():
         "ensemble": lambda: mt.EnsembleSampler(sn, x, **CPU),
         "slice": lambda: mt.SliceSampler(sn, x, **CPU),
         "elliptical": lambda: mt.EllipticalSliceSampler(sn, x, **CPU),
-        "sgld": lambda: mt.SGLD(lambda p, k: -p, x, step_size=1e-3, **CPU),
-        "sghmc": lambda: mt.SGHMC(lambda p, k: -p, x, step_size=1e-3,
-                                  **CPU),
-        "mh_g2": lambda: mt.MetropolisHastings(
-            g2, walk, mt.init_det(16, 2, **CPU), **CPU),
     }
 
 
 def case_refusals(mesh):
-    """Each refusing sampler's error at the assignment, make_anneal's
-    anneal on a split x0, and tuned() on a split HMC."""
+    """Each refusing sampler's error at the assignment and make_anneal's
+    anneal on a split x0."""
     out = {}
     for name, make in _refusing_samplers().items():
         try:
@@ -364,9 +350,6 @@ def case_refusals(mesh):
     anneal = make_anneal(mt.standard_normal(), (0.5, 1.0))
     x0 = shard_sampler_state(mesh, torch.zeros(16, 4), shard_state_dim=True)
     out["ais"] = _error(lambda: anneal(x0, torch.Generator()))
-    split = _assign(_hmc(16, 8)(), mesh)
-    out["tuned"] = _error(lambda: split.tuned(4))
-    out["reconditioned"] = _error(lambda: split.reconditioned())
     return out
 
 
