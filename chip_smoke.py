@@ -382,7 +382,12 @@ Phases, one line each (every check raises on failure):
     lockstep MH ``run(16, 0)`` (an isotropic walk, 0.024), SGLD ``run(16,
     0)`` (a standard normal's gradient) and NUTS ``run(4, 4)`` (tree
     depth at most 6; only its chain axis's scalar loop exits
-    communicate), each path's seconds.
+    communicate), and the lockstep legs ChEES-HMC ``run(16, 0)`` (step
+    0.2, T = 1), elliptical slice ``run(16, 0)`` (a scalar prior) and
+    plain tempering ``run(16, 0)`` (4 rungs, 0.024) at 1,024 x 10,000,
+    the ensemble ``run(16, 0)`` at 1,024 x 512 (one ensemble) and the
+    slice sweep ``run(2, 0)`` at 256 x 64 (the slice and elliptical
+    loops' chain-axis scalars alone communicate), each path's seconds.
     ``[state_mesh_split]``: Kernel 7's trajectory form on one state whole
     and split into 2 and 4 D-slices (``d0`` = 0, 5,000 and 0, 2,500,
     5,000, 7,500), on the standard normal and the sigma table: the
@@ -413,7 +418,17 @@ Phases, one line each (every check raises on failure):
     kernel; MH two all-reduces a step (DTensor's: the logp and both q
     terms), SGLD none, NUTS between one and two of the port's state-axis
     sums a target evaluation besides the chain axis's scalars; each
-    path's seconds; within 240 s.
+    path's seconds. Then the lockstep legs of 42 the same way (a slice,
+    elliptical or tempering chain may also differ first by a jump: both
+    runs move), their global ``dim``, no kernel, and their collectives a
+    step: ChEES-HMC one of the port's all-reduces (its logp a share, its
+    gradient elementwise), the ensemble two and tempering one of
+    DTensor's, slice and elliptical one of DTensor's a density evaluation
+    besides the chain axis's scalars; and ChEES ``warmed_up(16)`` on
+    float64 states at 1,024 x 10,000 (``[state_mesh_ranks]
+    path=lockstep_chees_warmed``): step size and trajectory length within
+    1e-6 of unsharded and the same on both ranks, positions within 1e-6;
+    within 240 s.
 
 The second-to-last line is a JSON object with one record per kernel
 (time, plain time, least possible time ``bound_ms`` and what bounds it,
@@ -7067,6 +7082,74 @@ def counted_normal():
                   grad=grad)
 
 
+#: the lockstep samplers' legs, each (label, chains, dim, run):
+#: ChEES-HMC, elliptical slice (a scalar prior) and plain tempering (4
+#: rungs) at the separable stage's 1,024 x 10,000, the ensemble at D = 512
+#: (one ensemble of all 1,024 walkers, >= D + 2), the slice sweep at 256 x
+#: 64 (a sweep is D coordinate updates of a few evaluations each, every
+#: one a host test and, split, an all-reduce)
+STATE_LOCKSTEP_LEGS = (
+    ("chees", SEP_CHAINS, SEP_DIM, (16, 0)),
+    ("elliptical", SEP_CHAINS, SEP_DIM, (16, 0)),
+    ("tempering", SEP_CHAINS, SEP_DIM, (16, 0)),
+    ("ensemble", 1024, 512, (16, 0)),
+    ("slice", 256, 64, (2, 0)),
+)
+#: the legs whose runs move every chain at every step, so that a chain
+#: whose decision flipped shows no step where one run stayed: on float64
+#: states in ``[state_mesh_ranks]``, where a reordered sum over D flips no
+#: decision, every chain must equal unsharded bit for bit
+STATE_EXACT_LEGS = ("slice", "elliptical")
+#: ChEES-HMC's step size and trajectory length on these legs (at most 5
+#: leapfrogs a step), tempering's cold walk (2.4 / sqrt(D)) and ladder
+STATE_CHEES_EPS, STATE_CHEES_T = 0.2, 1.0
+STATE_PT_STD, STATE_PT_TEMPS = 0.024, 4
+#: the float64 ChEES warm-up of [state_mesh_ranks]
+STATE_CHEES_WARMUP = 16
+#: the logp calls of :func:`logp_counted_normal` targets: one a density
+#: evaluation, and so one all-reduce a call on a split
+LOGP_CALLS = [0]
+
+
+def logp_counted_normal():
+    """A standard normal whose logp counts its calls in ``LOGP_CALLS``,
+    its gradient elementwise."""
+    from mini_mcmc_torch.models.base import Target
+
+    def logp(x):
+        LOGP_CALLS[0] += 1
+        return -0.5 * torch.sum(x * x, dim=-1)
+
+    return Target(logp=logp, grad=lambda x: -x)
+
+
+def state_lockstep_makes(dev, dtype=torch.float32) -> tuple:
+    """``(label, make, run_args)`` of :data:`STATE_LOCKSTEP_LEGS` from
+    seed 12 on ``dev``."""
+    def init(c, d):
+        return mt.init_with_seed(c, d, seed=12, device=dev).to(dtype)
+
+    builders = {
+        "chees": lambda c, d: mt.ChEESHMC(
+            logp_counted_normal(), init(c, d), STATE_CHEES_EPS,
+            traj_len=STATE_CHEES_T, device=dev),
+        "elliptical": lambda c, d: mt.EllipticalSliceSampler(
+            logp_counted_normal(), init(c, d), device=dev),
+        "tempering": lambda c, d: mt.ParallelTempering(
+            logp_counted_normal(), init(c, d),
+            betas=mt.geometric_betas(STATE_PT_TEMPS, 0.1),
+            proposal_std=STATE_PT_STD, device=dev),
+        "ensemble": lambda c, d: mt.EnsembleSampler(
+            logp_counted_normal(), init(c, d), walkers_per_ensemble=c,
+            device=dev),
+        "slice": lambda c, d: mt.SliceSampler(logp_counted_normal(),
+                                              init(c, d), device=dev),
+    }
+    return tuple(
+        (label, lambda b=builders[label], c=c, d=d: b(c, d).seed(12), run)
+        for label, c, d, run in STATE_LOCKSTEP_LEGS)
+
+
 def state_mesh_pair(label: str, make, run_args, mesh,
                     scalar_only: bool = False) -> dict:
     """One sampler from one seed, unsharded and through
@@ -7146,6 +7229,14 @@ def phase_state_mesh(dev) -> dict:
                               scalar_only=label.startswith("nuts"))
         check(f"state mesh {label} launches no kernel",
               not any(got[k] for k in KERNELS), got)
+    # the masked loops of the slice and elliptical samplers exit on the
+    # chain axis's scalars
+    for label, sampler, run_args in state_lockstep_makes(dev):
+        got = state_mesh_pair(label, sampler, run_args, mesh,
+                              scalar_only=label in ("slice", "elliptical"))
+        check(f"state mesh {label} launches no kernel",
+              not any(got[k] for k in KERNELS), got)
+        torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(23)
     z = torch.randn((SEP_CHAINS, SEP_DIM), generator=gen, device=dev)
     sigma = torch.logspace(-1, 1, SEP_DIM, device=dev)
@@ -7258,6 +7349,7 @@ def state_rank_runs(rank: int, world: int, init_method: str, device: str,
                 collectives={k: v for k, v in coll.items() if v},
                 seconds=seconds)
         out.update(state_rank_sampler_runs(rank, dev, mesh, chains, dim))
+        out.update(state_rank_lockstep_runs(rank, dev, mesh))
         return out
     finally:
         dist.destroy_process_group()
@@ -7351,6 +7443,84 @@ def state_rank_sampler_runs(rank: int, dev, mesh, chains: int,
         del a, b, want, got
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return out
+
+
+def state_rank_lockstep_runs(rank: int, dev, mesh) -> dict:
+    """The lockstep samplers of :data:`STATE_LOCKSTEP_LEGS` on one rank of
+    ``[state_mesh_ranks]``, each against unsharded chain by chain: in
+    float32, and those of :data:`STATE_EXACT_LEGS` on float64 states (a
+    chain of tempering, whose swaps move both runs, may first differ by a
+    jump), with its kernel launches, the port's collectives and
+    DTensor's, its density evaluations and its seconds; then ChEES
+    ``warmed_up`` on float64 states at its leg's shape: the step size,
+    trajectory length and positions against unsharded."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from mini_mcmc_torch.parallel import collectives, shard_sampler_state
+
+    exact = {label: make for label, make, _ in
+             state_lockstep_makes(dev, torch.float64)
+             if label in STATE_EXACT_LEGS}
+    out = {}
+    for label, make, run_args in state_lockstep_makes(dev):
+        make = exact.get(label, make)
+        a = make()
+        x0 = a.positions.clone()
+        want = a.run(*run_args, time_major=True)
+        b = make()
+        b.state = shard_sampler_state(mesh, b.state, shard_state_dim=True)
+        reset_counts()
+        collectives.reset_counts()
+        LOGP_CALLS[0] = 0
+        t0 = time.perf_counter()
+        with CommDebugMode() as comm:
+            got = b.run(*run_args, time_major=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, coll = read_counts(), collectives.counts()
+        local = got.to_local()
+        w = local.shape[2]
+        block = want[:, :, rank * w:(rank + 1) * w]
+        share, decided = _chains_decided(
+            block, local, x0[None, :, rank * w:(rank + 1) * w],
+            merges=label == "tempering")
+        out[f"lockstep_{label}"] = dict(
+            share=share, decided=decided, dtype=str(local.dtype)[6:],
+            max_err=float((local - block).abs().max()),
+            moved=(local[1:] != local[:-1]).any(dim=2).tolist(),
+            local=tuple(local.shape), d0=rank * w, dim=b.dim,
+            launches={k: v for k, v in counts.items() if v},
+            collectives={k: v for k, v in coll.items() if v},
+            dtensor_all_reduces=sum(
+                n for op, n in comm.get_comm_counts().items()
+                if "all_reduce" in str(op)),
+            evaluations=LOGP_CALLS[0], steps=sum(run_args),
+            seconds=seconds)
+        del a, b, want, got
+        torch.cuda.empty_cache()
+    make = state_lockstep_makes(dev, torch.float64)[0][1]  # ChEES-HMC
+    a, b = make(), make()
+    b.state = shard_sampler_state(mesh, b.state, shard_state_dim=True)
+    t0 = time.perf_counter()
+    ta = a.warmed_up(STATE_CHEES_WARMUP)
+    torch.cuda.synchronize()
+    seconds_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tb = b.warmed_up(STATE_CHEES_WARMUP)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    local = tb.positions.to_local()
+    w = local.shape[1]
+    out["lockstep_chees_warmed"] = dict(
+        eps=(ta.step_size, tb.step_size),
+        traj_len=(ta.traj_len, tb.traj_len),
+        split=tb._layout is not None and tb._layout.state is not None,
+        max_err=float((local - ta.positions[:, rank * w:(rank + 1) * w])
+                      .abs().max()),
+        seconds=seconds, unsharded_s=seconds_a)
+    del a, b, ta, tb
+    torch.cuda.empty_cache()
     return out
 
 
@@ -7448,6 +7618,7 @@ def check_state_ranks(results: list, chains: int, dim: int) -> dict:
               not any(r["lockstep"]["launches"].get(k) for k in KERNELS),
               r["lockstep"]["launches"])
     check_state_rank_samplers(results, chains, dim)
+    check_state_rank_lockstep(results)
     return results[0]["separable"]["launches"]
 
 
@@ -7534,6 +7705,92 @@ def check_state_rank_samplers(results: list, chains: int, dim: int) -> None:
                   n <= sums <= 2 * n and all(
                       not r["dtensor_all_reduces"] for r in rs),
                   (n, coll, rs[0]["dtensor_all_reduces"]))
+
+
+def _lockstep_collectives(label: str, r: dict) -> bool:
+    """A lockstep leg's collectives a step: ChEES-HMC one of the port's
+    state-axis all-reduces (its logp a share, its gradient elementwise);
+    the ensemble two (a logp a half) and tempering one (an inner sweep)
+    of DTensor's; slice and elliptical one of DTensor's a density
+    evaluation and the chain axis's scalar loop exits; no other kind."""
+    coll, steps = r["collectives"], r["steps"]
+    if coll.get("all_gather") or coll.get("broadcast"):
+        return False
+    if label == "chees":
+        return coll == {"all_reduce": steps} and not r["dtensor_all_reduces"]
+    if label in ("ensemble", "tempering"):
+        per = 2 if label == "ensemble" else 1
+        return not coll and r["dtensor_all_reduces"] == per * steps
+    return (coll.get("all_reduce", 0) == coll.get("all_reduce_scalar", 0)
+            and r["dtensor_all_reduces"] == r["evaluations"])
+
+
+def check_state_rank_lockstep(results: list) -> None:
+    """The checks of the lockstep legs in ``[state_mesh_ranks]``: the
+    blocks and the global D; the chains equal unsharded on at least
+    ``STATE_RANK_SHARE`` of chains, each other first differing at a
+    flipped decision, and on every chain for :data:`STATE_EXACT_LEGS`;
+    every shard of a chain moving in the same steps; no kernel; the
+    collectives (:func:`_lockstep_collectives`); ChEES's
+    float64 warm-up within ``STATE_ADAPT_ATOL`` of unsharded, its step
+    size and trajectory length within 1e-6 and the same on both ranks."""
+    for label, c, d, run_args in STATE_LOCKSTEP_LEGS:
+        rs = [r[f"lockstep_{label}"] for r in results]
+        w = d // STATE_RANKS
+        share = min(r["share"] for r in rs)
+        one_decision = all(r["moved"] == rs[0]["moved"] for r in rs)
+        coll_ok = all(_lockstep_collectives(label, r) for r in rs)
+        least = 1.0 if label in STATE_EXACT_LEGS else STATE_RANK_SHARE
+        say("state_mesh_ranks", path=f"lockstep_{label}", ranks=STATE_RANKS,
+            chains=c, D=d, dtype=rs[0]["dtype"], local=rs[0]["local"],
+            d0=",".join(str(r["d0"]) for r in rs),
+            chains_equal_share=repr(share),
+            max_abs_err=repr(max(r["max_err"] for r in rs)),
+            one_decision_per_chain=one_decision,
+            differing_chains_decided=all(r["decided"] for r in rs),
+            launches=repr(rs[0]["launches"]).replace(" ", ""),
+            collectives=repr(rs[0]["collectives"]).replace(" ", ""),
+            dtensor_all_reduces=rs[0]["dtensor_all_reduces"],
+            evaluations=rs[0]["evaluations"], steps=rs[0]["steps"],
+            seconds=repr(max(r["seconds"] for r in rs)))
+        check(f"state ranks {label} blocks", all(
+            r["local"] == (sum(run_args), c, w) and r["d0"] == i * w
+            and r["dim"] == d for i, r in enumerate(rs)),
+            [(r["local"], r["dim"]) for r in rs])
+        check(f"state ranks {label} chains equal unsharded",
+              share >= least, (share, rs[0]["dtype"]))
+        check(f"state ranks {label} differing chains differ at a flipped "
+              "decision", all(r["decided"] for r in rs), label)
+        check(f"state ranks {label} one decision per chain", one_decision,
+              label)
+        check(f"state ranks {label} launches no kernel", all(
+            not any(r["launches"].get(k) for k in KERNELS) for r in rs),
+            [r["launches"] for r in rs])
+        check(f"state ranks {label} collectives", coll_ok,
+              [(r["collectives"], r["dtensor_all_reduces"],
+                r["evaluations"]) for r in rs])
+    rs = [r["lockstep_chees_warmed"] for r in results]
+    rel = max(abs(r[k][1] - r[k][0]) / abs(r[k][0])
+              for r in rs for k in ("eps", "traj_len"))
+    same = all(r["eps"][1] == rs[0]["eps"][1]
+               and r["traj_len"][1] == rs[0]["traj_len"][1] for r in rs)
+    _, c, d, _ = STATE_LOCKSTEP_LEGS[0]
+    say("state_mesh_ranks", path="lockstep_chees_warmed", ranks=STATE_RANKS,
+        chains=c, D=d, dtype="float64",
+        n_adapt=STATE_CHEES_WARMUP, eps=repr(rs[0]["eps"][1]),
+        traj_len=repr(rs[0]["traj_len"][1]), rel_err=repr(rel),
+        same_on_every_rank=same,
+        max_abs_err=repr(max(r["max_err"] for r in rs)),
+        seconds=repr(max(r["seconds"] for r in rs)),
+        unsharded_s=repr(max(r["unsharded_s"] for r in rs)))
+    check("state ranks chees warmed_up split", all(r["split"] for r in rs),
+          rs)
+    check("state ranks chees warmed_up eps and traj_len within 1e-6",
+          rel <= 1e-6, rel)
+    check("state ranks chees warmed_up the same on every rank", same, rs)
+    check(f"state ranks chees warmed_up within {STATE_ADAPT_ATOL}",
+          all(r["max_err"] <= STATE_ADAPT_ATOL for r in rs),
+          [r["max_err"] for r in rs])
 
 
 def phase_state_mesh_ranks(tmp: str) -> dict:

@@ -21,6 +21,18 @@ The momentum and accept draws come from ``key.generator`` on the
 positions' device; :func:`jittered_step` takes them as inputs, so a test
 can hand it the JAX package's own draws. No kernel: the JAX package runs
 this in XLA, and so the port runs it in PyTorch.
+
+Under a state split (``key.state``: D split over a ``"state"`` axis) a
+step draws the global ``[C, D]`` momenta's block, runs the target on a
+DTensor view of its D-slice (``parallel.mesh.SliceTarget``), the
+gradient alone at every leapfrog but the last, which also takes the
+rank's share of the logp, and sums that share with the two kinetic
+energies in one ``[3, C]`` all-reduce: one a step on a target whose
+gradient is elementwise. The warm-up sums the ChEES statistic's three
+sums over D in one more ``[3, C]`` all-reduce; its cross-chain centring
+is per coordinate and stays on the rank's columns. Every shard of a chain
+then takes the same accept decision, and every rank reads the same
+``(alpha, g)`` and adapts alike.
 """
 
 from __future__ import annotations
@@ -29,7 +41,14 @@ import math
 
 import torch
 
-from ..parallel.collectives import chain_draw, gather_chains
+from ..parallel.collectives import (
+    chain_draw,
+    gather_chains,
+    split,
+    state_draw,
+    state_sum,
+)
+from ..parallel.mesh import SliceTarget
 from ..runner import StepKey
 from .hmc import HMCState
 from .kernels import rng
@@ -72,31 +91,49 @@ def n_leapfrog(u, traj_len, eps, max_leapfrog: int) -> int:
 
 
 def _dynamic_leapfrog(target, pos, mom, logp, grad, eps: float,
-                      n_steps: int):
+                      n_steps: int, state_group=None):
     """``n_steps`` leapfrog steps with the cached half-step gradient
     (``chees.py:65-87``): one gradient evaluation per step; ``n_steps`` a
-    host integer shared by every chain."""
+    host integer shared by every chain; the gradient alone at every step
+    but the last, which also takes the logp (on a rank's D-slice,
+    ``state_group`` split, the rank's share of it)."""
     half_eps = eps * 0.5
-    for _ in range(n_steps):
+    if split(state_group):
+        tgt = SliceTarget(target, state_group)
+        last = tgt.batch_logp_and_grad_share
+    else:
+        tgt, last = target, target.batch_logp_and_grad
+    for i in range(n_steps):
         mom = mom + grad * half_eps
         pos = pos + eps * mom
-        logp, grad = target.batch_logp_and_grad(pos)
+        if i < n_steps - 1:
+            grad = tgt.batch_grad(pos)
+        else:
+            logp, grad = last(pos)
         mom = mom + grad * half_eps
     return pos, mom, logp, grad
 
 
 def jittered_step(target, state: HMCState, eps: float, n_steps: int,
-                  mom0: torch.Tensor, u_acc: torch.Tensor):
+                  mom0: torch.Tensor, u_acc: torch.Tensor, state_group=None):
     """One jittered-trajectory HMC step on given draws (``chees.py:
     90-121``): momentum ``mom0 [C, D]``, accept uniforms ``u_acc [C]``,
     ``n_steps`` leapfrogs at step size ``eps`` (a float32 value). Returns
     ``(state, pos_prop, mom_prop, alpha_c)``: the new state, the proposal's
     endpoint and final velocity, and each chain's acceptance probability
-    (NaN counted as 0), what the ChEES gradient needs."""
-    h_current = -state.logp + 0.5 * torch.sum(mom0 * mom0, dim=1)
+    (NaN counted as 0), what the ChEES gradient needs. On a rank's D-slice
+    (``state_group`` split) the proposal's logp share and both kinetic
+    energies cross the state axis in one ``[3, C]`` all-reduce."""
+    ke0 = torch.sum(mom0 * mom0, dim=1)
     pos_prop, mom_prop, logp_prop, grad_prop = _dynamic_leapfrog(
-        target, state.positions, mom0, state.logp, state.grad, eps, n_steps)
-    h_proposed = -logp_prop + 0.5 * torch.sum(mom_prop * mom_prop, dim=1)
+        target, state.positions, mom0, state.logp, state.grad, eps, n_steps,
+        state_group)
+    ke1 = torch.sum(mom_prop * mom_prop, dim=1)
+    if split(state_group):
+        logp_prop, ke0, ke1 = state_sum(torch.stack([logp_prop, ke0, ke1]),
+                                        state_group)
+    h_current = -state.logp + 0.5 * ke0
+    h_proposed = -logp_prop + 0.5 * ke1
     accept_logp = h_current - h_proposed
     alpha_c = torch.nan_to_num(torch.exp(torch.clamp(accept_logp, max=0.0)),
                                nan=0.0)
@@ -109,29 +146,37 @@ def jittered_step(target, state: HMCState, eps: float, n_steps: int,
     return new_state, pos_prop, mom_prop, alpha_c
 
 
-def step_draws(positions: torch.Tensor, gen: torch.Generator, chains=None):
+def step_draws(positions: torch.Tensor, gen: torch.Generator, chains=None,
+               state_group=None):
     """A step's momentum ``[C, D]`` and accept uniforms ``[C]`` from
     ``gen`` on the positions' device (a shard's rows of the global draws
-    under ``chains``)."""
+    under ``chains``, the momenta's D-slice under ``state_group``)."""
     like = dict(dtype=positions.dtype, device=positions.device)
-    mom0 = chain_draw(chains, lambda s: torch.randn(s, generator=gen,
-                                                    **like), positions.shape)
+    mom0 = state_draw(chains, state_group, lambda s: torch.randn(
+        s, generator=gen, **like), positions.shape)
     u_acc = chain_draw(chains, lambda s: torch.rand(s, generator=gen, **like),
                        (positions.shape[0],))
     return mom0, u_acc
 
 
 def chees_grad_logT(positions, pos_prop, mom_prop, alpha_c,
-                    t: float) -> torch.Tensor:
+                    t: float, state_group=None) -> torch.Tensor:
     """The acceptance-weighted estimate of d ChEES / d log T
     (``chees.py:124-151``), a 0-d tensor on the positions' device: per
     chain ``(||xc'||^2 - ||xc||^2) (xc' . v')`` with the endpoints centred
     across chains, weighted by ``alpha_c``, non-finite terms dropped (0 if
-    every chain diverged), times ``dt / dlog T = t``."""
+    every chain diverged), times ``dt / dlog T = t``. On a rank's D-slice
+    (``state_group`` split) the centring stays on its columns and the
+    three sums over D cross the state axis in one ``[3, C]`` all-reduce."""
     xc = positions - positions.mean(dim=0, keepdim=True)
     xpc = pos_prop - pos_prop.mean(dim=0, keepdim=True)
-    d = torch.sum(xpc * xpc, dim=1) - torch.sum(xc * xc, dim=1)
-    g_i = d * torch.sum(xpc * mom_prop, dim=1)
+    sq_prop, sq, dot = (torch.sum(xpc * xpc, dim=1), torch.sum(xc * xc, dim=1),
+                        torch.sum(xpc * mom_prop, dim=1))
+    if split(state_group):
+        sq_prop, sq, dot = state_sum(torch.stack([sq_prop, sq, dot]),
+                                     state_group)
+    d = sq_prop - sq
+    g_i = d * dot
     ok = torch.isfinite(g_i)
     w = torch.where(ok, alpha_c, 0.0)
     wsum = torch.sum(w)
@@ -195,16 +240,18 @@ def chees_adapt(target, state: HMCState, key: StepKey, n_adapt: int,
         traj_len = torch.exp(log_T)
         u = halton_u(m)
         t = u * traj_len
-        mom0, u_acc = step_draws(state.positions, key.generator, key.chains)
+        mom0, u_acc = step_draws(state.positions, key.generator, key.chains,
+                                 key.state)
         new_state, pos_prop, mom_prop, alpha_c = jittered_step(
             target, state, float(eps),
-            n_leapfrog(u, traj_len, eps, max_leapfrog), mom0, u_acc)
+            n_leapfrog(u, traj_len, eps, max_leapfrog), mom0, u_acc,
+            key.state)
         # the cross-chain centring and means over every shard's chains
         # (one all-gather a step under a chain mesh)
         pos_all, prop_all, mom_all, alpha_all = _all_chains(
             key.chains, state.positions, pos_prop, mom_prop, alpha_c)
         g_dev = chees_grad_logT(pos_all, prop_all, mom_all, alpha_all,
-                                float(t))
+                                float(t), key.state)
         # the leg's one device read a step
         alpha, g = torch.stack([alpha_all.mean(), g_dev]).to(
             torch.float32).cpu()
@@ -250,7 +297,9 @@ def chees_hmc_kernel(target, step_size: float, traj_len: float,
     clip(ceil(u traj_len / step_size), 1, max_leapfrog)`` leapfrogs, the
     mean ``~traj_len / (2 step_size)``. ``L`` is known on the host, so a
     step launches its kernels without waiting for the device. State and
-    contract are ``ops/hmc.py``'s (``HMCState``, one gradient a leapfrog).
+    contract are ``ops/hmc.py``'s (``HMCState``, one gradient a leapfrog);
+    ``init_fn(positions, state=None)`` takes the ``StateGroup`` of a
+    rank's D-slice.
     """
     if step_size <= 0.0:
         raise ValueError(f"step_size must be > 0, got {step_size}")
@@ -258,16 +307,18 @@ def chees_hmc_kernel(target, step_size: float, traj_len: float,
         raise ValueError(f"traj_len must be > 0, got {traj_len}")
     eps = float(_f32(step_size))
 
-    def init_fn(positions: torch.Tensor) -> HMCState:
-        logp, grad = target.batch_logp_and_grad(positions)
+    def init_fn(positions: torch.Tensor, state=None) -> HMCState:
+        tgt = SliceTarget(target, state) if split(state) else target
+        logp, grad = tgt.batch_logp_and_grad(positions)
         return HMCState(positions, logp, grad)
 
     def step_fn(state: HMCState, key: StepKey) -> HMCState:
         u = production_u(key.seed, key.step)
-        mom0, u_acc = step_draws(state.positions, key.generator, key.chains)
+        mom0, u_acc = step_draws(state.positions, key.generator, key.chains,
+                                 key.state)
         state, _, _, _ = jittered_step(
             target, state, eps, n_leapfrog(u, traj_len, eps, max_leapfrog),
-            mom0, u_acc)
+            mom0, u_acc, key.state)
         return state
 
     return init_fn, step_fn

@@ -14,6 +14,15 @@ the JAX package runs this in XLA. :func:`ensemble_sweep` takes the sweep's
 draws as inputs (partner indices, the z and accept uniforms of each
 half), so a test can hand it the JAX package's own; the sampler draws
 them from ``key.generator`` on the positions' device.
+
+Under a state split (``key.state``: D split over a ``"state"`` axis) each
+rank moves its D-slice of every walker: the partner gather and the
+stretch are elementwise on its columns, the draws are per walker and the
+same on every state rank, the stretch's ``(D - 1) ln z`` takes the global
+D, and the log density runs on a DTensor view of the slice
+(``parallel.mesh.SliceTarget``), its sum over D whole on every rank: one
+all-reduce a half, two a sweep. Every shard of a walker then takes the
+same accept decision.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..parallel.collectives import chain_draw
+from ..parallel.collectives import chain_draw, split
+from ..parallel.mesh import SliceTarget
 from ..runner import StepKey, make_scan_block_fn
 
 
@@ -55,36 +65,39 @@ def half_draws(gen: torch.Generator, e: int, h: int,
 
 
 def _half_update(target, active, active_lp, other, draws: HalfDraws,
-                 a: float):
+                 a: float, n_dim: int | None = None):
     """Move ``active`` ``[E, h, D]`` against partners from ``other``
-    (``ensemble.py:110-127``); returns the kept positions and logp."""
+    (``ensemble.py:110-127``); returns the kept positions and logp.
+    ``n_dim``: the state's D when ``active`` holds a D-slice of it."""
     e, h, d = active.shape
     idx = draws.partner[:, :, None].expand(e, h, d)
     partners = torch.gather(other, 1, idx)
     z = ((a - 1.0) * draws.u_z + 1.0) ** 2 / a
     proposed = partners + z[:, :, None] * (active - partners)
     prop_lp = target.batch_logp(proposed.reshape(e * h, d)).reshape(e, h)
-    log_accept = (d - 1.0) * torch.log(z) + prop_lp - active_lp
+    n = d if n_dim is None else n_dim
+    log_accept = (n - 1.0) * torch.log(z) + prop_lp - active_lp
     accept = log_accept > torch.log(draws.u_accept)  # strict
     return (torch.where(accept[:, :, None], proposed, active),
             torch.where(accept, prop_lp, active_lp))
 
 
 def ensemble_sweep(target, state: EnsembleState, walkers_per_ensemble: int,
-                   a: float, first: HalfDraws,
-                   second: HalfDraws) -> EnsembleState:
+                   a: float, first: HalfDraws, second: HalfDraws,
+                   n_dim: int | None = None) -> EnsembleState:
     """One full sweep on given draws (``ensemble.py:129-145``): the first
     half of every ensemble against the second, then the second against
-    the updated first."""
+    the updated first. ``n_dim``: the state's D when the positions hold a
+    D-slice of it (``target`` then a ``SliceTarget``)."""
     c, d = state.positions.shape
     w = walkers_per_ensemble
     e, half = c // w, w // 2
     pos = state.positions.reshape(e, w, d)
     lp = state.logp.reshape(e, w)
     pos1, lp1 = _half_update(target, pos[:, :half], lp[:, :half],
-                             pos[:, half:], first, a)
+                             pos[:, half:], first, a, n_dim)
     pos2, lp2 = _half_update(target, pos[:, half:], lp[:, half:], pos1,
-                             second, a)
+                             second, a, n_dim)
     return EnsembleState(torch.cat([pos1, pos2], dim=1).reshape(c, d),
                          torch.cat([lp1, lp2], dim=1).reshape(c))
 
@@ -93,9 +106,10 @@ def ensemble_kernel(target, *, walkers_per_ensemble: int, a: float = 2.0,
                     steps_per_call: int = 1):
     """Build ``(init_fn, step_fn)`` for the batched stretch move.
 
-    ``init_fn(positions [C, D]) -> EnsembleState``: ``C`` a multiple of
-    ``walkers_per_ensemble``, which must be even, >= 4 and >= D + 2 (fewer
-    walkers confine the move to a proper affine subspace); use >= 2 D.
+    ``init_fn(positions [C, D], state=None) -> EnsembleState``: ``C`` a
+    multiple of ``walkers_per_ensemble``, which must be even, >= 4 and >=
+    D + 2 (fewer walkers confine the move to a proper affine subspace);
+    use >= 2 D. ``state``: the ``StateGroup`` of a rank's D-slice.
     ``step_fn(state, key) -> EnsembleState`` is one sweep; partners never
     cross an ensemble's boundary. ``a`` > 1 is the stretch scale;
     ``steps_per_call`` > 1 attaches the K-sweep ``block_fn``.
@@ -110,8 +124,11 @@ def ensemble_kernel(target, *, walkers_per_ensemble: int, a: float = 2.0,
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     half = w // 2
 
-    def init_fn(positions: torch.Tensor) -> EnsembleState:
+    def init_fn(positions: torch.Tensor, state=None) -> EnsembleState:
         c, d = positions.shape
+        tgt = target
+        if split(state):
+            tgt, d = SliceTarget(target, state), state.n_dim
         if c % w != 0:
             raise ValueError(f"n_chains={c} must be a multiple of "
                              f"walkers_per_ensemble={w}")
@@ -123,7 +140,7 @@ def ensemble_kernel(target, *, walkers_per_ensemble: int, a: float = 2.0,
                 f"{d}-D target: the stretch move is confined to the "
                 f"ensemble's affine hull (dim <= {w - 1}); need at least "
                 f"D+2 = {d + 2} walkers per ensemble, ideally >= 2*D")
-        return EnsembleState(positions, target.batch_logp(positions))
+        return EnsembleState(positions, tgt.batch_logp(positions))
 
     def step_fn(state: EnsembleState, key: StepKey) -> EnsembleState:
         e = state.positions.shape[0] // w
@@ -133,6 +150,10 @@ def ensemble_kernel(target, *, walkers_per_ensemble: int, a: float = 2.0,
             chain0=key.chains.chain0 // w, n_chains=key.chains.n_chains // w))
         first = half_draws(gen, e, half, like, ens)
         second = half_draws(gen, e, half, like, ens)
+        st = key.state
+        if split(st):
+            return ensemble_sweep(SliceTarget(target, st), state, w, a, first,
+                                  second, st.n_dim)
         return ensemble_sweep(target, state, w, a, first, second)
 
     if steps_per_call > 1:

@@ -27,6 +27,19 @@ Under a chain mesh (``key.chains``) a shard draws the global shapes and
 keeps its chains' draws, and a loop's test asks whether a chain of any
 shard is pending (one scalar all-reduce a test), so every rank runs the
 same iterations (``mini_mcmc_tpu``'s global ``any``).
+
+Under a state split (``key.state``: D split over a ``"state"`` axis) the
+sweep still walks the global coordinates ``0 .. D-1``, each with its
+global width. The rank that holds coordinate ``i`` moves it; the others
+keep their slice and evaluate the density with it unchanged. Every logp
+runs on a DTensor view of the slice (``parallel.mesh.SliceTarget``),
+summed over the axis: one all-reduce an evaluation. Every decision of an
+update (an edge in the slice, a candidate accepted) reads only those
+sums, the draws and the budgets, so every rank runs the same loop
+iterations, and a rank that does not hold ``i`` never needs its value. A
+sweep costs ``D x (1 + stepping-out iterations + shrink iterations)``
+all-reduces of the state axis, plus one scalar all-reduce of the chain
+axis a loop test; keep D small on a split.
 """
 
 from __future__ import annotations
@@ -35,7 +48,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..parallel.collectives import any_chains, chain_draw
+from ..parallel.collectives import any_chains, chain_draw, split
+from ..parallel.mesh import SliceTarget
 from ..runner import StepKey, make_scan_block_fn
 
 
@@ -101,13 +115,17 @@ def coordinate_draws(gen: torch.Generator, n_chains: int, max_stepouts: int,
 
 def slice_update(target, positions, logp, i: int, w: float,
                  draws: CoordinateDraws, max_stepouts: int,
-                 test_every: int = TEST_EVERY, chains=None):
+                 test_every: int = TEST_EVERY, chains=None, d0: int = 0):
     """One slice update of coordinate ``i`` for every chain on given draws
     (``slice.py:105-190``), bracket width ``w`` (a float32 value). Returns
-    the new ``(positions, logp)``, the same for any ``test_every``."""
+    the new ``(positions, logp)``, the same for any ``test_every``.
+    ``d0``: the global index of the first column when ``positions`` holds
+    a D-slice (``target`` then a ``SliceTarget``); a slice without
+    coordinate ``i`` comes back unchanged, its bracket carried from 0."""
     c, d = positions.shape
-    x = positions[:, i]
-    column = torch.arange(d, device=positions.device) == i
+    column = torch.arange(d0, d0 + d, device=positions.device) == i
+    x = (positions[:, i - d0] if d0 <= i < d0 + d
+         else positions.new_zeros((c,)))
 
     def f(values):
         """logp with coordinate i set to ``values`` ``[..., C]``: one
@@ -173,7 +191,8 @@ def slice_kernel(target, *, width=1.0, max_stepouts: int = 8,
     iterations. ``max_stepouts``: at most ``max_stepouts - 1`` expansions
     in all, split at random between the edges. ``max_shrink``: the cap on
     shrinkage iterations. ``steps_per_call`` > 1 attaches the K-sweep
-    ``block_fn``.
+    ``block_fn``. ``init_fn(positions, state=None)`` takes the
+    ``StateGroup`` of a rank's D-slice; ``width`` is the global D's.
     """
     if max_stepouts < 1:
         raise ValueError(f"max_stepouts must be >= 1, got {max_stepouts}")
@@ -190,20 +209,24 @@ def slice_kernel(target, *, width=1.0, max_stepouts: int = 8,
         raise ValueError("width must be positive")
     width = width.cpu()
 
-    def init_fn(positions: torch.Tensor) -> SliceState:
-        return SliceState(positions, target.batch_logp(positions))
+    def init_fn(positions: torch.Tensor, state=None) -> SliceState:
+        tgt = SliceTarget(target, state) if split(state) else target
+        return SliceState(positions, tgt.batch_logp(positions))
 
     def step_fn(state: SliceState, key: StepKey) -> SliceState:
         positions, logp = state
         c, d = positions.shape
+        st, tgt, d0 = key.state, target, 0
+        if split(st):  # the global coordinates, this rank's columns
+            tgt, d, d0 = SliceTarget(target, st), st.n_dim, st.d0
         # float32 values on the host: the bracket's scalars
         widths = width.to(positions.dtype).expand(d).tolist()
         for i in range(d):
             draws = coordinate_draws(key.generator, c, max_stepouts,
                                      max_shrink, positions, key.chains)
-            positions, logp = slice_update(target, positions, logp, i,
+            positions, logp = slice_update(tgt, positions, logp, i,
                                            widths[i], draws, max_stepouts,
-                                           chains=key.chains)
+                                           chains=key.chains, d0=d0)
         return SliceState(positions, logp)
 
     if steps_per_call > 1:

@@ -18,6 +18,17 @@ feed it the JAX path's own. Accepts and swaps are true selects, so a
 ``-inf`` log density (bounded support) stays ``-inf`` and never turns into
 NaN. The TPU rule that the chain count be a multiple of 1024 does not
 apply.
+
+Under a state split (``key.state``: D split over a ``"state"`` axis, the
+state's axis 1) each rank walks its D-slice of every replica: its block
+of the global ``[T, D, C]`` noise, the ladder's scales at its
+coordinates, and the rung log densities on a DTensor view of the slice
+(``parallel.mesh.SliceTarget``), summed over D whole on every rank: one
+``[T C]`` all-reduce an inner sweep. The swaps read only ``raw_logp``,
+whole everywhere, so they need none, and every shard of a chain accepts
+and swaps alike. (The JAX package's rule splits a leaf's last axis, here
+the chains, and so leaves PT's D whole on every state rank.) Kernel 8
+keeps a replica's whole row and refuses a split.
 """
 
 from __future__ import annotations
@@ -27,7 +38,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..parallel.collectives import chain_draw
+from ..parallel.collectives import chain_draw, split, state_draw
+from ..parallel.mesh import SliceTarget
 from ..runner import StepKey, chain0
 from .kernels.pt_full import make_ladder, pt_multistep
 
@@ -149,8 +161,9 @@ def tempering_kernel(target, betas: Sequence[float], *, proposal_std=1.0,
                      use_pallas=False):
     """Build ``(init_fn, step_fn)`` for replica-exchange random-walk MH.
 
-    ``init_fn(positions [C, D]) -> PTState`` copies the cold positions to
-    every rung; ``step_fn(state, key: StepKey) -> PTState`` is one step.
+    ``init_fn(positions [C, D], state=None) -> PTState`` copies the cold
+    positions to every rung (``state``: the ``StateGroup`` of a rank's
+    D-slice); ``step_fn(state, key: StepKey) -> PTState`` is one step.
     ``step_fn.block_fn(state, key, out=None) -> state`` runs K =
     ``steps_per_call`` steps (``step_fn.block_size``), writing the cold
     rung of each into ``out[i]`` of a ``[K, C, D]`` view: with
@@ -178,17 +191,25 @@ def tempering_kernel(target, betas: Sequence[float], *, proposal_std=1.0,
             "tempering has no trajectory to fuse separately: the only fused "
             f'variant is use_pallas="full"; got {use_pallas!r}')
     t_count, k = len(betas), steps_per_call
-    ladders = {}  # the Ladder per (device, D)
+    ladders = {}  # the Ladder per (device, D, first column)
 
-    def _ladder(positions):  # [T, D, C]
-        key = (positions.device, positions.shape[1])
+    def _ladder(positions, st=None):  # [T, D, C]
+        """The ladder; under a split ``st`` built at the global D, its
+        ``sigma_l`` narrowed to the rank's columns."""
+        d0 = st.d0 if split(st) else None
+        key = (positions.device, positions.shape[1], d0)
         if key not in ladders:
-            ladders[key] = make_ladder(betas, proposal_std,
-                                       positions.shape[1], positions.device)
+            d = positions.shape[1]
+            lad = make_ladder(betas, proposal_std,
+                              d if d0 is None else st.n_dim, positions.device)
+            if d0 is not None and lad.sigma_l.shape[1] > 1:
+                lad = lad._replace(sigma_l=lad.sigma_l.narrow(1, d0, d))
+            ladders[key] = lad
         return ladders[key]
 
-    def init_fn(positions: torch.Tensor) -> PTState:
-        lp = target.batch_logp(positions)
+    def init_fn(positions: torch.Tensor, state=None) -> PTState:
+        tgt = SliceTarget(target, state) if split(state) else target
+        lp = tgt.batch_logp(positions)
         return PTState(
             positions.T.unsqueeze(0).repeat(t_count, 1, 1).contiguous(),
             lp.unsqueeze(0).repeat(t_count, 1).contiguous(), 0,
@@ -196,7 +217,8 @@ def tempering_kernel(target, betas: Sequence[float], *, proposal_std=1.0,
                         dtype=torch.float32, device=positions.device))
 
     def plain_step(state: PTState, key: StepKey) -> PTState:
-        lad = _ladder(state.positions)
+        st = key.state
+        lad = _ladder(state.positions, st)
         gen, pos = key.generator, state.positions
         f = dict(generator=gen, dtype=state.raw_logp.dtype, device=pos.device)
 
@@ -206,13 +228,13 @@ def tempering_kernel(target, betas: Sequence[float], *, proposal_std=1.0,
 
         noises, us = [], []
         for _ in range(n_inner):
-            noises.append(chain_draw(key.chains, lambda s: torch.randn(
+            noises.append(state_draw(key.chains, st, lambda s: torch.randn(
                 s, generator=gen, dtype=pos.dtype, device=pos.device),
-                pos.shape, 2))
+                pos.shape, 2, 1))
             us.append(rand(state.raw_logp.shape))
         u_swap = rand(state.swap_accept.shape)
-        return pt_step(target, state, lad.beta, lad.sigma_l, noises, us,
-                       u_swap)
+        return pt_step(SliceTarget(target, st) if split(st) else target,
+                       state, lad.beta, lad.sigma_l, noises, us, u_swap)
 
     def fused(state: PTState, key: StepKey, k_steps: int, out=None):
         pos, lp, sa = pt_multistep(

@@ -26,8 +26,8 @@ A state split over a ``"state"`` axis (``mesh.chain_state_mesh``) keeps a
 D-slice of every chain on each rank of that axis (:class:`StateGroup`).
 The lockstep steps sum a chain's energies over its D-slice and then over
 the axis (:func:`state_sum`, one all-reduce), and draw the global
-``[C, D]`` shape, narrowed to their chains and coordinates
-(:func:`state_draw`, :func:`state_call`).
+``[C, D]`` shape (tempering's ``[T, D, C]``), narrowed to their chains
+and coordinates (:func:`state_draw`, :func:`state_call`).
 """
 
 from __future__ import annotations
@@ -166,18 +166,24 @@ def chain_draw(chains: ChainGroup | None, draw: Callable, shape,
 
 
 def state_draw(chains: ChainGroup | None, state: StateGroup | None,
-               draw: Callable, shape) -> torch.Tensor:
-    """``draw(shape)`` for this rank's ``[C_local, D_local]`` block:
+               draw: Callable, shape, chain_axis: int = 0,
+               state_axis: int = 1) -> torch.Tensor:
+    """``draw(shape)`` for this rank's block, ``shape`` holding the rank's
+    chains on ``chain_axis`` and its D-slice on ``state_axis`` (``[C, D]``
+    by default; tempering's ``[T, D, C]`` passes 2 and 1):
     :func:`chain_draw` unless the state is split, else the draw of the
-    global ``[C, D]`` shape narrowed to the rank's chains and D-slice, so
-    that every rank's generator advances alike and a block equals the
-    unsharded run's. It costs one global ``[C, D]`` draw a rank."""
+    global shape narrowed to the rank's chains and D-slice, so that every
+    rank's generator advances alike and a block equals the unsharded
+    run's. It costs one global draw a rank."""
     if not split(state):
-        return chain_draw(chains, draw, shape)
-    c, d = shape
-    n = c if chains is None else chains.n_chains
+        return chain_draw(chains, draw, shape, chain_axis)
+    full = list(shape)
+    c, d = full[chain_axis], full[state_axis]
+    full[chain_axis] = c if chains is None else chains.n_chains
+    full[state_axis] = state.n_dim
     c0 = 0 if chains is None else chains.chain0
-    return draw((n, state.n_dim)).narrow(0, c0, c).narrow(1, state.d0, d)
+    return (draw(tuple(full)).narrow(chain_axis, c0, c)
+            .narrow(state_axis, state.d0, d))
 
 
 def state_sum(x: torch.Tensor, state: StateGroup | None) -> torch.Tensor:

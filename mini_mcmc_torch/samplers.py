@@ -32,15 +32,18 @@ State splitting: ``shard_sampler_state(chain_state_mesh(a, b), state,
 shard_state_dim=True)`` also splits D over the mesh's ``"state"`` axis
 (``StepKey.state``). HMC, MALA and NUTS take such a state on the lockstep
 tier (``use_pallas=False``, a diagonal metric allowed), HMC also on the
-separable tier without a metric, MetropolisHastings on its plain tier
-with a proposal that sets ``Proposal.takes_state_split`` (the built-in
-random walks), and SGLD, pSGLD and SGHMC on a ``grad_fn`` that sets
-``takes_state_split`` (``minibatch_grad``, ``target_grad``), each without
-a transform; every other sampler, tier, proposal and gradient raises
-``ValueError`` at the assignment (the fused tiers keep a chain's whole row
-in one thread). ``tuned``, ``reconditioned("diag")`` and
-``warmed_up`` of a split sampler build the new sampler on the split state,
-each rank from its own D-slice.
+separable tier without a metric, ChEES-HMC (a diagonal metric allowed),
+the ensemble, slice and elliptical slice samplers, ParallelTempering on
+its plain tier, MetropolisHastings on its plain tier with a proposal that
+sets ``Proposal.takes_state_split`` (the built-in random walks), and
+SGLD, pSGLD and SGHMC on a ``grad_fn`` that sets ``takes_state_split``
+(``minibatch_grad``, ``target_grad``), each without a transform; every
+other sampler, tier, proposal and gradient raises ``ValueError`` at the
+assignment (Gibbs sweeps its coordinates in order, and the fused tiers
+keep a chain's whole row in one thread). ``tuned``,
+``reconditioned("diag")``, ``warmed_up`` and ``retuned`` of a split
+sampler build the new sampler on the split state, each rank from its own
+D-slice.
 """
 
 from __future__ import annotations
@@ -304,7 +307,9 @@ class _KernelSampler:
     #: what takes a state split over a "state" axis, for the refusals
     _STATE_SPLIT_TAKERS = (
         "lockstep HMC, MALA and NUTS (use_pallas=False; a diagonal metric "
-        "allowed), HMC(use_pallas='separable') without a metric, "
+        "allowed), HMC(use_pallas='separable') without a metric, ChEESHMC "
+        "(a diagonal metric allowed), EnsembleSampler, SliceSampler, "
+        "EllipticalSliceSampler, ParallelTempering(use_pallas=False), "
         "MetropolisHastings(use_pallas=False) with a proposal that sets "
         "takes_state_split (the built-in random walks), and SGLD, pSGLD "
         "and SGHMC with a grad_fn that sets it (minibatch_grad, "
@@ -366,12 +371,6 @@ class _KernelSampler:
         the caller sees it: itself unsharded, else a DTensor."""
         return x if self._layout is None else self._layout.wrap_chains(x,
                                                                        axis)
-
-    def _shard_like(self, new):
-        """``new`` (built from this sampler's local rows) sharded as this
-        sampler is."""
-        new._layout = self._layout
-        return new
 
     def _rebuild(self, build):
         """The sampler ``build(layout)`` constructs from this sampler's
@@ -882,7 +881,10 @@ class ChEESHMC(_KernelSampler):
     host integer, so ``run()`` reads nothing from the device. ``metric``
     and ``transform`` as :class:`HMC`'s (the kernel's coordinates are
     unconstrained, then whitened); runs on ``device`` (``"cuda"`` by
-    default; ``device="cpu"`` on the CPU).
+    default; ``device="cpu"`` on the CPU). A state split over a
+    ``"state"`` axis runs without a transform, a diagonal metric allowed
+    (``ops/chees.py``); :meth:`warmed_up` and ``reconditioned("diag")``
+    of a split sampler return a split one.
 
     Example:
         >>> import mini_mcmc_torch as mt
@@ -898,7 +900,7 @@ class ChEESHMC(_KernelSampler):
     def __init__(self, target, initial_positions, step_size: float,
                  traj_len: Optional[float] = None, max_leapfrog: int = 1024,
                  seed: Optional[int] = None, metric=None, transform=None, *,
-                 device="cuda"):
+                 device="cuda", _layout=None):
         self.target = target
         self.step_size = step_size
         #: the integration time T: a step integrates for u T, u ~ U(0, 1),
@@ -910,11 +912,16 @@ class ChEESHMC(_KernelSampler):
                           device=device)
         positions = initial_positions_on(initial_positions, device)
         kernel_target, positions, self.metric = (
-            _wrap_sampler_target(target, positions, transform, metric))
+            _wrap_sampler_target(target, positions, transform, metric,
+                                 _layout))
         self.kernel_target = kernel_target
         init_fn, step_fn = chees_hmc_kernel(kernel_target, step_size,
                                             self.traj_len, max_leapfrog)
-        super().__init__(init_fn, step_fn, positions, seed)
+        super().__init__(init_fn, step_fn, positions, seed, layout=_layout)
+
+    def _takes_state_split(self) -> bool:
+        return not self._transformed() and (self.metric is None
+                                            or self.metric.kind == "diag")
 
     def warmed_up(self, n_adapt: int = 500, *, target_accept=None,
                   adam_lr: float = 0.025, seed=None) -> "ChEESHMC":
@@ -924,16 +931,18 @@ class ChEESHMC(_KernelSampler):
         jitter, one device read a step). The returned sampler's
         ``warmup_trace`` holds the per-step ``alpha``, ``traj_len`` and
         ``eps``. Without ``seed`` its generator descends from this
-        sampler's, so a seeded workflow stays reproducible."""
+        sampler's, so a seeded workflow stays reproducible. A split
+        sampler adapts on its split state (every rank reads the same
+        summed statistics and tunes alike) and returns a split sampler."""
         if target_accept is None:
             target_accept = self._default_target_accept
         state, eps, traj_len, trace = chees_adapt(
             self.kernel_target, self._state, self._next_key(), n_adapt,
             self.step_size, self.traj_len, target_accept=target_accept,
             adam_lr=adam_lr, max_leapfrog=self.max_leapfrog)
-        new = self._shard_like(ChEESHMC(
+        new = self._rebuild(lambda layout: ChEESHMC(
             self.target, self._positions_of(state), eps, traj_len,
-            seed=seed, metric=self.metric, **self._ctor))
+            seed=seed, metric=self.metric, _layout=layout, **self._ctor))
         new.warmup_trace = trace
         if seed is None:
             new._gen = self._child_generator()
@@ -946,16 +955,19 @@ class ChEESHMC(_KernelSampler):
         contract): the step size and the trajectory length move to whitened
         units through ``sigma_min`` after undoing this sampler's metric;
         ``step_size``/``traj_len`` override. A later :meth:`warmed_up`
-        tunes both anew."""
-        pre = estimate_preconditioner(_unconstrained_positions(self), kind)
+        tunes both anew. On a split state each rank estimates its D-slice
+        of a diagonal metric (``kind="dense"`` raises there) and the new
+        sampler is split as this one is."""
+        pre = _estimate_metric(self, kind)
         old = self.metric.sigma_min() if self.metric is not None else 1.0
-        new = self._shard_like(ChEESHMC(
+        new_min = pre.sigma_min()
+        new = self._rebuild(lambda layout: ChEESHMC(
             self.target, self._positions_of(self._state),
             step_size if step_size is not None
-            else self.step_size * old / pre.sigma_min(),
+            else self.step_size * old / new_min,
             traj_len if traj_len is not None
-            else self.traj_len * old / pre.sigma_min(),
-            seed=seed, metric=pre, **self._ctor))
+            else self.traj_len * old / new_min,
+            seed=seed, metric=pre, _layout=layout, **self._ctor))
         if seed is None:
             new._gen = self._child_generator()
         return new
@@ -972,7 +984,9 @@ class EnsembleSampler(_KernelSampler):
     One ``run`` row is one sweep (both halves). ``steps_per_call`` > 1
     runs K sweeps a block. ``transform``: the move interpolates in the
     unconstrained space; samples and ``positions`` stay natural. Runs on
-    ``device`` (``"cuda"`` by default).
+    ``device`` (``"cuda"`` by default). A state split over a ``"state"``
+    axis runs without a transform (``ops/ensemble.py``), each chain shard
+    holding whole ensembles.
     """
 
     def __init__(self, target, initial_positions,
@@ -994,6 +1008,9 @@ class EnsembleSampler(_KernelSampler):
             steps_per_call=steps_per_call)
         super().__init__(init_fn, step_fn, positions, seed)
 
+    def _takes_state_split(self) -> bool:
+        return not self._transformed()
+
     def _check_shard(self, local, layout) -> None:
         super()._check_shard(local, layout)
         # a shard holds whole ensembles: partners never cross a rank
@@ -1014,7 +1031,8 @@ class EllipticalSliceSampler(_KernelSampler):
     ``prior_mean`` (scalar or ``[D]``) and ``prior_scale`` (a scalar std,
     ``[D]`` stds or the ``[D, D]`` lower Cholesky factor of Sigma), handled
     exactly by the ellipse. Nothing to tune. Runs on ``device`` (``"cuda"``
-    by default).
+    by default). It runs a state split over a ``"state"`` axis
+    (``ops/elliptical.py``).
     """
 
     def __init__(self, loglik, initial_positions, prior_mean=0.0,
@@ -1030,6 +1048,9 @@ class EllipticalSliceSampler(_KernelSampler):
             max_shrink=max_shrink, steps_per_call=steps_per_call)
         super().__init__(init_fn, step_fn, positions, seed)
 
+    def _takes_state_split(self) -> bool:
+        return True
+
 
 class SliceSampler(_KernelSampler):
     """Coordinate-wise slice sampler (Neal 2003): one step is one sweep
@@ -1040,7 +1061,10 @@ class SliceSampler(_KernelSampler):
     the per-coordinate cross-chain std (ddof 0) of the initial positions
     in the kernel's coordinates, 1 where that spread is at most 1e-6. Any
     positive width is exact. ``transform``: the bracket walks the
-    unconstrained space. Runs on ``device`` (``"cuda"`` by default).
+    unconstrained space. Runs on ``device`` (``"cuda"`` by default). A
+    state split over a ``"state"`` axis runs without a transform
+    (``ops/slice.py``: one all-reduce a density evaluation, so a sweep
+    costs about D times the evaluations of one coordinate's update).
     """
 
     def __init__(self, target, initial_positions, width=1.0,
@@ -1064,6 +1088,9 @@ class SliceSampler(_KernelSampler):
             kernel_target, width=width, max_stepouts=max_stepouts,
             max_shrink=max_shrink, steps_per_call=steps_per_call)
         super().__init__(init_fn, step_fn, positions, seed)
+
+    def _takes_state_split(self) -> bool:
+        return not self._transformed()
 
 
 class GibbsSampler(_KernelSampler):
@@ -1135,13 +1162,18 @@ class ParallelTempering(_KernelSampler):
     cube and ``positions`` stay natural. ``"full"`` runs it through Kernel
     8's transformed instance (``targets.cuh:Transformed``).
     ``pallas_interpret`` has no counterpart.
+
+    The plain tier runs a state split over a ``"state"`` axis without a
+    transform (``ops/tempering.py``: the replicas' D, where the JAX
+    package's rule splits their chains); Kernel 8 refuses it, and
+    :meth:`retuned` of a split sampler returns a split one.
     """
 
     def __init__(self, target, initial_positions,
                  betas: Optional[tuple] = None, proposal_std=1.0,
                  n_inner: int = 1, seed: Optional[int] = None,
                  steps_per_call: int = 1, use_pallas=False, transform=None,
-                 validate_dc: bool = True, *, device="cuda"):
+                 validate_dc: bool = True, *, device="cuda", _layout=None):
         self.target = target
         self.transform = transform
         self.betas = tuple(float(b) for b in (
@@ -1167,11 +1199,16 @@ class ParallelTempering(_KernelSampler):
             if validate_dc:
                 validate_dc_forms(kernel_target, positions, need_grad=False)
         # the cold rung, mapped to natural coordinates under a transform
-        super().__init__(init_fn, step_fn, positions, seed, recorded=_cold)
+        super().__init__(init_fn, step_fn, positions, seed, recorded=_cold,
+                         layout=_layout)
+
+    def _takes_state_split(self) -> bool:
+        return not self._ctor["use_pallas"] and not self._transformed()
 
     @property
     def dim(self) -> int:
-        return self._state.positions.shape[1]
+        st = self._state_group
+        return self._state.positions.shape[1] if st is None else st.n_dim
 
     @property
     def n_replicas(self) -> int:
@@ -1191,11 +1228,13 @@ class ParallelTempering(_KernelSampler):
         :func:`~mini_mcmc_torch.ops.tempering.tune_betas` re-spaces from
         this run's swap rates (hot replicas restart from the cold state).
         Without ``seed`` its generator is seeded from this sampler's, so a
-        seeded workflow stays reproducible."""
+        seeded workflow stays reproducible. A split sampler's swap rates
+        are the same on every rank, and so is its new ladder; the new
+        sampler is split as this one is."""
         tuned = tune_betas(self.betas, self.swap_acceptance, n_temps=n_temps)
-        new = self._shard_like(ParallelTempering(
+        new = self._rebuild(lambda layout: ParallelTempering(
             self.target, self._positions_of(self._state), betas=tuned,
-            seed=seed, **self._ctor))
+            seed=seed, _layout=layout, **self._ctor))
         if seed is None:
             new._gen = self._child_generator()
         return new

@@ -314,8 +314,9 @@ def _error(fn):
 
 def _refusing_samplers():
     """Every sampler and tier that refuses a split D, at D = 4, 16 chains
-    (tempering and Gibbs at their own D); the split samplers' own refusals
-    are ``torch_state_mesh_sampler_cases.py``'s."""
+    (Gibbs at its own D); the split samplers' own refusals are
+    ``torch_state_mesh_sampler_cases.py``'s and
+    ``torch_state_mesh_lockstep_cases.py``'s."""
     sn = mt.standard_normal()
     x = mt.init_det(16, 4, **CPU)
     return {
@@ -326,11 +327,8 @@ def _refusing_samplers():
             mt.gaussian_mixture_conditional(-2, 1, 3, 1.5, 0.5),
             torch.zeros(16, 2), **CPU),
         "tempering": lambda: mt.ParallelTempering(
-            sn, x, betas=mt.geometric_betas(4, 0.1), **CPU),
-        "chees": lambda: mt.ChEESHMC(sn, x, 0.1, **CPU),
-        "ensemble": lambda: mt.EnsembleSampler(sn, x, **CPU),
-        "slice": lambda: mt.SliceSampler(sn, x, **CPU),
-        "elliptical": lambda: mt.EllipticalSliceSampler(sn, x, **CPU),
+            sn, x, betas=mt.geometric_betas(4, 0.1), use_pallas="full",
+            **CPU),
     }
 
 
